@@ -1,44 +1,68 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on an NVIDIA H100.
+"""Drive the PyTorch port's main paths once on an NVIDIA H100.
 
     python3 chip_smoke.py
 
-Phases, one line each (any failure is an uncaught exception and a non-zero
-exit):
+Phases (any failure is an uncaught exception and a non-zero exit):
   1. device: torch, capability (must be (9, 0)), nvidia-smi name and power
      limit;
   2. build: nvcc builds the CUDA kernels from ``trackiellm_tpu_torch/csrc``;
   3. kernels: each CUDA kernel against its plain PyTorch version at the
-     main path's shapes (W4A8 at M in {1, 8, 64, 256, 512} on the five
-     Mistral-7B projections; flash attention in five variants at H=32,
-     Hk=8, D=128, S in {256, 512}, bf16 and f32), with error, tolerance and
-     both times;
-  4. width: Mistral-7B width cut to 2 layers, random Q4 weights from a
-     seed: prefill logits on the card against the port's CPU path;
+     main paths' shapes (W4A8, Q8 and f32-activation Q4 at M in {1, 8, 64,
+     256, 512} on the five Mistral-7B projections; flash attention in five
+     variants at H=32, Hk=8, D=128, S in {256, 512}, bf16 and f32; the
+     fused MLP block at M in {1, 4, 8}, D 4096, H 14336, bf16 and f32,
+     also timed against the unfused path), with error, tolerance and times;
+  4. width: Mistral-7B width cut to 2 layers, random weights from a seed,
+     card against the port's CPU path: Q4 and Q8 prefill logits, and Q4
+     with both opt-in levers through prefill and 8 decode steps;
   5. slice: Mistral-7B (32 layers, max_seq 512, random Q4 weights) behind
-     ``LLMRunner`` answers four requests; both kernels must have launched,
-     greedy text must not depend on the lookahead depth, and every logit
-     vector must be finite.
-The last two lines are the kernels' JSON summary and the result line.
+     ``LLMRunner`` answers four requests on the default routes;
+  6. Q8 slice: the same model with Q8 weights answers three requests;
+  7. opt-in Q4 routes: phase 5's model under ``TRACKIE_Q4_F32A=1`` and
+     ``TRACKIE_FUSED_MLP=1`` answers two requests;
+  8. entry point: a 2-layer Q8 checkpoint round-trips through
+     ``save_checkpoint`` / ``load_checkpoint`` byte for byte, and
+     ``python -m trackiellm_tpu_torch generate`` runs on it in-process.
+Phases 5-8 zero every launch counter just before they drive their path and
+read them just after: the path's kernels must have launched, and the routes
+it does not take must not have. In phases 5-7 greedy text must not depend
+on the lookahead depth, and every logit vector must be finite. The last two lines
+are the kernels' JSON summary and the result line.
 """
 
+import contextlib
+import io
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
 
 SEED = 1234
-MISTRAL_SHAPES = {  # (K, N) of the Q4 projections, group 256
+MISTRAL_SHAPES = {  # (K, N) of the quantized projections, group 256
     "wqkv": (4096, 6144), "wo": (4096, 4096), "w_gu": (4096, 28672),
     "w_down": (14336, 4096), "lm_head": (4096, 32000),
 }
-W4A8_MS = (1, 8, 64, 256, 512)
-W4A8_TOL = 1e-5      # rel L2: identical int dots, f32 folds summed in another order
-FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}  # rel L2; bf16 output rounding
+MATMUL_MS = (1, 8, 64, 256, 512)
+MATMUL_TOL = 1e-5    # rel L2: the same products, f32 sums in another order
+# rel L2; in bf16 one rounding of the output may land on the other side
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+FUSED_MS = (1, 4, 8)
+FUSED_SHAPE = (4096, 14336, 256)  # Mistral-7B D, H, group
+FUSED_TOL = FLASH_TOL
 WIDTH_TOL = 5e-2     # rel L2: W4A8 activation quantization, ~0.5% per matmul
+# rel L2 for the exact-activation routes (Q8, f32a, fused): only the f32
+# sum order differs, yet through the bf16 activations of random weights
+# that alone moves these logits by ~7e-3 (on the CPU, the Q8 products
+# summed per group as the kernel does against dequantize-then-matmul:
+# 7.4e-3).
+EXACT_WIDTH_TOL = 2e-2
+LEVERS = ("TRACKIE_Q4_F32A", "TRACKIE_FUSED_MLP")
 SYSTEM = ("You are Trackie, an assistant for a blind user. Answer in one "
           "or two short sentences and warn about hazards first.")
 CONTEXT = ("Objects: person 2.1 m ahead, bicycle 3.4 m left, door 5 m "
@@ -80,32 +104,44 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def phase_kernels(dev, quant, attention):
+def phase_kernels(dev, quant, attention, fused, llm):
     """Phase 3: every kernel against its plain version, times beside."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    rows = {"q4_matmul_w4a8": [], "flash_attention": []}
+    matmuls = {  # name: (quantize, kernel, plain, label)
+        "q4_matmul_w4a8": (quant.quantize_q4, quant.q4_matmul_w4a8,
+                           quant.q4_matmul_w4a8_ref, "w4a8"),
+        "q8_matmul": (quant.quantize_q8, quant.q8_matmul,
+                      quant.q8_matmul_ref, "q8  "),
+        "q4_matmul_f32a": (quant.quantize_q4, quant.q4_matmul_f32a,
+                           quant.q4_matmul_f32a_ref, "f32a"),
+    }
+    rows = {name: [] for name in (*matmuls, "flash_attention",
+                                  "fused_mlp_q4")}
     for name, (k, n) in MISTRAL_SHAPES.items():
-        w = quant.quantize_q4(torch.randn((k, n), generator=gen, device=dev)
-                              / math.sqrt(k))
-        for m in W4A8_MS:
-            x = torch.randn((m, k), generator=gen, device=dev).to(
-                torch.bfloat16)
-            got = quant.q4_matmul_w4a8(x, w.values, w.scales)
-            ref = quant.q4_matmul_w4a8_ref(x, w.values, w.scales)
-            torch.cuda.synchronize()
-            err = rel_l2(got, ref)
-            abs_err = (got - ref).abs().max().item()
-            ms = time_ms(lambda: quant.q4_matmul_w4a8(x, w.values, w.scales))
-            plain = time_ms(
-                lambda: quant.q4_matmul_w4a8_ref(x, w.values, w.scales))
-            log(f"  w4a8 {name:7s} M={m:3d} K={k} N={n}: rel_l2={err:.3e} "
-                f"(tol {W4A8_TOL:.0e}) max_abs={abs_err:.3e} "
-                f"kernel_ms={ms:.4f} plain_ms={plain:.4f}")
-            if not err < W4A8_TOL:
-                raise AssertionError(f"W4A8 {name} M={m}: rel L2 {err}")
-            rows["q4_matmul_w4a8"].append(
-                dict(case=f"{name} M={m}", err=abs_err, ms=ms, plain=plain))
-            del got, ref
+        w32 = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
+        for kname, (quantize, kernel, plain, label) in matmuls.items():
+            w = quantize(w32)
+            for m in MATMUL_MS:
+                x = torch.randn((m, k), generator=gen, device=dev).to(
+                    torch.bfloat16)
+                got = kernel(x, w.values, w.scales)
+                ref = plain(x, w.values, w.scales)
+                torch.cuda.synchronize()
+                err = rel_l2(got, ref)
+                abs_err = (got - ref).abs().max().item()
+                ms = time_ms(lambda: kernel(x, w.values, w.scales))
+                plain_ms = time_ms(lambda: plain(x, w.values, w.scales))
+                log(f"  {label} {name:7s} M={m:3d} K={k} N={n}: "
+                    f"rel_l2={err:.3e} (tol {MATMUL_TOL:.0e}) max_abs="
+                    f"{abs_err:.3e} kernel_ms={ms:.4f} plain_ms="
+                    f"{plain_ms:.4f}")
+                if not err < MATMUL_TOL:
+                    raise AssertionError(f"{kname} {name} M={m}: rel L2 {err}")
+                rows[kname].append(dict(case=f"{name} M={m}", err=abs_err,
+                                        ms=ms, plain=plain_ms))
+                del got, ref
+            del w
+        del w32
     h, hk, d = 32, 8, 128
     variants = {"causal": {}, "window128": {"window": 128},
                 "softcap50": {"softcap": 50.0},
@@ -136,29 +172,112 @@ def phase_kernels(dev, quant, attention):
                 rows["flash_attention"].append(dict(
                     case=f"{vname} S={s} {str(dtype)[6:]}", err=abs_err,
                     ms=ms, plain=plain))
+    d, hid, grp = FUSED_SHAPE
+    w_gu = quant.quantize_q4(torch.randn((d, 2 * hid), generator=gen,
+                                         device=dev) / math.sqrt(d), grp)
+    w_down = quant.quantize_q4(torch.randn((hid, d), generator=gen,
+                                           device=dev) / math.sqrt(hid), grp)
+    for dtype in (torch.bfloat16, torch.float32):
+        for m in FUSED_MS:
+            x = torch.randn((m, d), generator=gen, device=dev).to(dtype)
+            norm = (1.0 + 0.1 * torch.randn((d,), generator=gen,
+                                            device=dev)).to(dtype)
+            args = (x, norm, w_gu.values, w_gu.scales, w_down.values,
+                    w_down.scales)
+            got = fused.fused_mlp_q4(*args)
+            ref = fused.fused_mlp_ref(x, norm, w_gu, w_down, 1e-5)
+            torch.cuda.synchronize()
+            err = rel_l2(got, ref)
+            abs_err = (got.float() - ref.float()).abs().max().item()
+            ms = time_ms(lambda: fused.fused_mlp_q4(*args))
+            plain = time_ms(
+                lambda: fused.fused_mlp_ref(x, norm, w_gu, w_down, 1e-5))
+            # The unfused block on the default route: W4A8 w_gu, silu * up,
+            # W4A8 w_down, residual, with the levers unset.
+            unfused = time_ms(
+                lambda: llm._mlp_block(x, norm, w_gu, w_down, 1e-5))
+            tol = FUSED_TOL[dtype]
+            log(f"  fused M={m} D={d} H={hid} {str(dtype)[6:]:8s}: "
+                f"rel_l2={err:.3e} (tol {tol:.0e}) max_abs={abs_err:.3e} "
+                f"kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+                f"unfused_ms={unfused:.4f}")
+            if not err < tol:
+                raise AssertionError(f"fused M={m} {dtype}: rel L2 {err}")
+            rows["fused_mlp_q4"].append(dict(
+                case=f"M={m} {str(dtype)[6:]}", err=abs_err, ms=ms,
+                plain=plain, unfused=unfused))
     return rows
 
 
-def phase_width(dev, llm):
-    """Phase 4: Mistral width, 2 layers: card prefill vs the CPU path."""
+def phase_width(dev, llm, quant, fused):
+    """Phase 4: Mistral width, 2 layers, card against the CPU path: Q4 and
+    Q8 prefill; Q4 with both levers through prefill and 8 decode steps."""
     cfg = llm.LLMConfig.mistral_7b()._replace(n_layers=2, max_seq=512,
                                               sliding_window=512)
+    toks = torch.randint(0, 256, (256,),
+                         generator=torch.Generator().manual_seed(SEED))
+    for bits, tol in ((4, WIDTH_TOL), (8, EXACT_WIDTH_TOL)):
+        params = llm.init_params_quantized(
+            torch.Generator(device=dev).manual_seed(SEED), cfg, bits=bits,
+            device=dev)
+        cpu = llm.params_to(params, torch.device("cpu"))
+        for bucket, length in ((64, 50), (256, 200)):
+            lg, _ = llm.prefill(params, cfg, toks[:bucket].to(dev), length,
+                                llm.KVCache.create(cfg, device=dev))
+            lc, _ = llm.prefill(cpu, cfg, toks[:bucket], length,
+                                llm.KVCache.create(cfg))
+            err = rel_l2(lg.cpu(), lc)
+            log(f"  width Q{bits} prefill bucket={bucket}: rel_l2 card vs "
+                f"cpu = {err:.3e} (tol {tol:.0e})")
+            if not (torch.isfinite(lg).all() and err < tol):
+                raise AssertionError(f"width Q{bits} bucket {bucket}: {err}")
+    # params / cpu now hold the Q8 model; the levers run on Q4.
     params = llm.init_params_quantized(
         torch.Generator(device=dev).manual_seed(SEED), cfg, bits=4,
         device=dev)
     cpu = llm.params_to(params, torch.device("cpu"))
-    toks = torch.randint(0, 256, (256,),
-                         generator=torch.Generator().manual_seed(SEED))
-    for bucket, length in ((64, 50), (256, 200)):
-        lg, _ = llm.prefill(params, cfg, toks[:bucket].to(dev), length,
-                            llm.KVCache.create(cfg, device=dev))
-        lc, _ = llm.prefill(cpu, cfg, toks[:bucket], length,
-                            llm.KVCache.create(cfg))
-        err = rel_l2(lg.cpu(), lc)
-        log(f"  width prefill bucket={bucket}: rel_l2 card vs cpu = "
-            f"{err:.3e} (tol {WIDTH_TOL:.0e})")
-        if not (torch.isfinite(lg).all() and err < WIDTH_TOL):
-            raise AssertionError(f"width check bucket {bucket}: {err}")
+    steps = torch.randint(0, cfg.vocab_size, (8,),
+                          generator=torch.Generator().manual_seed(SEED + 1))
+    with levers_on():
+        counts = (quant.q4_matmul_f32a.launches, fused.fused_mlp_q4.launches,
+                  quant.q4_matmul_w4a8.launches)
+        lg, cg = llm.prefill(params, cfg, toks[:64].to(dev), 50,
+                             llm.KVCache.create(cfg, device=dev))
+        lc, cc = llm.prefill(cpu, cfg, toks[:64], 50, llm.KVCache.create(cfg))
+        errs = [rel_l2(lg.cpu(), lc)]
+        for tok in steps.tolist():
+            lg, cg = llm.decode_step(params, cfg, tok, cg)
+            lc, cc = llm.decode_step(cpu, cfg, tok, cc)
+            if not torch.isfinite(lg).all():
+                raise AssertionError("width levers: non-finite logits")
+            errs.append(rel_l2(lg.cpu(), lc))
+        ran = (quant.q4_matmul_f32a.launches - counts[0],
+               fused.fused_mlp_q4.launches - counts[1],
+               quant.q4_matmul_w4a8.launches - counts[2])
+    log(f"  width Q4 both levers, prefill bucket=64 + 8 decode steps: max "
+        f"rel_l2 card vs cpu = {max(errs):.3e} (tol {EXACT_WIDTH_TOL:.0e});"
+        f" launches f32a={ran[0]} fused={ran[1]} w4a8={ran[2]}")
+    if not max(errs) < EXACT_WIDTH_TOL:
+        raise AssertionError(f"width levers: rel L2 {errs}")
+    if ran[0] == 0 or ran[1] != 8 * cfg.n_layers or ran[2] != 0:
+        raise AssertionError(f"width levers took the wrong routes: {ran}")
+
+
+@contextlib.contextmanager
+def levers_on():
+    """TRACKIE_Q4_F32A=1 and TRACKIE_FUSED_MLP=1 inside the block; the
+    environment is restored after, whatever happened."""
+    saved = {name: os.environ.get(name) for name in LEVERS}
+    try:
+        for name in LEVERS:
+            os.environ[name] = "1"
+        yield
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
 
 
 class LogitWatch:
@@ -213,17 +332,43 @@ def request(runner, prompt: str, tag: str) -> str:
     return text
 
 
-def phase_slice(dev, llm, runner_mod, tokenizer_mod, quant, attention):
-    """Phase 5: the port's main path at Mistral-7B width."""
-    cfg = llm.LLMConfig.mistral_7b()._replace(max_seq=512,
-                                              sliding_window=512)
+def _flat(tree, prefix=""):
+    """(path, tensor) for every tensor of a param tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat(v, f"{prefix}.{k}")
+    elif isinstance(tree, tuple):  # QuantizedLinear
+        yield from _flat(tree.values, prefix + ".values")
+        yield from _flat(tree.scales, prefix + ".scales")
+    else:
+        yield prefix, tree
+
+
+def param_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for _, t in _flat(tree))
+
+
+def build_model(dev, llm, cfg, bits: int):
+    """Random quantized params (group 256) from the seed, on the card."""
     t0 = time.perf_counter()
     params = llm.init_params_quantized(
-        torch.Generator(device=dev).manual_seed(SEED), cfg, bits=4,
+        torch.Generator(device=dev).manual_seed(SEED), cfg, bits=bits,
         device=dev)
     torch.cuda.synchronize()
-    log(f"  params: 32 layers Q4 in {time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card")
+    log(f"  params: {cfg.n_layers} layers Q{bits} in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{param_bytes(params) / 2 ** 30:.2f} GiB on the card")
+    return params
+
+
+def drive(dev, llm, runner_mod, tokenizer_mod, params, cfg, counters,
+          steps: str):
+    """Answer the requests named in ``steps`` behind ``LLMRunner``: (a) a
+    short prompt (bucket 64), (b) the cortex prompt (bucket 512), (c) a
+    ``chat()`` follow-up (extend), (d) the cortex prompt rebuilt (prefix
+    reuse) at temperature 0.7; then greedy (a) again at lookahead 4 and 1.
+    Every counter is zeroed just before and read just after; returns the
+    counts."""
     tok = tokenizer_mod.ByteTokenizer(cfg.vocab_size)
     gen = runner_mod.GenerationConfig(max_tokens=96, temperature=0.0,
                                       speculative=False)
@@ -238,26 +383,31 @@ def phase_slice(dev, llm, runner_mod, tokenizer_mod, quant, attention):
         raise AssertionError(f"cortex prompt is {n_b} tokens, not 200-400")
     runner.generate(prompt_a)  # warm-up: allocator, cuBLAS, first launches
 
-    quant.q4_matmul_w4a8.launches = 0
-    attention.flash_attention.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     watch = LogitWatch(llm)
     try:
-        request(runner, prompt_a, "a (short, bucket 64)")
-        request(runner, prompt_b, f"b (cortex, {n_b} tokens, bucket "
-                f"{runner_mod._bucket_for(n_b, runner_mod.PREFILL_BUCKETS)})")
-        t0 = time.perf_counter()
-        reply = runner.chat("And what about the bicycle?")
-        torch.cuda.synchronize()
-        n_c = len(runner.generated_ids)
-        log(f"  request c (chat follow-up, extend): reply_ms="
-            f"{(time.perf_counter() - t0) * 1e3:.2f} generated_tokens={n_c}"
-            f" text_bytes={len(reply.encode())}")
-        if n_c == 0:
-            raise AssertionError("the chat follow-up generated nothing")
-        runner.gen.temperature = 0.7
-        request(runner, prompt_d, "d (cortex rebuilt, prefix reuse, "
-                "temperature 0.7)")
-        runner.gen.temperature = 0.0
+        if "a" in steps:
+            request(runner, prompt_a, "a (short, bucket 64)")
+        if "b" in steps:
+            bucket = runner_mod._bucket_for(n_b, runner_mod.PREFILL_BUCKETS)
+            request(runner, prompt_b,
+                    f"b (cortex, {n_b} tokens, bucket {bucket})")
+        if "c" in steps:
+            t0 = time.perf_counter()
+            reply = runner.chat("And what about the bicycle?")
+            torch.cuda.synchronize()
+            n_c = len(runner.generated_ids)
+            log(f"  request c (chat follow-up, extend): reply_ms="
+                f"{(time.perf_counter() - t0) * 1e3:.2f} generated_tokens="
+                f"{n_c} text_bytes={len(reply.encode())}")
+            if n_c == 0:
+                raise AssertionError("the chat follow-up generated nothing")
+        if "d" in steps:
+            runner.gen.temperature = 0.7
+            request(runner, prompt_d, "d (cortex rebuilt, prefix reuse, "
+                    "temperature 0.7)")
+            runner.gen.temperature = 0.0
         text_k4 = runner.generate(prompt_a)
         ids_k4 = runner.generated_ids
         serial = runner_mod.LLMRunner(
@@ -268,10 +418,8 @@ def phase_slice(dev, llm, runner_mod, tokenizer_mod, quant, attention):
         ids_k1 = serial.generated_ids
     finally:
         n_logits = watch.close()
-    launches = {"q4_matmul_w4a8": quant.q4_matmul_w4a8.launches,
-                "flash_attention": attention.flash_attention.launches}
-    log(f"  launches during the slice: {launches}; finite logit vectors: "
-        f"{n_logits}")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"  launches: {launches}; finite logit vectors: {n_logits}")
     # Random weights over a 32000-id vocab rarely pick a byte id (< 256),
     # so the text can be short: the token ids are compared as well.
     if text_k4.encode() != text_k1.encode() or ids_k4 != ids_k1:
@@ -280,10 +428,105 @@ def phase_slice(dev, llm, runner_mod, tokenizer_mod, quant, attention):
         raise AssertionError("request a generated nothing")
     log(f"  lookahead 4 == lookahead 1: {len(ids_k4)} token ids and "
         f"{len(text_k4.encode())} text bytes identical")
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"{name} never launched on the main path")
     return launches
+
+
+def expect_routes(launches, ran, idle, phase: str) -> None:
+    """The kernels in ``ran`` launched on this path; those in ``idle``
+    (routes it does not take) did not."""
+    for name in ran:
+        if launches[name] == 0:
+            raise AssertionError(f"{phase}: {name} never launched")
+    for name in idle:
+        if launches[name] != 0:
+            raise AssertionError(f"{phase}: {name} launched "
+                                 f"{launches[name]} times off its route")
+
+
+def spm_spec(vocab_size: int) -> dict:
+    """A SentencePiece tokenizer spec, as the JAX package's converter stores
+    one in a checkpoint's metadata: llama's specials, the 256 byte-fallback
+    pieces, then word pieces, so every id the model draws prints text."""
+    pieces = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    words = ["\u2581"] + [chr(c) for c in range(ord("a"), ord("z") + 1)]
+    words += ["\u2581" + chr(c) for c in range(ord("a"), ord("z") + 1)]
+    words += [f"\u2581w{i}" for i in range(vocab_size - len(pieces)
+                                           - len(words))]
+    return {"model": "spm", "tokens": pieces + words,
+            "scores": [0.0] * len(pieces) + [-float(i)
+                                             for i in range(len(words))],
+            "token_types": [2, 3, 3] + [6] * 256 + [1] * len(words),
+            "pad_id": 0, "add_space_prefix": True}
+
+
+def phase_entry(dev, llm, checkpoint, cli, counters):
+    """Phase 8: a 2-layer Mistral-width Q8 checkpoint through the port's
+    writer and reader, then the ``generate`` command on it, in-process."""
+    cfg = llm.LLMConfig.mistral_7b()._replace(n_layers=2, max_seq=512,
+                                              sliding_window=512)
+    params = build_model(dev, llm, cfg, 8)
+    meta = {"source": "chip_smoke.py", "bits": 8,
+            "tokenizer_spec": spm_spec(cfg.vocab_size)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt:
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(ckpt, params, config=cfg, metadata=meta)
+        t1 = time.perf_counter()
+        loaded, lcfg, lmeta = checkpoint.load_checkpoint(ckpt, device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        size = sum(os.path.getsize(os.path.join(ckpt, f))
+                   for f in os.listdir(ckpt))
+        want, got = dict(_flat(params)), dict(_flat(loaded))
+        if lcfg != cfg or lmeta != meta or want.keys() != got.keys():
+            raise AssertionError("the checkpoint did not round-trip")
+        for name, t in want.items():
+            u = got[name]
+            if (u.dtype != t.dtype or u.device != t.device or not torch.equal(
+                    u.view(torch.uint8), t.view(torch.uint8))):
+                raise AssertionError(f"checkpoint leaf {name} differs")
+        log(f"  checkpoint: {size / 2 ** 30:.2f} GiB on disk, save "
+            f"{t1 - t0:.2f} s, load {t2 - t1:.2f} s, {len(want)} tensors "
+            "byte-equal, config and metadata equal")
+        del loaded, got
+        for fn in counters.values():
+            fn.launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["generate", ckpt, "-p",
+                           "descreva a cena a sua frente", "--max-tokens",
+                           "32"])
+        elapsed = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    text = out.getvalue()
+    log(f"  generate: exit {rc} in {elapsed:.2f} s, printed {len(text)} "
+        f"chars {text[:60]!r}; launches: {launches}")
+    if rc != 0 or not text.strip():
+        raise AssertionError(f"generate exited {rc} and printed {text!r}")
+    expect_routes(launches, ("q8_matmul",), ("q4_matmul_w4a8",), "phase 8")
+
+
+def result_line(kind: str) -> str:
+    """The last line of the run: it used one card, of this kind."""
+    return json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": 1}})
+
+
+# name: (source, TPU kernel it replaces, the case whose times the JSON line
+# carries, the phase whose path counts its launches)
+KERNELS = {
+    "q4_matmul_w4a8": ("trackiellm_tpu_torch/csrc/q4_w4a8.cu",
+                       "trackiellm_tpu/ops/quant.py:662", "w_gu M=1", 5),
+    "flash_attention": ("trackiellm_tpu_torch/csrc/flash_attn.cu",
+                        "trackiellm_tpu/ops/attention.py:176",
+                        "causal S=512 bfloat16", 5),
+    "q8_matmul": ("trackiellm_tpu_torch/csrc/q8_matmul.cu",
+                  "trackiellm_tpu/ops/quant.py:184", "w_gu M=1", 6),
+    "q4_matmul_f32a": ("trackiellm_tpu_torch/csrc/q4_f32a.cu",
+                       "trackiellm_tpu/ops/quant.py:272", "w_gu M=1", 7),
+    "fused_mlp_q4": ("trackiellm_tpu_torch/csrc/fused_mlp_q4.cu",
+                     "trackiellm_tpu/ops/fused.py:144", "M=1 bfloat16", 7),
+}
 
 
 def main() -> int:
@@ -300,12 +543,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    for name in LEVERS:  # phases 3-6 and 8 run the default routes
+        os.environ.pop(name, None)
 
+    from trackiellm_tpu_torch import __main__ as cli
     from trackiellm_tpu_torch.llm import runner as runner_mod
     from trackiellm_tpu_torch.llm import tokenizer as tokenizer_mod
-    from trackiellm_tpu_torch.models import llm
-    from trackiellm_tpu_torch.ops import _build, attention, quant
+    from trackiellm_tpu_torch.models import checkpoint, llm
+    from trackiellm_tpu_torch.ops import _build, attention, fused, quant
 
+    counters = {"q4_matmul_w4a8": quant.q4_matmul_w4a8,
+                "flash_attention": attention.flash_attention,
+                "q8_matmul": quant.q8_matmul,
+                "q4_matmul_f32a": quant.q4_matmul_f32a,
+                "fused_mlp_q4": fused.fused_mlp_q4}
     t0 = time.perf_counter()
     path = _build.build()
     _build.library()
@@ -313,33 +564,51 @@ def main() -> int:
         f"{path.relative_to(_build.BUILD_ROOT.parent.parent)}")
 
     log("phase 3 kernels vs plain versions (card, L2 flushed per call):")
-    rows = phase_kernels(dev, quant, attention)
+    rows = phase_kernels(dev, quant, attention, fused, llm)
     log("phase 4 width check (Mistral-7B width, 2 layers):")
-    phase_width(dev, llm)
+    phase_width(dev, llm, quant, fused)
+    slice_args = (dev, llm, runner_mod, tokenizer_mod)
+    cfg = llm.LLMConfig.mistral_7b()._replace(max_seq=512,
+                                              sliding_window=512)
+    launches = {}
     log("phase 5 slice (Mistral-7B, 32 layers, Q4, max_seq 512):")
-    launches = phase_slice(dev, llm, runner_mod, tokenizer_mod, quant,
-                           attention)
+    params4 = build_model(dev, llm, cfg, 4)
+    launches[5] = drive(*slice_args, params4, cfg, counters, "abcd")
+    expect_routes(launches[5], ("q4_matmul_w4a8", "flash_attention"),
+                  ("q8_matmul", "q4_matmul_f32a", "fused_mlp_q4"), "phase 5")
+    log("phase 6 Q8 slice (Mistral-7B, 32 layers, Q8, max_seq 512):")
+    params8 = build_model(dev, llm, cfg, 8)
+    launches[6] = drive(*slice_args, params8, cfg, counters, "abc")
+    expect_routes(launches[6], ("q8_matmul", "flash_attention"),
+                  ("q4_matmul_w4a8", "q4_matmul_f32a", "fused_mlp_q4"),
+                  "phase 6")
+    del params8
+    log("phase 7 opt-in Q4 routes (phase 5's model, TRACKIE_Q4_F32A=1, "
+        "TRACKIE_FUSED_MLP=1):")
+    with levers_on():
+        launches[7] = drive(*slice_args, params4, cfg, counters, "ab")
+    expect_routes(launches[7],
+                  ("q4_matmul_f32a", "fused_mlp_q4", "flash_attention"),
+                  ("q4_matmul_w4a8", "q8_matmul"), "phase 7")
+    del params4
+    log("phase 8 entry point (2-layer Q8 checkpoint, generate):")
+    phase_entry(dev, llm, checkpoint, cli, counters)
 
-    sources = {"q4_matmul_w4a8": ("trackiellm_tpu_torch/csrc/q4_w4a8.cu",
-                                  "trackiellm_tpu/ops/quant.py:662",
-                                  "w_gu M=1"),
-               "flash_attention": ("trackiellm_tpu_torch/csrc/flash_attn.cu",
-                                   "trackiellm_tpu/ops/attention.py:176",
-                                   "causal S=512 bfloat16")}
     kernels = []
-    for name, (src, replaces, headline) in sources.items():
+    for name, (src, replaces, headline, phase) in KERNELS.items():
         head = next(r for r in rows[name] if r["case"] == headline)
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": launches[phase][name],
             "max_abs_err": max(r["err"] for r in rows[name]),
             "ms": head["ms"], "plain_ms": head["plain"],
-            "timed_case": headline})
+            "timed_case": headline, "launches_phase": phase}
+        if "unfused" in head:
+            entry["unfused_ms"] = head["unfused"]
+        kernels.append(entry)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    print(result_line(torch.cuda.get_device_name(0)), flush=True)
     return 0
 
 

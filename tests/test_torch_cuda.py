@@ -16,6 +16,7 @@ from trackiellm_tpu_torch.llm.runner import GenerationConfig, LLMRunner
 from trackiellm_tpu_torch.models import llm
 from trackiellm_tpu_torch.ops import _build
 from trackiellm_tpu_torch.ops import attention as ta
+from trackiellm_tpu_torch.ops import fused as tf
 from trackiellm_tpu_torch.ops import quant as tq
 
 pytestmark = pytest.mark.cuda
@@ -83,7 +84,8 @@ def test_w4a8_kernel_is_deterministic(dev):
     assert torch.equal(a, b)
 
 
-def test_quantized_matmul_dispatch_on_the_card(dev):
+def test_quantized_matmul_dispatch_on_the_card(dev, monkeypatch):
+    monkeypatch.delenv("TRACKIE_Q4_F32A", raising=False)
     w = tq.quantize_q4(torch.randn((512, 256), device=dev), 64)
     before = tq.q4_matmul_w4a8.launches
     tq.quantized_matmul(torch.randn((2, 3, 512), device=dev), w)
@@ -92,8 +94,150 @@ def test_quantized_matmul_dispatch_on_the_card(dev):
     assert tq.q4_matmul_w4a8.launches == before + 1  # M > 512: dequant route
     assert big.shape == (513, 256)
     q8 = tq.quantize_q8(torch.randn((512, 256), device=dev), 64)
-    with pytest.raises(NotImplementedError):
-        tq.quantized_matmul(torch.randn((2, 512), device=dev), q8)
+    q8_before = tq.q8_matmul.launches
+    tq.quantized_matmul(torch.randn((2, 512), device=dev), q8)
+    assert tq.q8_matmul.launches == q8_before + 1
+    monkeypatch.setenv("TRACKIE_Q4_F32A", "1")
+    f32a_before = tq.q4_matmul_f32a.launches
+    tq.quantized_matmul(torch.randn((2, 512), device=dev), w)
+    assert tq.q4_matmul_f32a.launches == f32a_before + 1
+    assert tq.q4_matmul_w4a8.launches == before + 1
+
+
+MISTRAL_SHAPES = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
+                  (4096, 32000)]
+F32A_KERNELS = {"q8": (tq.quantize_q8, tq.q8_matmul, tq.q8_matmul_ref),
+                "f32a": (tq.quantize_q4, tq.q4_matmul_f32a,
+                         tq.q4_matmul_f32a_ref)}
+
+
+@pytest.mark.parametrize("kind", sorted(F32A_KERNELS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 3, 8, 16, 64, 200])
+@pytest.mark.parametrize("group", [64, 256])
+def test_f32a_kernels_match_plain(dev, kind, dtype, m, group):
+    quant, kernel, plain = F32A_KERNELS[kind]
+    g = torch.Generator(device=dev).manual_seed(m + group)
+    w = quant(torch.randn((1024, 320), generator=g, device=dev), group)
+    x = torch.randn((m, 1024), generator=g, device=dev).to(dtype)
+    before = kernel.launches
+    got = kernel(x, w.values, w.scales)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (m, 320)
+    assert _rel_l2(got, plain(x, w.values, w.scales)) < 1e-5
+    # Deterministic: the K splits are summed in a fixed order.
+    assert torch.equal(got, kernel(x, w.values, w.scales))
+
+
+@pytest.mark.parametrize("kind", sorted(F32A_KERNELS))
+@pytest.mark.parametrize("k,n", MISTRAL_SHAPES)
+@pytest.mark.parametrize("m", [1, 512])
+def test_f32a_kernels_at_mistral_shapes(dev, kind, k, n, m):
+    quant, kernel, plain = F32A_KERNELS[kind]
+    g = torch.Generator(device=dev).manual_seed(k + n + m)
+    w = quant(torch.randn((k, n), generator=g, device=dev) / k ** 0.5)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    assert _rel_l2(kernel(x, w.values, w.scales),
+                   plain(x, w.values, w.scales)) < 1e-5
+
+
+@pytest.mark.parametrize("kind", sorted(F32A_KERNELS))
+def test_f32a_kernels_refuse_bad_operands(dev, kind):
+    quant, kernel, _ = F32A_KERNELS[kind]
+    w = quant(torch.randn((512, 64), device=dev), 64)
+    with pytest.raises(TypeError):
+        kernel(torch.ones((2, 512), device=dev, dtype=torch.float16),
+               w.values, w.scales)
+    with pytest.raises(ValueError):     # K mismatch
+        kernel(torch.ones((2, 256), device=dev), w.values, w.scales)
+    with pytest.raises(ValueError):     # weights on another device
+        kernel(torch.ones((2, 512), device=dev), w.values.cpu(),
+               w.scales.cpu())
+    with pytest.raises(ValueError):     # N % 4 != 0
+        w6 = quant(torch.randn((512, 6), device=dev), 64)
+        kernel(torch.ones((2, 512), device=dev), w6.values, w6.scales)
+
+
+def _fused_operands(dev, m, d, h, g, dtype, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, d), generator=gen, device=dev).to(dtype)
+    norm = (1.0 + 0.1 * torch.randn((d,), generator=gen, device=dev)).to(dtype)
+    w_gu = tq.quantize_q4(torch.randn((d, 2 * h), generator=gen, device=dev)
+                          / d ** 0.5, g)
+    w_down = tq.quantize_q4(torch.randn((h, d), generator=gen, device=dev)
+                            / h ** 0.5, g)
+    return x, norm, w_gu, w_down
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 4, 8])
+@pytest.mark.parametrize("d,h,g", [(256, 512, 64), (256, 512, 128),
+                                   (4096, 14336, 256)])
+def test_fused_kernel_matches_plain(dev, d, h, g, m, dtype):
+    x, norm, w_gu, w_down = _fused_operands(dev, m, d, h, g, dtype, seed=m)
+    before = tf.fused_mlp_q4.launches
+    got = tf.fused_mlp_q4(x, norm, w_gu.values, w_gu.scales, w_down.values,
+                          w_down.scales)
+    torch.cuda.synchronize()
+    assert tf.fused_mlp_q4.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    ref = tf.fused_mlp_ref(x, norm, w_gu, w_down, 1e-5)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert _rel_l2(got, ref) < tol
+    assert torch.equal(got, tf.fused_mlp_q4(
+        x, norm, w_gu.values, w_gu.scales, w_down.values, w_down.scales))
+
+
+def test_fused_kernel_takes_mixed_norm_dtype(dev):
+    x, norm, w_gu, w_down = _fused_operands(dev, 2, 256, 512, 128,
+                                            torch.float32)
+    norm = norm.to(torch.bfloat16)
+    got = tf.fused_mlp_q4(x, norm, w_gu.values, w_gu.scales, w_down.values,
+                          w_down.scales)
+    assert _rel_l2(got, tf.fused_mlp_ref(x, norm, w_gu, w_down, 1e-5)) < 1e-5
+
+
+def test_fused_kernel_refuses_bad_operands(dev):
+    x, norm, w_gu, w_down = _fused_operands(dev, 2, 256, 512, 128,
+                                            torch.float32)
+    args = (w_gu.values, w_gu.scales, w_down.values, w_down.scales)
+    with pytest.raises(ValueError):     # M > 8
+        tf.fused_mlp_q4(x.repeat(5, 1), norm, *args)
+    with pytest.raises(TypeError):
+        tf.fused_mlp_q4(x.half(), norm, *args)
+    with pytest.raises(ValueError):     # D mismatch
+        tf.fused_mlp_q4(x[:, :128], norm[:128], *args)
+    with pytest.raises(ValueError):     # weights on another device
+        tf.fused_mlp_q4(x, norm, w_gu.values.cpu(), w_gu.scales.cpu(),
+                        w_down.values.cpu(), w_down.scales.cpu())
+
+
+def test_tiny_model_with_both_levers_on_the_card(dev, monkeypatch):
+    """TRACKIE_Q4_F32A=1 and TRACKIE_FUSED_MLP=1: prefill takes the f32a
+    kernel, decode the fused block; the logits follow the CPU path."""
+    monkeypatch.setenv("TRACKIE_Q4_F32A", "1")
+    monkeypatch.setenv("TRACKIE_FUSED_MLP", "1")
+    cfg = llm.LLMConfig.tiny()._replace(max_seq=512, sliding_window=512)
+    p_gpu = llm.init_params_quantized(
+        torch.Generator(device=dev).manual_seed(1), cfg, group=128,
+        dtype=torch.float32, device=dev)
+    p_cpu = llm.params_to(p_gpu, torch.device("cpu"))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 256, 64))
+    counts = (tq.q4_matmul_f32a.launches, tf.fused_mlp_q4.launches,
+              tq.q4_matmul_w4a8.launches)
+    lg, cg = llm.prefill(p_gpu, cfg, toks.to(dev), 50,
+                         llm.KVCache.create(cfg, torch.float32, device=dev))
+    lc, cc = llm.prefill(p_cpu, cfg, toks, 50,
+                         llm.KVCache.create(cfg, torch.float32))
+    assert _rel_l2(lg.cpu(), lc) < 1e-4
+    for tok in (5, 77, 300):
+        lg, cg = llm.decode_step(p_gpu, cfg, tok, cg)
+        lc, cc = llm.decode_step(p_cpu, cfg, tok, cc)
+        assert _rel_l2(lg.cpu(), lc) < 1e-4
+    assert tq.q4_matmul_f32a.launches > counts[0]
+    assert tf.fused_mlp_q4.launches == counts[1] + 3 * cfg.n_layers
+    assert tq.q4_matmul_w4a8.launches == counts[2]
 
 
 def test_tiny_model_on_the_card_matches_cpu(dev):
@@ -135,6 +279,16 @@ def test_wrappers_raise_without_a_kernel_library(dev, monkeypatch, tmp_path):
     with pytest.raises(_build.KernelBuildError):
         ta.flash_attention(q, q, q)
     w = tq.quantize_q4(torch.ones((512, 64), device=dev))
+    x = torch.ones((1, 512), device=dev)
     with pytest.raises(_build.KernelBuildError):
-        tq.q4_matmul_w4a8(torch.ones((1, 512), device=dev), w.values,
-                          w.scales)
+        tq.q4_matmul_w4a8(x, w.values, w.scales)
+    with pytest.raises(_build.KernelBuildError):
+        tq.q4_matmul_f32a(x, w.values, w.scales)
+    w8 = tq.quantize_q8(torch.ones((512, 64), device=dev))
+    with pytest.raises(_build.KernelBuildError):
+        tq.q8_matmul(x, w8.values, w8.scales)
+    w_gu = tq.quantize_q4(torch.ones((512, 512), device=dev), 64)
+    w_down = tq.quantize_q4(torch.ones((256, 512), device=dev), 64)
+    with pytest.raises(_build.KernelBuildError):
+        tf.fused_mlp_q4(x, torch.ones((512,), device=dev), w_gu.values,
+                        w_gu.scales, w_down.values, w_down.scales)

@@ -1,7 +1,7 @@
 """Parity of trackiellm_tpu_torch.models.llm with trackiellm_tpu.models.llm.
 
-LLMConfig.tiny() in f32 with Q4 weights at group 64 (group 256 does not
-divide tiny's K/2 = 128). The JAX params go through ``params_from_jax``, so
+LLMConfig.tiny() in f32 with Q4 (or Q8) weights at group 64 (group 256 does
+not divide tiny's K/2 = 128). The JAX params go through ``params_from_jax``, so
 both sides run on the same weight bytes. Logits of prefill, extend and
 decode_step agree to 1e-4 abs (f32 sums in another order), the caches agree
 at every written row, and decode_chunk_greedy emits the serial chain.
@@ -42,15 +42,16 @@ def _cfg(window=0):
 _PARAMS = {}
 
 
-def _params(quantized=True):
+def _params(quantized=True, bits=4):
     """JAX params and their bridged port (built once per module)."""
-    if quantized not in _PARAMS:
+    key = (quantized, bits)
+    if key not in _PARAMS:
         cfg, _ = _cfg()
         p = jllm.init_params(jax.random.PRNGKey(3), cfg, dtype=jnp.float32)
         if quantized:
-            p = jllm.quantize_params(p, bits=4, group=64)
-        _PARAMS[quantized] = (p, params_from_jax(p))
-    return _PARAMS[quantized]
+            p = jllm.quantize_params(p, bits=bits, group=64)
+        _PARAMS[key] = (p, params_from_jax(p))
+    return _PARAMS[key]
 
 
 def _tokens(seed, n):
@@ -110,6 +111,34 @@ def test_extend_and_decode_match(attn_len, window):
                                    atol=ATOL)
         assert tc.length == int(jc.length)
         _assert_cache_rows(jc, tc, tc.length)
+
+
+@pytest.mark.parametrize("window", [0, 24])
+def test_q8_model_matches(window):
+    """A Q8 model (``quantize_params(bits=8, group=64)``) bridges byte for
+    byte, and its prefill, extend and decode_step logits match."""
+    jp, tp = _params(bits=8)
+    for name in ("wqkv", "wo", "w_gu", "w_down"):
+        tw, jw = tp["layers"][name], jp["layers"][name]
+        assert tw.values.dtype == torch.int8
+        np.testing.assert_array_equal(tw.values.numpy(), np.asarray(jw.values))
+        np.testing.assert_array_equal(tw.scales.numpy(), np.asarray(jw.scales))
+    assert tp["lm_head"].values.dtype == torch.int8
+    jcfg, tcfg = _cfg(window)
+    jl, jc, tl, tc = _prefill_both(jp, tp, jcfg, tcfg, _tokens(8, 64), 33)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=ATOL)
+    chunk = _tokens(9, 16)
+    jl, jc = jllm.extend(jp, jcfg, jnp.asarray(chunk), jnp.int32(9), jc)
+    tl, tc = tllm.extend(tp, tcfg, torch.from_numpy(chunk.astype(np.int64)),
+                         9, tc)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=ATOL)
+    for tok in (3, 301):
+        jl, jc = jllm.decode_step(jp, jcfg, jnp.int32(tok), jc)
+        tl, tc = tllm.decode_step(tp, tcfg, tok, tc)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
+                                   atol=ATOL)
+    assert tc.length == int(jc.length) == 33 + 9 + 2
+    _assert_cache_rows(jc, tc, tc.length)
 
 
 def test_embed_tokens_matches():

@@ -2,9 +2,13 @@
 
 Inputs are made with numpy from a seed and fed to the JAX function and to
 its port. Layout functions (quantize, dequantize) must agree bit for bit;
-matmuls to 1e-5 relative (f32 sums taken in another order). The W4A8 plain
-version is held against the Pallas kernel itself, run in interpret mode.
+matmuls to 1e-5 relative (f32 sums taken in another order). Each kernel's
+plain version (W4A8, Q8, f32-activation Q4) is held against its Pallas
+kernel itself, run in interpret mode, and the dispatcher's routing table is
+pinned with recorders in place of the kernels.
 """
+
+import itertools
 
 import numpy as np
 import pytest
@@ -125,8 +129,8 @@ def test_w4a8_plan(m, expect_bm):
     cover every group exactly once, and fill the card at decode."""
     for k, n in [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
                  (4096, 32000)]:
-        bm, splits, per_split = tq._w4a8_plan(m, k, n, 256)
         ngh = k // 2 // 256
+        bm, splits, per_split = tq._split_k_plan(m, n, ngh)
         assert bm == expect_bm
         assert 1 <= splits <= ngh
         assert (splits - 1) * per_split < ngh <= splits * per_split
@@ -146,3 +150,121 @@ def test_dispatch_rules():
     with pytest.raises(TypeError):
         tq.q4_matmul_w4a8(torch.ones((2, 128)), torch.zeros((64, 8),
                           dtype=torch.int8), torch.ones((2, 8)))
+
+
+# --- the f32-activation kernels: Q8 and Q4 under TRACKIE_Q4_F32A ------------
+
+F32A_CASES = list(itertools.product([64, 128], [np.float32, "bfloat16"],
+                                    [1, 8, 32]))
+
+
+def _x_both(seed, m, k, dtype):
+    """The same activations for both packages: f32, or f32 values rounded
+    to bf16 on the torch side and handed to JAX as bf16."""
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (m, k)).astype(np.float32))
+    if dtype == "bfloat16":
+        x = x.to(torch.bfloat16)
+        return x, jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+    return x, jnp.asarray(x.numpy())
+
+
+@pytest.mark.parametrize("group,dtype,m", F32A_CASES)
+def test_q8_ref_matches_pallas_interpret_and_xla(group, dtype, m):
+    k, n = 512, 256
+    w = _w(11 * m + group, k, n)
+    tx, jx = _x_both(m + group, m, k, dtype)
+    jw = jq.quantize_q8(jnp.asarray(w), group)
+    tw = tq.quantize_q8(torch.from_numpy(w), group)
+    out = tq.q8_matmul_ref(tx, tw.values, tw.scales)
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+    kernel = np.asarray(jq.q8_matmul_pallas(jx, jw.values, jw.scales,
+                                            tile_n=128, tile_k=256,
+                                            interpret=True))
+    assert _rel_l2(out.numpy(), kernel) < 1e-5
+    assert _rel_l2(out.numpy(), np.asarray(jq.quantized_matmul_xla(jx, jw))
+                   ) < 1e-5
+    # The CPU wrapper takes the plain version, and only because the
+    # tensor is on the CPU.
+    np.testing.assert_array_equal(
+        tq.q8_matmul(tx, tw.values, tw.scales).numpy(), out.numpy())
+
+
+@pytest.mark.parametrize("group,dtype,m", F32A_CASES)
+def test_f32a_ref_matches_pallas_interpret_and_xla(group, dtype, m):
+    k, n = 1024, 256
+    w = _w(13 * m + group, k, n)
+    tx, jx = _x_both(m + 2 * group, m, k, dtype)
+    jw = jq.quantize_q4(jnp.asarray(w), group)
+    tw = tq.quantize_q4(torch.from_numpy(w), group)
+    out = tq.q4_matmul_f32a_ref(tx, tw.values, tw.scales)
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+    kernel = np.asarray(jq.q4_matmul_pallas(jx, jw.values, jw.scales,
+                                            tile_n=128, tile_k=256,
+                                            interpret=True))
+    assert _rel_l2(out.numpy(), kernel) < 1e-5
+    assert _rel_l2(out.numpy(), np.asarray(jq.quantized_matmul_xla(jx, jw))
+                   ) < 1e-5
+    np.testing.assert_array_equal(
+        tq.q4_matmul_f32a(tx, tw.values, tw.scales).numpy(), out.numpy())
+
+
+@pytest.mark.parametrize("fn", ["q8_matmul", "q4_matmul_f32a"])
+def test_f32a_wrappers_refuse_bad_operands(fn):
+    bits = 8 if fn == "q8_matmul" else 4
+    quant = tq.quantize_q8 if bits == 8 else tq.quantize_q4
+    w = quant(torch.from_numpy(_w(2, 256, 64)), 64)
+    wrapper = getattr(tq, fn)
+    with pytest.raises(TypeError):      # f16 activations: no kernel takes them
+        wrapper(torch.ones((2, 256), dtype=torch.float16), w.values, w.scales)
+    with pytest.raises(ValueError):     # K mismatch
+        wrapper(torch.ones((2, 128)), w.values, w.scales)
+    with pytest.raises(TypeError):      # the other format's values
+        wrong = (w.values.view(torch.uint8) if bits == 8
+                 else w.values.view(torch.int8))
+        wrapper(torch.ones((2, 256)), wrong, w.scales)
+
+
+def _route(monkeypatch, values_dtype, m, lever):
+    """Call quantized_matmul as if x were on the card, with recorders in
+    place of the three kernels and of the plain path; returns the name of
+    what ran."""
+    calls = []
+
+    def recorder(name):
+        def rec(x, *args):
+            calls.append(name)
+            n = args[0].n if len(args) == 1 else args[0].shape[-1]
+            return torch.zeros((x.shape[0], n))
+        return rec
+
+    monkeypatch.setattr(tq, "is_cuda", lambda t: True)
+    for name in ("q8_matmul", "q4_matmul_f32a", "q4_matmul_w4a8",
+                 "quantized_matmul_ref"):
+        monkeypatch.setattr(tq, name, recorder(name))
+    if lever is None:
+        monkeypatch.delenv("TRACKIE_Q4_F32A", raising=False)
+    else:
+        monkeypatch.setenv("TRACKIE_Q4_F32A", lever)
+    quant = tq.quantize_q8 if values_dtype == torch.int8 else tq.quantize_q4
+    qw = quant(torch.from_numpy(_w(0, 128, 16)), 64)
+    out = tq.quantized_matmul(torch.ones((m, 128)), qw)
+    assert out.shape == (m, 16) and len(calls) == 1
+    return calls[0]
+
+
+@pytest.mark.parametrize("values_dtype,m,lever", list(itertools.product(
+    [torch.int8, torch.uint8], [1, 512, 513], [None, "1", "0"])))
+def test_dispatch_routes_like_the_jax_package(monkeypatch, values_dtype, m,
+                                              lever):
+    """quant.py:562-587 minus the unread levers: M > 512 is the plain path;
+    else Q8 takes its kernel whatever the lever; Q4 takes the f32a kernel
+    under TRACKIE_Q4_F32A=1 and the W4A8 kernel otherwise."""
+    got = _route(monkeypatch, values_dtype, m, lever)
+    if m > tq.KERNEL_MAX_M:
+        want = "quantized_matmul_ref"
+    elif values_dtype == torch.int8:
+        want = "q8_matmul"
+    else:
+        want = "q4_matmul_f32a" if lever == "1" else "q4_matmul_w4a8"
+    assert got == want

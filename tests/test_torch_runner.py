@@ -271,11 +271,14 @@ def test_grammar_modes_raise(kw):
 
 
 def test_port_imports_no_jax():
-    """The port must run where JAX is absent: importing its runner pulls
-    in no JAX module (this test process has JAX loaded already, hence the
+    """The port must run where JAX is absent: importing its runner, fused
+    block, checkpoint reader and CLI pulls in no JAX module (this test process has JAX loaded already, hence the
     subprocess)."""
     code = ("import sys, trackiellm_tpu_torch.llm.runner, "
-            "trackiellm_tpu_torch.models.bridge; "
+            "trackiellm_tpu_torch.models.bridge, "
+            "trackiellm_tpu_torch.ops.fused, "
+            "trackiellm_tpu_torch.models.checkpoint, "
+            "trackiellm_tpu_torch.__main__; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'trackiellm_tpu.llm', "
             "'trackiellm_tpu.ops', 'trackiellm_tpu.models'))); "

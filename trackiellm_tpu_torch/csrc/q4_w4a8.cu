@@ -33,6 +33,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -168,18 +170,6 @@ __global__ void __launch_bounds__(kThreads) q4_w4a8_kernel(
   }
 }
 
-// out[i] = sum over s of partial[s][i], in order of s.
-__global__ void sum_splits_kernel(const float* __restrict__ partial,
-                                  float* __restrict__ out, int splits,
-                                  size_t count) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < count;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int k = 0; k < splits; ++k) s += partial[(size_t)k * count + i];
-    out[i] = s;
-  }
-}
-
 template <int BM, int BN, int TM, int TN>
 void launch(const int8_t* xq, const float* sx, const float* sxsum,
             const uint8_t* packed, const float* scales, float* dst, int M,
@@ -227,13 +217,8 @@ extern "C" int trackie_q4_w4a8(const void* xq, const void* sx,
     default:
       return -1;
   }
-  if (splits > 1) {
-    const size_t count = (size_t)M * N;
-    const int blocks = (int)((count + 255) / 256 < 4096 ? (count + 255) / 256
-                                                        : 4096);
-    sum_splits_kernel<<<blocks, 256, 0, s>>>(static_cast<const float*>(partial),
-                                             static_cast<float*>(out), splits,
-                                             count);
-  }
+  if (splits > 1)
+    launch_sum_splits(static_cast<const float*>(partial),
+                      static_cast<float*>(out), splits, (size_t)M * N, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,9 @@
 """The JAX package's params as this package's params, byte for byte.
 
 ``params_from_jax`` walks a pytree as the JAX package builds it (dicts,
-``QuantizedLinear`` named tuples, arrays) and returns the same tree with
-torch tensors: uint8 packed Q4 values, int8 Q8 values and f32 scales keep
-their bytes; bf16 arrays go through their uint16 view, because
+lists, ``QuantizedLinear`` named tuples, arrays) and returns the same tree
+with torch tensors: uint8 packed Q4 values, int8 Q8 values and f32 scales
+keep their bytes; bf16 arrays go through their uint16 view, because
 ``torch.from_numpy`` does not take ``ml_dtypes.bfloat16``. Leaves may be
 numpy arrays or anything ``numpy.asarray`` takes (JAX arrays included), so
 this module needs no JAX import.
@@ -37,4 +37,6 @@ def params_from_jax(tree: Any, device: Optional[torch.device] = None) -> Any:
     if hasattr(tree, "values") and hasattr(tree, "scales"):
         return QuantizedLinear(values=array_to_torch(tree.values, device),
                                scales=array_to_torch(tree.scales, device))
+    if isinstance(tree, (list, tuple)):
+        return [params_from_jax(v, device) for v in tree]
     return array_to_torch(tree, device)

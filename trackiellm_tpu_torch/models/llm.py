@@ -20,6 +20,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from trackiellm_tpu_torch.ops import fused
 from trackiellm_tpu_torch.ops.attention import (
     NEG_INF,
     decode_attention,
@@ -289,7 +290,16 @@ def _act_combine(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 
 def _mlp_block(x: torch.Tensor, norm_scale: torch.Tensor, w_gu, w_down,
                eps: float) -> torch.Tensor:
-    """norm -> gate/up -> silu(gate) * up -> down -> + residual."""
+    """norm -> gate/up -> silu(gate) * up -> down -> + residual.
+
+    Small-M Q4 weights take the one-launch fused block (``ops/fused.py``)
+    behind the ``TRACKIE_FUSED_MLP=1`` opt-in, read at each call, under the
+    Mistral subset of the JAX package's condition (``llm.py:764-769``):
+    decode and the lookahead chunk take it, prefill and extend (M > 8) and
+    Q8 weights do not."""
+    if (x.dim() == 2 and fused.use_fused_mlp()
+            and fused._can_fuse(x, w_gu, w_down)):
+        return fused.fused_mlp(x, norm_scale, w_gu, w_down, eps)
     h2 = _rms_norm(x, norm_scale, eps)
     gu = _linear(h2, w_gu).float()
     gate, up = gu.chunk(2, dim=-1)

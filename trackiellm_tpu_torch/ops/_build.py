@@ -1,10 +1,12 @@
 """Build the CUDA kernels with nvcc at first use and load them with ctypes.
 
 All sources under ``csrc/`` compile into one shared library with a plain C
-interface (no PyTorch headers, so the build takes seconds). The library
-lands in ``trackiellm_tpu_torch/_build/<hash>/``, keyed on a hash of the
-sources and flags, so a checkout builds what it needs on its first kernel
-call and reuses it after. A failed build raises with nvcc's stderr.
+interface (no PyTorch headers, so the build takes seconds): one nvcc per
+``*.cu`` file, all started together, then one link. The library lands in
+``trackiellm_tpu_torch/_build/<hash>/``, keyed on a hash of the sources,
+the ``*.cuh`` headers they include and the flags, so a checkout builds what
+it needs on its first kernel call and reuses it after. A failed build
+raises with nvcc's stderr.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 _LIB_NAME = "libtrackie_kernels.so"
 
 _P = ctypes.c_void_p
@@ -36,6 +38,15 @@ _SIGNATURES = {
     # q, k, v, sinks, out, H, Hk, S, D, dtype, scale, causal, window,
     # softcap, stream
     "trackie_flash_attn": (_P,) * 5 + (_I,) * 5 + (_F, _I, _I, _F, _P),
+    # x, values, scales, out, partial, M, K, N, G, dtype, BM, splits,
+    # groups_per_split, stream
+    "trackie_q8_matmul": (_P,) * 5 + (_I,) * 8 + (_P,),
+    # x, packed, scales, out, partial, M, K, N, G, dtype, BM, splits,
+    # groups_per_split, stream
+    "trackie_q4_f32a": (_P,) * 5 + (_I,) * 8 + (_P,),
+    # x, norm, gu, gu_scales, down, down_scales, partial, out, M, D, H, G,
+    # x_dtype, norm_dtype, eps, stream
+    "trackie_fused_mlp_q4": (_P,) * 8 + (_I,) * 6 + (_F, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -47,6 +58,11 @@ class KernelBuildError(RuntimeError):
 
 def sources() -> list:
     return sorted(CSRC.glob("*.cu"))
+
+
+def _hashed_files() -> list:
+    """The sources and the headers they include."""
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -63,7 +79,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in _hashed_files():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -73,23 +89,37 @@ def library_path() -> pathlib.Path:
     return BUILD_ROOT / _digest() / _LIB_NAME
 
 
+def _run_all(cmds: list) -> None:
+    """Run the commands side by side; raise with the stderr of each that
+    failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed (exit {proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{err}")
+    if failed:
+        raise KernelBuildError("\n".join(failed))
+
+
 def build() -> pathlib.Path:
     """Compile the sources unless a library with their hash exists."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     # Build beside the target and rename: a reader never sees half a file.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stderr}")
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [str(pathlib.Path(tmp) / f"{src.stem}.o") for src in sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                  for src, obj in zip(sources(), objs)])
+        lib = str(pathlib.Path(tmp) / _LIB_NAME)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
     return out
 
 

@@ -1,0 +1,160 @@
+"""The one-launch Q4 decode MLP block.
+
+Port of ``trackiellm_tpu/ops/fused.py``: ``x + down(silu(gate) * up)`` over
+``rmsnorm(x)`` for small-M Q4 weights, behind the ``TRACKIE_FUSED_MLP=1``
+opt-in. ``fused_mlp_q4`` is the hand-written kernel
+(``csrc/fused_mlp_q4.cu``) that replaces ``fused_mlp_q4_pallas``;
+``fused_mlp_ref`` is its plain PyTorch twin with ``fused_mlp_xla``'s
+numerics, which differ from the unfused ``models/llm.py:_mlp_block``: the
+norm stays in f32, and ``silu(gate) * up`` reaches the down product in f32
+without a cast to x's dtype.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+import torch.nn.functional as F
+
+from trackiellm_tpu_torch.ops import _build
+from trackiellm_tpu_torch.ops.backend import is_cuda
+from trackiellm_tpu_torch.ops.quant import (QuantizedLinear,
+                                            quantized_matmul_ref)
+
+# Largest M the fused block takes (``_can_fuse``), and the hidden-pair rows
+# of W_down one block of the kernel owns.
+FUSED_MAX_M = 8
+_PAIR_ROWS = 32
+
+
+def fused_mlp_ref(x: torch.Tensor, norm_scale: torch.Tensor,
+                  w_gu: QuantizedLinear, w_down: QuantizedLinear,
+                  eps: float) -> torch.Tensor:
+    """Plain path (``fused_mlp_xla``): x + down(silu(gate) * up) over
+    rmsnorm(x), every intermediate in f32, one cast at the end."""
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    h2 = xf * torch.rsqrt(ms + eps) * norm_scale.float()
+    gate, up = quantized_matmul_ref(h2, w_gu).chunk(2, dim=-1)
+    out = quantized_matmul_ref(F.silu(gate) * up, w_down)
+    return (xf + out).to(x.dtype)
+
+
+def use_fused_mlp() -> bool:
+    """The opt-in gate: ``TRACKIE_FUSED_MLP=1``, read at each call, with the
+    meaning the JAX package gives it at trace time."""
+    return os.environ.get("TRACKIE_FUSED_MLP") == "1"
+
+
+def _can_fuse(x: torch.Tensor, w_gu, w_down) -> bool:
+    """Every gate of the JAX package's ``_can_fuse``, the TPU tiling ones
+    (``g % 128``, ``d % 256``) included, so the port takes the fused route
+    exactly where the JAX package does."""
+    if not isinstance(w_gu, QuantizedLinear) or not isinstance(
+            w_down, QuantizedLinear):
+        return False
+    if w_gu.values.dtype != torch.uint8 or w_down.values.dtype != torch.uint8:
+        return False
+    m, d = x.shape
+    if m > FUSED_MAX_M:
+        return False
+    h = w_gu.values.shape[1] // 2
+    g = d // w_gu.scales.shape[0]
+    if w_down.scales.shape[0] * g != h:
+        return False  # mismatched group sizes
+    if (h // 2) % g != 0 or (d // 2) % g != 0:
+        return False
+    if g % 128 != 0 or d % 256 != 0:
+        return False
+    return True
+
+
+def _check_fused_operands(x, norm_scale, gu_packed, gu_scales, down_packed,
+                          down_scales) -> int:
+    """Validate the fused block's operands; returns the group size."""
+    if x.dim() != 2 or norm_scale.dim() != 1:
+        raise ValueError("fused_mlp_q4 takes x (M, D) and norm_scale (D,)")
+    m, d = x.shape
+    if x.dtype not in (torch.float32, torch.bfloat16) or (
+            norm_scale.dtype not in (torch.float32, torch.bfloat16)):
+        raise TypeError(f"x and norm_scale must be float32 or bfloat16, got "
+                        f"{x.dtype} and {norm_scale.dtype}")
+    if gu_packed.dtype != torch.uint8 or down_packed.dtype != torch.uint8:
+        raise TypeError("packed weights must be uint8")
+    if gu_scales.dtype != torch.float32 or down_scales.dtype != torch.float32:
+        raise TypeError("scales must be float32")
+    if not 1 <= m <= FUSED_MAX_M:
+        raise ValueError(f"the fused block takes 1 <= M <= {FUSED_MAX_M}, "
+                         f"got {m}")
+    two_h = gu_packed.shape[1]
+    h = two_h // 2
+    g = d // gu_scales.shape[0] if gu_scales.shape[0] else 0
+    if (norm_scale.shape[0] != d or gu_packed.shape[0] * 2 != d
+            or gu_scales.shape[1] != two_h or two_h % 2
+            or down_packed.shape != (h // 2, d) or down_scales.shape[1] != d
+            or not g or d % g or down_scales.shape[0] * g != h):
+        raise ValueError(
+            f"shape mismatch: x {tuple(x.shape)}, gu {tuple(gu_packed.shape)}"
+            f" + {tuple(gu_scales.shape)}, down {tuple(down_packed.shape)} + "
+            f"{tuple(down_scales.shape)}")
+    return g
+
+
+def fused_mlp_q4(x: torch.Tensor, norm_scale: torch.Tensor,
+                 gu_packed: torch.Tensor, gu_scales: torch.Tensor,
+                 down_packed: torch.Tensor, down_scales: torch.Tensor,
+                 eps: float = 1e-5) -> torch.Tensor:
+    """One-launch MLP block: x (M, D) -> x + down(silu(gate) * up)
+    (rmsnorm(x)), in x's dtype; gu (D/2, 2H) u8 + (D/G, 2H) f32, down
+    (H/2, D) u8 + (H/G, D) f32.
+
+    Replaces ``trackiellm_tpu/ops/fused.py:fused_mlp_q4_pallas``. A CUDA
+    tensor launches ``csrc/fused_mlp_q4.cu`` (see its header for what
+    bounds it on the H100 and what its design does about that) or raises;
+    a CPU tensor takes :func:`fused_mlp_ref`."""
+    g = _check_fused_operands(x, norm_scale, gu_packed, gu_scales,
+                              down_packed, down_scales)
+    if not is_cuda(x):
+        return fused_mlp_ref(x, norm_scale,
+                             QuantizedLinear(gu_packed, gu_scales),
+                             QuantizedLinear(down_packed, down_scales), eps)
+    operands = (x, norm_scale, gu_packed, gu_scales, down_packed, down_scales)
+    if any(t.device != x.device for t in operands):
+        raise ValueError("every operand must be on x's device")
+    if not all(t.is_contiguous() for t in operands):
+        raise ValueError("every operand must be contiguous")
+    m, d = x.shape
+    h = gu_packed.shape[1] // 2
+    if (h // 2) % _PAIR_ROWS or g % _PAIR_ROWS:
+        raise ValueError(f"the kernel needs H/2 and G to be multiples of "
+                         f"{_PAIR_ROWS} (H={h}, G={g})")
+    partial = torch.empty(((h // 2) // _PAIR_ROWS, m, d), dtype=torch.float32,
+                          device=x.device)
+    out = torch.empty_like(x)
+    status = _build.library().trackie_fused_mlp_q4(
+        x.data_ptr(), norm_scale.data_ptr(), gu_packed.data_ptr(),
+        gu_scales.data_ptr(), down_packed.data_ptr(), down_scales.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), m, d, h, g,
+        0 if x.dtype == torch.float32 else 1,
+        0 if norm_scale.dtype == torch.float32 else 1, eps,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(status, "fused_mlp_q4")
+    fused_mlp_q4.launches += 1
+    return out
+
+
+fused_mlp_q4.launches = 0
+
+
+def fused_mlp(x: torch.Tensor, norm_scale: torch.Tensor,
+              w_gu: QuantizedLinear, w_down: QuantizedLinear,
+              eps: float) -> torch.Tensor:
+    """Drop-in for the norm -> gate/up -> silu * up -> down -> residual
+    block: a CPU tensor takes :func:`fused_mlp_ref`, a CUDA tensor the
+    kernel. Callers gate on :func:`use_fused_mlp` and :func:`_can_fuse`
+    (``models/llm.py:_mlp_block`` does)."""
+    if not is_cuda(x):
+        return fused_mlp_ref(x, norm_scale, w_gu, w_down, eps)
+    return fused_mlp_q4(x, norm_scale, w_gu.values, w_gu.scales,
+                        w_down.values, w_down.scales, eps)

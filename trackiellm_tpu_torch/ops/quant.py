@@ -6,15 +6,18 @@ uint8 (K/2, N), ``packed[r, n]`` holding ``w[r, n] + 8`` in the low nibble
 and ``w[K/2 + r, n]`` in two's complement in the high nibble; scales are f32
 (K/G, N) for both.
 
-``q4_matmul_w4a8`` is the hand-written kernel (``csrc/q4_w4a8.cu``) that
-replaces ``q4_matmul_pallas_i8``; ``q4_matmul_w4a8_ref`` is its plain
-PyTorch twin. ``quantized_matmul`` dispatches as the JAX package does.
+Three hand-written kernels, each beside its plain PyTorch twin (``*_ref``):
+``q4_matmul_w4a8`` (``csrc/q4_w4a8.cu``) replaces ``q4_matmul_pallas_i8``,
+``q8_matmul`` (``csrc/q8_matmul.cu``) replaces ``q8_matmul_pallas`` and
+``q4_matmul_f32a`` (``csrc/q4_f32a.cu``) replaces ``q4_matmul_pallas``.
+``quantized_matmul`` dispatches as the JAX package does.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+import os
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -22,8 +25,8 @@ from trackiellm_tpu_torch.ops import _build
 from trackiellm_tpu_torch.ops.backend import is_cuda
 
 DEFAULT_GROUP = 256
-# Largest M the W4A8 kernel takes inside quantized_matmul; above it the
-# product is dequantize-then-matmul, as the JAX package leaves it to XLA.
+# Largest M the kernels take inside quantized_matmul; above it the product
+# is dequantize-then-matmul, as the JAX package leaves it to XLA.
 KERNEL_MAX_M = 512
 
 
@@ -159,21 +162,21 @@ def q4_matmul_w4a8_ref(x: torch.Tensor, packed: torch.Tensor,
     return part.sum(dim=0)
 
 
-def _w4a8_plan(m: int, k: int, n: int, g: int,
-               sms: int = 132) -> Tuple[int, int, int]:
-    """Tile rows, K splits and groups per split for the W4A8 kernel.
+def _split_k_plan(m: int, n: int, n_groups: int,
+                  sms: int = 132) -> Tuple[int, int, int]:
+    """Tile rows, K splits and groups per split for the kernels that split
+    K by whole groups (``n_groups`` is the count of groups a block walks).
 
     Tiles are 64 columns wide and 4, 16 or 64 rows tall (the smallest that
     covers M, so decode does not multiply work it throws away). When the
     (M, N) tiles alone give fewer than four blocks per SM, K is split by
-    whole groups until they do; the kernel sums the splits in a fixed
+    whole groups until they do; the kernels sum the splits in a fixed
     order, so the result does not depend on the split."""
     bm = 4 if m <= 4 else 16 if m <= 16 else 64
     tiles = math.ceil(n / 64) * math.ceil(m / bm)
-    ngh = k // 2 // g
-    splits = max(1, min(ngh, math.ceil(4 * sms / tiles)))
-    per_split = max(1, ngh // splits)
-    return bm, math.ceil(ngh / per_split), per_split
+    splits = max(1, min(n_groups, math.ceil(4 * sms / tiles)))
+    per_split = max(1, n_groups // splits)
+    return bm, math.ceil(n_groups / per_split), per_split
 
 
 def q4_matmul_w4a8(x: torch.Tensor, packed: torch.Tensor,
@@ -198,7 +201,7 @@ def q4_matmul_w4a8(x: torch.Tensor, packed: torch.Tensor,
         raise ValueError(f"the kernel needs G % 32 == 0 and N % 4 == 0 "
                          f"(G={g}, N={n})")
     xq, sx, sxsum = quantize_activations_q8(x, g)
-    bm, splits, per_split = _w4a8_plan(m, k, n, g)
+    bm, splits, per_split = _split_k_plan(m, n, k // 2 // g)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     partial = (torch.empty((splits, m, n), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)
@@ -217,21 +220,158 @@ def q4_matmul_w4a8(x: torch.Tensor, packed: torch.Tensor,
 q4_matmul_w4a8.launches = 0
 
 
+def _check_f32a_x(x: torch.Tensor) -> None:
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+
+
+def _check_q8_operands(x: torch.Tensor, values: torch.Tensor,
+                       scales: torch.Tensor) -> int:
+    """Validate the Q8 operands; returns the group size."""
+    if x.dim() != 2 or values.dim() != 2 or scales.dim() != 2:
+        raise ValueError("q8_matmul takes x (M, K), values (K, N), "
+                         "scales (K/G, N)")
+    if values.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise TypeError("values must be int8 and scales float32, got "
+                        f"{values.dtype} and {scales.dtype}")
+    _check_f32a_x(x)
+    k, n = values.shape
+    if (x.shape[1] != k or scales.shape[1] != n or scales.shape[0] == 0
+            or k % scales.shape[0]):
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, values "
+                         f"{tuple(values.shape)}, scales "
+                         f"{tuple(scales.shape)}")
+    return k // scales.shape[0]
+
+
+def q8_matmul_ref(x: torch.Tensor, values: torch.Tensor,
+                  scales: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of the Q8 kernel, as ``_q8_kernel`` computes it:
+    per K group, the raw f32 dot of x with the group's int8 rows times the
+    group's (1, N) scale row, summed in f32."""
+    g = _check_q8_operands(x, values, scales)
+    m, k = x.shape
+    n = values.shape[1]
+    ng = k // g
+    xg = x.float().reshape(m, ng, g).transpose(0, 1)          # (ng, M, G)
+    part = torch.bmm(xg, values.float().reshape(ng, g, n))    # (ng, M, N)
+    return (part * scales[:, None, :]).sum(dim=0)
+
+
+def q4_matmul_f32a_ref(x: torch.Tensor, packed: torch.Tensor,
+                       scales: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of the f32-activation Q4 kernel, as ``_q4_kernel``
+    computes it: f32 activations, no activation quantization; per group,
+    ``(x_lo . (q + 8) - 8 * sum(x_lo)) * s_lo + x_hi . (16 q) * s_hi / 16``
+    (the biased low nibble and the high nibble read as 16q)."""
+    g = _check_q4_operands(x, packed, scales)
+    _check_f32a_x(x)
+    m, k = x.shape
+    half, n = packed.shape
+    ngh = half // g
+    p = packed.to(torch.int32)
+    lo = (p & 0xF).float().reshape(ngh, g, n)                           # q + 8
+    hi16 = (((((p >> 4) & 0xF) ^ 8) - 8) * 16).float().reshape(ngh, g, n)
+    xf = x.float()
+    x_lo = xf[:, :half].reshape(m, ngh, g).transpose(0, 1)    # (ngh, M, G)
+    x_hi = xf[:, half:].reshape(m, ngh, g).transpose(0, 1)
+    bias = 8.0 * x_lo.sum(dim=2, keepdim=True)                # (ngh, M, 1)
+    part_lo = (torch.bmm(x_lo, lo) - bias) * scales[:ngh, None, :]
+    part_hi = torch.bmm(x_hi, hi16) * (scales[ngh:, None, :] * (1.0 / 16.0))
+    return (part_lo + part_hi).sum(dim=0)
+
+
+def _launch_split_k(name: str, x: torch.Tensor, values: torch.Tensor,
+                    scales: torch.Tensor, g: int, n_groups: int
+                    ) -> torch.Tensor:
+    """Launch ``trackie_<name>``, an f32-activation kernel that reads x as
+    it lies (f32 or bf16) and splits K by whole groups; returns (M, N) f32."""
+    if not (values.device == x.device == scales.device):
+        raise ValueError("x, values and scales must be on one device")
+    if not (values.is_contiguous() and scales.is_contiguous()):
+        raise ValueError("values and scales must be contiguous")
+    x = x.contiguous()
+    m, k = x.shape
+    n = values.shape[1]
+    if g % 32 or n % 4:
+        raise ValueError(f"the kernel needs G % 32 == 0 and N % 4 == 0 "
+                         f"(G={g}, N={n})")
+    bm, splits, per_split = _split_k_plan(m, n, n_groups)
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    partial: Optional[torch.Tensor] = (
+        torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+        if splits > 1 else None)
+    status = getattr(_build.library(), f"trackie_{name}")(
+        x.data_ptr(), values.data_ptr(), scales.data_ptr(), out.data_ptr(),
+        partial.data_ptr() if partial is not None else None,
+        m, k, n, g, 0 if x.dtype == torch.float32 else 1, bm, splits,
+        per_split, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(status, name)
+    return out
+
+
+def q8_matmul(x: torch.Tensor, values: torch.Tensor,
+              scales: torch.Tensor) -> torch.Tensor:
+    """Q8 matmul: (M, K) f32/bf16 @ int8 (K, N) -> (M, N) f32.
+
+    Replaces ``trackiellm_tpu/ops/quant.py:q8_matmul_pallas``. A CUDA
+    tensor launches ``csrc/q8_matmul.cu`` (see its header for what bounds
+    it on the H100 and what its design does about that) or raises; a CPU
+    tensor takes :func:`q8_matmul_ref`."""
+    g = _check_q8_operands(x, values, scales)
+    if not is_cuda(x):
+        return q8_matmul_ref(x, values, scales)
+    out = _launch_split_k("q8_matmul", x, values, scales, g,
+                          values.shape[0] // g)
+    q8_matmul.launches += 1
+    return out
+
+
+q8_matmul.launches = 0
+
+
+def q4_matmul_f32a(x: torch.Tensor, packed: torch.Tensor,
+                   scales: torch.Tensor) -> torch.Tensor:
+    """Q4 matmul with f32 activations: (M, K) f32/bf16 @ q4 (K, N) ->
+    (M, N) f32.
+
+    Replaces ``trackiellm_tpu/ops/quant.py:q4_matmul_pallas``. A CUDA
+    tensor launches ``csrc/q4_f32a.cu`` (see its header) or raises; a CPU
+    tensor takes :func:`q4_matmul_f32a_ref`."""
+    g = _check_q4_operands(x, packed, scales)
+    _check_f32a_x(x)
+    if not is_cuda(x):
+        return q4_matmul_f32a_ref(x, packed, scales)
+    out = _launch_split_k("q4_f32a", x, packed, scales, g,
+                          packed.shape[0] // g)
+    q4_matmul_f32a.launches += 1
+    return out
+
+
+q4_matmul_f32a.launches = 0
+
+
 def quantized_matmul(x: torch.Tensor, qw: QuantizedLinear) -> torch.Tensor:
     """(..., K) @ quantized (K, N) -> (..., N) f32.
 
-    Same rule as the JAX package: on the device, Q4 with M <= 512 takes the
-    W4A8 kernel and larger M is dequantize-then-matmul; a CPU tensor is
-    dequantize-then-matmul, as the JAX package runs off the TPU. Q8 on the
-    device waits for the ``q8_matmul_pallas`` port."""
+    The JAX package's rule (``trackiellm_tpu/ops/quant.py:562-587``): a CPU
+    tensor is dequantize-then-matmul, as the JAX package runs off the TPU.
+    On the device, M > 512 is dequantize-then-matmul and M <= 512 takes a
+    kernel: Q8 weights :func:`q8_matmul`; Q4 weights :func:`q4_matmul_w4a8`,
+    or :func:`q4_matmul_f32a` when ``TRACKIE_Q4_F32A=1``. That variable is
+    read at each call, with the meaning the JAX package gives it at trace
+    time; it chooses between two kernels and never sends a CUDA tensor to a
+    plain version. The JAX package's other levers (``TRACKIE_PALLAS_MAX_M``,
+    ``TRACKIE_PREFILL_XLA_M``, ``TRACKIE_Q4_WIDE_W``) tune TPU tiles or
+    route to the plain path, and are not read."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if is_cuda(x2) and qw.values.dtype == torch.int8:
-        raise NotImplementedError(
-            "Q8 weights on CUDA: q8_matmul_pallas is not ported yet "
-            "(ROADMAP Queue 2)")
     if not is_cuda(x2) or x2.shape[0] > KERNEL_MAX_M:
         out = quantized_matmul_ref(x2, qw)
+    elif qw.values.dtype == torch.int8:
+        out = q8_matmul(x2, qw.values, qw.scales)
+    elif os.environ.get("TRACKIE_Q4_F32A") == "1":
+        out = q4_matmul_f32a(x2, qw.values, qw.scales)
     else:
         out = q4_matmul_w4a8(x2, qw.values, qw.scales)
     return out.reshape(*lead, qw.n)
