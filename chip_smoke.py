@@ -7,12 +7,15 @@ Phases (any failure is an uncaught exception and a non-zero exit):
   1. device: torch, capability (must be (9, 0)), nvidia-smi name and power
      limit;
   2. build: nvcc builds the CUDA kernels from ``trackiellm_tpu_torch/csrc``;
-  3. kernels: each CUDA kernel against its plain PyTorch version at the
-     main paths' shapes (W4A8, Q8 and f32-activation Q4 at M in {1, 8, 64,
-     256, 512} on the five Mistral-7B projections; flash attention in five
-     variants at H=32, Hk=8, D=128, S in {256, 512}, bf16 and f32; the
-     fused MLP block at M in {1, 4, 8}, D 4096, H 14336, bf16 and f32,
-     also timed against the unfused path), with error, tolerance and times;
+  3. kernels: each of the nine CUDA kernels against its plain PyTorch
+     version at the shapes its path gives it (W4A8, Q8 and f32-activation
+     Q4 at M in {1, 8, 64, 256, 512} and the streaming Q4 at M in {1, 8} on
+     the five Mistral-7B projections, plus one streaming case at other
+     tiles; flash attention in five variants at H=32, Hk=8, D=128, S in
+     {256, 512}, bf16 and f32; the fused MLP block at M in {1, 4, 8}, D
+     4096, H 14336, bf16 and f32, also timed against the unfused path; the
+     stream probe over 512 MiB, grid64 and a 64-call chain_tiny on (8,
+     128)), with error, tolerance and times;
   4. width: Mistral-7B width cut to 2 layers, random weights from a seed,
      card against the port's CPU path: Q4 and Q8 prefill logits, and Q4
      with both opt-in levers through prefill and 8 decode steps;
@@ -23,12 +26,19 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      ``TRACKIE_FUSED_MLP=1`` answers two requests;
   8. entry point: a 2-layer Q8 checkpoint round-trips through
      ``save_checkpoint`` / ``load_checkpoint`` byte for byte, and
-     ``python -m trackiellm_tpu_torch generate`` runs on it in-process.
-Phases 5-8 zero every launch counter just before they drive their path and
+     ``python -m trackiellm_tpu_torch generate`` runs on it in-process;
+  9. diagnostics: the measurement functions of the three
+     ``trackiellm_tpu_torch.tools`` (per-call cost eager and in a CUDA
+     graph, the streaming Q4 tile sweep, graph and op overheads, the 512
+     MiB stream envelope, decode of phase 5's model cut to 32/16/8 layers,
+     greedy chunks), with their numbers as one JSON line.
+Phases 5-9 zero every launch counter just before they drive their path and
 read them just after: the path's kernels must have launched, and the routes
-it does not take must not have. In phases 5-7 greedy text must not depend
-on the lookahead depth, and every logit vector must be finite. The last two lines
-are the kernels' JSON summary and the result line.
+it does not take must not have (no serving path launches the streaming Q4
+or a probe; phase 9 must launch all four). In phases 5-7 greedy text must
+not depend on the lookahead depth, and every logit vector must be finite.
+The last three lines are the card line, the kernels' JSON summary and the
+result line.
 """
 
 import contextlib
@@ -49,6 +59,15 @@ MISTRAL_SHAPES = {  # (K, N) of the quantized projections, group 256
     "w_down": (14336, 4096), "lm_head": (4096, 32000),
 }
 MATMUL_MS = (1, 8, 64, 256, 512)
+STREAM_MS = (1, 8)   # the streaming Q4's decode shapes
+STREAM_ALT = ("wo", 1024, 64)   # one case at non-default (tile_k, tile_n)
+# rel: the stream kernel's sum is exact; the plain f32 sum of 512 MiB is not
+STREAM_TOL = 1e-5
+STREAM_SHAPE = (131072, 4096)   # 512 MiB of uint8, the JAX tool's array
+PROBES = ("stream", "grid64", "chain_tiny")
+# The kernels no serving path launches: phases 5-8 must leave them idle,
+# phase 9 must launch each.
+DIAGNOSTIC = ("q4_matmul_stream", *PROBES)
 MATMUL_TOL = 1e-5    # rel L2: the same products, f32 sums in another order
 # rel L2; in bf16 one rounding of the output may land on the other side
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
@@ -104,43 +123,58 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def phase_kernels(dev, quant, attention, fused, llm):
+def matmul_case(rows, kname: str, what: str, case: str, kernel, plain):
+    """One matmul kernel call against its plain version: rel L2 within
+    MATMUL_TOL, times beside."""
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    err = rel_l2(got, ref)
+    abs_err = (got - ref).abs().max().item()
+    ms, plain_ms = time_ms(kernel), time_ms(plain)
+    log(f"  {what}: rel_l2={err:.3e} (tol {MATMUL_TOL:.0e}) max_abs="
+        f"{abs_err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+    if not err < MATMUL_TOL:
+        raise AssertionError(f"{kname} {case}: rel L2 {err}")
+    rows.append(dict(case=case, err=abs_err, ms=ms, plain=plain_ms))
+
+
+def phase_kernels(dev, quant, attention, fused, llm, diag):
     """Phase 3: every kernel against its plain version, times beside."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    matmuls = {  # name: (quantize, kernel, plain, label)
+    matmuls = {  # name: (quantize, kernel, plain, label, M values)
         "q4_matmul_w4a8": (quant.quantize_q4, quant.q4_matmul_w4a8,
-                           quant.q4_matmul_w4a8_ref, "w4a8"),
+                           quant.q4_matmul_w4a8_ref, "w4a8", MATMUL_MS),
         "q8_matmul": (quant.quantize_q8, quant.q8_matmul,
-                      quant.q8_matmul_ref, "q8  "),
+                      quant.q8_matmul_ref, "q8  ", MATMUL_MS),
         "q4_matmul_f32a": (quant.quantize_q4, quant.q4_matmul_f32a,
-                           quant.q4_matmul_f32a_ref, "f32a"),
+                           quant.q4_matmul_f32a_ref, "f32a", MATMUL_MS),
+        "q4_matmul_stream": (quant.quantize_q4, quant.q4_matmul_stream,
+                             quant.q4_matmul_stream_ref, "strm", STREAM_MS),
     }
     rows = {name: [] for name in (*matmuls, "flash_attention",
-                                  "fused_mlp_q4")}
+                                  "fused_mlp_q4", *PROBES)}
     for name, (k, n) in MISTRAL_SHAPES.items():
         w32 = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
-        for kname, (quantize, kernel, plain, label) in matmuls.items():
+        for kname, (quantize, kernel, plain, label, ms) in matmuls.items():
             w = quantize(w32)
-            for m in MATMUL_MS:
+            args = (w.values, w.scales)
+            for m in ms:
                 x = torch.randn((m, k), generator=gen, device=dev).to(
                     torch.bfloat16)
-                got = kernel(x, w.values, w.scales)
-                ref = plain(x, w.values, w.scales)
-                torch.cuda.synchronize()
-                err = rel_l2(got, ref)
-                abs_err = (got - ref).abs().max().item()
-                ms = time_ms(lambda: kernel(x, w.values, w.scales))
-                plain_ms = time_ms(lambda: plain(x, w.values, w.scales))
-                log(f"  {label} {name:7s} M={m:3d} K={k} N={n}: "
-                    f"rel_l2={err:.3e} (tol {MATMUL_TOL:.0e}) max_abs="
-                    f"{abs_err:.3e} kernel_ms={ms:.4f} plain_ms="
-                    f"{plain_ms:.4f}")
-                if not err < MATMUL_TOL:
-                    raise AssertionError(f"{kname} {name} M={m}: rel L2 {err}")
-                rows[kname].append(dict(case=f"{name} M={m}", err=abs_err,
-                                        ms=ms, plain=plain_ms))
-                del got, ref
-            del w
+                matmul_case(rows[kname], kname,
+                            f"{label} {name:7s} M={m:3d} K={k} N={n}",
+                            f"{name} M={m}", lambda: kernel(x, *args),
+                            lambda: plain(x, *args))
+            if kname == "q4_matmul_stream" and name == STREAM_ALT[0]:
+                _, tile_k, tile_n = STREAM_ALT
+                x = torch.randn((1, k), generator=gen, device=dev).to(
+                    torch.bfloat16)
+                case = f"{name} M=1 tiles=({tile_k},{tile_n})"
+                matmul_case(rows[kname], kname, f"{label} {case}", case,
+                            lambda: kernel(x, *args, tile_n=tile_n,
+                                           tile_k=tile_k),
+                            lambda: plain(x, *args))
+            del w, args
         del w32
     h, hk, d = 32, 8, 128
     variants = {"causal": {}, "window128": {"window": 128},
@@ -206,7 +240,40 @@ def phase_kernels(dev, quant, attention, fused, llm):
             rows["fused_mlp_q4"].append(dict(
                 case=f"M={m} {str(dtype)[6:]}", err=abs_err, ms=ms,
                 plain=plain, unfused=unfused))
+    del w_gu, w_down
+    phase_probes(dev, gen, diag, rows)
     return rows
+
+
+def phase_probes(dev, gen, diag, rows) -> None:
+    """Phase 3, the probes: the stream kernel over 512 MiB (rel tolerance
+    STREAM_TOL), grid64 and a 64-call chain_tiny on (8, 128) (exact)."""
+    x = torch.randn((1, 1), generator=gen, device=dev)
+    w = torch.randint(0, 255, STREAM_SHAPE, generator=gen, device=dev,
+                      dtype=torch.uint8)
+    tile = torch.randn(diag.TILE, generator=gen, device=dev)
+    cases = {  # name: (case, kernel, plain, rel tolerance)
+        "stream": ("512 MiB", lambda: diag.stream(x, w),
+                   lambda: diag.stream_ref(x, w), STREAM_TOL),
+        "grid64": ("(8, 128)", lambda: diag.grid64(tile),
+                   lambda: diag.grid64_ref(tile), 0.0),
+        "chain_tiny": (f"{diag.CHAIN} calls (8, 128)",
+                       lambda: diag.chain_tiny(tile),
+                       lambda: diag.chain_tiny_ref(tile), 0.0),
+    }
+    for name, (case, kernel, plain, tol) in cases.items():
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        abs_err = (got - ref).abs().max().item()
+        err = abs_err / ref.abs().max().item()
+        ms, plain_ms = time_ms(kernel), time_ms(plain)
+        log(f"  probe {name:10s} {case}: rel_err={err:.3e} (tol "
+            f"{tol:.0e}) max_abs={abs_err:.3e} kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f}")
+        if not err <= tol:
+            raise AssertionError(f"{name} {case}: rel error {err}")
+        rows[name].append(dict(case=case, err=abs_err, ms=ms,
+                               plain=plain_ms))
 
 
 def phase_width(dev, llm, quant, fused):
@@ -503,7 +570,31 @@ def phase_entry(dev, llm, checkpoint, cli, counters):
         f"chars {text[:60]!r}; launches: {launches}")
     if rc != 0 or not text.strip():
         raise AssertionError(f"generate exited {rc} and printed {text!r}")
-    expect_routes(launches, ("q8_matmul",), ("q4_matmul_w4a8",), "phase 8")
+    expect_routes(launches, ("q8_matmul",), ("q4_matmul_w4a8", *DIAGNOSTIC),
+                  "phase 8")
+
+
+def phase_diagnostics(dev, params, cfg, counters) -> dict:
+    """Phase 9: the three diagnostic tools' measurement functions on the
+    card; phase 5's model (``cfg``'s 32 layers) is cut to 32/16/8 layers by
+    views. Returns the launches; prints the numbers as one JSON line."""
+    from trackiellm_tpu_torch.tools import (diag_envelope, diag_overhead,
+                                            diag_scan_overhead)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = {"overhead": {"tiny_us": diag_overhead.tiny(dev),
+                        **diag_overhead.q4_sweep(dev),
+                        "rmsnorm_us": diag_overhead.rmsnorm(dev)},
+           "scan": diag_scan_overhead.run(dev),
+           "envelope": diag_envelope.envelope(dev),
+           "decode": diag_envelope.decode_composition(params, cfg, dev)}
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"  diagnostics in {time.perf_counter() - t0:.1f} s; launches: "
+        f"{launches}")
+    log(json.dumps({"diagnostics": out}))
+    expect_routes(launches, DIAGNOSTIC, (), "phase 9")
+    return launches
 
 
 def result_line(kind: str) -> str:
@@ -526,6 +617,14 @@ KERNELS = {
                        "trackiellm_tpu/ops/quant.py:272", "w_gu M=1", 7),
     "fused_mlp_q4": ("trackiellm_tpu_torch/csrc/fused_mlp_q4.cu",
                      "trackiellm_tpu/ops/fused.py:144", "M=1 bfloat16", 7),
+    "q4_matmul_stream": ("trackiellm_tpu_torch/csrc/q4_stream.cu",
+                         "trackiellm_tpu/ops/quant.py:389", "w_gu M=1", 9),
+    "stream": ("trackiellm_tpu_torch/csrc/diag_probes.cu",
+               "tools/diag_envelope.py:60", "512 MiB", 9),
+    "grid64": ("trackiellm_tpu_torch/csrc/diag_probes.cu",
+               "tools/diag_scan_overhead.py:70", "(8, 128)", 9),
+    "chain_tiny": ("trackiellm_tpu_torch/csrc/diag_probes.cu",
+                   "tools/diag_overhead.py:101", "64 calls (8, 128)", 9),
 }
 
 
@@ -550,13 +649,16 @@ def main() -> int:
     from trackiellm_tpu_torch.llm import runner as runner_mod
     from trackiellm_tpu_torch.llm import tokenizer as tokenizer_mod
     from trackiellm_tpu_torch.models import checkpoint, llm
-    from trackiellm_tpu_torch.ops import _build, attention, fused, quant
+    from trackiellm_tpu_torch.ops import _build, attention, diag, fused, quant
 
     counters = {"q4_matmul_w4a8": quant.q4_matmul_w4a8,
                 "flash_attention": attention.flash_attention,
                 "q8_matmul": quant.q8_matmul,
                 "q4_matmul_f32a": quant.q4_matmul_f32a,
-                "fused_mlp_q4": fused.fused_mlp_q4}
+                "fused_mlp_q4": fused.fused_mlp_q4,
+                "q4_matmul_stream": quant.q4_matmul_stream,
+                "stream": diag.stream, "grid64": diag.grid64,
+                "chain_tiny": diag.chain_tiny}
     t0 = time.perf_counter()
     path = _build.build()
     _build.library()
@@ -564,7 +666,7 @@ def main() -> int:
         f"{path.relative_to(_build.BUILD_ROOT.parent.parent)}")
 
     log("phase 3 kernels vs plain versions (card, L2 flushed per call):")
-    rows = phase_kernels(dev, quant, attention, fused, llm)
+    rows = phase_kernels(dev, quant, attention, fused, llm, diag)
     log("phase 4 width check (Mistral-7B width, 2 layers):")
     phase_width(dev, llm, quant, fused)
     slice_args = (dev, llm, runner_mod, tokenizer_mod)
@@ -575,13 +677,14 @@ def main() -> int:
     params4 = build_model(dev, llm, cfg, 4)
     launches[5] = drive(*slice_args, params4, cfg, counters, "abcd")
     expect_routes(launches[5], ("q4_matmul_w4a8", "flash_attention"),
-                  ("q8_matmul", "q4_matmul_f32a", "fused_mlp_q4"), "phase 5")
+                  ("q8_matmul", "q4_matmul_f32a", "fused_mlp_q4",
+                   *DIAGNOSTIC), "phase 5")
     log("phase 6 Q8 slice (Mistral-7B, 32 layers, Q8, max_seq 512):")
     params8 = build_model(dev, llm, cfg, 8)
     launches[6] = drive(*slice_args, params8, cfg, counters, "abc")
     expect_routes(launches[6], ("q8_matmul", "flash_attention"),
-                  ("q4_matmul_w4a8", "q4_matmul_f32a", "fused_mlp_q4"),
-                  "phase 6")
+                  ("q4_matmul_w4a8", "q4_matmul_f32a", "fused_mlp_q4",
+                   *DIAGNOSTIC), "phase 6")
     del params8
     log("phase 7 opt-in Q4 routes (phase 5's model, TRACKIE_Q4_F32A=1, "
         "TRACKIE_FUSED_MLP=1):")
@@ -589,10 +692,13 @@ def main() -> int:
         launches[7] = drive(*slice_args, params4, cfg, counters, "ab")
     expect_routes(launches[7],
                   ("q4_matmul_f32a", "fused_mlp_q4", "flash_attention"),
-                  ("q4_matmul_w4a8", "q8_matmul"), "phase 7")
-    del params4
+                  ("q4_matmul_w4a8", "q8_matmul", *DIAGNOSTIC), "phase 7")
     log("phase 8 entry point (2-layer Q8 checkpoint, generate):")
     phase_entry(dev, llm, checkpoint, cli, counters)
+    log("phase 9 diagnostics (the three tools; phase 5's model cut to "
+        "32/16/8 layers):")
+    launches[9] = phase_diagnostics(dev, params4, cfg, counters)
+    del params4
 
     kernels = []
     for name, (src, replaces, headline, phase) in KERNELS.items():

@@ -30,6 +30,46 @@ def test_result_line_says_one_card():
         "platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}}
 
 
+# Every function of the JAX package and its tools that reaches
+# pl.pallas_call, by file and line, and the CUDA source that replaces it.
+TPU_KERNELS = {
+    "q4_matmul_w4a8": ("trackiellm_tpu/ops/quant.py:662", "q4_w4a8.cu",
+                       "def q4_matmul_pallas_i8("),
+    "flash_attention": ("trackiellm_tpu/ops/attention.py:176",
+                        "flash_attn.cu", "def flash_attention("),
+    "q8_matmul": ("trackiellm_tpu/ops/quant.py:184", "q8_matmul.cu",
+                  "def q8_matmul_pallas("),
+    "q4_matmul_f32a": ("trackiellm_tpu/ops/quant.py:272", "q4_f32a.cu",
+                       "def q4_matmul_pallas("),
+    "fused_mlp_q4": ("trackiellm_tpu/ops/fused.py:144", "fused_mlp_q4.cu",
+                     "def fused_mlp_q4_pallas("),
+    "q4_matmul_stream": ("trackiellm_tpu/ops/quant.py:389", "q4_stream.cu",
+                         "def q4_matmul_pallas_v2("),
+    "stream": ("tools/diag_envelope.py:60", "diag_probes.cu",
+               "def stream_pallas("),
+    "grid64": ("tools/diag_scan_overhead.py:70", "diag_probes.cu",
+               "    def grid64("),
+    "chain_tiny": ("tools/diag_overhead.py:101", "diag_probes.cu",
+                   "    def chain_tiny("),
+}
+
+
+def test_kernels_line_lists_all_nine():
+    """KERNELS names every TPU kernel of the repo once: its source exists,
+    and ``replaces`` points at the line that defines the TPU function."""
+    kernels = _load().KERNELS
+    assert len(kernels) == 9 and kernels.keys() == TPU_KERNELS.keys()
+    for name, (src, replaces, _, phase) in kernels.items():
+        want, cu, definition = TPU_KERNELS[name]
+        assert replaces == want
+        assert src == f"trackiellm_tpu_torch/csrc/{cu}"
+        assert os.path.isfile(os.path.join(ROOT, src))
+        path, line = replaces.split(":")
+        with open(os.path.join(ROOT, path)) as f:
+            assert f.read().splitlines()[int(line) - 1].startswith(definition)
+        assert phase in (5, 6, 7, 9)
+
+
 def test_fails_without_a_card(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert _load().main() != 0

@@ -16,8 +16,10 @@ from trackiellm_tpu_torch.llm.runner import GenerationConfig, LLMRunner
 from trackiellm_tpu_torch.models import llm
 from trackiellm_tpu_torch.ops import _build
 from trackiellm_tpu_torch.ops import attention as ta
+from trackiellm_tpu_torch.ops import diag as td
 from trackiellm_tpu_torch.ops import fused as tf
 from trackiellm_tpu_torch.ops import quant as tq
+from trackiellm_tpu_torch.tools import capture
 
 pytestmark = pytest.mark.cuda
 
@@ -268,6 +270,129 @@ def test_tiny_model_on_the_card_matches_cpu(dev):
     assert texts[0] == texts[1]
 
 
+STREAM_TILES = [(tq.STREAM_TILE_K, tq.STREAM_TILE_N), (256, 16), (256, 64),
+                (512, 128), (1024, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 3, 8, 9, 20])
+@pytest.mark.parametrize("tiles", STREAM_TILES)
+@pytest.mark.parametrize("group", [64, 256])
+def test_stream_matmul_kernel_matches_plain(dev, group, tiles, m, dtype):
+    tile_k, tile_n = tiles
+    g = torch.Generator(device=dev).manual_seed(m + group + tile_n)
+    w = tq.quantize_q4(torch.randn((2048, 512), generator=g, device=dev),
+                       group)
+    x = torch.randn((m, 2048), generator=g, device=dev).to(dtype)
+    before = tq.q4_matmul_stream.launches
+    got = tq.q4_matmul_stream(x, w.values, w.scales, tile_n=tile_n,
+                              tile_k=tile_k)
+    torch.cuda.synchronize()
+    assert tq.q4_matmul_stream.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (m, 512)
+    assert _rel_l2(got, tq.q4_matmul_stream_ref(x, w.values, w.scales)) < 1e-5
+    # Every sum has a fixed order: the same call gives the same bits.
+    assert torch.equal(got, tq.q4_matmul_stream(
+        x, w.values, w.scales, tile_n=tile_n, tile_k=tile_k))
+
+
+@pytest.mark.parametrize("k,n", MISTRAL_SHAPES)
+@pytest.mark.parametrize("m", [1, 8])
+def test_stream_matmul_at_mistral_shapes(dev, k, n, m):
+    g = torch.Generator(device=dev).manual_seed(k + n + m)
+    w = tq.quantize_q4(torch.randn((k, n), generator=g, device=dev) / k ** 0.5)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    assert _rel_l2(tq.q4_matmul_stream(x, w.values, w.scales),
+                   tq.q4_matmul_stream_ref(x, w.values, w.scales)) < 1e-5
+
+
+def test_stream_matmul_on_layer_views(dev):
+    """A layer's view of a stacked weight (the model's layout) is read at
+    its offset."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    ws = [tq.quantize_q4(torch.randn((1024, 256), generator=g, device=dev))
+          for _ in range(3)]
+    values = torch.stack([w.values for w in ws])
+    scales = torch.stack([w.scales for w in ws])
+    x = torch.randn((1, 1024), generator=g, device=dev)
+    for i, w in enumerate(ws):
+        assert torch.equal(tq.q4_matmul_stream(x, values[i], scales[i]),
+                           tq.q4_matmul_stream(x, w.values, w.scales))
+
+
+def test_stream_matmul_refuses_bad_operands(dev):
+    w = tq.quantize_q4(torch.randn((1024, 256), device=dev), 128)
+    x = torch.ones((2, 1024), device=dev)
+    with pytest.raises(TypeError):
+        tq.q4_matmul_stream(x.half(), w.values, w.scales)
+    with pytest.raises(ValueError):     # weights on another device
+        tq.q4_matmul_stream(x, w.values.cpu(), w.scales.cpu())
+    with pytest.raises(ValueError):     # tile_n not a power of two
+        tq.q4_matmul_stream(x, w.values, w.scales, tile_n=96)
+    buf = torch.zeros(1 + w.values.numel(), dtype=torch.uint8, device=dev)
+    shifted = buf[1:].view_as(w.values)
+    shifted.copy_(w.values)
+    with pytest.raises(ValueError):     # packed not 16-byte aligned
+        tq.q4_matmul_stream(x, shifted, w.scales)
+
+
+def test_stream_matmul_in_a_cuda_graph(dev):
+    """Captured once and replayed, as the overhead tool runs it: the replay
+    gives the eager bits, and only the warm-up and capture count."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    w = tq.quantize_q4(torch.randn((4096, 4096), generator=g, device=dev)
+                       / 64.0)
+    x = torch.randn((1, 4096), generator=g, device=dev)
+    before = tq.q4_matmul_stream.launches
+    replay = capture(lambda: tq.q4_matmul_stream(
+        x, w.values, w.scales, tile_n=64, tile_k=1024), dev)
+    assert tq.q4_matmul_stream.launches == before + 3
+    out = replay()
+    torch.cuda.synchronize()
+    assert tq.q4_matmul_stream.launches == before + 3
+    assert torch.equal(out, tq.q4_matmul_stream(x, w.values, w.scales,
+                                                tile_n=64, tile_k=1024))
+
+
+@pytest.mark.parametrize("shape", [(1, 16), (3, 1000), (64, 4096),
+                                   (4096, 4096)])
+def test_stream_probe_is_exact(dev, shape):
+    """The kernel sums bytes as integers: exactly the int64 sum, converted
+    once; the plain f32 sum is within its tolerance."""
+    g = torch.Generator(device=dev).manual_seed(shape[0])
+    w = torch.randint(0, 256, shape, generator=g, device=dev,
+                      dtype=torch.uint8)
+    x = torch.randn((1, 1), generator=g, device=dev)
+    before = td.stream.launches
+    got = td.stream(x, w)
+    torch.cuda.synchronize()
+    assert td.stream.launches == before + 1
+    assert got.shape == (1, 1) and got.dtype == torch.float32
+    assert torch.equal(got, w.to(torch.int64).sum().float() * x)
+    ref = td.stream_ref(x, w)
+    assert ((got - ref).abs() / ref.abs()).item() < 1e-5
+
+
+def test_tiny_probes_match_plain(dev):
+    x = torch.randn(td.TILE, generator=torch.Generator(
+        device=dev).manual_seed(7), device=dev)
+    before = (td.grid64.launches, td.chain_tiny.launches)
+    assert torch.equal(td.grid64(x), td.grid64_ref(x))
+    assert torch.equal(td.chain_tiny(x), td.chain_tiny_ref(x))
+    assert torch.equal(td.chain_tiny(x, 3), x + 1 + 1 + 1)
+    assert (td.grid64.launches, td.chain_tiny.launches) == (
+        before[0] + 1, before[1] + td.CHAIN + 3)
+
+
+def test_chain_tiny_in_a_cuda_graph(dev):
+    x = torch.zeros(td.TILE, device=dev)
+    replay = capture(lambda: td.chain_tiny(x), dev)
+    for _ in range(2):
+        out = replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, td.chain_tiny_ref(x))
+
+
 def test_wrappers_raise_without_a_kernel_library(dev, monkeypatch, tmp_path):
     def no_nvcc():
         raise _build.KernelBuildError("nvcc not found")
@@ -284,6 +409,16 @@ def test_wrappers_raise_without_a_kernel_library(dev, monkeypatch, tmp_path):
         tq.q4_matmul_w4a8(x, w.values, w.scales)
     with pytest.raises(_build.KernelBuildError):
         tq.q4_matmul_f32a(x, w.values, w.scales)
+    with pytest.raises(_build.KernelBuildError):
+        tq.q4_matmul_stream(x, w.values, w.scales)
+    with pytest.raises(_build.KernelBuildError):
+        td.stream(torch.ones((1, 1), device=dev),
+                  torch.ones((64, 64), dtype=torch.uint8, device=dev))
+    tile = torch.ones(td.TILE, device=dev)
+    with pytest.raises(_build.KernelBuildError):
+        td.grid64(tile)
+    with pytest.raises(_build.KernelBuildError):
+        td.chain_tiny(tile)
     w8 = tq.quantize_q8(torch.ones((512, 64), device=dev))
     with pytest.raises(_build.KernelBuildError):
         tq.q8_matmul(x, w8.values, w8.scales)

@@ -1,0 +1,240 @@
+"""The diagnostic probes and tools of the port, on the CPU.
+
+The JAX package's tools (``tools/diag_*.py``) are not imported: importing
+one sets JAX's persistent compile cache, ``stream_pallas`` is jitted at a
+fixed 512 MiB with no interpret switch, and the near-empty kernels are
+nested inside ``main()``. So the Pallas bodies are restated here, line for
+line, and run in interpret mode at small shapes against the port's plain
+versions: exact for x + 1, rel 1e-5 for the stream sum (f32 sums in another
+order). The tools' measurement functions then run on the CPU at tiny sizes,
+for control flow only: a CPU time is no device metric.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from trackiellm_tpu_torch.models import llm
+from trackiellm_tpu_torch.ops import diag, quant
+from trackiellm_tpu_torch.tools import (capture, device_ms, diag_envelope,
+                                        diag_overhead, diag_scan_overhead,
+                                        host_ms)
+
+CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny shapes: one intra-op thread, so this file does not crowd the
+    other test workers' CPUs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# tools/diag_envelope.py:41-56, _stream_kernel as it stands.
+def _stream_kernel(x_ref, w_ref, o_ref, acc_ref):
+    i = pl.program_id(0)
+
+    @pl.when(i == 0)
+    def _():
+        acc_ref[:] = jnp.zeros_like(acc_ref)
+
+    val = (jnp.sum(w_ref[:].astype(jnp.int32).astype(jnp.float32))
+           * x_ref[0, 0])
+    acc_ref[:] = acc_ref[:] + val
+
+    @pl.when(i == pl.num_programs(0) - 1)
+    def _():
+        o_ref[:] = acc_ref[:]
+
+
+# tools/diag_envelope.py:59-76, stream_pallas at a small (rows, cols) and
+# tile_r, in interpret mode.
+@functools.partial(jax.jit, static_argnames=("tile_r",))
+def _stream_pallas(x, w, tile_r):
+    rows, cols = w.shape
+    return pl.pallas_call(
+        _stream_kernel,
+        grid=(rows // tile_r,),
+        in_specs=[
+            pl.BlockSpec((1, 1), lambda i: (0, 0),
+                         memory_space=pltpu.SMEM),
+            pl.BlockSpec((tile_r, cols), lambda i: (i, 0),
+                         memory_space=pltpu.VMEM),
+        ],
+        out_specs=pl.BlockSpec((1, 1), lambda i: (0, 0),
+                               memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((1, 1), jnp.float32),
+        scratch_shapes=[pltpu.VMEM((1, 1), jnp.float32)],
+        interpret=True,
+    )(x, w)
+
+
+# tools/diag_scan_overhead.py:67-68 and tools/diag_overhead.py:96-97: the
+# one body both near-empty kernels run.
+def _tiny_kernel(x_ref, o_ref):
+    o_ref[:] = x_ref[:] + 1.0
+
+
+# tools/diag_scan_overhead.py:70-77, grid64, in interpret mode.
+def _grid64(x):
+    return pl.pallas_call(
+        _tiny_kernel,
+        grid=(64,),
+        in_specs=[pl.BlockSpec((8, 128), lambda i: (0, 0))],
+        out_specs=pl.BlockSpec((8, 128), lambda i: (0, 0)),
+        out_shape=jax.ShapeDtypeStruct((8, 128), jnp.float32),
+        interpret=True,
+    )(x)
+
+
+# tools/diag_overhead.py:101-110, chain_tiny, with the chain's length as an
+# argument, in interpret mode.
+def _chain_tiny(x, n):
+    def body(x, _):
+        y = pl.pallas_call(
+            _tiny_kernel,
+            out_shape=jax.ShapeDtypeStruct((8, 128), jnp.float32),
+            interpret=True,
+        )(x)
+        return y, ()
+
+    y, _ = jax.lax.scan(body, x, None, length=n)
+    return y
+
+
+@pytest.mark.parametrize("rows,cols,tile_r", [(64, 256, 16), (128, 512, 32)])
+def test_stream_matches_the_pallas_body(rows, cols, tile_r):
+    rng = np.random.default_rng(rows)
+    w = rng.integers(0, 255, (rows, cols)).astype(np.uint8)
+    x = rng.standard_normal((1, 1)).astype(np.float32)
+    ref = np.asarray(_stream_pallas(jnp.asarray(x), jnp.asarray(w), tile_r))
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    out = diag.stream(tx, tw)
+    assert out.shape == (1, 1) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5)
+    # The CPU wrapper is the plain version; the exact sum agrees too.
+    np.testing.assert_array_equal(out.numpy(), diag.stream_ref(tx, tw).numpy())
+    exact = float(w.astype(np.int64).sum()) * float(x[0, 0])
+    np.testing.assert_allclose(out.numpy()[0, 0], exact, rtol=1e-5)
+
+
+def test_grid64_matches_the_pallas_body():
+    x = np.random.default_rng(1).standard_normal(diag.TILE).astype(
+        np.float32)
+    ref = np.asarray(jax.jit(_grid64)(jnp.asarray(x)))
+    out = diag.grid64(torch.from_numpy(x))
+    np.testing.assert_array_equal(out.numpy(), ref)
+    np.testing.assert_array_equal(diag.grid64_ref(torch.from_numpy(x)).numpy(),
+                                  ref)
+
+
+@pytest.mark.parametrize("n", [1, diag.CHAIN])
+def test_chain_tiny_matches_the_pallas_chain(n):
+    x = np.random.default_rng(n).standard_normal(diag.TILE).astype(
+        np.float32) * 100.0
+    ref = np.asarray(jax.jit(_chain_tiny, static_argnums=1)(
+        jnp.asarray(x), n))
+    out = diag.chain_tiny(torch.from_numpy(x), n)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    np.testing.assert_array_equal(
+        diag.chain_tiny_ref(torch.from_numpy(x), n).numpy(), ref)
+
+
+def test_probe_operand_checks():
+    with pytest.raises(ValueError):
+        diag.stream(torch.ones((2, 1)), torch.zeros((4, 4), dtype=torch.uint8))
+    with pytest.raises(TypeError):
+        diag.stream(torch.ones((1, 1)), torch.zeros((4, 4)))
+    with pytest.raises(TypeError):
+        diag.grid64(torch.ones(diag.TILE, dtype=torch.float64))
+    with pytest.raises(TypeError):
+        diag.chain_tiny(torch.ones((0,)))
+
+
+def test_cpu_calls_launch_nothing():
+    """On the CPU the wrappers take the plain versions: no count moves."""
+    counts = (diag.stream.launches, diag.grid64.launches,
+              diag.chain_tiny.launches, quant.q4_matmul_stream.launches)
+    x = torch.ones(diag.TILE)
+    diag.grid64(x)
+    diag.chain_tiny(x, 3)
+    diag.stream(torch.ones((1, 1)), torch.ones((4, 4), dtype=torch.uint8))
+    w = quant.quantize_q4(torch.ones((512, 64)), 64)
+    quant.q4_matmul_stream(torch.ones((1, 512)), w.values, w.scales)
+    assert counts == (diag.stream.launches, diag.grid64.launches,
+                      diag.chain_tiny.launches,
+                      quant.q4_matmul_stream.launches)
+
+
+def test_timing_helpers_on_the_cpu():
+    calls = []
+
+    def fn():
+        calls.append(1)
+        return torch.zeros(1)
+
+    assert capture(fn, CPU) is fn
+    assert host_ms(fn, CPU, 3) >= 0 and len(calls) == 4   # warm-up + 3
+    assert device_ms(fn, CPU, 2) >= 0 and len(calls) == 7
+
+
+def test_overhead_tool_control_flow(capsys):
+    eager, graph = diag_overhead.tiny(CPU, n_chain=3, n_outer=2)
+    assert eager > 0 and graph > 0
+    out = diag_overhead.q4_sweep(CPU, k=512, n=512, group=64,
+                                 sweep=((256, 32), (128, 64), (64, 16)),
+                                 n_chain=2, n_outer=1)
+    assert [r[2] for r in out["sweep"]] == [16, 16, 128]
+    assert len(out["fit"]) == 2 and out["f32a_us"] > 0
+    assert len(diag_overhead.rmsnorm(CPU, d=64, n_chain=2, n_outer=1)) == 2
+    with pytest.raises(ValueError):
+        diag_overhead.q4_sweep(CPU, k=512, n=256)
+    text = capsys.readouterr().out
+    assert "near-empty kernel" in text and "fit:" in text
+
+
+def test_scan_overhead_tool_control_flow():
+    out = diag_scan_overhead.run(CPU, scan_lengths=(2, 4), unroll=3,
+                                 executions=(1, 2), n_outer=2)
+    assert sorted(out) == sorted(["scan2", "scan4", "unroll3", "grid64",
+                                  "1 exec", "2 exec"])
+    assert all(v > 0 for v in out.values())
+
+
+def test_envelope_tool_control_flow():
+    out = diag_envelope.envelope(CPU, rows=16, cols=256, n=2)
+    assert out["bytes"] == 16 * 256 and out["rel_err"] <= 1e-5
+    assert out["kernel_gb_s"] > 0 and out["plain_gb_s"] > 0
+
+
+def test_decode_composition_control_flow():
+    cfg = llm.LLMConfig.tiny()
+    params = llm.init_params_quantized(torch.Generator().manual_seed(0), cfg,
+                                       group=64, dtype=torch.float32)
+    sliced = diag_envelope.layer_slice(params, 1)
+    assert sliced["layers"]["wqkv"].values.shape[0] == 1
+    assert (sliced["layers"]["wqkv"].values.data_ptr()
+            == params["layers"]["wqkv"].values.data_ptr())   # a view
+    out = diag_envelope.decode_composition(
+        params, cfg, CPU, layers=(2, 1), prompt=16, attn_len=64, n_tokens=2,
+        chunk=2, n_chunks=2)
+    assert sorted(out["decode_ms"]) == [1, 2]
+    assert out["serial_ms"] == out["decode_ms"][2] and out["greedy_ms"] > 0
+
+
+@pytest.mark.parametrize("tool", [diag_overhead, diag_scan_overhead,
+                                  diag_envelope])
+def test_tools_exit_non_zero_without_a_card(tool, monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert tool.main() != 0
+    assert "no CUDA device" in capsys.readouterr().err

@@ -186,6 +186,34 @@ def test_decode_chunk_greedy_is_the_serial_chain():
     assert serial == ct.tolist()
 
 
+@pytest.mark.parametrize("attn_len", [None, 64])
+def test_generate_greedy_matches(attn_len):
+    """The JAX package's ``generate_greedy`` (one jit, a scan) and the
+    port's device loop emit the same ids from the same first token, and
+    both are the serial decode_step chain."""
+    jp, tp = _params()
+    jcfg, tcfg = _cfg()
+    toks = _tokens(10, 64)
+    jl, jc, tl, tc = _prefill_both(jp, tp, jcfg, tcfg, toks, 30)
+    first = int(np.argmax(np.asarray(jl)))
+    assert first == int(torch.argmax(tl))
+    jt, jc2 = jllm.generate_greedy(jp, jcfg, jnp.int32(first), jc,
+                                   n_tokens=6, attn_len=attn_len)
+    ct, cc = tllm.generate_greedy(tp, tcfg, torch.tensor(first), tc, 6,
+                                  attn_len=attn_len)
+    assert ct.tolist() == np.asarray(jt).tolist()
+    assert cc.length == int(jc2.length) == 36
+    _assert_cache_rows(jc2, cc, 36)
+    # The serial chain, on a fresh port cache and a host-int first token.
+    _, _, _, sc = _prefill_both(jp, tp, jcfg, tcfg, toks, 30)
+    serial, tok = [], first
+    for _ in range(6):
+        sl, sc = tllm.decode_step(tp, tcfg, tok, sc, attn_len=attn_len)
+        tok = int(torch.argmax(sl))
+        serial.append(tok)
+    assert serial == ct.tolist()
+
+
 def test_decode_chunk_greedy_suppresses_eos():
     jp, tp = _params()
     jcfg, tcfg = _cfg()

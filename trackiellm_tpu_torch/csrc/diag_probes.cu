@@ -1,0 +1,113 @@
+// The three diagnostic probes of the JAX package's tools, for Hopper (sm_90a).
+//
+// Replaces:
+//   - tools/diag_envelope.py:stream_pallas (its body is _stream_kernel):
+//     (1, 1) f32 = x[0, 0] * the sum of a uint8 array, 512 MiB in the tool;
+//     it measures the device-memory stream envelope;
+//   - tools/diag_scan_overhead.py:grid64 and tools/diag_overhead.py:chain_tiny
+//     (the near-empty kernel of each): o = x + 1 on an (8, 128) f32 tile,
+//     run by a grid of 64 steps on the one tile, and by one call of a chain
+//     of dependent calls. They measure what a grid step and a call cost.
+//
+// stream: device-memory bandwidth bounds it (each byte is read once and
+// added once). Design: a grid-stride loop of 16-byte loads, four in flight
+// per thread, so about 64 KiB per SM are in flight. Each thread sums its
+// bytes exactly as integers (dp4a against 0x01010101 adds four bytes at
+// once); a block reduces its threads' 64-bit sums with warp shuffles, and a
+// second, one-thread kernel sums the block partials in block order, converts
+// the total to f32 once and multiplies by x[0, 0]. The integer sum is exact,
+// so the one rounding is that conversion; the plain version, an f32 sum,
+// carries the rounding of its own order.
+//
+// add_one: launch latency bounds it (4 KiB of data). One kernel serves both
+// near-empty probes: `blocks` blocks each run the body on the same tile, as
+// the TPU grid re-runs it on one block, and every block writes the same
+// values.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ unsigned add_bytes(uint4 v, unsigned acc) {
+  acc = __dp4a(v.x, 0x01010101u, acc);
+  acc = __dp4a(v.y, 0x01010101u, acc);
+  acc = __dp4a(v.z, 0x01010101u, acc);
+  return __dp4a(v.w, 0x01010101u, acc);
+}
+
+// partial[block] = the sum of this block's bytes: the 16-byte vectors of
+// w in grid-stride order, then the n_tail bytes past the last whole vector.
+__global__ void __launch_bounds__(kThreads) stream_sum_kernel(
+    const uint4* __restrict__ w, size_t n16,
+    const uint8_t* __restrict__ tail, int n_tail,
+    unsigned long long* __restrict__ partial) {
+  const size_t stride = (size_t)gridDim.x * kThreads;
+  const size_t gid = blockIdx.x * (size_t)kThreads + threadIdx.x;
+  unsigned long long sum = 0;
+  size_t i = gid;
+  for (; i + 3 * stride < n16; i += 4 * stride) {
+    const uint4 a = w[i], b = w[i + stride], c = w[i + 2 * stride],
+                d = w[i + 3 * stride];
+    // At most 64 * 255 = 16320 per step: no overflow in 32 bits.
+    sum += add_bytes(d, add_bytes(c, add_bytes(b, add_bytes(a, 0u))));
+  }
+  for (; i < n16; i += stride) sum += add_bytes(w[i], 0u);
+  if (gid < (size_t)n_tail) sum += tail[gid];
+
+  for (int o = 16; o > 0; o >>= 1) sum += __shfl_down_sync(0xffffffffu, sum, o);
+  __shared__ unsigned long long warp_sums[kThreads / 32];
+  if (threadIdx.x % 32 == 0) warp_sums[threadIdx.x / 32] = sum;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long total = 0;
+    for (int k = 0; k < kThreads / 32; ++k) total += warp_sums[k];
+    partial[blockIdx.x] = total;
+  }
+}
+
+__global__ void stream_finish_kernel(
+    const unsigned long long* __restrict__ partial, int blocks,
+    const float* __restrict__ x, float* __restrict__ out) {
+  unsigned long long total = 0;
+  for (int b = 0; b < blocks; ++b) total += partial[b];
+  out[0] = static_cast<float>(total) * x[0];
+}
+
+__global__ void add_one_kernel(const float* __restrict__ x,
+                               float* __restrict__ out, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) out[i] = x[i] + 1.f;
+}
+
+}  // namespace
+
+// out (1) f32 = x[0] * (sum of the n_bytes bytes at w). w must be 16-byte
+// aligned; partial holds `blocks` 64-bit integers. Returns a cudaError_t, or
+// -1 for arguments the kernel does not take.
+extern "C" int trackie_stream_sum(const void* x, const void* w,
+                                  long long n_bytes, void* partial,
+                                  int blocks, void* out, void* stream) {
+  if (n_bytes < 0 || blocks < 1 || reinterpret_cast<uintptr_t>(w) % 16)
+    return -1;
+  const size_t n16 = static_cast<size_t>(n_bytes) / 16;
+  const int n_tail = static_cast<int>(n_bytes % 16);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* p = static_cast<unsigned long long*>(partial);
+  stream_sum_kernel<<<blocks, kThreads, 0, s>>>(
+      static_cast<const uint4*>(w), n16,
+      static_cast<const uint8_t*>(w) + n16 * 16, n_tail, p);
+  stream_finish_kernel<<<1, 1, 0, s>>>(p, blocks, static_cast<const float*>(x),
+                                       static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[i] = x[i] + 1 for i < n, by `blocks` blocks that each cover the tile.
+extern "C" int trackie_add_one(const void* x, void* out, int n, int blocks,
+                               void* stream) {
+  if (n < 1 || blocks < 1) return -1;
+  add_one_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}

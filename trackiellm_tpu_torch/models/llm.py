@@ -517,6 +517,27 @@ def extend(params: Dict[str, Any], cfg: LLMConfig, tokens: torch.Tensor,
 
 
 @torch.no_grad()
+def generate_greedy(params: Dict[str, Any], cfg: LLMConfig, first_token,
+                    cache: KVCache, n_tokens: int,
+                    attn_len: Optional[int] = None,
+                    ) -> Tuple[torch.Tensor, KVCache]:
+    """``n_tokens`` greedy decode steps from ``first_token`` (an int or a
+    0-d device tensor), the port of the JAX package's ``generate_greedy``:
+    each step decodes the last token and takes the argmax of its logits.
+    The tokens stay on the device, with no host sync inside the loop.
+    Returns the (n_tokens,) int64 tokens after ``first_token`` and the cache
+    at length + n_tokens; ``attn_len`` must cover that length."""
+    toks = []
+    tok = first_token
+    for _ in range(n_tokens):
+        logits, cache = decode_step(params, cfg, tok, cache,
+                                    attn_len=attn_len)
+        tok = torch.argmax(logits)
+        toks.append(tok)
+    return torch.stack(toks), cache
+
+
+@torch.no_grad()
 def decode_chunk_greedy(params: Dict[str, Any], cfg: LLMConfig,
                         logits: torch.Tensor, cache: KVCache, n_tokens: int,
                         attn_len: Optional[int] = None,

@@ -1,2 +1,3 @@
-"""Tensor ops: the Q4 dequant-matmul and attention, each with a
-hand-written CUDA kernel and a plain PyTorch version."""
+"""Tensor ops: the quantized matmuls, attention, the fused MLP block and
+the diagnostic probes, each with a hand-written CUDA kernel and a plain
+PyTorch version."""

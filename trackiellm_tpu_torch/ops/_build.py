@@ -47,6 +47,12 @@ _SIGNATURES = {
     # x, norm, gu, gu_scales, down, down_scales, partial, out, M, D, H, G,
     # x_dtype, norm_dtype, eps, stream
     "trackie_fused_mlp_q4": (_P,) * 8 + (_I,) * 6 + (_F, _P),
+    # x, packed, scales, out, M, K, N, G, dtype, tile_k, tile_n, stream
+    "trackie_q4_stream": (_P,) * 4 + (_I,) * 7 + (_P,),
+    # x, w, n_bytes, partial, blocks, out, stream
+    "trackie_stream_sum": (_P, _P, ctypes.c_longlong, _P, _I, _P, _P),
+    # x, out, n, blocks, stream
+    "trackie_add_one": (_P, _P, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

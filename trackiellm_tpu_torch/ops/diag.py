@@ -1,0 +1,131 @@
+"""The kernels of the diagnostic probes.
+
+Port of the Pallas kernels that the JAX package's diagnostic tools time, each
+beside its plain PyTorch twin (``*_ref``), all in ``csrc/diag_probes.cu``:
+``stream`` replaces ``tools/diag_envelope.py:stream_pallas`` (the
+device-memory stream envelope), ``grid64`` replaces
+``tools/diag_scan_overhead.py:grid64`` (a grid of 64 steps on one tile) and
+``chain_tiny`` replaces ``tools/diag_overhead.py:chain_tiny`` (a chain of
+dependent near-empty calls). ``grid64`` and ``chain_tiny`` launch one CUDA
+function, ``o = x + 1``, with their own wrappers and launch counters. The
+tools that time them are in ``trackiellm_tpu_torch/tools/``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from trackiellm_tpu_torch.ops import _build
+from trackiellm_tpu_torch.ops.backend import is_cuda
+
+GRID_STEPS = 64       # grid=(64,) of tools/diag_scan_overhead.py:grid64
+CHAIN = 64            # N_CHAIN of tools/diag_overhead.py
+TILE = (8, 128)       # the near-empty kernels' f32 tile
+_STREAM_BLOCKS_PER_SM = 8
+
+
+def _check_stream(x: torch.Tensor, w: torch.Tensor) -> None:
+    if x.shape != (1, 1) or x.dtype != torch.float32:
+        raise ValueError(f"x must be (1, 1) float32, got {tuple(x.shape)} "
+                         f"{x.dtype}")
+    if w.dtype != torch.uint8:
+        raise TypeError(f"w must be uint8, got {w.dtype}")
+
+
+def stream_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`stream` (``stream_xla``): the f32 sum of ``w``
+    times ``x[0, 0]``, as (1, 1) f32."""
+    _check_stream(x, w)
+    return (w.float().sum() * x[0, 0]).reshape(1, 1)
+
+
+def stream(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(1, 1) f32 = x[0, 0] * the sum of the uint8 array ``w``.
+
+    A CUDA tensor launches ``csrc/diag_probes.cu``'s exact integer
+    reduction (see its header) or raises; a CPU tensor takes
+    :func:`stream_ref`."""
+    _check_stream(x, w)
+    if not is_cuda(w):
+        return stream_ref(x, w)
+    if x.device != w.device:
+        raise ValueError("x and w must be on one device")
+    if not w.is_contiguous() or w.data_ptr() % 16:
+        raise ValueError("w must be contiguous and 16-byte aligned")
+    x = x.contiguous()
+    blocks = (_STREAM_BLOCKS_PER_SM
+              * torch.cuda.get_device_properties(w.device).multi_processor_count)
+    partial = torch.empty((blocks,), dtype=torch.int64, device=w.device)
+    out = torch.empty((1, 1), dtype=torch.float32, device=w.device)
+    status = _build.library().trackie_stream_sum(
+        x.data_ptr(), w.data_ptr(), w.numel(), partial.data_ptr(), blocks,
+        out.data_ptr(), torch.cuda.current_stream(w.device).cuda_stream)
+    _build.check(status, "stream")
+    stream.launches += 1
+    return out
+
+
+stream.launches = 0
+
+
+def _check_tile(x: torch.Tensor) -> None:
+    if x.dtype != torch.float32 or x.numel() == 0:
+        raise TypeError(f"x must be a non-empty float32 tensor, got "
+                        f"{x.dtype} {tuple(x.shape)}")
+
+
+def _add_one(x: torch.Tensor, blocks: int, name: str) -> torch.Tensor:
+    """x + 1 by ``blocks`` blocks that each cover all of x."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    status = _build.library().trackie_add_one(
+        x.data_ptr(), out.data_ptr(), x.numel(), blocks,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(status, name)
+    return out
+
+
+def grid64_ref(x: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`grid64`: x + 1."""
+    _check_tile(x)
+    return x + 1.0
+
+
+def grid64(x: torch.Tensor) -> torch.Tensor:
+    """x + 1 by one launch of 64 blocks, each re-running the body on the
+    whole tile, as the TPU grid of 64 steps does on one block. A CUDA tensor
+    launches the kernel or raises; a CPU tensor takes :func:`grid64_ref`."""
+    _check_tile(x)
+    if not is_cuda(x):
+        return grid64_ref(x)
+    out = _add_one(x, GRID_STEPS, "grid64")
+    grid64.launches += 1
+    return out
+
+
+grid64.launches = 0
+
+
+def chain_tiny_ref(x: torch.Tensor, n: int = CHAIN) -> torch.Tensor:
+    """Plain twin of :func:`chain_tiny`: ``n`` times x = x + 1."""
+    _check_tile(x)
+    for _ in range(n):
+        x = x + 1.0
+    return x
+
+
+def chain_tiny(x: torch.Tensor, n: int = CHAIN) -> torch.Tensor:
+    """``n`` dependent one-block launches of x + 1, each reading the last
+    one's output. A CUDA tensor launches the kernel ``n`` times (the count
+    rises by one per launch) or raises; a CPU tensor takes
+    :func:`chain_tiny_ref`."""
+    _check_tile(x)
+    if not is_cuda(x):
+        return chain_tiny_ref(x, n)
+    for _ in range(n):
+        x = _add_one(x, 1, "chain_tiny")
+        chain_tiny.launches += 1
+    return x
+
+
+chain_tiny.launches = 0

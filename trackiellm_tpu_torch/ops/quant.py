@@ -6,11 +6,13 @@ uint8 (K/2, N), ``packed[r, n]`` holding ``w[r, n] + 8`` in the low nibble
 and ``w[K/2 + r, n]`` in two's complement in the high nibble; scales are f32
 (K/G, N) for both.
 
-Three hand-written kernels, each beside its plain PyTorch twin (``*_ref``):
+Four hand-written kernels, each beside its plain PyTorch twin (``*_ref``):
 ``q4_matmul_w4a8`` (``csrc/q4_w4a8.cu``) replaces ``q4_matmul_pallas_i8``,
-``q8_matmul`` (``csrc/q8_matmul.cu``) replaces ``q8_matmul_pallas`` and
-``q4_matmul_f32a`` (``csrc/q4_f32a.cu``) replaces ``q4_matmul_pallas``.
-``quantized_matmul`` dispatches as the JAX package does.
+``q8_matmul`` (``csrc/q8_matmul.cu``) replaces ``q8_matmul_pallas``,
+``q4_matmul_f32a`` (``csrc/q4_f32a.cu``) replaces ``q4_matmul_pallas`` and
+``q4_matmul_stream`` (``csrc/q4_stream.cu``) replaces
+``q4_matmul_pallas_v2``. ``quantized_matmul`` dispatches as the JAX package
+does, and so, like it, never takes the streaming kernel.
 """
 
 from __future__ import annotations
@@ -349,6 +351,99 @@ def q4_matmul_f32a(x: torch.Tensor, packed: torch.Tensor,
 
 
 q4_matmul_f32a.launches = 0
+
+
+# Card defaults of q4_matmul_stream. The TPU defaults (tile_n 2048, tile_k
+# 512) would stage 2 MiB, about 9x an H100 block's shared memory. 32 columns
+# per block give N = 4096 (``wo``, ``w_down``) 128 blocks on 132 SMs; 512
+# packed rows per chunk make a 16 KiB slot and at least 4 chunks per block at
+# Mistral-7B's K.
+STREAM_TILE_N = 32
+STREAM_TILE_K = 512
+STREAM_SMEM = 232448  # bytes of shared memory an H100 block may take
+
+
+def q4_matmul_stream_ref(x: torch.Tensor, packed: torch.Tensor,
+                         scales: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of the streaming Q4 kernel, as
+    ``_q4_stream_kernel`` computes it: the nibbles unbiased in the unpack
+    (``lo = (p & 0xF) - 8``, ``hi = ((p >> 4 & 0xF) ^ 8) - 8``) and per
+    group ``(x_lo . lo) * s_lo + (x_hi . hi) * s_hi``, with no bias fold
+    and no 1/16 factor."""
+    g = _check_q4_operands(x, packed, scales)
+    _check_f32a_x(x)
+    m, k = x.shape
+    half, n = packed.shape
+    ngh = half // g
+    p = packed.to(torch.int32)
+    lo = ((p & 0xF) - 8).float().reshape(ngh, g, n)
+    hi = ((((p >> 4) & 0xF) ^ 8) - 8).float().reshape(ngh, g, n)
+    xf = x.float()
+    x_lo = xf[:, :half].reshape(m, ngh, g).transpose(0, 1)    # (ngh, M, G)
+    x_hi = xf[:, half:].reshape(m, ngh, g).transpose(0, 1)
+    part = (torch.bmm(x_lo, lo) * scales[:ngh, None, :]
+            + torch.bmm(x_hi, hi) * scales[ngh:, None, :])
+    return part.sum(dim=0)
+
+
+def _stream_tiles(k: int, n: int, g: int, tile_n: int,
+                  tile_k: int) -> Tuple[int, int]:
+    """``q4_matmul_pallas_v2``'s tile rule (both clamped to the matrix,
+    ``half % tile_k == n % tile_n == tile_k % g == 0``) plus the card's:
+    ``tile_n`` a power of two in [16, 1024] (16-byte copies, one 4-column
+    word per thread of 256) and both staging slots within a block's shared
+    memory. Returns the clamped (tile_n, tile_k)."""
+    half = k // 2
+    tile_k, tile_n = min(tile_k, half), min(tile_n, n)
+    if tile_k < 1 or half % tile_k or n % tile_n or tile_k % g:
+        raise ValueError(f"tiles (tile_k={tile_k}, tile_n={tile_n}) do not "
+                         f"divide K/2={half} and N={n} in whole groups of {g}")
+    if tile_n < 16 or tile_n > 1024 or tile_n & (tile_n - 1):
+        raise ValueError(f"tile_n={tile_n} must be a power of two in "
+                         "[16, 1024]")
+    if 2 * tile_k * tile_n > STREAM_SMEM:
+        raise ValueError(f"two staging slots of tile_k x tile_n = {tile_k} x "
+                         f"{tile_n} bytes exceed the {STREAM_SMEM} bytes of "
+                         "shared memory a block may take")
+    return tile_n, tile_k
+
+
+def q4_matmul_stream(x: torch.Tensor, packed: torch.Tensor,
+                     scales: torch.Tensor, tile_n: int = STREAM_TILE_N,
+                     tile_k: int = STREAM_TILE_K) -> torch.Tensor:
+    """Q4 matmul streaming all of K per column tile: (M, K) f32/bf16 @ q4
+    (K, N) -> (M, N) f32.
+
+    Replaces ``trackiellm_tpu/ops/quant.py:q4_matmul_pallas_v2``, with its
+    ``tile_n`` (columns per block) and ``tile_k`` (packed rows per staged
+    chunk). A CUDA tensor launches ``csrc/q4_stream.cu`` (see its header) or
+    raises; a CPU tensor takes :func:`q4_matmul_stream_ref`. The tile rule
+    of :func:`_stream_tiles` holds on either device."""
+    g = _check_q4_operands(x, packed, scales)
+    _check_f32a_x(x)
+    m, k = x.shape
+    n = packed.shape[1]
+    tile_n, tile_k = _stream_tiles(k, n, g, tile_n, tile_k)
+    if not is_cuda(x):
+        return q4_matmul_stream_ref(x, packed, scales)
+    if not (packed.device == x.device == scales.device):
+        raise ValueError("x, packed and scales must be on one device")
+    if not (packed.is_contiguous() and scales.is_contiguous()):
+        raise ValueError("packed and scales must be contiguous")
+    if packed.data_ptr() % 16 or scales.data_ptr() % 16:
+        raise ValueError("packed and scales must be 16-byte aligned")
+    x = x.contiguous()
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    status = _build.library().trackie_q4_stream(
+        x.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
+        m, k, n, g, 0 if x.dtype == torch.float32 else 1, tile_k, tile_n,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(status, "q4_matmul_stream")
+    q4_matmul_stream.launches += 1
+    return out
+
+
+q4_matmul_stream.launches = 0
 
 
 def quantized_matmul(x: torch.Tensor, qw: QuantizedLinear) -> torch.Tensor:
