@@ -7,20 +7,29 @@ Phases (any failure is an uncaught exception and a non-zero exit):
   1. device: torch, capability (must be (9, 0)), nvidia-smi name and power
      limit;
   2. build: nvcc builds the CUDA kernels from ``trackiellm_tpu_torch/csrc``;
-  3. kernels: each of the nine CUDA kernels against its plain PyTorch
+  3. kernels: each of the ten CUDA kernels against its plain PyTorch
      version at the shapes its path gives it (W4A8, Q8 and f32-activation
      Q4 at M in {1, 8, 64, 256, 512} and the streaming Q4 at M in {1, 8} on
      the five Mistral-7B projections, plus one streaming case at other
-     tiles; flash attention in five variants at H=32, Hk=8, D=128, S in
-     {256, 512}, bf16 and f32; the fused MLP block at M in {1, 4, 8}, D
-     4096, H 14336, bf16 and f32, also timed against the unfused path; the
-     stream probe over 512 MiB, grid64 and a 64-call chain_tiny on (8,
-     128)), with error, tolerance and times;
+     tiles; W4A8's activation quantization at M in {1, 512}, K in {4096,
+     14336}, bit for bit; flash attention in five variants at H=32, Hk=8,
+     D=128, S in {256, 512}, bf16 and f32; the fused MLP block at M in {1,
+     4, 8}, D 4096, H 14336, bf16 and f32, also timed against the unfused
+     path; the stream probe over 512 MiB, grid64 and a 64-call chain_tiny
+     on (8, 128)), with error, tolerance, times, the bound (bytes over the
+     memory rate or operations over the peak rate, whichever is larger),
+     the one PyTorch call that computes the same function where there is
+     one (SDPA for causal bf16 flash, an int64 sum for the stream, x + 1
+     for grid64), and the profiler's device-only time of each headline
+     case and of SDPA;
   4. width: Mistral-7B width cut to 2 layers, random weights from a seed,
      card against the port's CPU path: Q4 and Q8 prefill logits, and Q4
      with both opt-in levers through prefill and 8 decode steps;
   5. slice: Mistral-7B (32 layers, max_seq 512, random Q4 weights) behind
-     ``LLMRunner`` answers four requests on the default routes;
+     ``LLMRunner`` answers four requests on the default routes, then a
+     fresh bucket-512 prefill and 32 decode tokens run under the profiler
+     (one ``{"profile": ...}`` line: wall, device busy, idle share,
+     launches, the largest costs by kernel);
   6. Q8 slice: the same model with Q8 weights answers three requests;
   7. opt-in Q4 routes: phase 5's model under ``TRACKIE_Q4_F32A=1`` and
      ``TRACKIE_FUSED_MLP=1`` answers two requests;
@@ -58,7 +67,15 @@ MISTRAL_SHAPES = {  # (K, N) of the quantized projections, group 256
     "wqkv": (4096, 6144), "wo": (4096, 4096), "w_gu": (4096, 28672),
     "w_down": (14336, 4096), "lm_head": (4096, 32000),
 }
+GROUP = 256
+PROFILE_TOKENS = 32  # decode tokens in phase 5's profiled window
 MATMUL_MS = (1, 8, 64, 256, 512)
+QUANT_MS, QUANT_KS = (1, 512), (4096, 14336)   # activation quantization
+# One H100 SXM (the data sheet, at 700 W): the bound of a kernel is the
+# larger of its bytes over the memory rate and its operations over the
+# peak rate of their type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 STREAM_MS = (1, 8)   # the streaming Q4's decode shapes
 STREAM_ALT = ("wo", 1024, 64)   # one case at non-default (tile_k, tile_n)
 # rel: the stream kernel's sum is exact; the plain f32 sum of 512 MiB is not
@@ -119,63 +136,179 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return total / iters
 
 
+def device_breakdown(fn):
+    """Run ``fn`` under ``torch.profiler`` (CUDA activity): the device's
+    busy ms (the sum of its kernels and copies), the launches, and ms and
+    count by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {e.key: (e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages() if e.self_device_time_total > 0}
+    return (sum(ms for ms, _ in by_name.values()),
+            sum(n for _, n in by_name.values()), by_name)
+
+
+def device_only_ms(fn, iters: int = 20):
+    """Device time per call of the kernels ``fn`` launches, by kernel name,
+    with L2 flushed before each call and the flush left out: the wrapper's
+    host cost is not in it. None where the profiler saw no device time."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+
+    def calls():
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+    _, _, by_name = device_breakdown(calls)
+    per_kernel = {k: ms / iters for k, (ms, _) in by_name.items()
+                  if "Fill" not in k}
+    if not per_kernel:
+        return None
+    return {"total": sum(per_kernel.values()), "kernels": per_kernel}
+
+
+def bound_ms(tensors, ops: float, kind: str):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for work that reads or writes each of ``tensors`` once and does ``ops``
+    operations of type ``kind``, the larger of the two times."""
+    by_bytes = sum(t.numel() * t.element_size()
+                   for t in tensors) / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def add_row(rows, kname: str, kernel, **row) -> None:
+    """One phase 3 result of ``kname``; a headline case (``KERNELS``) also
+    gets the device-only time of ``kernel``."""
+    if row["case"] in KERNELS[kname][2]:
+        row["device"] = device_only_ms(kernel)
+    rows[kname].append(row)
+
+
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def matmul_case(rows, kname: str, what: str, case: str, kernel, plain):
+def matmul_case(rows, kname: str, what: str, case: str, kernel, plain,
+                inputs, kind: str):
     """One matmul kernel call against its plain version: rel L2 within
-    MATMUL_TOL, times beside."""
+    MATMUL_TOL, times and the bound beside (``inputs``: x and the weight's
+    tensors; 2 M K N operations of type ``kind``)."""
     got, ref = kernel(), plain()
     torch.cuda.synchronize()
     err = rel_l2(got, ref)
     abs_err = (got - ref).abs().max().item()
     ms, plain_ms = time_ms(kernel), time_ms(plain)
+    (m, k), n = inputs[0].shape, got.shape[1]
+    bound, by = bound_ms((*inputs, got), 2 * m * k * n, kind)
     log(f"  {what}: rel_l2={err:.3e} (tol {MATMUL_TOL:.0e}) max_abs="
-        f"{abs_err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+        f"{abs_err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound:.4f} ({by})")
     if not err < MATMUL_TOL:
         raise AssertionError(f"{kname} {case}: rel L2 {err}")
-    rows.append(dict(case=case, err=abs_err, ms=ms, plain=plain_ms))
+    add_row(rows, kname, kernel, case=case, err=abs_err, ms=ms,
+            plain=plain_ms, bound=bound, bound_by=by)
+
+
+def quant_cases(rows, quant, gen, dev) -> None:
+    """Phase 3, the activation quantization: the kernel against
+    ``quantize_activations_q8`` on bf16 x, equal bit for bit."""
+    for m in QUANT_MS:
+        for k in QUANT_KS:
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            got = quant.quantize_activations(x, GROUP)
+            ref = quant.quantize_activations_q8(x, GROUP)
+            torch.cuda.synchronize()
+            diff = sum((a != b).sum().item() for a, b in zip(got, ref))
+            abs_err = max((a.float() - b.float()).abs().max().item()
+                          for a, b in zip(got, ref))
+            ms = time_ms(lambda: quant.quantize_activations(x, GROUP))
+            plain_ms = time_ms(lambda: quant.quantize_activations_q8(x, GROUP))
+            # per element: abs, max, divide, round, clamp, sum
+            bound, by = bound_ms((x, *got), 6 * m * k, "f32")
+            log(f"  quant M={m:3d} K={k}: {diff} elements differ (exact) "
+                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"bound_ms={bound:.4f} ({by})")
+            if diff:
+                raise AssertionError(f"quantize M={m} K={k}: {diff} differ")
+            add_row(rows, "quantize_activations",
+                    lambda: quant.quantize_activations(x, GROUP),
+                    case=f"M={m} K={k}", err=abs_err, ms=ms, plain=plain_ms,
+                    bound=bound, bound_by=by)
+
+
+def sdpa_ms(q, k, v, ref):
+    """The one PyTorch call that computes causal GQA attention,
+    ``scaled_dot_product_attention`` on (1, H, S, D), timed as the library
+    yardstick (the port never calls it): (ms per call as ``time_ms`` reads
+    it, device-only ms as ``device_only_ms`` reads it). Its output must
+    agree with the dense oracle as the kernel's does."""
+    import torch.nn.functional as F
+
+    def call():
+        return F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                              is_causal=True, enable_gqa=True)
+    err = rel_l2(call()[0], ref)
+    if not err < FLASH_TOL[q.dtype]:
+        raise AssertionError(f"SDPA against the dense oracle: rel L2 {err}")
+    device = device_only_ms(call)
+    return time_ms(call), device["total"] if device else None
+
+
+def attention_pairs(s: int, window: int) -> int:
+    """(query, key) pairs a causal mask keeps, with a window if > 0."""
+    if window <= 0:
+        return s * (s + 1) // 2
+    return sum(min(i + 1, window) for i in range(s))
 
 
 def phase_kernels(dev, quant, attention, fused, llm, diag):
     """Phase 3: every kernel against its plain version, times beside."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    matmuls = {  # name: (quantize, kernel, plain, label, M values)
+    matmuls = {  # name: (quantize, kernel, plain, label, M values, op type)
         "q4_matmul_w4a8": (quant.quantize_q4, quant.q4_matmul_w4a8,
-                           quant.q4_matmul_w4a8_ref, "w4a8", MATMUL_MS),
+                           quant.q4_matmul_w4a8_ref, "w4a8", MATMUL_MS,
+                           "int8"),
         "q8_matmul": (quant.quantize_q8, quant.q8_matmul,
-                      quant.q8_matmul_ref, "q8  ", MATMUL_MS),
+                      quant.q8_matmul_ref, "q8  ", MATMUL_MS, "bf16"),
         "q4_matmul_f32a": (quant.quantize_q4, quant.q4_matmul_f32a,
-                           quant.q4_matmul_f32a_ref, "f32a", MATMUL_MS),
+                           quant.q4_matmul_f32a_ref, "f32a", MATMUL_MS,
+                           "bf16"),
         "q4_matmul_stream": (quant.quantize_q4, quant.q4_matmul_stream,
-                             quant.q4_matmul_stream_ref, "strm", STREAM_MS),
+                             quant.q4_matmul_stream_ref, "strm", STREAM_MS,
+                             "bf16"),
     }
-    rows = {name: [] for name in (*matmuls, "flash_attention",
-                                  "fused_mlp_q4", *PROBES)}
+    rows = {name: [] for name in KERNELS}
     for name, (k, n) in MISTRAL_SHAPES.items():
         w32 = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
-        for kname, (quantize, kernel, plain, label, ms) in matmuls.items():
+        for kname, (quantize, kernel, plain, label, ms,
+                    kind) in matmuls.items():
             w = quantize(w32)
             args = (w.values, w.scales)
             for m in ms:
                 x = torch.randn((m, k), generator=gen, device=dev).to(
                     torch.bfloat16)
-                matmul_case(rows[kname], kname,
+                matmul_case(rows, kname,
                             f"{label} {name:7s} M={m:3d} K={k} N={n}",
                             f"{name} M={m}", lambda: kernel(x, *args),
-                            lambda: plain(x, *args))
+                            lambda: plain(x, *args), (x, *args), kind)
             if kname == "q4_matmul_stream" and name == STREAM_ALT[0]:
                 _, tile_k, tile_n = STREAM_ALT
                 x = torch.randn((1, k), generator=gen, device=dev).to(
                     torch.bfloat16)
                 case = f"{name} M=1 tiles=({tile_k},{tile_n})"
-                matmul_case(rows[kname], kname, f"{label} {case}", case,
+                matmul_case(rows, kname, f"{label} {case}", case,
                             lambda: kernel(x, *args, tile_n=tile_n,
                                            tile_k=tile_k),
-                            lambda: plain(x, *args))
+                            lambda: plain(x, *args), (x, *args), kind)
             del w, args
         del w32
+    quant_cases(rows, quant, gen, dev)
     h, hk, d = 32, 8, 128
     variants = {"causal": {}, "window128": {"window": 128},
                 "softcap50": {"softcap": 50.0},
@@ -197,15 +330,28 @@ def phase_kernels(dev, quant, attention, fused, llm, diag):
                 ms = time_ms(lambda: attention.flash_attention(q, kk, v, **kw))
                 plain = time_ms(
                     lambda: attention.attention_ref(q, kk, v, **kw))
+                pairs = attention_pairs(s, kw.get("window", 0))
+                bound, by = bound_ms(
+                    (q, kk, v, got, *(t for t in kw.values()
+                                      if torch.is_tensor(t))),
+                    4 * h * d * pairs,
+                    "bf16" if dtype == torch.bfloat16 else "f32")
+                library = library_device = None
+                if vname == "causal" and dtype == torch.bfloat16:
+                    library, library_device = sdpa_ms(q, kk, v, ref)
                 tol = FLASH_TOL[dtype]
                 log(f"  flash {vname:9s} S={s} {str(dtype)[6:]:8s}: "
                     f"rel_l2={err:.3e} (tol {tol:.0e}) max_abs={abs_err:.3e} "
-                    f"kernel_ms={ms:.4f} plain_ms={plain:.4f}")
+                    f"kernel_ms={ms:.4f} plain_ms={plain:.4f} bound_ms="
+                    f"{bound:.4f} ({by}) library_ms={library} "
+                    f"library_device_ms={library_device}")
                 if not err < tol:
                     raise AssertionError(f"flash {vname} S={s} {dtype}: {err}")
-                rows["flash_attention"].append(dict(
-                    case=f"{vname} S={s} {str(dtype)[6:]}", err=abs_err,
-                    ms=ms, plain=plain))
+                add_row(rows, "flash_attention",
+                        lambda: attention.flash_attention(q, kk, v, **kw),
+                        case=f"{vname} S={s} {str(dtype)[6:]}", err=abs_err,
+                        ms=ms, plain=plain, bound=bound, bound_by=by,
+                        library=library, library_device=library_device)
     d, hid, grp = FUSED_SHAPE
     w_gu = quant.quantize_q4(torch.randn((d, 2 * hid), generator=gen,
                                          device=dev) / math.sqrt(d), grp)
@@ -230,16 +376,19 @@ def phase_kernels(dev, quant, attention, fused, llm, diag):
             # W4A8 w_down, residual, with the levers unset.
             unfused = time_ms(
                 lambda: llm._mlp_block(x, norm, w_gu, w_down, 1e-5))
+            bound, by = bound_ms(
+                (*args, got), 2 * m * 3 * d * hid,
+                "bf16" if dtype == torch.bfloat16 else "f32")
             tol = FUSED_TOL[dtype]
             log(f"  fused M={m} D={d} H={hid} {str(dtype)[6:]:8s}: "
                 f"rel_l2={err:.3e} (tol {tol:.0e}) max_abs={abs_err:.3e} "
                 f"kernel_ms={ms:.4f} plain_ms={plain:.4f} "
-                f"unfused_ms={unfused:.4f}")
+                f"unfused_ms={unfused:.4f} bound_ms={bound:.4f} ({by})")
             if not err < tol:
                 raise AssertionError(f"fused M={m} {dtype}: rel L2 {err}")
-            rows["fused_mlp_q4"].append(dict(
-                case=f"M={m} {str(dtype)[6:]}", err=abs_err, ms=ms,
-                plain=plain, unfused=unfused))
+            add_row(rows, "fused_mlp_q4", lambda: fused.fused_mlp_q4(*args),
+                    case=f"M={m} {str(dtype)[6:]}", err=abs_err, ms=ms,
+                    plain=plain, unfused=unfused, bound=bound, bound_by=by)
     del w_gu, w_down
     phase_probes(dev, gen, diag, rows)
     return rows
@@ -247,33 +396,44 @@ def phase_kernels(dev, quant, attention, fused, llm, diag):
 
 def phase_probes(dev, gen, diag, rows) -> None:
     """Phase 3, the probes: the stream kernel over 512 MiB (rel tolerance
-    STREAM_TOL), grid64 and a 64-call chain_tiny on (8, 128) (exact)."""
+    STREAM_TOL), grid64 and a 64-call chain_tiny on (8, 128) (exact). The
+    library yardsticks: ``w.sum(dtype=torch.int64)`` for the stream and
+    ``tile + 1`` for grid64; no one call chains 64 launches."""
     x = torch.randn((1, 1), generator=gen, device=dev)
     w = torch.randint(0, 255, STREAM_SHAPE, generator=gen, device=dev,
                       dtype=torch.uint8)
     tile = torch.randn(diag.TILE, generator=gen, device=dev)
-    cases = {  # name: (case, kernel, plain, rel tolerance)
+    cases = {  # name: (case, kernel, plain, rel tolerance, library call,
+               #        inputs, operations and their type)
         "stream": ("512 MiB", lambda: diag.stream(x, w),
-                   lambda: diag.stream_ref(x, w), STREAM_TOL),
+                   lambda: diag.stream_ref(x, w), STREAM_TOL,
+                   lambda: w.sum(dtype=torch.int64), (x, w), w.numel(),
+                   "int8"),
         "grid64": ("(8, 128)", lambda: diag.grid64(tile),
-                   lambda: diag.grid64_ref(tile), 0.0),
+                   lambda: diag.grid64_ref(tile), 0.0, lambda: tile + 1,
+                   (tile,), tile.numel(), "f32"),
         "chain_tiny": (f"{diag.CHAIN} calls (8, 128)",
                        lambda: diag.chain_tiny(tile),
-                       lambda: diag.chain_tiny_ref(tile), 0.0),
+                       lambda: diag.chain_tiny_ref(tile), 0.0, None,
+                       (tile,), diag.CHAIN * tile.numel(), "f32"),
     }
-    for name, (case, kernel, plain, tol) in cases.items():
+    for name, (case, kernel, plain, tol, lib, inputs, ops,
+               kind) in cases.items():
         got, ref = kernel(), plain()
         torch.cuda.synchronize()
         abs_err = (got - ref).abs().max().item()
         err = abs_err / ref.abs().max().item()
         ms, plain_ms = time_ms(kernel), time_ms(plain)
+        library = time_ms(lib) if lib is not None else None
+        bound, by = bound_ms((*inputs, got), ops, kind)
         log(f"  probe {name:10s} {case}: rel_err={err:.3e} (tol "
             f"{tol:.0e}) max_abs={abs_err:.3e} kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f}")
+            f"plain_ms={plain_ms:.4f} library_ms={library} "
+            f"bound_ms={bound:.6f} ({by})")
         if not err <= tol:
             raise AssertionError(f"{name} {case}: rel error {err}")
-        rows[name].append(dict(case=case, err=abs_err, ms=ms,
-                               plain=plain_ms))
+        add_row(rows, name, kernel, case=case, err=abs_err, ms=ms,
+                plain=plain_ms, library=library, bound=bound, bound_by=by)
 
 
 def phase_width(dev, llm, quant, fused):
@@ -498,6 +658,54 @@ def drive(dev, llm, runner_mod, tokenizer_mod, params, cfg, counters,
     return launches
 
 
+def profile_path(dev, runner_mod, tokenizer_mod, params, cfg) -> dict:
+    """Phase 5's breakdown, on fresh runners: the cortex prompt's prefill
+    (bucket 512), then PROFILE_TOKENS greedy decode tokens (lookahead 4).
+    Each window runs once on the host clock (wall) and once under the
+    profiler (device busy ms, launches, the largest costs by kernel); the
+    idle share is 1 - busy / wall."""
+    tok = tokenizer_mod.ByteTokenizer(cfg.vocab_size)
+    gen = runner_mod.GenerationConfig(max_tokens=PROFILE_TOKENS,
+                                      temperature=0.0, speculative=False)
+
+    def windows():
+        runner = runner_mod.LLMRunner(params, cfg, tok, gen, device=dev)
+        prompt = runner.build_prompt(SYSTEM, CONTEXT,
+                                     "What is in front of me right now?")
+
+        def decode():
+            while runner.generate_next_token() is not None:
+                pass
+        return runner, (lambda: runner.prepare_generation(prompt), decode)
+
+    runner, fns = windows()
+    wall = []
+    for fn in fns:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    tokens = len(runner.generated_ids)
+    _, fns = windows()
+    out = {}
+    for name, fn, ms, per in zip(("prefill", "decode"), fns, wall,
+                                 (1, max(tokens, 1))):
+        busy, n, by_name = device_breakdown(fn)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+        out[name] = {
+            "wall_ms": ms / per, "busy_ms": busy / per,
+            "idle_share": 1.0 - busy / ms, "launches": n / per,
+            "top": [[k[:80], t / per, c / per] for k, (t, c) in top]}
+    out["decode"]["tokens"] = tokens
+    log(f"  profile: prefill wall {out['prefill']['wall_ms']:.2f} ms busy "
+        f"{out['prefill']['busy_ms']:.2f} ms; decode {tokens} tokens, per "
+        f"token wall {out['decode']['wall_ms']:.2f} ms busy "
+        f"{out['decode']['busy_ms']:.2f} ms, "
+        f"{out['decode']['launches']:.0f} launches")
+    return out
+
+
 def expect_routes(launches, ran, idle, phase: str) -> None:
     """The kernels in ``ran`` launched on this path; those in ``idle``
     (routes it does not take) did not."""
@@ -570,7 +778,8 @@ def phase_entry(dev, llm, checkpoint, cli, counters):
         f"chars {text[:60]!r}; launches: {launches}")
     if rc != 0 or not text.strip():
         raise AssertionError(f"generate exited {rc} and printed {text!r}")
-    expect_routes(launches, ("q8_matmul",), ("q4_matmul_w4a8", *DIAGNOSTIC),
+    expect_routes(launches, ("q8_matmul",),
+                  ("q4_matmul_w4a8", "quantize_activations", *DIAGNOSTIC),
                   "phase 8")
 
 
@@ -603,29 +812,62 @@ def result_line(kind: str) -> str:
         "platform": "gpu", "kind": kind, "count": 1}})
 
 
-# name: (source, TPU kernel it replaces, the case whose times the JSON line
-# carries, the phase whose path counts its launches)
+# name: (source, TPU kernel it replaces, the cases whose times the JSON line
+# carries (the first at its top level), the phase whose path counts its
+# launches). quantize_activations is the W4A8 wrapper's first launch: it
+# replaces the pre-pass that runs before the Pallas W4A8 call.
 KERNELS = {
     "q4_matmul_w4a8": ("trackiellm_tpu_torch/csrc/q4_w4a8.cu",
-                       "trackiellm_tpu/ops/quant.py:662", "w_gu M=1", 5),
+                       "trackiellm_tpu/ops/quant.py:662",
+                       ("w_gu M=1", "w_gu M=512"), 5),
+    "quantize_activations": ("trackiellm_tpu_torch/csrc/q4_w4a8.cu",
+                             "trackiellm_tpu/ops/quant.py:595",
+                             ("M=1 K=4096", "M=512 K=4096"), 5),
     "flash_attention": ("trackiellm_tpu_torch/csrc/flash_attn.cu",
                         "trackiellm_tpu/ops/attention.py:176",
-                        "causal S=512 bfloat16", 5),
+                        ("causal S=512 bfloat16", "causal S=256 bfloat16"),
+                        5),
     "q8_matmul": ("trackiellm_tpu_torch/csrc/q8_matmul.cu",
-                  "trackiellm_tpu/ops/quant.py:184", "w_gu M=1", 6),
+                  "trackiellm_tpu/ops/quant.py:184", ("w_gu M=1",), 6),
     "q4_matmul_f32a": ("trackiellm_tpu_torch/csrc/q4_f32a.cu",
-                       "trackiellm_tpu/ops/quant.py:272", "w_gu M=1", 7),
+                       "trackiellm_tpu/ops/quant.py:272", ("w_gu M=1",), 7),
     "fused_mlp_q4": ("trackiellm_tpu_torch/csrc/fused_mlp_q4.cu",
-                     "trackiellm_tpu/ops/fused.py:144", "M=1 bfloat16", 7),
+                     "trackiellm_tpu/ops/fused.py:144", ("M=1 bfloat16",), 7),
     "q4_matmul_stream": ("trackiellm_tpu_torch/csrc/q4_stream.cu",
-                         "trackiellm_tpu/ops/quant.py:389", "w_gu M=1", 9),
+                         "trackiellm_tpu/ops/quant.py:389", ("w_gu M=1",), 9),
     "stream": ("trackiellm_tpu_torch/csrc/diag_probes.cu",
-               "tools/diag_envelope.py:60", "512 MiB", 9),
+               "tools/diag_envelope.py:60", ("512 MiB",), 9),
     "grid64": ("trackiellm_tpu_torch/csrc/diag_probes.cu",
-               "tools/diag_scan_overhead.py:70", "(8, 128)", 9),
+               "tools/diag_scan_overhead.py:70", ("(8, 128)",), 9),
     "chain_tiny": ("trackiellm_tpu_torch/csrc/diag_probes.cu",
-                   "tools/diag_overhead.py:101", "64 calls (8, 128)", 9),
+                   "tools/diag_overhead.py:101", ("64 calls (8, 128)",), 9),
 }
+
+
+def kernels_line(rows, launches) -> str:
+    """The ``{"kernels": [...]}`` line: per kernel, the main path's
+    launches and its headline cases' times, bound and library time."""
+    kernels = []
+    for name, (src, replaces, headlines, phase) in KERNELS.items():
+        cases = []
+        for case in headlines:
+            r = next(r for r in rows[name] if r["case"] == case)
+            device = r.get("device")
+            cases.append({
+                "case": case, "ms": r["ms"], "plain_ms": r["plain"],
+                "bound_ms": r["bound"], "bound_by": r["bound_by"],
+                "library_ms": r.get("library"),
+                "device_ms": device["total"] if device else None,
+                "library_device_ms": r.get("library_device"),
+                **({"unfused_ms": r["unfused"]} if "unfused" in r else {})})
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[phase][name],
+            "max_abs_err": max(r["err"] for r in rows[name]),
+            **{k: v for k, v in cases[0].items() if k != "case"},
+            "timed_case": headlines[0], "launches_phase": phase,
+            "cases": cases})
+    return json.dumps({"kernels": kernels})
 
 
 def main() -> int:
@@ -652,6 +894,7 @@ def main() -> int:
     from trackiellm_tpu_torch.ops import _build, attention, diag, fused, quant
 
     counters = {"q4_matmul_w4a8": quant.q4_matmul_w4a8,
+                "quantize_activations": quant.quantize_activations,
                 "flash_attention": attention.flash_attention,
                 "q8_matmul": quant.q8_matmul,
                 "q4_matmul_f32a": quant.q4_matmul_f32a,
@@ -676,15 +919,21 @@ def main() -> int:
     log("phase 5 slice (Mistral-7B, 32 layers, Q4, max_seq 512):")
     params4 = build_model(dev, llm, cfg, 4)
     launches[5] = drive(*slice_args, params4, cfg, counters, "abcd")
-    expect_routes(launches[5], ("q4_matmul_w4a8", "flash_attention"),
+    expect_routes(launches[5], ("q4_matmul_w4a8", "quantize_activations",
+                                "flash_attention"),
                   ("q8_matmul", "q4_matmul_f32a", "fused_mlp_q4",
                    *DIAGNOSTIC), "phase 5")
+    if launches[5]["quantize_activations"] != launches[5]["q4_matmul_w4a8"]:
+        raise AssertionError("phase 5: not one activation quantization per "
+                             "W4A8 matmul")
+    log(json.dumps({"profile": profile_path(dev, runner_mod, tokenizer_mod,
+                                            params4, cfg)}))
     log("phase 6 Q8 slice (Mistral-7B, 32 layers, Q8, max_seq 512):")
     params8 = build_model(dev, llm, cfg, 8)
     launches[6] = drive(*slice_args, params8, cfg, counters, "abc")
     expect_routes(launches[6], ("q8_matmul", "flash_attention"),
-                  ("q4_matmul_w4a8", "q4_matmul_f32a", "fused_mlp_q4",
-                   *DIAGNOSTIC), "phase 6")
+                  ("q4_matmul_w4a8", "quantize_activations", "q4_matmul_f32a",
+                   "fused_mlp_q4", *DIAGNOSTIC), "phase 6")
     del params8
     log("phase 7 opt-in Q4 routes (phase 5's model, TRACKIE_Q4_F32A=1, "
         "TRACKIE_FUSED_MLP=1):")
@@ -692,7 +941,8 @@ def main() -> int:
         launches[7] = drive(*slice_args, params4, cfg, counters, "ab")
     expect_routes(launches[7],
                   ("q4_matmul_f32a", "fused_mlp_q4", "flash_attention"),
-                  ("q4_matmul_w4a8", "q8_matmul", *DIAGNOSTIC), "phase 7")
+                  ("q4_matmul_w4a8", "quantize_activations", "q8_matmul",
+                   *DIAGNOSTIC), "phase 7")
     log("phase 8 entry point (2-layer Q8 checkpoint, generate):")
     phase_entry(dev, llm, checkpoint, cli, counters)
     log("phase 9 diagnostics (the three tools; phase 5's model cut to "
@@ -700,20 +950,8 @@ def main() -> int:
     launches[9] = phase_diagnostics(dev, params4, cfg, counters)
     del params4
 
-    kernels = []
-    for name, (src, replaces, headline, phase) in KERNELS.items():
-        head = next(r for r in rows[name] if r["case"] == headline)
-        entry = {
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[phase][name],
-            "max_abs_err": max(r["err"] for r in rows[name]),
-            "ms": head["ms"], "plain_ms": head["plain"],
-            "timed_case": headline, "launches_phase": phase}
-        if "unfused" in head:
-            entry["unfused_ms"] = head["unfused"]
-        kernels.append(entry)
     print(nvidia_smi(), flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(kernels_line(rows, launches), flush=True)
     print(result_line(torch.cuda.get_device_name(0)), flush=True)
     return 0
 

@@ -97,13 +97,20 @@ def test_attention_ref_aligns_query_and_key_ends():
     np.testing.assert_allclose(got, ref, rtol=0, atol=2e-5)
 
 
-@pytest.mark.parametrize("window,tiles", [(0, [0, 1, 2, 3]), (1, [2, 3]),
-                                          (33, [1, 2, 3]), (34, [0, 1, 2, 3])])
-def test_flash_tile_skip(window, tiles):
-    """Query tile 1 (rows 64..127) visits key tiles of 32 from the one that
-    holds its window's first key up to its diagonal."""
-    assert list(ta._tile_range(1, S // ta.BLOCK_K, True, window)) == tiles
-    assert list(ta._tile_range(1, 8, False, window)) == list(range(8))
+@pytest.mark.parametrize("dtype,window,tiles", [
+    (torch.float32, 0, [0, 1, 2, 3]), (torch.float32, 1, [2, 3]),
+    (torch.float32, 33, [1, 2, 3]), (torch.float32, 34, [0, 1, 2, 3]),
+    (torch.bfloat16, 0, [0, 1]), (torch.bfloat16, 1, [1]),
+    (torch.bfloat16, 65, [0, 1]), (torch.bfloat16, 2, [0, 1])])
+def test_flash_tile_skip(dtype, window, tiles):
+    """Query tile 1 (rows 64..127) visits key tiles (32 keys in f32, 64 in
+    bf16) from the one that holds its window's first key up to its
+    diagonal."""
+    block_k = ta.BLOCK_K[dtype]
+    assert list(ta._tile_range(1, S // block_k, True, window,
+                               block_k)) == tiles
+    assert list(ta._tile_range(1, 8, False, window, block_k)) == list(
+        range(8))
 
 
 def test_prefill_attention_dispatch_on_cpu_is_dense():

@@ -22,13 +22,15 @@ import torch
 from trackiellm_tpu.__main__ import main as jmain
 from trackiellm_tpu.models import checkpoint as jckpt
 from trackiellm_tpu.models import llm as jllm
-from trackiellm_tpu.utils.errors import TrackieError
+from trackiellm_tpu.utils import errors as jerrors
 from trackiellm_tpu_torch.__main__ import main as tmain
 from trackiellm_tpu_torch.models import checkpoint as tckpt
 from trackiellm_tpu_torch.models import llm as tllm
 from trackiellm_tpu_torch.models.bridge import params_from_jax
 from trackiellm_tpu_torch.ops.quant import QuantizedLinear
+from trackiellm_tpu_torch.utils.errors import ErrorCode, TrackieError
 
+CPU = torch.device("cpu")
 META = {"source": "test", "bits": 4, "vocab_pieces": None,
         "tokenizer_spec": None}
 
@@ -86,7 +88,7 @@ def test_jax_checkpoint_loads_byte_for_byte(tmp_path, bits):
     jp = _jax_params(bits)
     jcfg = jllm.LLMConfig.tiny()
     jckpt.save_checkpoint(str(tmp_path), jp, config=jcfg, metadata=META)
-    tp, tcfg, meta = tckpt.load_checkpoint(str(tmp_path))
+    tp, tcfg, meta = tckpt.load_checkpoint(str(tmp_path), device=CPU)
     _same_bytes(tp, jp)
     assert isinstance(tp["layers"]["wqkv"], QuantizedLinear)
     assert tp["tok_emb"].dtype == torch.bfloat16
@@ -141,7 +143,7 @@ def test_biased_v1_is_repacked(tmp_path, packing):
     jckpt.save_checkpoint(str(tmp_path), jp, config=jllm.LLMConfig.tiny())
     # biased-v1 keeps the high nibble biased by +8 too: flip its top bit.
     _rewrite(str(tmp_path), packing, repack=lambda a: a ^ np.uint8(0x80))
-    tp, _, _ = tckpt.load_checkpoint(str(tmp_path))
+    tp, _, _ = tckpt.load_checkpoint(str(tmp_path), device=CPU)
     _same_bytes(tp, jp)
     jl, _, _ = jckpt.load_checkpoint(str(tmp_path), device_put=False)
     _same_bytes(tp, jl)
@@ -152,7 +154,7 @@ def test_unknown_packing_raises(tmp_path):
                           config=jllm.LLMConfig.tiny())
     _rewrite(str(tmp_path), "nibble-v9")
     with pytest.raises(TrackieError, match="nibble-v9"):
-        tckpt.load_checkpoint(str(tmp_path))
+        tckpt.load_checkpoint(str(tmp_path), device=CPU)
 
 
 def test_other_families_raise_naming_their_roadmap_item(tmp_path):
@@ -165,19 +167,40 @@ def test_other_families_raise_naming_their_roadmap_item(tmp_path):
         sidecar["config_class"] = cls
         path.write_text(json.dumps(sidecar))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tckpt.load_checkpoint(str(tmp_path))
+            tckpt.load_checkpoint(str(tmp_path), device=CPU)
 
 
 def test_missing_checkpoint_raises(tmp_path):
     with pytest.raises(TrackieError):
-        tckpt.load_checkpoint(str(tmp_path / "nowhere"))
+        tckpt.load_checkpoint(str(tmp_path / "nowhere"), device=CPU)
 
 
 def test_params_load_onto_the_device_asked_for(tmp_path):
     jckpt.save_checkpoint(str(tmp_path), _jax_params(8),
                           config=jllm.LLMConfig.tiny())
-    tp, _, _ = tckpt.load_checkpoint(str(tmp_path), device=torch.device("cpu"))
+    tp, _, _ = tckpt.load_checkpoint(str(tmp_path), device=CPU)
     assert tp["layers"]["wo"].values.device.type == "cpu"
+
+
+def test_load_without_a_device_needs_a_card(tmp_path, monkeypatch):
+    """The default device is the CUDA card: with none, loading raises
+    instead of landing on the CPU."""
+    jckpt.save_checkpoint(str(tmp_path), _jax_params(8),
+                          config=jllm.LLMConfig.tiny())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(TrackieError, match="device=torch.device") as err:
+        tckpt.load_checkpoint(str(tmp_path))
+    assert err.value.code == ErrorCode.DEVICE_UNAVAILABLE
+
+
+def test_error_codes_match_the_jax_package():
+    """The port's copy of the errors module keeps every code's name and
+    value."""
+    assert ({c.name: int(c) for c in ErrorCode}
+            == {c.name: int(c) for c in jerrors.ErrorCode})
+    err = TrackieError(ErrorCode.FILE_NOT_FOUND, "x")
+    assert str(err) == str(jerrors.TrackieError(
+        jerrors.ErrorCode.FILE_NOT_FOUND, "x"))
 
 
 # --- generate ---------------------------------------------------------------

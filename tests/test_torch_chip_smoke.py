@@ -31,10 +31,14 @@ def test_result_line_says_one_card():
 
 
 # Every function of the JAX package and its tools that reaches
-# pl.pallas_call, by file and line, and the CUDA source that replaces it.
+# pl.pallas_call, by file and line, and the CUDA source that replaces it;
+# then the activation quantization that runs before the W4A8 Pallas call,
+# which the port's W4A8 wrapper launches as a kernel of its own.
 TPU_KERNELS = {
     "q4_matmul_w4a8": ("trackiellm_tpu/ops/quant.py:662", "q4_w4a8.cu",
                        "def q4_matmul_pallas_i8("),
+    "quantize_activations": ("trackiellm_tpu/ops/quant.py:595", "q4_w4a8.cu",
+                             "def quantize_activations_q8("),
     "flash_attention": ("trackiellm_tpu/ops/attention.py:176",
                         "flash_attn.cu", "def flash_attention("),
     "q8_matmul": ("trackiellm_tpu/ops/quant.py:184", "q8_matmul.cu",
@@ -55,11 +59,13 @@ TPU_KERNELS = {
 
 
 def test_kernels_line_lists_all_nine():
-    """KERNELS names every TPU kernel of the repo once: its source exists,
-    and ``replaces`` points at the line that defines the TPU function."""
+    """KERNELS names every TPU kernel of the repo once, and W4A8's
+    activation quantization: its source exists, ``replaces`` points at the
+    line that defines the JAX function, and each has a headline case."""
     kernels = _load().KERNELS
-    assert len(kernels) == 9 and kernels.keys() == TPU_KERNELS.keys()
-    for name, (src, replaces, _, phase) in kernels.items():
+    assert len(kernels) == 10 and kernels.keys() == TPU_KERNELS.keys()
+    for name, (src, replaces, headlines, phase) in kernels.items():
+        assert headlines and all(isinstance(h, str) for h in headlines)
         want, cu, definition = TPU_KERNELS[name]
         assert replaces == want
         assert src == f"trackiellm_tpu_torch/csrc/{cu}"
@@ -88,3 +94,38 @@ def test_fails_alone_in_a_directory(tmp_path):
                           capture_output=True, text=True, timeout=120,
                           env=env)
     assert proc.returncode != 0 and '"ok"' not in proc.stdout
+
+
+def test_bound_is_the_larger_of_bytes_and_operations():
+    """The bound of a kernel: its bytes over the card's memory rate or its
+    operations over the peak rate of their type, whichever takes longer."""
+    cs = _load()
+    x = torch.empty((1024, 1024), dtype=torch.float32)   # 4 MiB
+    ms, by = cs.bound_ms((x,), 0, "f32")
+    assert by == "bytes" and ms == 4 * 2 ** 20 / cs.HBM_BYTES_PER_S * 1e3
+    ms, by = cs.bound_ms((x,), 1e12, "int8")
+    assert by == "operations" and ms == 1e12 / cs.PEAK_OPS_PER_S["int8"] * 1e3
+    assert cs.attention_pairs(4, 0) == 10 and cs.attention_pairs(4, 2) == 7
+
+
+def test_kernels_line_carries_every_key():
+    """Each kernel of the JSON line has the keys the contract names, from
+    its first headline case, and every headline case listed."""
+    cs = _load()
+    rows = {name: [dict(case=case, err=0.5, ms=2.0, plain=3.0, bound=1.0,
+                        bound_by="bytes", library=None,
+                        device={"total": 1.5, "kernels": {}})
+                   for case in headlines]
+            for name, (_, _, headlines, _) in cs.KERNELS.items()}
+    launches = {phase: {name: 7 for name in cs.KERNELS}
+                for phase in (5, 6, 7, 9)}
+    kernels = json.loads(cs.kernels_line(rows, launches))["kernels"]
+    assert [k["name"] for k in kernels] == list(cs.KERNELS)
+    for k in kernels:
+        assert {"name", "route", "source", "replaces", "launches",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"} <= k.keys()
+        assert (k["route"], k["launches"], k["ms"], k["device_ms"]) == (
+            "cuda", 7, 2.0, 1.5)
+        assert [c["case"] for c in k["cases"]] == list(
+            cs.KERNELS[k["name"]][2])

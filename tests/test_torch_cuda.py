@@ -77,6 +77,104 @@ def test_w4a8_kernel_matches_plain(dev, m, group):
     assert _rel_l2(got, tq.q4_matmul_w4a8_ref(x, w.values, w.scales)) < 1e-5
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("group", [64, 256])
+def test_activation_quant_kernel_is_bit_exact(dev, group, dtype):
+    """The one-launch activation quantization equals the plain version bit
+    for bit, with an all-zero row (the 1e-12 floor) and a row of ties at .5
+    (absmax 127 gives scale 1: 2.5 -> 2, -3.5 -> -4, 0.5 -> 0)."""
+    g = torch.Generator(device=dev).manual_seed(group)
+    x = torch.randn((6, 4 * group), generator=g, device=dev) * 3.0
+    x[1] = 0.0
+    ties = torch.tensor([127.0, 2.5, -3.5, 0.5, -0.5, 1.5, 126.5, -126.5],
+                        device=dev)
+    x[2] = ties.repeat(x.shape[1] // ties.numel())
+    x = x.to(dtype)
+    before = tq.quantize_activations.launches
+    got = tq.quantize_activations(x, group)
+    torch.cuda.synchronize()
+    assert tq.quantize_activations.launches == before + 1
+    want = tq.quantize_activations_q8(x, group)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+    assert got[0][2, :8].tolist() == [127, 2, -4, 0, 0, 2, 126, -126]
+    assert torch.equal(got[1][1], torch.zeros_like(got[1][1]))
+
+
+@pytest.mark.parametrize("n", [4, 68, 4096])
+@pytest.mark.parametrize("m", [1, 3, 16, 17, 64, 100, 512])
+@pytest.mark.parametrize("group", [64, 256])
+def test_w4a8_kernel_one_group_per_half(dev, group, m, n):
+    """K = 2G (one group per half), N narrower than a 128-column tile and
+    not a multiple of 16, and M on both sides of the 16-row tile: the
+    kernel follows the plain version and repeats itself bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(m * n + group)
+    w = tq.quantize_q4(torch.randn((2 * group, n), generator=g, device=dev),
+                       group)
+    x = torch.randn((m, 2 * group), generator=g, device=dev).to(
+        torch.bfloat16)
+    got = tq.q4_matmul_w4a8(x, w.values, w.scales)
+    torch.cuda.synchronize()
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    assert _rel_l2(got, tq.q4_matmul_w4a8_ref(x, w.values, w.scales)) < 1e-5
+    assert torch.equal(got, tq.q4_matmul_w4a8(x, w.values, w.scales))
+
+
+def test_w4a8_launches_one_quantization_per_matmul(dev):
+    w = tq.quantize_q4(torch.randn((1024, 256), device=dev), 256)
+    before = (tq.quantize_activations.launches, tq.q4_matmul_w4a8.launches)
+    for m in (1, 40):
+        tq.q4_matmul_w4a8(torch.randn((m, 1024), device=dev), w.values,
+                          w.scales)
+    assert (tq.quantize_activations.launches - before[0],
+            tq.q4_matmul_w4a8.launches - before[1]) == (2, 2)
+
+
+def test_w4a8_refuses_other_dtypes_before_launching(dev):
+    w = tq.quantize_q4(torch.randn((512, 256), device=dev), 64)
+    before = (tq.quantize_activations.launches, tq.q4_matmul_w4a8.launches)
+    with pytest.raises(TypeError):
+        tq.q4_matmul_w4a8(torch.ones((2, 512), dtype=torch.float64,
+                                    device=dev), w.values, w.scales)
+    assert (tq.quantize_activations.launches,
+            tq.q4_matmul_w4a8.launches) == before
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS) + ["window17"])
+@pytest.mark.parametrize("s", [64, 256, 512])
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_flash_tensor_core_kernel(dev, d, s, variant):
+    """The bf16 kernel against its plain twin (same tiles, P rounded to
+    bf16) and the dense oracle, with a window shorter than a key tile."""
+    g = torch.Generator(device=dev).manual_seed(s + d)
+    q, k, v = (torch.randn((h, s, d), generator=g, device=dev).to(
+        torch.bfloat16) for h in (8, 2, 2))
+    kw = {"window": 17} if variant == "window17" else dict(VARIANTS[variant])
+    if kw.pop("sinks", False):
+        kw["sinks"] = torch.randn((8,), generator=g, device=dev)
+    got = ta.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    for ref in (ta.flash_attention_ref(q, k, v, **kw),
+                ta.attention_ref(q, k, v, **kw)):
+        assert _rel_l2(got, ref) < 1e-2
+        assert (got.float() - ref.float()).abs().max().item() < 3e-2
+
+
+def test_f32_flash_keeps_f32_math(dev):
+    """f32 stays on the CUDA-core kernel: within 1e-5 of its plain twin,
+    which bf16 products could not reach."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn((8, 256, 128), generator=g, device=dev)
+               for _ in range(3))
+    k, v = k[:2].contiguous(), v[:2].contiguous()
+    got = ta.flash_attention(q, k, v, window=100)
+    assert got.dtype == torch.float32
+    assert _rel_l2(got, ta.flash_attention_ref(q, k, v, window=100)) < 1e-5
+
+
 def test_w4a8_kernel_is_deterministic(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     w = tq.quantize_q4(torch.randn((4096, 4096), generator=g, device=dev))

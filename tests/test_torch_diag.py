@@ -11,6 +11,7 @@ for control flow only: a CPU time is no device metric.
 """
 
 import functools
+import pathlib
 
 import numpy as np
 import pytest
@@ -25,7 +26,7 @@ from trackiellm_tpu_torch.models import llm
 from trackiellm_tpu_torch.ops import diag, quant
 from trackiellm_tpu_torch.tools import (capture, device_ms, diag_envelope,
                                         diag_overhead, diag_scan_overhead,
-                                        host_ms)
+                                        host_ms, kernel_times)
 
 CPU = torch.device("cpu")
 
@@ -238,3 +239,35 @@ def test_tools_exit_non_zero_without_a_card(tool, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert tool.main() != 0
     assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_kernel_times_exits_non_zero_without_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert kernel_times.main([]) != 0
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_kernel_times_reads_this_checkouts_chip_smoke():
+    """The tool times with the chip_smoke.py beside it, whichever checkout's
+    port it imports."""
+    cs = kernel_times._chip_smoke()
+    assert pathlib.Path(cs.__file__) == kernel_times.CHECKOUT / "chip_smoke.py"
+    assert callable(cs.time_ms) and callable(cs.device_only_ms)
+    assert set(cs.MISTRAL_SHAPES) >= {"w_gu"}
+
+
+
+def test_kernel_times_sums_kernels_whose_cut_names_collide():
+    class FakeTimers:
+        @staticmethod
+        def device_only_ms(fn):
+            return {"total": 3.0, "kernels": {"k" * 80: 1.0,
+                                              "k" * 72 + "x": 2.0,
+                                              "other": 0.5}}
+
+        @staticmethod
+        def time_ms(fn):
+            return 5.0
+    got = kernel_times._times(FakeTimers, lambda: None)
+    assert got == {"ms": 5.0, "device_ms": 3.0,
+                   "device_kernels": {"k" * 72: 3.0, "other": 0.5}}

@@ -84,6 +84,12 @@ def test_activation_quantization_bit_identical(group):
     np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
     np.testing.assert_array_equal(tsx.numpy(), np.asarray(jsx))
     np.testing.assert_array_equal(tsum.numpy(), np.asarray(jsum))
+    # The kernel's wrapper takes the plain version on a CPU tensor.
+    for got, want in zip(tq.quantize_activations(torch.from_numpy(x), group),
+                         (tx, tsx, tsum)):
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        tq.quantize_activations(torch.from_numpy(x)[:, :group + 1], group)
 
 
 @pytest.mark.parametrize("group", GROUPS)
@@ -122,20 +128,40 @@ def test_w4a8_bf16_activations_follow_the_f32_path():
     assert _rel_l2(out, ref) < 1e-5
 
 
+MISTRAL_KN = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
+              (4096, 32000)]
+
+
+def _check_plan(plan, m, n, n_groups, bm, bn):
+    """Splits are whole groups, cover every group exactly once, and fill
+    the card (four blocks per SM) where the groups allow it."""
+    got_bm, splits, per_split = plan
+    assert got_bm == bm
+    assert 1 <= splits <= n_groups
+    assert (splits - 1) * per_split < n_groups <= splits * per_split
+    tiles = -(-n // bn) * -(-m // bm)
+    assert tiles * splits >= min(4 * 132, tiles * n_groups)
+
+
+@pytest.mark.parametrize("m,expect_bm", [(1, 16), (4, 16), (8, 16), (16, 16),
+                                         (17, 64), (64, 64), (512, 64)])
+def test_w4a8_plan(m, expect_bm):
+    """The tensor-core W4A8 kernel's plan: 128-column tiles, 16 rows up to
+    M = 16 (decode pads M to one m16 slab), 64 above."""
+    for k, n in MISTRAL_KN:
+        ngh = k // 2 // 256
+        _check_plan(tq._w4a8_plan(m, n, ngh), m, n, ngh, expect_bm,
+                    tq.W4A8_BN)
+
+
 @pytest.mark.parametrize("m,expect_bm", [(1, 4), (4, 4), (8, 16), (16, 16),
                                          (64, 64), (512, 64)])
-def test_w4a8_plan(m, expect_bm):
-    """Tile rows cover M with the least waste; splits are whole groups,
-    cover every group exactly once, and fill the card at decode."""
-    for k, n in [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
-                 (4096, 32000)]:
+def test_split_k_plan(m, expect_bm):
+    """The f32-activation kernels' plan (Q8, f32a): 64-column tiles whose
+    rows cover M with the least waste."""
+    for k, n in MISTRAL_KN:
         ngh = k // 2 // 256
-        bm, splits, per_split = tq._split_k_plan(m, n, ngh)
-        assert bm == expect_bm
-        assert 1 <= splits <= ngh
-        assert (splits - 1) * per_split < ngh <= splits * per_split
-        blocks = -(-n // 64) * -(-m // bm) * splits
-        assert blocks >= min(4 * 132, -(-n // 64) * -(-m // bm) * ngh)
+        _check_plan(tq._split_k_plan(m, n, ngh), m, n, ngh, expect_bm, 64)
 
 
 def test_dispatch_rules():
@@ -150,6 +176,10 @@ def test_dispatch_rules():
     with pytest.raises(TypeError):
         tq.q4_matmul_w4a8(torch.ones((2, 128)), torch.zeros((64, 8),
                           dtype=torch.int8), torch.ones((2, 8)))
+    with pytest.raises(TypeError):      # x must be f32, bf16 or f16
+        tq.q4_matmul_w4a8(torch.ones((2, 128), dtype=torch.float64),
+                          torch.zeros((64, 8), dtype=torch.uint8),
+                          torch.ones((2, 8)))
 
 
 # --- the f32-activation kernels: Q8 and Q4 under TRACKIE_Q4_F32A ------------

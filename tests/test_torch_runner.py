@@ -272,21 +272,25 @@ def test_grammar_modes_raise(kw):
 
 def test_port_imports_no_jax():
     """The port must run where JAX is absent: importing its runner, fused
-    block, checkpoint reader, CLI, probes and diagnostic tools pulls in no
-    JAX module and none of the JAX package's tools (this test process has
-    JAX loaded already, hence the subprocess)."""
+    block, checkpoint reader, CLI, probes, diagnostic tools and
+    chip_smoke.py pulls in no JAX module, no module of the JAX package
+    (``trackiellm_tpu`` or ``trackiellm_tpu.*``, even one that imports no
+    JAX) and none of the JAX package's tools (this test process has JAX
+    loaded already, hence the subprocess)."""
     code = ("import sys, trackiellm_tpu_torch.llm.runner, "
             "trackiellm_tpu_torch.models.bridge, "
             "trackiellm_tpu_torch.ops.fused, "
             "trackiellm_tpu_torch.ops.diag, "
             "trackiellm_tpu_torch.models.checkpoint, "
+            "trackiellm_tpu_torch.utils.errors, "
             "trackiellm_tpu_torch.tools.diag_overhead, "
             "trackiellm_tpu_torch.tools.diag_scan_overhead, "
             "trackiellm_tpu_torch.tools.diag_envelope, "
-            "trackiellm_tpu_torch.__main__; "
-            "bad = sorted(m for m in sys.modules if m in ('jax', 'tools') or "
-            "m.startswith(('jax.', 'jaxlib', 'trackiellm_tpu.llm', "
-            "'trackiellm_tpu.ops', 'trackiellm_tpu.models', 'tools.'))); "
+            "trackiellm_tpu_torch.tools.kernel_times, "
+            "trackiellm_tpu_torch.__main__, chip_smoke; "
+            "bad = sorted(m for m in sys.modules if m in "
+            "('jax', 'jaxlib', 'tools', 'trackiellm_tpu') or m.startswith("
+            "('jax.', 'jaxlib.', 'trackiellm_tpu.', 'tools.'))); "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120,

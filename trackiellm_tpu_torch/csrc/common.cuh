@@ -42,4 +42,22 @@ inline void launch_sum_splits(const float* partial, float* out, int splits,
       partial, out, splits, count);
 }
 
+// Raises `kernel`'s dynamic shared-memory cap to `bytes` on the current
+// device. The cap is a per-device attribute, so `raised` (one per kernel,
+// kept by the caller) records the devices already done, and a later call on
+// one of them costs only cudaGetDevice. Returns a cudaError_t.
+template <typename Kernel>
+inline int raise_smem_cap(Kernel kernel, int bytes,
+                          unsigned long long& raised) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (raised & bit) return 0;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) raised |= bit;
+  return static_cast<int>(err);
+}
+
 }  // namespace

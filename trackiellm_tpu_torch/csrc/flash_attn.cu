@@ -9,17 +9,35 @@
 // per-head logit joins the softmax at the end and is dropped after.
 //
 // What bounds it on the H100: at the prefill buckets (S = 256, 512) the
-// work is small (4 * H * S^2 * D / 2 flops with the causal skip), and this
-// first kernel runs on the f32 CUDA cores, so shared-memory reads feeding
-// the FMAs bound it. Nothing of size S x S ever reaches device memory.
+// bytes of q, k, v and out (10.5 MB at H = 32, Hk = 8, D = 128, S = 512:
+// 3.1 us at 3.35 TB/s) outweigh the causal products (2.2 GFLOP: 2.2 us at
+// the 989 TFLOP/s bf16 peak). Nothing of size S x S reaches device memory.
 //
-// Design: one block per (head, 64-query tile); two threads share a query
-// row, each holding half of q and of the output accumulator in registers,
-// and combine their half dot products with one shuffle. K and V advance in
-// 32-key tiles staged in shared memory as f32; tiles wholly above the
-// diagonal, or wholly outside the window, are skipped, as on the TPU. Each
-// tile's scores stay in registers: one max, one rescale of the
-// accumulator per tile. wgmma/TMA (an FA3-style kernel) is later work.
+// Two kernels, chosen by dtype:
+//
+// bf16 (flash_mma_kernel, the model's path): FA2-shaped on the tensor cores,
+// mma.sync.m16n8k16 bf16 with f32 accumulators. One block of 4 warps per
+// (head, 64-query tile); each warp owns 16 query rows, whose q fragments are
+// loaded once through ldmatrix. K and V advance in 64-key tiles through a
+// two-stage cp.async ring in shared memory, rows padded by 16 bytes so that
+// ldmatrix is free of bank conflicts. S = Q K^T takes K as the "col" operand
+// as it lies (D-contiguous); scale, softcap and the masks act on the f32
+// accumulator fragment, and each row's max and sum reduce across the 4
+// lanes that hold it with two shuffles. P is rounded to bf16 in registers
+// and reused as the A fragment of P V (it never touches shared memory); V
+// reaches the B operand through ldmatrix.trans. The row sum l adds the f32
+// P. Tiles wholly above the diagonal or wholly before the window are
+// skipped (ops/attention.py:_tile_range with 64-key tiles). A block serves
+// one query head: the rep = H / Hk heads of one kv head read the same K/V
+// tiles from L2, not from one shared-memory copy.
+//
+// f32 (flash_fwd_kernel, first kernel of the port, kept for its 1e-5
+// tolerance): one block per (head, 64-query tile); two threads share a
+// query row, each holding half of q and of the output accumulator in
+// registers, and combine their half dot products with one shuffle. K and V
+// advance in 32-key tiles staged in shared memory as f32, with the same
+// tile skips. Each tile's scores stay in registers: one max, one rescale of
+// the accumulator per tile.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -168,11 +186,272 @@ void launch(const void* q, const void* k, const void* v, const float* sinks,
       causal, window, softcap);
 }
 
+// --- bf16 on the tensor cores -----------------------------------------------
+
+constexpr int kMmaBQ = 64;        // query rows per block, 16 per warp
+constexpr int kMmaBK = 64;        // keys per tile
+constexpr int kMmaThreads = 128;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// Two f32 as one bf16x2 word, the first in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int D>
+constexpr int mma_smem_bytes() {
+  return 5 * kMmaBQ * (D + 8) * 2;  // q, then two stages of k and of v
+}
+
+// Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4): A holds rows
+// g and g + 8, columns 2t, 2t + 1 (+8); B holds k = 2t, 2t + 1 (+8) of
+// column g; the f32 accumulator holds rows g and g + 8, columns 2t, 2t + 1.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ sinks,
+    __nv_bfloat16* __restrict__ out, int H, int Hk, int S, float scale,
+    int causal, int window, float softcap) {
+  constexpr int LD = D + 8;            // smem row, elements (+16 bytes)
+  constexpr int TILE = kMmaBQ * LD;    // elements of one 64-row tile
+  constexpr int CPR = D / 8;           // 16-byte chunks per row
+  constexpr int NS = kMmaBK / 8;       // n8 tiles of the scores
+  constexpr int NO = D / 8;            // n8 tiles of the output
+  extern __shared__ __align__(16) unsigned char flash_smem[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(flash_smem);
+  __nv_bfloat16* sK = sQ + TILE;       // [2][64][LD]
+  __nv_bfloat16* sV = sK + 2 * TILE;   // [2][64][LD]
+
+  const int h = blockIdx.y;
+  const int q0 = blockIdx.x * kMmaBQ;
+  const int kvh = h / (H / Hk);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  // Tile range this block needs (ops/attention.py:_tile_range).
+  const int n_tiles = S / kMmaBK;
+  int kt_begin = 0, kt_end = n_tiles;
+  if (causal) {
+    kt_end = min(n_tiles, (q0 + kMmaBQ - 1) / kMmaBK + 1);
+    if (window > 0) {
+      const int first_key = q0 - window + 1;
+      kt_begin = first_key > 0 ? first_key / kMmaBK : 0;
+    }
+  }
+
+  const __nv_bfloat16* qb = q + ((size_t)h * S + q0) * D;
+  const __nv_bfloat16* kb = k + (size_t)kvh * S * D;
+  const __nv_bfloat16* vb = v + (size_t)kvh * S * D;
+  for (int i = tid; i < kMmaBQ * CPR; i += kMmaThreads) {
+    const int r = i / CPR, c = i % CPR;
+    cp_async16(sQ + r * LD + c * 8, qb + (size_t)r * D + c * 8);
+  }
+  auto load_kv = [&](int kt, int stage) {
+    const size_t base = (size_t)kt * kMmaBK * D;
+    for (int i = tid; i < kMmaBK * CPR; i += kMmaThreads) {
+      const int r = i / CPR, c = i % CPR;
+      cp_async16(sK + stage * TILE + r * LD + c * 8, kb + base + r * D + c * 8);
+      cp_async16(sV + stage * TILE + r * LD + c * 8, vb + base + r * D + c * 8);
+    }
+  };
+  load_kv(kt_begin, 0);
+  cp_async_commit();
+
+  uint32_t qf[D / 16][4];
+  float o[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  const int row0 = q0 + warp * 16 + g;  // this lane's rows: row0, row0 + 8
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int stage = (kt - kt_begin) & 1;
+    if (kt + 1 < kt_end) load_kv(kt + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait1();  // all but the newest group: tile kt (and q) landed
+    __syncthreads();
+    if (kt == kt_begin) {
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        ldsm_x4(qf[ks], sQ + (warp * 16 + (lane & 15)) * LD + ks * 16 +
+                            (lane >> 4) * 8);
+    }
+    const __nv_bfloat16* sk = sK + stage * TILE;
+    const __nv_bfloat16* sv = sV + stage * TILE;
+
+    // S = Q K^T (16 x 64 per warp), f32.
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, sk + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD +
+                       ks * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * np], qf[ks], b[0], b[1]);
+        mma_bf16(s[2 * np + 1], qf[ks], b[2], b[3]);
+      }
+    }
+
+    // Scale, softcap, masks; the rows' max over the tile.
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale;
+        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+        if (causal) {
+          const int key = kt * kMmaBK + j * 8 + 2 * t + (e & 1);
+          const int qi = row0 + 8 * (e >> 1);
+          bool ok = key <= qi;
+          if (window > 0) ok = ok && key > qi - window;
+          if (!ok) x = kNegInf;
+        }
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      alpha[r] = expf(m_run[r] - m_new);
+      m_run[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - m_run[e >> 1]);
+        rs[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+      l_run[r] = l_run[r] * alpha[r] + rs[r];
+    }
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+
+    // O += P V: P in bf16 as the A fragment, V through ldmatrix.trans.
+#pragma unroll
+    for (int kk = 0; kk < kMmaBK / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, sv + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
+                                  LD + dp * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * dp], a, b[0], b[1]);
+        mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // this stage is free for the copies of tile kt + 2
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float denom = l_run[r];
+    if (sinks != nullptr) {
+      const float sink = sinks[h];
+      const float m_tot = fmaxf(m_run[r], sink);
+      const float a = expf(m_run[r] - m_tot);
+      denom = denom * a + expf(sink - m_tot);
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        o[j][2 * r] *= a;
+        o[j][2 * r + 1] *= a;
+      }
+    }
+    inv[r] = 1.f / fmaxf(denom, 1e-30f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    __nv_bfloat16* op = out + ((size_t)h * S + row0 + 8 * r) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(op + j * 8) = __floats2bfloat162_rn(
+          o[j][2 * r] * inv[r], o[j][2 * r + 1] * inv[r]);
+  }
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v,
+               const float* sinks, void* out, int H, int Hk, int S,
+               float scale, int causal, int window, float softcap,
+               cudaStream_t stream) {
+  if (S % kMmaBK) return -1;
+  constexpr int bytes = mma_smem_bytes<D>();
+  static unsigned long long raised = 0;  // devices whose cap is set
+  const int err = raise_smem_cap(flash_mma_kernel<D>, bytes, raised);
+  if (err != 0) return err;
+  dim3 grid(S / kMmaBQ, H);
+  flash_mma_kernel<D><<<grid, kMmaThreads, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), sinks,
+      static_cast<__nv_bfloat16*>(out), H, Hk, S, scale, causal, window,
+      softcap);
+  return 0;
+}
+
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16. sinks: (H,) f32 or null. scale: the final score
-// scale (the wrapper resolves 0 to 1/sqrt(D)). Returns a cudaError_t, or -1
-// for arguments the kernel does not take.
+// dtype: 0 = f32 (flash_fwd_kernel), 1 = bf16 (flash_mma_kernel). sinks:
+// (H,) f32 or null. scale: the final score scale (the wrapper resolves 0 to
+// 1/sqrt(D)). Returns a cudaError_t, or -1 for arguments the kernel does not
+// take.
 extern "C" int trackie_flash_attn(const void* q, const void* k, const void* v,
                                   const void* sinks, void* out, int H, int Hk,
                                   int S, int D, int dtype, float scale,
@@ -181,6 +460,7 @@ extern "C" int trackie_flash_attn(const void* q, const void* k, const void* v,
   if (H < 1 || Hk < 1 || H % Hk || S < kBQ || S % kBQ) return -1;
   auto s = static_cast<cudaStream_t>(stream);
   auto* sk = static_cast<const float*>(sinks);
+  int status = 0;
   if (dtype == 0 && D == 64)
     launch<float, 64>(q, k, v, sk, out, H, Hk, S, scale, causal, window,
                       softcap, s);
@@ -188,12 +468,13 @@ extern "C" int trackie_flash_attn(const void* q, const void* k, const void* v,
     launch<float, 128>(q, k, v, sk, out, H, Hk, S, scale, causal, window,
                        softcap, s);
   else if (dtype == 1 && D == 64)
-    launch<__nv_bfloat16, 64>(q, k, v, sk, out, H, Hk, S, scale, causal,
-                              window, softcap, s);
+    status = launch_mma<64>(q, k, v, sk, out, H, Hk, S, scale, causal,
+                            window, softcap, s);
   else if (dtype == 1 && D == 128)
-    launch<__nv_bfloat16, 128>(q, k, v, sk, out, H, Hk, S, scale, causal,
-                               window, softcap, s);
+    status = launch_mma<128>(q, k, v, sk, out, H, Hk, S, scale, causal,
+                             window, softcap, s);
   else
     return -1;
+  if (status != 0) return status;
   return static_cast<int>(cudaGetLastError());
 }

@@ -182,15 +182,12 @@ int launch(const void* x, const uint8_t* packed, const float* scales,
   const int reduce = (kThreads * 4 / tile_n) * MT * tile_n * 4;
   const int smem = staging > reduce ? staging : reduce;
   auto kernel = q4_stream_kernel<T, MT>;
-  // Raise the dynamic shared memory cap once per instantiation, to the
-  // largest a block may take, so no later call (nor a graph capture) sets it.
-  static bool raised = false;
-  if (!raised) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    raised = true;
-  }
+  // Raise the dynamic shared memory cap once per instantiation and device,
+  // to the largest a block may take, so no later call (nor a graph capture)
+  // sets it.
+  static unsigned long long raised = 0;
+  const int err = raise_smem_cap(kernel, kMaxSmem, raised);
+  if (err != 0) return err;
   dim3 grid(N / tile_n, (M + MT - 1) / MT);
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(x), packed,
                                            scales, out, M, K, N, G, tile_k,

@@ -23,10 +23,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from trackiellm_tpu.utils.errors import ErrorCode, TrackieError
 from trackiellm_tpu_torch.llm import sampling
 from trackiellm_tpu_torch.llm.tokenizer import ByteTokenizer, Tokenizer
 from trackiellm_tpu_torch.models import llm as llm_model
+from trackiellm_tpu_torch.utils.errors import ErrorCode, TrackieError
 
 log = logging.getLogger("trackiellm_tpu_torch.llm.runner")
 

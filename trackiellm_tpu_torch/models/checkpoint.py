@@ -27,9 +27,9 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from trackiellm_tpu.utils.errors import ErrorCode, TrackieError
 from trackiellm_tpu_torch.models.llm import LLMConfig
 from trackiellm_tpu_torch.ops.quant import QuantizedLinear
+from trackiellm_tpu_torch.utils.errors import ErrorCode, TrackieError
 
 _CONFIG_FILE = "config.json"
 _TREE_FILE = "tree.json"
@@ -185,10 +185,19 @@ def _config(sidecar: Dict[str, Any], directory: str) -> Optional[LLMConfig]:
 def load_checkpoint(directory: str, device: Optional[torch.device] = None,
                     ) -> Tuple[Any, Optional[LLMConfig], Dict]:
     """Load (params on ``device``, config or None, metadata). Legacy
-    biased-v1 Q4 values are repacked; an unknown Q4 packing raises."""
+    biased-v1 Q4 values are repacked; an unknown Q4 packing raises.
+    ``device`` defaults to the current CUDA card; with no card it raises
+    rather than fall back to the CPU, which must be asked for."""
     tree_path = os.path.join(directory, _TREE_FILE)
     if not os.path.exists(tree_path):
         raise TrackieError(ErrorCode.FILE_NOT_FOUND, directory)
+    if device is None:
+        if not torch.cuda.is_available():
+            raise TrackieError(
+                ErrorCode.DEVICE_UNAVAILABLE,
+                "no CUDA device: pass device=torch.device('cpu') to load "
+                "onto the CPU")
+        device = torch.device("cuda", torch.cuda.current_device())
     with open(tree_path, encoding="utf-8") as f:
         spec = json.load(f)
     with open(os.path.join(directory, _CONFIG_FILE), encoding="utf-8") as f:

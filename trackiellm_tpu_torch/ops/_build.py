@@ -35,6 +35,8 @@ _SIGNATURES = {
     # xq, sx, sxsum, packed, scales, out, partial,
     # M, K, N, G, BM, splits, groups_per_split, stream
     "trackie_q4_w4a8": (_P,) * 7 + (_I,) * 7 + (_P,),
+    # x, xq, sx, sxsum, M, K, G, dtype, stream
+    "trackie_quantize_act": (_P,) * 4 + (_I,) * 4 + (_P,),
     # q, k, v, sinks, out, H, Hk, S, D, dtype, scale, causal, window,
     # softcap, stream
     "trackie_flash_attn": (_P,) * 5 + (_I,) * 5 + (_F, _I, _I, _F, _P),

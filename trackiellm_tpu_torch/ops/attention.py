@@ -1,9 +1,10 @@
 """Attention: flash prefill (CUDA kernel) and cached decode (torch ops).
 
 Port of ``trackiellm_tpu/ops/attention.py``. ``flash_attention`` wraps the
-hand-written kernel ``csrc/flash_attn.cu`` that replaces the Pallas
-``flash_attention``; ``flash_attention_ref`` is its plain twin, the same
-tiled online softmax with the same tile skips, in torch ops.
+hand-written kernels of ``csrc/flash_attn.cu`` that replace the Pallas
+``flash_attention``: bf16 runs on the tensor cores, f32 on the CUDA cores.
+``flash_attention_ref`` is their plain twin, the same tiled online softmax
+with the same tiles and tile skips, in torch ops.
 ``attention_ref`` mirrors the dense ``attention_xla`` oracle, and
 ``decode_attention`` stays plain torch ops, as it is plain XLA in the
 reference.
@@ -20,9 +21,10 @@ from trackiellm_tpu_torch.ops import _build
 from trackiellm_tpu_torch.ops.backend import is_cuda
 
 NEG_INF = -1e30
-# Tiles of the CUDA kernel, which its plain twin walks the same way.
+# Tiles of the CUDA kernels, which their plain twin walks the same way:
+# 64 query rows, and keys in tiles of 64 (bf16, tensor cores) or 32 (f32).
 BLOCK_Q = 64
-BLOCK_K = 32
+BLOCK_K = {torch.bfloat16: 64, torch.float32: 32}
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -59,17 +61,19 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("hqk,hkd->hqd", p, v.float()).to(q.dtype)
 
 
-def _tile_range(qt: int, n_tiles: int, causal: bool, window: int):
-    """k tiles a query tile visits: causal skips tiles wholly above the
-    diagonal, a window also those wholly before it (as the TPU kernel)."""
+def _tile_range(qt: int, n_tiles: int, causal: bool, window: int,
+                block_k: int):
+    """k tiles of ``block_k`` keys a query tile visits: causal skips tiles
+    wholly above the diagonal, a window also those wholly before it (as the
+    TPU kernel)."""
     if not causal:
         return range(n_tiles)
     q_lo, q_hi = qt * BLOCK_Q, qt * BLOCK_Q + BLOCK_Q - 1
-    end = min(n_tiles, q_hi // BLOCK_K + 1)
+    end = min(n_tiles, q_hi // block_k + 1)
     begin = 0
     if window > 0:
         first_key = q_lo - window + 1
-        begin = first_key // BLOCK_K if first_key > 0 else 0
+        begin = first_key // block_k if first_key > 0 else 0
     return range(begin, end)
 
 
@@ -77,11 +81,16 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int = 0,
                         softcap: float = 0.0, scale: float = 0.0,
                         sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain twin of the flash kernel: 64-query tiles, 32-key tiles, an f32
-    online softmax with one rescale per tile, masked scores at -1e30 and
-    the sink logit folded into the final denominator."""
+    """Plain twin of the flash kernels: 64-query tiles, key tiles of
+    ``BLOCK_K[dtype]``, an f32 online softmax with one rescale per tile,
+    masked scores at -1e30 and the sink logit folded into the final
+    denominator. In bf16 the probabilities are rounded to bf16 before P V,
+    as the tensor-core kernel feeds them to its products (the row sums add
+    the f32 values); the products are summed in f32."""
     _check_flash_operands(q, k, v, sinks)
     h, s, d = q.shape
+    block_k = BLOCK_K[q.dtype]
+    round_p = q.dtype == torch.bfloat16
     rep = h // k.shape[0]
     scale = scale or 1.0 / math.sqrt(d)
     kf = k.float().repeat_interleave(rep, dim=0)
@@ -94,8 +103,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = torch.full((h, BLOCK_Q, 1), NEG_INF, device=q.device)
         l = torch.zeros((h, BLOCK_Q, 1), device=q.device)
         acc = torch.zeros((h, BLOCK_Q, d), device=q.device)
-        for kt in _tile_range(qt, s // BLOCK_K, causal, window):
-            sl = slice(kt * BLOCK_K, (kt + 1) * BLOCK_K)
+        for kt in _tile_range(qt, s // block_k, causal, window, block_k):
+            sl = slice(kt * block_k, (kt + 1) * block_k)
             sc = torch.einsum("hqd,hkd->hqk", qq, kf[:, sl]) * scale
             if softcap > 0.0:
                 sc = softcap * torch.tanh(sc / softcap)
@@ -109,6 +118,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             alpha = torch.exp(m - m_new)
             p = torch.exp(sc - m_new)
             l = l * alpha + p.sum(dim=-1, keepdim=True)
+            if round_p:
+                p = p.to(torch.bfloat16).float()
             acc = acc * alpha + torch.einsum("hqk,hkd->hqd", p, vf[:, sl])
             m = m_new
         if sinks is not None:
@@ -149,8 +160,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Replaces ``trackiellm_tpu/ops/attention.py:flash_attention``. A CUDA
     tensor launches ``csrc/flash_attn.cu`` (see its header for what bounds
-    it on the H100 and what its design does about that) or raises; a CPU
-    tensor takes :func:`flash_attention_ref`."""
+    it on the H100 and what its design does about that): bf16 the
+    tensor-core kernel, f32 the CUDA-core one, chosen by dtype; or it
+    raises. A CPU tensor takes :func:`flash_attention_ref`."""
     _check_flash_operands(q, k, v, sinks)
     if not is_cuda(q):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -159,6 +171,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k, v must be on one device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k, v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k, v must be 16-byte aligned")
     h, s, d = q.shape
     sinks32 = None
     if sinks is not None:

@@ -7,7 +7,9 @@ and ``w[K/2 + r, n]`` in two's complement in the high nibble; scales are f32
 (K/G, N) for both.
 
 Four hand-written kernels, each beside its plain PyTorch twin (``*_ref``):
-``q4_matmul_w4a8`` (``csrc/q4_w4a8.cu``) replaces ``q4_matmul_pallas_i8``,
+``q4_matmul_w4a8`` (``csrc/q4_w4a8.cu``: its activation quantization,
+``quantize_activations``, and an s8 tensor-core matmul) replaces
+``q4_matmul_pallas_i8``,
 ``q8_matmul`` (``csrc/q8_matmul.cu``) replaces ``q8_matmul_pallas``,
 ``q4_matmul_f32a`` (``csrc/q4_f32a.cu``) replaces ``q4_matmul_pallas`` and
 ``q4_matmul_stream`` (``csrc/q4_stream.cu``) replaces
@@ -106,10 +108,14 @@ def quantize_activations_q8(x: torch.Tensor, group: int
                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-(row, group) symmetric int8 activation quantization. Returns
     ``(x_i8 (M, K), sx (M, K/G) f32, sxsum (M, K/G) f32 = sx * sum(x_i8))``.
-    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    ``torch.round`` rounds half to even, as ``jnp.round`` does. The divisor
+    127 is a tensor on x's device: on CUDA, torch turns division by a
+    Python number into a product with its f32 reciprocal, which can differ
+    from the division in the last bit."""
     m, k = x.shape
     xg = x.float().reshape(m, k // group, group)
-    sx = xg.abs().amax(dim=2) / 127.0
+    amax = xg.abs().amax(dim=2)
+    sx = amax / amax.new_full((), 127.0)
     safe = sx.clamp_min(1e-12)
     xq = torch.clamp(torch.round(xg / safe[:, :, None]), -127, 127)
     sxsum = sx * xq.sum(dim=2)
@@ -166,8 +172,9 @@ def q4_matmul_w4a8_ref(x: torch.Tensor, packed: torch.Tensor,
 
 def _split_k_plan(m: int, n: int, n_groups: int,
                   sms: int = 132) -> Tuple[int, int, int]:
-    """Tile rows, K splits and groups per split for the kernels that split
-    K by whole groups (``n_groups`` is the count of groups a block walks).
+    """Tile rows, K splits and groups per split for the f32-activation
+    kernels that split K by whole groups (``n_groups`` is the count of
+    groups a block walks).
 
     Tiles are 64 columns wide and 4, 16 or 64 rows tall (the smallest that
     covers M, so decode does not multiply work it throws away). When the
@@ -181,15 +188,84 @@ def _split_k_plan(m: int, n: int, n_groups: int,
     return bm, math.ceil(n_groups / per_split), per_split
 
 
+# Columns of a W4A8 block tile (csrc/q4_w4a8.cu).
+W4A8_BN = 128
+
+
+def _w4a8_plan(m: int, n: int, n_groups: int,
+               sms: int = 132) -> Tuple[int, int, int]:
+    """Tile rows, K splits and groups per split of the W4A8 tensor-core
+    kernel (``n_groups`` is the count of groups in each K half).
+
+    Tiles are 128 columns wide; 16 rows (one m16 slab, 4 warps, mma.sync)
+    for M <= 16, where decode pads M to 16 (the 64-row tile is 1.2-1.8x
+    slower there, see the kernel's header), and 64 rows (two warpgroups,
+    wgmma) above. When the (M, N) tiles give fewer than four blocks per SM,
+    K is split by whole groups until they do; the kernel sums the splits in
+    split order."""
+    bm = 16 if m <= 16 else 64
+    tiles = math.ceil(n / W4A8_BN) * math.ceil(m / bm)
+    splits = max(1, min(n_groups, math.ceil(4 * sms / tiles)))
+    per_split = max(1, n_groups // splits)
+    return bm, math.ceil(n_groups / per_split), per_split
+
+
+_ACT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def quantize_activations(x: torch.Tensor, group: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`quantize_activations_q8` as one kernel launch.
+
+    A CUDA tensor launches ``quantize_act_kernel`` of ``csrc/q4_w4a8.cu``,
+    whose outputs equal the plain version's bit for bit, or raises; a CPU
+    tensor takes :func:`quantize_activations_q8`. x is (M, K) f32, bf16 or
+    f16 with K % group == 0 and group % 32 == 0 on the card."""
+    if x.dim() != 2 or x.shape[1] % group:
+        raise ValueError(f"x must be (M, K) with K % {group} == 0, got "
+                         f"{tuple(x.shape)}")
+    if not is_cuda(x):
+        return quantize_activations_q8(x, group)
+    if x.dtype not in _ACT_DTYPES:
+        raise TypeError(f"x must be f32, bf16 or f16, got {x.dtype}")
+    if group % 32:
+        raise ValueError(f"the kernel needs group % 32 == 0, got {group}")
+    xq, s = _launch_quantize(x.contiguous(), group,
+                             torch.cuda.current_stream(x.device).cuda_stream)
+    return xq, s[0], s[1]
+
+
+quantize_activations.launches = 0
+
+
+def _launch_quantize(x: torch.Tensor, group: int, stream: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``quantize_act_kernel`` on contiguous x on the card and count
+    it in ``quantize_activations.launches``; returns xq (M, K) int8 and one
+    (2, M, K/G) f32 tensor holding sx, then sxsum (one allocation: the W4A8
+    wrapper's host time per call is on the decode path)."""
+    m, k = x.shape
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    s = torch.empty((2, m, k // group), dtype=torch.float32, device=x.device)
+    status = _build.library().trackie_quantize_act(
+        x.data_ptr(), xq.data_ptr(), s.data_ptr(),
+        s.data_ptr() + 4 * s.stride(0), m, k, group, _ACT_DTYPES[x.dtype],
+        stream)
+    _build.check(status, "quantize_activations")
+    quantize_activations.launches += 1
+    return xq, s
+
+
 def q4_matmul_w4a8(x: torch.Tensor, packed: torch.Tensor,
                    scales: torch.Tensor) -> torch.Tensor:
     """W4A8 matmul: (M, K) float @ q4 (K, N) -> (M, N) f32.
 
     Replaces ``trackiellm_tpu/ops/quant.py:q4_matmul_pallas_i8``. A CUDA
-    tensor launches ``csrc/q4_w4a8.cu`` (see its header for what bounds it
-    on the H100 and how the tiling answers that) or raises; a CPU tensor
-    takes :func:`q4_matmul_w4a8_ref`. The activation quantization runs as
-    torch ops before the kernel, as it runs outside the Pallas body."""
+    tensor launches the activation-quantization kernel, then the s8
+    tensor-core kernel of ``csrc/q4_w4a8.cu`` (see its header for what
+    bounds it on the H100 and how the design answers that), with nothing
+    between them but ``torch.empty``; or it raises. A CPU tensor takes
+    :func:`q4_matmul_w4a8_ref`."""
     g = _check_q4_operands(x, packed, scales)
     if not is_cuda(x):
         return q4_matmul_w4a8_ref(x, packed, scales)
@@ -197,23 +273,24 @@ def q4_matmul_w4a8(x: torch.Tensor, packed: torch.Tensor,
         raise ValueError("x, packed and scales must be on one device")
     if not (packed.is_contiguous() and scales.is_contiguous()):
         raise ValueError("packed and scales must be contiguous")
+    if packed.data_ptr() % 16 or scales.data_ptr() % 16:
+        raise ValueError("packed and scales must be 16-byte aligned")
     m, k = x.shape
     n = packed.shape[1]
     if g % 32 or n % 4:
         raise ValueError(f"the kernel needs G % 32 == 0 and N % 4 == 0 "
                          f"(G={g}, N={n})")
-    xq, sx, sxsum = quantize_activations_q8(x, g)
-    bm, splits, per_split = _split_k_plan(m, n, k // 2 // g)
+    bm, splits, per_split = _w4a8_plan(m, n, k // 2 // g)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    xq, s = _launch_quantize(x.contiguous(), g, stream)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     partial = (torch.empty((splits, m, n), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)
-    lib = _build.library()
-    status = lib.trackie_q4_w4a8(
-        xq.data_ptr(), sx.data_ptr(), sxsum.data_ptr(), packed.data_ptr(),
-        scales.data_ptr(), out.data_ptr(),
+    status = _build.library().trackie_q4_w4a8(
+        xq.data_ptr(), s.data_ptr(), s.data_ptr() + 4 * s.stride(0),
+        packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
         partial.data_ptr() if partial is not None else None,
-        m, k, n, g, bm, splits, per_split,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        m, k, n, g, bm, splits, per_split, stream)
     _build.check(status, "q4_matmul_w4a8")
     q4_matmul_w4a8.launches += 1
     return out

@@ -1,0 +1,171 @@
+"""Time the main path's two kernels of one checkout of the port.
+
+    python3 trackiellm_tpu_torch/tools/kernel_times.py [--root DIR]
+
+Imports ``trackiellm_tpu_torch`` from ``--root`` (default: the checkout that
+holds this file), builds its CUDA kernels and times, on one card, the
+headline cases of ``chip_smoke.py``'s phase 3 for the two kernels the main
+path launches: W4A8 ``w_gu`` (K 4096, N 28672, group 256) at M 1 and 512,
+and causal bf16 flash attention (H 32, Hk 8, D 128) at S 256 and 512, with
+SDPA on the same inputs beside it. Each call is timed as ``chip_smoke.py``
+times it: ``time_ms`` (CUDA events, L2 flushed before each call, a
+synchronize after it) and ``device_only_ms`` (the profiler's device clock,
+in all and by kernel). The timers and the seed come from the
+``chip_smoke.py`` of the checkout that holds this file, so two checkouts
+are timed the same way.
+
+Where the checkout's W4A8 takes its tile height from ``_w4a8_plan``, the
+kernel is also timed, device only, at M 1, 8 and 16 on the five Mistral-7B
+projections at every tile height its C entry takes.
+
+Prints the card line, then one JSON line. To compare two checkouts, run the
+tool on each, alternating (A, B, B, A), back to back on one card. Runs
+that are not on a CUDA device exit non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import math
+import pathlib
+import sys
+
+import torch
+
+CHECKOUT = pathlib.Path(__file__).resolve().parents[2]
+DECODE_MS = (1, 8, 16)
+TILE_ROWS = (16, 64)   # the tile heights the W4A8 C entry takes
+
+
+def _chip_smoke():
+    """The ``chip_smoke.py`` of this file's checkout, as a module."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", CHECKOUT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _times(cs, fn) -> dict:
+    """ms per call, device-only ms, and device-only ms by kernel name."""
+    device = cs.device_only_ms(fn) or {"total": None, "kernels": {}}
+    by_kernel = {}
+    for name, ms in device["kernels"].items():   # names cut to 72 chars
+        by_kernel[name[:72]] = by_kernel.get(name[:72], 0.0) + ms
+    return {"ms": cs.time_ms(fn), "device_ms": device["total"],
+            "device_kernels": by_kernel}
+
+
+def _w4a8_at(quant, lib, check, x, w, bm: int):
+    """A callable that runs W4A8 on x as the wrapper does, at tile height
+    ``bm``; None where the C entry refuses that height."""
+    m, k = x.shape
+    n = w.values.shape[1]
+    g = k // w.scales.shape[0]
+    _, splits, per_split = quant._w4a8_plan(m, n, k // 2 // g)
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    partial = torch.empty((splits, m, n), dtype=torch.float32,
+                          device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def call():
+        xq, sx, sxsum = quant.quantize_activations(x, g)
+        return lib.trackie_q4_w4a8(
+            xq.data_ptr(), sx.data_ptr(), sxsum.data_ptr(),
+            w.values.data_ptr(), w.scales.data_ptr(), out.data_ptr(),
+            partial.data_ptr(), m, k, n, g, bm, splits, per_split, stream)
+    status = call()
+    if status == -1:
+        return None
+    check(status, f"q4_matmul_w4a8 at tile height {bm}")
+    torch.cuda.synchronize()
+    ref = quant.q4_matmul_w4a8(x, w.values, w.scales)
+    if not torch.equal(out, ref):
+        raise AssertionError(f"tile height {bm} differs from the wrapper")
+    return call
+
+
+def tile_heights(cs, quant, lib, check, dev, gen) -> dict:
+    """Device-only ms of W4A8 at M in DECODE_MS on the Mistral projections,
+    by tile height."""
+    out = {}
+    for name, (k, n) in cs.MISTRAL_SHAPES.items():
+        w = quant.quantize_q4(
+            torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k),
+            cs.GROUP)
+        for m in DECODE_MS:
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            row = {}
+            for bm in TILE_ROWS:
+                call = _w4a8_at(quant, lib, check, x, w, bm)
+                if call is not None:
+                    device = cs.device_only_ms(call)
+                    row[bm] = device["total"] if device else None
+            out[f"{name} M={m}"] = row
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", type=pathlib.Path, default=CHECKOUT,
+                    help="the checkout whose port is timed")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device; this tool times the card only",
+              file=sys.stderr)
+        return 1
+    root = args.root.resolve()
+    sys.path.insert(0, str(root))
+    import trackiellm_tpu_torch
+    found = pathlib.Path(trackiellm_tpu_torch.__file__).resolve().parents[1]
+    if found != root:
+        print(f"kernel_times: imported the port from {found}, not {root}",
+              file=sys.stderr)
+        return 1
+    from trackiellm_tpu_torch.ops import _build, attention, quant
+    import torch.nn.functional as F
+
+    cs = _chip_smoke()
+    print(cs.nvidia_smi(), flush=True)
+    lib = _build.library()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    result = {"root": str(root)}
+
+    k, n = cs.MISTRAL_SHAPES["w_gu"]
+    w = quant.quantize_q4(
+        torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k),
+        cs.GROUP)
+    for m in (1, 512):
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        result[f"w4a8 w_gu M={m}"] = _times(
+            cs, lambda: quant.q4_matmul_w4a8(x, w.values, w.scales))
+    del w
+
+    h, hk, d = 32, 8, 128
+    for s in (256, 512):
+        q = torch.randn((h, s, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        kk = torch.randn((hk, s, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        v = torch.randn((hk, s, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        result[f"flash causal S={s}"] = _times(
+            cs, lambda: attention.flash_attention(q, kk, v))
+        result[f"sdpa causal S={s}"] = _times(
+            cs, lambda: F.scaled_dot_product_attention(
+                q[None], kk[None], v[None], is_causal=True, enable_gqa=True))
+
+    if hasattr(quant, "_w4a8_plan") and hasattr(quant,
+                                                "quantize_activations"):
+        result["w4a8 device_ms by tile height"] = tile_heights(
+            cs, quant, lib, _build.check, dev, gen)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
