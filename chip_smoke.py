@@ -21,7 +21,7 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      the one PyTorch call that computes the same function where there is
      one (SDPA for causal bf16 flash, an int64 sum for the stream, x + 1
      for grid64), and the profiler's device-only time of each headline
-     case and of SDPA;
+     case and of those library calls;
   4. width: Mistral-7B width cut to 2 layers, random weights from a seed,
      card against the port's CPU path: Q4 and Q8 prefill logits, and Q4
      with both opt-in levers through prefill and 8 decode steps;
@@ -30,7 +30,9 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      fresh bucket-512 prefill and 32 decode tokens run under the profiler
      (one ``{"profile": ...}`` line: wall, device busy, idle share,
      launches, the largest costs by kernel);
-  6. Q8 slice: the same model with Q8 weights answers three requests;
+  6. Q8 slice: the same model with Q8 weights answers three requests,
+     then runs phase 5's profiled window (its own ``{"profile": ...}``
+     line);
   7. opt-in Q4 routes: phase 5's model under ``TRACKIE_Q4_F32A=1`` and
      ``TRACKIE_FUSED_MLP=1`` answers two requests;
   8. entry point: a 2-layer Q8 checkpoint round-trips through
@@ -398,7 +400,8 @@ def phase_probes(dev, gen, diag, rows) -> None:
     """Phase 3, the probes: the stream kernel over 512 MiB (rel tolerance
     STREAM_TOL), grid64 and a 64-call chain_tiny on (8, 128) (exact). The
     library yardsticks: ``w.sum(dtype=torch.int64)`` for the stream and
-    ``tile + 1`` for grid64; no one call chains 64 launches."""
+    ``tile + 1`` for grid64, per call and device only; no one call chains
+    64 launches."""
     x = torch.randn((1, 1), generator=gen, device=dev)
     w = torch.randint(0, 255, STREAM_SHAPE, generator=gen, device=dev,
                       dtype=torch.uint8)
@@ -424,16 +427,21 @@ def phase_probes(dev, gen, diag, rows) -> None:
         abs_err = (got - ref).abs().max().item()
         err = abs_err / ref.abs().max().item()
         ms, plain_ms = time_ms(kernel), time_ms(plain)
-        library = time_ms(lib) if lib is not None else None
+        library = library_device = None
+        if lib is not None:
+            library = time_ms(lib)
+            device = device_only_ms(lib)
+            library_device = device["total"] if device else None
         bound, by = bound_ms((*inputs, got), ops, kind)
         log(f"  probe {name:10s} {case}: rel_err={err:.3e} (tol "
             f"{tol:.0e}) max_abs={abs_err:.3e} kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={library} "
-            f"bound_ms={bound:.6f} ({by})")
+            f"library_device_ms={library_device} bound_ms={bound:.6f} ({by})")
         if not err <= tol:
             raise AssertionError(f"{name} {case}: rel error {err}")
         add_row(rows, name, kernel, case=case, err=abs_err, ms=ms,
-                plain=plain_ms, library=library, bound=bound, bound_by=by)
+                plain=plain_ms, library=library,
+                library_device=library_device, bound=bound, bound_by=by)
 
 
 def phase_width(dev, llm, quant, fused):
@@ -659,8 +667,9 @@ def drive(dev, llm, runner_mod, tokenizer_mod, params, cfg, counters,
 
 
 def profile_path(dev, runner_mod, tokenizer_mod, params, cfg) -> dict:
-    """Phase 5's breakdown, on fresh runners: the cortex prompt's prefill
-    (bucket 512), then PROFILE_TOKENS greedy decode tokens (lookahead 4).
+    """The breakdown of phases 5 (Q4) and 6 (Q8), on fresh runners: the
+    cortex prompt's prefill (bucket 512), then PROFILE_TOKENS greedy decode
+    tokens (lookahead 4).
     Each window runs once on the host clock (wall) and once under the
     profiler (device busy ms, launches, the largest costs by kernel); the
     idle share is 1 - busy / wall."""
@@ -828,7 +837,8 @@ KERNELS = {
                         ("causal S=512 bfloat16", "causal S=256 bfloat16"),
                         5),
     "q8_matmul": ("trackiellm_tpu_torch/csrc/q8_matmul.cu",
-                  "trackiellm_tpu/ops/quant.py:184", ("w_gu M=1",), 6),
+                  "trackiellm_tpu/ops/quant.py:184",
+                  ("w_gu M=1", "w_gu M=512"), 6),
     "q4_matmul_f32a": ("trackiellm_tpu_torch/csrc/q4_f32a.cu",
                        "trackiellm_tpu/ops/quant.py:272", ("w_gu M=1",), 7),
     "fused_mlp_q4": ("trackiellm_tpu_torch/csrc/fused_mlp_q4.cu",
@@ -927,13 +937,15 @@ def main() -> int:
         raise AssertionError("phase 5: not one activation quantization per "
                              "W4A8 matmul")
     log(json.dumps({"profile": profile_path(dev, runner_mod, tokenizer_mod,
-                                            params4, cfg)}))
+                                            params4, cfg), "phase": 5}))
     log("phase 6 Q8 slice (Mistral-7B, 32 layers, Q8, max_seq 512):")
     params8 = build_model(dev, llm, cfg, 8)
     launches[6] = drive(*slice_args, params8, cfg, counters, "abc")
     expect_routes(launches[6], ("q8_matmul", "flash_attention"),
                   ("q4_matmul_w4a8", "quantize_activations", "q4_matmul_f32a",
                    "fused_mlp_q4", *DIAGNOSTIC), "phase 6")
+    log(json.dumps({"profile": profile_path(dev, runner_mod, tokenizer_mod,
+                                            params8, cfg), "phase": 6}))
     del params8
     log("phase 7 opt-in Q4 routes (phase 5's model, TRACKIE_Q4_F32A=1, "
         "TRACKIE_FUSED_MLP=1):")

@@ -230,6 +230,73 @@ def test_f32a_kernels_match_plain(dev, kind, dtype, m, group):
     assert torch.equal(got, kernel(x, w.values, w.scales))
 
 
+@pytest.mark.parametrize("m", [1, 3, 15, 16, 17, 63, 64, 65, 200, 512])
+@pytest.mark.parametrize("group", [32, 64, 128, 256])
+def test_q8_tensor_core_kernel_matches_plain(dev, group, m):
+    """bf16 x takes the tensor-core kernel on both sides of the 16-row
+    decode tile (G = 32 takes the 64-row tile's 32-row chunks); N = 320
+    leaves a column tail of 64 in the last tile."""
+    g = torch.Generator(device=dev).manual_seed(1000 * group + m)
+    w = tq.quantize_q8(torch.randn((1024, 320), generator=g, device=dev),
+                       group)
+    x = torch.randn((m, 1024), generator=g, device=dev).to(torch.bfloat16)
+    before = tq.q8_matmul.launches
+    got = tq.q8_matmul(x, w.values, w.scales)
+    torch.cuda.synchronize()
+    assert tq.q8_matmul.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (m, 320)
+    assert _rel_l2(got, tq.q8_matmul_ref(x, w.values, w.scales)) < 1e-5
+    assert torch.equal(got, tq.q8_matmul(x, w.values, w.scales))
+
+
+@pytest.mark.parametrize("n", [4, 68, 4096])
+@pytest.mark.parametrize("m", [1, 16, 17, 100])
+def test_q8_tensor_core_kernel_one_group_and_narrow(dev, m, n):
+    """K = G (one group, four chunks: fewer than the ring's stages), N
+    narrower than a tile and not a multiple of 16 (4-byte copies), and the
+    weights at an offset of 4 bytes (4-byte copies at N = 4096)."""
+    g = torch.Generator(device=dev).manual_seed(m * n)
+    w = tq.quantize_q8(torch.randn((128, n), generator=g, device=dev), 128)
+    x = torch.randn((m, 128), generator=g, device=dev).to(torch.bfloat16)
+    got = tq.q8_matmul(x, w.values, w.scales)
+    ref = tq.q8_matmul_ref(x, w.values, w.scales)
+    assert _rel_l2(got, ref) < 1e-5
+    buf = torch.zeros(4 + w.values.numel(), dtype=torch.int8, device=dev)
+    shifted = buf[4:].view_as(w.values)
+    shifted.copy_(w.values)
+    assert shifted.data_ptr() % 16 == 4
+    assert torch.equal(tq.q8_matmul(x, shifted, w.scales), got)
+
+
+def test_nonfinite_activations_on_the_card(dev):
+    """A NaN and an Inf activation through the quantization kernel and
+    W4A8: sx equals the plain version's, NaN and inf included; sxsum and the
+    output are non-finite exactly where the plain version's are. xq of a
+    non-finite group is not compared (the int8 cast of NaN is undefined)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((4, 1024), generator=g, device=dev)
+    x[0, 3] = float("nan")
+    x[2, 256 + 7] = float("inf")
+    x[3, 1023] = -float("inf")
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype)
+        _, sx, sxsum = tq.quantize_activations(xd, 256)
+        _, sx_ref, sxsum_ref = tq.quantize_activations_q8(xd, 256)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(sx, sx_ref, rtol=0, atol=0, equal_nan=True)
+        assert torch.equal(torch.isfinite(sxsum), torch.isfinite(sxsum_ref))
+        assert torch.isnan(sx[0, 0]) and torch.isinf(sx[2, 1])
+        w = tq.quantize_q4(torch.randn((1024, 320), generator=g, device=dev),
+                           256)
+        got = tq.q4_matmul_w4a8(xd, w.values, w.scales)
+        ref = tq.q4_matmul_w4a8_ref(xd, w.values, w.scales)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isfinite(got), torch.isfinite(ref))
+        assert (~torch.isfinite(got)).all(dim=1).tolist() == [
+            True, False, True, True]
+        assert _rel_l2(got[1], ref[1]) < 1e-5
+
+
 @pytest.mark.parametrize("kind", sorted(F32A_KERNELS))
 @pytest.mark.parametrize("k,n", MISTRAL_SHAPES)
 @pytest.mark.parametrize("m", [1, 512])

@@ -12,6 +12,7 @@ for control flow only: a CPU time is no device metric.
 
 import functools
 import pathlib
+import types
 
 import numpy as np
 import pytest
@@ -271,3 +272,37 @@ def test_kernel_times_sums_kernels_whose_cut_names_collide():
     got = kernel_times._times(FakeTimers, lambda: None)
     assert got == {"ms": 5.0, "device_ms": 3.0,
                    "device_kernels": {"k" * 72: 3.0, "other": 0.5}}
+
+
+def test_kernel_times_q8_rows_on_the_cpu():
+    """The Q8 rows' control flow at tiny shapes on the CPU (the plain Q8
+    path): w_gu timed per call and device only, every projection at M 1
+    and 512 beside the dense yardstick, each timed function run once."""
+    ran = []
+
+    class FakeTimers:
+        MISTRAL_SHAPES = {"wo": (128, 64), "w_gu": (128, 256)}
+        GROUP = 64
+
+        @staticmethod
+        def device_only_ms(fn):
+            ran.append(tuple(fn().shape))
+            return {"total": 2.0, "kernels": {"k": 2.0}}
+
+        @staticmethod
+        def time_ms(fn):
+            return 4.0
+    gen = torch.Generator().manual_seed(0)
+    # The split sweep calls the C entry, which the CPU has not: leave it out.
+    no_plan = types.SimpleNamespace(quantize_q8=quant.quantize_q8,
+                                    q8_matmul=quant.q8_matmul)
+    got = kernel_times.q8_times(FakeTimers, no_plan, None, None,
+                                torch.device("cpu"), gen)
+    assert got["q8 w_gu M=512"] == {"ms": 4.0, "device_ms": 2.0,
+                                    "device_kernels": {"k": 2.0}}
+    assert set(got) == {"q8 w_gu M=1", "q8 w_gu M=512", "device_ms wo M=1",
+                        "device_ms wo M=512", "device_ms w_gu M=1",
+                        "device_ms w_gu M=512"}
+    assert got["device_ms wo M=1"] == {"q8": 2.0, "dense_bf16": 2.0}
+    assert ran == [(1, 64), (1, 64), (512, 64), (512, 64), (1, 256),
+                   (1, 256), (512, 256), (512, 256)]

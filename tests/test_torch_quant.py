@@ -93,6 +93,43 @@ def test_activation_quantization_bit_identical(group):
 
 
 @pytest.mark.parametrize("group", GROUPS)
+def test_activation_quantization_carries_nan_and_inf(group):
+    """A NaN or +-Inf activation: both packages give the same sx (NaN for
+    a NaN group, inf for an Inf group), a non-finite sxsum in the same
+    groups, and W4A8 outputs non-finite at exactly the same elements (the
+    plain twin against the Pallas kernel in interpret mode). xq of a
+    non-finite group is not compared: the int8 cast of NaN is undefined."""
+    k, n = 1024, 256
+    x = np.random.default_rng(group + 5).standard_normal((5, k)).astype(
+        np.float32)
+    x[0, 3] = np.nan                  # group 0 of row 0
+    x[1, group + 7] = np.inf          # group 1 of row 1
+    x[3, k - 1] = -np.inf             # the last group of row 3
+    _, jsx, jsum = jq.quantize_activations_q8(jnp.asarray(x), group)
+    _, tsx, tsum = tq.quantize_activations_q8(torch.from_numpy(x), group)
+    np.testing.assert_array_equal(tsx.numpy(), np.asarray(jsx))
+    assert np.isnan(tsx[0, 0].item()) and tsx[1, 1].item() == np.inf
+    assert tsx[3, -1].item() == np.inf
+    bad = ~np.isfinite(np.asarray(jsum))
+    np.testing.assert_array_equal(~np.isfinite(tsum.numpy()), bad)
+    assert bad.sum() == 3 and bad[0, 0] and bad[1, 1] and bad[3, -1]
+
+    w = _w(group, k, n)
+    jw = jq.quantize_q4(jnp.asarray(w), group)
+    tw = tq.quantize_q4(torch.from_numpy(w), group)
+    kernel = np.asarray(jq.q4_matmul_pallas_i8(
+        jnp.asarray(x), jw.values, jw.scales, tile_n=128, tile_k=256,
+        interpret=True))
+    out = tq.q4_matmul_w4a8_ref(torch.from_numpy(x), tw.values,
+                                tw.scales).numpy()
+    np.testing.assert_array_equal(~np.isfinite(out), ~np.isfinite(kernel))
+    assert (~np.isfinite(out)).all(axis=1).tolist() == [True, True, False,
+                                                         True, False]
+    finite = np.isfinite(out).all(axis=1)
+    assert _rel_l2(out[finite], kernel[finite]) < 1e-5
+
+
+@pytest.mark.parametrize("group", GROUPS)
 @pytest.mark.parametrize("m", [1, 8, 32])
 def test_w4a8_ref_matches_pallas_interpret(m, group):
     k, n = 1024, 256
@@ -152,6 +189,36 @@ def test_w4a8_plan(m, expect_bm):
         ngh = k // 2 // 256
         _check_plan(tq._w4a8_plan(m, n, ngh), m, n, ngh, expect_bm,
                     tq.W4A8_BN)
+
+
+@pytest.mark.parametrize("m,expect_bm", [(1, 16), (3, 16), (15, 16),
+                                         (16, 16), (17, 64), (64, 64),
+                                         (65, 64), (512, 64)])
+def test_q8_plan(m, expect_bm):
+    """The bf16 Q8 tensor-core kernel's plan: 128-column tiles, 16 rows up
+    to M = 16 (the decode tile), 64 above; splits in whole groups of all of
+    K, as even as the groups allow, toward 16 blocks per SM for the 16-row
+    tiles and one for the 64-row tiles. N = 320 (the card tests' width) leaves
+    a column tail."""
+    for k, n in MISTRAL_KN + [(1024, 320)]:
+        for group in (64, 128, 256):
+            ng = k // group
+            bm, splits, per_split = tq._q8_plan(m, n, ng)
+            assert bm == expect_bm
+            assert 1 <= splits <= ng
+            assert (splits - 1) * per_split < ng <= splits * per_split
+            tiles = -(-n // tq.Q8_BN) * -(-m // bm)
+            target = (16 if bm == 16 else 1) * 132
+            # Even splits of ceil(ng / s) groups reach at least half of
+            # the s splits the target asks for.
+            assert 2 * tiles * splits >= min(target, tiles * ng)
+            assert per_split == -(-ng // splits)
+    # Mistral-7B decode: w_gu two groups a block, wo and w_down one.
+    assert tq._q8_plan(1, 28672, 16) == (16, 8, 2)
+    assert tq._q8_plan(1, 4096, 16) == (16, 16, 1)
+    assert tq._q8_plan(1, 4096, 56) == (16, 56, 1)
+    # Prefill at M = 512 is not split.
+    assert tq._q8_plan(512, 4096, 56) == (64, 1, 56)
 
 
 @pytest.mark.parametrize("m,expect_bm", [(1, 4), (4, 4), (8, 16), (16, 16),

@@ -192,42 +192,6 @@ constexpr int kMmaBQ = 64;        // query rows per block, 16 per warp
 constexpr int kMmaBK = 64;        // keys per tile
 constexpr int kMmaThreads = 128;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 // Two f32 as one bf16x2 word, the first in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -305,13 +269,13 @@ __global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(
     const int stage = (kt - kt_begin) & 1;
     if (kt + 1 < kt_end) load_kv(kt + 1, stage ^ 1);
     cp_async_commit();
-    cp_async_wait1();  // all but the newest group: tile kt (and q) landed
+    cp_async_wait<1>();  // all but the newest group: tile kt (and q) landed
     __syncthreads();
     if (kt == kt_begin) {
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks)
-        ldsm_x4(qf[ks], sQ + (warp * 16 + (lane & 15)) * LD + ks * 16 +
-                            (lane >> 4) * 8);
+        ldmatrix_x4(qf[ks], sQ + (warp * 16 + (lane & 15)) * LD + ks * 16 +
+                                (lane >> 4) * 8);
     }
     const __nv_bfloat16* sk = sK + stage * TILE;
     const __nv_bfloat16* sv = sV + stage * TILE;
@@ -325,8 +289,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np) {
         uint32_t b[4];
-        ldsm_x4(b, sk + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD +
-                       ks * 16 + ((lane >> 3) & 1) * 8);
+        ldmatrix_x4(b, sk + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD +
+                           ks * 16 + ((lane >> 3) & 1) * 8);
         mma_bf16(s[2 * np], qf[ks], b[0], b[1]);
         mma_bf16(s[2 * np + 1], qf[ks], b[2], b[3]);
       }
@@ -390,8 +354,9 @@ __global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(
 #pragma unroll
       for (int dp = 0; dp < D / 16; ++dp) {
         uint32_t b[4];
-        ldsm_x4_trans(b, sv + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
-                                  LD + dp * 16 + (lane >> 4) * 8);
+        ldmatrix_x4_trans(
+            b, sv + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
+                   dp * 16 + (lane >> 4) * 8);
         mma_bf16(o[2 * dp], a, b[0], b[1]);
         mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
       }

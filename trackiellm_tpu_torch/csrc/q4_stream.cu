@@ -43,19 +43,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxSmem = 232448;  // an H100 block's opt-in shared memory
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // MT: rows of x one block computes (1 for M = 1, else 8; grid.y covers M).
 template <typename T, int MT>
 __global__ void __launch_bounds__(kThreads) q4_stream_kernel(

@@ -6,7 +6,9 @@
 //   - quantize_act_kernel quantizes x per (row, group of G) to int8 xq with
 //     f32 scales sx = absmax / 127 (M, K/G) and bias-fold terms
 //     sxsum = sx * sum(xq), bit for bit as ops/quant.py:quantize_activations_q8
-//     (IEEE division, rintf's half-to-even, the 1e-12 floor, the +-127 clamp);
+//     (IEEE division, rintf's half-to-even, the 1e-12 floor, the +-127 clamp)
+//     for finite x; a NaN or Inf in a group gives the plain version's sx
+//     and a non-finite sxsum, so the output row is non-finite too;
 //   - W is Q4 packed across the K halves: packed[r, n] holds W[r, n] in the
 //     low nibble biased by +8 and W[K/2 + r, n] in the high nibble in two's
 //     complement, with f32 group scales (K/G, N).
@@ -65,6 +67,11 @@ __device__ __forceinline__ float act_f32(__nv_bfloat16 x) {
 __device__ __forceinline__ float act_f32(__half x) { return __half2float(x); }
 
 // One warp per (row, group); lane l takes elements l, l + 32, ...
+// The group's absmax is a max over the bits of |x|: for non-negative floats
+// the unsigned order is the float order, and a NaN's bits rank above +Inf's,
+// so a NaN in the group makes sx NaN (as the plain version's amax does),
+// where fmaxf would drop it. sx is stored from s, never from the floored
+// divisor, so the fold carries the NaN into the output row.
 template <typename T>
 __global__ void __launch_bounds__(256) quantize_act_kernel(
     const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ sx,
@@ -75,12 +82,13 @@ __global__ void __launch_bounds__(256) quantize_act_kernel(
   if (wid >= M * ng) return;
   const int m = wid / ng, g = wid % ng;
   const size_t base = (size_t)m * K + (size_t)g * G;
-  float amax = 0.f;
-  for (int i = lane; i < G; i += 32) amax = fmaxf(amax, fabsf(act_f32(x[base + i])));
+  unsigned amax_bits = 0;
+  for (int i = lane; i < G; i += 32)
+    amax_bits = max(amax_bits, __float_as_uint(fabsf(act_f32(x[base + i]))));
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  const float s = amax / 127.0f;
+    amax_bits = max(amax_bits, __shfl_xor_sync(0xffffffffu, amax_bits, o));
+  const float s = __uint_as_float(amax_bits) / 127.0f;
   const float safe = fmaxf(s, 1e-12f);
   int sum = 0;
   for (int i = lane; i < G; i += 32) {
@@ -103,35 +111,6 @@ constexpr int kBN = 128;     // columns per block
 constexpr int kKC = 32;      // packed rows per chunk: one m16n8k32 step per half
 constexpr int kStages = 5;   // cp.async ring depth
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16-byte copy; src_bytes 0 fills the destination with zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
                                        uint32_t b0, uint32_t b1) {
   asm volatile(

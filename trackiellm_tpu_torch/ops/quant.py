@@ -188,8 +188,9 @@ def _split_k_plan(m: int, n: int, n_groups: int,
     return bm, math.ceil(n_groups / per_split), per_split
 
 
-# Columns of a W4A8 block tile (csrc/q4_w4a8.cu).
-W4A8_BN = 128
+# Columns of a block tile of the tensor-core kernels (csrc/q4_w4a8.cu,
+# csrc/q8_matmul.cu).
+W4A8_BN = Q8_BN = 128
 
 
 def _w4a8_plan(m: int, n: int, n_groups: int,
@@ -207,6 +208,28 @@ def _w4a8_plan(m: int, n: int, n_groups: int,
     tiles = math.ceil(n / W4A8_BN) * math.ceil(m / bm)
     splits = max(1, min(n_groups, math.ceil(4 * sms / tiles)))
     per_split = max(1, n_groups // splits)
+    return bm, math.ceil(n_groups / per_split), per_split
+
+
+def _q8_plan(m: int, n: int, n_groups: int,
+             sms: int = 132) -> Tuple[int, int, int]:
+    """Tile rows, K splits and groups per split of the bf16 Q8 tensor-core
+    kernel (``n_groups`` is the count of K groups).
+
+    Tiles are 128 columns wide: 16 rows for M <= 16 (decode; four blocks
+    fit an SM), 64 rows above (two fit). K is split by whole groups, as
+    evenly as the groups allow, until the 16-row tiles give 16 blocks per
+    SM, four waves: a decode block streams a few groups and the last wave
+    leaves few SMs idle (on the five Mistral-7B projections at M = 1, one or
+    two groups a block were within 1% of four or eight, or faster, up to 4x;
+    ``tools/kernel_times.py``). The 64-row tiles are split only
+    until there is one block per SM: at M = 512, halving K sped up none of
+    the five by more than 3%. The kernel sums the splits in split order."""
+    bm = 16 if m <= 16 else 64
+    tiles = math.ceil(n / Q8_BN) * math.ceil(m / bm)
+    target = (16 if bm == 16 else 1) * sms
+    splits = max(1, min(n_groups, math.ceil(target / tiles)))
+    per_split = math.ceil(n_groups / splits)
     return bm, math.ceil(n_groups / per_split), per_split
 
 
@@ -361,10 +384,11 @@ def q4_matmul_f32a_ref(x: torch.Tensor, packed: torch.Tensor,
 
 
 def _launch_split_k(name: str, x: torch.Tensor, values: torch.Tensor,
-                    scales: torch.Tensor, g: int, n_groups: int
-                    ) -> torch.Tensor:
+                    scales: torch.Tensor, g: int, n_groups: int,
+                    plan=_split_k_plan) -> torch.Tensor:
     """Launch ``trackie_<name>``, an f32-activation kernel that reads x as
-    it lies (f32 or bf16) and splits K by whole groups; returns (M, N) f32."""
+    it lies (f32 or bf16) and splits K by whole groups as ``plan`` says;
+    returns (M, N) f32."""
     if not (values.device == x.device == scales.device):
         raise ValueError("x, values and scales must be on one device")
     if not (values.is_contiguous() and scales.is_contiguous()):
@@ -375,7 +399,7 @@ def _launch_split_k(name: str, x: torch.Tensor, values: torch.Tensor,
     if g % 32 or n % 4:
         raise ValueError(f"the kernel needs G % 32 == 0 and N % 4 == 0 "
                          f"(G={g}, N={n})")
-    bm, splits, per_split = _split_k_plan(m, n, n_groups)
+    bm, splits, per_split = plan(m, n, n_groups)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     partial: Optional[torch.Tensor] = (
         torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
@@ -395,13 +419,25 @@ def q8_matmul(x: torch.Tensor, values: torch.Tensor,
 
     Replaces ``trackiellm_tpu/ops/quant.py:q8_matmul_pallas``. A CUDA
     tensor launches ``csrc/q8_matmul.cu`` (see its header for what bounds
-    it on the H100 and what its design does about that) or raises; a CPU
-    tensor takes :func:`q8_matmul_ref`."""
+    it on the H100 and what its design does about that) or raises: bf16 x
+    (the model's) its tensor-core kernel at every M, f32 x its f32-FMA
+    kernel. A CPU tensor takes :func:`q8_matmul_ref`."""
     g = _check_q8_operands(x, values, scales)
     if not is_cuda(x):
         return q8_matmul_ref(x, values, scales)
+    plan = _split_k_plan
+    if x.dtype == torch.bfloat16:
+        # The tensor-core kernel copies x and the scale rows 16 bytes at a
+        # time and the weights at least 4.
+        if scales.data_ptr() % 16 or values.data_ptr() % 4:
+            raise ValueError("scales must be 16-byte and values 4-byte "
+                             "aligned")
+        x = x.contiguous()
+        if x.data_ptr() % 16:
+            x = x.clone()
+        plan = _q8_plan
     out = _launch_split_k("q8_matmul", x, values, scales, g,
-                          values.shape[0] // g)
+                          values.shape[0] // g, plan)
     q8_matmul.launches += 1
     return out
 

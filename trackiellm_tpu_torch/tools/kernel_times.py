@@ -1,4 +1,4 @@
-"""Time the main path's two kernels of one checkout of the port.
+"""Time the main path's kernels and the Q8 matmul of one checkout of the port.
 
     python3 trackiellm_tpu_torch/tools/kernel_times.py [--root DIR]
 
@@ -7,7 +7,13 @@ holds this file), builds its CUDA kernels and times, on one card, the
 headline cases of ``chip_smoke.py``'s phase 3 for the two kernels the main
 path launches: W4A8 ``w_gu`` (K 4096, N 28672, group 256) at M 1 and 512,
 and causal bf16 flash attention (H 32, Hk 8, D 128) at S 256 and 512, with
-SDPA on the same inputs beside it. Each call is timed as ``chip_smoke.py``
+SDPA on the same inputs beside it; and Q8 ``w_gu`` at M 1 and 512 (the
+Q8 checkpoint's path), with the device-only time of Q8 on the five
+Mistral-7B projections at M 1 and 512 beside that of a dense bf16
+``torch.matmul`` of the same shape (a yardstick of the card's rate, not the
+same function: its weights are bf16), and, where the checkout has
+``_q8_plan``, the bf16 Q8 kernel's device-only ms by groups a K split.
+Each call is timed as ``chip_smoke.py``
 times it: ``time_ms`` (CUDA events, L2 flushed before each call, a
 synchronize after it) and ``device_only_ms`` (the profiler's device clock,
 in all and by kernel). The timers and the seed come from the
@@ -26,6 +32,7 @@ that are not on a CUDA device exit non-zero.
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib.util
 import json
 import math
@@ -108,6 +115,75 @@ def tile_heights(cs, quant, lib, check, dev, gen) -> dict:
     return out
 
 
+def _q8_at(cs, quant, lib, check, x, w, per_split: int):
+    """A callable that runs the bf16 Q8 kernel on x as the wrapper does but
+    with ``per_split`` groups a K split, checked against the plain version
+    first."""
+    m, k = x.shape
+    n = w.values.shape[1]
+    g = k // w.scales.shape[0]
+    bm = quant._q8_plan(m, n, k // g)[0]
+    splits = -(-(k // g) // per_split)
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    partial = torch.empty((splits, m, n), dtype=torch.float32,
+                          device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def call():
+        return lib.trackie_q8_matmul(
+            x.data_ptr(), w.values.data_ptr(), w.scales.data_ptr(),
+            out.data_ptr(), partial.data_ptr(), m, k, n, g, 1, bm, splits,
+            per_split, stream)
+    check(call(), f"q8_matmul with {per_split} groups a split")
+    torch.cuda.synchronize()
+    err = cs.rel_l2(out, quant.q8_matmul_ref(x, w.values, w.scales))
+    if not err < cs.MATMUL_TOL:
+        raise AssertionError(f"q8 {per_split} groups a split: rel L2 {err}")
+    return call
+
+
+def q8_times(cs, quant, lib, check, dev, gen) -> dict:
+    """Q8 with bf16 x: ``w_gu`` at M 1 and 512 as ``_times`` reads it, and
+    device-only ms on every Mistral projection at M 1 and 512, each beside
+    the dense bf16 yardstick's. Where the checkout has ``_q8_plan``, also
+    device-only ms by groups a K split: 1, 2, 4 and 8 at M = 1; all and half
+    of the groups at M = 512."""
+    out, by_split = {}, {}
+    for name, (k, n) in cs.MISTRAL_SHAPES.items():
+        w = quant.quantize_q8(
+            torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k),
+            cs.GROUP)
+        dense = torch.randn((k, n), generator=gen, device=dev).to(
+            torch.bfloat16)
+        ng = k // cs.GROUP
+        for m in (1, 512):
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            call = functools.partial(quant.q8_matmul, x, w.values, w.scales)
+            if name == "w_gu":
+                times = _times(cs, call)
+                out[f"q8 w_gu M={m}"] = times
+                q8 = times["device_ms"]
+            else:
+                device = cs.device_only_ms(call)
+                q8 = device["total"] if device else None
+            device = cs.device_only_ms(functools.partial(torch.matmul, x,
+                                                         dense))
+            out[f"device_ms {name} M={m}"] = {
+                "q8": q8, "dense_bf16": device["total"] if device else None}
+            if hasattr(quant, "_q8_plan"):
+                row = {}
+                for per in ((1, 2, 4, 8) if m == 1 else (ng, -(-ng // 2))):
+                    device = cs.device_only_ms(
+                        _q8_at(cs, quant, lib, check, x, w, per))
+                    row[per] = device["total"] if device else None
+                by_split[f"{name} M={m}"] = row
+        del w, dense
+    if by_split:
+        out["q8 device_ms by groups a split"] = by_split
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=pathlib.Path, default=CHECKOUT,
@@ -159,6 +235,7 @@ def main(argv=None) -> int:
             cs, lambda: F.scaled_dot_product_attention(
                 q[None], kk[None], v[None], is_causal=True, enable_gqa=True))
 
+    result.update(q8_times(cs, quant, lib, _build.check, dev, gen))
     if hasattr(quant, "_w4a8_plan") and hasattr(quant,
                                                 "quantize_activations"):
         result["w4a8 device_ms by tile height"] = tile_heights(
