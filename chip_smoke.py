@@ -15,9 +15,10 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      14336}, bit for bit; flash attention in five variants at H=32, Hk=8,
      D=128, S in {256, 512}, bf16 and f32; the fused MLP block at M in {1,
      4, 8}, D 4096, H 14336, bf16 and f32, also timed against the unfused
-     path; the stream probe over 512 MiB, grid64 and a 64-call chain_tiny
-     on (8, 128)), with error, tolerance, times, the bound (bytes over the
-     memory rate or operations over the peak rate, whichever is larger),
+     path per call and on the device alone; the stream probe over 512 MiB,
+     grid64 and a 64-call chain_tiny on (8, 128)), with error, tolerance,
+     times, the bound (bytes over the memory rate or operations over the
+     peak rate, whichever is larger),
      the one PyTorch call that computes the same function where there is
      one (SDPA for causal bf16 flash, an int64 sum for the stream, x + 1
      for grid64), and the profiler's device-only time of each headline
@@ -34,7 +35,9 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      then runs phase 5's profiled window (its own ``{"profile": ...}``
      line);
   7. opt-in Q4 routes: phase 5's model under ``TRACKIE_Q4_F32A=1`` and
-     ``TRACKIE_FUSED_MLP=1`` answers two requests;
+     ``TRACKIE_FUSED_MLP=1`` answers two requests, then runs phase 5's
+     profiled window under both levers (its own ``{"profile": ...}`` line:
+     the fused block's share of a decode token);
   8. entry point: a 2-layer Q8 checkpoint round-trips through
      ``save_checkpoint`` / ``load_checkpoint`` byte for byte, and
      ``python -m trackiellm_tpu_torch generate`` runs on it in-process;
@@ -375,9 +378,14 @@ def phase_kernels(dev, quant, attention, fused, llm, diag):
             plain = time_ms(
                 lambda: fused.fused_mlp_ref(x, norm, w_gu, w_down, 1e-5))
             # The unfused block on the default route: W4A8 w_gu, silu * up,
-            # W4A8 w_down, residual, with the levers unset.
-            unfused = time_ms(
-                lambda: llm._mlp_block(x, norm, w_gu, w_down, 1e-5))
+            # W4A8 w_down, residual, with the levers unset; per call and on
+            # the device alone (its ~10 launches follow the host).
+            def unfused_block():
+                return llm._mlp_block(x, norm, w_gu, w_down, 1e-5)
+            unfused = time_ms(unfused_block)
+            unfused_device = device_only_ms(unfused_block)
+            if unfused_device:
+                unfused_device = unfused_device["total"]
             bound, by = bound_ms(
                 (*args, got), 2 * m * 3 * d * hid,
                 "bf16" if dtype == torch.bfloat16 else "f32")
@@ -385,12 +393,14 @@ def phase_kernels(dev, quant, attention, fused, llm, diag):
             log(f"  fused M={m} D={d} H={hid} {str(dtype)[6:]:8s}: "
                 f"rel_l2={err:.3e} (tol {tol:.0e}) max_abs={abs_err:.3e} "
                 f"kernel_ms={ms:.4f} plain_ms={plain:.4f} "
-                f"unfused_ms={unfused:.4f} bound_ms={bound:.4f} ({by})")
+                f"unfused_ms={unfused:.4f} unfused_device_ms={unfused_device}"
+                f" bound_ms={bound:.4f} ({by})")
             if not err < tol:
                 raise AssertionError(f"fused M={m} {dtype}: rel L2 {err}")
             add_row(rows, "fused_mlp_q4", lambda: fused.fused_mlp_q4(*args),
                     case=f"M={m} {str(dtype)[6:]}", err=abs_err, ms=ms,
-                    plain=plain, unfused=unfused, bound=bound, bound_by=by)
+                    plain=plain, unfused=unfused,
+                    unfused_device=unfused_device, bound=bound, bound_by=by)
     del w_gu, w_down
     phase_probes(dev, gen, diag, rows)
     return rows
@@ -869,7 +879,9 @@ def kernels_line(rows, launches) -> str:
                 "library_ms": r.get("library"),
                 "device_ms": device["total"] if device else None,
                 "library_device_ms": r.get("library_device"),
-                **({"unfused_ms": r["unfused"]} if "unfused" in r else {})})
+                **({"unfused_ms": r["unfused"],
+                    "unfused_device_ms": r["unfused_device"]}
+                   if "unfused" in r else {})})
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[phase][name],
@@ -951,10 +963,12 @@ def main() -> int:
         "TRACKIE_FUSED_MLP=1):")
     with levers_on():
         launches[7] = drive(*slice_args, params4, cfg, counters, "ab")
-    expect_routes(launches[7],
-                  ("q4_matmul_f32a", "fused_mlp_q4", "flash_attention"),
-                  ("q4_matmul_w4a8", "quantize_activations", "q8_matmul",
-                   *DIAGNOSTIC), "phase 7")
+        expect_routes(launches[7],
+                      ("q4_matmul_f32a", "fused_mlp_q4", "flash_attention"),
+                      ("q4_matmul_w4a8", "quantize_activations", "q8_matmul",
+                       *DIAGNOSTIC), "phase 7")
+        log(json.dumps({"profile": profile_path(
+            dev, runner_mod, tokenizer_mod, params4, cfg), "phase": 7}))
     log("phase 8 entry point (2-layer Q8 checkpoint, generate):")
     phase_entry(dev, llm, checkpoint, cli, counters)
     log("phase 9 diagnostics (the three tools; phase 5's model cut to "

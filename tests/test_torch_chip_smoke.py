@@ -129,3 +129,22 @@ def test_kernels_line_carries_every_key():
             "cuda", 7, 2.0, 1.5)
         assert [c["case"] for c in k["cases"]] == list(
             cs.KERNELS[k["name"]][2])
+
+
+def test_kernels_line_carries_the_unfused_yardstick():
+    """The fused block's cases carry the unfused block's per-call and
+    device-only ms beside the kernel's; other kernels carry neither."""
+    cs = _load()
+    rows = {name: [dict(case=case, err=0.0, ms=2.0, plain=3.0, bound=1.0,
+                        bound_by="bytes")
+                   for case in headlines]
+            for name, (_, _, headlines, _) in cs.KERNELS.items()}
+    for r in rows["fused_mlp_q4"]:
+        r.update(unfused=0.9, unfused_device=0.1)
+    launches = {phase: {name: 1 for name in cs.KERNELS}
+                for phase in (5, 6, 7, 9)}
+    kernels = {k["name"]: k for k in json.loads(
+        cs.kernels_line(rows, launches))["kernels"]}
+    fused = kernels.pop("fused_mlp_q4")
+    assert (fused["unfused_ms"], fused["unfused_device_ms"]) == (0.9, 0.1)
+    assert all("unfused_device_ms" not in k for k in kernels.values())

@@ -338,10 +338,15 @@ def _fused_operands(dev, m, d, h, g, dtype, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m", [1, 4, 8])
+@pytest.mark.parametrize("m", range(1, 9))
 @pytest.mark.parametrize("d,h,g", [(256, 512, 64), (256, 512, 128),
-                                   (4096, 14336, 256)])
+                                   (512, 1024, 64), (512, 1024, 128),
+                                   (512, 1024, 256), (4096, 14336, 64),
+                                   (4096, 14336, 128), (4096, 14336, 256)])
 def test_fused_kernel_matches_plain(dev, d, h, g, m, dtype):
+    """Every M the block takes, every group size, small widths and
+    Mistral-7B's: FUSED_TOL (rel L2 1e-5 in f32, 1e-2 in bf16), one launch,
+    and the same call twice gives the same bits."""
     x, norm, w_gu, w_down = _fused_operands(dev, m, d, h, g, dtype, seed=m)
     before = tf.fused_mlp_q4.launches
     got = tf.fused_mlp_q4(x, norm, w_gu.values, w_gu.scales, w_down.values,
@@ -354,6 +359,67 @@ def test_fused_kernel_matches_plain(dev, d, h, g, m, dtype):
     assert _rel_l2(got, ref) < tol
     assert torch.equal(got, tf.fused_mlp_q4(
         x, norm, w_gu.values, w_gu.scales, w_down.values, w_down.scales))
+
+
+@pytest.mark.parametrize("m", [1, 5, 8])
+def test_fused_kernel_uneven_split(dev, m):
+    """H/2 = 640 pairs at D = 1024: neither phase's units
+    divide evenly over the grid, so tiles and slices fall to two blocks or
+    more, whose partials the first block adds; the flags are left clear for
+    the next call."""
+    d, h, g = 1024, 1280, 64
+    plan = tf.fused_plan(m, d, h, g, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    assert plan.units_a % plan.blocks and plan.units_b % plan.blocks
+    x, norm, w_gu, w_down = _fused_operands(dev, m, d, h, g, torch.float32,
+                                            seed=m)
+    args = (x, norm, w_gu.values, w_gu.scales, w_down.values, w_down.scales)
+    got = tf.fused_mlp_q4(*args)
+    ref = tf.fused_mlp_ref(x, norm, w_gu, w_down, 1e-5)
+    torch.cuda.synchronize()
+    assert _rel_l2(got, ref) < 1e-5
+    for _ in range(3):
+        assert torch.equal(got, tf.fused_mlp_q4(*args))
+    torch.cuda.synchronize()
+    assert not tf._flags(x.device).any()
+
+
+def test_fused_kernel_nonfinite_rows(dev):
+    """NaN, +Inf and -Inf in x give non-finite output rows exactly where
+    fused_mlp_ref gives them; the finite rows keep FUSED_TOL."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x, norm, w_gu, w_down = _fused_operands(dev, 5, 512, 1024, 128,
+                                                dtype, seed=9)
+        x[0, 3] = float("nan")
+        x[2, 300] = float("inf")
+        x[3, 511] = -float("inf")
+        got = tf.fused_mlp_q4(x, norm, w_gu.values, w_gu.scales,
+                              w_down.values, w_down.scales)
+        ref = tf.fused_mlp_ref(x, norm, w_gu, w_down, 1e-5)
+        torch.cuda.synchronize()
+        bad = (~torch.isfinite(got)).any(dim=1).tolist()
+        assert bad == (~torch.isfinite(ref)).any(dim=1).tolist()
+        assert bad == [True, False, True, True, False]
+        tol = 1e-5 if dtype == torch.float32 else 1e-2
+        for row in (1, 4):
+            assert _rel_l2(got[row], ref[row]) < tol
+
+
+def test_fused_kernel_in_a_cuda_graph(dev):
+    """The cooperative launch captured in a CUDA graph (the decode graph's
+    route) replays to the eager bits; only the warm-up and the capture
+    count as launches."""
+    x, norm, w_gu, w_down = _fused_operands(dev, 1, 4096, 14336, 256,
+                                            torch.bfloat16, seed=3)
+    args = (x, norm, w_gu.values, w_gu.scales, w_down.values, w_down.scales)
+    before = tf.fused_mlp_q4.launches
+    replay = capture(lambda: tf.fused_mlp_q4(*args), dev)
+    assert tf.fused_mlp_q4.launches == before + 3
+    for _ in range(2):
+        out = replay()
+    torch.cuda.synchronize()
+    assert tf.fused_mlp_q4.launches == before + 3
+    assert torch.equal(out, tf.fused_mlp_q4(*args))
 
 
 def test_fused_kernel_takes_mixed_norm_dtype(dev):

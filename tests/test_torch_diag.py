@@ -306,3 +306,36 @@ def test_kernel_times_q8_rows_on_the_cpu():
     assert got["device_ms wo M=1"] == {"q8": 2.0, "dense_bf16": 2.0}
     assert ran == [(1, 64), (1, 64), (512, 64), (512, 64), (1, 256),
                    (1, 256), (512, 256), (512, 256)]
+
+
+def test_kernel_times_fused_rows_on_the_cpu():
+    """The fused rows' control flow at a tiny shape on the CPU (both blocks'
+    plain paths): the fused block per call and device only at each M, the
+    unfused block device only, each timed function run once; the fused
+    block equals its plain twin and the unfused block returns x's shape."""
+    ran = []
+
+    class FakeTimers:
+        FUSED_SHAPE = (256, 512, 128)
+        FUSED_MS = (1, 4)
+
+        @staticmethod
+        def device_only_ms(fn):
+            ran.append(tuple(fn().shape))
+            return {"total": 2.0, "kernels": {"k": 2.0}}
+
+        @staticmethod
+        def time_ms(fn):
+            return 4.0
+    from trackiellm_tpu_torch.models import llm
+    from trackiellm_tpu_torch.ops import fused
+    got = kernel_times.fused_times(FakeTimers, quant, fused, llm,
+                                   torch.device("cpu"),
+                                   torch.Generator().manual_seed(0))
+    assert got == {"fused M=1": {"ms": 4.0, "device_ms": 2.0,
+                                 "device_kernels": {"k": 2.0}},
+                   "unfused device_ms M=1": 2.0,
+                   "fused M=4": {"ms": 4.0, "device_ms": 2.0,
+                                 "device_kernels": {"k": 2.0}},
+                   "unfused device_ms M=4": 2.0}
+    assert ran == [(1, 256), (1, 256), (4, 256), (4, 256)]

@@ -175,3 +175,54 @@ def test_tiny_decode_through_the_fused_block_matches_jax(fused_lever,
     # the JAX package in its (single) decode trace.
     assert seen["torch"] == 3 * cfg.n_layers
     assert seen["jax"] >= 1
+
+
+@pytest.mark.parametrize("sms", [132, 114, 7])
+@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("d,h,g", [(256, 512, 64), (512, 1024, 128),
+                                   (1024, 1280, 64), (4096, 14336, 256)])
+def test_fused_plan_covers_every_pair_and_column_once(d, h, g, m, sms):
+    """The kernel's split (``fused_plan`` and ``unit_ranges`` mirror its
+    ``unit_begin``): every (hidden-pair tile, W_gu row chunk) and every
+    (output slice, W_down row chunk) falls to exactly one block, so every
+    hidden pair and every output column is summed over all of its rows once;
+    the ranges differ by one unit at most, and the grid fits one block an
+    SM."""
+    plan = tfused.fused_plan(m, d, h, g, sms)
+    assert plan.blocks <= sms and plan.rows >= m and plan.rows in (1, 2, 4, 8)
+    assert plan.smem_bytes <= 232448 - 1024
+    assert g % plan.chunk_a == 0    # a chunk never straddles two groups
+    phases = ((plan.units_a, d // 2 // plan.chunk_a,
+               h // 2 // plan.tile_pairs, plan.tile_pairs, h // 2),
+              (plan.units_b, h // 2 // tfused.CHUNK_B,
+               d // plan.slice_cols, plan.slice_cols, d))
+    for units, chunks, tiles, width, covered in phases:
+        assert units == chunks * tiles
+        seen = np.zeros((covered, chunks), np.int64)
+        ranges = tfused.unit_ranges(units, plan.blocks)
+        assert ranges[0][0] == 0 and ranges[-1][1] == units
+        sizes = [u1 - u0 for u0, u1 in ranges]
+        assert max(sizes) - min(sizes) <= 1   # an even share of the bytes
+        for u0, u1 in ranges:
+            for u in range(u0, u1):
+                tile, chunk = divmod(u, chunks)
+                seen[tile * width:(tile + 1) * width, chunk] += 1
+        assert (seen == 1).all()
+    # act (H/2, 2, rows) and a (rows, 128) + (rows, 64) partial a block;
+    # the partials stay under 1 MB at M = 8 on 132 SMs.
+    partial = plan.scratch_floats - plan.rows * h
+    assert partial == plan.blocks * plan.rows * (4 * plan.tile_pairs
+                                                 + plan.slice_cols)
+    assert partial * 4 < 2 ** 20
+
+
+def test_fused_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError):      # G not a multiple of 64
+        tfused.fused_plan(1, 512, 1024, 32, 132)
+    with pytest.raises(ValueError):      # D not a multiple of 128
+        tfused.fused_plan(1, 320, 1024, 64, 132)
+    with pytest.raises(ValueError):      # H/2 not a multiple of 128
+        tfused.fused_plan(1, 512, 1408, 64, 132)
+    with pytest.raises(ValueError):      # 8 rows of h2 at D 5120 overflow
+        tfused.fused_plan(8, 5120, 13824, 256, 132)
+    assert tfused.fused_plan(4, 5120, 13824, 256, 132).rows == 4

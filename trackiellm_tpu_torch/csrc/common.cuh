@@ -67,6 +67,26 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// --- Q4 nibbles --------------------------------------------------------------
+
+// The Q4 layout of q4_w4a8.cu holds two weights a byte: the low nibble q + 8,
+// the high nibble q in two's complement. q4_unpack4 widens the four bytes of
+// a word to their eight weights as exact floats with no conversion
+// instruction: u = q + 8 is a nibble (the high one with its sign bit
+// flipped), the float with bits 0x4B0000uu is 2^23 + u (one byte permute),
+// and less 2^23 + 8 it is q. lo[e] and hi[e] come from byte e.
+__device__ __forceinline__ void q4_unpack4(uint32_t w, float (&lo)[4],
+                                           float (&hi)[4]) {
+  const uint32_t ul = w & 0x0F0F0F0Fu;
+  const uint32_t uh = ((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+  const float bias = 8388616.f;  // 2^23 + 8
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    lo[e] = __uint_as_float(__byte_perm(ul, 0x4B000000u, 0x7540 + e)) - bias;
+    hi[e] = __uint_as_float(__byte_perm(uh, 0x4B000000u, 0x7540 + e)) - bias;
+  }
+}
+
 // --- small helpers -----------------------------------------------------------
 
 __device__ __forceinline__ float to_f32(float x) { return x; }

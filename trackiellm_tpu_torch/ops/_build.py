@@ -46,9 +46,9 @@ _SIGNATURES = {
     # x, packed, scales, out, partial, M, K, N, G, dtype, BM, splits,
     # groups_per_split, stream
     "trackie_q4_f32a": (_P,) * 5 + (_I,) * 8 + (_P,),
-    # x, norm, gu, gu_scales, down, down_scales, partial, out, M, D, H, G,
-    # x_dtype, norm_dtype, eps, stream
-    "trackie_fused_mlp_q4": (_P,) * 8 + (_I,) * 6 + (_F, _P),
+    # x, norm, gu, gu_scales, down, down_scales, scratch, flags, out, M, D,
+    # H, G, x_dtype, norm_dtype, eps, blocks, stream
+    "trackie_fused_mlp_q4": (_P,) * 9 + (_I,) * 6 + (_F, _I, _P),
     # x, packed, scales, out, M, K, N, G, dtype, tile_k, tile_n, stream
     "trackie_q4_stream": (_P,) * 4 + (_I,) * 7 + (_P,),
     # x, w, n_bytes, partial, blocks, out, stream

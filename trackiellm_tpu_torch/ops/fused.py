@@ -13,6 +13,7 @@ without a cast to x's dtype.
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -22,10 +23,26 @@ from trackiellm_tpu_torch.ops.backend import is_cuda
 from trackiellm_tpu_torch.ops.quant import (QuantizedLinear,
                                             quantized_matmul_ref)
 
-# Largest M the fused block takes (``_can_fuse``), and the hidden-pair rows
-# of W_down one block of the kernel owns.
+# Largest M the fused block takes (``_can_fuse``).
 FUSED_MAX_M = 8
-_PAIR_ROWS = 32
+# The kernel's work units (csrc/fused_mlp_q4.cu), for M rounded up to R
+# rows (1, 2, 4 or 8): phase A cuts the hidden pairs into tiles of
+# ``_TILE_PAIRS[R]`` and W_gu's D/2 packed rows into chunks of
+# ``_CHUNK_A[R]``; phase B cuts the output columns into slices of
+# ``_SLICE_COLS[R]`` and W_down's H/2 packed rows into chunks of 64. Each
+# phase's units are split over the blocks as contiguous ranges
+# (``unit_ranges``); a block has ``_THREADS[R]`` threads, each on
+# ``_COLS[R]`` columns.
+CHUNK_B = 64
+_THREADS = {1: 512, 2: 512, 4: 512, 8: 256}
+_TILE_PAIRS = {1: 128, 2: 128, 4: 64, 8: 32}
+_CHUNK_A = {1: 16, 2: 16, 4: 32, 8: 32}
+_SLICE_COLS = {1: 128, 2: 128, 4: 128, 8: 64}
+_COLS = {1: 4, 2: 4, 4: 2, 8: 4}
+_STAGES = 8
+# Dynamic shared memory the kernel may ask for: Hopper's 232,448 bytes a
+# block, less room for its static shared memory.
+_MAX_SMEM = 232448 - 1024
 
 
 def fused_mlp_ref(x: torch.Tensor, norm_scale: torch.Tensor,
@@ -101,6 +118,79 @@ def _check_fused_operands(x, norm_scale, gu_packed, gu_scales, down_packed,
     return g
 
 
+class FusedPlan(NamedTuple):
+    """How ``csrc/fused_mlp_q4.cu`` splits one call: ``rows`` is M rounded
+    up to the kernel's row count (1, 2, 4 or 8), ``blocks`` the grid (one
+    block an SM at most), ``tile_pairs`` the hidden pairs of a phase-A tile,
+    ``chunk_a`` the W_gu rows and ``slice_cols`` the output columns of a
+    unit, ``units_a`` and ``units_b`` the (tile, chunk) and (slice, chunk)
+    units of its two phases, ``scratch_floats`` its f32 scratch (act (H/2,
+    2, rows), then a (rows, 4 tile_pairs) and a (rows, slice_cols) partial
+    a block) and ``smem_bytes`` the shared memory a block needs."""
+    rows: int
+    blocks: int
+    tile_pairs: int
+    chunk_a: int
+    slice_cols: int
+    units_a: int
+    units_b: int
+    scratch_floats: int
+    smem_bytes: int
+
+
+def fused_plan(m: int, d: int, h: int, g: int, sms: int) -> FusedPlan:
+    """The kernel's split of an (M, D) x (D, 2H) x (H, D) block over
+    ``sms`` SMs, with the kernel's shape rules; raises ValueError on a shape
+    the kernel does not take."""
+    if (d % 128 or (h // 2) % 128 or g % CHUNK_B or (d // 2) % g
+            or (h // 2) % g):
+        raise ValueError(
+            f"the kernel needs D and H/2 to be multiples of 128 and G a "
+            f"multiple of {CHUNK_B} dividing D/2 and H/2 (D={d}, H={h}, "
+            f"G={g})")
+    rows = 1 if m == 1 else 2 if m == 2 else 4 if m <= 4 else 8
+    tile_pairs, chunk_a = _TILE_PAIRS[rows], _CHUNK_A[rows]
+    slice_cols, row_a = _SLICE_COLS[rows], 4 * _TILE_PAIRS[rows]
+    stage_a = chunk_a * row_a + 2 * row_a * 4
+    stage_b = (CHUNK_B * slice_cols + CHUNK_B * 2 * rows * 4
+               + 2 * slice_cols * 4)
+    smem = (max(d * rows * 4 + _STAGES * stage_a, _STAGES * stage_b)
+            + _THREADS[rows] * _COLS[rows] * rows * 4
+            + rows * max(row_a, slice_cols) * 4)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"the kernel keeps rmsnorm(x) in shared memory: "
+                         f"M={m} rounds to {rows} rows, and {rows} x D={d} "
+                         f"needs {smem} bytes, more than {_MAX_SMEM}")
+    units_a = (h // 2 // tile_pairs) * (d // 2 // chunk_a)
+    units_b = (d // slice_cols) * (h // 2 // CHUNK_B)
+    blocks = min(sms, max(units_a, units_b))
+    scratch = rows * (h + blocks * (row_a + slice_cols))
+    return FusedPlan(rows, blocks, tile_pairs, chunk_a, slice_cols, units_a,
+                     units_b, scratch, smem)
+
+
+def unit_ranges(units: int, blocks: int) -> list:
+    """Block b's units [units * b // blocks, units * (b + 1) // blocks), as
+    the kernel's ``unit_begin`` computes them."""
+    return [(units * b // blocks, units * (b + 1) // blocks)
+            for b in range(blocks)]
+
+
+_FLAGS = {}
+
+
+def _flags(device: torch.device) -> torch.Tensor:
+    """The kernel's int32 flags on ``device``, two an SM: zero before the
+    first launch, and each launch leaves them zero (the block that waits on
+    a flag clears it), so one tensor serves every launch in stream order."""
+    flags = _FLAGS.get(device)
+    if flags is None:
+        flags = torch.zeros(2 * torch.cuda.get_device_properties(
+            device).multi_processor_count, dtype=torch.int32, device=device)
+        _FLAGS[device] = flags
+    return flags
+
+
 def fused_mlp_q4(x: torch.Tensor, norm_scale: torch.Tensor,
                  gu_packed: torch.Tensor, gu_scales: torch.Tensor,
                  down_packed: torch.Tensor, down_scales: torch.Tensor,
@@ -124,20 +214,23 @@ def fused_mlp_q4(x: torch.Tensor, norm_scale: torch.Tensor,
         raise ValueError("every operand must be on x's device")
     if not all(t.is_contiguous() for t in operands):
         raise ValueError("every operand must be contiguous")
+    if any(t.data_ptr() % 16 for t in (x, *operands[2:])):
+        raise ValueError("x, the packed weights and the scales must be "
+                         "16-byte aligned (the kernel reads them 16 bytes at "
+                         "a time)")
     m, d = x.shape
     h = gu_packed.shape[1] // 2
-    if (h // 2) % _PAIR_ROWS or g % _PAIR_ROWS:
-        raise ValueError(f"the kernel needs H/2 and G to be multiples of "
-                         f"{_PAIR_ROWS} (H={h}, G={g})")
-    partial = torch.empty(((h // 2) // _PAIR_ROWS, m, d), dtype=torch.float32,
+    plan = fused_plan(m, d, h, g, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)   # blocks <= SMs: fits the flags
+    scratch = torch.empty(plan.scratch_floats, dtype=torch.float32,
                           device=x.device)
     out = torch.empty_like(x)
     status = _build.library().trackie_fused_mlp_q4(
         x.data_ptr(), norm_scale.data_ptr(), gu_packed.data_ptr(),
         gu_scales.data_ptr(), down_packed.data_ptr(), down_scales.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), m, d, h, g,
-        0 if x.dtype == torch.float32 else 1,
-        0 if norm_scale.dtype == torch.float32 else 1, eps,
+        scratch.data_ptr(), _flags(x.device).data_ptr(),
+        out.data_ptr(), m, d, h, g, 0 if x.dtype == torch.float32 else 1,
+        0 if norm_scale.dtype == torch.float32 else 1, eps, plan.blocks,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "fused_mlp_q4")
     fused_mlp_q4.launches += 1

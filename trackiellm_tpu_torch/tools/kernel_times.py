@@ -1,4 +1,4 @@
-"""Time the main path's kernels and the Q8 matmul of one checkout of the port.
+"""Time the main path's kernels, the Q8 matmul and the fused MLP block.
 
     python3 trackiellm_tpu_torch/tools/kernel_times.py [--root DIR]
 
@@ -24,6 +24,12 @@ Where the checkout's W4A8 takes its tile height from ``_w4a8_plan``, the
 kernel is also timed, device only, at M 1, 8 and 16 on the five Mistral-7B
 projections at every tile height its C entry takes.
 
+The fused Q4 decode MLP block (``fused_mlp_q4``, D 4096, H 14336, group
+256, bf16 x) is timed at M 1, 4 and 8 as ``_times`` reads it, beside the
+device-only ms of the unfused block on the default route
+(``models/llm.py:_mlp_block`` with the levers unset: W4A8 ``w_gu``,
+silu * up, W4A8 ``w_down``, the residual).
+
 Prints the card line, then one JSON line. To compare two checkouts, run the
 tool on each, alternating (A, B, B, A), back to back on one card. Runs
 that are not on a CUDA device exit non-zero.
@@ -36,6 +42,7 @@ import functools
 import importlib.util
 import json
 import math
+import os
 import pathlib
 import sys
 
@@ -184,6 +191,27 @@ def q8_times(cs, quant, lib, check, dev, gen) -> dict:
     return out
 
 
+def fused_times(cs, quant, fused, llm, dev, gen) -> dict:
+    """``fused_mlp_q4`` at M in FUSED_MS, bf16, as ``_times`` reads it, and
+    the unfused block's device-only ms on the same inputs."""
+    d, hid, grp = cs.FUSED_SHAPE
+    w_gu = quant.quantize_q4(torch.randn(
+        (d, 2 * hid), generator=gen, device=dev) / math.sqrt(d), grp)
+    w_down = quant.quantize_q4(torch.randn(
+        (hid, d), generator=gen, device=dev) / math.sqrt(hid), grp)
+    out = {}
+    for m in cs.FUSED_MS:
+        x = torch.randn((m, d), generator=gen, device=dev).to(torch.bfloat16)
+        norm = (1.0 + 0.1 * torch.randn((d,), generator=gen, device=dev)).to(
+            torch.bfloat16)
+        out[f"fused M={m}"] = _times(cs, lambda: fused.fused_mlp_q4(
+            x, norm, w_gu.values, w_gu.scales, w_down.values, w_down.scales))
+        device = cs.device_only_ms(
+            lambda: llm._mlp_block(x, norm, w_gu, w_down, 1e-5))
+        out[f"unfused device_ms M={m}"] = device["total"] if device else None
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=pathlib.Path, default=CHECKOUT,
@@ -201,8 +229,12 @@ def main(argv=None) -> int:
         print(f"kernel_times: imported the port from {found}, not {root}",
               file=sys.stderr)
         return 1
-    from trackiellm_tpu_torch.ops import _build, attention, quant
+    from trackiellm_tpu_torch.models import llm
+    from trackiellm_tpu_torch.ops import _build, attention, fused, quant
     import torch.nn.functional as F
+
+    for name in ("TRACKIE_Q4_F32A", "TRACKIE_FUSED_MLP"):
+        os.environ.pop(name, None)   # the unfused block's default route
 
     cs = _chip_smoke()
     print(cs.nvidia_smi(), flush=True)
@@ -235,6 +267,7 @@ def main(argv=None) -> int:
             cs, lambda: F.scaled_dot_product_attention(
                 q[None], kk[None], v[None], is_causal=True, enable_gqa=True))
 
+    result.update(fused_times(cs, quant, fused, llm, dev, gen))
     result.update(q8_times(cs, quant, lib, _build.check, dev, gen))
     if hasattr(quant, "_w4a8_plan") and hasattr(quant,
                                                 "quantize_activations"):
