@@ -850,7 +850,8 @@ KERNELS = {
                   "trackiellm_tpu/ops/quant.py:184",
                   ("w_gu M=1", "w_gu M=512"), 6),
     "q4_matmul_f32a": ("trackiellm_tpu_torch/csrc/q4_f32a.cu",
-                       "trackiellm_tpu/ops/quant.py:272", ("w_gu M=1",), 7),
+                       "trackiellm_tpu/ops/quant.py:272",
+                       ("w_gu M=1", "w_gu M=512"), 7),
     "fused_mlp_q4": ("trackiellm_tpu_torch/csrc/fused_mlp_q4.cu",
                      "trackiellm_tpu/ops/fused.py:144", ("M=1 bfloat16",), 7),
     "q4_matmul_stream": ("trackiellm_tpu_torch/csrc/q4_stream.cu",

@@ -76,6 +76,17 @@ def test_kernels_line_lists_all_nine():
         assert phase in (5, 6, 7, 9)
 
 
+def test_matmul_kernels_carry_decode_and_prefill_cases():
+    """The three quantized matmuls the model paths launch (W4A8, Q8, f32a)
+    carry w_gu at M=1 (decode) and M=512 (prefill) as headline cases, so
+    the kernels line and PERF.md's table carry both device-only times;
+    phase 3 runs both M."""
+    cs = _load()
+    for name in ("q4_matmul_w4a8", "q8_matmul", "q4_matmul_f32a"):
+        assert cs.KERNELS[name][2] == ("w_gu M=1", "w_gu M=512")
+    assert {1, 512} <= set(cs.MATMUL_MS)
+
+
 def test_fails_without_a_card(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert _load().main() != 0

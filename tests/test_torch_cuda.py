@@ -268,6 +268,85 @@ def test_q8_tensor_core_kernel_one_group_and_narrow(dev, m, n):
     assert torch.equal(tq.q8_matmul(x, shifted, w.scales), got)
 
 
+@pytest.mark.parametrize("m", [1, 3, 15, 16, 17, 63, 64, 65, 200, 512])
+@pytest.mark.parametrize("group", [32, 64, 128, 256])
+def test_f32a_tensor_core_kernel_matches_plain(dev, group, m):
+    """bf16 x takes the f32a tensor-core kernel on both sides of the 16-row
+    decode tile (G = 32 takes the 64-row tile's 32-row chunks); N = 320
+    leaves a column tail of 64 in the last tile."""
+    g = torch.Generator(device=dev).manual_seed(2000 * group + m)
+    w = tq.quantize_q4(torch.randn((1024, 320), generator=g, device=dev),
+                       group)
+    x = torch.randn((m, 1024), generator=g, device=dev).to(torch.bfloat16)
+    before = tq.q4_matmul_f32a.launches
+    got = tq.q4_matmul_f32a(x, w.values, w.scales)
+    torch.cuda.synchronize()
+    assert tq.q4_matmul_f32a.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (m, 320)
+    assert _rel_l2(got, tq.q4_matmul_f32a_ref(x, w.values, w.scales)) < 1e-5
+    assert torch.equal(got, tq.q4_matmul_f32a(x, w.values, w.scales))
+
+
+def _q4_from_ints(q, scales):
+    """The integer weights q (K, N) in [-8, 7], packed as quantize_q4 packs
+    them (it never gives -8), with the given scales."""
+    half = q.shape[0] // 2
+    lo = (q[:half] + 8).to(torch.uint8)
+    hi = (q[half:] & 0xF).to(torch.uint8)
+    return tq.QuantizedLinear(values=lo | (hi << 4), scales=scales)
+
+
+@pytest.mark.parametrize("n", [4, 68, 4096])
+@pytest.mark.parametrize("m", [1, 16, 17, 100])
+@pytest.mark.parametrize("group", [32, 128])
+def test_f32a_tensor_core_kernel_one_group_per_half(dev, group, m, n):
+    """K = 2G: one group in each half. The high half's weights are the two
+    extremes of its two's complement nibble, -8 in even columns and 7 in
+    odd ones, the low half's random over [-8, 7]. N narrower than a tile
+    and, at 4 and 68, not a multiple of 16 (4-byte copies); then the packed
+    weights at an offset of 4 bytes (4-byte copies at N = 4096)."""
+    g = torch.Generator(device=dev).manual_seed(group * m + n)
+    k = 2 * group
+    q = torch.randint(-8, 8, (k, n), generator=g, device=dev,
+                      dtype=torch.int32)
+    q[group:] = torch.where(torch.arange(n, device=dev) % 2 == 0, -8, 7)
+    scales = torch.rand((2, n), generator=g, device=dev) + 0.5
+    w = _q4_from_ints(q, scales)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    got = tq.q4_matmul_f32a(x, w.values, w.scales)
+    assert _rel_l2(got, tq.q4_matmul_f32a_ref(x, w.values, w.scales)) < 1e-5
+    dense = (q.float().reshape(2, group, n) * scales[:, None, :]).reshape(
+        k, n)
+    assert _rel_l2(got, x.float() @ dense) < 1e-5
+    buf = torch.zeros(4 + w.values.numel(), dtype=torch.uint8, device=dev)
+    shifted = buf[4:].view_as(w.values)
+    shifted.copy_(w.values)
+    assert shifted.data_ptr() % 16 == 4
+    assert torch.equal(tq.q4_matmul_f32a(x, shifted, w.scales), got)
+
+
+@pytest.mark.parametrize("m", [5, 40])
+def test_f32a_tensor_core_kernel_nonfinite_rows(dev, m):
+    """A NaN in the low half's activations and a +Inf and a -Inf in the
+    high half's: the outputs are non-finite in exactly the rows where the
+    plain version's are, and the other rows agree with it."""
+    g = torch.Generator(device=dev).manual_seed(m)
+    w = tq.quantize_q4(torch.randn((1024, 320), generator=g, device=dev),
+                       256)
+    x = torch.randn((m, 1024), generator=g, device=dev).to(torch.bfloat16)
+    x[0, 3] = float("nan")
+    x[2, 512 + 7] = float("inf")
+    x[3, 1023] = -float("inf")
+    got = tq.q4_matmul_f32a(x, w.values, w.scales)
+    ref = tq.q4_matmul_f32a_ref(x, w.values, w.scales)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isfinite(got), torch.isfinite(ref))
+    bad = (~torch.isfinite(got)).all(dim=1).tolist()
+    assert bad == [True, False, True, True] + [False] * (m - 4)
+    finite = [1] + list(range(4, m))
+    assert _rel_l2(got[finite], ref[finite]) < 1e-5
+
+
 def test_nonfinite_activations_on_the_card(dev):
     """A NaN and an Inf activation through the quantization kernel and
     W4A8: sx equals the plain version's, NaN and inf included; sxsum and the

@@ -274,10 +274,10 @@ def test_kernel_times_sums_kernels_whose_cut_names_collide():
                    "device_kernels": {"k" * 72: 3.0, "other": 0.5}}
 
 
-def test_kernel_times_q8_rows_on_the_cpu():
-    """The Q8 rows' control flow at tiny shapes on the CPU (the plain Q8
-    path): w_gu timed per call and device only, every projection at M 1
-    and 512 beside the dense yardstick, each timed function run once."""
+def _matmul_rows_on_the_cpu(kind, quantize, kernel):
+    """kernel_times.matmul_times at tiny shapes on the CPU (the plain
+    path), with fake timers that run each timed function once; the split
+    sweep calls the C entry, which the CPU has not, so it is left out."""
     ran = []
 
     class FakeTimers:
@@ -292,20 +292,51 @@ def test_kernel_times_q8_rows_on_the_cpu():
         @staticmethod
         def time_ms(fn):
             return 4.0
-    gen = torch.Generator().manual_seed(0)
-    # The split sweep calls the C entry, which the CPU has not: leave it out.
-    no_plan = types.SimpleNamespace(quantize_q8=quant.quantize_q8,
-                                    q8_matmul=quant.q8_matmul)
-    got = kernel_times.q8_times(FakeTimers, no_plan, None, None,
-                                torch.device("cpu"), gen)
+    got = kernel_times.matmul_times(FakeTimers, kind, quantize, kernel, None,
+                                    torch.device("cpu"),
+                                    torch.Generator().manual_seed(0))
+    return got, ran
+
+
+def test_kernel_times_q8_rows_on_the_cpu():
+    """The Q8 rows: w_gu timed per call and device only, every projection
+    at M 1 and 512 beside the dense yardstick, each timed function run
+    once; no split rows without a sweep."""
+    got, ran = _matmul_rows_on_the_cpu("q8", quant.quantize_q8,
+                                       quant.q8_matmul)
     assert got["q8 w_gu M=512"] == {"ms": 4.0, "device_ms": 2.0,
                                     "device_kernels": {"k": 2.0}}
-    assert set(got) == {"q8 w_gu M=1", "q8 w_gu M=512", "device_ms wo M=1",
-                        "device_ms wo M=512", "device_ms w_gu M=1",
-                        "device_ms w_gu M=512"}
-    assert got["device_ms wo M=1"] == {"q8": 2.0, "dense_bf16": 2.0}
+    assert set(got) == {"q8 w_gu M=1", "q8 w_gu M=512",
+                        "q8 device_ms wo M=1", "q8 device_ms wo M=512",
+                        "q8 device_ms w_gu M=1", "q8 device_ms w_gu M=512"}
+    assert got["q8 device_ms wo M=1"] == {"q8": 2.0, "dense_bf16": 2.0}
     assert ran == [(1, 64), (1, 64), (512, 64), (512, 64), (1, 256),
                    (1, 256), (512, 256), (512, 256)]
+
+
+def test_kernel_times_f32a_rows_on_the_cpu():
+    """The f32a rows, as the Q8 rows."""
+    got, ran = _matmul_rows_on_the_cpu("f32a", quant.quantize_q4,
+                                       quant.q4_matmul_f32a)
+    assert got["f32a w_gu M=1"] == {"ms": 4.0, "device_ms": 2.0,
+                                    "device_kernels": {"k": 2.0}}
+    assert set(got) == {"f32a w_gu M=1", "f32a w_gu M=512",
+                        "f32a device_ms wo M=1", "f32a device_ms wo M=512",
+                        "f32a device_ms w_gu M=1",
+                        "f32a device_ms w_gu M=512"}
+    assert got["f32a device_ms wo M=512"] == {"f32a": 2.0,
+                                              "dense_bf16": 2.0}
+    assert ran == [(1, 64), (1, 64), (512, 64), (512, 64), (1, 256),
+                   (1, 256), (512, 256), (512, 256)]
+
+
+def test_kernel_times_split_sweeps_need_the_plans():
+    """A checkout without the bf16 kernels' plans (an older one, timed for
+    comparison) gets no split sweep."""
+    old = types.SimpleNamespace()
+    for kind in ("q8", "f32a"):
+        assert kernel_times.group_splits(kind, old, None, None) is None
+        assert callable(kernel_times.group_splits(kind, quant, None, None))
 
 
 def test_kernel_times_fused_rows_on_the_cpu():

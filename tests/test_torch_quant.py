@@ -221,6 +221,40 @@ def test_q8_plan(m, expect_bm):
     assert tq._q8_plan(512, 4096, 56) == (64, 1, 56)
 
 
+@pytest.mark.parametrize("m,expect_bm", [(1, 16), (3, 16), (15, 16),
+                                         (16, 16), (17, 64), (64, 64),
+                                         (65, 64), (512, 64)])
+def test_f32a_plan(m, expect_bm):
+    """The bf16 f32a tensor-core kernel's plan: 128-column tiles, 16 rows
+    up to M = 16, 64 above. For every column tile the splits cover the
+    group pairs of the K halves once, each split whole group pairs, as
+    even as they allow, toward 8 blocks per SM for the 16-row tiles and
+    one for the 64-row tiles. Tiny to Mistral-7B widths; N = 320 leaves a
+    column tail."""
+    for k, n in MISTRAL_KN + [(1024, 320), (256, 4), (64, 68)]:
+        for group in (32, 64, 128, 256, 512, 1024):
+            if (k // 2) % group:
+                continue
+            ngh = k // 2 // group
+            bm, splits, per_split = tq._f32a_plan(m, n, ngh)
+            assert bm == expect_bm
+            assert 1 <= splits <= ngh
+            cover = np.zeros(ngh, np.int64)
+            for z in range(splits):
+                cover[z * per_split:(z + 1) * per_split] += 1
+            assert (cover == 1).all()
+            assert per_split == -(-ngh // splits)
+            tiles = -(-n // tq.F32A_BN) * -(-m // bm)
+            target = (8 if bm == 16 else 1) * 132
+            assert 2 * tiles * splits >= min(target, tiles * ngh)
+    # Mistral-7B at decode: two group pairs a split at w_gu, one at wo and
+    # w_down; none at M = 512.
+    assert tq._f32a_plan(1, 28672, 8) == (16, 4, 2)
+    assert tq._f32a_plan(1, 4096, 8) == (16, 8, 1)
+    assert tq._f32a_plan(1, 4096, 28) == (16, 28, 1)
+    assert tq._f32a_plan(512, 28672, 8) == (64, 1, 8)
+
+
 @pytest.mark.parametrize("m,expect_bm", [(1, 4), (4, 4), (8, 16), (16, 16),
                                          (64, 64), (512, 64)])
 def test_split_k_plan(m, expect_bm):

@@ -189,8 +189,8 @@ def _split_k_plan(m: int, n: int, n_groups: int,
 
 
 # Columns of a block tile of the tensor-core kernels (csrc/q4_w4a8.cu,
-# csrc/q8_matmul.cu).
-W4A8_BN = Q8_BN = 128
+# csrc/q8_matmul.cu, csrc/q4_f32a.cu).
+W4A8_BN = Q8_BN = F32A_BN = 128
 
 
 def _w4a8_plan(m: int, n: int, n_groups: int,
@@ -228,6 +228,26 @@ def _q8_plan(m: int, n: int, n_groups: int,
     bm = 16 if m <= 16 else 64
     tiles = math.ceil(n / Q8_BN) * math.ceil(m / bm)
     target = (16 if bm == 16 else 1) * sms
+    splits = max(1, min(n_groups, math.ceil(target / tiles)))
+    per_split = math.ceil(n_groups / splits)
+    return bm, math.ceil(n_groups / per_split), per_split
+
+
+def _f32a_plan(m: int, n: int, n_groups: int,
+               sms: int = 132) -> Tuple[int, int, int]:
+    """Tile rows, K splits and groups per split of the bf16 f32a
+    tensor-core kernel (``n_groups`` is the count of groups in each K
+    half; a split walks whole group pairs).
+
+    Tiles are 128 columns wide: 16 rows for M <= 16 (decode; four blocks
+    fit an SM), 64 rows above (two fit). K is split, as evenly as the
+    group pairs allow, until the 16-row tiles give 8 blocks per SM (at
+    M = 1, two group pairs a split of ``w_gu`` and ``lm_head``, about 7
+    blocks an SM, beat one, about 14; ``tools/kernel_times.py``), the
+    64-row tiles one. The kernel sums the splits in split order."""
+    bm = 16 if m <= 16 else 64
+    tiles = math.ceil(n / F32A_BN) * math.ceil(m / bm)
+    target = (8 if bm == 16 else 1) * sms
     splits = max(1, min(n_groups, math.ceil(target / tiles)))
     per_split = math.ceil(n_groups / splits)
     return bm, math.ceil(n_groups / per_split), per_split
@@ -383,6 +403,18 @@ def q4_matmul_f32a_ref(x: torch.Tensor, packed: torch.Tensor,
     return (part_lo + part_hi).sum(dim=0)
 
 
+def _bf16_operands(x: torch.Tensor, values: torch.Tensor,
+                   scales: torch.Tensor) -> torch.Tensor:
+    """The tensor-core kernels copy x and the scale rows 16 bytes at a time
+    and the weights at least 4: refuse scales or weights off those
+    boundaries, and return x contiguous and 16-byte aligned (a copy where
+    it is not)."""
+    if scales.data_ptr() % 16 or values.data_ptr() % 4:
+        raise ValueError("scales must be 16-byte and values 4-byte aligned")
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
 def _launch_split_k(name: str, x: torch.Tensor, values: torch.Tensor,
                     scales: torch.Tensor, g: int, n_groups: int,
                     plan=_split_k_plan) -> torch.Tensor:
@@ -427,14 +459,7 @@ def q8_matmul(x: torch.Tensor, values: torch.Tensor,
         return q8_matmul_ref(x, values, scales)
     plan = _split_k_plan
     if x.dtype == torch.bfloat16:
-        # The tensor-core kernel copies x and the scale rows 16 bytes at a
-        # time and the weights at least 4.
-        if scales.data_ptr() % 16 or values.data_ptr() % 4:
-            raise ValueError("scales must be 16-byte and values 4-byte "
-                             "aligned")
-        x = x.contiguous()
-        if x.data_ptr() % 16:
-            x = x.clone()
+        x = _bf16_operands(x, values, scales)
         plan = _q8_plan
     out = _launch_split_k("q8_matmul", x, values, scales, g,
                           values.shape[0] // g, plan)
@@ -451,14 +476,20 @@ def q4_matmul_f32a(x: torch.Tensor, packed: torch.Tensor,
     (M, N) f32.
 
     Replaces ``trackiellm_tpu/ops/quant.py:q4_matmul_pallas``. A CUDA
-    tensor launches ``csrc/q4_f32a.cu`` (see its header) or raises; a CPU
-    tensor takes :func:`q4_matmul_f32a_ref`."""
+    tensor launches ``csrc/q4_f32a.cu`` (see its header for what bounds it
+    on the H100 and what its design does about that) or raises: bf16 x
+    (the model's) its tensor-core kernel at every M, f32 x its f32-FMA
+    kernel. A CPU tensor takes :func:`q4_matmul_f32a_ref`."""
     g = _check_q4_operands(x, packed, scales)
     _check_f32a_x(x)
     if not is_cuda(x):
         return q4_matmul_f32a_ref(x, packed, scales)
+    plan = _split_k_plan
+    if x.dtype == torch.bfloat16:
+        x = _bf16_operands(x, packed, scales)
+        plan = _f32a_plan
     out = _launch_split_k("q4_f32a", x, packed, scales, g,
-                          packed.shape[0] // g)
+                          packed.shape[0] // g, plan)
     q4_matmul_f32a.launches += 1
     return out
 

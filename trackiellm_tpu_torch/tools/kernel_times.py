@@ -1,4 +1,5 @@
-"""Time the main path's kernels, the Q8 matmul and the fused MLP block.
+"""Time the main path's kernels, the Q8 and f32a matmuls and the fused
+MLP block.
 
     python3 trackiellm_tpu_torch/tools/kernel_times.py [--root DIR]
 
@@ -13,6 +14,9 @@ Mistral-7B projections at M 1 and 512 beside that of a dense bf16
 ``torch.matmul`` of the same shape (a yardstick of the card's rate, not the
 same function: its weights are bf16), and, where the checkout has
 ``_q8_plan``, the bf16 Q8 kernel's device-only ms by groups a K split.
+The f32-activation Q4 matmul (``q4_matmul_f32a``, the
+``TRACKIE_Q4_F32A=1`` route) is timed the same way, by group pairs a K
+split where the checkout has ``_f32a_plan``.
 Each call is timed as ``chip_smoke.py``
 times it: ``time_ms`` (CUDA events, L2 flushed before each call, a
 synchronize after it) and ``device_only_ms`` (the profiler's device clock,
@@ -122,72 +126,97 @@ def tile_heights(cs, quant, lib, check, dev, gen) -> dict:
     return out
 
 
-def _q8_at(cs, quant, lib, check, x, w, per_split: int):
-    """A callable that runs the bf16 Q8 kernel on x as the wrapper does but
-    with ``per_split`` groups a K split, checked against the plain version
-    first."""
+def _split_at(cs, entry, check, plain, x, w, bm: int, splits: int,
+              per_split: int):
+    """A callable that runs ``entry`` (the C entry of the bf16 Q8 or f32a
+    kernel; both take x, values, scales, out, partial, M, K, N, G, dtype,
+    BM, splits, groups a split, stream) on x as its wrapper does, but with
+    the given tiling; checked against ``plain`` first."""
     m, k = x.shape
     n = w.values.shape[1]
     g = k // w.scales.shape[0]
-    bm = quant._q8_plan(m, n, k // g)[0]
-    splits = -(-(k // g) // per_split)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     partial = torch.empty((splits, m, n), dtype=torch.float32,
                           device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
 
     def call():
-        return lib.trackie_q8_matmul(
-            x.data_ptr(), w.values.data_ptr(), w.scales.data_ptr(),
-            out.data_ptr(), partial.data_ptr(), m, k, n, g, 1, bm, splits,
-            per_split, stream)
-    check(call(), f"q8_matmul with {per_split} groups a split")
+        return entry(x.data_ptr(), w.values.data_ptr(), w.scales.data_ptr(),
+                     out.data_ptr(), partial.data_ptr(), m, k, n, g, 1, bm,
+                     splits, per_split, stream)
+    what = f"{splits} splits of {per_split} groups"
+    check(call(), what)
     torch.cuda.synchronize()
-    err = cs.rel_l2(out, quant.q8_matmul_ref(x, w.values, w.scales))
+    err = cs.rel_l2(out, plain(x, w.values, w.scales))
     if not err < cs.MATMUL_TOL:
-        raise AssertionError(f"q8 {per_split} groups a split: rel L2 {err}")
+        raise AssertionError(f"{what}: rel L2 {err}")
     return call
 
 
-def q8_times(cs, quant, lib, check, dev, gen) -> dict:
-    """Q8 with bf16 x: ``w_gu`` at M 1 and 512 as ``_times`` reads it, and
-    device-only ms on every Mistral projection at M 1 and 512, each beside
-    the dense bf16 yardstick's. Where the checkout has ``_q8_plan``, also
-    device-only ms by groups a K split: 1, 2, 4 and 8 at M = 1; all and half
-    of the groups at M = 512."""
+# The bf16 tensor-core kernels a split sweep times: the names of their
+# plan, C entry and plain version.
+SWEPT = {"q8": ("_q8_plan", "trackie_q8_matmul", "q8_matmul_ref"),
+         "f32a": ("_f32a_plan", "trackie_q4_f32a", "q4_matmul_f32a_ref")}
+
+
+def group_splits(kind: str, quant, lib, check):
+    """The bf16 ``kind`` kernel (a key of SWEPT) by groups a K split (group
+    pairs for f32a, whose splits walk both K halves): 1, 2, 4 and 8 at
+    M = 1; all and half of them at M = 512. None where the checkout has no
+    plan for it."""
+    plan, entry, plain = SWEPT[kind]
+    if not hasattr(quant, plan):
+        return None
+
+    def sweep(cs, x, w):
+        m, k = x.shape
+        rows, n = w.values.shape
+        ng = rows // (k // w.scales.shape[0])   # groups a split may walk
+        bm = getattr(quant, plan)(m, n, ng)[0]
+        return {per: _split_at(cs, getattr(lib, entry), check,
+                               getattr(quant, plain), x, w, bm,
+                               -(-ng // per), per)
+                for per in ((1, 2, 4, 8) if m == 1 else (ng, -(-ng // 2)))}
+    return sweep
+
+
+def matmul_times(cs, kind: str, quantize, kernel, sweep, dev, gen) -> dict:
+    """A quantized matmul (``kind``: "q8" or "f32a") with bf16 x: ``w_gu``
+    at M 1 and 512 as ``_times`` reads it, and device-only ms on every
+    Mistral projection at M 1 and 512, each beside the dense bf16
+    yardstick's. Where ``sweep`` is given (``group_splits``), also
+    device-only ms by groups a K split."""
     out, by_split = {}, {}
     for name, (k, n) in cs.MISTRAL_SHAPES.items():
-        w = quant.quantize_q8(
+        w = quantize(
             torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k),
             cs.GROUP)
         dense = torch.randn((k, n), generator=gen, device=dev).to(
             torch.bfloat16)
-        ng = k // cs.GROUP
         for m in (1, 512):
             x = torch.randn((m, k), generator=gen, device=dev).to(
                 torch.bfloat16)
-            call = functools.partial(quant.q8_matmul, x, w.values, w.scales)
+            call = functools.partial(kernel, x, w.values, w.scales)
             if name == "w_gu":
                 times = _times(cs, call)
-                out[f"q8 w_gu M={m}"] = times
-                q8 = times["device_ms"]
+                out[f"{kind} w_gu M={m}"] = times
+                ms = times["device_ms"]
             else:
                 device = cs.device_only_ms(call)
-                q8 = device["total"] if device else None
+                ms = device["total"] if device else None
             device = cs.device_only_ms(functools.partial(torch.matmul, x,
                                                          dense))
-            out[f"device_ms {name} M={m}"] = {
-                "q8": q8, "dense_bf16": device["total"] if device else None}
-            if hasattr(quant, "_q8_plan"):
+            out[f"{kind} device_ms {name} M={m}"] = {
+                kind: ms, "dense_bf16": device["total"] if device else None}
+            if sweep is not None:
                 row = {}
-                for per in ((1, 2, 4, 8) if m == 1 else (ng, -(-ng // 2))):
-                    device = cs.device_only_ms(
-                        _q8_at(cs, quant, lib, check, x, w, per))
-                    row[per] = device["total"] if device else None
+                for size, split_call in sweep(cs, x, w).items():
+                    device = cs.device_only_ms(split_call)
+                    row[size] = device["total"] if device else None
                 by_split[f"{name} M={m}"] = row
         del w, dense
     if by_split:
-        out["q8 device_ms by groups a split"] = by_split
+        out[f"{kind} device_ms by K split"] = by_split
     return out
 
 
@@ -268,7 +297,12 @@ def main(argv=None) -> int:
                 q[None], kk[None], v[None], is_causal=True, enable_gqa=True))
 
     result.update(fused_times(cs, quant, fused, llm, dev, gen))
-    result.update(q8_times(cs, quant, lib, _build.check, dev, gen))
+    for kind, quantize, kernel in (
+            ("q8", quant.quantize_q8, quant.q8_matmul),
+            ("f32a", quant.quantize_q4, quant.q4_matmul_f32a)):
+        result.update(matmul_times(
+            cs, kind, quantize, kernel,
+            group_splits(kind, quant, lib, _build.check), dev, gen))
     if hasattr(quant, "_w4a8_plan") and hasattr(quant,
                                                 "quantize_activations"):
         result["w4a8 device_ms by tile height"] = tile_heights(
