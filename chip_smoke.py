@@ -16,10 +16,10 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      D=128, S in {256, 512}, bf16 and f32; the fused MLP block at M in {1,
      4, 8}, D 4096, H 14336, bf16 and f32, also timed against the unfused
      path per call and on the device alone; the stream probe over 512 MiB,
-     grid64 and a 64-call chain_tiny on (8, 128)), with error, tolerance,
-     times, the bound (bytes over the memory rate or operations over the
-     peak rate, whichever is larger),
-     the one PyTorch call that computes the same function where there is
+     grid64 (64 steps in one block) and a 64-call chain_tiny on (8, 128)),
+     with error, tolerance, times, the bound (bytes over the memory rate or
+     operations over the peak rate, whichever is larger), the one PyTorch
+     call that computes the same function where there is
      one (SDPA for causal bf16 flash, an int64 sum for the stream, x + 1
      for grid64), and the profiler's device-only time of each headline
      case and of those library calls;
@@ -424,7 +424,7 @@ def phase_probes(dev, gen, diag, rows) -> None:
                    "int8"),
         "grid64": ("(8, 128)", lambda: diag.grid64(tile),
                    lambda: diag.grid64_ref(tile), 0.0, lambda: tile + 1,
-                   (tile,), tile.numel(), "f32"),
+                   (tile,), diag.GRID_STEPS * tile.numel(), "f32"),
         "chain_tiny": (f"{diag.CHAIN} calls (8, 128)",
                        lambda: diag.chain_tiny(tile),
                        lambda: diag.chain_tiny_ref(tile), 0.0, None,

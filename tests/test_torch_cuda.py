@@ -580,16 +580,19 @@ def test_tiny_model_on_the_card_matches_cpu(dev):
     assert texts[0] == texts[1]
 
 
-STREAM_TILES = [(tq.STREAM_TILE_K, tq.STREAM_TILE_N), (256, 16), (256, 64),
-                (512, 128), (1024, 32)]
+# (tile_k, tile_n): the card defaults, the narrowest tile ("G": tile_k one
+# group), wider ones, and one stage holding all of K/2.
+STREAM_TILES = [(tq.STREAM_TILE_K, tq.STREAM_TILE_N), ("G", 16), (256, 16),
+                (256, 64), (512, 128), (256, 256), (1024, 32)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m", [1, 3, 8, 9, 20])
+@pytest.mark.parametrize("m", [1, 3, 8, 9, 16, 17, 20])
 @pytest.mark.parametrize("tiles", STREAM_TILES)
 @pytest.mark.parametrize("group", [64, 256])
 def test_stream_matmul_kernel_matches_plain(dev, group, tiles, m, dtype):
     tile_k, tile_n = tiles
+    tile_k = group if tile_k == "G" else tile_k
     g = torch.Generator(device=dev).manual_seed(m + group + tile_n)
     w = tq.quantize_q4(torch.randn((2048, 512), generator=g, device=dev),
                        group)
@@ -606,6 +609,46 @@ def test_stream_matmul_kernel_matches_plain(dev, group, tiles, m, dtype):
         x, w.values, w.scales, tile_n=tile_n, tile_k=tile_k))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 9, 17])
+def test_stream_matmul_widest_tile(dev, m, dtype):
+    """tile_n 1024, the widest the card takes: 16 consumer warps, eight
+    TMA boxes of 128 columns a stage."""
+    g = torch.Generator(device=dev).manual_seed(m)
+    w = tq.quantize_q4(torch.randn((1024, 2048), generator=g, device=dev),
+                       64)
+    x = torch.randn((m, 1024), generator=g, device=dev).to(dtype)
+    got = tq.q4_matmul_stream(x, w.values, w.scales, tile_n=1024, tile_k=64)
+    assert _rel_l2(got, tq.q4_matmul_stream_ref(x, w.values, w.scales)) < 1e-5
+    assert torch.equal(got, tq.q4_matmul_stream(x, w.values, w.scales,
+                                                tile_n=1024, tile_k=64))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [5, 20])
+def test_stream_matmul_nonfinite_rows(dev, m, dtype):
+    """A NaN in the low half's activations and a +Inf and a -Inf in the
+    high half's: NaN and Inf land where the plain version puts them, and
+    the finite rows agree with it."""
+    g = torch.Generator(device=dev).manual_seed(m)
+    w = tq.quantize_q4(torch.randn((1024, 320), generator=g, device=dev),
+                       256)
+    x = torch.randn((m, 1024), generator=g, device=dev).to(dtype)
+    x[0, 3] = float("nan")
+    x[2, 512 + 7] = float("inf")
+    x[3, 1023] = -float("inf")
+    got = tq.q4_matmul_stream(x, w.values, w.scales)
+    ref = tq.q4_matmul_stream_ref(x, w.values, w.scales)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    assert torch.equal(torch.isinf(got), torch.isinf(ref))
+    assert torch.equal(got[torch.isinf(got)], ref[torch.isinf(ref)])
+    bad = (~torch.isfinite(got)).all(dim=1).tolist()
+    assert bad == [True, False, True, True] + [False] * (m - 4)
+    finite = [1] + list(range(4, m))
+    assert _rel_l2(got[finite], ref[finite]) < 1e-5
+
+
 @pytest.mark.parametrize("k,n", MISTRAL_SHAPES)
 @pytest.mark.parametrize("m", [1, 8])
 def test_stream_matmul_at_mistral_shapes(dev, k, n, m):
@@ -616,7 +659,8 @@ def test_stream_matmul_at_mistral_shapes(dev, k, n, m):
                    tq.q4_matmul_stream_ref(x, w.values, w.scales)) < 1e-5
 
 
-def test_stream_matmul_on_layer_views(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_matmul_on_layer_views(dev, dtype):
     """A layer's view of a stacked weight (the model's layout) is read at
     its offset."""
     g = torch.Generator(device=dev).manual_seed(5)
@@ -624,7 +668,7 @@ def test_stream_matmul_on_layer_views(dev):
           for _ in range(3)]
     values = torch.stack([w.values for w in ws])
     scales = torch.stack([w.scales for w in ws])
-    x = torch.randn((1, 1024), generator=g, device=dev)
+    x = torch.randn((1, 1024), generator=g, device=dev).to(dtype)
     for i, w in enumerate(ws):
         assert torch.equal(tq.q4_matmul_stream(x, values[i], scales[i]),
                            tq.q4_matmul_stream(x, w.values, w.scales))
@@ -646,13 +690,14 @@ def test_stream_matmul_refuses_bad_operands(dev):
         tq.q4_matmul_stream(x, shifted, w.scales)
 
 
-def test_stream_matmul_in_a_cuda_graph(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_matmul_in_a_cuda_graph(dev, dtype):
     """Captured once and replayed, as the overhead tool runs it: the replay
     gives the eager bits, and only the warm-up and capture count."""
     g = torch.Generator(device=dev).manual_seed(6)
     w = tq.quantize_q4(torch.randn((4096, 4096), generator=g, device=dev)
                        / 64.0)
-    x = torch.randn((1, 4096), generator=g, device=dev)
+    x = torch.randn((1, 4096), generator=g, device=dev).to(dtype)
     before = tq.q4_matmul_stream.launches
     replay = capture(lambda: tq.q4_matmul_stream(
         x, w.values, w.scales, tile_n=64, tile_k=1024), dev)
@@ -692,6 +737,28 @@ def test_tiny_probes_match_plain(dev):
     assert torch.equal(td.chain_tiny(x, 3), x + 1 + 1 + 1)
     assert (td.grid64.launches, td.chain_tiny.launches) == (
         before[0] + 1, before[1] + td.CHAIN + 3)
+
+
+@pytest.mark.parametrize("steps", [1, td.GRID_STEPS])
+def test_grid64_steps_are_exact(dev, steps):
+    x = torch.randn(td.TILE, generator=torch.Generator(
+        device=dev).manual_seed(steps), device=dev)
+    before = td.grid64.launches
+    assert torch.equal(td.grid64(x, steps), td.grid64_ref(x, steps))
+    assert torch.equal(td.grid64(x[0, :5], steps), x[0, :5] + 1)
+    assert td.grid64.launches == before + 2
+    with pytest.raises(ValueError):
+        td.grid64(torch.zeros((2, 1024), device=dev))
+
+
+def test_grid64_in_a_cuda_graph(dev):
+    x = torch.randn(td.TILE, generator=torch.Generator(
+        device=dev).manual_seed(8), device=dev)
+    replay = capture(lambda: td.grid64(x), dev)
+    for _ in range(2):
+        out = replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, td.grid64_ref(x))
 
 
 def test_chain_tiny_in_a_cuda_graph(dev):

@@ -11,6 +11,7 @@ for control flow only: a CPU time is no device metric.
 """
 
 import functools
+import math
 import pathlib
 import types
 
@@ -87,11 +88,12 @@ def _tiny_kernel(x_ref, o_ref):
     o_ref[:] = x_ref[:] + 1.0
 
 
-# tools/diag_scan_overhead.py:70-77, grid64, in interpret mode.
-def _grid64(x):
+# tools/diag_scan_overhead.py:70-77, grid64, in interpret mode, with the
+# grid's length as an argument.
+def _grid64(x, steps=64):
     return pl.pallas_call(
         _tiny_kernel,
-        grid=(64,),
+        grid=(steps,),
         in_specs=[pl.BlockSpec((8, 128), lambda i: (0, 0))],
         out_specs=pl.BlockSpec((8, 128), lambda i: (0, 0)),
         out_shape=jax.ShapeDtypeStruct((8, 128), jnp.float32),
@@ -140,6 +142,20 @@ def test_grid64_matches_the_pallas_body():
                                   ref)
 
 
+@pytest.mark.parametrize("steps", [1, 2, diag.GRID_STEPS])
+def test_grid64_steps_match_a_pallas_grid_as_long(steps):
+    """grid64's ``steps`` argument is the TPU grid's length: every step
+    writes x + 1, so the plain path's output does not depend on it."""
+    x = np.random.default_rng(steps).standard_normal(diag.TILE).astype(
+        np.float32)
+    ref = np.asarray(jax.jit(_grid64, static_argnums=1)(jnp.asarray(x),
+                                                        steps))
+    np.testing.assert_array_equal(
+        diag.grid64(torch.from_numpy(x), steps).numpy(), ref)
+    np.testing.assert_array_equal(
+        diag.grid64_ref(torch.from_numpy(x), steps).numpy(), ref)
+
+
 @pytest.mark.parametrize("n", [1, diag.CHAIN])
 def test_chain_tiny_matches_the_pallas_chain(n):
     x = np.random.default_rng(n).standard_normal(diag.TILE).astype(
@@ -159,6 +175,8 @@ def test_probe_operand_checks():
         diag.stream(torch.ones((1, 1)), torch.zeros((4, 4)))
     with pytest.raises(TypeError):
         diag.grid64(torch.ones(diag.TILE, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        diag.grid64(torch.ones(diag.TILE), 0)
     with pytest.raises(TypeError):
         diag.chain_tiny(torch.ones((0,)))
 
@@ -209,7 +227,10 @@ def test_scan_overhead_tool_control_flow():
     out = diag_scan_overhead.run(CPU, scan_lengths=(2, 4), unroll=3,
                                  executions=(1, 2), n_outer=2)
     assert sorted(out) == sorted(["scan2", "scan4", "unroll3", "grid64",
-                                  "1 exec", "2 exec"])
+                                  "grid64 1 step", "grid64 64 steps",
+                                  "grid step us", "1 exec", "2 exec"])
+    # A step's cost is a difference of two times: only its sign is free.
+    assert math.isfinite(out.pop("grid step us"))
     assert all(v > 0 for v in out.values())
 
 
@@ -370,3 +391,56 @@ def test_kernel_times_fused_rows_on_the_cpu():
                                  "device_kernels": {"k": 2.0}},
                    "unfused device_ms M=4": 2.0}
     assert ran == [(1, 256), (1, 256), (4, 256), (4, 256)]
+
+
+class _RowTimers:
+    """kernel_times' timers on the CPU: each timed function runs once."""
+    MISTRAL_SHAPES = {"wqkv": (512, 96), "wo": (512, 64),
+                      "w_gu": (512, 128)}
+    GROUP = 64
+    MATMUL_TOL = 1e-5
+    rel_l2 = staticmethod(lambda a, b: ((a - b).norm() / b.norm()).item())
+    ran = []
+
+    @classmethod
+    def device_only_ms(cls, fn):
+        cls.ran.append(tuple(fn().shape))
+        return {"total": 2.0, "kernels": {"k": 2.0}}
+
+    @staticmethod
+    def time_ms(fn):
+        return 4.0
+
+
+def test_kernel_times_stream_rows_on_the_cpu():
+    """The stream rows' control flow at tiny shapes on the CPU (the plain
+    path): every projection at M 1 and 8 in bf16 and f32 per call and
+    device only, and the tile sweep on wo and w_gu with refused pairs as
+    None."""
+    _RowTimers.ran = []
+    got = kernel_times.stream_times(_RowTimers, quant, CPU,
+                                    torch.Generator().manual_seed(0),
+                                    sweep_n=(16, 32), sweep_k=(64, 96))
+    sweep = got.pop("stream device_ms by (tile_n, tile_k)")
+    assert set(got) == {f"stream {p} M={m} {t}"
+                        for p in ("wqkv", "wo", "w_gu") for m in (1, 8)
+                        for t in ("bfloat16", "float32")}
+    assert got["stream wo M=8 float32"] == {"ms": 4.0, "device_ms": 2.0,
+                                           "device_kernels": {"k": 2.0}}
+    assert sorted(sweep) == ["w_gu M=1 bfloat16", "w_gu M=1 float32",
+                             "wo M=1 bfloat16", "wo M=1 float32"]
+    assert sweep["wo M=1 float32"] == {"16,64": 2.0, "16,96": None,
+                                       "32,64": 2.0, "32,96": None}
+    assert len(_RowTimers.ran) == 12 + 4 * 2
+
+
+def test_kernel_times_grid_rows_on_the_cpu():
+    """grid64 beside tile + 1, and at one step where grid64 takes steps (an
+    older checkout's does not)."""
+    got = kernel_times.grid_times(_RowTimers, diag, CPU,
+                                  torch.Generator().manual_seed(0))
+    assert sorted(got) == ["grid64", "grid64 1 step", "tile + 1"]
+    old = types.SimpleNamespace(TILE=diag.TILE, grid64=lambda x: x + 1.0)
+    got = kernel_times.grid_times(_RowTimers, old, CPU,
+                                  torch.Generator().manual_seed(0))
+    assert sorted(got) == ["grid64", "tile + 1"]

@@ -67,6 +67,62 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// --- mbarriers, TMA and bulk copies ------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+// Makes the initialized barriers visible to the async proxy (TMA).
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// One arrival that also raises the phase's expected transaction bytes.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// Wait until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+// TMA: the box at (c0, c1) (innermost coordinate first) of a 2-D tensor map
+// into shared memory; its bytes complete on `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* tmap,
+                                            int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+// `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
+// into shared memory; they complete on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // --- Q4 nibbles --------------------------------------------------------------
 
 // The Q4 layout of q4_w4a8.cu holds two weights a byte: the low nibble q + 8,
@@ -85,6 +141,33 @@ __device__ __forceinline__ void q4_unpack4(uint32_t w, float (&lo)[4],
     lo[e] = __uint_as_float(__byte_perm(ul, 0x4B000000u, 0x7540 + e)) - bias;
     hi[e] = __uint_as_float(__byte_perm(uh, 0x4B000000u, 0x7540 + e)) - bias;
   }
+}
+
+// Bytes sel & 0xF and (sel >> 8) & 0xF of u, each a nibble q + 8, as the
+// bf16x2 word of the two q, exactly and with no conversion instruction:
+// 128 + u is exact in bf16 and its bits are 0x4300 | u, so a byte permute
+// puts both nibbles under 0x43 and one bf16x2 FMA subtracts 136.
+__device__ __forceinline__ uint32_t nibbles_to_bf16x2(uint32_t u,
+                                                      uint32_t sel) {
+  const uint32_t biased = __byte_perm(u, 0x43u, sel);   // 128 + u each
+  uint32_t q;  // biased * 1 - 136
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(q)
+      : "r"(biased), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return q;
+}
+
+// One ldmatrix.trans register of the raw chunk holds bytes (k, c), (k, c+1),
+// (k+1, c), (k+1, c+1) for k = 2t, c = 2g: the low (lo) or high (hi)
+// nibbles of the even or odd column, as a B fragment half of m16n8k16.
+__device__ __forceinline__ void widen_frag(uint32_t w, uint32_t (&lo)[2],
+                                           uint32_t (&hi)[2]) {
+  const uint32_t ul = w & 0x0F0F0F0Fu;                          // q + 8
+  const uint32_t uh = ((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;   // q + 8
+  lo[0] = nibbles_to_bf16x2(ul, 0x4240);   // even column
+  lo[1] = nibbles_to_bf16x2(ul, 0x4341);   // odd column
+  hi[0] = nibbles_to_bf16x2(uh, 0x4240);
+  hi[1] = nibbles_to_bf16x2(uh, 0x4341);
 }
 
 // --- small helpers -----------------------------------------------------------

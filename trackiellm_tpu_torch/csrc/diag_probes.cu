@@ -19,10 +19,20 @@
 // so the one rounding is that conversion; the plain version, an f32 sum,
 // carries the rounding of its own order.
 //
-// add_one: launch latency bounds it (4 KiB of data). One kernel serves both
-// near-empty probes: `blocks` blocks each run the body on the same tile, as
-// the TPU grid re-runs it on one block, and every block writes the same
-// values.
+// grid64: the TPU runs its 64 grid steps in order on one core, on one
+// (8, 128) block that stays in VMEM (both index maps are (0, 0)) and is
+// written back once. Its counterpart here is a loop inside one block:
+// grid_steps_kernel loads the tile once into registers (4 floats a thread of
+// 256), runs `steps` steps of o = x + 1 on it and stores o once. Every step
+// writes the same value, so a compiler would keep only the last; each step's
+// 1.0 therefore carries the last step's o through an and with a zero the
+// kernel takes as an argument (one LOP3 beside each FADD), which keeps every
+// step in the SASS and the result exact. Issue slots bound the steps: 64
+// steps of 1,024 adds and ands are 4,096 warp instructions over the SM's
+// four schedulers.
+//
+// add_one (chain_tiny): launch latency bounds it (4 KiB of data). One
+// block runs o = x + 1 on the whole tile.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -76,6 +86,36 @@ __global__ void stream_finish_kernel(
   out[0] = static_cast<float>(total) * x[0];
 }
 
+// Thread t holds elements t + 256 j of the tile (j < 4), zero past n.
+__global__ void __launch_bounds__(kThreads) grid_steps_kernel(
+    const float* __restrict__ x, float* __restrict__ out, int n, int steps,
+    unsigned zero) {
+  constexpr int kPer = 4;
+  float v[kPer], o[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int i = threadIdx.x + kThreads * j;
+    v[j] = i < n ? x[i] : 0.f;
+    o[j] = v[j];
+  }
+  for (int s = 0; s < steps; ++s) {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      // 1.0 with the bits of the last step's o anded with `zero` (0, an
+      // argument the compiler cannot see): exact for every o, and a use
+      // of it, so no step is merged with or dropped for another.
+      const float one =
+          __uint_as_float((__float_as_uint(o[j]) & zero) | 0x3F800000u);
+      o[j] = v[j] + one;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int i = threadIdx.x + kThreads * j;
+    if (i < n) out[i] = o[j];
+  }
+}
+
 __global__ void add_one_kernel(const float* __restrict__ x,
                                float* __restrict__ out, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) out[i] = x[i] + 1.f;
@@ -103,11 +143,21 @@ extern "C" int trackie_stream_sum(const void* x, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// out[i] = x[i] + 1 for i < n, by `blocks` blocks that each cover the tile.
-extern "C" int trackie_add_one(const void* x, void* out, int n, int blocks,
+// out[i] = x[i] + 1 for i < n, by one block.
+extern "C" int trackie_add_one(const void* x, void* out, int n,
                                void* stream) {
-  if (n < 1 || blocks < 1) return -1;
-  add_one_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (n < 1) return -1;
+  add_one_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[i] = x[i] + 1 for i < n (at most 1,024), by one block that runs
+// `steps` (at least 1) steps of it on the resident tile.
+extern "C" int trackie_grid64(const void* x, void* out, int n, int steps,
+                              void* stream) {
+  if (n < 1 || n > 1024 || steps < 1) return -1;
+  grid_steps_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(out), n, steps, 0u);
   return static_cast<int>(cudaGetLastError());
 }

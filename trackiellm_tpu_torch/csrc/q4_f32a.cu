@@ -113,31 +113,6 @@ __device__ __forceinline__ int raw_off(int r, int seg) {
   return r * kBN + 16 * (seg ^ (r & 7));
 }
 
-// Bytes sel & 0xF and (sel >> 8) & 0xF of u, each a nibble q + 8, as the
-// bf16x2 word of the two q, exactly (see the header).
-__device__ __forceinline__ uint32_t nibbles_to_bf16x2(uint32_t u,
-                                                      uint32_t sel) {
-  const uint32_t biased = __byte_perm(u, 0x43u, sel);   // 128 + u each
-  uint32_t q;  // biased * 1 - 136
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
-      : "=r"(q)
-      : "r"(biased), "r"(0x3F803F80u), "r"(0xC308C308u));
-  return q;
-}
-
-// One ldmatrix.trans register of the raw chunk holds bytes (k, c), (k, c+1),
-// (k+1, c), (k+1, c+1) for k = 2t, c = 2g: the low (lo) or high (hi)
-// nibbles of the even or odd column, as a B fragment half of m16n8k16.
-__device__ __forceinline__ void widen_frag(uint32_t w, uint32_t (&lo)[2],
-                                           uint32_t (&hi)[2]) {
-  const uint32_t ul = w & 0x0F0F0F0Fu;                          // q + 8
-  const uint32_t uh = ((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;   // q + 8
-  lo[0] = nibbles_to_bf16x2(ul, 0x4240);   // even column
-  lo[1] = nibbles_to_bf16x2(ul, 0x4341);   // odd column
-  hi[0] = nibbles_to_bf16x2(uh, 0x4240);
-  hi[1] = nibbles_to_bf16x2(uh, 0x4341);
-}
-
 // Split z walks groups [z * groups_per_split, (z + 1) * groups_per_split)
 // of each half, in chunks of KC packed rows; a chunk folds the dots when
 // it ends a group. n8 tile j of a warp holds the even

@@ -49,12 +49,15 @@ _SIGNATURES = {
     # x, norm, gu, gu_scales, down, down_scales, scratch, flags, out, M, D,
     # H, G, x_dtype, norm_dtype, eps, blocks, stream
     "trackie_fused_mlp_q4": (_P,) * 9 + (_I,) * 6 + (_F, _I, _P),
-    # x, packed, scales, out, M, K, N, G, dtype, tile_k, tile_n, stream
-    "trackie_q4_stream": (_P,) * 4 + (_I,) * 7 + (_P,),
+    # x, packed, scales, out, M, K, N, G, dtype, tile_k, tile_n, stages,
+    # stream
+    "trackie_q4_stream": (_P,) * 4 + (_I,) * 8 + (_P,),
     # x, w, n_bytes, partial, blocks, out, stream
     "trackie_stream_sum": (_P, _P, ctypes.c_longlong, _P, _I, _P, _P),
-    # x, out, n, blocks, stream
-    "trackie_add_one": (_P, _P, _I, _I, _P),
+    # x, out, n, stream
+    "trackie_add_one": (_P, _P, _I, _P),
+    # x, out, n, steps, stream
+    "trackie_grid64": (_P, _P, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -145,7 +148,12 @@ def library() -> ctypes.CDLL:
 
 
 def check(status: int, kernel: str) -> None:
-    """Raise if a launch was refused (the C side returns cudaGetLastError)."""
+    """Raise if a launch was refused (the C side returns cudaGetLastError,
+    -1 for arguments a kernel does not take, -2 where the driver lacks a
+    function the launch needs)."""
+    if status == -2:
+        raise RuntimeError(f"{kernel}: the CUDA driver has no "
+                           "cuTensorMapEncodeTiled")
     if status == -1:
         raise ValueError(f"{kernel}: the kernel does not take these arguments")
     if status != 0:

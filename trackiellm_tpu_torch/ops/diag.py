@@ -6,9 +6,10 @@ beside its plain PyTorch twin (``*_ref``), all in ``csrc/diag_probes.cu``:
 device-memory stream envelope), ``grid64`` replaces
 ``tools/diag_scan_overhead.py:grid64`` (a grid of 64 steps on one tile) and
 ``chain_tiny`` replaces ``tools/diag_overhead.py:chain_tiny`` (a chain of
-dependent near-empty calls). ``grid64`` and ``chain_tiny`` launch one CUDA
-function, ``o = x + 1``, with their own wrappers and launch counters. The
-tools that time them are in ``trackiellm_tpu_torch/tools/``.
+dependent near-empty calls). Both compute ``o = x + 1``: ``grid64`` as one
+block that runs the steps of the TPU grid as a loop on the resident tile,
+``chain_tiny`` as one one-block launch a call. The tools that time them
+are in ``trackiellm_tpu_torch/tools/``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from trackiellm_tpu_torch.ops import _build
 from trackiellm_tpu_torch.ops.backend import is_cuda
 
 GRID_STEPS = 64       # grid=(64,) of tools/diag_scan_overhead.py:grid64
+GRID_MAX = 1024       # floats grid64's one block holds (4 a thread of 256)
 CHAIN = 64            # N_CHAIN of tools/diag_overhead.py
 TILE = (8, 128)       # the near-empty kernels' f32 tile
 _STREAM_BLOCKS_PER_SM = 8
@@ -74,31 +76,38 @@ def _check_tile(x: torch.Tensor) -> None:
                         f"{x.dtype} {tuple(x.shape)}")
 
 
-def _add_one(x: torch.Tensor, blocks: int, name: str) -> torch.Tensor:
-    """x + 1 by ``blocks`` blocks that each cover all of x."""
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    status = _build.library().trackie_add_one(
-        x.data_ptr(), out.data_ptr(), x.numel(), blocks,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(status, name)
-    return out
+def _check_steps(steps: int) -> None:
+    if steps < 1:
+        raise ValueError(f"steps must be at least 1, got {steps}")
 
 
-def grid64_ref(x: torch.Tensor) -> torch.Tensor:
-    """Plain twin of :func:`grid64`: x + 1."""
+def grid64_ref(x: torch.Tensor, steps: int = GRID_STEPS) -> torch.Tensor:
+    """Plain twin of :func:`grid64`: x + 1 (every step writes the same
+    value)."""
     _check_tile(x)
+    _check_steps(steps)
     return x + 1.0
 
 
-def grid64(x: torch.Tensor) -> torch.Tensor:
-    """x + 1 by one launch of 64 blocks, each re-running the body on the
-    whole tile, as the TPU grid of 64 steps does on one block. A CUDA tensor
-    launches the kernel or raises; a CPU tensor takes :func:`grid64_ref`."""
+def grid64(x: torch.Tensor, steps: int = GRID_STEPS) -> torch.Tensor:
+    """x + 1 by one launch of one block that loads x once, runs ``steps``
+    steps of ``o = x + 1`` on it as a loop, as the TPU grid of 64 steps
+    does on its one resident block, and stores o once. A CUDA tensor (at
+    most GRID_MAX floats) launches the kernel or raises; a CPU tensor takes
+    :func:`grid64_ref`."""
     _check_tile(x)
+    _check_steps(steps)
     if not is_cuda(x):
-        return grid64_ref(x)
-    out = _add_one(x, GRID_STEPS, "grid64")
+        return grid64_ref(x, steps)
+    if x.numel() > GRID_MAX:
+        raise ValueError(f"grid64 takes at most {GRID_MAX} floats, got "
+                         f"{x.numel()}")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    status = _build.library().trackie_grid64(
+        x.data_ptr(), out.data_ptr(), x.numel(), steps,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(status, "grid64")
     grid64.launches += 1
     return out
 
@@ -123,8 +132,14 @@ def chain_tiny(x: torch.Tensor, n: int = CHAIN) -> torch.Tensor:
     if not is_cuda(x):
         return chain_tiny_ref(x, n)
     for _ in range(n):
-        x = _add_one(x, 1, "chain_tiny")
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        status = _build.library().trackie_add_one(
+            x.data_ptr(), out.data_ptr(), x.numel(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(status, "chain_tiny")
         chain_tiny.launches += 1
+        x = out
     return x
 
 

@@ -497,14 +497,23 @@ def q4_matmul_f32a(x: torch.Tensor, packed: torch.Tensor,
 q4_matmul_f32a.launches = 0
 
 
-# Card defaults of q4_matmul_stream. The TPU defaults (tile_n 2048, tile_k
-# 512) would stage 2 MiB, about 9x an H100 block's shared memory. 32 columns
-# per block give N = 4096 (``wo``, ``w_down``) 128 blocks on 132 SMs; 512
-# packed rows per chunk make a 16 KiB slot and at least 4 chunks per block at
-# Mistral-7B's K.
-STREAM_TILE_N = 32
-STREAM_TILE_K = 512
-STREAM_SMEM = 232448  # bytes of shared memory an H100 block may take
+# Card defaults of q4_matmul_stream (``tools/kernel_times.py`` sweeps them;
+# PERF.md has the sweep). The TPU defaults (tile_n 2048, tile_k 512) would
+# stage 1 MiB a chunk, about 4.5x an H100 block's shared memory. A TMA copy
+# fetches its box one row of tile_n bytes at a time, and a row costs about
+# as much at 16 bytes as at 32, so wide tiles stream faster where N gives
+# every SM a block: the default tile_n is the widest power of two from
+# STREAM_TILE_N down to 16 that keeps N / tile_n >= STREAM_SMS
+# (:func:`_stream_tile_n`; 128 for ``w_gu`` and ``lm_head``, 16 for N =
+# 4096, ``wo`` and ``w_down``, 256 blocks). 256 packed rows a stage are
+# one TMA box and at least one group.
+STREAM_TILE_N = 128
+STREAM_TILE_K = 256
+STREAM_SMS = 132
+STREAM_SMEM = 232448 - 1024   # shared memory bytes the kernel asks at most
+STREAM_RING = 32768           # packed bytes a block aims to keep in flight
+STREAM_MAX_STAGES = 32
+_STREAM_HEAD = 2048           # the kernel's barriers and alignment slack
 
 
 def q4_matmul_stream_ref(x: torch.Tensor, packed: torch.Tensor,
@@ -530,13 +539,56 @@ def q4_matmul_stream_ref(x: torch.Tensor, packed: torch.Tensor,
     return part.sum(dim=0)
 
 
-def _stream_tiles(k: int, n: int, g: int, tile_n: int,
-                  tile_k: int) -> Tuple[int, int]:
+def _stream_tile_n(n: int, sms: int = STREAM_SMS) -> int:
+    """The default tile_n of an (., N) product: the widest power of two
+    from STREAM_TILE_N down to 16 that divides N with at least one block an
+    SM (N / tile_n >= sms); 16 where none does."""
+    tile_n = STREAM_TILE_N
+    while tile_n > 16 and (n % tile_n or n // tile_n < sms):
+        tile_n //= 2
+    return tile_n
+
+
+def _stream_rows(m: int, x_bytes: int) -> int:
+    """Rows of x a block of the streaming kernel computes: 16 (one m16 mma
+    tile) for bf16 x, 1 for f32 x at M = 1, else 8."""
+    return 16 if x_bytes == 2 else (1 if m == 1 else 8)
+
+
+def _stream_plan(m: int, k: int, g: int, tile_n: int, tile_k: int,
+                 x_bytes: int) -> Tuple[int, int]:
+    """(stages, shared memory bytes) of a ``csrc/q4_stream.cu`` launch, as
+    its ``smem_bytes`` computes them.
+
+    A stage holds tile_k x tile_n packed bytes, both K halves of the
+    block's rows of x for those packed rows (each row padded by 16 bytes)
+    and both scale rows of the tile_k / g groups it ends. The ring takes
+    enough stages to hold STREAM_RING bytes of packed weights, at least two
+    (one where K/2 is one stage) and at most STREAM_MAX_STAGES or the
+    stages K/2 holds; :func:`_stream_tiles` refuses tiles whose ring does
+    not fit a block. The epilogue's sums reuse the ring: 1 KiB a consumer
+    warp (bf16), or the row slices' (slices, rows, tile_n) floats (f32)."""
+    rows = _stream_rows(m, x_bytes)
+    stage = (tile_k * tile_n + 2 * min(rows, m) * (tile_k * x_bytes + 16)
+             + 2 * (tile_k // g) * tile_n * 4)
+    chunks = k // 2 // tile_k
+    warps = 4 if tile_n <= 256 else tile_n // 64
+    red = (warps * 32 * 8 * 4 if x_bytes == 2
+           else warps * 32 // (tile_n // 4) * rows * tile_n * 4)
+    stages = max(min(2, chunks), min(chunks, STREAM_MAX_STAGES,
+                                     -(-STREAM_RING // (tile_k * tile_n))))
+    return stages, _STREAM_HEAD + max(stages * stage, red)
+
+
+def _stream_tiles(k: int, n: int, g: int, tile_n: int, tile_k: int,
+                  m: int = 16, x_bytes: int = 2) -> Tuple[int, int]:
     """``q4_matmul_pallas_v2``'s tile rule (both clamped to the matrix,
     ``half % tile_k == n % tile_n == tile_k % g == 0``) plus the card's:
-    ``tile_n`` a power of two in [16, 1024] (16-byte copies, one 4-column
-    word per thread of 256) and both staging slots within a block's shared
-    memory. Returns the clamped (tile_n, tile_k)."""
+    ``tile_n`` a power of two in [16, 1024] (16-byte rows of TMA boxes), g
+    a multiple of 32 (the bf16 kernel's 32-row units), and the
+    :func:`_stream_plan` of an (m, k) x of ``x_bytes`` bytes an element
+    within a block's shared memory (by default the largest x a block
+    stages). Returns the clamped (tile_n, tile_k)."""
     half = k // 2
     tile_k, tile_n = min(tile_k, half), min(tile_n, n)
     if tile_k < 1 or half % tile_k or n % tile_n or tile_k % g:
@@ -545,29 +597,36 @@ def _stream_tiles(k: int, n: int, g: int, tile_n: int,
     if tile_n < 16 or tile_n > 1024 or tile_n & (tile_n - 1):
         raise ValueError(f"tile_n={tile_n} must be a power of two in "
                          "[16, 1024]")
-    if 2 * tile_k * tile_n > STREAM_SMEM:
-        raise ValueError(f"two staging slots of tile_k x tile_n = {tile_k} x "
-                         f"{tile_n} bytes exceed the {STREAM_SMEM} bytes of "
-                         "shared memory a block may take")
+    if g % 32:
+        raise ValueError(f"the kernel needs G % 32 == 0, got G={g}")
+    stages, smem = _stream_plan(m, k, g, tile_n, tile_k, x_bytes)
+    if smem > STREAM_SMEM:
+        raise ValueError(f"{stages} stages of tile_k x tile_n = {tile_k} x "
+                         f"{tile_n} with their x rows and scales take {smem} "
+                         f"bytes, above the {STREAM_SMEM} bytes of shared "
+                         "memory a block may take")
     return tile_n, tile_k
 
 
 def q4_matmul_stream(x: torch.Tensor, packed: torch.Tensor,
-                     scales: torch.Tensor, tile_n: int = STREAM_TILE_N,
+                     scales: torch.Tensor, tile_n: Optional[int] = None,
                      tile_k: int = STREAM_TILE_K) -> torch.Tensor:
     """Q4 matmul streaming all of K per column tile: (M, K) f32/bf16 @ q4
     (K, N) -> (M, N) f32.
 
     Replaces ``trackiellm_tpu/ops/quant.py:q4_matmul_pallas_v2``, with its
-    ``tile_n`` (columns per block) and ``tile_k`` (packed rows per staged
-    chunk). A CUDA tensor launches ``csrc/q4_stream.cu`` (see its header) or
+    ``tile_n`` (columns per block; by default :func:`_stream_tile_n` of N)
+    and ``tile_k`` (packed rows per staged chunk). A CUDA tensor launches ``csrc/q4_stream.cu`` (see its header) or
     raises; a CPU tensor takes :func:`q4_matmul_stream_ref`. The tile rule
-    of :func:`_stream_tiles` holds on either device."""
+    of :func:`_stream_tiles` holds on either device, for this x."""
     g = _check_q4_operands(x, packed, scales)
     _check_f32a_x(x)
     m, k = x.shape
     n = packed.shape[1]
-    tile_n, tile_k = _stream_tiles(k, n, g, tile_n, tile_k)
+    if tile_n is None:
+        tile_n = _stream_tile_n(n)
+    tile_n, tile_k = _stream_tiles(k, n, g, tile_n, tile_k, m,
+                                   x.element_size())
     if not is_cuda(x):
         return q4_matmul_stream_ref(x, packed, scales)
     if not (packed.device == x.device == scales.device):
@@ -577,11 +636,14 @@ def q4_matmul_stream(x: torch.Tensor, packed: torch.Tensor,
     if packed.data_ptr() % 16 or scales.data_ptr() % 16:
         raise ValueError("packed and scales must be 16-byte aligned")
     x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    stages, _ = _stream_plan(m, k, g, tile_n, tile_k, x.element_size())
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     status = _build.library().trackie_q4_stream(
         x.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
         m, k, n, g, 0 if x.dtype == torch.float32 else 1, tile_k, tile_n,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        stages, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "q4_matmul_stream")
     q4_matmul_stream.launches += 1
     return out

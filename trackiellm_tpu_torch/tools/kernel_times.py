@@ -34,9 +34,18 @@ device-only ms of the unfused block on the default route
 (``models/llm.py:_mlp_block`` with the levers unset: W4A8 ``w_gu``,
 silu * up, W4A8 ``w_down``, the residual).
 
-Prints the card line, then one JSON line. To compare two checkouts, run the
-tool on each, alternating (A, B, B, A), back to back on one card. Runs
-that are not on a CUDA device exit non-zero.
+The streaming Q4 matmul (``q4_matmul_stream``, the overhead tool's kernel)
+is timed as ``_times`` reads it on the five Mistral-7B projections at M 1
+and 8, bf16 and f32 x, at the checkout's default tiles, and, device only at
+M = 1, over (tile_n, tile_k) at ``wo`` and ``w_gu`` (each pair held against
+the plain version first; None where the checkout's tile rule refuses it).
+``grid64`` is timed beside ``tile + 1`` (the library call for the same
+function), and at 1 step where the checkout's ``grid64`` takes ``steps``.
+
+``--only`` picks row sets (default: all). Prints the card line, then one
+JSON line. To compare two checkouts, run the tool on each, alternating (A,
+B, B, A), back to back on one card. Runs that are not on a CUDA device exit
+non-zero.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from __future__ import annotations
 import argparse
 import functools
 import importlib.util
+import inspect
 import json
 import math
 import os
@@ -55,6 +65,10 @@ import torch
 CHECKOUT = pathlib.Path(__file__).resolve().parents[2]
 DECODE_MS = (1, 8, 16)
 TILE_ROWS = (16, 64)   # the tile heights the W4A8 C entry takes
+STREAM_SWEEP_N = (16, 32, 64, 128)
+STREAM_SWEEP_K = (256, 512, 1024)
+STREAM_SWEPT = ("wo", "w_gu")
+ROW_SETS = ("main", "fused", "q8", "f32a", "w4a8_tiles", "stream", "grid64")
 
 
 def _chip_smoke():
@@ -241,11 +255,106 @@ def fused_times(cs, quant, fused, llm, dev, gen) -> dict:
     return out
 
 
+def main_times(cs, quant, attention, dev, gen) -> dict:
+    """The main path's two kernels: W4A8 ``w_gu`` at M 1 and 512, and causal
+    bf16 flash attention at S 256 and 512 beside SDPA."""
+    import torch.nn.functional as F
+    out = {}
+    k, n = cs.MISTRAL_SHAPES["w_gu"]
+    w = quant.quantize_q4(
+        torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k),
+        cs.GROUP)
+    for m in (1, 512):
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        out[f"w4a8 w_gu M={m}"] = _times(
+            cs, lambda: quant.q4_matmul_w4a8(x, w.values, w.scales))
+    del w
+    h, hk, d = 32, 8, 128
+    for s in (256, 512):
+        q = torch.randn((h, s, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        kk = torch.randn((hk, s, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        v = torch.randn((hk, s, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        out[f"flash causal S={s}"] = _times(
+            cs, lambda: attention.flash_attention(q, kk, v))
+        out[f"sdpa causal S={s}"] = _times(
+            cs, lambda: F.scaled_dot_product_attention(
+                q[None], kk[None], v[None], is_causal=True, enable_gqa=True))
+    return out
+
+
+def stream_times(cs, quant, dev, gen, sweep_n=STREAM_SWEEP_N,
+                 sweep_k=STREAM_SWEEP_K) -> dict:
+    """``q4_matmul_stream`` at the checkout's default tiles on every Mistral
+    projection, M 1 and 8, bf16 and f32 x, as ``_times`` reads it; and at
+    M = 1, device only, over (tile_n, tile_k) on STREAM_SWEPT, each pair
+    first held against the plain version (None where the tile rule refuses
+    it)."""
+    out, by_tiles = {}, {}
+    for name, (k, n) in cs.MISTRAL_SHAPES.items():
+        w = quant.quantize_q4(
+            torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k),
+            cs.GROUP)
+        for dtype in (torch.bfloat16, torch.float32):
+            kind = str(dtype)[6:]
+            for m in (1, 8):
+                x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+                out[f"stream {name} M={m} {kind}"] = _times(
+                    cs, functools.partial(quant.q4_matmul_stream, x,
+                                          w.values, w.scales))
+            if name not in STREAM_SWEPT:
+                continue
+            x = torch.randn((1, k), generator=gen, device=dev).to(dtype)
+            ref = quant.q4_matmul_stream_ref(x, w.values, w.scales)
+            row = {}
+            for tn in sweep_n:
+                for tk in sweep_k:
+                    call = functools.partial(quant.q4_matmul_stream, x,
+                                             w.values, w.scales, tile_n=tn,
+                                             tile_k=tk)
+                    try:
+                        got = call()
+                    except ValueError:
+                        row[f"{tn},{tk}"] = None
+                        continue
+                    err = cs.rel_l2(got, ref)
+                    if not err < cs.MATMUL_TOL:
+                        raise AssertionError(
+                            f"stream {name} tiles ({tn}, {tk}): rel L2 {err}")
+                    device = cs.device_only_ms(call)
+                    row[f"{tn},{tk}"] = device["total"] if device else None
+            by_tiles[f"{name} M=1 {kind}"] = row
+        del w
+    out["stream device_ms by (tile_n, tile_k)"] = by_tiles
+    return out
+
+
+def grid_times(cs, diag, dev, gen) -> dict:
+    """``grid64`` on its (8, 128) tile beside ``tile + 1``, as ``_times``
+    reads them, and grid64 at 1 step where it takes ``steps``; each checked
+    exact first."""
+    tile = torch.randn(diag.TILE, generator=gen, device=dev)
+    calls = {"grid64": lambda: diag.grid64(tile), "tile + 1": lambda: tile + 1}
+    if "steps" in inspect.signature(diag.grid64).parameters:
+        calls["grid64 1 step"] = lambda: diag.grid64(tile, 1)
+    out = {}
+    for label, call in calls.items():
+        if not torch.equal(call(), tile + 1):
+            raise AssertionError(f"{label} is not tile + 1")
+        out[label] = _times(cs, call)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=pathlib.Path, default=CHECKOUT,
                     help="the checkout whose port is timed")
+    ap.add_argument("--only", nargs="+", choices=ROW_SETS, default=ROW_SETS,
+                    help="the row sets to time (default: all)")
     args = ap.parse_args(argv)
+    only = set(args.only)
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device; this tool times the card only",
               file=sys.stderr)
@@ -259,8 +368,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     from trackiellm_tpu_torch.models import llm
-    from trackiellm_tpu_torch.ops import _build, attention, fused, quant
-    import torch.nn.functional as F
+    from trackiellm_tpu_torch.ops import _build, attention, diag, fused, quant
 
     for name in ("TRACKIE_Q4_F32A", "TRACKIE_FUSED_MLP"):
         os.environ.pop(name, None)   # the unfused block's default route
@@ -272,41 +380,25 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     result = {"root": str(root)}
 
-    k, n = cs.MISTRAL_SHAPES["w_gu"]
-    w = quant.quantize_q4(
-        torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k),
-        cs.GROUP)
-    for m in (1, 512):
-        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-        result[f"w4a8 w_gu M={m}"] = _times(
-            cs, lambda: quant.q4_matmul_w4a8(x, w.values, w.scales))
-    del w
-
-    h, hk, d = 32, 8, 128
-    for s in (256, 512):
-        q = torch.randn((h, s, d), generator=gen, device=dev).to(
-            torch.bfloat16)
-        kk = torch.randn((hk, s, d), generator=gen, device=dev).to(
-            torch.bfloat16)
-        v = torch.randn((hk, s, d), generator=gen, device=dev).to(
-            torch.bfloat16)
-        result[f"flash causal S={s}"] = _times(
-            cs, lambda: attention.flash_attention(q, kk, v))
-        result[f"sdpa causal S={s}"] = _times(
-            cs, lambda: F.scaled_dot_product_attention(
-                q[None], kk[None], v[None], is_causal=True, enable_gqa=True))
-
-    result.update(fused_times(cs, quant, fused, llm, dev, gen))
+    if "main" in only:
+        result.update(main_times(cs, quant, attention, dev, gen))
+    if "fused" in only:
+        result.update(fused_times(cs, quant, fused, llm, dev, gen))
     for kind, quantize, kernel in (
             ("q8", quant.quantize_q8, quant.q8_matmul),
             ("f32a", quant.quantize_q4, quant.q4_matmul_f32a)):
-        result.update(matmul_times(
-            cs, kind, quantize, kernel,
-            group_splits(kind, quant, lib, _build.check), dev, gen))
-    if hasattr(quant, "_w4a8_plan") and hasattr(quant,
-                                                "quantize_activations"):
+        if kind in only:
+            result.update(matmul_times(
+                cs, kind, quantize, kernel,
+                group_splits(kind, quant, lib, _build.check), dev, gen))
+    if ("w4a8_tiles" in only and hasattr(quant, "_w4a8_plan")
+            and hasattr(quant, "quantize_activations")):
         result["w4a8 device_ms by tile height"] = tile_heights(
             cs, quant, lib, _build.check, dev, gen)
+    if "stream" in only:
+        result.update(stream_times(cs, quant, dev, gen))
+    if "grid64" in only:
+        result.update(grid_times(cs, diag, dev, gen))
     print(json.dumps(result), flush=True)
     return 0
 
