@@ -21,8 +21,9 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      operations over the peak rate, whichever is larger), the one PyTorch
      call that computes the same function where there is
      one (SDPA for causal bf16 flash, an int64 sum for the stream, x + 1
-     for grid64), and the profiler's device-only time of each headline
-     case and of those library calls;
+     for grid64, a chain of 64 x + 1 calls for chain_tiny), and the
+     profiler's device-only time of each headline case and of those
+     library calls (for chain_tiny also the CUDA-event span of a chain);
   4. width: Mistral-7B width cut to 2 layers, random weights from a seed,
      card against the port's CPU path: Q4 and Q8 prefill logits, and Q4
      with both opt-in levers through prefill and 8 decode steps;
@@ -43,7 +44,9 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      ``python -m trackiellm_tpu_torch generate`` runs on it in-process;
   9. diagnostics: the measurement functions of the three
      ``trackiellm_tpu_torch.tools`` (per-call cost eager and in a CUDA
-     graph, the streaming Q4 tile sweep, graph and op overheads, the 512
+     graph: the 64-call chain from one host call, one host call a launch
+     and x + 1 a launch; the stream handle's read; the streaming Q4 tile
+     sweep, graph and op overheads, the 512
      MiB stream envelope, decode of phase 5's model cut to 32/16/8 layers,
      greedy chunks), with their numbers as one JSON line.
 Phases 5-9 zero every launch counter just before they drive their path and
@@ -409,49 +412,72 @@ def phase_kernels(dev, quant, attention, fused, llm, diag):
 def phase_probes(dev, gen, diag, rows) -> None:
     """Phase 3, the probes: the stream kernel over 512 MiB (rel tolerance
     STREAM_TOL), grid64 and a 64-call chain_tiny on (8, 128) (exact). The
-    library yardsticks: ``w.sum(dtype=torch.int64)`` for the stream and
-    ``tile + 1`` for grid64, per call and device only; no one call chains
-    64 launches."""
+    library yardsticks, per call and device only: ``w.sum(dtype=
+    torch.int64)`` for the stream, ``tile + 1`` for grid64, and a chain of
+    64 ``tile + 1`` calls for chain_tiny. The chain's bound counts its 64
+    calls' bytes (each reads and writes the tile); its CUDA-event span over
+    back-to-back chains is logged beside the profiler's kernel sum, which
+    counts the overlap of programmatic dependent launches twice (each
+    kernel's time includes its wait on the last)."""
+    from trackiellm_tpu_torch.tools import device_ms
     x = torch.randn((1, 1), generator=gen, device=dev)
     w = torch.randint(0, 255, STREAM_SHAPE, generator=gen, device=dev,
                       dtype=torch.uint8)
     tile = torch.randn(diag.TILE, generator=gen, device=dev)
+
+    def tile_chain():
+        y = tile
+        for _ in range(diag.CHAIN):
+            y = y + 1
+        return y
     cases = {  # name: (case, kernel, plain, rel tolerance, library call,
-               #        inputs, operations and their type)
+               #        inputs, calls, operations and their type)
         "stream": ("512 MiB", lambda: diag.stream(x, w),
                    lambda: diag.stream_ref(x, w), STREAM_TOL,
-                   lambda: w.sum(dtype=torch.int64), (x, w), w.numel(),
+                   lambda: w.sum(dtype=torch.int64), (x, w), 1, w.numel(),
                    "int8"),
         "grid64": ("(8, 128)", lambda: diag.grid64(tile),
                    lambda: diag.grid64_ref(tile), 0.0, lambda: tile + 1,
-                   (tile,), diag.GRID_STEPS * tile.numel(), "f32"),
+                   (tile,), 1, diag.GRID_STEPS * tile.numel(), "f32"),
         "chain_tiny": (f"{diag.CHAIN} calls (8, 128)",
                        lambda: diag.chain_tiny(tile),
-                       lambda: diag.chain_tiny_ref(tile), 0.0, None,
-                       (tile,), diag.CHAIN * tile.numel(), "f32"),
+                       lambda: diag.chain_tiny_ref(tile), 0.0, tile_chain,
+                       (tile,), diag.CHAIN, diag.CHAIN * tile.numel(),
+                       "f32"),
     }
-    for name, (case, kernel, plain, tol, lib, inputs, ops,
+    for name, (case, kernel, plain, tol, lib, inputs, calls, ops,
                kind) in cases.items():
         got, ref = kernel(), plain()
         torch.cuda.synchronize()
         abs_err = (got - ref).abs().max().item()
         err = abs_err / ref.abs().max().item()
         ms, plain_ms = time_ms(kernel), time_ms(plain)
-        library = library_device = None
-        if lib is not None:
-            library = time_ms(lib)
-            device = device_only_ms(lib)
-            library_device = device["total"] if device else None
-        bound, by = bound_ms((*inputs, got), ops, kind)
+        library = time_ms(lib)
+        device = device_only_ms(lib)
+        library_device = device["total"] if device else None
+        # each call reads its inputs and writes its output once
+        bound, by = bound_ms((*inputs, got) * calls, ops, kind)
         log(f"  probe {name:10s} {case}: rel_err={err:.3e} (tol "
             f"{tol:.0e}) max_abs={abs_err:.3e} kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={library} "
             f"library_device_ms={library_device} bound_ms={bound:.6f} ({by})")
         if not err <= tol:
             raise AssertionError(f"{name} {case}: rel error {err}")
+        spans = {}
+        if name == "chain_tiny":
+            spans = {"event_ms": device_ms(kernel, dev, 50),
+                     "library_event_ms": device_ms(lib, dev, 50)}
         add_row(rows, name, kernel, case=case, err=abs_err, ms=ms,
                 plain=plain_ms, library=library,
-                library_device=library_device, bound=bound, bound_by=by)
+                library_device=library_device, bound=bound, bound_by=by,
+                **spans)
+        if spans:
+            log(f"  probe chain_tiny: event span {spans['event_ms']:.4f} ms "
+                f"a chain (the 64-call tile + 1 chain "
+                f"{spans['library_event_ms']:.4f}), kernel sum "
+                f"{rows[name][-1]['device']['total']:.4f} ms (counts the "
+                f"launches' overlap twice); kernel_ms <= library_ms: "
+                f"{ms <= library}")
 
 
 def phase_width(dev, llm, quant, fused):
@@ -681,8 +707,9 @@ def profile_path(dev, runner_mod, tokenizer_mod, params, cfg) -> dict:
     cortex prompt's prefill (bucket 512), then PROFILE_TOKENS greedy decode
     tokens (lookahead 4).
     Each window runs once on the host clock (wall) and once under the
-    profiler (device busy ms, launches, the largest costs by kernel); the
-    idle share is 1 - busy / wall."""
+    profiler (device busy ms, launches, the largest costs by kernel, and
+    the copy and cast kernels, whose names hold "copy"); the idle share is
+    1 - busy / wall."""
     tok = tokenizer_mod.ByteTokenizer(cfg.vocab_size)
     gen = runner_mod.GenerationConfig(max_tokens=PROFILE_TOKENS,
                                       temperature=0.0, speculative=False)
@@ -712,15 +739,20 @@ def profile_path(dev, runner_mod, tokenizer_mod, params, cfg) -> dict:
                                  (1, max(tokens, 1))):
         busy, n, by_name = device_breakdown(fn)
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+        copies = {k[:80]: [t / per, c / per] for k, (t, c) in by_name.items()
+                  if "copy" in k}
         out[name] = {
             "wall_ms": ms / per, "busy_ms": busy / per,
             "idle_share": 1.0 - busy / ms, "launches": n / per,
-            "top": [[k[:80], t / per, c / per] for k, (t, c) in top]}
+            "top": [[k[:80], t / per, c / per] for k, (t, c) in top],
+            "copy_ms": sum(t for t, _ in copies.values()),
+            "copies": copies}
     out["decode"]["tokens"] = tokens
     log(f"  profile: prefill wall {out['prefill']['wall_ms']:.2f} ms busy "
         f"{out['prefill']['busy_ms']:.2f} ms; decode {tokens} tokens, per "
         f"token wall {out['decode']['wall_ms']:.2f} ms busy "
-        f"{out['decode']['busy_ms']:.2f} ms, "
+        f"{out['decode']['busy_ms']:.2f} ms (copies and casts "
+        f"{out['decode']['copy_ms']:.2f} ms), "
         f"{out['decode']['launches']:.0f} launches")
     return out
 
@@ -812,6 +844,8 @@ def phase_diagnostics(dev, params, cfg, counters) -> dict:
         fn.launches = 0
     t0 = time.perf_counter()
     out = {"overhead": {"tiny_us": diag_overhead.tiny(dev),
+                        "stream_handle_us":
+                            diag_overhead.stream_handle_us(dev),
                         **diag_overhead.q4_sweep(dev),
                         "rmsnorm_us": diag_overhead.rmsnorm(dev)},
            "scan": diag_scan_overhead.run(dev),
@@ -865,6 +899,12 @@ KERNELS = {
 }
 
 
+# Keys a kernel's cases carry where its rows have them: the fused block's
+# unfused yardstick, the chain's CUDA-event spans.
+EXTRA_KEYS = {"unfused_ms": "unfused", "unfused_device_ms": "unfused_device",
+              "event_ms": "event_ms", "library_event_ms": "library_event_ms"}
+
+
 def kernels_line(rows, launches) -> str:
     """The ``{"kernels": [...]}`` line: per kernel, the main path's
     launches and its headline cases' times, bound and library time."""
@@ -880,9 +920,8 @@ def kernels_line(rows, launches) -> str:
                 "library_ms": r.get("library"),
                 "device_ms": device["total"] if device else None,
                 "library_device_ms": r.get("library_device"),
-                **({"unfused_ms": r["unfused"],
-                    "unfused_device_ms": r["unfused_device"]}
-                   if "unfused" in r else {})})
+                **{key: r[field] for key, field in EXTRA_KEYS.items()
+                   if field in r}})
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[phase][name],

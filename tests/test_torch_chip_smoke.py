@@ -159,3 +159,25 @@ def test_kernels_line_carries_the_unfused_yardstick():
     fused = kernels.pop("fused_mlp_q4")
     assert (fused["unfused_ms"], fused["unfused_device_ms"]) == (0.9, 0.1)
     assert all("unfused_device_ms" not in k for k in kernels.values())
+
+
+def test_probe_rows_on_the_cpu(monkeypatch, capsys):
+    """Phase 3's probe rows, their control flow on the CPU (the plain
+    paths, each timer stubbed to run its function once): every probe has
+    its library time, and chain_tiny's bound counts the 64 calls' bytes
+    (each reads and writes the 4 KiB tile) with its event spans beside."""
+    from trackiellm_tpu_torch.ops import diag
+    cs = _load()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(cs, "time_ms", lambda fn: (fn(), 1.0)[1])
+    monkeypatch.setattr(cs, "device_only_ms",
+                        lambda fn: (fn(), {"total": 0.5, "kernels": {}})[1])
+    monkeypatch.setattr(cs, "STREAM_SHAPE", (64, 64))
+    rows = {name: [] for name in cs.KERNELS}
+    cs.phase_probes(torch.device("cpu"), torch.Generator().manual_seed(0),
+                    diag, rows)
+    assert all(rows[name][0]["library"] == 1.0 for name in cs.PROBES)
+    chain = rows["chain_tiny"][0]
+    assert chain["bound"] == 64 * 8192 / cs.HBM_BYTES_PER_S * 1e3
+    assert chain["event_ms"] > 0 and chain["library_event_ms"] > 0
+    assert "kernel_ms <= library_ms" in capsys.readouterr().out

@@ -770,6 +770,171 @@ def test_chain_tiny_in_a_cuda_graph(dev):
     assert torch.equal(out, td.chain_tiny_ref(x))
 
 
+@pytest.mark.parametrize("n", [1, 2, 3, 63, td.CHAIN])
+def test_chain_tiny_is_exact_eager_and_in_a_graph(dev, n):
+    """The one-call chain equals n plain adds bit for bit, eager and
+    replayed from a CUDA graph (its launches after the first carry
+    programmatic dependent launch); the count rises by n a call, at the
+    warm-up and capture and never at a replay."""
+    x = torch.randn(td.TILE, generator=torch.Generator(
+        device=dev).manual_seed(n), device=dev) * 100.0
+    before = td.chain_tiny.launches
+    assert torch.equal(td.chain_tiny(x, n), td.chain_tiny_ref(x, n))
+    assert td.chain_tiny.launches == before + n
+    replay = capture(lambda: td.chain_tiny(x, n), dev)
+    assert td.chain_tiny.launches == before + 4 * n
+    for _ in range(2):
+        out = replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, td.chain_tiny_ref(x, n))
+    assert td.chain_tiny.launches == before + 4 * n
+
+
+def test_chain_tiny_profile_shows_every_launch(dev):
+    """One call of the chain is CHAIN launches of add_one_kernel on the
+    card, not one folded launch."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.zeros(td.TILE, device=dev)
+    td.chain_tiny(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        td.chain_tiny(x)
+        torch.cuda.synchronize()
+    assert sum(e.count for e in prof.key_averages()
+               if "add_one_kernel" in e.key
+               and e.self_device_time_total > 0) == td.CHAIN
+
+
+def _w4a8(dev):
+    w = tq.quantize_q4(torch.randn((512, 64), generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev))
+    return lambda y: tq.q4_matmul_w4a8(y, w.values, w.scales)
+
+
+# name: (shape of x, the wrapper's call on the device)
+STREAM_CASES = {
+    "chain_tiny n=1": (td.TILE, lambda dev: lambda y: td.chain_tiny(y, 1)),
+    "chain_tiny n=64": (td.TILE, lambda dev: td.chain_tiny),
+    "grid64": (td.TILE, lambda dev: td.grid64),
+    "q4_matmul_w4a8": ((1, 512), _w4a8),
+}
+
+
+@pytest.mark.parametrize("name", sorted(STREAM_CASES))
+def test_wrappers_launch_on_the_current_stream(dev, name):
+    """Under ``torch.cuda.stream(side)`` a wrapper's kernels land on side:
+    side sleeps, then fills x, then the wrapper reads it. A launch on any
+    other stream would run during the sleep and read the zeros."""
+    shape, make = STREAM_CASES[name]
+    kernel = make(dev)
+    x = torch.zeros(shape, device=dev)
+    from_zeros = kernel(x)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)   # ~0.1 s of cycles on side alone
+        x.fill_(0.5)
+        out = kernel(x)
+    torch.cuda.synchronize()
+    want = kernel(torch.full(shape, 0.5, device=dev))
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and not torch.equal(want, from_zeros)
+
+
+# rel L2 of the card's bf16-cache route against the CPU's f32 route on the
+# same bf16 values: the products are exact in f32 and only the f32 sums'
+# order differs, but that can move a probability across a bf16 rounding
+# (the reference rounds p to the cache's dtype), which moves the output by
+# up to 2^-8 of p |v|: ~1e-4 measured from a few such flips, 1e-3 allowed.
+CACHE_TOL = 1e-3
+
+
+@pytest.mark.parametrize("kw", [{}, {"window": 40}, {"sinks": True}],
+                         ids=["plain", "window", "sinks"])
+@pytest.mark.parametrize("s", [64, 512])
+def test_decode_attention_bf16_cache_matches_the_cpu_route(dev, s, kw):
+    """Mistral's heads (H 32, Hk 8, D 128) over a bf16 cache: the card's
+    bf16 products with f32 sums against the CPU's f32 copies."""
+    g = torch.Generator(device=dev).manual_seed(s)
+    q = torch.randn((32, 128), generator=g, device=dev)
+    kc = torch.randn((s, 8, 128), generator=g, device=dev).bfloat16()
+    vc = torch.randn((s, 8, 128), generator=g, device=dev).bfloat16()
+    kw = dict(kw)
+    if kw.pop("sinks", False):
+        kw["sinks"] = torch.randn((32,), generator=g, device=dev)
+    got = ta.decode_attention(q, kc, vc, s - 3, **kw)
+    ref = ta.decode_attention(
+        q.cpu(), kc.cpu(), vc.cpu(), s - 3,
+        **{k: v.cpu() if torch.is_tensor(v) else v for k, v in kw.items()})
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert _rel_l2(got.cpu(), ref) < CACHE_TOL
+
+
+def _extend_both(dev, s, window):
+    """extend of a 16-token chunk (11 valid) after 20 cached rows, on a tiny
+    f32 model with a bf16 cache, on the card and on the CPU."""
+    cfg = llm.LLMConfig.tiny()._replace(max_seq=s,
+                                        sliding_window=window or s)
+    p_gpu = llm.init_params(torch.Generator(device=dev).manual_seed(s), cfg,
+                            dtype=torch.float32, device=dev)
+    p_cpu = llm.params_to(p_gpu, torch.device("cpu"))
+    cache = llm.KVCache.create(cfg, torch.bfloat16, device=dev)
+    g = torch.Generator(device=dev).manual_seed(s + 1)
+    cache.k[:, :20] = torch.randn(cache.k[:, :20].shape, generator=g,
+                                  device=dev).bfloat16()
+    cache.v[:, :20] = torch.randn(cache.v[:, :20].shape, generator=g,
+                                  device=dev).bfloat16()
+    cache = cache._replace(length=20)
+    cache_cpu = llm.KVCache(cache.k.cpu(), cache.v.cpu(), 20)
+    chunk = torch.from_numpy(np.random.default_rng(s).integers(0, 256, 16))
+    lg, _ = llm.extend(p_gpu, cfg, chunk.to(dev), 11, cache)
+    lc, _ = llm.extend(p_cpu, cfg, chunk, 11, cache_cpu)
+    return cfg, p_gpu, cache, chunk, lg, lc
+
+
+@pytest.mark.parametrize("window", [0, 24])
+@pytest.mark.parametrize("s", [64, 512])
+def test_extend_bf16_cache_matches_the_cpu_route(dev, s, window):
+    *_, lg, lc = _extend_both(dev, s, window)
+    assert torch.isfinite(lg).all()
+    assert _rel_l2(lg.cpu(), lc) < CACHE_TOL
+
+
+COPIES = ("aten::_to_copy", "aten::copy_", "aten::clone", "aten::contiguous")
+
+
+def _cache_copies(fn, view_shape):
+    """The ops of ``fn`` that copy a tensor of the cache view's size (in any
+    order of its dims), from a profile that records input shapes."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    want = sorted(view_shape)
+    return [(e.name, e.input_shapes) for e in prof.events()
+            if e.name in COPIES
+            and any(sorted(sh) == want for sh in e.input_shapes if sh)]
+
+
+def test_decode_and_extend_read_the_cache_without_a_copy(dev):
+    """No cast or copy of the (S, Hk, D) cache view, nor of its transposed
+    views, in decode attention or in extend on the card; the CPU route
+    widens the same view to f32, which the profile sees."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((32, 128), generator=g, device=dev)
+    kc = torch.randn((512, 8, 128), generator=g, device=dev).bfloat16()
+    vc = torch.randn((512, 8, 128), generator=g, device=dev).bfloat16()
+    assert _cache_copies(lambda: ta.decode_attention(q, kc, vc, 300),
+                         kc.shape) == []
+    assert _cache_copies(lambda: ta.decode_attention(
+        q.cpu(), kc.cpu(), vc.cpu(), 300), kc.shape) != []
+    cfg, params, cache, chunk, *_ = _extend_both(dev, 64, 0)
+    view = cache.k.shape[1:]
+    assert _cache_copies(lambda: llm.extend(params, cfg, chunk.to(dev), 11,
+                                            cache), view) == []
+
+
 def test_wrappers_raise_without_a_kernel_library(dev, monkeypatch, tmp_path):
     def no_nvcc():
         raise _build.KernelBuildError("nvcc not found")

@@ -168,6 +168,23 @@ def test_chain_tiny_matches_the_pallas_chain(n):
         diag.chain_tiny_ref(torch.from_numpy(x), n).numpy(), ref)
 
 
+@pytest.mark.parametrize("n", [1, 2, 3, diag.CHAIN])
+def test_chain_tiny_returns_a_new_tensor(n):
+    """Whatever the parity of n, the chain's output is a tensor of its own:
+    it neither is nor shares storage with x, and x is left as it was."""
+    x = torch.arange(1024, dtype=torch.float32).reshape(diag.TILE)
+    before = x.clone()
+    out = diag.chain_tiny(x, n)
+    assert out is not x and out.data_ptr() != x.data_ptr()
+    assert torch.equal(x, before) and torch.equal(out, before + n)
+
+
+@pytest.mark.parametrize("n", [0, -1])
+def test_chain_tiny_refuses_an_empty_chain(n):
+    with pytest.raises(ValueError):
+        diag.chain_tiny(torch.ones(diag.TILE), n)
+
+
 def test_probe_operand_checks():
     with pytest.raises(ValueError):
         diag.stream(torch.ones((2, 1)), torch.zeros((4, 4), dtype=torch.uint8))
@@ -209,8 +226,12 @@ def test_timing_helpers_on_the_cpu():
 
 
 def test_overhead_tool_control_flow(capsys):
-    eager, graph = diag_overhead.tiny(CPU, n_chain=3, n_outer=2)
-    assert eager > 0 and graph > 0
+    rows = diag_overhead.tiny(CPU, n_chain=3, n_outer=2)
+    assert list(rows) == ["chain from one call", "chain_tiny(x, 1) a launch",
+                          "x + 1 a launch"]
+    assert all(eager > 0 and graph > 0 for eager, graph in rows.values())
+    with pytest.raises(ValueError):     # no stream to read off the card
+        diag_overhead.stream_handle_us(CPU)
     out = diag_overhead.q4_sweep(CPU, k=512, n=512, group=64,
                                  sweep=((256, 32), (128, 64), (64, 16)),
                                  n_chain=2, n_outer=1)
@@ -220,7 +241,7 @@ def test_overhead_tool_control_flow(capsys):
     with pytest.raises(ValueError):
         diag_overhead.q4_sweep(CPU, k=512, n=256)
     text = capsys.readouterr().out
-    assert "near-empty kernel" in text and "fit:" in text
+    assert "chain from one call" in text and "fit:" in text
 
 
 def test_scan_overhead_tool_control_flow():
@@ -444,3 +465,18 @@ def test_kernel_times_grid_rows_on_the_cpu():
     got = kernel_times.grid_times(_RowTimers, old, CPU,
                                   torch.Generator().manual_seed(0))
     assert sorted(got) == ["grid64", "tile + 1"]
+
+
+def test_kernel_times_chain_rows_on_the_cpu():
+    """The chain rows: the one-call chain, chain_tiny(x, 1) a launch and
+    tile + 1 a launch, each checked against n adds and timed every way."""
+    got = kernel_times.chain_times(_RowTimers, diag, CPU,
+                                   torch.Generator().manual_seed(0), n=3,
+                                   reps=2)
+    assert sorted(got) == ["chain chain_tiny",
+                           "chain chain_tiny(x, 1) a launch",
+                           "chain tile + 1 a launch"]
+    for row in got.values():
+        assert set(row) == {"ms", "device_ms", "device_kernels", "event_ms",
+                            "host_ms", "graph_ms"}
+        assert min(row["event_ms"], row["host_ms"], row["graph_ms"]) > 0

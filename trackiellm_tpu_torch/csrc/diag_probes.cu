@@ -31,8 +31,19 @@
 // steps of 1,024 adds and ands are 4,096 warp instructions over the SM's
 // four schedulers.
 //
-// add_one (chain_tiny): launch latency bounds it (4 KiB of data). One
-// block runs o = x + 1 on the whole tile.
+// add_one (chain_tiny): launch latency bounds it (each call moves 8 KiB).
+// The TPU tool runs its 64 dependent calls as a scan inside one jit
+// program, so no host dispatch comes between them. Its counterpart here is
+// one host call, trackie_add_one_chain, that issues the n launches itself,
+// each its own one-block launch of o = x + 1, ping-ponging between the
+// caller's output and one scratch tile so that the n-th writes the output.
+// Launches 2..n carry programmatic dependent launch (sm_90): each kernel
+// lets the next one launch at its start (griddepcontrol.launch_dependents)
+// and waits for the last one to finish and its writes to show
+// (griddepcontrol.wait) before it reads or writes, so a launch's setup
+// overlaps its predecessor's run. The first launch is a plain one: it
+// waits on whatever the stream ran before, and the chain's programmatic
+// edges join only its own kernels (which CUDA graphs capture, 12.3 on).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -116,9 +127,13 @@ __global__ void __launch_bounds__(kThreads) grid_steps_kernel(
   }
 }
 
-__global__ void add_one_kernel(const float* __restrict__ x,
-                               float* __restrict__ out, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) out[i] = x[i] + 1.f;
+// Nothing is read or written before the wait: the last launch may still be
+// writing x, or reading the tile this one writes.
+__global__ void __launch_bounds__(kThreads) add_one_kernel(
+    const float* __restrict__ x, float* __restrict__ out, int n) {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  for (int i = threadIdx.x; i < n; i += kThreads) out[i] = x[i] + 1.f;
 }
 
 }  // namespace
@@ -143,13 +158,32 @@ extern "C" int trackie_stream_sum(const void* x, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// out[i] = x[i] + 1 for i < n, by one block.
-extern "C" int trackie_add_one(const void* x, void* out, int n,
-                               void* stream) {
-  if (n < 1) return -1;
-  add_one_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out), n);
-  return static_cast<int>(cudaGetLastError());
+// n (at least 1) dependent launches of add_one_kernel on the numel floats
+// at x: launch j reads launch j-1's output (x for j = 1) and writes out
+// where n - j is even, scratch where it is odd, so the n-th writes out;
+// scratch may be null for n = 1. Returns the first launch's error, or -1
+// for arguments the kernel does not take.
+extern "C" int trackie_add_one_chain(const void* x, void* out, void* scratch,
+                                     int numel, int n, void* stream) {
+  if (numel < 1 || n < 1 || (n > 1 && scratch == nullptr)) return -1;
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  const float* src = static_cast<const float*>(x);
+  for (int j = 1; j <= n; ++j) {
+    float* dst = static_cast<float*>((n - j) % 2 == 0 ? out : scratch);
+    cfg.attrs = j > 1 ? pdl : nullptr;
+    cfg.numAttrs = j > 1 ? 1 : 0;
+    cudaLaunchKernelEx(&cfg, add_one_kernel, src, dst, numel);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    src = dst;
+  }
+  return 0;
 }
 
 // out[i] = x[i] + 1 for i < n (at most 1,024), by one block that runs

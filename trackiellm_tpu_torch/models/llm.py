@@ -23,6 +23,8 @@ import torch.nn.functional as F
 from trackiellm_tpu_torch.ops import fused
 from trackiellm_tpu_torch.ops.attention import (
     NEG_INF,
+    cache_mix,
+    cache_scores,
     decode_attention,
     prefill_attention,
 )
@@ -490,8 +492,9 @@ def extend(params: Dict[str, Any], cfg: LLMConfig, tokens: torch.Tensor,
     cos, sin = _rope_cos_sin(positions, _rope_freqs(cfg, device))
     x = params["tok_emb"][tokens.long()]
     window = _layer_window(cfg)
-    rep = cfg.n_heads // cfg.n_kv_heads
-    scale = 1.0 / math.sqrt(cfg.head_dim)
+    hk, hd = cfg.n_kv_heads, cfg.head_dim
+    rep = cfg.n_heads // hk
+    scale = 1.0 / math.sqrt(hd)
     key_idx = torch.arange(attn_len or s_max, device=device)[None, None, None]
     q_pos = positions[None, None, :, None]
     mask = key_idx <= q_pos
@@ -502,14 +505,15 @@ def extend(params: Dict[str, Any], cfg: LLMConfig, tokens: torch.Tensor,
         _, q, k, v = _qkv(x, layer, cfg, cos, sin)
         cache.k[li, offset:offset + fit] = k[:fit].to(cache.k.dtype)
         cache.v[li, offset:offset + fit] = v[:fit].to(cache.v.dtype)
-        k_view = (cache.k[li, :attn_len] if attn_len else cache.k[li]).float()
-        v_view = (cache.v[li, :attn_len] if attn_len else cache.v[li]).float()
-        qg = q.reshape(b, cfg.n_kv_heads, rep, cfg.head_dim)
-        qg = qg.to(cache.k.dtype).float()
-        scores = torch.einsum("qgrd,sgd->grqs", qg, k_view) * scale
+        k_view = cache.k[li, :attn_len] if attn_len else cache.k[li]
+        v_view = cache.v[li, :attn_len] if attn_len else cache.v[li]
+        # (B, H, D) as (Hk, R * B, D): one batched product per KV head.
+        qg = q.reshape(b, hk, rep, hd).permute(1, 2, 0, 3).reshape(hk, -1, hd)
+        scores = cache_scores(qg, k_view).reshape(hk, rep, b, -1) * scale
         scores = torch.where(mask, scores, NEG_INF)
-        probs = torch.softmax(scores, dim=-1).to(cache.v.dtype).float()
-        attn = torch.einsum("grqs,sgd->qgrd", probs, v_view).reshape(b, -1)
+        probs = torch.softmax(scores, dim=-1).reshape(hk, rep * b, -1)
+        attn = cache_mix(probs, v_view).reshape(hk, rep, b, hd)
+        attn = attn.permute(2, 0, 1, 3).reshape(b, -1)
         x = _layer_tail(x, attn, layer, cfg)
     x_last = x[max(n_valid - 1, 0)]
     return (_output_logits(params, cfg, x_last[None])[0],

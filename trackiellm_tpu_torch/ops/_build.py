@@ -7,6 +7,11 @@ interface (no PyTorch headers, so the build takes seconds): one nvcc per
 the ``*.cuh`` headers they include and the flags, so a checkout builds what
 it needs on its first kernel call and reuses it after. A failed build
 raises with nvcc's stderr.
+
+The host half of every launch is here too, since decode is bound by it:
+a wrapper holds one :class:`Launcher` per C function (looked up once, and
+again only when the library is reloaded) and passes :func:`stream`, the
+current stream's raw handle, read without building a ``torch.cuda.Stream``.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import shutil
 import subprocess
 import tempfile
 from typing import Optional
+
+import torch
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -54,8 +61,8 @@ _SIGNATURES = {
     "trackie_q4_stream": (_P,) * 4 + (_I,) * 8 + (_P,),
     # x, w, n_bytes, partial, blocks, out, stream
     "trackie_stream_sum": (_P, _P, ctypes.c_longlong, _P, _I, _P, _P),
-    # x, out, n, stream
-    "trackie_add_one": (_P, _P, _I, _P),
+    # x, out, scratch, numel, n, stream
+    "trackie_add_one_chain": (_P, _P, _P, _I, _I, _P),
     # x, out, n, steps, stream
     "trackie_grid64": (_P, _P, _I, _I, _P),
 }
@@ -158,3 +165,36 @@ def check(status: int, kernel: str) -> None:
         raise ValueError(f"{kernel}: the kernel does not take these arguments")
     if status != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError {status}")
+
+
+class Launcher:
+    """One C function of the kernel library, called as ``launcher(*args)``;
+    a status that is not 0 raises through :func:`check`, at every launch.
+    The function is looked up at the first call and again whenever ``_lib``
+    is not the library it came from, so no handle outlives ``_lib`` (a
+    reset ``_lib`` builds, or raises :class:`KernelBuildError`, anew)."""
+
+    __slots__ = ("name", "kernel", "_lib", "_fn")
+
+    def __init__(self, name: str, kernel: str):
+        if name not in _SIGNATURES:
+            raise KeyError(f"the kernel library exports no {name}")
+        self.name, self.kernel = name, kernel
+        self._lib = self._fn = None
+
+    def __call__(self, *args) -> None:
+        lib = _lib
+        if lib is None or lib is not self._lib:
+            lib = library()
+            self._fn, self._lib = getattr(lib, self.name), lib
+        check(self._fn(*args), self.kernel)
+
+
+def stream(t: torch.Tensor) -> int:
+    """The raw handle of the current CUDA stream of ``t``'s device, read as
+    PyTorch's own Triton launcher reads it, without the ``torch.cuda.Stream``
+    that ``torch.cuda.current_stream`` builds. Read at every launch, never
+    cached: graph capture and ``torch.cuda.stream`` change it. The function
+    exists only in CUDA builds of torch, so only a CUDA tensor's path
+    calls this."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -6,8 +6,10 @@ hand-written kernels of ``csrc/flash_attn.cu`` that replace the Pallas
 ``flash_attention_ref`` is their plain twin, the same tiled online softmax
 with the same tiles and tile skips, in torch ops.
 ``attention_ref`` mirrors the dense ``attention_xla`` oracle, and
-``decode_attention`` stays plain torch ops, as it is plain XLA in the
-reference.
+``decode_attention`` stays torch ops, as it is plain XLA in the reference:
+on the card its two products read the cache in its storage dtype with f32
+sums (:func:`cache_scores`, :func:`cache_mix`, which ``models/llm.py``'s
+``extend`` shares).
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ NEG_INF = -1e30
 # 64 query rows, and keys in tiles of 64 (bf16, tensor cores) or 32 (f32).
 BLOCK_Q = 64
 BLOCK_K = {torch.bfloat16: 64, torch.float32: 32}
+
+_flash_attn = _build.Launcher("trackie_flash_attn", "flash_attention")
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -180,14 +184,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("sinks must be on q's device")
         sinks32 = sinks.float().contiguous()
     out = torch.empty_like(q)
-    lib = _build.library()
-    status = lib.trackie_flash_attn(
+    _flash_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         sinks32.data_ptr() if sinks32 is not None else None, out.data_ptr(),
         h, k.shape[0], s, d, 0 if q.dtype == torch.float32 else 1,
         scale or 1.0 / math.sqrt(d), int(causal), window, softcap,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(status, "flash_attention")
+        _build.stream(q))
     flash_attention.launches += 1
     return out
 
@@ -209,6 +211,33 @@ def prefill_attention(q, k, v, causal: bool = True, window: int = 0,
                          chunk=chunk)
 
 
+def cache_scores(qg: torch.Tensor, k_cache: torch.Tensor) -> torch.Tensor:
+    """(Hk, R, D) queries against an (S, Hk, D) key cache: (Hk, R, S) f32
+    dots, the queries rounded to the cache's dtype first.
+
+    On the card, one batched product reads the (Hk, D, S) view of the cache
+    as it is stored (bf16 in the model, no copy) and sums in f32, as the
+    reference's ``preferred_element_type=f32`` einsum does; an f32 copy of
+    the cache would cost its traffic on every layer. On the CPU both
+    operands are widened to f32. Products of bf16 values are exact in f32,
+    so the two routes differ only in the order of the sums."""
+    qg = qg.to(k_cache.dtype)
+    if is_cuda(qg):
+        return torch.bmm(qg, k_cache.permute(1, 2, 0),
+                         out_dtype=torch.float32)
+    return torch.einsum("grd,sgd->grs", qg.float(), k_cache.float())
+
+
+def cache_mix(p: torch.Tensor, v_cache: torch.Tensor) -> torch.Tensor:
+    """(Hk, R, S) probabilities times an (S, Hk, D) value cache: (Hk, R, D)
+    f32, the probabilities rounded to the cache's dtype first; the card
+    reads the (Hk, S, D) view as :func:`cache_scores` does."""
+    p = p.to(v_cache.dtype)
+    if is_cuda(p):
+        return torch.bmm(p, v_cache.transpose(0, 1), out_dtype=torch.float32)
+    return torch.einsum("grs,sgd->grd", p.float(), v_cache.float())
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cur_len: int, window: int = 0,
                      softcap: float = 0.0, scale: float = 0.0,
@@ -216,14 +245,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      chunk: int = 0) -> torch.Tensor:
     """One query (H, D) against a length-masked cache (S_max, Hk, D).
     ``cur_len`` (host int) counts the valid rows, the new token's included.
-    Operands are rounded to the cache's dtype and multiplied in f32, as the
-    reference's ``preferred_element_type=f32`` einsums."""
+    Operands are rounded to the cache's dtype and multiplied with f32 sums
+    (:func:`cache_scores`, :func:`cache_mix`), as the reference's
+    ``preferred_element_type=f32`` einsums."""
     h, d = q.shape
     s_max, hk, _ = k_cache.shape
     rep = h // hk
     scale = scale or 1.0 / math.sqrt(d)
-    qg = q.reshape(hk, rep, d).to(k_cache.dtype).float()
-    s = torch.einsum("grd,sgd->grs", qg, k_cache.float()) * scale
+    s = cache_scores(q.reshape(hk, rep, d), k_cache) * scale
     if softcap > 0.0:
         s = softcap * torch.tanh(s / softcap)
     idx = torch.arange(s_max, device=q.device)
@@ -238,6 +267,5 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         p = torch.softmax(torch.cat([s, col], dim=-1), dim=-1)[..., :-1]
     else:
         p = torch.softmax(s, dim=-1)
-    p = p.to(v_cache.dtype).float()
-    out = torch.einsum("grs,sgd->grd", p, v_cache.float())
+    out = cache_mix(p, v_cache)
     return out.reshape(h, d).to(q.dtype)

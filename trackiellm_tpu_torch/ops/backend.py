@@ -13,5 +13,6 @@ import torch
 
 
 def is_cuda(t: torch.Tensor) -> bool:
-    """True when ``t`` lies on a CUDA device, so its op launches a kernel."""
-    return t.device.type == "cuda"
+    """True when ``t`` lies on a CUDA device, so its op launches a kernel.
+    (``t.is_cuda`` builds no ``torch.device``: this runs on every launch.)"""
+    return t.is_cuda

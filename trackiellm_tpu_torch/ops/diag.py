@@ -8,7 +8,8 @@ device-memory stream envelope), ``grid64`` replaces
 ``chain_tiny`` replaces ``tools/diag_overhead.py:chain_tiny`` (a chain of
 dependent near-empty calls). Both compute ``o = x + 1``: ``grid64`` as one
 block that runs the steps of the TPU grid as a loop on the resident tile,
-``chain_tiny`` as one one-block launch a call. The tools that time them
+``chain_tiny`` as one one-block launch a call, all ``n`` of them issued by
+one host call with programmatic dependent launch. The tools that time them
 are in ``trackiellm_tpu_torch/tools/``.
 """
 
@@ -24,6 +25,10 @@ GRID_MAX = 1024       # floats grid64's one block holds (4 a thread of 256)
 CHAIN = 64            # N_CHAIN of tools/diag_overhead.py
 TILE = (8, 128)       # the near-empty kernels' f32 tile
 _STREAM_BLOCKS_PER_SM = 8
+
+_stream_sum = _build.Launcher("trackie_stream_sum", "stream")
+_grid64 = _build.Launcher("trackie_grid64", "grid64")
+_add_one_chain = _build.Launcher("trackie_add_one_chain", "chain_tiny")
 
 
 def _check_stream(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -59,10 +64,8 @@ def stream(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
               * torch.cuda.get_device_properties(w.device).multi_processor_count)
     partial = torch.empty((blocks,), dtype=torch.int64, device=w.device)
     out = torch.empty((1, 1), dtype=torch.float32, device=w.device)
-    status = _build.library().trackie_stream_sum(
-        x.data_ptr(), w.data_ptr(), w.numel(), partial.data_ptr(), blocks,
-        out.data_ptr(), torch.cuda.current_stream(w.device).cuda_stream)
-    _build.check(status, "stream")
+    _stream_sum(x.data_ptr(), w.data_ptr(), w.numel(), partial.data_ptr(),
+                blocks, out.data_ptr(), _build.stream(w))
     stream.launches += 1
     return out
 
@@ -104,10 +107,7 @@ def grid64(x: torch.Tensor, steps: int = GRID_STEPS) -> torch.Tensor:
                          f"{x.numel()}")
     x = x.contiguous()
     out = torch.empty_like(x)
-    status = _build.library().trackie_grid64(
-        x.data_ptr(), out.data_ptr(), x.numel(), steps,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(status, "grid64")
+    _grid64(x.data_ptr(), out.data_ptr(), x.numel(), steps, _build.stream(x))
     grid64.launches += 1
     return out
 
@@ -124,23 +124,25 @@ def chain_tiny_ref(x: torch.Tensor, n: int = CHAIN) -> torch.Tensor:
 
 
 def chain_tiny(x: torch.Tensor, n: int = CHAIN) -> torch.Tensor:
-    """``n`` dependent one-block launches of x + 1, each reading the last
-    one's output. A CUDA tensor launches the kernel ``n`` times (the count
-    rises by one per launch) or raises; a CPU tensor takes
-    :func:`chain_tiny_ref`."""
+    """``n`` (at least 1) dependent one-block launches of x + 1, each
+    reading the last one's output; returns a new tensor. A CUDA tensor makes
+    one call into ``csrc/diag_probes.cu``, which issues the ``n`` launches
+    with programmatic dependent launch, ping-ponging between the output and
+    one scratch tile, and the count rises by ``n``; or it raises. A CPU
+    tensor takes :func:`chain_tiny_ref`."""
     _check_tile(x)
+    if n < 1:
+        raise ValueError(f"n must be at least 1, got {n}")
     if not is_cuda(x):
         return chain_tiny_ref(x, n)
-    for _ in range(n):
-        x = x.contiguous()
-        out = torch.empty_like(x)
-        status = _build.library().trackie_add_one(
-            x.data_ptr(), out.data_ptr(), x.numel(),
-            torch.cuda.current_stream(x.device).cuda_stream)
-        _build.check(status, "chain_tiny")
-        chain_tiny.launches += 1
-        x = out
-    return x
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    scratch = torch.empty_like(x) if n > 1 else None
+    _add_one_chain(x.data_ptr(), out.data_ptr(),
+                   scratch.data_ptr() if scratch is not None else None,
+                   x.numel(), n, _build.stream(x))
+    chain_tiny.launches += n
+    return out
 
 
 chain_tiny.launches = 0

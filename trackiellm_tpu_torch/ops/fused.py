@@ -177,6 +177,7 @@ def unit_ranges(units: int, blocks: int) -> list:
 
 
 _FLAGS = {}
+_fused_mlp = _build.Launcher("trackie_fused_mlp_q4", "fused_mlp_q4")
 
 
 def _flags(device: torch.device) -> torch.Tensor:
@@ -225,14 +226,13 @@ def fused_mlp_q4(x: torch.Tensor, norm_scale: torch.Tensor,
     scratch = torch.empty(plan.scratch_floats, dtype=torch.float32,
                           device=x.device)
     out = torch.empty_like(x)
-    status = _build.library().trackie_fused_mlp_q4(
+    _fused_mlp(
         x.data_ptr(), norm_scale.data_ptr(), gu_packed.data_ptr(),
         gu_scales.data_ptr(), down_packed.data_ptr(), down_scales.data_ptr(),
         scratch.data_ptr(), _flags(x.device).data_ptr(),
         out.data_ptr(), m, d, h, g, 0 if x.dtype == torch.float32 else 1,
         0 if norm_scale.dtype == torch.float32 else 1, eps, plan.blocks,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(status, "fused_mlp_q4")
+        _build.stream(x))
     fused_mlp_q4.launches += 1
     return out
 

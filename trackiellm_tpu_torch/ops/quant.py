@@ -33,6 +33,13 @@ DEFAULT_GROUP = 256
 # is dequantize-then-matmul, as the JAX package leaves it to XLA.
 KERNEL_MAX_M = 512
 
+# The C functions of the kernel library that these wrappers launch.
+_quantize_act = _build.Launcher("trackie_quantize_act", "quantize_activations")
+_q4_w4a8 = _build.Launcher("trackie_q4_w4a8", "q4_matmul_w4a8")
+_SPLIT_K = {name: _build.Launcher(f"trackie_{name}", name)
+            for name in ("q8_matmul", "q4_f32a")}
+_q4_stream = _build.Launcher("trackie_q4_stream", "q4_matmul_stream")
+
 
 class QuantizedLinear(NamedTuple):
     """Group-quantized (K, N) weight (or a stack of them on leading axes)."""
@@ -273,8 +280,7 @@ def quantize_activations(x: torch.Tensor, group: int
         raise TypeError(f"x must be f32, bf16 or f16, got {x.dtype}")
     if group % 32:
         raise ValueError(f"the kernel needs group % 32 == 0, got {group}")
-    xq, s = _launch_quantize(x.contiguous(), group,
-                             torch.cuda.current_stream(x.device).cuda_stream)
+    xq, s = _launch_quantize(x.contiguous(), group, _build.stream(x))
     return xq, s[0], s[1]
 
 
@@ -290,11 +296,9 @@ def _launch_quantize(x: torch.Tensor, group: int, stream: int
     m, k = x.shape
     xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
     s = torch.empty((2, m, k // group), dtype=torch.float32, device=x.device)
-    status = _build.library().trackie_quantize_act(
-        x.data_ptr(), xq.data_ptr(), s.data_ptr(),
-        s.data_ptr() + 4 * s.stride(0), m, k, group, _ACT_DTYPES[x.dtype],
-        stream)
-    _build.check(status, "quantize_activations")
+    _quantize_act(x.data_ptr(), xq.data_ptr(), s.data_ptr(),
+                  s.data_ptr() + 4 * s.stride(0), m, k, group,
+                  _ACT_DTYPES[x.dtype], stream)
     quantize_activations.launches += 1
     return xq, s
 
@@ -324,17 +328,15 @@ def q4_matmul_w4a8(x: torch.Tensor, packed: torch.Tensor,
         raise ValueError(f"the kernel needs G % 32 == 0 and N % 4 == 0 "
                          f"(G={g}, N={n})")
     bm, splits, per_split = _w4a8_plan(m, n, k // 2 // g)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = _build.stream(x)
     xq, s = _launch_quantize(x.contiguous(), g, stream)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     partial = (torch.empty((splits, m, n), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)
-    status = _build.library().trackie_q4_w4a8(
-        xq.data_ptr(), s.data_ptr(), s.data_ptr() + 4 * s.stride(0),
-        packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
-        partial.data_ptr() if partial is not None else None,
-        m, k, n, g, bm, splits, per_split, stream)
-    _build.check(status, "q4_matmul_w4a8")
+    _q4_w4a8(xq.data_ptr(), s.data_ptr(), s.data_ptr() + 4 * s.stride(0),
+             packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
+             partial.data_ptr() if partial is not None else None,
+             m, k, n, g, bm, splits, per_split, stream)
     q4_matmul_w4a8.launches += 1
     return out
 
@@ -436,12 +438,11 @@ def _launch_split_k(name: str, x: torch.Tensor, values: torch.Tensor,
     partial: Optional[torch.Tensor] = (
         torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
         if splits > 1 else None)
-    status = getattr(_build.library(), f"trackie_{name}")(
+    _SPLIT_K[name](
         x.data_ptr(), values.data_ptr(), scales.data_ptr(), out.data_ptr(),
         partial.data_ptr() if partial is not None else None,
         m, k, n, g, 0 if x.dtype == torch.float32 else 1, bm, splits,
-        per_split, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(status, name)
+        per_split, _build.stream(x))
     return out
 
 
@@ -640,11 +641,10 @@ def q4_matmul_stream(x: torch.Tensor, packed: torch.Tensor,
         x = x.clone()
     stages, _ = _stream_plan(m, k, g, tile_n, tile_k, x.element_size())
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    status = _build.library().trackie_q4_stream(
-        x.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
-        m, k, n, g, 0 if x.dtype == torch.float32 else 1, tile_k, tile_n,
-        stages, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(status, "q4_matmul_stream")
+    _q4_stream(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+               out.data_ptr(), m, k, n, g,
+               0 if x.dtype == torch.float32 else 1, tile_k, tile_n, stages,
+               _build.stream(x))
     q4_matmul_stream.launches += 1
     return out
 

@@ -6,7 +6,14 @@ of 64 dependent calls (each reads the last one's output):
   - the near-empty kernel (``ops/diag.py:chain_tiny``, x + 1 on (8, 128)),
     timed eager (host dispatch included) and captured once in a CUDA graph
     and replayed (the counterpart of one jit program, which leaves per-call
-    host dispatch out);
+    host dispatch out), three ways: the chain from one host call (the port
+    of the JAX tool's scan: the C side issues the 64 launches with
+    programmatic dependent launch), one host call a launch
+    (``chain_tiny(x, 1)`` from Python: the per-launch path every kernel
+    wrapper takes), and ``x + 1`` one torch call a launch;
+  - the read of the current stream's handle that every launch makes, on the
+    host: through ``torch.cuda.current_stream`` and as the wrappers read
+    it (``ops/_build.py:stream``);
   - the streaming Q4 matmul (``ops/quant.py:q4_matmul_stream``) at (K, N) =
     (4096, 4096), Mistral-7B's ``wo`` (8.4 MB packed), M = 1, in a graph,
     over (tile_k, tile_n) pairs that change the count of staged chunks at
@@ -27,7 +34,7 @@ from typing import Callable, Dict, Sequence, Tuple
 import numpy as np
 import torch
 
-from trackiellm_tpu_torch.ops import diag, quant
+from trackiellm_tpu_torch.ops import _build, diag, quant
 from trackiellm_tpu_torch.tools import capture, cuda_device, device_ms, host_ms
 
 N_CHAIN = 64
@@ -55,14 +62,46 @@ def _renorm(y: torch.Tensor) -> torch.Tensor:
 
 
 def tiny(dev: torch.device, n_chain: int = N_CHAIN,
-         n_outer: int = N_OUTER) -> Tuple[float, float]:
-    """(eager, graph) us per call of the near-empty kernel."""
+         n_outer: int = N_OUTER) -> Dict[str, Tuple[float, float]]:
+    """(eager, graph) us per launch of the near-empty kernel: the chain
+    from one host call, one host call a launch, and ``x + 1`` a launch."""
     x = torch.zeros(diag.TILE, dtype=torch.float32, device=dev)
-    eager, graph = chain_us(lambda: diag.chain_tiny(x, n_chain), dev,
-                            n_chain, n_outer)
-    print(f"{'near-empty kernel':28s} eager {eager:9.2f} us/call  "
-          f"graph {graph:9.2f} us/call", flush=True)
-    return eager, graph
+
+    def a_launch(call):
+        def chain():
+            y = x
+            for _ in range(n_chain):
+                y = call(y)
+            return y
+        return chain
+
+    rows = {"chain from one call": lambda: diag.chain_tiny(x, n_chain),
+            "chain_tiny(x, 1) a launch": a_launch(
+                lambda y: diag.chain_tiny(y, 1)),
+            "x + 1 a launch": a_launch(lambda y: y + 1.0)}
+    out = {}
+    for label, chain in rows.items():
+        eager, graph = chain_us(chain, dev, n_chain, n_outer)
+        print(f"{label:28s} eager {eager:9.2f} us/call  "
+              f"graph {graph:9.2f} us/call", flush=True)
+        out[label] = (eager, graph)
+    return out
+
+
+def stream_handle_us(dev: torch.device, n: int = 10000) -> Dict[str, float]:
+    """us per read of the current stream's handle on the host clock:
+    ``torch.cuda.current_stream(dev).cuda_stream`` (a ``Stream`` object a
+    read) and ``_build.stream`` (the raw handle). A CUDA device only."""
+    if dev.type != "cuda":
+        raise ValueError(f"reads a CUDA stream; got a {dev.type} device")
+    x = torch.zeros(1, device=dev)
+    out = {"torch.cuda.current_stream": host_ms(
+               lambda: torch.cuda.current_stream(dev).cuda_stream, dev, n),
+           "_build.stream": host_ms(lambda: _build.stream(x), dev, n)}
+    out = {k: v * 1e3 for k, v in out.items()}
+    for label, us in out.items():
+        print(f"stream handle by {label:26s} {us:9.3f} us", flush=True)
+    return out
 
 
 def q4_sweep(dev: torch.device, k: int = K, n: int = N, group: int = GROUP,
@@ -135,6 +174,7 @@ def main() -> int:
         return 1
     q4_sweep(dev)
     tiny(dev)
+    stream_handle_us(dev)
     rmsnorm(dev)
     return 0
 

@@ -41,6 +41,14 @@ M = 1, over (tile_n, tile_k) at ``wo`` and ``w_gu`` (each pair held against
 the plain version first; None where the checkout's tile rule refuses it).
 ``grid64`` is timed beside ``tile + 1`` (the library call for the same
 function), and at 1 step where the checkout's ``grid64`` takes ``steps``.
+The 64-call chain (``chain``) is timed three ways: ``chain_tiny`` from one
+host call, ``chain_tiny(x, 1)`` from Python a launch, and ``tile + 1`` a
+launch (its library chain); each as ``_times`` reads it, then as the
+CUDA-event span and the host clock over chains back to back, and replayed
+from a CUDA graph. ``decode`` runs ``chip_smoke.py``'s phase-5 profile
+window (Mistral-7B, 32 layers, random Q4 weights, default routes) once to
+warm up and once to keep: wall, device busy, idle share, launches and the
+copy and cast kernels of the bucket-512 prefill and of a decode token.
 
 ``--only`` picks row sets (default: all). Prints the card line, then one
 JSON line. To compare two checkouts, run the tool on each, alternating (A,
@@ -68,7 +76,9 @@ TILE_ROWS = (16, 64)   # the tile heights the W4A8 C entry takes
 STREAM_SWEEP_N = (16, 32, 64, 128)
 STREAM_SWEEP_K = (256, 512, 1024)
 STREAM_SWEPT = ("wo", "w_gu")
-ROW_SETS = ("main", "fused", "q8", "f32a", "w4a8_tiles", "stream", "grid64")
+ROW_SETS = ("main", "fused", "q8", "f32a", "w4a8_tiles", "stream", "grid64",
+            "chain", "decode")
+CHAIN_REPS = 50   # chains back to back in the event and host spans
 
 
 def _chip_smoke():
@@ -347,6 +357,48 @@ def grid_times(cs, diag, dev, gen) -> dict:
     return out
 
 
+def chain_times(cs, diag, dev, gen, n: int = 64,
+                reps: int = CHAIN_REPS) -> dict:
+    """The ``n``-call chain on the (8, 128) tile three ways, each checked
+    exact first, as the module's docstring says."""
+    from trackiellm_tpu_torch.tools import capture, device_ms, host_ms
+    tile = torch.randn(diag.TILE, generator=gen, device=dev)
+
+    def a_launch(call):
+        def chain():
+            y = tile
+            for _ in range(n):
+                y = call(y)
+            return y
+        return chain
+    calls = {"chain_tiny": lambda: diag.chain_tiny(tile, n),
+             "chain_tiny(x, 1) a launch": a_launch(
+                 lambda y: diag.chain_tiny(y, 1)),
+             "tile + 1 a launch": a_launch(lambda y: y + 1)}
+    want = a_launch(lambda y: y + 1)()
+    out = {}
+    for label, call in calls.items():
+        if not torch.equal(call(), want):
+            raise AssertionError(f"{label} is not {n} times tile + 1")
+        row = _times(cs, call)
+        row.update(event_ms=device_ms(call, dev, reps),
+                   host_ms=host_ms(call, dev, reps),
+                   graph_ms=device_ms(capture(call, dev), dev, reps))
+        out[f"chain {label}"] = row
+    return out
+
+
+def decode_times(cs, llm, dev) -> dict:
+    """``chip_smoke.py``'s phase-5 profile window, warmed up once."""
+    from trackiellm_tpu_torch.llm import runner, tokenizer
+    cfg = llm.LLMConfig.mistral_7b()._replace(max_seq=512,
+                                              sliding_window=512)
+    params = cs.build_model(dev, llm, cfg, 4)
+    cs.profile_path(dev, runner, tokenizer, params, cfg)
+    return {"q4 profile": cs.profile_path(dev, runner, tokenizer, params,
+                                          cfg)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=pathlib.Path, default=CHECKOUT,
@@ -399,6 +451,10 @@ def main(argv=None) -> int:
         result.update(stream_times(cs, quant, dev, gen))
     if "grid64" in only:
         result.update(grid_times(cs, diag, dev, gen))
+    if "chain" in only:
+        result.update(chain_times(cs, diag, dev, gen))
+    if "decode" in only:
+        result.update(decode_times(cs, llm, dev))
     print(json.dumps(result), flush=True)
     return 0
 
