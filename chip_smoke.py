@@ -8,12 +8,13 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      limit;
   2. build: nvcc builds the CUDA kernels from ``trackiellm_tpu_torch/csrc``;
   3. kernels: each of the ten CUDA kernels against its plain PyTorch
-     version at the shapes its path gives it (W4A8, Q8 and f32-activation
-     Q4 at M in {1, 8, 64, 256, 512} and the streaming Q4 at M in {1, 8} on
-     the five Mistral-7B projections, plus one streaming case at other
-     tiles; W4A8's activation quantization at M in {1, 512}, K in {4096,
-     14336}, bit for bit; flash attention in five variants at H=32, Hk=8,
-     D=128, S in {256, 512}, bf16 and f32; the fused MLP block at M in {1,
+     version at the shapes its path gives it (W4A8 at M in {1, 8, 64,
+     256, 512}, Q8 and f32-activation Q4 also at 1024, the rows of a
+     bucket-1024 prefill, and the streaming Q4 at M in {1, 8} on the five
+     Mistral-7B projections, plus one streaming case at other tiles;
+     W4A8's activation quantization at M in {1, 512}, K in {4096, 14336},
+     bit for bit; flash attention in five variants at H=32, Hk=8, D=128,
+     S in {256, 512, 1024}, bf16 and f32; the fused MLP block at M in {1,
      4, 8}, D 4096, H 14336, bf16 and f32, also timed against the unfused
      path per call and on the device alone; the stream probe over 512 MiB,
      grid64 (64 steps in one block) and a 64-call chain_tiny on (8, 128)),
@@ -48,14 +49,30 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      and x + 1 a launch; the stream handle's read; the streaming Q4 tile
      sweep, graph and op overheads, the 512
      MiB stream envelope, decode of phase 5's model cut to 32/16/8 layers,
-     greedy chunks), with their numbers as one JSON line.
-Phases 5-9 zero every launch counter just before they drive their path and
+     greedy chunks), with their numbers as one JSON line;
+ 10. tool calls and speculation: phase 5's model at max_seq 2048 behind
+     ``LLMRunner`` on the default routes: a forced tool call on the cortex
+     prompt with three tools (two with an argument schema) that must parse
+     and conform, ``add_tool_response`` and the follow-up reply, and one
+     offering only the two schema'd tools; a ``response_schema`` reply at
+     temperature 0.7, twice from one seed, whose sampled tokens (not only
+     the budget's closure) must advance the grammar; greedy speculation
+     ("auto" and True) with the ids of plain decode, and True's passes on
+     a repetitive prompt; sampled speculation, twice from one seed, with
+     passes (the rejection-sampling verify on the card); a
+     600-1000-token prompt (bucket 1024), which must take the f32a kernel
+     and never the plain path; the verify pass
+     (``extend(all_logits=True)``, 16 rows) against 16 decode steps; its
+     numbers as one ``{"slice10": ...}`` line.
+Phases 5-10 zero every launch counter just before they drive their path and
 read them just after: the path's kernels must have launched, and the routes
 it does not take must not have (no serving path launches the streaming Q4
 or a probe; phase 9 must launch all four). In phases 5-7 greedy text must
-not depend on the lookahead depth, and every logit vector must be finite.
-The last three lines are the card line, the kernels' JSON summary and the
-result line.
+not depend on the lookahead depth, in phase 10 not on speculation, and
+every logit vector must be finite. Phase 3's device-only times come from
+profiles whose launch count matches the calls (``device_only_ms``). The
+last four lines are the ``slice10`` line, the card line, the kernels' JSON
+summary and the result line.
 """
 
 import contextlib
@@ -77,7 +94,11 @@ MISTRAL_SHAPES = {  # (K, N) of the quantized projections, group 256
 }
 GROUP = 256
 PROFILE_TOKENS = 32  # decode tokens in phase 5's profiled window
+PROFILE_RETRIES = 3  # profiles of a timed window that missed launches
 MATMUL_MS = (1, 8, 64, 256, 512)
+# Q8 and f32a take M > 512 (a bucket-1024 prefill's 1024 rows) on the card.
+EXACT_MS = (*MATMUL_MS, 1024)
+FLASH_S = (256, 512, 1024)   # prefill buckets; 1024 in phase 10
 QUANT_MS, QUANT_KS = (1, 512), (4096, 14336)   # activation quantization
 # One H100 SXM (the data sheet, at 700 W): the bound of a kernel is the
 # larger of its bytes over the memory rate and its operations over the
@@ -111,6 +132,44 @@ SYSTEM = ("You are Trackie, an assistant for a blind user. Answer in one "
           "or two short sentences and warn about hazards first.")
 CONTEXT = ("Objects: person 2.1 m ahead, bicycle 3.4 m left, door 5 m "
            "right. Depth: clear path 4 m. Text: EXIT. Sound: traffic.")
+SHORT_PROMPT = f"descreva a cena a sua frente com detalhes ({SEED})"
+# Phase 10: the cortex's tools (two with an argument schema), a reply
+# schema, the token budgets and the long prompt's range (bucket 1024).
+TOOLS = (
+    ("navigate", "guide the user", {"direction": "left, right or ahead"},
+     {"type": "object", "required": ["direction"],
+      "properties": {"direction": {"type": "string",
+                                   "enum": ["left", "right", "ahead",
+                                            "back"]},
+                     "meters": {"type": "number"}}}),
+    ("describe", "describe an object", {"target": "what to describe"},
+     {"type": "object", "required": ["target"],
+      "properties": {"target": {"type": "string"},
+                     "detail": {"type": "boolean"}}}),
+    ("stop", "stop and wait", {}, None),
+)
+RESPONSE_SCHEMA = {"type": "object", "required": ["hazard", "objects"],
+                   "properties": {"hazard": {"type": "string"},
+                                  "distance_m": {"type": "number"},
+                                  "objects": {"type": "array",
+                                              "items": {"type": "string"},
+                                              "maxItems": 4}}}
+TOOL_TOKENS = 96     # budget of a constrained reply (the closure may end it)
+# The response_schema reply's repetition penalty. The grammar tolerates
+# whitespace without limit, as the JAX package's does, and the seed's
+# random weights favour it: at the default penalty (1.1) the sampler emits
+# whitespace until the budget's closure writes the whole object. A strong
+# penalty pushes it off the whitespace it has used, so sampled tokens
+# advance the grammar on the card.
+SCHEMA_PENALTY = 3.0
+# A prompt whose n-grams repeat: with spec_min_ngram=1, greedy and sampled
+# speculation find proposals on it ("auto" too, unless its first two
+# tokens find none and start its cooldown).
+REPEAT_PROMPT = "abc abc abc abc abc abc abc abc ab"
+SPEC_TOKENS = 48     # tokens of each speculation request
+SLICE10_MAX_SEQ = 2048
+LONG_PROMPT = (600, 1000)
+VERIFY_ROWS = 16     # the verify pass's extend bucket
 
 
 def log(msg: str) -> None:
@@ -125,10 +184,15 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def l2_flush() -> torch.Tensor:
+    """256 MiB to zero before a timed call: it evicts the 50 MiB L2."""
+    return torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+
+
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     """Mean device time of ``fn`` per call, with L2 flushed before each
     call (the main path finds weights cold: a 7B model is 70x L2)."""
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    flush = l2_flush()
     for _ in range(warmup):
         fn()
     total = 0.0
@@ -158,24 +222,51 @@ def device_breakdown(fn):
             sum(n for _, n in by_name.values()), by_name)
 
 
-def device_only_ms(fn, iters: int = 20):
+def device_only_ms(fn, iters: int = 20, counter=None, per_call: int = 1,
+                   notes=None):
     """Device time per call of the kernels ``fn`` launches, by kernel name,
     with L2 flushed before each call and the flush left out: the wrapper's
-    host cost is not in it. None where the profiler saw no device time."""
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    host cost is not in it. None where the profiler's count of launches is
+    not what the calls made; then ``notes``, a list, gets why.
+
+    One call profiled alone gives the launches of a call by kernel name;
+    ``counter`` (a wrapper with a ``launches`` count), where given, must
+    rise by ``per_call`` in it. The timed window of ``iters`` calls must
+    then show ``iters`` times as many launches of each name. A lone call
+    whose profile shows no launch, or a window that misses some, is
+    profiled again, up to PROFILE_RETRIES times; a window that never shows
+    them all gives no time (a per-call time from a partial count would be
+    a fraction of the truth)."""
+    flush = l2_flush()
     fn()
     torch.cuda.synchronize()
+    for _ in range(1 + PROFILE_RETRIES):
+        before = counter.launches if counter is not None else 0
+        _, _, one = device_breakdown(fn)
+        if counter is not None and counter.launches - before != per_call:
+            raise AssertionError(f"one profiled call launched "
+                                 f"{counter.launches - before} times, not "
+                                 f"{per_call}")
+        per = {k: n for k, (_, n) in one.items() if "Fill" not in k}
+        if per:
+            break
+    note = "profiler saw no launch of one call"
 
     def calls():
         for _ in range(iters):
             flush.zero_()
             fn()
-    _, _, by_name = device_breakdown(calls)
-    per_kernel = {k: ms / iters for k, (ms, _) in by_name.items()
-                  if "Fill" not in k}
-    if not per_kernel:
-        return None
-    return {"total": sum(per_kernel.values()), "kernels": per_kernel}
+    for _ in range(1 + PROFILE_RETRIES if per else 0):
+        _, _, by_name = device_breakdown(calls)
+        seen = {k: by_name.get(k, (0.0, 0))[1] for k in per}
+        if all(seen[k] == iters * n for k, n in per.items()):
+            per_kernel = {k: by_name[k][0] / iters for k in per}
+            return {"total": sum(per_kernel.values()), "kernels": per_kernel}
+        note = (f"profiler saw {sum(seen.values())} of "
+                f"{iters * sum(per.values())} launches")
+    if notes is not None:
+        notes.append(note)
+    return None
 
 
 def bound_ms(tensors, ops: float, kind: str):
@@ -189,11 +280,18 @@ def bound_ms(tensors, ops: float, kind: str):
                                                            "operations")
 
 
-def add_row(rows, kname: str, kernel, **row) -> None:
+def add_row(rows, kname: str, kernel, counter, per_call: int = 1,
+            **row) -> None:
     """One phase 3 result of ``kname``; a headline case (``KERNELS``) also
-    gets the device-only time of ``kernel``."""
+    gets the device-only time of ``kernel`` (``per_call`` launches a call
+    by the wrapper ``counter``), or a note of why there is none."""
     if row["case"] in KERNELS[kname][2]:
-        row["device"] = device_only_ms(kernel)
+        notes = []
+        row["device"] = device_only_ms(kernel, counter=counter,
+                                       per_call=per_call, notes=notes)
+        if notes:
+            row["device_note"] = notes[0]
+            log(f"  {kname} {row['case']}: no device-only time, {notes[0]}")
     rows[kname].append(row)
 
 
@@ -202,7 +300,7 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def matmul_case(rows, kname: str, what: str, case: str, kernel, plain,
-                inputs, kind: str):
+                inputs, kind: str, counter):
     """One matmul kernel call against its plain version: rel L2 within
     MATMUL_TOL, times and the bound beside (``inputs``: x and the weight's
     tensors; 2 M K N operations of type ``kind``)."""
@@ -218,7 +316,7 @@ def matmul_case(rows, kname: str, what: str, case: str, kernel, plain,
         f"bound_ms={bound:.4f} ({by})")
     if not err < MATMUL_TOL:
         raise AssertionError(f"{kname} {case}: rel L2 {err}")
-    add_row(rows, kname, kernel, case=case, err=abs_err, ms=ms,
+    add_row(rows, kname, kernel, counter, case=case, err=abs_err, ms=ms,
             plain=plain_ms, bound=bound, bound_by=by)
 
 
@@ -246,6 +344,7 @@ def quant_cases(rows, quant, gen, dev) -> None:
                 raise AssertionError(f"quantize M={m} K={k}: {diff} differ")
             add_row(rows, "quantize_activations",
                     lambda: quant.quantize_activations(x, GROUP),
+                    quant.quantize_activations,
                     case=f"M={m} K={k}", err=abs_err, ms=ms, plain=plain_ms,
                     bound=bound, bound_by=by)
 
@@ -283,9 +382,9 @@ def phase_kernels(dev, quant, attention, fused, llm, diag):
                            quant.q4_matmul_w4a8_ref, "w4a8", MATMUL_MS,
                            "int8"),
         "q8_matmul": (quant.quantize_q8, quant.q8_matmul,
-                      quant.q8_matmul_ref, "q8  ", MATMUL_MS, "bf16"),
+                      quant.q8_matmul_ref, "q8  ", EXACT_MS, "bf16"),
         "q4_matmul_f32a": (quant.quantize_q4, quant.q4_matmul_f32a,
-                           quant.q4_matmul_f32a_ref, "f32a", MATMUL_MS,
+                           quant.q4_matmul_f32a_ref, "f32a", EXACT_MS,
                            "bf16"),
         "q4_matmul_stream": (quant.quantize_q4, quant.q4_matmul_stream,
                              quant.q4_matmul_stream_ref, "strm", STREAM_MS,
@@ -304,7 +403,7 @@ def phase_kernels(dev, quant, attention, fused, llm, diag):
                 matmul_case(rows, kname,
                             f"{label} {name:7s} M={m:3d} K={k} N={n}",
                             f"{name} M={m}", lambda: kernel(x, *args),
-                            lambda: plain(x, *args), (x, *args), kind)
+                            lambda: plain(x, *args), (x, *args), kind, kernel)
             if kname == "q4_matmul_stream" and name == STREAM_ALT[0]:
                 _, tile_k, tile_n = STREAM_ALT
                 x = torch.randn((1, k), generator=gen, device=dev).to(
@@ -313,7 +412,8 @@ def phase_kernels(dev, quant, attention, fused, llm, diag):
                 matmul_case(rows, kname, f"{label} {case}", case,
                             lambda: kernel(x, *args, tile_n=tile_n,
                                            tile_k=tile_k),
-                            lambda: plain(x, *args), (x, *args), kind)
+                            lambda: plain(x, *args), (x, *args), kind,
+                            kernel)
             del w, args
         del w32
     quant_cases(rows, quant, gen, dev)
@@ -321,7 +421,7 @@ def phase_kernels(dev, quant, attention, fused, llm, diag):
     variants = {"causal": {}, "window128": {"window": 128},
                 "softcap50": {"softcap": 50.0},
                 "sinks": {"sinks": True}, "scale0.05": {"scale": 0.05}}
-    for s in (256, 512):
+    for s in FLASH_S:
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.randn((h, s, d), generator=gen, device=dev).to(dtype)
             kk = torch.randn((hk, s, d), generator=gen, device=dev).to(dtype)
@@ -357,6 +457,7 @@ def phase_kernels(dev, quant, attention, fused, llm, diag):
                     raise AssertionError(f"flash {vname} S={s} {dtype}: {err}")
                 add_row(rows, "flash_attention",
                         lambda: attention.flash_attention(q, kk, v, **kw),
+                        attention.flash_attention,
                         case=f"{vname} S={s} {str(dtype)[6:]}", err=abs_err,
                         ms=ms, plain=plain, bound=bound, bound_by=by,
                         library=library, library_device=library_device)
@@ -401,6 +502,7 @@ def phase_kernels(dev, quant, attention, fused, llm, diag):
             if not err < tol:
                 raise AssertionError(f"fused M={m} {dtype}: rel L2 {err}")
             add_row(rows, "fused_mlp_q4", lambda: fused.fused_mlp_q4(*args),
+                    fused.fused_mlp_q4,
                     case=f"M={m} {str(dtype)[6:]}", err=abs_err, ms=ms,
                     plain=plain, unfused=unfused,
                     unfused_device=unfused_device, bound=bound, bound_by=by)
@@ -467,8 +569,9 @@ def phase_probes(dev, gen, diag, rows) -> None:
         if name == "chain_tiny":
             spans = {"event_ms": device_ms(kernel, dev, 50),
                      "library_event_ms": device_ms(lib, dev, 50)}
-        add_row(rows, name, kernel, case=case, err=abs_err, ms=ms,
-                plain=plain_ms, library=library,
+        add_row(rows, name, kernel, getattr(diag, name), per_call=calls,
+                case=case,
+                err=abs_err, ms=ms, plain=plain_ms, library=library,
                 library_device=library_device, bound=bound, bound_by=by,
                 **spans)
         if spans:
@@ -644,7 +747,7 @@ def drive(dev, llm, runner_mod, tokenizer_mod, params, cfg, counters,
     gen = runner_mod.GenerationConfig(max_tokens=96, temperature=0.0,
                                       speculative=False)
     runner = runner_mod.LLMRunner(params, cfg, tok, gen, device=dev)
-    prompt_a = f"descreva a cena a sua frente com detalhes ({SEED})"
+    prompt_a = SHORT_PROMPT
     prompt_b = runner.build_prompt(SYSTEM, CONTEXT,
                                    "What is in front of me right now?")
     prompt_d = runner.build_prompt(SYSTEM, CONTEXT,
@@ -859,6 +962,265 @@ def phase_diagnostics(dev, params, cfg, counters) -> dict:
     return launches
 
 
+def conforms(value, schema) -> bool:
+    """Whether ``value`` conforms to ``schema`` in the subset phase 10's
+    schemas use (type, enum, properties, required, items, maxItems); no
+    schema: any JSON object."""
+    if schema is None:
+        return isinstance(value, dict)
+    if "enum" in schema and value not in schema["enum"]:
+        return False
+    kind = schema.get("type")
+    if kind == "object":
+        props = schema.get("properties", {})
+        return (isinstance(value, dict) and set(value) <= set(props)
+                and set(schema.get("required", ())) <= set(value)
+                and all(conforms(v, props[k]) for k, v in value.items()))
+    if kind == "array":
+        return (isinstance(value, list)
+                and len(value) <= schema.get("maxItems", len(value))
+                and all(conforms(v, schema.get("items", {})) for v in value))
+    types = {"string": str, "boolean": bool, "number": (int, float),
+             "integer": int}
+    if kind in types:
+        return (isinstance(value, types[kind])
+                and (kind == "boolean" or not isinstance(value, bool)))
+    return True
+
+
+def timed_reply(runner, tag: str, prompt: str, **kw):
+    """One ``generate`` with its wall ms, tokens and the grammar mask's host
+    ms a token logged (0 for an unconstrained reply). Returns the text and
+    the number of tokens sampled under the grammar's mask, which lead the
+    reply (a budget's closure follows them)."""
+    mask_s, n_masked = [0.0], [0]
+    masks = runner._grammar_mask
+
+    def timed_mask():
+        t = time.perf_counter()
+        n_masked[0] += 1
+        try:
+            return masks()
+        finally:
+            mask_s[0] += time.perf_counter() - t
+    runner._grammar_mask = timed_mask
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        text = runner.generate(prompt, **kw)
+        torch.cuda.synchronize()
+    finally:
+        del runner._grammar_mask
+    n = len(runner.generated_ids)
+    log(f"  request {tag}: wall_ms={(time.perf_counter() - t0) * 1e3:.2f} "
+        f"tokens={n} masked_tokens={n_masked[0]} mask_ms_per_token="
+        f"{mask_s[0] * 1e3 / max(n, 1):.3f} text={text[:120]!r}")
+    if n == 0:
+        raise AssertionError(f"request {tag} generated nothing")
+    return text, n_masked[0]
+
+
+def long_prompt(runner) -> str:
+    """A cortex prompt whose context repeats until it takes 600-1000
+    tokens (prefill bucket 1024)."""
+    reps = 1
+    while True:
+        prompt = runner.build_prompt(SYSTEM, " ".join([CONTEXT] * reps),
+                                     "Describe everything around me.")
+        n = runner.count_tokens(prompt) + 1
+        if n >= LONG_PROMPT[0]:
+            if n > LONG_PROMPT[1]:
+                raise AssertionError(f"long prompt is {n} tokens")
+            return prompt
+        reps += 1
+
+
+def phase_slice10(dev, llm, runner_mod, tokenizer_mod, quant, params, cfg,
+                  counters) -> dict:
+    """Phase 10: tool calls and speculation on phase 5's Q4 model under
+    ``cfg`` (max_seq 2048: bucket 1024 exists), on the default routes.
+    (e) a forced tool call on the cortex prompt with three tools (two with
+    an argument schema), greedy, then add_tool_response and the follow-up
+    reply, and one offering only the two schema'd tools; (f)
+    ``response_schema`` at temperature 0.7, twice from one seed, whose
+    sampled tokens must hold more than whitespace; (g) greedy speculation,
+    "auto" and True, against plain decode on the short and the cortex
+    prompts, and with one-token n-grams on a repetitive prompt, where True
+    must make passes; (h) sampled speculation on that prompt, twice from
+    one seed, with passes (``spec_verify_sampled`` on card tensors); (i) a
+    600-1000-token prompt (bucket 1024): the f32a kernel and never the
+    plain path; (j) the verify pass, ``extend(all_logits=True)`` on a
+    16-token chunk, against 16 decode steps. Counters are zeroed just
+    before and read just after; returns the summary (launches in it)."""
+    tok = tokenizer_mod.ByteTokenizer(cfg.vocab_size)
+
+    def runner(**gen_kw):
+        gen_kw.setdefault("temperature", 0.0)
+        return runner_mod.LLMRunner(params, cfg, tok,
+                                    runner_mod.GenerationConfig(**gen_kw),
+                                    device=dev)
+    tools = [runner_mod.ToolDefinition(*t) for t in TOOLS]
+    schemas = {t.name: t.schema for t in tools}
+    warm = runner(max_tokens=8)
+    warm.generate(SHORT_PROMPT)
+    warm.generate(long_prompt(warm))   # first bucket-1024 shapes
+    del warm
+    plain_calls = []
+    plain = quant.quantized_matmul_ref
+    quant.quantized_matmul_ref = lambda *a: plain_calls.append(1) or plain(*a)
+    verify_sampled = runner_mod.sampling.spec_verify_sampled
+    verify_devices = []
+
+    def watched_verify(logits, *args, **kw):
+        verify_devices.append(logits.device.type)
+        return verify_sampled(logits, *args, **kw)
+    runner_mod.sampling.spec_verify_sampled = watched_verify
+    for fn in counters.values():
+        fn.launches = 0
+    watch = LogitWatch(llm)
+    out = {}
+    try:
+        r = runner(max_tokens=TOOL_TOKENS)
+        ask = r.build_prompt(SYSTEM, CONTEXT, "Take me to the door.", tools)
+        text, _ = timed_reply(r, "e (forced tool call, cortex prompt)", ask,
+                              tools=tools, force_tool_call=True)
+        call = json.loads(text)["tool_call"]
+        if (set(json.loads(text)) != {"tool_call"}
+                or call["name"] not in schemas
+                or not conforms(call["arguments"], schemas[call["name"]])
+                or r.parse_tool_call() != call):
+            raise AssertionError(f"tool call {text!r} does not conform")
+        r.add_tool_response(call["name"], {"ok": True, "distance_m": 4.2})
+        follow, _ = timed_reply(r, "e (follow-up after the tool response)",
+                                r.build_prompt(SYSTEM, f"Tool {call['name']}"
+                                               ": ok", "Take me to the door."))
+        rt = runner(max_tokens=TOOL_TOKENS)
+        text, _ = timed_reply(rt, "e (forced tool call, the schema'd tools)",
+                              ask, tools=tools[:2], force_tool_call=True)
+        schema_call = json.loads(text)["tool_call"]
+        if (schemas.get(schema_call["name"]) is None
+                or schema_call["name"] not in (t.name for t in tools[:2])
+                or not conforms(schema_call["arguments"],
+                                schemas[schema_call["name"]])
+                or rt.parse_tool_call() != schema_call):
+            raise AssertionError(f"tool call {text!r} does not conform")
+        out["tool_call"] = {"call": call, "follow_up_bytes":
+                            len(follow.encode()), "schema_call": schema_call}
+        replies = []
+        for i in range(2):
+            rf = runner(max_tokens=TOOL_TOKENS, temperature=0.7, seed=SEED,
+                        repetition_penalty=SCHEMA_PENALTY)
+            text, n_masked = timed_reply(
+                rf, f"f (response_schema, temperature 0.7, {i})", ask,
+                response_schema=RESPONSE_SCHEMA)
+            sampled_text = tok.decode(rf.generated_ids[:n_masked])
+            replies.append((text, sampled_text))
+        if (replies[0] != replies[1]
+                or not conforms(json.loads(replies[0][0]), RESPONSE_SCHEMA)
+                or not replies[0][1].strip()):
+            raise AssertionError(f"schema replies {replies!r}")
+        out["response_schema"] = {"reply": json.loads(replies[0][0]),
+                                  "sampled": replies[0][1]}
+        out["speculation"] = {}
+        for name, prompt, kw in (("short", SHORT_PROMPT, {}),
+                                 ("cortex", ask, {}),
+                                 ("repeat", REPEAT_PROMPT,
+                                  {"spec_min_ngram": 1})):
+            ids = {}
+            for spec in (False, "auto", True):
+                rs = runner(max_tokens=SPEC_TOKENS, speculative=spec, **kw)
+                timed_reply(rs, f"g (greedy, {name}, speculative={spec})",
+                            prompt)
+                ids[spec] = rs.generated_ids
+                if spec:
+                    out["speculation"][f"{name} {spec}"] = rs.spec_stats
+                    log(f"  spec_stats {name} {spec}: {rs.spec_stats}")
+            if kw and not out["speculation"][f"{name} True"]["passes"]:
+                raise AssertionError("greedy speculation made no pass")
+            if not ids[False] == ids["auto"] == ids[True]:
+                raise AssertionError(f"speculation changed the ids ({name})")
+        sampled = []
+        for i in range(2):
+            rs = runner(max_tokens=SPEC_TOKENS, speculative=True,
+                        temperature=0.7, seed=SEED, spec_min_ngram=1)
+            timed_reply(rs, f"h (sampled speculation, {i})", REPEAT_PROMPT)
+            log(f"  spec_stats sampled True: {rs.spec_stats}")
+            sampled.append(rs.generated_ids)
+            if not rs.spec_stats["passes"]:
+                raise AssertionError("sampled speculation made no pass")
+        out["speculation"]["sampled True"] = rs.spec_stats
+        if (sampled[0] != sampled[1]
+                or set(verify_devices) != {dev.type}):
+            raise AssertionError(f"seeded sampled speculation differs, or "
+                                 f"verified on {set(verify_devices)}")
+        rl = runner(max_tokens=16)
+        prompt = long_prompt(rl)
+        n_long = rl.count_tokens(prompt) + 1
+        f32a_before = quant.q4_matmul_f32a.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rl.prepare_generation(prompt)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        f32a = quant.q4_matmul_f32a.launches - f32a_before
+        while rl.generate_next_token() is not None:
+            pass
+        log(f"  request i (long prompt, {n_long} tokens, bucket 1024): "
+            f"prefill_ms={prefill_ms:.2f} f32a_launches={f32a} "
+            f"plain_path_calls={len(plain_calls)}")
+        if f32a == 0 or plain_calls:
+            raise AssertionError("bucket 1024 did not take the f32a kernel")
+        out["long_prefill"] = {"tokens": n_long, "prefill_ms": prefill_ms,
+                               "f32a_launches": f32a}
+        out["verify"] = verify_pass(dev, llm, params, cfg, tok)
+    finally:
+        quant.quantized_matmul_ref = plain
+        runner_mod.sampling.spec_verify_sampled = verify_sampled
+        n_logits = watch.close()
+    out["launches"] = {name: fn.launches for name, fn in counters.items()}
+    log(f"  launches: {out['launches']}; finite logit vectors: {n_logits}")
+    return out
+
+
+def verify_pass(dev, llm, params, cfg, tok) -> dict:
+    """(j) The verify pass alone: after the short prompt's prefill, the
+    logits of ``extend(all_logits=True)`` on a 16-token chunk against 16
+    ``decode_step``s from the same cache: the same argmax at every row,
+    rel L2 within EXACT_WIDTH_TOL."""
+    ids = tok.encode(SHORT_PROMPT, add_bos=True)
+    padded = torch.zeros(64, dtype=torch.int64)
+    padded[:len(ids)] = torch.tensor(ids)
+    cache = llm.KVCache.create(cfg, device=dev)
+    _, cache = llm.prefill(params, cfg, padded.to(dev), len(ids), cache)
+    chunk = torch.randint(0, 256, (VERIFY_ROWS,),
+                          generator=torch.Generator().manual_seed(SEED))
+    attn = 256   # the runner's attention bucket for offset + 16
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ext, _ = llm.extend(params, cfg, chunk.to(dev), VERIFY_ROWS, cache,
+                        attn_len=attn, all_logits=True)
+    torch.cuda.synchronize()
+    extend_ms = (time.perf_counter() - t0) * 1e3
+    steps, c = [], cache._replace(length=len(ids))
+    t0 = time.perf_counter()
+    for t in chunk.tolist():
+        lg, c = llm.decode_step(params, cfg, t, c, attn_len=attn)
+        steps.append(lg)
+    torch.cuda.synchronize()
+    steps_ms = (time.perf_counter() - t0) * 1e3
+    steps = torch.stack(steps)
+    err = rel_l2(ext, steps)
+    same = int((ext.argmax(-1) == steps.argmax(-1)).sum())
+    log(f"  request j (verify pass, {VERIFY_ROWS} rows): rel_l2 extend vs "
+        f"decode = {err:.3e} (tol {EXACT_WIDTH_TOL:.0e}); argmax equal on "
+        f"{same}/{VERIFY_ROWS} rows; extend_ms={extend_ms:.2f} "
+        f"decode_steps_ms={steps_ms:.2f}")
+    if not (err < EXACT_WIDTH_TOL and same == VERIFY_ROWS):
+        raise AssertionError(f"verify pass: rel L2 {err}, argmax {same}")
+    return {"rel_l2": err, "argmax_equal": same, "extend_ms": extend_ms,
+            "decode_steps_ms": steps_ms}
+
+
 def result_line(kind: str) -> str:
     """The last line of the run: it used one card, of this kind."""
     return json.dumps({"ok": True, "device": {
@@ -900,9 +1262,11 @@ KERNELS = {
 
 
 # Keys a kernel's cases carry where its rows have them: the fused block's
-# unfused yardstick, the chain's CUDA-event spans.
+# unfused yardstick, the chain's CUDA-event spans, why a case has no
+# device-only time.
 EXTRA_KEYS = {"unfused_ms": "unfused", "unfused_device_ms": "unfused_device",
-              "event_ms": "event_ms", "library_event_ms": "library_event_ms"}
+              "event_ms": "event_ms", "library_event_ms": "library_event_ms",
+              "device_note": "device_note"}
 
 
 def kernels_line(rows, launches) -> str:
@@ -928,6 +1292,8 @@ def kernels_line(rows, launches) -> str:
             "max_abs_err": max(r["err"] for r in rows[name]),
             **{k: v for k, v in cases[0].items() if k != "case"},
             "timed_case": headlines[0], "launches_phase": phase,
+            "launches_by_phase": {str(p): n[name]
+                                  for p, n in sorted(launches.items())},
             "cases": cases})
     return json.dumps({"kernels": kernels})
 
@@ -1014,9 +1380,21 @@ def main() -> int:
     log("phase 9 diagnostics (the three tools; phase 5's model cut to "
         "32/16/8 layers):")
     launches[9] = phase_diagnostics(dev, params4, cfg, counters)
+    log(f"phase 10 tool calls and speculation (phase 5's model, max_seq "
+        f"{SLICE10_MAX_SEQ}):")
+    slice10 = phase_slice10(
+        dev, llm, runner_mod, tokenizer_mod, quant, params4,
+        llm.LLMConfig.mistral_7b()._replace(max_seq=SLICE10_MAX_SEQ),
+        counters)
+    launches[10] = slice10["launches"]
+    expect_routes(launches[10], ("q4_matmul_w4a8", "quantize_activations",
+                                 "flash_attention", "q4_matmul_f32a"),
+                  ("q8_matmul", "fused_mlp_q4", *DIAGNOSTIC), "phase 10")
     del params4
 
-    print(nvidia_smi(), flush=True)
+    smi = nvidia_smi()
+    print(json.dumps({"slice10": slice10, "card": smi}), flush=True)
+    print(smi, flush=True)
     print(kernels_line(rows, launches), flush=True)
     print(result_line(torch.cuda.get_device_name(0)), flush=True)
     return 0

@@ -170,8 +170,8 @@ def test_probe_rows_on_the_cpu(monkeypatch, capsys):
     cs = _load()
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(cs, "time_ms", lambda fn: (fn(), 1.0)[1])
-    monkeypatch.setattr(cs, "device_only_ms",
-                        lambda fn: (fn(), {"total": 0.5, "kernels": {}})[1])
+    monkeypatch.setattr(cs, "device_only_ms", lambda fn, **kw: (
+        fn(), {"total": 0.5, "kernels": {}})[1])
     monkeypatch.setattr(cs, "STREAM_SHAPE", (64, 64))
     rows = {name: [] for name in cs.KERNELS}
     cs.phase_probes(torch.device("cpu"), torch.Generator().manual_seed(0),
@@ -181,3 +181,111 @@ def test_probe_rows_on_the_cpu(monkeypatch, capsys):
     assert chain["bound"] == 64 * 8192 / cs.HBM_BYTES_PER_S * 1e3
     assert chain["event_ms"] > 0 and chain["library_event_ms"] > 0
     assert "kernel_ms <= library_ms" in capsys.readouterr().out
+
+
+def _fake_profiler(cs, monkeypatch, window_counts, lone_counts=(1,)):
+    """device_breakdown replaced by a fake that runs ``fn`` and reports one
+    kernel "k": for the lone call, the counts of ``lone_counts`` in turn
+    until one is not 0, then each timed window's count from
+    ``window_counts`` in turn (0.1 ms a launch)."""
+    windows, lones = iter(window_counts), iter(lone_counts)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(cs, "l2_flush",
+                        lambda: torch.empty(16, dtype=torch.int32))
+
+    def fake(fn):
+        fn()
+        n = next(lones) if fake.lone else next(windows)
+        fake.lone = fake.lone and n == 0
+        kernels = {"k": (0.1 * n, n)} if n else {}
+        return 0.1 * n, n, {**kernels, "Fill": (0.01, 20)}
+    fake.lone = True
+    monkeypatch.setattr(cs, "device_breakdown", fake)
+
+
+def test_device_only_ms_refuses_a_partial_count(monkeypatch):
+    """A profiler that drops launches in every window, or never sees the
+    lone call's, gives no time and a note, after the retries; one that sees
+    all of them gives the mean."""
+    cs = _load()
+    _fake_profiler(cs, monkeypatch, [1, 19, 0, 5])
+    notes = []
+    assert cs.device_only_ms(lambda: None, notes=notes) is None
+    assert notes == ["profiler saw 5 of 20 launches"]
+    _fake_profiler(cs, monkeypatch, [1, 20])
+    notes = []
+    got = cs.device_only_ms(lambda: None, notes=notes)
+    assert notes == [] and got["kernels"] == {"k": 0.1}
+    assert abs(got["total"] - 0.1) < 1e-12
+    # A lone call whose profile misses the launch is profiled again.
+    _fake_profiler(cs, monkeypatch, [20], lone_counts=[0, 0, 1])
+    assert cs.device_only_ms(lambda: None)["total"] > 0
+    _fake_profiler(cs, monkeypatch, [], lone_counts=[0] * 4)
+    notes = []
+    assert cs.device_only_ms(lambda: None, notes=notes) is None
+    assert notes == ["profiler saw no launch of one call"]
+
+
+def test_device_only_ms_checks_the_wrapper_count(monkeypatch):
+    """The lone profiled call must go through the wrapper as often as a
+    call launches it (``per_call``; chain_tiny's 64)."""
+    import pytest
+    cs = _load()
+
+    class Wrapper:
+        launches = 0
+
+        def __call__(self):
+            self.launches += 64
+    w = Wrapper()
+    _fake_profiler(cs, monkeypatch, [64 * 20])
+    with pytest.raises(AssertionError):
+        cs.device_only_ms(w, counter=w)
+    _fake_profiler(cs, monkeypatch, [20])
+    assert cs.device_only_ms(w, counter=w, per_call=64)["total"] > 0
+
+
+def test_conforms_checks_the_schema_subset():
+    cs = _load()
+    nav = cs.TOOLS[0][3]
+    assert cs.conforms({"direction": "left", "meters": 2.5}, nav)
+    assert not cs.conforms({"direction": "up"}, nav)
+    assert not cs.conforms({"meters": 1}, nav)
+    assert not cs.conforms({"direction": "left", "speed": 1}, nav)
+    assert not cs.conforms({"direction": "left", "meters": True}, nav)
+    assert cs.conforms({"anything": [1]}, None) and not cs.conforms([], None)
+    assert cs.conforms({"hazard": "x", "objects": ["a"]}, cs.RESPONSE_SCHEMA)
+    assert not cs.conforms({"hazard": "x", "objects": ["a"] * 5},
+                           cs.RESPONSE_SCHEMA)
+
+
+def test_slice10_on_the_cpu(monkeypatch, capsys):
+    """Phase 10's control flow on the CPU at tiny size (the timers' syncs
+    stubbed): the constrained, schema'd, speculative and sampled requests
+    pass their checks, and the long prompt's route check fails, as it must
+    where no kernel launches; the verify pass agrees with decode steps."""
+    import pytest
+    from trackiellm_tpu_torch.llm import runner, tokenizer
+    from trackiellm_tpu_torch.models import llm
+    from trackiellm_tpu_torch.ops import quant
+    cs = _load()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    cfg = llm.LLMConfig.tiny()._replace(max_seq=cs.SLICE10_MAX_SEQ,
+                                        sliding_window=cs.SLICE10_MAX_SEQ)
+    params = llm.init_params_quantized(torch.Generator().manual_seed(1), cfg,
+                                       group=64, dtype=torch.float32)
+    counters = {"q4_matmul_f32a": quant.q4_matmul_f32a}
+    plain = quant.quantized_matmul_ref
+    with pytest.raises(AssertionError, match="bucket 1024"):
+        cs.phase_slice10(torch.device("cpu"), llm, runner, tokenizer, quant,
+                         params, cfg, counters)
+    assert quant.quantized_matmul_ref is plain
+    out = capsys.readouterr().out
+    for tag in ("request e", "the schema'd tools", "request f",
+                "request g", "request h", "request i",
+                "spec_stats cortex True", "spec_stats repeat True",
+                "spec_stats sampled True"):
+        assert tag in out
+    got = cs.verify_pass(torch.device("cpu"), llm, params, cfg,
+                         tokenizer.ByteTokenizer(cfg.vocab_size))
+    assert got["argmax_equal"] == cs.VERIFY_ROWS and got["rel_l2"] < 1e-4

@@ -8,6 +8,8 @@ file imports no JAX, so it runs on a host without it:
 (``--noconftest`` because tests/conftest.py sets up JAX.)
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -190,8 +192,10 @@ def test_quantized_matmul_dispatch_on_the_card(dev, monkeypatch):
     before = tq.q4_matmul_w4a8.launches
     tq.quantized_matmul(torch.randn((2, 3, 512), device=dev), w)
     assert tq.q4_matmul_w4a8.launches == before + 1
+    f32a_big = tq.q4_matmul_f32a.launches
     big = tq.quantized_matmul(torch.randn((513, 512), device=dev), w)
-    assert tq.q4_matmul_w4a8.launches == before + 1  # M > 512: dequant route
+    assert tq.q4_matmul_w4a8.launches == before + 1  # M > 512: f32a route
+    assert tq.q4_matmul_f32a.launches == f32a_big + 1
     assert big.shape == (513, 256)
     q8 = tq.quantize_q8(torch.randn((512, 256), device=dev), 64)
     q8_before = tq.q8_matmul.launches
@@ -202,6 +206,75 @@ def test_quantized_matmul_dispatch_on_the_card(dev, monkeypatch):
     tq.quantized_matmul(torch.randn((2, 512), device=dev), w)
     assert tq.q4_matmul_f32a.launches == f32a_before + 1
     assert tq.q4_matmul_w4a8.launches == before + 1
+
+
+@pytest.mark.parametrize("lever", [None, "1"])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [513, 1024, 1500])
+def test_quantized_matmul_above_512_rows(dev, monkeypatch, m, dtype, bits,
+                                         lever):
+    """M > 512 on the card: Q4 takes the f32a kernel whatever the lever,
+    Q8 its kernel, both on the exact activations (no int8 quantization,
+    no plain path), against the plain dequantize-then-matmul."""
+    if lever is None:
+        monkeypatch.delenv("TRACKIE_Q4_F32A", raising=False)
+    else:
+        monkeypatch.setenv("TRACKIE_Q4_F32A", lever)
+    plain_calls = []
+    ref = tq.quantized_matmul_ref
+    monkeypatch.setattr(tq, "quantized_matmul_ref",
+                        lambda *a: plain_calls.append(1) or ref(*a))
+    g = torch.Generator(device=dev).manual_seed(m + bits)
+    quant = tq.quantize_q4 if bits == 4 else tq.quantize_q8
+    w = quant(torch.randn((1024, 320), generator=g, device=dev), 64)
+    x = torch.randn((m, 1024), generator=g, device=dev).to(dtype)
+    kernel = tq.q4_matmul_f32a if bits == 4 else tq.q8_matmul
+    counts = (kernel.launches, tq.q4_matmul_w4a8.launches,
+              tq.quantize_activations.launches)
+    got = tq.quantized_matmul(x, w)
+    torch.cuda.synchronize()
+    assert (kernel.launches, tq.q4_matmul_w4a8.launches,
+            tq.quantize_activations.launches) == (counts[0] + 1, *counts[1:])
+    assert plain_calls == []
+    assert got.dtype == torch.float32 and got.shape == (m, 320)
+    assert _rel_l2(got, ref(x, w)) < 1e-5
+
+
+def test_dense_linear_reads_bf16_weights_without_a_copy(dev):
+    """A dense bf16 weight on the card: bf16 products with f32 sums, within
+    bf16's rounding of the CPU's f32 route, and no copy of the weight."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    w = torch.randn((1024, 768), generator=g, device=dev).bfloat16()
+    for m in (1, 40, 600):
+        x = torch.randn((m, 1024), generator=g, device=dev).bfloat16()
+        got = llm._linear(x, w)
+        want = llm._linear(x.cpu(), w.cpu())
+        assert got.dtype == torch.bfloat16 and got.shape == (m, 768)
+        assert _rel_l2(got.cpu(), want) < 1e-2
+        assert _cache_copies(lambda: llm._linear(x, w), w.shape) == []
+    assert _cache_copies(lambda: llm._linear(x.cpu(), w.cpu()),
+                         w.shape) != []
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rms_norm_of_a_row_does_not_depend_on_the_batch(dev, dtype):
+    """A row's RMS norm on the card has the same bits whether the call
+    holds it alone or among 16 rows, as a decode step and a verify pass
+    hold it, and stays within rounding of the CPU's f32 route."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    scale = torch.exp(torch.randn((64, 16, 1), generator=g, device=dev))
+    x = (torch.randn((64, 16, 4096), generator=g, device=dev)
+         * scale).to(dtype)
+    norm = (1 + 0.1 * torch.randn((4096,), generator=g, device=dev)).to(dtype)
+    for batch in x:
+        rows = llm._rms_norm(batch, norm, 1e-5)
+        for i in range(16):
+            assert torch.equal(rows[i:i + 1],
+                               llm._rms_norm(batch[i:i + 1], norm, 1e-5))
+    want = llm._rms_norm(x[0].cpu(), norm.cpu(), 1e-5)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-6
+    assert _rel_l2(llm._rms_norm(x[0], norm, 1e-5).cpu(), want) < tol
 
 
 MISTRAL_SHAPES = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
@@ -578,6 +651,82 @@ def test_tiny_model_on_the_card_matches_cpu(dev):
             cache_dtype=torch.float32, device="cuda")
         texts.append(r.generate("ola, tudo bem?"))
     assert texts[0] == texts[1]
+
+
+def _tiny_q8_runners(dev, **gen_kw):
+    """A tiny f32 Q8 model (the Q8 kernel: exact activations, so the card
+    follows the CPU to f32 rounding) behind a runner on the card and one on
+    the CPU, greedy unless ``temperature`` is given."""
+    cfg = llm.LLMConfig.tiny()._replace(max_seq=512, sliding_window=512)
+    p_gpu = llm.init_params_quantized(
+        torch.Generator(device=dev).manual_seed(7), cfg, bits=8, group=64,
+        dtype=torch.float32, device=dev)
+    p_cpu = llm.params_to(p_gpu, torch.device("cpu"))
+    gen_kw.setdefault("max_tokens", 48)
+    gen_kw.setdefault("temperature", 0.0)
+    return [LLMRunner(p, cfg, gen_config=GenerationConfig(**gen_kw),
+                      cache_dtype=torch.float32, device=d)
+        for p, d in ((p_gpu, dev), (p_cpu, torch.device("cpu")))]
+
+
+def test_tiny_tool_call_on_the_card_matches_cpu(dev):
+    """A forced tool call with an argument schema, then a tool response and
+    a JSON reply: the card's text is the CPU route's, and it parses."""
+    from trackiellm_tpu_torch.llm.runner import ToolDefinition
+    schema = {"type": "object", "required": ["dir"],
+              "properties": {"dir": {"type": "string",
+                                     "enum": ["left", "right"]}}}
+    tools = [ToolDefinition("go", "move", {"dir": "where"}, schema),
+             ToolDefinition("stop", "wait", {})]
+    before = tq.q8_matmul.launches
+    outs = []
+    for r in _tiny_q8_runners(dev, speculative=False):
+        text = r.generate("a door ahead, where to?", tools=tools,
+                          force_tool_call=True)
+        call = r.parse_tool_call()
+        r.add_tool_response(call["name"], {"ok": True})
+        outs.append((text, call, r.generate("and now?", json_mode=True)))
+    assert tq.q8_matmul.launches > before
+    assert outs[0] == outs[1]
+    assert outs[0][1]["name"] in ("go", "stop")
+    json.loads(outs[0][2])
+
+
+def test_tiny_speculation_on_the_card_matches_cpu(dev):
+    """Greedy speculation (short n-grams, so passes fire) on the card: the
+    CPU route's ids and counters, and the card's plain ids."""
+    ids = []
+    for r in _tiny_q8_runners(dev, speculative=True, spec_min_ngram=1):
+        r.generate("abc abc abc abc ab")
+        ids.append((r.generated_ids, r.spec_stats))
+    plain = _tiny_q8_runners(dev, speculative=False)[0]
+    plain.generate("abc abc abc abc ab")
+    assert ids[0] == ids[1] and ids[0][1]["passes"] > 0
+    assert plain.generated_ids == ids[0][0]
+
+
+def test_tiny_sampled_speculation_on_the_card(dev, monkeypatch):
+    """Sampled speculation (temperature 0.7, short n-grams) on the card:
+    the rejection-sampling verify runs on card tensors with the card's
+    generator, passes fire, two runs from one seed agree, and the cache
+    holds exactly the emitted tokens."""
+    from trackiellm_tpu_torch.llm import sampling
+    verify, seen = sampling.spec_verify_sampled, []
+
+    def watched(logits, proposal, n_prop, generator, *args, **kw):
+        seen.append((logits.device.type, proposal.device.type,
+                     generator.device.type))
+        return verify(logits, proposal, n_prop, generator, *args, **kw)
+    monkeypatch.setattr(sampling, "spec_verify_sampled", watched)
+    outs = []
+    for _ in range(2):
+        r = _tiny_q8_runners(dev, speculative=True, spec_min_ngram=1,
+                             temperature=0.7, seed=5, max_tokens=64)[0]
+        outs.append((r.generate("abc abc abc abc ab"), r.generated_ids))
+        assert r.spec_stats["passes"] > 0, r.spec_stats
+        assert r._host_len == len(r._committed_ids) == r.cache.length
+    assert outs[0] == outs[1]
+    assert set(seen) == {("cuda", "cuda", "cuda")}
 
 
 # (tile_k, tile_n): the card defaults, the narrowest tile ("G": tile_k one

@@ -385,17 +385,21 @@ def _route(monkeypatch, values_dtype, m, lever):
 
 
 @pytest.mark.parametrize("values_dtype,m,lever", list(itertools.product(
-    [torch.int8, torch.uint8], [1, 512, 513], [None, "1", "0"])))
+    [torch.int8, torch.uint8], [1, 512, 513, 1024, 1500], [None, "1", "0"])))
 def test_dispatch_routes_like_the_jax_package(monkeypatch, values_dtype, m,
                                               lever):
-    """quant.py:562-587 minus the unread levers: M > 512 is the plain path;
-    else Q8 takes its kernel whatever the lever; Q4 takes the f32a kernel
-    under TRACKIE_Q4_F32A=1 and the W4A8 kernel otherwise."""
+    """quant.py:562-587 minus the unread levers, on the card's kernels: Q8
+    takes its kernel whatever the lever and M; Q4 takes the f32a kernel
+    under TRACKIE_Q4_F32A=1 or at M > 512 (where the JAX package multiplies
+    the exact activations by the dequantized weights, the function f32a
+    computes), and the W4A8 kernel otherwise. Nothing on the card takes
+    the plain path, and above 512 rows nothing quantizes the activations
+    (only the W4A8 wrapper does)."""
     got = _route(monkeypatch, values_dtype, m, lever)
-    if m > tq.KERNEL_MAX_M:
-        want = "quantized_matmul_ref"
-    elif values_dtype == torch.int8:
+    if values_dtype == torch.int8:
         want = "q8_matmul"
+    elif m > tq.KERNEL_MAX_M or lever == "1":
+        want = "q4_matmul_f32a"
     else:
-        want = "q4_matmul_f32a" if lever == "1" else "q4_matmul_w4a8"
+        want = "q4_matmul_w4a8"
     assert got == want

@@ -61,12 +61,13 @@ def _pair(lookahead, max_seq=None, eos_id=None, **gen_kw):
     cfg, jp, tp = _params(max_seq)
     gen_kw.setdefault("temperature", 0.0)
     gen_kw.setdefault("max_tokens", 24)
+    gen_kw.setdefault("speculative", False)
     jtok, ttok = JByteTokenizer(cfg.vocab_size), ByteTokenizer(cfg.vocab_size)
     if eos_id is not None:
         jtok.eos_id = ttok.eos_id = eos_id
     jr = jrunner.LLMRunner(
         jp, cfg, jtok, jrunner.GenerationConfig(
-            lookahead=lookahead, speculative=False, **gen_kw),
+            lookahead=lookahead, **gen_kw),
         cache_dtype=jnp.float32)
     tr = LLMRunner(tp, tllm.LLMConfig(**cfg._asdict()), ttok,
                    GenerationConfig(lookahead=lookahead, **gen_kw),
@@ -251,33 +252,18 @@ def test_greedy_mask():
     assert int(tsampling.greedy(logits, torch.tensor([1, 0, 1]).bool())) == 2
 
 
-# --- what is not ported yet raises -------------------------------------------
-
-@pytest.mark.parametrize("spec", [True, "auto"])
-def test_speculation_raises(spec):
-    _, _, tp = _params()
-    with pytest.raises(NotImplementedError, match="speculation"):
-        LLMRunner(tp, tllm.LLMConfig.tiny(), gen_config=GenerationConfig(
-            speculative=spec), cache_dtype=torch.float32)
-
-
-@pytest.mark.parametrize("kw", [{"force_tool_call": True},
-                                {"json_mode": True},
-                                {"response_schema": {"type": "object"}}])
-def test_grammar_modes_raise(kw):
-    r = _port(1)
-    with pytest.raises(NotImplementedError, match="grammar"):
-        r.generate("ola", **kw)
-
-
 def test_port_imports_no_jax():
-    """The port must run where JAX is absent: importing its runner, fused
-    block, checkpoint reader, CLI, probes, diagnostic tools and
+    """The port must run where JAX is absent: importing its runner (with
+    its grammar, schema, speculation and sampling modules), fused block, checkpoint reader, CLI, probes, diagnostic tools and
     chip_smoke.py pulls in no JAX module, no module of the JAX package
     (``trackiellm_tpu`` or ``trackiellm_tpu.*``, even one that imports no
     JAX) and none of the JAX package's tools (this test process has JAX
     loaded already, hence the subprocess)."""
     code = ("import sys, trackiellm_tpu_torch.llm.runner, "
+            "trackiellm_tpu_torch.llm.grammar, "
+            "trackiellm_tpu_torch.llm.schema, "
+            "trackiellm_tpu_torch.llm.speculative, "
+            "trackiellm_tpu_torch.llm.sampling, "
             "trackiellm_tpu_torch.models.bridge, "
             "trackiellm_tpu_torch.ops.fused, "
             "trackiellm_tpu_torch.ops.diag, "

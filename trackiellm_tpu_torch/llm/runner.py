@@ -1,15 +1,14 @@
 """Streaming LLM runner: the conversational session API.
 
 Port of ``trackiellm_tpu/llm/runner.py`` (``GenerationConfig``,
-``_bucket_for``, ``LLMRunner``) for the slice's path: prompt -> byte
-tokens -> bucketed ``prefill`` (with cross-turn prefix reuse and chunked
-``extend`` for long prompts) -> greedy k-token lookahead or sampled decode
-over the KV cache -> text through an incremental UTF-8 assembler. Greedy
-output is byte-identical to the serial path whatever the lookahead.
-
-Grammar-constrained decoding (``force_tool_call``, ``json_mode``,
-``response_schema``) and prompt-lookup speculation are not ported yet and
-raise NotImplementedError naming their ROADMAP item.
+``ToolDefinition``, ``_bucket_for``, ``LLMRunner``): prompt -> byte tokens
+-> bucketed ``prefill`` (with cross-turn prefix reuse and chunked
+``extend`` for long prompts) -> greedy k-token lookahead, sampled decode,
+grammar-constrained decode (``force_tool_call``, ``json_mode``,
+``response_schema``: ``llm/grammar.py``, ``llm/schema.py``) or
+prompt-lookup speculation (``llm/speculative.py``) over the KV cache ->
+text through an incremental UTF-8 assembler. Greedy output is
+byte-identical to the serial path whatever the lookahead or speculation.
 """
 
 from __future__ import annotations
@@ -24,6 +23,9 @@ import numpy as np
 import torch
 
 from trackiellm_tpu_torch.llm import sampling
+from trackiellm_tpu_torch.llm.grammar import JsonGrammar, ToolCallGrammar
+from trackiellm_tpu_torch.llm.speculative import (accepted_prefix,
+                                                  propose_ngram)
 from trackiellm_tpu_torch.llm.tokenizer import ByteTokenizer, Tokenizer
 from trackiellm_tpu_torch.models import llm as llm_model
 from trackiellm_tpu_torch.utils.errors import ErrorCode, TrackieError
@@ -37,8 +39,7 @@ ATTN_BUCKETS = (256, 512, 1024, 2048, 4096)
 
 @dataclasses.dataclass
 class GenerationConfig:
-    """Sampling knobs (the reference's defaults, except ``speculative``,
-    which stays off until prompt-lookup speculation is ported)."""
+    """Sampling knobs (the reference's defaults)."""
 
     max_tokens: int = 512
     temperature: float = 0.7
@@ -52,17 +53,34 @@ class GenerationConfig:
     # Greedy decode runs as k-token device chunks with one host fetch per
     # chunk (models/llm.py decode_chunk_greedy); 1 = one-step lookahead.
     lookahead: int = 4
-    speculative: Any = False  # True / "auto" wait for ROADMAP Queue 1 item 10
+    # Prompt-lookup speculation (llm/speculative.py): unconstrained replies
+    # verify n-gram proposals in one extend() pass. Greedy text is exactly
+    # the plain greedy sequence; sampled replies keep the sampler's
+    # distribution (sampling.spec_verify_sampled). "auto" turns itself off
+    # for spec_probe_interval emitted tokens when the rolling acceptance
+    # falls below spec_min_acceptance, or after two passes in a row found
+    # no proposal (greedy).
+    speculative: Any = "auto"  # False | True | "auto"
+    spec_max_propose: int = 7
+    spec_ngram: int = 3
+    # Shortest n-gram match that may propose. 0 = by tokenizer: 3 for a
+    # byte tokenizer (whose longest match then rises to 8), else 1.
+    spec_min_ngram: int = 0
+    spec_min_acceptance: float = 0.125
+    spec_probe_interval: int = 64
+    # Ban EOS until this many tokens are emitted.
     min_tokens: int = 0
 
 
 @dataclasses.dataclass
 class ToolDefinition:
-    """A tool advertised to the model in the prompt."""
+    """A tool advertised to the model in the prompt. ``schema``, a JSON
+    Schema of the arguments, makes a forced tool call conform to it."""
 
     name: str
     description: str
     parameters: Dict[str, str]  # arg name -> description
+    schema: Optional[Dict[str, Any]] = None
 
     def render(self) -> str:
         args = ", ".join(f"{k}: {v}" for k, v in self.parameters.items())
@@ -106,12 +124,16 @@ class LLMRunner:
         self.tokenizer = tokenizer or ByteTokenizer(
             n_special_pad_to=cfg.vocab_size)
         self.gen = gen_config or GenerationConfig()
-        self._check_gen()
         self._cache_dtype = cache_dtype
         self.cache = llm_model.KVCache.create(cfg, dtype=cache_dtype,
                                               device=self.device)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(self.gen.seed)
+        self._grammar = None
+        # Device copies of the grammar's masks, by the identity of the
+        # host list token_mask returns (one list per grammar state, cached
+        # and kept alive by the grammar; the list is kept here too).
+        self._mask_dev: Dict[int, tuple] = {}
         self._next_logits: Optional[torch.Tensor] = None
         self._primed_ids: Optional[List[int]] = None
         self._host_len = 0
@@ -121,8 +143,27 @@ class LLMRunner:
         self._n_emitted = 0
         self._done = False
         # Every token id committed to the KV cache, in order (len ==
-        # _host_len); prefix reuse compares new prompts against it.
+        # _host_len); prefix reuse and the n-gram lookup read it.
         self._committed_ids: List[int] = []
+        # Tokens of a verify pass not emitted yet.
+        self._pending_spec: List[int] = []
+        self._spec_index = 0
+        self._spec_offset = 0
+        self._spec_accepted = 0
+        self.spec_stats = {"passes": 0, "proposed": 0, "accepted": 0}
+        # "auto": the acceptance of the last passes, the emitted tokens
+        # left to skip speculation for, and greedy passes in a row that
+        # found no proposal.
+        self._spec_recent: List[float] = []
+        self._spec_cooldown = 0
+        self._spec_misses = 0
+        byte_level = isinstance(self.tokenizer, ByteTokenizer)
+        self._spec_min_ngram = self.gen.spec_min_ngram or (
+            3 if byte_level else 1)
+        self._spec_max_ngram = max(self.gen.spec_ngram,
+                                   8 if byte_level
+                                   and not self.gen.spec_min_ngram
+                                   else self.gen.spec_ngram)
         # k-token lookahead state: fetched-but-unemitted tokens, and the
         # dispatched-ahead chunk.
         self._la_buf: List[int] = []
@@ -134,13 +175,6 @@ class LLMRunner:
         # Incremental UTF-8 assembly: a multibyte character split across
         # byte tokens must not decode each byte on its own.
         self._utf8 = None
-
-    def _check_gen(self) -> None:
-        if self.gen.speculative:
-            raise NotImplementedError(
-                f"speculative={self.gen.speculative!r}: prompt-lookup "
-                "speculation is not ported yet (ROADMAP Queue 1 item 10); "
-                "pass speculative=False")
 
     def _piece(self, tid: int) -> str:
         if hasattr(self.tokenizer, "token_bytes"):
@@ -166,6 +200,17 @@ class LLMRunner:
             ban[self.tokenizer.eos_id] = False
             self._eos_ban = ban.to(self.device)
         return self._eos_ban
+
+    def _grammar_mask(self) -> torch.Tensor:
+        """The grammar's (V,) token mask on the device. ``token_mask``
+        returns one shared read-only list per grammar state; its device
+        copy is made once."""
+        mask = self._grammar.token_mask(self.tokenizer)
+        hit = self._mask_dev.get(id(mask))
+        if hit is None or hit[0] is not mask:
+            hit = (mask, torch.tensor(mask, dtype=torch.bool).to(self.device))
+            self._mask_dev[id(mask)] = hit
+        return hit[1]
 
     def _ids(self, ids) -> torch.Tensor:
         return torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
@@ -202,14 +247,9 @@ class LLMRunner:
                            response_schema: Optional[Dict[str, Any]] = None,
                            json_mode: bool = False) -> None:
         """Tokenize and ingest the prompt (bucketed prefill, prefix reuse,
-        or the remainder after a matching ``prime``). A prompt that cannot
-        fit the window minus the generation budget is middle-cut."""
-        self._check_gen()
-        if force_tool_call or json_mode or response_schema is not None:
-            raise NotImplementedError(
-                "grammar-constrained decoding (force_tool_call, json_mode, "
-                "response_schema) is not ported yet (ROADMAP: "
-                "grammar/schema, llm/grammar.py and llm/schema.py)")
+        or the remainder after a matching ``prime``), then arm the grammar
+        if asked. A prompt that cannot fit the window minus the generation
+        budget is middle-cut."""
         self._drop_pending_lookahead()
         ids = self.tokenizer.encode(prompt, add_bos=True)
         hard_limit = self.max_prompt_tokens
@@ -234,11 +274,37 @@ class LLMRunner:
                 log.info("primed prefix did not match the final prompt; "
                          "falling back to prefix-cache reuse")
             self._prefill_with_prefix_reuse(ids)
+        self._arm_generation_state(tools, force_tool_call, response_schema,
+                                   json_mode)
+
+    def _arm_generation_state(self, tools: Sequence[ToolDefinition],
+                              force_tool_call: bool,
+                              response_schema: Optional[Dict[str, Any]],
+                              json_mode: bool) -> None:
+        """Reset the per-reply state and arm the constrained-decoding
+        grammar: a tool call (typed by each tool's schema) or a JSON reply
+        (conforming to ``response_schema`` when given)."""
         self._generated_ids = []
         self._generated_text = ""
         self._n_emitted = 0
         self._done = False
         self._utf8 = None
+        self._mask_dev = {}
+        if force_tool_call:
+            if not tools:
+                raise TrackieError(ErrorCode.TOOL_CALL_INVALID,
+                                   "force_tool_call requires tools")
+            if response_schema is not None or json_mode:
+                raise TrackieError(
+                    ErrorCode.INVALID_ARGUMENT,
+                    "force_tool_call and JSON response mode are exclusive")
+            self._grammar = ToolCallGrammar(
+                [t.name for t in tools],
+                {t.name: t.schema for t in tools if t.schema is not None})
+        elif response_schema is not None or json_mode:
+            self._grammar = JsonGrammar(response_schema)
+        else:
+            self._grammar = None
 
     def _prefill_with_prefix_reuse(self, ids) -> None:
         """When the cache already holds a long prefix of ``ids`` (the cortex
@@ -258,6 +324,7 @@ class LLMRunner:
         self.cache = self.cache._replace(length=lcp)
         self._host_len = lcp
         del self._committed_ids[lcp:]
+        self._pending_spec = []
         rest = ids[lcp:]
         logits = None
         for pos in range(0, len(rest), EXTEND_BUCKETS[-1]):
@@ -285,6 +352,7 @@ class LLMRunner:
             self.params, self.cfg, self._ids(padded), first_n, self.cache)
         self._host_len = first_n
         self._committed_ids = [int(i) for i in ids[:first_n]]
+        self._pending_spec = []
         chunk_cap = EXTEND_BUCKETS[-1]
         if max_dispatch is not None:
             chunk_cap = min(chunk_cap, max_dispatch)
@@ -322,6 +390,7 @@ class LLMRunner:
     def _extend_ids(self, ids) -> torch.Tensor:
         """Append ids to the live cache with one bucketed extend pass;
         returns the logits at the last one."""
+        self._drop_pending_spec()
         self._drop_pending_lookahead()
         bucket = _bucket_for(len(ids), EXTEND_BUCKETS)
         padded = np.zeros(bucket, np.int64)
@@ -333,10 +402,22 @@ class LLMRunner:
         self._committed_ids.extend(int(i) for i in ids)
         return logits
 
+    def _decode_commit(self, tid: int) -> torch.Tensor:
+        """Write ``tid`` into the cache with one decode step; returns the
+        logits after it."""
+        logits, self.cache = llm_model.decode_step(
+            self.params, self.cfg, tid, self.cache,
+            attn_len=self._attn_bucket())
+        self._host_len += 1
+        self._committed_ids.append(tid)
+        return logits
+
     def generate_next_token(self) -> Optional[str]:
         """Sample and return the next token's text, or None when finished
-        (EOS, stop string, max_tokens or the window's end)."""
-        if self._done or self._next_logits is None:
+        (EOS, grammar completion, stop string, max_tokens or the window's
+        end)."""
+        if self._done or (self._next_logits is None
+                          and not self._pending_spec):
             return None
         # With a lookahead chunk buffered the cache is ahead of what was
         # emitted: bound the window check by the emitted position.
@@ -345,44 +426,120 @@ class LLMRunner:
         if (self._n_emitted >= self.gen.max_tokens
                 or eff_len >= self.cfg.max_seq - 1):
             self._done = True
+            self._drop_pending_spec()
             self._drop_pending_lookahead()
             return None
+        if self._pending_spec:
+            return self._emit_spec_token()
         if self._la_buf:
+            # The "auto" cooldown counts emitted tokens, buffered chunk
+            # tokens included.
+            if self.gen.speculative == "auto" and self._spec_cooldown > 0:
+                self._spec_cooldown -= 1
             return self._greedy_chunk_step()
-        if self.gen.temperature <= 0:
+
+        # Budget-forced closure: a constrained reply about to run out of
+        # tokens emits the grammar's shortest valid completion instead of
+        # ending as invalid JSON.
+        if self._grammar is not None and not self._grammar.done:
+            closure = self._grammar.closure()
+            closure_ids = self.tokenizer.encode(closure)
+            remaining = self.gen.max_tokens - self._n_emitted
+            if closure and len(closure_ids) >= remaining - 1:
+                if not self._grammar.feed_text(closure):
+                    raise AssertionError(f"the grammar refused its own "
+                                         f"closure {closure!r}")
+                # Through the UTF-8 assembler, so that a pending partial
+                # multibyte comes out (as U+FFFD) before the closure.
+                if self._utf8 is not None:
+                    piece = self._utf8.decode(closure.encode("utf-8"))
+                else:
+                    piece = closure
+                self._generated_text += piece
+                self._generated_ids.extend(closure_ids)
+                self._n_emitted = self.gen.max_tokens
+                self._extend_ids(closure_ids)
+                self._done = True
+                return piece
+
+        spec = self.gen.speculative
+        # A greedy token that cannot speculate (cooldown, or min_tokens not
+        # reached) takes the lookahead chunk path, not the serial loop.
+        spec_eligible = (self._n_emitted >= self.gen.min_tokens
+                         and self._spec_cooldown <= 0)
+        if (self._grammar is None and self.gen.temperature <= 0
+                and (not spec
+                     or (spec == "auto" and not spec_eligible))):
+            if spec == "auto" and self._spec_cooldown > 0:
+                self._spec_cooldown -= 1
             if self.gen.lookahead > 1:
                 return self._greedy_chunk_step()
             return self._greedy_step_pipelined()
-        # Sampled flow: a pre-dispatched lookahead chunk is stale from here.
+        # Sampled, constrained or speculative flow: a pre-dispatched
+        # lookahead chunk is stale from here.
         self._la_next = None
-        mask = (self._eos_ban_mask()
-                if self._n_emitted < self.gen.min_tokens else None)
-        recent = np.full(self.gen.repeat_window, -1, np.int64)
-        tail = self._generated_ids[-self.gen.repeat_window:]
-        recent[: len(tail)] = tail
-        token = sampling.sample(
-            self._next_logits, self._generator, self.gen.temperature,
-            top_k=self.gen.top_k, top_p=self.gen.top_p, min_p=self.gen.min_p,
-            mask=mask, recent_tokens=self._ids(recent),
-            repetition_penalty=self.gen.repetition_penalty)
+
+        mask = None
+        if self._grammar is not None:
+            mask = self._grammar_mask()
+        if self._n_emitted < self.gen.min_tokens:
+            ban = self._eos_ban_mask()
+            mask = ban if mask is None else (mask & ban)
+
+        if self.gen.temperature <= 0:
+            token = sampling.greedy(self._next_logits, mask)
+        else:
+            recent = np.full(self.gen.repeat_window, -1, np.int64)
+            tail = self._generated_ids[-self.gen.repeat_window:]
+            recent[: len(tail)] = tail
+            token = sampling.sample(
+                self._next_logits, self._generator, self.gen.temperature,
+                top_k=self.gen.top_k, top_p=self.gen.top_p,
+                min_p=self.gen.min_p, mask=mask,
+                recent_tokens=self._ids(recent),
+                repetition_penalty=self.gen.repetition_penalty)
         tid = int(token)
         if tid == self.tokenizer.eos_id:
             self._done = True
             return None
+
         piece = self._piece(tid)
+        if self._grammar is not None:
+            self._grammar.feed_text(piece)
+            if self._grammar.done:
+                self._done = True
         self._generated_ids.append(tid)
         self._generated_text += piece
         self._n_emitted += 1
+        # Stop strings mark the reply done but the token still enters the
+        # cache, so a following chat()/add_tool_response() extends a cache
+        # that holds everything generated.
         self._apply_stop_strings()
-        # The sampled token enters the cache even when it ends the reply,
-        # so a following chat()/add_tool_response() extends a cache that
-        # holds everything generated.
-        logits, self.cache = llm_model.decode_step(
-            self.params, self.cfg, tid, self.cache,
-            attn_len=self._attn_bucket())
-        self._next_logits = None if self._done else logits
-        self._host_len += 1
-        self._committed_ids.append(tid)
+
+        if self._done:
+            self._decode_commit(tid)
+            self._next_logits = None
+            return piece
+        if (spec == "auto" and self.gen.temperature > 0
+                and self._spec_cooldown > 0):
+            # Sampled tokens never take the greedy fast path, so the
+            # acceptance cooldown counts down here.
+            self._spec_cooldown -= 1
+        if (self._spec_allowed() and self._grammar is None
+                and self._n_emitted >= self.gen.min_tokens):
+            if self._start_speculative_pass(tid):
+                self._spec_misses = 0
+                return piece
+            if spec == "auto" and self.gen.temperature <= 0:
+                # No proposal: this token pays a serial decode step. After
+                # two in a row, back to the chunk path (greedy only: the
+                # sampled flow has no chunk path, and a miss costs it only
+                # the host's n-gram scan).
+                self._spec_misses += 1
+                if self._spec_misses >= 2:
+                    self._spec_misses = 0
+                    self._spec_cooldown = self.gen.spec_probe_interval
+        self._next_logits = self._decode_commit(tid)
         return piece
 
     def _apply_stop_strings(self) -> bool:
@@ -423,7 +580,7 @@ class LLMRunner:
         return piece
 
     # ------------------------------------------------------------------
-    # k-token lookahead (greedy only)
+    # k-token lookahead (greedy, unconstrained only)
     # ------------------------------------------------------------------
 
     def _dispatch_chunk(self, logits, cache, offset: int,
@@ -499,9 +656,7 @@ class LLMRunner:
     def _rollback_lookahead(self, new_len: int) -> None:
         """Roll the tentative chunk back to ``new_len`` tokens and drop any
         dispatched-ahead chunk."""
-        self.cache = self.cache._replace(length=new_len)
-        self._host_len = new_len
-        del self._committed_ids[new_len:]
+        self._truncate(new_len)
         self._la_buf = []
         self._la_idx = 0
         self._la_next = None
@@ -516,6 +671,152 @@ class LLMRunner:
             self._la_idx = 0
             self._la_next = None
 
+    def _truncate(self, new_len: int) -> None:
+        """Lower the cache, its host length and the committed ids to
+        ``new_len`` tokens (rows past it stay masked)."""
+        self.cache = self.cache._replace(length=new_len)
+        self._host_len = new_len
+        del self._committed_ids[new_len:]
+
+    # ------------------------------------------------------------------
+    # Prompt-lookup speculation
+    # ------------------------------------------------------------------
+
+    def _spec_allowed(self) -> bool:
+        """Whether speculation may run now: in "auto" mode, not during a
+        cooldown."""
+        if not self.gen.speculative:
+            return False
+        if self.gen.speculative != "auto":
+            return True
+        return self._spec_cooldown <= 0
+
+    def _start_speculative_pass(self, tid: int) -> bool:
+        """After emitting ``tid``, verify an n-gram proposal in one
+        ``extend`` pass (bucket 16) instead of a decode_step. ``tid`` and
+        the accepted proposals enter the cache now; the tokens the pass
+        yields are buffered and emitted one a call with the plain loop's
+        semantics (EOS, stop strings and max_tokens alike). False when no
+        proposal fired (the caller decodes ``tid``)."""
+        proposal = propose_ngram(self._committed_ids + [tid],
+                                 self.gen.spec_max_propose,
+                                 max_ngram=self._spec_max_ngram,
+                                 min_ngram=self._spec_min_ngram)
+        if not proposal:
+            return False
+        bucket = EXTEND_BUCKETS[0]
+        proposal = proposal[: bucket - 1]
+        if self._host_len + bucket >= self.cfg.max_seq:
+            return False
+        chunk = [tid] + proposal
+        padded = np.zeros(bucket, np.int64)
+        padded[: len(chunk)] = chunk
+        offset = self._host_len
+        logits, cache = llm_model.extend(
+            self.params, self.cfg, self._ids(padded), len(chunk), self.cache,
+            attn_len=self._attn_bucket_for(offset + bucket), all_logits=True)
+        if self.gen.temperature <= 0:
+            greedy = torch.argmax(logits[: len(chunk)], dim=-1).tolist()
+            accepted = accepted_prefix(greedy, proposal)
+            pending = greedy[: accepted + 1]
+        else:
+            # Rejection sampling (sampling.spec_verify_sampled). The
+            # repetition window at position i is the emitted history (which
+            # holds tid) and the proposals before i.
+            prop = np.zeros(bucket - 1, np.int64)
+            prop[: len(proposal)] = proposal
+            rec = np.full((bucket, self.gen.repeat_window), -1, np.int64)
+            hist = self._generated_ids
+            for i in range(len(proposal) + 1):
+                t = (hist + proposal[:i])[-self.gen.repeat_window:]
+                rec[i, : len(t)] = t
+            verdict = sampling.spec_verify_sampled(
+                logits, self._ids(prop), len(proposal), self._generator,
+                self.gen.temperature, self._ids(rec), top_k=self.gen.top_k,
+                top_p=self.gen.top_p, min_p=self.gen.min_p,
+                repetition_penalty=self.gen.repetition_penalty).tolist()
+            accepted = verdict[0]  # one fetch a pass
+            pending = proposal[:accepted] + [verdict[1]]
+        self.spec_stats["passes"] += 1
+        self.spec_stats["proposed"] += len(proposal)
+        self.spec_stats["accepted"] += accepted
+        if self.gen.speculative == "auto":
+            self._spec_recent.append(accepted / len(proposal))
+            if len(self._spec_recent) > 8:
+                self._spec_recent.pop(0)
+            if (len(self._spec_recent) >= 4
+                    and (sum(self._spec_recent) / len(self._spec_recent)
+                         < self.gen.spec_min_acceptance)):
+                self._spec_cooldown = self.gen.spec_probe_interval
+                self._spec_recent = self._spec_recent[-2:]
+        # The cache holds tid and the accepted proposals; the rejected tail
+        # past the length is masked.
+        self.cache = cache._replace(length=offset + 1 + accepted)
+        self._host_len = offset + 1 + accepted
+        self._committed_ids.extend(chunk[: 1 + accepted])
+        self._spec_offset = offset
+        self._spec_accepted = accepted
+        self._spec_index = 0
+        self._pending_spec = pending
+        self._next_logits = None
+        return True
+
+    def _emit_spec_token(self) -> Optional[str]:
+        """Pop one buffered speculative token with the semantics of the
+        plain sample-then-commit path."""
+        if (self.gen.speculative == "auto" and self.gen.temperature > 0
+                and self._spec_cooldown > 0):
+            self._spec_cooldown -= 1
+        idx = self._spec_index
+        tid = self._pending_spec[idx]
+        self._spec_index += 1
+        last = self._spec_index >= len(self._pending_spec)
+        in_cache = idx < self._spec_accepted  # the bonus token is not
+
+        if tid == self.tokenizer.eos_id:
+            # The plain path never commits EOS.
+            self._truncate(self._spec_offset + 1 + idx)
+            self._pending_spec = []
+            self._spec_index = 0
+            self._next_logits = None
+            self._done = True
+            return None
+
+        piece = self._piece(tid)
+        self._generated_ids.append(tid)
+        self._generated_text += piece
+        self._n_emitted += 1
+        self._apply_stop_strings()
+
+        if self._done:
+            # Commit this token and drop everything after it.
+            if in_cache:
+                self._truncate(self._spec_offset + 2 + idx)
+            else:
+                self._decode_commit(tid)
+            self._pending_spec = []
+            self._spec_index = 0
+            self._next_logits = None
+        elif last:
+            # The bonus token is not in the cache yet: chain another pass
+            # from it (unless the cooldown forbids) or decode it.
+            self._pending_spec = []
+            self._spec_index = 0
+            if not (self._spec_allowed()
+                    and self._start_speculative_pass(tid)):
+                self._next_logits = self._decode_commit(tid)
+        return piece
+
+    def _drop_pending_spec(self) -> None:
+        """Roll the cache back to exactly the emitted tokens when a reply
+        ends with speculative tokens still buffered."""
+        if not self._pending_spec:
+            return
+        self._truncate(self._spec_offset + 1 + self._spec_index)
+        self._pending_spec = []
+        self._spec_index = 0
+        self._next_logits = None
+
     # ------------------------------------------------------------------
 
     def generate(self, prompt: str, tools: Sequence[ToolDefinition] = (),
@@ -525,7 +826,8 @@ class LLMRunner:
                  response_schema: Optional[Dict[str, Any]] = None,
                  json_mode: bool = False) -> str:
         """Run a full generation, streaming pieces to ``on_token``;
-        ``should_stop`` is polled between tokens."""
+        ``should_stop`` is polled between tokens. ``json_mode`` and
+        ``response_schema`` constrain the reply to (conforming) JSON."""
         self.prepare_generation(prompt, tools, force_tool_call,
                                 response_schema=response_schema,
                                 json_mode=json_mode)
@@ -535,7 +837,9 @@ class LLMRunner:
             if should_stop is not None and should_stop():
                 self._done = True
                 break
-        # An external stop can land with lookahead tokens buffered.
+        # An external stop can land with speculative or lookahead tokens
+        # buffered.
+        self._drop_pending_spec()
         self._drop_pending_lookahead()
         tail = self._flush_text()
         if tail and on_token:
@@ -565,6 +869,7 @@ class LLMRunner:
             self._generated_text = ""
             self._n_emitted = 0
             self._done = False
+            self._grammar = None
             self._utf8 = None
         while (piece := self.generate_next_token()) is not None:
             if on_token:
@@ -580,11 +885,29 @@ class LLMRunner:
         text = f"\nTool {tool_name} returned: {json.dumps(response)}\n"
         self._next_logits = self._extend_ids(self.tokenizer.encode(text))
         self._done = False
+        self._grammar = None
 
     @property
     def generated_ids(self) -> List[int]:
         """Token ids of the current reply, in order (a copy)."""
         return list(self._generated_ids)
+
+    @property
+    def text(self) -> str:
+        return self._generated_text
+
+    def parse_tool_call(self) -> Optional[Dict[str, Any]]:
+        """The reply's tool call as {"name", "arguments"}, or None when the
+        reply is not one."""
+        try:
+            obj = json.loads(self._generated_text)
+            call = obj.get("tool_call")
+            if isinstance(call, dict) and "name" in call:
+                return {"name": call["name"],
+                        "arguments": call.get("arguments", {})}
+        except (json.JSONDecodeError, AttributeError):
+            pass
+        return None
 
     def reset(self) -> None:
         """Clear the conversation."""
@@ -596,9 +919,12 @@ class LLMRunner:
         self._generated_ids = []
         self._generated_text = ""
         self._done = False
+        self._grammar = None
         self._utf8 = None
         self._committed_ids = []
         self._primed_ids = None
+        self._pending_spec = []
+        self._spec_index = 0
         self._la_buf = []
         self._la_idx = 0
         self._la_next = None

@@ -28,6 +28,7 @@ from trackiellm_tpu_torch.ops.attention import (
     decode_attention,
     prefill_attention,
 )
+from trackiellm_tpu_torch.ops.backend import is_cuda
 from trackiellm_tpu_torch.ops.quant import (
     QuantizedLinear,
     quantize_q4,
@@ -273,13 +274,28 @@ def _layer(layers: Dict[str, Any], li: int) -> Dict[str, Any]:
 
 def _linear(x: torch.Tensor, w) -> torch.Tensor:
     """Projection through a QuantizedLinear or a dense (K, N) weight, f32
-    products cast back to x's dtype."""
+    sums cast back to x's dtype. A dense bf16 weight on the card is read as
+    it is stored, with f32 sums (``torch.mm(..., out_dtype=float32)``, the
+    reference's ``preferred_element_type=f32``): an f32 copy of the weight
+    would cost its traffic on every call. The CPU widens both to f32."""
     if isinstance(w, QuantizedLinear):
         return quantized_matmul(x, w).to(x.dtype)
+    if is_cuda(x) and x.dtype == w.dtype == torch.bfloat16:
+        x2 = x.reshape(-1, x.shape[-1])
+        out = torch.mm(x2, w, out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1]).to(x.dtype)
     return torch.matmul(x.float(), w.float()).to(x.dtype)
 
 
 def _rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """f32 RMS norm, cast to x's dtype, then scaled. On the card it is
+    PyTorch's fused RMS norm, which reduces each row in a block of its own:
+    a row gets the same bits whether the call holds one row (a decode step)
+    or sixteen (a verify pass), so greedy speculation keeps plain decode's
+    ids. The unfused f32 mean's order depends on the row count there, and
+    one flipped rounding of a norm can change a greedy token."""
+    if is_cuda(x):
+        return F.rms_norm(x, (x.shape[-1],), eps=eps) * scale
     x32 = x.float()
     ms = x32.square().mean(dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(ms + eps)).to(x.dtype) * scale
@@ -472,13 +488,14 @@ def decode_step(params: Dict[str, Any], cfg: LLMConfig, token,
 @torch.no_grad()
 def extend(params: Dict[str, Any], cfg: LLMConfig, tokens: torch.Tensor,
            n_valid: int, cache: KVCache, attn_len: Optional[int] = None,
-           ) -> Tuple[torch.Tensor, KVCache]:
+           all_logits: bool = False) -> Tuple[torch.Tensor, KVCache]:
     """Append a padded chunk ``tokens`` (B,) after ``cache.length`` in one
     parallel pass (chunked prefill): each chunk query attends to the cached
     prefix and causally within the chunk. K/V rows are written in place;
     padded rows that would fall past S_max are dropped (the valid ones must
-    fit). Returns the logits at the last valid token and the cache at
-    length + n_valid."""
+    fit). Returns the logits at the last valid token, or with
+    ``all_logits`` the (B, V) logits at every chunk position (the
+    speculative verify pass), and the cache at length + n_valid."""
     check_supported(cfg, params)
     offset = cache.length
     b = tokens.shape[0]
@@ -515,9 +532,11 @@ def extend(params: Dict[str, Any], cfg: LLMConfig, tokens: torch.Tensor,
         attn = cache_mix(probs, v_view).reshape(hk, rep, b, hd)
         attn = attn.permute(2, 0, 1, 3).reshape(b, -1)
         x = _layer_tail(x, attn, layer, cfg)
+    final = KVCache(cache.k, cache.v, offset + int(n_valid))
+    if all_logits:
+        return _output_logits(params, cfg, x), final
     x_last = x[max(n_valid - 1, 0)]
-    return (_output_logits(params, cfg, x_last[None])[0],
-            KVCache(cache.k, cache.v, offset + int(n_valid)))
+    return _output_logits(params, cfg, x_last[None])[0], final
 
 
 @torch.no_grad()

@@ -29,8 +29,11 @@ from trackiellm_tpu_torch.ops import _build
 from trackiellm_tpu_torch.ops.backend import is_cuda
 
 DEFAULT_GROUP = 256
-# Largest M the kernels take inside quantized_matmul; above it the product
-# is dequantize-then-matmul, as the JAX package leaves it to XLA.
+# Largest M that quantized_matmul sends to the default Q4 kernel (W4A8,
+# which quantizes the activations to int8). Above it the JAX package
+# computes exact activations times dequantized weights with f32 sums
+# (``quantized_matmul_xla``); on the card the f32a (Q4) and Q8 kernels
+# compute that function, at any M.
 KERNEL_MAX_M = 512
 
 # The C functions of the kernel library that these wrappers launch.
@@ -657,21 +660,26 @@ def quantized_matmul(x: torch.Tensor, qw: QuantizedLinear) -> torch.Tensor:
 
     The JAX package's rule (``trackiellm_tpu/ops/quant.py:562-587``): a CPU
     tensor is dequantize-then-matmul, as the JAX package runs off the TPU.
-    On the device, M > 512 is dequantize-then-matmul and M <= 512 takes a
-    kernel: Q8 weights :func:`q8_matmul`; Q4 weights :func:`q4_matmul_w4a8`,
-    or :func:`q4_matmul_f32a` when ``TRACKIE_Q4_F32A=1``. That variable is
-    read at each call, with the meaning the JAX package gives it at trace
-    time; it chooses between two kernels and never sends a CUDA tensor to a
-    plain version. The JAX package's other levers (``TRACKIE_PALLAS_MAX_M``,
-    ``TRACKIE_PREFILL_XLA_M``, ``TRACKIE_Q4_WIDE_W``) tune TPU tiles or
-    route to the plain path, and are not read."""
+    On the device, Q8 weights take :func:`q8_matmul` at every M. Q4 weights
+    at M <= 512 take :func:`q4_matmul_w4a8`, or :func:`q4_matmul_f32a` when
+    ``TRACKIE_Q4_F32A=1``; above 512 rows they take :func:`q4_matmul_f32a`
+    whatever the variable says, since the JAX package's route there
+    (``quantized_matmul_xla``) multiplies the exact activations by the
+    dequantized weights with f32 sums, the function f32a and Q8 compute,
+    and never quantizes the activations. The variable is read at each
+    call, with the meaning the JAX package gives it at trace time; no
+    route sends a CUDA tensor to a plain version. The JAX package's other
+    levers (``TRACKIE_PALLAS_MAX_M``, ``TRACKIE_PREFILL_XLA_M``,
+    ``TRACKIE_Q4_WIDE_W``) tune TPU tiles or route to the plain path, and
+    are not read."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if not is_cuda(x2) or x2.shape[0] > KERNEL_MAX_M:
+    if not is_cuda(x2):
         out = quantized_matmul_ref(x2, qw)
     elif qw.values.dtype == torch.int8:
         out = q8_matmul(x2, qw.values, qw.scales)
-    elif os.environ.get("TRACKIE_Q4_F32A") == "1":
+    elif (x2.shape[0] > KERNEL_MAX_M
+          or os.environ.get("TRACKIE_Q4_F32A") == "1"):
         out = q4_matmul_f32a(x2, qw.values, qw.scales)
     else:
         out = q4_matmul_w4a8(x2, qw.values, qw.scales)

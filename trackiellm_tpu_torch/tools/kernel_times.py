@@ -49,6 +49,10 @@ from a CUDA graph. ``decode`` runs ``chip_smoke.py``'s phase-5 profile
 window (Mistral-7B, 32 layers, random Q4 weights, default routes) once to
 warm up and once to keep: wall, device busy, idle share, launches and the
 copy and cast kernels of the bucket-512 prefill and of a decode token.
+``prefill`` times a bucket-1024 prefill of the same model at max_seq 2048
+(``chip_smoke.py``'s phase-10 long prompt, 600-1000 tokens, on a fresh
+cache each time): its wall ms three times after one warm-up, then one
+profile (device busy, launches, the largest kernels).
 
 ``--only`` picks row sets (default: all). Prints the card line, then one
 JSON line. To compare two checkouts, run the tool on each, alternating (A,
@@ -67,6 +71,7 @@ import math
 import os
 import pathlib
 import sys
+import time
 
 import torch
 
@@ -77,7 +82,7 @@ STREAM_SWEEP_N = (16, 32, 64, 128)
 STREAM_SWEEP_K = (256, 512, 1024)
 STREAM_SWEPT = ("wo", "w_gu")
 ROW_SETS = ("main", "fused", "q8", "f32a", "w4a8_tiles", "stream", "grid64",
-            "chain", "decode")
+            "chain", "decode", "prefill")
 CHAIN_REPS = 50   # chains back to back in the event and host spans
 
 
@@ -399,6 +404,37 @@ def decode_times(cs, llm, dev) -> dict:
                                           cfg)}
 
 
+def prefill_times(cs, llm, dev) -> dict:
+    """A bucket-1024 prefill (phase 10's long prompt) of Mistral-7B with
+    random Q4 weights at max_seq 2048, on a fresh cache each time."""
+    from trackiellm_tpu_torch.llm import runner, tokenizer
+    cfg = llm.LLMConfig.mistral_7b()._replace(max_seq=cs.SLICE10_MAX_SEQ)
+    params = cs.build_model(dev, llm, cfg, 4)
+    r = runner.LLMRunner(
+        params, cfg, tokenizer.ByteTokenizer(cfg.vocab_size),
+        runner.GenerationConfig(max_tokens=1, temperature=0.0,
+                                speculative=False), device=dev)
+    prompt = cs.long_prompt(r)
+    wall = []
+    for i in range(4):
+        r.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.prepare_generation(prompt)
+        torch.cuda.synchronize()
+        if i:   # the first is the warm-up
+            wall.append((time.perf_counter() - t0) * 1e3)
+    r.reset()
+    torch.cuda.synchronize()
+    busy, n, by_name = cs.device_breakdown(lambda: r.prepare_generation(
+        prompt))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    return {"prefill 1024": {
+        "tokens": r.count_tokens(prompt) + 1, "wall_ms": wall,
+        "busy_ms": busy, "launches": n,
+        "top": [[k[:80], ms, c] for k, (ms, c) in top]}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=pathlib.Path, default=CHECKOUT,
@@ -455,6 +491,8 @@ def main(argv=None) -> int:
         result.update(chain_times(cs, diag, dev, gen))
     if "decode" in only:
         result.update(decode_times(cs, llm, dev))
+    if "prefill" in only:
+        result.update(prefill_times(cs, llm, dev))
     print(json.dumps(result), flush=True)
     return 0
 
