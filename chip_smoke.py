@@ -63,8 +63,16 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      600-1000-token prompt (bucket 1024), which must take the f32a kernel
      and never the plain path; the verify pass
      (``extend(all_logits=True)``, 16 rows) against 16 decode steps; its
-     numbers as one ``{"slice10": ...}`` line.
-Phases 5-10 zero every launch counter just before they drive their path and
+     numbers as one ``{"slice10": ...}`` line;
+ 11. GGUF to reply: a llama.cpp GGUF of Mistral-7B at its published widths
+     cut to 4 layers, at the Q4_K_M mix (seeded random Q4_K and Q6_K blocks,
+     F32 norms, a 32,000-piece SentencePiece vocabulary), written by this
+     script; ``inspect`` names it, ``convert --bits 4`` requantizes it on
+     the card into a checkpoint whose config, tokenizer and layer-0 and
+     head bytes equal the CPU's requantization (Q8 too), and ``generate``
+     answers from it through W4A8 and flash; its times and sizes as one
+     ``{"gguf": ...}`` line.
+Phases 5-11 zero every launch counter just before they drive their path and
 read them just after: the path's kernels must have launched, and the routes
 it does not take must not have (no serving path launches the streaming Q4
 or a probe; phase 9 must launch all four). In phases 5-7 greedy text must
@@ -80,11 +88,14 @@ import io
 import json
 import math
 import os
+import resource
+import struct
 import subprocess
 import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 SEED = 1234
@@ -170,6 +181,24 @@ SPEC_TOKENS = 48     # tokens of each speculation request
 SLICE10_MAX_SEQ = 2048
 LONG_PROMPT = (600, 1000)
 VERIFY_ROWS = 16     # the verify pass's extend bucket
+# Phase 11: a llama.cpp GGUF of Mistral-7B at its published widths, cut to
+# GGUF_LAYERS layers (the whole model's conversion is
+# trackiellm_tpu_torch/tools/convert_times.py), at llama.cpp's Q4_K_M mix:
+# Q4_K for the embeddings, q, k, the attention output, gate and up; Q6_K
+# for v, down and the output head; F32 norms.
+GGUF_LAYERS = 4
+GGML_F32, GGML_F16, GGML_Q4_K, GGML_Q6_K = 0, 1, 12, 14
+# ggml type -> (elements a block, bytes a block, byte offset of the block's
+# f16 d, of its f16 dmin or None, and the range d is drawn from). Q4_K's
+# dmin is 7.5 d, so that random nibbles and scales give weights about 0
+# (the mean scale times the mean nibble).
+GGML_BLOCKS = {GGML_Q4_K: (256, 144, 0, 2, (5e-5, 1e-4)),
+               GGML_Q6_K: (256, 210, 208, None, (1e-5, 2e-5))}
+Q4_K_M = {"token_embd": GGML_Q4_K, "output": GGML_Q6_K,
+          "attn_q": GGML_Q4_K, "attn_k": GGML_Q4_K, "attn_v": GGML_Q6_K,
+          "attn_output": GGML_Q4_K, "ffn_gate": GGML_Q4_K,
+          "ffn_up": GGML_Q4_K, "ffn_down": GGML_Q6_K}
+GGUF_TOKENS = 32     # tokens of phase 11's generate
 
 
 def log(msg: str) -> None:
@@ -682,9 +711,9 @@ class LogitWatch:
         return len(self.flags)
 
 
-def request(runner, prompt: str, tag: str) -> str:
+def request(runner, prompt: str, tag: str) -> dict:
     """One request through the streaming session API, timed in two parts:
-    prompt ingestion (prefill) and decode."""
+    prompt ingestion (prefill) and decode; returns the numbers it logs."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     runner.prepare_generation(prompt)
@@ -703,7 +732,9 @@ def request(runner, prompt: str, tag: str) -> str:
         f"{len(text.encode())} decode_tok_s={n_out / (t2 - t1):.2f}")
     if n_out == 0:
         raise AssertionError(f"request {tag} generated nothing")
-    return text
+    return {"prompt_tokens": n_prompt, "prefill_ms": (t1 - t0) * 1e3,
+            "tokens": n_out, "decode_ms_per_token": (t2 - t1) * 1e3 / n_out,
+            "decode_tok_s": n_out / (t2 - t1)}
 
 
 def _flat(tree, prefix=""):
@@ -805,6 +836,46 @@ def drive(dev, llm, runner_mod, tokenizer_mod, params, cfg, counters,
     return launches
 
 
+# The kernels that each main-path wrapper launches, one a call, by the
+# names the profiler gives them (substrings of its keys).
+PROFILED_KERNELS = {
+    "q4_matmul_w4a8": ("q4_w4a8_kernel",),
+    "quantize_activations": ("quantize_act_kernel",),
+    "flash_attention": ("flash_mma_kernel", "flash_fwd_kernel"),
+    "q8_matmul": ("q8_mma_kernel", "q8_fma_kernel"),
+    "q4_matmul_f32a": ("q4_f32a_mma_kernel", "q4_f32a_fma_kernel"),
+    "fused_mlp_q4": ("fused_mlp_q4_kernel",),
+}
+
+
+def launch_counters() -> dict:
+    """Every kernel wrapper by name: each counts its launches in
+    ``launches``."""
+    from trackiellm_tpu_torch.ops import attention, diag, fused, quant
+    return {"q4_matmul_w4a8": quant.q4_matmul_w4a8,
+            "quantize_activations": quant.quantize_activations,
+            "flash_attention": attention.flash_attention,
+            "q8_matmul": quant.q8_matmul,
+            "q4_matmul_f32a": quant.q4_matmul_f32a,
+            "fused_mlp_q4": fused.fused_mlp_q4,
+            "q4_matmul_stream": quant.q4_matmul_stream,
+            "stream": diag.stream, "grid64": diag.grid64,
+            "chain_tiny": diag.chain_tiny}
+
+
+def missed_launches(by_name, counted):
+    """None when a profile (``by_name``: kernel name -> (ms, count)) shows
+    as many launches of each main-path wrapper's kernels as its counter
+    rose by in the window (``counted``); else what it missed."""
+    missed = []
+    for wrapper, names in PROFILED_KERNELS.items():
+        seen = sum(n for key, (_, n) in by_name.items()
+                   if any(name in key for name in names))
+        if seen != counted.get(wrapper, 0):
+            missed.append(f"{wrapper} {seen} of {counted.get(wrapper, 0)}")
+    return "profiler saw " + ", ".join(missed) if missed else None
+
+
 def profile_path(dev, runner_mod, tokenizer_mod, params, cfg) -> dict:
     """The breakdown of phases 5 (Q4) and 6 (Q8), on fresh runners: the
     cortex prompt's prefill (bucket 512), then PROFILE_TOKENS greedy decode
@@ -812,10 +883,15 @@ def profile_path(dev, runner_mod, tokenizer_mod, params, cfg) -> dict:
     Each window runs once on the host clock (wall) and once under the
     profiler (device busy ms, launches, the largest costs by kernel, and
     the copy and cast kernels, whose names hold "copy"); the idle share is
-    1 - busy / wall."""
+    1 - busy / wall. A profile must show every launch the wrappers counted
+    in its window, by kernel name; one that misses some is taken again on
+    a fresh runner, up to PROFILE_RETRIES times, and a window that never
+    shows them all keeps its wall and a ``partial`` note, and no device
+    numbers."""
     tok = tokenizer_mod.ByteTokenizer(cfg.vocab_size)
     gen = runner_mod.GenerationConfig(max_tokens=PROFILE_TOKENS,
                                       temperature=0.0, speculative=False)
+    counters = launch_counters()
 
     def windows():
         runner = runner_mod.LLMRunner(params, cfg, tok, gen, device=dev)
@@ -836,11 +912,24 @@ def profile_path(dev, runner_mod, tokenizer_mod, params, cfg) -> dict:
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - t0) * 1e3)
     tokens = len(runner.generated_ids)
-    _, fns = windows()
     out = {}
-    for name, fn, ms, per in zip(("prefill", "decode"), fns, wall,
-                                 (1, max(tokens, 1))):
-        busy, n, by_name = device_breakdown(fn)
+    for i, name, ms, per in zip((0, 1), ("prefill", "decode"), wall,
+                                (1, max(tokens, 1))):
+        for _ in range(1 + PROFILE_RETRIES):
+            _, fns = windows()
+            for fn in fns[:i]:  # the decode window follows its prefill
+                fn()
+            before = {k: f.launches for k, f in counters.items()}
+            busy, n, by_name = device_breakdown(fns[i])
+            note = missed_launches(by_name, {
+                k: f.launches - before[k] for k, f in counters.items()})
+            if note is None:
+                break
+        if note is not None:
+            out[name] = {"wall_ms": ms / per, "partial": note}
+            log(f"  profile {name}: partial after {PROFILE_RETRIES} "
+                f"retries, {note}")
+            continue
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
         copies = {k[:80]: [t / per, c / per] for k, (t, c) in by_name.items()
                   if "copy" in k}
@@ -850,13 +939,11 @@ def profile_path(dev, runner_mod, tokenizer_mod, params, cfg) -> dict:
             "top": [[k[:80], t / per, c / per] for k, (t, c) in top],
             "copy_ms": sum(t for t, _ in copies.values()),
             "copies": copies}
+        log(f"  profile {name}: wall {out[name]['wall_ms']:.2f} ms busy "
+            f"{out[name]['busy_ms']:.2f} ms, {out[name]['launches']:.0f} "
+            f"launches (copies and casts {out[name]['copy_ms']:.2f} ms)"
+            + (f" per token over {tokens} tokens" if i else ""))
     out["decode"]["tokens"] = tokens
-    log(f"  profile: prefill wall {out['prefill']['wall_ms']:.2f} ms busy "
-        f"{out['prefill']['busy_ms']:.2f} ms; decode {tokens} tokens, per "
-        f"token wall {out['decode']['wall_ms']:.2f} ms busy "
-        f"{out['decode']['busy_ms']:.2f} ms (copies and casts "
-        f"{out['decode']['copy_ms']:.2f} ms), "
-        f"{out['decode']['launches']:.0f} launches")
     return out
 
 
@@ -886,6 +973,393 @@ def spm_spec(vocab_size: int) -> dict:
                                              for i in range(len(words))],
             "token_types": [2, 3, 3] + [6] * 256 + [1] * len(words),
             "pad_id": 0, "add_space_prefix": True}
+
+
+def _gguf_str(text: str) -> bytes:
+    data = text.encode("utf-8")
+    return struct.pack("<Q", len(data)) + data
+
+
+# numpy scalar dtype -> GGUF metadata value type
+_GGUF_KV_TYPES = {"uint8": 0, "int8": 1, "uint16": 2, "int16": 3,
+                  "uint32": 4, "int32": 5, "float32": 6, "bool": 7,
+                  "uint64": 10, "int64": 11, "float64": 12}
+
+
+def _gguf_kv(value) -> bytes:
+    """One metadata value with its type: a numpy scalar as its dtype, a
+    bool, a str, an int (uint32, or int32 below 0), a float (f32), or a list
+    of str, int (int32) or float (f32)."""
+    if isinstance(value, np.generic):
+        return (struct.pack("<I", _GGUF_KV_TYPES[value.dtype.name])
+                + value.astype(value.dtype.newbyteorder("<")).tobytes())
+    if isinstance(value, bool):
+        return struct.pack("<I?", 7, value)
+    if isinstance(value, str):
+        return struct.pack("<I", 8) + _gguf_str(value)
+    if isinstance(value, int):
+        return struct.pack("<Ii" if value < 0 else "<II",
+                           5 if value < 0 else 4, value)
+    if isinstance(value, float):
+        return struct.pack("<If", 6, value)
+    if isinstance(value, (list, tuple)):
+        head = struct.pack("<I", 9)
+        if all(isinstance(x, str) for x in value):
+            return (head + struct.pack("<IQ", 8, len(value))
+                    + b"".join(_gguf_str(x) for x in value))
+        if all(isinstance(x, int) for x in value):
+            return (head + struct.pack("<IQ", 5, len(value))
+                    + np.asarray(value, "<i4").tobytes())
+        if all(isinstance(x, float) for x in value):
+            return (head + struct.pack("<IQ", 6, len(value))
+                    + np.asarray(value, "<f4").tobytes())
+    raise TypeError(f"no GGUF metadata type for {value!r}")
+
+
+def write_gguf(path: str, tensors, metadata, align: int = 32) -> int:
+    """Write a GGUF v3 file; returns its size in bytes. ``tensors``:
+    {name: (array, GGML_F32 or GGML_F16)}, or {name: (raw uint8 blocks,
+    ggml type, shape)}, shapes outermost first as numpy has them;
+    ``metadata``: {key: value} as ``_gguf_kv`` takes it. Each tensor is
+    written whole (a full-width model cannot wait for a writer that
+    quantizes block by block in Python); the same tensors and metadata give
+    the bytes of ``tests/test_loader.py:write_gguf``."""
+    head = [b"GGUF", struct.pack("<IQQ", 3, len(tensors), len(metadata))]
+    for key, value in metadata.items():
+        head += [_gguf_str(key), _gguf_kv(value)]
+    blobs, offset = [], 0
+    for name, spec in tensors.items():
+        if len(spec) == 3:
+            raw, gtype, shape = spec
+            data = np.ascontiguousarray(raw, np.uint8)
+        else:
+            arr, gtype = spec
+            shape = arr.shape
+            data = np.ascontiguousarray(
+                arr, {GGML_F32: "<f4", GGML_F16: "<f2"}[gtype])
+        dims = tuple(reversed(shape))  # GGUF stores innermost first
+        head += [_gguf_str(name), struct.pack(f"<I{len(dims)}QIQ", len(dims),
+                                              *dims, gtype, offset)]
+        blobs.append(data)
+        offset += -(-data.nbytes // align) * align
+    header = b"".join(head)
+    with open(path, "wb") as f:
+        f.write(header + b"\0" * (-len(header) % align))
+        for data in blobs:
+            f.write(memoryview(data.reshape(-1).view(np.uint8)))
+            f.write(b"\0" * (-data.nbytes % align))
+    return os.path.getsize(path)
+
+
+def kquant_blocks(rng, gtype: int, shape) -> np.ndarray:
+    """Seeded random raw blocks (uint8) of a ``gtype`` tensor of ``shape``,
+    with each block's f16 d (and dmin) small and finite."""
+    per, nbytes, d_at, dmin_at, d_range = GGML_BLOCKS[gtype]
+    n = math.prod(shape) // per
+    raw = rng.integers(0, 256, (n, nbytes), dtype=np.uint8)
+    d = rng.uniform(*d_range, n).astype("<f2")
+    raw[:, d_at:d_at + 2] = d.view(np.uint8).reshape(n, 2)
+    if dmin_at is not None:
+        dmin = (d.astype(np.float32) * 7.5).astype("<f2")
+        raw[:, dmin_at:dmin_at + 2] = dmin.view(np.uint8).reshape(n, 2)
+    return raw.reshape(-1)
+
+
+def mistral_gguf(cfg, spec: dict, seed: int):
+    """(tensors, metadata) of a llama-arch GGUF of ``cfg``'s shapes at
+    llama.cpp's Q4_K_M mix, as ``write_gguf`` takes them: seeded random
+    raw blocks for the matrices, F32 norms about 1, and the SentencePiece
+    vocabulary of ``spec`` (pieces, scores, token types, add_space_prefix)
+    in the tokenizer keys llama.cpp writes."""
+    rng = np.random.default_rng(seed)
+    qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    shapes = {"attn_q": (qd, cfg.dim), "attn_k": (kvd, cfg.dim),
+              "attn_v": (kvd, cfg.dim), "attn_output": (cfg.dim, qd),
+              "ffn_gate": (cfg.hidden_dim, cfg.dim),
+              "ffn_up": (cfg.hidden_dim, cfg.dim),
+              "ffn_down": (cfg.dim, cfg.hidden_dim)}
+
+    def quantized(kind, shape):
+        return kquant_blocks(rng, Q4_K_M[kind], shape), Q4_K_M[kind], shape
+
+    def norm():
+        return (1.0 + 0.1 * rng.standard_normal(cfg.dim, np.float32),
+                GGML_F32)
+    tensors = {"token_embd.weight": quantized(
+        "token_embd", (cfg.vocab_size, cfg.dim))}
+    for i in range(cfg.n_layers):
+        tensors[f"blk.{i}.attn_norm.weight"] = norm()
+        tensors[f"blk.{i}.ffn_norm.weight"] = norm()
+        for kind, shape in shapes.items():
+            tensors[f"blk.{i}.{kind}.weight"] = quantized(kind, shape)
+    tensors["output_norm.weight"] = norm()
+    tensors["output.weight"] = quantized("output", (cfg.vocab_size, cfg.dim))
+    metadata = {
+        "general.architecture": "llama",
+        "general.name": "mistral-7b random Q4_K_M",
+        "general.file_type": 15,  # llama.cpp's LLAMA_FTYPE_MOSTLY_Q4_K_M
+        "llama.context_length": cfg.max_seq,
+        "llama.embedding_length": cfg.dim,
+        "llama.block_count": cfg.n_layers,
+        "llama.feed_forward_length": cfg.hidden_dim,
+        "llama.rope.dimension_count": cfg.head_dim,
+        "llama.attention.head_count": cfg.n_heads,
+        "llama.attention.head_count_kv": cfg.n_kv_heads,
+        # f64 (GGUF type 12), so the config reads back 1e-5 exactly.
+        "llama.attention.layer_norm_rms_epsilon": np.float64(cfg.norm_eps),
+        "llama.rope.freq_base": float(cfg.rope_theta),
+        "tokenizer.ggml.model": "llama",
+        "tokenizer.ggml.tokens": spec["tokens"],
+        "tokenizer.ggml.scores": spec["scores"],
+        "tokenizer.ggml.token_type": spec["token_types"],
+        "tokenizer.ggml.bos_token_id": 1,
+        "tokenizer.ggml.eos_token_id": 2,
+        "tokenizer.ggml.unknown_token_id": 0,
+        "tokenizer.ggml.padding_token_id": spec["pad_id"],
+        "tokenizer.ggml.add_space_prefix": spec["add_space_prefix"],
+    }
+    return tensors, metadata
+
+
+def _peak_rss() -> int:
+    """This process's peak resident bytes so far (``ru_maxrss``, in KiB on
+    Linux). Linux carries it across exec from the forking parent, so a
+    process measured alone is started by a small one
+    (``tools/convert_times.py``)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+@contextlib.contextmanager
+def conversion_timer(convert, cli):
+    """Host seconds of a conversion inside the block, by part: reading and
+    dequantizing GGML tensors (by tensor name), requantizing on the device
+    (by call, synchronized), and saving the checkpoint; and where the
+    process's peak resident bytes grew, by 256 MiB or more, as [what had
+    just run, bytes]. Yields the dict they go into; the patched functions
+    are restored after."""
+    split = {"dequant": {}, "requant": [], "save": 0.0,
+             "peak_rss": [["start", _peak_rss()]]}
+    saved = {name: getattr(convert, name) for name in
+             ("load_gguf_tensor", "quantize_q4", "quantize_q8")}
+    save = cli.save_checkpoint
+
+    def peak(after: str) -> None:
+        rss = _peak_rss()
+        if rss >= split["peak_rss"][-1][1] + 2 ** 28:
+            split["peak_rss"].append([after, rss])
+
+    def dequant(gguf, name):
+        t0 = time.perf_counter()
+        try:
+            return saved["load_gguf_tensor"](gguf, name)
+        finally:
+            split["dequant"][name] = (split["dequant"].get(name, 0.0)
+                                      + time.perf_counter() - t0)
+            peak(name)
+
+    def requant(fn):
+        def timed(w, group):
+            t0 = time.perf_counter()
+            q = fn(w, group)
+            if q.values.is_cuda:
+                torch.cuda.synchronize()
+            split["requant"].append(time.perf_counter() - t0)
+            peak(f"requantization {len(split['requant'])}")
+            return q
+        return timed
+
+    def timed_save(*args, **kwargs):
+        t0 = time.perf_counter()
+        save(*args, **kwargs)
+        split["save"] += time.perf_counter() - t0
+        peak("save")
+    convert.load_gguf_tensor = dequant
+    convert.quantize_q4 = requant(saved["quantize_q4"])
+    convert.quantize_q8 = requant(saved["quantize_q8"])
+    cli.save_checkpoint = timed_save
+    try:
+        yield split
+    finally:
+        for name, fn in saved.items():
+            setattr(convert, name, fn)
+        cli.save_checkpoint = save
+
+
+def conversion_split(split: dict, total_s: float, layers: int) -> dict:
+    """``conversion_timer``'s seconds as totals and per layer: the layers'
+    dequantization and requantization (four matrices a layer, in order
+    before the head's), and the rest of the total."""
+    layer_dequant = sum(t for name, t in split["dequant"].items()
+                        if name.startswith("blk."))
+    layer_requant = sum(split["requant"][:4 * layers])
+    dequant, requant = (sum(split["dequant"].values()),
+                        sum(split["requant"]))
+    return {"total_s": total_s, "dequant_s": dequant, "requant_s": requant,
+            "save_s": split["save"],
+            "peak_rss_steps": split["peak_rss"],
+            "other_s": total_s - dequant - requant - split["save"],
+            "layer_dequant_s": layer_dequant / layers,
+            "layer_requant_s": layer_requant / layers}
+
+
+def run_cli(cli, argv):
+    """``python -m trackiellm_tpu_torch`` in-process: (exit code, printed
+    text, seconds)."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    return rc, out.getvalue(), time.perf_counter() - t0
+
+
+def _same_bytes(a: torch.Tensor, b: torch.Tensor) -> bool:
+    a, b = a.detach().cpu().contiguous(), b.detach().cpu().contiguous()
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.view(torch.uint8), b.view(torch.uint8)))
+
+
+def check_conversion(dev, convert, quant, path: str, params) -> int:
+    """Layer 0's four matrices and lm_head of a Q4 conversion on the card
+    against the CPU's requantization of the same dequantized tensors, byte
+    for byte; the same for Q8 (``quantize_q8`` on the card and the CPU);
+    and the bf16 embeddings and norms against the CPU's cast. Returns the
+    tensors compared."""
+    ref, _ = convert.gguf_to_llm_params(path, bits=None, dtype=torch.float32,
+                                        max_layers=1,
+                                        device=torch.device("cpu"))
+    mats = {name: (params["layers"][name].values[0],
+                   params["layers"][name].scales[0],
+                   ref["layers"][name][0])
+            for name in ("wqkv", "wo", "w_gu", "w_down")}
+    mats["lm_head"] = (*params["lm_head"], ref["lm_head"])
+    n = 0
+    for name, (values, scales, w) in mats.items():
+        cpu = quant.quantize_q4(w, GROUP)
+        card8, cpu8 = quant.quantize_q8(w.to(dev), GROUP), quant.quantize_q8(
+            w, GROUP)
+        for kind, a, b in (("Q4 values", values, cpu.values),
+                           ("Q4 scales", scales, cpu.scales),
+                           ("Q8 values", card8.values, cpu8.values),
+                           ("Q8 scales", card8.scales, cpu8.scales)):
+            if not _same_bytes(a, b):
+                raise AssertionError(f"phase 11: {name} {kind} from the card "
+                                     "differ from the CPU's")
+            n += 1
+    for name, a, b in (
+            ("tok_emb", params["tok_emb"], ref["tok_emb"]),
+            ("attn_norm", params["layers"]["attn_norm"][0],
+             ref["layers"]["attn_norm"][0]),
+            ("out_norm", params["out_norm"], ref["out_norm"])):
+        if not _same_bytes(a, b.to(torch.bfloat16)):
+            raise AssertionError(f"phase 11: {name} in bf16 differs from the "
+                                 "CPU's cast")
+        n += 1
+    return n
+
+
+def phase_gguf(dev, cfg, llm, convert, checkpoint, quant, tokenizer_mod,
+               cli, counters) -> dict:
+    """Phase 11: a llama.cpp GGUF to a reply on the card, through the
+    CLI's commands in-process: a Q4_K_M file of ``cfg`` (Mistral-7B cut to
+    GGUF_LAYERS layers); (a) ``inspect`` names its arch and tensor count, and
+    its header the mix's GGML types; (b) ``convert --bits 4`` on the card:
+    the config is ``cfg``, the tokenizer spec the
+    file's vocabulary, and ``check_conversion`` holds the bytes to the
+    CPU's; (c) ``generate`` on the checkpoint: text, W4A8 with its
+    quantization and flash launched (a prompt of bucket 256 or 512), the
+    plain matmul never run, every logit finite. Returns the times and
+    sizes; every counter is zeroed just before (c) and read just after."""
+    from trackiellm_tpu_torch.models import loader
+    start = time.perf_counter()
+    spec = spm_spec(cfg.vocab_size)
+    out = {"layers": cfg.n_layers}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gguf_") as tmp:
+        path, ckpt = os.path.join(tmp, "mistral.gguf"), os.path.join(
+            tmp, "ckpt")
+        t0 = time.perf_counter()
+        tensors, metadata = mistral_gguf(cfg, spec, SEED)
+        out["file_bytes"] = write_gguf(path, tensors, metadata)
+        out["write_s"] = time.perf_counter() - t0
+        types = {name: spec_[1] for name, spec_ in tensors.items()}
+        del tensors
+        log(f"  GGUF: {out['file_bytes'] / 1e9:.3f} GB, {len(types)} "
+            f"tensors, written in {out['write_s']:.1f} s")
+
+        rc, text, out["inspect_s"] = run_cli(cli, ["inspect", path])
+        info = json.loads(text)
+        header = loader.read_gguf_header(path)
+        if (rc != 0 or info.get("architecture") != "llama"
+                or info.get("n_tensors") != len(types)
+                or {n: t.ggml_type for n, t in header.tensors.items()}
+                != types):
+            raise AssertionError(f"phase 11: inspect gave {info} (exit {rc})")
+        log(f"  inspect: {info} in {out['inspect_s']:.2f} s; header types "
+            "are the Q4_K_M mix")
+
+        with conversion_timer(convert, cli) as split:
+            rc, text, total = run_cli(
+                cli, ["convert", path, "-o", ckpt, "--bits", "4"])
+        if rc != 0:
+            raise AssertionError(f"phase 11: convert exited {rc}: {text}")
+        out["convert"] = conversion_split(split, total, cfg.n_layers)
+        out["checkpoint_bytes"] = sum(
+            os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
+        t0 = time.perf_counter()
+        params, lcfg, meta = checkpoint.load_checkpoint(ckpt, device=dev)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        if lcfg != cfg:
+            raise AssertionError(f"phase 11: converted config {lcfg}")
+        if meta.get("tokenizer_spec") != spec or meta.get("bits") != 4:
+            raise AssertionError("phase 11: the checkpoint's tokenizer spec "
+                                 "is not the file's vocabulary")
+        t0 = time.perf_counter()
+        out["bytes_checked"] = check_conversion(dev, convert, quant, path,
+                                                params)
+        out["check_s"] = time.perf_counter() - t0
+        del params
+        log(f"  convert --bits 4: {json.dumps(out['convert'])}; checkpoint "
+            f"{out['checkpoint_bytes'] / 1e9:.3f} GB, load "
+            f"{out['load_s']:.2f} s; config, tokenizer spec and "
+            f"{out['bytes_checked']} tensors equal to the CPU's (checked in "
+            f"{out['check_s']:.1f} s)")
+
+        prompt = f"{SYSTEM} {CONTEXT}"
+        n_prompt = len(tokenizer_mod.tokenizer_from_spec(spec).encode(
+            prompt)) + 1
+        if not 128 < n_prompt <= 512:
+            raise AssertionError(f"phase 11: the prompt is {n_prompt} tokens")
+        plain_calls = []
+        plain = quant.quantized_matmul_ref
+        quant.quantized_matmul_ref = (
+            lambda *a: plain_calls.append(1) or plain(*a))
+        for fn in counters.values():
+            fn.launches = 0
+        watch = LogitWatch(llm)
+        try:
+            rc, text, out["generate_s"] = run_cli(
+                cli, ["generate", ckpt, "-p", prompt, "--max-tokens",
+                      str(GGUF_TOKENS)])
+        finally:
+            quant.quantized_matmul_ref = plain
+            n_logits = watch.close()
+    out["launches"] = {name: fn.launches for name, fn in counters.items()}
+    out["phase_s"] = time.perf_counter() - start
+    log(f"  generate ({n_prompt} prompt tokens): exit {rc} in "
+        f"{out['generate_s']:.2f} s, {n_logits} finite logit vectors, "
+        f"printed {text[:60]!r}; launches: {out['launches']}")
+    if rc != 0 or not text.strip():
+        raise AssertionError(f"phase 11: generate exited {rc} and printed "
+                             f"{text!r}")
+    if plain_calls:
+        raise AssertionError(f"phase 11: quantized_matmul_ref ran "
+                             f"{len(plain_calls)} times")
+    expect_routes(out["launches"], ("q4_matmul_w4a8", "quantize_activations",
+                                    "flash_attention"),
+                  ("q8_matmul", "q4_matmul_f32a", "fused_mlp_q4",
+                   *DIAGNOSTIC), "phase 11")
+    return out
 
 
 def phase_entry(dev, llm, checkpoint, cli, counters):
@@ -919,15 +1393,10 @@ def phase_entry(dev, llm, checkpoint, cli, counters):
         del loaded, got
         for fn in counters.values():
             fn.launches = 0
-        out = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            rc = cli.main(["generate", ckpt, "-p",
-                           "descreva a cena a sua frente", "--max-tokens",
-                           "32"])
-        elapsed = time.perf_counter() - t0
+        rc, text, elapsed = run_cli(cli, ["generate", ckpt, "-p",
+                                          "descreva a cena a sua frente",
+                                          "--max-tokens", "32"])
     launches = {name: fn.launches for name, fn in counters.items()}
-    text = out.getvalue()
     log(f"  generate: exit {rc} in {elapsed:.2f} s, printed {len(text)} "
         f"chars {text[:60]!r}; launches: {launches}")
     if rc != 0 or not text.strip():
@@ -1318,18 +1787,10 @@ def main() -> int:
     from trackiellm_tpu_torch import __main__ as cli
     from trackiellm_tpu_torch.llm import runner as runner_mod
     from trackiellm_tpu_torch.llm import tokenizer as tokenizer_mod
-    from trackiellm_tpu_torch.models import checkpoint, llm
+    from trackiellm_tpu_torch.models import checkpoint, convert, llm
     from trackiellm_tpu_torch.ops import _build, attention, diag, fused, quant
 
-    counters = {"q4_matmul_w4a8": quant.q4_matmul_w4a8,
-                "quantize_activations": quant.quantize_activations,
-                "flash_attention": attention.flash_attention,
-                "q8_matmul": quant.q8_matmul,
-                "q4_matmul_f32a": quant.q4_matmul_f32a,
-                "fused_mlp_q4": fused.fused_mlp_q4,
-                "q4_matmul_stream": quant.q4_matmul_stream,
-                "stream": diag.stream, "grid64": diag.grid64,
-                "chain_tiny": diag.chain_tiny}
+    counters = launch_counters()
     t0 = time.perf_counter()
     path = _build.build()
     _build.library()
@@ -1391,6 +1852,13 @@ def main() -> int:
                                  "flash_attention", "q4_matmul_f32a"),
                   ("q8_matmul", "fused_mlp_q4", *DIAGNOSTIC), "phase 10")
     del params4
+    log(f"phase 11 GGUF to reply (Mistral-7B width, {GGUF_LAYERS} layers, "
+        "Q4_K_M file, convert --bits 4, generate):")
+    gguf = phase_gguf(
+        dev, llm.LLMConfig.mistral_7b()._replace(n_layers=GGUF_LAYERS), llm,
+        convert, checkpoint, quant, tokenizer_mod, cli, counters)
+    launches[11] = gguf.pop("launches")
+    log(json.dumps({"gguf": gguf}))
 
     smi = nvidia_smi()
     print(json.dumps({"slice10": slice10, "card": smi}), flush=True)

@@ -289,3 +289,90 @@ def test_slice10_on_the_cpu(monkeypatch, capsys):
     got = cs.verify_pass(torch.device("cpu"), llm, params, cfg,
                          tokenizer.ByteTokenizer(cfg.vocab_size))
     assert got["argmax_equal"] == cs.VERIFY_ROWS and got["rel_l2"] < 1e-4
+
+
+def _tiny_profile_model():
+    from trackiellm_tpu_torch.models import llm
+    cfg = llm.LLMConfig.tiny()._replace(max_seq=512, sliding_window=512)
+    return cfg, llm.init_params_quantized(torch.Generator().manual_seed(1),
+                                          cfg, group=64, dtype=torch.float32)
+
+
+def test_profile_path_checks_the_launch_count(monkeypatch):
+    """profile_path's windows against a fake profiler that sees 10 W4A8
+    launches less the window's drop: a window that misses launches is
+    profiled again on a fresh runner; one that misses them every time
+    keeps its wall and a ``partial`` note, and no busy time or launches."""
+    from trackiellm_tpu_torch.llm import runner, tokenizer
+    from trackiellm_tpu_torch.ops import quant
+    cs = _load()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(quant.q4_matmul_w4a8, "launches", 0)
+    cfg, params = _tiny_profile_model()
+
+    def profiler(drops):
+        drops = iter(drops)
+
+        def fake(fn):
+            fn()
+            quant.q4_matmul_w4a8.launches += 10  # the wrapper's count
+            seen = 10 - next(drops)
+            fake.windows += 1
+            return 2.0, seen + 5, {"void q4_w4a8_kernel<4>(int)": (1.5, seen),
+                                   "elementwise copy": (0.5, 5)}
+        fake.windows = 0
+        monkeypatch.setattr(cs, "device_breakdown", fake)
+        return fake
+
+    fake = profiler([3, 0, 0])
+    out = cs.profile_path(torch.device("cpu"), runner, tokenizer, params, cfg)
+    assert fake.windows == 3
+    assert out["prefill"]["launches"] == 15 and "partial" not in out["prefill"]
+    assert out["decode"]["busy_ms"] == 2.0 / out["decode"]["tokens"]
+
+    fake = profiler([0] + [1] * (1 + cs.PROFILE_RETRIES))
+    out = cs.profile_path(torch.device("cpu"), runner, tokenizer, params, cfg)
+    assert fake.windows == 2 + cs.PROFILE_RETRIES
+    assert out["prefill"]["busy_ms"] == 2.0
+    assert out["decode"]["partial"] == "profiler saw q4_matmul_w4a8 9 of 10"
+    assert set(out["decode"]) == {"wall_ms", "partial", "tokens"}
+
+
+def test_missed_launches_reads_every_wrapper():
+    cs = _load()
+    by_name = {"void q8_mma_kernel<64>": (1.0, 4), "q8_fma_kernel": (0.1, 1),
+               "flash_mma_kernel<128>": (0.2, 2), "copy": (0.1, 9)}
+    assert cs.missed_launches(by_name, {"q8_matmul": 5,
+                                        "flash_attention": 2}) is None
+    assert (cs.missed_launches(by_name, {"q8_matmul": 5})
+            == "profiler saw flash_attention 2 of 0")
+    assert set(cs.PROFILED_KERNELS) <= set(cs.KERNELS)
+
+
+def test_phase11_on_the_cpu(monkeypatch, capsys):
+    """Phase 11's control flow on the CPU at tiny widths (the syncs
+    stubbed, the CLI's device the CPU): the file is inspected, converted
+    (config, tokenizer spec and bytes against the CPU's requantization),
+    and answered from; the route check then fails, as it must where no
+    kernel launches and the plain matmul runs."""
+    import pytest
+    from trackiellm_tpu_torch import __main__ as cli
+    from trackiellm_tpu_torch.llm import tokenizer
+    from trackiellm_tpu_torch.models import checkpoint, convert, llm
+    from trackiellm_tpu_torch.ops import quant
+    cs = _load()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(cli, "_device", lambda name, verb: torch.device("cpu"))
+    cfg = llm.LLMConfig.mistral_7b()._replace(
+        vocab_size=512, dim=512, n_layers=2, n_heads=4, n_kv_heads=2,
+        head_dim=128, hidden_dim=1024, max_seq=1024, sliding_window=1024)
+    plain, load = quant.quantized_matmul_ref, convert.load_gguf_tensor
+    with pytest.raises(AssertionError, match="quantized_matmul_ref ran"):
+        cs.phase_gguf(torch.device("cpu"), cfg, llm, convert, checkpoint,
+                      quant, tokenizer, cli, cs.launch_counters())
+    assert quant.quantized_matmul_ref is plain
+    assert convert.load_gguf_tensor is load
+    out = capsys.readouterr().out
+    assert "header types are the Q4_K_M mix" in out
+    assert "23 tensors equal to the CPU's" in out
+    assert "generate (201 prompt tokens): exit 0" in out

@@ -186,6 +186,27 @@ def test_w4a8_kernel_is_deterministic(dev):
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("shape", [(4096, 1024), (14336, 4096)])
+def test_weight_quantizers_give_the_cpu_bytes(dev, shape, bits):
+    """A weight quantized on the card has the CPU's bytes (the JAX
+    package's: its eager quantizers divide exactly on the CPU). The
+    absmax / qmax scales divide by a device tensor; a Python divisor would
+    turn into a product with its reciprocal on CUDA and move many scales
+    by an ulp. The bf16 cast that a conversion applies to norms and
+    embeddings rounds alike on both."""
+    w = torch.from_numpy(np.random.default_rng(shape[0] + bits)
+                         .standard_normal(shape, dtype=np.float32))
+    quantize = tq.quantize_q4 if bits == 4 else tq.quantize_q8
+    cpu = quantize(w, 256)
+    card = quantize(w.to(dev), 256)
+    assert torch.equal(card.scales.cpu().view(torch.int32),
+                       cpu.scales.view(torch.int32))
+    assert torch.equal(card.values.cpu(), cpu.values)
+    assert torch.equal(w.to(dev).to(torch.bfloat16).cpu().view(torch.int16),
+                       w.to(torch.bfloat16).view(torch.int16))
+
+
 def test_quantized_matmul_dispatch_on_the_card(dev, monkeypatch):
     monkeypatch.delenv("TRACKIE_Q4_F32A", raising=False)
     w = tq.quantize_q4(torch.randn((512, 256), device=dev), 64)

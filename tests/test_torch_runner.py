@@ -254,7 +254,9 @@ def test_greedy_mask():
 
 def test_port_imports_no_jax():
     """The port must run where JAX is absent: importing its runner (with
-    its grammar, schema, speculation and sampling modules), fused block, checkpoint reader, CLI, probes, diagnostic tools and
+    its grammar, schema, speculation and sampling modules), fused block,
+    checkpoint reader, model-file readers, GGUF converter, logging, CLI,
+    probes, diagnostic and conversion tools and
     chip_smoke.py pulls in no JAX module, no module of the JAX package
     (``trackiellm_tpu`` or ``trackiellm_tpu.*``, even one that imports no
     JAX) and none of the JAX package's tools (this test process has JAX
@@ -268,7 +270,13 @@ def test_port_imports_no_jax():
             "trackiellm_tpu_torch.ops.fused, "
             "trackiellm_tpu_torch.ops.diag, "
             "trackiellm_tpu_torch.models.checkpoint, "
+            "trackiellm_tpu_torch.models.loader, "
+            "trackiellm_tpu_torch.models.ggml_reader, "
+            "trackiellm_tpu_torch.models.onnx_reader, "
+            "trackiellm_tpu_torch.models.convert, "
             "trackiellm_tpu_torch.utils.errors, "
+            "trackiellm_tpu_torch.utils.logging, "
+            "trackiellm_tpu_torch.tools.convert_times, "
             "trackiellm_tpu_torch.tools.diag_overhead, "
             "trackiellm_tpu_torch.tools.diag_scan_overhead, "
             "trackiellm_tpu_torch.tools.diag_envelope, "

@@ -357,6 +357,44 @@ def _rope_freqs(cfg: LLMConfig, device=None) -> torch.Tensor:
     return 1.0 / torch.pow(torch.tensor(cfg.rope_theta, device=device), exps)
 
 
+def yarn_rope_factors(cfg: LLMConfig, factor: float, original_max_seq: int,
+                      beta_fast: float = 32.0, beta_slow: float = 1.0,
+                      truncate: bool = True) -> torch.Tensor:
+    """YaRN per-frequency rope divisors, f32 (head_dim / 2,) on the CPU
+    (``trackiellm_tpu/models/llm.py:yarn_rope_factors``): dims with more
+    than ``beta_fast`` rotations over the original context extrapolate
+    (divisor 1), dims with fewer than ``beta_slow`` interpolate (divisor
+    ``factor``), the band between blends linearly by dim index. Only the
+    GGUF converter calls it, for yarn-scaled files; running such params
+    waits for rope scaling (``check_supported``)."""
+    half = cfg.head_dim // 2
+
+    def corr_dim(n_rot: float) -> float:
+        # The dim whose frequency completes n_rot rotations over the
+        # original context: solve orig * freq_i = 2*pi*n_rot.
+        return (cfg.head_dim
+                * math.log(original_max_seq / (n_rot * 2.0 * math.pi))
+                / (2.0 * math.log(cfg.rope_theta)))
+
+    low_f, high_f = corr_dim(beta_fast), corr_dim(beta_slow)
+    if truncate:
+        low_f, high_f = math.floor(low_f), math.ceil(high_f)
+    low = max(low_f, 0)
+    high = min(high_f, cfg.head_dim - 1)
+    if high == low:
+        high += 0.001                    # transformers' singularity guard
+    ramp = torch.clamp(
+        (torch.arange(half, dtype=torch.float32) - low) / (high - low),
+        0.0, 1.0)
+    ext = 1.0 - ramp                     # 1 = extrapolate, 0 = interpolate
+    return 1.0 / (ext + (1.0 - ext) / factor)
+
+
+def yarn_attention_factor(factor: float) -> float:
+    """YaRN mscale ``0.1 ln(s) + 1`` (``cfg.rope_attention_factor``)."""
+    return 0.1 * math.log(factor) + 1.0 if factor > 1.0 else 1.0
+
+
 def _rope_cos_sin(positions: torch.Tensor, freqs: torch.Tensor):
     ang = positions[..., :, None].float() * freqs              # (S, D/2)
     return torch.cos(ang)[..., :, None, :], torch.sin(ang)[..., :, None, :]

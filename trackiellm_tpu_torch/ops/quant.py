@@ -64,13 +64,23 @@ class QuantizedLinear(NamedTuple):
         return self.k // self.scales.shape[-2]
 
 
+def _group_scales(wg: torch.Tensor, qmax: float) -> torch.Tensor:
+    """absmax / qmax per (group, column) of ``wg`` (K/G, G, N), divided as
+    the JAX package divides. The divisor is a 0-dim tensor on wg's device:
+    on CUDA, torch turns division by a Python number into a product with
+    its f32 reciprocal, which differs from the division in the last bit of
+    many scales."""
+    amax = wg.abs().amax(dim=1)
+    return amax / amax.new_full((), qmax)
+
+
 def quantize_q8(w: torch.Tensor, group: int = DEFAULT_GROUP) -> QuantizedLinear:
     """Symmetric int8 group quantization (values in [-127, 127])."""
     k, n = w.shape
     if k % group:
         raise ValueError(f"K={k} not divisible by group={group}")
     wg = w.float().reshape(k // group, group, n)
-    scale = wg.abs().amax(dim=1) / 127.0
+    scale = _group_scales(wg, 127.0)
     safe = scale.clamp_min(1e-12)
     q = torch.clamp(torch.round(wg / safe[:, None, :]), -127, 127)
     return QuantizedLinear(values=q.to(torch.int8).reshape(k, n), scales=scale)
@@ -83,7 +93,7 @@ def quantize_q4(w: torch.Tensor, group: int = DEFAULT_GROUP) -> QuantizedLinear:
     if k % group or (k // 2) % group:
         raise ValueError(f"K={k} and K/2 must be divisible by group={group}")
     wg = w.float().reshape(k // group, group, n)
-    scale = wg.abs().amax(dim=1) / 7.0
+    scale = _group_scales(wg, 7.0)
     safe = scale.clamp_min(1e-12)
     q = torch.clamp(torch.round(wg / safe[:, None, :]), -8, 7)
     q = q.to(torch.int32).reshape(k, n)
