@@ -8,13 +8,16 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      limit;
   2. build: nvcc builds the CUDA kernels from ``trackiellm_tpu_torch/csrc``;
   3. kernels: each of the ten CUDA kernels against its plain PyTorch
-     version at the shapes its path gives it (W4A8 at M in {1, 8, 64,
-     256, 512}, Q8 and f32-activation Q4 also at 1024, the rows of a
-     bucket-1024 prefill, and the streaming Q4 at M in {1, 8} on the five
-     Mistral-7B projections, plus one streaming case at other tiles;
-     W4A8's activation quantization at M in {1, 512}, K in {4096, 14336},
-     bit for bit; flash attention in five variants at H=32, Hk=8, D=128,
-     S in {256, 512, 1024}, bf16 and f32; the fused MLP block at M in {1,
+     version at the shapes its path gives it (W4A8 at M in {1, 8, 16, 64,
+     128, 256, 512}, Q8 and f32-activation Q4 also at 1024, 2048 and 4096:
+     the model paths' rows and those of phase 12's admission waves, extend
+     chunks and decode steps, ``serve_shapes``; the streaming Q4 at M in
+     {1, 8}; all on the five Mistral-7B projections, plus one streaming
+     case at other tiles; W4A8's activation quantization at M in {1, 512},
+     K in {4096, 14336}, bit for bit; flash attention in five variants at
+     H=32, Hk=8, D=128, S in {256, 512, 1024}, bf16 and f32, and causal
+     bf16 at the waves' folded heads, 2, 4 and 8 rows of (32, 8) heads at
+     S in {256, 512}; the fused MLP block at M in {1,
      4, 8}, D 4096, H 14336, bf16 and f32, also timed against the unfused
      path per call and on the device alone; the stream probe over 512 MiB,
      grid64 (64 steps in one block) and a 64-call chain_tiny on (8, 128)),
@@ -71,16 +74,34 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      the card into a checkpoint whose config, tokenizer and layer-0 and
      head bytes equal the CPU's requantization (Q8 too), and ``generate``
      answers from it through W4A8 and flash; its times and sizes as one
-     ``{"gguf": ...}`` line.
-Phases 5-11 zero every launch counter just before they drive their path and
+     ``{"gguf": ...}`` line;
+ 12. serving: phase 5's model behind ``LLMServer`` with eight slots:
+     ``tools/measure_server.run`` (a warm burst, then 16 requests of 48
+     tokens) per-step and in pipelined 8-step chunks, dense and paged
+     (128-token pages), and a paged int8 pool, in two rounds, with their
+     admission waves; then on each server a burst of the 16 requests
+     queued whole before admission: chunks must give all 16 the per-step
+     ids. Eight cortex prompts through the prefix cache, then eight more
+     sharing their prefix (hits must count); a ~400-token prompt admitted
+     in extend chunks while seven requests decode between them; a forced
+     tool call among three cortex prompts (a wave of four at bucket 512:
+     f32a), which must conform; a lone request's first token against
+     ``LLMRunner``'s; ``prefill_batch`` in waves of 2, 4 and 8 against
+     ``prefill`` of each prompt, by rel L2 (W4A8 at bucket 64, f32a and
+     flash at bucket 512). Reported: how many requests the runner and the
+     other layout answer alike, and a profile of 8-step chunks in a
+     process of its own (launches and busy time a decode step, the
+     admission's apart); one ``{"serve": ...}`` line before the slice10
+     line.
+Phases 5-12 zero every launch counter just before they drive their path and
 read them just after: the path's kernels must have launched, and the routes
 it does not take must not have (no serving path launches the streaming Q4
 or a probe; phase 9 must launch all four). In phases 5-7 greedy text must
 not depend on the lookahead depth, in phase 10 not on speculation, and
 every logit vector must be finite. Phase 3's device-only times come from
 profiles whose launch count matches the calls (``device_only_ms``). The
-last four lines are the ``slice10`` line, the card line, the kernels' JSON
-summary and the result line.
+last five lines are the ``serve`` line, the ``slice10`` line, the card
+line, the kernels' JSON summary and the result line.
 """
 
 import contextlib
@@ -93,6 +114,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -107,7 +129,8 @@ GROUP = 256
 PROFILE_TOKENS = 32  # decode tokens in phase 5's profiled window
 PROFILE_RETRIES = 3  # profiles of a timed window that missed launches
 MATMUL_MS = (1, 8, 64, 256, 512)
-# Q8 and f32a take M > 512 (a bucket-1024 prefill's 1024 rows) on the card.
+# Q8 and f32a take M > 512 on the card: a bucket-1024 prefill's 1024 rows.
+# Phase 12's admission waves add their rows (``serve_shapes``).
 EXACT_MS = (*MATMUL_MS, 1024)
 FLASH_S = (256, 512, 1024)   # prefill buckets; 1024 in phase 10
 QUANT_MS, QUANT_KS = (1, 512), (4096, 14336)   # activation quantization
@@ -403,17 +426,81 @@ def attention_pairs(s: int, window: int) -> int:
     return sum(min(i + 1, window) for i in range(s))
 
 
-def phase_kernels(dev, quant, attention, fused, llm, diag):
-    """Phase 3: every kernel against its plain version, times beside."""
+def serve_shapes(runner_mod, max_m: int, max_seq: int, slots: int):
+    """The shapes phase 12's LLMServer gives the kernels at ``max_seq``
+    with ``slots`` slots. An admission wave is one prefill bucket times 1,
+    2, 4 or 8 rows (a wave is padded to a power of two, at most
+    ``slots``), an extend chunk one extend bucket, a decode step ``slots``
+    rows. Returns the matmul rows at most ``max_m`` (W4A8 takes them)
+    joined to MATMUL_MS, the rows above it (Q4 takes f32a there) joined to
+    EXACT_MS, and the (S, rows) of the waves that reach flash: a wave
+    folds its rows into the heads, (rows * H, S, D) queries against
+    (rows * Hk, S, D) keys."""
+    buckets = [b for b in runner_mod.PREFILL_BUCKETS if b <= max_seq]
+    rows = [1 << i for i in range(slots.bit_length())]
+    waves = {b * r for b in buckets for r in rows}
+    small = (waves | {slots}
+             | {b for b in runner_mod.EXTEND_BUCKETS if b <= max_seq})
+    flash = [(s, r) for s in buckets if s >= 256 and s % 256 == 0
+             for r in rows if r > 1]
+    return (tuple(sorted(set(MATMUL_MS) | {m for m in small if m <= max_m})),
+            tuple(sorted(set(EXACT_MS) | {m for m in waves if m > max_m})),
+            flash)
+
+
+def flash_case(rows, attention, gen, dev, heads, s: int, dtype, kw: dict,
+               case: str, library: bool) -> None:
+    """One flash call on ``heads`` (H, Hk) query and key heads at S=s
+    against ``attention_ref``: rel L2 within FLASH_TOL, times and the bound
+    beside, and SDPA's times where ``library``."""
+    (h, hk), d = heads, 128
+    q = torch.randn((h, s, d), generator=gen, device=dev).to(dtype)
+    kk = torch.randn((hk, s, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((hk, s, d), generator=gen, device=dev).to(dtype)
+    kw = dict(kw)
+    if kw.pop("sinks", False):
+        kw["sinks"] = torch.randn((h,), generator=gen, device=dev)
+    got = attention.flash_attention(q, kk, v, **kw)
+    ref = attention.attention_ref(q, kk, v, **kw)
+    torch.cuda.synchronize()
+    err = rel_l2(got, ref)
+    abs_err = (got.float() - ref.float()).abs().max().item()
+    ms = time_ms(lambda: attention.flash_attention(q, kk, v, **kw))
+    plain = time_ms(lambda: attention.attention_ref(q, kk, v, **kw))
+    pairs = attention_pairs(s, kw.get("window", 0))
+    bound, by = bound_ms(
+        (q, kk, v, got, *(t for t in kw.values() if torch.is_tensor(t))),
+        4 * h * d * pairs, "bf16" if dtype == torch.bfloat16 else "f32")
+    lib = lib_device = None
+    if library:
+        lib, lib_device = sdpa_ms(q, kk, v, ref)
+    tol = FLASH_TOL[dtype]
+    log(f"  flash {case}: rel_l2={err:.3e} (tol {tol:.0e}) max_abs="
+        f"{abs_err:.3e} kernel_ms={ms:.4f} plain_ms={plain:.4f} bound_ms="
+        f"{bound:.4f} ({by}) library_ms={lib} library_device_ms={lib_device}")
+    if not err < tol:
+        raise AssertionError(f"flash {case}: {err}")
+    add_row(rows, "flash_attention",
+            lambda: attention.flash_attention(q, kk, v, **kw),
+            attention.flash_attention, case=case, err=abs_err, ms=ms,
+            plain=plain, bound=bound, bound_by=by, library=lib,
+            library_device=lib_device)
+
+
+def phase_kernels(dev, quant, attention, fused, llm, diag, serve):
+    """Phase 3: every kernel against its plain version, times beside, at
+    the model paths' shapes and at those of phase 12's waves (``serve``,
+    from ``serve_shapes``)."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    w4a8_ms, exact_ms, flash_waves = serve
     matmuls = {  # name: (quantize, kernel, plain, label, M values, op type)
         "q4_matmul_w4a8": (quant.quantize_q4, quant.q4_matmul_w4a8,
-                           quant.q4_matmul_w4a8_ref, "w4a8", MATMUL_MS,
+                           quant.q4_matmul_w4a8_ref, "w4a8", w4a8_ms,
                            "int8"),
         "q8_matmul": (quant.quantize_q8, quant.q8_matmul,
-                      quant.q8_matmul_ref, "q8  ", EXACT_MS, "bf16"),
+                      quant.q8_matmul_ref, "q8  ", exact_ms, "bf16"),
         "q4_matmul_f32a": (quant.quantize_q4, quant.q4_matmul_f32a,
-                           quant.q4_matmul_f32a_ref, "f32a", EXACT_MS,
+                           quant.q4_matmul_f32a_ref, "f32a", exact_ms,
                            "bf16"),
         "q4_matmul_stream": (quant.quantize_q4, quant.q4_matmul_stream,
                              quant.q4_matmul_stream_ref, "strm", STREAM_MS,
@@ -446,50 +533,20 @@ def phase_kernels(dev, quant, attention, fused, llm, diag):
             del w, args
         del w32
     quant_cases(rows, quant, gen, dev)
-    h, hk, d = 32, 8, 128
+    h, hk = 32, 8
     variants = {"causal": {}, "window128": {"window": 128},
                 "softcap50": {"softcap": 50.0},
                 "sinks": {"sinks": True}, "scale0.05": {"scale": 0.05}}
     for s in FLASH_S:
         for dtype in (torch.bfloat16, torch.float32):
-            q = torch.randn((h, s, d), generator=gen, device=dev).to(dtype)
-            kk = torch.randn((hk, s, d), generator=gen, device=dev).to(dtype)
-            v = torch.randn((hk, s, d), generator=gen, device=dev).to(dtype)
             for vname, kw in variants.items():
-                kw = dict(kw)
-                if kw.pop("sinks", False):
-                    kw["sinks"] = torch.randn((h,), generator=gen, device=dev)
-                got = attention.flash_attention(q, kk, v, **kw)
-                ref = attention.attention_ref(q, kk, v, **kw)
-                torch.cuda.synchronize()
-                err = rel_l2(got, ref)
-                abs_err = (got.float() - ref.float()).abs().max().item()
-                ms = time_ms(lambda: attention.flash_attention(q, kk, v, **kw))
-                plain = time_ms(
-                    lambda: attention.attention_ref(q, kk, v, **kw))
-                pairs = attention_pairs(s, kw.get("window", 0))
-                bound, by = bound_ms(
-                    (q, kk, v, got, *(t for t in kw.values()
-                                      if torch.is_tensor(t))),
-                    4 * h * d * pairs,
-                    "bf16" if dtype == torch.bfloat16 else "f32")
-                library = library_device = None
-                if vname == "causal" and dtype == torch.bfloat16:
-                    library, library_device = sdpa_ms(q, kk, v, ref)
-                tol = FLASH_TOL[dtype]
-                log(f"  flash {vname:9s} S={s} {str(dtype)[6:]:8s}: "
-                    f"rel_l2={err:.3e} (tol {tol:.0e}) max_abs={abs_err:.3e} "
-                    f"kernel_ms={ms:.4f} plain_ms={plain:.4f} bound_ms="
-                    f"{bound:.4f} ({by}) library_ms={library} "
-                    f"library_device_ms={library_device}")
-                if not err < tol:
-                    raise AssertionError(f"flash {vname} S={s} {dtype}: {err}")
-                add_row(rows, "flash_attention",
-                        lambda: attention.flash_attention(q, kk, v, **kw),
-                        attention.flash_attention,
-                        case=f"{vname} S={s} {str(dtype)[6:]}", err=abs_err,
-                        ms=ms, plain=plain, bound=bound, bound_by=by,
-                        library=library, library_device=library_device)
+                flash_case(rows, attention, gen, dev, (h, hk), s, dtype, kw,
+                           f"{vname} S={s} {str(dtype)[6:]}",
+                           vname == "causal" and dtype == torch.bfloat16)
+    for s, n in flash_waves:  # the serving model's attention: causal, bf16
+        flash_case(rows, attention, gen, dev, (n * h, n * hk), s,
+                   torch.bfloat16, {}, f"causal S={s} {n} rows bfloat16",
+                   False)
     d, hid, grp = FUSED_SHAPE
     w_gu = quant.quantize_q4(torch.randn((d, 2 * hid), generator=gen,
                                          device=dev) / math.sqrt(d), grp)
@@ -667,12 +724,13 @@ def phase_width(dev, llm, quant, fused):
 
 
 @contextlib.contextmanager
-def levers_on():
-    """TRACKIE_Q4_F32A=1 and TRACKIE_FUSED_MLP=1 inside the block; the
-    environment is restored after, whatever happened."""
-    saved = {name: os.environ.get(name) for name in LEVERS}
+def levers_on(names=LEVERS):
+    """The levers ``names`` (TRACKIE_Q4_F32A=1 and TRACKIE_FUSED_MLP=1 by
+    default) set inside the block; the environment is restored after,
+    whatever happened."""
+    saved = {name: os.environ.get(name) for name in names}
     try:
-        for name in LEVERS:
+        for name in names:
             os.environ[name] = "1"
         yield
     finally:
@@ -684,28 +742,32 @@ def levers_on():
 
 
 class LogitWatch:
-    """Wraps the model's forward entry points to record, without a host
-    sync, whether each logit vector they return is finite."""
+    """Wraps the model's forward entry points (and, given ``paging``, the
+    paged batch step) to record, without a host sync, whether each logit
+    tensor they return is finite."""
 
-    NAMES = ("prefill", "extend", "decode_step")
+    NAMES = ("prefill", "extend", "decode_step", "prefill_batch",
+             "decode_step_batch")
 
-    def __init__(self, llm):
-        self.llm = llm
+    def __init__(self, llm, paging=None):
         self.flags = []
-        self.orig = {n: getattr(llm, n) for n in self.NAMES}
-        for n in self.NAMES:
-            setattr(llm, n, self._wrap(self.orig[n]))
+        targets = [(llm, n) for n in self.NAMES]
+        if paging is not None:
+            targets.append((paging, "decode_step_batch_paged"))
+        self.orig = [(m, n, getattr(m, n)) for m, n in targets]
+        for m, n, fn in self.orig:
+            setattr(m, n, self._wrap(fn))
 
     def _wrap(self, fn):
         def watched(*args, **kwargs):
-            logits, cache = fn(*args, **kwargs)
-            self.flags.append(torch.isfinite(logits).all())
-            return logits, cache
+            out = fn(*args, **kwargs)
+            self.flags.append(torch.isfinite(out[0]).all())
+            return out
         return watched
 
     def close(self) -> int:
-        for n, fn in self.orig.items():
-            setattr(self.llm, n, fn)
+        for m, n, fn in self.orig:
+            setattr(m, n, fn)
         if not all(bool(f) for f in self.flags):
             raise AssertionError("a logit vector was not finite")
         return len(self.flags)
@@ -1690,6 +1752,497 @@ def verify_pass(dev, llm, params, cfg, tok) -> dict:
             "decode_steps_ms": steps_ms}
 
 
+# Phase 12: serving. Eight slots; measure_server's configurations and a
+# paged int8 pool; the cortex prompts through the prefix cache; a long
+# prompt admitted in extend chunks of at most SERVE_JOB_CHUNK tokens while
+# seven short requests decode; a forced tool call among cortex prompts.
+SERVE_SLOTS = 8
+SERVE_INT8 = ("paged_int8_chunk8", dict(chunk_steps=8, page_size=128,
+                                        cache_dtype=torch.int8))
+SERVE_PAGE = 128
+SERVE_JOB_CHUNK = 128
+SERVE_LONG = (350, 450)   # (c)'s prompt tokens
+SERVE_RUNNER = 4   # pinned-burst requests also answered by LLMRunner
+SERVE_ROUNDS = 2   # measure_server's configurations, each run this often
+# Tokens of the profile's two bursts: 32 (about 67,000 device records)
+# and 16. A burst of 48 (about 100,000 records) came back without some of
+# its launches in every retry.
+SERVE_PROFILE = (32, 16)
+SERVE_TIMEOUT = 600.0
+# The waves prefill_batch is held to against prefill alone: rows a wave.
+WAVE_ROWS = (2, 4, 8)
+QUESTIONS = ("What is in front of me right now?", "Is the path clear?",
+             "Where is the door?", "What does the sign say?",
+             "Is the bicycle moving?", "How far is the person?",
+             "What is that sound?", "Can I walk ahead safely?")
+
+
+class ServerWatch:
+    """Two private points of an ``LLMServer`` wrapped. ``_finish`` records
+    each finished request's token ids by prompt (``ids``); ``_admit``
+    records how many slots each admission wave filled (``waves``) and,
+    inside ``held()``, waits before it admits. A burst submitted inside
+    ``held()`` is queued whole before the serve loop takes any of it, so
+    its waves are the free slots filled in submit order, in every run."""
+
+    def __init__(self, server):
+        self.ids, self.waves = {}, []
+        self._open, self._parked = threading.Event(), threading.Event()
+        self._open.set()
+        self._server = server
+        finish, admit = server._finish, server._admit
+
+        def watched_finish(slot):
+            if slot.request is not None:
+                self.ids[slot.request.prompt] = list(slot.generated)
+            finish(slot)
+
+        def watched_admit():
+            if not self._open.is_set():
+                self._parked.set()
+                if not self._open.wait(timeout=SERVE_TIMEOUT):
+                    raise RuntimeError("admission held too long")
+            busy = self._active()
+            admit()
+            if self._active() > busy:
+                self.waves.append(self._active() - busy)
+        server._finish, server._admit = watched_finish, watched_admit
+
+    def _active(self) -> int:
+        return sum(slot.active for slot in self._server._slots)
+
+    @contextlib.contextmanager
+    def held(self):
+        self._parked.clear()
+        self._open.clear()
+        try:
+            if not self._parked.wait(timeout=SERVE_TIMEOUT):
+                raise AssertionError("phase 12: the serve loop never reached "
+                                     "its admission")
+            yield
+        finally:
+            self._open.set()
+
+
+def first_divergence(a, b):
+    """The first position where two id lists differ, None if equal."""
+    if a == b:
+        return None
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def burst(server, jobs, watch=None) -> list:
+    """Submit ``jobs`` ((prompt, submit kwargs)) at once, inside
+    ``watch.held()`` when given; their texts."""
+    with watch.held() if watch is not None else contextlib.nullcontext():
+        futs = [server.submit(p, **kw) for p, kw in jobs]
+    texts = [f.result(timeout=SERVE_TIMEOUT) for f in futs]
+    if not all(isinstance(t, str) for t in texts):
+        raise AssertionError("phase 12: a future did not resolve to text")
+    return texts
+
+
+def wave_rows(dev, llm, runner_mod, params, cfg, tok, prompts,
+              lone: dict) -> dict:
+    """The server's two prefill routes on the card for ``prompts`` (one
+    bucket): ``prefill_batch`` of the whole wave, padded to a power of two
+    as the server pads it, against ``prefill`` of each prompt alone (kept
+    in ``lone`` by prompt). Returns the bucket, the wave's matmul rows,
+    each row's rel L2 against its lone logits and how many argmax agree."""
+    ids = [tok.encode(p, add_bos=True) for p in prompts]
+    bucket = next(b for b in runner_mod.PREFILL_BUCKETS
+                  if b >= max(map(len, ids)))
+    b_pad = 1 << (len(ids) - 1).bit_length()
+    padded = np.zeros((b_pad, bucket), np.int64)
+    lengths = np.zeros(b_pad, np.int32)
+    for row, i in enumerate(ids):
+        padded[row, :len(i)] = i
+        lengths[row] = len(i)
+    wave, _ = llm.prefill_batch(params, cfg, torch.from_numpy(padded).to(dev),
+                                torch.from_numpy(lengths).to(dev))
+    errs, same = [], 0
+    for row, (p, i) in enumerate(zip(prompts, ids)):
+        if p not in lone:
+            lone[p] = llm.prefill(
+                params, cfg, torch.from_numpy(padded[row]).to(dev), len(i),
+                llm.KVCache.create(cfg, device=dev))[0].reshape(-1)
+        errs.append(rel_l2(wave[row], lone[p]))
+        same += int(wave[row].argmax() == lone[p].argmax())
+    return {"bucket": bucket, "m": b_pad * bucket, "rel_l2": errs,
+            "argmax_equal": same}
+
+
+def wave_checks(dev, llm, runner_mod, params, cfg, tok, short, cortex):
+    """``prefill_batch`` against ``prefill`` on the card, in waves of 2, 4
+    and 8 rows (WAVE_ROWS). At bucket 64 (``short``) both take W4A8, at
+    different M: within WIDTH_TOL, as the activation quantization may round
+    a value the other way where the sums' order moved it. At bucket 512
+    (``cortex``) under TRACKIE_Q4_F32A=1 both take f32a (the wave above
+    512 rows, as by default; the lone prompt at 512) and flash (the wave's
+    rows folded into the heads): within EXACT_WIDTH_TOL, only the sums'
+    order differs. Reported, not checked: the bucket-512 waves on the
+    default routes, where the lone prompt takes W4A8."""
+    out = {}
+    for label, prompts, levers, tol in (
+            ("w4a8", short, (), WIDTH_TOL),
+            ("f32a", cortex, ("TRACKIE_Q4_F32A",), EXACT_WIDTH_TOL),
+            ("default", cortex, (), None)):
+        lone = {}
+        with levers_on(levers):
+            for n in WAVE_ROWS:
+                res = wave_rows(dev, llm, runner_mod, params, cfg, tok,
+                                prompts[:n], lone)
+                worst = max(res["rel_l2"])
+                log(f"  prefill_batch of {n} vs prefill ({label}, bucket "
+                    f"{res['bucket']}, M={res['m']}): rel_l2 max {worst:.3e}"
+                    f" (tol {tol}), argmax equal on {res['argmax_equal']}"
+                    f"/{n}")
+                if tol is not None and not worst < tol:
+                    raise AssertionError(
+                        f"phase 12: prefill_batch of {n} ({label}) against "
+                        f"prefill: rel L2 {res['rel_l2']}")
+                out[f"{label} {n}"] = res
+    return out
+
+
+def server_factory(server_mod, params, cfg, tok):
+    """A maker of SERVE_SLOTS-slot servers of ``params``, each with its
+    ``ServerWatch``."""
+    def server(**kw):
+        s = server_mod.LLMServer(params, cfg, batch_slots=SERVE_SLOTS,
+                                 tokenizer=tok, **kw)
+        return s, ServerWatch(s)
+    return server
+
+
+def close_server(s) -> None:
+    s.close()
+    if s._fatal is not None:
+        raise AssertionError(f"phase 12: a serve loop died: {s._fatal!r}")
+
+
+def phase_serve(dev, llm, runner_mod, tokenizer_mod, server_mod, paging,
+                measure, params, cfg, counters, profile=None) -> dict:
+    """Phase 12: continuous batching on phase 5's model (``cfg``), eight
+    slots. (a) ``measure_server.run`` in its four configurations and a
+    paged int8 pool at 8-step chunks, SERVE_ROUNDS times (the second
+    round in reverse order), each reporting its admission waves; then on
+    each server a pinned burst (``ServerWatch.held``) of the 16 requests:
+    in each layout the chunked path must give all 16 the per-step path's
+    ids and text. (b) Eight cortex prompts (the 297-token SYSTEM/CONTEXT
+    prompt, eight questions) in one wave on a paged server with the prefix
+    cache, then eight more: hits and reused tokens must count. (c) A
+    ~400-token prompt admitted in extend chunks (``prefill_chunk``) while
+    seven short requests decode: decode steps must run between its chunks.
+    (d) A forced tool call among three cortex prompts (one wave of four at
+    bucket 512: f32a at 2048 rows), which must parse and conform. Every
+    future must resolve, no serve loop may die, and every logit must be
+    finite. Counters are zeroed just before and read just after. Then a
+    lone request's first token must equal ``LLMRunner``'s on the same
+    prompt, and ``prefill_batch`` must agree with ``prefill`` on the card
+    (``wave_checks``); reported: the share of requests whose ids equal the
+    runner's and the other layout's, and a profile of 8-step chunks
+    (``serve_profile``, or ``profile()`` when given)."""
+    tok = tokenizer_mod.ByteTokenizer(cfg.vocab_size)
+    runner = runner_mod.LLMRunner(
+        params, cfg, tok, runner_mod.GenerationConfig(
+            max_tokens=measure.MAX_TOKENS, temperature=0.0,
+            speculative=False), device=dev)
+    cortex = [runner.build_prompt(SYSTEM, CONTEXT, q) for q in QUESTIONS]
+
+    server = server_factory(server_mod, params, cfg, tok)
+    close = close_server
+    for fn in counters.values():
+        fn.launches = 0
+    watch = LogitWatch(llm, paging)
+    configs = [*measure.CONFIGS.items(), SERVE_INT8]
+    out = {"configs": {label: [] for label, _ in configs}}
+    ids = {}
+    prompts = measure.prompts(SEED)
+    pinned = [(p, dict(max_tokens=measure.MAX_TOKENS)) for p in prompts]
+    try:
+        for rnd in range(SERVE_ROUNDS):
+            for label, kw in (configs if rnd == 0 else configs[::-1]):
+                s, w = server(**kw)
+                try:
+                    res = measure.run(s, SEED)
+                    res["waves"] = list(w.waves)
+                    if rnd == 0:
+                        n = len(w.waves)
+                        texts = burst(s, pinned, w)
+                        ids[label] = ([w.ids[p] for p in prompts], texts,
+                                      w.waves[n:])
+                finally:
+                    close(s)
+                del res["texts"]
+                out["configs"][label].append(res)
+                log(f"  serve {label} (round {rnd + 1}): aggregate_tok_s="
+                    f"{res['aggregate_tok_s']:.2f} wall_s={res['wall_s']:.3f}"
+                    f" decode_steps={res['decode_steps']} admission waves "
+                    f"{res['waves']} (the warm burst's, then the timed "
+                    "burst's)")
+        out["chunk_vs_step"] = {}
+        for one, chunked in (("per_step", "chunk8"),
+                             ("paged_per_step", "paged_chunk8")):
+            differ = {i: first_divergence(ids[chunked][0][i], ids[one][0][i])
+                      for i in range(len(prompts))
+                      if ids[chunked][0][i] != ids[one][0][i]
+                      or ids[chunked][1][i] != ids[one][1][i]}
+            out["chunk_vs_step"][chunked] = {
+                "requests": len(prompts), "differ": len(differ),
+                "waves": [ids[one][2], ids[chunked][2]]}
+            log(f"  {chunked} against {one} (pinned burst of {len(prompts)},"
+                f" waves {ids[chunked][2]} and {ids[one][2]}): ids and texts"
+                f" {'identical' if not differ else f'differ: {differ}'}")
+            if differ:
+                raise AssertionError(f"phase 12: {chunked} against {one}: "
+                                     f"{differ}")
+
+        s, w = server(paged=True, page_size=SERVE_PAGE,
+                      n_pages=SERVE_SLOTS * 4 + 1)
+        try:
+            t0 = time.perf_counter()
+            burst(s, [(p, dict(max_tokens=16)) for p in cortex], w)
+            cold = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            burst(s, [(p + " Answer briefly.", dict(max_tokens=16))
+                      for p in cortex], w)
+            warm = time.perf_counter() - t0
+            stats = dict(s.pool.prefix_stats)
+        finally:
+            close(s)
+        n_cortex = runner.count_tokens(cortex[0]) + 1
+        log(f"  prefix cache: {len(cortex)} cortex prompts "
+            f"({n_cortex} tokens) in {cold * 1e3:.2f} ms, then "
+            f"{len(cortex)} sharing their prefix in {warm * 1e3:.2f} ms; "
+            f"{stats}; waves {w.waves}")
+        if stats["hits"] < len(cortex) or not stats["tokens_reused"]:
+            raise AssertionError(f"phase 12: prefix cache stats {stats}")
+        out["prefix_cache"] = {"prompt_tokens": n_cortex,
+                               "first_burst_ms": cold * 1e3,
+                               "shared_burst_ms": warm * 1e3, **stats}
+
+        reps = 1
+        while True:
+            long = runner.build_prompt(SYSTEM, " ".join([CONTEXT] * reps),
+                                       "Describe everything around me.")
+            n_long = runner.count_tokens(long) + 1
+            if n_long >= SERVE_LONG[0]:
+                break
+            reps += 1
+        if n_long > SERVE_LONG[1]:
+            raise AssertionError(f"phase 12: long prompt is {n_long} tokens")
+        s, _ = server(prefill_chunk=SERVE_JOB_CHUNK)
+        steps_at_chunk = []
+        advance = s._advance_prefill
+
+        def watched_advance():
+            steps_at_chunk.append(s.stats["decode_steps"])
+            advance()
+        s._advance_prefill = watched_advance
+        try:
+            shorts = [s.submit(f"{SHORT_PROMPT} {i}", max_tokens=128)
+                      for i in range(SERVE_SLOTS - 1)]
+            deadline = time.monotonic() + SERVE_TIMEOUT
+            while not s.stats["decode_steps"] and time.monotonic() < deadline:
+                time.sleep(0.001)
+            t0 = time.perf_counter()
+            s.submit(long, max_tokens=8).result(timeout=SERVE_TIMEOUT)
+            long_ms = (time.perf_counter() - t0) * 1e3
+            burst_texts = [f.result(timeout=SERVE_TIMEOUT) for f in shorts]
+        finally:
+            close(s)
+        between = [b - a for a, b in zip(steps_at_chunk, steps_at_chunk[1:])]
+        log(f"  chunked prefill: {n_long}-token prompt in "
+            f"{len(steps_at_chunk)} chunks, {long_ms:.2f} ms to its reply; "
+            f"decode steps between its chunks {between}")
+        if len(steps_at_chunk) < 3 or not all(between) or not all(
+                isinstance(t, str) for t in burst_texts):
+            raise AssertionError(f"phase 12: chunked prefill did not "
+                                 f"interleave: {steps_at_chunk}")
+        out["chunked_prefill"] = {"prompt_tokens": n_long,
+                                  "chunks": len(steps_at_chunk),
+                                  "steps_between": between,
+                                  "reply_ms": long_ms}
+
+        tools = [runner_mod.ToolDefinition(*t) for t in TOOLS]
+        schemas = {t.name: t.schema for t in tools}
+        ask = runner.build_prompt(SYSTEM, CONTEXT, "Take me to the door.",
+                                  tools)
+        s, w = server()
+        try:
+            texts = burst(s, [(ask, dict(
+                max_tokens=TOOL_TOKENS, tool_names=list(schemas),
+                tool_schemas={k: v for k, v in schemas.items() if v}))]
+                + [(p, dict(max_tokens=16)) for p in cortex[:3]], w)
+        finally:
+            close(s)
+        call = json.loads(texts[0])["tool_call"]
+        log(f"  served tool call (waves {w.waves}): {texts[0]!r}")
+        if (call["name"] not in schemas
+                or not conforms(call["arguments"], schemas[call["name"]])):
+            raise AssertionError(f"phase 12: tool call {texts[0]!r} does "
+                                 "not conform")
+        out["tool_call"] = call
+
+        s, w = server()
+        try:
+            s.generate(SHORT_PROMPT, max_tokens=4, timeout=SERVE_TIMEOUT)
+        finally:
+            close(s)
+        served_first = w.ids[SHORT_PROMPT][0]
+    finally:
+        n_logits = watch.close()
+    out["launches"] = {name: fn.launches for name, fn in counters.items()}
+    log(f"  launches: {out['launches']}; finite logit tensors: {n_logits}")
+
+    runner.prepare_generation(SHORT_PROMPT)
+    want = int(torch.argmax(runner._next_logits))
+    log(f"  lone request's first token {served_first}, LLMRunner's {want}")
+    if served_first != want:
+        raise AssertionError("phase 12: the served first token is not "
+                             "the runner's")
+    out["waves"] = wave_checks(dev, llm, runner_mod, params, cfg, tok,
+                               prompts[:max(WAVE_ROWS)], cortex)
+    agree = {}
+    for i, prompt in enumerate(prompts[:SERVE_RUNNER]):
+        runner.generate(prompt)
+        for label in ("per_step", "paged_per_step"):
+            agree.setdefault(label, []).append(
+                first_divergence(runner.generated_ids, ids[label][0][i]))
+    layouts = [first_divergence(a, b) for a, b in
+               zip(ids["per_step"][0], ids["paged_per_step"][0])]
+    out["agreement"] = {
+        "runner_share": {k: v.count(None) / len(v) for k, v in agree.items()},
+        "runner_first_divergence": agree,
+        "dense_paged_share": layouts.count(None) / len(layouts),
+        "dense_paged_first_divergence": layouts,
+        "int8_share": sum(a == b for a, b in zip(
+            ids["paged_int8_chunk8"][0], ids["paged_chunk8"][0]))
+        / len(layouts)}
+    log(f"  agreement (reported): {out['agreement']}")
+    out["profile"] = (profile() if profile is not None
+                      else serve_profile(server, measure, close, counters))
+    expect_routes(out["launches"], ("q4_matmul_w4a8", "quantize_activations",
+                                    "flash_attention", "q4_matmul_f32a"),
+                  ("q8_matmul", "fused_mlp_q4", *DIAGNOSTIC), "phase 12")
+    if (out["launches"]["quantize_activations"]
+            != out["launches"]["q4_matmul_w4a8"]):
+        raise AssertionError("phase 12: not one activation quantization per "
+                             "W4A8 matmul")
+    return out
+
+
+def serve_profile(server, measure, close, counters) -> dict:
+    """Bursts of eight requests of measure_server's prompts on a dense
+    8-step-chunk server, each one admission wave at bucket 64
+    (``ServerWatch.held``), after a warm burst: a burst of the longer of
+    SERVE_PROFILE's token counts on the host clock, then under the
+    profiler a burst of each. Their difference is decode steps alone: the
+    launches and device busy ms a step; what the short burst holds beyond
+    its steps is the admission wave's. The idle share is the long
+    burst's. A profile must show every launch the wrappers (``counters``)
+    counted in its window; one that misses some is taken again, up to
+    PROFILE_RETRIES times. A window that never shows them all keeps its
+    numbers beside a ``missed`` note of what the profiler did not see."""
+    s, w = server(chunk_steps=8)
+    asked = measure.prompts(SEED)[:SERVE_SLOTS]
+
+    def one(tag, tokens):  # a short tag keeps the prompts in bucket 64
+        return burst(s, [(f"{p} ({tag})", dict(max_tokens=tokens))
+                         for p in asked], w)
+    long, short = SERVE_PROFILE
+    windows, notes = {}, {}
+    try:
+        one("warm", long)
+        t0 = time.perf_counter()
+        one("wall", long)
+        wall = (time.perf_counter() - t0) * 1e3
+        for tokens in SERVE_PROFILE:
+            for attempt in range(1 + PROFILE_RETRIES):
+                steps = s.stats["decode_steps"]
+                before = {k: f.launches for k, f in counters.items()}
+                busy, n, by_name = device_breakdown(
+                    lambda: one(f"p{tokens}-{attempt}", tokens))
+                notes[tokens] = missed_launches(by_name, {
+                    k: f.launches - before[k] for k, f in counters.items()})
+                windows[tokens] = (busy, n, s.stats["decode_steps"] - steps,
+                                   by_name)
+                if notes[tokens] is None:
+                    break
+    finally:
+        close(s)
+    busy, n, steps, by_name = windows[long]
+    busy_s, n_s, steps_s, _ = windows[short]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    per_step = (n - n_s) / (steps - steps_s)
+    missed = {t: note for t, note in notes.items() if note is not None}
+    prof = {"wall_ms": wall, "busy_ms": busy, "idle_share": 1.0 - busy / wall,
+            "decode_steps": steps, "launches": n,
+            "short_decode_steps": steps_s, "short_launches": n_s,
+            "short_busy_ms": busy_s, "launches_per_step": per_step,
+            "busy_ms_per_step": (busy - busy_s) / (steps - steps_s),
+            "admission_launches": n_s - per_step * steps_s,
+            "waves": list(w.waves), "tokens": SERVE_SLOTS * long,
+            "top": [[k[:80], t, c] for k, (t, c) in top],
+            "missed": missed}
+    log(f"  profile chunk8 burst: wall {wall:.2f} ms busy {busy:.2f} ms "
+        f"(idle {prof['idle_share']:.3f}), {steps} decode steps; from the "
+        f"{long}- and {short}-token bursts: "
+        f"{per_step:.1f} launches and {prof['busy_ms_per_step']:.3f} busy "
+        f"ms a decode step, {prof['admission_launches']:.1f} launches in "
+        f"the admission wave; waves {w.waves}"
+        + (f"; after {PROFILE_RETRIES} retries the profiler missed "
+           f"{missed}" if missed else ""))
+    return prof
+
+
+SERVE_PROFILE_FLAG = "--serve-profile"
+
+
+def serve_profile_child() -> dict:
+    """Phase 12's profile in a process of its own (this script with
+    SERVE_PROFILE_FLAG): late in the smoke's process, after the earlier
+    phases' profiles, ``torch.profiler`` left out some kernel records of
+    every serving window. The child's log lines are passed on; its last
+    line is ``serve_profile``'s result."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), SERVE_PROFILE_FLAG],
+        capture_output=True, text=True, timeout=SERVE_TIMEOUT)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"phase 12: the profile's process exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    for line in lines[:-1]:
+        log(line)
+    return json.loads(lines[-1])
+
+
+def serve_profile_main(dev) -> int:
+    """The child of ``serve_profile_child``: phase 5's model from the
+    seed behind a dense 8-step-chunk server, ``serve_profile`` on it."""
+    from trackiellm_tpu_torch.llm import server as server_mod
+    from trackiellm_tpu_torch.llm import tokenizer as tokenizer_mod
+    from trackiellm_tpu_torch.models import llm
+    from trackiellm_tpu_torch.ops import _build
+    from trackiellm_tpu_torch.tools import measure_server
+    _build.library()
+    cfg = serve_config(llm)
+    params = build_model(dev, llm, cfg, 4)
+    tok = tokenizer_mod.ByteTokenizer(cfg.vocab_size)
+    prof = serve_profile(server_factory(server_mod, params, cfg, tok),
+                         measure_server, close_server, launch_counters())
+    print(json.dumps(prof), flush=True)
+    return 0
+
+
+def serve_config(llm):
+    """Phases 5-7 and 12's configuration: Mistral-7B cut to max_seq 512."""
+    return llm.LLMConfig.mistral_7b()._replace(max_seq=512,
+                                              sliding_window=512)
+
+
 def result_line(kind: str) -> str:
     """The last line of the run: it used one card, of this kind."""
     return json.dumps({"ok": True, "device": {
@@ -1772,9 +2325,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     cap = torch.cuda.get_device_capability(0)
-    smi = nvidia_smi()
-    log(f"phase 1 device: torch {torch.__version__} cuda {torch.version.cuda}"
-        f" capability {cap} | {smi}")
     if cap != (9, 0):
         print(f"chip_smoke: needs an sm_90 card, found {cap}", file=sys.stderr)
         return 1
@@ -1783,12 +2333,20 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     for name in LEVERS:  # phases 3-6 and 8 run the default routes
         os.environ.pop(name, None)
+    if sys.argv[1:] == [SERVE_PROFILE_FLAG]:
+        return serve_profile_main(dev)
+    smi = nvidia_smi()
+    log(f"phase 1 device: torch {torch.__version__} cuda {torch.version.cuda}"
+        f" capability {cap} | {smi}")
 
     from trackiellm_tpu_torch import __main__ as cli
+    from trackiellm_tpu_torch.llm import paging
     from trackiellm_tpu_torch.llm import runner as runner_mod
+    from trackiellm_tpu_torch.llm import server as server_mod
     from trackiellm_tpu_torch.llm import tokenizer as tokenizer_mod
     from trackiellm_tpu_torch.models import checkpoint, convert, llm
     from trackiellm_tpu_torch.ops import _build, attention, diag, fused, quant
+    from trackiellm_tpu_torch.tools import measure_server
 
     counters = launch_counters()
     t0 = time.perf_counter()
@@ -1798,12 +2356,13 @@ def main() -> int:
         f"{path.relative_to(_build.BUILD_ROOT.parent.parent)}")
 
     log("phase 3 kernels vs plain versions (card, L2 flushed per call):")
-    rows = phase_kernels(dev, quant, attention, fused, llm, diag)
+    cfg = serve_config(llm)
+    rows = phase_kernels(dev, quant, attention, fused, llm, diag,
+                         serve_shapes(runner_mod, quant.KERNEL_MAX_M,
+                                      cfg.max_seq, SERVE_SLOTS))
     log("phase 4 width check (Mistral-7B width, 2 layers):")
     phase_width(dev, llm, quant, fused)
     slice_args = (dev, llm, runner_mod, tokenizer_mod)
-    cfg = llm.LLMConfig.mistral_7b()._replace(max_seq=512,
-                                              sliding_window=512)
     launches = {}
     log("phase 5 slice (Mistral-7B, 32 layers, Q4, max_seq 512):")
     params4 = build_model(dev, llm, cfg, 4)
@@ -1851,7 +2410,6 @@ def main() -> int:
     expect_routes(launches[10], ("q4_matmul_w4a8", "quantize_activations",
                                  "flash_attention", "q4_matmul_f32a"),
                   ("q8_matmul", "fused_mlp_q4", *DIAGNOSTIC), "phase 10")
-    del params4
     log(f"phase 11 GGUF to reply (Mistral-7B width, {GGUF_LAYERS} layers, "
         "Q4_K_M file, convert --bits 4, generate):")
     gguf = phase_gguf(
@@ -1859,8 +2417,16 @@ def main() -> int:
         convert, checkpoint, quant, tokenizer_mod, cli, counters)
     launches[11] = gguf.pop("launches")
     log(json.dumps({"gguf": gguf}))
+    log(f"phase 12 serving (phase 5's model, {SERVE_SLOTS} slots, max_seq "
+        f"{cfg.max_seq}):")
+    serve = phase_serve(dev, llm, runner_mod, tokenizer_mod, server_mod,
+                        paging, measure_server, params4, cfg, counters,
+                        profile=serve_profile_child)
+    launches[12] = serve.pop("launches")
+    del params4
 
     smi = nvidia_smi()
+    print(json.dumps({"serve": serve, "card": smi}), flush=True)
     print(json.dumps({"slice10": slice10, "card": smi}), flush=True)
     print(smi, flush=True)
     print(kernels_line(rows, launches), flush=True)

@@ -87,6 +87,20 @@ def test_matmul_kernels_carry_decode_and_prefill_cases():
     assert {1, 512} <= set(cs.MATMUL_MS)
 
 
+def test_phase3_covers_the_server_waves():
+    """serve_shapes gives phase 3 the rows of phase 12's waves (a bucket
+    times 1, 2, 4 or 8 prompts), extend chunks and decode steps: W4A8 up
+    to 512 rows, f32a and Q8 above (a wave of four and of eight prompts at
+    bucket 512), and flash at the waves' folded heads."""
+    from trackiellm_tpu_torch.llm import runner
+    cs = _load()
+    w4a8, exact, flash = cs.serve_shapes(runner, 512, 512, cs.SERVE_SLOTS)
+    assert w4a8 == (1, 8, 16, 64, 128, 256, 512)
+    assert exact == (1, 8, 64, 256, 512, 1024, 2048, 4096)
+    assert flash == [(256, 2), (256, 4), (256, 8), (512, 2), (512, 4),
+                     (512, 8)]
+
+
 def test_fails_without_a_card(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert _load().main() != 0
@@ -128,8 +142,8 @@ def test_kernels_line_carries_every_key():
                         device={"total": 1.5, "kernels": {}})
                    for case in headlines]
             for name, (_, _, headlines, _) in cs.KERNELS.items()}
-    launches = {phase: {name: 7 for name in cs.KERNELS}
-                for phase in (5, 6, 7, 9)}
+    launches = {phase: {name: 7 + phase for name in cs.KERNELS}
+                for phase in (5, 6, 7, 9, 10, 11, 12)}
     kernels = json.loads(cs.kernels_line(rows, launches))["kernels"]
     assert [k["name"] for k in kernels] == list(cs.KERNELS)
     for k in kernels:
@@ -137,7 +151,10 @@ def test_kernels_line_carries_every_key():
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms"} <= k.keys()
         assert (k["route"], k["launches"], k["ms"], k["device_ms"]) == (
-            "cuda", 7, 2.0, 1.5)
+            "cuda", 7 + k["launches_phase"], 2.0, 1.5)
+        # Phase 12 (serving) is read like every other phase.
+        assert k["launches_by_phase"] == {
+            str(p): 7 + p for p in (5, 6, 7, 9, 10, 11, 12)}
         assert [c["case"] for c in k["cases"]] == list(
             cs.KERNELS[k["name"]][2])
 
@@ -153,7 +170,7 @@ def test_kernels_line_carries_the_unfused_yardstick():
     for r in rows["fused_mlp_q4"]:
         r.update(unfused=0.9, unfused_device=0.1)
     launches = {phase: {name: 1 for name in cs.KERNELS}
-                for phase in (5, 6, 7, 9)}
+                for phase in (5, 6, 7, 9, 12)}
     kernels = {k["name"]: k for k in json.loads(
         cs.kernels_line(rows, launches))["kernels"]}
     fused = kernels.pop("fused_mlp_q4")
@@ -376,3 +393,91 @@ def test_phase11_on_the_cpu(monkeypatch, capsys):
     assert "header types are the Q4_K_M mix" in out
     assert "23 tensors equal to the CPU's" in out
     assert "generate (201 prompt tokens): exit 0" in out
+
+
+def test_phase12_on_the_cpu(monkeypatch, capsys):
+    """Phase 12's control flow on the CPU at tiny widths (the profiler
+    faked): measure_server's configurations and the int8 pool, each
+    pinned burst's chunks equal to its per-step ids, the prefix cache's
+    hits, the chunked prefill's interleave, the served tool call, the lone
+    request's first token and prefill_batch against prefill pass; the
+    route check then fails, as it must where no kernel launches."""
+    import pytest
+    from trackiellm_tpu_torch.llm import paging, runner, server, tokenizer
+    from trackiellm_tpu_torch.models import llm
+    from trackiellm_tpu_torch.tools import measure_server
+    cs = _load()
+
+    def fake_profile(fn):
+        fn()
+        return 1.0, 10, {"elementwise_kernel": (1.0, 10)}
+    monkeypatch.setattr(cs, "device_breakdown", fake_profile)
+    cfg, params = _tiny_profile_model()
+    names = {n: getattr(llm, n) for n in cs.LogitWatch.NAMES}
+    with pytest.raises(AssertionError,
+                       match="phase 12: q4_matmul_w4a8 never launched"):
+        cs.phase_serve(torch.device("cpu"), llm, runner, tokenizer, server,
+                       paging, measure_server, params, cfg,
+                       cs.launch_counters())
+    assert all(getattr(llm, n) is fn for n, fn in names.items())
+    out = capsys.readouterr().out
+    for tag in ("serve per_step (round 1)", "serve paged_chunk8 (round 2)",
+                "serve paged_int8_chunk8 (round 1)",
+                "chunk8 against per_step (pinned burst of 16, waves [8, 8] "
+                "and [8, 8]): ids and texts identical",
+                "paged_chunk8 against paged_per_step (pinned burst",
+                "prefix cache: 8 cortex prompts", "waves [8, 8]",
+                "chunked prefill:", "served tool call (waves [4])",
+                "lone request's first token", "prefill_batch of 8 vs prefill "
+                "(f32a, bucket 512, M=4096)", "agreement (reported)",
+                "profile chunk8 burst"):
+        assert tag in out, tag
+
+
+def test_serve_profile_notes_what_the_profiler_missed(monkeypatch):
+    """serve_profile against a fake profiler that shows W4A8 launches the
+    wrappers never counted (on the CPU no kernel launches): each window is
+    taken again PROFILE_RETRIES times, then keeps its numbers beside a
+    ``missed`` note; launches a step come from the two windows'
+    difference, and every burst is one admission wave."""
+    from trackiellm_tpu_torch.llm import server
+    from trackiellm_tpu_torch.llm.tokenizer import ByteTokenizer
+    from trackiellm_tpu_torch.tools import measure_server
+    cs = _load()
+    calls = []
+
+    def fake_profile(fn):
+        fn()
+        calls.append(1)
+        return 2.0 * len(calls), 100 * len(calls), {
+            "q4_w4a8_kernel": (1.0, 10)}
+    monkeypatch.setattr(cs, "device_breakdown", fake_profile)
+    cfg, params = _tiny_profile_model()
+
+    def make(**kw):
+        s = server.LLMServer(params, cfg, batch_slots=cs.SERVE_SLOTS,
+                             tokenizer=ByteTokenizer(cfg.vocab_size), **kw)
+        return s, cs.ServerWatch(s)
+    prof = cs.serve_profile(make, measure_server, lambda s: s.close(),
+                            cs.launch_counters())
+    tries = 1 + cs.PROFILE_RETRIES
+    assert len(calls) == 2 * tries
+    assert set(prof["missed"]) == set(cs.SERVE_PROFILE)
+    assert "q4_matmul_w4a8 10 of 0" in prof["missed"][cs.SERVE_PROFILE[0]]
+    long, short = cs.SERVE_PROFILE
+    assert (prof["decode_steps"], prof["short_decode_steps"]) == (long, short)
+    assert (prof["launches"], prof["short_launches"]) == (100 * tries,
+                                                          200 * tries)
+    assert prof["launches_per_step"] == -100 * tries / (long - short)
+    assert prof["waves"] == [cs.SERVE_SLOTS] * (2 + 2 * tries)
+
+
+def test_serve_profile_child_fails_without_a_card(monkeypatch):
+    """Phase 12's profile runs this script again with SERVE_PROFILE_FLAG;
+    where the child finds no card it exits non-zero, prints no profile,
+    and the phase fails with the child's error."""
+    import pytest
+    cs = _load()
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    with pytest.raises(AssertionError, match="no CUDA device"):
+        cs.serve_profile_child()

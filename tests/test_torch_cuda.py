@@ -1139,3 +1139,126 @@ def test_wrappers_raise_without_a_kernel_library(dev, monkeypatch, tmp_path):
     with pytest.raises(_build.KernelBuildError):
         tf.fused_mlp_q4(x, torch.ones((512,), device=dev), w_gu.values,
                         w_gu.scales, w_down.values, w_down.scales)
+
+
+def test_int8_kv_cells_give_the_cpu_bytes(dev):
+    """The paged pool's int8 cells quantized on the card equal the CPU's
+    (and so the JAX package's) bit for bit: the scale divides by a device
+    tensor, not a Python number."""
+    from trackiellm_tpu_torch.llm import paging
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((4, 3, 128, 8, 128), generator=g) * 3.0
+    q_cpu, s_cpu = paging._quant_cells(x)
+    q_dev, s_dev = paging._quant_cells(x.to(dev))
+    assert torch.equal(q_dev.cpu(), q_cpu)
+    assert torch.equal(s_dev.cpu().view(torch.int32), s_cpu.view(torch.int32))
+
+
+@pytest.mark.parametrize("window", [0, 100])
+def test_batched_decode_attention_on_the_card(dev, window):
+    """The serving slots' decode attention on the card (one product over
+    each row's whole cache, the head diagonal kept) against each row's own
+    decode_attention on the card and against the CPU route, with no copy
+    of the (B, S, Hk, D) cache."""
+    g = torch.Generator(device=dev).manual_seed(window)
+    b, s = 8, 512
+    q = torch.randn((b, 32, 128), generator=g, device=dev).bfloat16()
+    kc = torch.randn((b, s, 8, 128), generator=g, device=dev).bfloat16()
+    vc = torch.randn((b, s, 8, 128), generator=g, device=dev).bfloat16()
+    lens = [1, 7, 64, 129, 300, 400, 511, 512]
+    cur = torch.tensor(lens, device=dev)
+    got = ta.decode_attention_batch(q, kc, vc, cur, window=window)
+    for row, n in enumerate(lens):
+        one = ta.decode_attention(q[row], kc[row], vc[row], n, window=window)
+        assert _rel_l2(got[row], one) < 1e-2
+    cpu = ta.decode_attention_batch(q.cpu(), kc.cpu(), vc.cpu(), cur.cpu(),
+                                    window=window)
+    assert _rel_l2(got.cpu(), cpu) < 1e-2
+    assert _cache_copies(lambda: ta.decode_attention_batch(q, kc, vc, cur),
+                         kc.shape) == []
+
+
+def _tiny_served_params(dev):
+    cfg = llm.LLMConfig.tiny()
+    return cfg, llm.init_params_quantized(
+        torch.Generator(device=dev).manual_seed(2), cfg, group=64,
+        device=dev)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_server_chunks_give_the_per_step_ids_on_the_card(dev, paged):
+    """A tiny Q4 model served on the card: pipelined 4-step chunks give
+    every request the ids of the per-step loop, and the serve loop stays
+    on the card."""
+    from trackiellm_tpu_torch.llm import paging
+    from trackiellm_tpu_torch.llm.server import LLMServer
+    cfg, params = _tiny_served_params(dev)
+    kw = dict(paged=True, page_size=16) if paged else {}
+    got = {}
+    for chunk in (1, 4):
+        server = LLMServer(params, cfg, batch_slots=3, chunk_steps=chunk,
+                           **kw)
+        ids = {}
+        finish = server._finish
+
+        def record(slot, ids=ids, finish=finish):
+            ids[slot.request.prompt] = list(slot.generated)
+            finish(slot)
+        server._finish = record
+        try:
+            futs = [server.submit(f"pergunta {i}", max_tokens=9 + 5 * i)
+                    for i in range(5)]
+            assert all(isinstance(f.result(timeout=120), str) for f in futs)
+            assert server._fatal is None
+            kv = (paging._pool_vals(server.pool.pool_k) if paged
+                  else server.cache.k)
+            assert kv.device.type == "cuda"
+        finally:
+            server.close()
+        got[chunk] = ids
+    assert got[1] == got[4] and len(got[1]) == 5
+
+
+def test_server_sampled_requests_are_seeded_on_the_card(dev):
+    """Sampled requests on the card (the server's CUDA generator): the same
+    seed gives the same ids, and a 5x repetition penalty at near-greedy
+    temperature keeps any token to at most 3 of 12."""
+    from trackiellm_tpu_torch.llm.server import LLMServer
+    cfg, params = _tiny_served_params(dev)
+
+    def sampled(seed):
+        server = LLMServer(params, cfg, batch_slots=1, seed=seed)
+        try:
+            server.submit("aaaa", max_tokens=12, temperature=0.01,
+                          repetition_penalty=5.0).result(timeout=120)
+            assert server._fatal is None
+            return list(server._slots[0].generated)
+        finally:
+            server.close()
+    first = sampled(3)
+    assert first == sampled(3) and len(first) == 12
+    assert max(first.count(t) for t in set(first)) <= 3
+
+
+def test_int8_pool_serves_on_the_card(dev):
+    """cache_dtype=int8 on the card: the pool's int8 values and f32 scales
+    live on the card, requests complete on both paths, and every page
+    comes back. (Chunks need not give the per-step ids here: a chunk
+    reads its own new cells unquantized, as the reference's does.)"""
+    from trackiellm_tpu_torch.llm.server import LLMServer
+    cfg, params = _tiny_served_params(dev)
+    for chunk in (1, 4):
+        server = LLMServer(params, cfg, batch_slots=3, chunk_steps=chunk,
+                           cache_dtype=torch.int8, page_size=16)
+        try:
+            pool = server.pool
+            assert pool.quantized and pool.pool_k.vals.is_cuda
+            assert pool.pool_k.vals.dtype == torch.int8
+            assert pool.pool_k.scale.dtype == torch.float32
+            futs = [server.submit(f"pergunta {i}", max_tokens=9 + 5 * i)
+                    for i in range(5)]
+            assert all(isinstance(f.result(timeout=120), str) for f in futs)
+            assert server._fatal is None
+            assert pool.free_pages == pool.n_pages - 1
+        finally:
+            server.close()

@@ -328,3 +328,122 @@ def test_apply_rope_matches():
                           tllm._rope_freqs(tcfg)).numpy()
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
 
+
+
+# ---------------------------------------------------------------------------
+# Batched serving functions (prefill_batch, BatchedKVCache, insert_sequence,
+# decode_step_batch, decode_steps_batch) against the JAX package's
+# ---------------------------------------------------------------------------
+
+def _batched_both(jp, tp, jcfg, tcfg, seqs, n_slots):
+    """JAX and port batched caches with ``seqs`` ({slot: (tokens, length)})
+    prefilled and inserted; the other slots stay empty (length 0)."""
+    jb = jllm.BatchedKVCache.create(jcfg, n_slots, dtype=jnp.float32)
+    tb = tllm.BatchedKVCache.create(tcfg, n_slots, dtype=torch.float32)
+    for slot, (toks, length) in seqs.items():
+        _, jc, _, tc = _prefill_both(jp, tp, jcfg, tcfg, toks, length)
+        jb = jllm.insert_sequence(jb, jcfg, slot, jc)
+        tb = tllm.insert_sequence(tb, tcfg, slot, tc)
+    return jb, tb
+
+
+def _assert_batched_caches(jb, tb):
+    np.testing.assert_allclose(tb.k.numpy(), np.asarray(jb.k), rtol=0,
+                               atol=ATOL)
+    np.testing.assert_allclose(tb.v.numpy(), np.asarray(jb.v), rtol=0,
+                               atol=ATOL)
+    assert tb.lengths.tolist() == np.asarray(jb.lengths).tolist()
+    assert tb.lengths.dtype == torch.int32
+
+
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("window", [0, 24])
+@pytest.mark.parametrize("bucket,lengths", [(64, (40, 7, 0, 0)),
+                                            (256, (200, 130))])
+def test_prefill_batch_matches(bucket, lengths, window, quantized):
+    """A wave's logits at each row's last token and its per-row caches,
+    length-0 dummy rows included, match the JAX package's prefill_batch,
+    and each real row's logits match a lone prefill of it."""
+    jp, tp = _params(quantized)
+    jcfg, tcfg = _cfg(window)
+    toks = np.stack([_tokens(bucket + i, bucket) for i in range(len(lengths))])
+    lens = np.asarray(lengths, np.int32)
+    jl, jc = jllm.prefill_batch(jp, jcfg, jnp.asarray(toks),
+                                jnp.asarray(lens), cache_dtype=jnp.float32)
+    tl, tc = tllm.prefill_batch(tp, tcfg, torch.from_numpy(toks),
+                                torch.from_numpy(lens),
+                                cache_dtype=torch.float32)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=ATOL)
+    assert tc.k.shape == (len(lengths), tcfg.n_layers, tcfg.max_seq,
+                          tcfg.n_kv_heads, tcfg.head_dim)
+    np.testing.assert_allclose(tc.k[:, :, :bucket].numpy(),
+                               np.asarray(jc.k)[:, :, :bucket], rtol=0,
+                               atol=ATOL)
+    np.testing.assert_allclose(tc.v[:, :, :bucket].numpy(),
+                               np.asarray(jc.v)[:, :, :bucket], rtol=0,
+                               atol=ATOL)
+    assert not tc.k[:, :, bucket:].any()
+    assert tc.length.tolist() == list(lengths)
+    row = 0
+    _, _, lone, _ = _prefill_both(jp, tp, jcfg, tcfg, toks[row], lengths[row])
+    np.testing.assert_allclose(tl[row].numpy(), lone.numpy(), rtol=0,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("window,attn_len", [(0, None), (0, 128),
+                                             (24, None)])
+def test_decode_step_batch_matches(quantized, window, attn_len):
+    """Three slots, the middle one inactive: logits of the active slots,
+    every cache row and the lengths match the JAX package's
+    decode_step_batch at every step, and the inactive slot's rows are
+    untouched."""
+    jp, tp = _params(quantized)
+    jcfg, tcfg = _cfg(window)
+    jb, tb = _batched_both(jp, tp, jcfg, tcfg,
+                           {0: (_tokens(20, 64), 40),
+                            1: (_tokens(21, 64), 9),
+                            2: (_tokens(22, 64), 30)}, 3)
+    _assert_batched_caches(jb, tb)
+    active = np.array([True, False, True])
+    idle_k = tb.k[:, 1].clone()
+    for step, toks in enumerate(([5, 7, 300], [17, 0, 2], [400, 1, 63])):
+        toks = np.asarray(toks, np.int32)
+        jl, jb = jllm.decode_step_batch(jp, jcfg, jnp.asarray(toks),
+                                        jnp.asarray(active), jb,
+                                        attn_len=attn_len)
+        tl, tb = tllm.decode_step_batch(tp, tcfg, torch.from_numpy(toks),
+                                        torch.from_numpy(active), tb,
+                                        attn_len=attn_len)
+        np.testing.assert_allclose(tl.numpy()[active],
+                                   np.asarray(jl)[active], rtol=0, atol=ATOL,
+                                   err_msg=f"step {step}")
+        _assert_batched_caches(jb, tb)
+    assert tb.lengths.tolist() == [43, 9, 33]
+    assert torch.equal(tb.k[:, 1], idle_k)
+
+
+@pytest.mark.parametrize("quantized", [True, False])
+def test_decode_steps_batch_ids_match(quantized):
+    """k greedy steps with the argmax fed back on the device: exactly the
+    JAX package's ids and lengths, and the port's own step-by-step loop."""
+    jp, tp = _params(quantized)
+    jcfg, tcfg = _cfg()
+    seqs = {0: (_tokens(30, 64), 25), 1: (_tokens(31, 64), 11)}
+    jb, tb = _batched_both(jp, tp, jcfg, tcfg, seqs, 2)
+    toks = np.asarray([9, 11], np.int32)
+    active = np.array([True, True])
+    jprod, jb2 = jllm.decode_steps_batch(jp, jcfg, jnp.asarray(toks),
+                                         jnp.asarray(active), jb, 6)
+    tprod, tb2 = tllm.decode_steps_batch(tp, tcfg, torch.from_numpy(toks),
+                                         torch.from_numpy(active), tb, 6)
+    assert tprod.tolist() == np.asarray(jprod).tolist()
+    _assert_batched_caches(jb2, tb2)
+    _, loop = _batched_both(jp, tp, jcfg, tcfg, seqs, 2)
+    cur, ids = torch.from_numpy(toks), []
+    for _ in range(6):
+        logits, loop = tllm.decode_step_batch(tp, tcfg, cur,
+                                              torch.from_numpy(active), loop)
+        cur = logits.argmax(-1)
+        ids.append(cur.tolist())
+    assert ids == tprod.tolist()

@@ -254,10 +254,10 @@ def test_greedy_mask():
 
 def test_port_imports_no_jax():
     """The port must run where JAX is absent: importing its runner (with
-    its grammar, schema, speculation and sampling modules), fused block,
-    checkpoint reader, model-file readers, GGUF converter, logging, CLI,
-    probes, diagnostic and conversion tools and
-    chip_smoke.py pulls in no JAX module, no module of the JAX package
+    its grammar, schema, speculation and sampling modules), its server and
+    page pool, fused block, checkpoint reader, model-file readers, GGUF
+    converter, logging, CLI, probes, diagnostic, conversion and serving
+    tools and chip_smoke.py pulls in no JAX module, no module of the JAX package
     (``trackiellm_tpu`` or ``trackiellm_tpu.*``, even one that imports no
     JAX) and none of the JAX package's tools (this test process has JAX
     loaded already, hence the subprocess)."""
@@ -281,6 +281,9 @@ def test_port_imports_no_jax():
             "trackiellm_tpu_torch.tools.diag_scan_overhead, "
             "trackiellm_tpu_torch.tools.diag_envelope, "
             "trackiellm_tpu_torch.tools.kernel_times, "
+            "trackiellm_tpu_torch.tools.measure_server, "
+            "trackiellm_tpu_torch.llm.server, "
+            "trackiellm_tpu_torch.llm.paging, "
             "trackiellm_tpu_torch.__main__, chip_smoke; "
             "bad = sorted(m for m in sys.modules if m in "
             "('jax', 'jaxlib', 'tools', 'trackiellm_tpu') or m.startswith("

@@ -99,7 +99,7 @@ def _cmd_generate(args) -> int:
     if args.image:
         raise NotImplementedError(
             "--image: multimodal checkpoints (llm/vlm.py, models/clip.py) "
-            "are not ported yet (ROADMAP Queue 1 items 8 and 10)")
+            "are not ported yet (ROADMAP Queue 1 items 8 and 11)")
     device = _device(args.device, "generate")
     params, cfg, meta = load_checkpoint(args.checkpoint, device=device)
     if cfg is None:

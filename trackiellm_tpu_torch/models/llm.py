@@ -3,7 +3,10 @@
 Port of the Mistral slice of ``trackiellm_tpu/models/llm.py``: RMSNorm,
 split-half rotary embeddings, grouped-query attention with an optional
 sliding window, SwiGLU MLP, Q4/Q8 group-quantized or dense weights, and a
-KV cache in the reference's (L, S_max, Hk, D) layout.
+KV cache in the reference's (L, S_max, Hk, D) layout, and the batched
+serving functions (``prefill_batch``, ``BatchedKVCache``,
+``insert_sequence``, ``decode_step_batch``, ``decode_steps_batch``) that
+``llm/server.py`` and ``llm/paging.py`` drive.
 
 Parameters keep the JAX pytree layout (stacked ``(L, ...)`` layer tensors,
 fused ``wqkv`` and ``w_gu``), so ``models/bridge.py`` maps the JAX
@@ -14,6 +17,7 @@ Configs that set knobs of other model families raise NotImplementedError.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
@@ -26,6 +30,7 @@ from trackiellm_tpu_torch.ops.attention import (
     cache_mix,
     cache_scores,
     decode_attention,
+    decode_attention_batch,
     prefill_attention,
 )
 from trackiellm_tpu_torch.ops.backend import is_cuda
@@ -352,9 +357,18 @@ def _layer_window(cfg: LLMConfig) -> int:
 # ---------------------------------------------------------------------------
 
 def _rope_freqs(cfg: LLMConfig, device=None) -> torch.Tensor:
-    half = cfg.head_dim // 2
+    """The (head_dim / 2,) f32 rope frequencies, made once per (head_dim,
+    theta, device): building them copies theta to the device, which on
+    the card waits for the stream."""
+    return _rope_freqs_on(cfg.head_dim, cfg.rope_theta,
+                          None if device is None else torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs_on(head_dim: int, theta: float, device) -> torch.Tensor:
+    half = head_dim // 2
     exps = torch.arange(half, dtype=torch.float32, device=device) / half
-    return 1.0 / torch.pow(torch.tensor(cfg.rope_theta, device=device), exps)
+    return 1.0 / torch.pow(torch.tensor(theta, device=device), exps)
 
 
 def yarn_rope_factors(cfg: LLMConfig, factor: float, original_max_seq: int,
@@ -621,3 +635,161 @@ def decode_chunk_greedy(params: Dict[str, Any], cfg: LLMConfig,
         toks.append(tok)
         lg, cache = decode_step(params, cfg, tok, cache, attn_len=attn_len)
     return torch.stack(toks), lg, cache
+
+
+# ---------------------------------------------------------------------------
+# Batched serving: many conversations, one weight stream
+# ---------------------------------------------------------------------------
+
+class BatchedKVCache(NamedTuple):
+    """Per-slot KV caches for a fixed batch of conversations, the
+    reference's continuous-batching layout.
+
+    ``k``/``v`` are (L, B, S_max, Hk, D) and are updated in place, as
+    :class:`KVCache`'s. ``lengths`` is a (B,) int32 tensor on the caches'
+    device: rope positions, cache-row writes and attention masks read it
+    there, so a step never waits on the host; the server keeps the host's
+    copy of each slot's length."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    lengths: torch.Tensor
+
+    @classmethod
+    def create(cls, cfg: LLMConfig, batch: int,
+               dtype: torch.dtype = torch.bfloat16,
+               max_seq: Optional[int] = None,
+               device: Optional[torch.device] = None) -> "BatchedKVCache":
+        s = max_seq or cfg.max_seq
+        shape = (cfg.n_layers, batch, s, cfg.n_kv_heads, cfg.head_dim)
+        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   lengths=torch.zeros((batch,), dtype=torch.int32,
+                                       device=device))
+
+
+@torch.no_grad()
+def prefill_batch(params: Dict[str, Any], cfg: LLMConfig,
+                  tokens: torch.Tensor, lengths: torch.Tensor,
+                  cache_dtype: torch.dtype = torch.bfloat16,
+                  ) -> Tuple[torch.Tensor, KVCache]:
+    """Bucketed prefill of an admission wave: ``tokens`` (B, S_pad),
+    ``lengths`` (B,) on the same device. Returns the (B, V) logits of each
+    row's last real token and a :class:`KVCache` whose k/v are (B, L,
+    S_max, Hk, D) and whose ``length`` is ``lengths``.
+
+    The matmuls run on the wave flattened to (B * S_pad, D), so each
+    weight is read once for every prompt admitted together. Rows never
+    attend across sequences: attention folds the batch into the heads,
+    (B * H, S_pad, D) queries against (B * Hk, S_pad, D) keys, which is
+    the per-row attention with each row's heads in their own group. Rows
+    past a request's length hold garbage, as single prefill's padded
+    tail; dummy rows (length 0) are legal."""
+    check_supported(cfg, params)
+    b, s_pad = tokens.shape
+    device = tokens.device
+    hq, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    positions = torch.arange(s_pad, device=device).repeat(b)
+    cos, sin = _rope_cos_sin(positions, _rope_freqs(cfg, device))
+    x = params["tok_emb"][tokens.reshape(-1).long()]        # (B * S, D)
+    window = _layer_window(cfg)
+    shape = (b, cfg.n_layers, cfg.max_seq, hk, hd)
+    k_full = torch.zeros(shape, dtype=cache_dtype, device=device)
+    v_full = torch.zeros(shape, dtype=cache_dtype, device=device)
+
+    def heads(t, n):  # (B * S, n, D) -> (B * n, S, D)
+        return t.reshape(b, s_pad, n, hd).transpose(1, 2).reshape(
+            b * n, s_pad, hd)
+
+    for li in range(cfg.n_layers):
+        layer = _layer(params["layers"], li)
+        _, q, k, v = _qkv(x, layer, cfg, cos, sin)
+        k_full[:, li, :s_pad] = k.reshape(b, s_pad, hk, hd).to(cache_dtype)
+        v_full[:, li, :s_pad] = v.reshape(b, s_pad, hk, hd).to(cache_dtype)
+        attn = prefill_attention(heads(q, hq), heads(k, hk), heads(v, hk),
+                                 causal=True, window=window)
+        attn = attn.reshape(b, hq, s_pad, hd).transpose(1, 2).reshape(
+            b * s_pad, hq * hd)
+        x = _layer_tail(x, attn, layer, cfg)
+    last = (lengths.long() - 1).clamp_min(0)
+    x_last = x.reshape(b, s_pad, -1)[torch.arange(b, device=device), last]
+    logits = _output_logits(params, cfg, x_last)
+    return logits, KVCache(k_full, v_full, lengths)
+
+
+@torch.no_grad()
+def insert_sequence(cache: BatchedKVCache, cfg: LLMConfig, slot: int,
+                    seq_cache: KVCache) -> BatchedKVCache:
+    """Copy a single-sequence cache (from prefill) into batch slot
+    ``slot`` in place; the slot's length follows the sequence's."""
+    s = seq_cache.k.shape[1]
+    cache.k[:, slot, :s] = seq_cache.k.to(cache.k.dtype)
+    cache.v[:, slot, :s] = seq_cache.v.to(cache.v.dtype)
+    cache.lengths[slot] = int(seq_cache.length)
+    return cache
+
+
+def _write_rows(cache_l: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor,
+                val: torch.Tensor, active: torch.Tensor) -> None:
+    """Write ``val`` (B, Hk, D) at each slot's row ``pos`` of ``cache_l``
+    (B, S, Hk, D) in place; an inactive slot keeps what it held."""
+    old = cache_l[rows, pos]
+    cache_l[rows, pos] = torch.where(active[:, None, None],
+                                     val.to(cache_l.dtype), old)
+
+
+@torch.no_grad()
+def decode_step_batch(params: Dict[str, Any], cfg: LLMConfig,
+                      tokens: torch.Tensor, active: torch.Tensor,
+                      cache: BatchedKVCache,
+                      attn_len: Optional[int] = None,
+                      ) -> Tuple[torch.Tensor, BatchedKVCache]:
+    """One decode step for every slot: ``tokens`` (B,) -> logits (B, V).
+    Inactive slots (``active`` False) compute but write nothing and do not
+    advance. Positions, writes and masks come from ``cache.lengths`` on the
+    device, for all slots at once. ``attn_len`` bounds every slot's KV
+    reads and must exceed the longest active length."""
+    check_supported(cfg, params)
+    b = tokens.shape[0]
+    device = tokens.device
+    pos = cache.lengths.long()
+    rows = torch.arange(b, device=device)
+    # A dynamic_update_slice start is clamped to the last row.
+    wpos = pos.clamp_max(cache.k.shape[2] - 1)
+    cos, sin = _rope_cos_sin(pos, _rope_freqs(cfg, device))
+    x = params["tok_emb"].index_select(0, tokens.long())
+    window = _layer_window(cfg)
+    for li in range(cfg.n_layers):
+        layer = _layer(params["layers"], li)
+        _, q, k, v = _qkv(x, layer, cfg, cos, sin)
+        _write_rows(cache.k[li], rows, wpos, k, active)
+        _write_rows(cache.v[li], rows, wpos, v, active)
+        k_view = cache.k[li, :, :attn_len] if attn_len else cache.k[li]
+        v_view = cache.v[li, :, :attn_len] if attn_len else cache.v[li]
+        attn = decode_attention_batch(q, k_view, v_view, pos + 1,
+                                      window=window)
+        x = _layer_tail(x, attn.reshape(b, -1), layer, cfg)
+    logits = _output_logits(params, cfg, x)
+    lengths = torch.where(active, cache.lengths + 1, cache.lengths)
+    return logits, BatchedKVCache(cache.k, cache.v, lengths)
+
+
+@torch.no_grad()
+def decode_steps_batch(params: Dict[str, Any], cfg: LLMConfig,
+                       tokens: torch.Tensor, active: torch.Tensor,
+                       cache: BatchedKVCache, n_steps: int,
+                       attn_len: Optional[int] = None,
+                       ) -> Tuple[torch.Tensor, BatchedKVCache]:
+    """``n_steps`` greedy :func:`decode_step_batch` steps with each step's
+    argmax fed back on the device: no host fetch inside the chunk. Returns
+    ``(produced (n_steps, B), cache)``, ``produced[j]`` the tokens chosen
+    after step ``j`` (the chain t1..t_k from t0 = ``tokens``). Inactive
+    slots compute but never advance."""
+    produced = []
+    toks = tokens
+    for _ in range(n_steps):
+        logits, cache = decode_step_batch(params, cfg, toks, active, cache,
+                                          attn_len=attn_len)
+        toks = torch.argmax(logits, dim=-1)
+        produced.append(toks)
+    return torch.stack(produced), cache

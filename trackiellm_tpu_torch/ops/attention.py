@@ -9,7 +9,9 @@ with the same tiles and tile skips, in torch ops.
 ``decode_attention`` stays torch ops, as it is plain XLA in the reference:
 on the card its two products read the cache in its storage dtype with f32
 sums (:func:`cache_scores`, :func:`cache_mix`, which ``models/llm.py``'s
-``extend`` shares).
+``extend`` shares). ``decode_attention_batch`` is the serving slots' decode
+attention with per-row lengths on the device, and ``paged_decode_attention``
+the reference's decode over a page pool; both are plain XLA there too.
 """
 
 from __future__ import annotations
@@ -269,3 +271,92 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         p = torch.softmax(s, dim=-1)
     out = cache_mix(p, v_cache)
     return out.reshape(h, d).to(q.dtype)
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched product with f32 sums and an f32 result, the operands read
+    in their storage dtype."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+def batch_cache_scores(qg: torch.Tensor, k_cache: torch.Tensor) -> torch.Tensor:
+    """(B, Hk, R, D) queries against per-row (B, S, Hk, D) key caches:
+    (B, Hk, R, S) f32 dots, the queries rounded to the cache's dtype first
+    (:func:`cache_scores` for a batch of rows).
+
+    On the card one batched product reads each row's cache once, as the
+    (S * Hk, D) matrix it is stored as (no copy): all (B, H) queries
+    against all (S, Hk) key rows, then the (head, its own kv head)
+    diagonal is kept. The products off that diagonal are Hk times the
+    needed operations, a few microseconds at Mistral's widths, where a
+    (B * Hk)-batched product would need a copy of the cache (its two
+    batch strides do not merge). On the CPU both operands are widened to
+    f32."""
+    b, hk, rep, d = qg.shape
+    s = k_cache.shape[1]
+    qg = qg.to(k_cache.dtype)
+    if not is_cuda(qg):
+        return torch.einsum("bgrd,bsgd->bgrs", qg.float(), k_cache.float())
+    full = _bmm_f32(qg.reshape(b, hk * rep, d),
+                    k_cache.reshape(b, s * hk, d).transpose(1, 2))
+    diag = torch.diagonal(full.view(b, hk, rep, s, hk), dim1=1, dim2=4)
+    return diag.permute(0, 3, 1, 2)                     # (B, Hk, R, S)
+
+
+def batch_cache_mix(p: torch.Tensor, v_cache: torch.Tensor) -> torch.Tensor:
+    """(B, Hk, R, S) probabilities times per-row (B, S, Hk, D) value
+    caches: (B, Hk, R, D) f32, the probabilities rounded to the cache's
+    dtype first. The card reads each row's cache once as its (S * Hk, D)
+    matrix, against the probabilities placed on their kv head's columns
+    of a zeroed (H, S * Hk) matrix: the zeros add exact zeros."""
+    b, hk, rep, s = p.shape
+    d = v_cache.shape[-1]
+    p = p.to(v_cache.dtype)
+    if not is_cuda(p):
+        return torch.einsum("bgrs,bsgd->bgrd", p.float(), v_cache.float())
+    full = p.new_zeros((b, hk, rep, s, hk))
+    torch.diagonal(full, dim1=1, dim2=4).copy_(p.permute(0, 2, 3, 1))
+    out = _bmm_f32(full.view(b, hk * rep, s * hk),
+                   v_cache.reshape(b, s * hk, d))
+    return out.view(b, hk, rep, d)
+
+
+def decode_attention_batch(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, cur_len: torch.Tensor,
+                           window: int = 0, scale: float = 0.0
+                           ) -> torch.Tensor:
+    """One query per row, q (B, H, D), against per-row length-masked caches
+    (B, S, Hk, D): the reference's ``jax.vmap`` of decode attention over
+    the serving slots (``trackiellm_tpu/models/llm.py:1791-1794``).
+    ``cur_len`` (B,) is a device tensor of each row's valid rows, the new
+    token's included, so the mask is made on the device."""
+    b, h, d = q.shape
+    s_max, hk = k_cache.shape[1], k_cache.shape[2]
+    scale = scale or 1.0 / math.sqrt(d)
+    s = batch_cache_scores(q.reshape(b, hk, h // hk, d), k_cache) * scale
+    idx = torch.arange(s_max, device=q.device)
+    cur = cur_len.reshape(b, 1)
+    mask = idx < cur
+    if window > 0:
+        mask &= idx >= cur - window
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return batch_cache_mix(p, v_cache).reshape(b, h, d).to(q.dtype)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, page_table: torch.Tensor,
+                           cur_len: int, window: int = 0,
+                           softcap: float = 0.0, scale: float = 0.0,
+                           sinks: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Decode attention over a paged KV pool (n_pages, page_size, Hk, D):
+    one sequence's pages gathered through ``page_table`` (its page ids)
+    into a contiguous cache, then :func:`decode_attention`. Port of
+    ``trackiellm_tpu/ops/attention.py:paged_decode_attention``."""
+    k_seq = k_pages[page_table.long()].reshape(-1, *k_pages.shape[2:])
+    v_seq = v_pages[page_table.long()].reshape(-1, *v_pages.shape[2:])
+    return decode_attention(q, k_seq, v_seq, cur_len, window=window,
+                            softcap=softcap, scale=scale, sinks=sinks)
