@@ -93,15 +93,40 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      process of its own (launches and busy time a decode step, the
      admission's apart); one ``{"serve": ...}`` line before the slice10
      line.
-Phases 5-12 zero every launch counter just before they drive their path and
+ 13. voice: Whisper-tiny at its published widths (random weights from the
+     seed written to a whisper.cpp GGML file, f16 matrices) loaded with
+     ``whisper_from_ggml`` on the card and on the CPU; ``WhisperASR``
+     transcribes a 5-s signal given at 48 kHz (``resample_poly`` runs) at
+     the 30-s window (n_audio_ctx 1500) and the app's 10-s window (500),
+     96 tokens: the card's ids against the CPU's (reported), the first 8
+     decode steps' logits teacher-forced with the CPU's ids (rel L2 1e-4),
+     encode and decode times, RTF; the ``transcribe`` CLI on a checkpoint
+     and a WAV written here. Whisper large-v3's widths cut to 2+2 layers
+     transcribe once. Silero VAD (``SileroConfig()``) from an ONNX file
+     under the ``silero_v5`` map's published names runs 312 chunks, state
+     carried, against the CPU (max abs 1e-5). The app's TTS
+     (``TTSConfig.default()``) says a 60-character reply through
+     ``TTSEngine.stream`` and ``synthesize``: the joined chunks against the
+     one-shot waveform (bit for bit, else max abs 1e-6). A Piper voice at
+     ``VITSConfig()``'s widths from an ONNX file under the ``piper_vits``
+     names and its JSON, through ``VITSVoice.from_piper`` and the ``synth``
+     CLI: the waveform from injected noise against the CPU's (frames equal,
+     rel L2 1e-4). The launches and idle share of the decode window (a
+     token) and of the encoder (a call) come from a profile in a process
+     of its own (``--voice-profile``); one
+     ``{"voice": ...}`` line before the serve line. No hand-written kernel
+     is on the voice path: every counter must stay at 0.
+Phases 5-13 zero every launch counter just before they drive their path and
 read them just after: the path's kernels must have launched, and the routes
 it does not take must not have (no serving path launches the streaming Q4
-or a probe; phase 9 must launch all four). In phases 5-7 greedy text must
-not depend on the lookahead depth, in phase 10 not on speculation, and
-every logit vector must be finite. Phase 3's device-only times come from
-profiles whose launch count matches the calls (``device_only_ms``). The
-last five lines are the ``serve`` line, the ``slice10`` line, the card
-line, the kernels' JSON summary and the result line.
+or a probe; phase 9 must launch all four; phase 13 launches none). In
+phases 5-7 greedy text must not depend on the lookahead depth, in phase 10
+not on speculation, and every logit vector must be finite. Phase 3's
+device-only times come from profiles whose launch count matches the calls
+(``device_only_ms``). Each phase's first line ends with the seconds since
+the build began. The ``voice`` line comes just before the last five lines,
+which are the ``serve`` line, the ``slice10`` line, the card line, the
+kernels' JSON summary and the result line.
 """
 
 import contextlib
@@ -685,7 +710,7 @@ def phase_width(dev, llm, quant, fused):
             lg, _ = llm.prefill(params, cfg, toks[:bucket].to(dev), length,
                                 llm.KVCache.create(cfg, device=dev))
             lc, _ = llm.prefill(cpu, cfg, toks[:bucket], length,
-                                llm.KVCache.create(cfg))
+                                llm.KVCache.create(cfg, device="cpu"))
             err = rel_l2(lg.cpu(), lc)
             log(f"  width Q{bits} prefill bucket={bucket}: rel_l2 card vs "
                 f"cpu = {err:.3e} (tol {tol:.0e})")
@@ -703,7 +728,8 @@ def phase_width(dev, llm, quant, fused):
                   quant.q4_matmul_w4a8.launches)
         lg, cg = llm.prefill(params, cfg, toks[:64].to(dev), 50,
                              llm.KVCache.create(cfg, device=dev))
-        lc, cc = llm.prefill(cpu, cfg, toks[:64], 50, llm.KVCache.create(cfg))
+        lc, cc = llm.prefill(cpu, cfg, toks[:64], 50,
+                             llm.KVCache.create(cfg, device="cpu"))
         errs = [rel_l2(lg.cpu(), lc)]
         for tok in steps.tolist():
             lg, cg = llm.decode_step(params, cfg, tok, cg)
@@ -2237,6 +2263,645 @@ def serve_profile_main(dev) -> int:
     return 0
 
 
+# Phase 13: the voice path. Whisper-tiny at its published widths from a
+# whisper.cpp GGML file this script writes, Whisper large-v3's widths cut to
+# 2+2 layers, Silero VAD and a Piper voice from ONNX files under the
+# published names of the port's name maps, and the app's TTS; the card
+# against the port's own CPU run where a tolerance is named.
+VOICE_SECONDS = 5            # the transcribed signal
+VOICE_RATE = 48_000          # given at the microphone's rate: resample_poly
+VOICE_WINDOWS = (1500, 500)  # n_audio_ctx: 30 s, and the app's 10 s
+VOICE_TOKENS = 96            # max_tokens of every transcription
+VOICE_FORCED = 8             # teacher-forced decode steps of the logit check
+VOICE_LOGIT_TOL = 1e-4       # rel L2, card against CPU
+LARGE_V3_LAYERS = 2          # encoder and decoder layers of (b)
+SILERO_SECONDS = 10          # 312 chunks of 512 samples
+SILERO_TOL = 1e-5            # max abs, probabilities
+TTS_REPLY = "Há uma pessoa a dois metros à frente e a porta fica ao lado."
+TTS_STREAM_TOL = 1e-6        # max abs, streamed chunks against one-shot
+VITS_TEXT = "ola, a porta fica a esquerda e a mesa a frente."
+VITS_TOL = 1e-4              # rel L2, card against CPU, injected noise
+VOICE_PROFILE_TOKENS = 32    # decode steps of the profiled window
+VOICE_PROFILE_ENCODES = 5    # encoder calls of the profiled window
+VOICE_PROFILE_FLAG = "--voice-profile"
+# whisper.cpp's converter keeps these f32 in an f16 file.
+GGML_F32_NAMES = ("encoder.conv1.bias", "encoder.conv2.bias",
+                  "encoder.positional_embedding",
+                  "decoder.positional_embedding")
+NAME_MAPS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "trackiellm_tpu_torch", "models", "name_maps")
+
+
+def voice_signal(seconds: float, rate: int, seed: int) -> np.ndarray:
+    """Speech-like audio from the seed: a gliding voiced tone with five
+    harmonics under a 4 Hz syllable envelope, and noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * rate)) / rate
+    f0 = 140.0 + 40.0 * np.sin(2 * np.pi * 0.7 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / rate
+    voiced = sum(np.sin(k * phase) / k for k in range(1, 6))
+    env = 0.5 * (1.0 + np.sin(2 * np.pi * 4.0 * t))
+    return (0.2 * env * voiced
+            + 0.01 * rng.standard_normal(t.size)).astype(np.float32)
+
+
+def whisper_state(cfg, seed: int) -> dict:
+    """Random weights at ``cfg``'s widths in openai-whisper's state-dict
+    layout, the names a whisper.cpp GGML file keeps."""
+    rng = np.random.default_rng(seed)
+    d = cfg.d_model
+
+    def lin(cout, cin):
+        return rng.uniform(-1, 1, (cout, cin)).astype(np.float32) / np.float32(
+            math.sqrt(cin))
+
+    def normal(shape, s):
+        return (s * rng.standard_normal(shape)).astype(np.float32)
+
+    st = {"encoder.conv1.weight": normal((d, cfg.n_mels, 3), 0.02),
+          "encoder.conv1.bias": normal(d, 0.01),
+          "encoder.conv2.weight": normal((d, d, 3), 0.02),
+          "encoder.conv2.bias": normal(d, 0.01),
+          "encoder.positional_embedding": np.zeros((cfg.n_audio_ctx, d),
+                                                   np.float32)}
+
+    def block(prefix, parts):
+        for part in parts:
+            st[f"{prefix}.{part}_ln.weight"] = np.ones(d, np.float32)
+            st[f"{prefix}.{part}_ln.bias"] = np.zeros(d, np.float32)
+            for w in ("query", "key", "value", "out"):
+                st[f"{prefix}.{part}.{w}.weight"] = lin(d, d)
+                if w != "key":
+                    st[f"{prefix}.{part}.{w}.bias"] = normal(d, 0.01)
+        st[f"{prefix}.mlp_ln.weight"] = np.ones(d, np.float32)
+        st[f"{prefix}.mlp_ln.bias"] = np.zeros(d, np.float32)
+        st[f"{prefix}.mlp.0.weight"] = lin(4 * d, d)
+        st[f"{prefix}.mlp.0.bias"] = normal(4 * d, 0.01)
+        st[f"{prefix}.mlp.2.weight"] = lin(d, 4 * d)
+        st[f"{prefix}.mlp.2.bias"] = normal(d, 0.01)
+    for i in range(cfg.n_audio_layers):
+        block(f"encoder.blocks.{i}", ("attn",))
+    st["encoder.ln_post.weight"] = np.ones(d, np.float32)
+    st["encoder.ln_post.bias"] = np.zeros(d, np.float32)
+    # Byte tokens' rows are the longest, so greedy ids often fall on them
+    # and a byte tokenizer's transcript is not empty.
+    st["decoder.token_embedding.weight"] = normal((cfg.vocab_size, d), 0.02)
+    st["decoder.token_embedding.weight"][:256] *= 4.0
+    st["decoder.positional_embedding"] = normal((cfg.n_text_ctx, d), 0.01)
+    for i in range(cfg.n_text_layers):
+        block(f"decoder.blocks.{i}", ("attn", "cross_attn"))
+    st["decoder.ln.weight"] = np.ones(d, np.float32)
+    st["decoder.ln.bias"] = np.zeros(d, np.float32)
+    return st
+
+
+def write_ggml_whisper(path: str, state: dict, cfg, filters,
+                       vocab) -> int:
+    """A whisper.cpp GGML file as its convert-pt-to-ggml.py writes one:
+    hparams, mel filters, byte vocab, then each tensor squeezed (conv
+    biases (n, 1)), dims reversed, f16 for matrices but the converter's f32
+    names. Returns its size in bytes."""
+    hp = (cfg.vocab_size, cfg.n_audio_ctx, cfg.d_model, cfg.n_heads,
+          cfg.n_audio_layers, cfg.n_text_ctx, cfg.d_model, cfg.n_heads,
+          cfg.n_text_layers, cfg.n_mels, 1)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<i", 0x67676D6C))
+        f.write(struct.pack("<11i", *hp))
+        f.write(struct.pack("<2i", *filters.shape))
+        f.write(np.asarray(filters, "<f4").tobytes())
+        f.write(struct.pack("<i", len(vocab)))
+        for tok in vocab:
+            f.write(struct.pack("<i", len(tok)) + tok)
+        for name, arr in state.items():
+            data = np.asarray(arr, np.float32).squeeze()
+            if name in GGML_F32_NAMES[:2]:
+                data = data.reshape(data.shape[0], 1)
+            if data.ndim < 2 or name in GGML_F32_NAMES:
+                ftype, payload = 0, data.astype("<f4").tobytes()
+            else:
+                ftype, payload = 1, data.astype("<f2").tobytes()
+            nm = name.encode()
+            f.write(struct.pack("<3i", data.ndim, len(nm), ftype))
+            for i in range(data.ndim):
+                f.write(struct.pack("<i", data.shape[data.ndim - 1 - i]))
+            f.write(nm + payload)
+        return f.tell()
+
+
+def whisper_vocab(n: int):
+    """A byte-level vocabulary of ``n`` entries: the 256 bytes, then
+    word pieces."""
+    return [bytes([i]) for i in range(256)] + [
+        f" w{i}".encode() for i in range(256, n)]
+
+
+def wall_ms(fn):
+    """(result, host ms) of ``fn`` between two card synchronizations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def agreement(a, b) -> dict:
+    """How far two id lists agree: equal positions and the first
+    divergence."""
+    first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+    return {"equal": sum(x == y for x, y in zip(a, b)), "first_diff": first,
+            "card": len(a), "cpu": len(b)}
+
+
+def forced_logits(whisper, params, cfg, mel, ids, n_steps: int):
+    """The logits of the first ``n_steps`` decode steps after the prompt,
+    each step fed ``ids`` (teacher forcing), as one (n_steps, V) tensor."""
+    feats = whisper.encode(params, cfg, mel)
+    cache = whisper.make_decoder_cache(params, cfg, feats)
+    for t in whisper._prompt(cfg, 0):
+        logits, cache = whisper.decode_step(params, cfg, t, cache)
+    out = [logits]
+    for t in ids[:n_steps - 1]:
+        logits, cache = whisper.decode_step(params, cfg, t, cache)
+        out.append(logits)
+    return torch.stack(out)
+
+
+def decode_window(whisper, params, cfg, mel, steps: int):
+    """A function that decodes ``steps`` greedy tokens from the prompt's
+    cache (set up outside it) as ``transcribe_tokens`` does: one argmax
+    fetch a token."""
+    feats = whisper.encode(params, cfg, mel)
+
+    def setup():
+        cache = whisper.make_decoder_cache(params, cfg, feats)
+        for t in whisper._prompt(cfg, 0):
+            logits, cache = whisper.decode_step(params, cfg, t, cache)
+        return logits, cache
+
+    def run(state):
+        logits, cache = state
+        for _ in range(steps):
+            tok = int(torch.argmax(logits))
+            logits, cache = whisper.decode_step(params, cfg, tok, cache)
+        return logits
+    return setup, run
+
+
+def whisper_window(whisper, asr_mod, params, cpu_params, cfg, tok,
+                   signal) -> dict:
+    """(a) at one window: transcription ids on the card and the CPU, the
+    teacher-forced logits, encode and decode times, RTF."""
+    asr = asr_mod.WhisperASR(params, cfg, tok, max_tokens=VOICE_TOKENS)
+    cpu = asr_mod.WhisperASR(cpu_params, cfg, tok, max_tokens=VOICE_TOKENS)
+    asr.transcribe_ids(signal, VOICE_RATE)  # warm
+    ids, wall = wall_ms(lambda: asr.transcribe_ids(signal, VOICE_RATE))
+    ref = cpu.transcribe_ids(signal, VOICE_RATE)
+    mel = asr.mel(signal, VOICE_RATE)
+    steps = min(VOICE_FORCED, len(ref) + 1)
+    lg = forced_logits(whisper, params, cfg, mel, ref, steps)
+    lc = forced_logits(whisper, cpu_params, cfg, cpu.mel(signal, VOICE_RATE),
+                       ref, steps)
+    if not torch.isfinite(lg).all():
+        raise AssertionError(f"phase 13: whisper-tiny n_audio_ctx "
+                             f"{cfg.n_audio_ctx}: non-finite logits")
+    errs = [rel_l2(lg[i].cpu(), lc[i]) for i in range(steps)]
+    encode = time_ms(lambda: whisper.encode(params, cfg, mel), iters=5,
+                     warmup=1)
+    setup, run = decode_window(whisper, params, cfg, mel, len(ids))
+    state = setup()
+    _, dec_wall = wall_ms(lambda: run(state))
+    out = {"ids": agreement(ids, ref), "logits_rel_l2": max(errs),
+           "logits_rel_l2_by_step": errs, "tol": VOICE_LOGIT_TOL,
+           "encode_ms": encode,
+           "decode_ms_per_token": dec_wall / max(len(ids), 1),
+           "transcribe_ms": wall, "rtf": wall / 1e3 / VOICE_SECONDS}
+    log(f"  whisper-tiny n_audio_ctx {cfg.n_audio_ctx}: {len(ids)} ids on "
+        f"the card, {len(ref)} on the CPU, {out['ids']['equal']} equal "
+        f"(first difference at {out['ids']['first_diff']}); teacher-forced "
+        f"logits over {steps} steps: rel_l2 {max(errs):.3e} (tol "
+        f"{VOICE_LOGIT_TOL:.0e}); encode {encode:.3f} ms, decode "
+        f"{out['decode_ms_per_token']:.3f} ms a token, transcribe "
+        f"{wall:.1f} ms, RTF {out['rtf']:.4f}")
+    if max(errs) > VOICE_LOGIT_TOL:
+        raise AssertionError(f"phase 13: whisper-tiny n_audio_ctx "
+                             f"{cfg.n_audio_ctx}: logits rel_l2 {max(errs)}")
+    return out
+
+
+def voice_configs() -> dict:
+    """Phase 13's configurations: Whisper-tiny, large-v3's widths cut to
+    LARGE_V3_LAYERS + LARGE_V3_LAYERS, the app's TTS and the widths
+    (d_model, n_layers, up_init_ch, upsample_rates, sample_rate) the Piper
+    voice must come out with."""
+    from trackiellm_tpu_torch.models import tts, whisper
+    return {"tiny": whisper.WhisperConfig.tiny(),
+            "large": whisper.WhisperConfig.large_v3()._replace(
+                n_audio_layers=LARGE_V3_LAYERS,
+                n_text_layers=LARGE_V3_LAYERS),
+            "tts": tts.TTSConfig.default(),
+            "vits": (192, 6, 512, (8, 8, 2, 2), 22050)}
+
+
+def phase_whisper(dev, cli, tmp: str, sizes: dict) -> dict:
+    """(a) Whisper-tiny from a GGML file at both windows and through the
+    ``transcribe`` CLI; (b) large-v3's widths cut to 2+2 layers."""
+    import wave
+
+    from trackiellm_tpu_torch.audio import asr as asr_mod
+    from trackiellm_tpu_torch.llm.tokenizer import ByteTokenizer
+    from trackiellm_tpu_torch.models import checkpoint, convert, whisper
+    from trackiellm_tpu_torch.ops.mel import mel_filterbank
+    cfg = sizes["tiny"]
+    path = os.path.join(tmp, "ggml-tiny.bin")
+    t0 = time.perf_counter()
+    size = write_ggml_whisper(path, whisper_state(cfg, SEED), cfg,
+                              mel_filterbank(cfg.n_mels).T,
+                              whisper_vocab(min(cfg.vocab_size, 50257)))
+    params, got, ggml_tok, _ = convert.whisper_from_ggml(path, device=dev)
+    cpu_params, _, _, _ = convert.whisper_from_ggml(path, device="cpu")
+    if got != cfg or params["tok_emb"].device.type != dev.type:
+        raise AssertionError(f"phase 13: whisper_from_ggml gave {got} on "
+                             f"{params['tok_emb'].device}")
+    log(f"  whisper-tiny GGML: {size} bytes written and loaded on the card "
+        f"and the CPU in {time.perf_counter() - t0:.1f} s")
+    signal = voice_signal(VOICE_SECONDS, VOICE_RATE, SEED)
+    out = {"ggml_bytes": size, "windows": {}}
+    for ctx in VOICE_WINDOWS:
+        out["windows"][str(ctx)] = whisper_window(
+            whisper, asr_mod, params, cpu_params,
+            cfg._replace(n_audio_ctx=min(ctx, cfg.n_audio_ctx)), ggml_tok,
+            signal)
+
+    # The transcribe CLI on a checkpoint and a WAV written here (the app's
+    # 10-s window, the byte tokenizer, as the JAX command reads it).
+    app = cfg._replace(n_audio_ctx=min(VOICE_WINDOWS[-1], cfg.n_audio_ctx))
+    ckpt = os.path.join(tmp, "whisper-ckpt")
+    checkpoint.save_checkpoint(ckpt, cpu_params, metadata={
+        "whisper_config": dict(app._asdict())})
+    wav = os.path.join(tmp, "speech.wav")
+    pcm = (np.clip(signal, -1, 1) * 32767).astype(np.int16)
+    with wave.open(wav, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(VOICE_RATE)
+        f.writeframes(pcm.tobytes())
+    rc, text, secs = run_cli(cli, ["transcribe", wav, "--checkpoint", ckpt])
+    ref = asr_mod.WhisperASR(params, app, ByteTokenizer(app.vocab_size)
+                             ).transcribe(pcm.astype(np.float32) / 32768.0,
+                                          VOICE_RATE)
+    if rc != 0 or text.strip() != ref:
+        raise AssertionError(f"phase 13: transcribe exited {rc} and printed "
+                             f"{text[-200:]!r}, not {ref[-200:]!r}")
+    out["cli"] = {"rc": rc, "seconds": secs, "chars": len(text.strip())}
+    log(f"  transcribe CLI (checkpoint, 48 kHz WAV): exit {rc} in "
+        f"{secs:.1f} s, the engine's text ({len(ref)} chars)")
+    del params, cpu_params
+
+    # (b) large-v3's widths cut to LARGE_V3_LAYERS + LARGE_V3_LAYERS.
+    lcfg = sizes["large"]
+    lparams = whisper.init_whisper(
+        torch.Generator(device=dev).manual_seed(SEED), lcfg)
+    asr = asr_mod.WhisperASR(lparams, lcfg, max_tokens=VOICE_TOKENS)
+    ids, wall = wall_ms(lambda: asr.transcribe_ids(signal, VOICE_RATE))
+    mel = asr.mel(signal, VOICE_RATE)
+    feats = whisper.encode(lparams, lcfg, mel)
+    if (mel.shape != (128, 2 * lcfg.n_audio_ctx)
+            or not torch.isfinite(feats).all()
+            or not all(0 <= i < lcfg.vocab_size for i in ids)):
+        raise AssertionError(f"phase 13: large-v3 widths: mel {mel.shape}, "
+                             f"ids {ids[:8]}")
+    encode = time_ms(lambda: whisper.encode(lparams, lcfg, mel), iters=3,
+                     warmup=1)
+    out["large_v3"] = {"layers": LARGE_V3_LAYERS, "ids": len(ids),
+                       "transcribe_ms": wall, "encode_ms": encode,
+                       "rtf": wall / 1e3 / VOICE_SECONDS,
+                       "cut": f"32+32 layers to {LARGE_V3_LAYERS}+"
+                              f"{LARGE_V3_LAYERS}"}
+    log(f"  whisper large-v3 widths ({LARGE_V3_LAYERS}+{LARGE_V3_LAYERS} "
+        f"layers, 128 mels, d 1280, 20 heads, vocab 51866): {len(ids)} ids "
+        f"in {wall:.1f} ms (first call), encode {encode:.3f} ms")
+    return out
+
+
+def map_shapes(name: str) -> dict:
+    """The published shapes a bundled name map records (``_shape:``)."""
+    with open(os.path.join(NAME_MAPS, f"{name}.json"),
+              encoding="utf-8") as f:
+        data = json.load(f)
+    return {k[len("_shape:"):]: tuple(v) for k, v in data.items()
+            if k.startswith("_shape:")}
+
+
+def silero_state(seed: int) -> dict:
+    """Random Silero v5 initializers under the ``silero_v5`` map's
+    published names, at its shapes; the STFT basis is the real windowed
+    DFT."""
+    from trackiellm_tpu_torch.models.convert import load_name_map
+    from trackiellm_tpu_torch.models.vad import _dft_power_bases
+    rng = np.random.default_rng(seed)
+    published = {v: k for k, v in load_name_map("silero_v5").items()}
+    st = {}
+    for name, shape in map_shapes("silero_v5").items():
+        if name.endswith("forward_basis_buffer"):
+            cos_b, sin_b = _dft_power_bases(shape[2])
+            a = np.concatenate([cos_b.T, sin_b.T])[:, None, :]
+        elif name.endswith("bias") or len(shape) == 1:
+            a = 0.01 * rng.standard_normal(shape)
+        else:
+            a = rng.uniform(-1, 1, shape) / math.sqrt(np.prod(shape[1:]))
+        st[published.get(name, name)] = a.astype(np.float32)
+    return st
+
+
+def phase_silero(dev, tmp: str) -> dict:
+    """(c) Silero from an ONNX file, 10 s of audio chunk by chunk with the
+    state carried, the card against the CPU."""
+    from trackiellm_tpu_torch.models import convert, vad
+    from trackiellm_tpu_torch.models.onnx_reader import (
+        read_onnx_initializers, write_onnx_initializers)
+    path = os.path.join(tmp, "silero_vad.onnx")
+    write_onnx_initializers(path, silero_state(SEED))
+    state = convert.apply_name_map(read_onnx_initializers(path),
+                                   convert.load_name_map("silero_v5"))
+    params, cfg = convert.silero_from_onnx(state, device=dev)
+    cpu, _ = convert.silero_from_onnx(state, device="cpu")
+    if cfg != vad.SileroConfig():
+        raise AssertionError(f"phase 13: silero_from_onnx gave {cfg}")
+    audio = voice_signal(SILERO_SECONDS, 16_000, SEED + 1)
+    n = len(audio) // vad.CHUNK_SAMPLES
+    chunks = torch.from_numpy(audio[:n * vad.CHUNK_SAMPLES]).reshape(n, -1)
+
+    def run(p, device):
+        state = vad.silero_init_state(cfg, device)
+        probs = []
+        x = chunks.to(device)
+        for i in range(n):
+            prob, state = vad.silero_step(p, cfg, x[i], state)
+            probs.append(prob)
+        return torch.stack(probs)
+    got, _ = wall_ms(lambda: run(params, dev))
+    ref = run(cpu, torch.device("cpu"))
+    err = (got.cpu() - ref).abs().max().item()
+    wrapper = vad.SileroVAD(params, cfg)
+    _, wall = wall_ms(lambda: [wrapper(audio[i:i + 1600])
+                               for i in range(0, len(audio), 1600)])
+    out = {"chunks": n, "max_abs_err": err, "tol": SILERO_TOL,
+           "ms_per_chunk": wall / n, "speech_share": float(
+               (got > 0.5).float().mean())}
+    log(f"  silero (ONNX, silero_v5 names): {n} chunks, probabilities card "
+        f"vs cpu max abs {err:.3e} (tol {SILERO_TOL:.0e}); "
+        f"{out['ms_per_chunk']:.3f} ms a 32-ms chunk through SileroVAD")
+    if not (torch.isfinite(got).all() and err <= SILERO_TOL):
+        raise AssertionError(f"phase 13: silero max abs {err}")
+    return out
+
+
+def phase_tts(dev, llm, cfg) -> dict:
+    """(d) The app's TTS at TTSConfig.default(): a 60-character reply
+    through TTSEngine.stream and synthesize; the joined chunks against the
+    one-shot waveform, the card against the CPU."""
+    from trackiellm_tpu_torch.audio.tts_engine import TTSEngine
+    from trackiellm_tpu_torch.models import tts
+    params = tts.init_tts(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    engine = TTSEngine(params, cfg)
+    cpu = TTSEngine(llm.params_to(params, torch.device("cpu")), cfg)
+    for _ in engine.stream(TTS_REPLY):  # warm
+        pass
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunks, first = [], None
+    for c in engine.stream(TTS_REPLY):
+        first = first or (time.perf_counter() - t0) * 1e3
+        chunks.append(c)
+    total = (time.perf_counter() - t0) * 1e3
+    one, one_ms = wall_ms(lambda: engine.synthesize(TTS_REPLY))
+    ref = cpu.synthesize(TTS_REPLY)
+    joined = np.concatenate(chunks)
+    same = len(joined) == len(one) and np.array_equal(joined, one)
+    diff = (float(np.abs(joined - one).max())
+            if len(joined) == len(one) else float("inf"))
+    frames_card, frames_cpu = len(one) // cfg.hop, len(ref) // cfg.hop
+    out = {"chars": len(TTS_REPLY), "chunks": len(chunks),
+           "samples": len(one), "first_chunk_ms": first,
+           "stream_ms": total, "synthesize_ms": one_ms,
+           "streamed_bit_identical": same, "streamed_max_abs": diff,
+           "tol": TTS_STREAM_TOL, "frames_card": frames_card,
+           "frames_cpu": frames_cpu,
+           "rel_l2_vs_cpu": (rel_l2(torch.from_numpy(one),
+                                    torch.from_numpy(ref))
+                             if len(one) == len(ref) else None)}
+    log(f"  TTS default ({len(TTS_REPLY)} chars): {len(chunks)} chunks, "
+        f"first at {first:.2f} ms, all {total:.2f} ms (one-shot "
+        f"{one_ms:.2f} ms); streamed "
+        + ("bit-identical to" if same else f"max abs {diff:.3e} from")
+        + f" the one-shot waveform; frames card {frames_card} cpu "
+        f"{frames_cpu}" + ("" if frames_card == frames_cpu else
+                           " (a duration boundary flipped)")
+        + (f", rel_l2 vs cpu {out['rel_l2_vs_cpu']:.3e}"
+           if out["rel_l2_vs_cpu"] is not None else ""))
+    if not (np.isfinite(one).all() and diff <= TTS_STREAM_TOL):
+        raise AssertionError(f"phase 13: streamed TTS max abs {diff}")
+    return out
+
+
+def piper_state(seed: int) -> dict:
+    """Random VITS weights at VITSConfig()'s widths under the
+    ``piper_vits`` map's published names and shapes: weight-normed convs
+    as (g, v) with g = |v|, norms at one, the duration flows' projections
+    small."""
+    rng = np.random.default_rng(seed)
+    shapes = map_shapes("piper_vits")
+    st = {}
+    for name, shape in shapes.items():
+        fan_in = float(np.prod(shape[1:])) if len(shape) > 1 else 1.0
+        if name.endswith("weight_g"):
+            continue
+        if name.endswith("gamma"):
+            a = 1.0 + 0.01 * rng.standard_normal(shape)
+        elif name.endswith(("beta", "bias")):
+            a = 0.01 * rng.standard_normal(shape)
+        elif name.endswith(("emb_rel_k", "emb_rel_v")):
+            a = rng.standard_normal(shape) / math.sqrt(shape[-1])
+        elif name == "enc_p.emb.weight":
+            a = rng.standard_normal(shape) / math.sqrt(shape[1])
+        elif name.endswith((".m", ".logs")):
+            a = 0.1 * rng.standard_normal(shape)
+        elif ".flows." in name and name.endswith(("post.weight",
+                                                  "proj.weight")):
+            a = 0.02 * rng.standard_normal(shape)
+        else:
+            a = rng.standard_normal(shape) / math.sqrt(fan_in)
+        st[name] = a.astype(np.float32)
+    for name, shape in shapes.items():
+        if name.endswith("weight_g"):
+            v = st[name[:-1] + "v"]
+            st[name] = np.sqrt((v.reshape(v.shape[0], -1) ** 2).sum(-1)
+                               ).reshape(shape).astype(np.float32)
+    return st
+
+
+def phase_vits(dev, cli, tmp: str, widths) -> dict:
+    """(e) A Piper voice at VITSConfig()'s widths from an ONNX file and its
+    JSON: from_piper on the card and the CPU, the waveform from injected
+    noise compared, RTF, and the ``synth`` CLI."""
+    import wave
+
+    from trackiellm_tpu_torch.models import vits
+    from trackiellm_tpu_torch.models.onnx_reader import (
+        write_onnx_initializers)
+    onnx = os.path.join(tmp, "pt_BR-voice.onnx")
+    write_onnx_initializers(onnx, piper_state(SEED))
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    conf = {"audio": {"sample_rate": widths[-1]},
+            "phoneme_id_map": {"_": [0], "^": [1], "$": [2], " ": [3],
+                               ",": [4], ".": [5],
+                               **{c: [10 + i] for i, c in
+                                  enumerate(letters)}}}
+    conf_path = onnx + ".json"
+    with open(conf_path, "w", encoding="utf-8") as f:
+        json.dump(conf, f)
+    voice = vits.VITSVoice.from_piper(onnx, conf_path, device=dev)
+    cpu = vits.VITSVoice.from_piper(onnx, conf_path, device="cpu")
+    cfg = voice.cfg
+    if (cfg.d_model, cfg.n_layers, cfg.up_init_ch, cfg.upsample_rates,
+            cfg.sample_rate) != widths:
+        raise AssertionError(f"phase 13: the Piper voice's config {cfg}")
+    ph, n = voice.phonemes(VITS_TEXT)
+    g = torch.Generator().manual_seed(SEED)
+    nw = torch.randn((2, cfg.max_phonemes), generator=g)
+    nz = torch.randn((cfg.d_model, cfg.max_frames), generator=g)
+    wg, fg = vits.vits_infer(voice.params, cfg, ph, n, nw.to(dev),
+                             nz.to(dev))
+    wc, fc = vits.vits_infer(cpu.params, cfg, ph.cpu(), n, nw, nz)
+    frames_card, frames_cpu = int(fg), int(fc)
+    err = (rel_l2(wg.cpu(), wc) if frames_card == frames_cpu
+           else float("inf"))
+    voice.synthesize(VITS_TEXT)  # warm
+    wav, ms = wall_ms(lambda: voice.synthesize(VITS_TEXT))
+    seconds = len(wav) / cfg.sample_rate
+    out_wav = os.path.join(tmp, "synth.wav")
+    rc, text, secs = run_cli(cli, ["synth", "-t", VITS_TEXT, "--voice", onnx,
+                                   "--voice-config", conf_path,
+                                   "-o", out_wav])
+    with wave.open(out_wav, "rb") as f:
+        cli_rate, cli_frames = f.getframerate(), f.getnframes()
+    out = {"phonemes": n, "frames_card": frames_card,
+           "frames_cpu": frames_cpu, "rel_l2_vs_cpu": err, "tol": VITS_TOL,
+           "synthesize_ms": ms, "audio_s": seconds,
+           "rtf": ms / 1e3 / seconds if seconds else None,
+           "cli": {"rc": rc, "seconds": secs, "samples": cli_frames}}
+    log(f"  VITS (Piper ONNX at VITSConfig() widths, {n} phonemes): frames "
+        f"card {frames_card} cpu {frames_cpu}, injected-noise waveform "
+        f"rel_l2 {err:.3e} (tol {VITS_TOL:.0e}); synthesize {ms:.1f} ms "
+        f"for {seconds:.2f} s of audio (RTF "
+        f"{out['rtf'] if out['rtf'] is not None else float('nan'):.4f}); "
+        f"synth CLI exit {rc}, {cli_frames} samples at {cli_rate} Hz in "
+        f"{secs:.1f} s")
+    if frames_card != frames_cpu:
+        raise AssertionError(f"phase 13: VITS frames card {frames_card} cpu "
+                             f"{frames_cpu}: a duration boundary flipped")
+    if not (torch.isfinite(wg).all() and err <= VITS_TOL):
+        raise AssertionError(f"phase 13: VITS rel_l2 {err}")
+    if (rc != 0 or cli_rate != cfg.sample_rate or cli_frames == 0
+            or cli_frames % cfg.hop):
+        raise AssertionError(f"phase 13: synth exited {rc}: {text[-300:]}")
+    return out
+
+
+def phase_voice(dev, llm, cli, counters, profile) -> dict:
+    """Phase 13: the voice path (module comment above). None of the port's
+    hand-written kernels is on it: every counter must stay at 0."""
+    t0 = time.perf_counter()
+    for f in counters.values():
+        f.launches = 0
+    sizes = voice_configs()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_voice_") as tmp:
+        out = {"whisper_tiny": phase_whisper(dev, cli, tmp, sizes),
+               "silero": phase_silero(dev, tmp),
+               "tts": phase_tts(dev, llm, sizes["tts"]),
+               "vits": phase_vits(dev, cli, tmp, sizes["vits"])}
+    launches = {k: f.launches for k, f in counters.items()}
+    expect_routes(launches, (), tuple(launches), "phase 13")
+    out["whisper_tiny"]["profile"] = profile()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 13 took {out['seconds']:.1f} s")
+    return out
+
+
+def voice_profile(dev) -> dict:
+    """Whisper-tiny (random weights from the seed) at each window under the
+    profiler: the decode window, VOICE_PROFILE_TOKENS greedy steps from the
+    prompt's cache, and the encoder, VOICE_PROFILE_ENCODES calls; each on
+    the host clock, then profiled: busy ms and launches a token (a call),
+    the idle share 1 - busy / wall, the largest kernels."""
+    from trackiellm_tpu_torch.audio import asr as asr_mod
+    from trackiellm_tpu_torch.models import whisper
+    cfg = whisper.WhisperConfig.tiny()
+    params = whisper.init_whisper(
+        torch.Generator(device=dev).manual_seed(SEED), cfg)
+    signal = voice_signal(VOICE_SECONDS, VOICE_RATE, SEED)
+    out = {}
+    for ctx in VOICE_WINDOWS:
+        c = cfg._replace(n_audio_ctx=ctx)
+        asr = asr_mod.WhisperASR(params, c, max_tokens=VOICE_PROFILE_TOKENS)
+        asr.transcribe_ids(signal, VOICE_RATE)  # warm
+        setup, run = decode_window(whisper, params, c,
+                                   asr.mel(signal, VOICE_RATE),
+                                   VOICE_PROFILE_TOKENS)
+        state = setup()
+        _, wall = wall_ms(lambda: run(state))
+        state = setup()
+        busy, n, by_name = device_breakdown(lambda: run(state))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+        per = VOICE_PROFILE_TOKENS
+        out[str(ctx)] = {"wall_ms_per_token": wall / per,
+                         "busy_ms_per_token": busy / per,
+                         "launches_per_token": n / per,
+                         "idle_share": 1.0 - busy / wall,
+                         "top": [[k[:60], t / per, m / per]
+                                 for k, (t, m) in top]}
+        log(f"  profile whisper-tiny decode (n_audio_ctx {ctx}): "
+            f"{wall / per:.3f} ms wall, {busy / per:.3f} ms busy, "
+            f"{n / per:.1f} launches a token (idle "
+            f"{out[str(ctx)]['idle_share']:.3f})")
+        mel = asr.mel(signal, VOICE_RATE)
+
+        def encodes():
+            for _ in range(VOICE_PROFILE_ENCODES):
+                whisper.encode(params, c, mel)
+        _, wall = wall_ms(encodes)
+        busy, n, by_name = device_breakdown(encodes)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+        per = VOICE_PROFILE_ENCODES
+        enc = {"wall_ms": wall / per, "busy_ms": busy / per,
+               "launches": n / per, "idle_share": 1.0 - busy / wall,
+               "top": [[k[:60], t / per, m / per] for k, (t, m) in top]}
+        out[str(ctx)]["encode"] = enc
+        log(f"  profile whisper-tiny encode (n_audio_ctx {ctx}): "
+            f"{enc['wall_ms']:.3f} ms wall, {enc['busy_ms']:.3f} ms busy, "
+            f"{enc['launches']:.1f} launches a call (idle "
+            f"{enc['idle_share']:.3f})")
+    return out
+
+
+def voice_profile_child() -> dict:
+    """``voice_profile`` in a process of its own (this script with
+    VOICE_PROFILE_FLAG), as phase 12 profiles: late in the smoke's process
+    the profiler has lost kernel records. The child's log lines are passed
+    on; its last line is the result."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), VOICE_PROFILE_FLAG],
+        capture_output=True, text=True, timeout=SERVE_TIMEOUT)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"phase 13: the profile's process exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    for line in lines[:-1]:
+        log(line)
+    return json.loads(lines[-1])
+
+
 def serve_config(llm):
     """Phases 5-7 and 12's configuration: Mistral-7B cut to max_seq 512."""
     return llm.LLMConfig.mistral_7b()._replace(max_seq=512,
@@ -2335,6 +3000,9 @@ def main() -> int:
         os.environ.pop(name, None)
     if sys.argv[1:] == [SERVE_PROFILE_FLAG]:
         return serve_profile_main(dev)
+    if sys.argv[1:] == [VOICE_PROFILE_FLAG]:
+        print(json.dumps(voice_profile(dev)), flush=True)
+        return 0
     smi = nvidia_smi()
     log(f"phase 1 device: torch {torch.__version__} cuda {torch.version.cuda}"
         f" capability {cap} | {smi}")
@@ -2350,21 +3018,25 @@ def main() -> int:
 
     counters = launch_counters()
     t0 = time.perf_counter()
+
+    def banner(msg: str) -> None:
+        """A phase's first line, with the seconds since the build began."""
+        log(f"{msg} [{time.perf_counter() - t0:.1f} s]")
     path = _build.build()
     _build.library()
     log(f"phase 2 build: nvcc and load {time.perf_counter() - t0:.1f} s -> "
         f"{path.relative_to(_build.BUILD_ROOT.parent.parent)}")
 
-    log("phase 3 kernels vs plain versions (card, L2 flushed per call):")
+    banner("phase 3 kernels vs plain versions (card, L2 flushed per call):")
     cfg = serve_config(llm)
     rows = phase_kernels(dev, quant, attention, fused, llm, diag,
                          serve_shapes(runner_mod, quant.KERNEL_MAX_M,
                                       cfg.max_seq, SERVE_SLOTS))
-    log("phase 4 width check (Mistral-7B width, 2 layers):")
+    banner("phase 4 width check (Mistral-7B width, 2 layers):")
     phase_width(dev, llm, quant, fused)
     slice_args = (dev, llm, runner_mod, tokenizer_mod)
     launches = {}
-    log("phase 5 slice (Mistral-7B, 32 layers, Q4, max_seq 512):")
+    banner("phase 5 slice (Mistral-7B, 32 layers, Q4, max_seq 512):")
     params4 = build_model(dev, llm, cfg, 4)
     launches[5] = drive(*slice_args, params4, cfg, counters, "abcd")
     expect_routes(launches[5], ("q4_matmul_w4a8", "quantize_activations",
@@ -2376,7 +3048,7 @@ def main() -> int:
                              "W4A8 matmul")
     log(json.dumps({"profile": profile_path(dev, runner_mod, tokenizer_mod,
                                             params4, cfg), "phase": 5}))
-    log("phase 6 Q8 slice (Mistral-7B, 32 layers, Q8, max_seq 512):")
+    banner("phase 6 Q8 slice (Mistral-7B, 32 layers, Q8, max_seq 512):")
     params8 = build_model(dev, llm, cfg, 8)
     launches[6] = drive(*slice_args, params8, cfg, counters, "abc")
     expect_routes(launches[6], ("q8_matmul", "flash_attention"),
@@ -2385,7 +3057,7 @@ def main() -> int:
     log(json.dumps({"profile": profile_path(dev, runner_mod, tokenizer_mod,
                                             params8, cfg), "phase": 6}))
     del params8
-    log("phase 7 opt-in Q4 routes (phase 5's model, TRACKIE_Q4_F32A=1, "
+    banner("phase 7 opt-in Q4 routes (phase 5's model, TRACKIE_Q4_F32A=1, "
         "TRACKIE_FUSED_MLP=1):")
     with levers_on():
         launches[7] = drive(*slice_args, params4, cfg, counters, "ab")
@@ -2395,12 +3067,12 @@ def main() -> int:
                        *DIAGNOSTIC), "phase 7")
         log(json.dumps({"profile": profile_path(
             dev, runner_mod, tokenizer_mod, params4, cfg), "phase": 7}))
-    log("phase 8 entry point (2-layer Q8 checkpoint, generate):")
+    banner("phase 8 entry point (2-layer Q8 checkpoint, generate):")
     phase_entry(dev, llm, checkpoint, cli, counters)
-    log("phase 9 diagnostics (the three tools; phase 5's model cut to "
+    banner("phase 9 diagnostics (the three tools; phase 5's model cut to "
         "32/16/8 layers):")
     launches[9] = phase_diagnostics(dev, params4, cfg, counters)
-    log(f"phase 10 tool calls and speculation (phase 5's model, max_seq "
+    banner(f"phase 10 tool calls and speculation (phase 5's model, max_seq "
         f"{SLICE10_MAX_SEQ}):")
     slice10 = phase_slice10(
         dev, llm, runner_mod, tokenizer_mod, quant, params4,
@@ -2410,22 +3082,27 @@ def main() -> int:
     expect_routes(launches[10], ("q4_matmul_w4a8", "quantize_activations",
                                  "flash_attention", "q4_matmul_f32a"),
                   ("q8_matmul", "fused_mlp_q4", *DIAGNOSTIC), "phase 10")
-    log(f"phase 11 GGUF to reply (Mistral-7B width, {GGUF_LAYERS} layers, "
+    banner(f"phase 11 GGUF to reply (Mistral-7B width, {GGUF_LAYERS} layers, "
         "Q4_K_M file, convert --bits 4, generate):")
     gguf = phase_gguf(
         dev, llm.LLMConfig.mistral_7b()._replace(n_layers=GGUF_LAYERS), llm,
         convert, checkpoint, quant, tokenizer_mod, cli, counters)
     launches[11] = gguf.pop("launches")
     log(json.dumps({"gguf": gguf}))
-    log(f"phase 12 serving (phase 5's model, {SERVE_SLOTS} slots, max_seq "
+    banner(f"phase 12 serving (phase 5's model, {SERVE_SLOTS} slots, max_seq "
         f"{cfg.max_seq}):")
     serve = phase_serve(dev, llm, runner_mod, tokenizer_mod, server_mod,
                         paging, measure_server, params4, cfg, counters,
                         profile=serve_profile_child)
     launches[12] = serve.pop("launches")
     del params4
+    banner("phase 13 voice (Whisper-tiny GGML at 30-s and 10-s windows, "
+        "large-v3 widths at 2+2 layers, Silero ONNX, TTS default, Piper "
+        "VITS):")
+    voice = phase_voice(dev, llm, cli, counters, voice_profile_child)
 
     smi = nvidia_smi()
+    print(json.dumps({"voice": voice, "card": smi}), flush=True)
     print(json.dumps({"serve": serve, "card": smi}), flush=True)
     print(json.dumps({"slice10": slice10, "card": smi}), flush=True)
     print(smi, flush=True)

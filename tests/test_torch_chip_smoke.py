@@ -481,3 +481,146 @@ def test_serve_profile_child_fails_without_a_card(monkeypatch):
     monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
     with pytest.raises(AssertionError, match="no CUDA device"):
         cs.serve_profile_child()
+
+
+def _tiny_voice(cs, monkeypatch):
+    """Phase 13 at tiny sizes on the CPU: the configs shrunk, the Piper
+    state the tiny VITS's, the syncs and CUDA-event timer stubbed, the
+    CLI's device the CPU."""
+    from tests.test_vits import TestConverter
+    from trackiellm_tpu_torch import __main__ as cli
+    from trackiellm_tpu_torch.models import tts, vits, whisper
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(cli, "_device", lambda name, verb: torch.device("cpu"))
+    monkeypatch.setattr(cs, "time_ms",
+                        lambda fn, iters=10, warmup=2: (fn(), 1.0)[1])
+    vcfg = vits.VITSConfig.tiny()
+    monkeypatch.setattr(cs, "voice_configs", lambda: {
+        "tiny": whisper.WhisperConfig.test(),
+        "large": whisper.WhisperConfig.test()._replace(n_mels=128),
+        "tts": tts.TTSConfig.tiny(),
+        "vits": (vcfg.d_model, vcfg.n_layers, vcfg.up_init_ch,
+                 vcfg.upsample_rates, 16000)})
+    monkeypatch.setattr(cs, "piper_state", lambda seed: {
+        k: v.numpy() for k, v in
+        TestConverter()._torch_vits_state(vcfg, seed).items()})
+    return cli
+
+
+def test_phase13_on_the_cpu(monkeypatch, capsys):
+    """Phase 13's control flow on the CPU at tiny widths: the GGML file is
+    written, loaded and transcribed at both windows (the CPU against
+    itself), the transcribe CLI prints the engine's text, the large-v3
+    widths transcribe, Silero runs its 312 chunks from an ONNX file, the
+    TTS streams and the Piper voice is read, compared and said through the
+    synth CLI; no kernel counter moves."""
+    from trackiellm_tpu_torch.models import llm
+    cs = _load()
+    cli = _tiny_voice(cs, monkeypatch)
+    out = cs.phase_voice(torch.device("cpu"), llm, cli, cs.launch_counters(),
+                         lambda: {"500": {"idle_share": 0.5}})
+    assert set(out) == {"whisper_tiny", "silero", "tts", "vits", "seconds"}
+    wt = out["whisper_tiny"]
+    assert set(wt["windows"]) == {str(w) for w in cs.VOICE_WINDOWS}
+    for w in wt["windows"].values():
+        assert w["logits_rel_l2"] == 0.0 and w["ids"]["first_diff"] == 27
+    assert wt["cli"]["rc"] == 0 and wt["profile"] == {"500": {
+        "idle_share": 0.5}}
+    assert out["silero"]["chunks"] == 312
+    assert out["silero"]["max_abs_err"] == 0.0
+    assert out["tts"]["streamed_bit_identical"]
+    assert out["vits"]["frames_card"] == out["vits"]["frames_cpu"] > 0
+    assert out["vits"]["cli"]["rc"] == 0
+    text = capsys.readouterr().out
+    for tag in ("whisper-tiny GGML:", "transcribe CLI (checkpoint, 48 kHz "
+                "WAV): exit 0", "whisper large-v3 widths", "silero (ONNX, "
+                "silero_v5 names): 312 chunks", "TTS default (60 chars)",
+                "synth CLI exit 0", "phase 13 took"):
+        assert tag in text, tag
+    json.dumps(out)
+
+
+def test_phase13_state_builders_match_the_published_layouts():
+    """The Silero and Piper initializers phase 13 writes carry the name
+    maps' published names and shapes, and convert to SileroConfig() and
+    VITSConfig()'s widths; the GGML writer's file reads back as the
+    state."""
+    from trackiellm_tpu_torch.models import convert, vad, whisper
+    from trackiellm_tpu_torch.models.ggml_reader import read_ggml_whisper
+    cs = _load()
+    st = cs.silero_state(0)
+    assert sorted(st) == sorted(convert.load_name_map("silero_v5"))
+    _, cfg = convert.silero_from_onnx(
+        convert.apply_name_map(st, convert.load_name_map("silero_v5")),
+        device="cpu")
+    assert cfg == vad.SileroConfig()
+    shapes = cs.map_shapes("piper_vits")
+    st = cs.piper_state(0)
+    assert {k: v.shape for k, v in st.items()} == shapes
+    _, vcfg = convert.vits_from_torch(st, device="cpu")
+    assert (vcfg.d_model, vcfg.n_layers, vcfg.up_init_ch,
+            vcfg.upsample_rates, 22050) == cs.voice_configs()["vits"]
+    import tempfile
+
+    import numpy as np
+    wcfg = whisper.WhisperConfig.test()
+    state = cs.whisper_state(wcfg, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "g.bin")
+        cs.write_ggml_whisper(path, state, wcfg, np.zeros((80, 201),
+                                                          np.float32),
+                              cs.whisper_vocab(300))
+        g = read_ggml_whisper(path)
+    assert g.hparams["n_audio_head"] == wcfg.n_heads and len(g.vocab) == 300
+    for name, a in state.items():
+        tol = 0 if a.ndim < 2 or name in cs.GGML_F32_NAMES else 1e-3
+        np.testing.assert_allclose(g.tensors[name], a, atol=tol, rtol=tol)
+
+
+def test_main_prints_the_voice_line_before_the_last_five(monkeypatch,
+                                                         capsys):
+    """main's output ends with the voice line, then the five lines of
+    earlier slices unchanged: serve, slice10, the card, kernels, result."""
+    from trackiellm_tpu_torch.ops import _build
+    cs = _load()
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda *a: (9, 0))
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "H100")
+    monkeypatch.setattr(cs, "nvidia_smi", lambda: "H100, 700.00 W")
+    monkeypatch.setattr(_build, "build", lambda: _build.BUILD_ROOT / "x")
+    monkeypatch.setattr(_build, "library", lambda: None)
+    for name, value in (("phase_kernels", {}), ("phase_width", None),
+                        ("build_model", {}), ("drive", {}),
+                        ("expect_routes", None), ("profile_path", {}),
+                        ("phase_entry", None), ("phase_diagnostics", {}),
+                        ("kernels_line", '{"kernels": []}')):
+        monkeypatch.setattr(cs, name, lambda *a, v=value, **k: v)
+    monkeypatch.setattr(cs, "drive", lambda *a, **k: {
+        "quantize_activations": 1, "q4_matmul_w4a8": 1})
+    monkeypatch.setattr(cs, "phase_slice10", lambda *a, **k: {
+        "launches": {}, "n": 10})
+    monkeypatch.setattr(cs, "phase_gguf", lambda *a, **k: {"launches": {}})
+    monkeypatch.setattr(cs, "phase_serve", lambda *a, **k: {
+        "launches": {}, "n": 12})
+    monkeypatch.setattr(cs, "phase_voice", lambda *a, **k: {"n": 13})
+    assert cs.main() == 0
+    lines = capsys.readouterr().out.strip().splitlines()[-6:]
+    assert json.loads(lines[0]) == {"voice": {"n": 13},
+                                    "card": "H100, 700.00 W"}
+    assert json.loads(lines[1]) == {"serve": {"n": 12},
+                                    "card": "H100, 700.00 W"}
+    assert json.loads(lines[2]) == {"slice10": {"launches": {}, "n": 10},
+                                    "card": "H100, 700.00 W"}
+    assert lines[3] == "H100, 700.00 W"
+    assert lines[4] == '{"kernels": []}'
+    assert json.loads(lines[5]) == {"ok": True, "device": {
+        "platform": "gpu", "kind": "H100", "count": 1}}
+
+
+def test_voice_profile_child_fails_without_a_card(monkeypatch):
+    import pytest
+    cs = _load()
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    with pytest.raises(AssertionError, match="no CUDA device"):
+        cs.voice_profile_child()

@@ -358,7 +358,7 @@ class TestLlamaGGUFRopeLayout:
         return tp, tcfg
 
     def _logits(self, params, cfg, tokens, n, steps):
-        cache = tllm.KVCache.create(cfg, torch.float32)
+        cache = tllm.KVCache.create(cfg, torch.float32, device="cpu")
         logits, cache = tllm.prefill(
             params, cfg, torch.from_numpy(tokens[:n].astype(np.int64)), n,
             cache)
@@ -569,7 +569,7 @@ def test_convert_then_generate_matches_the_jax_cli(cli_gguf, tmp_path, bits,
     jl, _ = jllm.prefill(_widen(jp), jcfg, jnp.asarray(toks), jnp.int32(40),
                          jllm.KVCache.create(jcfg, dtype=jnp.float32))
     tl, _ = tllm.prefill(_widen(tp), tcfg, torch.from_numpy(
-        toks.astype(np.int64)), 40, tllm.KVCache.create(tcfg, torch.float32))
+        toks.astype(np.int64)), 40, tllm.KVCache.create(tcfg, torch.float32, device="cpu"))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=ATOL)
     assert tmain(["generate", tdir, "-p", "ola mundo", "--max-tokens", "8",
                   "--device", "cpu"]) == 0

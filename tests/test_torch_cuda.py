@@ -635,7 +635,7 @@ def test_tiny_model_with_both_levers_on_the_card(dev, monkeypatch):
     lg, cg = llm.prefill(p_gpu, cfg, toks.to(dev), 50,
                          llm.KVCache.create(cfg, torch.float32, device=dev))
     lc, cc = llm.prefill(p_cpu, cfg, toks, 50,
-                         llm.KVCache.create(cfg, torch.float32))
+                         llm.KVCache.create(cfg, torch.float32, device="cpu"))
     assert _rel_l2(lg.cpu(), lc) < 1e-4
     for tok in (5, 77, 300):
         lg, cg = llm.decode_step(p_gpu, cfg, tok, cg)
@@ -661,7 +661,8 @@ def test_tiny_model_on_the_card_matches_cpu(dev):
         lg, _ = llm.prefill(p_gpu, cfg, toks[:bucket].to(dev), bucket - 3,
                             llm.KVCache.create(cfg, torch.float32, device=dev))
         lc, _ = llm.prefill(p_cpu, cfg, toks[:bucket], bucket - 3,
-                            llm.KVCache.create(cfg, torch.float32))
+                            llm.KVCache.create(cfg, torch.float32,
+                                               device="cpu"))
         assert ta.flash_attention.launches == before + (
             cfg.n_layers if bucket == 256 else 0)
         assert _rel_l2(lg.cpu(), lc) < 5e-2
@@ -1262,3 +1263,181 @@ def test_int8_pool_serves_on_the_card(dev):
             assert pool.free_pages == pool.n_pages - 1
         finally:
             server.close()
+
+
+@pytest.mark.parametrize("make", ["pool", "cache", "batched", "vad",
+                                  "silero"])
+def test_allocators_default_to_the_card(dev, make):
+    """With no device given, the page pool, both KV caches and the two VAD
+    states allocate on the current CUDA card."""
+    from trackiellm_tpu_torch.llm.paging import PagedKVPool
+    from trackiellm_tpu_torch.models import vad
+    cfg = llm.LLMConfig.tiny()
+    if make == "pool":
+        made = PagedKVPool(cfg, 8, 16)
+        tensors = (made.pool_k, made.pool_v)
+    elif make == "cache":
+        made = llm.KVCache.create(cfg)
+        tensors = (made.k, made.v)
+    elif make == "batched":
+        made = llm.BatchedKVCache.create(cfg, 2)
+        tensors = (made.k, made.v, made.lengths)
+    elif make == "vad":
+        tensors = (vad.init_state(vad.VADConfig()),)
+    else:
+        tensors = vad.silero_init_state(vad.SileroConfig())
+    assert all(t.device.type == "cuda" for t in tensors)
+
+
+# ---------------------------------------------------------------------------
+# The voice path on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _voice_audio(n, seed=0):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 16_000
+    x = sum(0.2 * np.sin(2 * np.pi * f * t) for f in (220.0, 440.0, 1330.0))
+    return (x + 0.05 * rng.standard_normal(n)).astype(np.float32)
+
+
+def test_voice_front_end_on_the_card(dev):
+    from trackiellm_tpu_torch.ops import mel, resample, scan
+    a = torch.from_numpy(_voice_audio(48_000))
+    for n_mels in (80, 128):
+        ref = mel.log_mel_spectrogram(a, n_mels=n_mels)
+        got = mel.log_mel_spectrogram(a.to(dev), n_mels=n_mels)
+        assert (got.cpu() - ref).abs().max().item() <= 1e-4
+    for up, down in ((1, 3), (3, 1), (160, 441)):
+        ref = resample.resample_poly(a, up, down)
+        got = resample.resample_poly(a.to(dev), up, down)
+        assert (got.cpu() - ref).abs().max().item() <= 1e-6
+    x = torch.rand((3, 300), generator=torch.Generator().manual_seed(1)) * 4
+    assert torch.equal(scan.cumsum(x.to(dev)).cpu(), scan.cumsum(x))
+
+
+def test_vads_on_the_card(dev):
+    """The neural VAD and Silero over 50 chunks, state carried: the card's
+    probabilities within 1e-5 of the CPU's."""
+    from trackiellm_tpu_torch.models import vad
+    rng = np.random.default_rng(2)
+    chunks = [torch.from_numpy((0.3 * rng.standard_normal(512))
+                               .astype(np.float32)) for _ in range(50)]
+    for init, init_state, step, cfg in (
+            (vad.init_vad, vad.init_state, vad.vad_step, vad.VADConfig()),
+            (vad.init_silero, vad.silero_init_state, vad.silero_step,
+             vad.SileroConfig())):
+        cpu = init(torch.Generator().manual_seed(3), cfg)
+        card = llm.params_to(cpu, dev)
+        sc, sg = init_state(cfg, "cpu"), init_state(cfg, dev)
+        worst = 0.0
+        for c in chunks:
+            pc, sc = step(cpu, cfg, c, sc)
+            pg, sg = step(card, cfg, c.to(dev), sg)
+            worst = max(worst, abs(float(pc) - float(pg)))
+        assert worst <= 1e-5
+
+
+def _whisper_pair(dev, cfg=None):
+    from trackiellm_tpu_torch.models import whisper
+    cfg = cfg or whisper.WhisperConfig.test()
+    cpu = whisper.init_whisper(torch.Generator().manual_seed(4), cfg)
+    return whisper, cfg, cpu, llm.params_to(cpu, dev)
+
+
+def test_whisper_on_the_card(dev):
+    from trackiellm_tpu_torch.ops import mel
+    whisper, cfg, cpu, card = _whisper_pair(dev)
+    a = torch.from_numpy(_voice_audio(cfg.n_audio_ctx * 2 * 160, seed=5))
+    m = mel.log_mel_spectrogram(a)
+    fc = whisper.encode(cpu, cfg, m)
+    fg = whisper.encode(card, cfg, m.to(dev))
+    assert _rel_l2(fg.cpu(), fc) <= 1e-5
+    cc = whisper.make_decoder_cache(cpu, cfg, fc)
+    cg = whisper.make_decoder_cache(card, cfg, fg)
+    for tok in (cfg.vocab_size - 2, 7, 200):
+        lc, cc = whisper.decode_step(cpu, cfg, tok, cc)
+        lg, cg = whisper.decode_step(card, cfg, tok, cg)
+        assert _rel_l2(lg.cpu(), lc) <= 1e-5
+    ids = whisper.transcribe_tokens(card, cfg, m.to(dev), max_tokens=20)
+    assert ids == whisper.transcribe_tokens_host(card, cfg, m.to(dev),
+                                                 max_tokens=20)
+
+
+def test_voice_convolutions_ignore_the_tf32_flags(dev):
+    """With TF32 allowed for cuDNN and cuBLAS, Whisper's front end (mel and
+    the two convolutions into the encoder) and the TTS vocoder still match
+    the CPU within 1e-5: their convolutions and matmuls run in full f32
+    (``exact_f32``), and the caller's flags come back as they were."""
+    from trackiellm_tpu_torch.models import tts
+    from trackiellm_tpu_torch.ops import mel
+    whisper, cfg, cpu, card = _whisper_pair(dev)
+    tcfg = tts.TTSConfig.tiny()
+    tcpu = tts.init_tts(torch.Generator().manual_seed(6), tcfg)
+    tcard = llm.params_to(tcpu, dev)
+    a = torch.from_numpy(_voice_audio(cfg.n_audio_ctx * 2 * 160, seed=6))
+    melt = torch.randn((tcfg.max_frames, tcfg.n_mels),
+                       generator=torch.Generator().manual_seed(7))
+    ref_w = whisper.encode(cpu, cfg, mel.log_mel_spectrogram(a))
+    ref_v = tts.vocoder_forward(tcpu, tcfg, melt)
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        got_w = whisper.encode(card, cfg,
+                               mel.log_mel_spectrogram(a.to(dev)))
+        got_v = tts.vocoder_forward(tcard, tcfg, melt.to(dev))
+        assert torch.backends.cudnn.allow_tf32
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    assert _rel_l2(got_w.cpu(), ref_w) <= 1e-5
+    assert _rel_l2(got_v.cpu(), ref_v) <= 1e-5
+
+
+def test_tts_on_the_card(dev):
+    """TTS tiny: the card's mel and waveform against the CPU's with the
+    frame counts equal, and the streamed chunks against the card's one-shot
+    waveform (bit for bit, or within 1e-6 where cuBLAS sums a window in
+    another order)."""
+    from trackiellm_tpu_torch.models import tts
+    cfg = tts.TTSConfig.tiny()
+    cpu = tts.init_tts(torch.Generator().manual_seed(8), cfg)
+    card = llm.params_to(cpu, dev)
+    for text, rate in (("hello there streaming friend", 1.0),
+                       ("uma xicara a frente.", 0.7)):
+        ids, n = tts.text_to_ids(text, cfg.max_chars)
+        ids = torch.from_numpy(ids.astype(np.int64))
+        mc, nc = tts.acoustic_forward(cpu, cfg, ids, n, rate)
+        mg, ng = tts.acoustic_forward(card, cfg, ids.to(dev), n, rate)
+        assert int(ng) == int(nc)
+        assert _rel_l2(mg.cpu(), mc) <= 1e-5
+        wc, _ = tts.synthesize(cpu, cfg, text, rate)
+        wg, _ = tts.synthesize(card, cfg, text, rate)
+        assert len(wg) == len(wc)
+        assert np.linalg.norm(wg - wc) / np.linalg.norm(wc) <= 1e-5
+        streamed = np.concatenate(list(tts.synthesize_streaming(
+            card, cfg, text, rate, chunk_frames=16, overlap=8)))
+        assert len(streamed) == len(wg)
+        assert np.abs(streamed - wg).max() <= 1e-6
+
+
+def test_vits_on_the_card(dev):
+    """VITS tiny with the CPU's noise: the card's waveform within 1e-4 of
+    the CPU's, the frame counts equal."""
+    from trackiellm_tpu_torch.models import vits
+    cfg = vits.VITSConfig.tiny()
+    cpu = vits.init_vits(torch.Generator().manual_seed(9), cfg)
+    card = llm.params_to(cpu, dev)
+    g = torch.Generator().manual_seed(10)
+    nw = torch.randn((2, cfg.max_phonemes), generator=g)
+    nz = torch.randn((cfg.d_model, cfg.max_frames), generator=g)
+    ph = torch.zeros(cfg.max_phonemes, dtype=torch.long)
+    ph[:12] = torch.arange(1, 13)
+    for use_sdp in (True, False):
+        wc, nc = vits.vits_infer(cpu, cfg, ph, 12, nw, nz, use_sdp=use_sdp)
+        wg, ng = vits.vits_infer(card, cfg, ph.to(dev), 12, nw.to(dev),
+                                 nz.to(dev), use_sdp=use_sdp)
+        assert int(ng) == int(nc)
+        assert _rel_l2(wg.cpu(), wc) <= 1e-4

@@ -163,7 +163,7 @@ def test_tiny_decode_through_the_fused_block_matches_jax(fused_lever,
     jl, jc = jllm.prefill(jp, cfg, jnp.asarray(toks), jnp.int32(40),
                           jllm.KVCache.create(cfg, dtype=jnp.float32))
     tl, tc = tllm.prefill(tp, tcfg, torch.from_numpy(toks.astype(np.int64)),
-                          40, tllm.KVCache.create(tcfg, torch.float32))
+                          40, tllm.KVCache.create(tcfg, torch.float32, device="cpu"))
     assert seen == {"jax": 0, "torch": 0}  # M = 64: the unfused path
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=1e-4)
     for tok in (7, 300, 12):

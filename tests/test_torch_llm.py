@@ -69,7 +69,7 @@ def _prefill_both(jp, tp, jcfg, tcfg, toks, length):
     jl, jc = jllm.prefill(jp, jcfg, jnp.asarray(toks), jnp.int32(length),
                           jllm.KVCache.create(jcfg, dtype=jnp.float32))
     tl, tc = tllm.prefill(tp, tcfg, torch.from_numpy(toks.astype(np.int64)),
-                          length, tllm.KVCache.create(tcfg, torch.float32))
+                          length, tllm.KVCache.create(tcfg, torch.float32, device="cpu"))
     return jl, jc, tl, tc
 
 
@@ -295,7 +295,7 @@ def test_other_family_knobs_raise(knob):
     _, tp = _params()
     with pytest.raises(NotImplementedError, match=name):
         tllm.prefill(tp, cfg, torch.zeros(64, dtype=torch.long), 1,
-                     tllm.KVCache.create(tllm.LLMConfig.tiny(), torch.float32))
+                     tllm.KVCache.create(tllm.LLMConfig.tiny(), torch.float32, device="cpu"))
 
 
 def test_rope_factors_raise():
@@ -303,7 +303,7 @@ def test_rope_factors_raise():
     cfg = tllm.LLMConfig.tiny()
     with pytest.raises(NotImplementedError, match="rope_factors"):
         tllm.decode_step(dict(tp, rope_factors=torch.ones(32)), cfg, 1,
-                         tllm.KVCache.create(cfg, torch.float32))
+                         tllm.KVCache.create(cfg, torch.float32, device="cpu"))
 
 
 def test_window_is_off_when_it_covers_max_seq():
@@ -339,7 +339,7 @@ def _batched_both(jp, tp, jcfg, tcfg, seqs, n_slots):
     """JAX and port batched caches with ``seqs`` ({slot: (tokens, length)})
     prefilled and inserted; the other slots stay empty (length 0)."""
     jb = jllm.BatchedKVCache.create(jcfg, n_slots, dtype=jnp.float32)
-    tb = tllm.BatchedKVCache.create(tcfg, n_slots, dtype=torch.float32)
+    tb = tllm.BatchedKVCache.create(tcfg, n_slots, dtype=torch.float32, device="cpu")
     for slot, (toks, length) in seqs.items():
         _, jc, _, tc = _prefill_both(jp, tp, jcfg, tcfg, toks, length)
         jb = jllm.insert_sequence(jb, jcfg, slot, jc)

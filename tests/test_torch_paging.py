@@ -61,9 +61,10 @@ def _pools(n_pages=16, page_size=16, int8=False):
         return (jpaging.PagedKVPool(JCFG, n_pages, page_size, jnp.int8,
                                     compute_dtype=jnp.float32),
                 tpaging.PagedKVPool(TCFG, n_pages, page_size, torch.int8,
-                                    compute_dtype=torch.float32))
+                                    compute_dtype=torch.float32, device="cpu"))
     return (jpaging.PagedKVPool(JCFG, n_pages, page_size, jnp.float32),
-            tpaging.PagedKVPool(TCFG, n_pages, page_size, torch.float32))
+            tpaging.PagedKVPool(TCFG, n_pages, page_size, torch.float32,
+                                device="cpu"))
 
 
 def _prefilled(jp, tp, toks, length):
@@ -71,7 +72,8 @@ def _prefilled(jp, tp, toks, length):
     jl, jc = jllm.prefill(jp, JCFG, jnp.asarray(toks), jnp.int32(length),
                           jllm.KVCache.create(JCFG, dtype=jnp.float32))
     tl, tc = tllm.prefill(tp, TCFG, torch.from_numpy(toks.astype(np.int64)),
-                          length, tllm.KVCache.create(TCFG, torch.float32))
+                          length,
+                          tllm.KVCache.create(TCFG, torch.float32, device="cpu"))
     return jl, jc, tl, tc
 
 
@@ -370,8 +372,35 @@ def test_prefix_cache_host_logic_follows_the_reference():
 
 
 def test_int8_pool_is_half_the_bytes():
-    bf = tpaging.PagedKVPool(TCFG, 8, 16, torch.bfloat16)
-    q = tpaging.PagedKVPool(TCFG, 8, 16, torch.int8)
+    bf = tpaging.PagedKVPool(TCFG, 8, 16, torch.bfloat16, device="cpu")
+    q = tpaging.PagedKVPool(TCFG, 8, 16, torch.int8, device="cpu")
     assert q.quantized and q.compute_dtype == torch.bfloat16
     q_bytes = sum(t.numel() * t.element_size() for t in q.pool_k)
     assert q_bytes < 0.55 * bf.pool_k.numel() * bf.pool_k.element_size()
+
+
+@pytest.mark.parametrize("make", ["pool", "cache", "batched", "vad",
+                                  "silero"])
+def test_allocators_need_a_card_or_an_explicit_cpu(make, monkeypatch):
+    """The page pool, both KV caches and the two VAD states take the CUDA
+    card when no device is given, as the JAX package's allocate on the
+    accelerator; without a card they raise rather than fall back to the
+    CPU, which must be asked for."""
+    from trackiellm_tpu_torch.models import vad as tvad
+    from trackiellm_tpu_torch.utils.errors import ErrorCode, TrackieError
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    build = {"pool": lambda **kw: tpaging.PagedKVPool(TCFG, 8, 16, **kw),
+             "cache": lambda **kw: tllm.KVCache.create(TCFG, **kw),
+             "batched": lambda **kw: tllm.BatchedKVCache.create(TCFG, 2,
+                                                                **kw),
+             "vad": lambda **kw: tvad.init_state(tvad.VADConfig(), **kw),
+             "silero": lambda **kw: tvad.silero_init_state(
+                 tvad.SileroConfig(), **kw)}[make]
+    with pytest.raises(TrackieError) as err:
+        build()
+    assert err.value.code == ErrorCode.DEVICE_UNAVAILABLE
+    assert "device=torch.device('cpu')" in str(err.value)
+    made = build(device="cpu")
+    t = {"pool": lambda: made.pool_k, "vad": lambda: made,
+         "silero": lambda: made[0]}.get(make, lambda: made.k)()
+    assert t.device.type == "cpu"

@@ -255,10 +255,12 @@ def test_greedy_mask():
 def test_port_imports_no_jax():
     """The port must run where JAX is absent: importing its runner (with
     its grammar, schema, speculation and sampling modules), its server and
-    page pool, fused block, checkpoint reader, model-file readers, GGUF
-    converter, logging, CLI, probes, diagnostic, conversion and serving
-    tools and chip_smoke.py pulls in no JAX module, no module of the JAX package
-    (``trackiellm_tpu`` or ``trackiellm_tpu.*``, even one that imports no
+    page pool, fused block, checkpoint reader, model-file readers, GGUF and
+    voice converters with their name maps, the voice path (mel, resampling,
+    VAD, Whisper, ASR, streaming transcription, TTS, phonemizer, TTS
+    engine, VITS), logging, CLI, probes, diagnostic, conversion and serving
+    tools and chip_smoke.py pulls in no JAX module, no module of the JAX
+    package (``trackiellm_tpu`` or ``trackiellm_tpu.*``, even one that imports no
     JAX) and none of the JAX package's tools (this test process has JAX
     loaded already, hence the subprocess)."""
     code = ("import sys, trackiellm_tpu_torch.llm.runner, "
@@ -284,7 +286,21 @@ def test_port_imports_no_jax():
             "trackiellm_tpu_torch.tools.measure_server, "
             "trackiellm_tpu_torch.llm.server, "
             "trackiellm_tpu_torch.llm.paging, "
-            "trackiellm_tpu_torch.__main__, chip_smoke; "
+            "trackiellm_tpu_torch.ops.mel, "
+            "trackiellm_tpu_torch.ops.resample, "
+            "trackiellm_tpu_torch.ops.scan, "
+            "trackiellm_tpu_torch.ops.conv, "
+            "trackiellm_tpu_torch.models.vad, "
+            "trackiellm_tpu_torch.models.whisper, "
+            "trackiellm_tpu_torch.models.tts, "
+            "trackiellm_tpu_torch.models.vits, "
+            "trackiellm_tpu_torch.audio.asr, "
+            "trackiellm_tpu_torch.audio.streaming_asr, "
+            "trackiellm_tpu_torch.audio.phonemizer, "
+            "trackiellm_tpu_torch.audio.tts_engine, "
+            "trackiellm_tpu_torch.models.convert as c; "
+            "c.load_name_map('silero_v5'); c.load_name_map('piper_vits'); "
+            "import trackiellm_tpu_torch.__main__, chip_smoke; "
             "bad = sorted(m for m in sys.modules if m in "
             "('jax', 'jaxlib', 'tools', 'trackiellm_tpu') or m.startswith("
             "('jax.', 'jaxlib.', 'trackiellm_tpu.', 'tools.'))); "

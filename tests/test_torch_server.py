@@ -151,7 +151,7 @@ def test_pipelined_eos_mid_chunk_matches(layout):
     padded = np.zeros(64, np.int64)
     padded[:len(ids)] = ids
     logits, cache = tllm.prefill(tp, CFG, torch.from_numpy(padded), len(ids),
-                                 tllm.KVCache.create(CFG, torch.float32))
+                                 tllm.KVCache.create(CFG, torch.float32, device="cpu"))
     chain = []
     for _ in range(24):
         chain.append(int(torch.argmax(logits)))

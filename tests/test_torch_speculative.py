@@ -88,7 +88,7 @@ def test_extend_all_logits_matches_jax(quantized, attn_len):
     _, jc = jllm.prefill(jp, jcfg, jnp.asarray(toks), jnp.int32(40),
                          jllm.KVCache.create(jcfg, dtype=jnp.float32))
     _, tc = tllm.prefill(tp, tcfg, torch.from_numpy(toks.astype(np.int64)),
-                         40, tllm.KVCache.create(tcfg, torch.float32))
+                         40, tllm.KVCache.create(tcfg, torch.float32, device="cpu"))
     chunk = np.random.default_rng(1).integers(0, 256, 16).astype(np.int32)
     jl, jc = jllm.extend(jp, jcfg, jnp.asarray(chunk), jnp.int32(11), jc,
                          attn_len=attn_len, all_logits=True)
@@ -119,7 +119,7 @@ def _prefill(tp, tcfg, prompt):
     padded[:len(prompt)] = prompt
     logits, cache = tllm.prefill(tp, tcfg, torch.from_numpy(padded),
                                  len(prompt),
-                                 tllm.KVCache.create(tcfg, torch.float32))
+                                 tllm.KVCache.create(tcfg, torch.float32, device="cpu"))
     return int(torch.argmax(logits)), cache
 
 

@@ -10,13 +10,21 @@
   generate <ckpt> -p PROMPT [--max-tokens N] [--temperature T] [--device D]
       run a generation from a native checkpoint (``LLMConfig`` only), such
       as one that ``convert`` wrote.
+  transcribe <wav> [--checkpoint DIR] [--device D]
+      transcribe a WAV with Whisper: a native checkpoint whose metadata
+      holds ``whisper_config``, else random ``WhisperConfig.test()``
+      weights (a smoke test, not a transcription).
+  synth -t TEXT --voice V --voice-config J [-o OUT] [--length-scale S]
+        [--device D]
+      synthesize a Piper voice (VITS; ``.onnx`` or ``.npz`` weights and the
+      voice's ``.json``) to a 16-bit WAV.
 
 Port of ``trackiellm_tpu/__main__.py``'s ``inspect``, the GGUF branch of
-``convert`` and ``generate``, with the JAX package's defaults (4 bits; 64
-tokens, temperature 0.7). ``convert`` and ``generate`` run on the CUDA
-card; the CPU is used only when ``--device cpu`` asks for it. The other
-``--family`` routes and ``--mmproj`` wait for ROADMAP Queue 1 items 8 and
-11; ``bench`` and ``demo`` are not ported yet.
+``convert``, ``generate``, ``transcribe`` and ``synth``, with the JAX
+package's defaults (4 bits; 64 tokens, temperature 0.7). Every command but
+``inspect`` runs on the CUDA card; the CPU is used only when ``--device
+cpu`` asks for it. The other ``--family`` routes and ``--mmproj`` wait for
+ROADMAP Queue 1 items 8 and 11; ``bench`` and ``demo`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -120,6 +128,65 @@ def _cmd_generate(args) -> int:
     return 0
 
 
+def _cmd_transcribe(args) -> int:
+    import wave
+
+    import numpy as np
+
+    from trackiellm_tpu_torch.audio.asr import WhisperASR
+    from trackiellm_tpu_torch.models import whisper as whisper_model
+
+    device = _device(args.device, "transcribe")
+    with wave.open(args.wav, "rb") as f:
+        sr = f.getframerate()
+        raw = f.readframes(f.getnframes())
+        audio = np.frombuffer(raw, np.int16).astype(np.float32) / 32768.0
+        if f.getnchannels() > 1:
+            audio = audio.reshape(-1, f.getnchannels()).mean(1)
+
+    if args.checkpoint:
+        params, cfg, meta = load_checkpoint(args.checkpoint, device=device)
+        if meta.get("whisper_config"):
+            cfg = whisper_model.WhisperConfig(**meta["whisper_config"])
+        if not isinstance(cfg, whisper_model.WhisperConfig):
+            print("checkpoint has no whisper_config", file=sys.stderr)
+            return 1
+    else:
+        print("(no checkpoint given: using random test weights — output "
+              "is a smoke test, not a transcription)", file=sys.stderr)
+        cfg = whisper_model.WhisperConfig.test()
+        params = whisper_model.init_whisper(
+            torch.Generator(device=device).manual_seed(0), cfg)
+    asr = WhisperASR(params, cfg)
+    print(asr.transcribe(audio, sample_rate=sr))
+    return 0
+
+
+def _cmd_synth(args) -> int:
+    """Synthesize speech (the Piper CLI workflow twin): a Piper voice
+    (--voice model.onnx --voice-config voice.json) through the VITS graph,
+    written as a 16-bit WAV."""
+    import wave
+
+    import numpy as np
+
+    from trackiellm_tpu_torch.models.vits import VITSVoice
+
+    device = _device(args.device, "synth")
+    voice = VITSVoice.from_piper(args.voice, args.voice_config,
+                                 device=device)
+    wav = voice.synthesize(args.text, length_scale=args.length_scale)
+    pcm = (np.clip(wav, -1.0, 1.0) * 32767).astype(np.int16)
+    with wave.open(args.output, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(voice.cfg.sample_rate)
+        f.writeframes(pcm.tobytes())
+    print(f"wrote {args.output}: {len(pcm)} samples @ "
+          f"{voice.cfg.sample_rate} Hz")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="trackiellm_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -155,6 +222,28 @@ def main(argv=None) -> int:
     p.add_argument("--image", default=None,
                    help="multimodal checkpoints: not ported yet")
     p.set_defaults(fn=_cmd_generate)
+
+    p = sub.add_parser("transcribe", help="transcribe a WAV file")
+    p.add_argument("wav")
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card; the CPU only "
+                        "when asked for with --device cpu)")
+    p.set_defaults(fn=_cmd_transcribe)
+
+    p = sub.add_parser("synth", help="synthesize speech from a Piper "
+                       "voice (VITS) to a WAV file")
+    p.add_argument("-t", "--text", required=True)
+    p.add_argument("--voice", required=True,
+                   help="voice weights (.onnx/.npz)")
+    p.add_argument("--voice-config", required=True,
+                   help="Piper voice .json (phoneme_id_map)")
+    p.add_argument("-o", "--output", default="out.wav")
+    p.add_argument("--length-scale", type=float, default=1.0)
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card; the CPU only "
+                        "when asked for with --device cpu)")
+    p.set_defaults(fn=_cmd_synth)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -27,6 +27,7 @@ import torch
 
 from trackiellm_tpu_torch.models import llm as llm_model
 from trackiellm_tpu_torch.ops.attention import decode_attention_batch
+from trackiellm_tpu_torch.ops.backend import default_device
 from trackiellm_tpu_torch.utils.errors import ErrorCode, TrackieError
 
 
@@ -246,11 +247,13 @@ class PagedKVPool:
         """``dtype=torch.int8`` stores the pool quantized (:class:`
         QuantPool`): half the pool bytes and half the gather traffic.
         ``compute_dtype`` is the dtype a prefix is staged in (bfloat16 for
-        an int8 pool by default, else ``dtype``)."""
+        an int8 pool by default, else ``dtype``). ``device`` defaults to
+        the CUDA card; with none the pool raises unless the CPU is asked
+        for."""
         self.cfg = cfg
         self.page_size = page_size
         self.n_pages = n_pages
-        self.device = torch.device(device or "cpu")
+        self.device = default_device(device, "allocate a page pool")
         self.quantized = dtype == torch.int8
         self.compute_dtype = compute_dtype or (
             torch.bfloat16 if self.quantized else dtype)

@@ -13,8 +13,11 @@ which the two packages read and write alike:
   nibble encoding (``q4_packing``) when the tree holds Q4 values.
 
 So a checkpoint that the JAX package converted (``python -m trackiellm_tpu
-convert model.gguf -o DIR --bits 8``) loads here, and the reverse. Only
-``LLMConfig`` checkpoints are supported.
+convert model.gguf -o DIR --bits 8``) loads here, and the reverse. The
+configs read are ``LLMConfig`` and the voice models' (``WhisperConfig``,
+``TTSConfig``, ``VITSConfig``); a Whisper checkpoint may also carry its
+config in the metadata (``whisper_config``), as the JAX package's
+``transcribe`` reads it.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from trackiellm_tpu_torch.models.llm import LLMConfig
+from trackiellm_tpu_torch.ops.backend import default_device
 from trackiellm_tpu_torch.ops.quant import QuantizedLinear
 from trackiellm_tpu_torch.utils.errors import ErrorCode, TrackieError
 
@@ -165,7 +169,27 @@ def _unflatten(tree: Any, arrays: Dict[str, torch.Tensor]) -> Any:
     return walk(tree)
 
 
-def _config(sidecar: Dict[str, Any], directory: str) -> Optional[LLMConfig]:
+def _voice_config(cls: str):
+    """The voice models' config classes, imported when a checkpoint names
+    one (their modules import this one's neighbours, not this module)."""
+    if cls == "WhisperConfig":
+        from trackiellm_tpu_torch.models.whisper import WhisperConfig
+        return WhisperConfig
+    if cls == "TTSConfig":
+        from trackiellm_tpu_torch.models.tts import TTSConfig
+        return TTSConfig
+    if cls == "VITSConfig":
+        from trackiellm_tpu_torch.models.vits import VITSConfig
+        return VITSConfig
+    return None
+
+
+def _tuples(v):
+    """JSON's lists back to the tuples configs keep (hashable)."""
+    return tuple(_tuples(x) for x in v) if isinstance(v, list) else v
+
+
+def _config(sidecar: Dict[str, Any], directory: str):
     if "config" not in sidecar:
         return None
     cls = sidecar.get("config_class")
@@ -173,17 +197,18 @@ def _config(sidecar: Dict[str, Any], directory: str) -> Optional[LLMConfig]:
         raise NotImplementedError(
             f"{directory} holds a {cls} checkpoint: {_WAITING[cls]} is not "
             "ported yet")
-    if cls != "LLMConfig":
+    config_cls = LLMConfig if cls == "LLMConfig" else _voice_config(cls)
+    if config_cls is None:
         raise NotImplementedError(
             f"{directory}: config class {cls!r} is not supported; the port "
-            "loads LLMConfig checkpoints only")
-    # JSON turns tuples into lists; configs keep tuples (hashable).
-    return LLMConfig(**{k: tuple(v) if isinstance(v, list) else v
-                        for k, v in sidecar["config"].items()})
+            "loads LLMConfig checkpoints and the voice models' "
+            "(WhisperConfig, TTSConfig, VITSConfig)")
+    return config_cls(**{k: _tuples(v)
+                         for k, v in sidecar["config"].items()})
 
 
 def load_checkpoint(directory: str, device: Optional[torch.device] = None,
-                    ) -> Tuple[Any, Optional[LLMConfig], Dict]:
+                    ) -> Tuple[Any, Optional[Any], Dict]:
     """Load (params on ``device``, config or None, metadata). Legacy
     biased-v1 Q4 values are repacked; an unknown Q4 packing raises.
     ``device`` defaults to the current CUDA card; with no card it raises
@@ -191,13 +216,7 @@ def load_checkpoint(directory: str, device: Optional[torch.device] = None,
     tree_path = os.path.join(directory, _TREE_FILE)
     if not os.path.exists(tree_path):
         raise TrackieError(ErrorCode.FILE_NOT_FOUND, directory)
-    if device is None:
-        if not torch.cuda.is_available():
-            raise TrackieError(
-                ErrorCode.DEVICE_UNAVAILABLE,
-                "no CUDA device: pass device=torch.device('cpu') to load "
-                "onto the CPU")
-        device = torch.device("cuda", torch.cuda.current_device())
+    device = default_device(device, "load a checkpoint")
     with open(tree_path, encoding="utf-8") as f:
         spec = json.load(f)
     with open(os.path.join(directory, _CONFIG_FILE), encoding="utf-8") as f:

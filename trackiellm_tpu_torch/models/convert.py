@@ -28,6 +28,13 @@ the ``device`` given, the CUDA card by default, through
 card and on the CPU. The arches with converters of their own (MLA, Mamba,
 Falcon, Llama-4, GLM-4-MoE, Qwen3-Next) and the transformers-state-dict
 routes are not ported yet (ROADMAP Queue 1 item 11).
+
+The voice converters (``whisper_from_torch``, ``whisper_from_ggml``,
+``vad_from_torch``, ``silero_from_onnx``, ``tts_from_torch``,
+``vits_from_torch``) and the published-name maps (``apply_name_map``,
+``load_name_map`` over ``models/name_maps/``, copies of the JAX package's
+``silero_v5`` and ``piper_vits`` maps) are ported too; each puts the
+reference's tree on ``device``, the CUDA card by default.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from trackiellm_tpu_torch.models.loader import (
     load_gguf_tensor,
     read_gguf_header,
 )
+from trackiellm_tpu_torch.ops.backend import default_device
 from trackiellm_tpu_torch.ops.quant import (QuantizedLinear, quantize_q4,
                                             quantize_q8)
 from trackiellm_tpu_torch.utils.errors import ErrorCode, TrackieError
@@ -343,19 +351,6 @@ def _deinterleave_rope_cols(w: np.ndarray, n_heads: int, head_dim: int,
     return np.concatenate([rot, rest], axis=-1).reshape(shape)
 
 
-def _conversion_device(device: Optional[torch.device]) -> torch.device:
-    """The device asked for; by default the CUDA card, and with none a
-    TrackieError rather than the CPU, which must be asked for."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise TrackieError(
-            ErrorCode.DEVICE_UNAVAILABLE,
-            "no CUDA device: pass device=torch.device('cpu') to convert on "
-            "the CPU")
-    return torch.device("cuda", torch.cuda.current_device())
-
-
 def gguf_to_llm_params(
     path: str,
     bits: Optional[int] = 4,
@@ -374,7 +369,7 @@ def gguf_to_llm_params(
     ``gguf_to_llm_params`` on the same file. A config whose knobs the port
     cannot run yet converts all the same and stops at
     ``models/llm.py:check_supported`` when it runs."""
-    device = _conversion_device(device)
+    device = default_device(device, "convert")
     gguf = read_gguf_header(path)
     cfg = config_from_gguf(gguf)
     if max_layers is not None:
@@ -714,3 +709,507 @@ def gguf_convert_auto(path: str, bits: Optional[int] = None,
             f"GGUF arch {arch!r}: its converter ({_WAITING_ARCHES[arch]}) "
             "is not ported yet (ROADMAP Queue 1 item 11)")
     return gguf_to_llm_params(path, bits=bits, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Published-name maps
+# ---------------------------------------------------------------------------
+
+def apply_name_map(state: Dict[str, Any], mapping: Dict[str, str],
+                   strict: bool = False) -> Dict[str, Any]:
+    """Rename a published checkpoint's tensors onto the layout a
+    ``*_from_torch`` converter expects.
+
+    ``mapping``: {published_name: converter_name}. Names absent from the
+    mapping pass through unchanged (strict=True raises instead)."""
+    out: Dict[str, Any] = {}
+    unmapped = []
+    for k, v in state.items():
+        if k in mapping:
+            out[mapping[k]] = v
+        else:
+            unmapped.append(k)
+            out[k] = v
+    if strict and unmapped:
+        raise TrackieError(
+            ErrorCode.MODEL_METADATA_INVALID,
+            f"{len(unmapped)} tensors not covered by the name map: "
+            f"{unmapped[:8]}...")
+    return out
+
+
+def load_name_map(name_or_path: str) -> Dict[str, str]:
+    """Load a name map by file path or by bundled name ('silero_v5',
+    'piper_vits'); keys starting with '_' are comments."""
+    import json
+
+    path = name_or_path
+    if not os.path.exists(path):
+        bundled = os.path.join(os.path.dirname(__file__), "name_maps",
+                               f"{name_or_path}.json")
+        if os.path.exists(bundled):
+            path = bundled
+        else:
+            raise TrackieError(ErrorCode.FILE_NOT_FOUND,
+                               f"name map {name_or_path!r} (not a file, "
+                               f"and no bundled map of that name)")
+    with open(path, encoding="utf-8") as f:
+        data = json.load(f)
+    return {k: v for k, v in data.items() if not k.startswith("_")}
+
+
+# ---------------------------------------------------------------------------
+# Voice converters: torch-layout state dicts -> the reference's trees
+# ---------------------------------------------------------------------------
+
+def _f32(a) -> np.ndarray:
+    return np.asarray(a, np.float32)
+
+
+def _on(a, device: torch.device) -> torch.Tensor:
+    """An f32 copy of ``a`` on ``device`` (reader arrays may be read-only
+    views of the file's bytes)."""
+    return torch.tensor(_f32(a), device=device)
+
+
+def whisper_config_from_torch(state: Dict[str, Any]):
+    """Derive a WhisperConfig from checkpoint shapes (standard layout:
+    encoder.conv1.weight (d, n_mels, 3), decoder.positional_embedding
+    (n_text_ctx, d), head_dim 64 across all published sizes)."""
+    from trackiellm_tpu_torch.models.whisper import WhisperConfig
+
+    d, n_mels, _ = np.shape(state["encoder.conv1.weight"])
+    n_audio = len({k.split(".")[2] for k in state
+                   if k.startswith("encoder.blocks.")})
+    n_text = len({k.split(".")[2] for k in state
+                  if k.startswith("decoder.blocks.")})
+    vocab, _ = np.shape(state["decoder.token_embedding.weight"])
+    n_text_ctx, _ = np.shape(state["decoder.positional_embedding"])
+    return WhisperConfig(
+        n_mels=n_mels, d_model=d, n_heads=max(d // 64, 1),
+        n_audio_layers=n_audio, n_text_layers=n_text,
+        n_text_ctx=n_text_ctx, vocab_size=vocab)
+
+
+def _whisper_layer_stack_from_torch(state, prefix: str, n: int,
+                                    device: torch.device):
+    """Stack n transformer blocks (attn_ln, attn.query/key/value/out with
+    biased q/v/out, mlp_ln, mlp.0/mlp.2) into the (n, ...) layout of
+    models/whisper; torch linears (out, in) are transposed."""
+    def S(fmt, mat=True):
+        arrs = [_f32(state[fmt.format(i)]) for i in range(n)]
+        return _on(np.stack([a.T if mat else a for a in arrs]), device)
+
+    p = prefix
+    return {
+        "ln1": S(p + ".{}.attn_ln.weight", False),
+        "ln1_b": S(p + ".{}.attn_ln.bias", False),
+        "wq": S(p + ".{}.attn.query.weight"),
+        "wk": S(p + ".{}.attn.key.weight"),
+        "wv": S(p + ".{}.attn.value.weight"),
+        "wo": S(p + ".{}.attn.out.weight"),
+        "bq": S(p + ".{}.attn.query.bias", False),
+        "bv": S(p + ".{}.attn.value.bias", False),
+        "bo": S(p + ".{}.attn.out.bias", False),
+        "ln2": S(p + ".{}.mlp_ln.weight", False),
+        "ln2_b": S(p + ".{}.mlp_ln.bias", False),
+        "w1": S(p + ".{}.mlp.0.weight"),
+        "b1": S(p + ".{}.mlp.0.bias", False),
+        "w2": S(p + ".{}.mlp.2.weight"),
+        "b2": S(p + ".{}.mlp.2.bias", False),
+    }
+
+
+def whisper_from_torch(state: Dict[str, Any],
+                       device: Optional[torch.device] = None):
+    """Standard Whisper checkpoint (torch state-dict arrays) -> (params,
+    WhisperConfig) for models/whisper, on ``device`` (the CUDA card by
+    default). Linears (out, in) are transposed; conv1ds (out, in, k) become
+    (k, in, out). The encoder's sinusoidal buffer is not copied: the model
+    computes the same sinusoids."""
+    device = default_device(device, "convert")
+    cfg = whisper_config_from_torch(state)
+    n = cfg.n_text_layers
+
+    def conv(name):
+        return _on(_f32(state[name]).transpose(2, 1, 0), device)
+
+    def vec(name):
+        return _on(state[name], device)
+
+    def S(fmt, mat=True):
+        arrs = [_f32(state[fmt.format(i)]) for i in range(n)]
+        return _on(np.stack([a.T if mat else a for a in arrs]), device)
+
+    cb = "decoder.blocks"
+    params = {
+        "conv1_w": conv("encoder.conv1.weight"),
+        "conv1_b": vec("encoder.conv1.bias"),
+        "conv2_w": conv("encoder.conv2.weight"),
+        "conv2_b": vec("encoder.conv2.bias"),
+        "enc": _whisper_layer_stack_from_torch(
+            state, "encoder.blocks", cfg.n_audio_layers, device),
+        "enc_ln": vec("encoder.ln_post.weight"),
+        "enc_ln_b": vec("encoder.ln_post.bias"),
+        "tok_emb": vec("decoder.token_embedding.weight"),
+        "pos_emb": vec("decoder.positional_embedding"),
+        "dec": _whisper_layer_stack_from_torch(state, cb, n, device),
+        "cross": {
+            "ln": S(cb + ".{}.cross_attn_ln.weight", False),
+            "ln_b": S(cb + ".{}.cross_attn_ln.bias", False),
+            "wq": S(cb + ".{}.cross_attn.query.weight"),
+            "wk": S(cb + ".{}.cross_attn.key.weight"),
+            "wv": S(cb + ".{}.cross_attn.value.weight"),
+            "wo": S(cb + ".{}.cross_attn.out.weight"),
+            "bq": S(cb + ".{}.cross_attn.query.bias", False),
+            "bv": S(cb + ".{}.cross_attn.value.bias", False),
+            "bo": S(cb + ".{}.cross_attn.out.bias", False),
+        },
+        "dec_ln": vec("decoder.ln.weight"),
+        "dec_ln_b": vec("decoder.ln.bias"),
+    }
+    return params, cfg
+
+
+def whisper_from_ggml(path: str, device: Optional[torch.device] = None):
+    """whisper.cpp GGML file (the reference's ASR artifact) -> (params on
+    ``device``, cfg, tokenizer, mel_filters).
+
+    The GGML container keeps the openai state-dict names, so this is the
+    GGML reader feeding :func:`whisper_from_torch`; the file's byte vocab
+    becomes a decode-capable tokenizer, and its mel filterbank is returned
+    for callers that want the original filters. The shape-derived config
+    is checked against the file's hparams: a mismatch means a malformed
+    file."""
+    from trackiellm_tpu_torch.models.ggml_reader import (
+        GGMLVocabTokenizer, read_ggml_whisper)
+
+    g = read_ggml_whisper(path)
+    params, cfg = whisper_from_torch(g.tensors, device=device)
+    hp = g.hparams
+    derived = {"n_mels": cfg.n_mels, "n_audio_layer": cfg.n_audio_layers,
+               "n_text_layer": cfg.n_text_layers,
+               "n_audio_state": cfg.d_model, "n_text_state": cfg.d_model,
+               "n_vocab": cfg.vocab_size, "n_text_ctx": cfg.n_text_ctx}
+    for key, ours in derived.items():
+        if hp.get(key, ours) != ours:
+            raise TrackieError(
+                ErrorCode.MODEL_METADATA_INVALID,
+                f"{path}: hparam {key}={hp[key]} disagrees with tensor "
+                f"shapes ({ours})")
+    # n_heads is not shape-derivable (head_dim 64 is assumed); the hparams
+    # win.
+    if hp.get("n_audio_head", cfg.n_heads) != cfg.n_heads:
+        cfg = cfg._replace(n_heads=hp["n_audio_head"])
+    if hp.get("n_audio_ctx", cfg.n_audio_ctx) != cfg.n_audio_ctx:
+        cfg = cfg._replace(n_audio_ctx=hp["n_audio_ctx"])
+    return params, cfg, GGMLVocabTokenizer(g.vocab), g.mel_filters
+
+
+def _lin(state, prefix, device):
+    """torch nn.Linear -> {"w": (in, out), "b": (out,)}."""
+    return {"w": _on(_f32(state[f"{prefix}.weight"]).T, device),
+            "b": _on(state[f"{prefix}.bias"], device)}
+
+
+def _conv1d_tio(state, prefix, device):
+    """torch nn.Conv1d (out, in, k) -> {"w": (k, in, out), "b"}."""
+    return {"w": _on(_f32(state[f"{prefix}.weight"]).transpose(2, 1, 0),
+                     device),
+            "b": _on(state[f"{prefix}.bias"], device)}
+
+
+def vad_from_torch(state: Dict[str, Any],
+                   device: Optional[torch.device] = None):
+    """Silero-shape VAD checkpoint (two feature Linears, a GRUCell carrying
+    the streaming state, a Linear head: "conv1"/"conv2"/"gru"/"out") ->
+    (params, VADConfig) for models/vad, on ``device``. GRUCell's gate order
+    r, z, n with separate input/hidden biases is what vad_step computes."""
+    from trackiellm_tpu_torch.models.vad import VADConfig
+
+    device = default_device(device, "convert")
+    wi = _f32(state["gru.weight_ih"])
+    hidden = wi.shape[0] // 3
+    n_mels = int(np.shape(state["conv1.weight"])[1])
+    conv_ch = int(np.shape(state["conv1.weight"])[0])
+    cfg = VADConfig(n_mels=n_mels, conv_ch=conv_ch, hidden=hidden)
+    params = {
+        "conv1": _lin(state, "conv1", device),
+        "conv2": _lin(state, "conv2", device),
+        "gru_wi": {"w": _on(wi.T, device),
+                   "b": _on(state["gru.bias_ih"], device)},
+        "gru_wh": {"w": _on(_f32(state["gru.weight_hh"]).T, device),
+                   "b": _on(state["gru.bias_hh"], device)},
+        "out": _lin(state, "out", device),
+    }
+    return params, cfg
+
+
+def silero_from_onnx(state: Dict[str, Any],
+                     device: Optional[torch.device] = None):
+    """Published Silero VAD v5 ONNX initializers (with or without the
+    ``_model.`` prefix) -> (params, SileroConfig) for
+    models/vad.py::SileroVAD, on ``device``."""
+    from trackiellm_tpu_torch.models.vad import SileroConfig
+
+    device = default_device(device, "convert")
+
+    def get(name):
+        for k in (name, f"_model.{name}"):
+            if k in state:
+                return _f32(state[k])
+        raise KeyError(name)
+
+    basis = get("stft.forward_basis_buffer")
+    if basis.ndim == 3:          # (258, 1, 256) conv layout
+        basis = basis[:, 0, :]
+    enc = [(get(f"encoder.{i}.reparam_conv.weight"),
+            get(f"encoder.{i}.reparam_conv.bias")) for i in range(4)]
+    wi = get("decoder.rnn.weight_ih")
+    cfg = SileroConfig(n_freqs=enc[0][0].shape[1],
+                       enc_ch=tuple(w.shape[0] for w, _ in enc),
+                       hidden=wi.shape[0] // 4)
+    params: Dict[str, Any] = {"stft_basis": _on(basis, device)}
+    for i, (w, b) in enumerate(enc):
+        params[f"enc{i}_w"] = _on(w, device)
+        params[f"enc{i}_b"] = _on(b, device)
+    params["lstm_wi"] = _on(wi, device)
+    params["lstm_wh"] = _on(get("decoder.rnn.weight_hh"), device)
+    params["lstm_bi"] = _on(get("decoder.rnn.bias_ih"), device)
+    params["lstm_bh"] = _on(get("decoder.rnn.bias_hh"), device)
+    params["head_w"] = _on(get("decoder.decoder.2.weight").reshape(-1),
+                           device)
+    params["head_b"] = _on(get("decoder.decoder.2.bias").reshape(()),
+                           device)
+    return params, cfg
+
+
+def tts_from_torch(state: Dict[str, Any], upsample=(4, 5, 8),
+                   device: Optional[torch.device] = None):
+    """TTS checkpoint (phoneme Embedding, Conv1d encoder/decoder stacks,
+    Linear duration predictor and mel head, Conv1d vocoder, named as
+    models/tts's tree) -> (params, TTSConfig), on ``device``."""
+    from trackiellm_tpu_torch.models.tts import TTSConfig
+
+    device = default_device(device, "convert")
+    emb = _f32(state["emb.weight"])
+    n_mels = int(np.shape(state["mel_out.weight"])[0])
+    voc_ch = int(np.shape(state["voc_in.weight"])[0])
+    cfg = TTSConfig(vocab_size=emb.shape[0], d_model=emb.shape[1],
+                    n_mels=n_mels, voc_ch=voc_ch, upsample=tuple(upsample))
+    params = {"emb": _on(emb, device)}
+    for name in ("enc1", "enc2", "dec1", "dec2", "voc_in", "voc_out"):
+        params[name] = _conv1d_tio(state, name, device)
+    for name in ("dur1", "dur2", "mel_out"):
+        params[name] = _lin(state, name, device)
+    for i in range(len(cfg.upsample)):
+        for part in (f"voc_up{i}", f"voc_res{i}a", f"voc_res{i}b"):
+            params[part] = _conv1d_tio(state, part, device)
+    return params, cfg
+
+
+def _wn_weight(state: Dict[str, Any], prefix: str) -> np.ndarray:
+    """Reconstruct a weight-normed conv weight: w = g * v / ||v|| (torch
+    weight_norm, dim=0). Falls back to a plain ``.weight``."""
+    if f"{prefix}.weight" in state:
+        return _f32(state[f"{prefix}.weight"])
+    g = _f32(state[f"{prefix}.weight_g"])
+    v = _f32(state[f"{prefix}.weight_v"])
+    norm = np.sqrt((v.reshape(v.shape[0], -1) ** 2).sum(-1))
+    return g.reshape(-1, *([1] * (v.ndim - 1))) * v / norm.reshape(
+        -1, *([1] * (v.ndim - 1)))
+
+
+def vits_from_torch(state: Dict[str, Any], max_phonemes: int = 256,
+                    max_frames: int = 768, sample_rate: int = 22050,
+                    device: Optional[torch.device] = None):
+    """Published VITS/Piper checkpoint (torch module names: enc_p.*, dp.*
+    stochastic duration predictor, flow.flows.*, dec.* HiFiGAN) ->
+    (params, VITSConfig) for models/vits.py::vits_infer, on ``device``.
+    Weight-normed convs are rebuilt from weight_g/weight_v on the host, as
+    the reference does."""
+    from trackiellm_tpu_torch.models.vits import VITSConfig, stack_trees
+
+    device = default_device(device, "convert")
+
+    def A(k):
+        return _on(state[k], device)
+
+    def W(prefix):
+        return _on(_wn_weight(state, prefix), device)
+
+    emb = _f32(state["enc_p.emb.weight"])
+    d_model = emb.shape[1]
+    attn_idx = [int(k.split(".")[3]) for k in state
+                if k.startswith("enc_p.encoder.attn_layers.")]
+    if not attn_idx:
+        raise KeyError("enc_p.encoder.attn_layers.* (not a VITS "
+                       "checkpoint, or names need a name map)")
+    n_layers = max(attn_idx) + 1
+    rel = _f32(state["enc_p.encoder.attn_layers.0.emb_rel_k"])
+    window = (rel.shape[-2] - 1) // 2
+    head_dim = rel.shape[-1]
+    n_heads = d_model // head_dim
+    ffn_shape = np.shape(state["enc_p.encoder.ffn_layers.0.conv_1.weight"])
+    ffn_ch, ffn_kernel = ffn_shape[0], ffn_shape[2]
+
+    layers = []
+    for i in range(n_layers):
+        ap = f"enc_p.encoder.attn_layers.{i}"
+        fp = f"enc_p.encoder.ffn_layers.{i}"
+        layers.append({
+            "attn": {
+                "q_w": A(f"{ap}.conv_q.weight"), "q_b": A(f"{ap}.conv_q.bias"),
+                "k_w": A(f"{ap}.conv_k.weight"), "k_b": A(f"{ap}.conv_k.bias"),
+                "v_w": A(f"{ap}.conv_v.weight"), "v_b": A(f"{ap}.conv_v.bias"),
+                "o_w": A(f"{ap}.conv_o.weight"), "o_b": A(f"{ap}.conv_o.bias"),
+                "emb_k": A(f"{ap}.emb_rel_k"),
+                "emb_v": A(f"{ap}.emb_rel_v"),
+            },
+            "ln1_g": A(f"enc_p.encoder.norm_layers_1.{i}.gamma"),
+            "ln1_b": A(f"enc_p.encoder.norm_layers_1.{i}.beta"),
+            "ffn_w1": A(f"{fp}.conv_1.weight"),
+            "ffn_b1": A(f"{fp}.conv_1.bias"),
+            "ffn_w2": A(f"{fp}.conv_2.weight"),
+            "ffn_b2": A(f"{fp}.conv_2.bias"),
+            "ln2_g": A(f"enc_p.encoder.norm_layers_2.{i}.gamma"),
+            "ln2_b": A(f"enc_p.encoder.norm_layers_2.{i}.beta"),
+        })
+    enc = {"layers": stack_trees(layers)}
+
+    # flow: ResidualCouplingLayer at even indices (odd are Flips)
+    flow_idx = sorted({int(k.split(".")[2]) for k in state
+                       if k.startswith("flow.flows.")
+                       and k.split(".")[3] == "pre"})
+    wn_layers = max(int(k.split(".")[5]) for k in state
+                    if ".enc.in_layers." in k
+                    and k.startswith("flow.flows.")) + 1
+    wn_kernel = _wn_weight(
+        state, f"flow.flows.{flow_idx[0]}.enc.in_layers.0").shape[2]
+    couplings = []
+    for fi in flow_idx:
+        p = f"flow.flows.{fi}"
+        wn = {"in_w": [], "in_b": [], "rs_w": [], "rs_b": []}
+        for j in range(wn_layers):
+            wn["in_w"].append(W(f"{p}.enc.in_layers.{j}"))
+            wn["in_b"].append(A(f"{p}.enc.in_layers.{j}.bias"))
+            wn["rs_w"].append(W(f"{p}.enc.res_skip_layers.{j}"))
+            wn["rs_b"].append(A(f"{p}.enc.res_skip_layers.{j}.bias"))
+        couplings.append({
+            "pre_w": A(f"{p}.pre.weight"), "pre_b": A(f"{p}.pre.bias"),
+            "wn": wn,
+            "post_w": A(f"{p}.post.weight"), "post_b": A(f"{p}.post.bias"),
+        })
+    flow = {"couplings": stack_trees(couplings)}
+
+    # stochastic duration predictor (training-only submodules ignored)
+    def dds(prefix, n=3):
+        parts = (("sep_w", "convs_sep.{}.weight"),
+                 ("sep_b", "convs_sep.{}.bias"),
+                 ("pw_w", "convs_1x1.{}.weight"),
+                 ("pw_b", "convs_1x1.{}.bias"),
+                 ("ln1_g", "norms_1.{}.gamma"), ("ln1_b", "norms_1.{}.beta"),
+                 ("ln2_g", "norms_2.{}.gamma"), ("ln2_b", "norms_2.{}.beta"))
+        return {ours: torch.stack([A(f"{prefix}." + theirs.format(i))
+                                   for i in range(n)])
+                for ours, theirs in parts}
+
+    sdp = None
+    if "dp.pre.weight" in state:
+        cf_idx = sorted({int(k.split(".")[2]) for k in state
+                         if k.startswith("dp.flows.")
+                         and k.split(".")[3] == "pre"})
+        cflows = [{"pre_w": A(f"dp.flows.{fi}.pre.weight"),
+                   "pre_b": A(f"dp.flows.{fi}.pre.bias"),
+                   "dds": dds(f"dp.flows.{fi}.convs"),
+                   "proj_w": A(f"dp.flows.{fi}.proj.weight"),
+                   "proj_b": A(f"dp.flows.{fi}.proj.bias")}
+                  for fi in cf_idx]
+        sdp_ch = np.shape(state["dp.pre.weight"])[0]
+        sdp_kernel = np.shape(state["dp.convs.convs_sep.0.weight"])[2]
+        sdp_bins = (np.shape(
+            state[f"dp.flows.{cf_idx[0]}.proj.weight"])[0] + 1) // 3
+        zeros2 = torch.zeros((2,), device=device)
+        sdp = {
+            "pre_w": A("dp.pre.weight"), "pre_b": A("dp.pre.bias"),
+            "dds": dds("dp.convs"),
+            "proj_w": A("dp.proj.weight"), "proj_b": A("dp.proj.bias"),
+            "flows": stack_trees(cflows),
+            "ea_m": A("dp.flows.0.m") if "dp.flows.0.m" in state else zeros2,
+            "ea_logs": (A("dp.flows.0.logs") if "dp.flows.0.logs" in state
+                        else zeros2.clone()),
+        }
+        n_sdp_flows = len(cf_idx)
+    else:
+        sdp_ch, sdp_kernel, sdp_bins, n_sdp_flows = d_model, 3, 10, 4
+
+    # HiFiGAN decoder
+    ups = sorted({int(k.split(".")[2]) for k in state
+                  if k.startswith("dec.ups.")})
+    up_w = [W(f"dec.ups.{i}") for i in ups]
+    up_b = [A(f"dec.ups.{i}.bias") if f"dec.ups.{i}.bias" in state
+            else torch.zeros((up_w[i].shape[1],), device=device) for i in ups]
+    res_flat = sorted({int(k.split(".")[2]) for k in state
+                       if k.startswith("dec.resblocks.")})
+    n_kernels = len(res_flat) // len(ups)
+    resblock_kernels = []
+    res = []
+    for i in ups:
+        level = []
+        for j in range(n_kernels):
+            p = f"dec.resblocks.{i * n_kernels + j}"
+            n_d = len({int(k.split(".")[4]) for k in state
+                       if k.startswith(f"{p}.convs1.")})
+            c1w = [W(f"{p}.convs1.{d}") for d in range(n_d)]
+            if i == 0:
+                resblock_kernels.append(c1w[0].shape[2])
+            level.append({
+                "c1_w": torch.stack(c1w),
+                "c1_b": torch.stack([A(f"{p}.convs1.{d}.bias")
+                                     for d in range(n_d)]),
+                "c2_w": torch.stack([W(f"{p}.convs2.{d}")
+                                     for d in range(n_d)]),
+                "c2_b": torch.stack([A(f"{p}.convs2.{d}.bias")
+                                     for d in range(n_d)]),
+            })
+        res.append(level)
+    up_kernels = tuple(int(w.shape[2]) for w in up_w)
+    # The upsample rate is not in the weights; HiFiGAN's convention is
+    # k = 2 * rate (the caller can override through VITSConfig).
+    up_rates = tuple(max(k // 2, 1) for k in up_kernels)
+    # VITS's canonical dilations are (1, 3, 5); shapes cannot tell them
+    # apart, so three convs take the canon.
+    dilations = tuple(
+        tuple(1 + 2 * d for d in range(res[0][j]["c1_w"].shape[0]))
+        for j in range(n_kernels))
+    dilations = tuple((1, 3, 5) if len(d) == 3 else d for d in dilations)
+
+    cfg = VITSConfig(
+        vocab_size=emb.shape[0], d_model=d_model, n_heads=n_heads,
+        n_layers=n_layers, ffn_ch=ffn_ch, ffn_kernel=ffn_kernel,
+        window=window, n_flows=len(flow_idx), wn_layers=wn_layers,
+        wn_kernel=wn_kernel, sdp_ch=sdp_ch, sdp_kernel=sdp_kernel,
+        sdp_flows=n_sdp_flows, sdp_bins=sdp_bins,
+        up_init_ch=up_w[0].shape[0], upsample_rates=up_rates,
+        upsample_kernels=up_kernels,
+        resblock_kernels=tuple(resblock_kernels),
+        resblock_dilations=dilations,
+        max_phonemes=max_phonemes, max_frames=max_frames,
+        sample_rate=sample_rate)
+
+    params = {
+        "emb": _on(emb, device),
+        "enc": enc,
+        "proj_w": A("enc_p.proj.weight"),
+        "proj_b": A("enc_p.proj.bias"),
+        "flow": flow,
+        "dec": {"pre_w": W("dec.conv_pre"), "pre_b": A("dec.conv_pre.bias"),
+                "up_w": up_w, "up_b": up_b, "res": res,
+                "post_w": W("dec.conv_post"),
+                "post_b": (A("dec.conv_post.bias")
+                           if "dec.conv_post.bias" in state
+                           else torch.zeros((1,), device=device))},
+    }
+    if sdp is not None:
+        params["sdp"] = sdp
+    return params, cfg

@@ -33,7 +33,7 @@ from trackiellm_tpu_torch.ops.attention import (
     decode_attention_batch,
     prefill_attention,
 )
-from trackiellm_tpu_torch.ops.backend import is_cuda
+from trackiellm_tpu_torch.ops.backend import default_device, is_cuda
 from trackiellm_tpu_torch.ops.quant import (
     QuantizedLinear,
     quantize_q4,
@@ -259,6 +259,8 @@ def params_to(params: Any, device: torch.device) -> Any:
     if isinstance(params, QuantizedLinear):
         return QuantizedLinear(params.values.to(device),
                                params.scales.to(device))
+    if isinstance(params, (list, tuple)):
+        return [params_to(v, device) for v in params]
     return params.to(device)
 
 
@@ -449,6 +451,9 @@ class KVCache(NamedTuple):
     def create(cls, cfg: LLMConfig, dtype: torch.dtype = torch.bfloat16,
                max_seq: Optional[int] = None,
                device: Optional[torch.device] = None) -> "KVCache":
+        """Zeroed rows on ``device``, by default the CUDA card (with none
+        it raises unless the CPU is asked for)."""
+        device = default_device(device, "allocate a KV cache")
         s = max_seq or cfg.max_seq
         shape = (cfg.n_layers, s, cfg.n_kv_heads, cfg.head_dim)
         return cls(k=torch.zeros(shape, dtype=dtype, device=device),
@@ -660,6 +665,9 @@ class BatchedKVCache(NamedTuple):
                dtype: torch.dtype = torch.bfloat16,
                max_seq: Optional[int] = None,
                device: Optional[torch.device] = None) -> "BatchedKVCache":
+        """Zeroed slots on ``device``, by default the CUDA card (with none
+        it raises unless the CPU is asked for)."""
+        device = default_device(device, "allocate a KV cache")
         s = max_seq or cfg.max_seq
         shape = (cfg.n_layers, batch, s, cfg.n_kv_heads, cfg.head_dim)
         return cls(k=torch.zeros(shape, dtype=dtype, device=device),
