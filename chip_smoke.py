@@ -116,17 +116,36 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      of its own (``--voice-profile``); one
      ``{"voice": ...}`` line before the serve line. No hand-written kernel
      is on the voice path: every counter must stay at 0.
-Phases 5-13 zero every launch counter just before they drive their path and
+ 14. vision: a seeded 480x640 floor-and-obstacle frame; YOLOv8n and YOLOv5nu
+     at 640, MiDaS v2.1-small at 384, DPT-SwinV2 tiny_256 and the CRNN OCR
+     at their published widths (random weights from the seed), each on the
+     card and the CPU: the detectors' raw boxes and class probabilities
+     (rel L2 1e-5), ``decode_and_nms`` on the card given the CPU's raw
+     outputs (bit for bit), the MiDaS and DPT maps (rel L2 1e-5 and 1e-4),
+     the OCR logits on the page grid's crops (max abs 1e-5, strings
+     equal), the navigation grid given one depth map and the same RANSAC
+     indices (equal); ``VisionPipeline.process_frame`` with
+     ``AnalysisFlags.ALL``, with MiDaS and with DPT, with OCR and a
+     ``NavigationEngine``: every requested ``valid_analyses`` bit must be
+     set (a stage that degrades on the card fails the phase), the card's
+     objects against the CPU's (reported), the frame wall p50 over 20
+     frames; each stage's time and the NMS sweep's alone, with a sync. The
+     launches and idle share of a frame come from a profile in a process
+     of its own (``--vision-profile``); one ``{"vision": ...}`` line before
+     the voice line. No hand-written kernel is on the vision path: every
+     counter must stay at 0.
+Phases 5-14 zero every launch counter just before they drive their path and
 read them just after: the path's kernels must have launched, and the routes
 it does not take must not have (no serving path launches the streaming Q4
-or a probe; phase 9 must launch all four; phase 13 launches none). In
+or a probe; phase 9 must launch all four; phases 13 and 14 launch none).
+In
 phases 5-7 greedy text must not depend on the lookahead depth, in phase 10
 not on speculation, and every logit vector must be finite. Phase 3's
 device-only times come from profiles whose launch count matches the calls
 (``device_only_ms``). Each phase's first line ends with the seconds since
-the build began. The ``voice`` line comes just before the last five lines,
-which are the ``serve`` line, the ``slice10`` line, the card line, the
-kernels' JSON summary and the result line.
+the build began. The ``vision`` line, then the ``voice`` line, come just
+before the last five lines, which are the ``serve`` line, the ``slice10``
+line, the card line, the kernels' JSON summary and the result line.
 """
 
 import contextlib
@@ -2902,6 +2921,464 @@ def voice_profile_child() -> dict:
     return json.loads(lines[-1])
 
 
+# Phase 14: the vision path. YOLOv8n and YOLOv5nu at 640, MiDaS v2.1-small at
+# the pipeline's 384, DPT-SwinV2 tiny_256 and the CRNN OCR at their published
+# widths (random weights from the seed) behind VisionPipeline on a seeded
+# 480x640 floor-and-obstacle frame; the card against the port's own CPU run
+# where a tolerance is named.
+VISION_FRAMES = 20            # timed frames of each pipeline (p50)
+VISION_WARM = 3               # frames before them
+VISION_STAGE_ITERS = 10       # timed calls of each stage (p50)
+VISION_DET_TOL = 1e-5         # rel L2, raw boxes and class probabilities
+VISION_MIDAS_TOL = 1e-5       # rel L2, relative inverse depth
+VISION_DPT_TOL = 1e-4         # rel L2, relative inverse depth
+VISION_OCR_TOL = 1e-5         # max abs, logits
+VISION_BITS = ("DETECTION", "DEPTH", "OCR", "ATTRIBUTES", "SCENE_GRAPH",
+               "NAVIGATION")
+VISION_PROFILE_FRAMES = 5     # frames of each profiled window
+VISION_PROFILE_FLAG = "--vision-profile"
+
+
+def vision_configs() -> dict:
+    """Phase 14's configurations: the two detectors, MiDaS-small at the
+    pipeline's input, DPT-SwinV2 tiny_256, the CRNN and the frame."""
+    from trackiellm_tpu_torch.models import depth, detector, dpt, ocr
+    return {"v8n": detector.DetectorConfig.v8n(),
+            "v5nu": detector.DetectorConfig.v5nu(),
+            "midas": depth.DepthConfig.small()._replace(img_size=384),
+            "dpt": dpt.DPTSwinConfig.tiny_256(),
+            "ocr": ocr.OCRConfig(), "frame": (480, 640)}
+
+
+def vision_frame(hw, seed: int) -> np.ndarray:
+    """A synthetic camera frame from the seed: a wall above the horizon and
+    a floor brightening toward the camera (a depth-friendly gradient),
+    three blocks standing on the floor, a sign of dark strokes on a light
+    board, and sensor noise."""
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    y = np.arange(h, dtype=np.float32)[:, None]
+    x = np.arange(w, dtype=np.float32)[None, :]
+    horizon = int(h * 0.4)
+    wall = 150 + 30 * np.sin(x / (w / 7.0)) + 0 * y
+    floor = 60 + 150 * (y - horizon) / (h - horizon) + 0 * x
+    gray = np.where(y < horizon, wall, floor)
+    frame = gray[..., None] * np.asarray([1.0, 0.95, 0.85], np.float32)
+    for (x0, x1, y0, y1), rgb in (((0.40, 0.58, 0.45, 0.80), (200, 40, 35)),
+                                  ((0.08, 0.22, 0.30, 0.95), (40, 60, 170)),
+                                  ((0.72, 0.90, 0.55, 0.70), (90, 160, 70))):
+        frame[int(y0 * h):int(y1 * h), int(x0 * w):int(x1 * w)] = rgb
+    sy, sx = int(0.08 * h), int(0.62 * w)
+    frame[sy:sy + h // 8, sx:sx + w // 4] = 235
+    for k in range(6):  # glyph strokes
+        c = sx + 8 + k * (w // 4 - 16) // 6
+        frame[sy + 6:sy + h // 8 - 6, c:c + 4] = 20
+    frame += rng.normal(0.0, 3.0, frame.shape)
+    return np.clip(frame, 0, 255).astype(np.uint8)
+
+
+def p50_ms(fn, iters: int = VISION_STAGE_ITERS, warm: int = 1) -> float:
+    """Median host ms of ``fn`` between two card synchronizations."""
+    for _ in range(warm):
+        fn()
+    return float(np.median([wall_ms(fn)[1] for _ in range(iters)]))
+
+
+def vision_models(dev, sizes: dict) -> dict:
+    """Every phase-14 model's random params from the seed on the card, and
+    a CPU copy of each."""
+    from trackiellm_tpu_torch.models import depth, detector, dpt, llm, ocr
+    inits = {"v8n": detector.init_detector, "v5nu": detector.init_detector,
+             "midas": depth.init_depth, "dpt": dpt.init_dpt,
+             "ocr": ocr.init_ocr}
+    out = {}
+    for k, (name, init) in enumerate(inits.items()):
+        p = init(torch.Generator(device=dev).manual_seed(SEED + 140 + k),
+                 sizes[name])
+        out[name] = (p, llm.params_to(p, torch.device("cpu")))
+    return out
+
+
+def vision_fns(params: dict, sizes: dict, depth_kind: str):
+    """The pipeline's backends over one side's params: the v8n detector,
+    the depth model of ``depth_kind`` and the OCR (crops to strings)."""
+    from trackiellm_tpu_torch.models import depth, detector, dpt, ocr
+    det = lambda chw: detector.detector_forward(  # noqa: E731
+        params["v8n"], sizes["v8n"], chw)
+    if depth_kind == "dpt":
+        dep = lambda chw: dpt.dpt_forward(  # noqa: E731
+            params["dpt"], sizes["dpt"], chw)
+    else:
+        dep = lambda chw: depth.depth_forward(  # noqa: E731
+            params["midas"], sizes["midas"], chw)
+    dev = params["ocr"]["out_w"].device
+
+    def read(crops):
+        return ocr.ctc_greedy_decode(ocr.ocr_forward(
+            params["ocr"], sizes["ocr"], torch.from_numpy(crops).to(dev)))
+    return det, dep, read
+
+
+def vision_pipeline(dev, params: dict, sizes: dict, depth_kind: str,
+                    seed: int = 0):
+    """VisionPipeline with the v8n detector, MiDaS or DPT, the OCR and a
+    NavigationEngine, on ``dev``."""
+    from trackiellm_tpu_torch.navigation import NavigationEngine
+    from trackiellm_tpu_torch.vision import VisionConfig, VisionPipeline
+    det, dep, read = vision_fns(params, sizes, depth_kind)
+    conf = (VisionConfig(depth_preproc="dpt",
+                         depth_input=sizes["dpt"].image_size)
+            if depth_kind == "dpt" else
+            VisionConfig(depth_input=sizes["midas"].img_size))
+    conf.detector_input = sizes["v8n"].img_size
+    return VisionPipeline(det, dep, read, config=conf,
+                          navigation_engine=NavigationEngine(seed=seed,
+                                                             device=dev),
+                          device=dev)
+
+
+def check_valid(res, tag: str) -> list:
+    """The requested analyses a frame's ``valid_analyses`` must hold: a
+    stage that degraded on the card fails the phase."""
+    from trackiellm_tpu_torch.vision import AnalysisFlags
+    missing = [b for b in VISION_BITS
+               if not res.valid_analyses & AnalysisFlags[b]]
+    if missing:
+        raise AssertionError(f"phase 14: {tag}: the frame lacks "
+                             f"{missing} of valid_analyses")
+    return [b for b in VISION_BITS]
+
+
+def objects_agree(a, b, px: float = 0.5) -> int:
+    """Objects of ``a`` that ``b`` also has: the same class, each box
+    corner within ``px`` (in any order: random weights put many scores
+    within an ulp of each other, and a swap in the score order moves every
+    later object)."""
+    left = list(b)
+    hits = 0
+    for x in a:
+        for y in left:
+            if x.class_id == y.class_id and max(
+                    abs(u - v) for u, v in zip(x.box, y.box)) <= px:
+                left.remove(y)
+                hits += 1
+                break
+    return hits
+
+
+def vision_detectors(dev, models, sizes, frame) -> dict:
+    """Each detector's raw outputs, card against CPU on the CPU's
+    letterbox; decode_and_nms on the card given the CPU's raw outputs
+    against the CPU's, bit for bit; the detect stage's time."""
+    from trackiellm_tpu_torch.models import detector
+    from trackiellm_tpu_torch.ops import nms, preprocess
+    out = {}
+    size = sizes["v8n"].img_size
+    chw, _ = preprocess.letterbox_preprocess(torch.from_numpy(frame), size,
+                                             size)
+    for name in ("v8n", "v5nu"):
+        card, cpu = models[name]
+        cfg = sizes[name]
+        bg, pg = detector.detector_forward(card, cfg, chw.to(dev))
+        bc, pc = detector.detector_forward(cpu, cfg, chw)
+        errs = {"boxes": rel_l2(bg.cpu(), bc), "probs": rel_l2(pg.cpu(), pc)}
+        dc = nms.decode_and_nms(bc, pc, max_out=20)
+        dg = nms.decode_and_nms(bc.to(dev), pc.to(dev), max_out=20)
+        same = all(torch.equal(g.cpu(), c) for g, c in zip(dg, dc))
+        fdev = torch.from_numpy(frame).to(dev)
+
+        def detect(card=card, cfg=cfg):
+            x, m = preprocess.letterbox_preprocess(fdev, size, size)
+            d = nms.decode_and_nms(*detector.detector_forward(card, cfg, x),
+                                   max_out=20)
+            return nms.boxes_to_original(d.boxes, m)
+        out[name] = {"raw_rel_l2": errs, "tol": VISION_DET_TOL,
+                     "nms_bit_equal": same,
+                     "detections": int(dc.valid.sum()),
+                     "detect_ms": p50_ms(detect)}
+        log(f"  {name} at {size}: raw boxes rel_l2 {errs['boxes']:.3e}, probs "
+            f"{errs['probs']:.3e} (tol {VISION_DET_TOL:.0e}); decode_and_nms "
+            f"on the card given the CPU's raw outputs "
+            + ("bit-equal" if same else "DIFFERS")
+            + f" ({out[name]['detections']} detections); letterbox + "
+            f"detector + NMS {out[name]['detect_ms']:.3f} ms")
+        if not (max(errs.values()) <= VISION_DET_TOL and same
+                and torch.isfinite(bg).all() and torch.isfinite(pg).all()):
+            raise AssertionError(f"phase 14: {name}: {errs}, nms equal "
+                                 f"{same}")
+        if name == "v8n":
+            raw = (bg, pg)
+    return out, raw
+
+
+def sweep_candidates(boxes, probs):
+    """What ``decode_and_nms`` hands its sweep at the default thresholds
+    (class-agnostic): who knocks out whom among the top 256."""
+    from trackiellm_tpu_torch.ops import nms
+    best = probs.max(-1).values
+    top, idx = nms.top_k_first_index(torch.where(best >= 0.5, best, 0.0),
+                                     min(256, boxes.shape[0]))
+    iou = nms.pairwise_iou(boxes[idx], boxes[idx])
+    order = torch.arange(len(idx), device=boxes.device)
+    return (order[None] > order[:, None]) & (iou > 0.45) & (top > 0)[:, None]
+
+
+def vision_nms(boxes, probs) -> dict:
+    """decode_and_nms alone on the card, and its K-step sweep alone."""
+    from trackiellm_tpu_torch.ops import nms
+    cand = sweep_candidates(boxes, probs)
+    out = {"decode_and_nms_ms": p50_ms(
+               lambda: nms.decode_and_nms(boxes, probs, max_out=20)),
+           "sweep_ms": p50_ms(lambda: nms.greedy_sweep(cand)),
+           "sweep_steps": cand.shape[0]}
+    log(f"  NMS on the card: decode_and_nms {out['decode_and_nms_ms']:.3f} "
+        f"ms, its {cand.shape[0]}-step sweep alone {out['sweep_ms']:.3f} ms")
+    return out
+
+
+def vision_depths(dev, models, sizes, frame) -> dict:
+    """MiDaS and DPT maps, card against CPU on the CPU's normalized input;
+    the depth + fusion stage's time."""
+    from trackiellm_tpu_torch.models import depth, dpt
+    from trackiellm_tpu_torch.ops import preprocess
+    from trackiellm_tpu_torch.vision import object_analysis as oa
+    out = {}
+    f = torch.from_numpy(frame)
+    fdev = f.to(dev)
+    boxes = torch.tensor([[100.0, 150.0, 300.0, 400.0]] * 20, device=dev)
+    ok = torch.ones((20,), dtype=torch.bool, device=dev)
+    for name, norm, fwd, tol in (
+            ("midas", preprocess.imagenet_normalize_chw, depth.depth_forward,
+             VISION_MIDAS_TOL),
+            ("dpt", preprocess.dpt_normalize_chw, dpt.dpt_forward,
+             VISION_DPT_TOL)):
+        card, cpu = models[name]
+        cfg = sizes[name]
+        s = cfg.img_size if name == "midas" else cfg.image_size
+        x = norm(f, s, s)
+        got = fwd(card, cfg, x.to(dev))
+        ref = fwd(cpu, cfg, x)
+        err = rel_l2(got.cpu(), ref)
+
+        def stage(card=card, cfg=cfg, norm=norm, fwd=fwd, s=s):
+            m = depth.relative_to_metric(fwd(card, cfg, norm(fdev, s, s)))
+            return oa.fuse_boxes_with_depth(boxes, ok, m)
+        out[name] = {"rel_l2": err, "tol": tol, "size": s,
+                     "depth_fusion_ms": p50_ms(stage)}
+        log(f"  {name} at {s}: relative depth rel_l2 {err:.3e} (tol "
+            f"{tol:.0e}); normalize + depth + metric + fusion "
+            f"{out[name]['depth_fusion_ms']:.3f} ms")
+        if not (torch.isfinite(got).all() and err <= tol):
+            raise AssertionError(f"phase 14: {name} rel_l2 {err}")
+    return out
+
+
+def vision_ocr(dev, models, sizes, frame) -> dict:
+    """The CRNN on the page grid's crops of the frame: logits card against
+    CPU, the decoded strings equal; the OCR stage's time."""
+    from trackiellm_tpu_torch.models import ocr
+    from trackiellm_tpu_torch.vision.pipeline import _host_resize_gray
+    gray = frame.astype(np.float32).mean(-1) / 255.0
+    h, w = gray.shape
+    crops = np.stack([_host_resize_gray(gray[r * h // 4:(r + 1) * h // 4,
+                                             c * w // 2:(c + 1) * w // 2],
+                                        32, 128)
+                      for r in range(4) for c in range(2)])
+    card, cpu = models["ocr"]
+    cfg = sizes["ocr"]
+    lg = ocr.ocr_forward(card, cfg, torch.from_numpy(crops).to(dev))
+    lc = ocr.ocr_forward(cpu, cfg, torch.from_numpy(crops))
+    err = (lg.cpu() - lc).abs().max().item()
+    sg, sc = ocr.ctc_greedy_decode(lg), ocr.ctc_greedy_decode(lc)
+    ms = p50_ms(lambda: ocr.ctc_greedy_decode(ocr.ocr_forward(
+        card, cfg, torch.from_numpy(crops).to(dev))))
+    out = {"crops": len(crops), "max_abs_err": err, "tol": VISION_OCR_TOL,
+           "strings_equal": sg == sc, "chars": sum(map(len, sg)),
+           "ocr_ms": ms}
+    log(f"  OCR (CRNN, {len(crops)} page crops): logits max abs {err:.3e} "
+        f"(tol {VISION_OCR_TOL:.0e}), strings "
+        + ("equal" if sg == sc else "DIFFER") + f"; crops to strings {ms:.3f}"
+        " ms")
+    if not (torch.isfinite(lg).all() and err <= VISION_OCR_TOL
+            and sg == sc):
+        raise AssertionError(f"phase 14: OCR max abs {err}, strings "
+                             f"{sg[:2]} / {sc[:2]}")
+    return out
+
+
+def vision_navigation(dev, depth_m: np.ndarray) -> dict:
+    """The navigation engine on the card and the CPU given one metric depth
+    map and the same RANSAC indices: the grids must be equal."""
+    from trackiellm_tpu_torch.navigation import NavigationEngine
+    from trackiellm_tpu_torch.navigation.path_planner import (
+        draw_ransac_indices)
+    idx = draw_ransac_indices(torch.Generator().manual_seed(SEED),
+                              depth_m.size)
+    card = NavigationEngine(device=dev)
+    cpu = NavigationEngine(device="cpu")
+    gg = card.update(depth_m, indices=idx)
+    gc = cpu.update(depth_m, indices=idx)
+    same = bool(np.array_equal(gg, gc))
+    ms = p50_ms(lambda: (card.update(depth_m), card.current_hazards()))
+    out = {"grid_equal": same, "cells": np.bincount(
+               gc.ravel(), minlength=6).tolist(),
+           "inlier_frac": cpu.inlier_frac, "cues": cpu.current_hazards(),
+           "navigation_ms": ms}
+    log(f"  navigation ({depth_m.shape[0]}x{depth_m.shape[1]} depth, same "
+        f"RANSAC indices): grid card "
+        + ("equal to" if same else "DIFFERS from")
+        + f" cpu, cells by class {out['cells']}, cues {out['cues']}; update "
+        f"+ hazards {ms:.3f} ms")
+    if not same:
+        raise AssertionError("phase 14: the navigation grids differ")
+    return out
+
+
+def vision_pipelines(dev, models, sizes, frames) -> tuple:
+    """process_frame with AnalysisFlags.ALL, with MiDaS and with DPT: every
+    bit must be valid; the card's objects against the CPU's; the frame's
+    wall p50. Returns (results, the CPU's MiDaS metric depth map)."""
+    from trackiellm_tpu_torch.vision import AnalysisFlags
+    out, depth_m = {}, None
+    cards = {k: v[0] for k, v in models.items()}
+    cpus = {k: v[1] for k, v in models.items()}
+    for kind in ("midas", "dpt"):
+        card = vision_pipeline(dev, cards, sizes, kind)
+        cpu = vision_pipeline(torch.device("cpu"), cpus, sizes, kind)
+        rg = card.process_frame(frames[0], AnalysisFlags.ALL)
+        rc = cpu.process_frame(frames[0], AnalysisFlags.ALL)
+        bits = check_valid(rg, f"{kind} on the card")
+        check_valid(rc, f"{kind} on the CPU")
+        if kind == "midas":
+            depth_m = rc.depth_map_m
+        for f in frames[1:1 + VISION_WARM]:
+            card.process_frame(f, AnalysisFlags.ALL)
+        walls = []
+        for f in frames[1 + VISION_WARM:]:
+            res, ms = wall_ms(lambda f=f: card.process_frame(
+                f, AnalysisFlags.ALL))
+            check_valid(res, f"{kind} on the card")
+            walls.append(ms)
+        stages = res.timings_ms
+        agree = objects_agree(rg.objects, rc.objects)
+        out[kind] = {
+            "valid": bits, "objects": len(rg.objects),
+            "cpu_objects": len(rc.objects), "objects_agree": agree,
+            "edges": len(rg.scene_graph["edges"]),
+            "text_regions": len(rg.text_regions),
+            "cues": rg.navigation_cues,
+            "depth_rel_l2_vs_cpu": rel_l2(torch.from_numpy(rg.depth_map_m),
+                                          torch.from_numpy(rc.depth_map_m)),
+            "frames": len(walls), "frame_ms_p50": float(np.median(walls)),
+            "frame_ms_min": float(np.min(walls)),
+            "timings_ms_last_frame": stages}
+        log(f"  process_frame ALL with {kind} ({frames[0].shape[0]}x"
+            f"{frames[0].shape[1]} frame): valid {'|'.join(bits)}; "
+            f"{len(rg.objects)} objects ({agree} agree with the CPU's "
+            f"{len(rc.objects)}), {out[kind]['edges']} edges, "
+            f"{out[kind]['text_regions']} text regions, cues "
+            f"{rg.navigation_cues}; frame wall p50 "
+            f"{out[kind]['frame_ms_p50']:.2f} ms over {len(walls)} frames")
+    return out, depth_m
+
+
+def phase_vision(dev, counters, profile) -> dict:
+    """Phase 14: the vision path (module comment above). None of the port's
+    hand-written kernels is on it: every counter must stay at 0."""
+    t0 = time.perf_counter()
+    for f in counters.values():
+        f.launches = 0
+    sizes = vision_configs()
+    frames = [vision_frame(sizes["frame"], SEED + i)
+              for i in range(1 + VISION_WARM + VISION_FRAMES)]
+    models = vision_models(dev, sizes)
+    out = {"frame": list(sizes["frame"]),
+           "models": {"v8n": sizes["v8n"].img_size,
+                      "v5nu": sizes["v5nu"].img_size,
+                      "midas": sizes["midas"].img_size,
+                      "dpt": sizes["dpt"].image_size, "ocr": [32, 128]}}
+    out["detector"], raw = vision_detectors(dev, models, sizes, frames[0])
+    out["nms"] = vision_nms(*raw)
+    out["depth"] = vision_depths(dev, models, sizes, frames[0])
+    out["ocr"] = vision_ocr(dev, models, sizes, frames[0])
+    out["pipeline"], depth_m = vision_pipelines(dev, models, sizes, frames)
+    out["navigation"] = vision_navigation(dev, depth_m)
+    launches = {k: f.launches for k, f in counters.items()}
+    expect_routes(launches, (), tuple(launches), "phase 14")
+    out["launches"] = launches
+    out["profile"] = profile()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 14 took {out['seconds']:.1f} s")
+    return out
+
+
+def vision_profile(dev) -> dict:
+    """process_frame (AnalysisFlags.ALL) with MiDaS and with DPT under the
+    profiler, VISION_PROFILE_FRAMES frames each after a warm-up, and the
+    NMS sweep alone: on the host clock, then profiled: busy ms and launches
+    a frame (a sweep), the idle share 1 - busy / wall, the largest
+    kernels."""
+    from trackiellm_tpu_torch.models import detector
+    from trackiellm_tpu_torch.ops import nms
+    from trackiellm_tpu_torch.vision import AnalysisFlags
+    sizes = vision_configs()
+    frames = [vision_frame(sizes["frame"], SEED + 100 + i)
+              for i in range(2 + 2 * VISION_PROFILE_FRAMES)]
+    models = {k: v[0] for k, v in vision_models(dev, sizes).items()}
+    out = {}
+    for kind in ("midas", "dpt"):
+        pipe = vision_pipeline(dev, models, sizes, kind)
+        for f in frames[:2]:
+            pipe.process_frame(f, AnalysisFlags.ALL)
+        n = VISION_PROFILE_FRAMES
+
+        def run(part):
+            for f in frames[2 + part * n:2 + (part + 1) * n]:
+                pipe.process_frame(f, AnalysisFlags.ALL)
+        _, wall = wall_ms(lambda: run(0))
+        busy, launches, by_name = device_breakdown(lambda: run(1))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+        out[kind] = {"wall_ms_per_frame": wall / n,
+                     "busy_ms_per_frame": busy / n,
+                     "launches_per_frame": launches / n,
+                     "idle_share": 1.0 - busy / wall,
+                     "top": [[k[:60], t / n, c / n] for k, (t, c) in top]}
+        log(f"  profile process_frame ALL with {kind}: "
+            f"{wall / n:.2f} ms wall, {busy / n:.2f} ms busy, "
+            f"{launches / n:.0f} launches a frame (idle "
+            f"{out[kind]['idle_share']:.3f})")
+    size = sizes["v8n"].img_size
+    chw = torch.rand((3, size, size), generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev)
+    cand = sweep_candidates(*detector.detector_forward(models["v8n"],
+                                                       sizes["v8n"], chw))
+    nms.greedy_sweep(cand)
+    _, wall = wall_ms(lambda: nms.greedy_sweep(cand))
+    busy, launches, _ = device_breakdown(lambda: nms.greedy_sweep(cand))
+    out["nms_sweep"] = {"steps": cand.shape[0], "wall_ms": wall,
+                        "busy_ms": busy, "launches": launches,
+                        "idle_share": 1.0 - busy / wall}
+    log(f"  profile NMS sweep ({cand.shape[0]} steps): {wall:.3f} ms wall, "
+        f"{busy:.3f} ms busy, {launches} launches")
+    return out
+
+
+def vision_profile_child() -> dict:
+    """``vision_profile`` in a process of its own (this script with
+    VISION_PROFILE_FLAG), as phases 12 and 13 profile. The child's log
+    lines are passed on; its last line is the result."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), VISION_PROFILE_FLAG],
+        capture_output=True, text=True, timeout=SERVE_TIMEOUT)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"phase 14: the profile's process exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    for line in lines[:-1]:
+        log(line)
+    return json.loads(lines[-1])
+
+
 def serve_config(llm):
     """Phases 5-7 and 12's configuration: Mistral-7B cut to max_seq 512."""
     return llm.LLMConfig.mistral_7b()._replace(max_seq=512,
@@ -3003,6 +3480,9 @@ def main() -> int:
     if sys.argv[1:] == [VOICE_PROFILE_FLAG]:
         print(json.dumps(voice_profile(dev)), flush=True)
         return 0
+    if sys.argv[1:] == [VISION_PROFILE_FLAG]:
+        print(json.dumps(vision_profile(dev)), flush=True)
+        return 0
     smi = nvidia_smi()
     log(f"phase 1 device: torch {torch.__version__} cuda {torch.version.cuda}"
         f" capability {cap} | {smi}")
@@ -3100,8 +3580,12 @@ def main() -> int:
         "large-v3 widths at 2+2 layers, Silero ONNX, TTS default, Piper "
         "VITS):")
     voice = phase_voice(dev, llm, cli, counters, voice_profile_child)
+    banner("phase 14 vision (480x640 frame; YOLOv8n and YOLOv5nu at 640, "
+           "MiDaS-small at 384, DPT-SwinV2 tiny_256, CRNN OCR, navigation):")
+    vision = phase_vision(dev, counters, vision_profile_child)
 
     smi = nvidia_smi()
+    print(json.dumps({"vision": vision, "card": smi}), flush=True)
     print(json.dumps({"voice": voice, "card": smi}), flush=True)
     print(json.dumps({"serve": serve, "card": smi}), flush=True)
     print(json.dumps({"slice10": slice10, "card": smi}), flush=True)

@@ -11,6 +11,7 @@ import os
 import subprocess
 import sys
 
+import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -604,6 +605,7 @@ def test_main_prints_the_voice_line_before_the_last_five(monkeypatch,
     monkeypatch.setattr(cs, "phase_serve", lambda *a, **k: {
         "launches": {}, "n": 12})
     monkeypatch.setattr(cs, "phase_voice", lambda *a, **k: {"n": 13})
+    monkeypatch.setattr(cs, "phase_vision", lambda *a, **k: {"n": 14})
     assert cs.main() == 0
     lines = capsys.readouterr().out.strip().splitlines()[-6:]
     assert json.loads(lines[0]) == {"voice": {"n": 13},
@@ -624,3 +626,136 @@ def test_voice_profile_child_fails_without_a_card(monkeypatch):
     monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
     with pytest.raises(AssertionError, match="no CUDA device"):
         cs.voice_profile_child()
+
+
+def test_main_prints_the_vision_line_before_the_voice_line(monkeypatch,
+                                                            capsys):
+    """Phase 14's line comes just before the voice line; the five last
+    lines stay serve, slice10, the card, kernels and the result."""
+    from trackiellm_tpu_torch.ops import _build
+    cs = _load()
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda *a: (9, 0))
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "H100")
+    monkeypatch.setattr(cs, "nvidia_smi", lambda: "H100, 700.00 W")
+    monkeypatch.setattr(_build, "build", lambda: _build.BUILD_ROOT / "x")
+    monkeypatch.setattr(_build, "library", lambda: None)
+    for name, value in (("phase_kernels", {}), ("phase_width", None),
+                        ("build_model", {}), ("profile_path", {}),
+                        ("expect_routes", None), ("phase_entry", None),
+                        ("phase_diagnostics", {}),
+                        ("kernels_line", '{"kernels": []}')):
+        monkeypatch.setattr(cs, name, lambda *a, v=value, **k: v)
+    monkeypatch.setattr(cs, "drive", lambda *a, **k: {
+        "quantize_activations": 1, "q4_matmul_w4a8": 1})
+    for name, n in (("phase_slice10", 10), ("phase_gguf", 11),
+                    ("phase_serve", 12)):
+        monkeypatch.setattr(cs, name, lambda *a, n=n, **k: {
+            "launches": {}, "n": n})
+    seen = []
+    monkeypatch.setattr(cs, "phase_voice", lambda *a, **k: (
+        seen.append(13), {"n": 13})[1])
+    monkeypatch.setattr(cs, "phase_vision", lambda dev, counters, profile: (
+        seen.append((14, profile is cs.vision_profile_child)), {"n": 14})[1])
+    assert cs.main() == 0
+    assert seen == [13, (14, True)]
+    lines = capsys.readouterr().out.strip().splitlines()[-7:]
+    assert json.loads(lines[0]) == {"vision": {"n": 14},
+                                    "card": "H100, 700.00 W"}
+    assert json.loads(lines[1]) == {"voice": {"n": 13},
+                                    "card": "H100, 700.00 W"}
+    assert [json.loads(x) for x in lines[2:4]] == [
+        {"serve": {"n": 12}, "card": "H100, 700.00 W"},
+        {"slice10": {"launches": {}, "n": 10}, "card": "H100, 700.00 W"}]
+    assert lines[4:] == ["H100, 700.00 W", '{"kernels": []}', json.dumps(
+        {"ok": True, "device": {"platform": "gpu", "kind": "H100",
+                                "count": 1}})]
+
+
+def _tiny_vision(cs, monkeypatch):
+    """Phase 14 at tiny sizes on the CPU: the configs and the frame shrunk,
+    a few frames, the syncs stubbed."""
+    from trackiellm_tpu_torch.models import depth, detector, dpt, ocr
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(cs, "vision_configs", lambda: {
+        "v8n": detector.DetectorConfig.tiny(),
+        "v5nu": detector.DetectorConfig.tiny_v5(),
+        "midas": depth.DepthConfig.tiny(),
+        "dpt": dpt.DPTSwinConfig.test_tiny(),
+        "ocr": ocr.OCRConfig.tiny(), "frame": (120, 160)})
+    monkeypatch.setattr(cs, "VISION_FRAMES", 2)
+    monkeypatch.setattr(cs, "VISION_WARM", 1)
+    monkeypatch.setattr(cs, "VISION_STAGE_ITERS", 1)
+
+
+def test_phase14_on_the_cpu(monkeypatch, capsys):
+    """Phase 14's control flow on the CPU at tiny widths (the CPU against
+    itself): both detectors, NMS bit for bit, MiDaS and DPT, the OCR, both
+    pipelines with every bit valid, the navigation grids; no counter
+    moves; the vision line's numbers are JSON."""
+    cs = _load()
+    _tiny_vision(cs, monkeypatch)
+    out = cs.phase_vision(torch.device("cpu"), cs.launch_counters(),
+                          lambda: {"midas": {"idle_share": 0.5}})
+    assert set(out) == {"frame", "models", "detector", "nms", "depth", "ocr",
+                        "pipeline", "navigation", "launches", "profile",
+                        "seconds"}
+    for name in ("v8n", "v5nu"):
+        d = out["detector"][name]
+        assert d["nms_bit_equal"] and max(d["raw_rel_l2"].values()) == 0.0
+    assert out["depth"]["midas"]["rel_l2"] == out["depth"]["dpt"][
+        "rel_l2"] == 0.0
+    assert out["ocr"]["strings_equal"] and out["ocr"]["crops"] == 8
+    assert out["navigation"]["grid_equal"]
+    for kind in ("midas", "dpt"):
+        p = out["pipeline"][kind]
+        assert p["valid"] == list(cs.VISION_BITS) and p["frames"] == 2
+        assert p["objects"] == p["cpu_objects"] == p["objects_agree"] > 0
+    assert not any(out["launches"].values())
+    assert out["nms"]["sweep_steps"] == 256
+    text = capsys.readouterr().out
+    for tag in ("v8n at 160:", "v5nu at 160:", "midas at 96:", "dpt at 64:",
+                "OCR (CRNN, 8 page crops)", "process_frame ALL with midas",
+                "process_frame ALL with dpt", "navigation (96x96 depth",
+                "phase 14 took"):
+        assert tag in text, tag
+    json.dumps(out)
+
+
+@pytest.mark.parametrize("stage", ["detector", "ocr", "depth"])
+def test_phase14_fails_when_a_requested_bit_is_missing(stage, monkeypatch):
+    """A stage that raises clears its valid_analyses bit, as the reference
+    degrades; phase 14 asked for every bit, so it fails."""
+    cs = _load()
+    _tiny_vision(cs, monkeypatch)
+    real = cs.vision_fns
+
+    def broken(params, sizes, kind):
+        fns = list(real(params, sizes, kind))
+
+        def boom(*a):
+            raise RuntimeError("stage failed on the card")
+        fns[("detector", "depth", "ocr").index(stage)] = boom
+        return tuple(fns)
+    monkeypatch.setattr(cs, "vision_fns", broken)
+    bit = {"detector": "DETECTION", "ocr": "OCR", "depth": "DEPTH"}[stage]
+    with pytest.raises(AssertionError, match=f"lacks .*{bit}"):
+        cs.phase_vision(torch.device("cpu"), cs.launch_counters(),
+                        lambda: {})
+
+
+def test_vision_profile_child_fails_without_a_card(monkeypatch):
+    cs = _load()
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    with pytest.raises(AssertionError, match="no CUDA device"):
+        cs.vision_profile_child()
+
+
+def test_vision_frame_is_seeded():
+    cs = _load()
+    a = cs.vision_frame((480, 640), 1)
+    assert a.shape == (480, 640, 3) and a.dtype.name == "uint8"
+    assert (a == cs.vision_frame((480, 640), 1)).all()
+    assert (a != cs.vision_frame((480, 640), 2)).any()
+    assert a[:100].std() > 5 and a[300:].mean() > a[200:250].mean() - 40

@@ -586,9 +586,9 @@ def test_inspect_prints_the_jax_description(cli_gguf, capsys):
 
 @pytest.mark.parametrize("argv,items", [
     (["--family", "gemma2-hf"], "item 11"),
-    (["--family", "llava-hf"], "items 8 and 11"),
-    (["--mmproj", "vision.gguf"], "items 8 and 11"),
-])
+    (["--family", "llava-hf"], "item 11"),
+    (["--mmproj", "vision.gguf"], "item 11"),
+], ids=["gemma2-hf", "llava-hf", "mmproj"])
 def test_unported_convert_routes_name_their_roadmap_item(cli_gguf, tmp_path,
                                                          argv, items):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {items}"):

@@ -1441,3 +1441,163 @@ def test_vits_on_the_card(dev):
                                  nz.to(dev), use_sdp=use_sdp)
         assert int(ng) == int(nc)
         assert _rel_l2(wg.cpu(), wc) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# The vision path on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _tied_boxes(seed, anchors=8400, classes=80):
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, 600, (anchors, 2)).astype(np.float32)
+    boxes = np.concatenate(
+        [xy, xy + rng.uniform(5, 120, (anchors, 2)).astype(np.float32)], 1)
+    scores = (np.round(rng.uniform(0, 1, (anchors, classes)) * 8) / 8
+              ).astype(np.float32)
+    return torch.from_numpy(boxes), torch.from_numpy(scores)
+
+
+@pytest.mark.parametrize("class_aware", [True, False])
+@pytest.mark.parametrize("thresh", [0.5, 0.9, 2.0])
+def test_nms_tie_order_on_the_card(dev, thresh, class_aware):
+    """Thousands of anchors tie (at score 0 and at each eighth): the card
+    keeps the reference's lower-index-first order, so its detections equal
+    the CPU's bit for bit."""
+    from trackiellm_tpu_torch.ops import nms
+    boxes, scores = _tied_boxes(int(thresh * 10))
+    kw = dict(score_thresh=thresh, max_out=20, class_aware=class_aware)
+    ref = nms.decode_and_nms(boxes, scores, **kw)
+    got = nms.decode_and_nms(boxes.to(dev), scores.to(dev), **kw)
+    for name, r, g in zip(ref._fields, ref, got):
+        assert torch.equal(g.cpu(), r), name
+    v = torch.zeros(9000, device=dev)
+    v[[5, 17, 4000]] = 0.5
+    _, idx = nms.top_k_first_index(v, 256)
+    assert idx[:4].tolist() == [5, 17, 4000, 0]
+    assert idx.tolist()[3:] == sorted(idx.tolist()[3:])
+
+
+def test_point_cloud_division_gives_the_cpu_bytes(dev):
+    """z / fx divides by a 0-dim tensor on the card, not by a Python float
+    (which CUDA torch turns into a product with the reciprocal): the
+    points, the grid cells and the navigation grid are the CPU's bytes."""
+    from trackiellm_tpu_torch.navigation import NavigationEngine
+    from trackiellm_tpu_torch.navigation.path_planner import (
+        draw_ransac_indices)
+    from trackiellm_tpu_torch.ops import pointcloud as pc
+    depth = torch.from_numpy((np.random.default_rng(3).random(
+        (384, 384)) * 9.7 + 0.3).astype(np.float32))
+    ref = pc.depth_to_point_cloud(depth, 300.0, 300.0, 192.0, 192.0)
+    got = pc.depth_to_point_cloud(depth.to(dev), 300.0, 300.0, 192.0, 192.0)
+    assert torch.equal(got.cpu(), ref)
+    hc, cc = pc.points_to_height_grid(ref)
+    hg, cg = pc.points_to_height_grid(got)
+    assert torch.equal(cg.cpu(), cc) and torch.equal(hg.cpu(), hc)
+    idx = draw_ransac_indices(torch.Generator().manual_seed(1), depth.numel())
+    floor = depth.numpy().copy()
+    floor[200:] = 300.0 / np.maximum(np.arange(200, 384) - 192.0, 1.0)[:, None]
+    card = NavigationEngine(device=dev)
+    cpu = NavigationEngine(device="cpu")
+    np.testing.assert_array_equal(card.update(floor, indices=idx),
+                                  cpu.update(floor, indices=idx))
+    assert card.inlier_frac == cpu.inlier_frac
+    np.testing.assert_array_equal(card.plane, cpu.plane)
+
+
+def _vision_pair(dev, init, cfg, seed):
+    cpu = init(torch.Generator().manual_seed(seed), cfg)
+    return cpu, llm.params_to(cpu, dev)
+
+
+@pytest.mark.parametrize("which", ["v8n", "v5nu"])
+def test_detector_on_the_card(dev, which):
+    from trackiellm_tpu_torch.models import detector
+    cfg = getattr(detector.DetectorConfig, which)()
+    cpu, card = _vision_pair(dev, detector.init_detector, cfg, 11)
+    x = torch.rand((3, 640, 640), generator=torch.Generator().manual_seed(1))
+    bc, pc_ = detector.detector_forward(cpu, cfg, x)
+    bg, pg = detector.detector_forward(card, cfg, x.to(dev))
+    assert bg.shape == (8400, 4) and pg.shape == (8400, 80)
+    assert _rel_l2(bg.cpu(), bc) <= 1e-5 and _rel_l2(pg.cpu(), pc_) <= 1e-5
+
+
+@pytest.mark.parametrize("which", ["midas", "dpt"])
+def test_depth_models_on_the_card(dev, which):
+    from trackiellm_tpu_torch.models import depth, dpt
+    if which == "midas":
+        cfg, init, fwd, s, tol = (depth.DepthConfig.small(), depth.init_depth,
+                                  depth.depth_forward, 384, 1e-5)
+    else:
+        cfg, init, fwd, s, tol = (dpt.DPTSwinConfig.tiny_256(), dpt.init_dpt,
+                                  dpt.dpt_forward, 256, 1e-4)
+    cpu, card = _vision_pair(dev, init, cfg, 12)
+    x = torch.randn((3, s, s), generator=torch.Generator().manual_seed(2))
+    ref = fwd(cpu, cfg, x)
+    got = fwd(card, cfg, x.to(dev))
+    assert got.shape == (s, s) and _rel_l2(got.cpu(), ref) <= tol
+
+
+def test_vision_convolutions_ignore_the_tf32_flags(dev):
+    """Every vision forward runs under exact_f32: with the TF32 flags on,
+    the detector still gives its f32 outputs."""
+    from trackiellm_tpu_torch.models import detector
+    cfg = detector.DetectorConfig.tiny()
+    cpu, card = _vision_pair(dev, detector.init_detector, cfg, 13)
+    x = torch.rand((3, 160, 160), generator=torch.Generator().manual_seed(3))
+    ref = detector.detector_forward(cpu, cfg, x)[1]
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        got = detector.detector_forward(card, cfg, x.to(dev))[1]
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    assert _rel_l2(got.cpu(), ref) <= 1e-5
+
+
+def test_process_frame_on_the_card_sets_every_bit(dev):
+    """VisionPipeline at tiny widths on the card, every analysis asked for:
+    every valid bit set. Both sides detect from the CPU detector's raw
+    outputs (random weights put scores within an ulp of each other, so the
+    card's own raw outputs may order two detections the other way); then
+    the card's objects, boxes, attributes, edges and texts are the CPU
+    pipeline's."""
+    from trackiellm_tpu_torch.models import depth, detector, ocr
+    from trackiellm_tpu_torch.navigation import NavigationEngine
+    from trackiellm_tpu_torch.ops import preprocess
+    from trackiellm_tpu_torch.vision import (AnalysisFlags, VisionConfig,
+                                             VisionPipeline)
+    dcfg, pcfg, ocfg = (detector.DetectorConfig.tiny(),
+                        depth.DepthConfig.tiny(), ocr.OCRConfig.tiny())
+    params = {k: _vision_pair(dev, init, c, 20 + i) for i, (k, init, c) in
+              enumerate((("det", detector.init_detector, dcfg),
+                         ("dep", depth.init_depth, pcfg),
+                         ("ocr", ocr.init_ocr, ocfg)))}
+    frame = np.random.default_rng(4).integers(0, 256, (120, 160, 3),
+                                              np.uint8)
+    chw, _ = preprocess.letterbox_preprocess(torch.from_numpy(frame), 160,
+                                             160)
+    raw = detector.detector_forward(params["det"][0], dcfg, chw)
+
+    def pipe(side, device):
+        p = {k: v[side] for k, v in params.items()}
+        return VisionPipeline(
+            lambda chw: tuple(t.to(device) for t in raw),
+            lambda chw: depth.depth_forward(p["dep"], pcfg, chw),
+            lambda crops: ocr.ctc_greedy_decode(ocr.ocr_forward(
+                p["ocr"], ocfg, torch.from_numpy(crops).to(device))),
+            config=VisionConfig(detector_input=160, depth_input=96),
+            navigation_engine=NavigationEngine(device=device), device=device)
+    rg = pipe(1, dev).process_frame(frame, AnalysisFlags.ALL)
+    rc = pipe(0, torch.device("cpu")).process_frame(frame, AnalysisFlags.ALL)
+    assert rg.valid_analyses == AnalysisFlags.ALL == rc.valid_analyses
+    assert rg.objects and len(rg.objects) == len(rc.objects)
+    for a, b in zip(rg.objects, rc.objects):
+        assert (a.class_id, a.attributes, a.text) == (b.class_id,
+                                                      b.attributes, b.text)
+        assert a.box == b.box
+        assert a.distance_m == pytest.approx(b.distance_m, abs=1e-4)
+    assert rg.full_text == rc.full_text
+    assert rg.scene_graph["edges"] == rc.scene_graph["edges"]

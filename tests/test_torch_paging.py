@@ -380,14 +380,17 @@ def test_int8_pool_is_half_the_bytes():
 
 
 @pytest.mark.parametrize("make", ["pool", "cache", "batched", "vad",
-                                  "silero"])
+                                  "silero", "navigation", "vision"])
 def test_allocators_need_a_card_or_an_explicit_cpu(make, monkeypatch):
-    """The page pool, both KV caches and the two VAD states take the CUDA
+    """The page pool, both KV caches, the two VAD states, the navigation
+    engine (its RANSAC generator) and the vision pipeline take the CUDA
     card when no device is given, as the JAX package's allocate on the
     accelerator; without a card they raise rather than fall back to the
     CPU, which must be asked for."""
     from trackiellm_tpu_torch.models import vad as tvad
+    from trackiellm_tpu_torch.navigation import NavigationEngine
     from trackiellm_tpu_torch.utils.errors import ErrorCode, TrackieError
+    from trackiellm_tpu_torch.vision import VisionPipeline
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     build = {"pool": lambda **kw: tpaging.PagedKVPool(TCFG, 8, 16, **kw),
              "cache": lambda **kw: tllm.KVCache.create(TCFG, **kw),
@@ -395,12 +398,17 @@ def test_allocators_need_a_card_or_an_explicit_cpu(make, monkeypatch):
                                                                 **kw),
              "vad": lambda **kw: tvad.init_state(tvad.VADConfig(), **kw),
              "silero": lambda **kw: tvad.silero_init_state(
-                 tvad.SileroConfig(), **kw)}[make]
+                 tvad.SileroConfig(), **kw),
+             "navigation": lambda **kw: NavigationEngine(**kw),
+             "vision": lambda **kw: VisionPipeline(None, **kw)}[make]
     with pytest.raises(TrackieError) as err:
         build()
     assert err.value.code == ErrorCode.DEVICE_UNAVAILABLE
     assert "device=torch.device('cpu')" in str(err.value)
     made = build(device="cpu")
     t = {"pool": lambda: made.pool_k, "vad": lambda: made,
-         "silero": lambda: made[0]}.get(make, lambda: made.k)()
+         "silero": lambda: made[0],
+         "navigation": lambda: made._gen,
+         "vision": lambda: torch.empty(0, device=made.device)}.get(
+             make, lambda: made.k)()
     assert t.device.type == "cpu"

@@ -256,10 +256,12 @@ def test_port_imports_no_jax():
     """The port must run where JAX is absent: importing its runner (with
     its grammar, schema, speculation and sampling modules), its server and
     page pool, fused block, checkpoint reader, model-file readers, GGUF and
-    voice converters with their name maps, the voice path (mel, resampling,
-    VAD, Whisper, ASR, streaming transcription, TTS, phonemizer, TTS
-    engine, VITS), logging, CLI, probes, diagnostic, conversion and serving
-    tools and chip_smoke.py pulls in no JAX module, no module of the JAX
+    voice and vision converters with their name maps, the voice path (mel,
+    resampling, VAD, Whisper, ASR, streaming transcription, TTS, phonemizer,
+    TTS engine, VITS), the vision path (preprocessing, NMS, point cloud,
+    detector, MiDaS, OCR, DPT, model registry, fusion, scene graph,
+    pipeline, navigation engine, free space), logging, CLI, probes,
+    diagnostic, conversion and serving tools and chip_smoke.py pulls in no JAX module, no module of the JAX
     package (``trackiellm_tpu`` or ``trackiellm_tpu.*``, even one that imports no
     JAX) and none of the JAX package's tools (this test process has JAX
     loaded already, hence the subprocess)."""
@@ -298,8 +300,24 @@ def test_port_imports_no_jax():
             "trackiellm_tpu_torch.audio.streaming_asr, "
             "trackiellm_tpu_torch.audio.phonemizer, "
             "trackiellm_tpu_torch.audio.tts_engine, "
+            "trackiellm_tpu_torch.ops.preprocess, "
+            "trackiellm_tpu_torch.ops.nms, "
+            "trackiellm_tpu_torch.ops.pointcloud, "
+            "trackiellm_tpu_torch.models.detector, "
+            "trackiellm_tpu_torch.models.depth, "
+            "trackiellm_tpu_torch.models.ocr, "
+            "trackiellm_tpu_torch.models.dpt, "
+            "trackiellm_tpu_torch.models.registry, "
+            "trackiellm_tpu_torch.vision, "
+            "trackiellm_tpu_torch.vision.object_analysis, "
+            "trackiellm_tpu_torch.vision.scene_graph, "
+            "trackiellm_tpu_torch.vision.pipeline, "
+            "trackiellm_tpu_torch.navigation, "
+            "trackiellm_tpu_torch.navigation.path_planner, "
+            "trackiellm_tpu_torch.navigation.free_space, "
             "trackiellm_tpu_torch.models.convert as c; "
             "c.load_name_map('silero_v5'); c.load_name_map('piper_vits'); "
+            "c.load_name_map('midas_small'); "
             "import trackiellm_tpu_torch.__main__, chip_smoke; "
             "bad = sorted(m for m in sys.modules if m in "
             "('jax', 'jaxlib', 'tools', 'trackiellm_tpu') or m.startswith("

@@ -24,7 +24,7 @@ Port of ``trackiellm_tpu/__main__.py``'s ``inspect``, the GGUF branch of
 package's defaults (4 bits; 64 tokens, temperature 0.7). Every command but
 ``inspect`` runs on the CUDA card; the CPU is used only when ``--device
 cpu`` asks for it. The other ``--family`` routes and ``--mmproj`` wait for
-ROADMAP Queue 1 items 8 and 11; ``bench`` and ``demo`` are not ported yet.
+ROADMAP Queue 1 item 11; ``bench`` and ``demo`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -77,8 +77,8 @@ def _cmd_inspect(args) -> int:
 def _cmd_convert(args) -> int:
     if args.family in _MULTIMODAL_FAMILIES:
         raise NotImplementedError(
-            f"--family {args.family}: the vision and multimodal converters "
-            "are not ported yet (ROADMAP Queue 1 items 8 and 11)")
+            f"--family {args.family}: the multimodal converters are not "
+            "ported yet (ROADMAP Queue 1 item 11)")
     if args.family != "gguf":
         raise NotImplementedError(
             f"--family {args.family}: the transformers-state-dict "
@@ -87,8 +87,7 @@ def _cmd_convert(args) -> int:
     if args.mmproj:
         raise NotImplementedError(
             "--mmproj: the llama.cpp vision tower (gguf_to_clip_params, "
-            "models/clip.py) is not ported yet (ROADMAP Queue 1 items 8 "
-            "and 11)")
+            "models/clip.py) is not ported yet (ROADMAP Queue 1 item 11)")
     device = _device(args.device, "convert")
     t0 = time.time()
     hdr = read_gguf_header(args.gguf)
@@ -107,7 +106,7 @@ def _cmd_generate(args) -> int:
     if args.image:
         raise NotImplementedError(
             "--image: multimodal checkpoints (llm/vlm.py, models/clip.py) "
-            "are not ported yet (ROADMAP Queue 1 items 8 and 11)")
+            "are not ported yet (ROADMAP Queue 1 item 11)")
     device = _device(args.device, "generate")
     params, cfg, meta = load_checkpoint(args.checkpoint, device=device)
     if cfg is None:

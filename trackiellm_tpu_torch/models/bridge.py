@@ -7,6 +7,12 @@ keep their bytes; bf16 arrays go through their uint16 view, because
 ``torch.from_numpy`` does not take ``ml_dtypes.bfloat16``. Leaves may be
 numpy arrays or anything ``numpy.asarray`` takes (JAX arrays included), so
 this module needs no JAX import.
+
+``hwio_tree_from_jax`` carries the vision models' trees (detector, MiDaS,
+OCR, DPT) across: the JAX package keeps convolutions HWIO for NHWC
+activations, this package OIHW for NCHW, so every 4-D leaf is transposed
+once, here (a depthwise (k, k, 1, C) becomes (C, 1, k, k)); 2-D matrices
+keep their (in, out) layout, and None leaves stay None.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from trackiellm_tpu_torch.ops.backend import default_device
 from trackiellm_tpu_torch.ops.quant import QuantizedLinear
 
 
@@ -40,3 +47,22 @@ def params_from_jax(tree: Any, device: Optional[torch.device] = None) -> Any:
     if isinstance(tree, (list, tuple)):
         return [params_from_jax(v, device) for v in tree]
     return array_to_torch(tree, device)
+
+
+def hwio_tree_from_jax(tree: Any, device: Optional[torch.device] = None,
+                       what: str = "carry vision params") -> Any:
+    """A JAX-package vision tree with its HWIO convolutions made OIHW, on
+    ``device`` (the CUDA card by default; see module docstring)."""
+    device = default_device(device, what)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [walk(v) for v in t]
+        if t is None:
+            return None
+        a = np.asarray(t)
+        return array_to_torch(a.transpose(3, 2, 0, 1) if a.ndim == 4 else a,
+                              device)
+    return walk(tree)

@@ -53,9 +53,8 @@ _WAITING = {
     "Mamba2Config": "model zoo, models/mamba2.py (ROADMAP Queue 1 item 11)",
     "Qwen3NextConfig": ("model zoo, models/qwen3next.py (ROADMAP Queue 1 "
                         "item 11)"),
-    "CLIPVisionConfig": ("vision, models/clip.py (ROADMAP Queue 1 items 8 "
-                         "and 11)"),
-    "TrOCRConfig": "vision, models/trocr.py (ROADMAP Queue 1 items 8 and 11)",
+    "CLIPVisionConfig": "vision, models/clip.py (ROADMAP Queue 1 item 11)",
+    "TrOCRConfig": "vision, models/trocr.py (ROADMAP Queue 1 item 11)",
 }
 
 

@@ -33,8 +33,12 @@ The voice converters (``whisper_from_torch``, ``whisper_from_ggml``,
 ``vad_from_torch``, ``silero_from_onnx``, ``tts_from_torch``,
 ``vits_from_torch``) and the published-name maps (``apply_name_map``,
 ``load_name_map`` over ``models/name_maps/``, copies of the JAX package's
-``silero_v5`` and ``piper_vits`` maps) are ported too; each puts the
-reference's tree on ``device``, the CUDA card by default.
+``silero_v5``, ``piper_vits`` and ``midas_small`` maps) are ported too,
+and so are the vision converters (``detector_from_torch`` for YOLOv8 and
+YOLOv5u, ``midas_small_from_torch``, ``ocr_from_torch``,
+``dpt_swinv2_from_torch``), which give the vision models' trees in this
+package's OIHW layout; each puts its tree on ``device``, the CUDA card by
+default.
 """
 
 from __future__ import annotations
@@ -740,7 +744,7 @@ def apply_name_map(state: Dict[str, Any], mapping: Dict[str, str],
 
 def load_name_map(name_or_path: str) -> Dict[str, str]:
     """Load a name map by file path or by bundled name ('silero_v5',
-    'piper_vits'); keys starting with '_' are comments."""
+    'piper_vits', 'midas_small'); keys starting with '_' are comments."""
     import json
 
     path = name_or_path
@@ -1212,4 +1216,390 @@ def vits_from_torch(state: Dict[str, Any], max_phonemes: int = 256,
     }
     if sdp is not None:
         params["sdp"] = sdp
+    return params, cfg
+
+
+# ---------------------------------------------------------------------------
+# Vision converters: torch-layout state dicts -> the vision models' trees
+# ---------------------------------------------------------------------------
+# The models keep torch's OIHW convolutions, so a Conv2d weight needs no
+# transpose; a BatchNorm folds into the conv before it (in numpy f32, as
+# the reference folds). Linears become (in, out).
+
+# ultralytics yolov8 module indices (yolov8.yaml): params live at
+# "model.<idx>.<...>"; 10/13 are Upsample and 11/14/17/20 Concat (no
+# params), 22 is the Detect head.
+_YOLO_IDX = {
+    "stem": 0, "down1": 1, "c2f1": 2, "down2": 3, "c2f2": 4,
+    "down3": 5, "c2f3": 6, "down4": 7, "c2f4": 8, "sppf": 9,
+    "up_c2f1": 12, "up_c2f2": 15, "pan_down1": 16, "pan_c2f1": 18,
+    "pan_down2": 19, "pan_c2f2": 21,
+}
+# YOLOv5(u) module indices (yolov5.yaml; Detect at 24).
+_YOLO_V5_IDX = {
+    "stem": 0, "down1": 1, "c3_1": 2, "down2": 3, "c3_2": 4,
+    "down3": 5, "c3_3": 6, "down4": 7, "c3_4": 8, "sppf": 9,
+    "pre_up1": 10, "up_c3_1": 13, "pre_up2": 14, "up_c3_2": 17,
+    "pan_down1": 18, "pan_c3_1": 20, "pan_down2": 21, "pan_c3_2": 23,
+}
+_YOLO_BN_EPS = 1e-3  # ultralytics Conv: BatchNorm2d(c2, eps=0.001)
+_TF_BN_EPS = 1e-3    # timm tf_* models: BatchNorm eps 0.001
+
+
+def _fold_bn_into(state: Dict[str, Any], conv_key: str, bn_prefix: str,
+                  eps: float, device: torch.device) -> Dict[str, Any]:
+    """Conv2d(bias=False) + BatchNorm2d -> one OIHW conv + bias:
+    w' = w * gamma / sqrt(var + eps) per out channel, b' = beta - mean *
+    gamma / sqrt(var + eps)."""
+    w = _f32(state[conv_key])
+    gamma = _f32(state[f"{bn_prefix}.weight"])
+    beta = _f32(state[f"{bn_prefix}.bias"])
+    mean = _f32(state[f"{bn_prefix}.running_mean"])
+    var = _f32(state[f"{bn_prefix}.running_var"])
+    scale = gamma / np.sqrt(var + eps)
+    return {"w": _on(w * scale[:, None, None, None], device),
+            "b": _on(beta - mean * scale, device)}
+
+
+def _fold_conv_bn(state: Dict[str, Any], prefix: str,
+                  device: torch.device) -> Dict[str, Any]:
+    """ultralytics Conv (conv + bn) -> OIHW conv + bias."""
+    return _fold_bn_into(state, f"{prefix}.conv.weight", f"{prefix}.bn",
+                         _YOLO_BN_EPS, device)
+
+
+def _plain_conv(state: Dict[str, Any], prefix: str, device: torch.device,
+                bias: bool = True) -> Dict[str, Any]:
+    """torch Conv2d (no BN) -> OIHW conv (+ bias, else None)."""
+    return {"w": _on(state[f"{prefix}.weight"], device),
+            "b": _on(state[f"{prefix}.bias"], device) if bias else None}
+
+
+def _bottlenecks(state, prefix: str, device) -> list:
+    m = []
+    j = 0
+    while f"{prefix}.m.{j}.cv1.conv.weight" in state:
+        m.append({"cv1": _fold_conv_bn(state, f"{prefix}.m.{j}.cv1", device),
+                  "cv2": _fold_conv_bn(state, f"{prefix}.m.{j}.cv2", device)})
+        j += 1
+    return m
+
+
+def _c2f_from_torch(state, prefix: str, device) -> Dict[str, Any]:
+    return {"cv1": _fold_conv_bn(state, f"{prefix}.cv1", device),
+            "m": _bottlenecks(state, prefix, device),
+            "cv2": _fold_conv_bn(state, f"{prefix}.cv2", device)}
+
+
+def _c3_from_torch(state, prefix: str, device) -> Dict[str, Any]:
+    """v5 C3: cv1/cv2 laterals, the bottleneck chain, the cv3 merge."""
+    return {"cv1": _fold_conv_bn(state, f"{prefix}.cv1", device),
+            "cv2": _fold_conv_bn(state, f"{prefix}.cv2", device),
+            "m": _bottlenecks(state, prefix, device),
+            "cv3": _fold_conv_bn(state, f"{prefix}.cv3", device)}
+
+
+def detector_config_from_torch(state: Dict[str, Any],
+                               prefix: str = "model."):
+    """DetectorConfig from an ultralytics-layout state dict. The variant
+    comes from the Detect module's index: v8 puts it at model.22, v5(u) at
+    model.24."""
+    from trackiellm_tpu_torch.models.detector import DetectorConfig
+
+    def cout(name):
+        return int(np.shape(state[f"{prefix}{name}.conv.weight"])[0])
+
+    v5 = f"{prefix}24.cv2.0.2.weight" in state
+    det = f"{prefix}24" if v5 else f"{prefix}22"
+    channels = (cout("0"), cout("1"), cout("3"), cout("5"), cout("7"))
+    depths = []
+    for idx in (2, 4, 6, 8):
+        j = 0
+        while f"{prefix}{idx}.m.{j}.cv1.conv.weight" in state:
+            j += 1
+        depths.append(j)
+    n_box = int(np.shape(state[f"{det}.cv2.0.2.weight"])[0])
+    nc = int(np.shape(state[f"{det}.cv3.0.2.weight"])[0])
+    return DetectorConfig(num_classes=nc, channels=channels,
+                          depths=tuple(depths), reg_max=n_box // 4,
+                          variant="v5" if v5 else "v8")
+
+
+def detector_from_torch(state: Dict[str, Any], prefix: str = "model.",
+                        device: Optional[torch.device] = None):
+    """ultralytics YOLOv8 or YOLOv5u state dict (names "model.<idx>...")
+    -> (params, DetectorConfig) for models/detector, on ``device`` (the
+    CUDA card by default). The variant is detected; BN folds into each
+    conv. The Detect head's fixed DFL conv is not copied: detector_forward
+    computes the softmax expectation itself."""
+    device = default_device(device, "convert")
+    cfg = detector_config_from_torch(state, prefix)
+    idx_table = _YOLO_V5_IDX if cfg.variant == "v5" else _YOLO_IDX
+    params: Dict[str, Any] = {}
+    for name, idx in idx_table.items():
+        pfx = f"{prefix}{idx}"
+        if name == "sppf":
+            params[name] = {"cv1": _fold_conv_bn(state, f"{pfx}.cv1", device),
+                            "cv2": _fold_conv_bn(state, f"{pfx}.cv2", device)}
+        elif "c2f" in name:
+            params[name] = _c2f_from_torch(state, pfx, device)
+        elif "c3" in name:
+            params[name] = _c3_from_torch(state, pfx, device)
+        else:
+            params[name] = _fold_conv_bn(state, pfx, device)
+    det = f"{prefix}{24 if cfg.variant == 'v5' else 22}"
+    for i in range(3):
+        for part, branch in (("box", "cv2"), ("cls", "cv3")):
+            for k in (1, 2):
+                params[f"head{i}_{part}{k}"] = _fold_conv_bn(
+                    state, f"{det}.{branch}.{i}.{k - 1}", device)
+            params[f"head{i}_{part}3"] = _plain_conv(
+                state, f"{det}.{branch}.{i}.2", device)
+    return params, cfg
+
+
+# MiDaS _make_efficientnet_backbone slices the effnet into 4 sequential
+# layers; (layer, position) of each MBConv stage in the state dict:
+#   layer1 = [conv_stem, bn1, act, blocks0, blocks1]
+#   layer2 = [blocks2]   layer3 = [blocks3, blocks4]
+#   layer4 = [blocks5, blocks6]
+_MIDAS_STAGE_POS = ((1, 3), (1, 4), (2, 0), (3, 0), (3, 1), (4, 0), (4, 1))
+_LITE_STRIDES = (1, 2, 2, 2, 1, 2, 1)
+
+
+def midas_config_from_torch(state: Dict[str, Any], prefix: str = ""):
+    """DepthConfig from a MidasNet_small state dict."""
+    from trackiellm_tpu_torch.models.depth import DepthConfig, MBStage
+
+    stem_ch = int(np.shape(state[f"{prefix}pretrained.layer1.0.weight"])[0])
+    stages = []
+    cin = stem_ch
+    for (layer, pos), stride in zip(_MIDAS_STAGE_POS, _LITE_STRIDES):
+        base = f"{prefix}pretrained.layer{layer}.{pos}"
+        k = int(np.shape(state[f"{base}.0.conv_dw.weight"])[2])
+        if f"{base}.0.conv_pwl.weight" not in state:  # DepthwiseSeparable
+            cout = int(np.shape(state[f"{base}.0.conv_pw.weight"])[0])
+            expand = 1
+        else:
+            cout = int(np.shape(state[f"{base}.0.conv_pwl.weight"])[0])
+            mid = int(np.shape(state[f"{base}.0.conv_pw.weight"])[0])
+            expand = mid // cin
+        n = 0
+        while f"{base}.{n}.conv_dw.weight" in state:
+            n += 1
+        stages.append(MBStage(k, stride, expand, cout, n))
+        cin = cout
+    features = int(np.shape(state[f"{prefix}scratch.layer1_rn.weight"])[0])
+    return DepthConfig(stem_ch=stem_ch, stages=tuple(stages),
+                       features=features)
+
+
+def midas_small_from_torch(state: Dict[str, Any], prefix: str = "",
+                           device: Optional[torch.device] = None):
+    """MiDaS v2.1 small checkpoint ("pretrained.layer*" efficientnet-lite3
+    + "scratch.*" RefineNet; the bundled ``midas_small`` name map) ->
+    (params, DepthConfig) for models/depth, on ``device`` (the CUDA card by
+    default). The encoder's BN folds into each conv."""
+    device = default_device(device, "convert")
+    cfg = midas_config_from_torch(state, prefix)
+
+    def fold(base, conv, bn):
+        return _fold_bn_into(state, f"{base}.{conv}.weight", f"{base}.{bn}",
+                             _TF_BN_EPS, device)
+
+    blocks = []
+    for (layer, pos), st in zip(_MIDAS_STAGE_POS, cfg.stages):
+        stage = []
+        for j in range(st.repeats):
+            base = f"{prefix}pretrained.layer{layer}.{pos}.{j}"
+            if st.expand == 1:
+                stage.append({"dw": fold(base, "conv_dw", "bn1"),
+                              "pw": fold(base, "conv_pw", "bn2")})
+            else:
+                stage.append({"pw": fold(base, "conv_pw", "bn1"),
+                              "dw": fold(base, "conv_dw", "bn2"),
+                              "pwl": fold(base, "conv_pwl", "bn3")})
+        blocks.append(stage)
+
+    sc = f"{prefix}scratch"
+
+    def rcu(rn, unit):
+        base = f"{sc}.refinenet{rn}.resConfUnit{unit}"
+        return {"c1": _plain_conv(state, f"{base}.conv1", device),
+                "c2": _plain_conv(state, f"{base}.conv2", device)}
+
+    refine = [{"rcu1": rcu(k + 1, 1), "rcu2": rcu(k + 1, 2),
+               "out": _plain_conv(state, f"{sc}.refinenet{k + 1}.out_conv",
+                                  device)}
+              for k in range(4)]
+    params = {
+        "stem": _fold_bn_into(state, f"{prefix}pretrained.layer1.0.weight",
+                              f"{prefix}pretrained.layer1.1", _TF_BN_EPS,
+                              device),
+        "blocks": blocks,
+        "layer_rn": [_plain_conv(state, f"{sc}.layer{k + 1}_rn", device,
+                                 bias=False) for k in range(4)],
+        "refine": refine,
+        "head1": _plain_conv(state, f"{sc}.output_conv.0", device),
+        "head2": _plain_conv(state, f"{sc}.output_conv.2", device),
+        "head3": _plain_conv(state, f"{sc}.output_conv.4", device),
+    }
+    return params, cfg
+
+
+def ocr_from_torch(state: Dict[str, Any],
+                   device: Optional[torch.device] = None):
+    """CRNN checkpoint (three Conv2d blocks, the bidirectional GRU as two
+    GRUCell-layout sides "gru_fwd"/"gru_bwd", a Linear CTC head) ->
+    (params, OCRConfig) for models/ocr, on ``device`` (the CUDA card by
+    default).
+
+    models/ocr keeps one fused bias on the input side, torch two: bias_hh
+    folds into it for the r and z gates, but the n gate's hidden bias
+    (scaled by r) cannot fold exactly, so it must be zero."""
+    from trackiellm_tpu_torch.models.ocr import OCRConfig
+
+    device = default_device(device, "convert")
+    conv_ch = int(np.shape(state["conv3.weight"])[0])
+    hidden = int(np.shape(state["gru_fwd.weight_hh"])[1])
+    num_classes = int(np.shape(state["out.weight"])[0])
+
+    def gru(side):
+        wi = _f32(state[f"{side}.weight_ih"])
+        wh = _f32(state[f"{side}.weight_hh"])
+        bi = _f32(state[f"{side}.bias_ih"]).copy()
+        bh = _f32(state[f"{side}.bias_hh"])
+        h = wh.shape[1]
+        if np.any(bh[2 * h:] != 0):
+            raise TrackieError(
+                ErrorCode.MODEL_METADATA_INVALID,
+                "CRNN GRU bias_hh[n] must be zero to fold into the "
+                "fused-bias layout")
+        bi[:2 * h] += bh[:2 * h]
+        return {"wi": _on(wi.T, device), "wh": _on(wh.T, device),
+                "b": _on(bi, device)}
+
+    params = {
+        "conv1": _plain_conv(state, "conv1", device),
+        "conv2": _plain_conv(state, "conv2", device),
+        "conv3": _plain_conv(state, "conv3", device),
+        "gru_fwd": gru("gru_fwd"),
+        "gru_bwd": gru("gru_bwd"),
+        "out_w": _on(_f32(state["out.weight"]).T, device),
+        "out_b": _on(state["out.bias"], device),
+    }
+    cfg = OCRConfig(conv_ch=conv_ch, hidden=hidden, num_classes=num_classes)
+    return params, cfg
+
+
+def dpt_swinv2_config_from_torch(state: Dict[str, Any],
+                                 image_size: int = 256,
+                                 window_size: int = 16):
+    """DPTSwinConfig from an HF DPTForDepthEstimation (swinv2 backbone)
+    state dict. ``window_size`` is not in the weights (the CPB MLP is
+    size-independent and the coords table a non-persistent buffer): pass
+    the checkpoint config's (tiny_256: 16; base/large_384: 24)."""
+    from trackiellm_tpu_torch.models.dpt import DPTSwinConfig
+
+    proj = np.shape(
+        state["backbone.embeddings.patch_embeddings.projection.weight"])
+    depths, heads = [], []
+    i = 0
+    blk = "backbone.encoder.layers.{}.blocks.{}.attention.self.logit_scale"
+    while blk.format(i, 0) in state:
+        j = 0
+        while blk.format(i, j) in state:
+            j += 1
+        depths.append(j)
+        heads.append(int(np.shape(state[blk.format(i, 0)])[0]))
+        i += 1
+    mid0 = int(np.shape(state["backbone.encoder.layers.0.blocks.0."
+                              "intermediate.dense.weight"])[0])
+    return DPTSwinConfig(
+        image_size=image_size, patch_size=int(proj[2]),
+        embed_dim=int(proj[0]), depths=tuple(depths),
+        num_heads=tuple(heads), window_size=window_size,
+        mlp_ratio=mid0 / int(proj[0]),
+        fusion_hidden=int(np.shape(state["neck.convs.0.weight"])[0]))
+
+
+def dpt_swinv2_from_torch(state: Dict[str, Any], image_size: int = 256,
+                          window_size: int = 16,
+                          device: Optional[torch.device] = None):
+    """HF ``DPTForDepthEstimation`` (Swinv2 backbone: the class that loads
+    Intel/dpt-swinv2-tiny-256) state dict -> (params, DPTSwinConfig) for
+    models/dpt, on ``device`` (the CUDA card by default).
+
+    Names: backbone.embeddings.* -> patch_embed / embed_norm;
+    backbone.encoder.layers.{i}.blocks.{j}.* -> stages[i].blocks[j];
+    .downsample.* -> stages[i].merge; neck.convs.{i} -> neck_convs;
+    neck.fusion_stage.layers.{i} -> fusion[i] (layer 0's unused
+    residual_layer1 is skipped); head.head.{0,2,4} -> head1..3."""
+    device = default_device(device, "convert")
+    cfg = dpt_swinv2_config_from_torch(state, image_size, window_size)
+
+    def ln(prefix):
+        return {"g": _on(state[f"{prefix}.weight"], device),
+                "b": _on(state[f"{prefix}.bias"], device)}
+
+    def mat(key):
+        return _on(_f32(state[key]).T, device)
+
+    stages = []
+    for i in range(len(cfg.depths)):
+        blocks = []
+        for j in range(cfg.depths[i]):
+            pre = f"backbone.encoder.layers.{i}.blocks.{j}"
+            att = f"{pre}.attention.self"
+            q = _lin(state, f"{att}.query", device)
+            v = _lin(state, f"{att}.value", device)
+            o = _lin(state, f"{pre}.attention.output.dense", device)
+            wi = _lin(state, f"{pre}.intermediate.dense", device)
+            wp = _lin(state, f"{pre}.output.dense", device)
+            cpb0 = _lin(state, f"{att}.continuous_position_bias_mlp.0",
+                        device)
+            blocks.append({
+                "wq": q["w"], "bq": q["b"], "wk": mat(f"{att}.key.weight"),
+                "wv": v["w"], "bv": v["b"], "wo": o["w"], "bo": o["b"],
+                "wi": wi["w"], "bi": wi["b"], "wp": wp["w"], "bp": wp["b"],
+                "ln1": ln(f"{pre}.layernorm_before"),
+                "ln2": ln(f"{pre}.layernorm_after"),
+                "logit_scale": _on(state[f"{att}.logit_scale"], device),
+                "cpb": {"w0": cpb0["w"], "b0": cpb0["b"],
+                        "w1": mat(f"{att}.continuous_position_bias_mlp."
+                                  "2.weight")},
+            })
+        stage: Dict[str, Any] = {"blocks": blocks}
+        down = f"backbone.encoder.layers.{i}.downsample"
+        if f"{down}.reduction.weight" in state:
+            stage["merge"] = {"w": mat(f"{down}.reduction.weight"),
+                              "norm": ln(f"{down}.norm")}
+        stages.append(stage)
+
+    def rcu(prefix):
+        return {"c1": _plain_conv(state, f"{prefix}.convolution1", device),
+                "c2": _plain_conv(state, f"{prefix}.convolution2", device)}
+
+    fusion = []
+    for i in range(len(cfg.depths)):
+        pre = f"neck.fusion_stage.layers.{i}"
+        p = {"rcu2": rcu(f"{pre}.residual_layer2"),
+             "out": _plain_conv(state, f"{pre}.projection", device)}
+        if i > 0:  # layer 0 never receives a residual
+            p["rcu1"] = rcu(f"{pre}.residual_layer1")
+        fusion.append(p)
+
+    params = {
+        "patch_embed": _plain_conv(
+            state, "backbone.embeddings.patch_embeddings.projection", device),
+        "embed_norm": ln("backbone.embeddings.norm"),
+        "stages": stages,
+        "neck_convs": [_plain_conv(state, f"neck.convs.{i}", device,
+                                   bias=False)
+                       for i in range(len(cfg.depths))],
+        "fusion": fusion,
+        "head1": _plain_conv(state, "head.head.0", device),
+        "head2": _plain_conv(state, "head.head.2", device),
+        "head3": _plain_conv(state, "head.head.4", device),
+    }
     return params, cfg

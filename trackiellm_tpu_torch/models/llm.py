@@ -253,7 +253,7 @@ def init_params_quantized(generator: torch.Generator, cfg: LLMConfig,
 
 
 def params_to(params: Any, device: torch.device) -> Any:
-    """A copy of a param tree on ``device``."""
+    """A copy of a param tree on ``device`` (None leaves stay None)."""
     if isinstance(params, dict):
         return {k: params_to(v, device) for k, v in params.items()}
     if isinstance(params, QuantizedLinear):
@@ -261,7 +261,7 @@ def params_to(params: Any, device: torch.device) -> Any:
                                params.scales.to(device))
     if isinstance(params, (list, tuple)):
         return [params_to(v, device) for v in params]
-    return params.to(device)
+    return None if params is None else params.to(device)
 
 
 def _layer(layers: Dict[str, Any], li: int) -> Dict[str, Any]:
