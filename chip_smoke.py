@@ -78,7 +78,7 @@ Phases (any failure is an uncaught exception and a non-zero exit):
  12. serving: phase 5's model behind ``LLMServer`` with eight slots:
      ``tools/measure_server.run`` (a warm burst, then 16 requests of 48
      tokens) per-step and in pipelined 8-step chunks, dense and paged
-     (128-token pages), and a paged int8 pool, in two rounds, with their
+     (128-token pages), and a paged int8 pool, in one round, with their
      admission waves; then on each server a burst of the 16 requests
      queued whole before admission: chunks must give all 16 the per-step
      ids. Eight cortex prompts through the prefix cache, then eight more
@@ -129,12 +129,31 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      ``NavigationEngine``: every requested ``valid_analyses`` bit must be
      set (a stage that degrades on the card fails the phase), the card's
      objects against the CPU's (reported), the frame wall p50 over 20
-     frames; each stage's time and the NMS sweep's alone, with a sync. The
+     frames; each stage's time and the NMS sweep's alone, with a sync; the
+     frame (with a QR code on its wall, the QR detector as ``barcode_fn``)
+     as a tensor already on the card and as numpy through two fresh
+     pipelines: every bit, object, text and barcode equal. The
      launches and idle share of a frame come from a profile in a process
      of its own (``--vision-profile``); one ``{"vision": ...}`` line before
      the voice line. No hand-written kernel is on the vision path: every
      counter must stay at 0.
-Phases 5-14 zero every launch counter just before they drive their path and
+ 15. app loop: the bundled trained wake word (``load_default_wake_word``)
+     on the card and on the CPU scores 16 seeded windows (two-tone
+     keyword phrases and imposters) through each side's log-mel (max abs
+     1e-5, decisions equal) and streams a seeded signal chunk by chunk
+     (firings equal); ``python -m trackiellm_tpu_torch demo 4`` in-process
+     (tiny models on the card: exit 0, a VISION job, a spoken line; the
+     counters that rose are printed); then
+     ``trackiellm_tpu_torch.tools.measure_app_e2e`` in a process of its
+     own (``TrackieApp`` with YOLOv8n 640, MiDaS-small 384, Whisper-tiny
+     at n_audio_ctx 500, Mistral-7B Q4 at max_seq 1024 and the default
+     TTS streamed; one warm run, then 3 measured): end of speech to the
+     first reply audio, p50, with first audio and transcript; every run
+     must reach reply audio, and its counters must show W4A8, its
+     quantization and flash, and none of Q8, the fused block, the
+     streaming Q4 or the probes (f32a may rise). One ``{"app": ...}``
+     line before the vision line; the smoke's wall on a line before it.
+Phases 5-15 zero every launch counter just before they drive their path and
 read them just after: the path's kernels must have launched, and the routes
 it does not take must not have (no serving path launches the streaming Q4
 or a probe; phase 9 must launch all four; phases 13 and 14 launch none).
@@ -143,8 +162,8 @@ phases 5-7 greedy text must not depend on the lookahead depth, in phase 10
 not on speculation, and every logit vector must be finite. Phase 3's
 device-only times come from profiles whose launch count matches the calls
 (``device_only_ms``). Each phase's first line ends with the seconds since
-the build began. The ``vision`` line, then the ``voice`` line, come just
-before the last five lines, which are the ``serve`` line, the ``slice10``
+the build began. The ``app`` line, the ``vision`` line, then the ``voice``
+line, come just before the last five lines, which are the ``serve`` line, the ``slice10``
 line, the card line, the kernels' JSON summary and the result line.
 """
 
@@ -958,16 +977,8 @@ PROFILED_KERNELS = {
 def launch_counters() -> dict:
     """Every kernel wrapper by name: each counts its launches in
     ``launches``."""
-    from trackiellm_tpu_torch.ops import attention, diag, fused, quant
-    return {"q4_matmul_w4a8": quant.q4_matmul_w4a8,
-            "quantize_activations": quant.quantize_activations,
-            "flash_attention": attention.flash_attention,
-            "q8_matmul": quant.q8_matmul,
-            "q4_matmul_f32a": quant.q4_matmul_f32a,
-            "fused_mlp_q4": fused.fused_mlp_q4,
-            "q4_matmul_stream": quant.q4_matmul_stream,
-            "stream": diag.stream, "grid64": diag.grid64,
-            "chain_tiny": diag.chain_tiny}
+    from trackiellm_tpu_torch.ops import kernel_wrappers
+    return kernel_wrappers()
 
 
 def missed_launches(by_name, counted):
@@ -1808,7 +1819,6 @@ SERVE_PAGE = 128
 SERVE_JOB_CHUNK = 128
 SERVE_LONG = (350, 450)   # (c)'s prompt tokens
 SERVE_RUNNER = 4   # pinned-burst requests also answered by LLMRunner
-SERVE_ROUNDS = 2   # measure_server's configurations, each run this often
 # Tokens of the profile's two bursts: 32 (about 67,000 device records)
 # and 16. A burst of 48 (about 100,000 records) came back without some of
 # its launches in every retry.
@@ -1971,11 +1981,10 @@ def phase_serve(dev, llm, runner_mod, tokenizer_mod, server_mod, paging,
                 measure, params, cfg, counters, profile=None) -> dict:
     """Phase 12: continuous batching on phase 5's model (``cfg``), eight
     slots. (a) ``measure_server.run`` in its four configurations and a
-    paged int8 pool at 8-step chunks, SERVE_ROUNDS times (the second
-    round in reverse order), each reporting its admission waves; then on
-    each server a pinned burst (``ServerWatch.held``) of the 16 requests:
-    in each layout the chunked path must give all 16 the per-step path's
-    ids and text. (b) Eight cortex prompts (the 297-token SYSTEM/CONTEXT
+    paged int8 pool at 8-step chunks, once each, each reporting its
+    admission waves; then on each server a pinned burst
+    (``ServerWatch.held``) of the 16 requests: in each layout the chunked
+    path must give all 16 the per-step path's ids and text. (b) Eight cortex prompts (the 297-token SYSTEM/CONTEXT
     prompt, eight questions) in one wave on a paged server with the prefix
     cache, then eight more: hits and reused tokens must count. (c) A
     ~400-token prompt admitted in extend chunks (``prefill_chunk``) while
@@ -2002,31 +2011,29 @@ def phase_serve(dev, llm, runner_mod, tokenizer_mod, server_mod, paging,
         fn.launches = 0
     watch = LogitWatch(llm, paging)
     configs = [*measure.CONFIGS.items(), SERVE_INT8]
-    out = {"configs": {label: [] for label, _ in configs}}
+    out = {"configs": {}}
     ids = {}
     prompts = measure.prompts(SEED)
     pinned = [(p, dict(max_tokens=measure.MAX_TOKENS)) for p in prompts]
     try:
-        for rnd in range(SERVE_ROUNDS):
-            for label, kw in (configs if rnd == 0 else configs[::-1]):
-                s, w = server(**kw)
-                try:
-                    res = measure.run(s, SEED)
-                    res["waves"] = list(w.waves)
-                    if rnd == 0:
-                        n = len(w.waves)
-                        texts = burst(s, pinned, w)
-                        ids[label] = ([w.ids[p] for p in prompts], texts,
-                                      w.waves[n:])
-                finally:
-                    close(s)
-                del res["texts"]
-                out["configs"][label].append(res)
-                log(f"  serve {label} (round {rnd + 1}): aggregate_tok_s="
-                    f"{res['aggregate_tok_s']:.2f} wall_s={res['wall_s']:.3f}"
-                    f" decode_steps={res['decode_steps']} admission waves "
-                    f"{res['waves']} (the warm burst's, then the timed "
-                    "burst's)")
+        for label, kw in configs:
+            s, w = server(**kw)
+            try:
+                res = measure.run(s, SEED)
+                res["waves"] = list(w.waves)
+                n = len(w.waves)
+                texts = burst(s, pinned, w)
+                ids[label] = ([w.ids[p] for p in prompts], texts,
+                              w.waves[n:])
+            finally:
+                close(s)
+            del res["texts"]
+            out["configs"][label] = res
+            log(f"  serve {label}: aggregate_tok_s="
+                f"{res['aggregate_tok_s']:.2f} wall_s={res['wall_s']:.3f}"
+                f" decode_steps={res['decode_steps']} admission waves "
+                f"{res['waves']} (the warm burst's, then the timed "
+                "burst's)")
         out["chunk_vs_step"] = {}
         for one, chunked in (("per_step", "chunk8"),
                              ("paged_per_step", "paged_chunk8")):
@@ -3020,9 +3027,9 @@ def vision_fns(params: dict, sizes: dict, depth_kind: str):
 
 
 def vision_pipeline(dev, params: dict, sizes: dict, depth_kind: str,
-                    seed: int = 0):
-    """VisionPipeline with the v8n detector, MiDaS or DPT, the OCR and a
-    NavigationEngine, on ``dev``."""
+                    seed: int = 0, barcode_fn=None):
+    """VisionPipeline with the v8n detector, MiDaS or DPT, the OCR, a
+    NavigationEngine and ``barcode_fn``, on ``dev``."""
     from trackiellm_tpu_torch.navigation import NavigationEngine
     from trackiellm_tpu_torch.vision import VisionConfig, VisionPipeline
     det, dep, read = vision_fns(params, sizes, depth_kind)
@@ -3032,6 +3039,7 @@ def vision_pipeline(dev, params: dict, sizes: dict, depth_kind: str,
             VisionConfig(depth_input=sizes["midas"].img_size))
     conf.detector_input = sizes["v8n"].img_size
     return VisionPipeline(det, dep, read, config=conf,
+                          barcode_fn=barcode_fn,
                           navigation_engine=NavigationEngine(seed=seed,
                                                              device=dev),
                           device=dev)
@@ -3234,6 +3242,58 @@ def vision_navigation(dev, depth_m: np.ndarray) -> dict:
     return out
 
 
+def with_qr(frame: np.ndarray, text: str = "SAIDA 2") -> np.ndarray:
+    """``frame`` with a QR code of ``text`` on the wall, top left."""
+    from trackiellm_tpu_torch.vision import qr_decode
+    code = qr_decode.render_qr(qr_decode.encode_qr(text, version=1),
+                               module_px=max(1, min(frame.shape[:2]) // 116))
+    out = frame.copy()
+    out[16:16 + code.shape[0], 16:16 + code.shape[1]] = code[..., None]
+    return out
+
+
+def frame_summary(res) -> dict:
+    """What a frame's result says: its valid bits, objects (boxes, scores,
+    distances, attributes, texts), text regions, barcodes and cues."""
+    import dataclasses
+    return {"valid": int(res.valid_analyses),
+            "objects": [dataclasses.asdict(o) for o in res.objects],
+            "text_regions": [dataclasses.asdict(t) for t in res.text_regions],
+            "full_text": res.full_text, "barcodes": list(res.barcodes),
+            "cues": list(res.navigation_cues)}
+
+
+def vision_tensor_frame(dev, models, sizes, frame) -> dict:
+    """process_frame (AnalysisFlags.ALL, MiDaS, the QR detector) on the
+    frame as numpy and as a tensor already on ``dev``, each through a fresh
+    pipeline: the results must be equal (the camera worker hands the
+    pipeline card tensors; the OCR stage once dropped them)."""
+    from trackiellm_tpu_torch.vision import AnalysisFlags
+    from trackiellm_tpu_torch.vision.qr import QRFinderDetector
+    cards = {k: v[0] for k, v in models.items()}
+    frame = with_qr(frame)
+    got = {}
+    for kind, f in (("numpy", frame),
+                    ("tensor", torch.from_numpy(frame).to(dev))):
+        pipe = vision_pipeline(dev, cards, sizes, "midas",
+                               barcode_fn=QRFinderDetector())
+        res = pipe.process_frame(f, AnalysisFlags.ALL)
+        bits = check_valid(res, f"a {kind} frame")
+        got[kind] = frame_summary(res)
+    a, b = got["numpy"], got["tensor"]
+    log(f"  process_frame ALL on a {dev.type} tensor frame against numpy: "
+        f"valid {a['valid']} and {b['valid']}, {len(b['objects'])} objects, "
+        f"{len(b['text_regions'])} text regions, barcodes {b['barcodes']}")
+    if a != b:
+        differ = sorted(k for k in a if a[k] != b[k])
+        raise AssertionError(f"phase 14: a tensor frame's result differs "
+                             f"from the numpy frame's in {differ}")
+    return {"equal": True, "valid": bits,
+            "objects": len(b["objects"]),
+            "text_regions": len(b["text_regions"]),
+            "barcodes": b["barcodes"]}
+
+
 def vision_pipelines(dev, models, sizes, frames) -> tuple:
     """process_frame with AnalysisFlags.ALL, with MiDaS and with DPT: every
     bit must be valid; the card's objects against the CPU's; the frame's
@@ -3302,6 +3362,7 @@ def phase_vision(dev, counters, profile) -> dict:
     out["depth"] = vision_depths(dev, models, sizes, frames[0])
     out["ocr"] = vision_ocr(dev, models, sizes, frames[0])
     out["pipeline"], depth_m = vision_pipelines(dev, models, sizes, frames)
+    out["tensor_frame"] = vision_tensor_frame(dev, models, sizes, frames[0])
     out["navigation"] = vision_navigation(dev, depth_m)
     launches = {k: f.launches for k, f in counters.items()}
     expect_routes(launches, (), tuple(launches), "phase 14")
@@ -3377,6 +3438,186 @@ def vision_profile_child() -> dict:
     for line in lines[:-1]:
         log(line)
     return json.loads(lines[-1])
+
+
+APP_DEMO_SECONDS = 4          # the demo's run
+APP_RUNS = 3                  # measured app runs after the warm one
+APP_REPLY_PRIORITY = 1        # TTSPriority.NORMAL: the LLM reply's speech
+APP_TIMEOUT = 900.0           # the measuring child's limit, seconds
+WAKE_WINDOWS = 16             # scored windows, keyword-like and not
+WAKE_TOL = 1e-5               # max abs, card against CPU scores
+WAKE_RATE = 16_000
+WAKE_WINDOW = 76 * 160 + 240  # NeuralWakeWord's ring size
+
+
+def wake_tone_pair(rng, f1: float, f2: float, amp: float = 0.1):
+    """A two-tone 'phrase': f1 then f2, jittered phase and noise."""
+    t = np.arange(WAKE_WINDOW // 2) / WAKE_RATE
+    a = amp * np.sin(2 * np.pi * f1 * t + rng.uniform(0, 6.28))
+    b = amp * np.sin(2 * np.pi * f2 * t + rng.uniform(0, 6.28))
+    x = np.concatenate([a, b])[:WAKE_WINDOW]
+    return (x + 0.02 * rng.standard_normal(WAKE_WINDOW)).astype(np.float32)
+
+
+def wake_windows(seed: int) -> list:
+    """WAKE_WINDOWS windows from the seed, alternately the keyword's
+    600 -> 1100 Hz phrase and an imposter: the reversed phrase, one mid
+    tone, a noise burst of the same loudness, near silence."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(WAKE_WINDOWS // 2):
+        out.append(("keyword", wake_tone_pair(rng, 600.0, 1100.0)))
+        kind = i % 4
+        if kind == 0:
+            clip = wake_tone_pair(rng, 1100.0, 600.0)
+        elif kind == 1:
+            clip = wake_tone_pair(rng, 850.0, 850.0)
+        elif kind == 2:
+            clip = (0.1 * rng.standard_normal(WAKE_WINDOW)).astype(np.float32)
+        else:
+            clip = (0.001 * rng.standard_normal(WAKE_WINDOW)).astype(
+                np.float32)
+        out.append(("imposter", clip))
+    return out
+
+
+def app_wake_word(dev) -> dict:
+    """The bundled trained wake word on the card and on the CPU, each
+    scoring the same windows through its own log-mel: scores within
+    WAKE_TOL, decisions equal; then the streaming detector chunk by
+    chunk on both sides."""
+    from trackiellm_tpu_torch.audio import wake_word as ww
+    from trackiellm_tpu_torch.ops.mel import log_mel_spectrogram
+    card = ww.load_default_wake_word(device=dev)
+    cpu = ww.load_default_wake_word(device="cpu")
+    cfg = card.cfg
+    rows = []
+    for kind, clip in wake_windows(SEED):
+        scores = []
+        for det in (card, cpu):
+            mel = log_mel_spectrogram(torch.from_numpy(clip).to(det.device),
+                                      n_mels=cfg.n_mels)
+            scores.append(float(ww.wake_word_score(
+                det.params, cfg, mel[:, -cfg.n_frames:])))
+        rows.append((kind, *scores))
+    err = max(abs(a - b) for _, a, b in rows)
+    same = all((a >= cfg.sensitivity) == (b >= cfg.sensitivity)
+               for _, a, b in rows)
+    stream = np.concatenate([clip for _, clip in wake_windows(SEED + 1)])
+    chunk = WAKE_RATE // 10
+    fired = [[det(stream[i:i + chunk]) for i in range(
+        0, len(stream) - chunk + 1, chunk)] for det in (card, cpu)]
+    hits = {k: sum(a >= cfg.sensitivity for kk, a, _ in rows if kk == k)
+            for k in ("keyword", "imposter")}
+    log(f"  wake word (bundled artifact, {len(rows)} windows): card against "
+        f"CPU max abs {err:.3g} (tolerance {WAKE_TOL:g}), decisions "
+        f"{'equal' if same else 'differ'}; accepted {hits['keyword']} of "
+        f"{len(rows) // 2} keywords, {hits['imposter']} of {len(rows) // 2} "
+        f"imposters; streaming: {sum(fired[0])} firings in {len(fired[0])} "
+        f"chunks, {'as' if fired[0] == fired[1] else 'not as'} on the CPU")
+    if err > WAKE_TOL or not same or fired[0] != fired[1]:
+        raise AssertionError(f"phase 15: wake word card against CPU: max abs "
+                             f"{err}, decisions equal {same}, streaming "
+                             f"equal {fired[0] == fired[1]}")
+    return {"windows": len(rows), "max_abs_err": err, "tol": WAKE_TOL,
+            "decisions_equal": same, "accepted": hits,
+            "stream_chunks": len(fired[0]), "stream_firings": sum(fired[0])}
+
+
+def app_demo(dev, cli, counters) -> dict:
+    """``python -m trackiellm_tpu_torch demo`` in-process on the card: exit
+    0 (the demo exits 1 on any failure the app absorbed: a model call that
+    raised, a vision job among them, or a vision stage that degraded a
+    frame), at least one VISION job, an LLM turn in the printed cortex
+    stats, and the reply spoken at its own priority (NORMAL or below, as
+    measure_app_e2e reads it; the safety alerts speak above it). The
+    counters are zeroed before and read after (the demo's tiny f32 model
+    may launch none)."""
+    import ast
+    for fn in counters.values():
+        fn.launches = 0
+    argv = ["demo", str(APP_DEMO_SECONDS)]
+    if dev.type != "cuda":  # the card is the demo's default
+        argv += ["--device", str(dev)]
+    rc, text, secs = run_cli(cli, argv)
+    launches = {k: fn.launches for k, fn in counters.items()}
+
+    def printed(label):
+        return next((ast.literal_eval(line.split(":", 1)[1].strip())
+                     for line in text.splitlines()
+                     if line.startswith(f"{label}:")), {})
+    stats, cortex = printed("scheduler stats"), printed("cortex stats")
+    spoken = [int(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+              if line.startswith("[tts]")]
+    replies = sum(p <= APP_REPLY_PRIORITY for p in spoken)
+    vision = int(stats.get("vision", {}).get("count", 0))
+    llm_ms = float(cortex.get("last_llm_ms", 0.0))
+    log(f"  demo {APP_DEMO_SECONDS}: exit {rc} in {secs:.1f} s; scheduler "
+        f"jobs { {k: int(v['count']) for k, v in stats.items()} }; LLM turn "
+        f"{llm_ms:.1f} ms; {len(spoken)} spoken lines, {replies} at the "
+        f"reply's priority; counters that rose: "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    if rc != 0 or vision < 1 or llm_ms <= 0 or not replies:
+        raise AssertionError(f"phase 15: demo exit {rc}, {vision} vision "
+                             f"jobs, LLM turn {llm_ms} ms, {replies} spoken "
+                             f"replies:\n{text}")
+    return {"exit": rc, "seconds": secs, "scheduler": stats,
+            "last_llm_ms": llm_ms, "spoken": len(spoken), "replies": replies,
+            "launches": launches}
+
+
+def app_e2e_child() -> dict:
+    """The port's ``tools/measure_app_e2e`` (full widths, APP_RUNS measured
+    runs after a warm one, seed SEED) in a process of its own, as phases
+    12-14 profile (late in this process the host loop runs slower). Its
+    runs' lines are passed on; its last line is the result."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "trackiellm_tpu_torch.tools.measure_app_e2e",
+         "--runs", str(APP_RUNS), "--seed", str(SEED)],
+        capture_output=True, text=True, timeout=APP_TIMEOUT,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = proc.stdout.strip().splitlines()
+    for line in proc.stderr.splitlines():
+        if line.startswith(("run ", "building", "warming")):
+            log(f"  [measure_app_e2e] {line}")
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"phase 15: measure_app_e2e exited "
+                             f"{proc.returncode}: {proc.stdout[-2000:]}"
+                             f"{proc.stderr[-4000:]}")
+    return json.loads(lines[-1])
+
+
+def phase_app(dev, cli, counters, e2e) -> dict:
+    """Phase 15: the app loop (module comment above). The wake word card
+    against CPU, the demo, then the product's latency from ``e2e()`` (the
+    measuring child): every measured run must reach reply audio, and its
+    counters must show W4A8, its quantization and flash, and none of Q8,
+    the fused block, the streaming Q4 or the probes."""
+    t0 = time.perf_counter()
+    out = {"wake_word": app_wake_word(dev),
+           "demo": app_demo(dev, cli, counters)}
+    res = e2e()
+    launches = res.get("launches", {})
+    log(f"  measure_app_e2e ({res.get('runs')} runs after a warm one, "
+        f"{res.get('incomplete')} incomplete): end of speech to first reply "
+        f"audio p50 {res.get('p50_first_reply_audio_ms')} ms, first audio "
+        f"{res.get('p50_first_any_audio_ms')} ms, transcript "
+        f"{res.get('p50_transcript_ms')} ms; runs {res.get('runs_ms')}; "
+        f"{res.get('card')}")
+    log(f"  measure_app_e2e launches: {launches}; q4_matmul_f32a "
+        f"{'rose' if launches.get('q4_matmul_f32a') else 'stayed at 0'}")
+    if res.get("incomplete") or "error" in res or len(
+            res.get("runs_ms", ())) != APP_RUNS or res.get("failures"):
+        raise AssertionError(f"phase 15: not every app run reached reply "
+                             f"audio: {res}")
+    expect_routes(launches, ("q4_matmul_w4a8", "quantize_activations",
+                             "flash_attention"),
+                  ("q8_matmul", "fused_mlp_q4", *DIAGNOSTIC), "phase 15")
+    out["e2e"] = res
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 15 took {out['seconds']:.1f} s")
+    return out
 
 
 def serve_config(llm):
@@ -3583,8 +3824,15 @@ def main() -> int:
     banner("phase 14 vision (480x640 frame; YOLOv8n and YOLOv5nu at 640, "
            "MiDaS-small at 384, DPT-SwinV2 tiny_256, CRNN OCR, navigation):")
     vision = phase_vision(dev, counters, vision_profile_child)
+    banner("phase 15 app loop (the bundled wake word, demo, measure_app_e2e: "
+           "YOLOv8n, MiDaS-small, Whisper-tiny, Mistral-7B Q4, TTS):")
+    app = phase_app(dev, cli, counters, app_e2e_child)
+    launches[15] = app["launches"]
+    log(f"chip_smoke wall: {time.perf_counter() - t0:.1f} s since the build "
+        "began")
 
     smi = nvidia_smi()
+    print(json.dumps({"app": app, "card": smi}), flush=True)
     print(json.dumps({"vision": vision, "card": smi}), flush=True)
     print(json.dumps({"voice": voice, "card": smi}), flush=True)
     print(json.dumps({"serve": serve, "card": smi}), flush=True)

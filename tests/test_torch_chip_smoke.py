@@ -422,8 +422,9 @@ def test_phase12_on_the_cpu(monkeypatch, capsys):
                        cs.launch_counters())
     assert all(getattr(llm, n) is fn for n, fn in names.items())
     out = capsys.readouterr().out
-    for tag in ("serve per_step (round 1)", "serve paged_chunk8 (round 2)",
-                "serve paged_int8_chunk8 (round 1)",
+    for tag in ("serve per_step: aggregate_tok_s=",
+                "serve paged_chunk8: aggregate_tok_s=",
+                "serve paged_int8_chunk8: aggregate_tok_s=",
                 "chunk8 against per_step (pinned burst of 16, waves [8, 8] "
                 "and [8, 8]): ids and texts identical",
                 "paged_chunk8 against paged_per_step (pinned burst",
@@ -606,6 +607,7 @@ def test_main_prints_the_voice_line_before_the_last_five(monkeypatch,
         "launches": {}, "n": 12})
     monkeypatch.setattr(cs, "phase_voice", lambda *a, **k: {"n": 13})
     monkeypatch.setattr(cs, "phase_vision", lambda *a, **k: {"n": 14})
+    monkeypatch.setattr(cs, "phase_app", lambda *a, **k: {"launches": {}})
     assert cs.main() == 0
     lines = capsys.readouterr().out.strip().splitlines()[-6:]
     assert json.loads(lines[0]) == {"voice": {"n": 13},
@@ -658,6 +660,7 @@ def test_main_prints_the_vision_line_before_the_voice_line(monkeypatch,
         seen.append(13), {"n": 13})[1])
     monkeypatch.setattr(cs, "phase_vision", lambda dev, counters, profile: (
         seen.append((14, profile is cs.vision_profile_child)), {"n": 14})[1])
+    monkeypatch.setattr(cs, "phase_app", lambda *a, **k: {"launches": {}})
     assert cs.main() == 0
     assert seen == [13, (14, True)]
     lines = capsys.readouterr().out.strip().splitlines()[-7:]
@@ -699,8 +702,10 @@ def test_phase14_on_the_cpu(monkeypatch, capsys):
     out = cs.phase_vision(torch.device("cpu"), cs.launch_counters(),
                           lambda: {"midas": {"idle_share": 0.5}})
     assert set(out) == {"frame", "models", "detector", "nms", "depth", "ocr",
-                        "pipeline", "navigation", "launches", "profile",
-                        "seconds"}
+                        "pipeline", "navigation", "tensor_frame", "launches",
+                        "profile", "seconds"}
+    assert out["tensor_frame"]["equal"]
+    assert out["tensor_frame"]["valid"] == list(cs.VISION_BITS)
     for name in ("v8n", "v5nu"):
         d = out["detector"][name]
         assert d["nms_bit_equal"] and max(d["raw_rel_l2"].values()) == 0.0
@@ -718,6 +723,7 @@ def test_phase14_on_the_cpu(monkeypatch, capsys):
     for tag in ("v8n at 160:", "v5nu at 160:", "midas at 96:", "dpt at 64:",
                 "OCR (CRNN, 8 page crops)", "process_frame ALL with midas",
                 "process_frame ALL with dpt", "navigation (96x96 depth",
+                "process_frame ALL on a cpu tensor frame against numpy",
                 "phase 14 took"):
         assert tag in text, tag
     json.dumps(out)
@@ -759,3 +765,144 @@ def test_vision_frame_is_seeded():
     assert (a == cs.vision_frame((480, 640), 1)).all()
     assert (a != cs.vision_frame((480, 640), 2)).any()
     assert a[:100].std() > 5 and a[300:].mean() > a[200:250].mean() - 40
+
+
+def test_main_prints_the_app_line_before_the_vision_line(monkeypatch,
+                                                         capsys):
+    """Phase 15 runs after phase 14 with the measuring child; its line
+    comes just before the vision line, the smoke's wall on a line before
+    it, and the kernels line counts phase 15's launches."""
+    from trackiellm_tpu_torch.ops import _build
+    cs = _load()
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda *a: (9, 0))
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "H100")
+    monkeypatch.setattr(cs, "nvidia_smi", lambda: "H100, 700.00 W")
+    monkeypatch.setattr(_build, "build", lambda: _build.BUILD_ROOT / "x")
+    monkeypatch.setattr(_build, "library", lambda: None)
+    for name, value in (("phase_kernels", {}), ("phase_width", None),
+                        ("build_model", {}), ("profile_path", {}),
+                        ("expect_routes", None), ("phase_entry", None),
+                        ("phase_diagnostics", {})):
+        monkeypatch.setattr(cs, name, lambda *a, v=value, **k: v)
+    monkeypatch.setattr(cs, "drive", lambda *a, **k: {
+        "quantize_activations": 1, "q4_matmul_w4a8": 1})
+    for name, n in (("phase_slice10", 10), ("phase_gguf", 11),
+                    ("phase_serve", 12)):
+        monkeypatch.setattr(cs, name, lambda *a, n=n, **k: {
+            "launches": {}, "n": n})
+    monkeypatch.setattr(cs, "phase_voice", lambda *a, **k: {"n": 13})
+    monkeypatch.setattr(cs, "phase_vision", lambda *a, **k: {"n": 14})
+    seen = []
+    monkeypatch.setattr(cs, "phase_app", lambda dev, cli, counters, e2e: (
+        seen.append(e2e is cs.app_e2e_child),
+        {"launches": {"q4_matmul_w4a8": 7}, "n": 15})[1])
+    monkeypatch.setattr(cs, "kernels_line", lambda rows, launches: json.dumps(
+        {"phase15": launches[15]}))
+    assert cs.main() == 0
+    assert seen == [True]
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[-9].startswith("chip_smoke wall: ")
+    assert json.loads(lines[-8]) == {"app": {
+        "launches": {"q4_matmul_w4a8": 7}, "n": 15},
+        "card": "H100, 700.00 W"}
+    assert json.loads(lines[-7])["vision"] == {"n": 14}
+    assert json.loads(lines[-2]) == {"phase15": {"q4_matmul_w4a8": 7}}
+
+
+def test_phase15_on_the_cpu(monkeypatch, capsys):
+    """Phase 15's control flow on the CPU at tiny widths: the wake word
+    (the CPU against itself), the demo in-process with --device cpu for as
+    long as on the card (the reply must be spoken in its second half), and
+    measure_app_e2e's measurement in-process at tiny widths with every run
+    complete; the route check then fails, as it must where no kernel
+    launches."""
+    from trackiellm_tpu_torch import __main__ as cli
+    from trackiellm_tpu_torch.models import depth, detector, llm, tts, whisper
+    from trackiellm_tpu_torch.tools import measure_app_e2e
+    cs = _load()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    cpu = torch.device("cpu")
+    sizes = {"detector": detector.DetectorConfig.tiny(),
+             "depth": depth.DepthConfig.tiny(),
+             "asr": whisper.WhisperConfig.test(), "llm": llm.LLMConfig.tiny(),
+             "llm_group": 64, "tts": tts.TTSConfig.tiny(), "frame": (96, 128)}
+
+    def e2e():
+        return measure_app_e2e.measure(
+            cpu, runs=cs.APP_RUNS, seed=cs.SEED, sizes=sizes, speech_s=1.0,
+            warm_timeout_s=10.0, run_timeout_s=10.0, log=lambda s: None)
+    with pytest.raises(AssertionError,
+                       match="phase 15: q4_matmul_w4a8 never launched"):
+        cs.phase_app(cpu, cli, cs.launch_counters(), e2e)
+    out = capsys.readouterr().out
+    for tag in ("wake word (bundled artifact, 16 windows): card against CPU "
+                "max abs 0", "decisions equal", "as on the CPU",
+                f"demo {cs.APP_DEMO_SECONDS}: exit 0", "1 at the reply's "
+                "priority",
+                f"measure_app_e2e ({cs.APP_RUNS} runs after a warm one, 0 "
+                "incomplete)", "q4_matmul_f32a stayed at 0"):
+        assert tag in out, tag
+
+
+def test_phase15_fails_on_an_incomplete_run(monkeypatch):
+    """A measured run that never reached reply audio fails the phase (the
+    reference's harness skips it)."""
+    cs = _load()
+    monkeypatch.setattr(cs, "app_wake_word", lambda dev: {})
+    monkeypatch.setattr(cs, "app_demo", lambda dev, cli, counters: {})
+    with pytest.raises(AssertionError, match="not every app run"):
+        cs.phase_app(torch.device("cpu"), None, {}, lambda: {
+            "runs": 3, "incomplete": 1, "runs_ms": [1.0, 2.0],
+            "launches": {}})
+
+
+DEMO_OK = ("assistant running for 4s on cuda:0\n"
+           "[tts] 12320 samples at priority 3\n"
+           "[tts] 6880 samples at priority 1\n"
+           "cortex stats: {'last_vision_ms': 63.0, 'last_llm_ms': 120.2}\n"
+           "scheduler stats: {'vision': {'count': 4.0, 'ema_ms': 1.0, "
+           "'ema_wait_ms': 1.0}, 'tts': {'count': 3.0, 'ema_ms': 1.0, "
+           "'ema_wait_ms': 1.0}}\n")
+
+
+@pytest.mark.parametrize("rc, text, ok", [
+    (0, DEMO_OK, True),
+    (1, DEMO_OK, False),
+    (0, DEMO_OK.replace("priority 1", "priority 2"), False),
+    (0, DEMO_OK.replace("'last_llm_ms': 120.2", "'iterations': 3"), False),
+    (0, DEMO_OK.replace("'vision'", "'other'"), False),
+], ids=["answered", "exit 1", "only alerts spoken", "no LLM turn",
+        "no vision job"])
+def test_phase15_demo_needs_the_reply_spoken_an_llm_turn_and_vision(
+        monkeypatch, rc, text, ok):
+    """The demo passes only with exit 0 (no failure absorbed, a failed
+    vision job among them), a vision job, an LLM turn in the cortex stats,
+    and a spoken line at the reply's priority: a safety alert (CRITICAL)
+    is not the cortex's answer."""
+    cs = _load()
+    monkeypatch.setattr(cs, "run_cli", lambda cli, argv: (rc, text, 4.2))
+    if ok:
+        out = cs.app_demo(torch.device("cuda"), None, {})
+        assert out["replies"] == 1 and out["last_llm_ms"] == 120.2
+    else:
+        with pytest.raises(AssertionError, match="phase 15: demo exit"):
+            cs.app_demo(torch.device("cuda"), None, {})
+
+
+def test_app_e2e_child_fails_without_a_card(monkeypatch):
+    cs = _load()
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    with pytest.raises(AssertionError, match="no CUDA device"):
+        cs.app_e2e_child()
+
+
+def test_wake_windows_are_seeded():
+    cs = _load()
+    a = cs.wake_windows(1)
+    assert len(a) == cs.WAKE_WINDOWS
+    assert [k for k, _ in a[:4]] == ["keyword", "imposter"] * 2
+    assert all(c.shape == (cs.WAKE_WINDOW,) and c.dtype.name == "float32"
+               for _, c in a)
+    assert all((x == y).all() for (_, x), (_, y) in zip(a, cs.wake_windows(1)))

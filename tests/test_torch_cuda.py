@@ -1601,3 +1601,150 @@ def test_process_frame_on_the_card_sets_every_bit(dev):
         assert a.distance_m == pytest.approx(b.distance_m, abs=1e-4)
     assert rg.full_text == rc.full_text
     assert rg.scene_graph["edges"] == rc.scene_graph["edges"]
+
+
+def _qr_frame(seed, hw=(120, 160)):
+    """A seeded noise frame with a QR code drawn on it."""
+    from trackiellm_tpu_torch.vision import qr_decode
+    frame = np.random.default_rng(seed).integers(0, 256, (*hw, 3), np.uint8)
+    code = qr_decode.render_qr(qr_decode.encode_qr("SAIDA 2", version=1),
+                               module_px=3)
+    frame[4:4 + code.shape[0], 4:4 + code.shape[1]] = code[..., None]
+    return frame
+
+
+def test_process_frame_reads_a_frame_on_the_card(dev):
+    """The camera worker hands the pipeline frames already on the card:
+    process_frame(ALL) on such a tensor gives what the same frame as numpy
+    gives (every bit, the objects, the texts and the barcodes), each
+    through a fresh pipeline on the card. The OCR stage once fetched the
+    frame with np.asarray, which raises on a CUDA tensor, and dropped its
+    bit."""
+    import dataclasses
+
+    from trackiellm_tpu_torch.models import depth, detector, ocr
+    from trackiellm_tpu_torch.navigation import NavigationEngine
+    from trackiellm_tpu_torch.vision import (AnalysisFlags, VisionConfig,
+                                             VisionPipeline)
+    from trackiellm_tpu_torch.vision.qr import QRFinderDetector
+    dcfg, pcfg, ocfg = (detector.DetectorConfig.tiny(),
+                        depth.DepthConfig.tiny(), ocr.OCRConfig.tiny())
+    p = {k: _vision_pair(dev, init, c, 30 + i)[1] for i, (k, init, c) in
+         enumerate((("det", detector.init_detector, dcfg),
+                    ("dep", depth.init_depth, pcfg),
+                    ("ocr", ocr.init_ocr, ocfg)))}
+    frame = _qr_frame(5)
+
+    def run(f):
+        pipe = VisionPipeline(
+            lambda chw: detector.detector_forward(p["det"], dcfg, chw),
+            lambda chw: depth.depth_forward(p["dep"], pcfg, chw),
+            lambda crops: ocr.ctc_greedy_decode(ocr.ocr_forward(
+                p["ocr"], ocfg, torch.from_numpy(crops).to(dev))),
+            config=VisionConfig(detector_input=160, depth_input=96),
+            barcode_fn=QRFinderDetector(),
+            navigation_engine=NavigationEngine(device=dev), device=dev)
+        r = pipe.process_frame(f, AnalysisFlags.ALL)
+        return (r.valid_analyses,
+                [dataclasses.asdict(o) for o in r.objects],
+                [dataclasses.asdict(t) for t in r.text_regions],
+                r.full_text, r.barcodes, r.navigation_cues)
+    want = run(frame)
+    got = run(torch.from_numpy(frame).to(dev))
+    assert want[0] == AnalysisFlags.ALL and want[4]
+    assert got == want
+
+
+def _wake_clips(seed, n=16):
+    """Two-tone keyword-like phrases and imposters (reversed, one tone,
+    noise, near silence), as the wake word's trainer makes them."""
+    rng = np.random.default_rng(seed)
+    size = 76 * 160 + 240
+    t = np.arange(size // 2) / 16_000
+
+    def pair(f1, f2):
+        a = 0.1 * np.sin(2 * np.pi * f1 * t + rng.uniform(0, 6.28))
+        b = 0.1 * np.sin(2 * np.pi * f2 * t + rng.uniform(0, 6.28))
+        return (np.concatenate([a, b])
+                + 0.02 * rng.standard_normal(size)).astype(np.float32)
+    out = []
+    for i in range(n // 2):
+        out.append(pair(600.0, 1100.0))
+        out.append([pair(1100.0, 600.0), pair(850.0, 850.0),
+                    (0.1 * rng.standard_normal(size)).astype(np.float32),
+                    (0.001 * rng.standard_normal(size)).astype(np.float32)
+                    ][i % 4])
+    return out
+
+
+def test_wake_word_on_the_card(dev):
+    """The bundled trained wake word on the card against the CPU: scores
+    within 1e-5 through each side's log-mel, the same decisions, and the
+    streaming detector fires on the same chunks."""
+    from trackiellm_tpu_torch.audio import wake_word as ww
+    from trackiellm_tpu_torch.ops.mel import log_mel_spectrogram
+    card = ww.load_default_wake_word(device=dev)
+    cpu = ww.load_default_wake_word(device="cpu")
+    assert card.params["conv1"]["w"].is_cuda
+    cfg = card.cfg
+    clips = _wake_clips(7)
+    for clip in clips:
+        s = [float(ww.wake_word_score(d.params, cfg, log_mel_spectrogram(
+            torch.from_numpy(clip).to(d.device), n_mels=40)[:, -76:]))
+            for d in (card, cpu)]
+        assert abs(s[0] - s[1]) <= 1e-5
+        assert (s[0] >= cfg.sensitivity) == (s[1] >= cfg.sensitivity)
+    stream = np.concatenate(clips)
+    fired = [[d(stream[i:i + 1600]) for i in range(0, len(stream), 1600)]
+             for d in (card, cpu)]
+    assert fired[0] == fired[1] and any(fired[0])
+
+
+def test_camera_worker_uploads_frames_to_the_card(dev):
+    """vision_worker puts each captured frame on the card before the
+    cortex sees it; the bytes are the camera's."""
+    import threading
+
+    from trackiellm_tpu_torch.runtime import workers
+
+    frames, got = [], []
+    stop = threading.Event()
+    camera = workers.mock_camera_source(64, 48)
+
+    def shoot():
+        frames.append(camera())
+        return frames[-1]
+
+    class Cortex:
+        def inject_video_frame(self, f):
+            got.append(f)
+            if len(got) == 3:
+                stop.set()
+    t = threading.Thread(target=workers.vision_worker,
+                         args=(stop, Cortex(), shoot), kwargs={"fps": 100.0})
+    t.start()
+    t.join(timeout=10.0)
+    assert not t.is_alive() and len(got) == 3
+    for f, g in zip(frames, got):
+        assert g.is_cuda and g.dtype == torch.uint8
+        np.testing.assert_array_equal(g.cpu().numpy(), f)
+
+
+def test_feeder_and_scheduler_on_the_card(dev):
+    """DoubleBufferedFeeder stages on the card (newest first); a scheduler
+    job that returns a card tensor is waited for, and its value is the
+    job's."""
+    from trackiellm_tpu_torch.runtime import (DoubleBufferedFeeder,
+                                              InferenceScheduler, JobKind)
+    f = DoubleBufferedFeeder(depth=2)
+    for i in range(3):
+        f.put(np.full((4, 4), float(i), np.float32))
+    out = f.get(timeout=1.0)
+    assert out.is_cuda and float(out[0, 0]) == 2.0 and f.dropped == 2
+    s = InferenceScheduler()
+    try:
+        x = torch.arange(1 << 20, device=dev, dtype=torch.float32)
+        res = s.run(JobKind.VISION, lambda: (x * 2).sum())
+        assert res.is_cuda and float(res) == float(x.sum() * 2)
+    finally:
+        s.close()

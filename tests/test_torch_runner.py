@@ -260,8 +260,11 @@ def test_port_imports_no_jax():
     resampling, VAD, Whisper, ASR, streaming transcription, TTS, phonemizer,
     TTS engine, VITS), the vision path (preprocessing, NMS, point cloud,
     detector, MiDaS, OCR, DPT, model registry, fusion, scene graph,
-    pipeline, navigation engine, free space), logging, CLI, probes,
-    diagnostic, conversion and serving tools and chip_smoke.py pulls in no JAX module, no module of the JAX
+    pipeline, navigation engine, free space), the app loop (runtime,
+    cortex, interaction, sensors, config and paths, the audio pipeline, the
+    wake word, the obstacle tracker, QR detection, ``TrackieApp``, the
+    demo), logging, CLI, probes, diagnostic, conversion, serving and app
+    latency tools and chip_smoke.py pulls in no JAX module, no module of the JAX
     package (``trackiellm_tpu`` or ``trackiellm_tpu.*``, even one that imports no
     JAX) and none of the JAX package's tools (this test process has JAX
     loaded already, hence the subprocess)."""
@@ -315,6 +318,36 @@ def test_port_imports_no_jax():
             "trackiellm_tpu_torch.navigation, "
             "trackiellm_tpu_torch.navigation.path_planner, "
             "trackiellm_tpu_torch.navigation.free_space, "
+            "trackiellm_tpu_torch.navigation.obstacle_tracker, "
+            "trackiellm_tpu_torch.vision.qr, "
+            "trackiellm_tpu_torch.vision.qr_decode, "
+            "trackiellm_tpu_torch.utils.config, "
+            "trackiellm_tpu_torch.utils.paths, "
+            "trackiellm_tpu_torch.runtime, "
+            "trackiellm_tpu_torch.runtime.event_bus, "
+            "trackiellm_tpu_torch.runtime.tasks, "
+            "trackiellm_tpu_torch.runtime.watchdog, "
+            "trackiellm_tpu_torch.runtime.buffers, "
+            "trackiellm_tpu_torch.runtime.scheduler, "
+            "trackiellm_tpu_torch.runtime.workers, "
+            "trackiellm_tpu_torch.interaction, "
+            "trackiellm_tpu_torch.interaction.commands, "
+            "trackiellm_tpu_torch.interaction.feedback, "
+            "trackiellm_tpu_torch.sensors, "
+            "trackiellm_tpu_torch.sensors.filters, "
+            "trackiellm_tpu_torch.sensors.fusion, "
+            "trackiellm_tpu_torch.cortex, "
+            "trackiellm_tpu_torch.cortex.main, "
+            "trackiellm_tpu_torch.cortex.reasoner, "
+            "trackiellm_tpu_torch.cortex.decision, "
+            "trackiellm_tpu_torch.cortex.memory, "
+            "trackiellm_tpu_torch.cortex.world_model, "
+            "trackiellm_tpu_torch.audio, "
+            "trackiellm_tpu_torch.audio.pipeline, "
+            "trackiellm_tpu_torch.audio.wake_word, "
+            "trackiellm_tpu_torch.app, "
+            "trackiellm_tpu_torch.demo, "
+            "trackiellm_tpu_torch.tools.measure_app_e2e, "
             "trackiellm_tpu_torch.models.convert as c; "
             "c.load_name_map('silero_v5'); c.load_name_map('piper_vits'); "
             "c.load_name_map('midas_small'); "

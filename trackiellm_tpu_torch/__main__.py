@@ -18,13 +18,20 @@
         [--device D]
       synthesize a Piper voice (VITS; ``.onnx`` or ``.npz`` weights and the
       voice's ``.json``) to a 16-bit WAV.
+  demo [seconds] [--device D]
+      run the whole assistant (``TrackieApp``: mock camera, microphone and
+      IMU, the vision pipeline, the audio state machine with the bundled
+      wake word, the cortex, the LLM and the TTS) on tiny random models;
+      a typed question is injected halfway. Exits 1 when a worker crashed
+      or the cortex halted.
 
 Port of ``trackiellm_tpu/__main__.py``'s ``inspect``, the GGUF branch of
-``convert``, ``generate``, ``transcribe`` and ``synth``, with the JAX
-package's defaults (4 bits; 64 tokens, temperature 0.7). Every command but
-``inspect`` runs on the CUDA card; the CPU is used only when ``--device
-cpu`` asks for it. The other ``--family`` routes and ``--mmproj`` wait for
-ROADMAP Queue 1 item 11; ``bench`` and ``demo`` are not ported yet.
+``convert``, ``generate``, ``transcribe``, ``synth`` and ``demo``, with
+the JAX package's defaults (4 bits; 64 tokens, temperature 0.7; 5 s).
+Every command but ``inspect`` runs on the CUDA card; the CPU is used only
+when ``--device cpu`` asks for it. The other ``--family`` routes and
+``--mmproj`` wait for ROADMAP Queue 1 item 11; ``bench`` is not ported
+yet (ROADMAP Queue 1, ID 5).
 """
 
 from __future__ import annotations
@@ -186,6 +193,17 @@ def _cmd_synth(args) -> int:
     return 0
 
 
+def _cmd_demo(args) -> int:
+    from trackiellm_tpu_torch import demo
+
+    app = demo.run(args.seconds, _device(args.device, "run the demo"))
+    failed = app.failures()
+    if failed:
+        print(f"demo failed: {failed}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="trackiellm_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -243,6 +261,13 @@ def main(argv=None) -> int:
                    help="torch device (default: the CUDA card; the CPU only "
                         "when asked for with --device cpu)")
     p.set_defaults(fn=_cmd_synth)
+
+    p = sub.add_parser("demo", help="assistant demo on mock hardware")
+    p.add_argument("seconds", nargs="?", type=float, default=5.0)
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card; the CPU only "
+                        "when asked for with --device cpu)")
+    p.set_defaults(fn=_cmd_demo)
     args = ap.parse_args(argv)
     return args.fn(args)
 

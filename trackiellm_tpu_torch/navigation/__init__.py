@@ -1,6 +1,6 @@
-"""Navigation: ground-plane estimation, the traversability grid and
-free-space analysis (ports of ``trackiellm_tpu/navigation/``; the obstacle
-tracker waits for the app loop)."""
+"""Navigation: ground-plane estimation, the traversability grid,
+free-space analysis and obstacle tracking (ports of
+``trackiellm_tpu/navigation/``; the obstacle tracker is a copy)."""
 
 from trackiellm_tpu_torch.navigation.path_planner import (  # noqa: F401
     CellClass,
@@ -11,4 +11,8 @@ from trackiellm_tpu_torch.navigation.path_planner import (  # noqa: F401
 from trackiellm_tpu_torch.navigation.free_space import (  # noqa: F401
     FreeSpaceDetector,
     SpaceSector,
+)
+from trackiellm_tpu_torch.navigation.obstacle_tracker import (  # noqa: F401
+    ObstacleTracker,
+    TrackedObstacle,
 )

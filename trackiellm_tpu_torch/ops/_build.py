@@ -23,6 +23,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import threading
 from typing import Optional
 
 import torch
@@ -68,6 +69,9 @@ _SIGNATURES = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
+# The app's threads (cortex, scheduler, workers) may all reach a first
+# launch at once: one of them builds and loads, the others wait.
+_LIB_LOCK = threading.Lock()
 
 
 class KernelBuildError(RuntimeError):
@@ -144,13 +148,16 @@ def build() -> pathlib.Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        _lib = lib
+    if _lib is not None:
+        return _lib
+    with _LIB_LOCK:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _lib = lib
     return _lib
 
 

@@ -146,6 +146,14 @@ def _host_resize_gray(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     return img[ys][:, xs]
 
 
+def host_frame(frame) -> np.ndarray:
+    """An HWC frame as a host array: a tensor (on the card or the CPU) is
+    fetched once, anything else goes through ``np.asarray``."""
+    if isinstance(frame, torch.Tensor):
+        return frame.cpu().numpy()
+    return np.asarray(frame)
+
+
 def fetch(tensors: List[Optional[torch.Tensor]]
           ) -> List[Optional[np.ndarray]]:
     """Every given tensor on the host in one device-to-host copy: each is
@@ -201,6 +209,15 @@ class VisionPipeline:
         self._ocr_cache: Dict[str, Tuple[str, float]] = {}
         self.ocr_cache_ttl_s = 30.0
         self.ocr_cache_hits = 0
+        # "<stage>: <error>" -> frames it degraded. A stage's error clears
+        # its bit and the frame goes on; the count keeps it visible.
+        self.stage_failures: Dict[str, int] = {}
+
+    def _stage_failed(self, stage: str, error: Exception) -> None:
+        log.warning("%s failed on frame %d: %s", stage, self._frame_counter,
+                    error)
+        key = f"{stage}: {error!r}"
+        self.stage_failures[key] = self.stage_failures.get(key, 0) + 1
 
     def update_thresholds(self, confidence: Optional[float] = None,
                           iou: Optional[float] = None,
@@ -250,8 +267,7 @@ class VisionPipeline:
                 cam_boxes = boxes_to_original(det.boxes, meta)
                 det_dev = (cam_boxes, det.scores, det.classes, det.valid)
             except Exception as e:  # degradation, not failure
-                log.warning("detection failed on frame %d: %s",
-                            self._frame_counter, e)
+                self._stage_failed("detection", e)
             t_det = time.perf_counter() - t0
 
         if flags & AnalysisFlags.DEPTH and self.depth_fn is not None:
@@ -272,8 +288,7 @@ class VisionPipeline:
                     stats_dev = oa.fuse_boxes_with_depth(
                         det_dev[0] * scale, det_dev[3], depth_dev)
             except Exception as e:
-                log.warning("depth failed on frame %d: %s",
-                            self._frame_counter, e)
+                self._stage_failed("depth", e)
             t_dep = time.perf_counter() - t0
 
         # one host copy for every device output of both stages
@@ -282,8 +297,7 @@ class VisionPipeline:
             det_host = None if det_dev is None else host[:4]
             depth_host, stats_host = host[4], host[5]
         except Exception as e:
-            log.warning("vision fetch failed on frame %d: %s",
-                        self._frame_counter, e)
+            self._stage_failed("vision fetch", e)
             det_host = depth_host = stats_host = None
 
         if det_host is not None:
@@ -325,8 +339,7 @@ class VisionPipeline:
                     obj.attributes = t
                 valid |= AnalysisFlags.ATTRIBUTES
             except Exception as e:
-                log.warning("attributes failed on frame %d: %s",
-                            self._frame_counter, e)
+                self._stage_failed("attributes", e)
             timings["attributes"] = (time.perf_counter() - t0) * 1e3
 
         # --- OCR (explicit or auto-triggered) ----------------------------
@@ -340,7 +353,9 @@ class VisionPipeline:
         if self.ocr_fn is not None and (want_ocr or auto):
             t0 = time.perf_counter()
             try:
-                gray = np.asarray(frame_hwc_u8).astype(np.float32).mean(-1) \
+                # One fetch of a frame already on the card; the gray image
+                # is then the numpy path's, byte for byte.
+                gray = host_frame(frame_hwc_u8).astype(np.float32).mean(-1) \
                     / 255.0
                 h, w = gray.shape
                 now = time.monotonic()
@@ -396,8 +411,7 @@ class VisionPipeline:
                     barcodes = list(self.barcode_fn(gray) or [])
                 valid |= AnalysisFlags.OCR
             except Exception as e:
-                log.warning("ocr failed on frame %d: %s",
-                            self._frame_counter, e)
+                self._stage_failed("ocr", e)
             timings["ocr"] = (time.perf_counter() - t0) * 1e3
         # Reading order: top to bottom, then left to right.
         text_regions.sort(key=lambda tr: (tr.box[1], tr.box[0]))
@@ -413,8 +427,7 @@ class VisionPipeline:
                 navigation_cues = self.navigation_engine.current_hazards()
                 valid |= AnalysisFlags.NAVIGATION
             except Exception as e:
-                log.warning("navigation cues failed on frame %d: %s",
-                            self._frame_counter, e)
+                self._stage_failed("navigation cues", e)
             timings["navigation"] = (time.perf_counter() - t0) * 1e3
 
         # --- scene graph ---------------------------------------------------
@@ -427,8 +440,7 @@ class VisionPipeline:
                 graph = build_scene_graph(nodes)
                 valid |= AnalysisFlags.SCENE_GRAPH
             except Exception as e:
-                log.warning("scene graph failed on frame %d: %s",
-                            self._frame_counter, e)
+                self._stage_failed("scene graph", e)
             timings["scene_graph"] = (time.perf_counter() - t0) * 1e3
 
         return VisionResult(
