@@ -17,7 +17,11 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      K in {4096, 14336}, bit for bit; flash attention in five variants at
      H=32, Hk=8, D=128, S in {256, 512, 1024}, bf16 and f32, and causal
      bf16 at the waves' folded heads, 2, 4 and 8 rows of (32, 8) heads at
-     S in {256, 512}; the fused MLP block at M in {1,
+     S in {256, 512}; the dense families' shapes (``FAMILY_FLASH``: D = 256
+     at (16, 8) heads, S in {512, 1024}, causal, window 512, softcap 50;
+     D = 96 at (32, 32), S = 512, window 2047; with each kernel's registers
+     and spills; ``FAMILY_MATMULS``: W4A8 at groups 128 and 64 and at
+     Granite's N = 49,155); the fused MLP block at M in {1,
      4, 8}, D 4096, H 14336, bf16 and f32, also timed against the unfused
      path per call and on the device alone; the stream probe over 512 MiB,
      grid64 (64 steps in one block) and a 64-call chain_tiny on (8, 128)),
@@ -36,10 +40,11 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      fresh bucket-512 prefill and 32 decode tokens run under the profiler
      (one ``{"profile": ...}`` line: wall, device busy, idle share,
      launches, the largest costs by kernel);
-  6. Q8 slice: the same model with Q8 weights answers three requests,
-     then runs phase 5's profiled window (its own ``{"profile": ...}``
-     line);
-  7. opt-in Q4 routes: phase 5's model under ``TRACKIE_Q4_F32A=1`` and
+  6. Q8 slice: the same model cut to 16 layers (``CUT_LAYERS``) with Q8
+     weights answers three requests, then runs phase 5's profiled window
+     (its own ``{"profile": ...}`` line);
+  7. opt-in Q4 routes: phase 5's model cut to 16 layers (views) under
+     ``TRACKIE_Q4_F32A=1`` and
      ``TRACKIE_FUSED_MLP=1`` answers two requests, then runs phase 5's
      profiled window under both levers (its own ``{"profile": ...}`` line:
      the fused block's share of a decode token);
@@ -75,7 +80,8 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      head bytes equal the CPU's requantization (Q8 too), and ``generate``
      answers from it through W4A8 and flash; its times and sizes as one
      ``{"gguf": ...}`` line;
- 12. serving: phase 5's model behind ``LLMServer`` with eight slots:
+ 12. serving: phase 5's model cut to 16 layers (views) behind
+     ``LLMServer`` with eight slots:
      ``tools/measure_server.run`` (a warm burst, then 16 requests of 48
      tokens) per-step and in pipelined 8-step chunks, dense and paged
      (128-token pages), and a paged int8 pool, in one round, with their
@@ -152,8 +158,32 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      must reach reply audio, and its counters must show W4A8, its
      quantization and flash, and none of Q8, the fused block, the
      streaming Q4 or the probes (f32a may rise). One ``{"app": ...}``
-     line before the vision line; the smoke's wall on a line before it.
-Phases 5-15 zero every launch counter just before they drive their path and
+     line before the vision line.
+ 16. dense families: (a) Gemma-2-9B (42 layers, dim 3584, 16/8 heads at
+     D = 256, GeGLU, sandwich norms, softcaps 50/30, alternating window
+     4096, vocab 256,000, max_seq 8192) and Llama-3.1-8B
+     (``llama3_rope_factors(cfg, 8.0)``, max_seq cut to 2048), random Q4
+     weights from the seed behind ``LLMRunner``: the cortex prompt (297
+     tokens, bucket 512) and 32 greedy tokens at lookahead 4 and 1, equal
+     ids and text, every logit finite; Gemma-2-9B then serves a held burst
+     of 8 requests of 32 tokens on 8 dense slots and on the int8 paged pool
+     (max_seq cut to 2048) and is profiled over 32 decode tokens in a
+     process of its own (``--families-profile``); their counters must show
+     W4A8, its quantization and flash, and none of Q8, f32a, the fused
+     block, the streaming Q4 or the probes. (b) The other dense presets
+     (Qwen2, Phi-3, Granite, GLM-4, Gemma-2-2B, Gemma-3 1B/4B/12B/27B,
+     OLMo-2, SmolLM3, Qwen3) at their published widths cut to 2 layers, Q4
+     at the largest group dividing every K/2 (``q4_group``): prefill at
+     buckets 64 and 256 on the card against the CPU within WIDTH_TOL, plus
+     one prompt longer than each sliding window (Gemma-3-1B 1,024, Phi-3
+     2,560, Gemma-2-2B 4,608); Gemma-3-4B with ``linear_rope_factors``,
+     Phi-3 as its 128k longrope variant with a prefill on each side of
+     the original 4,096. (c) Command-R, Nemotron and StarCoder2 GGUFs
+     written here through ``convert --bits 8`` and ``generate`` on the
+     card, and the checkpoint's greedy ids on the card equal to the CPU's.
+     One ``{"families": ...}`` line before the app line; the smoke's wall
+     on a line before it.
+Phases 5-16 zero every launch counter just before they drive their path and
 read them just after: the path's kernels must have launched, and the routes
 it does not take must not have (no serving path launches the streaming Q4
 or a probe; phase 9 must launch all four; phases 13 and 14 launch none).
@@ -162,8 +192,8 @@ phases 5-7 greedy text must not depend on the lookahead depth, in phase 10
 not on speculation, and every logit vector must be finite. Phase 3's
 device-only times come from profiles whose launch count matches the calls
 (``device_only_ms``). Each phase's first line ends with the seconds since
-the build began. The ``app`` line, the ``vision`` line, then the ``voice``
-line, come just before the last five lines, which are the ``serve`` line, the ``slice10``
+the build began. The ``families`` line, the ``app`` line, the ``vision``
+line, then the ``voice`` line, come just before the last five lines, which are the ``serve`` line, the ``slice10``
 line, the card line, the kernels' JSON summary and the result line.
 """
 
@@ -512,11 +542,11 @@ def serve_shapes(runner_mod, max_m: int, max_seq: int, slots: int):
 
 
 def flash_case(rows, attention, gen, dev, heads, s: int, dtype, kw: dict,
-               case: str, library: bool) -> None:
-    """One flash call on ``heads`` (H, Hk) query and key heads at S=s
-    against ``attention_ref``: rel L2 within FLASH_TOL, times and the bound
-    beside, and SDPA's times where ``library``."""
-    (h, hk), d = heads, 128
+               case: str, library: bool, d: int = 128) -> None:
+    """One flash call on ``heads`` (H, Hk) query and key heads of head dim
+    ``d`` at S=s against ``attention_ref``: rel L2 within FLASH_TOL, times
+    and the bound beside, and SDPA's times where ``library``."""
+    h, hk = heads
     q = torch.randn((h, s, d), generator=gen, device=dev).to(dtype)
     kk = torch.randn((hk, s, d), generator=gen, device=dev).to(dtype)
     v = torch.randn((hk, s, d), generator=gen, device=dev).to(dtype)
@@ -548,6 +578,59 @@ def flash_case(rows, attention, gen, dev, heads, s: int, dtype, kw: dict,
             attention.flash_attention, case=case, err=abs_err, ms=ms,
             plain=plain, bound=bound, bound_by=by, library=lib,
             library_device=lib_device)
+
+
+# Phase 3's cases of the dense families (phase 16): flash at Gemma's
+# D = 256 ((16, 8) heads; Gemma-2's window of 4096 and Gemma-3's of 512
+# both cut what S reaches to 512, and its softcap 50) and Phi-3's D = 96
+# ((32, 32) heads, window 2047), bf16 (the models') and f32; W4A8 at the
+# groups the families take where 256 does not divide K/2, and at Granite's
+# vocabulary of 49,155 columns (N % 4 = 3).
+FAMILY_FLASH = (  # (D, (H, Hk), S values, variants)
+    (256, (16, 8), (512, 1024), {"causal": {}, "window512": {"window": 512},
+                                 "softcap50": {"softcap": 50.0}}),
+    (96, (32, 32), (512,), {"causal": {}, "window2047": {"window": 2047}}),
+)
+FAMILY_MATMULS = (  # (case name, K, N, group, M values)
+    ("gemma2_2b w_gu G=128", 2304, 18432, 128, (1, 512)),
+    ("gemma3_1b w_gu G=64", 1152, 13824, 64, (1, 512)),
+    ("glm4_9b w_down G=64", 13696, 4096, 64, (1, 512)),
+    ("granite3_8b lm_head N=49155", 4096, 49155, 256, (1, 16)),
+)
+
+
+def family_kernel_cases(rows, quant, attention, gen, dev) -> None:
+    """Phase 3, the dense families' shapes (FAMILY_FLASH, FAMILY_MATMULS),
+    each against its plain version with times, bound and, for causal bf16
+    flash, SDPA's; and each flash kernel's registers, spill bytes and
+    shared memory as ptxas left them (``flash_kernel_attrs``)."""
+    for d, heads, sizes, variants in FAMILY_FLASH:
+        for dtype in (torch.bfloat16, torch.float32):
+            attrs = attention.flash_kernel_attrs(d, dtype)
+            log(f"  flash D={d} {str(dtype)[6:]} kernel: {attrs['regs']} "
+                f"registers a thread, {attrs['local_bytes']} spill bytes, "
+                f"{attrs['smem_bytes']} shared bytes a block")
+            if attrs["local_bytes"]:
+                raise AssertionError(f"flash D={d} {dtype}: spills")
+            for s in sizes:
+                for vname, kw in variants.items():
+                    flash_case(rows, attention, gen, dev, heads, s, dtype,
+                               kw, f"{vname} S={s} D={d} {str(dtype)[6:]}",
+                               vname == "causal" and dtype == torch.bfloat16,
+                               d=d)
+    for name, k, n, group, ms in FAMILY_MATMULS:
+        w = quant.quantize_q4(torch.randn((k, n), generator=gen, device=dev)
+                              / math.sqrt(k), group)
+        args = (w.values, w.scales)
+        for m in ms:
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            matmul_case(rows, "q4_matmul_w4a8",
+                        f"w4a8 {name} M={m} K={k} N={n}", f"{name} M={m}",
+                        lambda: quant.q4_matmul_w4a8(x, *args),
+                        lambda: quant.q4_matmul_w4a8_ref(x, *args),
+                        (x, *args), "int8", quant.q4_matmul_w4a8)
+        del w, args
 
 
 def phase_kernels(dev, quant, attention, fused, llm, diag, serve):
@@ -610,6 +693,7 @@ def phase_kernels(dev, quant, attention, fused, llm, diag, serve):
         flash_case(rows, attention, gen, dev, (n * h, n * hk), s,
                    torch.bfloat16, {}, f"causal S={s} {n} rows bfloat16",
                    False)
+    family_kernel_cases(rows, quant, attention, gen, dev)
     d, hid, grp = FUSED_SHAPE
     w_gu = quant.quantize_q4(torch.randn((d, 2 * hid), generator=gen,
                                          device=dev) / math.sqrt(d), grp)
@@ -2272,15 +2356,16 @@ def serve_profile_child() -> dict:
 
 
 def serve_profile_main(dev) -> int:
-    """The child of ``serve_profile_child``: phase 5's model from the
-    seed behind a dense 8-step-chunk server, ``serve_profile`` on it."""
+    """The child of ``serve_profile_child``: phase 12's model (phase 5's
+    cut to CUT_LAYERS layers) from the seed behind a dense 8-step-chunk
+    server, ``serve_profile`` on it."""
     from trackiellm_tpu_torch.llm import server as server_mod
     from trackiellm_tpu_torch.llm import tokenizer as tokenizer_mod
     from trackiellm_tpu_torch.models import llm
     from trackiellm_tpu_torch.ops import _build
     from trackiellm_tpu_torch.tools import measure_server
     _build.library()
-    cfg = serve_config(llm)
+    cfg = serve_config(llm)._replace(n_layers=CUT_LAYERS)
     params = build_model(dev, llm, cfg, 4)
     tok = tokenizer_mod.ByteTokenizer(cfg.vocab_size)
     prof = serve_profile(server_factory(server_mod, params, cfg, tok),
@@ -3620,10 +3705,458 @@ def phase_app(dev, cli, counters, e2e) -> dict:
     return out
 
 
+# Phase 16: the dense families. (a) Gemma-2-9B at its published widths and
+# max_seq, and Llama-3.1-8B (Llama-3-8B with the published rope factors)
+# cut to max_seq 2048, random Q4 weights from the seed: the cortex prompt
+# and FAMILY_TOKENS greedy tokens at lookahead 1 and 4; Gemma-2-9B also
+# serves a held burst of SERVE_SLOTS requests on dense slots and on the int8
+# paged pool (max_seq cut to FAMILY_SERVE_MAX_SEQ) and is profiled over
+# FAMILY_TOKENS decode tokens in a process of its own. (b) Every other dense
+# preset at its published widths cut to 2 layers (and max_seq to at most
+# FAMILY_SWEEP_MAX_SEQ, which keeps every window that was on), Q4 at the
+# largest group dividing every K/2: card against CPU prefill. (c) Tiny GGUFs
+# of the arches with no preset, converted and answered from.
+FAMILY_TOKENS = 32
+FAMILY_SERVE_MAX_SEQ = 2048
+FAMILY_LLAMA_MAX_SEQ = 2048
+FAMILY_SWEEP = ("qwen2_7b", "phi3_mini", "granite3_8b", "glm4_9b",
+                "gemma2_2b", "gemma3_1b", "gemma3_4b", "gemma3_12b",
+                "gemma3_27b", "olmo2_7b", "smollm3_3b", "qwen3_8b")
+FAMILY_SWEEP_MAX_SEQ = 8192
+FAMILY_BUCKETS = (64, 256)
+# One prompt longer than each sliding window: the window masks something.
+FAMILY_LONG = {"gemma3_1b": 1024, "phi3_mini": 2560, "gemma2_2b": 4608}
+# Phi-3-mini-128k's longrope: the original context 4096 (the 128k variant's
+# max_seq 131072 cut as the sweep cuts it), its published attention factor
+# sqrt(1 + ln(131072 / 4096) / ln(4096)), and a prefill past the original
+# context beside the 2560-token one, so that each factor set runs.
+PHI3_ORIGINAL = 4096
+PHI3_LONG_SIDE = 4352
+# (c): the arches with no preset, at widths the default group takes.
+FAMILY_GGUF_ARCHES = ("command-r", "nemotron", "starcoder2")
+FAMILY_GGUF_WIDTHS = (512, 2, 4, 2, 1024, 384)  # dim, layers, H, Hk, hid, V
+FAMILY_GGUF_TOKENS = 16
+FAMILY_PROFILE_FLAG = "--families-profile"
+FAMILY_PROFILE_TIMEOUT = 600.0
+
+
+def q4_group(cfg, largest: int = 256) -> int:
+    """The largest group from ``largest`` down that divides K/2 of every
+    quantized matrix of ``cfg`` (dim, the query width and the hidden
+    width are their K)."""
+    group = largest
+    ks = (cfg.dim, cfg.n_heads * cfg.head_dim, cfg.hidden_dim)
+    while any((k // 2) % group or k % group for k in ks):
+        group //= 2
+    return group
+
+
+def family_model(dev, llm, cfg, name: str):
+    """Random Q4 params of ``cfg`` from the seed on the card (group from
+    ``q4_group``), with the rope factors ``name``'s checkpoints carry."""
+    t0 = time.perf_counter()
+    group = q4_group(cfg)
+    params = llm.init_params_quantized(
+        torch.Generator(device=dev).manual_seed(SEED), cfg, group=group,
+        device=dev)
+    if name == "llama3_8b":
+        params["rope_factors"] = llm.llama3_rope_factors(cfg, 8.0).to(dev)
+    elif name == "gemma3_4b":
+        params["rope_factors"] = llm.linear_rope_factors(cfg, 8.0).to(dev)
+    elif name == "phi3_mini":
+        half = cfg.head_dim // 2
+        params["rope_factors_short"] = torch.linspace(1.0, 1.5, half,
+                                                      device=dev)
+        params["rope_factors_long"] = torch.linspace(1.0, 16.0, half,
+                                                     device=dev)
+    torch.cuda.synchronize()
+    log(f"  {name}: {cfg.n_layers} layers Q4 group {group} in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{param_bytes(params) / 2 ** 30:.2f} GiB on the card")
+    return params
+
+
+def family_cfg(llm, name: str):
+    """Phase 16's config of a dense preset: Gemma-2-9B as published;
+    Llama-3 at max_seq FAMILY_LLAMA_MAX_SEQ; a swept preset at 2 layers
+    and max_seq at most FAMILY_SWEEP_MAX_SEQ, Phi-3 as its 128k variant
+    (PHI3_ORIGINAL). A window at or past max_seq stays off, as it was."""
+    cfg = getattr(llm.LLMConfig, name)()
+    if name == "gemma2_9b":
+        return cfg
+    if name == "llama3_8b":
+        return cfg._replace(max_seq=FAMILY_LLAMA_MAX_SEQ,
+                            sliding_window=FAMILY_LLAMA_MAX_SEQ)
+    max_seq = min(cfg.max_seq, FAMILY_SWEEP_MAX_SEQ)
+    cfg = cfg._replace(n_layers=2, max_seq=max_seq,
+                       sliding_window=min(cfg.sliding_window, max_seq))
+    if name == "phi3_mini":
+        cfg = cfg._replace(
+            max_seq=FAMILY_SWEEP_MAX_SEQ, rope_original_max_seq=PHI3_ORIGINAL,
+            rope_attention_factor=math.sqrt(1 + math.log(
+                131072 / PHI3_ORIGINAL) / math.log(PHI3_ORIGINAL)))
+    return cfg
+
+
+def family_generate(dev, llm, runner_mod, tokenizer_mod, params, cfg,
+                    counters, name: str) -> dict:
+    """(a): the cortex prompt and FAMILY_TOKENS greedy tokens behind
+    ``LLMRunner`` at lookahead 4, then at 1: equal ids and text, every
+    logit finite. Counters are zeroed just before and read just after."""
+    tok = tokenizer_mod.ByteTokenizer(cfg.vocab_size)
+
+    def runner(lookahead):
+        return runner_mod.LLMRunner(params, cfg, tok, runner_mod.GenerationConfig(
+            max_tokens=FAMILY_TOKENS, temperature=0.0, speculative=False,
+            lookahead=lookahead), device=dev)
+    r4 = runner(4)
+    prompt = r4.build_prompt(SYSTEM, CONTEXT,
+                             "What is in front of me right now?")
+    r4.generate(SHORT_PROMPT)  # warm-up
+    for fn in counters.values():
+        fn.launches = 0
+    watch = LogitWatch(llm)
+    try:
+        out = request(r4, prompt, f"{name} cortex prompt, lookahead 4")
+        text4, ids4 = r4._generated_text, r4.generated_ids
+        r1 = runner(1)
+        text1 = r1.generate(prompt)
+        ids1 = r1.generated_ids
+    finally:
+        out["finite_logit_vectors"] = watch.close()
+    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    if ids4 != ids1 or text4.encode() != text1.encode():
+        raise AssertionError(f"phase 16 {name}: lookahead 4 and 1 differ")
+    log(f"  {name}: lookahead 4 == lookahead 1 ({len(ids4)} ids); "
+        f"launches {out['launches']}")
+    expect_routes(out["launches"], ("q4_matmul_w4a8", "quantize_activations",
+                                    "flash_attention"),
+                  ("q8_matmul", "q4_matmul_f32a", "fused_mlp_q4",
+                   *DIAGNOSTIC), f"phase 16 {name}")
+    return out
+
+
+def family_serve(dev, llm, tokenizer_mod, server_mod, paging, measure,
+                 params, cfg, counters) -> dict:
+    """(a): a held burst of SERVE_SLOTS of measure_server's prompts (one
+    wave at bucket 64), FAMILY_TOKENS tokens each, on dense 8-step-chunk
+    slots and on the int8 paged pool: every request answers, every logit
+    is finite, the routes are (a)'s."""
+    tok = tokenizer_mod.ByteTokenizer(cfg.vocab_size)
+    server = server_factory(server_mod, params, cfg, tok)
+    jobs = [(p, dict(max_tokens=FAMILY_TOKENS))
+            for p in measure.prompts(SEED)[:SERVE_SLOTS]]
+    out = {}
+    for label, kw in (("dense_chunk8", dict(chunk_steps=8)), SERVE_INT8):
+        for fn in counters.values():
+            fn.launches = 0
+        watch = LogitWatch(llm, paging)
+        s, w = server(**kw)
+        try:
+            burst(s, [(f"{p} (warm)", k) for p, k in jobs], w)
+            t0 = time.perf_counter()
+            burst(s, jobs, w)
+            wall = time.perf_counter() - t0
+            tokens = sum(len(w.ids[p]) for p, _ in jobs)
+        finally:
+            close_server(s)
+            n_logits = watch.close()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        out[label] = {"wall_s": wall, "tokens": tokens,
+                      "aggregate_tok_s": tokens / wall,
+                      "waves": list(w.waves), "launches": launches}
+        log(f"  serve {label}: {tokens} tokens in {wall:.3f} s "
+            f"({tokens / wall:.1f} tok/s), waves {w.waves}, {n_logits} "
+            f"finite logit tensors; launches {launches}")
+        if tokens == 0:
+            raise AssertionError(f"phase 16 serve {label}: no tokens")
+        expect_routes(launches, ("q4_matmul_w4a8", "quantize_activations"),
+                      ("q8_matmul", "q4_matmul_f32a", "fused_mlp_q4",
+                       *DIAGNOSTIC), f"phase 16 serve {label}")
+    return out
+
+
+def dequantized_on_cpu(quant, tree):
+    """``tree`` on the CPU with each quantized matrix dequantized to f32
+    (on the card, the same arithmetic): the CPU's plain route multiplies by
+    exactly these weights, dequantized anew at every call (``dequantize``
+    of a 262,144-column head takes seconds there)."""
+    if isinstance(tree, dict):
+        return {k: dequantized_on_cpu(quant, v) for k, v in tree.items()}
+    if isinstance(tree, quant.QuantizedLinear):
+        if tree.values.dim() == 2:
+            return quant.dequantize(tree).cpu()
+        return torch.stack([quant.dequantize(quant.QuantizedLinear(v, s))
+                            for v, s in zip(tree.values, tree.scales)]).cpu()
+    return tree.cpu()
+
+
+def family_sweep(dev, llm, quant, name: str) -> dict:
+    """(b): ``name`` at its published widths cut to 2 layers, card against
+    the CPU (its plain route, the matrices dequantized once,
+    ``dequantized_on_cpu``): prefill at FAMILY_BUCKETS and, for a sliding
+    config, one prompt longer than its window (Phi-3 also past its original
+    context), rel L2 within WIDTH_TOL."""
+    cfg = family_cfg(llm, name)
+    params = family_model(dev, llm, cfg, name)
+    cpu = dequantized_on_cpu(quant, params)
+    buckets = list(FAMILY_BUCKETS)
+    if name in FAMILY_LONG:
+        buckets.append(FAMILY_LONG[name])
+    if name == "phi3_mini":
+        buckets.append(PHI3_LONG_SIDE)
+    toks = torch.randint(0, cfg.vocab_size, (max(buckets),),
+                         generator=torch.Generator().manual_seed(SEED))
+    out = {"group": q4_group(cfg), "window": llm._layer_window(cfg),
+           "rel_l2": {}}
+    for bucket in buckets:
+        length = bucket - 6
+        lg, _ = llm.prefill(params, cfg, toks[:bucket].to(dev), length,
+                            llm.KVCache.create(cfg, max_seq=bucket,
+                                               device=dev))
+        lc, _ = llm.prefill(cpu, cfg, toks[:bucket], length,
+                            llm.KVCache.create(cfg, max_seq=bucket,
+                                               device="cpu"))
+        err = rel_l2(lg.cpu(), lc)
+        out["rel_l2"][str(bucket)] = err
+        log(f"  {name} prefill bucket={bucket}: rel_l2 card vs cpu = "
+            f"{err:.3e} (tol {WIDTH_TOL:.0e})")
+        if not (torch.isfinite(lg).all() and err < WIDTH_TOL):
+            raise AssertionError(f"phase 16 {name} bucket {bucket}: {err}")
+    return out
+
+
+def family_gguf(arch: str, seed: int):
+    """(tensors, metadata) of a 2-layer ``arch`` GGUF at
+    FAMILY_GGUF_WIDTHS, F32 tensors from the seed, as llama.cpp names them
+    (Command-R: a shared LayerNorm, per-head QK LayerNorms and a logit
+    scale; Nemotron: biased LayerNorms, squared ReLU, half rotary;
+    StarCoder2: biased LayerNorms, q/k/v, output and MLP biases, GELU),
+    with ``spm_spec``'s vocabulary."""
+    dim, layers, heads, kv, hid, vocab = FAMILY_GGUF_WIDTHS
+    hd = dim // heads
+    qd, kvd = heads * hd, kv * hd
+    rng = np.random.default_rng(seed)
+    biased = arch != "command-r"
+    gated = arch == "command-r"
+
+    def m(*shape):
+        return ((rng.standard_normal(shape) / np.sqrt(shape[-1]))
+                .astype(np.float32), GGML_F32)
+
+    def vec(n, around=0.0):
+        return ((around + 0.1 * rng.standard_normal(n)).astype(np.float32),
+                GGML_F32)
+    t = {"token_embd.weight": (0.2 * rng.standard_normal(
+        (vocab, dim)).astype(np.float32), GGML_F32),
+         "output_norm.weight": vec(dim, 1.0)}
+    if biased:
+        t["output_norm.bias"] = vec(dim)
+        t["output.weight"] = m(vocab, dim)
+    for i in range(layers):
+        p = f"blk.{i}"
+        t[f"{p}.attn_norm.weight"] = vec(dim, 1.0)
+        if biased:
+            t[f"{p}.attn_norm.bias"] = vec(dim)
+            t[f"{p}.ffn_norm.weight"] = vec(dim, 1.0)
+            t[f"{p}.ffn_norm.bias"] = vec(dim)
+        else:
+            t[f"{p}.attn_q_norm.weight"] = vec(qd, 1.0)
+            t[f"{p}.attn_k_norm.weight"] = vec(kvd, 1.0)
+        t[f"{p}.attn_q.weight"] = m(qd, dim)
+        t[f"{p}.attn_k.weight"] = m(kvd, dim)
+        t[f"{p}.attn_v.weight"] = m(kvd, dim)
+        t[f"{p}.attn_output.weight"] = m(dim, qd)
+        if arch == "starcoder2":
+            t[f"{p}.attn_q.bias"] = vec(qd)
+            t[f"{p}.attn_k.bias"] = vec(kvd)
+            t[f"{p}.attn_v.bias"] = vec(kvd)
+            t[f"{p}.attn_output.bias"] = vec(dim)
+            t[f"{p}.ffn_up.bias"] = vec(hid)
+            t[f"{p}.ffn_down.bias"] = vec(dim)
+        if gated:
+            t[f"{p}.ffn_gate.weight"] = m(hid, dim)
+        t[f"{p}.ffn_up.weight"] = m(hid, dim)
+        t[f"{p}.ffn_down.weight"] = m(dim, hid)
+    spec = spm_spec(vocab)
+    meta = {
+        "general.architecture": arch, "general.name": f"tiny {arch}",
+        f"{arch}.embedding_length": dim, f"{arch}.block_count": layers,
+        f"{arch}.attention.head_count": heads,
+        f"{arch}.attention.head_count_kv": kv,
+        f"{arch}.feed_forward_length": hid, f"{arch}.context_length": 1024,
+        f"{arch}.attention.layer_norm_epsilon": 1e-5,
+        f"{arch}.attention.layer_norm_rms_epsilon": 1e-5,
+        f"{arch}.rope.freq_base": 10000.0, f"{arch}.vocab_size": vocab,
+        "tokenizer.ggml.model": "llama",
+        "tokenizer.ggml.tokens": spec["tokens"],
+        "tokenizer.ggml.scores": spec["scores"],
+        "tokenizer.ggml.token_type": spec["token_types"],
+        "tokenizer.ggml.bos_token_id": 1, "tokenizer.ggml.eos_token_id": 2,
+        "tokenizer.ggml.unknown_token_id": 0,
+        "tokenizer.ggml.padding_token_id": spec["pad_id"],
+        "tokenizer.ggml.add_space_prefix": spec["add_space_prefix"],
+    }
+    if arch == "command-r":
+        meta["command-r.logit_scale"] = 0.0625
+    if arch == "nemotron":
+        meta["nemotron.rope.dimension_count"] = hd // 2
+    return t, meta
+
+
+def _widened(params):
+    """``params`` with its float leaves in f32 (quantized leaves as they
+    are): the card and the CPU then differ only in their sums' order."""
+    if isinstance(params, dict):
+        return {k: _widened(v) for k, v in params.items()}
+    if isinstance(params, tuple):  # QuantizedLinear
+        return params
+    return params.float()
+
+
+def family_cli(dev, llm, runner_mod, tokenizer_mod, checkpoint, cli,
+               counters) -> dict:
+    """(c): each FAMILY_GGUF_ARCHES file through ``convert --bits 8`` and
+    ``generate`` on the card (the CLI, in-process); then greedy ids from the
+    checkpoint on the card equal the CPU's, its float leaves widened to
+    f32 on both (the Q8 kernel keeps exact f32 activations, so only the
+    sums' order differs)."""
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_family_") as tmp:
+        for arch in FAMILY_GGUF_ARCHES:
+            path = os.path.join(tmp, f"{arch}.gguf")
+            ckpt = os.path.join(tmp, arch)
+            tensors, meta = family_gguf(arch, SEED)
+            write_gguf(path, tensors, meta)
+            rc, text, conv_s = run_cli(cli, ["convert", path, "-o", ckpt,
+                                             "--bits", "8"])
+            if rc != 0:
+                raise AssertionError(f"phase 16 {arch}: convert exited {rc}")
+            for fn in counters.values():
+                fn.launches = 0
+            rc, text, gen_s = run_cli(cli, [
+                "generate", ckpt, "-p", "descreva a cena", "--max-tokens",
+                str(FAMILY_GGUF_TOKENS), "--temperature", "0"])
+            launches = {k: fn.launches for k, fn in counters.items()}
+            # Random weights may draw byte pieces that print no text: the
+            # ids below must be there.
+            if rc != 0:
+                raise AssertionError(f"phase 16 {arch}: generate exited {rc}"
+                                     f" and printed {text!r}")
+            expect_routes(launches, ("q8_matmul",),
+                          ("q4_matmul_w4a8", "q4_matmul_f32a",
+                           *DIAGNOSTIC), f"phase 16 {arch}")
+            ids = []
+            for device in (dev, torch.device("cpu")):
+                params, cfg, meta = checkpoint.load_checkpoint(ckpt,
+                                                               device=device)
+                r = runner_mod.LLMRunner(
+                    _widened(params), cfg,
+                    tokenizer_mod.tokenizer_from_spec(meta["tokenizer_spec"]),
+                    runner_mod.GenerationConfig(
+                        max_tokens=FAMILY_GGUF_TOKENS, temperature=0.0,
+                        speculative=False),
+                    cache_dtype=torch.float32, device=device)
+                r.generate("descreva a cena a sua frente")
+                ids.append(r.generated_ids)
+            log(f"  {arch}: convert {conv_s:.2f} s, generate exit {rc} in "
+                f"{gen_s:.2f} s printed {text.strip()[:40]!r}; card ids == "
+                f"cpu ids: {ids[0] == ids[1]} ({len(ids[0])} ids); "
+                f"{cfg.norm_type} norm, act {cfg.act}, gated "
+                f"{cfg.mlp_gated}, parallel residual {cfg.parallel_residual}")
+            if ids[0] != ids[1] or not ids[0]:
+                raise AssertionError(f"phase 16 {arch}: card ids {ids[0]} "
+                                     f"against cpu ids {ids[1]}")
+            out[arch] = {"convert_s": conv_s, "generate_s": gen_s,
+                         "ids": len(ids[0]), "launches": launches}
+    return out
+
+
+def family_profile_child() -> dict:
+    """(a)'s profile of Gemma-2-9B in a process of its own (this script
+    with FAMILY_PROFILE_FLAG), as phases 12-14 profile: a fresh bucket-512
+    prefill and FAMILY_TOKENS decode tokens (``profile_path``)."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), FAMILY_PROFILE_FLAG],
+        capture_output=True, text=True, timeout=FAMILY_PROFILE_TIMEOUT)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"phase 16: the profile's process exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    for line in lines[:-1]:
+        log(line)
+    return json.loads(lines[-1])
+
+
+def family_profile_main(dev) -> int:
+    """The child of ``family_profile_child``."""
+    from trackiellm_tpu_torch.llm import runner as runner_mod
+    from trackiellm_tpu_torch.llm import tokenizer as tokenizer_mod
+    from trackiellm_tpu_torch.models import llm
+    from trackiellm_tpu_torch.ops import _build
+    _build.library()
+    cfg = family_cfg(llm, "gemma2_9b")
+    params = family_model(dev, llm, cfg, "gemma2_9b")
+    prof = profile_path(dev, runner_mod, tokenizer_mod, params, cfg)
+    print(json.dumps(prof), flush=True)
+    return 0
+
+
+def phase_families(dev, llm, runner_mod, tokenizer_mod, server_mod, paging,
+                   measure, checkpoint, attention, quant, cli, counters,
+                   profile) -> dict:
+    """Phase 16 (the comment above FAMILY_TOKENS): (a) Gemma-2-9B and
+    Llama-3.1-8B generate, Gemma-2-9B serves and is profiled
+    (``profile()``); (b) the sweep; (c) the GGUF-only arches. Returns the
+    ``families`` line's numbers and the launches of (a)'s paths."""
+    t0 = time.perf_counter()
+    out = {"flash_attrs": {f"D={d} {str(dt)[6:]}": attention.flash_kernel_attrs(
+        d, dt) for d in (96, 256) for dt in (torch.bfloat16, torch.float32)}}
+    cfg = family_cfg(llm, "gemma2_9b")
+    params = family_model(dev, llm, cfg, "gemma2_9b")
+    gemma = family_generate(dev, llm, runner_mod, tokenizer_mod, params, cfg,
+                            counters, "gemma2_9b")
+    gemma["serve"] = family_serve(
+        dev, llm, tokenizer_mod, server_mod, paging, measure, params,
+        cfg._replace(max_seq=FAMILY_SERVE_MAX_SEQ), counters)
+    del params
+    torch.cuda.empty_cache()
+    gemma["profile"] = profile()
+    dec = gemma["profile"].get("decode", {})
+    log(f"  gemma2_9b profile, a decode token: wall {dec.get('wall_ms')} ms, "
+        f"busy {dec.get('busy_ms')} ms, idle share {dec.get('idle_share')}, "
+        f"{dec.get('launches')} launches")
+    out["gemma2_9b"] = gemma
+    cfg = family_cfg(llm, "llama3_8b")
+    params = family_model(dev, llm, cfg, "llama3_8b")
+    out["llama3_1_8b"] = family_generate(dev, llm, runner_mod, tokenizer_mod,
+                                         params, cfg, counters, "llama3_8b")
+    del params
+    torch.cuda.empty_cache()
+    out["sweep"] = {}
+    for name in FAMILY_SWEEP:
+        out["sweep"][name] = family_sweep(dev, llm, quant, name)
+        torch.cuda.empty_cache()
+    out["gguf"] = family_cli(dev, llm, runner_mod, tokenizer_mod, checkpoint,
+                             cli, counters)
+    out["launches"] = out["gemma2_9b"]["launches"]
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 16 took {out['seconds']:.1f} s")
+    return out
+
+
 def serve_config(llm):
     """Phases 5-7 and 12's configuration: Mistral-7B cut to max_seq 512."""
     return llm.LLMConfig.mistral_7b()._replace(max_seq=512,
                                               sliding_window=512)
+
+
+# Phases 6, 7 and 12 run Mistral-7B cut to CUT_LAYERS layers (phase 6
+# builds its Q8 model so; 7 and 12 take views of phase 5's first layers):
+# depth cut so that phases 1-16 stay near the 900-s aim once phase 16's
+# families joined (phases 1-16 took 1,006.7 s at 32 layers). Phase 5, the
+# main path, keeps all 32.
+CUT_LAYERS = 16
 
 
 def result_line(kind: str) -> str:
@@ -3645,8 +4178,9 @@ KERNELS = {
                              ("M=1 K=4096", "M=512 K=4096"), 5),
     "flash_attention": ("trackiellm_tpu_torch/csrc/flash_attn.cu",
                         "trackiellm_tpu/ops/attention.py:176",
-                        ("causal S=512 bfloat16", "causal S=256 bfloat16"),
-                        5),
+                        ("causal S=512 bfloat16", "causal S=256 bfloat16",
+                         "causal S=1024 D=256 bfloat16",
+                         "causal S=512 D=96 bfloat16"), 5),
     "q8_matmul": ("trackiellm_tpu_torch/csrc/q8_matmul.cu",
                   "trackiellm_tpu/ops/quant.py:184",
                   ("w_gu M=1", "w_gu M=512"), 6),
@@ -3724,6 +4258,8 @@ def main() -> int:
     if sys.argv[1:] == [VISION_PROFILE_FLAG]:
         print(json.dumps(vision_profile(dev)), flush=True)
         return 0
+    if sys.argv[1:] == [FAMILY_PROFILE_FLAG]:
+        return family_profile_main(dev)
     smi = nvidia_smi()
     log(f"phase 1 device: torch {torch.__version__} cuda {torch.version.cuda}"
         f" capability {cap} | {smi}")
@@ -3736,6 +4272,7 @@ def main() -> int:
     from trackiellm_tpu_torch.models import checkpoint, convert, llm
     from trackiellm_tpu_torch.ops import _build, attention, diag, fused, quant
     from trackiellm_tpu_torch.tools import measure_server
+    from trackiellm_tpu_torch.tools.diag_envelope import layer_slice
 
     counters = launch_counters()
     t0 = time.perf_counter()
@@ -3769,25 +4306,28 @@ def main() -> int:
                              "W4A8 matmul")
     log(json.dumps({"profile": profile_path(dev, runner_mod, tokenizer_mod,
                                             params4, cfg), "phase": 5}))
-    banner("phase 6 Q8 slice (Mistral-7B, 32 layers, Q8, max_seq 512):")
-    params8 = build_model(dev, llm, cfg, 8)
-    launches[6] = drive(*slice_args, params8, cfg, counters, "abc")
+    cut_cfg = cfg._replace(n_layers=CUT_LAYERS)
+    cut4 = layer_slice(params4, CUT_LAYERS)
+    banner(f"phase 6 Q8 slice (Mistral-7B, {CUT_LAYERS} layers, Q8, max_seq "
+           "512):")
+    params8 = build_model(dev, llm, cut_cfg, 8)
+    launches[6] = drive(*slice_args, params8, cut_cfg, counters, "abc")
     expect_routes(launches[6], ("q8_matmul", "flash_attention"),
                   ("q4_matmul_w4a8", "quantize_activations", "q4_matmul_f32a",
                    "fused_mlp_q4", *DIAGNOSTIC), "phase 6")
     log(json.dumps({"profile": profile_path(dev, runner_mod, tokenizer_mod,
-                                            params8, cfg), "phase": 6}))
+                                            params8, cut_cfg), "phase": 6}))
     del params8
-    banner("phase 7 opt-in Q4 routes (phase 5's model, TRACKIE_Q4_F32A=1, "
-        "TRACKIE_FUSED_MLP=1):")
+    banner(f"phase 7 opt-in Q4 routes (phase 5's model cut to {CUT_LAYERS} "
+           "layers, TRACKIE_Q4_F32A=1, TRACKIE_FUSED_MLP=1):")
     with levers_on():
-        launches[7] = drive(*slice_args, params4, cfg, counters, "ab")
+        launches[7] = drive(*slice_args, cut4, cut_cfg, counters, "ab")
         expect_routes(launches[7],
                       ("q4_matmul_f32a", "fused_mlp_q4", "flash_attention"),
                       ("q4_matmul_w4a8", "quantize_activations", "q8_matmul",
                        *DIAGNOSTIC), "phase 7")
         log(json.dumps({"profile": profile_path(
-            dev, runner_mod, tokenizer_mod, params4, cfg), "phase": 7}))
+            dev, runner_mod, tokenizer_mod, cut4, cut_cfg), "phase": 7}))
     banner("phase 8 entry point (2-layer Q8 checkpoint, generate):")
     phase_entry(dev, llm, checkpoint, cli, counters)
     banner("phase 9 diagnostics (the three tools; phase 5's model cut to "
@@ -3810,13 +4350,13 @@ def main() -> int:
         convert, checkpoint, quant, tokenizer_mod, cli, counters)
     launches[11] = gguf.pop("launches")
     log(json.dumps({"gguf": gguf}))
-    banner(f"phase 12 serving (phase 5's model, {SERVE_SLOTS} slots, max_seq "
-        f"{cfg.max_seq}):")
+    banner(f"phase 12 serving (phase 5's model cut to {CUT_LAYERS} layers, "
+           f"{SERVE_SLOTS} slots, max_seq {cfg.max_seq}):")
     serve = phase_serve(dev, llm, runner_mod, tokenizer_mod, server_mod,
-                        paging, measure_server, params4, cfg, counters,
+                        paging, measure_server, cut4, cut_cfg, counters,
                         profile=serve_profile_child)
     launches[12] = serve.pop("launches")
-    del params4
+    del params4, cut4
     banner("phase 13 voice (Whisper-tiny GGML at 30-s and 10-s windows, "
         "large-v3 widths at 2+2 layers, Silero ONNX, TTS default, Piper "
         "VITS):")
@@ -3828,10 +4368,19 @@ def main() -> int:
            "YOLOv8n, MiDaS-small, Whisper-tiny, Mistral-7B Q4, TTS):")
     app = phase_app(dev, cli, counters, app_e2e_child)
     launches[15] = app["launches"]
+    banner("phase 16 dense families (Gemma-2-9B and Llama-3.1-8B Q4 at "
+           "their widths, the 2-layer sweep of the other presets, "
+           "Command-R, Nemotron and StarCoder2 GGUFs):")
+    families = phase_families(
+        dev, llm, runner_mod, tokenizer_mod, server_mod, paging,
+        measure_server, checkpoint, attention, quant, cli, counters,
+        family_profile_child)
+    launches[16] = families["launches"]
     log(f"chip_smoke wall: {time.perf_counter() - t0:.1f} s since the build "
         "began")
 
     smi = nvidia_smi()
+    print(json.dumps({"families": families, "card": smi}), flush=True)
     print(json.dumps({"app": app, "card": smi}), flush=True)
     print(json.dumps({"vision": vision, "card": smi}), flush=True)
     print(json.dumps({"voice": voice, "card": smi}), flush=True)

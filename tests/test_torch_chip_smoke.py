@@ -593,7 +593,7 @@ def test_main_prints_the_voice_line_before_the_last_five(monkeypatch,
     monkeypatch.setattr(_build, "build", lambda: _build.BUILD_ROOT / "x")
     monkeypatch.setattr(_build, "library", lambda: None)
     for name, value in (("phase_kernels", {}), ("phase_width", None),
-                        ("build_model", {}), ("drive", {}),
+                        ("build_model", {"layers": {}}), ("drive", {}),
                         ("expect_routes", None), ("profile_path", {}),
                         ("phase_entry", None), ("phase_diagnostics", {}),
                         ("kernels_line", '{"kernels": []}')):
@@ -608,6 +608,8 @@ def test_main_prints_the_voice_line_before_the_last_five(monkeypatch,
     monkeypatch.setattr(cs, "phase_voice", lambda *a, **k: {"n": 13})
     monkeypatch.setattr(cs, "phase_vision", lambda *a, **k: {"n": 14})
     monkeypatch.setattr(cs, "phase_app", lambda *a, **k: {"launches": {}})
+    monkeypatch.setattr(cs, "phase_families", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     lines = capsys.readouterr().out.strip().splitlines()[-6:]
     assert json.loads(lines[0]) == {"voice": {"n": 13},
@@ -644,7 +646,7 @@ def test_main_prints_the_vision_line_before_the_voice_line(monkeypatch,
     monkeypatch.setattr(_build, "build", lambda: _build.BUILD_ROOT / "x")
     monkeypatch.setattr(_build, "library", lambda: None)
     for name, value in (("phase_kernels", {}), ("phase_width", None),
-                        ("build_model", {}), ("profile_path", {}),
+                        ("build_model", {"layers": {}}), ("profile_path", {}),
                         ("expect_routes", None), ("phase_entry", None),
                         ("phase_diagnostics", {}),
                         ("kernels_line", '{"kernels": []}')):
@@ -661,6 +663,8 @@ def test_main_prints_the_vision_line_before_the_voice_line(monkeypatch,
     monkeypatch.setattr(cs, "phase_vision", lambda dev, counters, profile: (
         seen.append((14, profile is cs.vision_profile_child)), {"n": 14})[1])
     monkeypatch.setattr(cs, "phase_app", lambda *a, **k: {"launches": {}})
+    monkeypatch.setattr(cs, "phase_families", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     assert seen == [13, (14, True)]
     lines = capsys.readouterr().out.strip().splitlines()[-7:]
@@ -782,7 +786,7 @@ def test_main_prints_the_app_line_before_the_vision_line(monkeypatch,
     monkeypatch.setattr(_build, "build", lambda: _build.BUILD_ROOT / "x")
     monkeypatch.setattr(_build, "library", lambda: None)
     for name, value in (("phase_kernels", {}), ("phase_width", None),
-                        ("build_model", {}), ("profile_path", {}),
+                        ("build_model", {"layers": {}}), ("profile_path", {}),
                         ("expect_routes", None), ("phase_entry", None),
                         ("phase_diagnostics", {})):
         monkeypatch.setattr(cs, name, lambda *a, v=value, **k: v)
@@ -800,10 +804,13 @@ def test_main_prints_the_app_line_before_the_vision_line(monkeypatch,
         {"launches": {"q4_matmul_w4a8": 7}, "n": 15})[1])
     monkeypatch.setattr(cs, "kernels_line", lambda rows, launches: json.dumps(
         {"phase15": launches[15]}))
+    monkeypatch.setattr(cs, "phase_families", lambda *a, **k: {
+        "launches": {}, "n": 16})
     assert cs.main() == 0
     assert seen == [True]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-9].startswith("chip_smoke wall: ")
+    assert lines[-10].startswith("chip_smoke wall: ")
+    assert json.loads(lines[-9])["families"] == {"launches": {}, "n": 16}
     assert json.loads(lines[-8]) == {"app": {
         "launches": {"q4_matmul_w4a8": 7}, "n": 15},
         "card": "H100, 700.00 W"}
@@ -906,3 +913,125 @@ def test_wake_windows_are_seeded():
     assert all(c.shape == (cs.WAKE_WINDOW,) and c.dtype.name == "float32"
                for _, c in a)
     assert all((x == y).all() for (_, x), (_, y) in zip(a, cs.wake_windows(1)))
+
+
+def test_phase16_groups_divide_every_family_k():
+    """q4_group gives each dense preset the largest group that divides
+    every K/2 (256 where it can; Gemma-2-2B, Gemma-3 12B/27B, OLMo-2 and
+    SmolLM3 128; Gemma-3-1B and GLM-4 64)."""
+    from trackiellm_tpu_torch.models import llm
+    cs = _load()
+    groups = {name: cs.q4_group(getattr(llm.LLMConfig, name)())
+              for name in llm.DENSE_PRESETS}
+    assert groups == {
+        "mistral_7b": 256, "llama3_8b": 256, "qwen2_7b": 256,
+        "phi3_mini": 256, "granite3_8b": 256, "glm4_9b": 64,
+        "gemma2_2b": 128, "gemma2_9b": 256, "gemma3_1b": 64,
+        "gemma3_4b": 256, "gemma3_12b": 128, "gemma3_27b": 128,
+        "olmo2_7b": 128, "smollm3_3b": 128, "qwen3_8b": 256}
+    swept = set(cs.FAMILY_SWEEP) | {"gemma2_9b", "llama3_8b", "mistral_7b"}
+    assert swept == set(llm.DENSE_PRESETS)
+
+
+def test_phase16_configs_keep_the_published_widths_and_windows():
+    """Phase 16's configs: Gemma-2-9B as published (max_seq 8192, the
+    alternating window of 4096 on); Llama-3 at max_seq 2048; the sweep at 2
+    layers with every window that was on still on and each long prompt
+    past it; Phi-3 as its 128k longrope variant; phase 3's family cases."""
+    from trackiellm_tpu_torch.models import llm
+    cs = _load()
+    g = cs.family_cfg(llm, "gemma2_9b")
+    assert g == llm.LLMConfig.gemma2_9b() and llm._layer_window(g) == 4096
+    assert cs.family_cfg(llm, "llama3_8b").max_seq == 2048
+    for name in cs.FAMILY_SWEEP:
+        pub = getattr(llm.LLMConfig, name)()
+        cfg = cs.family_cfg(llm, name)
+        assert cfg.n_layers == 2 and (cfg.dim, cfg.hidden_dim, cfg.n_heads,
+                                      cfg.head_dim, cfg.vocab_size) == (
+            pub.dim, pub.hidden_dim, pub.n_heads, pub.head_dim,
+            pub.vocab_size)
+        assert llm._layer_window(cfg) == llm._layer_window(pub)
+        if name in cs.FAMILY_LONG:
+            assert cs.FAMILY_LONG[name] > llm._layer_window(cfg) > 0
+            assert cs.FAMILY_LONG[name] % 256 == 0
+    phi = cs.family_cfg(llm, "phi3_mini")
+    assert phi.rope_original_max_seq == 4096 < cs.PHI3_LONG_SIDE
+    assert cs.FAMILY_LONG["phi3_mini"] < 4096
+    assert abs(phi.rope_attention_factor - 1.190) < 1e-3
+    flash = {(d, heads): (sizes, set(v)) for d, heads, sizes, v in
+             cs.FAMILY_FLASH}
+    assert flash[(256, (16, 8))] == ((512, 1024), {"causal", "window512",
+                                                   "softcap50"})
+    assert flash[(96, (32, 32))][0] == (512,)
+    assert "window2047" in flash[(96, (32, 32))][1]
+    groups = {g for _, _, _, g, _ in cs.FAMILY_MATMULS}
+    assert {64, 128} <= groups
+    assert any(n == 49155 for _, _, n, _, _ in cs.FAMILY_MATMULS)
+
+
+def _tiny_family_cfg(llm, name):
+    """A preset's knob set at widths the CPU runs in seconds; windows and
+    patterns as the families tests cut them."""
+    c = getattr(llm.LLMConfig, name)()
+    windowed = 0 < c.sliding_window < c.max_seq
+    return c._replace(
+        vocab_size=320, dim=128, n_layers=2, n_heads=4,
+        n_kv_heads=4 // min(c.n_heads // c.n_kv_heads, 4), head_dim=32,
+        hidden_dim=256, max_seq=512, sliding_window=24 if windowed else 512,
+        window_pattern=2 if c.window_pattern else 0,
+        nope_pattern=2 if c.nope_pattern else 0,
+        rope_original_max_seq=300 if name == "phi3_mini" else 0)
+
+
+def test_phase16_on_the_cpu(monkeypatch, capsys):
+    """Phase 16's control flow on the CPU at tiny widths (the profile
+    child faked, the routes' check recorded): (a) generates at lookahead 4
+    and 1 with equal ids and serves its bursts; (b) sweeps every preset
+    card against CPU (the same CPU here) with the long prompts and Phi-3's
+    two sides; (c) converts the three GGUFs on the CPU and answers with
+    equal ids. Every route check asks for the kernels, which here never
+    launch."""
+    from trackiellm_tpu_torch import __main__ as cli
+    from trackiellm_tpu_torch.llm import paging, runner, server, tokenizer
+    from trackiellm_tpu_torch.models import checkpoint, llm
+    from trackiellm_tpu_torch.ops import attention, quant
+    from trackiellm_tpu_torch.tools import measure_server
+    cs = _load()
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
+    monkeypatch.setattr(cli, "_device", lambda name, verb: cpu)
+    monkeypatch.setattr(cs, "family_cfg", _tiny_family_cfg)
+    monkeypatch.setattr(cs, "FAMILY_LONG", {"gemma3_1b": 256,
+                                            "phi3_mini": 256,
+                                            "gemma2_2b": 256})
+    monkeypatch.setattr(cs, "PHI3_LONG_SIDE", 320)
+    monkeypatch.setattr(cs, "FAMILY_TOKENS", 6)
+    monkeypatch.setattr(cs, "FAMILY_GGUF_TOKENS", 6)
+    monkeypatch.setattr(cs, "FAMILY_GGUF_WIDTHS", (256, 2, 2, 2, 512, 320))
+    monkeypatch.setattr(attention, "flash_kernel_attrs",
+                        lambda d, dt: {"regs": 1, "local_bytes": 0,
+                                       "smem_bytes": 1})
+    routes = []
+    monkeypatch.setattr(cs, "expect_routes", lambda launches, ran, idle,
+                        phase: routes.append((phase, ran)))
+    out = cs.phase_families(
+        cpu, llm, runner, tokenizer, server, paging, measure_server,
+        checkpoint, attention, quant, cli, cs.launch_counters(),
+        lambda: {"decode": {"wall_ms": 1.0}})
+    assert set(out["sweep"]) == set(cs.FAMILY_SWEEP)
+    assert all(max(r["rel_l2"].values()) == 0.0
+               for r in out["sweep"].values())
+    assert set(out["sweep"]["phi3_mini"]["rel_l2"]) == {"64", "256", "320"}
+    assert set(out["gguf"]) == set(cs.FAMILY_GGUF_ARCHES)
+    phases = [p for p, _ in routes]
+    assert phases == ["phase 16 gemma2_9b", "phase 16 serve dense_chunk8",
+                      "phase 16 serve paged_int8_chunk8",
+                      "phase 16 llama3_8b", "phase 16 command-r",
+                      "phase 16 nemotron", "phase 16 starcoder2"]
+    text = capsys.readouterr().out
+    for tag in ("gemma2_9b: lookahead 4 == lookahead 1",
+                "serve paged_int8_chunk8:", "card ids == cpu ids: True",
+                "layernorm norm, act relu2, gated False",
+                "phase 16 took"):
+        assert tag in text, tag

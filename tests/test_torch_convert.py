@@ -103,9 +103,16 @@ ARCHES = {
 }
 
 
-def _arch_gguf(path, name, seed=0):
-    """Write the GGUF of ``ARCHES[name]``; returns its arch string."""
-    spec = ARCHES[name]
+def _arch_gguf(path, name, seed=0, widths=None, **overrides):
+    """Write the GGUF of ``ARCHES[name]`` (its keys replaced by
+    ``overrides``); returns its arch string. ``widths``: (dim, layers,
+    heads, kv heads, hidden, vocab), by default the module's; a partial
+    rotary stays half the head dim."""
+    dim, layers, heads, kv, hid, vocab = widths or (DIM, LAYERS, HEADS, KV,
+                                                   HID, VOCAB)
+    hd = dim // heads
+    qd, kvd = heads * hd, kv * hd
+    spec = dict(ARCHES[name], **overrides)
     arch = spec.get("arch", name)
     rng = np.random.default_rng(seed)
 
@@ -125,96 +132,102 @@ def _arch_gguf(path, name, seed=0):
         mat.turn = (getattr(mat, "turn", -1) + 1) % 3
         return m(*shape), (jload.GGML_Q8_0, jload.GGML_Q4_0, F16)[mat.turn]
 
-    t = {"token_embd.weight": (m(VOCAB, DIM) * 0.2, F32),
-         "output_norm.weight": (vec(DIM, 1.0), F32)}
+    t = {"token_embd.weight": (m(vocab, dim) * 0.2, F32),
+         "output_norm.weight": (vec(dim, 1.0), F32)}
     if spec.get("norm_bias"):
-        t["output_norm.bias"] = (vec(DIM), F32)
+        t["output_norm.bias"] = (vec(dim), F32)
     if not spec.get("tied"):
-        t["output.weight"] = mat(VOCAB, DIM)
-    for i in range(LAYERS):
+        t["output.weight"] = mat(vocab, dim)
+    for i in range(layers):
         p = f"blk.{i}"
         if not spec.get("no_pre_norms"):
-            t[f"{p}.attn_norm.weight"] = (vec(DIM, 1.0), F32)
+            t[f"{p}.attn_norm.weight"] = (vec(dim, 1.0), F32)
             if not spec.get("no_ffn_norm"):
-                t[f"{p}.ffn_norm.weight"] = (vec(DIM, 1.0), F32)
+                t[f"{p}.ffn_norm.weight"] = (vec(dim, 1.0), F32)
             if spec.get("norm_bias"):
-                t[f"{p}.attn_norm.bias"] = (vec(DIM), F32)
-                t[f"{p}.ffn_norm.bias"] = (vec(DIM), F32)
+                t[f"{p}.attn_norm.bias"] = (vec(dim), F32)
+                t[f"{p}.ffn_norm.bias"] = (vec(dim), F32)
         if spec.get("post_norms"):
-            t[f"{p}.post_attention_norm.weight"] = (vec(DIM, 1.0), F32)
-            t[f"{p}.post_ffw_norm.weight"] = (vec(DIM, 1.0), F32)
+            t[f"{p}.post_attention_norm.weight"] = (vec(dim, 1.0), F32)
+            t[f"{p}.post_ffw_norm.weight"] = (vec(dim, 1.0), F32)
         if spec.get("qk_norm") == "head":
-            t[f"{p}.attn_q_norm.weight"] = (vec(HD, 1.0), F32)
-            t[f"{p}.attn_k_norm.weight"] = (vec(HD, 1.0), F32)
+            t[f"{p}.attn_q_norm.weight"] = (vec(hd, 1.0), F32)
+            t[f"{p}.attn_k_norm.weight"] = (vec(hd, 1.0), F32)
+        elif spec.get("qk_norm") == "heads":  # Command-R+: a row a head
+            t[f"{p}.attn_q_norm.weight"] = (vec(qd, 1.0), F32)
+            t[f"{p}.attn_k_norm.weight"] = (vec(kvd, 1.0), F32)
         elif spec.get("qk_norm") == "full":
-            t[f"{p}.attn_q_norm.weight"] = (vec(QD, 1.0), F32)
-            t[f"{p}.attn_k_norm.weight"] = (vec(KVD, 1.0), F32)
+            t[f"{p}.attn_q_norm.weight"] = (vec(qd, 1.0), F32)
+            t[f"{p}.attn_k_norm.weight"] = (vec(kvd, 1.0), F32)
         if spec.get("fused"):
-            t[f"{p}.attn_qkv.weight"] = mat(QD + 2 * KVD, DIM)
+            t[f"{p}.attn_qkv.weight"] = mat(qd + 2 * kvd, dim)
         else:
-            t[f"{p}.attn_q.weight"] = mat(QD, DIM)
-            t[f"{p}.attn_k.weight"] = mat(KVD, DIM)
-            t[f"{p}.attn_v.weight"] = mat(KVD, DIM)
+            t[f"{p}.attn_q.weight"] = mat(qd, dim)
+            t[f"{p}.attn_k.weight"] = mat(kvd, dim)
+            t[f"{p}.attn_v.weight"] = mat(kvd, dim)
         if spec.get("qkv_bias"):
-            t[f"{p}.attn_q.bias"] = (vec(QD), F32)
-            t[f"{p}.attn_k.bias"] = (vec(KVD), F32)
-            t[f"{p}.attn_v.bias"] = (vec(KVD), F32)
-        t[f"{p}.attn_output.weight"] = mat(DIM, QD)
+            t[f"{p}.attn_q.bias"] = (vec(qd), F32)
+            t[f"{p}.attn_k.bias"] = (vec(kvd), F32)
+            t[f"{p}.attn_v.bias"] = (vec(kvd), F32)
+        t[f"{p}.attn_output.weight"] = mat(dim, qd)
         if spec.get("out_bias"):
-            t[f"{p}.attn_output.bias"] = (vec(DIM), F32)
+            t[f"{p}.attn_output.bias"] = (vec(dim), F32)
         if spec.get("sinks"):
-            t[f"{p}.attn_sinks.weight"] = (vec(HEADS), F32)
+            t[f"{p}.attn_sinks.weight"] = (vec(heads), F32)
         if spec.get("experts"):
-            t[f"{p}.ffn_gate_inp.weight"] = (m(EXPERTS, DIM), F32)
-            t[f"{p}.ffn_gate_exps.weight"] = (m(EXPERTS, HID, DIM), F32)
-            t[f"{p}.ffn_up_exps.weight"] = (m(EXPERTS, HID, DIM), F32)
-            t[f"{p}.ffn_down_exps.weight"] = (m(EXPERTS, DIM, HID), F32)
+            t[f"{p}.ffn_gate_inp.weight"] = (m(EXPERTS, dim), F32)
+            t[f"{p}.ffn_gate_exps.weight"] = (m(EXPERTS, hid, dim), F32)
+            t[f"{p}.ffn_up_exps.weight"] = (m(EXPERTS, hid, dim), F32)
+            t[f"{p}.ffn_down_exps.weight"] = (m(EXPERTS, dim, hid), F32)
             if spec.get("moe_bias"):
                 t[f"{p}.ffn_gate_inp.bias"] = (vec(EXPERTS), F32)
-                t[f"{p}.ffn_gate_exps.bias"] = (m(EXPERTS, HID), F32)
-                t[f"{p}.ffn_up_exps.bias"] = (m(EXPERTS, HID), F32)
-                t[f"{p}.ffn_down_exps.bias"] = (m(EXPERTS, DIM), F32)
+                t[f"{p}.ffn_gate_exps.bias"] = (m(EXPERTS, hid), F32)
+                t[f"{p}.ffn_up_exps.bias"] = (m(EXPERTS, hid), F32)
+                t[f"{p}.ffn_down_exps.bias"] = (m(EXPERTS, dim), F32)
             if spec.get("shared"):
-                t[f"{p}.ffn_gate_shexp.weight"] = mat(HID, DIM)
-                t[f"{p}.ffn_up_shexp.weight"] = mat(HID, DIM)
-                t[f"{p}.ffn_down_shexp.weight"] = mat(DIM, HID)
-                t[f"{p}.ffn_gate_inp_shexp.weight"] = (m(1, DIM), F32)
+                t[f"{p}.ffn_gate_shexp.weight"] = mat(hid, dim)
+                t[f"{p}.ffn_up_shexp.weight"] = mat(hid, dim)
+                t[f"{p}.ffn_down_shexp.weight"] = mat(dim, hid)
+                t[f"{p}.ffn_gate_inp_shexp.weight"] = (m(1, dim), F32)
         elif spec.get("fused"):
-            t[f"{p}.ffn_up.weight"] = mat(2 * HID, DIM)
-            t[f"{p}.ffn_down.weight"] = mat(DIM, HID)
+            t[f"{p}.ffn_up.weight"] = mat(2 * hid, dim)
+            t[f"{p}.ffn_down.weight"] = mat(dim, hid)
         else:
             if not spec.get("ungated"):
-                t[f"{p}.ffn_gate.weight"] = mat(HID, DIM)
-            t[f"{p}.ffn_up.weight"] = mat(HID, DIM)
-            t[f"{p}.ffn_down.weight"] = mat(DIM, HID)
+                t[f"{p}.ffn_gate.weight"] = mat(hid, dim)
+            t[f"{p}.ffn_up.weight"] = mat(hid, dim)
+            t[f"{p}.ffn_down.weight"] = mat(dim, hid)
         if spec.get("mlp_bias"):
-            t[f"{p}.ffn_up.bias"] = (vec(HID), F32)
-            t[f"{p}.ffn_down.bias"] = (vec(DIM), F32)
+            t[f"{p}.ffn_up.bias"] = (vec(hid), F32)
+            t[f"{p}.ffn_down.bias"] = (vec(dim), F32)
     if spec.get("rope_freqs"):
-        t["rope_freqs.weight"] = (np.linspace(1.0, 8.0, HD // 2,
+        t["rope_freqs.weight"] = (np.linspace(1.0, 8.0, hd // 2,
                                               dtype=np.float32), F32)
     if spec.get("longrope"):
-        t["rope_factors_short.weight"] = (vec(HD // 2, 1.0), F32)
-        t["rope_factors_long.weight"] = (vec(HD // 2, 2.0), F32)
+        t["rope_factors_short.weight"] = (vec(hd // 2, 1.0), F32)
+        t["rope_factors_long.weight"] = (vec(hd // 2, 2.0), F32)
     meta = {
         "general.architecture": arch,
         "general.name": f"tiny-{name}",
-        f"{arch}.embedding_length": DIM,
-        f"{arch}.block_count": LAYERS,
-        f"{arch}.attention.head_count": HEADS,
-        f"{arch}.attention.head_count_kv": KV,
-        f"{arch}.feed_forward_length": HID,
+        f"{arch}.embedding_length": dim,
+        f"{arch}.block_count": layers,
+        f"{arch}.attention.head_count": heads,
+        f"{arch}.attention.head_count_kv": kv,
+        f"{arch}.feed_forward_length": hid,
         f"{arch}.context_length": 128,
         f"{arch}.attention.layer_norm_rms_epsilon": 1e-5,
         f"{arch}.rope.freq_base": 10000.0,
-        f"{arch}.vocab_size": VOCAB,
+        f"{arch}.vocab_size": vocab,
     }
     if spec.get("experts"):
         meta.update({f"{arch}.expert_count": EXPERTS,
                      f"{arch}.expert_used_count": 2})
         if spec.get("shared"):
-            meta[f"{arch}.expert_shared_feed_forward_length"] = HID
+            meta[f"{arch}.expert_shared_feed_forward_length"] = hid
     meta.update(spec.get("meta", {}))
+    for key in meta:
+        if key.endswith(".rope.dimension_count"):
+            meta[key] = hd // 2
     write_gguf(path, t, metadata=meta)
     return arch
 
@@ -574,6 +587,44 @@ def test_convert_then_generate_matches_the_jax_cli(cli_gguf, tmp_path, bits,
     assert tmain(["generate", tdir, "-p", "ola mundo", "--max-tokens", "8",
                   "--device", "cpu"]) == 0
     assert capsys.readouterr().out.strip()
+
+
+# The dense arches whose convert and generate the CLIs are held to at the
+# CLI's widths (group 256): a bias on q/k/v, sandwich norms and softcaps,
+# rope_freqs, fused QKV with longrope, Command-R's parallel residual with
+# per-head LayerNorm QK norms, StarCoder2's biased LayerNorms and ungated
+# GELU MLP, Nemotron's squared ReLU with a partial rotary.
+CLI_ARCHES = ("qwen2", "gemma2", "llama_rope_freqs", "phi3", "command-r",
+              "starcoder2", "nemotron")
+
+
+@pytest.mark.parametrize("name", CLI_ARCHES)
+def test_convert_then_generate_dense_arches_match_the_jax_cli(
+        tmp_path, name, capsys):
+    """A 2-layer GGUF of each dense arch at the CLI's widths: both CLIs'
+    ``convert --bits 4`` write the same checkpoint files, and greedy
+    ``generate`` on it prints the JAX CLI's text."""
+    path = str(tmp_path / f"{name}.gguf")
+    # Command-R+'s per-head LayerNorm weights: H * head_dim a layer.
+    _arch_gguf(path, name, seed=3,
+               widths=(CLI_DIM, 2, CLI_HEADS, CLI_KV, CLI_HID, CLI_VOCAB),
+               **({"qk_norm": "heads"} if name == "command-r" else {}))
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    assert jmain(["convert", path, "-o", jdir, "--bits", "4"]) == 0
+    assert tmain(["convert", path, "-o", tdir, "--bits", "4",
+                  "--device", "cpu"]) == 0
+    with np.load(os.path.join(jdir, "arrays.npz")) as a, \
+            np.load(os.path.join(tdir, "arrays.npz")) as b:
+        assert a.files == b.files
+        for k in a.files:
+            assert a[k].tobytes() == b[k].tobytes(), k
+    capsys.readouterr()
+    argv = ["generate", "-p", "ola mundo", "--max-tokens", "12",
+            "--temperature", "0"]
+    assert jmain([argv[0], jdir, *argv[1:]]) == 0
+    want = capsys.readouterr().out
+    assert tmain([argv[0], tdir, *argv[1:], "--device", "cpu"]) == 0
+    assert capsys.readouterr().out == want and want.strip()
 
 
 def test_inspect_prints_the_jax_description(cli_gguf, capsys):

@@ -43,7 +43,7 @@ VARIANTS = {"causal": {}, "window": {"window": 100}, "softcap": {"softcap": 5.0}
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
 def test_flash_kernel_matches_plain(dev, variant, dtype, d):
     g = torch.Generator(device=dev).manual_seed(d)
     q = torch.randn((8, 512, d), generator=g, device=dev).to(dtype)
@@ -66,7 +66,7 @@ def test_flash_kernel_matches_plain(dev, variant, dtype, d):
 
 
 @pytest.mark.parametrize("m", [1, 3, 8, 16, 64, 200])
-@pytest.mark.parametrize("group", [64, 256])
+@pytest.mark.parametrize("group", [64, 128, 256])
 def test_w4a8_kernel_matches_plain(dev, m, group):
     g = torch.Generator(device=dev).manual_seed(m)
     w = tq.quantize_q4(torch.randn((1024, 320), generator=g, device=dev),
@@ -146,7 +146,7 @@ def test_w4a8_refuses_other_dtypes_before_launching(dev):
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS) + ["window17"])
 @pytest.mark.parametrize("s", [64, 256, 512])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
 def test_bf16_flash_tensor_core_kernel(dev, d, s, variant):
     """The bf16 kernel against its plain twin (same tiles, P rounded to
     bf16) and the dense oracle, with a window shorter than a key tile."""
@@ -163,6 +163,26 @@ def test_bf16_flash_tensor_core_kernel(dev, d, s, variant):
                 ta.attention_ref(q, k, v, **kw)):
         assert _rel_l2(got, ref) < 1e-2
         assert (got.float() - ref.float()).abs().max().item() < 3e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [96, 256])
+def test_flash_at_family_head_dims(dev, d, dtype):
+    """Phi-3's D = 96 (32 heads, window 2047) and Gemma-2's D = 256 (16/8
+    heads, window 512, softcap 50, query scalar 256) at S = 1024 against
+    the plain twin; the kernels' registers stay under the cap and spill
+    nothing."""
+    h, hk, kw = ((32, 32, {"window": 2047}) if d == 96 else
+                 (16, 8, {"window": 512, "softcap": 50.0, "scale": 1 / 16}))
+    g = torch.Generator(device=dev).manual_seed(d)
+    q, k, v = (torch.randn((n, 1024, d), generator=g, device=dev).to(dtype)
+               for n in (h, hk, hk))
+    got = ta.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ref = ta.flash_attention_ref(q, k, v, **kw)
+    assert _rel_l2(got, ref) < (1e-5 if dtype == torch.float32 else 1e-2)
+    attrs = ta.flash_kernel_attrs(d, dtype)
+    assert 0 < attrs["regs"] <= 255 and attrs["local_bytes"] == 0
 
 
 def test_f32_flash_keeps_f32_math(dev):
@@ -494,9 +514,74 @@ def test_f32a_kernels_refuse_bad_operands(dev, kind):
     with pytest.raises(ValueError):     # weights on another device
         kernel(torch.ones((2, 512), device=dev), w.values.cpu(),
                w.scales.cpu())
-    with pytest.raises(ValueError):     # N % 4 != 0
-        w6 = quant(torch.randn((512, 6), device=dev), 64)
-        kernel(torch.ones((2, 512), device=dev), w6.values, w6.scales)
+    with pytest.raises(ValueError):     # G % 32 != 0
+        w16 = quant(torch.randn((512, 64), device=dev), 16)
+        kernel(torch.ones((2, 512), device=dev), w16.values, w16.scales)
+
+
+QUANT_KERNELS = {
+    "w4a8": (tq.quantize_q4, tq.q4_matmul_w4a8, tq.q4_matmul_w4a8_ref),
+    "f32a": (tq.quantize_q4, tq.q4_matmul_f32a, tq.q4_matmul_f32a_ref),
+    "q8": (tq.quantize_q8, tq.q8_matmul, tq.q8_matmul_ref),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 16, 17])
+@pytest.mark.parametrize("n", [6, 49155])
+@pytest.mark.parametrize("kind", sorted(QUANT_KERNELS))
+def test_quant_kernels_take_a_ragged_n(dev, kind, n, m, dtype):
+    """N % 4 != 0 (Granite-3's vocabulary of 49,155): each kernel takes the
+    ragged last tile itself, byte loads and all, against its plain
+    version."""
+    quant, kernel, plain = QUANT_KERNELS[kind]
+    g = torch.Generator(device=dev).manual_seed(n + m)
+    w = quant(torch.randn((512, n), generator=g, device=dev) / 512 ** 0.5,
+              128)
+    x = torch.randn((m, 512), generator=g, device=dev).to(dtype)
+    got = kernel(x, w.values, w.scales)
+    torch.cuda.synchronize()
+    assert got.shape == (m, n)
+    assert _rel_l2(got, plain(x, w.values, w.scales)) < 1e-5
+
+
+@pytest.mark.parametrize("k,n,group", [(2304, 9216, 128), (1152, 6912, 64),
+                                       (13696, 4096, 64), (3840, 15360, 128)])
+@pytest.mark.parametrize("m", [1, 64])
+def test_w4a8_at_family_groups(dev, k, n, group, m):
+    """W4A8 at the groups the families take where 256 does not divide K/2
+    (Gemma-2-2B's w_gu, Gemma-3-1B's, GLM-4's w_down, Gemma-3-12B's)."""
+    g = torch.Generator(device=dev).manual_seed(k + m)
+    w = tq.quantize_q4(torch.randn((k, n), generator=g, device=dev)
+                       / k ** 0.5, group)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    assert _rel_l2(tq.q4_matmul_w4a8(x, w.values, w.scales),
+                   tq.q4_matmul_w4a8_ref(x, w.values, w.scales)) < 1e-5
+
+
+def test_gemma2_prefill_on_the_card_matches_cpu(dev):
+    """A 2-layer Gemma-2-2B (published widths: D = 256, GeGLU, sandwich
+    norms, softcaps, the alternating window cut to 128 so that bucket 256
+    masks) as Q4 at group 128: prefill at bucket 256 (flash on every layer)
+    and three decode steps on the card against the CPU."""
+    cfg = llm.LLMConfig.gemma2_2b()._replace(n_layers=2, max_seq=512,
+                                             sliding_window=128)
+    p_gpu = llm.init_params_quantized(
+        torch.Generator(device=dev).manual_seed(0), cfg, group=128,
+        dtype=torch.float32, device=dev)
+    p_cpu = llm.params_to(p_gpu, torch.device("cpu"))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 256000, 256))
+    before = ta.flash_attention.launches
+    lg, cg = llm.prefill(p_gpu, cfg, toks.to(dev), 250,
+                         llm.KVCache.create(cfg, torch.float32, device=dev))
+    lc, cc = llm.prefill(p_cpu, cfg, toks, 250,
+                         llm.KVCache.create(cfg, torch.float32, device="cpu"))
+    assert ta.flash_attention.launches == before + cfg.n_layers
+    assert _rel_l2(lg.cpu(), lc) < 5e-2
+    for tok in (5, 77, 300):
+        lg, cg = llm.decode_step(p_gpu, cfg, tok, cg)
+        lc, cc = llm.decode_step(p_cpu, cfg, tok, cc)
+        assert _rel_l2(lg.cpu(), lc) < 5e-2
 
 
 def _fused_operands(dev, m, d, h, g, dtype, seed=0):

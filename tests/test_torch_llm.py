@@ -281,29 +281,23 @@ def test_init_params_quantized_matches_reference_layout():
 
 
 @pytest.mark.parametrize("knob", [
-    {"qkv_bias": True}, {"attn_softcap": 50.0}, {"logit_softcap": 30.0},
-    {"n_experts": 8}, {"window_pattern": 6}, {"alt_window": True},
-    {"nope_pattern": 4}, {"attn_sinks": True}, {"norm_type": "layernorm"},
-    {"partial_rotary_factor": 0.5}, {"act": "gelu"}, {"qk_norm": True},
-    {"query_pre_attn_scalar": 256.0}, {"attn_chunk": 8192},
+    {"n_experts": 8}, {"attn_sinks": True}, {"attn_chunk": 8192},
+    {"qk_l2norm": True}, {"attn_temp_tuning": True}, {"moe_bias": True},
+    {"moe_pattern": 2}, {"act": "gptoss"}, {"parallel_mlp_norm": True},
 ])
 def test_other_family_knobs_raise(knob):
+    """The knobs of the MoE, gpt-oss, Llama-4 and Falcon families raise,
+    naming the knob and ROADMAP ID 11; the dense knob sets run
+    (tests/test_torch_families.py)."""
     cfg = tllm.LLMConfig.tiny()._replace(**knob)
     name = next(iter(knob))
-    with pytest.raises(NotImplementedError, match=name):
+    with pytest.raises(NotImplementedError, match=name) as err:
         tllm.init_params(torch.Generator().manual_seed(0), cfg)
+    assert "ID 11" in str(err.value)
     _, tp = _params()
     with pytest.raises(NotImplementedError, match=name):
         tllm.prefill(tp, cfg, torch.zeros(64, dtype=torch.long), 1,
                      tllm.KVCache.create(tllm.LLMConfig.tiny(), torch.float32, device="cpu"))
-
-
-def test_rope_factors_raise():
-    _, tp = _params()
-    cfg = tllm.LLMConfig.tiny()
-    with pytest.raises(NotImplementedError, match="rope_factors"):
-        tllm.decode_step(dict(tp, rope_factors=torch.ones(32)), cfg, 1,
-                         tllm.KVCache.create(cfg, torch.float32, device="cpu"))
 
 
 def test_window_is_off_when_it_covers_max_seq():

@@ -32,6 +32,92 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                    smem_addr(dst)),
                "l"(src), "r"(src_bytes));
 }
+// Weight rows of N bytes (packed Q4 or Q8 values), read 16 columns at a
+// time from column n (src points at it) into 16-byte-aligned shared memory,
+// zeros past column N. vec 2: one 16-byte cp.async (N % 16 == 0, rows
+// 16-byte aligned); vec 1: four 4-byte ones (N % 4 == 0); vec 0: a ragged N
+// (Granite's vocabulary of 49,155), whose rows lie on no word boundary:
+// byte loads and one 16-byte store, done before the copies' wait like them.
+__device__ __forceinline__ void copy_row16(void* dst, const void* src,
+                                           const void* any, int n, int N,
+                                           int vec) {
+  if (vec == 2) {
+    cp_async16(dst, n < N ? src : any, n < N ? 16 : 0);
+  } else if (vec == 1) {
+    const auto* s8 = static_cast<const uint8_t*>(src);
+    auto* d8 = static_cast<uint8_t*>(dst);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const bool ok = n + 4 * q < N;
+      cp_async4(d8 + 4 * q, ok ? s8 + 4 * q : any, ok ? 4 : 0);
+    }
+  } else {
+    const auto* s8 = static_cast<const uint8_t*>(src);
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int b = 0; b < 16; ++b)
+      if (n + b < N) w[b >> 2] |= static_cast<uint32_t>(s8[b]) << (8 * (b & 3));
+    *static_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+// Four f32 of a scale row of N floats from column n (src points at it) into
+// 16-byte-aligned shared memory, zeros past N.
+__device__ __forceinline__ void copy_scales4(float* dst, const float* src,
+                                             const float* any, int n, int N) {
+  if (N % 4 == 0) {
+    cp_async16(dst, n < N ? src : any, n < N ? 16 : 0);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const bool ok = n + e < N;
+    cp_async4(dst + e, ok ? src + e : any, ok ? 4 : 0);
+  }
+}
+// The 4-byte word of a weight row at column n (n % 4 == 0; src points at
+// it), with `fill` in each byte past column N.
+__device__ __forceinline__ uint32_t load_word(const void* src, int n, int N,
+                                              uint32_t fill) {
+  if (N % 4 == 0) return n < N ? *static_cast<const uint32_t*>(src) : fill;
+  const auto* s8 = static_cast<const uint8_t*>(src);
+  uint32_t w = fill;
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    if (n + b < N)
+      w = (w & ~(0xFFu << (8 * b))) | (static_cast<uint32_t>(s8[b]) << (8 * b));
+  return w;
+}
+// Output columns n, n + 1 (n even) of a row of N floats; a ragged N's rows
+// lie on no 8-byte boundary.
+__device__ __forceinline__ void store2(float* row, int n, int N, float a,
+                                       float b) {
+  if (n >= N) return;
+  if (N % 2 == 0) {
+    *reinterpret_cast<float2*>(row + n) = make_float2(a, b);
+  } else {
+    row[n] = a;
+    if (n + 1 < N) row[n + 1] = b;
+  }
+}
+// Output columns n .. n + 3 (n % 4 == 0) of a row of N floats.
+__device__ __forceinline__ void store4(float* row, int n, int N, float a,
+                                       float b, float c, float d) {
+  if (n >= N) return;
+  if (N % 4 == 0) {
+    *reinterpret_cast<float4*>(row + n) = make_float4(a, b, c, d);
+    return;
+  }
+  const float v[4] = {a, b, c, d};
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (n + e < N) row[n + e] = v[e];
+}
+// The copy mode of copy_row16 for rows of N bytes at `base`.
+inline int row_vec(int N, const void* base) {
+  const auto a = reinterpret_cast<uintptr_t>(base);
+  if (N % 16 == 0 && a % 16 == 0) return 2;
+  return N % 4 == 0 && a % 4 == 0 ? 1 : 0;
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

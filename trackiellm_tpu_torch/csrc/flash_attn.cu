@@ -33,11 +33,18 @@
 //
 // f32 (flash_fwd_kernel, first kernel of the port, kept for its 1e-5
 // tolerance): one block per (head, 64-query tile); two threads share a
-// query row, each holding half of q and of the output accumulator in
-// registers, and combine their half dot products with one shuffle. K and V
-// advance in 32-key tiles staged in shared memory as f32, with the same
-// tile skips. Each tile's scores stay in registers: one max, one rescale of
-// the accumulator per tile.
+// query row (four at D = 256), each holding its part of q and of the
+// output accumulator in registers, and combine their partial dot products
+// with shuffles. K and V advance in 32-key tiles staged in (dynamic)
+// shared memory as f32, with the same tile skips. Each tile's scores stay
+// in registers: one max, one rescale of the accumulator per tile.
+//
+// Head dims 64, 96 (Phi-3), 128 and 256 (Gemma). At D = 256 the registers
+// bound the bf16 kernel: the output's 128 f32 a thread and the scores' 32
+// leave no room for q's 64, so q's fragment is reloaded from shared memory
+// (which keeps q) at every k-step instead of held across the key loop;
+// the five 64 x 264 tiles take 168,960 bytes, one block an SM. Registers
+// and spills of each build: trackie_flash_attn_attrs.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -49,26 +56,43 @@ namespace {
 
 constexpr int kBQ = 64;           // query rows per block
 constexpr int kBK = 32;           // keys per tile
-constexpr int kThreads = 2 * kBQ;
 constexpr float kNegInf = -1e30f;
 
+// Threads that share a query row: 2, or 4 at D = 256, where two would hold
+// 128 floats of q and 128 of the output each.
+template <int D>
+__host__ __device__ constexpr int parts() {
+  return D >= 256 ? 4 : 2;
+}
+// +4 floats a part: the parts of a row fall in different banks.
+template <int D>
+__host__ __device__ constexpr int f32_part_floats() {
+  return kBK * (D / parts<D>()) + 4;
+}
+template <int D>
+constexpr int f32_smem_bytes() {
+  return 2 * parts<D>() * f32_part_floats<D>() * 4;  // k, then v
+}
+
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
+__global__ void __launch_bounds__(parts<D>() * kBQ) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ sinks, T* __restrict__ out, int H, int Hk,
     int S, float scale, int causal, int window, float softcap) {
-  constexpr int DH = D / 2;                 // dims per thread
-  constexpr int kHalf = kBK * DH + 4;       // +4 floats: the two halves of a
-                                            // row fall in different banks
-  __shared__ __align__(16) float sK[2 * kHalf];
-  __shared__ __align__(16) float sV[2 * kHalf];
+  constexpr int P = parts<D>();
+  constexpr int kThreads = P * kBQ;
+  constexpr int DH = D / P;                 // dims per thread
+  constexpr int kHalf = f32_part_floats<D>();
+  extern __shared__ __align__(16) float f32_smem[];
+  float* sK = f32_smem;                     // [P][kHalf]
+  float* sV = f32_smem + P * kHalf;
 
   const int h = blockIdx.y;
   const int qt = blockIdx.x;
   const int kvh = h / (H / Hk);
   const int tid = threadIdx.x;
-  const int row = tid >> 1;
-  const int part = tid & 1;
+  const int row = tid / P;
+  const int part = tid % P;
   const int qi = qt * kBQ + row;
 
   float qr[DH], acc[DH];
@@ -121,7 +145,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
         s += qr[4 * d4] * kv.x + qr[4 * d4 + 1] * kv.y +
              qr[4 * d4 + 2] * kv.z + qr[4 * d4 + 3] * kv.w;
       }
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
+#pragma unroll
+      for (int o = 1; o < P; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
       s *= scale;
       if (softcap > 0.f) s = softcap * tanhf(s / softcap);
       if (causal) {
@@ -176,14 +201,19 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 }
 
 template <typename T, int D>
-void launch(const void* q, const void* k, const void* v, const float* sinks,
-            void* out, int H, int Hk, int S, float scale, int causal,
-            int window, float softcap, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const float* sinks,
+           void* out, int H, int Hk, int S, float scale, int causal,
+           int window, float softcap, cudaStream_t stream) {
+  constexpr int bytes = f32_smem_bytes<D>();
+  static unsigned long long raised = 0;  // devices whose cap is set
+  const int err = raise_smem_cap(flash_fwd_kernel<T, D>, bytes, raised);
+  if (err != 0) return err;
   dim3 grid(S / kBQ, H);
-  flash_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+  flash_fwd_kernel<T, D><<<grid, parts<D>() * kBQ, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), sinks, static_cast<T*>(out), H, Hk, S, scale,
       causal, window, softcap);
+  return 0;
 }
 
 // --- bf16 on the tensor cores -----------------------------------------------
@@ -258,7 +288,11 @@ __global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(
   load_kv(kt_begin, 0);
   cp_async_commit();
 
-  uint32_t qf[D / 16][4];
+  // q's fragments stay in registers across the key loop up to D = 128; at
+  // D = 256 they would take 64 registers beside the output's 128, so each
+  // k-step reloads its fragment from sQ (which no copy overwrites).
+  constexpr bool kQRegs = D <= 128;
+  uint32_t qf[kQRegs ? D / 16 : 1][4];
   float o[NO][4];
 #pragma unroll
   for (int j = 0; j < NO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
@@ -271,11 +305,12 @@ __global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(
     cp_async_commit();
     cp_async_wait<1>();  // all but the newest group: tile kt (and q) landed
     __syncthreads();
-    if (kt == kt_begin) {
+    if (kQRegs && kt == kt_begin) {
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks)
-        ldmatrix_x4(qf[ks], sQ + (warp * 16 + (lane & 15)) * LD + ks * 16 +
-                                (lane >> 4) * 8);
+        ldmatrix_x4(qf[kQRegs ? ks : 0],
+                    sQ + (warp * 16 + (lane & 15)) * LD + ks * 16 +
+                        (lane >> 4) * 8);
     }
     const __nv_bfloat16* sk = sK + stage * TILE;
     const __nv_bfloat16* sv = sV + stage * TILE;
@@ -286,13 +321,17 @@ __global__ void __launch_bounds__(kMmaThreads) flash_mma_kernel(
     for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < D / 16; ++ks) {
+      const int qs = kQRegs ? ks : 0;
+      if (!kQRegs)
+        ldmatrix_x4(qf[0], sQ + (warp * 16 + (lane & 15)) * LD + ks * 16 +
+                               (lane >> 4) * 8);
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np) {
         uint32_t b[4];
         ldmatrix_x4(b, sk + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD +
                            ks * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qf[ks], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qf[ks], b[2], b[3]);
+        mma_bf16(s[2 * np], qf[qs], b[0], b[1]);
+        mma_bf16(s[2 * np + 1], qf[qs], b[2], b[3]);
       }
     }
 
@@ -411,12 +450,38 @@ int launch_mma(const void* q, const void* k, const void* v,
   return 0;
 }
 
+template <int D>
+int dispatch(const void* q, const void* k, const void* v, const float* sk,
+             void* out, int H, int Hk, int S, int dtype, float scale,
+             int causal, int window, float softcap, cudaStream_t s) {
+  if (dtype == 0)
+    return launch<float, D>(q, k, v, sk, out, H, Hk, S, scale, causal,
+                            window, softcap, s);
+  if (dtype == 1)
+    return launch_mma<D>(q, k, v, sk, out, H, Hk, S, scale, causal, window,
+                         softcap, s);
+  return -1;
+}
+
+template <int D>
+int attrs(int dtype, int* regs, int* local_bytes, int* smem_bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t err =
+      dtype == 0 ? cudaFuncGetAttributes(&a, flash_fwd_kernel<float, D>)
+                 : cudaFuncGetAttributes(&a, flash_mma_kernel<D>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = a.numRegs;
+  *local_bytes = static_cast<int>(a.localSizeBytes);
+  *smem_bytes = dtype == 0 ? f32_smem_bytes<D>() : mma_smem_bytes<D>();
+  return 0;
+}
+
 }  // namespace
 
-// dtype: 0 = f32 (flash_fwd_kernel), 1 = bf16 (flash_mma_kernel). sinks:
-// (H,) f32 or null. scale: the final score scale (the wrapper resolves 0 to
-// 1/sqrt(D)). Returns a cudaError_t, or -1 for arguments the kernel does not
-// take.
+// dtype: 0 = f32 (flash_fwd_kernel), 1 = bf16 (flash_mma_kernel); D is 64,
+// 96, 128 or 256. sinks: (H,) f32 or null. scale: the final score scale (the
+// wrapper resolves 0 to 1/sqrt(D)). Returns a cudaError_t, or -1 for
+// arguments the kernel does not take.
 extern "C" int trackie_flash_attn(const void* q, const void* k, const void* v,
                                   const void* sinks, void* out, int H, int Hk,
                                   int S, int D, int dtype, float scale,
@@ -425,21 +490,42 @@ extern "C" int trackie_flash_attn(const void* q, const void* k, const void* v,
   if (H < 1 || Hk < 1 || H % Hk || S < kBQ || S % kBQ) return -1;
   auto s = static_cast<cudaStream_t>(stream);
   auto* sk = static_cast<const float*>(sinks);
-  int status = 0;
-  if (dtype == 0 && D == 64)
-    launch<float, 64>(q, k, v, sk, out, H, Hk, S, scale, causal, window,
-                      softcap, s);
-  else if (dtype == 0 && D == 128)
-    launch<float, 128>(q, k, v, sk, out, H, Hk, S, scale, causal, window,
-                       softcap, s);
-  else if (dtype == 1 && D == 64)
-    status = launch_mma<64>(q, k, v, sk, out, H, Hk, S, scale, causal,
+  int status;
+  switch (D) {
+    case 64:
+      status = dispatch<64>(q, k, v, sk, out, H, Hk, S, dtype, scale, causal,
                             window, softcap, s);
-  else if (dtype == 1 && D == 128)
-    status = launch_mma<128>(q, k, v, sk, out, H, Hk, S, scale, causal,
-                             window, softcap, s);
-  else
-    return -1;
+      break;
+    case 96:
+      status = dispatch<96>(q, k, v, sk, out, H, Hk, S, dtype, scale, causal,
+                            window, softcap, s);
+      break;
+    case 128:
+      status = dispatch<128>(q, k, v, sk, out, H, Hk, S, dtype, scale,
+                             causal, window, softcap, s);
+      break;
+    case 256:
+      status = dispatch<256>(q, k, v, sk, out, H, Hk, S, dtype, scale,
+                             causal, window, softcap, s);
+      break;
+    default:
+      return -1;
+  }
   if (status != 0) return status;
   return static_cast<int>(cudaGetLastError());
+}
+
+// The registers a thread, the local (spill) bytes a thread and the shared
+// memory bytes a block of the head-dim-D kernel of ``dtype`` (as above).
+// Returns a cudaError_t, or -1 for a D or dtype the kernels do not take.
+extern "C" int trackie_flash_attn_attrs(int D, int dtype, int* regs,
+                                        int* local_bytes, int* smem_bytes) {
+  if (dtype != 0 && dtype != 1) return -1;
+  switch (D) {
+    case 64: return attrs<64>(dtype, regs, local_bytes, smem_bytes);
+    case 96: return attrs<96>(dtype, regs, local_bytes, smem_bytes);
+    case 128: return attrs<128>(dtype, regs, local_bytes, smem_bytes);
+    case 256: return attrs<256>(dtype, regs, local_bytes, smem_bytes);
+    default: return -1;
+  }
 }

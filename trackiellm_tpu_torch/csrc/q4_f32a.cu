@@ -31,7 +31,8 @@
 // and mma.sync.m16n8k16 (bf16 in, f32 accumulate) computes the group dots.
 // Against the bytes at decode: each block streams chunks of packed rows x
 // 128 columns through a cp.async ring (16-byte copies; 4-byte ones where
-// N % 16 != 0 or packed is not 16-byte aligned; zeros past N). The 16-row
+// N % 16 != 0 or packed is not 16-byte aligned; byte loads where N % 4 != 0,
+// common.cuh:copy_row16; zeros past N). The 16-row
 // decode tile takes 64-row chunks in 4 stages and fits four blocks an SM,
 // so up to 96 KB of packed weights are in flight on each SM, and K is split
 // by whole group pairs toward 8 blocks an SM (ops/quant.py:_f32a_plan).
@@ -127,7 +128,7 @@ __global__ void __launch_bounds__(
                        const uint8_t* __restrict__ packed,
                        const float* __restrict__ scales,
                        float* __restrict__ out, int M, int K, int N, int G,
-                       int groups_per_split, int vec16) {
+                       int groups_per_split, int vec) {
   using T = F32aTile<WARPS_M, MT, KC, STAGES>;
   constexpr int kXLD = T::kXLD;
   constexpr int NT = 4;  // n8 tiles a warp owns
@@ -156,17 +157,8 @@ __global__ void __launch_bounds__(
     for (int i = tid; i < KC * (kBN / 16); i += T::kThreads) {
       const int r = i / (kBN / 16), seg = i % (kBN / 16);
       const int n = n0 + 16 * seg;
-      const uint8_t* src = packed + (size_t)(krow + r) * N + n;
-      uint8_t* dst = st + raw_off(r, seg);
-      if (vec16) {
-        cp_async16(dst, n < N ? src : packed, n < N ? 16 : 0);
-      } else {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const bool ok = n + 4 * q < N;
-          cp_async4(dst + 4 * q, ok ? src + 4 * q : packed, ok ? 4 : 0);
-        }
-      }
+      copy_row16(st + raw_off(r, seg), packed + (size_t)(krow + r) * N + n,
+                 packed, n, N, vec);
     }
     // Both x slices: low half (h = 0) at K index krow, high half at
     // K/2 + krow.
@@ -181,16 +173,14 @@ __global__ void __launch_bounds__(
                  m < M ? 16 : 0);
     }
     if (folds(c)) {
-      // Both scale rows of the chunk's group: N and n are multiples of 4,
-      // so a 16-byte copy is either wholly inside a row or wholly past it.
+      // Both scale rows of the chunk's group.
       auto* f = reinterpret_cast<float*>(st + T::kRaw + 2 * T::kX);
       const int g = krow / G;
       for (int i = tid; i < 2 * (kBN / 4); i += T::kThreads) {
         const int h = i / (kBN / 4), c4 = 4 * (i % (kBN / 4));
         const int n = n0 + c4;
-        cp_async16(f + h * kBN + c4,
-                   n < N ? scales + (size_t)(h * ngh + g) * N + n : scales,
-                   n < N ? 16 : 0);
+        copy_scales4(f + h * kBN + c4, scales + (size_t)(h * ngh + g) * N + n,
+                     scales, n, N);
       }
     }
   };
@@ -294,11 +284,9 @@ __global__ void __launch_bounds__(
       if (m >= M) continue;
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj) {
-        const int n = n0 + cb + 16 * jj + 4 * t4;  // N % 4 == 0
-        if (n < N)
-          *reinterpret_cast<float4*>(dst + (size_t)m * N + n) = make_float4(
-              acc[i][2 * jj][2 * er], acc[i][2 * jj + 1][2 * er],
-              acc[i][2 * jj][2 * er + 1], acc[i][2 * jj + 1][2 * er + 1]);
+        store4(dst + (size_t)m * N, n0 + cb + 16 * jj + 4 * t4, N,
+               acc[i][2 * jj][2 * er], acc[i][2 * jj + 1][2 * er],
+               acc[i][2 * jj][2 * er + 1], acc[i][2 * jj + 1][2 * er + 1]);
       }
     }
 }
@@ -306,7 +294,7 @@ __global__ void __launch_bounds__(
 template <int WARPS_M, int MT, int KC, int STAGES, int MIN_BLOCKS>
 int launch_mma(const void* x, const uint8_t* packed, const float* scales,
                float* dst, int M, int K, int N, int G, int splits,
-               int groups_per_split, int vec16, cudaStream_t stream) {
+               int groups_per_split, int vec, cudaStream_t stream) {
   using T = F32aTile<WARPS_M, MT, KC, STAGES>;
   auto* kernel = q4_f32a_mma_kernel<WARPS_M, MT, KC, STAGES, MIN_BLOCKS>;
   static unsigned long long raised = 0;  // devices whose cap is set
@@ -315,7 +303,7 @@ int launch_mma(const void* x, const uint8_t* packed, const float* scales,
   dim3 grid((M + T::BM - 1) / T::BM, (N + kBN - 1) / kBN, splits);
   kernel<<<grid, T::kThreads, T::kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), packed, scales, dst, M, K, N, G,
-      groups_per_split, vec16);
+      groups_per_split, vec);
   return 0;
 }
 
@@ -378,10 +366,9 @@ __global__ void __launch_bounds__(kFmaThreads) q4_f32a_fma_kernel(
       for (int i = tid; i < kFmaKC * (kFmaBN / 4); i += kFmaThreads) {
         const int r = i / (kFmaBN / 4), c = i % (kFmaBN / 4);
         const int n = n0 + c * 4;
-        uint32_t word = 0x88888888u;  // zero in both nibble encodings
-        if (n < N)
-          word = *reinterpret_cast<const uint32_t*>(
-              packed + (size_t)(krow + r) * N + n);
+        // 0x88: zero in both nibble encodings.
+        const uint32_t word = load_word(packed + (size_t)(krow + r) * N + n,
+                                        n, N, 0x88888888u);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const uint32_t b = (word >> (8 * e)) & 0xFFu;
@@ -470,7 +457,7 @@ extern "C" int trackie_q4_f32a(const void* x, const void* packed,
                                int splits, int groups_per_split,
                                void* stream) {
   const int ngh = G > 0 ? K / (2 * G) : 0;  // groups a half
-  if (M < 1 || N < 4 || N % 4 || G < 32 || G % 32 || K % (2 * G) ||
+  if (M < 1 || N < 1 || G < 32 || G % 32 || K % (2 * G) ||
       splits < 1 || groups_per_split < 1 ||
       (long long)(splits - 1) * groups_per_split >= ngh ||
       (long long)splits * groups_per_split < ngh ||
@@ -496,7 +483,7 @@ extern "C" int trackie_q4_f32a(const void* x, const void* packed,
                                     groups_per_split, s);
   } else if (dtype == 1 && (BM == 16 || BM == 64)) {
     if (addr(x) % 16 || addr(scales) % 16 || addr(packed) % 4) return -1;
-    const int vec16 = N % 16 == 0 && addr(packed) % 16 == 0;
+    const int vec = row_vec(N, packed);
     // The tiles (tools/kernel_times.py and PERF.md have the measurements):
     // 64-row chunks where G allows them, else 32-row ones; decode 16 x 128
     // in 4 stages (6 of 32 rows), four blocks an SM; above M = 16, 64 x 128
@@ -504,16 +491,16 @@ extern "C" int trackie_q4_f32a(const void* x, const void* packed,
     const bool kc64 = G % 64 == 0;
     if (BM == 16 && kc64)
       status = launch_mma<1, 1, 64, 4, 4>(x, w, sc, dst, M, K, N, G, splits,
-                                          groups_per_split, vec16, s);
+                                          groups_per_split, vec, s);
     else if (BM == 16)
       status = launch_mma<1, 1, 32, 6, 4>(x, w, sc, dst, M, K, N, G, splits,
-                                          groups_per_split, vec16, s);
+                                          groups_per_split, vec, s);
     else if (kc64)
       status = launch_mma<2, 2, 64, 4, 2>(x, w, sc, dst, M, K, N, G, splits,
-                                          groups_per_split, vec16, s);
+                                          groups_per_split, vec, s);
     else
       status = launch_mma<2, 2, 32, 6, 2>(x, w, sc, dst, M, K, N, G, splits,
-                                          groups_per_split, vec16, s);
+                                          groups_per_split, vec, s);
   } else {
     return -1;
   }

@@ -31,7 +31,9 @@
 // past M) beside each weight chunk. The two paths agree bit for bit. Both s8
 // operands must be K-contiguous, and the packed weight is N-contiguous, so
 // each block streams 32 packed rows x 128 columns at a time through a
-// 5-stage cp.async ring (16-byte copies; xq's two 32-byte row slices of the
+// 5-stage cp.async ring (16-byte copies; 4-byte ones where N % 16 != 0, and
+// byte loads where N % 4 != 0, as Granite's lm_head of 49,155 columns,
+// common.cuh:copy_row16; xq's two 32-byte row slices of the
 // chunk ride in the same stage, and so do a group's scale rows and its
 // rows' sx and sxsum in the group's last chunk), then splits the nibbles
 // and transposes 4x4 byte blocks with __byte_perm into K-major lo and hi
@@ -228,7 +230,7 @@ __global__ void __launch_bounds__(Tile<WARPS_M, MT>::kThreads, MIN_BLOCKS)
                    const uint8_t* __restrict__ packed,
                    const float* __restrict__ scales,
                    float* __restrict__ out, int M, int K, int N, int G,
-                   int groups_per_split, int vec16) {
+                   int groups_per_split, int vec) {
   using T = Tile<WARPS_M, MT>;
   static_assert(!WG || (WARPS_M == 2 && MT == 2), "wgmma tiles are 64 x 128");
   constexpr int R = WG ? 1 : MT;   // m16 slabs a thread's fragment spans
@@ -259,17 +261,8 @@ __global__ void __launch_bounds__(Tile<WARPS_M, MT>::kThreads, MIN_BLOCKS)
     for (int i = tid; i < kKC * (kBN / 16); i += T::kThreads) {
       const int r = i / (kBN / 16), ch = i % (kBN / 16);
       const int n = n0 + ch * 16;
-      const uint8_t* src = packed + (size_t)(krow + r) * N + n;
-      uint8_t* dst = st + raw_off(r, ch);
-      if (vec16) {
-        cp_async16(dst, n < N ? src : packed, n < N ? 16 : 0);
-      } else {
-#pragma unroll
-        for (int w = 0; w < 4; ++w) {
-          const bool ok = n + 4 * w < N;
-          cp_async4(dst + 4 * w, ok ? src + 4 * w : packed, ok ? 4 : 0);
-        }
-      }
+      copy_row16(st + raw_off(r, ch), packed + (size_t)(krow + r) * N + n,
+                 packed, n, N, vec);
     }
     uint8_t* xs = st + T::kRaw;
     for (int i = tid; i < 2 * T::BM * 2; i += T::kThreads) {
@@ -283,15 +276,14 @@ __global__ void __launch_bounds__(Tile<WARPS_M, MT>::kThreads, MIN_BLOCKS)
                  m < M ? src : xq, m < M ? 16 : 0);
     }
     if (cc == cpg - 1) {
-      // The fold operands: scale rows g and ngh + g (16-byte copies; N and
-      // n are multiples of 4), then sx lo, sx hi and sxsum lo per row.
+      // The fold operands: scale rows g and ngh + g, then sx lo, sx hi and
+      // sxsum lo per row.
       float* f = reinterpret_cast<float*>(st + T::kRaw + 2 * T::kX);
       for (int i = tid; i < kBN / 2 + 3 * T::BM; i += T::kThreads) {
         if (i < kBN / 2) {
           const int h = i / (kBN / 4), n = n0 + 4 * (i % (kBN / 4));
-          cp_async16(f + h * kBN + 4 * (i % (kBN / 4)),
-                     n < N ? scales + (size_t)(h * ngh + g) * N + n : scales,
-                     n < N ? 16 : 0);
+          copy_scales4(f + h * kBN + 4 * (i % (kBN / 4)),
+                       scales + (size_t)(h * ngh + g) * N + n, scales, n, N);
         } else {
           const int j = i - kBN / 2;
           const int which = j / T::BM, r = j % T::BM, m = m0 + r;
@@ -477,10 +469,8 @@ __global__ void __launch_bounds__(Tile<WARPS_M, MT>::kThreads, MIN_BLOCKS)
       if (m >= M) continue;
 #pragma unroll
       for (int b = 0; b < C; ++b) {
-        const int n = n0 + cb + b * 8 + 2 * t4;  // even; N % 4 == 0
-        if (n < N)
-          *reinterpret_cast<float2*>(dst + (size_t)m * N + n) =
-              make_float2(acc[a][b][2 * er], acc[a][b][2 * er + 1]);
+        store2(dst + (size_t)m * N, n0 + cb + b * 8 + 2 * t4, N,
+               acc[a][b][2 * er], acc[a][b][2 * er + 1]);
       }
     }
 }
@@ -488,7 +478,7 @@ __global__ void __launch_bounds__(Tile<WARPS_M, MT>::kThreads, MIN_BLOCKS)
 template <int WARPS_M, int MT, int MIN_BLOCKS, bool WG>
 int launch(const int8_t* xq, const float* sx, const float* sxsum,
            const uint8_t* packed, const float* scales, float* dst, int M,
-           int K, int N, int G, int splits, int groups_per_split, int vec16,
+           int K, int N, int G, int splits, int groups_per_split, int vec,
            cudaStream_t stream) {
   using T = Tile<WARPS_M, MT>;
   static unsigned long long raised = 0;  // devices whose cap is set
@@ -499,7 +489,7 @@ int launch(const int8_t* xq, const float* sx, const float* sxsum,
   q4_w4a8_kernel<WARPS_M, MT, MIN_BLOCKS, WG>
       <<<grid, T::kThreads, T::kSmem, stream>>>(
           xq, sx, sxsum, packed, scales, dst, M, K, N, G, groups_per_split,
-          vec16);
+          vec);
   return 0;
 }
 
@@ -547,7 +537,7 @@ extern "C" int trackie_q4_w4a8(const void* xq, const void* sx,
                                const void* scales, void* out, void* partial,
                                int M, int K, int N, int G, int BM, int splits,
                                int groups_per_split, void* stream) {
-  if (M < 1 || N < 4 || N % 4 || G % kKC || K % (2 * G) || splits < 1 ||
+  if (M < 1 || N < 1 || G % kKC || K % (2 * G) || splits < 1 ||
       groups_per_split < 1 || (splits > 1 && partial == nullptr) ||
       reinterpret_cast<uintptr_t>(packed) % 16 ||
       reinterpret_cast<uintptr_t>(scales) % 16)
@@ -559,16 +549,16 @@ extern "C" int trackie_q4_w4a8(const void* xq, const void* sx,
   auto* w = static_cast<const uint8_t*>(packed);
   auto* sc = static_cast<const float*>(scales);
   float* dst = static_cast<float*>(splits > 1 ? partial : out);
-  const int vec16 = N % 16 == 0;
+  const int vec = row_vec(N, packed);
   int status;
   switch (BM) {
     case 16:
       status = launch<1, 1, 4, false>(x, a, b, w, sc, dst, M, K, N, G,
-                                      splits, groups_per_split, vec16, s);
+                                      splits, groups_per_split, vec, s);
       break;
     case 64:
       status = launch<2, 2, 2, true>(x, a, b, w, sc, dst, M, K, N, G,
-                                     splits, groups_per_split, vec16, s);
+                                     splits, groups_per_split, vec, s);
       break;
     default:
       return -1;

@@ -25,7 +25,8 @@
 // and folds, times the scale row, into a second set after its last chunk.
 // Against the bytes at decode: each block streams chunks of K rows x 128
 // columns of W through a cp.async ring (16-byte copies; 4-byte ones where
-// N % 16 != 0 or W is not 16-byte aligned; zeros past N); the 16-row decode
+// N % 16 != 0 or W is not 16-byte aligned; byte loads where N % 4 != 0,
+// common.cuh:copy_row16; zeros past N); the 16-row decode
 // tile takes 32-row chunks in 5 stages and fits four blocks an SM, so 64 KB
 // of weights are in flight on each SM, and K is split into many short
 // blocks (ops/quant.py:_q8_plan), so that the last wave leaves few SMs
@@ -117,7 +118,7 @@ __global__ void __launch_bounds__(Q8Tile<WARPS_M, MT, KC, STAGES>::kThreads,
                   const int8_t* __restrict__ w,
                   const float* __restrict__ scales, float* __restrict__ out,
                   int M, int K, int N, int G, int groups_per_split,
-                  int vec16) {
+                  int vec) {
   using T = Q8Tile<WARPS_M, MT, KC, STAGES>;
   constexpr int kXLD = T::kXLD;
   constexpr int NT = 4;  // n8 tiles a warp owns
@@ -145,17 +146,8 @@ __global__ void __launch_bounds__(Q8Tile<WARPS_M, MT, KC, STAGES>::kThreads,
     for (int i = tid; i < KC * (kBN / 16); i += T::kThreads) {
       const int r = i / (kBN / 16), seg = i % (kBN / 16);
       const int n = n0 + 16 * seg;
-      const int8_t* src = w + (size_t)(k0 + r) * N + n;
-      uint8_t* dst = st + raw_off(r, seg);
-      if (vec16) {
-        cp_async16(dst, n < N ? src : w, n < N ? 16 : 0);
-      } else {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const bool ok = n + 4 * q < N;
-          cp_async4(dst + 4 * q, ok ? src + 4 * q : w, ok ? 4 : 0);
-        }
-      }
+      copy_row16(st + raw_off(r, seg), w + (size_t)(k0 + r) * N + n, w, n,
+                 N, vec);
     }
     auto* xs = reinterpret_cast<__nv_bfloat16*>(st + T::kRaw);
     for (int i = tid; i < T::BM * (KC / 8); i += T::kThreads) {
@@ -165,13 +157,11 @@ __global__ void __launch_bounds__(Q8Tile<WARPS_M, MT, KC, STAGES>::kThreads,
                  m < M ? x + (size_t)m * K + k0 + 8 * seg : x, m < M ? 16 : 0);
     }
     if (cc == cpg - 1) {
-      // The scale row: N and n are multiples of 4, so a 16-byte copy is
-      // either wholly inside the row or wholly past it.
+      // The scale row.
       auto* f = reinterpret_cast<float*>(st + T::kRaw + T::kX);
       for (int i = tid; i < kBN / 4; i += T::kThreads) {
         const int n = n0 + 4 * i;
-        cp_async16(f + 4 * i, n < N ? scales + (size_t)g * N + n : scales,
-                   n < N ? 16 : 0);
+        copy_scales4(f + 4 * i, scales + (size_t)g * N + n, scales, n, N);
       }
     }
   };
@@ -280,10 +270,8 @@ __global__ void __launch_bounds__(Q8Tile<WARPS_M, MT, KC, STAGES>::kThreads,
       if (m >= M) continue;
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        const int n = n0 + cb + 8 * j + 2 * t4;  // even; N % 4 == 0
-        if (n < N)
-          *reinterpret_cast<float2*>(dst + (size_t)m * N + n) =
-              make_float2(acc[i][j][2 * er], acc[i][j][2 * er + 1]);
+        store2(dst + (size_t)m * N, n0 + cb + 8 * j + 2 * t4, N,
+               acc[i][j][2 * er], acc[i][j][2 * er + 1]);
       }
     }
 }
@@ -291,7 +279,7 @@ __global__ void __launch_bounds__(Q8Tile<WARPS_M, MT, KC, STAGES>::kThreads,
 template <int WARPS_M, int MT, int KC, int STAGES, int MIN_BLOCKS>
 int launch_mma(const void* x, const int8_t* w, const float* scales,
                float* dst, int M, int K, int N, int G, int splits,
-               int groups_per_split, int vec16, cudaStream_t stream) {
+               int groups_per_split, int vec, cudaStream_t stream) {
   using T = Q8Tile<WARPS_M, MT, KC, STAGES>;
   auto* kernel = q8_mma_kernel<WARPS_M, MT, KC, STAGES, MIN_BLOCKS>;
   static unsigned long long raised = 0;  // devices whose cap is set
@@ -300,7 +288,7 @@ int launch_mma(const void* x, const int8_t* w, const float* scales,
   dim3 grid((M + T::BM - 1) / T::BM, (N + kBN - 1) / kBN, splits);
   kernel<<<grid, T::kThreads, T::kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), w, scales, dst, M, K, N, G,
-      groups_per_split, vec16);
+      groups_per_split, vec);
   return 0;
 }
 
@@ -353,13 +341,11 @@ __global__ void __launch_bounds__(kFmaThreads) q8_fma_kernel(
       for (int i = tid; i < kFmaKC * (kFmaBN / 4); i += kFmaThreads) {
         const int r = i / (kFmaBN / 4), c = i % (kFmaBN / 4);
         const int n = n0 + c * 4;
-        char4 q = make_char4(0, 0, 0, 0);
-        if (n < N)
-          q = *reinterpret_cast<const char4*>(w + (size_t)(k0 + r) * N + n);
-        sW[r][c * 4 + 0] = static_cast<float>(q.x);
-        sW[r][c * 4 + 1] = static_cast<float>(q.y);
-        sW[r][c * 4 + 2] = static_cast<float>(q.z);
-        sW[r][c * 4 + 3] = static_cast<float>(q.w);
+        const uint32_t q = load_word(w + (size_t)(k0 + r) * N + n, n, N, 0u);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sW[r][c * 4 + e] = static_cast<float>(
+              static_cast<int8_t>((q >> (8 * e)) & 0xFFu));
       }
       __syncthreads();
 #pragma unroll 8
@@ -423,7 +409,7 @@ extern "C" int trackie_q8_matmul(const void* x, const void* values,
                                  int M, int K, int N, int G, int dtype, int BM,
                                  int splits, int groups_per_split,
                                  void* stream) {
-  if (M < 1 || N < 4 || N % 4 || G < 32 || G % 32 || K % G || splits < 1 ||
+  if (M < 1 || N < 1 || G < 32 || G % 32 || K % G || splits < 1 ||
       groups_per_split < 1 || (splits > 1 && partial == nullptr))
     return -1;
   auto s = static_cast<cudaStream_t>(stream);
@@ -445,20 +431,20 @@ extern "C" int trackie_q8_matmul(const void* x, const void* values,
                                   groups_per_split, s);
   } else if (dtype == 1 && (BM == 16 || BM == 64)) {
     if (addr(x) % 16 || addr(scales) % 16 || addr(values) % 4) return -1;
-    const int vec16 = N % 16 == 0 && addr(values) % 16 == 0;
+    const int vec = row_vec(N, values);
     // The tiles (tools/kernel_times.py and PERF.md have the measurements):
     // decode 16 x 128 in 32-row chunks, 5 stages, four blocks an SM; above
     // M = 16, 64 x 128 in 64-row chunks (half the barriers of 32), 4
     // stages, two blocks an SM, or 32-row chunks where G % 64 != 0.
     if (BM == 16)
       status = launch_mma<1, 1, 32, 5, 4>(x, w, sc, dst, M, K, N, G, splits,
-                                          groups_per_split, vec16, s);
+                                          groups_per_split, vec, s);
     else if (G % 64 == 0)
       status = launch_mma<2, 2, 64, 4, 2>(x, w, sc, dst, M, K, N, G, splits,
-                                          groups_per_split, vec16, s);
+                                          groups_per_split, vec, s);
     else
       status = launch_mma<2, 2, 32, 5, 2>(x, w, sc, dst, M, K, N, G, splits,
-                                          groups_per_split, vec16, s);
+                                          groups_per_split, vec, s);
   } else {
     return -1;
   }

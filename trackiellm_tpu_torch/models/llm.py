@@ -1,18 +1,27 @@
-"""Mistral-7B-class decoder-only transformer, in PyTorch.
+"""Dense decoder-only transformers, in PyTorch.
 
-Port of the Mistral slice of ``trackiellm_tpu/models/llm.py``: RMSNorm,
-split-half rotary embeddings, grouped-query attention with an optional
-sliding window, SwiGLU MLP, Q4/Q8 group-quantized or dense weights, and a
-KV cache in the reference's (L, S_max, Hk, D) layout, and the batched
-serving functions (``prefill_batch``, ``BatchedKVCache``,
-``insert_sequence``, ``decode_step_batch``, ``decode_steps_batch``) that
-``llm/server.py`` and ``llm/paging.py`` drive.
+Port of the dense families of ``trackiellm_tpu/models/llm.py``: Mistral,
+Llama-3.x, Qwen2/3, Phi-3, Granite, GLM-4, Gemma-2/3, OLMo-2, SmolLM3 and the
+GGUF-only Command-R, Nemotron and StarCoder2 knob sets. RMS or LayerNorm
+(with an optional bias, pre-norms, sandwich or post-only placement),
+split-half rotary embeddings (partial rotary, static or longrope factors,
+Gemma-3's dual base, NoPE layers), grouped-query attention with per-layer
+sliding windows, a query scale and a softcap, QK norms, gated or plain MLPs
+(SwiGLU, GeGLU, GELU, squared ReLU) with biases, Granite's residual
+multiplier, Command-R's parallel residual and the final logit softcap. Q4/Q8
+group-quantized or dense weights, a KV cache in the reference's (L, S_max,
+Hk, D) layout, and the batched serving functions (``prefill_batch``,
+``BatchedKVCache``, ``insert_sequence``, ``decode_step_batch``,
+``decode_steps_batch``) that ``llm/server.py`` and ``llm/paging.py`` drive.
 
 Parameters keep the JAX pytree layout (stacked ``(L, ...)`` layer tensors,
-fused ``wqkv`` and ``w_gu``), so ``models/bridge.py`` maps the JAX
-package's params onto these byte for byte. The reference's ``lax.scan``
-over layers is a Python loop over per-layer views of the stacked tensors.
-Configs that set knobs of other model families raise NotImplementedError.
+fused ``wqkv`` and ``w_gu``, LayerNorms with a bias as ``{"g", "b"}``
+dicts), so ``models/bridge.py`` maps the JAX package's params onto these
+byte for byte. The reference's ``lax.scan`` over layers is a Python loop
+over per-layer views of the stacked tensors, so each layer's window, rope
+and norms are chosen on the host. Configs that set the knobs of the MoE,
+gpt-oss, Llama-4 or Falcon families raise NotImplementedError
+(:func:`check_supported`).
 """
 
 from __future__ import annotations
@@ -44,8 +53,8 @@ from trackiellm_tpu_torch.ops.quant import (
 
 class LLMConfig(NamedTuple):
     """Field names and defaults of ``trackiellm_tpu.models.llm.LLMConfig``,
-    so ``LLMConfig(**jax_cfg._asdict())`` works. Only the Mistral knob set
-    is supported (see :func:`check_supported`)."""
+    so ``LLMConfig(**jax_cfg._asdict())`` works; the knobs are documented
+    there. The dense knob sets are supported (see :func:`check_supported`)."""
 
     vocab_size: int = 32000
     dim: int = 4096
@@ -108,6 +117,120 @@ class LLMConfig(NamedTuple):
         return cls()
 
     @classmethod
+    def llama3_8b(cls) -> "LLMConfig":
+        """Llama-3-8B; Llama-3.1's rope scaling rides in as
+        ``params["rope_factors"]`` (:func:`llama3_rope_factors`)."""
+        return cls(vocab_size=128256, dim=4096, n_layers=32, n_heads=32,
+                   n_kv_heads=8, head_dim=128, hidden_dim=14336,
+                   rope_theta=500000.0, max_seq=8192, sliding_window=8192)
+
+    @classmethod
+    def qwen2_7b(cls) -> "LLMConfig":
+        return cls(vocab_size=152064, dim=3584, n_layers=28, n_heads=28,
+                   n_kv_heads=4, head_dim=128, hidden_dim=18944,
+                   rope_theta=1e6, max_seq=8192, sliding_window=8192,
+                   qkv_bias=True)
+
+    @classmethod
+    def phi3_mini(cls) -> "LLMConfig":
+        """Phi-3-mini-4k; the 128k longrope variants ride in as
+        ``rope_factors_short``/``rope_factors_long`` params and
+        ``rope_original_max_seq``."""
+        return cls(vocab_size=32064, dim=3072, n_layers=32, n_heads=32,
+                   n_kv_heads=32, head_dim=96, hidden_dim=8192,
+                   rope_theta=10000.0, max_seq=4096,
+                   sliding_window=2047)
+
+    @classmethod
+    def granite3_8b(cls) -> "LLMConfig":
+        return cls(vocab_size=49155, dim=4096, n_layers=40, n_heads=32,
+                   n_kv_heads=8, head_dim=128, hidden_dim=12800,
+                   rope_theta=1e7, max_seq=8192, sliding_window=8192,
+                   residual_multiplier=0.22,
+                   query_pre_attn_scalar=float(128 ** 2))
+
+    @classmethod
+    def glm4_9b(cls) -> "LLMConfig":
+        return cls(vocab_size=151552, dim=4096, n_layers=40, n_heads=32,
+                   n_kv_heads=2, head_dim=128, hidden_dim=13696,
+                   rope_theta=10000.0, max_seq=8192, sliding_window=8192,
+                   qkv_bias=True, post_norms=True,
+                   partial_rotary_factor=0.5)
+
+    @classmethod
+    def gemma2_2b(cls) -> "LLMConfig":
+        return cls(vocab_size=256000, dim=2304, n_layers=26, n_heads=8,
+                   n_kv_heads=4, head_dim=256, hidden_dim=9216,
+                   norm_eps=1e-6, rope_theta=10000.0, max_seq=8192,
+                   sliding_window=4096, act="gelu", post_norms=True,
+                   attn_softcap=50.0, logit_softcap=30.0,
+                   query_pre_attn_scalar=256.0, alt_window=True)
+
+    @classmethod
+    def gemma2_9b(cls) -> "LLMConfig":
+        return cls(vocab_size=256000, dim=3584, n_layers=42, n_heads=16,
+                   n_kv_heads=8, head_dim=256, hidden_dim=14336,
+                   norm_eps=1e-6, rope_theta=10000.0, max_seq=8192,
+                   sliding_window=4096, act="gelu", post_norms=True,
+                   attn_softcap=50.0, logit_softcap=30.0,
+                   query_pre_attn_scalar=256.0, alt_window=True)
+
+    @classmethod
+    def gemma3_1b(cls) -> "LLMConfig":
+        return cls(vocab_size=262144, dim=1152, n_layers=26, n_heads=4,
+                   n_kv_heads=1, head_dim=256, hidden_dim=6912,
+                   norm_eps=1e-6, rope_theta=1e6, max_seq=32768,
+                   sliding_window=512, act="gelu", post_norms=True,
+                   query_pre_attn_scalar=256.0, qk_norm=True,
+                   window_pattern=6, rope_local_theta=10000.0)
+
+    @classmethod
+    def gemma3_4b(cls) -> "LLMConfig":
+        """Gemma-3-4B (text tower); pair with
+        ``params["rope_factors"] = linear_rope_factors(cfg, 8.0)``."""
+        return cls(vocab_size=262208, dim=2560, n_layers=34, n_heads=8,
+                   n_kv_heads=4, head_dim=256, hidden_dim=10240,
+                   norm_eps=1e-6, rope_theta=1e6, max_seq=131072,
+                   sliding_window=1024, act="gelu", post_norms=True,
+                   query_pre_attn_scalar=256.0, qk_norm=True,
+                   window_pattern=6, rope_local_theta=10000.0)
+
+    @classmethod
+    def gemma3_12b(cls) -> "LLMConfig":
+        return cls.gemma3_4b()._replace(
+            dim=3840, n_layers=48, n_heads=16, n_kv_heads=8,
+            hidden_dim=15360)
+
+    @classmethod
+    def gemma3_27b(cls) -> "LLMConfig":
+        return cls.gemma3_4b()._replace(
+            dim=5376, n_layers=62, n_heads=32, n_kv_heads=16,
+            head_dim=128, hidden_dim=21504,
+            query_pre_attn_scalar=168.0)
+
+    @classmethod
+    def olmo2_7b(cls) -> "LLMConfig":
+        return cls(vocab_size=100352, dim=4096, n_layers=32, n_heads=32,
+                   n_kv_heads=32, head_dim=128, hidden_dim=11008,
+                   norm_eps=1e-6, rope_theta=500000.0, max_seq=4096,
+                   sliding_window=4096, pre_norms=False, post_norms=True,
+                   qk_norm_full=True)
+
+    @classmethod
+    def smollm3_3b(cls) -> "LLMConfig":
+        return cls(vocab_size=128256, dim=2048, n_layers=36, n_heads=16,
+                   n_kv_heads=4, head_dim=128, hidden_dim=11008,
+                   norm_eps=1e-6, rope_theta=5e6, max_seq=65536,
+                   sliding_window=65536, nope_pattern=4)
+
+    @classmethod
+    def qwen3_8b(cls) -> "LLMConfig":
+        return cls(vocab_size=151936, dim=4096, n_layers=36, n_heads=32,
+                   n_kv_heads=8, head_dim=128, hidden_dim=12288,
+                   norm_eps=1e-6, rope_theta=1e6, max_seq=32768,
+                   sliding_window=32768, qk_norm=True)
+
+    @classmethod
     def tiny(cls) -> "LLMConfig":
         """Small config for tests."""
         return cls(vocab_size=512, dim=256, n_layers=2, n_heads=4,
@@ -115,43 +238,45 @@ class LLMConfig(NamedTuple):
                    sliding_window=256)
 
 
-# Knobs of other model families and the only value this slice runs. Knobs
-# read only under one of these (MoE routing details, temperature-tuning
-# constants, act_limit) are inert at these values, as in the reference.
-_MISTRAL_KNOBS = {
-    "qkv_bias": False, "act": "silu", "post_norms": False,
-    "pre_norms": True, "attn_softcap": 0.0, "logit_softcap": 0.0,
-    "query_pre_attn_scalar": 0.0, "residual_multiplier": 1.0,
-    "partial_rotary_factor": 1.0, "qk_l2norm": False,
-    "attn_temp_tuning": False, "attn_chunk": 0, "moe_pattern": 0,
-    "moe_first_dense": 0, "norm_type": "rms", "parallel_residual": False,
-    "parallel_mlp_norm": False, "mlp_gated": True, "mlp_bias": False,
-    "alt_window": False, "window_pattern": 0, "rope_local_theta": 0.0,
-    "nope_pattern": 0, "rope_original_max_seq": 0,
-    "rope_attention_factor": 1.0, "n_experts": 0, "qk_norm": False,
-    "qk_norm_full": False, "attn_sinks": False, "out_bias": False,
-    "moe_bias": False,
+# The dense presets, by their JAX package names.
+DENSE_PRESETS = ("mistral_7b", "llama3_8b", "qwen2_7b", "phi3_mini",
+                 "granite3_8b", "glm4_9b", "gemma2_2b", "gemma2_9b",
+                 "gemma3_1b", "gemma3_4b", "gemma3_12b", "gemma3_27b",
+                 "olmo2_7b", "smollm3_3b", "qwen3_8b")
+
+# Knobs of the families still waiting (MoE, gpt-oss, Llama-4, Falcon) and
+# the value at which each is inert. gpt-oss's output bias is not among them:
+# StarCoder2 has one too. Knobs read only under one of these
+# (n_experts_used, act_limit, the temperature-tuning constants) stay inert.
+_WAITING_KNOBS = {
+    "n_experts": 0, "moe_scale_input": False, "moe_pattern": 0,
+    "moe_first_dense": 0, "moe_norm_topk": True, "moe_shared_hidden": 0,
+    "moe_routed_scale": 1.0, "moe_shared_gated": True, "moe_n_groups": 1,
+    "moe_topk_groups": 1, "moe_score_func": "softmax",
+    "moe_group_score": "max", "moe_bias": False, "attn_sinks": False,
+    "qk_l2norm": False, "attn_temp_tuning": False, "attn_chunk": 0,
+    "parallel_mlp_norm": False,
 }
 
 
 def check_supported(cfg: LLMConfig,
                     params: Optional[Dict[str, Any]] = None) -> None:
-    """Raise NotImplementedError naming the first knob outside the Mistral
-    set (ROADMAP Queue 1 item 11 ports the other families)."""
-    for name, value in _MISTRAL_KNOBS.items():
+    """Raise NotImplementedError naming the first knob of a family that is
+    not ported yet (ROADMAP Queue 1, ID 11: the MoE families, gpt-oss,
+    Llama-4 and Falcon)."""
+    del params  # every dense leaf (rope factors included) is ported
+    for name, value in _WAITING_KNOBS.items():
         if getattr(cfg, name) != value:
             raise NotImplementedError(
-                f"LLMConfig.{name}={getattr(cfg, name)!r}: only the Mistral "
-                f"knob set is ported ({name}={value!r}); other families wait "
-                "for ROADMAP Queue 1 item 11")
+                f"LLMConfig.{name}={getattr(cfg, name)!r}: the knobs of the "
+                "MoE, gpt-oss, Llama-4 and Falcon families are not ported "
+                f"yet ({name}={value!r} runs; ROADMAP Queue 1, ID 11)")
+    if cfg.act == "gptoss":
+        raise NotImplementedError(
+            "LLMConfig.act='gptoss' (gpt-oss's clamped SwiGLU) is not ported "
+            "yet (ROADMAP Queue 1, ID 11)")
     if cfg.n_heads % cfg.n_kv_heads:
         raise ValueError("n_heads must be a multiple of n_kv_heads")
-    if params is not None:
-        for name in ("rope_factors", "rope_factors_short", "rope_factors_long"):
-            if name in params:
-                raise NotImplementedError(
-                    f"params[{name!r}] (rope scaling) is not ported yet "
-                    "(ROADMAP Queue 1 item 11)")
 
 
 # ---------------------------------------------------------------------------
@@ -163,26 +288,61 @@ def _shapes(cfg: LLMConfig) -> Dict[str, Tuple[int, int]]:
     qd = cfg.n_heads * cfg.head_dim
     kvd = cfg.n_kv_heads * cfg.head_dim
     return {"wqkv": (d, qd + 2 * kvd), "wo": (qd, d),
-            "w_gu": (d, 2 * h), "w_down": (h, d)}
+            "w_gu": (d, 2 * h if cfg.mlp_gated else h), "w_down": (h, d)}
+
+
+def _family_leaves(cfg: LLMConfig, normal, dtype, device) -> Dict[str, Any]:
+    """The per-layer leaves besides the four matrices and the two pre-norms
+    (the JAX package's ``init_params``): QKV and output biases, sandwich
+    norms, QK norms and, for ``mlp_bias``, the MLP biases. ``normal(shape)`` gives
+    f32 standard normals."""
+    l, d = cfg.n_layers, cfg.dim
+    qd = cfg.n_heads * cfg.head_dim
+    kvd = cfg.n_kv_heads * cfg.head_dim
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+    out: Dict[str, Any] = {}
+    if cfg.qkv_bias:
+        out["wqkv_bias"] = (normal((l, qd + 2 * kvd)) * 0.02).to(dtype)
+    if cfg.post_norms:
+        out["attn_post_norm"] = ones(l, d)
+        out["mlp_post_norm"] = ones(l, d)
+    if cfg.qk_norm:
+        out["q_norm"] = ones(l, cfg.head_dim)
+        out["k_norm"] = ones(l, cfg.head_dim)
+    elif cfg.qk_norm_full:
+        out["q_norm"] = ones(l, qd)
+        out["k_norm"] = ones(l, kvd)
+    if cfg.out_bias:
+        out["wo_bias"] = (normal((l, d)) * 0.02).to(dtype)
+    if cfg.mlp_bias:
+        out["w_gu_b"] = (normal((l, _shapes(cfg)["w_gu"][1])) * 0.02).to(dtype)
+        out["w_down_b"] = (normal((l, d)) * 0.02).to(dtype)
+    return out
 
 
 def init_params(generator: torch.Generator, cfg: LLMConfig,
                 dtype: torch.dtype = torch.bfloat16,
                 device: Optional[torch.device] = None) -> Dict[str, Any]:
-    """Random dense params in the reference's layout (stacked layers).
-    ``generator`` must live on ``device``."""
+    """Random dense params in the reference's layout (stacked layers), with
+    the leaves the config's family reads. ``generator`` must live on
+    ``device``."""
     check_supported(cfg)
     d, l = cfg.dim, cfg.n_layers
 
+    def normal(shape):
+        return torch.randn(shape, generator=generator, device=device)
+
     def w(*shape, scale=None):
         scale = scale or 1.0 / math.sqrt(shape[-2])
-        return (torch.randn(shape, generator=generator, device=device)
-                * scale).to(dtype)
+        return (normal(shape) * scale).to(dtype)
 
     layers = {"attn_norm": torch.ones((l, d), dtype=dtype, device=device),
               "mlp_norm": torch.ones((l, d), dtype=dtype, device=device)}
     for name, (kk, nn) in _shapes(cfg).items():
         layers[name] = w(l, kk, nn)
+    layers.update(_family_leaves(cfg, normal, dtype, device))
     return {
         "tok_emb": w(cfg.vocab_size, d, scale=0.02),
         "layers": layers,
@@ -199,8 +359,8 @@ def _stack_quantized(mats, quantize, group: int) -> QuantizedLinear:
 
 def quantize_params(params: Dict[str, Any], bits: int = 4,
                     group: int = 256) -> Dict[str, Any]:
-    """Quantize the per-layer matrices and lm_head (Q4 or Q8); embeddings
-    and norms keep their dtype."""
+    """Quantize the per-layer matrices and lm_head (Q4 or Q8); embeddings,
+    norms, biases and rope factors keep their dtype."""
     quantize = quantize_q4 if bits == 4 else quantize_q8
     out = dict(params)
     layers = dict(params["layers"])
@@ -217,15 +377,18 @@ def init_params_quantized(generator: torch.Generator, cfg: LLMConfig,
                           device: Optional[torch.device] = None
                           ) -> Dict[str, Any]:
     """Random params straight into quantized form, one (K, N) matrix at a
-    time, so peak memory is one f32 matrix beside the quantized model.
-    ``generator`` must live on ``device``."""
+    time, so peak memory is one f32 matrix beside the quantized model; the
+    layout of :func:`quantize_params` of :func:`init_params`. ``generator``
+    must live on ``device``."""
     check_supported(cfg)
     quantize = quantize_q4 if bits == 4 else quantize_q8
     d, l = cfg.dim, cfg.n_layers
 
+    def normal(shape):
+        return torch.randn(shape, generator=generator, device=device)
+
     def build_one(kk, nn):
-        w = torch.randn((kk, nn), generator=generator, device=device)
-        return quantize(w / math.sqrt(kk), group)
+        return quantize(normal((kk, nn)) / math.sqrt(kk), group)
 
     layers: Dict[str, Any] = {
         "attn_norm": torch.ones((l, d), dtype=dtype, device=device),
@@ -242,8 +405,8 @@ def init_params_quantized(generator: torch.Generator, cfg: LLMConfig,
             q = build_one(kk, nn)
             values[i], scales[i] = q.values, q.scales
         layers[name] = QuantizedLinear(values=values, scales=scales)
-    tok_emb = (torch.randn((cfg.vocab_size, d), generator=generator,
-                           device=device) * 0.02).to(dtype)
+    layers.update(_family_leaves(cfg, normal, dtype, device))
+    tok_emb = (normal((cfg.vocab_size, d)) * 0.02).to(dtype)
     return {
         "tok_emb": tok_emb,
         "layers": layers,
@@ -265,11 +428,14 @@ def params_to(params: Any, device: torch.device) -> Any:
 
 
 def _layer(layers: Dict[str, Any], li: int) -> Dict[str, Any]:
-    """Layer ``li``'s view of the stacked layer params (no copies)."""
+    """Layer ``li``'s view of the stacked layer params (no copies); a
+    LayerNorm's ``{"g", "b"}`` dict gives a dict of views."""
     out = {}
     for name, w in layers.items():
         if isinstance(w, QuantizedLinear):
             out[name] = QuantizedLinear(w.values[li], w.scales[li])
+        elif isinstance(w, dict):
+            out[name] = _layer(w, li)
         else:
             out[name] = w[li]
     return out
@@ -308,50 +474,230 @@ def _rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (x32 * torch.rsqrt(ms + eps)).to(x.dtype) * scale
 
 
-def _act_combine(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
-    """SwiGLU (f32 in and out)."""
-    return F.silu(gate) * up
+def _layer_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """f32 mean-subtracting norm over the last axis with the population
+    variance, cast to x's dtype (no weight). On the card it is PyTorch's
+    fused LayerNorm, a row's reduction in a block of its own, so a row's
+    bits do not depend on the row count (as :func:`_rms_norm`)."""
+    x32 = x.float()
+    if is_cuda(x):
+        return F.layer_norm(x32, (x.shape[-1],), eps=eps).to(x.dtype)
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
-def _mlp_block(x: torch.Tensor, norm_scale: torch.Tensor, w_gu, w_down,
-               eps: float) -> torch.Tensor:
-    """norm -> gate/up -> silu(gate) * up -> down -> + residual.
+def _norm(x: torch.Tensor, p, eps: float, kind: str = "rms") -> torch.Tensor:
+    """The config's norm: ``p`` is a bare weight (RMS, or a LayerNorm
+    without bias) or a ``{"g", "b"}`` dict (a LayerNorm with bias)."""
+    if isinstance(p, dict):
+        g, b = p["g"], p.get("b")
+    else:
+        g, b = p, None
+    out = (_rms_norm(x, g, eps) if kind == "rms"
+           else _layer_norm(x, eps) * g)
+    return out + b if b is not None else out
+
+
+def _qk_norm(q: torch.Tensor, k: torch.Tensor, layer,
+             cfg: LLMConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Q/K norms before rope on (..., H, D) heads: per head (Qwen3, Gemma-3;
+    a per-head LayerNorm under ``norm_type="layernorm"``, Command-R+), or
+    over the whole projection (OLMo-2's ``qk_norm_full``)."""
+    if cfg.qk_norm_full:
+        def full(t, w):
+            flat = t.reshape(*t.shape[:-2], -1)
+            return _rms_norm(flat, w, cfg.norm_eps).reshape(t.shape)
+        return full(q, layer["q_norm"]), full(k, layer["k_norm"])
+    if not cfg.qk_norm:
+        return q, k
+    if cfg.norm_type == "layernorm":
+        def ln(t, w):
+            return _layer_norm(t, cfg.norm_eps) * w.reshape(t.shape[-2:])
+        return ln(q, layer["q_norm"]), ln(k, layer["k_norm"])
+    return (_rms_norm(q, layer["q_norm"], cfg.norm_eps),
+            _rms_norm(k, layer["k_norm"], cfg.norm_eps))
+
+
+def _attn_in(x: torch.Tensor, layer, cfg: LLMConfig) -> torch.Tensor:
+    """The attention branch's input: the pre-normed residual stream, or
+    the raw stream under OLMo-2's post-norm-only placement."""
+    if not cfg.pre_norms:
+        return x
+    return _norm(x, layer["attn_norm"], cfg.norm_eps, cfg.norm_type)
+
+
+def _act_combine(gate: torch.Tensor, up: torch.Tensor,
+                 act: str = "silu") -> torch.Tensor:
+    """The gate/up halves of a GLU (f32 in and out): SwiGLU, or GeGLU
+    with the tanh approximation (``act="gelu"``, Gemma)."""
+    gated = (F.silu(gate) if act == "silu"
+             else F.gelu(gate, approximate="tanh"))
+    return gated * up
+
+
+def _mlp_act(gu: torch.Tensor, act: str, gated: bool) -> torch.Tensor:
+    """The MLP's activation on the f32 up projection: a GLU of its halves,
+    or, ungated, squared ReLU (``relu2``, Nemotron), exact GELU
+    (``gelu_exact``) or tanh GELU (StarCoder2)."""
+    if gated:
+        gate, up = gu.chunk(2, dim=-1)
+        return _act_combine(gate, up, act)
+    if act == "relu2":
+        return F.relu(gu).square()
+    return F.gelu(gu, approximate="none" if act == "gelu_exact" else "tanh")
+
+
+def _scaled(out: torch.Tensor, multiplier: float) -> torch.Tensor:
+    """``out * multiplier`` with the multiplier rounded to out's dtype
+    first, as the reference's ``jnp.asarray(multiplier, out.dtype)``."""
+    if multiplier == 1.0:
+        return out
+    return out * _rounded(multiplier, out.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def _mlp_block(x: torch.Tensor, norm_scale, w_gu, w_down, eps: float,
+               act: str = "silu", post_norm=None,
+               residual_multiplier: float = 1.0, norm_type: str = "rms",
+               gated: bool = True, w_gu_b=None, w_down_b=None
+               ) -> torch.Tensor:
+    """norm -> up -> act -> down (+ bias) [-> post-norm] [x multiplier] ->
+    + residual. ``norm_scale`` None is OLMo-2's placement: the MLP reads
+    the raw stream.
 
     Small-M Q4 weights take the one-launch fused block (``ops/fused.py``)
-    behind the ``TRACKIE_FUSED_MLP=1`` opt-in, read at each call, under the
-    Mistral subset of the JAX package's condition (``llm.py:764-769``):
-    decode and the lookahead chunk take it, prefill and extend (M > 8) and
-    Q8 weights do not."""
-    if (x.dim() == 2 and fused.use_fused_mlp()
-            and fused._can_fuse(x, w_gu, w_down)):
+    behind the ``TRACKIE_FUSED_MLP=1`` opt-in, read at each call, under
+    the JAX package's condition (``llm.py:764-768``): SwiGLU with an RMS
+    pre-norm, no post-norm, multiplier 1, gated weights; decode and the
+    lookahead chunk take it, prefill and extend (M > 8) and Q8 weights do
+    not. The biases are not in the condition, as there: no dense preset
+    has them with SwiGLU."""
+    if (x.dim() == 2 and act == "silu" and post_norm is None
+            and norm_scale is not None and residual_multiplier == 1.0
+            and gated and norm_type == "rms"
+            and not isinstance(norm_scale, dict)
+            and fused.use_fused_mlp() and fused._can_fuse(x, w_gu, w_down)):
         return fused.fused_mlp(x, norm_scale, w_gu, w_down, eps)
-    h2 = _rms_norm(x, norm_scale, eps)
+    h2 = _norm(x, norm_scale, eps, norm_type) if norm_scale is not None else x
     gu = _linear(h2, w_gu).float()
-    gate, up = gu.chunk(2, dim=-1)
-    return x + _linear(_act_combine(gate, up).to(x.dtype), w_down)
+    if w_gu_b is not None:
+        gu = gu + w_gu_b.float()
+    out = _linear(_mlp_act(gu, act, gated).to(x.dtype), w_down)
+    if w_down_b is not None:
+        out = out + w_down_b
+    if post_norm is not None:
+        out = _norm(out, post_norm, eps, norm_type)
+    return x + _scaled(out, residual_multiplier)
 
 
-def _attn_residual(x: torch.Tensor, attn_out: torch.Tensor,
-                   layer: Dict[str, Any]) -> torch.Tensor:
-    """wo projection + residual."""
-    return x + _linear(attn_out.to(x.dtype), layer["wo"])
+def _mlp(x: torch.Tensor, layer, cfg: LLMConfig) -> torch.Tensor:
+    """The dense MLP of every forward body (``_mlp``'s dense branch)."""
+    return _mlp_block(
+        x, layer["mlp_norm"] if cfg.pre_norms else None, layer["w_gu"],
+        layer["w_down"], cfg.norm_eps, act=cfg.act,
+        post_norm=layer.get("mlp_post_norm"),
+        residual_multiplier=cfg.residual_multiplier,
+        norm_type=cfg.norm_type, gated=cfg.mlp_gated,
+        w_gu_b=layer.get("w_gu_b") if cfg.mlp_bias else None,
+        w_down_b=layer.get("w_down_b") if cfg.mlp_bias else None)
 
 
-def _layer_tail(x, attn, layer, cfg: LLMConfig) -> torch.Tensor:
-    x = _attn_residual(x, attn, layer)
-    return _mlp_block(x, layer["mlp_norm"], layer["w_gu"], layer["w_down"],
-                      cfg.norm_eps)
+def _attn_residual(x: torch.Tensor, attn_out: torch.Tensor, layer,
+                   cfg: LLMConfig) -> torch.Tensor:
+    """wo projection (+ bias) [-> post-attention norm] [x multiplier] +
+    residual."""
+    out = _linear(attn_out.to(x.dtype), layer["wo"])
+    if cfg.out_bias:
+        out = out + layer["wo_bias"]
+    if cfg.post_norms:
+        out = _norm(out, layer["attn_post_norm"], cfg.norm_eps,
+                    cfg.norm_type)
+    return x + _scaled(out, cfg.residual_multiplier)
+
+
+def _mlp_branch(h: torch.Tensor, layer, cfg: LLMConfig) -> torch.Tensor:
+    """The MLP branch from an already-normed input (the parallel residual:
+    no norm, no post-norm, no residual)."""
+    gu = _linear(h, layer["w_gu"]).float()
+    if cfg.mlp_bias and "w_gu_b" in layer:
+        gu = gu + layer["w_gu_b"].float()
+    out = _linear(_mlp_act(gu, cfg.act, cfg.mlp_gated).to(h.dtype),
+                  layer["w_down"])
+    if cfg.mlp_bias and "w_down_b" in layer:
+        out = out + layer["w_down_b"]
+    return out
+
+
+def _layer_tail(x, h, attn, layer, cfg: LLMConfig) -> torch.Tensor:
+    """Everything after the attention weights: sequential residuals, or
+    Command-R's parallel residual (x + attn + mlp(h), one shared norm)."""
+    if cfg.parallel_residual:
+        out = _linear(attn.to(x.dtype), layer["wo"])
+        if cfg.out_bias:
+            out = out + layer["wo_bias"]
+        return x + out + _mlp_branch(h, layer, cfg).to(x.dtype)
+    return _mlp(_attn_residual(x, attn, layer, cfg), layer, cfg)
 
 
 def _output_logits(params: Dict[str, Any], cfg: LLMConfig,
                    x: torch.Tensor) -> torch.Tensor:
-    """Final norm -> lm_head, f32."""
-    h = _rms_norm(x, params["out_norm"], cfg.norm_eps)
-    return _linear(h, params["lm_head"]).float()
+    """Final norm -> lm_head (-> logit softcap), f32."""
+    h = _norm(x, params["out_norm"], cfg.norm_eps, cfg.norm_type)
+    logits = _linear(h, params["lm_head"]).float()
+    if cfg.logit_softcap > 0.0:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# Attention policy: scale, softcap and per-layer windows
+# ---------------------------------------------------------------------------
+
+def _attn_scale(cfg: LLMConfig) -> float:
+    """1/sqrt(query_pre_attn_scalar or head_dim), times the longrope/YaRN
+    attention factor squared."""
+    base = 1.0 / math.sqrt(cfg.query_pre_attn_scalar or cfg.head_dim)
+    return base * cfg.rope_attention_factor ** 2
+
+
+def _attn_extras(cfg: LLMConfig) -> dict:
+    """softcap and scale of every attention call (scale 0.0 = the kernels'
+    own 1/sqrt(head_dim))."""
+    scale = _attn_scale(cfg)
+    if not cfg.query_pre_attn_scalar and cfg.rope_attention_factor == 1.0:
+        scale = 0.0
+    return {"softcap": cfg.attn_softcap, "scale": scale}
 
 
 def _layer_window(cfg: LLMConfig) -> int:
     return cfg.sliding_window if 0 < cfg.sliding_window < cfg.max_seq else 0
+
+
+def _per_layer_windows(cfg: LLMConfig) -> bool:
+    """True when the window applies to only some layers."""
+    return cfg.alt_window or cfg.window_pattern > 1
+
+
+def _is_sliding(cfg: LLMConfig, li: int) -> bool:
+    """Layer ``li`` slides: Gemma-2 the even layers, Gemma-3 all but every
+    ``window_pattern``-th."""
+    if cfg.window_pattern > 1:
+        return li % cfg.window_pattern != cfg.window_pattern - 1
+    return li % 2 == 0
+
+
+def _window_of(cfg: LLMConfig, li: int) -> int:
+    """Layer ``li``'s window (0 = none): the config's window, except on a
+    global layer of a per-layer pattern."""
+    win = _layer_window(cfg)
+    if win and _per_layer_windows(cfg) and not _is_sliding(cfg, li):
+        return 0
+    return win
 
 
 # ---------------------------------------------------------------------------
@@ -359,18 +705,74 @@ def _layer_window(cfg: LLMConfig) -> int:
 # ---------------------------------------------------------------------------
 
 def _rope_freqs(cfg: LLMConfig, device=None) -> torch.Tensor:
-    """The (head_dim / 2,) f32 rope frequencies, made once per (head_dim,
-    theta, device): building them copies theta to the device, which on
-    the card waits for the stream."""
-    return _rope_freqs_on(cfg.head_dim, cfg.rope_theta,
+    """The (rotary dims / 2,) f32 rope frequencies (partial rotary rotates
+    ``partial_rotary_factor * head_dim`` dims), made once per (width,
+    theta, device): building them copies theta to the device, which on the
+    card waits for the stream."""
+    half = int(cfg.head_dim * cfg.partial_rotary_factor) // 2
+    return _rope_freqs_on(half, cfg.rope_theta,
                           None if device is None else torch.device(device))
 
 
 @functools.lru_cache(maxsize=None)
-def _rope_freqs_on(head_dim: int, theta: float, device) -> torch.Tensor:
-    half = head_dim // 2
+def _rope_freqs_on(half: int, theta: float, device) -> torch.Tensor:
     exps = torch.arange(half, dtype=torch.float32, device=device) / half
     return 1.0 / torch.pow(torch.tensor(theta, device=device), exps)
+
+
+def _local_rope_freqs(cfg: LLMConfig, device=None) -> torch.Tensor:
+    """Gemma-3's sliding-layer base, never scaled by rope factors."""
+    return _rope_freqs(cfg._replace(rope_theta=cfg.rope_local_theta), device)
+
+
+def _freqs(params: Dict[str, Any], cfg: LLMConfig, total_len,
+           device=None) -> torch.Tensor:
+    """Rope frequencies divided by the checkpoint's factors: the static
+    ``rope_factors`` (Llama-3.1, linear, YaRN), or Phi-3's longrope sets,
+    the long one when ``total_len`` (the length this dispatch reaches; a
+    host int, or a device tensor, chosen on the device) exceeds
+    ``rope_original_max_seq``."""
+    freqs = _rope_freqs(cfg, device)
+    if "rope_factors_short" in params:
+        short, long = params["rope_factors_short"], params["rope_factors_long"]
+        if isinstance(total_len, torch.Tensor):
+            ext = torch.where(total_len > cfg.rope_original_max_seq, long,
+                              short)
+        else:
+            ext = long if total_len > cfg.rope_original_max_seq else short
+        return freqs / ext
+    rf = params.get("rope_factors")
+    return freqs / rf if rf is not None else freqs
+
+
+def linear_rope_factors(cfg: LLMConfig, factor: float) -> torch.Tensor:
+    """Uniform linear rope scaling as a divisor vector, f32 (head_dim / 2,)
+    on the CPU; Gemma-3 4B+ store ``linear_rope_factors(cfg, 8.0)`` as
+    ``params["rope_factors"]``."""
+    return torch.full((cfg.head_dim // 2,), float(factor),
+                      dtype=torch.float32)
+
+
+def llama3_rope_factors(cfg: LLMConfig, factor: float = 8.0,
+                        low_freq_factor: float = 1.0,
+                        high_freq_factor: float = 4.0,
+                        original_max_seq: int = 8192) -> torch.Tensor:
+    """Llama-3.1's per-frequency rope divisors, f32 on the CPU: long
+    wavelengths divide by ``factor``, short ones stay, the band between
+    interpolates (``trackiellm_tpu/models/llm.py:llama3_rope_factors``).
+    Store as ``params["rope_factors"]``."""
+    freqs = _rope_freqs(cfg)
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32)
+    wavelen = f32(2.0 * math.pi) / freqs
+    low_wl = original_max_seq / low_freq_factor
+    high_wl = original_max_seq / high_freq_factor
+    smooth = ((f32(original_max_seq) / wavelen - low_freq_factor)
+              / f32(high_freq_factor - low_freq_factor)).clamp(0.0, 1.0)
+    inv = (1.0 - smooth) / f32(factor) + smooth
+    return torch.where(wavelen > low_wl, f32(factor),
+                       torch.where(wavelen < high_wl, f32(1.0), f32(1.0) / inv))
 
 
 def yarn_rope_factors(cfg: LLMConfig, factor: float, original_max_seq: int,
@@ -380,9 +782,9 @@ def yarn_rope_factors(cfg: LLMConfig, factor: float, original_max_seq: int,
     (``trackiellm_tpu/models/llm.py:yarn_rope_factors``): dims with more
     than ``beta_fast`` rotations over the original context extrapolate
     (divisor 1), dims with fewer than ``beta_slow`` interpolate (divisor
-    ``factor``), the band between blends linearly by dim index. Only the
-    GGUF converter calls it, for yarn-scaled files; running such params
-    waits for rope scaling (``check_supported``)."""
+    ``factor``), the band between blends linearly by dim index. Store as
+    ``params["rope_factors"]`` with ``cfg.rope_attention_factor =
+    yarn_attention_factor(factor)``."""
     half = cfg.head_dim // 2
 
     def corr_dim(n_rot: float) -> float:
@@ -412,20 +814,52 @@ def yarn_attention_factor(factor: float) -> float:
 
 
 def _rope_cos_sin(positions: torch.Tensor, freqs: torch.Tensor):
-    ang = positions[..., :, None].float() * freqs              # (S, D/2)
+    ang = positions[..., :, None].float() * freqs              # (S, R/2)
     return torch.cos(ang)[..., :, None, :], torch.sin(ang)[..., :, None, :]
 
 
 def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
-    x1, x2 = x.float().chunk(2, dim=-1)
-    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
-                     dim=-1).to(x.dtype)
+    """Split-half rotation of the leading 2 * (R/2) dims of (..., H, D);
+    the rest (partial rotary) pass through."""
+    rot = 2 * cos.shape[-1]
+    x1, x2 = x[..., :rot].float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                    dim=-1).to(x.dtype)
+    if rot == x.shape[-1]:
+        return out
+    return torch.cat([out, x[..., rot:]], dim=-1)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                freqs: torch.Tensor) -> torch.Tensor:
     """Rotate (..., S, H, D) by per-position angles, split-half layout."""
     return _rotate(x, *_rope_cos_sin(positions, freqs))
+
+
+def _is_nope(cfg: LLMConfig, li: int) -> bool:
+    """Layer ``li`` applies no rotary embedding (SmolLM3's interval)."""
+    return cfg.nope_pattern > 1 and li % cfg.nope_pattern == cfg.nope_pattern - 1
+
+
+def _rope_tables(params, cfg: LLMConfig, positions: torch.Tensor,
+                 total_len) -> Tuple[Any, Any]:
+    """(cos, sin) of the global frequencies at ``positions``, and of
+    Gemma-3's local base (None without ``rope_local_theta``)."""
+    device = positions.device
+    glob = _rope_cos_sin(positions, _freqs(params, cfg, total_len, device))
+    local = (_rope_cos_sin(positions, _local_rope_freqs(cfg, device))
+             if cfg.rope_local_theta else None)
+    return glob, local
+
+
+def _layer_rope(cfg: LLMConfig, li: int, tables):
+    """Layer ``li``'s (cos, sin), or None on a NoPE layer: a zero angle's
+    rotation is the identity, which skipping it gives bit for bit."""
+    if _is_nope(cfg, li):
+        return None
+    if cfg.rope_local_theta and _is_sliding(cfg, li):
+        return tables[1]
+    return tables[0]
 
 
 # ---------------------------------------------------------------------------
@@ -464,18 +898,24 @@ def embed_tokens(params: Dict[str, Any], tokens: torch.Tensor) -> torch.Tensor:
     return params["tok_emb"][tokens.long()]
 
 
-def _qkv(x: torch.Tensor, layer, cfg: LLMConfig, cos, sin):
-    """Pre-norm, fused QKV projection, head split and rope; returns
-    (h, q (S, H, D), k (S, Hk, D), v (S, Hk, D))."""
-    s = x.shape[0]
+def _qkv(x: torch.Tensor, layer, cfg: LLMConfig, rope):
+    """Attention input, fused QKV projection (+ bias), head split, QK norms
+    and rope (``rope`` a (cos, sin) pair, or None on a NoPE layer);
+    returns (h, q (N, H, D), k (N, Hk, D), v (N, Hk, D))."""
+    n = x.shape[0]
     qd = cfg.n_heads * cfg.head_dim
     kvd = cfg.n_kv_heads * cfg.head_dim
-    h = _rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    h = _attn_in(x, layer, cfg)
     qkv = _linear(h, layer["wqkv"])
-    q = qkv[:, :qd].reshape(s, cfg.n_heads, cfg.head_dim)
-    k = qkv[:, qd:qd + kvd].reshape(s, cfg.n_kv_heads, cfg.head_dim)
-    v = qkv[:, qd + kvd:].reshape(s, cfg.n_kv_heads, cfg.head_dim)
-    return h, _rotate(q, cos, sin), _rotate(k, cos, sin), v
+    if cfg.qkv_bias:
+        qkv = qkv + layer["wqkv_bias"]
+    q = qkv[:, :qd].reshape(n, cfg.n_heads, cfg.head_dim)
+    k = qkv[:, qd:qd + kvd].reshape(n, cfg.n_kv_heads, cfg.head_dim)
+    v = qkv[:, qd + kvd:].reshape(n, cfg.n_kv_heads, cfg.head_dim)
+    q, k = _qk_norm(q, k, layer, cfg)
+    if rope is not None:
+        q, k = _rotate(q, *rope), _rotate(k, *rope)
+    return h, q, k, v
 
 
 # ---------------------------------------------------------------------------
@@ -491,21 +931,21 @@ def prefill(params: Dict[str, Any], cfg: LLMConfig, tokens: torch.Tensor,
     rows past ``length`` hold garbage that the length mask hides."""
     check_supported(cfg, params)
     s_pad = tokens.shape[0]
-    device = tokens.device
-    positions = torch.arange(s_pad, device=device)
-    cos, sin = _rope_cos_sin(positions, _rope_freqs(cfg, device))
+    positions = torch.arange(s_pad, device=tokens.device)
+    tables = _rope_tables(params, cfg, positions, int(length))
     x = params["tok_emb"][tokens.long()]
-    window = _layer_window(cfg)
+    extras = _attn_extras(cfg)
     for li in range(cfg.n_layers):
         layer = _layer(params["layers"], li)
-        _, q, k, v = _qkv(x, layer, cfg, cos, sin)
+        h, q, k, v = _qkv(x, layer, cfg, _layer_rope(cfg, li, tables))
         cache.k[li, :s_pad] = k.to(cache.k.dtype)
         cache.v[li, :s_pad] = v.to(cache.v.dtype)
         attn = prefill_attention(
             q.transpose(0, 1).contiguous(), k.transpose(0, 1).contiguous(),
-            v.transpose(0, 1).contiguous(), causal=True, window=window)
-        x = _layer_tail(x, attn.transpose(0, 1).reshape(s_pad, -1), layer,
-                        cfg)
+            v.transpose(0, 1).contiguous(), causal=True,
+            window=_window_of(cfg, li), **extras)
+        x = _layer_tail(x, h, attn.transpose(0, 1).reshape(s_pad, -1),
+                        layer, cfg)
     x_last = x[max(length - 1, 0)]
     logits = _output_logits(params, cfg, x_last[None])[0]
     return logits, KVCache(cache.k, cache.v, int(length))
@@ -523,21 +963,22 @@ def decode_step(params: Dict[str, Any], cfg: LLMConfig, token,
     pos = cache.length
     device = cache.k.device
     positions = torch.arange(pos, pos + 1, device=device)
-    cos, sin = _rope_cos_sin(positions, _rope_freqs(cfg, device))
+    tables = _rope_tables(params, cfg, positions, pos + 1)
     if isinstance(token, torch.Tensor):  # device token: gather, no sync
         x = params["tok_emb"].index_select(0, token.reshape(1).long())
     else:
         x = params["tok_emb"][int(token)][None]
-    window = _layer_window(cfg)
+    extras = _attn_extras(cfg)
     for li in range(cfg.n_layers):
         layer = _layer(params["layers"], li)
-        _, q, k, v = _qkv(x, layer, cfg, cos, sin)
+        h, q, k, v = _qkv(x, layer, cfg, _layer_rope(cfg, li, tables))
         cache.k[li, pos] = k[0].to(cache.k.dtype)
         cache.v[li, pos] = v[0].to(cache.v.dtype)
         k_view = cache.k[li, :attn_len] if attn_len else cache.k[li]
         v_view = cache.v[li, :attn_len] if attn_len else cache.v[li]
-        attn = decode_attention(q[0], k_view, v_view, pos + 1, window=window)
-        x = _layer_tail(x, attn.reshape(1, -1), layer, cfg)
+        attn = decode_attention(q[0], k_view, v_view, pos + 1,
+                                window=_window_of(cfg, li), **extras)
+        x = _layer_tail(x, h, attn.reshape(1, -1), layer, cfg)
     logits = _output_logits(params, cfg, x)[0]
     return logits, KVCache(cache.k, cache.v, pos + 1)
 
@@ -563,32 +1004,38 @@ def extend(params: Dict[str, Any], cfg: LLMConfig, tokens: torch.Tensor,
     fit = min(b, s_max - offset)
     device = tokens.device
     positions = offset + torch.arange(b, device=device)
-    cos, sin = _rope_cos_sin(positions, _rope_freqs(cfg, device))
+    tables = _rope_tables(params, cfg, positions, offset + int(n_valid))
     x = params["tok_emb"][tokens.long()]
-    window = _layer_window(cfg)
     hk, hd = cfg.n_kv_heads, cfg.head_dim
     rep = cfg.n_heads // hk
-    scale = 1.0 / math.sqrt(hd)
+    # _attn_scale, not 1/sqrt(D): the reference's extend keeps the query
+    # scalar and the longrope/YaRN factor, as decode_step does.
+    scale = _attn_scale(cfg)
     key_idx = torch.arange(attn_len or s_max, device=device)[None, None, None]
     q_pos = positions[None, None, :, None]
-    mask = key_idx <= q_pos
-    if window:
-        mask &= key_idx > q_pos - window
+    causal = key_idx <= q_pos
+    masks = {}
     for li in range(cfg.n_layers):
         layer = _layer(params["layers"], li)
-        _, q, k, v = _qkv(x, layer, cfg, cos, sin)
+        h, q, k, v = _qkv(x, layer, cfg, _layer_rope(cfg, li, tables))
         cache.k[li, offset:offset + fit] = k[:fit].to(cache.k.dtype)
         cache.v[li, offset:offset + fit] = v[:fit].to(cache.v.dtype)
         k_view = cache.k[li, :attn_len] if attn_len else cache.k[li]
         v_view = cache.v[li, :attn_len] if attn_len else cache.v[li]
+        window = _window_of(cfg, li)
+        if window not in masks:
+            masks[window] = (causal & (key_idx > q_pos - window) if window
+                             else causal)
         # (B, H, D) as (Hk, R * B, D): one batched product per KV head.
         qg = q.reshape(b, hk, rep, hd).permute(1, 2, 0, 3).reshape(hk, -1, hd)
         scores = cache_scores(qg, k_view).reshape(hk, rep, b, -1) * scale
-        scores = torch.where(mask, scores, NEG_INF)
+        if cfg.attn_softcap > 0.0:
+            scores = cfg.attn_softcap * torch.tanh(scores / cfg.attn_softcap)
+        scores = torch.where(masks[window], scores, NEG_INF)
         probs = torch.softmax(scores, dim=-1).reshape(hk, rep * b, -1)
         attn = cache_mix(probs, v_view).reshape(hk, rep, b, hd)
         attn = attn.permute(2, 0, 1, 3).reshape(b, -1)
-        x = _layer_tail(x, attn, layer, cfg)
+        x = _layer_tail(x, h, attn, layer, cfg)
     final = KVCache(cache.k, cache.v, offset + int(n_valid))
     if all_logits:
         return _output_logits(params, cfg, x), final
@@ -692,15 +1139,16 @@ def prefill_batch(params: Dict[str, Any], cfg: LLMConfig,
     (B * H, S_pad, D) queries against (B * Hk, S_pad, D) keys, which is
     the per-row attention with each row's heads in their own group. Rows
     past a request's length hold garbage, as single prefill's padded
-    tail; dummy rows (length 0) are legal."""
+    tail; dummy rows (length 0) are legal. Longrope picks its set by the
+    wave's longest row, on the device."""
     check_supported(cfg, params)
     b, s_pad = tokens.shape
     device = tokens.device
     hq, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     positions = torch.arange(s_pad, device=device).repeat(b)
-    cos, sin = _rope_cos_sin(positions, _rope_freqs(cfg, device))
+    tables = _rope_tables(params, cfg, positions, lengths.max())
     x = params["tok_emb"][tokens.reshape(-1).long()]        # (B * S, D)
-    window = _layer_window(cfg)
+    extras = _attn_extras(cfg)
     shape = (b, cfg.n_layers, cfg.max_seq, hk, hd)
     k_full = torch.zeros(shape, dtype=cache_dtype, device=device)
     v_full = torch.zeros(shape, dtype=cache_dtype, device=device)
@@ -711,14 +1159,15 @@ def prefill_batch(params: Dict[str, Any], cfg: LLMConfig,
 
     for li in range(cfg.n_layers):
         layer = _layer(params["layers"], li)
-        _, q, k, v = _qkv(x, layer, cfg, cos, sin)
+        h, q, k, v = _qkv(x, layer, cfg, _layer_rope(cfg, li, tables))
         k_full[:, li, :s_pad] = k.reshape(b, s_pad, hk, hd).to(cache_dtype)
         v_full[:, li, :s_pad] = v.reshape(b, s_pad, hk, hd).to(cache_dtype)
         attn = prefill_attention(heads(q, hq), heads(k, hk), heads(v, hk),
-                                 causal=True, window=window)
+                                 causal=True, window=_window_of(cfg, li),
+                                 **extras)
         attn = attn.reshape(b, hq, s_pad, hd).transpose(1, 2).reshape(
             b * s_pad, hq * hd)
-        x = _layer_tail(x, attn, layer, cfg)
+        x = _layer_tail(x, h, attn, layer, cfg)
     last = (lengths.long() - 1).clamp_min(0)
     x_last = x.reshape(b, s_pad, -1)[torch.arange(b, device=device), last]
     logits = _output_logits(params, cfg, x_last)
@@ -764,19 +1213,19 @@ def decode_step_batch(params: Dict[str, Any], cfg: LLMConfig,
     rows = torch.arange(b, device=device)
     # A dynamic_update_slice start is clamped to the last row.
     wpos = pos.clamp_max(cache.k.shape[2] - 1)
-    cos, sin = _rope_cos_sin(pos, _rope_freqs(cfg, device))
+    tables = _rope_tables(params, cfg, pos, pos.max() + 1)
     x = params["tok_emb"].index_select(0, tokens.long())
-    window = _layer_window(cfg)
+    extras = _attn_extras(cfg)
     for li in range(cfg.n_layers):
         layer = _layer(params["layers"], li)
-        _, q, k, v = _qkv(x, layer, cfg, cos, sin)
+        h, q, k, v = _qkv(x, layer, cfg, _layer_rope(cfg, li, tables))
         _write_rows(cache.k[li], rows, wpos, k, active)
         _write_rows(cache.v[li], rows, wpos, v, active)
         k_view = cache.k[li, :, :attn_len] if attn_len else cache.k[li]
         v_view = cache.v[li, :, :attn_len] if attn_len else cache.v[li]
         attn = decode_attention_batch(q, k_view, v_view, pos + 1,
-                                      window=window)
-        x = _layer_tail(x, attn.reshape(b, -1), layer, cfg)
+                                      window=_window_of(cfg, li), **extras)
+        x = _layer_tail(x, h, attn.reshape(b, -1), layer, cfg)
     logits = _output_logits(params, cfg, x)
     lengths = torch.where(active, cache.lengths + 1, cache.lengths)
     return logits, BatchedKVCache(cache.k, cache.v, lengths)

@@ -48,6 +48,8 @@ _SIGNATURES = {
     # q, k, v, sinks, out, H, Hk, S, D, dtype, scale, causal, window,
     # softcap, stream
     "trackie_flash_attn": (_P,) * 5 + (_I,) * 5 + (_F, _I, _I, _F, _P),
+    # D, dtype, regs out, local bytes out, shared bytes out
+    "trackie_flash_attn_attrs": (_I, _I, _P, _P, _P),
     # x, values, scales, out, partial, M, K, N, G, dtype, BM, splits,
     # groups_per_split, stream
     "trackie_q8_matmul": (_P,) * 5 + (_I,) * 8 + (_P,),

@@ -2,7 +2,8 @@
 
 Port of ``trackiellm_tpu/ops/attention.py``. ``flash_attention`` wraps the
 hand-written kernels of ``csrc/flash_attn.cu`` that replace the Pallas
-``flash_attention``: bf16 runs on the tensor cores, f32 on the CUDA cores.
+``flash_attention``: bf16 runs on the tensor cores, f32 on the CUDA cores,
+at head dims 64, 96, 128 and 256 (``FLASH_HEAD_DIMS``).
 ``flash_attention_ref`` is their plain twin, the same tiled online softmax
 with the same tiles and tile skips, in torch ops.
 ``attention_ref`` mirrors the dense ``attention_xla`` oracle, and
@@ -16,6 +17,7 @@ the reference's decode over a page pool; both are plain XLA there too.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
@@ -29,8 +31,12 @@ NEG_INF = -1e30
 # 64 query rows, and keys in tiles of 64 (bf16, tensor cores) or 32 (f32).
 BLOCK_Q = 64
 BLOCK_K = {torch.bfloat16: 64, torch.float32: 32}
+# Head dims the kernels are built for: Mistral and Llama's 128, Phi-3's 96,
+# Gemma's 256, and 64.
+FLASH_HEAD_DIMS = (64, 96, 128, 256)
 
 _flash_attn = _build.Launcher("trackie_flash_attn", "flash_attention")
+_flash_attrs = _build.Launcher("trackie_flash_attn_attrs", "flash_attention")
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -150,8 +156,8 @@ def _check_flash_operands(q, k, v, sinks) -> None:
             q.dtype == k.dtype == v.dtype):
         raise TypeError(f"q, k, v must share float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in (64, 128):
-        raise ValueError(f"head dim {d} not supported (64 or 128)")
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not supported {FLASH_HEAD_DIMS}")
     if s % BLOCK_Q:
         raise ValueError(f"sequence {s} must be a multiple of {BLOCK_Q}")
     if sinks is not None and tuple(sinks.shape) != (h,):
@@ -197,6 +203,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+
+
+def flash_kernel_attrs(d: int, dtype: torch.dtype) -> dict:
+    """The compiled flash kernel of head dim ``d`` and ``dtype`` (bf16 the
+    tensor-core kernel, f32 the CUDA-core one) as ptxas left it: registers
+    a thread, local (spill) bytes a thread, and the shared memory a block
+    asks. Needs the card's build of the kernels."""
+    out = [ctypes.c_int(0) for _ in range(3)]
+    _flash_attrs(d, 0 if dtype == torch.float32 else 1,
+                 *(ctypes.addressof(v) for v in out))
+    return {"regs": out[0].value, "local_bytes": out[1].value,
+            "smem_bytes": out[2].value}
 
 
 def prefill_attention(q, k, v, causal: bool = True, window: int = 0,
@@ -325,17 +343,20 @@ def batch_cache_mix(p: torch.Tensor, v_cache: torch.Tensor) -> torch.Tensor:
 
 def decode_attention_batch(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, cur_len: torch.Tensor,
-                           window: int = 0, scale: float = 0.0
-                           ) -> torch.Tensor:
+                           window: int = 0, softcap: float = 0.0,
+                           scale: float = 0.0) -> torch.Tensor:
     """One query per row, q (B, H, D), against per-row length-masked caches
     (B, S, Hk, D): the reference's ``jax.vmap`` of decode attention over
-    the serving slots (``trackiellm_tpu/models/llm.py:1791-1794``).
-    ``cur_len`` (B,) is a device tensor of each row's valid rows, the new
-    token's included, so the mask is made on the device."""
+    the serving slots (``trackiellm_tpu/models/llm.py:1791-1794``), with
+    :func:`decode_attention`'s window, softcap and scale. ``cur_len`` (B,)
+    is a device tensor of each row's valid rows, the new token's included,
+    so the mask is made on the device."""
     b, h, d = q.shape
     s_max, hk = k_cache.shape[1], k_cache.shape[2]
     scale = scale or 1.0 / math.sqrt(d)
     s = batch_cache_scores(q.reshape(b, hk, h // hk, d), k_cache) * scale
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
     idx = torch.arange(s_max, device=q.device)
     cur = cur_len.reshape(b, 1)
     mask = idx < cur
