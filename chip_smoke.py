@@ -21,7 +21,11 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      at (16, 8) heads, S in {512, 1024}, causal, window 512, softcap 50;
      D = 96 at (32, 32), S = 512, window 2047; with each kernel's registers
      and spills; ``FAMILY_MATMULS``: W4A8 at groups 128 and 64 and at
-     Granite's N = 49,155); the fused MLP block at M in {1,
+     Granite's N = 49,155); the MoE families' shapes (``MOE_MATMULS``:
+     W4A8, f32a and Q8 at group 32 on gpt-oss's experts, K = 2880, at M
+     in {1, 8, 512}, W4A8 on its lm_head, N = 201,088, at M = 1;
+     ``MOE_FLASH``: bf16 D = 64 at (64, 8) heads, S = 512, causal, with
+     sinks, with sinks and window 128); the fused MLP block at M in {1,
      4, 8}, D 4096, H 14336, bf16 and f32, also timed against the unfused
      path per call and on the device alone; the stream probe over 512 MiB,
      grid64 (64 steps in one block) and a 64-call chain_tiny on (8, 128)),
@@ -40,10 +44,10 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      fresh bucket-512 prefill and 32 decode tokens run under the profiler
      (one ``{"profile": ...}`` line: wall, device busy, idle share,
      launches, the largest costs by kernel);
-  6. Q8 slice: the same model cut to 16 layers (``CUT_LAYERS``) with Q8
+  6. Q8 slice: the same model cut to 4 layers (``CUT_LAYERS``) with Q8
      weights answers three requests, then runs phase 5's profiled window
      (its own ``{"profile": ...}`` line);
-  7. opt-in Q4 routes: phase 5's model cut to 16 layers (views) under
+  7. opt-in Q4 routes: phase 5's model cut to 4 layers (views) under
      ``TRACKIE_Q4_F32A=1`` and
      ``TRACKIE_FUSED_MLP=1`` answers two requests, then runs phase 5's
      profiled window under both levers (its own ``{"profile": ...}`` line:
@@ -80,7 +84,7 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      head bytes equal the CPU's requantization (Q8 too), and ``generate``
      answers from it through W4A8 and flash; its times and sizes as one
      ``{"gguf": ...}`` line;
- 12. serving: phase 5's model cut to 16 layers (views) behind
+ 12. serving: phase 5's model cut to 4 layers (views) behind
      ``LLMServer`` with eight slots:
      ``tools/measure_server.run`` (a warm burst, then 16 requests of 48
      tokens) per-step and in pipelined 8-step chunks, dense and paged
@@ -159,10 +163,11 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      quantization and flash, and none of Q8, the fused block, the
      streaming Q4 or the probes (f32a may rise). One ``{"app": ...}``
      line before the vision line.
- 16. dense families: (a) Gemma-2-9B (42 layers, dim 3584, 16/8 heads at
+ 16. dense families: (a) Gemma-2-9B (cut to 8 of its 42 layers,
+     ``FAMILY_DEPTH``, dim 3584, 16/8 heads at
      D = 256, GeGLU, sandwich norms, softcaps 50/30, alternating window
-     4096, vocab 256,000, max_seq 8192) and Llama-3.1-8B
-     (``llama3_rope_factors(cfg, 8.0)``, max_seq cut to 2048), random Q4
+     4096, vocab 256,000, max_seq 8192) and Llama-3.1-8B (8 of its 32
+     layers, ``llama3_rope_factors(cfg, 8.0)``, max_seq cut to 2048), random Q4
      weights from the seed behind ``LLMRunner``: the cortex prompt (297
      tokens, bucket 512) and 32 greedy tokens at lookahead 4 and 1, equal
      ids and text, every logit finite; Gemma-2-9B then serves a held burst
@@ -181,9 +186,40 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      the original 4,096. (c) Command-R, Nemotron and StarCoder2 GGUFs
      written here through ``convert --bits 8`` and ``generate`` on the
      card, and the checkpoint's greedy ids on the card equal to the CPU's.
-     One ``{"families": ...}`` line before the app line; the smoke's wall
-     on a line before it.
-Phases 5-16 zero every launch counter just before they drive their path and
+     One ``{"families": ...}`` line before the app line.
+ 17. MoE families: (a) gpt-oss-20b at its widths and depth (24 layers, 32
+     experts top-4, (64, 8) heads at D = 64 with sinks, window 128 on even
+     layers, vocab 201,088), random Q4 weights at group 32 from the seed
+     with its YaRN factors, max_seq cut to 4096: the cortex prompt and 32
+     greedy tokens at lookahead 4 and 1 (equal ids), then a held burst of 8
+     requests of 32 tokens on 8 dense slots per step and in 8-step chunks
+     (equal ids) and on the int8 pool (its agreement with the dense slots
+     reported); tiny gpt-oss and Llama-4 knob sets in f32 (sinks and a
+     window of 32, chunks of 32) served on the int8 pool on the card and
+     on the CPU, with equal ids; (b) Qwen3-30B-A3B (128 experts top-8,
+     group 128) cut to ``MOE_QWEN3_LAYERS`` layers, max_seq 2048: the
+     cortex prompt and 16
+     greedy tokens, prefill ms, decode ms and the wrappers' launches a
+     token; gpt-oss-20b is profiled in a process of its own
+     (``--moe-profile``): launches, busy ms and idle share a decode token
+     and a decode step; (c) Mixtral-8x7B,
+     Qwen1.5-MoE, Qwen3-MoE, gpt-oss-120b at published widths cut to 2
+     layers and Llama-4 Scout to 4, Q4 (gpt-oss-120b also Q8 at bucket 64):
+     prefill at buckets 64 and 256 on the card against the CPU within
+     WIDTH_TOL, the CPU's pass on the card's experts with W4A8's
+     activation quantization; every router flip (where the CPU's own
+     router chose other experts) printed with its margin, failing the run
+     when the margin is above twice the router's card-to-CPU noise on the
+     tokens that did not flip; a tiny Llama-4 in f32 across attention
+     chunks of 64 (prefill, extend, decode) within MOE_CHUNK_TOL; (d) GGUFs of the MoE arches
+     (Mixtral-shaped llama, qwen2moe, qwen3moe, gpt-oss with MXFP4 banks,
+     llama4, glm4moe, falcon) through ``inspect``, ``convert --bits 8``
+     (qwen3moe also ``--bits 4``) and ``generate`` on the card, and the
+     checkpoints' greedy ids on the card equal to the CPU's. Their counters
+     must show W4A8, its quantization and flash (Q8 for (d)), and no
+     route they do not take. One ``{"moe": ...}`` line (with phase 3's MoE
+     rows) before the families line; the smoke's wall on a line before it.
+Phases 5-17 zero every launch counter just before they drive their path and
 read them just after: the path's kernels must have launched, and the routes
 it does not take must not have (no serving path launches the streaming Q4
 or a probe; phase 9 must launch all four; phases 13 and 14 launch none).
@@ -192,8 +228,9 @@ phases 5-7 greedy text must not depend on the lookahead depth, in phase 10
 not on speculation, and every logit vector must be finite. Phase 3's
 device-only times come from profiles whose launch count matches the calls
 (``device_only_ms``). Each phase's first line ends with the seconds since
-the build began. The ``families`` line, the ``app`` line, the ``vision``
-line, then the ``voice`` line, come just before the last five lines, which are the ``serve`` line, the ``slice10``
+the build began. The ``moe`` line, the ``families`` line, the ``app``
+line, the ``vision`` line, then the ``voice`` line, come just before the
+last five lines, which are the ``serve`` line, the ``slice10``
 line, the card line, the kernels' JSON summary and the result line.
 """
 
@@ -302,7 +339,7 @@ VERIFY_ROWS = 16     # the verify pass's extend bucket
 # trackiellm_tpu_torch/tools/convert_times.py), at llama.cpp's Q4_K_M mix:
 # Q4_K for the embeddings, q, k, the attention output, gate and up; Q6_K
 # for v, down and the output head; F32 norms.
-GGUF_LAYERS = 4
+GGUF_LAYERS = 2   # 4 until phase 17 joined (see CUT_LAYERS)
 GGML_F32, GGML_F16, GGML_Q4_K, GGML_Q6_K = 0, 1, 12, 14
 # ggml type -> (elements a block, bytes a block, byte offset of the block's
 # f16 d, of its f16 dmin or None, and the range d is drawn from). Q4_K's
@@ -633,6 +670,63 @@ def family_kernel_cases(rows, quant, attention, gen, dev) -> None:
         del w, args
 
 
+# Phase 3's cases of the MoE families (phase 17): W4A8, f32a and Q8 at
+# gpt-oss's expert shapes (K = 2880, K/2 = 1440: group 32) at M 1, 8, 512,
+# W4A8 on its lm_head (N = 201,088) at M = 1, and bf16 flash at its (64, 8)
+# heads, D = 64, S = 512, causal with sinks, with and without window 128
+# (SDPA's time on the causal case without sinks: it has no sinks).
+MOE_MATMULS = (  # (case name, K, N, group, M values, kernels)
+    ("gpt-oss w_gu G=32", 2880, 5760, 32, (1, 8, 512),
+     ("q4_matmul_w4a8", "q4_matmul_f32a", "q8_matmul")),
+    ("gpt-oss w_down G=32", 2880, 2880, 32, (1, 8, 512),
+     ("q4_matmul_w4a8", "q4_matmul_f32a", "q8_matmul")),
+    ("gpt-oss lm_head N=201088 G=32", 2880, 201088, 32, (1,),
+     ("q4_matmul_w4a8",)),
+)
+MOE_FLASH = (64, (64, 8), 512, {
+    "gpt-oss causal": {}, "gpt-oss sinks": {"sinks": True},
+    "gpt-oss sinks window128": {"sinks": True, "window": 128}})
+
+
+def moe_kernel_cases(rows, quant, attention, gen, dev) -> None:
+    """Phase 3, the MoE families' shapes (MOE_MATMULS, MOE_FLASH), each
+    against its plain version with times and bound, and the D = 64 flash
+    kernels' registers and spills."""
+    kernels = {  # name: (quantize, kernel, plain, op type)
+        "q4_matmul_w4a8": (quant.quantize_q4, quant.q4_matmul_w4a8,
+                           quant.q4_matmul_w4a8_ref, "int8"),
+        "q4_matmul_f32a": (quant.quantize_q4, quant.q4_matmul_f32a,
+                           quant.q4_matmul_f32a_ref, "bf16"),
+        "q8_matmul": (quant.quantize_q8, quant.q8_matmul,
+                      quant.q8_matmul_ref, "bf16"),
+    }
+    for name, k, n, group, ms, names in MOE_MATMULS:
+        w32 = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
+        for kname in names:
+            quantize, kernel, plain, kind = kernels[kname]
+            w = quantize(w32, group)
+            args = (w.values, w.scales)
+            for m in ms:
+                x = torch.randn((m, k), generator=gen, device=dev).to(
+                    torch.bfloat16)
+                matmul_case(rows, kname, f"{kname} {name} M={m} K={k} N={n}",
+                            f"{name} M={m}", lambda: kernel(x, *args),
+                            lambda: plain(x, *args), (x, *args), kind,
+                            kernel)
+            del w, args
+        del w32
+    d, heads, s, variants = MOE_FLASH
+    attrs = attention.flash_kernel_attrs(d, torch.bfloat16)
+    log(f"  flash D={d} bfloat16 kernel: {attrs['regs']} registers a thread, "
+        f"{attrs['local_bytes']} spill bytes, {attrs['smem_bytes']} shared "
+        "bytes a block")
+    if attrs["local_bytes"]:
+        raise AssertionError(f"flash D={d}: spills")
+    for vname, kw in variants.items():
+        flash_case(rows, attention, gen, dev, heads, s, torch.bfloat16, kw,
+                   f"{vname} S={s} D={d} bfloat16", not kw, d=d)
+
+
 def phase_kernels(dev, quant, attention, fused, llm, diag, serve):
     """Phase 3: every kernel against its plain version, times beside, at
     the model paths' shapes and at those of phase 12's waves (``serve``,
@@ -694,6 +788,7 @@ def phase_kernels(dev, quant, attention, fused, llm, diag, serve):
                    torch.bfloat16, {}, f"causal S={s} {n} rows bfloat16",
                    False)
     family_kernel_cases(rows, quant, attention, gen, dev)
+    moe_kernel_cases(rows, quant, attention, gen, dev)
     d, hid, grp = FUSED_SHAPE
     w_gu = quant.quantize_q4(torch.randn((d, 2 * hid), generator=gen,
                                          device=dev) / math.sqrt(d), grp)
@@ -1078,10 +1173,11 @@ def missed_launches(by_name, counted):
     return "profiler saw " + ", ".join(missed) if missed else None
 
 
-def profile_path(dev, runner_mod, tokenizer_mod, params, cfg) -> dict:
+def profile_path(dev, runner_mod, tokenizer_mod, params, cfg,
+                 tokens: int = PROFILE_TOKENS, lookahead: int = 4) -> dict:
     """The breakdown of phases 5 (Q4) and 6 (Q8), on fresh runners: the
-    cortex prompt's prefill (bucket 512), then PROFILE_TOKENS greedy decode
-    tokens (lookahead 4).
+    cortex prompt's prefill (bucket 512), then ``tokens`` greedy decode
+    tokens (at ``lookahead``).
     Each window runs once on the host clock (wall) and once under the
     profiler (device busy ms, launches, the largest costs by kernel, and
     the copy and cast kernels, whose names hold "copy"); the idle share is
@@ -1091,8 +1187,8 @@ def profile_path(dev, runner_mod, tokenizer_mod, params, cfg) -> dict:
     shows them all keeps its wall and a ``partial`` note, and no device
     numbers."""
     tok = tokenizer_mod.ByteTokenizer(cfg.vocab_size)
-    gen = runner_mod.GenerationConfig(max_tokens=PROFILE_TOKENS,
-                                      temperature=0.0, speculative=False)
+    gen = runner_mod.GenerationConfig(max_tokens=tokens, temperature=0.0,
+                                      speculative=False, lookahead=lookahead)
     counters = launch_counters()
 
     def windows():
@@ -1123,8 +1219,8 @@ def profile_path(dev, runner_mod, tokenizer_mod, params, cfg) -> dict:
                 fn()
             before = {k: f.launches for k, f in counters.items()}
             busy, n, by_name = device_breakdown(fns[i])
-            note = missed_launches(by_name, {
-                k: f.launches - before[k] for k, f in counters.items()})
+            counted = {k: f.launches - before[k] for k, f in counters.items()}
+            note = missed_launches(by_name, counted)
             if note is None:
                 break
         if note is not None:
@@ -1138,6 +1234,7 @@ def profile_path(dev, runner_mod, tokenizer_mod, params, cfg) -> dict:
         out[name] = {
             "wall_ms": ms / per, "busy_ms": busy / per,
             "idle_share": 1.0 - busy / ms, "launches": n / per,
+            "wrapper_launches": {k: c / per for k, c in counted.items()},
             "top": [[k[:80], t / per, c / per] for k, (t, c) in top],
             "copy_ms": sum(t for t, _ in copies.values()),
             "copies": copies}
@@ -3719,6 +3816,9 @@ def phase_app(dev, cli, counters, e2e) -> dict:
 FAMILY_TOKENS = 32
 FAMILY_SERVE_MAX_SEQ = 2048
 FAMILY_LLAMA_MAX_SEQ = 2048
+# (a)'s depths: Gemma-2-9B's 42 and Llama-3.1-8B's 32 layers cut to 8
+# since phase 17 joined (the smoke's 1,000-s aim; see CUT_LAYERS).
+FAMILY_DEPTH = {"gemma2_9b": 8, "llama3_8b": 8}
 FAMILY_SWEEP = ("qwen2_7b", "phi3_mini", "granite3_8b", "glm4_9b",
                 "gemma2_2b", "gemma3_1b", "gemma3_4b", "gemma3_12b",
                 "gemma3_27b", "olmo2_7b", "smollm3_3b", "qwen3_8b")
@@ -3742,10 +3842,11 @@ FAMILY_PROFILE_TIMEOUT = 600.0
 
 def q4_group(cfg, largest: int = 256) -> int:
     """The largest group from ``largest`` down that divides K/2 of every
-    quantized matrix of ``cfg`` (dim, the query width and the hidden
-    width are their K)."""
+    quantized matrix of ``cfg`` (dim, the query width, the hidden width
+    and a shared expert's are their K)."""
     group = largest
-    ks = (cfg.dim, cfg.n_heads * cfg.head_dim, cfg.hidden_dim)
+    ks = (cfg.dim, cfg.n_heads * cfg.head_dim, cfg.hidden_dim,
+          cfg.moe_shared_hidden or cfg.dim)
     while any((k // 2) % group or k % group for k in ks):
         group //= 2
     return group
@@ -3777,15 +3878,17 @@ def family_model(dev, llm, cfg, name: str):
 
 
 def family_cfg(llm, name: str):
-    """Phase 16's config of a dense preset: Gemma-2-9B as published;
-    Llama-3 at max_seq FAMILY_LLAMA_MAX_SEQ; a swept preset at 2 layers
-    and max_seq at most FAMILY_SWEEP_MAX_SEQ, Phi-3 as its 128k variant
-    (PHI3_ORIGINAL). A window at or past max_seq stays off, as it was."""
+    """Phase 16's config of a dense preset: Gemma-2-9B as published but its
+    depth (FAMILY_DEPTH); Llama-3 at FAMILY_DEPTH's layers and max_seq
+    FAMILY_LLAMA_MAX_SEQ; a swept preset at 2 layers and max_seq at most
+    FAMILY_SWEEP_MAX_SEQ, Phi-3 as its 128k variant (PHI3_ORIGINAL). A
+    window at or past max_seq stays off, as it was."""
     cfg = getattr(llm.LLMConfig, name)()
     if name == "gemma2_9b":
-        return cfg
+        return cfg._replace(n_layers=FAMILY_DEPTH[name])
     if name == "llama3_8b":
-        return cfg._replace(max_seq=FAMILY_LLAMA_MAX_SEQ,
+        return cfg._replace(n_layers=FAMILY_DEPTH[name],
+                            max_seq=FAMILY_LLAMA_MAX_SEQ,
                             sliding_window=FAMILY_LLAMA_MAX_SEQ)
     max_seq = min(cfg.max_seq, FAMILY_SWEEP_MAX_SEQ)
     cfg = cfg._replace(n_layers=2, max_seq=max_seq,
@@ -3798,21 +3901,32 @@ def family_cfg(llm, name: str):
     return cfg
 
 
+def warm_up(runner, tokens: int) -> None:
+    """The short prompt through ``runner``, stopped after about ``tokens``
+    tokens: first launches, the allocator and cuBLAS, before a timed
+    window."""
+    runner.generate(SHORT_PROMPT, should_stop=lambda: len(
+        runner.generated_ids) >= tokens)
+
+
 def family_generate(dev, llm, runner_mod, tokenizer_mod, params, cfg,
-                    counters, name: str) -> dict:
-    """(a): the cortex prompt and FAMILY_TOKENS greedy tokens behind
+                    counters, name: str, tokens: int = FAMILY_TOKENS,
+                    phase: str = "phase 16", warm: int = 0) -> dict:
+    """(a): the cortex prompt and ``tokens`` greedy tokens behind
     ``LLMRunner`` at lookahead 4, then at 1: equal ids and text, every
-    logit finite. Counters are zeroed just before and read just after."""
+    logit finite. Counters are zeroed just before and read just after; the
+    warm-up before them generates ``warm`` tokens (``tokens`` by
+    default)."""
     tok = tokenizer_mod.ByteTokenizer(cfg.vocab_size)
 
     def runner(lookahead):
         return runner_mod.LLMRunner(params, cfg, tok, runner_mod.GenerationConfig(
-            max_tokens=FAMILY_TOKENS, temperature=0.0, speculative=False,
+            max_tokens=tokens, temperature=0.0, speculative=False,
             lookahead=lookahead), device=dev)
     r4 = runner(4)
     prompt = r4.build_prompt(SYSTEM, CONTEXT,
                              "What is in front of me right now?")
-    r4.generate(SHORT_PROMPT)  # warm-up
+    warm_up(r4, warm or tokens)
     for fn in counters.values():
         fn.launches = 0
     watch = LogitWatch(llm)
@@ -3825,14 +3939,17 @@ def family_generate(dev, llm, runner_mod, tokenizer_mod, params, cfg,
     finally:
         out["finite_logit_vectors"] = watch.close()
     out["launches"] = {k: fn.launches for k, fn in counters.items()}
-    if ids4 != ids1 or text4.encode() != text1.encode():
-        raise AssertionError(f"phase 16 {name}: lookahead 4 and 1 differ")
+    # The streamed text holds back an unfinished UTF-8 tail that
+    # generate() flushes: the ids' decoding is compared with it.
+    if ids4 != ids1 or tok.decode(ids4).encode() != text1.encode():
+        raise AssertionError(f"{phase} {name}: lookahead 4 and 1 differ "
+                             f"({len(text4)} streamed characters)")
     log(f"  {name}: lookahead 4 == lookahead 1 ({len(ids4)} ids); "
         f"launches {out['launches']}")
     expect_routes(out["launches"], ("q4_matmul_w4a8", "quantize_activations",
                                     "flash_attention"),
                   ("q8_matmul", "q4_matmul_f32a", "fused_mlp_q4",
-                   *DIAGNOSTIC), f"phase 16 {name}")
+                   *DIAGNOSTIC), f"{phase} {name}")
     return out
 
 
@@ -3884,10 +4001,19 @@ def dequantized_on_cpu(quant, tree):
     if isinstance(tree, dict):
         return {k: dequantized_on_cpu(quant, v) for k, v in tree.items()}
     if isinstance(tree, quant.QuantizedLinear):
-        if tree.values.dim() == 2:
-            return quant.dequantize(tree).cpu()
-        return torch.stack([quant.dequantize(quant.QuantizedLinear(v, s))
-                            for v, s in zip(tree.values, tree.scales)]).cpu()
+        # One (K, N) matrix at a time: a stack of experts in f32 on the
+        # card would be several times the quantized model.
+        lead = tree.values.shape[:-2]
+        values = tree.values.reshape(-1, *tree.values.shape[-2:])
+        scales = tree.scales.reshape(-1, *tree.scales.shape[-2:])
+        out = None
+        for i in range(values.shape[0]):
+            w = quant.dequantize(quant.QuantizedLinear(values[i], scales[i]))
+            if out is None:
+                out = torch.empty((values.shape[0], *w.shape),
+                                  dtype=w.dtype)
+            out[i] = w.cpu()
+        return out.reshape(*lead, *out.shape[1:])
     return tree.cpu()
 
 
@@ -4145,6 +4271,795 @@ def phase_families(dev, llm, runner_mod, tokenizer_mod, server_mod, paging,
     return out
 
 
+# Phase 17: the MoE families. (a) gpt-oss-20b at its widths and depth (24
+# layers, 32 experts top-4, (64, 8) heads at D = 64 with sinks, window 128
+# on even layers, vocab 201,088), Q4 at q4_group's G = 32, YaRN factors,
+# max_seq cut to MOE_GPTOSS_MAX_SEQ; (b) Qwen3-30B-A3B (128 experts top-8,
+# 768 wide, G = 128) at MOE_QWEN3_LAYERS, max_seq MOE_QWEN3_MAX_SEQ; (c)
+# the other MoE presets at published widths cut to MOE_SWEEP's depths, card
+# against CPU on the card's experts, and a tiny Llama-4 knob set across
+# attention chunks; (a) also serves tiny MOE_POOL knob sets on the int8
+# pool, card against CPU; (d)
+# GGUFs of the MoE arches through the CLI.
+MOE_TOKENS = 32
+MOE_GPTOSS_MAX_SEQ = 4096
+MOE_QWEN3_MAX_SEQ = 2048
+# Qwen3-30B-A3B's 48 layers cut to 12: its dense-all-experts decode token
+# is about 73,000 launches at 48 layers, 2 s of host time, which would take
+# phase 17 past 250 s (0.50 s a token at 12 layers on an H100 80GB HBM3 at
+# 700 W).
+MOE_QWEN3_LAYERS = 12
+MOE_QWEN3_TOKENS = 16
+MOE_SWEEP = {"mixtral_8x7b": 2, "qwen15_moe_a27b": 2,
+             "qwen3_moe_30b_a3b": 2, "gpt_oss_120b": 2, "llama4_scout": 4}
+MOE_BUCKETS = (64, 256)
+# The Q8 case (preset, bucket): gpt-oss-120b, whose Q4 logits moved most
+# (0.52 rel L2 at bucket 64, 35 router flips, on an H100 80GB HBM3 at 700
+# W); with exact activations only the sums' order differs.
+MOE_SWEEP_Q8 = ("gpt_oss_120b", 64)
+MOE_CHUNK = 64           # the tiny Llama-4's attention chunk
+MOE_CHUNK_TOL = 1e-4     # rel L2, f32 weights, card against CPU
+MOE_GGUF_ARCHES = ("mixtral", "qwen2moe", "qwen3moe", "gpt-oss", "llama4",
+                   "glm4moe", "falcon")
+MOE_GGUF_BITS4 = "qwen3moe"   # the arch converted at --bits 4 as well
+MOE_GGUF_EXPERTS = 8
+MOE_GGUF_TOKENS = 16
+# (a)'s int8 pool card against CPU: knob sets served at tiny widths in f32,
+# gpt-oss's window and Llama-4's chunks cut to MOE_POOL_SPAN so that the
+# 49-token prompts and their tokens cross them, on pages of MOE_POOL_PAGE.
+MOE_POOL = ("gpt_oss_20b", "llama4_scout")
+MOE_POOL_SPAN = 32
+MOE_POOL_PAGE = 16
+MOE_POOL_TOKENS = 24
+MOE_PROFILE_FLAG = "--moe-profile"
+MOE_PROFILE_TIMEOUT = 900.0
+# Decode tokens of the profiled window, at lookahead 1: a gpt-oss-20b step
+# is about 20,000 launches, and the profiler's records took most of phase
+# 17's time (183.5 s of 386.6 for one token at lookahead 4, which the
+# runner decoded as 8 steps, on an H100 80GB HBM3 at 700 W).
+MOE_PROFILE_TOKENS = 2
+GGML_MXFP4 = 39
+
+
+def moe_cfg(llm, name: str, layers: int = 0, max_seq: int = 0):
+    """A MoE preset with its depth and max_seq cut where given; a window
+    at or past max_seq stays off, as it was."""
+    cfg = getattr(llm.LLMConfig, name)()
+    if layers:
+        cfg = cfg._replace(n_layers=layers)
+    if max_seq:
+        cfg = cfg._replace(max_seq=max_seq, sliding_window=min(
+            cfg.sliding_window, max_seq))
+    return cfg
+
+
+def moe_model(dev, llm, cfg, name: str, bits: int = 4):
+    """Random Q4 (or Q8) params of ``cfg`` from the seed on the card, one
+    expert matrix at a time, at ``q4_group``'s group, with gpt-oss's YaRN
+    factors."""
+    t0 = time.perf_counter()
+    group = q4_group(cfg)
+    params = llm.init_params_quantized(
+        torch.Generator(device=dev).manual_seed(SEED), cfg, bits=bits,
+        group=group, device=dev)
+    if name.startswith("gpt_oss"):
+        params["rope_factors"] = llm.yarn_rope_factors(
+            cfg, 32.0, 4096, truncate=False).to(dev)
+    torch.cuda.synchronize()
+    log(f"  {name}: {cfg.n_layers} layers, {cfg.n_experts} experts top-"
+        f"{cfg.n_experts_used}, Q{bits} group {group} in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{param_bytes(params) / 2 ** 30:.2f} GiB on the card")
+    return params
+
+
+MOE_SERVE = {  # label: the server's knobs
+    "dense_chunk1": dict(chunk_steps=1), "dense_chunk8": dict(chunk_steps=8),
+    "int8_chunk8": dict(chunk_steps=8, page_size=SERVE_PAGE,
+                        cache_dtype=torch.int8)}
+
+
+def moe_serve(dev, llm, tokenizer_mod, server_mod, paging, measure, params,
+              cfg, counters) -> dict:
+    """(a): a held burst of SERVE_SLOTS of measure_server's prompts,
+    MOE_TOKENS tokens each, on dense slots per step and in 8-step chunks,
+    and on the int8 paged pool in 8-step chunks (MOE_SERVE): on the dense
+    slots the chunked ids equal the per-step ids, request by request;
+    every logit is finite. The dense and int8 layouts' agreement is
+    reported, not held (the int8 cells round K and V, so greedy ids on
+    random weights part); ``moe_pool`` holds the int8 pool's path to the
+    CPU's."""
+    tok = tokenizer_mod.ByteTokenizer(cfg.vocab_size)
+    server = server_factory(server_mod, params, cfg, tok)
+    jobs = [(p, dict(max_tokens=MOE_TOKENS))
+            for p in measure.prompts(SEED)[:SERVE_SLOTS]]
+    out, ids = {}, {}
+    for label, kw in MOE_SERVE.items():
+        for fn in counters.values():
+            fn.launches = 0
+        watch = LogitWatch(llm, paging)
+        s, w = server(**kw)
+        try:
+            t0 = time.perf_counter()
+            burst(s, jobs, w)
+            wall = time.perf_counter() - t0
+        finally:
+            close_server(s)
+            watch.close()
+        ids[label] = [w.ids[p] for p, _ in jobs]
+        tokens = sum(map(len, ids[label]))
+        launches = {k: fn.launches for k, fn in counters.items()}
+        out[label] = {"wall_s": wall, "tokens": tokens,
+                      "aggregate_tok_s": tokens / wall,
+                      "waves": list(w.waves), "launches": launches}
+        log(f"  serve {label}: {tokens} tokens in {wall:.3f} s "
+            f"({tokens / wall:.1f} tok/s), waves {w.waves}; launches "
+            f"{launches}")
+        if tokens == 0:
+            raise AssertionError(f"phase 17 serve {label}: no tokens")
+        expect_routes(launches, ("q4_matmul_w4a8", "quantize_activations"),
+                      ("q8_matmul", "q4_matmul_f32a", "fused_mlp_q4",
+                       *DIAGNOSTIC), f"phase 17 serve {label}")
+    a, b = ids["dense_chunk1"], ids["dense_chunk8"]
+    if a != b:
+        raise AssertionError(
+            "phase 17 serve: chunk8 ids differ from per-step ids at "
+            f"{[first_divergence(x, y) for x, y in zip(a, b)]}")
+    log(f"  serve dense: chunk8 ids == per-step ids on all {len(a)} "
+        "requests")
+    parts = [first_divergence(x, y)
+             for x, y in zip(ids["dense_chunk8"], ids["int8_chunk8"])]
+    out["dense_vs_int8"] = {
+        "equal": sum(p is None for p in parts), "first_divergence": parts}
+    log(f"  serve dense vs int8 pool: ids equal on "
+        f"{out['dense_vs_int8']['equal']}/{len(parts)} requests, first "
+        f"divergences {parts}")
+    return out
+
+
+def moe_pool_cfg(llm, name: str):
+    """``name``'s knob set at tiny widths: 4 layers, dim 256, 4/2 heads at
+    D = 64, 8 experts (top-k kept up to 4, a shared expert where it has
+    one), vocab 512, max_seq 512; gpt-oss's window and Llama-4's chunks
+    (and its temperature floor) MOE_POOL_SPAN."""
+    c = getattr(llm.LLMConfig, name)()
+    span = MOE_POOL_SPAN
+    return c._replace(
+        vocab_size=512, dim=256, n_layers=4, n_heads=4, n_kv_heads=2,
+        head_dim=64, hidden_dim=256, n_experts=8,
+        n_experts_used=min(c.n_experts_used, 4),
+        moe_shared_hidden=256 if c.moe_shared_hidden else 0, max_seq=512,
+        sliding_window=span if c.sliding_window < c.max_seq else 512,
+        attn_chunk=span if c.attn_chunk else 0,
+        attn_temp_floor=(float(span) if c.attn_temp_tuning
+                         else c.attn_temp_floor))
+
+
+def moe_pool(dev, llm, tokenizer_mod, server_mod, paging, measure) -> dict:
+    """(a): each MOE_POOL knob set (``moe_pool_cfg``), f32 weights from the
+    seed, serves a held burst of SERVE_SLOTS of measure_server's prompts,
+    MOE_POOL_TOKENS tokens each, on the int8 paged pool (8-step chunks,
+    f32 compute) on the card and on the CPU: sinks, windows, chunk masks
+    and the MoE block on int8 pages; the ids must be equal, request by
+    request, and every logit finite."""
+    jobs = [(p, dict(max_tokens=MOE_POOL_TOKENS))
+            for p in measure.prompts(SEED)[:SERVE_SLOTS]]
+    out = {}
+    for name in MOE_POOL:
+        cfg = moe_pool_cfg(llm, name)
+        params = llm.init_params(torch.Generator().manual_seed(SEED), cfg,
+                                 dtype=torch.float32, device="cpu")
+        tok = tokenizer_mod.ByteTokenizer(cfg.vocab_size)
+        ids = {}
+        for side, p in (("card", llm.params_to(params, dev)),
+                        ("cpu", params)):
+            s, w = server_factory(server_mod, p, cfg, tok)(
+                chunk_steps=8, page_size=MOE_POOL_PAGE,
+                cache_dtype=torch.int8)
+            s.pool.compute_dtype = torch.float32
+            watch = LogitWatch(llm, paging)
+            try:
+                burst(s, jobs, w)
+            finally:
+                close_server(s)
+                watch.close()
+            ids[side] = [w.ids[q] for q, _ in jobs]
+        parts = [first_divergence(a, b)
+                 for a, b in zip(ids["card"], ids["cpu"])]
+        n = sum(map(len, ids["card"]))
+        log(f"  tiny {name} on the int8 pool: card ids == cpu ids on "
+            f"{parts.count(None)}/{len(jobs)} requests ({n} ids), first "
+            f"divergences {parts}")
+        if parts.count(None) != len(jobs) or not all(ids["card"]):
+            raise AssertionError(f"phase 17 int8 pool {name}: card ids part "
+                                 f"from the cpu's at {parts}")
+        out[name] = {"requests": len(jobs), "equal": parts.count(None),
+                     "ids": n}
+    return out
+
+
+def moe_qwen3(dev, llm, runner_mod, tokenizer_mod, counters,
+              layers: int) -> dict:
+    """(b): Qwen3-30B-A3B behind ``LLMRunner``: the cortex prompt and
+    MOE_QWEN3_TOKENS greedy tokens (lookahead 1); the prefill's and the
+    decode's wall ms, and the wrappers' launches a decode token."""
+    cfg = moe_cfg(llm, "qwen3_moe_30b_a3b", layers, MOE_QWEN3_MAX_SEQ)
+    params = moe_model(dev, llm, cfg, "qwen3_moe_30b_a3b")
+    tok = tokenizer_mod.ByteTokenizer(cfg.vocab_size)
+    runner = runner_mod.LLMRunner(params, cfg, tok, runner_mod.GenerationConfig(
+        max_tokens=MOE_QWEN3_TOKENS, temperature=0.0, speculative=False,
+        lookahead=1), device=dev)
+    prompt = runner.build_prompt(SYSTEM, CONTEXT,
+                                 "What is in front of me right now?")
+    warm_up(runner, 4)
+    watch = LogitWatch(llm)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.prepare_generation(prompt)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for fn in counters.values():
+            fn.launches = 0
+        while runner.generate_next_token() is not None:
+            pass
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        n_logits = watch.close()
+    n = len(runner.generated_ids)
+    if n == 0:
+        raise AssertionError("phase 17 qwen3: no tokens")
+    launches = {k: fn.launches / n for k, fn in counters.items()}
+    out = {"layers": cfg.n_layers, "prompt_tokens":
+           runner.count_tokens(prompt) + 1, "prefill_ms": (t1 - t0) * 1e3,
+           "tokens": n, "decode_ms_per_token": (t2 - t1) * 1e3 / n,
+           "launches_per_token": launches, "finite_logit_vectors": n_logits}
+    log(f"  qwen3_moe_30b_a3b ({cfg.n_layers} layers): prefill "
+        f"{out['prefill_ms']:.1f} ms for {out['prompt_tokens']} tokens, "
+        f"{n} tokens at {out['decode_ms_per_token']:.1f} ms a token; wrapper "
+        f"launches a token {launches}")
+    expect_routes(launches, ("q4_matmul_w4a8", "quantize_activations"),
+                  ("q8_matmul", "q4_matmul_f32a", "fused_mlp_q4",
+                   *DIAGNOSTIC), "phase 17 qwen3")
+    return out
+
+
+class RouterTap:
+    """Wraps the model's router (``llm._moe_router`` and the
+    ``llm._moe_select`` it calls) to keep, on the host, each call's (T, E)
+    selection values (``select``) and (T, K) expert ids (``ids``), one call
+    a MoE layer. Given ``forced`` (id tensors, one a call), call i takes
+    the experts ``forced[i]`` instead of its own top-k, weighted by this
+    side's own scores (``llm._moe_weights``)."""
+
+    def __init__(self, llm, forced=None):
+        self.llm, self.select, self.ids = llm, [], []
+        self.orig = select_fn, router_fn = llm._moe_select, llm._moe_router
+
+        def select(h2, layer, cfg):
+            scores, sel = select_fn(h2, layer, cfg)
+            self.select.append(sel.detach().float().cpu())
+            return scores, sel
+
+        def router(h2, layer, cfg):
+            if forced is None:
+                topv, topi = router_fn(h2, layer, cfg)
+            else:
+                scores, _ = llm._moe_select(h2, layer, cfg)
+                topi = forced[len(self.ids)].to(scores.device)
+                topv = llm._moe_weights(scores, topi, cfg)
+            self.ids.append(topi.cpu())
+            return topv, topi
+        llm._moe_select, llm._moe_router = select, router
+
+    def close(self) -> tuple:
+        self.llm._moe_select, self.llm._moe_router = self.orig
+        return self.select, self.ids
+
+
+def router_flips(top_k, card_select, card_ids, cpu_select, k: int,
+                 rows: int) -> tuple:
+    """The router flips of a pass forced to the card's experts: each
+    (layer, token) of the first ``rows`` tokens where the CPU's own
+    top-``k`` (``top_k`` of its selection values) is not the card's set
+    (``card_ids``), with the CPU's margin there (its k-th largest value
+    less its (k+1)-th) and how far that token's values moved. Returns them
+    with the router's noise: the largest card-to-CPU change of a selection
+    value over the tokens that did not flip. A flip needs the swapped
+    pair's gap to move by at least the margin, and two values that each
+    move by at most the noise move their gap by at most twice it: a flip
+    is ``explained`` when its margin is at most twice the noise."""
+    if not len(card_select) == len(card_ids) == len(cpu_select):
+        raise AssertionError(f"router calls: card {len(card_select)} and "
+                             f"{len(card_ids)}, cpu {len(cpu_select)}")
+    flips, noise = [], 0.0
+    for layer, (a, ids, b) in enumerate(zip(card_select, card_ids,
+                                            cpu_select)):
+        a, ids, b = a[:rows], ids[:rows], b[:rows]
+        own = top_k(b, k)
+        moved = (a - b).abs().amax(dim=-1)
+        flipped = (own.sort(dim=-1).values
+                   != ids.sort(dim=-1).values).any(dim=-1)
+        if (~flipped).any():
+            noise = max(noise, moved[~flipped].max().item())
+        for t in flipped.nonzero().flatten().tolist():
+            top = torch.sort(b[t], descending=True).values
+            flips.append({"layer": layer, "token": t,
+                          "margin": (top[k - 1] - top[k]).item(),
+                          "card": sorted(ids[t].tolist()),
+                          "cpu": sorted(own[t].tolist()),
+                          "moved": moved[t].item()})
+    for f in flips:
+        f["explained"] = f["margin"] <= 2 * noise
+    return flips, noise
+
+
+def check_router_flips(flips, noise: float, tag: str) -> None:
+    """Print every flip; fail on one whose margin is above twice the
+    router's noise (``router_flips``)."""
+    for f in flips:
+        log(f"  {tag}: router flip at layer {f['layer']} token "
+            f"{f['token']}: experts {f['card']} (card) / {f['cpu']} (cpu), "
+            f"margin {f['margin']:.3e}, router noise {noise:.3e}, the "
+            f"token's values moved up to {f['moved']:.3e}"
+            + ("" if f["explained"] else " (NOT explained)"))
+    bad = [f for f in flips if not f["explained"]]
+    if bad:
+        raise AssertionError(f"{tag}: {len(bad)} router flips above twice "
+                             f"the router noise {noise:.3e}: {bad[:4]}")
+
+
+def w4a8_groups(quant, tree, cpu) -> dict:
+    """{the storage address of a weight of ``cpu`` (``dequantized_on_cpu``
+    of ``tree``): its group} for every Q4 matrix of ``tree``."""
+    if isinstance(tree, dict):
+        out = {}
+        for key, value in tree.items():
+            out.update(w4a8_groups(quant, value, cpu[key]))
+        return out
+    if (isinstance(tree, quant.QuantizedLinear)
+            and tree.values.dtype == torch.uint8):
+        return {cpu.untyped_storage().data_ptr(): tree.group_size}
+    return {}
+
+
+@contextlib.contextmanager
+def w4a8_activations(llm, quant, groups):
+    """Inside, each of the model's f32 products (``llm._mm_f32``) with a
+    weight of ``groups`` (``w4a8_groups``) first quantizes its activations
+    per (row, group) to int8 (``quantize_activations_q8``), as the W4A8
+    kernel does up to KERNEL_MAX_M rows: the kernel's function on the
+    dequantized weight, its f32 sums in another order."""
+    mm = llm._mm_f32
+
+    def product(a, b):
+        g = groups.get(b.untyped_storage().data_ptr())
+        if g and a.shape[0] <= quant.KERNEL_MAX_M:
+            m, k = a.shape
+            xq, sx, _ = quant.quantize_activations_q8(a, g)
+            a = (xq.float().reshape(m, k // g, g)
+                 * sx[:, :, None]).reshape(m, k)
+        return mm(a, b)
+    llm._mm_f32 = product
+    try:
+        yield
+    finally:
+        llm._mm_f32 = mm
+
+
+def moe_sweep(dev, llm, quant, name: str, bits: int, buckets) -> dict:
+    """(c): ``name`` at its published widths cut to MOE_SWEEP's depth, Q4
+    or Q8, card against the CPU: prefill at ``buckets``, each within
+    WIDTH_TOL. The CPU's pass takes the card's experts (``RouterTap``
+    forced to the card's ids, weighted by the CPU's own scores) on the
+    matrices dequantized once (``dequantized_on_cpu``), with W4A8's
+    activation quantization where the card ran W4A8
+    (``w4a8_activations``); where its own router would have chosen other
+    experts, the flip is printed and must lie within the router's noise
+    (``router_flips``)."""
+    cfg = moe_cfg(llm, name, MOE_SWEEP[name], max(buckets))
+    params = moe_model(dev, llm, cfg, name, bits)
+    toks = torch.randint(0, cfg.vocab_size, (max(buckets),),
+                         generator=torch.Generator().manual_seed(SEED))
+    card = {}
+    for bucket in buckets:
+        tap = RouterTap(llm)
+        try:
+            lg, _ = llm.prefill(params, cfg, toks[:bucket].to(dev),
+                                bucket - 6, llm.KVCache.create(
+                                    cfg, max_seq=bucket, device=dev))
+        finally:
+            select, ids = tap.close()
+        card[bucket] = (lg.cpu(), select, ids)
+    cpu = dequantized_on_cpu(quant, params)
+    w4a8 = bits == 4 and torch.device(dev).type == "cuda"
+    groups = w4a8_groups(quant, params, cpu) if w4a8 else {}
+    del params
+    torch.cuda.empty_cache()
+    out = {"layers": cfg.n_layers, "bits": bits, "group": q4_group(cfg),
+           "rel_l2": {}, "flips": {}, "router_noise": {}}
+    for bucket in buckets:
+        length = bucket - 6
+        lg, select, ids = card[bucket]
+        tap = RouterTap(llm, forced=ids)
+        # The CPU's f32 banks take the routed formulation, the same
+        # function (tests/test_torch_moe.py holds it to dense-all-experts)
+        # at K/E of the work: dense-all on 128 experts is minutes there.
+        try:
+            with levers_on(("TRACKIE_MOE_ROUTED",)), w4a8_activations(
+                    llm, quant, groups):
+                lc, _ = llm.prefill(cpu, cfg, toks[:bucket], length,
+                                    llm.KVCache.create(cfg, max_seq=bucket,
+                                                       device="cpu"))
+        finally:
+            cpu_select, cpu_ids = tap.close()
+        if len(cpu_ids) != len(ids):
+            raise AssertionError(f"phase 17 {name}: {len(ids)} router calls "
+                                 f"on the card, {len(cpu_ids)} on the cpu")
+        tag = f"{name} Q{bits} bucket {bucket}"
+        flips, noise = router_flips(llm._top_k_first, select, ids,
+                                    cpu_select, cfg.n_experts_used, length)
+        check_router_flips(flips, noise, tag)
+        err = rel_l2(lg, lc)
+        out["rel_l2"][str(bucket)] = err
+        out["flips"][str(bucket)] = flips
+        out["router_noise"][str(bucket)] = noise
+        log(f"  {name} Q{bits} prefill bucket={bucket}: rel_l2 card vs cpu "
+            f"on the card's experts = {err:.3e} (tol {WIDTH_TOL:.0e}"
+            f"{', W4A8 activations on the cpu' if w4a8 else ''}); "
+            f"{len(flips)} router flips in {len(ids)} MoE layers x {length} "
+            f"tokens, router noise {noise:.3e}")
+        if not torch.isfinite(lg).all():
+            raise AssertionError(f"phase 17 {tag}: logits")
+        if not err < WIDTH_TOL:
+            raise AssertionError(f"phase 17 {tag}: rel_l2 {err}")
+    return out
+
+
+def moe_chunks(dev, llm) -> dict:
+    """(c): a tiny Llama-4 knob set (NoPE every 2nd layer with temperature
+    tuning at floor 64, L2-normed q/k, chunks of MOE_CHUNK, 8 experts top-1
+    input-scaled with a shared expert) in f32, card against CPU: a 150-token
+    prefill (chunks 0, 1 and 2), a 16-token extend, then decode steps
+    across the next chunk boundary, each within MOE_CHUNK_TOL."""
+    cfg = llm.LLMConfig.llama4_scout()._replace(
+        vocab_size=512, dim=256, n_layers=4, n_heads=4, n_kv_heads=2,
+        head_dim=64, hidden_dim=256, n_experts=8, moe_shared_hidden=256,
+        max_seq=512, sliding_window=512, nope_pattern=2,
+        attn_chunk=MOE_CHUNK, attn_temp_floor=float(MOE_CHUNK))
+    params = llm.init_params(torch.Generator().manual_seed(SEED), cfg,
+                             dtype=torch.float32, device="cpu")
+    sides = {"card": (llm.params_to(params, dev), dev),
+             "cpu": (params, torch.device("cpu"))}
+    toks = torch.randint(0, cfg.vocab_size, (256 + 16 + 48,),
+                         generator=torch.Generator().manual_seed(SEED))
+    logits = {}
+    for side, (p, d) in sides.items():
+        cache = llm.KVCache.create(cfg, torch.float32, device=d)
+        lg, cache = llm.prefill(p, cfg, toks[:256].to(d), 150, cache)
+        got = [lg.cpu()]
+        lg, cache = llm.extend(p, cfg, toks[256:272].to(d), 16, cache)
+        got.append(lg.cpu())
+        for i in range(48):   # positions 166..213 cross 192
+            lg, cache = llm.decode_step(p, cfg, int(toks[272 + i]), cache)
+            got.append(lg.cpu())
+        logits[side] = got
+    errs = [rel_l2(a, b) for a, b in zip(logits["card"], logits["cpu"])]
+    worst = max(errs)
+    log(f"  tiny llama4 chunk {MOE_CHUNK}: prefill 150 / extend 16 / 48 "
+        f"decode steps to position 213, rel_l2 card vs cpu max {worst:.3e} "
+        f"(tol {MOE_CHUNK_TOL:.0e})")
+    if not worst < MOE_CHUNK_TOL:
+        raise AssertionError(f"phase 17 llama4 chunks: {errs}")
+    return {"rel_l2_max": worst, "steps": len(errs)}
+
+
+def _mxfp4_blocks(rng, shape) -> tuple:
+    """Seeded MXFP4 blocks (an e8m0 scale byte and 16 nibble bytes a
+    32-block) of ``shape`` as ``write_gguf``'s raw triple."""
+    n = math.prod(shape) // 32
+    raw = np.concatenate([rng.integers(118, 126, (n, 1)).astype(np.uint8),
+                          rng.integers(0, 256, (n, 16)).astype(np.uint8)],
+                         axis=1)
+    return raw.reshape(-1), GGML_MXFP4, shape
+
+
+def moe_gguf(arch: str, seed: int):
+    """(tensors, metadata) of a 2-layer GGUF of a MoE ``arch`` at
+    FAMILY_GGUF_WIDTHS with MOE_GGUF_EXPERTS experts, as llama.cpp names
+    them: "mixtral" (llama arch with ``*_exps`` banks), qwen2moe (a gated
+    shared expert), qwen3moe (QK norms), gpt-oss (MXFP4 expert banks,
+    router and expert biases, sinks, QKV and output biases), llama4 (NoPE
+    every 2nd layer, chunks of 64, a shared expert, top-1), glm4moe (a
+    leading dense layer, QKV biases, QK norms, sigmoid routing with
+    ``exp_probs_b`` and 2 of 4 groups, an ungated shared expert) and falcon
+    (fused QKV, biased LayerNorms, two norms); F32 tensors from the seed and
+    ``spm_spec``'s vocabulary."""
+    dim, layers, heads, kv, hid, vocab = FAMILY_GGUF_WIDTHS
+    hd = dim // heads
+    qd, kvd = heads * hd, kv * hd
+    e = MOE_GGUF_EXPERTS
+    rng = np.random.default_rng(seed)
+    name = "llama" if arch == "mixtral" else arch
+
+    def m(*shape):
+        return ((rng.standard_normal(shape) / np.sqrt(shape[-1]))
+                .astype(np.float32), GGML_F32)
+
+    def vec(n, around=0.0):
+        return ((around + 0.1 * rng.standard_normal(n)).astype(np.float32),
+                GGML_F32)
+    t = {"token_embd.weight": (0.2 * rng.standard_normal(
+        (vocab, dim)).astype(np.float32), GGML_F32),
+         "output_norm.weight": vec(dim, 1.0), "output.weight": m(vocab, dim)}
+    spec = spm_spec(vocab)
+    meta = {
+        "general.architecture": name, "general.name": f"tiny {arch}",
+        f"{name}.embedding_length": dim, f"{name}.block_count": layers,
+        f"{name}.attention.head_count": heads,
+        f"{name}.attention.head_count_kv": kv,
+        f"{name}.feed_forward_length": hid, f"{name}.context_length": 1024,
+        f"{name}.attention.layer_norm_rms_epsilon": 1e-5,
+        f"{name}.rope.freq_base": 10000.0, f"{name}.vocab_size": vocab,
+        "tokenizer.ggml.model": "llama",
+        "tokenizer.ggml.tokens": spec["tokens"],
+        "tokenizer.ggml.scores": spec["scores"],
+        "tokenizer.ggml.token_type": spec["token_types"],
+        "tokenizer.ggml.bos_token_id": 1, "tokenizer.ggml.eos_token_id": 2,
+        "tokenizer.ggml.unknown_token_id": 0,
+        "tokenizer.ggml.padding_token_id": spec["pad_id"],
+        "tokenizer.ggml.add_space_prefix": spec["add_space_prefix"],
+    }
+    if arch == "falcon":
+        t["output_norm.bias"] = vec(dim)
+        meta["falcon.attention.layer_norm_epsilon"] = 1e-5
+        for i in range(layers):
+            p = f"blk.{i}"
+            for norm in ("attn_norm", "attn_norm_2"):
+                t[f"{p}.{norm}.weight"] = vec(dim, 1.0)
+                t[f"{p}.{norm}.bias"] = vec(dim)
+            t[f"{p}.attn_qkv.weight"] = m(qd + 2 * kvd, dim)
+            t[f"{p}.attn_output.weight"] = m(dim, qd)
+            t[f"{p}.ffn_up.weight"] = m(hid, dim)
+            t[f"{p}.ffn_down.weight"] = m(dim, hid)
+        return t, meta
+    meta.update({f"{name}.expert_count": e,
+                 f"{name}.expert_used_count": 1 if arch == "llama4" else 2,
+                 f"{name}.expert_feed_forward_length": hid})
+    if arch == "qwen2moe":
+        meta["qwen2moe.expert_shared_feed_forward_length"] = hid
+    if arch == "llama4":
+        meta.update({"llama4.interleave_moe_layer_step": 1,
+                     "llama4.no_rope_layer_interval": 2,
+                     "llama4.attention.chunk_size": 64,
+                     "llama4.attention.temperature_length": 64.0,
+                     "llama4.attention.use_kq_norm": True})
+    if arch == "glm4moe":
+        meta.update({"glm4moe.leading_dense_block_count": 1,
+                     "glm4moe.expert_gating_func": 2,
+                     "glm4moe.expert_weights_norm": True,
+                     "glm4moe.expert_weights_scale": 2.5,
+                     "glm4moe.expert_group_count": 4,
+                     "glm4moe.expert_group_used_count": 2,
+                     "glm4moe.rope.dimension_count": hd // 2})
+    if arch == "gpt-oss":
+        meta["gpt-oss.attention.sliding_window"] = 128
+    for i in range(layers):
+        p = f"blk.{i}"
+        t[f"{p}.attn_norm.weight"] = vec(dim, 1.0)
+        t[f"{p}.ffn_norm.weight"] = vec(dim, 1.0)
+        t[f"{p}.attn_q.weight"] = m(qd, dim)
+        t[f"{p}.attn_k.weight"] = m(kvd, dim)
+        t[f"{p}.attn_v.weight"] = m(kvd, dim)
+        t[f"{p}.attn_output.weight"] = m(dim, qd)
+        if arch in ("gpt-oss", "glm4moe"):
+            t[f"{p}.attn_q.bias"] = vec(qd)
+            t[f"{p}.attn_k.bias"] = vec(kvd)
+            t[f"{p}.attn_v.bias"] = vec(kvd)
+        if arch == "gpt-oss":
+            t[f"{p}.attn_output.bias"] = vec(dim)
+            t[f"{p}.attn_sinks.weight"] = vec(heads)
+        if arch in ("qwen3moe", "glm4moe"):
+            t[f"{p}.attn_q_norm.weight"] = vec(hd, 1.0)
+            t[f"{p}.attn_k_norm.weight"] = vec(hd, 1.0)
+        if arch == "glm4moe" and i == 0:
+            t[f"{p}.ffn_gate.weight"] = m(2 * hid, dim)
+            t[f"{p}.ffn_up.weight"] = m(2 * hid, dim)
+            t[f"{p}.ffn_down.weight"] = m(dim, 2 * hid)
+            continue
+        bank = ((lambda *s: _mxfp4_blocks(rng, s)) if arch == "gpt-oss"
+                else m)
+        t[f"{p}.ffn_gate_inp.weight"] = (3.0 * m(e, dim)[0], GGML_F32)
+        t[f"{p}.ffn_gate_exps.weight"] = bank(e, hid, dim)
+        t[f"{p}.ffn_up_exps.weight"] = bank(e, hid, dim)
+        t[f"{p}.ffn_down_exps.weight"] = bank(e, dim, hid)
+        if arch == "gpt-oss":
+            t[f"{p}.ffn_gate_inp.bias"] = vec(e)
+            t[f"{p}.ffn_gate_exps.bias"] = (0.1 * m(e, hid)[0], GGML_F32)
+            t[f"{p}.ffn_up_exps.bias"] = (0.1 * m(e, hid)[0], GGML_F32)
+            t[f"{p}.ffn_down_exps.bias"] = (0.1 * m(e, dim)[0], GGML_F32)
+        if arch in ("qwen2moe", "llama4", "glm4moe"):
+            t[f"{p}.ffn_gate_shexp.weight"] = m(hid, dim)
+            t[f"{p}.ffn_up_shexp.weight"] = m(hid, dim)
+            t[f"{p}.ffn_down_shexp.weight"] = m(dim, hid)
+        if arch == "qwen2moe":
+            t[f"{p}.ffn_gate_inp_shexp.weight"] = m(1, dim)
+        if arch == "glm4moe":
+            t[f"{p}.exp_probs_b.bias"] = vec(e, -0.3)
+    return t, meta
+
+
+def moe_cli(dev, llm, runner_mod, tokenizer_mod, checkpoint, cli,
+            counters) -> dict:
+    """(d): each MOE_GGUF_ARCHES file through ``inspect``, ``convert --bits
+    8`` (and ``--bits 4`` for MOE_GGUF_BITS4) and ``generate`` on the card
+    (the CLI, in-process); then each checkpoint's MOE_GGUF_TOKENS greedy
+    ids on the card equal the CPU's, float leaves widened to f32 on both
+    (as phase 16 (c))."""
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as tmp:
+        for arch in MOE_GGUF_ARCHES:
+            path = os.path.join(tmp, f"{arch}.gguf")
+            tensors, meta = moe_gguf(arch, SEED)
+            write_gguf(path, tensors, meta)
+            rc, text, _ = run_cli(cli, ["inspect", path])
+            if rc != 0 or not text.strip():
+                raise AssertionError(f"phase 17 {arch}: inspect exited {rc}")
+            for bits in ((8, 4) if arch == MOE_GGUF_BITS4 else (8,)):
+                tag = f"{arch} --bits {bits}"
+                ckpt = os.path.join(tmp, f"{arch}-{bits}")
+                rc, text, conv_s = run_cli(cli, ["convert", path, "-o", ckpt,
+                                                 "--bits", str(bits)])
+                if rc != 0:
+                    raise AssertionError(f"phase 17 {tag}: convert exited "
+                                         f"{rc}")
+                for fn in counters.values():
+                    fn.launches = 0
+                rc, text, gen_s = run_cli(cli, [
+                    "generate", ckpt, "-p", "descreva a cena",
+                    "--max-tokens", str(MOE_GGUF_TOKENS), "--temperature",
+                    "0"])
+                launches = {k: fn.launches for k, fn in counters.items()}
+                if rc != 0:
+                    raise AssertionError(f"phase 17 {tag}: generate exited "
+                                         f"{rc} and printed {text!r}")
+                ran = ("q8_matmul",) if bits == 8 else (
+                    "q4_matmul_w4a8", "quantize_activations")
+                expect_routes(launches, ran, ("q4_matmul_f32a",
+                                              *DIAGNOSTIC),
+                              f"phase 17 {tag}")
+                ids = []
+                for device in (dev, torch.device("cpu")):
+                    params, cfg, meta = checkpoint.load_checkpoint(
+                        ckpt, device=device)
+                    r = runner_mod.LLMRunner(
+                        _widened(params), cfg,
+                        tokenizer_mod.tokenizer_from_spec(
+                            meta["tokenizer_spec"]),
+                        runner_mod.GenerationConfig(
+                            max_tokens=MOE_GGUF_TOKENS, temperature=0.0,
+                            speculative=False),
+                        cache_dtype=torch.float32, device=device)
+                    r.generate("descreva a cena a sua frente")
+                    ids.append(r.generated_ids)
+                log(f"  {tag}: convert {conv_s:.2f} s, generate exit {rc} "
+                    f"in {gen_s:.2f} s; card ids == cpu ids: "
+                    f"{ids[0] == ids[1]} ({len(ids[0])} ids); experts "
+                    f"{cfg.n_experts} top-{cfg.n_experts_used}, router "
+                    f"{cfg.moe_score_func}")
+                if ids[0] != ids[1] or not ids[0]:
+                    raise AssertionError(f"phase 17 {tag}: card ids {ids[0]} "
+                                         f"against cpu ids {ids[1]}")
+                out[tag] = {"convert_s": conv_s, "generate_s": gen_s,
+                            "ids": len(ids[0]), "launches": launches}
+    return out
+
+
+def moe_profile_child() -> dict:
+    """(a)'s profile in a process of its own (this script with
+    MOE_PROFILE_FLAG): ``profile_path`` of gpt-oss-20b over
+    MOE_PROFILE_TOKENS decode tokens."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), MOE_PROFILE_FLAG],
+        capture_output=True, text=True, timeout=MOE_PROFILE_TIMEOUT)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"phase 17: the profile's process exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    for line in lines[:-1]:
+        log(line)
+    return json.loads(lines[-1])
+
+
+def moe_profile_main(dev) -> int:
+    """The child of ``moe_profile_child``."""
+    from trackiellm_tpu_torch.llm import runner as runner_mod
+    from trackiellm_tpu_torch.llm import tokenizer as tokenizer_mod
+    from trackiellm_tpu_torch.models import llm
+    from trackiellm_tpu_torch.ops import _build
+    _build.library()
+    name = "gpt_oss_20b"
+    w4a8 = launch_counters()["q4_matmul_w4a8"]
+    cfg = moe_cfg(llm, name, 0, MOE_GPTOSS_MAX_SEQ)
+    params = moe_model(dev, llm, cfg, name)
+    prof = profile_path(dev, runner_mod, tokenizer_mod, params, cfg,
+                        tokens=MOE_PROFILE_TOKENS, lookahead=1)
+    # The runner decodes a lookahead chunk ahead of the tokens it has
+    # given, so the window's decode steps exceed its tokens: one step's
+    # W4A8 launches (counted on a step alone) give the steps.
+    cache = llm.KVCache.create(cfg, max_seq=64, device=dev)
+    _, cache = llm.prefill(params, cfg, torch.zeros(64, dtype=torch.long,
+                                                    device=dev), 8, cache)
+    before = w4a8.launches
+    llm.decode_step(params, cfg, 1, cache)
+    per_step = w4a8.launches - before
+    dec = prof["decode"]
+    if "wrapper_launches" in dec:
+        steps = dec["wrapper_launches"]["q4_matmul_w4a8"] / per_step
+        dec["steps_per_token"] = steps
+        dec["per_step"] = {k: dec[k] / steps for k in (
+            "wall_ms", "busy_ms", "launches")}
+        log(f"  {name} decode: {steps:.3f} steps a token ({per_step} W4A8 "
+            f"launches a step); a step {dec['per_step']}")
+    print(json.dumps({name: prof}), flush=True)
+    return 0
+
+
+def phase_moe(dev, llm, runner_mod, tokenizer_mod, server_mod, paging,
+              measure, checkpoint, quant, cli, counters, profile) -> dict:
+    """Phase 17 (the comment above MOE_TOKENS). Returns the ``moe`` line's
+    numbers and the launches of (a)'s generate path."""
+    t0 = time.perf_counter()
+    out, parts = {}, {}
+
+    def lap(part: str) -> None:
+        parts[part] = time.perf_counter() - t0 - sum(parts.values())
+        log(f"  phase 17 ({part}) took {parts[part]:.1f} s")
+    cfg = moe_cfg(llm, "gpt_oss_20b", 0, MOE_GPTOSS_MAX_SEQ)
+    params = moe_model(dev, llm, cfg, "gpt_oss_20b")
+    gptoss = family_generate(dev, llm, runner_mod, tokenizer_mod, params, cfg,
+                             counters, "gpt_oss_20b", tokens=MOE_TOKENS,
+                             phase="phase 17", warm=4)
+    gptoss["serve"] = moe_serve(dev, llm, tokenizer_mod, server_mod, paging,
+                                measure, params, cfg, counters)
+    del params
+    torch.cuda.empty_cache()
+    gptoss["int8_pool"] = moe_pool(dev, llm, tokenizer_mod, server_mod,
+                                   paging, measure)
+    out["gpt_oss_20b"] = gptoss
+    lap("a")
+    out["qwen3_moe_30b_a3b"] = moe_qwen3(dev, llm, runner_mod, tokenizer_mod,
+                                         counters, MOE_QWEN3_LAYERS)
+    torch.cuda.empty_cache()
+    lap("b")
+    out["profile"] = profile()
+    for name, prof in out["profile"].items():
+        dec = prof.get("decode", {})
+        log(f"  {name} profile, a decode token: wall {dec.get('wall_ms')} "
+            f"ms, busy {dec.get('busy_ms')} ms, idle share "
+            f"{dec.get('idle_share')}, {dec.get('launches')} launches; a "
+            f"decode step {dec.get('per_step')}")
+    lap("profiles")
+    out["sweep"] = {}
+    for name in MOE_SWEEP:
+        out["sweep"][name] = moe_sweep(dev, llm, quant, name, 4, MOE_BUCKETS)
+        torch.cuda.empty_cache()
+    name, bucket = MOE_SWEEP_Q8
+    out["sweep"][f"{name} Q8"] = moe_sweep(dev, llm, quant, name, 8,
+                                           (bucket,))
+    out["chunks"] = moe_chunks(dev, llm)
+    lap("c")
+    out["gguf"] = moe_cli(dev, llm, runner_mod, tokenizer_mod, checkpoint,
+                          cli, counters)
+    lap("d")
+    out["launches"] = out["gpt_oss_20b"]["launches"]
+    out["seconds"] = time.perf_counter() - t0
+    out["part_seconds"] = parts
+    log(f"  phase 17 took {out['seconds']:.1f} s")
+    return out
+
+
 def serve_config(llm):
     """Phases 5-7 and 12's configuration: Mistral-7B cut to max_seq 512."""
     return llm.LLMConfig.mistral_7b()._replace(max_seq=512,
@@ -4153,10 +5068,12 @@ def serve_config(llm):
 
 # Phases 6, 7 and 12 run Mistral-7B cut to CUT_LAYERS layers (phase 6
 # builds its Q8 model so; 7 and 12 take views of phase 5's first layers):
-# depth cut so that phases 1-16 stay near the 900-s aim once phase 16's
-# families joined (phases 1-16 took 1,006.7 s at 32 layers). Phase 5, the
-# main path, keeps all 32.
-CUT_LAYERS = 16
+# depth cut so that the smoke stays near its 1,000-s aim as phases join
+# (phases 1-16 took 1,006.7 s at 32 layers; 16 once phase 16 joined; 4
+# since phase 17 joined: phases 1-17 took 1,156.6 s with 8 here, phase
+# 11's GGUF at 4 layers and phase 16's models at 21 and 16, on an H100
+# 80GB HBM3 at 700 W). Phase 5, the main path, keeps all 32.
+CUT_LAYERS = 4
 
 
 def result_line(kind: str) -> str:
@@ -4260,6 +5177,8 @@ def main() -> int:
         return 0
     if sys.argv[1:] == [FAMILY_PROFILE_FLAG]:
         return family_profile_main(dev)
+    if sys.argv[1:] == [MOE_PROFILE_FLAG]:
+        return moe_profile_main(dev)
     smi = nvidia_smi()
     log(f"phase 1 device: torch {torch.__version__} cuda {torch.version.cuda}"
         f" capability {cap} | {smi}")
@@ -4369,17 +5288,30 @@ def main() -> int:
     app = phase_app(dev, cli, counters, app_e2e_child)
     launches[15] = app["launches"]
     banner("phase 16 dense families (Gemma-2-9B and Llama-3.1-8B Q4 at "
-           "their widths, the 2-layer sweep of the other presets, "
+           "their widths, 8 layers, the 2-layer sweep of the other "
+           "presets, "
            "Command-R, Nemotron and StarCoder2 GGUFs):")
     families = phase_families(
         dev, llm, runner_mod, tokenizer_mod, server_mod, paging,
         measure_server, checkpoint, attention, quant, cli, counters,
         family_profile_child)
     launches[16] = families["launches"]
+    banner("phase 17 MoE families (gpt-oss-20b at its widths and depth, "
+           f"Qwen3-30B-A3B cut to {MOE_QWEN3_LAYERS} layers, Q4; the 2-layer "
+           "sweep of the other MoE presets, Llama-4 at 4; tiny gpt-oss and "
+           "Llama-4 on the int8 pool and a tiny Llama-4 across chunks; the "
+           "MoE GGUF arches):")
+    moe = phase_moe(dev, llm, runner_mod, tokenizer_mod, server_mod, paging,
+                    measure_server, checkpoint, quant, cli, counters,
+                    moe_profile_child)
+    launches[17] = moe["launches"]
     log(f"chip_smoke wall: {time.perf_counter() - t0:.1f} s since the build "
         "began")
 
     smi = nvidia_smi()
+    print(json.dumps({"moe": moe, "moe_kernels": {
+        k: [r for r in v if r["case"].startswith("gpt-oss")]
+        for k, v in rows.items()}, "card": smi}), flush=True)
     print(json.dumps({"families": families, "card": smi}), flush=True)
     print(json.dumps({"app": app, "card": smi}), flush=True)
     print(json.dumps({"vision": vision, "card": smi}), flush=True)

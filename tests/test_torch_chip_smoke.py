@@ -11,11 +11,23 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(ROOT, "chip_smoke.py")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The phase rehearsals are host-bound at tiny widths; beside other
+    test processes, torch's thread pool oversubscribes the cores and
+    slows them (and their neighbours) many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _load():
@@ -610,6 +622,7 @@ def test_main_prints_the_voice_line_before_the_last_five(monkeypatch,
     monkeypatch.setattr(cs, "phase_app", lambda *a, **k: {"launches": {}})
     monkeypatch.setattr(cs, "phase_families", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_moe", lambda *a, **k: {"launches": {}})
     assert cs.main() == 0
     lines = capsys.readouterr().out.strip().splitlines()[-6:]
     assert json.loads(lines[0]) == {"voice": {"n": 13},
@@ -665,6 +678,7 @@ def test_main_prints_the_vision_line_before_the_voice_line(monkeypatch,
     monkeypatch.setattr(cs, "phase_app", lambda *a, **k: {"launches": {}})
     monkeypatch.setattr(cs, "phase_families", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_moe", lambda *a, **k: {"launches": {}})
     assert cs.main() == 0
     assert seen == [13, (14, True)]
     lines = capsys.readouterr().out.strip().splitlines()[-7:]
@@ -806,10 +820,11 @@ def test_main_prints_the_app_line_before_the_vision_line(monkeypatch,
         {"phase15": launches[15]}))
     monkeypatch.setattr(cs, "phase_families", lambda *a, **k: {
         "launches": {}, "n": 16})
+    monkeypatch.setattr(cs, "phase_moe", lambda *a, **k: {"launches": {}})
     assert cs.main() == 0
     assert seen == [True]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-10].startswith("chip_smoke wall: ")
+    assert lines[-11].startswith("chip_smoke wall: ")
     assert json.loads(lines[-9])["families"] == {"launches": {}, "n": 16}
     assert json.loads(lines[-8]) == {"app": {
         "launches": {"q4_matmul_w4a8": 7}, "n": 15},
@@ -934,15 +949,20 @@ def test_phase16_groups_divide_every_family_k():
 
 
 def test_phase16_configs_keep_the_published_widths_and_windows():
-    """Phase 16's configs: Gemma-2-9B as published (max_seq 8192, the
-    alternating window of 4096 on); Llama-3 at max_seq 2048; the sweep at 2
+    """Phase 16's configs: Gemma-2-9B as published but its depth (8 of 42
+    layers; max_seq 8192, the alternating window of 4096 on its even
+    layers); Llama-3 at 8 layers and max_seq 2048; the sweep at 2
     layers with every window that was on still on and each long prompt
     past it; Phi-3 as its 128k longrope variant; phase 3's family cases."""
     from trackiellm_tpu_torch.models import llm
     cs = _load()
     g = cs.family_cfg(llm, "gemma2_9b")
-    assert g == llm.LLMConfig.gemma2_9b() and llm._layer_window(g) == 4096
-    assert cs.family_cfg(llm, "llama3_8b").max_seq == 2048
+    assert g == llm.LLMConfig.gemma2_9b()._replace(n_layers=8)
+    assert llm._layer_window(g) == 4096
+    assert {llm._is_sliding(g, li) for li in range(g.n_layers)} == {
+        True, False}
+    ll = cs.family_cfg(llm, "llama3_8b")
+    assert ll.max_seq == 2048 and ll.n_layers == 8
     for name in cs.FAMILY_SWEEP:
         pub = getattr(llm.LLMConfig, name)()
         cfg = cs.family_cfg(llm, name)
@@ -1034,4 +1054,289 @@ def test_phase16_on_the_cpu(monkeypatch, capsys):
                 "serve paged_int8_chunk8:", "card ids == cpu ids: True",
                 "layernorm norm, act relu2, gated False",
                 "phase 16 took"):
+        assert tag in text, tag
+
+
+def test_main_prints_the_moe_line_before_the_families_line(monkeypatch,
+                                                           capsys):
+    """Phase 17 runs after phase 16 with its profiling child; its line (with
+    phase 3's MoE rows) comes just before the families line, the smoke's
+    wall on a line before it, and the kernels line counts its launches."""
+    from trackiellm_tpu_torch.ops import _build
+    cs = _load()
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda *a: (9, 0))
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "H100")
+    monkeypatch.setattr(cs, "nvidia_smi", lambda: "H100, 700.00 W")
+    monkeypatch.setattr(_build, "build", lambda: _build.BUILD_ROOT / "x")
+    monkeypatch.setattr(_build, "library", lambda: None)
+    rows = {name: [] for name in cs.KERNELS}
+    rows["q4_matmul_w4a8"] = [{"case": "gpt-oss w_gu G=32 M=1"},
+                              {"case": "w_gu M=1"}]
+    for name, value in (("phase_kernels", rows), ("phase_width", None),
+                        ("build_model", {"layers": {}}), ("profile_path", {}),
+                        ("expect_routes", None), ("phase_entry", None),
+                        ("phase_diagnostics", {})):
+        monkeypatch.setattr(cs, name, lambda *a, v=value, **k: v)
+    monkeypatch.setattr(cs, "drive", lambda *a, **k: {
+        "quantize_activations": 1, "q4_matmul_w4a8": 1})
+    for name, n in (("phase_slice10", 10), ("phase_gguf", 11),
+                    ("phase_serve", 12), ("phase_app", 15),
+                    ("phase_families", 16)):
+        monkeypatch.setattr(cs, name, lambda *a, n=n, **k: {
+            "launches": {}, "n": n})
+    monkeypatch.setattr(cs, "phase_voice", lambda *a, **k: {"n": 13})
+    monkeypatch.setattr(cs, "phase_vision", lambda *a, **k: {"n": 14})
+    seen = []
+    monkeypatch.setattr(cs, "phase_moe", lambda *a, **k: (
+        seen.append(a[-1] is cs.moe_profile_child),
+        {"launches": {"q4_matmul_w4a8": 9}, "n": 17})[1])
+    monkeypatch.setattr(cs, "kernels_line", lambda rows, launches: json.dumps(
+        {"phase17": launches[17]}))
+    assert cs.main() == 0
+    assert seen == [True]
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[-11].startswith("chip_smoke wall: ")
+    moe = json.loads(lines[-10])
+    assert moe["moe"] == {"launches": {"q4_matmul_w4a8": 9}, "n": 17}
+    assert moe["moe_kernels"]["q4_matmul_w4a8"] == [
+        {"case": "gpt-oss w_gu G=32 M=1"}]
+    assert json.loads(lines[-9])["families"]["n"] == 16
+    assert json.loads(lines[-2]) == {"phase17": {"q4_matmul_w4a8": 9}}
+
+
+def test_moe_profile_child_fails_without_a_card(monkeypatch):
+    cs = _load()
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    with pytest.raises(AssertionError, match="no CUDA device"):
+        cs.moe_profile_child()
+
+
+def test_phase17_configs_keep_the_published_widths():
+    """Phase 17's configs: gpt-oss-20b at its 24 layers with max_seq cut to
+    4096 (its window of 128 on), Qwen3-30B-A3B at 12 to 48 layers; the sweep
+    keeps every width, expert count and top-k, at 2 layers (Llama-4 at 4,
+    so that a NoPE layer runs); q4_group gives gpt-oss group 32 (K/2 =
+    1440) and the Qwen3 experts 128; the int8 pool's tiny knob sets keep
+    sinks, a window, chunks and a NoPE layer; phase 3's MoE cases."""
+    from trackiellm_tpu_torch.models import llm
+    cs = _load()
+    g = cs.moe_cfg(llm, "gpt_oss_20b", 0, cs.MOE_GPTOSS_MAX_SEQ)
+    assert g._replace(max_seq=131072) == llm.LLMConfig.gpt_oss_20b()
+    assert llm._layer_window(g) == 128 and cs.q4_group(g) == 32
+    q = cs.moe_cfg(llm, "qwen3_moe_30b_a3b", cs.MOE_QWEN3_LAYERS,
+                   cs.MOE_QWEN3_MAX_SEQ)
+    assert 48 >= q.n_layers >= 12 and cs.q4_group(q) == 128
+    assert set(cs.MOE_SWEEP) == set(llm.MOE_PRESETS) - {"gpt_oss_20b"}
+    for name, layers in cs.MOE_SWEEP.items():
+        pub = getattr(llm.LLMConfig, name)()
+        cfg = cs.moe_cfg(llm, name, layers, max(cs.MOE_BUCKETS))
+        keep = ("dim", "hidden_dim", "n_heads", "n_kv_heads", "head_dim",
+                "vocab_size", "n_experts", "n_experts_used",
+                "moe_shared_hidden")
+        assert all(getattr(cfg, k) == getattr(pub, k) for k in keep), name
+        assert cfg.n_layers == (4 if name == "llama4_scout" else 2)
+    assert any(llm._is_nope(cs.moe_cfg(llm, "llama4_scout", 4), li)
+               for li in range(4))
+    assert cs.MOE_SWEEP_Q8[0] in cs.MOE_SWEEP
+    gp, l4 = (cs.moe_pool_cfg(llm, n) for n in cs.MOE_POOL)
+    assert gp.attn_sinks and llm._layer_window(gp) == cs.MOE_POOL_SPAN
+    assert l4.attn_chunk == cs.MOE_POOL_SPAN and any(
+        llm._is_nope(l4, li) for li in range(l4.n_layers))
+    shapes = {(k, n, g) for _, k, n, g, _, _ in cs.MOE_MATMULS}
+    assert {(2880, 5760, 32), (2880, 2880, 32), (2880, 201088, 32)} == shapes
+    for _, _, n, _, ms, kernels in cs.MOE_MATMULS:
+        if n == 201088:
+            assert ms == (1,) and kernels == ("q4_matmul_w4a8",)
+        else:
+            assert ms == (1, 8, 512) and set(kernels) == {
+                "q4_matmul_w4a8", "q4_matmul_f32a", "q8_matmul"}
+    d, heads, s, variants = cs.MOE_FLASH
+    assert (d, heads, s) == (64, (64, 8), 512)
+    assert {"sinks": True, "window": 128} in variants.values()
+    assert {"sinks": True} in variants.values()
+
+
+def test_a_router_flip_above_its_margin_fails_the_run(capsys):
+    """``router_flips`` finds the tokens where the CPU's own top-k is not
+    the card's experts, with the CPU's margin there, and measures the
+    router's noise on the tokens that did not flip; ``check_router_flips``
+    passes a flip whose margin is within twice that noise and fails the
+    run on one whose card values moved far more than the noise."""
+    from trackiellm_tpu_torch.models import llm
+    cs = _load()
+    top_k = llm._top_k_first
+    cpu = torch.tensor([[3.0, 2.0, 1.0, 0.0], [3.0, 2.0, 1.99, 0.0],
+                        [0.0, 1.0, 2.0, 3.0]])
+    card = cpu.clone()
+    card[0, 1] += 0.006         # rounding: no flip, the noise
+    card[1, 1:3] = torch.tensor([1.995, 1.996])   # margin 0.01 crossed
+    card[2, 1:3] = torch.tensor([2.5, 1.5])       # margin 1.0 crossed
+    ids = top_k(card, 2)
+    flips, noise = cs.router_flips(top_k, [card], [ids], [cpu], 2, 2)
+    assert [(f["layer"], f["token"]) for f in flips] == [(0, 1)]
+    f = flips[0]
+    assert (f["card"], f["cpu"]) == ([0, 2], [0, 1]) and f["explained"]
+    assert abs(f["margin"] - 0.01) < 1e-6 and abs(noise - 0.006) < 1e-6
+    cs.check_router_flips(flips, noise, "near tie")
+    flips, noise = cs.router_flips(top_k, [card], [ids], [cpu], 2, 3)
+    assert [f["token"] for f in flips] == [1, 2]
+    assert flips[0]["explained"] and not flips[1]["explained"]
+    assert abs(flips[1]["margin"] - 1.0) < 1e-6
+    with pytest.raises(AssertionError, match="above twice the router"):
+        cs.check_router_flips(flips, noise, "moved")
+    assert "NOT explained" in capsys.readouterr().out
+    assert cs.router_flips(top_k, [cpu], [top_k(cpu, 2)], [cpu], 2, 3) == (
+        [], 0.0)
+    with pytest.raises(AssertionError, match="router calls"):
+        cs.router_flips(top_k, [cpu], [], [cpu], 2, 2)
+
+
+def test_router_tap_forces_the_card_experts():
+    """``RouterTap`` keeps each MoE layer's selection values and expert
+    ids and restores the router on close; forced to ids, each layer runs
+    those experts on its own scores: forced to its own ids the logits keep
+    their bits, forced to others they move."""
+    from trackiellm_tpu_torch.models import llm
+    cs = _load()
+    cfg = _tiny_moe_cfg(cs)(llm, "qwen3_moe_30b_a3b")
+    params = llm.init_params(torch.Generator().manual_seed(0), cfg,
+                             dtype=torch.float32, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (16,),
+                         generator=torch.Generator().manual_seed(1))
+    router = llm._moe_router
+
+    def run(forced=None):
+        tap = cs.RouterTap(llm, forced)
+        try:
+            lg, _ = llm.prefill(params, cfg, toks, 16, llm.KVCache.create(
+                cfg, torch.float32, max_seq=16, device="cpu"))
+        finally:
+            select, ids = tap.close()
+        assert llm._moe_router is router
+        return lg, select, ids
+    lg, select, ids = run()
+    assert len(select) == len(ids) == cfg.n_layers
+    assert select[0].shape == (16, cfg.n_experts)
+    assert ids[0].shape == (16, cfg.n_experts_used)
+    same, _, same_ids = run(ids)
+    assert torch.equal(same, lg)
+    assert all(torch.equal(a, b) for a, b in zip(same_ids, ids))
+    other = [(i + 1) % cfg.n_experts for i in ids]
+    moved, _, got = run(other)
+    assert all(torch.equal(a, b) for a, b in zip(got, other))
+    assert not torch.allclose(moved, lg)
+
+
+def test_w4a8_activations_are_the_kernels_plain_function():
+    """Inside ``w4a8_activations`` the model's product with a dequantized
+    Q4 weight (``dequantized_on_cpu``, found by ``w4a8_groups``) is the
+    W4A8 kernel's plain version, activations quantized per (row, group),
+    within 1e-5; another weight, or more rows than KERNEL_MAX_M, keeps the
+    exact product, and the product is restored on exit."""
+    from trackiellm_tpu_torch.models import llm
+    from trackiellm_tpu_torch.ops import quant
+    cs = _load()
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy(rng.standard_normal((128, 48)).astype(np.float32))
+    qw = quant.quantize_q4(w, 32)
+    tree = {"w": qw, "other": w.clone()}
+    cpu = cs.dequantized_on_cpu(quant, tree)
+    groups = cs.w4a8_groups(quant, tree, cpu)
+    assert list(groups.values()) == [32]
+    x = torch.from_numpy(rng.standard_normal((8, 128)).astype(np.float32))
+    big = torch.from_numpy(rng.standard_normal(
+        (quant.KERNEL_MAX_M + 1, 128)).astype(np.float32))
+    want = quant.q4_matmul_w4a8_ref(x, qw.values, qw.scales)
+    mm = llm._mm_f32
+    with cs.w4a8_activations(llm, quant, groups):
+        got = llm._mm_f32(x, cpu["w"])
+        assert torch.equal(llm._mm_f32(x, cpu["other"]), mm(x, w))
+        assert torch.equal(llm._mm_f32(big, cpu["w"]), mm(big, cpu["w"]))
+    assert llm._mm_f32 is mm
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+    assert rel(got, want) < 1e-5
+    assert rel(mm(x, cpu["w"]), want) > 100 * rel(got, want)
+
+
+def _tiny_moe_cfg(cs):
+    """Phase 17's configs at widths the CPU runs in seconds, knob sets and
+    expert counts cut as tests/test_torch_moe_models.py cuts them."""
+    def moe_cfg(llm, name, layers=0, max_seq=0):
+        c = getattr(llm.LLMConfig, name)()
+        e = min(c.n_experts, 8)
+        return c._replace(
+            vocab_size=320, dim=64, n_layers=2, n_heads=4,
+            n_kv_heads=4 // min(c.n_heads // c.n_kv_heads, 4), head_dim=16,
+            hidden_dim=64, max_seq=max_seq or 512,
+            sliding_window=24 if c.sliding_window < c.max_seq else 512,
+            n_experts=e, n_experts_used=min(c.n_experts_used, e // 2),
+            moe_shared_hidden=64 if c.moe_shared_hidden else 0,
+            nope_pattern=2 if c.nope_pattern else 0,
+            attn_chunk=16 if c.attn_chunk else 0)
+    return moe_cfg
+
+
+def test_phase17_on_the_cpu(monkeypatch, capsys):
+    """Phase 17's control flow on the CPU at tiny widths (the profile child
+    faked, the routes' check recorded): (a) generates at lookahead 4 and 1
+    with equal ids and serves its bursts (dense per step and chunked with
+    equal ids, the int8 pool chunked); (b) answers the cortex prompt; (c)
+    sweeps every MoE preset card against CPU (the same CPU here, its second
+    side on the routed formulation: within WIDTH_TOL or with explained
+    flips) and runs the tiny Llama-4 across its chunks; (d) converts the
+    seven GGUFs on the CPU and answers with equal ids."""
+    from trackiellm_tpu_torch import __main__ as cli
+    from trackiellm_tpu_torch.llm import paging, runner, server, tokenizer
+    from trackiellm_tpu_torch.models import checkpoint, llm
+    from trackiellm_tpu_torch.ops import quant
+    from trackiellm_tpu_torch.tools import measure_server
+    cs = _load()
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
+    monkeypatch.setattr(cli, "_device", lambda name, verb: cpu)
+    monkeypatch.setattr(cs, "moe_cfg", _tiny_moe_cfg(cs))
+    monkeypatch.setattr(cs, "MOE_TOKENS", 5)
+    monkeypatch.setattr(cs, "MOE_QWEN3_TOKENS", 4)
+    monkeypatch.setattr(cs, "MOE_GGUF_TOKENS", 5)
+    monkeypatch.setattr(cs, "MOE_POOL_TOKENS", 5)
+    monkeypatch.setattr(cs, "FAMILY_GGUF_WIDTHS", (512, 2, 4, 2, 512, 320))
+    routes = []
+    monkeypatch.setattr(cs, "expect_routes", lambda launches, ran, idle,
+                        phase: routes.append(phase))
+    out = cs.phase_moe(cpu, llm, runner, tokenizer, server, paging,
+                       measure_server, checkpoint, quant, cli,
+                       cs.launch_counters(),
+                       lambda: {"gpt_oss_20b": {"decode": {"wall_ms": 1.0}}})
+    assert set(out["sweep"]) == set(cs.MOE_SWEEP) | {
+        f"{cs.MOE_SWEEP_Q8[0]} Q8"}
+    for name, res in out["sweep"].items():   # the CPU side routes
+        for bucket, err in res["rel_l2"].items():
+            assert err < cs.WIDTH_TOL, name
+            assert all(f["explained"] for f in res["flips"][bucket])
+    assert out["chunks"]["rel_l2_max"] == 0.0
+    assert set(out["gguf"]) == {f"{a} --bits 8" for a in cs.MOE_GGUF_ARCHES
+                                } | {f"{cs.MOE_GGUF_BITS4} --bits 4"}
+    serve = out["gpt_oss_20b"]["serve"]
+    assert serve["dense_vs_int8"]["equal"] == sum(
+        p is None for p in serve["dense_vs_int8"]["first_divergence"])
+    pool = out["gpt_oss_20b"]["int8_pool"]
+    assert set(pool) == set(cs.MOE_POOL)
+    assert all(r["requests"] == r["equal"] == cs.SERVE_SLOTS and r["ids"]
+               for r in pool.values())
+    assert routes[:5] == ["phase 17 gpt_oss_20b",
+                          "phase 17 serve dense_chunk1",
+                          "phase 17 serve dense_chunk8",
+                          "phase 17 serve int8_chunk8", "phase 17 qwen3"]
+    text = capsys.readouterr().out
+    for tag in ("gpt_oss_20b: lookahead 4 == lookahead 1",
+                "serve dense: chunk8 ids == per-step ids",
+                "serve dense vs int8 pool: ids equal on",
+                "on the int8 pool: card ids == cpu ids on 8/8",
+                "card ids == cpu ids: True", "router sigmoid",
+                "tiny llama4 chunk", "phase 17 took"):
         assert tag in text, tag

@@ -100,7 +100,21 @@ ARCHES = {
     "qwen2moe": {"experts": True, "shared": True},
     "gpt-oss": {"experts": True, "moe_bias": True, "sinks": True,
                 "qkv_bias": True, "out_bias": True},
+    "gpt-oss_mxfp4": {"arch": "gpt-oss", "experts": "mxfp4",
+                      "moe_bias": True, "sinks": True, "qkv_bias": True,
+                      "out_bias": True},
+    "qwen3moe": {"experts": True, "qk_norm": "head"},
 }
+
+
+def _mxfp4(rng, shape):
+    """Random MXFP4 blocks (ggml type 39: an e8m0 scale byte and 16 bytes
+    of e2m1 nibbles a 32-block along the last axis) as raw GGUF data."""
+    n_blocks = int(np.prod(shape)) // 32
+    scales = rng.integers(118, 126, (n_blocks, 1)).astype(np.uint8)
+    nibbles = rng.integers(0, 256, (n_blocks, 16)).astype(np.uint8)
+    return (np.concatenate([scales, nibbles], axis=1).reshape(-1),
+            jload.GGML_MXFP4, shape)
 
 
 def _arch_gguf(path, name, seed=0, widths=None, **overrides):
@@ -175,10 +189,13 @@ def _arch_gguf(path, name, seed=0, widths=None, **overrides):
         if spec.get("sinks"):
             t[f"{p}.attn_sinks.weight"] = (vec(heads), F32)
         if spec.get("experts"):
+            bank = ((lambda *shape: _mxfp4(rng, shape))
+                    if spec["experts"] == "mxfp4"
+                    else (lambda *shape: (m(*shape), F32)))
             t[f"{p}.ffn_gate_inp.weight"] = (m(EXPERTS, dim), F32)
-            t[f"{p}.ffn_gate_exps.weight"] = (m(EXPERTS, hid, dim), F32)
-            t[f"{p}.ffn_up_exps.weight"] = (m(EXPERTS, hid, dim), F32)
-            t[f"{p}.ffn_down_exps.weight"] = (m(EXPERTS, dim, hid), F32)
+            t[f"{p}.ffn_gate_exps.weight"] = bank(EXPERTS, hid, dim)
+            t[f"{p}.ffn_up_exps.weight"] = bank(EXPERTS, hid, dim)
+            t[f"{p}.ffn_down_exps.weight"] = bank(EXPERTS, dim, hid)
             if spec.get("moe_bias"):
                 t[f"{p}.ffn_gate_inp.bias"] = (vec(EXPERTS), F32)
                 t[f"{p}.ffn_gate_exps.bias"] = (m(EXPERTS, hid), F32)
@@ -647,8 +664,7 @@ def test_unported_convert_routes_name_their_roadmap_item(cli_gguf, tmp_path,
                "--device", "cpu", *argv])
 
 
-@pytest.mark.parametrize("arch", ["deepseek2", "mamba", "falcon", "llama4",
-                                  "glm4moe", "qwen3next"])
+@pytest.mark.parametrize("arch", ["deepseek2", "mamba", "qwen3next"])
 def test_arches_with_their_own_converter_raise(tmp_path, arch):
     path = str(tmp_path / f"{arch}.gguf")
     write_gguf(path, {"token_embd.weight": (np.zeros((4, 32), np.float32),
@@ -656,3 +672,280 @@ def test_arches_with_their_own_converter_raise(tmp_path, arch):
                metadata={"general.architecture": arch})
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
         tconv.gguf_convert_auto(path, bits=4, device=CPU)
+
+
+# --- the arches with converters of their own: llama4, glm4moe, falcon ---------
+
+OWN = {
+    "llama4": {"arch": "llama4"},
+    "llama4_maverick": {"arch": "llama4", "step": 2},
+    "glm4moe": {"arch": "glm4moe"},
+    "falcon": {"arch": "falcon", "two_norm": True},
+    "falcon_one_norm": {"arch": "falcon"},
+}
+
+
+def _own_arch_gguf(path, name, seed=0, widths=None):
+    """A GGUF of the llama4, glm4moe or falcon arch with the tensors and
+    metadata its converter reads (``OWN[name]``): Llama-4 with NoPE every
+    2nd layer, chunks of 16 and a shared expert (Maverick: MoE on odd
+    layers, a dense MLP on even ones); GLM-4-MoE with one leading dense
+    layer, QKV biases, head QK norms, the selection bias and 2 of 4 groups;
+    Falcon with MQA-style fused QKV, LayerNorm biases and, with
+    ``two_norm``, the second norm. Returns the arch string."""
+    dim, layers, heads, kv, hid, vocab = widths or (DIM, LAYERS, HEADS, KV,
+                                                   HID, VOCAB)
+    hd = dim // heads
+    qd, kvd = heads * hd, kv * hd
+    spec = OWN[name]
+    arch = spec["arch"]
+    rng = np.random.default_rng(seed)
+    e = 8
+
+    def m(*shape):
+        return (rng.standard_normal(shape) / np.sqrt(shape[-1])
+                ).astype(np.float32), F32
+
+    def vec(n, around=0.0):
+        return (around + 0.1 * rng.standard_normal(n)).astype(np.float32), F32
+
+    t = {"token_embd.weight": (m(vocab, dim)[0] * 0.2, F32),
+         "output_norm.weight": vec(dim, 1.0), "output.weight": m(vocab, dim)}
+    meta = {"general.architecture": arch, "general.name": f"tiny-{name}",
+            f"{arch}.block_count": layers, f"{arch}.context_length": 128,
+            f"{arch}.attention.head_count": heads,
+            f"{arch}.attention.head_count_kv": kv,
+            f"{arch}.rope.freq_base": 10000.0}
+    if arch == "falcon":
+        t["output_norm.bias"] = vec(dim)
+        meta["falcon.attention.layer_norm_epsilon"] = 1e-5
+        for i in range(layers):
+            p = f"blk.{i}"
+            t[f"{p}.attn_norm.weight"] = vec(dim, 1.0)
+            t[f"{p}.attn_norm.bias"] = vec(dim)
+            if spec.get("two_norm"):
+                t[f"{p}.attn_norm_2.weight"] = vec(dim, 1.0)
+                t[f"{p}.attn_norm_2.bias"] = vec(dim)
+            t[f"{p}.attn_qkv.weight"] = m(qd + 2 * kvd, dim)
+            t[f"{p}.attn_output.weight"] = m(dim, qd)
+            t[f"{p}.ffn_up.weight"] = m(hid, dim)
+            t[f"{p}.ffn_down.weight"] = m(dim, hid)
+        write_gguf(path, t, metadata=meta)
+        return arch
+    meta.update({f"{arch}.embedding_length": dim,
+                 f"{arch}.attention.layer_norm_rms_epsilon": 1e-5,
+                 f"{arch}.expert_count": e,
+                 f"{arch}.expert_feed_forward_length": hid,
+                 f"{arch}.vocab_size": vocab})
+    step = spec.get("step", 1)
+    if arch == "llama4":
+        meta.update({"llama4.expert_used_count": 1,
+                     "llama4.interleave_moe_layer_step": step,
+                     "llama4.no_rope_layer_interval": 2,
+                     "llama4.attention.chunk_size": 16,
+                     "llama4.attention.temperature_length": 4.0,
+                     "llama4.attention.use_kq_norm": int(step == 1),
+                     "llama4.feed_forward_length": hid})
+    else:
+        meta.update({"glm4moe.expert_used_count": 2,
+                     "glm4moe.leading_dense_block_count": 1,
+                     "glm4moe.expert_gating_func": 2,
+                     "glm4moe.expert_weights_norm": 1,
+                     "glm4moe.expert_weights_scale": 2.5,
+                     "glm4moe.expert_group_count": 4,
+                     "glm4moe.expert_group_used_count": 2,
+                     "glm4moe.rope.dimension_count": hd // 2})
+    for i in range(layers):
+        p = f"blk.{i}"
+        t[f"{p}.attn_norm.weight"] = vec(dim, 1.0)
+        t[f"{p}.ffn_norm.weight"] = vec(dim, 1.0)
+        t[f"{p}.attn_q.weight"] = m(qd, dim)
+        t[f"{p}.attn_k.weight"] = m(kvd, dim)
+        t[f"{p}.attn_v.weight"] = m(kvd, dim)
+        t[f"{p}.attn_output.weight"] = m(dim, qd)
+        if arch == "glm4moe":
+            t[f"{p}.attn_q.bias"] = vec(qd)
+            t[f"{p}.attn_k.bias"] = vec(kvd)
+            t[f"{p}.attn_v.bias"] = vec(kvd)
+            t[f"{p}.attn_q_norm.weight"] = vec(hd, 1.0)
+            t[f"{p}.attn_k_norm.weight"] = vec(hd, 1.0)
+        moe = (i >= 1 if arch == "glm4moe" else i % step == step - 1)
+        if moe:
+            t[f"{p}.ffn_gate_inp.weight"] = (m(e, dim)[0] * 3.0, F32)
+            t[f"{p}.ffn_gate_exps.weight"] = m(e, hid, dim)
+            t[f"{p}.ffn_up_exps.weight"] = m(e, hid, dim)
+            t[f"{p}.ffn_down_exps.weight"] = m(e, dim, hid)
+            t[f"{p}.ffn_gate_shexp.weight"] = m(hid, dim)
+            t[f"{p}.ffn_up_shexp.weight"] = m(hid, dim)
+            t[f"{p}.ffn_down_shexp.weight"] = m(dim, hid)
+            if arch == "glm4moe":
+                t[f"{p}.exp_probs_b.bias"] = vec(e, -0.3)
+        else:
+            t[f"{p}.ffn_gate.weight"] = m(2 * hid, dim)
+            t[f"{p}.ffn_up.weight"] = m(2 * hid, dim)
+            t[f"{p}.ffn_down.weight"] = m(dim, 2 * hid)
+    write_gguf(path, t, metadata=meta)
+    return arch
+
+
+_OWN_FILES = {}
+
+
+def _own_gguf(tmp_path_factory, name):
+    if name not in _OWN_FILES:
+        path = str(tmp_path_factory.mktemp("own") / f"{name}.gguf")
+        _own_arch_gguf(path, name)
+        _OWN_FILES[name] = path
+    return _OWN_FILES[name]
+
+
+_OWN_FN = {"llama4": "gguf_to_llama4_params",
+           "glm4moe": "gguf_to_glm4moe_params",
+           "falcon": "gguf_to_falcon_params"}
+
+
+@pytest.mark.parametrize("bits", [0, 4, 8])
+@pytest.mark.parametrize("name", sorted(OWN))
+def test_own_arch_converters_give_the_jax_bytes(tmp_path_factory, name,
+                                                bits):
+    """The llama4, glm4moe and falcon converters: the JAX package's config
+    and every leaf's bytes, at bits 0, 4 and 8 (group 32); at bits 0 also
+    through ``gguf_convert_auto``'s dispatch."""
+    path = _own_gguf(tmp_path_factory, name)
+    fn = _OWN_FN[OWN[name]["arch"]]
+    if name == "glm4moe" and bits:
+        jp, jcfg = _glm4moe_quantized_by_the_jax_quantizers(path, bits)
+    else:
+        jp, jcfg = getattr(jconv, fn)(path, bits=bits or None, group=GROUP)
+    tp, tcfg = getattr(tconv, fn)(path, bits=bits or None, group=GROUP,
+                                  device=CPU)
+    assert isinstance(tcfg, tllm.LLMConfig)
+    assert tcfg._asdict() == jcfg._asdict()
+    _assert_same_tree(tp, jp)
+    if not bits:
+        tp, tcfg = tconv.gguf_convert_auto(path, device=CPU)
+        assert tcfg._asdict() == jcfg._asdict()
+        _assert_same_tree(tp, jp)
+
+
+def _glm4moe_quantized_by_the_jax_quantizers(path, bits):
+    """What the JAX package's glm4moe route gives at ``bits`` had it not
+    failed: its unquantized conversion in f32 with every matrix it
+    quantizes (QKV, output, shared expert, lm_head; zeros on the dense
+    layer) put through its quantizer one layer at a time, and the other
+    leaves in bf16."""
+    from trackiellm_tpu.ops.quant import QuantizedLinear as JQ
+    from trackiellm_tpu.ops.quant import quantize_q4 as jq4
+    from trackiellm_tpu.ops.quant import quantize_q8 as jq8
+    with pytest.raises(TypeError, match="stack"):
+        jconv.gguf_to_glm4moe_params(path, bits=bits, group=GROUP)
+    quantize = jq4 if bits == 4 else jq8
+    jp, jcfg = jconv.gguf_to_glm4moe_params(path, bits=None,
+                                            dtype=jnp.float32)
+
+    def stacked(w):
+        qs = [quantize(w[i], GROUP) for i in range(w.shape[0])]
+        return JQ(values=jnp.stack([q.values for q in qs]),
+                  scales=jnp.stack([q.scales for q in qs]))
+    layers = {}
+    for k, v in jp["layers"].items():
+        if k in ("wqkv", "wo", "shared_gu", "shared_down"):
+            layers[k] = stacked(v)
+        elif k == "moe_gate_bias":
+            layers[k] = v
+        else:
+            layers[k] = v.astype(jnp.bfloat16)
+    return {"tok_emb": jp["tok_emb"].astype(jnp.bfloat16), "layers": layers,
+            "out_norm": jp["out_norm"].astype(jnp.bfloat16),
+            "lm_head": quantize(jp["lm_head"], GROUP)}, jcfg
+
+
+@pytest.mark.parametrize("name", sorted(OWN))
+def test_own_arch_models_match_the_jax_logits(tmp_path_factory, name):
+    """The converted f32 model (no requantization) through ``prefill`` of
+    40 tokens: the port's logits are the JAX package's within ATOL."""
+    path = _own_gguf(tmp_path_factory, name)
+    fn = _OWN_FN[OWN[name]["arch"]]
+    jp, jcfg = getattr(jconv, fn)(path, bits=None, dtype=jnp.float32)
+    tp, tcfg = getattr(tconv, fn)(path, bits=None, dtype=torch.float32,
+                                  device=CPU)
+    toks = np.random.default_rng(1).integers(0, VOCAB, 64).astype(np.int32)
+    jl, _ = jllm.prefill(jp, jcfg, jnp.asarray(toks), jnp.int32(40),
+                         jllm.KVCache.create(jcfg, dtype=jnp.float32))
+    tl, _ = tllm.prefill(tp, tcfg, torch.from_numpy(toks.astype(np.int64)),
+                         40, tllm.KVCache.create(tcfg, torch.float32,
+                                                 device="cpu"))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=ATOL)
+
+
+# The MoE routes through both CLIs at the CLI's widths (group 256): gpt-oss
+# with MXFP4 experts and Qwen3-MoE through gguf_to_llm_params, and the own
+# routes (glm4moe at --bits 0: the JAX CLI's --bits 8 fails there, see
+# _glm4moe_quantized_by_the_jax_quantizers).
+CLI_MOE = {"gpt-oss_mxfp4": "8", "qwen3moe": "8", "llama4": "8",
+           "glm4moe": "0", "falcon": "8"}
+
+
+@pytest.mark.parametrize("name", sorted(CLI_MOE))
+def test_convert_then_generate_moe_arches_match_the_jax_cli(tmp_path, name,
+                                                            capsys):
+    """``inspect`` prints the JAX CLI's description, both CLIs' ``convert``
+    write the same checkpoint files, the converted models (bf16 leaves
+    widened to f32 on both sides, as in
+    ``test_convert_then_generate_matches_the_jax_cli``: bf16 activations
+    round apart where the sums run in another order, and that can flip an
+    expert) give the JAX logits and greedy ids, and the port's ``generate``
+    command prints text; glm4moe also converts at ``--bits 8`` on the
+    port."""
+    path = str(tmp_path / f"{name}.gguf")
+    widths = (CLI_DIM, 2, CLI_HEADS, CLI_KV, CLI_HID, CLI_VOCAB)
+    if name in OWN:
+        _own_arch_gguf(path, name, seed=3, widths=widths)
+    else:
+        _arch_gguf(path, name, seed=3, widths=widths)
+    assert jmain(["inspect", path]) == 0
+    want = capsys.readouterr().out
+    assert tmain(["inspect", path]) == 0
+    assert capsys.readouterr().out == want
+    bits = CLI_MOE[name]
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    assert jmain(["convert", path, "-o", jdir, "--bits", bits]) == 0
+    assert tmain(["convert", path, "-o", tdir, "--bits", bits,
+                  "--device", "cpu"]) == 0
+    with np.load(os.path.join(jdir, "arrays.npz")) as a, \
+            np.load(os.path.join(tdir, "arrays.npz")) as b:
+        assert a.files == b.files
+        for k in a.files:
+            assert a[k].tobytes() == b[k].tobytes(), k
+    jp, jcfg, _ = jckpt.load_checkpoint(jdir, device_put=False)
+    tp, tcfg, _ = tckpt.load_checkpoint(tdir, device=CPU)
+    jp, tp = _widen(jp), _widen(tp)
+    toks = np.random.default_rng(2).integers(0, CLI_VOCAB, 40).astype(
+        np.int32)
+    jl, _ = jllm.prefill(jp, jcfg, jnp.asarray(toks), jnp.int32(40),
+                         jllm.KVCache.create(jcfg, dtype=jnp.float32))
+    tl, _ = tllm.prefill(tp, tcfg, torch.from_numpy(toks.astype(np.int64)),
+                         40, tllm.KVCache.create(tcfg, torch.float32,
+                                                 device="cpu"))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=ATOL)
+    from trackiellm_tpu.llm import runner as jrunner
+    from trackiellm_tpu_torch.llm import runner as trunner
+    gen = dict(temperature=0.0, max_tokens=12, speculative=False)
+    jr = jrunner.LLMRunner(jp, jcfg, None, jrunner.GenerationConfig(**gen),
+                           cache_dtype=jnp.float32)
+    tr = trunner.LLMRunner(tp, tcfg, None, trunner.GenerationConfig(**gen),
+                           cache_dtype=torch.float32, device="cpu")
+    jr.generate("ola mundo")
+    tr.generate("ola mundo")
+    assert tr._generated_ids == jr._generated_ids
+    capsys.readouterr()
+    argv = ["generate", "-p", "ola mundo", "--max-tokens", "12",
+            "--temperature", "0", "--device", "cpu"]
+    assert tmain([argv[0], tdir, *argv[1:]]) == 0
+    assert capsys.readouterr().out.strip()
+    if name == "glm4moe":
+        qdir = str(tmp_path / "port8")
+        assert tmain(["convert", path, "-o", qdir, "--bits", "8",
+                      "--device", "cpu"]) == 0
+        assert tmain([argv[0], qdir, *argv[1:]]) == 0
+        assert capsys.readouterr().out.strip()

@@ -1833,3 +1833,111 @@ def test_feeder_and_scheduler_on_the_card(dev):
         assert res.is_cuda and float(res) == float(x.sum() * 2)
     finally:
         s.close()
+
+
+# -- the MoE families ----------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["w4a8", "f32a", "q8"])
+@pytest.mark.parametrize("m", [1, 8, 512])
+def test_group32_kernels_at_gpt_oss_expert_shape(dev, kind, m):
+    """gpt-oss's expert projections: K = 2880 (K/2 = 1440, 45 groups of 32
+    a half) into N = 5760, at decode and prefill rows."""
+    g = torch.Generator(device=dev).manual_seed(m)
+    w32 = torch.randn((2880, 5760), generator=g, device=dev) / 2880 ** 0.5
+    x = torch.randn((m, 2880), generator=g, device=dev).to(torch.bfloat16)
+    if kind == "q8":
+        w = tq.quantize_q8(w32, 32)
+        got = tq.q8_matmul(x, w.values, w.scales)
+        ref = tq.q8_matmul_ref(x, w.values, w.scales)
+    else:
+        w = tq.quantize_q4(w32, 32)
+        kernel, plain = ((tq.q4_matmul_w4a8, tq.q4_matmul_w4a8_ref)
+                         if kind == "w4a8" else
+                         (tq.q4_matmul_f32a, tq.q4_matmul_f32a_ref))
+        got = kernel(x, w.values, w.scales)
+        ref = plain(x, w.values, w.scales)
+    torch.cuda.synchronize()
+    assert _rel_l2(got, ref) < 1e-5
+
+
+def test_w4a8_at_the_gpt_oss_vocabulary(dev):
+    """lm_head of gpt-oss: N = 201,088 at group 32, one decode row."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    w = tq.quantize_q4(torch.randn((2880, 201088), generator=g, device=dev)
+                       / 2880 ** 0.5, 32)
+    x = torch.randn((1, 2880), generator=g, device=dev).to(torch.bfloat16)
+    got = tq.q4_matmul_w4a8(x, w.values, w.scales)
+    assert _rel_l2(got, tq.q4_matmul_w4a8_ref(x, w.values, w.scales)) < 1e-5
+
+
+@pytest.mark.parametrize("window", [0, 128])
+def test_flash_sinks_at_gpt_oss_heads(dev, window):
+    """(64, 8) heads at D = 64 with sinks, S = 512, bf16, causal."""
+    g = torch.Generator(device=dev).manual_seed(window)
+    q = torch.randn((64, 512, 64), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((8, 512, 64), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((8, 512, 64), generator=g, device=dev).to(torch.bfloat16)
+    sinks = torch.randn((64,), generator=g, device=dev)
+    got = ta.flash_attention(q, k, v, window=window, sinks=sinks)
+    ref = ta.attention_ref(q, k, v, window=window, sinks=sinks)
+    assert _rel_l2(got, ref) < 1e-2
+
+
+def test_top_k_first_gives_the_cpu_ids_on_the_card(dev):
+    """The router's top-k on the card: ties to the lower id and +0.0 above
+    -0.0, as on the CPU (and ``lax.top_k``)."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randint(-2, 3, (64, 32), generator=g).float()
+    x[torch.rand(x.shape, generator=g) < 0.3] = -0.0
+    for k in (1, 4, 8):
+        assert torch.equal(llm._top_k_first(x.to(dev), k).cpu(),
+                           llm._top_k_first(x, k))
+
+
+def _moe_tiny(name, **kw):
+    c = getattr(llm.LLMConfig, name)()
+    return c._replace(vocab_size=512, dim=256, n_layers=2, n_heads=4,
+                      n_kv_heads=2, head_dim=64, hidden_dim=256,
+                      n_experts=8, n_experts_used=min(c.n_experts_used, 4),
+                      moe_shared_hidden=256 if c.moe_shared_hidden else 0,
+                      max_seq=512, sliding_window=min(c.sliding_window, 512),
+                      nope_pattern=2 if c.nope_pattern else 0,
+                      attn_chunk=64 if c.attn_chunk else 0, **kw)
+
+
+@pytest.mark.parametrize("name", ["gpt_oss_20b", "llama4_scout",
+                                  "qwen15_moe_a27b"])
+def test_moe_prefill_on_the_card_matches_the_cpu(dev, name):
+    """A 2-layer MoE in f32 (dense weights) at bucket 256, card against CPU:
+    the same routes' math in f32 sums of another order (gpt-oss's sinks on
+    flash at D = 64, Llama-4's chunks on the dense path)."""
+    cfg = _moe_tiny(name)
+    p = llm.init_params(torch.Generator().manual_seed(3), cfg,
+                        dtype=torch.float32, device="cpu")
+    toks = torch.randint(0, 512, (256,),
+                         generator=torch.Generator().manual_seed(4))
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        cache = llm.KVCache.create(cfg, torch.float32, device=device)
+        outs.append(llm.prefill(llm.params_to(p, device), cfg,
+                                toks.to(device), 200, cache)[0].cpu())
+    assert _rel_l2(outs[0], outs[1]) < 1e-4
+
+
+def test_moe_quantized_decode_launches_per_expert(dev):
+    """Quantized expert banks take dense-all-experts on the card: a decode
+    step of a 2-layer, 8-expert Q4 model launches W4A8 (and its quantizer)
+    twice an expert a layer besides attention's four, and its logits are
+    finite."""
+    cfg = _moe_tiny("mixtral_8x7b")
+    p = llm.init_params_quantized(torch.Generator(device=dev).manual_seed(0),
+                                  cfg, group=128, device=dev)
+    cache = llm.KVCache.create(cfg, device=dev)
+    _, cache = llm.prefill(p, cfg, torch.arange(64, device=dev), 10, cache)
+    before = tq.q4_matmul_w4a8.launches
+    logits, _ = llm.decode_step(p, cfg, 5, cache)
+    torch.cuda.synchronize()
+    per_layer = 2 + 2 * cfg.n_experts      # wqkv, wo, each expert's two
+    assert tq.q4_matmul_w4a8.launches - before == (
+        cfg.n_layers * per_layer + 1)      # + lm_head
+    assert torch.isfinite(logits).all()

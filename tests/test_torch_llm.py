@@ -280,26 +280,6 @@ def test_init_params_quantized_matches_reference_layout():
     assert ours == theirs and len(ours) == len(shapes)
 
 
-@pytest.mark.parametrize("knob", [
-    {"n_experts": 8}, {"attn_sinks": True}, {"attn_chunk": 8192},
-    {"qk_l2norm": True}, {"attn_temp_tuning": True}, {"moe_bias": True},
-    {"moe_pattern": 2}, {"act": "gptoss"}, {"parallel_mlp_norm": True},
-])
-def test_other_family_knobs_raise(knob):
-    """The knobs of the MoE, gpt-oss, Llama-4 and Falcon families raise,
-    naming the knob and ROADMAP ID 11; the dense knob sets run
-    (tests/test_torch_families.py)."""
-    cfg = tllm.LLMConfig.tiny()._replace(**knob)
-    name = next(iter(knob))
-    with pytest.raises(NotImplementedError, match=name) as err:
-        tllm.init_params(torch.Generator().manual_seed(0), cfg)
-    assert "ID 11" in str(err.value)
-    _, tp = _params()
-    with pytest.raises(NotImplementedError, match=name):
-        tllm.prefill(tp, cfg, torch.zeros(64, dtype=torch.long), 1,
-                     tllm.KVCache.create(tllm.LLMConfig.tiny(), torch.float32, device="cpu"))
-
-
 def test_window_is_off_when_it_covers_max_seq():
     """Mistral's 4096 window at max_seq 512 (the bench cut) is no window,
     as in the reference's _layer_window."""

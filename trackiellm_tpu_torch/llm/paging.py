@@ -171,21 +171,18 @@ def decode_step_batch_paged(params: Dict[str, Any],
     tv = tables[:, :attn_pages] if attn_pages else tables
     tables_rope = llm_model._rope_tables(params, cfg, pos, pos.max() + 1)
     x = params["tok_emb"].index_select(0, tokens.long())
-    extras = llm_model._attn_extras(cfg)
     hk, hd = cfg.n_kv_heads, cfg.head_dim
     for li in range(cfg.n_layers):
         layer = llm_model._layer(params["layers"], li)
-        h, q, k, v = llm_model._qkv(
-            x, layer, cfg, llm_model._layer_rope(cfg, li, tables_rope))
+        h, q, k, v = llm_model._qkv(x, layer, cfg, li, tables_rope, pos)
         pk, pv = _layer_pool(pool_k, li), _layer_pool(pool_v, li)
         _write_cells(pk, (page_idx, slot), k)
         _write_cells(pv, (page_idx, slot), v)
         k_seq = _read_pages(pk, tv, x.dtype).reshape(b, -1, hk, hd)
         v_seq = _read_pages(pv, tv, x.dtype).reshape(b, -1, hk, hd)
         attn = decode_attention_batch(q, k_seq, v_seq, pos + 1,
-                                      window=llm_model._window_of(cfg, li),
-                                      **extras)
-        x = llm_model._layer_tail(x, h, attn.reshape(b, -1), layer, cfg)
+                                      **llm_model._attn_kw(cfg, li, layer))
+        x = llm_model._layer_tail(x, h, attn.reshape(b, -1), layer, cfg, li)
     logits = llm_model._output_logits(params, cfg, x)
     return logits, pool_k, pool_v
 

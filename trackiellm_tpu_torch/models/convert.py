@@ -25,9 +25,10 @@ Reading the file and dequantizing GGML blocks is host numpy code
 (``models/loader.py``), as in the reference. The requantization runs on
 the ``device`` given, the CUDA card by default, through
 ``ops/quant.py``'s quantizers, which give the JAX package's bytes on the
-card and on the CPU. The arches with converters of their own (MLA, Mamba,
-Falcon, Llama-4, GLM-4-MoE, Qwen3-Next) and the transformers-state-dict
-routes are not ported yet (ROADMAP Queue 1 item 11).
+card and on the CPU. Falcon, Llama-4 and GLM-4-MoE have converters of
+their own (``gguf_convert_auto`` dispatches them); MLA, Mamba and
+Qwen3-Next's and the transformers-state-dict routes are not ported yet
+(ROADMAP Queue 1 item 11).
 
 The voice converters (``whisper_from_torch``, ``whisper_from_ggml``,
 ``vad_from_torch``, ``silero_from_onnx``, ``tts_from_torch``,
@@ -64,11 +65,10 @@ from trackiellm_tpu_torch.utils.logging import get_logger
 
 log = get_logger("models.convert")
 
-# GGUF arches that the JAX package converts with a route of their own.
+# GGUF arches that the JAX package converts with a route of their own and
+# that the port does not run yet.
 _WAITING_ARCHES = {
     "deepseek2": "gguf_to_mla_params", "mamba": "gguf_to_mamba_params",
-    "falcon": "gguf_to_falcon_params", "llama4": "gguf_to_llama4_params",
-    "glm4moe": "gguf_to_glm4moe_params",
     "qwen3next": "gguf_to_qwen3next_params",
 }
 
@@ -78,8 +78,8 @@ def _math_key(md: Dict[str, Any], name: str, default,
     """Read a GGUF metadata key whose value changes the math (gating
     function, QK-norm presence, weight-norm flags): an absent key defaults
     by heuristic with a loud warning, and ``TRACKIE_GGUF_STRICT=1`` turns
-    the guess into a hard failure. The routes that read such keys wait for
-    ROADMAP Queue 1 item 11."""
+    the guess into a hard failure (the llama4 and glm4moe routes read
+    such keys)."""
     if name in md:
         return md[name]
     why = f" ({heuristic})" if heuristic else ""
@@ -370,9 +370,7 @@ def gguf_to_llm_params(
     truncates (for tests and draft models). ``device`` defaults to the
     CUDA card; with no card it raises unless the CPU is asked for.
     The tree, its dtypes and its bytes are those of the JAX package's
-    ``gguf_to_llm_params`` on the same file. A config whose knobs the port
-    cannot run yet converts all the same and stops at
-    ``models/llm.py:check_supported`` when it runs."""
+    ``gguf_to_llm_params`` on the same file."""
     device = default_device(device, "convert")
     gguf = read_gguf_header(path)
     cfg = config_from_gguf(gguf)
@@ -701,18 +699,492 @@ def gguf_to_llm_params(
     return params, cfg
 
 
+def _converter_tools(device: torch.device, bits: Optional[int], group: int,
+                     dtype: torch.dtype):
+    """(tensor, maybe_quant, stack) of the arch routes below:
+    ``tensor(a, dt)`` puts f32 numpy on the device in ``dt`` (bf16 rounds
+    to nearest even, as ``jnp.asarray(a, bf16)``); ``maybe_quant(w)``
+    requantizes a (K, N) matrix on the device at ``bits`` (4, 8) or keeps
+    it in ``dtype``; ``stack(items)`` stacks tensors or QuantizedLinears."""
+    quantize = (quantize_q4 if bits == 4
+                else quantize_q8 if bits == 8 else None)
+
+    def tensor(a, dt: torch.dtype) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device).to(dt)
+
+    def maybe_quant(w: np.ndarray):
+        if quantize is None:
+            return tensor(w, dtype)
+        return quantize(tensor(w, torch.float32), group)
+
+    def stack(items):
+        if items and isinstance(items[0], QuantizedLinear):
+            return QuantizedLinear(
+                values=torch.stack([q.values for q in items]),
+                scales=torch.stack([q.scales for q in items]))
+        return torch.stack(items)
+    return tensor, maybe_quant, stack
+
+
+def gguf_to_llama4_params(path: str, bits: Optional[int] = 4,
+                          group: int = 256,
+                          dtype: torch.dtype = torch.bfloat16,
+                          device: Optional[torch.device] = None) -> tuple:
+    """A llama.cpp ``llama4`` GGUF (Scout/Maverick text tower) -> (params on
+    ``device``, cfg), the port of
+    ``trackiellm_tpu/models/convert.py:gguf_to_llama4_params`` with its
+    tree and bytes: ``blk.N.ffn_{gate,up,down}_exps`` expert banks (kept
+    in ``dtype``), ``*_shexp`` shared expert, ``ffn_gate_inp`` router, the
+    plain ``ffn_*`` names on the dense layers of Maverick's interleave
+    (``llama4.interleave_moe_layer_step``), which fill ``w_gu_mlp`` /
+    ``w_down_mlp`` (zeros on MoE layers, as the experts are on dense
+    ones). q/k fold from llama.cpp's interleaved rope to split-half unless
+    ``TRACKIE_LLAMA4_GGUF_ROPE=none``. ``device`` defaults to the card."""
+    device = default_device(device, "convert")
+    gguf = read_gguf_header(path)
+    md = gguf.metadata
+
+    def key(suffix: str, default=None):
+        v = md.get(f"llama4.{suffix}", default)
+        if v is None:
+            raise TrackieError(ErrorCode.MODEL_METADATA_INVALID,
+                               f"missing GGUF key llama4.{suffix}")
+        return v
+
+    dim = int(key("embedding_length"))
+    n_layers = int(key("block_count"))
+    n_heads = int(key("attention.head_count"))
+    n_kv = int(key("attention.head_count_kv", n_heads))
+    hd = int(md.get("llama4.attention.key_length", dim // n_heads))
+    n_experts = int(key("expert_count"))
+    hidden = int(md.get("llama4.expert_feed_forward_length",
+                        key("feed_forward_length")))
+    step = int(md.get("llama4.interleave_moe_layer_step", 1))
+    moe_pattern = 0 if step <= 1 else step
+    is_moe = [f"blk.{i}.ffn_gate_exps.weight" in gguf.tensors
+              for i in range(n_layers)]
+    want = ([True] * n_layers if moe_pattern == 0
+            else [(i % step) == (step - 1) for i in range(n_layers)])
+    if is_moe != want:
+        raise TrackieError(
+            ErrorCode.MODEL_METADATA_INVALID,
+            f"{path}: MoE layer layout {is_moe} disagrees with "
+            f"interleave_moe_layer_step={step}")
+    if not any(is_moe):
+        raise TrackieError(
+            ErrorCode.MODEL_METADATA_INVALID,
+            f"{path}: no MoE layers (interleave_moe_layer_step={step} "
+            f"exceeds block_count={n_layers}?)")
+    first_moe = is_moe.index(True)
+    shared_rows = load_gguf_tensor(
+        gguf, f"blk.{first_moe}.ffn_gate_shexp.weight").shape[0]
+    hidden_mlp = 0
+    if moe_pattern:
+        hidden_mlp = load_gguf_tensor(gguf, "blk.0.ffn_gate.weight").shape[0]
+    vocab = int(md.get("llama4.vocab_size",
+                       gguf.tensors["token_embd.weight"].shape[0]))
+    qk_l2norm = bool(_math_key(
+        md, "llama4.attention.use_kq_norm", moe_pattern == 0,
+        "interleave signature: Scout(uniform MoE)=True"))
+    cfg = llm_model.LLMConfig(
+        vocab_size=vocab, dim=dim, n_layers=n_layers, n_heads=n_heads,
+        n_kv_heads=n_kv, head_dim=hd, hidden_dim=hidden,
+        norm_eps=float(md.get(
+            "llama4.attention.layer_norm_rms_epsilon", 1e-5)),
+        rope_theta=float(key("rope.freq_base", 500000.0)),
+        max_seq=int(key("context_length", 8192)),
+        sliding_window=int(key("context_length", 8192)),
+        n_experts=n_experts,
+        n_experts_used=int(md.get("llama4.expert_used_count", 1)),
+        moe_score_func="sigmoid_topk", moe_norm_topk=False,
+        moe_scale_input=True, moe_shared_hidden=shared_rows,
+        moe_shared_gated=False,
+        nope_pattern=int(md.get("llama4.no_rope_layer_interval", 4)),
+        qk_l2norm=qk_l2norm, attn_temp_tuning=True,
+        attn_temp_floor=float(md.get(
+            "llama4.attention.temperature_length", 8192.0)),
+        attn_temp_scale=0.1,
+        attn_chunk=int(md.get("llama4.attention.chunk_size", 8192)),
+        moe_pattern=moe_pattern)
+    tensor, maybe_quant, stack = _converter_tools(device, bits, group, dtype)
+
+    def mat(name: str) -> np.ndarray:
+        return np.ascontiguousarray(load_gguf_tensor(gguf, name).T)
+
+    def vec(name: str) -> torch.Tensor:
+        return tensor(load_gguf_tensor(gguf, name), dtype)
+
+    def zeros(*shape) -> torch.Tensor:
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    fold = os.environ.get("TRACKIE_LLAMA4_GGUF_ROPE", "fold") != "none"
+
+    def deint(w, heads):
+        return _deinterleave_rope_cols(w, heads, hd, hd) if fold else w
+
+    ls: Dict[str, list] = {
+        "attn_norm": [], "wqkv": [], "wo": [], "mlp_norm": [],
+        "w_gu": [], "w_down": [], "moe_gate": [],
+        "shared_gu": [], "shared_down": []}
+    if moe_pattern:
+        ls["w_gu_mlp"], ls["w_down_mlp"] = [], []
+    for i in range(n_layers):
+        p = f"blk.{i}"
+        ls["attn_norm"].append(vec(f"{p}.attn_norm.weight"))
+        ls["mlp_norm"].append(vec(f"{p}.ffn_norm.weight"))
+        qkv = np.concatenate(
+            [deint(mat(f"{p}.attn_q.weight"), n_heads),
+             deint(mat(f"{p}.attn_k.weight"), n_kv),
+             mat(f"{p}.attn_v.weight")], axis=1)
+        ls["wqkv"].append(maybe_quant(qkv))
+        ls["wo"].append(maybe_quant(mat(f"{p}.attn_output.weight")))
+        if is_moe[i]:
+            g = load_gguf_tensor(gguf, f"{p}.ffn_gate_exps.weight")
+            u = load_gguf_tensor(gguf, f"{p}.ffn_up_exps.weight")
+            dn = load_gguf_tensor(gguf, f"{p}.ffn_down_exps.weight")
+            if g.shape != (n_experts, hidden, dim):
+                raise TrackieError(
+                    ErrorCode.MODEL_METADATA_INVALID,
+                    f"{p}.ffn_gate_exps.weight shape {g.shape} != "
+                    f"(E={n_experts}, H={hidden}, D={dim})")
+            gu = np.concatenate([g.transpose(0, 2, 1),
+                                 u.transpose(0, 2, 1)], axis=2)
+            ls["w_gu"].append(tensor(gu, dtype))
+            ls["w_down"].append(tensor(dn.transpose(0, 2, 1), dtype))
+            ls["moe_gate"].append(tensor(
+                load_gguf_tensor(gguf, f"{p}.ffn_gate_inp.weight").T, dtype))
+            ls["shared_gu"].append(tensor(np.concatenate(
+                [mat(f"{p}.ffn_gate_shexp.weight"),
+                 mat(f"{p}.ffn_up_shexp.weight")], axis=1), dtype))
+            ls["shared_down"].append(tensor(
+                mat(f"{p}.ffn_down_shexp.weight"), dtype))
+            if moe_pattern:
+                ls["w_gu_mlp"].append(zeros(dim, 2 * hidden_mlp))
+                ls["w_down_mlp"].append(zeros(hidden_mlp, dim))
+        else:
+            ls["w_gu"].append(zeros(n_experts, dim, 2 * hidden))
+            ls["w_down"].append(zeros(n_experts, hidden, dim))
+            ls["moe_gate"].append(zeros(dim, n_experts))
+            ls["shared_gu"].append(zeros(dim, 2 * shared_rows))
+            ls["shared_down"].append(zeros(shared_rows, dim))
+            ls["w_gu_mlp"].append(tensor(np.concatenate(
+                [mat(f"{p}.ffn_gate.weight"), mat(f"{p}.ffn_up.weight")],
+                axis=1), dtype))
+            ls["w_down_mlp"].append(tensor(mat(f"{p}.ffn_down.weight"),
+                                           dtype))
+        log.info("converted llama4 layer %d/%d", i + 1, n_layers)
+
+    tok_emb = load_gguf_tensor(gguf, "token_embd.weight")
+    lm_head = (mat("output.weight") if "output.weight" in gguf.tensors
+               else np.ascontiguousarray(tok_emb.T))
+    params = {
+        "tok_emb": tensor(tok_emb, dtype),
+        "layers": {k: stack(v) for k, v in ls.items()},
+        "out_norm": vec("output_norm.weight"),
+        "lm_head": maybe_quant(lm_head),
+    }
+    if "rope_freqs.weight" in gguf.tensors:
+        params["rope_factors"] = tensor(
+            load_gguf_tensor(gguf, "rope_freqs.weight"), torch.float32)
+    return params, cfg
+
+
+def gguf_to_falcon_params(path: str, *, bits: Optional[int] = None,
+                          group: int = 256, max_seq: Optional[int] = None,
+                          dtype: torch.dtype = torch.bfloat16,
+                          device: Optional[torch.device] = None) -> tuple:
+    """A llama.cpp ``falcon`` GGUF -> (params on ``device``, cfg), the port
+    of ``trackiellm_tpu/models/convert.py:gguf_to_falcon_params`` with its
+    tree and bytes: ``attn_qkv`` rows are already q|k|v (llama.cpp
+    un-groups Falcon's fused projection), LayerNorms with biases, an
+    ungated exact-GELU MLP on the parallel residual, and ``attn_norm_2``
+    (the 40B/180B second norm) as ``mlp_norm`` with ``parallel_mlp_norm``.
+    The matrices are cast to ``dtype`` first, then ``quantize_params``
+    requantizes them at ``bits``, as the reference does."""
+    device = default_device(device, "convert")
+    gguf = read_gguf_header(path)
+    arch = gguf.architecture or ""
+    if arch != "falcon":
+        raise TrackieError(ErrorCode.MODEL_METADATA_INVALID,
+                           f"{path}: architecture {arch!r}, want 'falcon'")
+    md = gguf.metadata
+
+    def t(name: str) -> np.ndarray:
+        return load_gguf_tensor(gguf, name)
+
+    if "falcon.attention.head_count" not in md:
+        raise TrackieError(ErrorCode.MODEL_METADATA_INVALID,
+                           f"{path}: missing falcon.attention.head_count")
+    emb = t("token_embd.weight")
+    vocab, dim = emb.shape
+    n_heads = int(md["falcon.attention.head_count"])
+    n_kv = int(md.get("falcon.attention.head_count_kv", 1))
+    hd = dim // n_heads
+    n_layers = int(md.get(
+        "falcon.block_count",
+        len({k.split(".")[1] for k in gguf.tensors if k.startswith("blk.")})))
+    qkv_rows = gguf.tensors["blk.0.attn_qkv.weight"].shape[0]
+    if qkv_rows != (n_heads + 2 * n_kv) * hd:
+        raise TrackieError(
+            ErrorCode.MODEL_METADATA_INVALID,
+            f"{path}: attn_qkv rows {qkv_rows} != (H+2G)*hd = "
+            f"{(n_heads + 2 * n_kv) * hd} (H={n_heads}, G={n_kv})")
+    two_norm = "blk.0.attn_norm_2.weight" in gguf.tensors
+    qkv_bias = "blk.0.attn_qkv.bias" in gguf.tensors
+    out_bias = "blk.0.attn_output.bias" in gguf.tensors
+    mlp_bias = "blk.0.ffn_up.bias" in gguf.tensors
+    ctx = int(md.get("falcon.context_length", 2048))
+    eff_seq = max_seq if max_seq is not None else min(ctx, 4096)
+    cfg = llm_model.LLMConfig(
+        vocab_size=vocab, dim=dim, n_layers=n_layers, n_heads=n_heads,
+        n_kv_heads=n_kv, head_dim=hd,
+        hidden_dim=gguf.tensors["blk.0.ffn_up.weight"].shape[0],
+        norm_eps=float(md.get("falcon.attention.layer_norm_epsilon", 1e-5)),
+        rope_theta=float(md.get("falcon.rope.freq_base", 1e4)),
+        max_seq=eff_seq, sliding_window=eff_seq, norm_type="layernorm",
+        parallel_residual=True, parallel_mlp_norm=two_norm,
+        mlp_gated=False, act="gelu_exact",
+        qkv_bias=qkv_bias, out_bias=out_bias, mlp_bias=mlp_bias)
+    tensor, _, _ = _converter_tools(device, None, group, dtype)
+
+    ls: Dict[str, list] = {"attn_norm": [], "wqkv": [], "wo": [],
+                           "w_gu": [], "w_down": []}
+    opt: Dict[str, list] = {"mlp_norm": [], "wqkv_bias": [], "wo_bias": [],
+                            "w_gu_b": [], "w_down_b": []}
+    for i in range(n_layers):
+        b = f"blk.{i}."
+        ls["attn_norm"].append({"g": t(b + "attn_norm.weight"),
+                                "b": t(b + "attn_norm.bias")})
+        if two_norm:
+            opt["mlp_norm"].append({"g": t(b + "attn_norm_2.weight"),
+                                    "b": t(b + "attn_norm_2.bias")})
+        ls["wqkv"].append(t(b + "attn_qkv.weight").T)
+        ls["wo"].append(t(b + "attn_output.weight").T)
+        ls["w_gu"].append(t(b + "ffn_up.weight").T)
+        ls["w_down"].append(t(b + "ffn_down.weight").T)
+        if qkv_bias:
+            opt["wqkv_bias"].append(t(b + "attn_qkv.bias"))
+        if out_bias:
+            opt["wo_bias"].append(t(b + "attn_output.bias"))
+        if mlp_bias:
+            opt["w_gu_b"].append(t(b + "ffn_up.bias"))
+            opt["w_down_b"].append(t(b + "ffn_down.bias"))
+
+    def stacked(vals):
+        if vals and isinstance(vals[0], dict):
+            return {kk: tensor(np.stack([v[kk] for v in vals]), dtype)
+                    for kk in vals[0]}
+        return tensor(np.stack(vals), dtype)
+
+    layers = {k: stacked(v) for k, v in ls.items()}
+    layers.update({k: stacked(v) for k, v in opt.items() if v})
+    params = {
+        "tok_emb": tensor(emb, dtype),
+        "layers": layers,
+        "out_norm": {"g": tensor(t("output_norm.weight"), dtype),
+                     "b": tensor(t("output_norm.bias"), dtype)},
+        "lm_head": tensor(t("output.weight").T
+                          if "output.weight" in gguf.tensors
+                          else np.ascontiguousarray(emb.T), dtype),
+    }
+    if bits:
+        params = llm_model.quantize_params(params, bits=bits, group=group)
+    return params, cfg
+
+
+def gguf_to_glm4moe_params(path: str, bits: Optional[int] = 4,
+                           group: int = 256,
+                           dtype: torch.dtype = torch.bfloat16,
+                           device: Optional[torch.device] = None) -> tuple:
+    """A llama.cpp ``glm4moe`` GGUF (GLM-4.5/4.5-Air/4.6) -> (params on
+    ``device``, cfg), the port of
+    ``trackiellm_tpu/models/convert.py:gguf_to_glm4moe_params`` with its
+    tree and bytes: ``leading_dense_block_count`` dense layers first (in
+    ``w_gu_mlp``/``w_down_mlp``), sigmoid routing by default
+    (``expert_gating_func``), ``exp_probs_b.bias`` as the selection-only
+    ``moe_gate_bias`` (f32), groups scored by top-2 sum, an ungated
+    shared expert, split-half rope at ``rope.dimension_count``. Expert
+    banks stay in ``dtype``. At ``bits`` 4 or 8 the dense layers' zero
+    shared-expert slots are quantized too, so the stack is one
+    QuantizedLinear; the reference's converter fails there (it stacks
+    arrays among QuantizedLinears), so those bytes are held to its
+    quantizers, matrix by matrix."""
+    device = default_device(device, "convert")
+    gguf = read_gguf_header(path)
+    md = gguf.metadata
+    t = gguf.tensors
+    arch = "glm4moe"
+
+    def key(suffix: str, default=None):
+        v = md.get(f"{arch}.{suffix}", default)
+        if v is None:
+            raise TrackieError(ErrorCode.MODEL_METADATA_INVALID,
+                               f"missing GGUF key {arch}.{suffix}")
+        return v
+
+    dim = int(key("embedding_length"))
+    n_layers = int(key("block_count"))
+    n_heads = int(key("attention.head_count"))
+    n_kv = int(key("attention.head_count_kv", n_heads))
+    hd = int(md.get(f"{arch}.attention.key_length", dim // n_heads))
+    rot = int(md.get(f"{arch}.rope.dimension_count", hd // 2))
+    n_experts = int(md.get(f"{arch}.expert_count", 0))
+    first_k = int(md.get(f"{arch}.leading_dense_block_count", -1))
+    if first_k < 0:
+        first_k = sum(1 for i in range(n_layers)
+                      if f"blk.{i}.ffn_gate.weight" in t)
+    if not n_experts or first_k >= n_layers:
+        raise TrackieError(ErrorCode.MODEL_METADATA_INVALID,
+                           f"{path}: no MoE layers (dense GLM-4 loads "
+                           "through the glm4 arch)")
+    gating = int(_math_key(md, f"{arch}.expert_gating_func", 2,
+                           "GLM-4.5 publishes sigmoid routing"))
+    shex = f"blk.{first_k}.ffn_gate_shexp.weight"
+    shared_hidden = t[shex].shape[0] if shex in t else 0
+    moe_hidden = int(md.get(
+        f"{arch}.expert_feed_forward_length",
+        t[f"blk.{first_k}.ffn_gate_exps.weight"].shape[1]))
+    hidden_dense = t["blk.0.ffn_gate.weight"].shape[0] if first_k else 0
+    qk_norm = "blk.0.attn_q_norm.weight" in t
+    vocab = int(md.get("tokenizer.ggml.tokens_count",
+                       md.get(f"{arch}.vocab_size",
+                              t["token_embd.weight"].shape[0])))
+    cfg = llm_model.LLMConfig(
+        vocab_size=vocab, dim=dim, n_layers=n_layers, n_heads=n_heads,
+        n_kv_heads=n_kv, head_dim=hd, hidden_dim=moe_hidden,
+        norm_eps=float(md.get(
+            f"{arch}.attention.layer_norm_rms_epsilon", 1e-5)),
+        rope_theta=float(key("rope.freq_base", 10000.0)),
+        max_seq=int(key("context_length", 8192)),
+        sliding_window=int(key("context_length", 8192)),
+        qkv_bias="blk.0.attn_q.bias" in t, qk_norm=qk_norm,
+        partial_rotary_factor=rot / hd,
+        n_experts=n_experts,
+        n_experts_used=int(md.get(f"{arch}.expert_used_count", 8)),
+        moe_score_func="sigmoid" if gating == 2 else "softmax",
+        moe_norm_topk=bool(md.get(f"{arch}.expert_weights_norm", True)),
+        moe_routed_scale=float(md.get(f"{arch}.expert_weights_scale", 1.0)
+                               or 1.0),
+        moe_n_groups=int(md.get(f"{arch}.expert_group_count", 1) or 1),
+        moe_topk_groups=int(md.get(f"{arch}.expert_group_used_count", 1)
+                            or 1),
+        moe_group_score="top2sum",
+        moe_shared_hidden=shared_hidden, moe_shared_gated=False,
+        moe_first_dense=first_k)
+    tensor, maybe_quant, stack = _converter_tools(device, bits, group, dtype)
+
+    def mat(name: str) -> np.ndarray:
+        return np.ascontiguousarray(load_gguf_tensor(gguf, name).T)
+
+    def vec(name: str) -> torch.Tensor:
+        return tensor(load_gguf_tensor(gguf, name), dtype)
+
+    def zeros(*shape, dt=None) -> torch.Tensor:
+        return torch.zeros(shape, dtype=dt or dtype, device=device)
+
+    ls: Dict[str, list] = {k: [] for k in (
+        "attn_norm", "wqkv", "wo", "mlp_norm", "w_gu", "w_down",
+        "moe_gate", "moe_gate_bias", "shared_gu", "shared_down")}
+    if qk_norm:
+        ls["q_norm"], ls["k_norm"] = [], []
+    if cfg.qkv_bias:
+        ls["wqkv_bias"] = []
+    if first_k:
+        ls["w_gu_mlp"], ls["w_down_mlp"] = [], []
+    for i in range(n_layers):
+        p = f"blk.{i}"
+        ls["attn_norm"].append(vec(f"{p}.attn_norm.weight"))
+        ls["mlp_norm"].append(vec(f"{p}.ffn_norm.weight"))
+        qkv = np.concatenate([mat(f"{p}.attn_q.weight"),
+                              mat(f"{p}.attn_k.weight"),
+                              mat(f"{p}.attn_v.weight")], axis=1)
+        ls["wqkv"].append(maybe_quant(qkv))
+        if cfg.qkv_bias:
+            ls["wqkv_bias"].append(torch.cat(
+                [vec(f"{p}.attn_q.bias"), vec(f"{p}.attn_k.bias"),
+                 vec(f"{p}.attn_v.bias")]))
+        ls["wo"].append(maybe_quant(mat(f"{p}.attn_output.weight")))
+        if qk_norm:
+            ls["q_norm"].append(vec(f"{p}.attn_q_norm.weight"))
+            ls["k_norm"].append(vec(f"{p}.attn_k_norm.weight"))
+        if i >= first_k:
+            g = load_gguf_tensor(gguf, f"{p}.ffn_gate_exps.weight")
+            u = load_gguf_tensor(gguf, f"{p}.ffn_up_exps.weight")
+            dn = load_gguf_tensor(gguf, f"{p}.ffn_down_exps.weight")
+            if g.shape != (n_experts, moe_hidden, dim):
+                raise TrackieError(
+                    ErrorCode.MODEL_METADATA_INVALID,
+                    f"{p}.ffn_gate_exps.weight shape {g.shape} != "
+                    f"(E={n_experts}, H={moe_hidden}, D={dim})")
+            gu = np.concatenate([g.transpose(0, 2, 1),
+                                 u.transpose(0, 2, 1)], axis=2)
+            ls["w_gu"].append(tensor(gu, dtype))
+            ls["w_down"].append(tensor(dn.transpose(0, 2, 1), dtype))
+            ls["moe_gate"].append(tensor(
+                load_gguf_tensor(gguf, f"{p}.ffn_gate_inp.weight").T, dtype))
+            ls["moe_gate_bias"].append(tensor(
+                load_gguf_tensor(gguf, f"{p}.exp_probs_b.bias").reshape(-1),
+                torch.float32))
+            ls["shared_gu"].append(maybe_quant(np.concatenate(
+                [mat(f"{p}.ffn_gate_shexp.weight"),
+                 mat(f"{p}.ffn_up_shexp.weight")], axis=1)))
+            ls["shared_down"].append(
+                maybe_quant(mat(f"{p}.ffn_down_shexp.weight")))
+            if first_k:
+                ls["w_gu_mlp"].append(zeros(dim, 2 * hidden_dense))
+                ls["w_down_mlp"].append(zeros(hidden_dense, dim))
+        else:
+            ls["w_gu"].append(zeros(n_experts, dim, 2 * moe_hidden))
+            ls["w_down"].append(zeros(n_experts, moe_hidden, dim))
+            ls["moe_gate"].append(zeros(dim, n_experts))
+            ls["moe_gate_bias"].append(zeros(n_experts, dt=torch.float32))
+            # Quantized like the MoE layers' (the reference stacks raw
+            # zeros among QuantizedLinears here and fails at bits 4/8).
+            ls["shared_gu"].append(maybe_quant(
+                np.zeros((dim, 2 * shared_hidden), np.float32)))
+            ls["shared_down"].append(maybe_quant(
+                np.zeros((shared_hidden, dim), np.float32)))
+            ls["w_gu_mlp"].append(tensor(np.concatenate(
+                [mat(f"{p}.ffn_gate.weight"), mat(f"{p}.ffn_up.weight")],
+                axis=1), dtype))
+            ls["w_down_mlp"].append(tensor(mat(f"{p}.ffn_down.weight"),
+                                           dtype))
+        log.info("converted glm4moe layer %d/%d", i + 1, n_layers)
+
+    tok_emb = load_gguf_tensor(gguf, "token_embd.weight")
+    lm_head = (mat("output.weight") if "output.weight" in t
+               else np.ascontiguousarray(tok_emb.T))
+    params = {
+        "tok_emb": tensor(tok_emb, dtype),
+        "layers": {k: stack(v) for k, v in ls.items()},
+        "out_norm": vec("output_norm.weight"),
+        "lm_head": maybe_quant(lm_head),
+    }
+    return params, cfg
+
+
+_ARCH_CONVERTERS = {
+    "falcon": gguf_to_falcon_params,
+    "llama4": gguf_to_llama4_params,
+    "glm4moe": gguf_to_glm4moe_params,
+}
+
+
 def gguf_convert_auto(path: str, bits: Optional[int] = None,
                       device: Optional[torch.device] = None) -> tuple:
     """The arch -> converter dispatch for GGUF files that the CLI's
-    ``convert`` uses (``trackiellm_tpu/models/convert.py:gguf_convert_auto``).
-    Returns (params, cfg). The arches with a converter of their own raise
+    ``convert`` uses (``trackiellm_tpu/models/convert.py:gguf_convert_auto``):
+    falcon, llama4 and glm4moe take their own routes, every other arch
+    :func:`gguf_to_llm_params`. Returns (params, cfg). The arches whose
+    models are not ported (MLA, Mamba, Qwen3-Next) raise
     NotImplementedError naming their ROADMAP item."""
     arch = read_gguf_header(path).architecture or ""
     if arch in _WAITING_ARCHES:
         raise NotImplementedError(
             f"GGUF arch {arch!r}: its converter ({_WAITING_ARCHES[arch]}) "
             "is not ported yet (ROADMAP Queue 1 item 11)")
-    return gguf_to_llm_params(path, bits=bits, device=device)
+    fn = _ARCH_CONVERTERS.get(arch, gguf_to_llm_params)
+    return fn(path, bits=bits, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,33 +1,39 @@
-"""Dense decoder-only transformers, in PyTorch.
+"""Decoder-only transformers, dense and mixture-of-experts, in PyTorch.
 
-Port of the dense families of ``trackiellm_tpu/models/llm.py``: Mistral,
-Llama-3.x, Qwen2/3, Phi-3, Granite, GLM-4, Gemma-2/3, OLMo-2, SmolLM3 and the
-GGUF-only Command-R, Nemotron and StarCoder2 knob sets. RMS or LayerNorm
-(with an optional bias, pre-norms, sandwich or post-only placement),
-split-half rotary embeddings (partial rotary, static or longrope factors,
-Gemma-3's dual base, NoPE layers), grouped-query attention with per-layer
-sliding windows, a query scale and a softcap, QK norms, gated or plain MLPs
-(SwiGLU, GeGLU, GELU, squared ReLU) with biases, Granite's residual
-multiplier, Command-R's parallel residual and the final logit softcap. Q4/Q8
-group-quantized or dense weights, a KV cache in the reference's (L, S_max,
-Hk, D) layout, and the batched serving functions (``prefill_batch``,
-``BatchedKVCache``, ``insert_sequence``, ``decode_step_batch``,
-``decode_steps_batch``) that ``llm/server.py`` and ``llm/paging.py`` drive.
+Port of ``trackiellm_tpu/models/llm.py``: Mistral, Llama-3.x, Qwen2/3,
+Phi-3, Granite, GLM-4, Gemma-2/3, OLMo-2, SmolLM3, the GGUF-only Command-R,
+Nemotron and StarCoder2 knob sets, and the expert families: Mixtral,
+Qwen1.5/2-MoE, Qwen3-MoE, gpt-oss, Llama-4, GLM-4-MoE and Falcon. RMS or
+LayerNorm (with an optional bias, pre-norms, sandwich or post-only
+placement), split-half rotary embeddings (partial rotary, static or longrope
+factors, Gemma-3's dual base, NoPE layers), grouped-query attention with
+per-layer sliding windows, a query scale, a softcap, gpt-oss's sinks and
+Llama-4's chunks, post-rope L2 norm and NoPE temperature, QK norms, gated or
+plain MLPs (SwiGLU, GeGLU, gpt-oss's clamped SwiGLU, GELU, squared ReLU)
+with biases, the MoE block (softmax, sigmoid and top-k-first routers, group
+limits, shared experts, input-scaled experts; dense-all-experts on quantized
+banks, sorted grouped products on bf16 ones), Granite's residual
+multiplier, Command-R's and Falcon's parallel residuals and the final logit
+softcap. Q4/Q8 group-quantized or dense weights, a KV cache in the
+reference's (L, S_max, Hk, D) layout, and the batched serving functions
+(``prefill_batch``, ``BatchedKVCache``, ``insert_sequence``,
+``decode_step_batch``, ``decode_steps_batch``) that ``llm/server.py`` and
+``llm/paging.py`` drive.
 
 Parameters keep the JAX pytree layout (stacked ``(L, ...)`` layer tensors,
-fused ``wqkv`` and ``w_gu``, LayerNorms with a bias as ``{"g", "b"}``
-dicts), so ``models/bridge.py`` maps the JAX package's params onto these
-byte for byte. The reference's ``lax.scan`` over layers is a Python loop
-over per-layer views of the stacked tensors, so each layer's window, rope
-and norms are chosen on the host. Configs that set the knobs of the MoE,
-gpt-oss, Llama-4 or Falcon families raise NotImplementedError
-(:func:`check_supported`).
+``(L, E, ...)`` expert banks, fused ``wqkv`` and ``w_gu``, LayerNorms with a
+bias as ``{"g", "b"}`` dicts), so ``models/bridge.py`` maps the JAX
+package's params onto these byte for byte. The reference's ``lax.scan`` over
+layers is a Python loop over per-layer views of the stacked tensors, so each
+layer's window, chunk, rope, norms and dense-or-MoE choice are made on the
+host.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import os
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -54,7 +60,8 @@ from trackiellm_tpu_torch.ops.quant import (
 class LLMConfig(NamedTuple):
     """Field names and defaults of ``trackiellm_tpu.models.llm.LLMConfig``,
     so ``LLMConfig(**jax_cfg._asdict())`` works; the knobs are documented
-    there. The dense knob sets are supported (see :func:`check_supported`)."""
+    there. Every knob set runs (:func:`check_supported` checks only the
+    head counts)."""
 
     vocab_size: int = 32000
     dim: int = 4096
@@ -231,6 +238,67 @@ class LLMConfig(NamedTuple):
                    sliding_window=32768, qk_norm=True)
 
     @classmethod
+    def mixtral_8x7b(cls) -> "LLMConfig":
+        """Mixtral-8x7B: Mistral's attention, 8 experts top-2."""
+        return cls(vocab_size=32000, dim=4096, n_layers=32, n_heads=32,
+                   n_kv_heads=8, head_dim=128, hidden_dim=14336,
+                   rope_theta=1e6, max_seq=8192, sliding_window=8192,
+                   n_experts=8, n_experts_used=2)
+
+    @classmethod
+    def qwen15_moe_a27b(cls) -> "LLMConfig":
+        """Qwen1.5-MoE-A2.7B: 60 experts top-4 (not renormalized) and a
+        gated 5632-wide shared expert."""
+        return cls(vocab_size=151936, dim=2048, n_layers=24, n_heads=16,
+                   n_kv_heads=16, head_dim=128, hidden_dim=1408,
+                   rope_theta=1e6, max_seq=8192, sliding_window=8192,
+                   qkv_bias=True, n_experts=60, n_experts_used=4,
+                   moe_norm_topk=False, moe_shared_hidden=5632)
+
+    @classmethod
+    def qwen3_moe_30b_a3b(cls) -> "LLMConfig":
+        """Qwen3-30B-A3B: 128 experts top-8 (renormalized), QK norms."""
+        return cls(vocab_size=151936, dim=2048, n_layers=48, n_heads=32,
+                   n_kv_heads=4, head_dim=128, hidden_dim=768,
+                   norm_eps=1e-6, rope_theta=1e6, max_seq=32768,
+                   sliding_window=32768, qk_norm=True, n_experts=128,
+                   n_experts_used=8, moe_norm_topk=True)
+
+    @classmethod
+    def gpt_oss_20b(cls) -> "LLMConfig":
+        """gpt-oss-20b: 32 experts top-4, (64, 8) heads at D = 64, sinks,
+        attention and expert biases, clamped SwiGLU, window 128 on even
+        layers; pair with ``yarn_rope_factors(cfg, 32.0, 4096,
+        truncate=False)`` (the YaRN attention factor is set here)."""
+        return cls(vocab_size=201088, dim=2880, n_layers=24, n_heads=64,
+                   n_kv_heads=8, head_dim=64, hidden_dim=2880,
+                   rope_theta=150000.0, max_seq=131072, sliding_window=128,
+                   alt_window=True, n_experts=32, n_experts_used=4,
+                   moe_score_func="softmax_topk", moe_norm_topk=False,
+                   moe_bias=True, attn_sinks=True, qkv_bias=True,
+                   out_bias=True, act="gptoss",
+                   rope_attention_factor=yarn_attention_factor(32.0))
+
+    @classmethod
+    def gpt_oss_120b(cls) -> "LLMConfig":
+        return cls.gpt_oss_20b()._replace(n_layers=36, n_experts=128)
+
+    @classmethod
+    def llama4_scout(cls) -> "LLMConfig":
+        """Llama-4-Scout-17B-16E (text tower): 16 experts top-1 with
+        input-scaled sigmoid routing and an ungated shared expert, NoPE
+        every 4th layer with temperature tuning, post-rope QK L2 norm and
+        8192-chunk attention on the rope layers."""
+        return cls(vocab_size=202048, dim=5120, n_layers=48, n_heads=40,
+                   n_kv_heads=8, head_dim=128, hidden_dim=8192,
+                   rope_theta=500000.0, max_seq=8192, sliding_window=8192,
+                   n_experts=16, n_experts_used=1,
+                   moe_score_func="sigmoid_topk", moe_norm_topk=False,
+                   moe_scale_input=True, moe_shared_hidden=8192,
+                   moe_shared_gated=False, nope_pattern=4, qk_l2norm=True,
+                   attn_temp_tuning=True, attn_chunk=8192)
+
+    @classmethod
     def tiny(cls) -> "LLMConfig":
         """Small config for tests."""
         return cls(vocab_size=512, dim=256, n_layers=2, n_heads=4,
@@ -243,38 +311,16 @@ DENSE_PRESETS = ("mistral_7b", "llama3_8b", "qwen2_7b", "phi3_mini",
                  "granite3_8b", "glm4_9b", "gemma2_2b", "gemma2_9b",
                  "gemma3_1b", "gemma3_4b", "gemma3_12b", "gemma3_27b",
                  "olmo2_7b", "smollm3_3b", "qwen3_8b")
-
-# Knobs of the families still waiting (MoE, gpt-oss, Llama-4, Falcon) and
-# the value at which each is inert. gpt-oss's output bias is not among them:
-# StarCoder2 has one too. Knobs read only under one of these
-# (n_experts_used, act_limit, the temperature-tuning constants) stay inert.
-_WAITING_KNOBS = {
-    "n_experts": 0, "moe_scale_input": False, "moe_pattern": 0,
-    "moe_first_dense": 0, "moe_norm_topk": True, "moe_shared_hidden": 0,
-    "moe_routed_scale": 1.0, "moe_shared_gated": True, "moe_n_groups": 1,
-    "moe_topk_groups": 1, "moe_score_func": "softmax",
-    "moe_group_score": "max", "moe_bias": False, "attn_sinks": False,
-    "qk_l2norm": False, "attn_temp_tuning": False, "attn_chunk": 0,
-    "parallel_mlp_norm": False,
-}
+# The expert presets (and gpt-oss's and Llama-4's attention knobs).
+MOE_PRESETS = ("mixtral_8x7b", "qwen15_moe_a27b", "qwen3_moe_30b_a3b",
+               "gpt_oss_20b", "gpt_oss_120b", "llama4_scout")
 
 
 def check_supported(cfg: LLMConfig,
                     params: Optional[Dict[str, Any]] = None) -> None:
-    """Raise NotImplementedError naming the first knob of a family that is
-    not ported yet (ROADMAP Queue 1, ID 11: the MoE families, gpt-oss,
-    Llama-4 and Falcon)."""
-    del params  # every dense leaf (rope factors included) is ported
-    for name, value in _WAITING_KNOBS.items():
-        if getattr(cfg, name) != value:
-            raise NotImplementedError(
-                f"LLMConfig.{name}={getattr(cfg, name)!r}: the knobs of the "
-                "MoE, gpt-oss, Llama-4 and Falcon families are not ported "
-                f"yet ({name}={value!r} runs; ROADMAP Queue 1, ID 11)")
-    if cfg.act == "gptoss":
-        raise NotImplementedError(
-            "LLMConfig.act='gptoss' (gpt-oss's clamped SwiGLU) is not ported "
-            "yet (ROADMAP Queue 1, ID 11)")
+    """Every knob set of the JAX package runs; the head counts must group
+    (GQA)."""
+    del params
     if cfg.n_heads % cfg.n_kv_heads:
         raise ValueError("n_heads must be a multiple of n_kv_heads")
 
@@ -283,28 +329,65 @@ def check_supported(cfg: LLMConfig,
 # Parameters
 # ---------------------------------------------------------------------------
 
-def _shapes(cfg: LLMConfig) -> Dict[str, Tuple[int, int]]:
-    d, h = cfg.dim, cfg.hidden_dim
+def _is_hybrid(cfg: LLMConfig) -> bool:
+    """Dense and MoE layers interleave (Llama-4 Maverick's pattern, the
+    leading dense layers of GLM-4-MoE and ERNIE-4.5)."""
+    return bool(cfg.n_experts) and (cfg.moe_pattern > 1
+                                    or cfg.moe_first_dense > 0)
+
+
+def _is_moe_layer(cfg: LLMConfig, li: int) -> bool:
+    """Layer ``li`` runs the MoE block (the reference's ``_mlp``)."""
+    if not _is_hybrid(cfg):
+        return bool(cfg.n_experts)
+    is_moe = li >= cfg.moe_first_dense
+    if cfg.moe_pattern > 1:
+        is_moe &= li % cfg.moe_pattern == cfg.moe_pattern - 1
+    return is_moe
+
+
+def _matrices(cfg: LLMConfig) -> Dict[str, Tuple[Tuple[int, ...], int, int]]:
+    """The quantizable matrices (the reference's ``_QUANTIZABLE``): name ->
+    (leading dims, K, N); expert banks lead with (L, E)."""
+    d, h, l = cfg.dim, cfg.hidden_dim, cfg.n_layers
     qd = cfg.n_heads * cfg.head_dim
     kvd = cfg.n_kv_heads * cfg.head_dim
-    return {"wqkv": (d, qd + 2 * kvd), "wo": (qd, d),
-            "w_gu": (d, 2 * h if cfg.mlp_gated else h), "w_down": (h, d)}
+    out = {"wqkv": ((l,), d, qd + 2 * kvd), "wo": ((l,), qd, d)}
+    if cfg.n_experts:
+        e = cfg.n_experts
+        out["w_gu"] = ((l, e), d, 2 * h)
+        out["w_down"] = ((l, e), h, d)
+        if cfg.moe_shared_hidden:
+            hs = cfg.moe_shared_hidden
+            out["shared_gu"] = ((l,), d, 2 * hs)
+            out["shared_down"] = ((l,), hs, d)
+    else:
+        out["w_gu"] = ((l,), d, 2 * h if cfg.mlp_gated else h)
+        out["w_down"] = ((l,), h, d)
+    return out
 
 
 def _family_leaves(cfg: LLMConfig, normal, dtype, device) -> Dict[str, Any]:
-    """The per-layer leaves besides the four matrices and the two pre-norms
-    (the JAX package's ``init_params``): QKV and output biases, sandwich
-    norms, QK norms and, for ``mlp_bias``, the MLP biases. ``normal(shape)`` gives
-    f32 standard normals."""
-    l, d = cfg.n_layers, cfg.dim
+    """The per-layer leaves besides the quantizable matrices and the two
+    pre-norms (the JAX package's ``init_params``): QKV and output biases,
+    sinks, sandwich norms, QK norms, the MLP biases, the router and its
+    biases, the shared expert's gate and a hybrid stack's dense MLP.
+    ``normal(shape)`` gives f32 standard normals."""
+    l, d, h = cfg.n_layers, cfg.dim, cfg.hidden_dim
     qd = cfg.n_heads * cfg.head_dim
     kvd = cfg.n_kv_heads * cfg.head_dim
 
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=device)
+
+    def small(*shape):
+        return (normal(shape) * 0.02).to(dtype)
+
+    def w(*shape):
+        return (normal(shape) / math.sqrt(shape[-2])).to(dtype)
     out: Dict[str, Any] = {}
     if cfg.qkv_bias:
-        out["wqkv_bias"] = (normal((l, qd + 2 * kvd)) * 0.02).to(dtype)
+        out["wqkv_bias"] = small(l, qd + 2 * kvd)
     if cfg.post_norms:
         out["attn_post_norm"] = ones(l, d)
         out["mlp_post_norm"] = ones(l, d)
@@ -315,19 +398,33 @@ def _family_leaves(cfg: LLMConfig, normal, dtype, device) -> Dict[str, Any]:
         out["q_norm"] = ones(l, qd)
         out["k_norm"] = ones(l, kvd)
     if cfg.out_bias:
-        out["wo_bias"] = (normal((l, d)) * 0.02).to(dtype)
-    if cfg.mlp_bias:
-        out["w_gu_b"] = (normal((l, _shapes(cfg)["w_gu"][1])) * 0.02).to(dtype)
-        out["w_down_b"] = (normal((l, d)) * 0.02).to(dtype)
+        out["wo_bias"] = small(l, d)
+    if cfg.attn_sinks:
+        out["attn_sink"] = normal((l, cfg.n_heads)) * 0.5
+    if cfg.n_experts:
+        e = cfg.n_experts
+        out["moe_gate"] = w(l, d, e)
+        if cfg.moe_bias:
+            out["moe_gate_b"] = small(l, e)
+            out["w_gu_b"] = small(l, e, 2 * h)
+            out["w_down_b"] = small(l, e, d)
+        if cfg.moe_shared_hidden:
+            out["shared_gate"] = w(l, d, 1)
+        if _is_hybrid(cfg):
+            out["w_gu_mlp"] = w(l, d, 2 * h if cfg.mlp_gated else h)
+            out["w_down_mlp"] = w(l, h, d)
+    elif cfg.mlp_bias:
+        out["w_gu_b"] = small(l, _matrices(cfg)["w_gu"][2])
+        out["w_down_b"] = small(l, d)
     return out
 
 
 def init_params(generator: torch.Generator, cfg: LLMConfig,
                 dtype: torch.dtype = torch.bfloat16,
                 device: Optional[torch.device] = None) -> Dict[str, Any]:
-    """Random dense params in the reference's layout (stacked layers), with
-    the leaves the config's family reads. ``generator`` must live on
-    ``device``."""
+    """Random params in the reference's layout (stacked layers, (L, E, K,
+    N) expert banks), with the leaves the config's family reads.
+    ``generator`` must live on ``device``."""
     check_supported(cfg)
     d, l = cfg.dim, cfg.n_layers
 
@@ -340,8 +437,8 @@ def init_params(generator: torch.Generator, cfg: LLMConfig,
 
     layers = {"attn_norm": torch.ones((l, d), dtype=dtype, device=device),
               "mlp_norm": torch.ones((l, d), dtype=dtype, device=device)}
-    for name, (kk, nn) in _shapes(cfg).items():
-        layers[name] = w(l, kk, nn)
+    for name, (lead, kk, nn) in _matrices(cfg).items():
+        layers[name] = w(*lead, kk, nn)
     layers.update(_family_leaves(cfg, normal, dtype, device))
     return {
         "tok_emb": w(cfg.vocab_size, d, scale=0.02),
@@ -351,24 +448,41 @@ def init_params(generator: torch.Generator, cfg: LLMConfig,
     }
 
 
-def _stack_quantized(mats, quantize, group: int) -> QuantizedLinear:
-    qs = [quantize(m, group) for m in mats]
-    return QuantizedLinear(values=torch.stack([q.values for q in qs]),
-                           scales=torch.stack([q.scales for q in qs]))
+def _quantize_stack(stacked: torch.Tensor, quantize,
+                    group: int) -> QuantizedLinear:
+    """Quantize every (K, N) matrix of an (..., K, N) stack, one at a
+    time, into one QuantizedLinear with the same leading dims."""
+    lead = stacked.shape[:-2]
+    flat = stacked.reshape(-1, *stacked.shape[-2:])
+    values = scales = None
+    for i in range(flat.shape[0]):
+        q = quantize(flat[i], group)
+        if values is None:
+            values = q.values.new_empty((flat.shape[0], *q.values.shape))
+            scales = q.scales.new_empty((flat.shape[0], *q.scales.shape))
+        values[i], scales[i] = q.values, q.scales
+    return QuantizedLinear(values=values.reshape(*lead, *values.shape[1:]),
+                           scales=scales.reshape(*lead, *scales.shape[1:]))
 
 
 def quantize_params(params: Dict[str, Any], bits: int = 4,
                     group: int = 256) -> Dict[str, Any]:
-    """Quantize the per-layer matrices and lm_head (Q4 or Q8); embeddings,
-    norms, biases and rope factors keep their dtype."""
+    """Quantize the per-layer matrices of ``_matrices`` that the tree holds
+    (expert banks one expert at a time) and lm_head (Q4 or Q8);
+    embeddings, norms, biases, the router, the shared expert's gate, a
+    hybrid stack's dense MLP and rope factors keep their dtype."""
     quantize = quantize_q4 if bits == 4 else quantize_q8
     out = dict(params)
     layers = dict(params["layers"])
-    for name in ("wqkv", "wo", "w_gu", "w_down"):
-        layers[name] = _stack_quantized(layers[name], quantize, group)
+    for name in _QUANTIZABLE:
+        if name in layers:
+            layers[name] = _quantize_stack(layers[name], quantize, group)
     out["layers"] = layers
     out["lm_head"] = quantize(params["lm_head"], group)
     return out
+
+
+_QUANTIZABLE = ("wqkv", "wo", "w_gu", "w_down", "shared_gu", "shared_down")
 
 
 def init_params_quantized(generator: torch.Generator, cfg: LLMConfig,
@@ -376,10 +490,10 @@ def init_params_quantized(generator: torch.Generator, cfg: LLMConfig,
                           dtype: torch.dtype = torch.bfloat16,
                           device: Optional[torch.device] = None
                           ) -> Dict[str, Any]:
-    """Random params straight into quantized form, one (K, N) matrix at a
-    time, so peak memory is one f32 matrix beside the quantized model; the
-    layout of :func:`quantize_params` of :func:`init_params`. ``generator``
-    must live on ``device``."""
+    """Random params straight into quantized form, one (K, N) matrix (one
+    expert's) at a time, so peak memory is one f32 matrix beside the
+    quantized model; the layout of :func:`quantize_params` of
+    :func:`init_params`. ``generator`` must live on ``device``."""
     check_supported(cfg)
     quantize = quantize_q4 if bits == 4 else quantize_q8
     d, l = cfg.dim, cfg.n_layers
@@ -394,17 +508,20 @@ def init_params_quantized(generator: torch.Generator, cfg: LLMConfig,
         "attn_norm": torch.ones((l, d), dtype=dtype, device=device),
         "mlp_norm": torch.ones((l, d), dtype=dtype, device=device),
     }
-    for name, (kk, nn) in _shapes(cfg).items():
+    for name, (lead, kk, nn) in _matrices(cfg).items():
+        count = math.prod(lead)
         first = build_one(kk, nn)
-        values = torch.empty((l, *first.values.shape),
+        values = torch.empty((count, *first.values.shape),
                              dtype=first.values.dtype, device=device)
-        scales = torch.empty((l, *first.scales.shape), dtype=torch.float32,
-                             device=device)
+        scales = torch.empty((count, *first.scales.shape),
+                             dtype=torch.float32, device=device)
         values[0], scales[0] = first.values, first.scales
-        for i in range(1, l):
+        for i in range(1, count):
             q = build_one(kk, nn)
             values[i], scales[i] = q.values, q.scales
-        layers[name] = QuantizedLinear(values=values, scales=scales)
+        layers[name] = QuantizedLinear(
+            values=values.reshape(*lead, *first.values.shape),
+            scales=scales.reshape(*lead, *first.scales.shape))
     layers.update(_family_leaves(cfg, normal, dtype, device))
     tok_emb = (normal((cfg.vocab_size, d)) * 0.02).to(dtype)
     return {
@@ -453,25 +570,37 @@ def _linear(x: torch.Tensor, w) -> torch.Tensor:
     would cost its traffic on every call. The CPU widens both to f32."""
     if isinstance(w, QuantizedLinear):
         return quantized_matmul(x, w).to(x.dtype)
-    if is_cuda(x) and x.dtype == w.dtype == torch.bfloat16:
-        x2 = x.reshape(-1, x.shape[-1])
-        out = torch.mm(x2, w, out_dtype=torch.float32)
-        return out.reshape(*x.shape[:-1], w.shape[-1]).to(x.dtype)
-    return torch.matmul(x.float(), w.float()).to(x.dtype)
+    out = _mm_f32(x.reshape(-1, x.shape[-1]), w)
+    return out.reshape(*x.shape[:-1], w.shape[-1]).to(x.dtype)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, K) @ (K, N) with f32 sums and an f32 result
+    (``preferred_element_type``): a bf16 pair on the card is read as
+    stored; elsewhere both widen to f32."""
+    if is_cuda(a) and a.dtype == b.dtype == torch.bfloat16:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.matmul(a.float(), b.float())
+
+
+def _unit_rms(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """f32 RMS normalization over the last axis, cast to x's dtype, with
+    no weight. On the card it is PyTorch's fused RMS norm, which reduces
+    each row in a block of its own: a row gets the same bits whether the
+    call holds one row (a decode step) or sixteen (a verify pass), so
+    greedy speculation keeps plain decode's ids. The unfused f32 mean's
+    order depends on the row count there, and one flipped rounding of a
+    norm can change a greedy token."""
+    if is_cuda(x):
+        return F.rms_norm(x, (x.shape[-1],), eps=eps)
+    x32 = x.float()
+    ms = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(ms + eps)).to(x.dtype)
 
 
 def _rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    """f32 RMS norm, cast to x's dtype, then scaled. On the card it is
-    PyTorch's fused RMS norm, which reduces each row in a block of its own:
-    a row gets the same bits whether the call holds one row (a decode step)
-    or sixteen (a verify pass), so greedy speculation keeps plain decode's
-    ids. The unfused f32 mean's order depends on the row count there, and
-    one flipped rounding of a norm can change a greedy token."""
-    if is_cuda(x):
-        return F.rms_norm(x, (x.shape[-1],), eps=eps) * scale
-    x32 = x.float()
-    ms = x32.square().mean(dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(ms + eps)).to(x.dtype) * scale
+    """:func:`_unit_rms`, then scaled."""
+    return _unit_rms(x, eps) * scale
 
 
 def _layer_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -527,22 +656,29 @@ def _attn_in(x: torch.Tensor, layer, cfg: LLMConfig) -> torch.Tensor:
     return _norm(x, layer["attn_norm"], cfg.norm_eps, cfg.norm_type)
 
 
-def _act_combine(gate: torch.Tensor, up: torch.Tensor,
-                 act: str = "silu") -> torch.Tensor:
-    """The gate/up halves of a GLU (f32 in and out): SwiGLU, or GeGLU
-    with the tanh approximation (``act="gelu"``, Gemma)."""
+def _act_combine(gate: torch.Tensor, up: torch.Tensor, act: str = "silu",
+                 limit: float = 7.0) -> torch.Tensor:
+    """The gate/up halves of a GLU (f32 in and out): SwiGLU, GeGLU with the
+    tanh approximation (``act="gelu"``, Gemma), or gpt-oss's clamped
+    SwiGLU (``act="gptoss"``: gate clamped above at ``limit``, up to
+    +-limit, ``(up + 1) * gate * sigmoid(1.702 gate)``)."""
+    if act == "gptoss":
+        gate = gate.clamp(max=limit)
+        up = up.clamp(-limit, limit)
+        return (up + 1.0) * (gate * torch.sigmoid(gate * 1.702))
     gated = (F.silu(gate) if act == "silu"
              else F.gelu(gate, approximate="tanh"))
     return gated * up
 
 
-def _mlp_act(gu: torch.Tensor, act: str, gated: bool) -> torch.Tensor:
+def _mlp_act(gu: torch.Tensor, act: str, gated: bool,
+             limit: float = 7.0) -> torch.Tensor:
     """The MLP's activation on the f32 up projection: a GLU of its halves,
     or, ungated, squared ReLU (``relu2``, Nemotron), exact GELU
     (``gelu_exact``) or tanh GELU (StarCoder2)."""
     if gated:
         gate, up = gu.chunk(2, dim=-1)
-        return _act_combine(gate, up, act)
+        return _act_combine(gate, up, act, limit)
     if act == "relu2":
         return F.relu(gu).square()
     return F.gelu(gu, approximate="none" if act == "gelu_exact" else "tanh")
@@ -595,16 +731,234 @@ def _mlp_block(x: torch.Tensor, norm_scale, w_gu, w_down, eps: float,
     return x + _scaled(out, residual_multiplier)
 
 
-def _mlp(x: torch.Tensor, layer, cfg: LLMConfig) -> torch.Tensor:
-    """The dense MLP of every forward body (``_mlp``'s dense branch)."""
+def _expert_slice(w, e: int):
+    """Expert ``e`` of an (E, ...) bank (a tensor or a QuantizedLinear whose
+    values and scales carry the expert axis): a view."""
+    if isinstance(w, QuantizedLinear):
+        return QuantizedLinear(values=w.values[e], scales=w.scales[e])
+    return w[e]
+
+
+def _moe_use_routed(n_tokens: int, w_gu) -> bool:
+    """The reference's dispatch between the two MoE formulations:
+    quantized banks always take dense-all-experts; bf16 banks take the
+    sorted grouped products when ``TRACKIE_MOE_ROUTED`` is "1", never when
+    it is "0", and by default when the dense-all-experts MLP would cost at
+    least 5e11 FLOPs (the reference's crossover, kept as its rule)."""
+    if isinstance(w_gu, QuantizedLinear):
+        return False
+    mode = os.environ.get("TRACKIE_MOE_ROUTED", "auto")
+    if mode == "0":
+        return False
+    if mode == "1":
+        return True
+    n_experts, d, n2 = w_gu.shape
+    return 2 * n_tokens * n_experts * d * n2 * 1.5 >= 5e11
+
+
+def _grouped_dot(xs: torch.Tensor, bank: torch.Tensor,
+                 sizes) -> torch.Tensor:
+    """Rows [off_g, off_g + size_g) of ``xs`` times ``bank[g]`` for each
+    group, f32 out: the reference's ``lax.ragged_dot``. ``sizes`` are host
+    ints."""
+    out = xs.new_empty((xs.shape[0], bank.shape[-1]), dtype=torch.float32)
+    off = 0
+    for g, size in enumerate(sizes):
+        if size:
+            out[off:off + size] = _mm_f32(xs[off:off + size], bank[g])
+            off += size
+    return out
+
+
+def _moe_routed(h2: torch.Tensor, topv: torch.Tensor, topi: torch.Tensor,
+                layer, cfg: LLMConfig) -> torch.Tensor:
+    """Dropless routed MoE on bf16 banks (the reference's ``_moe_routed``
+    and, under ``moe_scale_input``, ``_moe_routed_scaled_in``): the (T *
+    K) token slots stably sorted by expert, each expert's contiguous run
+    through its bank, and the weighted outputs summed back per token.
+
+    The reference scatter-adds into f32 zeros in sorted-slot order, which
+    for a token is ascending expert order; the sum here follows that
+    order from 0.0 through the inverted permutation (an atomic
+    ``index_add_`` would make a row's bits depend on the other rows). The
+    group sizes are read on the host, once a layer."""
+    t, d = h2.shape
+    k = cfg.n_experts_used
+    flat = topi.reshape(-1)
+    order = torch.sort(flat, stable=True).indices
+    sorted_e = flat[order]
+    src = order // k
+    wts = topv.reshape(-1)[order]
+    xs = h2[src]
+    if cfg.moe_scale_input:
+        xs = xs * wts[:, None].to(h2.dtype)
+    sizes = torch.bincount(flat, minlength=cfg.n_experts).tolist()
+    biased = cfg.moe_bias and not cfg.moe_scale_input
+    gu = _grouped_dot(xs, layer["w_gu"], sizes)
+    if biased:
+        gu = gu + layer["w_gu_b"][sorted_e].float()
+    gate, up = gu.chunk(2, dim=-1)
+    ys = _grouped_dot(
+        _act_combine(gate, up, cfg.act, cfg.act_limit).to(h2.dtype),
+        layer["w_down"], sizes)
+    if biased:
+        ys = ys + layer["w_down_b"][sorted_e].float()
+    if not cfg.moe_scale_input:
+        ys = ys * wts[:, None]
+    # Each token's sorted positions, ascending: its slots in expert order.
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.shape[0], device=order.device)
+    pos = torch.sort(inv.reshape(t, k), dim=-1).values
+    out = torch.zeros((t, d), dtype=torch.float32, device=h2.device)
+    for j in range(k):
+        out = out + ys[pos[:, j]]
+    return out
+
+
+def _moe_shared(h2: torch.Tensor, layer, cfg: LLMConfig) -> torch.Tensor:
+    """The always-active shared expert (Qwen-MoE's gated by
+    sigmoid(shared_gate(h2)), Llama-4's and GLM-4-MoE's ungated), f32; f32
+    zeros without one, the routed mixture's starting value."""
+    if not cfg.moe_shared_hidden:
+        return torch.zeros(h2.shape, dtype=torch.float32, device=h2.device)
+    gu = _linear(h2, layer["shared_gu"]).float()
+    gate, up = gu.chunk(2, dim=-1)
+    y = _linear(_act_combine(gate, up, cfg.act, cfg.act_limit).to(h2.dtype),
+                layer["shared_down"]).float()
+    if not cfg.moe_shared_gated:
+        return y
+    g = torch.sigmoid(_linear(h2, layer["shared_gate"]).float())
+    return g * y
+
+
+def _top_k_first(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest along the last axis in ``lax.top_k``'s
+    order: the lower index first among equals, and +0.0 above -0.0 (its
+    comparison is IEEE's total order). A stable descending sort of the
+    total-order integer key of each f32 does both on the CPU and the card
+    (``torch.topk`` promises neither; a float sort ties the zeros)."""
+    bits = x.float().contiguous().view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    return torch.sort(key, dim=-1, descending=True, stable=True).indices[
+        ..., :k]
+
+
+def _moe_select(h2: torch.Tensor, layer, cfg: LLMConfig):
+    """The router's (T, E) f32 scores and the selection values its top-k
+    reads: softmax or sigmoid scores, or (``*_topk``, gpt-oss and Llama-4)
+    the raw logits; the router bias ``moe_gate_b`` shifts both, the
+    selection-only ``moe_gate_bias`` only the selection; group-limited
+    routing zeroes all but the ``moe_topk_groups`` best groups (by max or
+    top-2 sum) of the selection."""
+    logits = _linear(h2, layer["moe_gate"]).float()
+    if cfg.moe_bias:
+        logits = logits + layer["moe_gate_b"].float()
+    if cfg.moe_score_func == "sigmoid":
+        scores = torch.sigmoid(logits)
+    elif cfg.moe_score_func in ("softmax_topk", "sigmoid_topk"):
+        scores = logits
+    else:
+        scores = torch.softmax(logits, dim=-1)
+    select = scores
+    if "moe_gate_bias" in layer:
+        select = scores + layer["moe_gate_bias"].float()
+    if cfg.moe_n_groups > 1:
+        t = select.shape[0]
+        gsz = cfg.n_experts // cfg.moe_n_groups
+        g = select.reshape(t, cfg.moe_n_groups, gsz)
+        if cfg.moe_group_score == "top2sum":
+            top2 = g.gather(-1, _top_k_first(g, 2))
+            gscore = top2[..., 0] + top2[..., 1]
+        else:
+            gscore = g.amax(dim=-1)
+        gtop = _top_k_first(gscore, cfg.moe_topk_groups)
+        gmask = torch.zeros_like(gscore).scatter(-1, gtop, 1.0)
+        select = select * gmask.repeat_interleave(gsz, dim=-1)
+    return scores, select
+
+
+def _moe_router(h2: torch.Tensor, layer, cfg: LLMConfig):
+    """The router: (T, K) combine weights (f32) and expert ids, the top-k
+    of :func:`_moe_select`'s selection weighted by :func:`_moe_weights`."""
+    scores, select = _moe_select(h2, layer, cfg)
+    topi = _top_k_first(select, cfg.n_experts_used)
+    return _moe_weights(scores, topi, cfg), topi
+
+
+def _moe_weights(scores: torch.Tensor, topi: torch.Tensor,
+                 cfg: LLMConfig) -> torch.Tensor:
+    """The (T, K) f32 combine weights of experts ``topi``: their scores,
+    transformed under ``softmax_topk`` and ``sigmoid_topk``, then
+    renormalized and scaled by ``moe_routed_scale``."""
+    topv = scores.gather(-1, topi)
+    if cfg.moe_score_func == "softmax_topk":
+        topv = torch.softmax(topv, dim=-1)
+    elif cfg.moe_score_func == "sigmoid_topk":
+        topv = torch.sigmoid(topv)
+    if cfg.moe_norm_topk:
+        denom = topv.sum(dim=-1, keepdim=True)
+        if cfg.moe_score_func == "sigmoid":
+            denom = denom + 1e-20
+        topv = topv / denom
+    if cfg.moe_routed_scale != 1.0:
+        topv = topv * cfg.moe_routed_scale
+    return topv
+
+
+def _moe_block(x: torch.Tensor, layer, cfg: LLMConfig) -> torch.Tensor:
+    """norm -> router -> top-k experts (+ shared expert) [-> post-norm]
+    [x multiplier] -> + residual, in the reference's two formulations:
+    dense-all-experts (quantized banks, and bf16 ones below the routed
+    rule), where every expert runs on every row, weighted by a (T, E)
+    matrix that is zero off the top-k, summed in expert order from the
+    shared expert's output; or :func:`_moe_routed`. Llama-4 scales each
+    expert's input by its weight instead of its output."""
+    h2 = _norm(x, layer["mlp_norm"], cfg.norm_eps, cfg.norm_type)
+    topv, topi = _moe_router(h2, layer, cfg)
+    if _moe_use_routed(x.shape[0], layer["w_gu"]):
+        out = _moe_routed(h2, topv, topi, layer, cfg) + _moe_shared(
+            h2, layer, cfg)
+    else:
+        weights = torch.zeros((x.shape[0], cfg.n_experts),
+                              dtype=torch.float32, device=x.device)
+        weights = weights.scatter(-1, topi, topv)
+        out = _moe_shared(h2, layer, cfg)
+        for e in range(cfg.n_experts):
+            we = weights[:, e:e + 1]
+            h2_e = h2 * we.to(h2.dtype) if cfg.moe_scale_input else h2
+            gu = _linear(h2_e, _expert_slice(layer["w_gu"], e)).float()
+            if cfg.moe_bias:
+                gu = gu + layer["w_gu_b"][e].float()
+            gate, up = gu.chunk(2, dim=-1)
+            y = _linear(
+                _act_combine(gate, up, cfg.act, cfg.act_limit).to(x.dtype),
+                _expert_slice(layer["w_down"], e)).float()
+            if cfg.moe_bias:
+                y = y + layer["w_down_b"][e].float()
+            out = out + (y if cfg.moe_scale_input else we * y)
+    out = out.to(x.dtype)
+    if cfg.post_norms:
+        out = _norm(out, layer["mlp_post_norm"], cfg.norm_eps, cfg.norm_type)
+    return x + _scaled(out, cfg.residual_multiplier)
+
+
+def _mlp(x: torch.Tensor, layer, cfg: LLMConfig, li: int) -> torch.Tensor:
+    """The MLP of every forward body: the MoE block on layer ``li`` of an
+    expert config (:func:`_is_moe_layer`), else the dense MLP (a hybrid
+    stack's from ``w_gu_mlp``/``w_down_mlp``, without biases)."""
+    if _is_moe_layer(cfg, li):
+        return _moe_block(x, layer, cfg)
+    hybrid = _is_hybrid(cfg)
     return _mlp_block(
-        x, layer["mlp_norm"] if cfg.pre_norms else None, layer["w_gu"],
-        layer["w_down"], cfg.norm_eps, act=cfg.act,
-        post_norm=layer.get("mlp_post_norm"),
+        x, layer["mlp_norm"] if cfg.pre_norms else None,
+        layer["w_gu_mlp" if hybrid else "w_gu"],
+        layer["w_down_mlp" if hybrid else "w_down"], cfg.norm_eps,
+        act=cfg.act, post_norm=layer.get("mlp_post_norm"),
         residual_multiplier=cfg.residual_multiplier,
         norm_type=cfg.norm_type, gated=cfg.mlp_gated,
-        w_gu_b=layer.get("w_gu_b") if cfg.mlp_bias else None,
-        w_down_b=layer.get("w_down_b") if cfg.mlp_bias else None)
+        w_gu_b=layer.get("w_gu_b") if cfg.mlp_bias and not hybrid else None,
+        w_down_b=(layer.get("w_down_b") if cfg.mlp_bias and not hybrid
+                  else None))
 
 
 def _attn_residual(x: torch.Tensor, attn_out: torch.Tensor, layer,
@@ -626,22 +980,26 @@ def _mlp_branch(h: torch.Tensor, layer, cfg: LLMConfig) -> torch.Tensor:
     gu = _linear(h, layer["w_gu"]).float()
     if cfg.mlp_bias and "w_gu_b" in layer:
         gu = gu + layer["w_gu_b"].float()
-    out = _linear(_mlp_act(gu, cfg.act, cfg.mlp_gated).to(h.dtype),
-                  layer["w_down"])
+    out = _linear(_mlp_act(gu, cfg.act, cfg.mlp_gated,
+                           cfg.act_limit).to(h.dtype), layer["w_down"])
     if cfg.mlp_bias and "w_down_b" in layer:
         out = out + layer["w_down_b"]
     return out
 
 
-def _layer_tail(x, h, attn, layer, cfg: LLMConfig) -> torch.Tensor:
+def _layer_tail(x, h, attn, layer, cfg: LLMConfig, li: int) -> torch.Tensor:
     """Everything after the attention weights: sequential residuals, or
-    Command-R's parallel residual (x + attn + mlp(h), one shared norm)."""
+    the parallel residual (x + attn + mlp): Command-R's MLP reads the
+    attention's norm ``h``, Falcon's new architecture
+    (``parallel_mlp_norm``) norms the stream itself."""
     if cfg.parallel_residual:
         out = _linear(attn.to(x.dtype), layer["wo"])
         if cfg.out_bias:
             out = out + layer["wo_bias"]
-        return x + out + _mlp_branch(h, layer, cfg).to(x.dtype)
-    return _mlp(_attn_residual(x, attn, layer, cfg), layer, cfg)
+        hm = (_norm(x, layer["mlp_norm"], cfg.norm_eps, cfg.norm_type)
+              if cfg.parallel_mlp_norm else h)
+        return x + out + _mlp_branch(hm, layer, cfg).to(x.dtype)
+    return _mlp(_attn_residual(x, attn, layer, cfg), layer, cfg, li)
 
 
 def _output_logits(params: Dict[str, Any], cfg: LLMConfig,
@@ -663,15 +1021,6 @@ def _attn_scale(cfg: LLMConfig) -> float:
     attention factor squared."""
     base = 1.0 / math.sqrt(cfg.query_pre_attn_scalar or cfg.head_dim)
     return base * cfg.rope_attention_factor ** 2
-
-
-def _attn_extras(cfg: LLMConfig) -> dict:
-    """softcap and scale of every attention call (scale 0.0 = the kernels'
-    own 1/sqrt(head_dim))."""
-    scale = _attn_scale(cfg)
-    if not cfg.query_pre_attn_scalar and cfg.rope_attention_factor == 1.0:
-        scale = 0.0
-    return {"softcap": cfg.attn_softcap, "scale": scale}
 
 
 def _layer_window(cfg: LLMConfig) -> int:
@@ -698,6 +1047,29 @@ def _window_of(cfg: LLMConfig, li: int) -> int:
     if win and _per_layer_windows(cfg) and not _is_sliding(cfg, li):
         return 0
     return win
+
+
+def _chunk_of(cfg: LLMConfig, li: int) -> int:
+    """Layer ``li``'s attention chunk (0 = none): Llama-4's rope layers
+    attend within aligned chunks of ``attn_chunk``; NoPE layers are
+    global."""
+    if not cfg.attn_chunk or _is_nope(cfg, li):
+        return 0
+    return cfg.attn_chunk
+
+
+def _attn_kw(cfg: LLMConfig, li: int, layer) -> dict:
+    """Window, chunk, sinks, softcap and scale of layer ``li``'s prefill and
+    decode attention (the reference's ``_prefill_attn``/``_decode_attn``):
+    a chunked config attends with no window; gpt-oss's sinks are the
+    layer's (H,) ``attn_sink``."""
+    scale = _attn_scale(cfg)
+    if not cfg.query_pre_attn_scalar and cfg.rope_attention_factor == 1.0:
+        scale = 0.0   # the kernels' own 1/sqrt(head_dim)
+    return {"softcap": cfg.attn_softcap, "scale": scale,
+            "window": 0 if cfg.attn_chunk else _window_of(cfg, li),
+            "chunk": _chunk_of(cfg, li),
+            "sinks": layer["attn_sink"] if cfg.attn_sinks else None}
 
 
 # ---------------------------------------------------------------------------
@@ -862,6 +1234,31 @@ def _layer_rope(cfg: LLMConfig, li: int, tables):
     return tables[0]
 
 
+@functools.lru_cache(maxsize=None)
+def _scalar(value: float, device) -> torch.Tensor:
+    """A 0-dim f32 tensor on ``device``, made once: a quotient by it is an
+    IEEE division on the card too, where a Python divisor becomes a product
+    with its f32 reciprocal."""
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
+def _post_rope_qk(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
+                  li: int, cfg: LLMConfig):
+    """Llama-4's q/k after rope on (N, H, D) heads at (N,) positions: a
+    weightless L2 (RMS) norm on rope layers, and on NoPE layers queries
+    scaled by ``log1p(floor((pos + 1) / attn_temp_floor)) *
+    attn_temp_scale + 1`` in f32 (the reference's order)."""
+    nope = _is_nope(cfg, li)
+    if cfg.qk_l2norm and not nope:
+        q, k = _unit_rms(q, cfg.norm_eps), _unit_rms(k, cfg.norm_eps)
+    if cfg.attn_temp_tuning and nope:
+        pos = positions.float() + 1.0
+        floor = _scalar(float(cfg.attn_temp_floor), pos.device)
+        sc = torch.log1p(torch.floor(pos / floor)) * cfg.attn_temp_scale + 1.0
+        q = (q.float() * sc[:, None, None]).to(q.dtype)
+    return q, k
+
+
 # ---------------------------------------------------------------------------
 # KV cache
 # ---------------------------------------------------------------------------
@@ -898,10 +1295,12 @@ def embed_tokens(params: Dict[str, Any], tokens: torch.Tensor) -> torch.Tensor:
     return params["tok_emb"][tokens.long()]
 
 
-def _qkv(x: torch.Tensor, layer, cfg: LLMConfig, rope):
-    """Attention input, fused QKV projection (+ bias), head split, QK norms
-    and rope (``rope`` a (cos, sin) pair, or None on a NoPE layer);
-    returns (h, q (N, H, D), k (N, Hk, D), v (N, Hk, D))."""
+def _qkv(x: torch.Tensor, layer, cfg: LLMConfig, li: int, tables,
+         positions: torch.Tensor):
+    """Attention input, fused QKV projection (+ bias), head split, QK norms,
+    layer ``li``'s rope (from ``tables``, none on a NoPE layer) and
+    Llama-4's post-rope processing at ``positions`` (N,); returns (h, q
+    (N, H, D), k (N, Hk, D), v (N, Hk, D))."""
     n = x.shape[0]
     qd = cfg.n_heads * cfg.head_dim
     kvd = cfg.n_kv_heads * cfg.head_dim
@@ -913,8 +1312,11 @@ def _qkv(x: torch.Tensor, layer, cfg: LLMConfig, rope):
     k = qkv[:, qd:qd + kvd].reshape(n, cfg.n_kv_heads, cfg.head_dim)
     v = qkv[:, qd + kvd:].reshape(n, cfg.n_kv_heads, cfg.head_dim)
     q, k = _qk_norm(q, k, layer, cfg)
+    rope = _layer_rope(cfg, li, tables)
     if rope is not None:
         q, k = _rotate(q, *rope), _rotate(k, *rope)
+    if cfg.qk_l2norm or cfg.attn_temp_tuning:
+        q, k = _post_rope_qk(q, k, positions, li, cfg)
     return h, q, k, v
 
 
@@ -934,18 +1336,17 @@ def prefill(params: Dict[str, Any], cfg: LLMConfig, tokens: torch.Tensor,
     positions = torch.arange(s_pad, device=tokens.device)
     tables = _rope_tables(params, cfg, positions, int(length))
     x = params["tok_emb"][tokens.long()]
-    extras = _attn_extras(cfg)
     for li in range(cfg.n_layers):
         layer = _layer(params["layers"], li)
-        h, q, k, v = _qkv(x, layer, cfg, _layer_rope(cfg, li, tables))
+        h, q, k, v = _qkv(x, layer, cfg, li, tables, positions)
         cache.k[li, :s_pad] = k.to(cache.k.dtype)
         cache.v[li, :s_pad] = v.to(cache.v.dtype)
         attn = prefill_attention(
             q.transpose(0, 1).contiguous(), k.transpose(0, 1).contiguous(),
             v.transpose(0, 1).contiguous(), causal=True,
-            window=_window_of(cfg, li), **extras)
+            **_attn_kw(cfg, li, layer))
         x = _layer_tail(x, h, attn.transpose(0, 1).reshape(s_pad, -1),
-                        layer, cfg)
+                        layer, cfg, li)
     x_last = x[max(length - 1, 0)]
     logits = _output_logits(params, cfg, x_last[None])[0]
     return logits, KVCache(cache.k, cache.v, int(length))
@@ -968,17 +1369,16 @@ def decode_step(params: Dict[str, Any], cfg: LLMConfig, token,
         x = params["tok_emb"].index_select(0, token.reshape(1).long())
     else:
         x = params["tok_emb"][int(token)][None]
-    extras = _attn_extras(cfg)
     for li in range(cfg.n_layers):
         layer = _layer(params["layers"], li)
-        h, q, k, v = _qkv(x, layer, cfg, _layer_rope(cfg, li, tables))
+        h, q, k, v = _qkv(x, layer, cfg, li, tables, positions)
         cache.k[li, pos] = k[0].to(cache.k.dtype)
         cache.v[li, pos] = v[0].to(cache.v.dtype)
         k_view = cache.k[li, :attn_len] if attn_len else cache.k[li]
         v_view = cache.v[li, :attn_len] if attn_len else cache.v[li]
         attn = decode_attention(q[0], k_view, v_view, pos + 1,
-                                window=_window_of(cfg, li), **extras)
-        x = _layer_tail(x, h, attn.reshape(1, -1), layer, cfg)
+                                **_attn_kw(cfg, li, layer))
+        x = _layer_tail(x, h, attn.reshape(1, -1), layer, cfg, li)
     logits = _output_logits(params, cfg, x)[0]
     return logits, KVCache(cache.k, cache.v, pos + 1)
 
@@ -1017,25 +1417,36 @@ def extend(params: Dict[str, Any], cfg: LLMConfig, tokens: torch.Tensor,
     masks = {}
     for li in range(cfg.n_layers):
         layer = _layer(params["layers"], li)
-        h, q, k, v = _qkv(x, layer, cfg, _layer_rope(cfg, li, tables))
+        h, q, k, v = _qkv(x, layer, cfg, li, tables, positions)
         cache.k[li, offset:offset + fit] = k[:fit].to(cache.k.dtype)
         cache.v[li, offset:offset + fit] = v[:fit].to(cache.v.dtype)
         k_view = cache.k[li, :attn_len] if attn_len else cache.k[li]
         v_view = cache.v[li, :attn_len] if attn_len else cache.v[li]
-        window = _window_of(cfg, li)
-        if window not in masks:
-            masks[window] = (causal & (key_idx > q_pos - window) if window
-                             else causal)
+        # The reference keeps its window here under a chunk as well.
+        window, chunk = _window_of(cfg, li), _chunk_of(cfg, li)
+        if (window, chunk) not in masks:
+            mask = causal
+            if chunk:
+                mask = mask & (key_idx >= (q_pos // chunk) * chunk)
+            if window:
+                mask = mask & (key_idx > q_pos - window)
+            masks[window, chunk] = mask
         # (B, H, D) as (Hk, R * B, D): one batched product per KV head.
         qg = q.reshape(b, hk, rep, hd).permute(1, 2, 0, 3).reshape(hk, -1, hd)
         scores = cache_scores(qg, k_view).reshape(hk, rep, b, -1) * scale
         if cfg.attn_softcap > 0.0:
             scores = cfg.attn_softcap * torch.tanh(scores / cfg.attn_softcap)
-        scores = torch.where(masks[window], scores, NEG_INF)
-        probs = torch.softmax(scores, dim=-1).reshape(hk, rep * b, -1)
-        attn = cache_mix(probs, v_view).reshape(hk, rep, b, hd)
-        attn = attn.permute(2, 0, 1, 3).reshape(b, -1)
-        x = _layer_tail(x, h, attn, layer, cfg)
+        scores = torch.where(masks[window, chunk], scores, NEG_INF)
+        if cfg.attn_sinks:
+            col = layer["attn_sink"].float().reshape(hk, rep, 1, 1).expand(
+                hk, rep, b, 1)
+            probs = torch.softmax(torch.cat([scores, col], dim=-1),
+                                  dim=-1)[..., :-1]
+        else:
+            probs = torch.softmax(scores, dim=-1)
+        attn = cache_mix(probs.reshape(hk, rep * b, -1), v_view)
+        attn = attn.reshape(hk, rep, b, hd).permute(2, 0, 1, 3).reshape(b, -1)
+        x = _layer_tail(x, h, attn, layer, cfg, li)
     final = KVCache(cache.k, cache.v, offset + int(n_valid))
     if all_logits:
         return _output_logits(params, cfg, x), final
@@ -1148,7 +1559,6 @@ def prefill_batch(params: Dict[str, Any], cfg: LLMConfig,
     positions = torch.arange(s_pad, device=device).repeat(b)
     tables = _rope_tables(params, cfg, positions, lengths.max())
     x = params["tok_emb"][tokens.reshape(-1).long()]        # (B * S, D)
-    extras = _attn_extras(cfg)
     shape = (b, cfg.n_layers, cfg.max_seq, hk, hd)
     k_full = torch.zeros(shape, dtype=cache_dtype, device=device)
     v_full = torch.zeros(shape, dtype=cache_dtype, device=device)
@@ -1159,15 +1569,17 @@ def prefill_batch(params: Dict[str, Any], cfg: LLMConfig,
 
     for li in range(cfg.n_layers):
         layer = _layer(params["layers"], li)
-        h, q, k, v = _qkv(x, layer, cfg, _layer_rope(cfg, li, tables))
+        h, q, k, v = _qkv(x, layer, cfg, li, tables, positions)
         k_full[:, li, :s_pad] = k.reshape(b, s_pad, hk, hd).to(cache_dtype)
         v_full[:, li, :s_pad] = v.reshape(b, s_pad, hk, hd).to(cache_dtype)
+        kw = _attn_kw(cfg, li, layer)
+        if kw["sinks"] is not None:  # folded heads: row i's head h is i*H+h
+            kw["sinks"] = kw["sinks"].repeat(b)
         attn = prefill_attention(heads(q, hq), heads(k, hk), heads(v, hk),
-                                 causal=True, window=_window_of(cfg, li),
-                                 **extras)
+                                 causal=True, **kw)
         attn = attn.reshape(b, hq, s_pad, hd).transpose(1, 2).reshape(
             b * s_pad, hq * hd)
-        x = _layer_tail(x, h, attn, layer, cfg)
+        x = _layer_tail(x, h, attn, layer, cfg, li)
     last = (lengths.long() - 1).clamp_min(0)
     x_last = x.reshape(b, s_pad, -1)[torch.arange(b, device=device), last]
     logits = _output_logits(params, cfg, x_last)
@@ -1215,17 +1627,16 @@ def decode_step_batch(params: Dict[str, Any], cfg: LLMConfig,
     wpos = pos.clamp_max(cache.k.shape[2] - 1)
     tables = _rope_tables(params, cfg, pos, pos.max() + 1)
     x = params["tok_emb"].index_select(0, tokens.long())
-    extras = _attn_extras(cfg)
     for li in range(cfg.n_layers):
         layer = _layer(params["layers"], li)
-        h, q, k, v = _qkv(x, layer, cfg, _layer_rope(cfg, li, tables))
+        h, q, k, v = _qkv(x, layer, cfg, li, tables, pos)
         _write_rows(cache.k[li], rows, wpos, k, active)
         _write_rows(cache.v[li], rows, wpos, v, active)
         k_view = cache.k[li, :, :attn_len] if attn_len else cache.k[li]
         v_view = cache.v[li, :, :attn_len] if attn_len else cache.v[li]
         attn = decode_attention_batch(q, k_view, v_view, pos + 1,
-                                      window=_window_of(cfg, li), **extras)
-        x = _layer_tail(x, h, attn.reshape(b, -1), layer, cfg)
+                                      **_attn_kw(cfg, li, layer))
+        x = _layer_tail(x, h, attn.reshape(b, -1), layer, cfg, li)
     logits = _output_logits(params, cfg, x)
     lengths = torch.where(active, cache.lengths + 1, cache.lengths)
     return logits, BatchedKVCache(cache.k, cache.v, lengths)

@@ -344,17 +344,20 @@ def batch_cache_mix(p: torch.Tensor, v_cache: torch.Tensor) -> torch.Tensor:
 def decode_attention_batch(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, cur_len: torch.Tensor,
                            window: int = 0, softcap: float = 0.0,
-                           scale: float = 0.0) -> torch.Tensor:
+                           scale: float = 0.0,
+                           sinks: Optional[torch.Tensor] = None,
+                           chunk: int = 0) -> torch.Tensor:
     """One query per row, q (B, H, D), against per-row length-masked caches
     (B, S, Hk, D): the reference's ``jax.vmap`` of decode attention over
     the serving slots (``trackiellm_tpu/models/llm.py:1791-1794``), with
-    :func:`decode_attention`'s window, softcap and scale. ``cur_len`` (B,)
-    is a device tensor of each row's valid rows, the new token's included,
-    so the mask is made on the device."""
+    :func:`decode_attention`'s window, softcap, scale, sinks and chunk.
+    ``cur_len`` (B,) is a device tensor of each row's valid rows, the new
+    token's included, so the mask is made on the device."""
     b, h, d = q.shape
     s_max, hk = k_cache.shape[1], k_cache.shape[2]
+    rep = h // hk
     scale = scale or 1.0 / math.sqrt(d)
-    s = batch_cache_scores(q.reshape(b, hk, h // hk, d), k_cache) * scale
+    s = batch_cache_scores(q.reshape(b, hk, rep, d), k_cache) * scale
     if softcap > 0.0:
         s = softcap * torch.tanh(s / softcap)
     idx = torch.arange(s_max, device=q.device)
@@ -362,8 +365,14 @@ def decode_attention_batch(q: torch.Tensor, k_cache: torch.Tensor,
     mask = idx < cur
     if window > 0:
         mask &= idx >= cur - window
+    if chunk > 0:
+        mask &= idx >= ((cur - 1) // chunk) * chunk
     s = torch.where(mask[:, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    if sinks is not None:
+        col = sinks.float().reshape(1, hk, rep, 1).expand(b, hk, rep, 1)
+        p = torch.softmax(torch.cat([s, col], dim=-1), dim=-1)[..., :-1]
+    else:
+        p = torch.softmax(s, dim=-1)
     return batch_cache_mix(p, v_cache).reshape(b, h, d).to(q.dtype)
 
 
