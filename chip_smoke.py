@@ -25,7 +25,10 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      W4A8, f32a and Q8 at group 32 on gpt-oss's experts, K = 2880, at M
      in {1, 8, 512}, W4A8 on its lm_head, N = 201,088, at M = 1;
      ``MOE_FLASH``: bf16 D = 64 at (64, 8) heads, S = 512, causal, with
-     sinks, with sinks and window 128); the fused MLP block at M in {1,
+     sinks, with sinks and window 128); the multimodal path's
+     (``VLM_MATMULS``: W4A8 on PaliGemma's lm_head, N = 257,216, and its
+     w_down, K = 16,384; f32a on LLaVA's w_gu and w_down at M 1024 and
+     2048; ``VLM_FLASH``: (32, 32) heads, D = 128, S = 1024); the fused MLP block at M in {1,
      4, 8}, D 4096, H 14336, bf16 and f32, also timed against the unfused
      path per call and on the device alone; the stream probe over 512 MiB,
      grid64 (64 steps in one block) and a 64-call chain_tiny on (8, 128)),
@@ -36,11 +39,13 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      for grid64, a chain of 64 x + 1 calls for chain_tiny), and the
      profiler's device-only time of each headline case and of those
      library calls (for chain_tiny also the CUDA-event span of a chain);
-  4. width: Mistral-7B width cut to 2 layers, random weights from a seed,
+  4. width: Mistral-7B width cut to 1 layer (``WIDTH_LAYERS``), random
+     weights from a seed,
      card against the port's CPU path: Q4 and Q8 prefill logits, and Q4
      with both opt-in levers through prefill and 8 decode steps;
   5. slice: Mistral-7B (32 layers, max_seq 512, random Q4 weights) behind
-     ``LLMRunner`` answers four requests on the default routes, then a
+     ``LLMRunner`` answers four requests of ``DRIVE_TOKENS`` tokens on the
+     default routes, then a
      fresh bucket-512 prefill and 32 decode tokens run under the profiler
      (one ``{"profile": ...}`` line: wall, device busy, idle share,
      launches, the largest costs by kernel);
@@ -77,7 +82,7 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      (``extend(all_logits=True)``, 16 rows) against 16 decode steps; its
      numbers as one ``{"slice10": ...}`` line;
  11. GGUF to reply: a llama.cpp GGUF of Mistral-7B at its published widths
-     cut to 4 layers, at the Q4_K_M mix (seeded random Q4_K and Q6_K blocks,
+     cut to 1 layer (``GGUF_LAYERS``), at the Q4_K_M mix (seeded random Q4_K and Q6_K blocks,
      F32 norms, a 32,000-piece SentencePiece vocabulary), written by this
      script; ``inspect`` names it, ``convert --bits 4`` requantizes it on
      the card into a checkpoint whose config, tokenizer and layer-0 and
@@ -108,7 +113,7 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      ``whisper_from_ggml`` on the card and on the CPU; ``WhisperASR``
      transcribes a 5-s signal given at 48 kHz (``resample_poly`` runs) at
      the 30-s window (n_audio_ctx 1500) and the app's 10-s window (500),
-     96 tokens: the card's ids against the CPU's (reported), the first 8
+     48 tokens: the card's ids against the CPU's (reported), the first 8
      decode steps' logits teacher-forced with the CPU's ids (rel L2 1e-4),
      encode and decode times, RTF; the ``transcribe`` CLI on a checkpoint
      and a WAV written here. Whisper large-v3's widths cut to 2+2 layers
@@ -138,7 +143,7 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      ``AnalysisFlags.ALL``, with MiDaS and with DPT, with OCR and a
      ``NavigationEngine``: every requested ``valid_analyses`` bit must be
      set (a stage that degrades on the card fails the phase), the card's
-     objects against the CPU's (reported), the frame wall p50 over 20
+     objects against the CPU's (reported), the frame wall p50 over 10
      frames; each stage's time and the NMS sweep's alone, with a sync; the
      frame (with a QR code on its wall, the QR detector as ``barcode_fn``)
      as a tensor already on the card and as numpy through two fresh
@@ -163,10 +168,10 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      quantization and flash, and none of Q8, the fused block, the
      streaming Q4 or the probes (f32a may rise). One ``{"app": ...}``
      line before the vision line.
- 16. dense families: (a) Gemma-2-9B (cut to 8 of its 42 layers,
+ 16. dense families: (a) Gemma-2-9B (cut to 2 of its 42 layers,
      ``FAMILY_DEPTH``, dim 3584, 16/8 heads at
      D = 256, GeGLU, sandwich norms, softcaps 50/30, alternating window
-     4096, vocab 256,000, max_seq 8192) and Llama-3.1-8B (8 of its 32
+     4096, vocab 256,000, max_seq 8192) and Llama-3.1-8B (2 of its 32
      layers, ``llama3_rope_factors(cfg, 8.0)``, max_seq cut to 2048), random Q4
      weights from the seed behind ``LLMRunner``: the cortex prompt (297
      tokens, bucket 512) and 32 greedy tokens at lookahead 4 and 1, equal
@@ -177,7 +182,8 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      W4A8, its quantization and flash, and none of Q8, f32a, the fused
      block, the streaming Q4 or the probes. (b) The other dense presets
      (Qwen2, Phi-3, Granite, GLM-4, Gemma-2-2B, Gemma-3 1B/4B/12B/27B,
-     OLMo-2, SmolLM3, Qwen3) at their published widths cut to 2 layers, Q4
+     OLMo-2, SmolLM3, Qwen3) at their published widths cut to 1 layer
+     (Gemma-2-2B 2, ``FAMILY_SWEEP_LAYERS``), Q4
      at the largest group dividing every K/2 (``q4_group``): prefill at
      buckets 64 and 256 on the card against the CPU within WIDTH_TOL, plus
      one prompt longer than each sliding window (Gemma-3-1B 1,024, Phi-3
@@ -187,12 +193,12 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      written here through ``convert --bits 8`` and ``generate`` on the
      card, and the checkpoint's greedy ids on the card equal to the CPU's.
      One ``{"families": ...}`` line before the app line.
- 17. MoE families: (a) gpt-oss-20b at its widths and depth (24 layers, 32
-     experts top-4, (64, 8) heads at D = 64 with sinks, window 128 on even
-     layers, vocab 201,088), random Q4 weights at group 32 from the seed
-     with its YaRN factors, max_seq cut to 4096: the cortex prompt and 32
+ 17. MoE families: (a) gpt-oss-20b at its widths cut to 2 of its 24
+     layers (``MOE_GPTOSS_LAYERS``; 32 experts top-4, (64, 8) heads at
+     D = 64 with sinks, window 128 on even layers, vocab 201,088), random Q4 weights at group 32 from the seed
+     with its YaRN factors, max_seq cut to 4096: the cortex prompt and 16
      greedy tokens at lookahead 4 and 1 (equal ids), then a held burst of 8
-     requests of 32 tokens on 8 dense slots per step and in 8-step chunks
+     requests of 16 tokens on 8 dense slots per step and in 8-step chunks
      (equal ids) and on the int8 pool (its agreement with the dense slots
      reported); tiny gpt-oss and Llama-4 knob sets in f32 (sinks and a
      window of 32, chunks of 32) served on the int8 pool on the card and
@@ -203,8 +209,9 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      token; gpt-oss-20b is profiled in a process of its own
      (``--moe-profile``): launches, busy ms and idle share a decode token
      and a decode step; (c) Mixtral-8x7B,
-     Qwen1.5-MoE, Qwen3-MoE, gpt-oss-120b at published widths cut to 2
-     layers and Llama-4 Scout to 4, Q4 (gpt-oss-120b also Q8 at bucket 64):
+     Qwen1.5-MoE, Qwen3-MoE, gpt-oss-120b and Llama-4 Scout at published
+     widths cut to 1 layer (``MOE_SWEEP``), Q4 (gpt-oss-120b also Q8 at
+     bucket 64):
      prefill at buckets 64 and 256 on the card against the CPU within
      WIDTH_TOL, the CPU's pass on the card's experts with W4A8's
      activation quantization; every router flip (where the CPU's own
@@ -218,8 +225,32 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      checkpoints' greedy ids on the card equal to the CPU's. Their counters
      must show W4A8, its quantization and flash (Q8 for (d)), and no
      route they do not take. One ``{"moe": ...}`` line (with phase 3's MoE
-     rows) before the families line; the smoke's wall on a line before it.
-Phases 5-17 zero every launch counter just before they drive their path and
+     rows) before the families line.
+ 18. multimodal: (a) LLaVA-1.5-7B at its published widths and depth (a
+     Llama text model of 32 layers, 32/32 heads, hidden 11,008, vocab
+     32,064; CLIP ViT-L/14-336, 576 image rows; the 1024 -> 4096 -> 4096
+     projector), random Q4 weights (group 128) and an f32 tower from the
+     seed behind ``VLMRunner``: a 480x640 frame on the card through
+     ``clip_normalize_chw``, the tower and the projector (its p50 ms), the
+     cortex's prompt with "Imagem da câmera: <image>" (bucket 1024: f32a,
+     then W4A8 and its quantization in decode, flash), 16 tokens at
+     lookahead 4 and 1 (equal ids), the same frame again (its prefix
+     reused past the image run) and another (rolled back to its start);
+     the plain matmul must not run; (b) card against CPU: the CLIP tower at
+     full depth (rel L2 1e-5), LLaVA's text cut to 2 layers on the card's
+     projected rows (WIDTH_TOL), PaliGemma-3B's SigLIP at full depth (1e-5)
+     and its Gemma cut to 2 layers through the prefix-LM prefill and 8
+     decode tokens (WIDTH_TOL, W4A8's activation quantization on the CPU),
+     the logits moving without ``bidir_len``; (c) a clip.cpp mmproj GGUF at
+     ViT-L widths cut to 2 blocks beside phase 11's GGUF through
+     ``convert --mmproj`` (its leaves byte-equal to the CPU's conversion)
+     and ``generate --image``; (d) a cortex turn with ``vlm_scene_image``
+     in ``TrackieApp`` over (a)'s runner: the frame uploaded as the camera
+     worker uploads it reaches ``encode_image`` as that card tensor, the
+     reply is spoken, ``failures()`` is empty. One ``{"vlm": ...}`` line
+     before the moe line; the smoke's wall and then
+     ``{"phase_seconds": ..., "wall_s": ...}`` on the two lines before it.
+Phases 5-18 zero every launch counter just before they drive their path and
 read them just after: the path's kernels must have launched, and the routes
 it does not take must not have (no serving path launches the streaming Q4
 or a probe; phase 9 must launch all four; phases 13 and 14 launch none).
@@ -228,9 +259,9 @@ phases 5-7 greedy text must not depend on the lookahead depth, in phase 10
 not on speculation, and every logit vector must be finite. Phase 3's
 device-only times come from profiles whose launch count matches the calls
 (``device_only_ms``). Each phase's first line ends with the seconds since
-the build began. The ``moe`` line, the ``families`` line, the ``app``
-line, the ``vision`` line, then the ``voice`` line, come just before the
-last five lines, which are the ``serve`` line, the ``slice10``
+the build began. The ``vlm`` line, the ``moe`` line, the ``families``
+line, the ``app`` line, the ``vision`` line, then the ``voice`` line, come
+just before the last five lines, which are the ``serve`` line, the ``slice10``
 line, the card line, the kernels' JSON summary and the result line.
 """
 
@@ -256,7 +287,12 @@ MISTRAL_SHAPES = {  # (K, N) of the quantized projections, group 256
     "w_down": (14336, 4096), "lm_head": (4096, 32000),
 }
 GROUP = 256
-PROFILE_TOKENS = 32  # decode tokens in phase 5's profiled window
+# Decode tokens in phase 5's profiled window (and 6, 7 and the families'
+# child): cut from 32 to 8 to bring phases 1-17 under their 600-s budget
+# (phase 5 took 61.4 s with 32 and DRIVE_TOKENS 64, 17.6 s with 8 and 32
+# in a later call; on an H100 80GB HBM3 at 700 W): the profiler reads
+# about 2,000 records a Q4 token.
+PROFILE_TOKENS = 8
 PROFILE_RETRIES = 3  # profiles of a timed window that missed launches
 MATMUL_MS = (1, 8, 64, 256, 512)
 # Q8 and f32a take M > 512 on the card: a bucket-1024 prefill's 1024 rows.
@@ -330,7 +366,13 @@ SCHEMA_PENALTY = 3.0
 # speculation find proposals on it ("auto" too, unless its first two
 # tokens find none and start its cooldown).
 REPEAT_PROMPT = "abc abc abc abc abc abc abc abc ab"
-SPEC_TOKENS = 48     # tokens of each speculation request
+# Tokens of each speculation request: cut from 48 to 16 to bring phases
+# 1-17 under their 600-s budget (phase 10 took 51.2 s at 48, 39.7-57.0 s
+# at 32 in later calls; on an H100 80GB HBM3 at 700 W). Every request and
+# check stays. (TOOL_TOKENS stays at 96: at 64 the schema'd reply's sampled
+# tokens were all whitespace before the budget's closure, and its check
+# failed.)
+SPEC_TOKENS = 16
 SLICE10_MAX_SEQ = 2048
 LONG_PROMPT = (600, 1000)
 VERIFY_ROWS = 16     # the verify pass's extend bucket
@@ -339,7 +381,10 @@ VERIFY_ROWS = 16     # the verify pass's extend bucket
 # trackiellm_tpu_torch/tools/convert_times.py), at llama.cpp's Q4_K_M mix:
 # Q4_K for the embeddings, q, k, the attention output, gate and up; Q6_K
 # for v, down and the output head; F32 norms.
-GGUF_LAYERS = 2   # 4 until phase 17 joined (see CUT_LAYERS)
+# 4 until phase 17 joined (see CUT_LAYERS), then 2; 1 to bring phases
+# 1-17 under their 600-s budget (phase 11 took 46.4 s at 2 layers, 38.3 s
+# at 1 in a later call; on an H100 80GB HBM3 at 700 W). Phase 18's mmproj conversion reuses this file.
+GGUF_LAYERS = 1
 GGML_F32, GGML_F16, GGML_Q4_K, GGML_Q6_K = 0, 1, 12, 14
 # ggml type -> (elements a block, bytes a block, byte offset of the block's
 # f16 d, of its f16 dmin or None, and the range d is drawn from). Q4_K's
@@ -351,7 +396,7 @@ Q4_K_M = {"token_embd": GGML_Q4_K, "output": GGML_Q6_K,
           "attn_q": GGML_Q4_K, "attn_k": GGML_Q4_K, "attn_v": GGML_Q6_K,
           "attn_output": GGML_Q4_K, "ffn_gate": GGML_Q4_K,
           "ffn_up": GGML_Q4_K, "ffn_down": GGML_Q6_K}
-GGUF_TOKENS = 32     # tokens of phase 11's generate
+GGUF_TOKENS = 16     # tokens of phase 11's generate (32 before the budget)
 
 
 def log(msg: str) -> None:
@@ -688,10 +733,10 @@ MOE_FLASH = (64, (64, 8), 512, {
     "gpt-oss sinks window128": {"sinks": True, "window": 128}})
 
 
-def moe_kernel_cases(rows, quant, attention, gen, dev) -> None:
-    """Phase 3, the MoE families' shapes (MOE_MATMULS, MOE_FLASH), each
-    against its plain version with times and bound, and the D = 64 flash
-    kernels' registers and spills."""
+def matmul_table_cases(rows, quant, table, gen, dev) -> None:
+    """Phase 3, a table of (case name, K, N, group, M values, kernels)
+    (MOE_MATMULS, VLM_MATMULS): each kernel against its plain version on
+    one seeded weight, with times and bound."""
     kernels = {  # name: (quantize, kernel, plain, op type)
         "q4_matmul_w4a8": (quant.quantize_q4, quant.q4_matmul_w4a8,
                            quant.q4_matmul_w4a8_ref, "int8"),
@@ -700,7 +745,7 @@ def moe_kernel_cases(rows, quant, attention, gen, dev) -> None:
         "q8_matmul": (quant.quantize_q8, quant.q8_matmul,
                       quant.q8_matmul_ref, "bf16"),
     }
-    for name, k, n, group, ms, names in MOE_MATMULS:
+    for name, k, n, group, ms, names in table:
         w32 = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
         for kname in names:
             quantize, kernel, plain, kind = kernels[kname]
@@ -715,6 +760,13 @@ def moe_kernel_cases(rows, quant, attention, gen, dev) -> None:
                             kernel)
             del w, args
         del w32
+
+
+def moe_kernel_cases(rows, quant, attention, gen, dev) -> None:
+    """Phase 3, the MoE families' shapes (MOE_MATMULS, MOE_FLASH), each
+    against its plain version with times and bound, and the D = 64 flash
+    kernels' registers and spills."""
+    matmul_table_cases(rows, quant, MOE_MATMULS, gen, dev)
     d, heads, s, variants = MOE_FLASH
     attrs = attention.flash_kernel_attrs(d, torch.bfloat16)
     log(f"  flash D={d} bfloat16 kernel: {attrs['regs']} registers a thread, "
@@ -725,6 +777,36 @@ def moe_kernel_cases(rows, quant, attention, gen, dev) -> None:
     for vname, kw in variants.items():
         flash_case(rows, attention, gen, dev, heads, s, torch.bfloat16, kw,
                    f"{vname} S={s} D={d} bfloat16", not kw, d=d)
+
+
+# Phase 3's cases of the multimodal path (phase 18): W4A8 on PaliGemma's
+# lm_head (K = 2048, N = 257,216, ragged against the kernel's column tiles)
+# and its w_down (K = 16,384) at decode and at a bucket-512 prompt; f32a on
+# LLaVA-1.5-7B's w_gu (N = 22,016) and w_down (K = 11,008) at the rows of a
+# prompt with its 576 image rows (buckets 1024 and 2048, past W4A8's 512;
+# group 128, the largest dividing 11,008 / 2); flash at LLaVA's (32, 32)
+# heads, D = 128, S = 1024, bf16.
+VLM_MATMULS = (  # (case name, K, N, group, M values, kernels)
+    ("paligemma lm_head N=257216", 2048, 257216, 256, (1,),
+     ("q4_matmul_w4a8",)),
+    ("paligemma w_down K=16384", 16384, 2048, 256, (1, 512),
+     ("q4_matmul_w4a8",)),
+    ("llava w_gu N=22016 G=128", 4096, 22016, 128, (1024, 2048),
+     ("q4_matmul_f32a",)),
+    ("llava w_down K=11008 G=128", 11008, 4096, 128, (1024, 2048),
+     ("q4_matmul_f32a",)),
+)
+VLM_FLASH = (128, (32, 32), 1024)   # D, (H, Hk), S: causal bf16
+
+
+def vlm_kernel_cases(rows, quant, attention, gen, dev) -> None:
+    """Phase 3, the multimodal path's shapes (VLM_MATMULS, VLM_FLASH), each
+    against its plain version with times and bound (SDPA's for flash)."""
+    matmul_table_cases(rows, quant, VLM_MATMULS, gen, dev)
+    d, heads, s = VLM_FLASH
+    flash_case(rows, attention, gen, dev, heads, s, torch.bfloat16, {},
+               f"llava causal S={s} D={d} ({heads[0]}, {heads[1]}) bfloat16",
+               True, d=d)
 
 
 def phase_kernels(dev, quant, attention, fused, llm, diag, serve):
@@ -789,6 +871,7 @@ def phase_kernels(dev, quant, attention, fused, llm, diag, serve):
                    False)
     family_kernel_cases(rows, quant, attention, gen, dev)
     moe_kernel_cases(rows, quant, attention, gen, dev)
+    vlm_kernel_cases(rows, quant, attention, gen, dev)
     d, hid, grp = FUSED_SHAPE
     w_gu = quant.quantize_q4(torch.randn((d, 2 * hid), generator=gen,
                                          device=dev) / math.sqrt(d), grp)
@@ -911,11 +994,18 @@ def phase_probes(dev, gen, diag, rows) -> None:
                 f"{ms <= library}")
 
 
+# Phase 4's depth: cut from 2 layers to 1 to bring phases 1-17 under their
+# 600-s budget (phase 4 took 47.4 s at 2 layers, 26.2 s at 1 in a later
+# call; on an H100 80GB HBM3 at 700 W); every width, bucket and lever check stays.
+WIDTH_LAYERS = 1
+
+
 def phase_width(dev, llm, quant, fused):
-    """Phase 4: Mistral width, 2 layers, card against the CPU path: Q4 and
-    Q8 prefill; Q4 with both levers through prefill and 8 decode steps."""
-    cfg = llm.LLMConfig.mistral_7b()._replace(n_layers=2, max_seq=512,
-                                              sliding_window=512)
+    """Phase 4: Mistral width, WIDTH_LAYERS layers, card against the CPU
+    path: Q4 and Q8 prefill; Q4 with both levers through prefill and 8
+    decode steps."""
+    cfg = llm.LLMConfig.mistral_7b()._replace(
+        n_layers=WIDTH_LAYERS, max_seq=512, sliding_window=512)
     toks = torch.randint(0, 256, (256,),
                          generator=torch.Generator().manual_seed(SEED))
     for bits, tol in ((4, WIDTH_TOL), (8, EXACT_WIDTH_TOL)):
@@ -1071,6 +1161,13 @@ def build_model(dev, llm, cfg, bits: int):
     return params
 
 
+# max_tokens of phases 5-7's requests: cut from 96 to 32 to bring phases
+# 1-17 under their 600-s budget (phase 5 took 65.7 s at 96, 61.4 s at 64,
+# 17.6 s at 32 with PROFILE_TOKENS 8; three calls on an H100 80GB HBM3 at
+# 700 W). Phase 5 keeps Mistral-7B at 32 layers.
+DRIVE_TOKENS = 32
+
+
 def drive(dev, llm, runner_mod, tokenizer_mod, params, cfg, counters,
           steps: str):
     """Answer the requests named in ``steps`` behind ``LLMRunner``: (a) a
@@ -1080,8 +1177,8 @@ def drive(dev, llm, runner_mod, tokenizer_mod, params, cfg, counters,
     Every counter is zeroed just before and read just after; returns the
     counts."""
     tok = tokenizer_mod.ByteTokenizer(cfg.vocab_size)
-    gen = runner_mod.GenerationConfig(max_tokens=96, temperature=0.0,
-                                      speculative=False)
+    gen = runner_mod.GenerationConfig(max_tokens=DRIVE_TOKENS,
+                                      temperature=0.0, speculative=False)
     runner = runner_mod.LLMRunner(params, cfg, tok, gen, device=dev)
     prompt_a = SHORT_PROMPT
     prompt_b = runner.build_prompt(SYSTEM, CONTEXT,
@@ -1122,7 +1219,7 @@ def drive(dev, llm, runner_mod, tokenizer_mod, params, cfg, counters,
         ids_k4 = runner.generated_ids
         serial = runner_mod.LLMRunner(
             params, cfg, tok, runner_mod.GenerationConfig(
-                max_tokens=96, temperature=0.0, speculative=False,
+                max_tokens=DRIVE_TOKENS, temperature=0.0, speculative=False,
                 lookahead=1), device=dev)
         text_k1 = serial.generate(prompt_a)
         ids_k1 = serial.generated_ids
@@ -1256,6 +1353,27 @@ def expect_routes(launches, ran, idle, phase: str) -> None:
         if launches[name] != 0:
             raise AssertionError(f"{phase}: {name} launched "
                                  f"{launches[name]} times off its route")
+
+
+@contextlib.contextmanager
+def plain_matmul_calls(quant):
+    """Inside, each call of the plain Q4/Q8 matmul
+    (``quantized_matmul_ref``) is counted in the list yielded."""
+    calls = []
+    plain = quant.quantized_matmul_ref
+    quant.quantized_matmul_ref = lambda *a: calls.append(1) or plain(*a)
+    try:
+        yield calls
+    finally:
+        quant.quantized_matmul_ref = plain
+
+
+def expect_no_plain(calls, phase: str) -> None:
+    """The card's path never ran the plain matmul (``plain_matmul_calls``);
+    on the CPU it is the route."""
+    if calls:
+        raise AssertionError(f"{phase}: quantized_matmul_ref ran "
+                             f"{len(calls)} times")
 
 
 def spm_spec(vocab_size: int) -> dict:
@@ -1558,7 +1676,7 @@ def check_conversion(dev, convert, quant, path: str, params) -> int:
 
 
 def phase_gguf(dev, cfg, llm, convert, checkpoint, quant, tokenizer_mod,
-               cli, counters) -> dict:
+               cli, counters, workdir=None) -> dict:
     """Phase 11: a llama.cpp GGUF to a reply on the card, through the
     CLI's commands in-process: a Q4_K_M file of ``cfg`` (Mistral-7B cut to
     GGUF_LAYERS layers); (a) ``inspect`` names its arch and tensor count, and
@@ -1568,14 +1686,17 @@ def phase_gguf(dev, cfg, llm, convert, checkpoint, quant, tokenizer_mod,
     CPU's; (c) ``generate`` on the checkpoint: text, W4A8 with its
     quantization and flash launched (a prompt of bucket 256 or 512), the
     plain matmul never run, every logit finite. Returns the times and
-    sizes; every counter is zeroed just before (c) and read just after."""
+    sizes; every counter is zeroed just before (c) and read just after.
+    With ``workdir``, the GGUF is left there as ``mistral.gguf`` (phase 18
+    converts it again beside an mmproj)."""
     from trackiellm_tpu_torch.models import loader
     start = time.perf_counter()
     spec = spm_spec(cfg.vocab_size)
     out = {"layers": cfg.n_layers}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_gguf_") as tmp:
-        path, ckpt = os.path.join(tmp, "mistral.gguf"), os.path.join(
-            tmp, "ckpt")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gguf_",
+                                     dir=workdir) as tmp:
+        path, ckpt = os.path.join(workdir or tmp, "mistral.gguf"), \
+            os.path.join(tmp, "ckpt")
         t0 = time.perf_counter()
         tensors, metadata = mistral_gguf(cfg, spec, SEED)
         out["file_bytes"] = write_gguf(path, tensors, metadata)
@@ -1629,19 +1750,15 @@ def phase_gguf(dev, cfg, llm, convert, checkpoint, quant, tokenizer_mod,
             prompt)) + 1
         if not 128 < n_prompt <= 512:
             raise AssertionError(f"phase 11: the prompt is {n_prompt} tokens")
-        plain_calls = []
-        plain = quant.quantized_matmul_ref
-        quant.quantized_matmul_ref = (
-            lambda *a: plain_calls.append(1) or plain(*a))
         for fn in counters.values():
             fn.launches = 0
         watch = LogitWatch(llm)
         try:
-            rc, text, out["generate_s"] = run_cli(
-                cli, ["generate", ckpt, "-p", prompt, "--max-tokens",
-                      str(GGUF_TOKENS)])
+            with plain_matmul_calls(quant) as plain_calls:
+                rc, text, out["generate_s"] = run_cli(
+                    cli, ["generate", ckpt, "-p", prompt, "--max-tokens",
+                          str(GGUF_TOKENS)])
         finally:
-            quant.quantized_matmul_ref = plain
             n_logits = watch.close()
     out["launches"] = {name: fn.launches for name, fn in counters.items()}
     out["phase_s"] = time.perf_counter() - start
@@ -1651,9 +1768,7 @@ def phase_gguf(dev, cfg, llm, convert, checkpoint, quant, tokenizer_mod,
     if rc != 0 or not text.strip():
         raise AssertionError(f"phase 11: generate exited {rc} and printed "
                              f"{text!r}")
-    if plain_calls:
-        raise AssertionError(f"phase 11: quantized_matmul_ref ran "
-                             f"{len(plain_calls)} times")
+    expect_no_plain(plain_calls, "phase 11")
     expect_routes(out["launches"], ("q4_matmul_w4a8", "quantize_activations",
                                     "flash_attention"),
                   ("q8_matmul", "q4_matmul_f32a", "fused_mlp_q4",
@@ -2000,10 +2115,12 @@ SERVE_PAGE = 128
 SERVE_JOB_CHUNK = 128
 SERVE_LONG = (350, 450)   # (c)'s prompt tokens
 SERVE_RUNNER = 4   # pinned-burst requests also answered by LLMRunner
-# Tokens of the profile's two bursts: 32 (about 67,000 device records)
-# and 16. A burst of 48 (about 100,000 records) came back without some of
-# its launches in every retry.
-SERVE_PROFILE = (32, 16)
+# Tokens of the profile's two bursts: 16 and 8 (cut from 32 and 16 to
+# bring phases 1-17 under their 600-s budget; phase 12 took 41.2 s at 32
+# and 16, 40.4 s at 16 and 8 in a later call, on an H100 80GB HBM3 at 700
+# W). A burst of 48 (about 100,000
+# records) came back without some of its launches in every retry.
+SERVE_PROFILE = (16, 8)
 SERVE_TIMEOUT = 600.0
 # The waves prefill_batch is held to against prefill alone: rows a wave.
 WAVE_ROWS = (2, 4, 8)
@@ -2479,7 +2596,11 @@ def serve_profile_main(dev) -> int:
 VOICE_SECONDS = 5            # the transcribed signal
 VOICE_RATE = 48_000          # given at the microphone's rate: resample_poly
 VOICE_WINDOWS = (1500, 500)  # n_audio_ctx: 30 s, and the app's 10 s
-VOICE_TOKENS = 96            # max_tokens of every transcription
+# max_tokens of every transcription: cut from 96 to 48 to bring phases 1-17
+# under their 600-s budget (phase 13 took 41.9 s at 96, 31.6-48.7 s at 48
+# in later calls; on an H100 80GB HBM3 at 700 W); the ids-equality and
+# logit checks stay.
+VOICE_TOKENS = 48
 VOICE_FORCED = 8             # teacher-forced decode steps of the logit check
 VOICE_LOGIT_TOL = 1e-4       # rel L2, card against CPU
 LARGE_V3_LAYERS = 2          # encoder and decoder layers of (b)
@@ -2489,7 +2610,11 @@ TTS_REPLY = "Há uma pessoa a dois metros à frente e a porta fica ao lado."
 TTS_STREAM_TOL = 1e-6        # max abs, streamed chunks against one-shot
 VITS_TEXT = "ola, a porta fica a esquerda e a mesa a frente."
 VITS_TOL = 1e-4              # rel L2, card against CPU, injected noise
-VOICE_PROFILE_TOKENS = 32    # decode steps of the profiled window
+# Decode steps of the profiled window: cut from 32 to 16 to bring phases
+# 1-17 under their 600-s budget (phase 13 took 39.9 s at 32 and
+# VOICE_TOKENS 48, 31.6 s at 16 in a later call; on an H100 80GB HBM3 at
+# 700 W).
+VOICE_PROFILE_TOKENS = 16
 VOICE_PROFILE_ENCODES = 5    # encoder calls of the profiled window
 VOICE_PROFILE_FLAG = "--voice-profile"
 # whisper.cpp's converter keeps these f32 in an f16 file.
@@ -3115,9 +3240,13 @@ def voice_profile_child() -> dict:
 # widths (random weights from the seed) behind VisionPipeline on a seeded
 # 480x640 floor-and-obstacle frame; the card against the port's own CPU run
 # where a tolerance is named.
-VISION_FRAMES = 20            # timed frames of each pipeline (p50)
-VISION_WARM = 3               # frames before them
-VISION_STAGE_ITERS = 10       # timed calls of each stage (p50)
+# Timed frames of each pipeline (p50) and timed calls of each stage: cut
+# from 20 and 10 to 5 and 3 to bring phases 1-17 under their 600-s budget
+# (phase 14 took 38.3 s at 20 and 10, 26.7-48.4 s at 10 and 5 in later
+# calls; on an H100 80GB HBM3 at 700 W).
+VISION_FRAMES = 5
+VISION_WARM = 1               # frames before them (3 before the budget)
+VISION_STAGE_ITERS = 3
 VISION_DET_TOL = 1e-5         # rel L2, raw boxes and class probabilities
 VISION_MIDAS_TOL = 1e-5       # rel L2, relative inverse depth
 VISION_DPT_TOL = 1e-4         # rel L2, relative inverse depth
@@ -3623,7 +3752,10 @@ def vision_profile_child() -> dict:
 
 
 APP_DEMO_SECONDS = 4          # the demo's run
-APP_RUNS = 3                  # measured app runs after the warm one
+# Measured app runs after the warm one: cut from 3 to 2 to bring phases
+# 1-17 under their 600-s budget (phase 15 took 40.4 s at 3, 28.5 s at 2
+# in a later call; on an H100 80GB HBM3 at 700 W).
+APP_RUNS = 2
 APP_REPLY_PRIORITY = 1        # TTSPriority.NORMAL: the LLM reply's speech
 APP_TIMEOUT = 900.0           # the measuring child's limit, seconds
 WAKE_WINDOWS = 16             # scored windows, keyword-like and not
@@ -3813,12 +3945,23 @@ def phase_app(dev, cli, counters, e2e) -> dict:
 # FAMILY_SWEEP_MAX_SEQ, which keeps every window that was on), Q4 at the
 # largest group dividing every K/2: card against CPU prefill. (c) Tiny GGUFs
 # of the arches with no preset, converted and answered from.
-FAMILY_TOKENS = 32
+# (a)'s greedy and served tokens: cut from 32 to 16 to bring phases 1-17
+# under their 600-s budget (phase 16 took 90.9 s at 32, 53.1 s at 16 in a
+# later call; on an H100 80GB HBM3 at 700 W).
+FAMILY_TOKENS = 16
 FAMILY_SERVE_MAX_SEQ = 2048
 FAMILY_LLAMA_MAX_SEQ = 2048
 # (a)'s depths: Gemma-2-9B's 42 and Llama-3.1-8B's 32 layers cut to 8
-# since phase 17 joined (the smoke's 1,000-s aim; see CUT_LAYERS).
-FAMILY_DEPTH = {"gemma2_9b": 8, "llama3_8b": 8}
+# since phase 17 joined (the smoke's 1,000-s aim; see CUT_LAYERS), then to
+# 2 (both of Gemma-2's layer kinds stay), and (b)'s sweep from 2 layers to
+# FAMILY_SWEEP_LAYERS, to bring phases 1-17 under their 600-s budget
+# (phase 16 took 103.0 s at 8 and 2, 53.1 s at 4 and 1 with FAMILY_TOKENS
+# 16 in a later call; on an H100 80GB HBM3 at 700 W).
+FAMILY_DEPTH = {"gemma2_9b": 2, "llama3_8b": 2}
+# (b)'s depth: 1 layer, but 2 for Gemma-2-2B, whose windowed and global
+# layers alternate (Gemma-3's pattern of 6 has only windowed layers in the
+# first two either way).
+FAMILY_SWEEP_LAYERS = {"gemma2_2b": 2}
 FAMILY_SWEEP = ("qwen2_7b", "phi3_mini", "granite3_8b", "glm4_9b",
                 "gemma2_2b", "gemma3_1b", "gemma3_4b", "gemma3_12b",
                 "gemma3_27b", "olmo2_7b", "smollm3_3b", "qwen3_8b")
@@ -3835,7 +3978,7 @@ PHI3_LONG_SIDE = 4352
 # (c): the arches with no preset, at widths the default group takes.
 FAMILY_GGUF_ARCHES = ("command-r", "nemotron", "starcoder2")
 FAMILY_GGUF_WIDTHS = (512, 2, 4, 2, 1024, 384)  # dim, layers, H, Hk, hid, V
-FAMILY_GGUF_TOKENS = 16
+FAMILY_GGUF_TOKENS = 8     # 16 before the smoke's 600-s budget
 FAMILY_PROFILE_FLAG = "--families-profile"
 FAMILY_PROFILE_TIMEOUT = 600.0
 
@@ -3880,7 +4023,8 @@ def family_model(dev, llm, cfg, name: str):
 def family_cfg(llm, name: str):
     """Phase 16's config of a dense preset: Gemma-2-9B as published but its
     depth (FAMILY_DEPTH); Llama-3 at FAMILY_DEPTH's layers and max_seq
-    FAMILY_LLAMA_MAX_SEQ; a swept preset at 2 layers and max_seq at most
+    FAMILY_LLAMA_MAX_SEQ; a swept preset at FAMILY_SWEEP_LAYERS' depth
+    (1, or 2) and max_seq at most
     FAMILY_SWEEP_MAX_SEQ, Phi-3 as its 128k variant (PHI3_ORIGINAL). A
     window at or past max_seq stays off, as it was."""
     cfg = getattr(llm.LLMConfig, name)()
@@ -3891,7 +4035,8 @@ def family_cfg(llm, name: str):
                             max_seq=FAMILY_LLAMA_MAX_SEQ,
                             sliding_window=FAMILY_LLAMA_MAX_SEQ)
     max_seq = min(cfg.max_seq, FAMILY_SWEEP_MAX_SEQ)
-    cfg = cfg._replace(n_layers=2, max_seq=max_seq,
+    cfg = cfg._replace(n_layers=FAMILY_SWEEP_LAYERS.get(name, 1),
+                       max_seq=max_seq,
                        sliding_window=min(cfg.sliding_window, max_seq))
     if name == "phi3_mini":
         cfg = cfg._replace(
@@ -4012,17 +4157,19 @@ def dequantized_on_cpu(quant, tree):
             if out is None:
                 out = torch.empty((values.shape[0], *w.shape),
                                   dtype=w.dtype)
-            out[i] = w.cpu()
+            out[i].copy_(w)   # straight from the card, no host temporary
         return out.reshape(*lead, *out.shape[1:])
     return tree.cpu()
 
 
 def family_sweep(dev, llm, quant, name: str) -> dict:
-    """(b): ``name`` at its published widths cut to 2 layers, card against
+    """(b): ``name`` at its published widths cut to FAMILY_SWEEP_LAYERS'
+    depth, card against
     the CPU (its plain route, the matrices dequantized once,
     ``dequantized_on_cpu``): prefill at FAMILY_BUCKETS and, for a sliding
     config, one prompt longer than its window (Phi-3 also past its original
     context), rel L2 within WIDTH_TOL."""
+    t0 = time.perf_counter()
     cfg = family_cfg(llm, name)
     params = family_model(dev, llm, cfg, name)
     cpu = dequantized_on_cpu(quant, params)
@@ -4049,6 +4196,7 @@ def family_sweep(dev, llm, quant, name: str) -> dict:
             f"{err:.3e} (tol {WIDTH_TOL:.0e})")
         if not (torch.isfinite(lg).all() and err < WIDTH_TOL):
             raise AssertionError(f"phase 16 {name} bucket {bucket}: {err}")
+    log(f"  {name} swept in {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -4236,6 +4384,11 @@ def phase_families(dev, llm, runner_mod, tokenizer_mod, server_mod, paging,
     (``profile()``); (b) the sweep; (c) the GGUF-only arches. Returns the
     ``families`` line's numbers and the launches of (a)'s paths."""
     t0 = time.perf_counter()
+    parts = {}
+
+    def lap(part: str) -> None:
+        parts[part] = time.perf_counter() - t0 - sum(parts.values())
+        log(f"  phase 16 ({part}) took {parts[part]:.1f} s")
     out = {"flash_attrs": {f"D={d} {str(dt)[6:]}": attention.flash_kernel_attrs(
         d, dt) for d in (96, 256) for dt in (torch.bfloat16, torch.float32)}}
     cfg = family_cfg(llm, "gemma2_9b")
@@ -4247,51 +4400,72 @@ def phase_families(dev, llm, runner_mod, tokenizer_mod, server_mod, paging,
         cfg._replace(max_seq=FAMILY_SERVE_MAX_SEQ), counters)
     del params
     torch.cuda.empty_cache()
+    lap("a gemma2_9b")
     gemma["profile"] = profile()
     dec = gemma["profile"].get("decode", {})
     log(f"  gemma2_9b profile, a decode token: wall {dec.get('wall_ms')} ms, "
         f"busy {dec.get('busy_ms')} ms, idle share {dec.get('idle_share')}, "
         f"{dec.get('launches')} launches")
     out["gemma2_9b"] = gemma
+    lap("profile")
     cfg = family_cfg(llm, "llama3_8b")
     params = family_model(dev, llm, cfg, "llama3_8b")
     out["llama3_1_8b"] = family_generate(dev, llm, runner_mod, tokenizer_mod,
                                          params, cfg, counters, "llama3_8b")
     del params
     torch.cuda.empty_cache()
+    lap("a llama3_8b")
     out["sweep"] = {}
     for name in FAMILY_SWEEP:
         out["sweep"][name] = family_sweep(dev, llm, quant, name)
         torch.cuda.empty_cache()
+    lap("b")
     out["gguf"] = family_cli(dev, llm, runner_mod, tokenizer_mod, checkpoint,
                              cli, counters)
+    lap("c")
     out["launches"] = out["gemma2_9b"]["launches"]
     out["seconds"] = time.perf_counter() - t0
+    out["part_seconds"] = parts
     log(f"  phase 16 took {out['seconds']:.1f} s")
     return out
 
 
-# Phase 17: the MoE families. (a) gpt-oss-20b at its widths and depth (24
-# layers, 32 experts top-4, (64, 8) heads at D = 64 with sinks, window 128
-# on even layers, vocab 201,088), Q4 at q4_group's G = 32, YaRN factors,
-# max_seq cut to MOE_GPTOSS_MAX_SEQ; (b) Qwen3-30B-A3B (128 experts top-8,
+# Phase 17: the MoE families. (a) gpt-oss-20b at its widths cut to
+# MOE_GPTOSS_LAYERS of its 24 layers (32 experts top-4, (64, 8) heads at
+# D = 64 with sinks, window 128 on even layers, vocab 201,088), Q4 at
+# q4_group's G = 32, YaRN factors, max_seq cut to MOE_GPTOSS_MAX_SEQ; (b) Qwen3-30B-A3B (128 experts top-8,
 # 768 wide, G = 128) at MOE_QWEN3_LAYERS, max_seq MOE_QWEN3_MAX_SEQ; (c)
 # the other MoE presets at published widths cut to MOE_SWEEP's depths, card
 # against CPU on the card's experts, and a tiny Llama-4 knob set across
 # attention chunks; (a) also serves tiny MOE_POOL knob sets on the int8
 # pool, card against CPU; (d)
 # GGUFs of the MoE arches through the CLI.
-MOE_TOKENS = 32
+# gpt-oss-20b's 24 layers cut to 2 (both kinds of its alternating
+# attention stay) and its tokens from 32 to 16, Qwen3-30B-A3B's 12 layers to
+# 2 and the sweep to 1 layer, to bring phases 1-17 under their 600-s
+# budget (phase 17 took 254.5 s at 24, 32, 12 and 2: 76.5 s for (a), 14.3
+# for (b), 46.2 for the profile child, which rebuilds gpt-oss-20b at
+# MOE_GPTOSS_LAYERS, 105.1 for (c); 91.9-183.0 s at 6, 16, 6 and 1 (4 for
+# Llama-4) in later calls; on an H100 80GB HBM3 at 700 W).
+MOE_GPTOSS_LAYERS = 2
+MOE_TOKENS = 16
 MOE_GPTOSS_MAX_SEQ = 4096
 MOE_QWEN3_MAX_SEQ = 2048
 # Qwen3-30B-A3B's 48 layers cut to 12: its dense-all-experts decode token
 # is about 73,000 launches at 48 layers, 2 s of host time, which would take
 # phase 17 past 250 s (0.50 s a token at 12 layers on an H100 80GB HBM3 at
 # 700 W).
-MOE_QWEN3_LAYERS = 12
+MOE_QWEN3_LAYERS = 2
 MOE_QWEN3_TOKENS = 16
-MOE_SWEEP = {"mixtral_8x7b": 2, "qwen15_moe_a27b": 2,
-             "qwen3_moe_30b_a3b": 2, "gpt_oss_120b": 2, "llama4_scout": 4}
+# One layer each: gpt-oss-120b's is windowed (its global layers run in
+# (a)'s gpt-oss-20b), Llama-4 Scout's has rope (its NoPE layers run card
+# against CPU in the tiny Llama-4 across chunks, moe_chunks). (c) took
+# 105.8 s with gpt-oss-120b at 2 layers and Llama-4 at 4, 50.8-102.1 s
+# with gpt-oss-120b at 1 in later calls, Llama-4's 25.1-47.0 of it (on an
+# H100 80GB HBM3 at 700 W): the CPU side's cost is its f32 copy of every
+# expert and head.
+MOE_SWEEP = {"mixtral_8x7b": 1, "qwen15_moe_a27b": 1,
+             "qwen3_moe_30b_a3b": 1, "gpt_oss_120b": 1, "llama4_scout": 1}
 MOE_BUCKETS = (64, 256)
 # The Q8 case (preset, bucket): gpt-oss-120b, whose Q4 logits moved most
 # (0.52 rel L2 at bucket 64, 35 router flips, on an H100 80GB HBM3 at 700
@@ -4303,7 +4477,7 @@ MOE_GGUF_ARCHES = ("mixtral", "qwen2moe", "qwen3moe", "gpt-oss", "llama4",
                    "glm4moe", "falcon")
 MOE_GGUF_BITS4 = "qwen3moe"   # the arch converted at --bits 4 as well
 MOE_GGUF_EXPERTS = 8
-MOE_GGUF_TOKENS = 16
+MOE_GGUF_TOKENS = 8        # 16 before the smoke's 600-s budget
 # (a)'s int8 pool card against CPU: knob sets served at tiny widths in f32,
 # gpt-oss's window and Llama-4's chunks cut to MOE_POOL_SPAN so that the
 # 49-token prompts and their tokens cross them, on pages of MOE_POOL_PAGE.
@@ -4658,6 +4832,7 @@ def moe_sweep(dev, llm, quant, name: str, bits: int, buckets) -> dict:
     (``w4a8_activations``); where its own router would have chosen other
     experts, the flip is printed and must lie within the router's noise
     (``router_flips``)."""
+    t0 = time.perf_counter()
     cfg = moe_cfg(llm, name, MOE_SWEEP[name], max(buckets))
     params = moe_model(dev, llm, cfg, name, bits)
     toks = torch.randint(0, cfg.vocab_size, (max(buckets),),
@@ -4714,6 +4889,7 @@ def moe_sweep(dev, llm, quant, name: str, bits: int, buckets) -> dict:
             raise AssertionError(f"phase 17 {tag}: logits")
         if not err < WIDTH_TOL:
             raise AssertionError(f"phase 17 {tag}: rel_l2 {err}")
+    log(f"  {name} Q{bits} swept in {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -4981,7 +5157,7 @@ def moe_profile_main(dev) -> int:
     _build.library()
     name = "gpt_oss_20b"
     w4a8 = launch_counters()["q4_matmul_w4a8"]
-    cfg = moe_cfg(llm, name, 0, MOE_GPTOSS_MAX_SEQ)
+    cfg = moe_cfg(llm, name, MOE_GPTOSS_LAYERS, MOE_GPTOSS_MAX_SEQ)
     params = moe_model(dev, llm, cfg, name)
     prof = profile_path(dev, runner_mod, tokenizer_mod, params, cfg,
                         tokens=MOE_PROFILE_TOKENS, lookahead=1)
@@ -5016,7 +5192,7 @@ def phase_moe(dev, llm, runner_mod, tokenizer_mod, server_mod, paging,
     def lap(part: str) -> None:
         parts[part] = time.perf_counter() - t0 - sum(parts.values())
         log(f"  phase 17 ({part}) took {parts[part]:.1f} s")
-    cfg = moe_cfg(llm, "gpt_oss_20b", 0, MOE_GPTOSS_MAX_SEQ)
+    cfg = moe_cfg(llm, "gpt_oss_20b", MOE_GPTOSS_LAYERS, MOE_GPTOSS_MAX_SEQ)
     params = moe_model(dev, llm, cfg, "gpt_oss_20b")
     gptoss = family_generate(dev, llm, runner_mod, tokenizer_mod, params, cfg,
                              counters, "gpt_oss_20b", tokens=MOE_TOKENS,
@@ -5057,6 +5233,516 @@ def phase_moe(dev, llm, runner_mod, tokenizer_mod, server_mod, paging,
     out["seconds"] = time.perf_counter() - t0
     out["part_seconds"] = parts
     log(f"  phase 17 took {out['seconds']:.1f} s")
+    return out
+
+
+# Phase 18: the multimodal path. (a) LLaVA-1.5-7B
+# (llava-hf/llava-1.5-7b-hf config.json: a Llama text model of dim 4096, 32
+# layers, 32 heads and 32 KV heads, hidden 11,008, vocab 32,064, rope theta
+# 1e4, RMS eps 1e-5, max_seq cut from 4096 to VLM_MAX_SEQ; the CLIP
+# ViT-L/14-336 tower, 24 layers of 1024, 16 heads, 4096 MLP, quick-GELU,
+# the -2 feature tap without CLS, 576 image rows; the 1024 -> 4096 -> 4096
+# GELU projector) at full width and depth: random Q4 weights (q4_group's
+# group, 128) and an f32 tower from the seed behind ``VLMRunner``; a seeded
+# 480x640 frame on the card, the cortex's system prompt and a context with
+# "Imagem da câmera: <image>", then a question, VLM_TOKENS greedy tokens at
+# lookahead 4 and 1 (equal ids), the same frame again (its prefix reused
+# past the image run) and another frame (rolled back to before it). (b)
+# Card against CPU: the CLIP tower at full depth (VLM_FEAT_TOL), LLaVA's
+# text model cut to VLM_CUT_LAYERS on the card's projected features
+# (WIDTH_TOL), and PaliGemma-3B (google/paligemma-3b-pt-224: SigLIP-So400m/14
+# at 224, 27 layers of 1152, 16 heads, 4304 MLP, no CLS, the post-LN tap,
+# 256 image rows, one linear to 2048; Gemma-2B of dim 2048, 18 layers, 8
+# heads and 1 KV head at D = 256, hidden 16,384, vocab 257,216, a prefix-LM)
+# with SigLIP at full depth and Gemma cut to VLM_CUT_LAYERS: features, the
+# prefix-LM prefill and VLM_PALI_DECODE decode tokens. (c) A clip.cpp
+# mmproj GGUF at ViT-L widths cut to VLM_MMPROJ_LAYERS beside phase 11's
+# text GGUF through ``convert --mmproj`` and ``generate --image``. (d) A
+# cortex turn with ``vlm_scene_image`` over (a)'s runner inside
+# ``TrackieApp``, the frame injected as the camera worker injects it.
+VLM_MAX_SEQ = 2048
+VLM_TOKENS = 16
+VLM_CUT_LAYERS = 2
+VLM_FEAT_TOL = 1e-5      # rel L2, f32 tower features, card against CPU
+VLM_PALI_DECODE = 8
+VLM_PALI_PROMPT = "caption en\n"
+VLM_MMPROJ_LAYERS = 2
+VLM_GGUF_TOKENS = 8
+VLM_QUESTION = "O que há à minha frente?"
+VLM_CORTEX_TIMEOUT = 120.0
+
+
+def vlm_configs(llm, clip) -> dict:
+    """{"llava": (LLMConfig, CLIPVisionConfig), "paligemma": (...)} at their
+    published widths and depths (the comment above VLM_MAX_SEQ)."""
+    llava = llm.LLMConfig(
+        vocab_size=32064, dim=4096, n_layers=32, n_heads=32, n_kv_heads=32,
+        head_dim=128, hidden_dim=11008, norm_eps=1e-5, rope_theta=1e4,
+        max_seq=VLM_MAX_SEQ, sliding_window=VLM_MAX_SEQ)
+    gemma = llm.LLMConfig(
+        vocab_size=257216, dim=2048, n_layers=18, n_heads=8, n_kv_heads=1,
+        head_dim=256, hidden_dim=16384, norm_eps=1e-6, rope_theta=1e4,
+        max_seq=8192, sliding_window=8192, act="gelu")
+    return {"llava": (llava, clip.CLIPVisionConfig(proj_dim=llava.dim)),
+            "paligemma": (gemma,
+                          clip.CLIPVisionConfig.siglip_so400m_224(gemma.dim))}
+
+
+def vlm_models(dev, llm, clip, cfg, ccfg, name: str):
+    """Random Q4 text params (``q4_group``'s group) and an f32 tower of
+    ``ccfg`` from the seed, on the card."""
+    t0 = time.perf_counter()
+    params = llm.init_params_quantized(
+        torch.Generator(device=dev).manual_seed(SEED), cfg,
+        group=q4_group(cfg), device=dev)
+    cparams = clip.init_params(
+        ccfg, torch.Generator(device=dev).manual_seed(SEED + 1))
+    torch.cuda.synchronize()
+    log(f"  {name}: {cfg.n_layers} layers Q4 group {q4_group(cfg)} "
+        f"({param_bytes(params) / 2 ** 30:.2f} GiB), tower of "
+        f"{ccfg.n_layers} layers f32 ({param_bytes(cparams) / 2 ** 30:.2f} "
+        f"GiB) in {time.perf_counter() - t0:.1f} s")
+    return params, cparams
+
+
+def vlm_ids(tok, prompt: str, n_img: int, marker: str = "<image>"):
+    """(ids, image run start) of a one-image prompt as ``VLMRunner``
+    builds them."""
+    head, tail = prompt.split(marker)
+    ids = tok.encode(head, add_bos=True)
+    start = len(ids)
+    return ids + [0] * n_img + (tok.encode(tail) if tail else []), start
+
+
+def vlm_spliced(llm, params, ids, start: int, feats, dev):
+    """(padded ids, embeddings) of the prefill bucket of ``ids`` on
+    ``dev``: the token rows with ``feats`` over the image run's."""
+    from trackiellm_tpu_torch.llm.runner import PREFILL_BUCKETS, _bucket_for
+    padded = torch.zeros(_bucket_for(len(ids), PREFILL_BUCKETS),
+                         dtype=torch.long)
+    padded[:len(ids)] = torch.tensor(ids)
+    padded = padded.to(dev)
+    x = llm.embed_tokens(params, padded)
+    x[start:start + feats.shape[0]] = feats.to(dev, x.dtype)
+    return padded, x
+
+
+def vlm_llava(dev, llm, clip, runner_mod, vlm_mod, tokenizer_mod, quant,
+              counters, cfg, ccfg):
+    """(a): LLaVA behind ``VLMRunner`` (the comment above VLM_MAX_SEQ).
+    Returns its numbers and (params, tower params, the lookahead-4 runner,
+    the frames) for (b) and (d). Every counter is zeroed just before the
+    lookahead-4 turns and read just after; the plain Q4 matmul must not
+    run."""
+    from trackiellm_tpu_torch.cortex.main import CortexConfig
+    from trackiellm_tpu_torch.llm.runner import PREFILL_BUCKETS, _bucket_for
+    params, cparams = vlm_models(dev, llm, clip, cfg, ccfg, "llava-1.5-7b")
+    frames = [torch.from_numpy(vision_frame((480, 640), SEED + i)).to(dev)
+              for i in (0, 1)]
+    out = {"encode_ms": p50_ms(lambda: clip.encode_and_project(
+        cparams, ccfg, clip.preprocess_clip(frames[0], ccfg)), iters=5)}
+    # Every id of the SentencePiece spec prints text (byte tokens past 259
+    # decode to nothing), so the reply (d) speaks is never empty.
+    tok = tokenizer_mod.tokenizer_from_spec(spm_spec(cfg.vocab_size))
+
+    def runner(lookahead):
+        return vlm_mod.VLMRunner(
+            params, cfg, cparams, ccfg, tok, runner_mod.GenerationConfig(
+                max_tokens=VLM_TOKENS, temperature=0.0, speculative=False,
+                lookahead=lookahead), device=dev)
+    r1, r4 = runner(1), runner(4)
+    prompt = r4.build_prompt(
+        CortexConfig().system_prompt,
+        f"{CONTEXT}\n\nImagem da câmera: {r4.IMAGE_MARKER}", VLM_QUESTION)
+    text1 = r1.generate(prompt, images=[frames[0]])   # also the warm-up
+    ids1 = r1.generated_ids
+    del r1
+    for fn in counters.values():
+        fn.launches = 0
+    watch = LogitWatch(llm)
+    try:
+        with plain_matmul_calls(quant) as plain_calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r4.prepare_generation(prompt, images=[frames[0]])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            n_prompt = r4._host_len
+            pre = {k: fn.launches for k, fn in counters.items()}
+            while r4.generate_next_token() is not None:
+                pass
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            ids4 = r4.generated_ids
+            post = {k: fn.launches for k, fn in counters.items()}
+            start = r4._image_runs[0][0]
+            r4.generate(prompt, images=[frames[0]])
+            same = r4.last_reuse
+            r4.generate(prompt, images=[frames[1]])
+            other = r4.last_reuse
+    finally:
+        n_logits = watch.close()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    decode = {k: post[k] - pre[k] for k in post}
+    out.update({
+        "prompt_tokens": n_prompt, "image_start": start,
+        "image_rows": ccfg.n_image_tokens,
+        "bucket": _bucket_for(n_prompt, PREFILL_BUCKETS),
+        "prefill_ms": (t1 - t0) * 1e3, "tokens": len(ids4),
+        "decode_ms_per_token": (t2 - t1) * 1e3 / max(len(ids4), 1),
+        "launches_per_token": sum(decode.values()) / max(len(ids4), 1),
+        "prefill_launches": pre, "reuse_same_frame": same,
+        "reuse_other_frame": other, "finite_logit_vectors": n_logits,
+        "launches": launches})
+    log(f"  llava-1.5-7b: frame to {ccfg.n_image_tokens} projected rows "
+        f"{out['encode_ms']:.3f} ms (p50); prompt {n_prompt} tokens (bucket "
+        f"{out['bucket']}) prefill {out['prefill_ms']:.2f} ms with the "
+        f"encode, {len(ids4)} tokens at {out['decode_ms_per_token']:.2f} ms "
+        f"and {out['launches_per_token']:.1f} launches a token; same frame "
+        f"reused {same} rows, another frame {other} (its run starts at "
+        f"{start}); launches {launches}")
+    if not ids4 or ids4 != ids1:
+        raise AssertionError(f"phase 18 llava: lookahead 4 gave {ids4}, "
+                             f"lookahead 1 {ids1}")
+    log(f"  llava-1.5-7b: lookahead 4 == lookahead 1 ({len(ids4)} ids); "
+        f"the reply {text1[:60]!r}")
+    if out["bucket"] <= quant.KERNEL_MAX_M:
+        raise AssertionError(f"phase 18 llava: the prompt's bucket "
+                             f"{out['bucket']} is W4A8's")
+    expect_routes(pre, ("q4_matmul_f32a", "flash_attention"), (),
+                  "phase 18 llava prefill")
+    expect_routes(decode, ("q4_matmul_w4a8", "quantize_activations"),
+                  ("q4_matmul_f32a", "flash_attention"),
+                  "phase 18 llava decode")
+    expect_no_plain(plain_calls, "phase 18 llava")
+    if same < start + ccfg.n_image_tokens or other != start:
+        raise AssertionError(f"phase 18 llava: reused {same} rows on the "
+                             f"same frame and {other} on another (the image "
+                             f"run is [{start}, "
+                             f"{start + ccfg.n_image_tokens}))")
+    expect_routes(launches, ("q4_matmul_w4a8", "quantize_activations",
+                             "flash_attention", "q4_matmul_f32a"),
+                  ("q8_matmul", "fused_mlp_q4", *DIAGNOSTIC), "phase 18")
+    return out, (params, cparams, r4, frames, prompt)
+
+
+def vlm_tower(llm, clip, cparams, ccfg, frame, tag: str):
+    """(b): the tower and projector on the card against the CPU on the
+    card's normalized frame, each within VLM_FEAT_TOL; returns the card's
+    projected rows and the errors."""
+    px = clip.preprocess_clip(frame, ccfg)
+    feats = clip.encode_image(cparams, ccfg, px)
+    proj = clip.project_features(cparams, ccfg, feats)
+    cpu = llm.params_to(cparams, torch.device("cpu"))
+    cfeats = clip.encode_image(cpu, ccfg, px.cpu())
+    cproj = clip.project_features(cpu, ccfg, cfeats)
+    errs = {"features_rel_l2": rel_l2(feats.cpu(), cfeats),
+            "projected_rel_l2": rel_l2(proj.cpu(), cproj)}
+    log(f"  {tag} tower ({ccfg.n_layers} layers, {ccfg.n_run_layers()} run): "
+        f"features {tuple(feats.shape)} rel_l2 {errs['features_rel_l2']:.3e},"
+        f" projected {errs['projected_rel_l2']:.3e} card vs cpu (tol "
+        f"{VLM_FEAT_TOL:.0e})")
+    if not (torch.isfinite(proj).all()
+            and max(errs.values()) < VLM_FEAT_TOL):
+        raise AssertionError(f"phase 18 {tag} tower: {errs}")
+    return proj, errs
+
+
+def vlm_cpu_side(quant, params):
+    """The CPU's side of a sweep (phase 17's): the matrices dequantized
+    once, and the W4A8 groups whose activations it quantizes."""
+    cpu = dequantized_on_cpu(quant, params)
+    groups = (w4a8_groups(quant, params, cpu)
+              if params["tok_emb"].device.type == "cuda" else {})
+    return cpu, groups
+
+
+def vlm_llava_text(dev, llm, quant, params, cfg, feats, prompt_ids,
+                   start: int) -> dict:
+    """(b): LLaVA's text model cut to VLM_CUT_LAYERS, the spliced prefill
+    on the card against the CPU (within WIDTH_TOL)."""
+    from trackiellm_tpu_torch.tools.diag_envelope import layer_slice
+    cut_cfg = cfg._replace(n_layers=VLM_CUT_LAYERS)
+    cut = layer_slice(params, VLM_CUT_LAYERS)
+    padded, x = vlm_spliced(llm, cut, prompt_ids, start, feats, dev)
+    n = len(prompt_ids)
+    lg, _ = llm.prefill(cut, cut_cfg, padded, n,
+                        llm.KVCache.create(cut_cfg, device=dev), embeds=x)
+    cpu, groups = vlm_cpu_side(quant, cut)
+    with w4a8_activations(llm, quant, groups):
+        lc, _ = llm.prefill(cpu, cut_cfg, padded.cpu(), n,
+                            llm.KVCache.create(cut_cfg, device="cpu"),
+                            embeds=x.cpu())
+    err = rel_l2(lg.cpu(), lc)
+    log(f"  llava text ({VLM_CUT_LAYERS} layers) spliced prefill, bucket "
+        f"{padded.shape[0]}: rel_l2 card vs cpu {err:.3e} (tol "
+        f"{WIDTH_TOL:.0e})")
+    if not (torch.isfinite(lg).all() and err < WIDTH_TOL):
+        raise AssertionError(f"phase 18 llava text: {err}")
+    return {"layers": VLM_CUT_LAYERS, "bucket": padded.shape[0],
+            "rel_l2": err}
+
+
+def vlm_paligemma(dev, llm, clip, quant, tokenizer_mod, cfg, ccfg,
+                  frame) -> dict:
+    """(b): PaliGemma with SigLIP at full depth and Gemma cut to
+    VLM_CUT_LAYERS: the tower card against CPU, then the prefix-LM prefill
+    (``bidir_len``) and VLM_PALI_DECODE decode tokens (the card's greedy
+    ids, fed to both) within WIDTH_TOL; the prefill without ``bidir_len``
+    must move the logits by more than the card-to-CPU error."""
+    cut_cfg = cfg._replace(n_layers=VLM_CUT_LAYERS)
+    params, cparams = vlm_models(dev, llm, clip, cut_cfg, ccfg,
+                                 "paligemma-3b")
+    feats, tower = vlm_tower(llm, clip, cparams, ccfg, frame, "siglip")
+    del cparams
+    tok = tokenizer_mod.ByteTokenizer(cfg.vocab_size)
+    ids, start = vlm_ids(tok, "<image>" + VLM_PALI_PROMPT,
+                         ccfg.n_image_tokens)
+    padded, x = vlm_spliced(llm, params, ids, start, feats, dev)
+    n = len(ids)
+    lg, cg = llm.prefill(params, cut_cfg, padded, n,
+                         llm.KVCache.create(cut_cfg, device=dev), embeds=x,
+                         bidir_len=n)
+    causal, _ = llm.prefill(params, cut_cfg, padded, n,
+                            llm.KVCache.create(cut_cfg, device=dev),
+                            embeds=x)
+    cpu, groups = vlm_cpu_side(quant, params)
+    errs = []
+    with w4a8_activations(llm, quant, groups):
+        lc, cc = llm.prefill(cpu, cut_cfg, padded.cpu(), n,
+                             llm.KVCache.create(cut_cfg, device="cpu"),
+                             embeds=x.cpu(), bidir_len=n)
+        errs.append(rel_l2(lg.cpu(), lc))
+        moved = rel_l2(causal.cpu(), lg.cpu())
+        for _ in range(VLM_PALI_DECODE):
+            tid = int(lg.argmax())
+            lg, cg = llm.decode_step(params, cut_cfg, tid, cg)
+            lc, cc = llm.decode_step(cpu, cut_cfg, tid, cc)
+            if not torch.isfinite(lg).all():
+                raise AssertionError("phase 18 paligemma: decode logits")
+            errs.append(rel_l2(lg.cpu(), lc))
+    log(f"  paligemma text ({VLM_CUT_LAYERS} layers) prefix-LM prefill of "
+        f"{n} tokens (bucket {padded.shape[0]}): rel_l2 card vs cpu "
+        f"{errs[0]:.3e}, {VLM_PALI_DECODE} decode tokens max "
+        f"{max(errs[1:]):.3e} (tol {WIDTH_TOL:.0e}); without bidir_len the "
+        f"logits move {moved:.3e}")
+    if not max(errs) < WIDTH_TOL:
+        raise AssertionError(f"phase 18 paligemma: rel L2 {errs}")
+    if not moved > errs[0]:
+        raise AssertionError(f"phase 18 paligemma: bidir_len moved the "
+                             f"logits {moved}, within the card-to-CPU "
+                             f"error {errs[0]}")
+    return {"tower": tower, "layers": VLM_CUT_LAYERS, "prompt_tokens": n,
+            "bucket": padded.shape[0], "prefill_rel_l2": errs[0],
+            "decode_rel_l2_max": max(errs[1:]), "bidir_moved": moved}
+
+
+def mmproj_gguf(ccfg, text_dim: int, seed: int):
+    """(tensors, metadata) of a clip.cpp "mmproj" GGUF of ``ccfg``'s tower
+    (its n_layers blocks all stored) with LLaVA's two-layer projector to
+    ``text_dim``, as ``write_gguf`` takes them: f16 matrices and patch
+    embedding, f32 norms, biases and embeddings, seeded."""
+    rng = np.random.default_rng(seed)
+    d, hid, p = ccfg.dim, ccfg.hidden_dim, ccfg.patch_size
+
+    def f16(*shape):
+        return rng.normal(0.0, 0.02, shape).astype(np.float16), GGML_F16
+
+    def f32(*shape, base=0.0, scale=0.02):
+        return (base + rng.normal(0.0, scale, shape)).astype(
+            np.float32), GGML_F32
+    tensors = {"v.patch_embd.weight": f16(d, 3, p, p),
+               "v.class_embd": f32(d),
+               "v.position_embd.weight": f32(ccfg.n_patches + 1, d),
+               "v.pre_ln.weight": f32(d, base=1.0, scale=0.1),
+               "v.pre_ln.bias": f32(d)}
+    for i in range(ccfg.n_layers):
+        b = f"v.blk.{i}."
+        for ln in ("ln1", "ln2"):
+            tensors[b + ln + ".weight"] = f32(d, base=1.0, scale=0.1)
+            tensors[b + ln + ".bias"] = f32(d)
+        for name, shape in (("attn_q", (d, d)), ("attn_k", (d, d)),
+                            ("attn_v", (d, d)), ("attn_out", (d, d)),
+                            ("ffn_up", (hid, d)), ("ffn_down", (d, hid))):
+            tensors[b + name + ".weight"] = f16(*shape)
+            tensors[b + name + ".bias"] = f32(shape[0])
+    tensors["mm.0.weight"] = f16(text_dim, d)
+    tensors["mm.0.bias"] = f32(text_dim)
+    tensors["mm.2.weight"] = f16(text_dim, text_dim)
+    tensors["mm.2.bias"] = f32(text_dim)
+    metadata = {
+        "general.architecture": "clip", "clip.has_vision_encoder": True,
+        "clip.has_llava_projector": True, "clip.projector_type": "mlp",
+        "clip.use_gelu": False, "clip.vision.image_size": ccfg.image_size,
+        "clip.vision.patch_size": p, "clip.vision.embedding_length": d,
+        "clip.vision.feed_forward_length": hid,
+        "clip.vision.block_count": ccfg.n_layers,
+        "clip.vision.attention.head_count": ccfg.n_heads,
+        "clip.vision.attention.layer_norm_epsilon": ccfg.norm_eps,
+        "clip.vision.projection_dim": text_dim,
+    }
+    return tensors, metadata
+
+
+def vlm_mmproj(dev, llm, convert, checkpoint, quant, cli, counters,
+               text_gguf: str, workdir: str, ccfg) -> dict:
+    """(c): an mmproj of ``ccfg``'s widths cut to VLM_MMPROJ_LAYERS beside
+    ``text_gguf`` through ``convert --bits 4 --mmproj`` and ``generate
+    --image`` in-process: the checkpoint's vision leaves byte-equal to the
+    CPU's conversion, the text printed, W4A8, its quantization, f32a (the
+    576 image rows take the prompt past 512) and flash launched, the plain
+    matmul never run."""
+    from trackiellm_tpu_torch.models import loader
+    text_dim = int(loader.read_gguf_header(text_gguf).metadata[
+        "llama.embedding_length"])
+    mcfg = ccfg._replace(n_layers=VLM_MMPROJ_LAYERS)
+    path = os.path.join(workdir, "mmproj.gguf")
+    ckpt = os.path.join(workdir, "llava_ckpt")
+    frame_path = os.path.join(workdir, "frame.npy")
+    out = {"file_bytes": write_gguf(path, *mmproj_gguf(mcfg, text_dim,
+                                                        SEED + 2))}
+    np.save(frame_path, vision_frame((480, 640), SEED + 2))
+    rc, text, out["convert_s"] = run_cli(cli, [
+        "convert", text_gguf, "-o", ckpt, "--bits", "4", "--mmproj", path])
+    if rc != 0:
+        raise AssertionError(f"phase 18: convert --mmproj exited {rc}")
+    vparams, vcfg, meta = checkpoint.load_checkpoint(
+        os.path.join(ckpt, "vision"), device=dev)
+    cparams, ccfg_cpu = convert.gguf_to_clip_params(path, device="cpu")
+    got, want = dict(_flat(vparams)), dict(_flat(cparams))
+    equal = sum(_same_bytes(got[k], want[k]) for k in want)
+    out.update({"leaves": len(want), "equal_leaves": equal,
+                "feature_layer": vcfg.feature_layer})
+    log(f"  mmproj ({VLM_MMPROJ_LAYERS} blocks at {mcfg.dim} wide, to "
+        f"{text_dim}): {out['file_bytes'] / 1e6:.1f} MB, convert --mmproj "
+        f"exit 0 in {out['convert_s']:.1f} s; {equal} of {len(want)} vision "
+        f"leaves byte-equal to the CPU's conversion; config equal: "
+        f"{vcfg == ccfg_cpu}")
+    if equal != len(want) or set(got) != set(want) or vcfg != ccfg_cpu:
+        raise AssertionError("phase 18: the mmproj leaves on the card are "
+                             "not the CPU's")
+    del vparams, cparams
+    for fn in counters.values():
+        fn.launches = 0
+    watch = LogitWatch(llm)
+    try:
+        with plain_matmul_calls(quant) as plain_calls:
+            rc, text, out["generate_s"] = run_cli(cli, [
+                "generate", ckpt, "-p", "Descreva a cena.", "--max-tokens",
+                str(VLM_GGUF_TOKENS), "--temperature", "0", "--image",
+                frame_path])
+    finally:
+        n_logits = watch.close()
+    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    log(f"  generate --image: exit {rc} in {out['generate_s']:.2f} s, "
+        f"{n_logits} finite logit vectors, printed {text.strip()[:60]!r}; "
+        f"launches {out['launches']}")
+    if rc != 0 or not text.strip():
+        raise AssertionError(f"phase 18: generate --image exited {rc} and "
+                             f"printed {text!r}")
+    expect_no_plain(plain_calls, "phase 18 mmproj")
+    expect_routes(out["launches"], ("q4_matmul_w4a8", "quantize_activations",
+                                    "q4_matmul_f32a", "flash_attention"),
+                  ("q8_matmul", "fused_mlp_q4", *DIAGNOSTIC),
+                  "phase 18 mmproj")
+    return out
+
+
+def vlm_cortex(dev, runner, frame) -> dict:
+    """(d): ``TrackieApp`` with (a)'s runner, ``vlm_scene_image`` on and a
+    TTS stub: the frame injected as the camera worker injects it (uploaded
+    by ``to_device_async``), then a question; the frame must reach
+    ``encode_image`` as that card tensor, the reply must be spoken at its
+    priority and ``failures()`` must be empty."""
+    from trackiellm_tpu_torch.app import TrackieApp
+    from trackiellm_tpu_torch.runtime.buffers import to_device_async
+    seen, spoken = [], []
+    encode = runner.encode_image
+    runner.encode_image = lambda image: (seen.append(image), encode(image))[1]
+    app = TrackieApp(llm_runner=runner,
+                     tts_fn=lambda text: np.zeros(1600, np.float32),
+                     on_spoken_audio=lambda wav, p: spoken.append(int(p)),
+                     device=dev)
+    app.cortex.config.vlm_scene_image = True
+    app.start()
+    try:
+        t0 = time.perf_counter()
+        card_frame = to_device_async(frame, dev)
+        app.cortex.inject_video_frame(card_frame)
+        app.cortex.inject_user_text(VLM_QUESTION)
+        deadline = t0 + VLM_CORTEX_TIMEOUT
+        while (not any(p <= APP_REPLY_PRIORITY for p in spoken)
+               and time.perf_counter() < deadline):
+            time.sleep(0.05)
+        reply_s = time.perf_counter() - t0
+    finally:
+        app.stop()
+        del runner.encode_image
+    failures = app.failures()
+    on_card = [isinstance(x, torch.Tensor) and x.device == card_frame.device
+               for x in seen]
+    out = {"reply_s": reply_s, "spoken": spoken, "frames_encoded": len(seen),
+           "frame_is_the_card_tensor": all(x is card_frame for x in seen),
+           "image_runs": len(runner._image_runs),
+           "llm_ms": app.cortex.stats["last_llm_ms"],
+           "failures": failures}
+    log(f"  cortex turn: reply spoken in {reply_s:.2f} s (priorities "
+        f"{spoken}), LLM turn {out['llm_ms']:.1f} ms; {len(seen)} frame(s) "
+        f"reached encode_image as the card tensor: "
+        f"{out['frame_is_the_card_tensor']}; failures {failures}")
+    if (not seen or not all(on_card) or not out["frame_is_the_card_tensor"]
+            or not any(p <= APP_REPLY_PRIORITY for p in spoken)
+            or failures or not runner._image_runs):
+        raise AssertionError(f"phase 18 cortex: {out}")
+    return out
+
+
+def phase_vlm(dev, llm, runner_mod, tokenizer_mod, quant, convert,
+              checkpoint, cli, counters, text_gguf, workdir: str) -> dict:
+    """Phase 18 (the comment above VLM_MAX_SEQ). ``text_gguf`` is phase
+    11's file; with None, one is written here at phase 11's widths.
+    Returns the ``vlm`` line's numbers and the launches of (a)'s path."""
+    from trackiellm_tpu_torch.llm import vlm as vlm_mod
+    from trackiellm_tpu_torch.models import clip
+    t0 = time.perf_counter()
+    out, parts = {}, {}
+
+    def lap(part: str) -> None:
+        parts[part] = time.perf_counter() - t0 - sum(parts.values())
+        log(f"  phase 18 ({part}) took {parts[part]:.1f} s")
+    cfgs = vlm_configs(llm, clip)
+    (lcfg, lccfg), (gcfg, gccfg) = cfgs["llava"], cfgs["paligemma"]
+    out["llava"], (params, cparams, runner, frames, prompt) = vlm_llava(
+        dev, llm, clip, runner_mod, vlm_mod, tokenizer_mod, quant, counters,
+        lcfg, lccfg)
+    lap("a")
+    feats, tower = vlm_tower(llm, clip, cparams, lccfg, frames[0], "clip")
+    ids, start = vlm_ids(runner.tokenizer, prompt, lccfg.n_image_tokens)
+    out["card_vs_cpu"] = {
+        "clip": tower,
+        "llava_text": vlm_llava_text(dev, llm, quant, params, lcfg, feats,
+                                     ids, start)}
+    del feats
+    out["card_vs_cpu"]["paligemma"] = vlm_paligemma(
+        dev, llm, clip, quant, tokenizer_mod, gcfg, gccfg, frames[0])
+    torch.cuda.empty_cache()
+    lap("b")
+    if text_gguf is None:
+        text_gguf = os.path.join(workdir, "mistral.gguf")
+        cfg = llm.LLMConfig.mistral_7b()._replace(n_layers=GGUF_LAYERS)
+        write_gguf(text_gguf, *mistral_gguf(cfg, spm_spec(cfg.vocab_size),
+                                            SEED))
+    out["mmproj"] = vlm_mmproj(dev, llm, convert, checkpoint, quant, cli,
+                               counters, text_gguf, workdir, lccfg)
+    lap("c")
+    out["cortex"] = vlm_cortex(dev, runner, frames[0].cpu().numpy())
+    del params, cparams, runner, frames
+    torch.cuda.empty_cache()
+    lap("d")
+    out["launches"] = out["llava"]["launches"]
+    out["seconds"] = time.perf_counter() - t0
+    out["part_seconds"] = parts
+    log(f"  phase 18 took {out['seconds']:.1f} s")
     return out
 
 
@@ -5155,6 +5841,7 @@ def kernels_line(rows, launches) -> str:
 
 
 def main() -> int:
+    main_t0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -5194,10 +5881,13 @@ def main() -> int:
     from trackiellm_tpu_torch.tools.diag_envelope import layer_slice
 
     counters = launch_counters()
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     t0 = time.perf_counter()
+    marks = {2: t0}
 
     def banner(msg: str) -> None:
         """A phase's first line, with the seconds since the build began."""
+        marks[int(msg.split()[1])] = time.perf_counter()
         log(f"{msg} [{time.perf_counter() - t0:.1f} s]")
     path = _build.build()
     _build.library()
@@ -5209,7 +5899,8 @@ def main() -> int:
     rows = phase_kernels(dev, quant, attention, fused, llm, diag,
                          serve_shapes(runner_mod, quant.KERNEL_MAX_M,
                                       cfg.max_seq, SERVE_SLOTS))
-    banner("phase 4 width check (Mistral-7B width, 2 layers):")
+    banner(f"phase 4 width check (Mistral-7B width, {WIDTH_LAYERS} "
+           "layers):")
     phase_width(dev, llm, quant, fused)
     slice_args = (dev, llm, runner_mod, tokenizer_mod)
     launches = {}
@@ -5266,7 +5957,8 @@ def main() -> int:
         "Q4_K_M file, convert --bits 4, generate):")
     gguf = phase_gguf(
         dev, llm.LLMConfig.mistral_7b()._replace(n_layers=GGUF_LAYERS), llm,
-        convert, checkpoint, quant, tokenizer_mod, cli, counters)
+        convert, checkpoint, quant, tokenizer_mod, cli, counters,
+        workdir=work.name)
     launches[11] = gguf.pop("launches")
     log(json.dumps({"gguf": gguf}))
     banner(f"phase 12 serving (phase 5's model cut to {CUT_LAYERS} layers, "
@@ -5288,27 +5980,44 @@ def main() -> int:
     app = phase_app(dev, cli, counters, app_e2e_child)
     launches[15] = app["launches"]
     banner("phase 16 dense families (Gemma-2-9B and Llama-3.1-8B Q4 at "
-           "their widths, 8 layers, the 2-layer sweep of the other "
-           "presets, "
-           "Command-R, Nemotron and StarCoder2 GGUFs):")
+           f"their widths, {FAMILY_DEPTH['gemma2_9b']} layers, the 1- and "
+           "2-layer sweep of the other presets, Command-R, Nemotron and "
+           "StarCoder2 GGUFs):")
     families = phase_families(
         dev, llm, runner_mod, tokenizer_mod, server_mod, paging,
         measure_server, checkpoint, attention, quant, cli, counters,
         family_profile_child)
     launches[16] = families["launches"]
-    banner("phase 17 MoE families (gpt-oss-20b at its widths and depth, "
-           f"Qwen3-30B-A3B cut to {MOE_QWEN3_LAYERS} layers, Q4; the 2-layer "
-           "sweep of the other MoE presets, Llama-4 at 4; tiny gpt-oss and "
-           "Llama-4 on the int8 pool and a tiny Llama-4 across chunks; the "
-           "MoE GGUF arches):")
+    banner(f"phase 17 MoE families (gpt-oss-20b at its widths cut to "
+           f"{MOE_GPTOSS_LAYERS} layers, Qwen3-30B-A3B to {MOE_QWEN3_LAYERS},"
+           " Q4; the 1-layer sweep of the other MoE presets; tiny gpt-oss "
+           "and Llama-4 on the int8 pool and a tiny Llama-4 across chunks; "
+           "the MoE GGUF arches):")
     moe = phase_moe(dev, llm, runner_mod, tokenizer_mod, server_mod, paging,
                     measure_server, checkpoint, quant, cli, counters,
                     moe_profile_child)
     launches[17] = moe["launches"]
-    log(f"chip_smoke wall: {time.perf_counter() - t0:.1f} s since the build "
-        "began")
+    banner("phase 18 multimodal (LLaVA-1.5-7B Q4 at its widths and depth "
+           "behind VLMRunner; the CLIP tower, LLaVA and PaliGemma-3B card "
+           f"against CPU, text cut to {VLM_CUT_LAYERS} layers; an mmproj "
+           "GGUF through convert --mmproj and generate --image; a cortex "
+           "turn on a card frame):")
+    vlm = phase_vlm(dev, llm, runner_mod, tokenizer_mod, quant, convert,
+                    checkpoint, cli, counters,
+                    os.path.join(work.name, "mistral.gguf"), work.name)
+    launches[18] = vlm["launches"]
+    end = time.perf_counter()
+    work.cleanup()
+    log(f"chip_smoke wall: {end - t0:.1f} s since the build began")
+    marks[19] = end
+    seconds = {"1": t0 - main_t0}
+    seconds.update({str(n): marks[n + 1] - marks[n] for n in range(2, 19)
+                    if n in marks and n + 1 in marks})
+    print(json.dumps({"phase_seconds": seconds, "wall_s": end - main_t0}),
+          flush=True)
 
     smi = nvidia_smi()
+    print(json.dumps({"vlm": vlm, "card": smi}), flush=True)
     print(json.dumps({"moe": moe, "moe_kernels": {
         k: [r for r in v if r["case"].startswith("gpt-oss")]
         for k, v in rows.items()}, "card": smi}), flush=True)

@@ -259,6 +259,16 @@ def test_a_failure_the_app_absorbs_stays_in_failures(where, source):
     assert app.tasks.errors() == {}
 
 
+def _demo_waits_for(monkeypatch, event):
+    """Make the CLI's 1-s demo end only once ``event(app)`` holds (60-s
+    deadline): on a loaded CPU one frame pass of the tiny models can take
+    most of a second, so the run may stop before what a test checks."""
+    from trackiellm_tpu_torch import demo
+    real = demo.run
+    monkeypatch.setattr(demo, "run", lambda seconds, device: real(
+        seconds, device, until=event))
+
+
 @pytest.mark.parametrize("where", ["tts", "llm"])
 def test_demo_exits_1_on_a_failure_it_absorbed(monkeypatch, capsys, where):
     """A TTS job or an LLM call that raises (on the card: a device fault)
@@ -275,6 +285,10 @@ def test_demo_exits_1_on_a_failure_it_absorbed(monkeypatch, capsys, where):
             runner.generate = _card_fault
         return det, dep, asr, tts, runner
     monkeypatch.setattr(demo, "build_models", faulty)
+    source = "tts: " if where == "tts" else "llm.generate: "
+    _demo_waits_for(monkeypatch, lambda app: any(
+        k.startswith(source)
+        for k in app.failures().get("model calls", {})))
     assert cli.main(["demo", "1", "--device", "cpu"]) == 1
     err = capsys.readouterr().err
     assert "demo failed" in err and CUDA_FAULT in err
@@ -320,10 +334,14 @@ def test_app_needs_a_card_or_the_cpu(monkeypatch):
         TrackieApp(config=Config())
 
 
-def test_demo_on_the_cpu(capsys):
+def test_demo_on_the_cpu(monkeypatch, capsys):
     """``python -m trackiellm_tpu_torch demo 1 --device cpu`` in-process:
     exit 0, vision ran through the scheduler, the question was answered."""
     from trackiellm_tpu_torch import __main__ as cli
+    _demo_waits_for(monkeypatch, lambda app: (
+        "vision" in app.scheduler.stats
+        and "Usuário: o que você vê?"
+        in app.cortex.reasoner.generate_context_string()))
     assert cli.main(["demo", "1", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "assistant running for 1s on cpu" in out

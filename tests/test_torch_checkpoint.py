@@ -163,7 +163,7 @@ def test_other_families_raise_naming_their_roadmap_item(tmp_path):
     path = tmp_path / "config.json"
     sidecar = json.loads(path.read_text())
     for cls in ("MLAConfig", "MambaConfig", "Mamba2Config",
-                "Qwen3NextConfig", "CLIPVisionConfig", "TrOCRConfig"):
+                "Qwen3NextConfig", "TrOCRConfig"):
         sidecar["config_class"] = cls
         path.write_text(json.dumps(sidecar))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -246,6 +246,7 @@ def test_generate_needs_a_card_or_an_explicit_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="--device cpu"):
         tmain(["generate", str(tmp_path), "-p", "oi"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # --image reads the checkpoint's vision tower (DIR/vision): none here.
+    with pytest.raises(TrackieError):
         tmain(["generate", str(tmp_path), "-p", "oi", "--image", "x.npy",
                "--device", "cpu"])

@@ -623,6 +623,7 @@ def test_main_prints_the_voice_line_before_the_last_five(monkeypatch,
     monkeypatch.setattr(cs, "phase_families", lambda *a, **k: {
         "launches": {}})
     monkeypatch.setattr(cs, "phase_moe", lambda *a, **k: {"launches": {}})
+    monkeypatch.setattr(cs, "phase_vlm", lambda *a, **k: {"launches": {}})
     assert cs.main() == 0
     lines = capsys.readouterr().out.strip().splitlines()[-6:]
     assert json.loads(lines[0]) == {"voice": {"n": 13},
@@ -679,6 +680,7 @@ def test_main_prints_the_vision_line_before_the_voice_line(monkeypatch,
     monkeypatch.setattr(cs, "phase_families", lambda *a, **k: {
         "launches": {}})
     monkeypatch.setattr(cs, "phase_moe", lambda *a, **k: {"launches": {}})
+    monkeypatch.setattr(cs, "phase_vlm", lambda *a, **k: {"launches": {}})
     assert cs.main() == 0
     assert seen == [13, (14, True)]
     lines = capsys.readouterr().out.strip().splitlines()[-7:]
@@ -821,10 +823,11 @@ def test_main_prints_the_app_line_before_the_vision_line(monkeypatch,
     monkeypatch.setattr(cs, "phase_families", lambda *a, **k: {
         "launches": {}, "n": 16})
     monkeypatch.setattr(cs, "phase_moe", lambda *a, **k: {"launches": {}})
+    monkeypatch.setattr(cs, "phase_vlm", lambda *a, **k: {"launches": {}})
     assert cs.main() == 0
     assert seen == [True]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-11].startswith("chip_smoke wall: ")
+    assert lines[-13].startswith("chip_smoke wall: ")
     assert json.loads(lines[-9])["families"] == {"launches": {}, "n": 16}
     assert json.loads(lines[-8]) == {"app": {
         "launches": {"q4_matmul_w4a8": 7}, "n": 15},
@@ -949,24 +952,29 @@ def test_phase16_groups_divide_every_family_k():
 
 
 def test_phase16_configs_keep_the_published_widths_and_windows():
-    """Phase 16's configs: Gemma-2-9B as published but its depth (8 of 42
+    """Phase 16's configs: Gemma-2-9B as published but its depth (2 of 42
     layers; max_seq 8192, the alternating window of 4096 on its even
-    layers); Llama-3 at 8 layers and max_seq 2048; the sweep at 2
-    layers with every window that was on still on and each long prompt
-    past it; Phi-3 as its 128k longrope variant; phase 3's family cases."""
+    layers); Llama-3 at 2 layers and max_seq 2048; the sweep at 1 layer
+    (Gemma-2-2B at 2, both its layer kinds) with every window that was on
+    still on and each long prompt past it; Phi-3 as its 128k longrope
+    variant; phase 3's family cases."""
     from trackiellm_tpu_torch.models import llm
     cs = _load()
     g = cs.family_cfg(llm, "gemma2_9b")
-    assert g == llm.LLMConfig.gemma2_9b()._replace(n_layers=8)
+    assert g == llm.LLMConfig.gemma2_9b()._replace(n_layers=2)
     assert llm._layer_window(g) == 4096
     assert {llm._is_sliding(g, li) for li in range(g.n_layers)} == {
         True, False}
     ll = cs.family_cfg(llm, "llama3_8b")
-    assert ll.max_seq == 2048 and ll.n_layers == 8
+    assert ll.max_seq == 2048 and ll.n_layers == 2
+    g2 = cs.family_cfg(llm, "gemma2_2b")
+    assert {llm._is_sliding(g2, li) for li in range(g2.n_layers)} == {
+        True, False}
     for name in cs.FAMILY_SWEEP:
         pub = getattr(llm.LLMConfig, name)()
         cfg = cs.family_cfg(llm, name)
-        assert cfg.n_layers == 2 and (cfg.dim, cfg.hidden_dim, cfg.n_heads,
+        assert cfg.n_layers == (2 if name == "gemma2_2b" else 1) and (
+            cfg.dim, cfg.hidden_dim, cfg.n_heads,
                                       cfg.head_dim, cfg.vocab_size) == (
             pub.dim, pub.hidden_dim, pub.n_heads, pub.head_dim,
             pub.vocab_size)
@@ -1094,16 +1102,69 @@ def test_main_prints_the_moe_line_before_the_families_line(monkeypatch,
         {"launches": {"q4_matmul_w4a8": 9}, "n": 17})[1])
     monkeypatch.setattr(cs, "kernels_line", lambda rows, launches: json.dumps(
         {"phase17": launches[17]}))
+    monkeypatch.setattr(cs, "phase_vlm", lambda *a, **k: {"launches": {}})
     assert cs.main() == 0
     assert seen == [True]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-11].startswith("chip_smoke wall: ")
+    assert lines[-13].startswith("chip_smoke wall: ")
     moe = json.loads(lines[-10])
     assert moe["moe"] == {"launches": {"q4_matmul_w4a8": 9}, "n": 17}
     assert moe["moe_kernels"]["q4_matmul_w4a8"] == [
         {"case": "gpt-oss w_gu G=32 M=1"}]
     assert json.loads(lines[-9])["families"]["n"] == 16
     assert json.loads(lines[-2]) == {"phase17": {"q4_matmul_w4a8": 9}}
+
+
+def test_main_prints_the_vlm_line_and_the_phase_seconds(monkeypatch,
+                                                       capsys):
+    """Phase 18 runs after phase 17 on phase 11's GGUF; its line comes just
+    before the moe line, the smoke's wall and the phase seconds (1 to 18,
+    and the wall from the start) on the two lines before it, and the
+    kernels line counts its launches."""
+    from trackiellm_tpu_torch.ops import _build
+    cs = _load()
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda *a: (9, 0))
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "H100")
+    monkeypatch.setattr(cs, "nvidia_smi", lambda: "H100, 700.00 W")
+    monkeypatch.setattr(_build, "build", lambda: _build.BUILD_ROOT / "x")
+    monkeypatch.setattr(_build, "library", lambda: None)
+    for name, value in (("phase_kernels", {}), ("phase_width", None),
+                        ("build_model", {"layers": {}}), ("profile_path", {}),
+                        ("expect_routes", None), ("phase_entry", None),
+                        ("phase_diagnostics", {})):
+        monkeypatch.setattr(cs, name, lambda *a, v=value, **k: v)
+    monkeypatch.setattr(cs, "drive", lambda *a, **k: {
+        "quantize_activations": 1, "q4_matmul_w4a8": 1})
+    gguf = []
+    monkeypatch.setattr(cs, "phase_gguf", lambda *a, **k: (
+        gguf.append(k["workdir"]), {"launches": {}})[1])
+    for name, n in (("phase_slice10", 10), ("phase_serve", 12),
+                    ("phase_app", 15), ("phase_families", 16),
+                    ("phase_moe", 17)):
+        monkeypatch.setattr(cs, name, lambda *a, n=n, **k: {
+            "launches": {}, "n": n})
+    monkeypatch.setattr(cs, "phase_voice", lambda *a, **k: {"n": 13})
+    monkeypatch.setattr(cs, "phase_vision", lambda *a, **k: {"n": 14})
+    seen = []
+    monkeypatch.setattr(cs, "phase_vlm", lambda *a, **k: (
+        seen.append(a[-2:]), {"launches": {"q4_matmul_f32a": 4}, "n": 18})[1])
+    monkeypatch.setattr(cs, "kernels_line", lambda rows, launches: json.dumps(
+        {"phase18": launches[18]}))
+    assert cs.main() == 0
+    assert seen == [(os.path.join(gguf[0], "mistral.gguf"), gguf[0])]
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[-13].startswith("chip_smoke wall: ")
+    timing = json.loads(lines[-12])
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 19)}
+    assert timing["wall_s"] >= sum(timing["phase_seconds"].values()) * 0.999
+    assert json.loads(lines[-11]) == {
+        "vlm": {"launches": {"q4_matmul_f32a": 4}, "n": 18},
+        "card": "H100, 700.00 W"}
+    assert json.loads(lines[-10])["moe"]["n"] == 17
+    assert json.loads(lines[-2]) == {"phase18": {"q4_matmul_f32a": 4}}
+    assert not os.path.exists(gguf[0])   # the work directory is removed
 
 
 def test_moe_profile_child_fails_without_a_card(monkeypatch):
@@ -1114,20 +1175,26 @@ def test_moe_profile_child_fails_without_a_card(monkeypatch):
 
 
 def test_phase17_configs_keep_the_published_widths():
-    """Phase 17's configs: gpt-oss-20b at its 24 layers with max_seq cut to
-    4096 (its window of 128 on), Qwen3-30B-A3B at 12 to 48 layers; the sweep
-    keeps every width, expert count and top-k, at 2 layers (Llama-4 at 4,
-    so that a NoPE layer runs); q4_group gives gpt-oss group 32 (K/2 =
-    1440) and the Qwen3 experts 128; the int8 pool's tiny knob sets keep
-    sinks, a window, chunks and a NoPE layer; phase 3's MoE cases."""
+    """Phase 17's configs: gpt-oss-20b at its widths cut to 2 of its 24
+    layers (both kinds of its alternating attention) with max_seq cut to
+    4096 (its window of 128 on), Qwen3-30B-A3B at 2 to 48 layers; the sweep
+    keeps every width, expert count and top-k, at 1 layer (gpt-oss-120b's
+    windowed one; Llama-4's NoPE layers run in the tiny chunked model);
+    q4_group gives gpt-oss group 32 (K/2 = 1440) and the Qwen3 experts 128;
+    the int8 pool's tiny knob sets keep sinks, a window, chunks and a NoPE
+    layer; phase 3's MoE cases."""
     from trackiellm_tpu_torch.models import llm
     cs = _load()
-    g = cs.moe_cfg(llm, "gpt_oss_20b", 0, cs.MOE_GPTOSS_MAX_SEQ)
-    assert g._replace(max_seq=131072) == llm.LLMConfig.gpt_oss_20b()
+    g = cs.moe_cfg(llm, "gpt_oss_20b", cs.MOE_GPTOSS_LAYERS,
+                   cs.MOE_GPTOSS_MAX_SEQ)
+    assert g._replace(max_seq=131072, n_layers=24) == \
+        llm.LLMConfig.gpt_oss_20b()
+    assert g.n_layers == 2
+    assert {llm._window_of(g, li) for li in range(g.n_layers)} == {0, 128}
     assert llm._layer_window(g) == 128 and cs.q4_group(g) == 32
     q = cs.moe_cfg(llm, "qwen3_moe_30b_a3b", cs.MOE_QWEN3_LAYERS,
                    cs.MOE_QWEN3_MAX_SEQ)
-    assert 48 >= q.n_layers >= 12 and cs.q4_group(q) == 128
+    assert 48 >= q.n_layers >= 2 and cs.q4_group(q) == 128
     assert set(cs.MOE_SWEEP) == set(llm.MOE_PRESETS) - {"gpt_oss_20b"}
     for name, layers in cs.MOE_SWEEP.items():
         pub = getattr(llm.LLMConfig, name)()
@@ -1136,9 +1203,11 @@ def test_phase17_configs_keep_the_published_widths():
                 "vocab_size", "n_experts", "n_experts_used",
                 "moe_shared_hidden")
         assert all(getattr(cfg, k) == getattr(pub, k) for k in keep), name
-        assert cfg.n_layers == (4 if name == "llama4_scout" else 2)
+        assert cfg.n_layers == 1
     assert any(llm._is_nope(cs.moe_cfg(llm, "llama4_scout", 4), li)
-               for li in range(4))
+               for li in range(4))   # the depth moe_chunks' model keeps
+    o = cs.moe_cfg(llm, "gpt_oss_120b", cs.MOE_SWEEP["gpt_oss_120b"])
+    assert [llm._window_of(o, li) for li in range(o.n_layers)] == [128]
     assert cs.MOE_SWEEP_Q8[0] in cs.MOE_SWEEP
     gp, l4 = (cs.moe_pool_cfg(llm, n) for n in cs.MOE_POOL)
     assert gp.attn_sinks and llm._layer_window(gp) == cs.MOE_POOL_SPAN
@@ -1339,4 +1408,114 @@ def test_phase17_on_the_cpu(monkeypatch, capsys):
                 "on the int8 pool: card ids == cpu ids on 8/8",
                 "card ids == cpu ids: True", "router sigmoid",
                 "tiny llama4 chunk", "phase 17 took"):
+        assert tag in text, tag
+
+
+def test_phase18_configs_keep_the_published_widths():
+    """Phase 18's configs: LLaVA-1.5-7B's text model (llava-hf/llava-1.5-7b-hf:
+    dim 4096, 32 layers of 32 heads and 32 KV heads, hidden 11,008, vocab
+    32,064) at full depth with CLIP ViT-L/14-336 (576 image rows, the -2
+    tap) projecting to 4096; PaliGemma-3B's Gemma-2B (dim 2048, 18 layers,
+    8 heads, 1 KV head at D = 256, hidden 16,384, vocab 257,216, GeGLU)
+    and SigLIP-So400m/14 at 224 (256 rows, one linear to 2048); phase 3's
+    multimodal cases at those shapes."""
+    from trackiellm_tpu_torch.models import clip, llm
+    cs = _load()
+    cfgs = cs.vlm_configs(llm, clip)
+    lcfg, lccfg = cfgs["llava"]
+    assert (lcfg.dim, lcfg.n_layers, lcfg.n_heads, lcfg.n_kv_heads,
+            lcfg.head_dim, lcfg.hidden_dim, lcfg.vocab_size) == (
+        4096, 32, 32, 32, 128, 11008, 32064)
+    assert lcfg.max_seq == cs.VLM_MAX_SEQ and cs.q4_group(lcfg) == 128
+    assert lccfg == clip.CLIPVisionConfig(proj_dim=4096)
+    assert lccfg.n_image_tokens == 576 and lccfg.n_run_layers() == 23
+    gcfg, gccfg = cfgs["paligemma"]
+    assert (gcfg.dim, gcfg.n_layers, gcfg.n_heads, gcfg.n_kv_heads,
+            gcfg.head_dim, gcfg.hidden_dim, gcfg.vocab_size, gcfg.act) == (
+        2048, 18, 8, 1, 256, 16384, 257216, "gelu")
+    assert gccfg.n_image_tokens == 256 and gccfg.proj_dim == 2048
+    assert (gccfg.dim, gccfg.n_layers, gccfg.hidden_dim) == (1152, 27, 4304)
+    assert not llm._layer_window(gcfg)   # prefix-LM: plain attention
+    shapes = {(k, n, g, ms, ks) for _, k, n, g, ms, ks in cs.VLM_MATMULS}
+    assert (2048, 257216, 256, (1,), ("q4_matmul_w4a8",)) in shapes
+    assert (16384, 2048, 256, (1, 512), ("q4_matmul_w4a8",)) in shapes
+    assert (4096, 22016, 128, (1024, 2048), ("q4_matmul_f32a",)) in shapes
+    assert (11008, 4096, 128, (1024, 2048), ("q4_matmul_f32a",)) in shapes
+    assert cs.VLM_FLASH == (128, (32, 32), 1024)
+
+
+def _tiny_vlm_configs(llm, clip):
+    """Phase 18's configs at widths the CPU runs in seconds: the towers keep
+    their image and patch sizes (576 and 256 image rows), so LLaVA's prompt
+    still passes 512 rows."""
+    def text(**kw):
+        return llm.LLMConfig(vocab_size=512, dim=64, n_layers=2, n_heads=4,
+                             n_kv_heads=2, head_dim=16, hidden_dim=128,
+                             max_seq=2048, sliding_window=2048, **kw)
+    tower = dict(dim=32, n_layers=3, n_heads=4, hidden_dim=64)
+    return {"llava": (text(), clip.CLIPVisionConfig(proj_dim=64, **tower)),
+            "paligemma": (text(act="gelu", norm_eps=1e-6),
+                          clip.CLIPVisionConfig.siglip_so400m_224(64)
+                          ._replace(**tower))}
+
+
+def test_phase18_on_the_cpu(monkeypatch, capsys, tmp_path):
+    """Phase 18's control flow on the CPU at tiny widths (the routes' check
+    recorded): (a) generates from a frame at lookahead 4 and 1 with equal
+    ids, reuses the prefix on the same frame and rolls back on another;
+    (b) holds the towers, LLaVA's spliced prefill and PaliGemma's prefix-LM
+    pass to the CPU (the same CPU here); (c) converts an mmproj beside a
+    text GGUF with equal leaves and answers from a frame; (d) answers a
+    cortex turn on the injected frame with no failure."""
+    from trackiellm_tpu_torch import __main__ as cli
+    from trackiellm_tpu_torch.llm import runner, tokenizer
+    from trackiellm_tpu_torch.models import checkpoint, convert, llm
+    from trackiellm_tpu_torch.ops import quant
+    cs = _load()
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
+    monkeypatch.setattr(cli, "_device", lambda name, verb: cpu)
+    monkeypatch.setattr(cs, "vlm_configs", _tiny_vlm_configs)
+    monkeypatch.setattr(cs, "VLM_TOKENS", 4)
+    monkeypatch.setattr(cs, "VLM_GGUF_TOKENS", 3)
+    routes = []
+    monkeypatch.setattr(cs, "expect_routes", lambda launches, ran, idle,
+                        phase: routes.append(phase))
+    plain = []
+    monkeypatch.setattr(cs, "expect_no_plain", lambda calls, phase:
+                        plain.append((phase, bool(calls))))
+    # Phase 11's tiny GGUF widths (K/2 divisible by the converter's 256).
+    text_cfg = llm.LLMConfig(vocab_size=512, dim=512, n_layers=1, n_heads=4,
+                             n_kv_heads=2, head_dim=128, hidden_dim=1024,
+                             max_seq=2048, sliding_window=2048)
+    gguf = str(tmp_path / "text.gguf")
+    cs.write_gguf(gguf, *cs.mistral_gguf(text_cfg, cs.spm_spec(512),
+                                         cs.SEED))
+    out = cs.phase_vlm(cpu, llm, runner, tokenizer, quant, convert,
+                       checkpoint, cli, cs.launch_counters(), gguf,
+                       str(tmp_path))
+    a = out["llava"]
+    assert a["bucket"] == 1024 and a["image_rows"] == 576
+    assert a["reuse_same_frame"] >= a["image_start"] + 576
+    assert a["reuse_other_frame"] == a["image_start"]
+    b = out["card_vs_cpu"]
+    assert b["clip"]["features_rel_l2"] == 0.0
+    assert b["llava_text"]["rel_l2"] == 0.0
+    assert b["paligemma"]["prefill_rel_l2"] == 0.0
+    assert b["paligemma"]["bidir_moved"] > 0.0
+    assert out["mmproj"]["equal_leaves"] == out["mmproj"]["leaves"] > 0
+    assert out["cortex"]["frame_is_the_card_tensor"]
+    assert out["cortex"]["failures"] == {}
+    assert set(out["part_seconds"]) == {"a", "b", "c", "d"}
+    assert routes == ["phase 18 llava prefill", "phase 18 llava decode",
+                      "phase 18", "phase 18 mmproj"]
+    # On the CPU the plain matmul is the route: the check saw it run.
+    assert plain == [("phase 18 llava", True), ("phase 18 mmproj", True)]
+    assert quant.quantized_matmul_ref is not None
+    text = capsys.readouterr().out
+    for tag in ("llava-1.5-7b: lookahead 4 == lookahead 1",
+                "clip tower", "siglip tower", "llava text",
+                "paligemma text", "generate --image: exit 0",
+                "cortex turn: reply spoken", "phase 18 took"):
         assert tag in text, tag

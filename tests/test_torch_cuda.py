@@ -1941,3 +1941,82 @@ def test_moe_quantized_decode_launches_per_expert(dev):
     assert tq.q4_matmul_w4a8.launches - before == (
         cfg.n_layers * per_layer + 1)      # + lm_head
     assert torch.isfinite(logits).all()
+
+
+# --- the multimodal path's shapes (chip_smoke.py phases 3 and 18) ----------
+
+@pytest.mark.parametrize("kind,k,n,group,m", [
+    ("w4a8", 2048, 257216, 256, 1),      # PaliGemma's lm_head
+    ("w4a8", 16384, 2048, 256, 1),       # PaliGemma's w_down
+    ("w4a8", 16384, 2048, 256, 512),
+    ("f32a", 4096, 22016, 128, 1024),    # LLaVA-1.5-7B's w_gu
+    ("f32a", 11008, 4096, 128, 1024),    # and w_down
+    ("f32a", 11008, 4096, 128, 2048),
+])
+def test_multimodal_matmul_shapes_match_plain(dev, kind, k, n, group, m):
+    """W4A8 and f32a at the multimodal models' shapes against their plain
+    versions (rel L2 1e-5: the same products, f32 sums in another
+    order)."""
+    g = torch.Generator(device=dev).manual_seed(k + n + m)
+    w = tq.quantize_q4(torch.randn((k, n), generator=g, device=dev)
+                       / k ** 0.5, group)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    kernel, plain = ((tq.q4_matmul_w4a8, tq.q4_matmul_w4a8_ref)
+                     if kind == "w4a8"
+                     else (tq.q4_matmul_f32a, tq.q4_matmul_f32a_ref))
+    got = kernel(x, w.values, w.scales)
+    assert got.shape == (m, n) and torch.isfinite(got).all()
+    assert _rel_l2(got, plain(x, w.values, w.scales)) < 1e-5
+
+
+def test_flash_at_llava_heads(dev):
+    """Flash at LLaVA-1.5-7B's (32, 32) heads, D = 128, S = 1024, bf16,
+    causal, against the plain version (rel L2 1e-2)."""
+    g = torch.Generator(device=dev).manual_seed(1024)
+    q, k, v = (torch.randn((32, 1024, 128), generator=g,
+                           device=dev).to(torch.bfloat16) for _ in range(3))
+    assert _rel_l2(ta.flash_attention(q, k, v),
+                   ta.attention_ref(q, k, v)) < 1e-2
+
+
+def test_llava_spliced_prefill_on_the_card_matches_cpu(dev):
+    """LLaVA-1.5-7B's text model at its widths cut to 2 layers, Q4 at group
+    128: a bucket-1024 prefill with image rows spliced over 576 of its
+    rows (f32a and flash on the card) against the CPU's plain route (rel
+    L2 2e-2: the same function, f32 sums in another order and bf16 flash),
+    and an extend of the rolled-back tail."""
+    cfg = llm.LLMConfig(vocab_size=32064, dim=4096, n_layers=2, n_heads=32,
+                        n_kv_heads=32, head_dim=128, hidden_dim=11008,
+                        max_seq=2048, sliding_window=2048)
+    p_gpu = llm.init_params_quantized(
+        torch.Generator(device=dev).manual_seed(0), cfg, group=128,
+        device=dev)
+    p_cpu = llm.params_to(p_gpu, torch.device("cpu"))
+    toks = torch.randint(0, 32064, (1024,),
+                         generator=torch.Generator().manual_seed(1))
+    feats = torch.randn((576, 4096), generator=torch.Generator().manual_seed(2))
+    out = []
+    for params, device in ((p_gpu, dev), (p_cpu, torch.device("cpu"))):
+        x = llm.embed_tokens(params, toks.to(device))
+        x[100:676] = feats.to(device, x.dtype)
+        before = tq.q4_matmul_f32a.launches
+        lg, cache = llm.prefill(params, cfg, toks.to(device), 1000,
+                                llm.KVCache.create(cfg, device=device),
+                                embeds=x)
+        cache = cache._replace(length=100)
+        le, _ = llm.extend(params, cfg, toks[100:1124 - 100].to(device), 900,
+                           cache, embeds=x[100:1024])
+        out.append((lg.cpu(), le.cpu(), tq.q4_matmul_f32a.launches - before))
+    (lg, le, f32a), (lc, lec, _) = out
+    assert f32a > 0
+    assert _rel_l2(lg, lc) < 2e-2 and _rel_l2(le, lec) < 2e-2
+
+
+def test_vlm_digest_of_a_card_frame(dev):
+    """A frame on the card and its bytes as numpy give one digest, and the
+    card frame is encoded where it lies."""
+    from trackiellm_tpu_torch.llm.vlm import VLMRunner
+    frame = np.random.default_rng(0).integers(0, 256, (480, 640, 3),
+                                              dtype=np.uint8)
+    card = torch.from_numpy(frame).to(dev)
+    assert VLMRunner._digest(card) == VLMRunner._digest(frame)

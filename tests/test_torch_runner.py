@@ -263,7 +263,8 @@ def test_port_imports_no_jax():
     pipeline, navigation engine, free space), the app loop (runtime,
     cortex, interaction, sensors, config and paths, the audio pipeline, the
     wake word, the obstacle tracker, QR detection, ``TrackieApp``, the
-    demo), logging, CLI, probes, diagnostic, conversion, serving and app
+    demo), the multimodal path (the CLIP/SigLIP tower, ``VLMRunner``),
+    logging, CLI, probes, diagnostic, conversion, serving and app
     latency tools and chip_smoke.py pulls in no JAX module, no module of the JAX
     package (``trackiellm_tpu`` or ``trackiellm_tpu.*``, even one that imports no
     JAX) and none of the JAX package's tools (this test process has JAX
@@ -348,6 +349,8 @@ def test_port_imports_no_jax():
             "trackiellm_tpu_torch.app, "
             "trackiellm_tpu_torch.demo, "
             "trackiellm_tpu_torch.tools.measure_app_e2e, "
+            "trackiellm_tpu_torch.models.clip, "
+            "trackiellm_tpu_torch.llm.vlm, "
             "trackiellm_tpu_torch.models.convert as c; "
             "c.load_name_map('silero_v5'); c.load_name_map('piper_vits'); "
             "c.load_name_map('midas_small'); "

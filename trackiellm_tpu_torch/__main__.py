@@ -3,13 +3,24 @@
   inspect <model>
       print the format and metadata of a model file or checkpoint as JSON
       (``models/loader.py:describe``; no tensor data is read).
-  convert <model.gguf> -o DIR [--bits 0|4|8] [--device D]
+  convert <model.gguf> -o DIR [--bits 0|4|8] [--mmproj MMPROJ.gguf]
+          [--device D]
       convert a llama.cpp GGUF into a native checkpoint: the metadata-driven
       LLM route, requantized to Q4 (default) or Q8 on the device, or kept
       in bf16 with ``--bits 0``; the tokenizer travels in the metadata.
-  generate <ckpt> -p PROMPT [--max-tokens N] [--temperature T] [--device D]
+      With ``--mmproj``, llama.cpp's LLaVA packaging: the vision tower of
+      the mmproj file is saved beside it, in DIR/vision.
+  convert <state dict> -o DIR --family llava-hf|paligemma-hf [--bits N]
+          [--n-heads H] [--vision-n-heads H] [--device D]
+      convert a transformers LLaVA or PaliGemma state dict (.safetensors,
+      .pt, .npz): the language model at DIR, the vision tower and
+      projector at DIR/vision.
+  generate <ckpt> -p PROMPT [--max-tokens N] [--temperature T]
+           [--image FRAME.npy] [--device D]
       run a generation from a native checkpoint (``LLMConfig`` only), such
-      as one that ``convert`` wrote.
+      as one that ``convert`` wrote; with ``--image`` (an HWC uint8 array,
+      .npy or an .npz holding ``image``) a multimodal checkpoint sees the
+      frame at the prompt's ``<image>`` marker (prepended when absent).
   transcribe <wav> [--checkpoint DIR] [--device D]
       transcribe a WAV with Whisper: a native checkpoint whose metadata
       holds ``whisper_config``, else random ``WhisperConfig.test()``
@@ -25,19 +36,21 @@
       a typed question is injected halfway. Exits 1 when a worker crashed
       or the cortex halted.
 
-Port of ``trackiellm_tpu/__main__.py``'s ``inspect``, the GGUF branch of
-``convert``, ``generate``, ``transcribe``, ``synth`` and ``demo``, with
-the JAX package's defaults (4 bits; 64 tokens, temperature 0.7; 5 s).
-Every command but ``inspect`` runs on the CUDA card; the CPU is used only
-when ``--device cpu`` asks for it. The other ``--family`` routes and
-``--mmproj`` wait for ROADMAP Queue 1 item 11; ``bench`` is not ported
-yet (ROADMAP Queue 1, ID 5).
+Port of ``trackiellm_tpu/__main__.py``'s ``inspect``, the GGUF,
+``--mmproj``, ``llava-hf`` and ``paligemma-hf`` branches of ``convert``,
+``generate`` (``--image`` included), ``transcribe``, ``synth`` and
+``demo``, with the JAX package's defaults (4 bits; 64 tokens, temperature
+0.7; 5 s). Every command but ``inspect`` runs on the CUDA card; the CPU is
+used only when ``--device cpu`` asks for it. The other ``--family`` routes
+wait for ROADMAP Queue 1 item 11; ``bench`` is not ported yet (ROADMAP
+Queue 1, ID 5).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -46,6 +59,7 @@ import torch
 from trackiellm_tpu_torch.llm.runner import GenerationConfig, LLMRunner
 from trackiellm_tpu_torch.llm.tokenizer import (tokenizer_from_pieces,
                                                 tokenizer_from_spec)
+from trackiellm_tpu_torch.models import convert as convert_mod
 from trackiellm_tpu_torch.models.checkpoint import (load_checkpoint,
                                                     save_checkpoint)
 from trackiellm_tpu_torch.models.convert import (gguf_convert_auto,
@@ -62,7 +76,7 @@ _HF_FAMILIES = (
     "starcoder2-hf", "cohere-hf", "ernie45-hf", "llava-hf", "falcon-hf",
     "mamba-hf", "mamba2-hf", "paligemma-hf", "trocr-hf", "glm4moe-hf",
     "qwen3next-hf")
-_MULTIMODAL_FAMILIES = ("llava-hf", "paligemma-hf", "trocr-hf")
+_MULTIMODAL_FAMILIES = ("llava-hf", "paligemma-hf")
 
 
 def _device(name, verb: str):
@@ -81,39 +95,100 @@ def _cmd_inspect(args) -> int:
     return 0
 
 
+def _convert_multimodal(args, device: torch.device, t0: float) -> int:
+    """LLaVA or PaliGemma from a transformers state dict: the language
+    model at --output, the vision tower and projector at --output/vision
+    (its own checkpoint, with a CLIPVisionConfig sidecar)."""
+    state = convert_mod.load_state_dict(args.gguf)
+    if args.family == "llava-hf":
+        params, cfg, clip_params, clip_cfg = convert_mod.llava_from_hf(
+            state, n_heads=args.n_heads, vision_n_heads=args.vision_n_heads,
+            device=device, bits=args.bits or None)
+        kind = "llava"
+    else:
+        params, cfg, clip_params, clip_cfg = convert_mod.paligemma_from_hf(
+            state, vision_n_heads=args.vision_n_heads, device=device,
+            bits=args.bits or None)
+        kind = "paligemma"  # prefix-LM: VLMRunner(prefix_lm=True)
+    save_checkpoint(args.output, params, config=cfg,
+                    metadata={"source": args.gguf, "bits": args.bits,
+                              "multimodal": kind})
+    save_checkpoint(os.path.join(args.output, "vision"), clip_params,
+                    config=clip_cfg, metadata={"source": args.gguf})
+    print(f"converted + saved LLM to {args.output}, vision tower to "
+          f"{args.output}/vision in {time.time() - t0:.1f}s")
+    return 0
+
+
 def _cmd_convert(args) -> int:
-    if args.family in _MULTIMODAL_FAMILIES:
+    if args.family == "trocr-hf":
         raise NotImplementedError(
-            f"--family {args.family}: the multimodal converters are not "
-            "ported yet (ROADMAP Queue 1 item 11)")
-    if args.family != "gguf":
+            "--family trocr-hf: the TrOCR converter (trocr_from_hf, "
+            "models/trocr.py) is not ported yet (ROADMAP Queue 1 item 11)")
+    if args.family not in ("gguf", *_MULTIMODAL_FAMILIES):
         raise NotImplementedError(
             f"--family {args.family}: the transformers-state-dict "
             "converters (*_from_hf) are not ported yet (ROADMAP Queue 1 "
             "item 11)")
-    if args.mmproj:
-        raise NotImplementedError(
-            "--mmproj: the llama.cpp vision tower (gguf_to_clip_params, "
-            "models/clip.py) is not ported yet (ROADMAP Queue 1 item 11)")
     device = _device(args.device, "convert")
     t0 = time.time()
+    if args.family in _MULTIMODAL_FAMILIES:
+        return _convert_multimodal(args, device, t0)
     hdr = read_gguf_header(args.gguf)
     params, cfg = gguf_convert_auto(args.gguf, bits=args.bits or None,
                                     device=device)
     meta = {"source": args.gguf, "bits": args.bits,
             "vocab_pieces": hdr.metadata.get("tokenizer.ggml.tokens"),
             "tokenizer_spec": tokenizer_spec_from_gguf(hdr)}
+    if args.mmproj:
+        # llama.cpp's LLaVA packaging: a text GGUF + a vision "mmproj".
+        clip_params, clip_cfg = convert_mod.gguf_to_clip_params(
+            args.mmproj, device=device)
+        meta["multimodal"] = "llava"
+        save_checkpoint(args.output, params, config=cfg, metadata=meta)
+        save_checkpoint(os.path.join(args.output, "vision"), clip_params,
+                        config=clip_cfg, metadata={"source": args.mmproj})
+        print(f"converted + saved LLM to {args.output}, mmproj vision "
+              f"tower to {args.output}/vision in {time.time() - t0:.1f}s")
+        return 0
     save_checkpoint(args.output, params, config=cfg, metadata=meta)
     print(f"converted + saved to {args.output} "
           f"in {time.time() - t0:.1f}s; config: {cfg}")
     return 0
 
 
+def _generate_image(args, params, cfg, meta, tokenizer, gen_config,
+                    device: torch.device) -> int:
+    """``generate --image``: the checkpoint's vision tower (DIR/vision)
+    sees the frame at the prompt's image marker."""
+    import numpy as np
+
+    from trackiellm_tpu_torch.llm.vlm import VLMRunner
+
+    vis_dir = os.path.join(args.checkpoint, "vision")
+    clip_params, clip_cfg, _ = load_checkpoint(vis_dir, device=device)
+    if type(clip_cfg).__name__ != "CLIPVisionConfig":
+        print(f"{vis_dir} has no CLIPVisionConfig sidecar", file=sys.stderr)
+        return 1
+    if args.image.endswith(".npz"):
+        with np.load(args.image) as z:
+            image = z["image"]
+    else:
+        image = np.load(args.image)
+    prompt = args.prompt
+    if VLMRunner.IMAGE_MARKER not in prompt:
+        prompt = VLMRunner.IMAGE_MARKER + "\n" + prompt
+    runner = VLMRunner(params, cfg, clip_params, clip_cfg,
+                       tokenizer=tokenizer, gen_config=gen_config,
+                       device=device,
+                       prefix_lm=meta.get("multimodal") == "paligemma")
+    runner.generate(prompt, images=[image],
+                    on_token=lambda s: print(s, end="", flush=True))
+    print()
+    return 0
+
+
 def _cmd_generate(args) -> int:
-    if args.image:
-        raise NotImplementedError(
-            "--image: multimodal checkpoints (llm/vlm.py, models/clip.py) "
-            "are not ported yet (ROADMAP Queue 1 item 11)")
     device = _device(args.device, "generate")
     params, cfg, meta = load_checkpoint(args.checkpoint, device=device)
     if cfg is None:
@@ -124,10 +199,13 @@ def _cmd_generate(args) -> int:
         tokenizer = tokenizer_from_spec(meta["tokenizer_spec"])
     elif meta.get("vocab_pieces"):  # checkpoints without a tokenizer_spec
         tokenizer = tokenizer_from_pieces(meta["vocab_pieces"])
+    gen_config = GenerationConfig(max_tokens=args.max_tokens,
+                                  temperature=args.temperature)
+    if args.image:
+        return _generate_image(args, params, cfg, meta, tokenizer,
+                               gen_config, device)
     runner = LLMRunner(params, cfg, tokenizer, device=device,
-                       gen_config=GenerationConfig(
-                           max_tokens=args.max_tokens,
-                           temperature=args.temperature))
+                       gen_config=gen_config)
     runner.generate(args.prompt,
                     on_token=lambda s: print(s, end="", flush=True))
     print()
@@ -219,9 +297,15 @@ def main(argv=None) -> int:
     p.add_argument("--family", default="gguf",
                    choices=("gguf", *_HF_FAMILIES),
                    help="source layout (default: GGUF metadata-driven); "
-                        "the others are not ported yet")
+                        "of the others, llava-hf and paligemma-hf are "
+                        "ported")
+    p.add_argument("--n-heads", type=int, default=32,
+                   help="llava-hf: text attention heads (not derivable "
+                        "from shapes)")
+    p.add_argument("--vision-n-heads", type=int, default=16,
+                   help="llava-hf/paligemma-hf: vision tower heads")
     p.add_argument("--mmproj", default=None,
-                   help="llama.cpp vision 'mmproj' GGUF: not ported yet")
+                   help="llama.cpp vision 'mmproj' GGUF (LLaVA packaging)")
     p.add_argument("--device", default=None,
                    help="torch device of the requantization (default: the "
                         "CUDA card; the CPU only when asked for with "
@@ -237,7 +321,8 @@ def main(argv=None) -> int:
                    help="torch device (default: the CUDA card; the CPU only "
                         "when asked for with --device cpu)")
     p.add_argument("--image", default=None,
-                   help="multimodal checkpoints: not ported yet")
+                   help="multimodal checkpoints: an HWC uint8 frame "
+                        "(.npy, or .npz with 'image')")
     p.set_defaults(fn=_cmd_generate)
 
     p = sub.add_parser("transcribe", help="transcribe a WAV file")

@@ -14,7 +14,7 @@ tiny configs. It runs on the CUDA card unless the CPU is asked for:
 from __future__ import annotations
 
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -80,10 +80,19 @@ def build_models(device: torch.device, seed: int = 0):
     return detector_fn, depth_fn, asr, tts, runner
 
 
+# How long past its ``seconds`` a run may wait for ``until``.
+UNTIL_DEADLINE_S = 60.0
+
+
 def run(seconds: float, device: torch.device,
-        out: Callable[[str], None] = print) -> TrackieApp:
+        out: Callable[[str], None] = print,
+        until: Optional[Callable[[TrackieApp], bool]] = None) -> TrackieApp:
     """Run the assistant for ``seconds`` on mock hardware; a typed question
-    is injected halfway. Returns the stopped app (its stats stay)."""
+    is injected halfway. With ``until``, the end waits, at most
+    UNTIL_DEADLINE_S more, until ``until(app)`` holds: on a loaded CPU one
+    frame pass of the tiny models can take most of a second, so a short
+    run may stop before the event a caller checks for. Returns the
+    stopped app (its stats stay)."""
     detector_fn, depth_fn, asr, tts, runner = build_models(device)
 
     cfg = Config()
@@ -109,6 +118,10 @@ def run(seconds: float, device: torch.device,
     time.sleep(seconds / 2)
     app.cortex.inject_user_text("o que você vê?")
     time.sleep(seconds / 2)
+    if until is not None:
+        end = time.monotonic() + UNTIL_DEADLINE_S
+        while not until(app) and time.monotonic() < end:
+            time.sleep(0.02)
     out(f"cortex stats: {app.cortex.stats}")
     out(f"scheduler stats: {app.scheduler.stats}")
     out("context:\n" + app.cortex.reasoner.generate_context_string())

@@ -53,7 +53,6 @@ _WAITING = {
     "Mamba2Config": "model zoo, models/mamba2.py (ROADMAP Queue 1 item 11)",
     "Qwen3NextConfig": ("model zoo, models/qwen3next.py (ROADMAP Queue 1 "
                         "item 11)"),
-    "CLIPVisionConfig": "vision, models/clip.py (ROADMAP Queue 1 item 11)",
     "TrOCRConfig": "vision, models/trocr.py (ROADMAP Queue 1 item 11)",
 }
 
@@ -169,8 +168,12 @@ def _unflatten(tree: Any, arrays: Dict[str, torch.Tensor]) -> Any:
 
 
 def _voice_config(cls: str):
-    """The voice models' config classes, imported when a checkpoint names
-    one (their modules import this one's neighbours, not this module)."""
+    """The voice and vision models' config classes, imported when a
+    checkpoint names one (their modules import this one's neighbours, not
+    this module)."""
+    if cls == "CLIPVisionConfig":
+        from trackiellm_tpu_torch.models.clip import CLIPVisionConfig
+        return CLIPVisionConfig
     if cls == "WhisperConfig":
         from trackiellm_tpu_torch.models.whisper import WhisperConfig
         return WhisperConfig
@@ -200,8 +203,9 @@ def _config(sidecar: Dict[str, Any], directory: str):
     if config_cls is None:
         raise NotImplementedError(
             f"{directory}: config class {cls!r} is not supported; the port "
-            "loads LLMConfig checkpoints and the voice models' "
-            "(WhisperConfig, TTSConfig, VITSConfig)")
+            "loads LLMConfig checkpoints, the vision tower's "
+            "(CLIPVisionConfig) and the voice models' (WhisperConfig, "
+            "TTSConfig, VITSConfig)")
     return config_cls(**{k: _tuples(v)
                          for k, v in sidecar["config"].items()})
 

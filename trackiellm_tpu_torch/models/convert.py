@@ -40,6 +40,13 @@ YOLOv5u, ``midas_small_from_torch``, ``ocr_from_torch``,
 ``dpt_swinv2_from_torch``), which give the vision models' trees in this
 package's OIHW layout; each puts its tree on ``device``, the CUDA card by
 default.
+
+The multimodal routes (``llava_from_hf``, ``paligemma_from_hf`` with its
+text half ``gemma_from_hf``, LLaVA's Llama text half ``smollm3_from_hf``,
+and ``gguf_to_clip_params`` for a llama.cpp "mmproj" file) read
+transformers state dicts (``load_state_dict``) or GGUF tensors as host
+numpy and give the LLM tree (requantized on ``device`` when ``bits`` asks)
+and the CLIP/SigLIP tree of ``models/clip.py`` in f32.
 """
 
 from __future__ import annotations
@@ -2075,3 +2082,439 @@ def dpt_swinv2_from_torch(state: Dict[str, Any], image_size: int = 256,
         "head3": _plain_conv(state, "head.head.4", device),
     }
     return params, cfg
+
+
+# ---------------------------------------------------------------------------
+# Multimodal converters: LLaVA, PaliGemma, llama.cpp mmproj
+# ---------------------------------------------------------------------------
+
+def load_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """A name -> array state dict from .pt/.pth/.bin (torch),
+    .safetensors, .npz or .onnx (initializers only): the JAX package's
+    ``tools/parity_common.load_state_dict`` over this package's readers."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext in (".pt", ".pth", ".bin"):
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+        if isinstance(obj, dict):
+            for key in ("model_state_dict", "state_dict", "model"):
+                if key in obj and isinstance(obj[key], dict):
+                    obj = obj[key]
+                    break
+        if hasattr(obj, "state_dict"):
+            obj = obj.state_dict()
+        return {k: v.detach().cpu().numpy() if hasattr(v, "detach")
+                else np.asarray(v) for k, v in obj.items()
+                if hasattr(v, "shape") or hasattr(v, "detach")}
+    if ext == ".safetensors":
+        from trackiellm_tpu_torch.models.loader import load_safetensors
+        return load_safetensors(path)
+    if ext == ".npz":
+        with np.load(path) as z:
+            return {k: z[k] for k in z.files}
+    if ext == ".onnx":
+        from trackiellm_tpu_torch.models.onnx_reader import (
+            read_onnx_initializers)
+        return read_onnx_initializers(path)
+    raise TrackieError(ErrorCode.MODEL_FORMAT_UNKNOWN,
+                       f"unsupported checkpoint format {ext!r} for {path}")
+
+
+def _llm_tree(layers: Dict[str, list], emb: np.ndarray, out_norm: np.ndarray,
+              lm_head: np.ndarray, dtype: torch.dtype, device: torch.device,
+              bits: Optional[int], group: int) -> Dict[str, Any]:
+    """The LLM tree from f32 host arrays, in ``dtype`` on ``device``; with
+    ``bits`` (4, 8) requantized there as ``llm.quantize_params`` does."""
+    tensor = _converter_tools(device, None, group, dtype)[0]
+    params = {
+        "tok_emb": tensor(emb, dtype),
+        "layers": {k: tensor(np.stack(v), dtype) for k, v in layers.items()},
+        "out_norm": tensor(out_norm, dtype),
+        "lm_head": tensor(lm_head, dtype),
+    }
+    if bits:
+        params = llm_model.quantize_params(params, bits=bits, group=group)
+    return params
+
+
+def smollm3_from_hf(state: Dict[str, Any], *, max_seq: int = 65536,
+                    norm_eps: float = 1e-6, rope_theta: float = 5e6,
+                    nope_pattern: int = 4, head_dim: int = 0,
+                    dtype: torch.dtype = torch.bfloat16,
+                    device: Optional[torch.device] = None,
+                    bits: Optional[int] = None, group: int = 256) -> tuple:
+    """A transformers Llama-shaped state dict (SmolLM3's, or LLaVA's text
+    half with ``nope_pattern=0``) -> (params, LLMConfig): RMSNorm, SwiGLU,
+    GQA, no biases, lm_head or the tied embedding. ``head_dim`` is not
+    shape-derivable; the default is 128 (the Llama convention at the
+    published sizes)."""
+    device = default_device(device, "convert a checkpoint")
+    A = lambda k: np.asarray(state[k], np.float32)  # noqa: E731
+    emb = A("model.embed_tokens.weight")
+    vocab, dim = emb.shape
+    n_layers = len({k.split(".")[2] for k in state
+                    if k.startswith("model.layers.")})
+    hd = head_dim or 128
+    n_heads = A("model.layers.0.self_attn.q_proj.weight").shape[0] // hd
+    n_kv = A("model.layers.0.self_attn.k_proj.weight").shape[0] // hd
+    hidden = A("model.layers.0.mlp.gate_proj.weight").shape[0]
+    cfg = llm_model.LLMConfig(
+        vocab_size=vocab, dim=dim, n_layers=n_layers, n_heads=n_heads,
+        n_kv_heads=n_kv, head_dim=hd, hidden_dim=hidden, norm_eps=norm_eps,
+        rope_theta=rope_theta, max_seq=max_seq, sliding_window=max_seq,
+        nope_pattern=nope_pattern)
+    L: Dict[str, list] = {k: [] for k in ("attn_norm", "wqkv", "wo",
+                                          "mlp_norm", "w_gu", "w_down")}
+    for i in range(n_layers):
+        pre = f"model.layers.{i}"
+        L["attn_norm"].append(A(f"{pre}.input_layernorm.weight"))
+        L["mlp_norm"].append(A(f"{pre}.post_attention_layernorm.weight"))
+        L["wqkv"].append(np.concatenate(
+            [A(f"{pre}.self_attn.{p}_proj.weight").T
+             for p in ("q", "k", "v")], axis=1))
+        L["wo"].append(A(f"{pre}.self_attn.o_proj.weight").T)
+        L["w_gu"].append(np.concatenate(
+            [A(f"{pre}.mlp.gate_proj.weight").T,
+             A(f"{pre}.mlp.up_proj.weight").T], axis=1))
+        L["w_down"].append(A(f"{pre}.mlp.down_proj.weight").T)
+    lm_head = (A("lm_head.weight").T if "lm_head.weight" in state
+               else np.ascontiguousarray(emb.T))
+    return _llm_tree(L, emb, A("model.norm.weight"), lm_head, dtype,
+                     device, bits, group), cfg
+
+
+def gemma_from_hf(state: Dict[str, Any], *, head_dim: int = 256,
+                  max_seq: int = 8192, norm_eps: float = 1e-6,
+                  rope_theta: float = 10000.0, prefix: str = "model.",
+                  head_key: str = "lm_head.weight",
+                  dtype: torch.dtype = torch.bfloat16,
+                  device: Optional[torch.device] = None,
+                  bits: Optional[int] = None, group: int = 256) -> tuple:
+    """A transformers Gemma-1 state dict -> (params, LLMConfig): the Llama
+    template with GeGLU (tanh), the (1+w) RMSNorm fold, the sqrt(dim)
+    embedding scale folded into tok_emb (lm_head keeps the unscaled tied
+    copy) and an explicit head_dim (256 at both published sizes). Also
+    PaliGemma's text half (``prefix="model.language_model."``)."""
+    device = default_device(device, "convert a checkpoint")
+    A = lambda k: np.asarray(state[k], np.float32)  # noqa: E731
+    P = prefix
+    emb = A(P + "embed_tokens.weight")
+    vocab, dim = emb.shape
+    n_layers = len({k[len(P) + len("layers."):].split(".")[0]
+                    for k in state if k.startswith(P + "layers.")})
+    hd = head_dim
+    n_heads = A(P + "layers.0.self_attn.q_proj.weight").shape[0] // hd
+    n_kv = A(P + "layers.0.self_attn.k_proj.weight").shape[0] // hd
+    hidden = A(P + "layers.0.mlp.gate_proj.weight").shape[0]
+    cfg = llm_model.LLMConfig(
+        vocab_size=vocab, dim=dim, n_layers=n_layers, n_heads=n_heads,
+        n_kv_heads=n_kv, head_dim=hd, hidden_dim=hidden, norm_eps=norm_eps,
+        rope_theta=rope_theta, max_seq=max_seq, sliding_window=max_seq,
+        act="gelu")
+    L: Dict[str, list] = {k: [] for k in ("attn_norm", "wqkv", "wo",
+                                          "mlp_norm", "w_gu", "w_down")}
+    for i in range(n_layers):
+        pre = f"{P}layers.{i}"
+        L["attn_norm"].append(A(f"{pre}.input_layernorm.weight") + 1.0)
+        L["mlp_norm"].append(
+            A(f"{pre}.post_attention_layernorm.weight") + 1.0)
+        L["wqkv"].append(np.concatenate(
+            [A(f"{pre}.self_attn.{p}_proj.weight").T
+             for p in ("q", "k", "v")], axis=1))
+        L["wo"].append(A(f"{pre}.self_attn.o_proj.weight").T)
+        L["w_gu"].append(np.concatenate(
+            [A(f"{pre}.mlp.gate_proj.weight").T,
+             A(f"{pre}.mlp.up_proj.weight").T], axis=1))
+        L["w_down"].append(A(f"{pre}.mlp.down_proj.weight").T)
+    lm_head = (A(head_key).T if head_key in state
+               else np.ascontiguousarray(emb.T))
+    return _llm_tree(L, emb * float(np.sqrt(dim)), A(P + "norm.weight") + 1.0,
+                     lm_head, dtype, device, bits, group), cfg
+
+
+_VISION_LEAVES = ("ln1_g", "ln1_b", "ln2_g", "ln2_b", "wq", "bq", "wk", "bk",
+                  "wv", "bv", "wo", "bo", "w1", "b1", "w2", "b2")
+
+
+def _hf_vision_layers(A, vt: str, n_layers: int) -> Dict[str, list]:
+    """A transformers CLIP/SigLIP encoder's layers as models/clip.py's
+    stacked leaves ((in, out) matrices)."""
+    L: Dict[str, list] = {k: [] for k in _VISION_LEAVES}
+    for i in range(n_layers):
+        pre = f"{vt}encoder.layers.{i}"
+        L["ln1_g"].append(A(f"{pre}.layer_norm1.weight"))
+        L["ln1_b"].append(A(f"{pre}.layer_norm1.bias"))
+        L["ln2_g"].append(A(f"{pre}.layer_norm2.weight"))
+        L["ln2_b"].append(A(f"{pre}.layer_norm2.bias"))
+        for p in ("q", "k", "v"):
+            L[f"w{p}"].append(A(f"{pre}.self_attn.{p}_proj.weight").T)
+            L[f"b{p}"].append(A(f"{pre}.self_attn.{p}_proj.bias"))
+        L["wo"].append(A(f"{pre}.self_attn.out_proj.weight").T)
+        L["bo"].append(A(f"{pre}.self_attn.out_proj.bias"))
+        L["w1"].append(A(f"{pre}.mlp.fc1.weight").T)
+        L["b1"].append(A(f"{pre}.mlp.fc1.bias"))
+        L["w2"].append(A(f"{pre}.mlp.fc2.weight").T)
+        L["b2"].append(A(f"{pre}.mlp.fc2.bias"))
+    return L
+
+
+def _vision_tree(tree: Dict[str, Any], dtype: torch.dtype,
+                 device: torch.device) -> Dict[str, Any]:
+    """A host tree of f32 arrays (stacked-layer lists included) on
+    ``device`` in ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: _vision_tree(v, dtype, device) for k, v in tree.items()}
+    a = np.stack(tree) if isinstance(tree, list) else tree
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        device).to(dtype)
+
+
+def _hf_multimodal_prefixes(state: Dict[str, Any]) -> tuple:
+    """(vision tower, language model, projector, lm_head key) prefixes of
+    the transformers >= 4.52 layout or the legacy one."""
+    if any(k.startswith("model.vision_tower.") for k in state):
+        return ("model.vision_tower.vision_model.", "model.language_model.",
+                "model.multi_modal_projector.", "lm_head.weight")
+    return ("vision_tower.vision_model.", "language_model.model.",
+            "multi_modal_projector.", "language_model.lm_head.weight")
+
+
+def _n_vision_layers(state: Dict[str, Any], vt: str) -> int:
+    return len({k[len(vt) + len("encoder.layers."):].split(".")[0]
+                for k in state if k.startswith(vt + "encoder.layers.")})
+
+
+def llava_from_hf(state: Dict[str, Any], *, n_heads: int,
+                  max_seq: int = 4096, norm_eps: float = 1e-5,
+                  rope_theta: float = 1e4, vision_n_heads: int = 16,
+                  vision_act: str = "quick_gelu",
+                  vision_norm_eps: float = 1e-5, feature_layer: int = -2,
+                  drop_cls: bool = True, proj_act: str = "gelu",
+                  dtype: torch.dtype = torch.bfloat16,
+                  vision_dtype: torch.dtype = torch.float32,
+                  device: Optional[torch.device] = None,
+                  bits: Optional[int] = None, group: int = 256) -> tuple:
+    """A transformers LLaVA state dict -> ``(llm_params, llm_cfg,
+    clip_params, clip_cfg)``: the Llama-family language model in this
+    package's fused layout and the CLIP tower + projector of
+    models/clip.py. Both transformers layouts (>= 4.52's
+    ``model.vision_tower.*`` and the legacy ``vision_tower.*``) are read.
+    The vision geometry comes from shapes; ``n_heads`` and
+    ``vision_n_heads`` come from the HF config."""
+    from trackiellm_tpu_torch.models import clip as clip_model
+
+    device = default_device(device, "convert a checkpoint")
+    A = lambda k: np.asarray(state[k], np.float32)  # noqa: E731
+    vt, lm, proj, head_key = _hf_multimodal_prefixes(state)
+    text_state = {"model." + k[len(lm):]: v for k, v in state.items()
+                  if k.startswith(lm)}
+    if head_key in state:
+        text_state["lm_head.weight"] = state[head_key]
+    dim = A(lm + "embed_tokens.weight").shape[1]
+    llm_params, llm_cfg = smollm3_from_hf(
+        text_state, max_seq=max_seq, norm_eps=norm_eps,
+        rope_theta=rope_theta, nope_pattern=0, head_dim=dim // n_heads,
+        dtype=dtype, device=device, bits=bits, group=group)
+
+    pw = A(vt + "embeddings.patch_embedding.weight")  # (D, 3, P, P)
+    vdim, _, patch, _ = pw.shape
+    pos = A(vt + "embeddings.position_embedding.weight")  # (N + 1, D)
+    n_vlayers = _n_vision_layers(state, vt)
+    clip_cfg = clip_model.CLIPVisionConfig(
+        image_size=patch * int(round((pos.shape[0] - 1) ** 0.5)),
+        patch_size=patch, dim=vdim, n_layers=n_vlayers,
+        n_heads=vision_n_heads,
+        hidden_dim=A(vt + "encoder.layers.0.mlp.fc1.weight").shape[0],
+        norm_eps=vision_norm_eps, act=vision_act,
+        feature_layer=feature_layer, drop_cls=drop_cls, proj_dim=dim,
+        proj_act=proj_act)
+    clip_params = _vision_tree({
+        # (D, 3, P, P) -> (3*P*P, D): the (c, ph, pw) order of
+        # encode_image's patch extraction.
+        "patch_w": pw.reshape(vdim, -1).T,
+        "cls": A(vt + "embeddings.class_embedding"),
+        "pos": pos,
+        "pre_ln_g": A(vt + "pre_layrnorm.weight"),
+        "pre_ln_b": A(vt + "pre_layrnorm.bias"),
+        "layers": _hf_vision_layers(A, vt, n_vlayers),
+        "proj": {"w1": A(proj + "linear_1.weight").T,
+                 "b1": A(proj + "linear_1.bias"),
+                 "w2": A(proj + "linear_2.weight").T,
+                 "b2": A(proj + "linear_2.bias")},
+    }, vision_dtype, device)
+    return llm_params, llm_cfg, clip_params, clip_cfg
+
+
+def paligemma_from_hf(state: Dict[str, Any], *, head_dim: int = 256,
+                      max_seq: int = 8192, norm_eps: float = 1e-6,
+                      rope_theta: float = 10000.0, vision_n_heads: int = 16,
+                      vision_norm_eps: float = 1e-6,
+                      dtype: torch.dtype = torch.bfloat16,
+                      vision_dtype: torch.dtype = torch.float32,
+                      device: Optional[torch.device] = None,
+                      bits: Optional[int] = None, group: int = 256) -> tuple:
+    """A transformers PaliGemma state dict -> ``(llm_params, llm_cfg,
+    clip_params, clip_cfg)``: the SigLIP tower (no CLS, patch bias, no
+    pre-LN, the post-LN tap, tanh-GELU), a single-linear projector and the
+    Gemma-1 text model (:func:`gemma_from_hf`). HF divides the projected
+    features by sqrt(text_dim) and GemmaModel multiplies every input
+    embedding by it, so with the scale folded into tok_emb the projector's
+    output goes in unscaled. PaliGemma is a prefix-LM: drive it with
+    ``VLMRunner(prefix_lm=True)``."""
+    from trackiellm_tpu_torch.models import clip as clip_model
+
+    device = default_device(device, "convert a checkpoint")
+    A = lambda k: np.asarray(state[k], np.float32)  # noqa: E731
+    vt, lm, proj, head_key = _hf_multimodal_prefixes(state)
+    llm_params, llm_cfg = gemma_from_hf(
+        state, head_dim=head_dim, max_seq=max_seq, norm_eps=norm_eps,
+        rope_theta=rope_theta, prefix=lm, head_key=head_key, dtype=dtype,
+        device=device, bits=bits, group=group)
+
+    pw = A(vt + "embeddings.patch_embedding.weight")  # (D, 3, P, P)
+    vdim, _, patch, _ = pw.shape
+    pos = A(vt + "embeddings.position_embedding.weight")  # (N, D)
+    n_vlayers = _n_vision_layers(state, vt)
+    clip_cfg = clip_model.CLIPVisionConfig(
+        image_size=patch * int(round(pos.shape[0] ** 0.5)),
+        patch_size=patch, dim=vdim, n_layers=n_vlayers,
+        n_heads=vision_n_heads,
+        hidden_dim=A(vt + "encoder.layers.0.mlp.fc1.weight").shape[0],
+        norm_eps=vision_norm_eps, act="gelu_pytorch_tanh", feature_layer=-1,
+        drop_cls=False, use_cls=False, patch_bias=True, pre_ln=False,
+        post_ln=True, proj_dim=A(proj + "linear.weight").shape[0],
+        proj_layers=1)
+    clip_params = _vision_tree({
+        "patch_w": pw.reshape(vdim, -1).T,
+        "patch_b": A(vt + "embeddings.patch_embedding.bias"),
+        "pos": pos,
+        "post_ln_g": A(vt + "post_layernorm.weight"),
+        "post_ln_b": A(vt + "post_layernorm.bias"),
+        "layers": _hf_vision_layers(A, vt, n_vlayers),
+        "proj": {"w1": A(proj + "linear.weight").T,
+                 "b1": A(proj + "linear.bias")},
+    }, vision_dtype, device)
+    return llm_params, llm_cfg, clip_params, clip_cfg
+
+
+# Full CLIP/SigLIP tower depths: an mmproj with one of these block counts
+# and no feature-layer metadata may run its tap a block late.
+_FULL_TOWER_DEPTHS = (12, 24, 26, 27, 32)
+
+
+def gguf_to_clip_params(path: str, *,
+                        vision_dtype: torch.dtype = torch.float32,
+                        device: Optional[torch.device] = None) -> tuple:
+    """A llama.cpp "mmproj" CLIP GGUF -> (clip_params, CLIPVisionConfig)
+    on ``device``: the vision half of llama.cpp's LLaVA packaging (a text
+    GGUF + an mmproj file).
+
+    Tensor names are clip.cpp's (``v.patch_embd.weight``,
+    ``v.blk.%d.attn_{q,k,v}/attn_out/ln1/ln2/ffn_{up,down}``, ``mm.0`` and
+    ``mm.2`` projector); the geometry comes from ``clip.vision.*``
+    metadata, checked against the tensors' shapes. The two MLP matrices
+    are told apart by shape ((hidden, dim) is fc1), since converters have
+    swapped the ffn_up/ffn_down names. An mmproj usually stops at LLaVA's
+    feature tap (ViT-L ships 23 of 24 blocks), so every stored block runs
+    unless ``clip.vision.feature_layer`` says otherwise (k > 0 runs k
+    blocks; k < 0 runs n_layers + 1 + k)."""
+    from trackiellm_tpu_torch.models import clip as clip_model
+
+    device = default_device(device, "convert a checkpoint")
+    gguf = read_gguf_header(path)
+    md = gguf.metadata
+    if not (md.get("clip.has_vision_encoder", True)
+            and "v.patch_embd.weight" in gguf.tensors):
+        raise TrackieError(ErrorCode.MODEL_METADATA_INVALID,
+                           f"{path}: not a clip.cpp vision mmproj file")
+
+    def T(name: str) -> np.ndarray:
+        return np.asarray(load_gguf_tensor(gguf, name), np.float32)
+
+    pw = T("v.patch_embd.weight")          # OIHW, as the HF conv
+    vdim, _, patch, _ = pw.shape
+    pos = T("v.position_embd.weight")      # (N + 1, D), CLS included
+    image_size = patch * int(round((pos.shape[0] - 1) ** 0.5))
+    n_layers = len({k.split(".")[2] for k in gguf.tensors
+                    if k.startswith("v.blk.")})
+    checks = {"clip.vision.image_size": image_size,
+              "clip.vision.patch_size": patch,
+              "clip.vision.embedding_length": vdim,
+              "clip.vision.block_count": n_layers}
+    for key, ours in checks.items():
+        if key in md and int(md[key]) != ours:
+            raise TrackieError(
+                ErrorCode.MODEL_METADATA_INVALID,
+                f"{path}: {key}={md[key]} disagrees with tensor shapes "
+                f"({ours})")
+
+    def fc_pair(i: int):
+        """The MLP matrices by shape, not by clip.cpp's names."""
+        a, a_b = T(f"v.blk.{i}.ffn_up.weight"), T(f"v.blk.{i}.ffn_up.bias")
+        b, b_b = (T(f"v.blk.{i}.ffn_down.weight"),
+                  T(f"v.blk.{i}.ffn_down.bias"))
+        if a.shape[1] == vdim and a.shape[0] != vdim:
+            return a, a_b, b, b_b
+        if b.shape[1] == vdim and b.shape[0] != vdim:
+            return b, b_b, a, a_b
+        raise TrackieError(
+            ErrorCode.MODEL_METADATA_INVALID,
+            f"{path}: blk.{i} MLP shapes {a.shape}/{b.shape} don't "
+            f"disambiguate against dim={vdim}")
+
+    L: Dict[str, list] = {k: [] for k in _VISION_LEAVES}
+    for i in range(n_layers):
+        pre = f"v.blk.{i}"
+        L["ln1_g"].append(T(f"{pre}.ln1.weight"))
+        L["ln1_b"].append(T(f"{pre}.ln1.bias"))
+        L["ln2_g"].append(T(f"{pre}.ln2.weight"))
+        L["ln2_b"].append(T(f"{pre}.ln2.bias"))
+        for ours, theirs in (("q", "attn_q"), ("k", "attn_k"),
+                             ("v", "attn_v")):
+            L[f"w{ours}"].append(T(f"{pre}.{theirs}.weight").T)
+            L[f"b{ours}"].append(T(f"{pre}.{theirs}.bias"))
+        L["wo"].append(T(f"{pre}.attn_out.weight").T)
+        L["bo"].append(T(f"{pre}.attn_out.bias"))
+        w1, b1, w2, b2 = fc_pair(i)
+        L["w1"].append(w1.T)
+        L["b1"].append(b1)
+        L["w2"].append(w2.T)
+        L["b2"].append(b2)
+
+    feature_layer = n_layers
+    if "clip.vision.feature_layer" in md:
+        fl = int(md["clip.vision.feature_layer"])
+        feature_layer = fl if fl > 0 else n_layers + 1 + fl
+        if not 1 <= feature_layer <= n_layers:
+            raise TrackieError(
+                ErrorCode.MODEL_METADATA_INVALID,
+                f"{path}: clip.vision.feature_layer={fl} resolves to "
+                f"{feature_layer} of {n_layers} stored blocks")
+    elif n_layers in _FULL_TOWER_DEPTHS:
+        log.warning(
+            "%s: mmproj stores %d blocks (a full tower depth) with no "
+            "clip.vision.feature_layer metadata; running all of them; if "
+            "features look wrong, the tap likely belongs at block %d",
+            path, n_layers, n_layers - 1)
+
+    proj_w1, proj_w2 = T("mm.0.weight"), T("mm.2.weight")
+    clip_cfg = clip_model.CLIPVisionConfig(
+        image_size=image_size, patch_size=patch, dim=vdim,
+        n_layers=n_layers,
+        n_heads=int(md.get("clip.vision.attention.head_count", 16)),
+        hidden_dim=fc_pair(0)[0].shape[0],
+        norm_eps=float(md.get("clip.vision.attention.layer_norm_epsilon",
+                              1e-5)),
+        act="gelu" if md.get("clip.use_gelu", False) else "quick_gelu",
+        feature_layer=feature_layer, drop_cls=True,
+        proj_dim=proj_w2.shape[0], proj_act="gelu")
+    clip_params = _vision_tree({
+        "patch_w": pw.reshape(vdim, -1).T,
+        "cls": T("v.class_embd").reshape(-1),
+        "pos": pos,
+        "pre_ln_g": T("v.pre_ln.weight"),
+        "pre_ln_b": T("v.pre_ln.bias"),
+        "layers": L,
+        "proj": {"w1": proj_w1.T, "b1": T("mm.0.bias"),
+                 "w2": proj_w2.T, "b2": T("mm.2.bias")},
+    }, vision_dtype, device)
+    return clip_params, clip_cfg

@@ -1324,29 +1324,79 @@ def _qkv(x: torch.Tensor, layer, cfg: LLMConfig, li: int, tables,
 # Forward passes
 # ---------------------------------------------------------------------------
 
+def _bidir_prefill_attn(cfg: LLMConfig, q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor, bidir_len: int) -> torch.Tensor:
+    """Prefix-LM prefill attention over q (S, H, D), k and v (S, Hk, D):
+    positions before ``bidir_len`` attend to each other both ways, the rest
+    causally (PaliGemma's inference mask, transformers
+    ``modeling_paligemma._update_causal_mask``). Dense, as the reference's
+    ``_bidir_prefill_attn``: the prompt pass runs once, and prefix-LM
+    configs are plain attention. Returns (S, H * D) f32."""
+    s, hk, hd = q.shape[0], cfg.n_kv_heads, cfg.head_dim
+    rep = cfg.n_heads // hk
+    qg = q.reshape(s, hk, rep, hd).permute(1, 2, 0, 3).reshape(hk, -1, hd)
+    scores = cache_scores(qg, k).reshape(hk, rep, s, s) * _attn_scale(cfg)
+    if cfg.attn_softcap > 0.0:
+        scores = cfg.attn_softcap * torch.tanh(scores / cfg.attn_softcap)
+    idx = torch.arange(s, device=q.device)
+    causal = idx[None, :] <= idx[:, None]
+    bid = (idx[:, None] < bidir_len) & (idx[None, :] < bidir_len)
+    scores = torch.where(causal | bid, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    attn = cache_mix(probs.reshape(hk, rep * s, s), v)
+    return attn.reshape(hk, rep, s, hd).permute(2, 0, 1, 3).reshape(s, -1)
+
+
+def _input_rows(params: Dict[str, Any], tokens: torch.Tensor,
+                embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """The first hidden states: ``embeds`` (the multimodal injection point:
+    image features spliced between text embeddings) in the embedding's
+    dtype, else the token lookup."""
+    if embeds is not None:
+        return embeds.to(params["tok_emb"].dtype)
+    return embed_tokens(params, tokens)
+
+
 @torch.no_grad()
 def prefill(params: Dict[str, Any], cfg: LLMConfig, tokens: torch.Tensor,
-            length: int, cache: KVCache) -> Tuple[torch.Tensor, KVCache]:
+            length: int, cache: KVCache,
+            embeds: Optional[torch.Tensor] = None,
+            bidir_len: Optional[int] = None) -> Tuple[torch.Tensor, KVCache]:
     """Run a padded prompt bucket ``tokens`` (S_pad,) through the model and
     write its K/V into rows [0, S_pad) of the cache (in place). Returns the
     logits (V,) of the last real token and the cache at ``length``. Padded
-    rows past ``length`` hold garbage that the length mask hides."""
+    rows past ``length`` hold garbage that the length mask hides.
+
+    ``embeds`` ((S_pad, dim)) replaces the token lookup: image features
+    spliced over placeholder rows (models/clip.py, llm/vlm.py).
+    ``bidir_len`` (<= ``length``) gives prefix-LM attention, dense
+    (:func:`_bidir_prefill_attn`), on plain-attention configs only. With
+    both None the pass is the causal one, with its kernels."""
     check_supported(cfg, params)
+    if bidir_len is not None and (
+            _layer_window(cfg) or cfg.attn_chunk or cfg.attn_sinks
+            or cfg.nope_pattern > 1 or cfg.window_pattern > 1
+            or cfg.alt_window):
+        raise NotImplementedError(
+            "prefix-LM (bidir_len) supports plain-attention configs only")
     s_pad = tokens.shape[0]
     positions = torch.arange(s_pad, device=tokens.device)
     tables = _rope_tables(params, cfg, positions, int(length))
-    x = params["tok_emb"][tokens.long()]
+    x = _input_rows(params, tokens, embeds)
     for li in range(cfg.n_layers):
         layer = _layer(params["layers"], li)
         h, q, k, v = _qkv(x, layer, cfg, li, tables, positions)
         cache.k[li, :s_pad] = k.to(cache.k.dtype)
         cache.v[li, :s_pad] = v.to(cache.v.dtype)
-        attn = prefill_attention(
-            q.transpose(0, 1).contiguous(), k.transpose(0, 1).contiguous(),
-            v.transpose(0, 1).contiguous(), causal=True,
-            **_attn_kw(cfg, li, layer))
-        x = _layer_tail(x, h, attn.transpose(0, 1).reshape(s_pad, -1),
-                        layer, cfg, li)
+        if bidir_len is not None:
+            attn = _bidir_prefill_attn(cfg, q, k, v, int(bidir_len))
+        else:
+            attn = prefill_attention(
+                q.transpose(0, 1).contiguous(),
+                k.transpose(0, 1).contiguous(),
+                v.transpose(0, 1).contiguous(), causal=True,
+                **_attn_kw(cfg, li, layer)).transpose(0, 1).reshape(s_pad, -1)
+        x = _layer_tail(x, h, attn, layer, cfg, li)
     x_last = x[max(length - 1, 0)]
     logits = _output_logits(params, cfg, x_last[None])[0]
     return logits, KVCache(cache.k, cache.v, int(length))
@@ -1386,14 +1436,16 @@ def decode_step(params: Dict[str, Any], cfg: LLMConfig, token,
 @torch.no_grad()
 def extend(params: Dict[str, Any], cfg: LLMConfig, tokens: torch.Tensor,
            n_valid: int, cache: KVCache, attn_len: Optional[int] = None,
-           all_logits: bool = False) -> Tuple[torch.Tensor, KVCache]:
+           all_logits: bool = False, embeds: Optional[torch.Tensor] = None,
+           ) -> Tuple[torch.Tensor, KVCache]:
     """Append a padded chunk ``tokens`` (B,) after ``cache.length`` in one
     parallel pass (chunked prefill): each chunk query attends to the cached
     prefix and causally within the chunk. K/V rows are written in place;
     padded rows that would fall past S_max are dropped (the valid ones must
     fit). Returns the logits at the last valid token, or with
     ``all_logits`` the (B, V) logits at every chunk position (the
-    speculative verify pass), and the cache at length + n_valid."""
+    speculative verify pass), and the cache at length + n_valid.
+    ``embeds`` ((B, dim)) replaces the token lookup, as in :func:`prefill`."""
     check_supported(cfg, params)
     offset = cache.length
     b = tokens.shape[0]
@@ -1405,7 +1457,7 @@ def extend(params: Dict[str, Any], cfg: LLMConfig, tokens: torch.Tensor,
     device = tokens.device
     positions = offset + torch.arange(b, device=device)
     tables = _rope_tables(params, cfg, positions, offset + int(n_valid))
-    x = params["tok_emb"][tokens.long()]
+    x = _input_rows(params, tokens, embeds)
     hk, hd = cfg.n_kv_heads, cfg.head_dim
     rep = cfg.n_heads // hk
     # _attn_scale, not 1/sqrt(D): the reference's extend keeps the query

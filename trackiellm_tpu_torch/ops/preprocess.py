@@ -1,8 +1,10 @@
-"""Camera-frame preprocessing for the detector and the depth models.
+"""Camera-frame preprocessing for the detector, the depth models and the
+CLIP vision tower.
 
 Port of ``trackiellm_tpu/ops/preprocess.py``: a half-pixel bilinear resize
 written as the reference's gathers (so the CPU gives its f32 bytes), the
-YOLO letterbox onto a grey canvas, and the ImageNet and DPT normalizations,
+YOLO letterbox onto a grey canvas, and the ImageNet, DPT and CLIP
+normalizations,
 each returning a CHW f32 tensor on the frame's device. A frame given as a
 numpy array or a CPU tensor is moved to ``device`` first.
 """
@@ -17,6 +19,8 @@ import torch
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
 def _bilinear_resize(img: torch.Tensor, out_h: int, out_w: int
@@ -106,3 +110,12 @@ def dpt_normalize_chw(image_u8: torch.Tensor, target_h: int = 256,
     the DPT-SwinV2 checkpoints were trained under, not ImageNet's."""
     return _normalize_chw(image_u8, target_h, target_w, (0.5, 0.5, 0.5),
                           (0.5, 0.5, 0.5))
+
+
+def clip_normalize_chw(image_u8: torch.Tensor, target_h: int = 336,
+                       target_w: int = 336) -> torch.Tensor:
+    """Resize (no letterbox), OpenAI-CLIP mean/std, HWC -> CHW: the
+    statistics the LLaVA towers were trained under (models/clip.py). HF's
+    CLIPImageProcessor resizes bicubic on the shortest side and crops; the
+    camera path takes a direct square resize for latency."""
+    return _normalize_chw(image_u8, target_h, target_w, CLIP_MEAN, CLIP_STD)
