@@ -248,9 +248,33 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      in ``TrackieApp`` over (a)'s runner: the frame uploaded as the camera
      worker uploads it reaches ``encode_image`` as that card tensor, the
      reply is spoken, ``failures()`` is empty. One ``{"vlm": ...}`` line
-     before the moe line; the smoke's wall and then
-     ``{"phase_seconds": ..., "wall_s": ...}`` on the two lines before it.
-Phases 5-18 zero every launch counter just before they drive their path and
+     before the moe line.
+ 19. outer surfaces: (a) ``python3 -m trackiellm_tpu_torch precompile`` in
+     a child process: Mistral-7B Q4 at full width and depth (random
+     weights, max_seq 1024) through every stage the JAX command warms (the
+     runner's buckets, speculation, the server's waves, Whisper-tiny, the
+     TTS, the vision frame, DPT, the CLIP tower and the bucket-1024 spliced
+     prefill); each stage's warm seconds, phase 2's library found (no nvcc
+     run), and the child's launches by kernel (W4A8, its quantization,
+     flash and f32a must rise); (b) ``tools/cache_artifact.py`` packs the
+     built libraries and restores them into an empty directory, and a
+     child over it launches W4A8 once with no nvcc run: its seconds from
+     spawn beside phase 2's cold build; (c) the native runtime must load,
+     and a ``NativeContext`` executor over ``VisionPipeline`` (YOLOv8n at
+     640, MiDaS-small at 384) given a 480x640 ``NativeVisionFrame``
+     through ``execute`` and ``execute_async`` + ``drain`` gives the direct
+     ``process_frame``'s packed result bit for bit; (d) a ``tk_*``
+     sequence through ``compat``: Mistral-7B widths cut to
+     ``SURFACES_LAYERS`` layers, 8 tokens of
+     ``tk_llm_runner_generate_next_token`` equal to ``LLMRunner.generate``'s
+     ids, a frame, a tool call and a reply through the decision engine, a
+     cortex created, fed text and stopped; (e) ``device_trace`` around one
+     decode chunk writes a trace holding the W4A8 kernel, and
+     ``MetricsCollector.collect()`` reports the card's memory. One
+     ``{"surfaces": ...}`` line before the vlm line; the smoke's wall and
+     then ``{"phase_seconds": ..., "wall_s": ...}`` on the two lines before
+     it.
+Phases 5-19 zero every launch counter just before they drive their path and
 read them just after: the path's kernels must have launched, and the routes
 it does not take must not have (no serving path launches the streaming Q4
 or a probe; phase 9 must launch all four; phases 13 and 14 launch none).
@@ -259,10 +283,11 @@ phases 5-7 greedy text must not depend on the lookahead depth, in phase 10
 not on speculation, and every logit vector must be finite. Phase 3's
 device-only times come from profiles whose launch count matches the calls
 (``device_only_ms``). Each phase's first line ends with the seconds since
-the build began. The ``vlm`` line, the ``moe`` line, the ``families``
-line, the ``app`` line, the ``vision`` line, then the ``voice`` line, come
-just before the last five lines, which are the ``serve`` line, the ``slice10``
-line, the card line, the kernels' JSON summary and the result line.
+the build began. The ``surfaces`` line, the ``vlm`` line, the ``moe``
+line, the ``families`` line, the ``app`` line, the ``vision`` line, then
+the ``voice`` line, come just before the last five lines, which are the
+``serve`` line, the ``slice10`` line, the card line, the kernels' JSON
+summary and the result line.
 """
 
 import contextlib
@@ -5746,6 +5771,310 @@ def phase_vlm(dev, llm, runner_mod, tokenizer_mod, quant, convert,
     return out
 
 
+# Phase 19: the outer surfaces. The precompile child warms every stage at
+# the JAX command's shapes (Mistral-7B Q4 at full width and depth, max_seq
+# 1024); (d) drives Mistral-7B widths cut to SURFACES_LAYERS layers.
+SURFACES_LAYERS = 2
+SURFACES_TOKENS = 8
+SURFACES_PROMPT = "descreva a cena a sua frente"
+SURFACES_TOOL_CALL = '{"tool_call": {"name": "describe", "arguments": {}}}'
+PRECOMPILE_TIMEOUT = 600.0
+RESTORED_TIMEOUT = 300.0
+# The restored library's child: nvcc may not run; one W4A8 launch.
+RESTORED_CHILD = r"""
+import json, time
+import torch
+from trackiellm_tpu_torch.ops import _build, quant
+def no_nvcc():
+    raise AssertionError("nvcc would have run")
+_build._nvcc = no_nvcc
+dev = torch.device("cuda", 0)
+w = quant.quantize_q4(torch.randn((4096, 4096), device=dev, generator=
+                      torch.Generator(device=dev).manual_seed(0)))
+x = torch.randn((1, 4096), device=dev).to(torch.bfloat16)
+y = quant.q4_matmul_w4a8(x, w.values, w.scales)
+torch.cuda.synchronize()
+print(json.dumps({"first_launch_unix": time.time(),
+                  "last_build": _build.last_build,
+                  "launches": quant.q4_matmul_w4a8.launches,
+                  "finite": bool(torch.isfinite(y).all())}))
+"""
+
+
+def surfaces_precompile() -> dict:
+    """(a) ``python3 -m trackiellm_tpu_torch precompile`` in a child: every
+    stage warm, the library found (phase 2 built it), and the child's
+    launches by kernel: W4A8, its quantization, flash and f32a (the
+    bucket-1024 prefills)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "trackiellm_tpu_torch", "precompile"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=PRECOMPILE_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 19 precompile exit {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    for line in proc.stdout.splitlines()[:-1]:
+        log(f"  precompile | {line}")
+    report = json.loads(proc.stdout.splitlines()[-1])["precompile"]
+    stages = [name for name, _ in report["stages"]]
+    for stage in ("llm:", "server:", "asr:", "tts:", "vision:", "dpt:",
+                  "vlm:"):
+        if not any(name.startswith(stage) for name in stages):
+            raise AssertionError(f"phase 19 precompile: no {stage} stage")
+    if report["build"]["kernels"]["compiled"]:
+        raise AssertionError("phase 19 precompile: nvcc ran again")
+    launches = report["launches"]
+    expect_routes(launches, ("q4_matmul_w4a8", "quantize_activations",
+                             "flash_attention", "q4_matmul_f32a"),
+                  ("q8_matmul", "fused_mlp_q4", *DIAGNOSTIC),
+                  "phase 19 precompile")
+    log(f"  precompile child: {wall:.1f} s wall, {report['seconds']:.1f} s "
+        f"in the command; launches {launches}")
+    return {"wall_s": wall, "seconds": report["seconds"],
+            "stages": report["stages"], "build": report["build"],
+            "launches": launches}
+
+
+def surfaces_artifact(build_s: float, work: str) -> dict:
+    """(b) ``cache_artifact`` pack of the built libraries, restore into an
+    empty directory, then a child over that directory: no nvcc run, one
+    W4A8 launch; its seconds from spawn to that launch beside phase 2's
+    cold build."""
+    from trackiellm_tpu_torch.tools import cache_artifact
+    art = os.path.join(work, "kernels.tar.gz")
+    fresh = os.path.join(work, "restored")
+    packed = cache_artifact.pack(art)
+    restored = cache_artifact.restore(art, fresh)
+    if restored["mismatches"]:
+        raise AssertionError(f"phase 19 restore: {restored['mismatches']}")
+    env = dict(os.environ, TRACKIE_BUILD_DIR=fresh)
+    spawn = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-c", RESTORED_CHILD],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=RESTORED_TIMEOUT)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 19 restored child: {proc.stderr[-3000:]}")
+    child = json.loads(proc.stdout.splitlines()[-1])
+    first = child["first_launch_unix"] - spawn
+    if (child["last_build"]["compiled"] or child["launches"] != 1
+            or not child["finite"]
+            or not child["last_build"]["path"].startswith(fresh)):
+        raise AssertionError(f"phase 19 restored child: {child}")
+    log(f"  cache artifact: {packed['bytes']} bytes, {len(packed['entries'])}"
+        f" files; a fresh process launched W4A8 {first:.2f} s after spawn "
+        f"with no nvcc run (phase 2's cold build {build_s:.1f} s)")
+    return {"artifact_bytes": packed["bytes"], "entries": packed["entries"],
+            "first_launch_s": first, "cold_build_s": build_s,
+            "nvcc": packed["nvcc"]}
+
+
+def surfaces_vision(dev):
+    """(c)'s models: YOLOv8n at 640 and MiDaS-small at 384 (the pipeline's
+    default inputs), random weights from the seed on the card; returns a
+    factory of fresh ``VisionPipeline`` over them."""
+    from trackiellm_tpu_torch.models import depth, detector
+    from trackiellm_tpu_torch.vision.pipeline import VisionPipeline
+    dcfg = detector.DetectorConfig.v8n()
+    pcfg = depth.DepthConfig.small()._replace(img_size=384)
+    dp = detector.init_detector(
+        torch.Generator(device=dev).manual_seed(SEED + 190), dcfg)
+    pp = depth.init_depth(
+        torch.Generator(device=dev).manual_seed(SEED + 191), pcfg)
+    fns = dict(detector_fn=lambda chw: detector.detector_forward(dp, dcfg,
+                                                                 chw),
+               depth_fn=lambda chw: depth.depth_forward(pp, pcfg, chw))
+    return fns, lambda: VisionPipeline(device=dev, **fns)
+
+
+def surfaces_ffi(dev, pipeline) -> dict:
+    """(c) The native runtime on the card host, and a ``NativeContext``
+    executor over the port's ``VisionPipeline``: a 480x640 frame handed
+    over as a ``NativeVisionFrame``, through ``execute`` and
+    ``execute_async`` + ``drain``, each on a fresh pipeline, bit for bit
+    the direct ``process_frame``'s packed result."""
+    from trackiellm_tpu_torch.ffi import embed, native
+    if not native.native_available():
+        raise AssertionError("phase 19: the native runtime did not build")
+    frame = vision_frame((480, 640), SEED)
+    t0 = time.perf_counter()
+    want = embed.pack_vision_result(pipeline().process_frame(frame))
+    torch.cuda.synchronize()
+    direct_ms = (time.perf_counter() - t0) * 1e3
+    vf = embed.NativeVisionFrame(640, 480)
+    vf.write(frame)
+    t = embed.NativeTensor.from_vision_frame(vf)
+    ctx = embed.NativeContext()
+    mod = embed.TK_MODULE_VISION
+    ctx.register_python_module(mod, embed.vision_module(pipeline()),
+                               device=dev)
+    t0 = time.perf_counter()
+    sync = ctx.execute(mod, "process_frame", t)
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    ctx.unregister_module(mod)
+    ctx.register_python_module(mod, embed.vision_module(pipeline()),
+                               device=dev)
+    results = []
+    t0 = time.perf_counter()
+    ctx.execute_async(mod, "process_frame", t,
+                      lambda status, arr: results.append((status, arr)))
+    ctx.drain()
+    async_ms = (time.perf_counter() - t0) * 1e3
+    ctx.close()
+    t.close()
+    vf.close()
+    out = {"objects": int(want[0, 1]), "valid": int(want[0, 0]),
+           "direct_ms": direct_ms, "execute_ms": sync_ms,
+           "execute_async_ms": async_ms,
+           "execute_equal": sync.tobytes() == want.tobytes(),
+           "async_status": results[0][0] if results else None,
+           "async_equal": bool(results) and results[0][1] is not None
+           and results[0][1].tobytes() == want.tobytes()}
+    log(f"  ffi: native runtime {native.library_path()}; the vision "
+        f"executor's result equals the direct call's: execute "
+        f"{out['execute_equal']}, execute_async {out['async_equal']} "
+        f"({out['objects']} objects; {direct_ms:.1f} / {sync_ms:.1f} / "
+        f"{async_ms:.1f} ms)")
+    if not (out["execute_equal"] and out["async_equal"]
+            and out["async_status"] == 0):
+        raise AssertionError(f"phase 19 ffi: {out}")
+    return out
+
+
+def surfaces_compat(dev, llm, runner_mod, tokenizer_mod, vision_fns,
+                    counters) -> tuple:
+    """(d) A ``tk_*`` sequence through ``compat`` on the card: an LLM turn
+    at Mistral-7B widths cut to SURFACES_LAYERS layers (8 greedy tokens
+    through ``tk_llm_runner_generate_next_token``, equal to
+    ``LLMRunner.generate``'s ids), a frame through
+    ``tk_vision_pipeline_process_frame``, a tool call and the reply through
+    ``tk_decision_engine_process_llm_response``, and a cortex created, fed
+    text and stopped. Returns (its record, the runner)."""
+    from trackiellm_tpu_torch import compat as tk
+    cfg = llm.LLMConfig.mistral_7b()._replace(n_layers=SURFACES_LAYERS)
+    params = llm.init_params_quantized(
+        torch.Generator(device=dev).manual_seed(SEED + 192), cfg, bits=4,
+        device=dev)
+
+    def gen():
+        return runner_mod.GenerationConfig(
+            max_tokens=SURFACES_TOKENS, temperature=0.0, speculative=False)
+    t0 = time.perf_counter()
+    r = tk.tk_llm_runner_create(
+        params, cfg, tokenizer=tokenizer_mod.ByteTokenizer(cfg.vocab_size),
+        gen_config=gen())
+    for w in counters.values():
+        w.launches = 0
+    tk.tk_llm_runner_prepare_generation(r, SURFACES_PROMPT)
+    pieces = [tk.tk_llm_runner_generate_next_token(r)
+              for _ in range(SURFACES_TOKENS)]
+    torch.cuda.synchronize()
+    turn_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in counters.items()}
+    ids = list(r._generated_ids)
+    ref = runner_mod.LLMRunner(
+        params, cfg, tokenizer_mod.ByteTokenizer(cfg.vocab_size), gen())
+    ref.generate(SURFACES_PROMPT)
+    want = list(ref._generated_ids)
+    # The prompt's bucket 64 takes the plain attention, not flash.
+    expect_routes(launches, ("q4_matmul_w4a8", "quantize_activations"),
+                  ("q8_matmul", "fused_mlp_q4", *DIAGNOSTIC),
+                  "phase 19 compat")
+    p = tk.tk_vision_pipeline_create(device=dev, **vision_fns)
+    res = tk.tk_vision_pipeline_process_frame(p, vision_frame((480, 640),
+                                                              SEED))
+    tk.tk_vision_result_destroy(res)
+    d = tk.tk_decision_engine_create()
+    call = tk.tk_decision_engine_process_llm_response(d, SURFACES_TOOL_CALL)
+    text = tk.tk_decision_engine_process_llm_response(d, "".join(
+        x for x in pieces if x) or "ok")
+    done = tk.tk_decision_engine_process_actions(d)
+    cortex = tk.tk_cortex_create()
+    tk.tk_cortex_run(cortex)
+    tk.tk_cortex_inject_user_text(cortex, SURFACES_PROMPT)
+    tk.tk_cortex_stop(cortex)
+    state = tk.tk_cortex_get_state(cortex)
+    tk.tk_cortex_destroy(cortex)
+    out = {"layers": SURFACES_LAYERS, "ids": ids, "generate_ids": want,
+           "turn_s": turn_s, "launches": launches,
+           "vision_objects": len(res.objects),
+           "vision_valid": int(res.valid_analyses),
+           "tool_call": call.is_tool_call, "reply_is_text": not
+           text.is_tool_call, "actions": [(a.name, a.state.value)
+                                         for a in done],
+           "cortex_state": state}
+    log(f"  compat: {len(ids)} ids through tk_llm_runner_generate_next_token"
+        f" ({SURFACES_LAYERS} layers, {turn_s:.2f} s with the prefill) "
+        f"equal to LLMRunner.generate's: {ids == want}; frame "
+        f"{out['vision_objects']} objects; actions {out['actions']}; "
+        f"cortex {state}")
+    if (not ids or ids != want or not call.is_tool_call
+            or text.is_tool_call or state != "shutdown"):
+        raise AssertionError(f"phase 19 compat: {out}")
+    return out, r
+
+
+def surfaces_services(dev, runner, counters, work: str) -> dict:
+    """(e) ``device_trace`` around one decode chunk of (d)'s runner (a new
+    turn's prefill before it): the trace file must hold the W4A8 kernel;
+    ``MetricsCollector.collect()`` must report the card's memory."""
+    from trackiellm_tpu_torch import compat as tk
+    from trackiellm_tpu_torch.services import MetricsCollector
+    from trackiellm_tpu_torch.services.profiling import device_trace
+    tk.tk_llm_runner_reset(runner)
+    tk.tk_llm_runner_prepare_generation(runner, SURFACES_PROMPT + " agora")
+    torch.cuda.synchronize()
+    for w in counters.values():
+        w.launches = 0
+    with device_trace(os.path.join(work, "traces")) as prof:
+        for _ in range(runner.gen.lookahead):
+            tk.tk_llm_runner_generate_next_token(runner)
+    counted = counters["q4_matmul_w4a8"].launches
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    traced = sum(1 for e in events if e.get("cat") == "kernel"
+                 and "q4_w4a8_kernel" in e.get("name", ""))
+    metrics = MetricsCollector().collect()
+    out = {"trace_bytes": os.path.getsize(prof.trace_path),
+           "w4a8_in_trace": traced, "w4a8_counted": counted,
+           "device_mem_used": metrics.get("device_mem_used"),
+           "device_mem_limit": metrics.get("device_mem_limit"),
+           "device_mem_card_used": metrics.get("device_mem_card_used")}
+    if not traced or not out["device_mem_used"]:
+        raise AssertionError(f"phase 19 services: {out}")
+    log(f"  services: the trace ({out['trace_bytes']} bytes) holds {traced} "
+        f"W4A8 kernels ({counted} launches counted); the card holds "
+        f"{out['device_mem_used'] / 2 ** 30:.2f} GiB in tensors of "
+        f"{out['device_mem_limit'] / 2 ** 30:.1f} GiB")
+    return out
+
+
+def phase_surfaces(dev, llm, runner_mod, tokenizer_mod, counters,
+                   build_s: float, work: str) -> dict:
+    """Phase 19: precompile (a), the cache artifact (b), the ffi executor
+    (c), the compat sequence (d) and the services (e)."""
+    marks = {"start": time.perf_counter()}
+    out = {"precompile": surfaces_precompile()}
+    marks["a"] = time.perf_counter()
+    out["artifact"] = surfaces_artifact(build_s, work)
+    marks["b"] = time.perf_counter()
+    fns, pipeline = surfaces_vision(dev)
+    out["ffi"] = surfaces_ffi(dev, pipeline)
+    marks["c"] = time.perf_counter()
+    out["compat"], runner = surfaces_compat(dev, llm, runner_mod,
+                                            tokenizer_mod, fns, counters)
+    marks["d"] = time.perf_counter()
+    out["services"] = surfaces_services(dev, runner, counters, work)
+    marks["e"] = time.perf_counter()
+    keys = list(marks)
+    out["part_seconds"] = {k: marks[k] - marks[p]
+                           for p, k in zip(keys, keys[1:])}
+    out["launches"] = out["precompile"]["launches"]
+    return out
+
+
 def serve_config(llm):
     """Phases 5-7 and 12's configuration: Mistral-7B cut to max_seq 512."""
     return llm.LLMConfig.mistral_7b()._replace(max_seq=512,
@@ -5891,7 +6220,8 @@ def main() -> int:
         log(f"{msg} [{time.perf_counter() - t0:.1f} s]")
     path = _build.build()
     _build.library()
-    log(f"phase 2 build: nvcc and load {time.perf_counter() - t0:.1f} s -> "
+    build_s = time.perf_counter() - t0
+    log(f"phase 2 build: nvcc and load {build_s:.1f} s -> "
         f"{path.relative_to(_build.BUILD_ROOT.parent.parent)}")
 
     banner("phase 3 kernels vs plain versions (card, L2 flushed per call):")
@@ -6006,17 +6336,27 @@ def main() -> int:
                     checkpoint, cli, counters,
                     os.path.join(work.name, "mistral.gguf"), work.name)
     launches[18] = vlm["launches"]
+    banner("phase 19 outer surfaces (precompile in a child at Mistral-7B's "
+           "full width and depth, the kernel-cache artifact restored into "
+           "a fresh process, the ffi executor over VisionPipeline, a tk_* "
+           f"sequence at Mistral-7B widths cut to {SURFACES_LAYERS} layers, "
+           "device_trace and MetricsCollector):")
+    surfaces = phase_surfaces(dev, llm, runner_mod, tokenizer_mod, counters,
+                              build_s, work.name)
+    launches[19] = surfaces["launches"]
     end = time.perf_counter()
     work.cleanup()
     log(f"chip_smoke wall: {end - t0:.1f} s since the build began")
-    marks[19] = end
+    marks[20] = end
     seconds = {"1": t0 - main_t0}
-    seconds.update({str(n): marks[n + 1] - marks[n] for n in range(2, 19)
+    seconds.update({str(n): marks[n + 1] - marks[n] for n in range(2, 20)
                     if n in marks and n + 1 in marks})
     print(json.dumps({"phase_seconds": seconds, "wall_s": end - main_t0}),
           flush=True)
 
     smi = nvidia_smi()
+    print(json.dumps({"surfaces": surfaces, "card": smi}, default=str),
+          flush=True)
     print(json.dumps({"vlm": vlm, "card": smi}), flush=True)
     print(json.dumps({"moe": moe, "moe_kernels": {
         k: [r for r in v if r["case"].startswith("gpt-oss")]

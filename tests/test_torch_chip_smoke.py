@@ -624,6 +624,8 @@ def test_main_prints_the_voice_line_before_the_last_five(monkeypatch,
         "launches": {}})
     monkeypatch.setattr(cs, "phase_moe", lambda *a, **k: {"launches": {}})
     monkeypatch.setattr(cs, "phase_vlm", lambda *a, **k: {"launches": {}})
+    monkeypatch.setattr(cs, "phase_surfaces", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     lines = capsys.readouterr().out.strip().splitlines()[-6:]
     assert json.loads(lines[0]) == {"voice": {"n": 13},
@@ -681,6 +683,8 @@ def test_main_prints_the_vision_line_before_the_voice_line(monkeypatch,
         "launches": {}})
     monkeypatch.setattr(cs, "phase_moe", lambda *a, **k: {"launches": {}})
     monkeypatch.setattr(cs, "phase_vlm", lambda *a, **k: {"launches": {}})
+    monkeypatch.setattr(cs, "phase_surfaces", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     assert seen == [13, (14, True)]
     lines = capsys.readouterr().out.strip().splitlines()[-7:]
@@ -824,10 +828,12 @@ def test_main_prints_the_app_line_before_the_vision_line(monkeypatch,
         "launches": {}, "n": 16})
     monkeypatch.setattr(cs, "phase_moe", lambda *a, **k: {"launches": {}})
     monkeypatch.setattr(cs, "phase_vlm", lambda *a, **k: {"launches": {}})
+    monkeypatch.setattr(cs, "phase_surfaces", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     assert seen == [True]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-13].startswith("chip_smoke wall: ")
+    assert lines[-14].startswith("chip_smoke wall: ")
     assert json.loads(lines[-9])["families"] == {"launches": {}, "n": 16}
     assert json.loads(lines[-8]) == {"app": {
         "launches": {"q4_matmul_w4a8": 7}, "n": 15},
@@ -1103,10 +1109,12 @@ def test_main_prints_the_moe_line_before_the_families_line(monkeypatch,
     monkeypatch.setattr(cs, "kernels_line", lambda rows, launches: json.dumps(
         {"phase17": launches[17]}))
     monkeypatch.setattr(cs, "phase_vlm", lambda *a, **k: {"launches": {}})
+    monkeypatch.setattr(cs, "phase_surfaces", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     assert seen == [True]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-13].startswith("chip_smoke wall: ")
+    assert lines[-14].startswith("chip_smoke wall: ")
     moe = json.loads(lines[-10])
     assert moe["moe"] == {"launches": {"q4_matmul_w4a8": 9}, "n": 17}
     assert moe["moe_kernels"]["q4_matmul_w4a8"] == [
@@ -1118,8 +1126,8 @@ def test_main_prints_the_moe_line_before_the_families_line(monkeypatch,
 def test_main_prints_the_vlm_line_and_the_phase_seconds(monkeypatch,
                                                        capsys):
     """Phase 18 runs after phase 17 on phase 11's GGUF; its line comes just
-    before the moe line, the smoke's wall and the phase seconds (1 to 18,
-    and the wall from the start) on the two lines before it, and the
+    before the moe line, the smoke's wall and the phase seconds (1 to 19,
+    and the wall from the start) on the lines before phase 19's, and the
     kernels line counts its launches."""
     from trackiellm_tpu_torch.ops import _build
     cs = _load()
@@ -1152,12 +1160,14 @@ def test_main_prints_the_vlm_line_and_the_phase_seconds(monkeypatch,
         seen.append(a[-2:]), {"launches": {"q4_matmul_f32a": 4}, "n": 18})[1])
     monkeypatch.setattr(cs, "kernels_line", lambda rows, launches: json.dumps(
         {"phase18": launches[18]}))
+    monkeypatch.setattr(cs, "phase_surfaces", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     assert seen == [(os.path.join(gguf[0], "mistral.gguf"), gguf[0])]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-13].startswith("chip_smoke wall: ")
-    timing = json.loads(lines[-12])
-    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 19)}
+    assert lines[-14].startswith("chip_smoke wall: ")
+    timing = json.loads(lines[-13])
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 20)}
     assert timing["wall_s"] >= sum(timing["phase_seconds"].values()) * 0.999
     assert json.loads(lines[-11]) == {
         "vlm": {"launches": {"q4_matmul_f32a": 4}, "n": 18},
@@ -1519,3 +1529,113 @@ def test_phase18_on_the_cpu(monkeypatch, capsys, tmp_path):
                 "paligemma text", "generate --image: exit 0",
                 "cortex turn: reply spoken", "phase 18 took"):
         assert tag in text, tag
+
+
+def test_main_prints_the_surfaces_line_before_the_vlm_line(monkeypatch,
+                                                            capsys):
+    """Phase 19 runs after phase 18 with phase 2's build seconds and the
+    work directory; its line comes just before the vlm line, the phase
+    seconds run 1 to 19, and the kernels line counts its launches (the
+    precompile child's)."""
+    from trackiellm_tpu_torch.ops import _build
+    cs = _load()
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda *a: (9, 0))
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "H100")
+    monkeypatch.setattr(cs, "nvidia_smi", lambda: "H100, 700.00 W")
+    monkeypatch.setattr(_build, "build", lambda: _build.BUILD_ROOT / "x")
+    monkeypatch.setattr(_build, "library", lambda: None)
+    for name, value in (("phase_kernels", {}), ("phase_width", None),
+                        ("build_model", {"layers": {}}), ("profile_path", {}),
+                        ("expect_routes", None), ("phase_entry", None),
+                        ("phase_diagnostics", {})):
+        monkeypatch.setattr(cs, name, lambda *a, v=value, **k: v)
+    monkeypatch.setattr(cs, "drive", lambda *a, **k: {
+        "quantize_activations": 1, "q4_matmul_w4a8": 1})
+    for name, n in (("phase_slice10", 10), ("phase_gguf", 11),
+                    ("phase_serve", 12), ("phase_app", 15),
+                    ("phase_families", 16), ("phase_moe", 17),
+                    ("phase_vlm", 18)):
+        monkeypatch.setattr(cs, name, lambda *a, n=n, **k: {
+            "launches": {}, "n": n})
+    monkeypatch.setattr(cs, "phase_voice", lambda *a, **k: {"n": 13})
+    monkeypatch.setattr(cs, "phase_vision", lambda *a, **k: {"n": 14})
+    seen = []
+    monkeypatch.setattr(cs, "phase_surfaces", lambda *a, **k: (
+        seen.append((type(a[-2]), os.path.isdir(a[-1]))),
+        {"launches": {"q4_matmul_f32a": 19}, "n": 19})[1])
+    monkeypatch.setattr(cs, "kernels_line", lambda rows, launches: json.dumps(
+        {"phase19": launches[19]}))
+    assert cs.main() == 0
+    assert seen == [(float, True)]
+    lines = capsys.readouterr().out.strip().splitlines()
+    timing = json.loads(lines[-13])
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 20)}
+    assert json.loads(lines[-12]) == {
+        "surfaces": {"launches": {"q4_matmul_f32a": 19}, "n": 19},
+        "card": "H100, 700.00 W"}
+    assert json.loads(lines[-11])["vlm"]["n"] == 18
+    assert json.loads(lines[-2]) == {"phase19": {"q4_matmul_f32a": 19}}
+
+
+def _tiny_surfaces_vision(dev):
+    """Phase 19's vision models at tiny widths on ``dev``."""
+    from trackiellm_tpu_torch.models import depth, detector
+    from trackiellm_tpu_torch.vision.pipeline import (VisionConfig,
+                                                      VisionPipeline)
+    dcfg, pcfg = detector.DetectorConfig.tiny(), depth.DepthConfig.tiny()
+    dp = detector.init_detector(torch.Generator().manual_seed(1), dcfg)
+    pp = depth.init_depth(torch.Generator().manual_seed(2), pcfg)
+    fns = dict(detector_fn=lambda chw: detector.detector_forward(dp, dcfg,
+                                                                 chw),
+               depth_fn=lambda chw: depth.depth_forward(pp, pcfg, chw),
+               config=VisionConfig(detector_input=dcfg.img_size,
+                                   depth_input=pcfg.img_size))
+    return fns, lambda: VisionPipeline(device=dev, **fns)
+
+
+def test_phase19_on_the_cpu(monkeypatch, capsys, tmp_path):
+    """Phase 19's in-process parts on the CPU at tiny widths (the routes'
+    check recorded): (c) the ffi executor's packed vision result equals the
+    direct call's through execute and execute_async; (d) the tk_* LLM turn
+    gives LLMRunner.generate's ids, and the frame, decision and cortex
+    calls run; (e) fails here, where the trace holds no W4A8 kernel."""
+    from trackiellm_tpu_torch.llm import runner, tokenizer
+    from trackiellm_tpu_torch.models import llm
+    cs = _load()
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    # K/2 divisible by the default group 256, as phase 11's tiny GGUF.
+    tiny = llm.LLMConfig(vocab_size=512, dim=512, n_layers=1, n_heads=4,
+                         n_kv_heads=2, head_dim=128, hidden_dim=1024,
+                         max_seq=512, sliding_window=512)
+    monkeypatch.setattr(llm.LLMConfig, "mistral_7b", classmethod(
+        lambda cls: tiny))
+    routes = []
+    monkeypatch.setattr(cs, "expect_routes", lambda launches, ran, idle,
+                        phase: routes.append(phase))
+    fns, pipeline = _tiny_surfaces_vision(cpu)
+    ffi = cs.surfaces_ffi(cpu, pipeline)
+    assert ffi["execute_equal"] and ffi["async_equal"]
+    assert ffi["async_status"] == 0
+    out, r = cs.surfaces_compat(cpu, llm, runner, tokenizer, fns,
+                                cs.launch_counters())
+    assert out["ids"] == out["generate_ids"] and out["ids"]
+    assert out["tool_call"] and out["reply_is_text"]
+    assert out["actions"] == [("describe", "failed")]
+    assert out["cortex_state"] == "shutdown"
+    assert routes == ["phase 19 compat"]
+    with pytest.raises(AssertionError, match="phase 19 services"):
+        cs.surfaces_services(cpu, r, cs.launch_counters(), str(tmp_path))
+    text = capsys.readouterr().out
+    for tag in ("ffi: native runtime", "compat: "):
+        assert tag in text, tag
+
+
+def test_phase19_precompile_child_fails_without_a_card():
+    cs = _load()
+    if torch.cuda.is_available():
+        pytest.skip("a card is here")
+    with pytest.raises(AssertionError, match="phase 19 precompile exit"):
+        cs.surfaces_precompile()

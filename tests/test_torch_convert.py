@@ -25,10 +25,12 @@ import torch
 from tests.test_loader import permute_llama_qk, write_gguf
 from tests.test_torch_llm import ATOL
 from trackiellm_tpu.__main__ import main as jmain
+from trackiellm_tpu.llm import runner as jrunner
 from trackiellm_tpu.models import checkpoint as jckpt
 from trackiellm_tpu.models import convert as jconv
 from trackiellm_tpu.models import llm as jllm
 from trackiellm_tpu.models import loader as jload
+from trackiellm_tpu_torch import __main__ as tmain_module
 from trackiellm_tpu_torch.__main__ import main as tmain
 from trackiellm_tpu_torch.models import checkpoint as tckpt
 from trackiellm_tpu_torch.models import convert as tconv
@@ -615,12 +617,56 @@ CLI_ARCHES = ("qwen2", "gemma2", "llama_rope_freqs", "phi3", "command-r",
               "starcoder2", "nemotron")
 
 
+def _forced_logits(llm, params, cfg, cache, prompt, ids, runner, as_ids):
+    """Logits (f32 numpy) of the prompt's prefill at the runner's first
+    bucket, then of a decode step on each of ``ids`` but the last: the
+    runner's greedy path, teacher-forced along ``ids``."""
+    bucket = 64
+    pad = np.zeros(bucket, np.int64)
+    pad[:len(prompt)] = prompt
+    out = []
+    logits, cache = llm.prefill(params, cfg, as_ids(pad), len(prompt), cache)
+    for step, tok in enumerate(ids):
+        out.append(np.asarray(logits.float() if isinstance(logits, torch.Tensor)
+                              else logits, np.float32))
+        if step + 1 < len(ids):
+            logits, cache = llm.decode_step(
+                params, cfg, tok, cache,
+                attn_len=runner._attn_bucket_for(len(prompt) + step + 1))
+    return out
+
+
+# The bf16 CLI path's largest logit gap between the packages, teacher-forced
+# along the JAX ids, over the largest |JAX logit|: measured 1.09e-2 to
+# 1.63e-2 over CLI_ARCHES, about two bf16 steps (2^-7 of the value), held
+# under four. Embeddings cast through float8 e4m3 in the port's bf16 path
+# alone give 5.3e-2 to 1.46e-1.
+BF16_NOISE = 0.03
+
+
+def _top2_margin(row):
+    top = np.sort(row)[-2:]
+    return float(top[1] - top[0])
+
+
 @pytest.mark.parametrize("name", CLI_ARCHES)
 def test_convert_then_generate_dense_arches_match_the_jax_cli(
-        tmp_path, name, capsys):
+        tmp_path, name, capsys, monkeypatch):
     """A 2-layer GGUF of each dense arch at the CLI's widths: both CLIs'
     ``convert --bits 4`` write the same checkpoint files, and greedy
-    ``generate`` on it prints the JAX CLI's text."""
+    ``generate`` on it prints the JAX CLI's text, unless the ids part at a
+    near-tie.
+
+    The CLI decodes with bf16 activations and cache, where the two
+    packages' sums in another order round activations apart: teacher-forced
+    along the JAX ids, the bf16 logits differ by a noise of about two bf16
+    steps of the largest logit (5.08e-2 on qwen2), held under BF16_NOISE,
+    while the f32-widened logits agree within ATOL at
+    every step. So the ids are held equal up to the step where they first
+    part, if they do; that step's JAX top-2 margin must be under twice the
+    noise, a near-tie that either side may break, and the port's pick must
+    lie within twice the noise of the JAX top logit there. Ids that never
+    part give the JAX CLI's text."""
     path = str(tmp_path / f"{name}.gguf")
     # Command-R+'s per-head LayerNorm weights: H * head_dim a layer.
     _arch_gguf(path, name, seed=3,
@@ -635,13 +681,60 @@ def test_convert_then_generate_dense_arches_match_the_jax_cli(
         assert a.files == b.files
         for k in a.files:
             assert a[k].tobytes() == b[k].tobytes(), k
+    runners = {}
+
+    def recorded(module, key):
+        class Recorded(module.LLMRunner):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                runners[key] = self
+        monkeypatch.setattr(module, "LLMRunner", Recorded)
+
+    recorded(jrunner, "jax")
+    recorded(tmain_module, "port")
     capsys.readouterr()
     argv = ["generate", "-p", "ola mundo", "--max-tokens", "12",
             "--temperature", "0"]
     assert jmain([argv[0], jdir, *argv[1:]]) == 0
     want = capsys.readouterr().out
     assert tmain([argv[0], tdir, *argv[1:], "--device", "cpu"]) == 0
-    assert capsys.readouterr().out == want and want.strip()
+    got = capsys.readouterr().out
+    assert want.strip()
+    jids = list(runners["jax"]._generated_ids)
+    tids = list(runners["port"]._generated_ids)
+    prompt = runners["jax"].tokenizer.encode("ola mundo", add_bos=True)
+    assert runners["port"].tokenizer.encode("ola mundo",
+                                            add_bos=True) == prompt
+
+    jp, jcfg, _ = jckpt.load_checkpoint(jdir, device_put=False)
+    tp, tcfg, _ = tckpt.load_checkpoint(tdir, device=CPU)
+    forced = {}
+    for dt, (jdt, tdt) in {"bf16": (jnp.bfloat16, torch.bfloat16),
+                           "f32": (jnp.float32, torch.float32)}.items():
+        wj, wt = (jp, tp) if dt == "bf16" else (_widen(jp), _widen(tp))
+        forced[dt] = (
+            _forced_logits(jllm, wj, jcfg, jllm.KVCache.create(jcfg, dtype=jdt),
+                           prompt, jids, runners["jax"], jnp.asarray),
+            _forced_logits(tllm, wt, tcfg,
+                           tllm.KVCache.create(tcfg, tdt, device="cpu"),
+                           prompt, jids, runners["port"], torch.from_numpy))
+    for step, (j, t) in enumerate(zip(*forced["f32"])):
+        np.testing.assert_allclose(t, j, rtol=0, atol=ATOL,
+                                   err_msg=f"f32 step {step}")
+    jb, tb = forced["bf16"]
+    noise = max(float(np.abs(t - j).max()) for j, t in zip(jb, tb))
+    scale = max(float(np.abs(j).max()) for j in jb)
+    assert noise <= BF16_NOISE * scale, (noise, scale)
+    # The forced JAX path is the JAX runner's path: it picks its ids.
+    assert [int(j.argmax()) for j in jb] == jids
+    parted = next((step for step, (a, b) in enumerate(zip(jids, tids))
+                   if a != b), None)
+    if parted is None:
+        assert tids == jids and got == want
+    else:
+        row = jb[parted]
+        assert _top2_margin(row) < 2 * noise, (parted, _top2_margin(row))
+        assert row[tids[parted]] >= row.max() - 2 * noise, parted
 
 
 def test_inspect_prints_the_jax_description(cli_gguf, capsys):

@@ -1046,19 +1046,38 @@ def test_chain_tiny_is_exact_eager_and_in_a_graph(dev, n):
     assert td.chain_tiny.launches == before + 4 * n
 
 
-def test_chain_tiny_profile_shows_every_launch(dev):
-    """One call of the chain is CHAIN launches of add_one_kernel on the
-    card, not one folded launch."""
-    from torch.profiler import ProfilerActivity, profile
-    x = torch.zeros(td.TILE, device=dev)
+CHAIN_PROFILE_CHILD = """
+import sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+from trackiellm_tpu_torch.ops import diag as td
+x = torch.zeros(td.TILE, device="cuda")
+td.chain_tiny(x)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
     td.chain_tiny(x)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        td.chain_tiny(x)
-        torch.cuda.synchronize()
-    assert sum(e.count for e in prof.key_averages()
-               if "add_one_kernel" in e.key
-               and e.self_device_time_total > 0) == td.CHAIN
+print(sum(e.count for e in prof.key_averages()
+          if "add_one_kernel" in e.key and e.self_device_time_total > 0))
+"""
+
+
+def test_chain_tiny_profile_shows_every_launch(dev):
+    """One call of the chain is CHAIN launches of add_one_kernel on the
+    card, not one folded launch. The profile runs in a fresh process, as
+    chip_smoke.py's profiles do: late in a long process (this file's
+    whole run) the profiler dropped 2-3 of the 64 records, while the exact
+    sums of ``test_chain_tiny_is_exact_eager_and_in_a_graph`` show every
+    add ran."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", CHAIN_PROFILE_CHILD],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert int(out.stdout.split()[-1]) == td.CHAIN
 
 
 def _w4a8(dev):

@@ -242,10 +242,99 @@ def test_batched_rows_match_single_rows(name):
     assert tb.lengths.tolist() == [42, 0, 19]
 
 
+# How far from a rounding boundary (n + 0.5) the port's x / scale of a
+# decode cell may lie when that cell differs from JAX's: the K/V the two
+# packages quantize are measured at most 1.4e-6 apart, a few f32 steps of
+# x / scale <= 127, so 1e-3 of an int8 step is far wider than that and a
+# rounding fault (truncation, another scale) lands outside it for all but
+# a thousandth of the cells.
+BOUNDARY_TOL = 1e-3
+
+
+class _WrittenCells:
+    """The port's x / scale of every int8 cell written while installed, at
+    the cell's place in the pool: ``paging._write_cells`` wrapped, a
+    layer's view mapped back to its layer by its storage offset."""
+
+    def __init__(self, monkeypatch, tpool):
+        self.ratio = {name: torch.full(getattr(tpool, name).vals.shape,
+                                       float("nan"))
+                      for name in ("pool_k", "pool_v")}
+        write = tpaging._write_cells
+
+        def recorded(pool, index, val):
+            write(pool, index, val)
+            if not isinstance(pool, tpaging.QuantPool):
+                return
+            _, scale = tpaging._quant_cells(val)
+            ratio = val.float() / scale[..., None]
+            for name, out in self.ratio.items():
+                whole = getattr(tpool, name).vals
+                off = pool.vals.data_ptr() - whole.data_ptr()
+                if 0 <= off < whole.numel():
+                    if pool.vals.dim() < whole.dim():
+                        out = out[off // whole.stride(0)]
+                    out[index] = ratio
+                    return
+            raise AssertionError("a write outside the pool's tensors")
+
+        monkeypatch.setattr(tpaging, "_write_cells", recorded)
+
+
+def _take_jax_cells(jpool, tpool, caches=None, written=None):
+    """Hold the port's int8 cells to the JAX pool's, then copy the JAX
+    cells and scales in, so that the next step reads the same cells.
+
+    The K/V the pools quantize differ in the last bits of an unordered f32
+    sum (the RMS norm's mean, the projections' BLAS), which moves a value
+    sitting on a rounding boundary by one step: on one host Llama-4
+    Scout's layer-1 K cell at x / scale = -37.5 (JAX, to -38 half to even)
+    against -37.499996 (the port, to -37), and that one step moved the next
+    logits by 3.5e-3. Cells may differ by one step, and only at a rounding
+    boundary: given ``caches`` (the prefills' (JAX, port) K and V), the
+    two values' x / scale lie on either side of one; given ``written`` (a
+    decode step's :class:`_WrittenCells`), the port's x / scale lies within
+    BOUNDARY_TOL of one."""
+    for name in ("pool_k", "pool_v"):
+        jq, tq = getattr(jpool, name), getattr(tpool, name)
+        jv, tv = np.asarray(jq.vals), tq.vals.numpy()
+        diff = np.abs(tv.astype(np.int32) - jv.astype(np.int32))
+        assert diff.max() <= 1, name
+        np.testing.assert_allclose(tq.scale.numpy(), np.asarray(jq.scale),
+                                   rtol=1e-5, atol=0)
+        if caches is not None:
+            jx, tx = caches[name]
+            for li, page, slot, h, d in zip(*np.nonzero(diff)):
+                pos = _slot_position(jpool, page, slot)
+                scale = np.asarray(jq.scale)[li, page, slot, h]
+                a = float(np.asarray(jx)[li, pos, h, d]) / scale
+                b = float(tx[li, pos, h, d]) / scale
+                lo, hi = min(a, b), max(a, b)
+                # a half-integer n + 0.5 lies in [lo, hi]
+                assert np.floor(hi - 0.5) >= np.ceil(lo - 0.5), \
+                    (name, li, pos, h, d, a, b)
+        if written is not None:
+            ratio = written.ratio[name].numpy()
+            for cell in zip(*np.nonzero(diff)):
+                r = abs(float(ratio[cell]))
+                assert abs(r % 1.0 - 0.5) <= BOUNDARY_TOL, (name, cell, r)
+        tq.vals.copy_(torch.from_numpy(jv.copy()))
+        tq.scale.copy_(torch.from_numpy(np.asarray(jq.scale).copy()))
+
+
+def _slot_position(pool, page, slot):
+    """The sequence position of ``slot`` in ``page`` (the one sequence's
+    table)."""
+    table = next(iter(pool._tables.values()))
+    return table.index(int(page)) * pool.page_size + int(slot)
+
+
 @pytest.mark.parametrize("name", FAMILIES)
-def test_paged_int8_decode_matches(name):
+def test_paged_int8_decode_matches(name, monkeypatch):
     """One sequence's decode on the int8 page pool (pages of 16) across a
-    page boundary, after a 10-token prefill, against the JAX pool's."""
+    page boundary, after a 10-token prefill, against the JAX pool's: the
+    cells within one step and apart only at a rounding boundary
+    (``_take_jax_cells``), the logits at ATOL from the same cells."""
     cfg, tcfg, jp, tp = _params(name)
     jl, jc, tl, tc = _prefill_both(cfg, tcfg, jp, tp, _tokens(5, 64), 10)
     jpool = jpaging.PagedKVPool(cfg, 16, 16, jnp.int8,
@@ -254,11 +343,20 @@ def test_paged_int8_decode_matches(name):
                                 compute_dtype=torch.float32, device="cpu")
     js = jpool.create_sequence(prefill_cache=jc, length=10)
     ts = tpool.create_sequence(prefill_cache=tc, length=10)
+    _take_jax_cells(jpool, tpool, {"pool_k": (jc.k, tc.k),
+                                   "pool_v": (jc.v, tc.v)})
+    written = _WrittenCells(monkeypatch, tpool)
     tok = int(jnp.argmax(jl))
     for step in range(8):
         ref = jpool.decode_step(jp, tok, js)
         got = tpool.decode_step(tp, tok, ts)
         _close(got.numpy(), np.asarray(ref), 0, f"paged step {step}")
+        # Each step recorded one cell a layer and KV head for each pool.
+        assert [int(np.isfinite(r.numpy()).sum()) for r in
+                written.ratio.values()] == [(step + 1) * cfg.n_layers
+                                            * cfg.n_kv_heads
+                                            * cfg.head_dim] * 2
+        _take_jax_cells(jpool, tpool, written=written)
         tok = int(jnp.argmax(ref))
 
 

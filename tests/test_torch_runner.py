@@ -264,6 +264,8 @@ def test_port_imports_no_jax():
     cortex, interaction, sensors, config and paths, the audio pipeline, the
     wake word, the obstacle tracker, QR detection, ``TrackieApp``, the
     demo), the multimodal path (the CLIP/SigLIP tower, ``VLMRunner``),
+    the outer surfaces (``ffi`` with its native runtime and embed ABI,
+    ``services``, ``compat``, ``precompile``, the cache artifact tool),
     logging, CLI, probes, diagnostic, conversion, serving and app
     latency tools and chip_smoke.py pulls in no JAX module, no module of the JAX
     package (``trackiellm_tpu`` or ``trackiellm_tpu.*``, even one that imports no
@@ -351,6 +353,21 @@ def test_port_imports_no_jax():
             "trackiellm_tpu_torch.tools.measure_app_e2e, "
             "trackiellm_tpu_torch.models.clip, "
             "trackiellm_tpu_torch.llm.vlm, "
+            "trackiellm_tpu_torch.ffi, "
+            "trackiellm_tpu_torch.ffi.native, "
+            "trackiellm_tpu_torch.ffi.api, "
+            "trackiellm_tpu_torch.ffi.embed, "
+            "trackiellm_tpu_torch.services, "
+            "trackiellm_tpu_torch.services.monitoring, "
+            "trackiellm_tpu_torch.services.profiling, "
+            "trackiellm_tpu_torch.services.security, "
+            "trackiellm_tpu_torch.services.networking, "
+            "trackiellm_tpu_torch.services.deployment, "
+            "trackiellm_tpu_torch.services.integration, "
+            "trackiellm_tpu_torch.services.experiments, "
+            "trackiellm_tpu_torch.compat, "
+            "trackiellm_tpu_torch.precompile, "
+            "trackiellm_tpu_torch.tools.cache_artifact, "
             "trackiellm_tpu_torch.models.convert as c; "
             "c.load_name_map('silero_v5'); c.load_name_map('piper_vits'); "
             "c.load_name_map('midas_small'); "

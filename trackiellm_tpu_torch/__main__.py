@@ -35,15 +35,26 @@
       wake word, the cortex, the LLM and the TTS) on tiny random models;
       a typed question is injected halfway. Exits 1 when a worker crashed
       or the cortex halted.
+  precompile [--llm CKPT] [--max-seq N] [--cache-dir DIR] [--skip STAGES]
+             [--device D]
+      make the process ready before its first request: build (or find) the
+      CUDA kernel library and the native runtime, printing their seconds,
+      then drive each stage's entry points once (llm, server, asr, tts,
+      vision, dpt, vlm) at the JAX command's shapes on random weights (or
+      ``--llm``'s checkpoint), printing ``[   t s] <stage> warm`` lines and
+      a last JSON line with the launches by kernel. Nothing is compiled per
+      shape in the port: a stage warms CUDA module loads, cuBLAS and cuDNN
+      handles and the allocator's pools, and the built libraries stay under
+      ``--cache-dir`` (``tools/cache_artifact.py`` packs them).
 
 Port of ``trackiellm_tpu/__main__.py``'s ``inspect``, the GGUF,
 ``--mmproj``, ``llava-hf`` and ``paligemma-hf`` branches of ``convert``,
-``generate`` (``--image`` included), ``transcribe``, ``synth`` and
-``demo``, with the JAX package's defaults (4 bits; 64 tokens, temperature
-0.7; 5 s). Every command but ``inspect`` runs on the CUDA card; the CPU is
-used only when ``--device cpu`` asks for it. The other ``--family`` routes
-wait for ROADMAP Queue 1 item 11; ``bench`` is not ported yet (ROADMAP
-Queue 1, ID 5).
+``generate`` (``--image`` included), ``transcribe``, ``synth``, ``demo``
+and ``precompile``, with the JAX package's defaults (4 bits; 64 tokens,
+temperature 0.7; 5 s; max_seq 1024). Every command but ``inspect`` runs on
+the CUDA card; the CPU is used only when ``--device cpu`` asks for it. The other ``--family`` routes
+wait for ROADMAP Queue 1 item 11; ``bench`` and ``first_contact`` are not
+ported yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -282,6 +293,25 @@ def _cmd_demo(args) -> int:
     return 0
 
 
+def _cmd_precompile(args) -> int:
+    import pathlib
+
+    from trackiellm_tpu_torch import precompile
+    from trackiellm_tpu_torch.ops import _build
+
+    if args.cache_dir:
+        # $TRACKIE_BUILD_DIR for this command (the module read it already).
+        os.environ["TRACKIE_BUILD_DIR"] = args.cache_dir
+        _build.BUILD_ROOT = pathlib.Path(args.cache_dir)
+    device = _device(args.device, "precompile")
+    skip = [s for s in (args.skip or "").split(",") if s]
+    out = precompile.run(device, args.max_seq, args.llm, skip)
+    print(f"precompile done in {out['seconds']:.1f}s; kernel library and "
+          f"native runtime under {_build.BUILD_ROOT}", flush=True)
+    print(json.dumps({"precompile": out}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="trackiellm_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -353,6 +383,31 @@ def main(argv=None) -> int:
                    help="torch device (default: the CUDA card; the CPU only "
                         "when asked for with --device cpu)")
     p.set_defaults(fn=_cmd_demo)
+    p = sub.add_parser(
+        "precompile", help="build the kernel library and the native "
+        "runtime, which later processes load with no compiler run; then "
+        "drive every stage's entry points once and print its warm seconds. "
+        "Nothing is compiled per shape: a stage's first call loads CUDA "
+        "modules, makes cuBLAS and cuDNN handles and grows the allocator's "
+        "pools, and that warmth ends with this command")
+    p.add_argument("--llm", default=None,
+                   help="LLM checkpoint (default: random Mistral-7B Q4; "
+                        "latency does not depend on the weights)")
+    p.add_argument("--max-seq", type=int, default=1024)
+    p.add_argument("--cache-dir", default=None,
+                   help="build directory of the kernel library and the "
+                        "native runtime: $TRACKIE_BUILD_DIR for this "
+                        "command, so later processes load from it only "
+                        "with TRACKIE_BUILD_DIR set to it (default: "
+                        "$TRACKIE_BUILD_DIR, else trackiellm_tpu_torch/"
+                        "_build)")
+    p.add_argument("--skip", default=None,
+                   help="comma-separated stages to skip "
+                        "(llm,server,asr,tts,vision,dpt,vlm)")
+    p.add_argument("--device", default=None,
+                   help="the device to warm (default: the CUDA card)")
+    p.set_defaults(fn=_cmd_precompile)
+
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -3,10 +3,14 @@
 All sources under ``csrc/`` compile into one shared library with a plain C
 interface (no PyTorch headers, so the build takes seconds): one nvcc per
 ``*.cu`` file, all started together, then one link. The library lands in
-``trackiellm_tpu_torch/_build/<hash>/``, keyed on a hash of the sources,
-the ``*.cuh`` headers they include and the flags, so a checkout builds what
-it needs on its first kernel call and reuses it after. A failed build
-raises with nvcc's stderr.
+``trackiellm_tpu_torch/_build/<hash>/`` (``$TRACKIE_BUILD_DIR/<hash>/``
+when that is set), keyed on a hash of the sources, the ``*.cuh`` headers
+they include and the flags, so a checkout builds what it needs on its
+first kernel call and reuses it after, and a library restored there
+(``tools/cache_artifact.py``) loads with no nvcc run. A failed build raises
+with nvcc's stderr; :data:`last_build` says whether the last
+:func:`build` compiled. :data:`BUILD_ROOT`, :func:`digest` and
+:func:`build_once` are also the native runtime's (``ffi/native.py``).
 
 The host half of every launch is here too, since decode is bound by it:
 a wrapper holds one :class:`Launcher` per C function (looked up once, and
@@ -24,13 +28,15 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Optional
+import time
+from typing import Callable, Iterable, Optional
 
 import torch
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_ROOT = _PKG / "_build"
+BUILD_ROOT = pathlib.Path(os.environ.get("TRACKIE_BUILD_DIR")
+                          or _PKG / "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 _LIB_NAME = "libtrackie_kernels.so"
@@ -71,6 +77,9 @@ _SIGNATURES = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
+# What the last build() did: {"compiled": whether nvcc ran, "seconds",
+# "path"}; None before the first.
+last_build: Optional[dict] = None
 # The app's threads (cortex, scheduler, workers) may all reach a first
 # launch at once: one of them builds and loads, the others wait.
 _LIB_LOCK = threading.Lock()
@@ -101,16 +110,38 @@ def _nvcc() -> str:
         "kernels of trackiellm_tpu_torch cannot be built on this host")
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _hashed_files():
+def digest(flags: Iterable[str], files: Iterable[pathlib.Path]) -> str:
+    """The build directory's key: a hash of the flags and of each file's
+    name and bytes."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in files:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def library_path() -> pathlib.Path:
-    return BUILD_ROOT / _digest() / _LIB_NAME
+def _digest() -> str:
+    return digest(NVCC_FLAGS, _hashed_files())
+
+
+def library_path(root: Optional[pathlib.Path] = None) -> pathlib.Path:
+    """Where this checkout's library lives under ``root`` (by default
+    :data:`BUILD_ROOT`)."""
+    return pathlib.Path(root or BUILD_ROOT) / _digest() / _LIB_NAME
+
+
+def build_once(out: pathlib.Path,
+               make: Callable[[pathlib.Path], pathlib.Path]) -> bool:
+    """Make ``out`` unless it exists: ``make(tmp)`` builds the file in a
+    temporary directory beside ``out`` and returns its path, which is
+    renamed into place, so that a reader (another process building at the
+    same time) never sees half a file. Returns whether ``make`` ran."""
+    if out.exists():
+        return False
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        os.replace(make(pathlib.Path(tmp)), out)
+    return True
 
 
 def _run_all(cmds: list) -> None:
@@ -131,19 +162,22 @@ def _run_all(cmds: list) -> None:
 
 def build() -> pathlib.Path:
     """Compile the sources unless a library with their hash exists."""
+    global last_build
+    t0 = time.perf_counter()
     out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    # Build beside the target and rename: a reader never sees half a file.
-    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
-        objs = [str(pathlib.Path(tmp) / f"{src.stem}.o") for src in sources()]
+
+    def make(tmp: pathlib.Path) -> pathlib.Path:
+        nvcc = _nvcc()
+        objs = [str(tmp / f"{src.stem}.o") for src in sources()]
         _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
                   for src, obj in zip(sources(), objs)])
-        lib = str(pathlib.Path(tmp) / _LIB_NAME)
-        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
-        os.replace(lib, out)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp / _LIB_NAME),
+                   *objs]])
+        return tmp / _LIB_NAME
+
+    compiled = build_once(out, make)
+    last_build = {"compiled": compiled, "path": str(out),
+                  "seconds": time.perf_counter() - t0}
     return out
 
 
