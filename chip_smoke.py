@@ -271,10 +271,27 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      cortex created, fed text and stopped; (e) ``device_trace`` around one
      decode chunk writes a trace holding the W4A8 kernel, and
      ``MetricsCollector.collect()`` reports the card's memory. One
-     ``{"surfaces": ...}`` line before the vlm line; the smoke's wall and
-     then ``{"phase_seconds": ..., "wall_s": ...}`` on the two lines before
-     it.
-Phases 5-19 zero every launch counter just before they drive their path and
+     ``{"surfaces": ...}`` line before the vlm line.
+ 20. perception models, random weights from the seed at their published
+     widths (all-MiniLM-L6-v2, TrOCR-base-printed, AST AudioSet 10-10, the
+     reference's CNN sound classifier): (a) card against CPU under
+     ``exact_f32``, MiniLM and the CNN at full depth, TrOCR and AST cut to
+     2 layers (rel L2 1e-5; TrOCR's greedy ids equal up to EOS or parted
+     at a near-tie; the CNN's probabilities within 1e-6); (b) at full
+     depth on the card, host-timed: ``Embedder.embed`` over 64 memory
+     fragments, ``VisionPipeline(ocr_fn=TrOCREngine)`` on a 480x640 card
+     frame with the OCR flag, AST on a 10.24-s window and the CNN engine
+     on a 1-s one, each window also profiled in a child process
+     (``--perception-profile``); (c) a ``TrackieApp`` turn with
+     ``embed_fn``, ``ocr_fn`` and ``sound_fn`` attached and an LLM at
+     Mistral-7B widths cut to 2 layers: the memory archived before the
+     question retrieved first by cosine, the CNN's forced ALARM spoken at
+     CRITICAL, the reply at its priority, the OCR run, ``failures()``
+     empty, W4A8, its quantization and flash launched. One
+     ``{"perception": ...}`` line before the surfaces line; the smoke's
+     wall and then ``{"phase_seconds": ..., "wall_s": ...}`` on the two
+     lines before it.
+Phases 5-20 zero every launch counter just before they drive their path and
 read them just after: the path's kernels must have launched, and the routes
 it does not take must not have (no serving path launches the streaming Q4
 or a probe; phase 9 must launch all four; phases 13 and 14 launch none).
@@ -283,7 +300,8 @@ phases 5-7 greedy text must not depend on the lookahead depth, in phase 10
 not on speculation, and every logit vector must be finite. Phase 3's
 device-only times come from profiles whose launch count matches the calls
 (``device_only_ms``). Each phase's first line ends with the seconds since
-the build began. The ``surfaces`` line, the ``vlm`` line, the ``moe``
+the build began. The ``perception`` line, the ``surfaces`` line, the
+``vlm`` line, the ``moe``
 line, the ``families`` line, the ``app`` line, the ``vision`` line, then
 the ``voice`` line, come just before the last five lines, which are the
 ``serve`` line, the ``slice10`` line, the card line, the kernels' JSON
@@ -291,6 +309,7 @@ summary and the result line.
 """
 
 import contextlib
+import functools
 import io
 import json
 import math
@@ -6075,6 +6094,486 @@ def phase_surfaces(dev, llm, runner_mod, tokenizer_mod, counters,
     return out
 
 
+# Phase 20: the perception models the app plugs in, random weights from
+# SEED at their published widths: all-MiniLM-L6-v2 (EmbedderConfig.minilm_l6,
+# vocab 30,522), microsoft/trocr-base-printed (TrOCRConfig.base: 384-pixel
+# image, 12+12 layers, d_model 1024, vocab 50,265),
+# MIT/ast-finetuned-audioset-10-10-0.4593 (ASTConfig: 1,024 frames, 1,212
+# patches, 12 layers at 768, 527 labels) and the reference's CNN
+# (SoundClassifierConfig.default). (a) card against CPU under exact_f32:
+# MiniLM and the CNN at full depth, TrOCR and AST cut to
+# PERCEPTION_CPU_LAYERS; (b) each at full depth on the card, host-timed,
+# and one window of each profiled in a child; (c) one TrackieApp turn with
+# the three hooks attached and the Mistral-7B widths of phase 19 (d).
+PERCEPTION_CPU_LAYERS = 2
+PERCEPTION_FRAGMENTS = 64     # (b)'s memory fragments embedded in one call
+PERCEPTION_ITERS = 3          # (b)'s host-timed repeats after a warm one
+PERCEPTION_REL = 1e-5         # rel L2 card against CPU: embeddings, states,
+#                               logits
+PERCEPTION_PROB_TOL = 1e-6    # max abs card against CPU: the CNN's output
+PERCEPTION_NOISE_CAP = 1e-4   # TrOCR's teacher-forced logit gap over the
+#                               largest logit, card against CPU
+PERCEPTION_TOKENS = 12        # (c)'s reply tokens
+PERCEPTION_TURN_TIMEOUT = 120.0
+PERCEPTION_PROFILE_FLAG = "--perception-profile"
+PERCEPTION_QUESTION = "onde ficou a chave de casa?"
+PERCEPTION_MEMORY = "a chave de casa ficou na mesa da cozinha"
+AST_WINDOW_S = 10.24          # AST's 1,024 frames at a 10-ms hop
+SOUND_WINDOW_S = 1.0          # the audio pipeline's passive window
+# The words of the memory fragments; the rest of MiniLM's 30,522 pieces
+# are fillers, with BERT's specials at their uncased-vocabulary ids.
+PERCEPTION_WORDS = (
+    "a chave de casa ficou na mesa da cozinha o remédio das horas fica "
+    "gaveta do quarto porta azul saída fica à esquerda degrau escada "
+    "ônibus passa às ponto perto mercado farmácia abre fecha maria ligou "
+    "para você amanhã consulta médico dia rua número segunda terça "
+    "quarta quinta sexta onde ? , .").split()
+# AST's label list: the AMBIENT_MAP names at positions chosen here (not
+# AudioSet's), fillers elsewhere.
+AST_NAMED_LABELS = {0: "Speech", 74: "Dog", 75: "Bark",
+                    288: "Water tap, faucet", 322: "Siren",
+                    323: "Civil defense siren",
+                    399: "Smoke detector, smoke alarm", 400: "Fire alarm"}
+
+
+def perception_vocab(n: int) -> list:
+    """MiniLM's WordPiece pieces: [PAD] at 0, [UNK], [CLS], [SEP], [MASK]
+    at 100-103, PERCEPTION_WORDS as the uncased tokenizer sees them
+    (accents stripped), digits and letters and their ## forms, then
+    fillers up to ``n``."""
+    import unicodedata
+    head = [f"[unused{i}]" for i in range(100)]
+    head[0] = "[PAD]"
+    head += ["[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    chars = [str(d) for d in range(10)] + [chr(c) for c in range(97, 123)]
+    words = list(dict.fromkeys(
+        "".join(c for c in unicodedata.normalize("NFD", w)
+                if unicodedata.category(c) != "Mn")
+        for w in PERCEPTION_WORDS))
+    pieces = head + [w for w in words if w not in chars] + chars + [
+        f"##{c}" for c in chars]
+    return pieces + [f"w{i}" for i in range(n - len(pieces))]
+
+
+def perception_fragments(n: int) -> list:
+    """``n`` memory fragments from the seed, in PERCEPTION_WORDS."""
+    rng = np.random.default_rng(SEED + 200)
+    templates = ("o remédio das {h} horas fica na gaveta do quarto",
+                 "a porta azul da saída fica à esquerda",
+                 "o ônibus {h} passa às {h} horas no ponto perto do mercado",
+                 "a farmácia da rua {h} abre às {h} horas",
+                 "maria ligou para você , consulta médico dia {h}",
+                 "cuidado com o degrau da escada na cozinha")
+    return [templates[i % len(templates)].format(h=int(rng.integers(1, 24)))
+            for i in range(n)]
+
+
+def perception_models(dev) -> dict:
+    """The four models' random params from the seed on the card, with
+    their configurations, tokenizer and labels."""
+    from trackiellm_tpu_torch.llm.tokenizer import WordPieceTokenizer
+    from trackiellm_tpu_torch.models import ast, embedder, sound_classifier
+    from trackiellm_tpu_torch.models import trocr
+
+    def gen(k):
+        return torch.Generator(device=dev).manual_seed(SEED + 200 + k)
+    ecfg, tcfg = embedder.EmbedderConfig.minilm_l6(), trocr.TrOCRConfig.base()
+    acfg, scfg = ast.ASTConfig(), sound_classifier.SoundClassifierConfig()
+    labels = [AST_NAMED_LABELS.get(i, f"label {i}")
+              for i in range(acfg.n_labels)]
+    return {"embedder": (embedder.init_embedder(gen(1), ecfg), ecfg),
+            "trocr": (trocr.init_params(gen(2), tcfg), tcfg),
+            "ast": (ast.init_params(gen(3), acfg), acfg),
+            "sound": (sound_classifier.init_sound_classifier(gen(4), scfg),
+                      scfg),
+            "tokenizer": WordPieceTokenizer(perception_vocab(
+                ecfg.vocab_size)),
+            "labels": labels}
+
+
+def cut_layers(tree: dict, n: int) -> dict:
+    """The first ``n`` layers of each stacked ``layers`` dict in ``tree``
+    (views; a TrOCR tree holds two)."""
+    out = {}
+    for k, v in tree.items():
+        if k == "layers":
+            out[k] = {name: t[:n] for name, t in v.items()}
+        elif isinstance(v, dict):
+            out[k] = cut_layers(v, n)
+        else:
+            out[k] = v
+    return out
+
+
+def ocr_text(ids) -> str:
+    """TrOCR ids as letters (no RoBERTa vocabulary ships here)."""
+    return "".join(chr(97 + int(i) % 26) for i in ids)
+
+
+def perception_card_vs_cpu_embedder(dev, models) -> dict:
+    from trackiellm_tpu_torch.models import embedder, llm
+    card, cfg = models["embedder"]
+    cpu = llm.params_to(card, torch.device("cpu"))
+    texts = [PERCEPTION_MEMORY, *perception_fragments(7)]
+    out = {}
+    for pooling in ("mean", "cls", "pooler"):
+        c = cfg._replace(pooling=pooling)
+        a = embedder.Embedder(card, c, models["tokenizer"]).embed(texts)
+        b = embedder.Embedder(cpu, c, models["tokenizer"]).embed(texts)
+        out[pooling] = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    return {"layers": cfg.n_layers, "texts": len(texts), "rel_l2": out}
+
+
+def trocr_parting(logits_cpu, logits_card, want, got, eos: int) -> dict:
+    """Where ``got`` (the card's ids) first parts from ``want`` (the
+    CPU's) before the CPU's first EOS, and whether that is a near-tie: the
+    CPU's top-2 margin under twice the noise, the largest teacher-forced
+    logit gap along the CPU's ids."""
+    noise = float((logits_card - logits_cpu).abs().max())
+    scale = float(logits_cpu.abs().max())
+    end = want.index(eos) + 1 if eos in want else len(want)
+    parted = next((s for s in range(end) if got[s] != want[s]), None)
+    margin = None
+    if parted is not None:
+        top = torch.topk(logits_cpu[parted], 2).values
+        margin = float(top[0] - top[1])
+    return {"noise": noise, "scale": scale, "compared": end,
+            "parted_at": parted, "margin": margin,
+            "ok": noise <= PERCEPTION_NOISE_CAP * scale and (
+                parted is None or margin < 2 * noise)}
+
+
+def perception_card_vs_cpu_trocr(dev, models) -> dict:
+    from trackiellm_tpu_torch.models import llm, trocr
+    full, cfg = models["trocr"]
+    n = PERCEPTION_CPU_LAYERS
+    cfg = cfg._replace(enc_layers=n, dec_layers=n)
+    card = cut_layers(full, n)
+    cpu = llm.params_to(card, torch.device("cpu"))
+    frame = vision_frame((480, 640), SEED + 201)
+    eng = trocr.TrOCREngine(cpu, cfg, ocr_text)
+    px = torch.stack([eng._prep(frame[:240, 320:]),
+                      eng._prep(frame[240:, :320])])
+    enc_c = trocr.encode_batch(cpu, cfg, px)
+    enc_g = trocr.encode_batch(card, cfg, px.to(dev))
+    ids_c = trocr.greedy_ids_batch(cpu, cfg, enc_c)
+    ids_g = trocr.greedy_ids_batch(card, cfg, enc_g).cpu()
+    rows, logit_rel = [], []
+    for b in range(px.shape[0]):
+        want = ids_c[b].tolist()
+        x = torch.tensor([cfg.decoder_start_id] + want[:-1])
+        lc = trocr.decoder_logits(cpu, cfg, enc_c[b], x)
+        lg = trocr.decoder_logits(card, cfg, enc_c[b].to(dev),
+                                  x.to(dev)).cpu()
+        logit_rel.append(rel_l2(lg, lc))
+        rows.append(trocr_parting(lc, lg, want, ids_g[b].tolist(),
+                                  cfg.eos_id))
+    return {"layers": n, "crops": px.shape[0],
+            "encoder_rel_l2": rel_l2(enc_g.cpu(), enc_c),
+            "logits_rel_l2": max(logit_rel), "ids": rows,
+            "ids_equal": torch.equal(ids_c, ids_g)}
+
+
+def perception_card_vs_cpu_ast(dev, models) -> dict:
+    from trackiellm_tpu_torch.models import ast, llm
+    full, cfg = models["ast"]
+    n = PERCEPTION_CPU_LAYERS
+    cfg = cfg._replace(n_layers=n)
+    card = cut_layers(full, n)
+    cpu = llm.params_to(card, torch.device("cpu"))
+    audio = voice_signal(AST_WINDOW_S, 16000, SEED + 202)
+    spec = torch.from_numpy(ast.ast_features(audio, cfg))
+    a = ast.ast_logits(card, cfg, spec.to(dev)).cpu()
+    b = ast.ast_logits(cpu, cfg, spec)
+    alarm = models["labels"].index("Smoke detector, smoke alarm")
+    forced = dict(card, head_b=card["head_b"] + 20.0 * torch.eye(
+        cfg.n_labels, device=dev)[alarm])
+    heard = ast.ASTSoundClassifier(forced, cfg, models["labels"])(audio)
+    return {"layers": n, "tokens": cfg.n_patches + 2,
+            "logits_rel_l2": rel_l2(a, b), "forced_alarm": heard}
+
+
+def perception_card_vs_cpu_sound(dev, models) -> dict:
+    from trackiellm_tpu_torch.audio.sound_engine import SoundClassifierEngine
+    from trackiellm_tpu_torch.models import llm, sound_classifier
+    card, cfg = models["sound"]
+    cpu = llm.params_to(card, torch.device("cpu"))
+    mel = torch.randn((cfg.n_mels, cfg.n_frames),
+                      generator=torch.Generator().manual_seed(SEED + 203))
+    err = float((sound_classifier.classify_window(card, cfg, mel.to(dev))
+                 .cpu() - sound_classifier.classify_window(cpu, cfg, mel))
+                .abs().max())
+    audio = voice_signal(SOUND_WINDOW_S, 16000, SEED + 204)
+    names = [SoundClassifierEngine(p, cfg, threshold=0.0, ignore=())(audio)
+             for p in (card, cpu)]
+    return {"max_abs_err": err, "classes": names}
+
+
+def perception_card_vs_cpu(dev, models) -> dict:
+    """(a): each model on the card and on the CPU on the same inputs."""
+    out = {"embedder": perception_card_vs_cpu_embedder(dev, models),
+           "trocr": perception_card_vs_cpu_trocr(dev, models),
+           "ast": perception_card_vs_cpu_ast(dev, models),
+           "sound": perception_card_vs_cpu_sound(dev, models)}
+    e, t, a, s = (out[k] for k in ("embedder", "trocr", "ast", "sound"))
+    parted = [r["parted_at"] for r in t["ids"]]
+    log(f"  (a) card against CPU: MiniLM ({e['layers']} layers) rel L2 "
+        + ", ".join(f"{k} {v:.3e}" for k, v in e["rel_l2"].items())
+        + f"; TrOCR-base ({t['layers']}+{t['layers']} layers) encoder "
+        f"{t['encoder_rel_l2']:.3e}, teacher-forced logits "
+        f"{t['logits_rel_l2']:.3e}, greedy ids "
+        + ("equal" if t["ids_equal"] else f"part at {parted}")
+        + f" (noise {max(r['noise'] for r in t['ids']):.3e}); AST "
+        f"({a['layers']} layers, {a['tokens']} tokens) logits "
+        f"{a['logits_rel_l2']:.3e}, forced alarm -> {a['forced_alarm']}; "
+        f"CNN probabilities max abs {s['max_abs_err']:.3e}, classes "
+        f"{s['classes']} (tolerances rel {PERCEPTION_REL:g}, abs "
+        f"{PERCEPTION_PROB_TOL:g})")
+    bad = [k for k, v in e["rel_l2"].items() if not v <= PERCEPTION_REL]
+    bad += [k for k in ("encoder_rel_l2", "logits_rel_l2")
+            if not t[k] <= PERCEPTION_REL]
+    bad += [f"ids row {i}" for i, r in enumerate(t["ids"]) if not r["ok"]]
+    bad += ["ast logits"] * (not a["logits_rel_l2"] <= PERCEPTION_REL)
+    bad += ["ast alarm"] * (a["forced_alarm"] != "alarm")
+    bad += ["cnn"] * (not s["max_abs_err"] <= PERCEPTION_PROB_TOL
+                      or s["classes"][0] != s["classes"][1])
+    if bad:
+        raise AssertionError(f"phase 20 (a): {bad}: {out}")
+    return out
+
+
+def perception_calls(dev, models) -> dict:
+    """(b)'s four calls at full depth on the card, each taking a fresh
+    input a call: {name: (what, fn(i))}."""
+    from trackiellm_tpu_torch.audio.sound_engine import SoundClassifierEngine
+    from trackiellm_tpu_torch.models import ast, embedder, trocr
+    from trackiellm_tpu_torch.runtime.buffers import to_device_async
+    from trackiellm_tpu_torch.vision import AnalysisFlags, VisionPipeline
+    emb = embedder.Embedder(*models["embedder"], models["tokenizer"])
+    frags = perception_fragments(PERCEPTION_FRAGMENTS)
+    pipe = VisionPipeline(None, ocr_fn=trocr.TrOCREngine(
+        *models["trocr"], ocr_text), device=dev)
+    frames = [to_device_async(vision_frame((480, 640), SEED + 210 + i), dev)
+              for i in range(PERCEPTION_ITERS + 2)]
+    acls = ast.ASTSoundClassifier(*models["ast"], models["labels"])
+    cnn = SoundClassifierEngine(*models["sound"])
+    long_audio = [voice_signal(AST_WINDOW_S, 16000, SEED + 220 + i)
+                  for i in range(PERCEPTION_ITERS + 2)]
+    return {
+        "embed": (f"Embedder.embed, {len(frags)} fragments",
+                  lambda i: emb.embed(frags[i:] + frags[:i])),
+        "ocr": ("VisionPipeline(ocr_fn=TrOCREngine) on a 480x640 card "
+                "frame, OCR flag",
+                lambda i: pipe.process_frame(frames[i], AnalysisFlags.OCR)),
+        "ast": ("ASTSoundClassifier, 10.24-s window",
+                lambda i: acls(long_audio[i])),
+        "cnn": ("SoundClassifierEngine, 1-s window",
+                lambda i: cnn(long_audio[i][:16000])),
+    }
+
+
+def perception_timed(dev, models) -> dict:
+    """(b): each call's host ms between card synchronizations, the median
+    of PERCEPTION_ITERS after a warm one, each on a fresh input."""
+    from trackiellm_tpu_torch.vision import AnalysisFlags
+    out = {}
+    for name, (what, fn) in perception_calls(dev, models).items():
+        res, _ = wall_ms(lambda: fn(0))
+        ms = [wall_ms(lambda i=i: fn(i))[1]
+              for i in range(1, PERCEPTION_ITERS + 1)]
+        out[name] = {"what": what, "p50_ms": float(np.median(ms)),
+                     "ms": ms}
+        if name == "ocr":
+            out[name]["regions"] = len(res.text_regions)
+            if not res.valid_analyses & AnalysisFlags.OCR:
+                raise AssertionError(f"phase 20 (b): the OCR stage failed: "
+                                     f"{res}")
+        elif name == "embed":
+            if res.shape != (PERCEPTION_FRAGMENTS, models["embedder"][1]
+                             .hidden) or not np.isfinite(res).all():
+                raise AssertionError(f"phase 20 (b): embeddings {res.shape}")
+    log("  (b) full depth on the card, host ms p50 of "
+        f"{PERCEPTION_ITERS}: " + "; ".join(
+            f"{v['what']} {v['p50_ms']:.2f}" for v in out.values()))
+    return out
+
+
+def perception_profile(dev) -> dict:
+    """One window of each of (b)'s calls under the profiler after a warm
+    one: host ms, device busy ms, launches, idle share, largest kernels."""
+    models = perception_models(dev)
+    out = {}
+    for name, (what, fn) in perception_calls(dev, models).items():
+        fn(0)
+        _, wall = wall_ms(lambda: fn(1))
+        busy, launches, by_name = device_breakdown(lambda: fn(2))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:3]
+        out[name] = {"wall_ms": wall, "busy_ms": busy, "launches": launches,
+                     "idle_share": 1.0 - busy / wall,
+                     "top": [[k[:60], t, c] for k, (t, c) in top]}
+        log(f"  profile {what}: {wall:.2f} ms wall, {busy:.2f} ms busy, "
+            f"{launches} launches (idle {out[name]['idle_share']:.3f})")
+    return out
+
+
+def perception_profile_child() -> dict:
+    """``perception_profile`` in a process of its own (this script with
+    PERCEPTION_PROFILE_FLAG), as phases 12-14 profile."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), PERCEPTION_PROFILE_FLAG],
+        capture_output=True, text=True, timeout=SERVE_TIMEOUT)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"phase 20: the profile's process exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    for line in lines[:-1]:
+        log(line)
+    return json.loads(lines[-1])
+
+
+def perception_app(dev, llm, runner_mod, models, counters) -> dict:
+    """(c): TrackieApp with embed_fn (MiniLM), ocr_fn (TrOCR-base behind
+    YOLOv8n and MiDaS-small), sound_fn (the CNN with its ALARM bias
+    forced) and an LLM at Mistral-7B widths cut to SURFACES_LAYERS layers;
+    a memory archived, then a question: the memory must be retrieved by
+    cosine, the ALARM spoken at CRITICAL, the reply at its priority, the
+    OCR run, failures() empty and the counters on W4A8, its quantization
+    and flash."""
+    from trackiellm_tpu_torch.app import AppSources, TrackieApp
+    from trackiellm_tpu_torch.audio.sound_engine import SoundClassifierEngine
+    from trackiellm_tpu_torch.cortex.decision import ActionPriority
+    from trackiellm_tpu_torch.models import embedder, trocr
+    from trackiellm_tpu_torch.models.sound_classifier import SoundClass
+    from trackiellm_tpu_torch.tools.measure_app_e2e import (
+        ScriptedTextTokenizer)
+    cfg = llm.LLMConfig.mistral_7b()._replace(n_layers=SURFACES_LAYERS,
+                                              max_seq=1024,
+                                              sliding_window=1024)
+    params = llm.init_params_quantized(
+        torch.Generator(device=dev).manual_seed(SEED + 230), cfg, bits=4,
+        device=dev)
+    runner = runner_mod.LLMRunner(
+        params, cfg, ScriptedTextTokenizer(cfg.vocab_size),
+        runner_mod.GenerationConfig(max_tokens=PERCEPTION_TOKENS,
+                                    min_tokens=PERCEPTION_TOKENS,
+                                    temperature=0.0, lookahead=4))
+    prompts, retrieved, ocr_calls, spoken = [], [], [], []
+    generate = runner.generate
+
+    @functools.wraps(generate)
+    def recorded(prompt, *a, **kw):
+        prompts.append(prompt)
+        return generate(prompt, *a, **kw)
+    runner.generate = recorded
+    emb = embedder.Embedder(*models["embedder"], models["tokenizer"])
+    engine = trocr.TrOCREngine(*models["trocr"], ocr_text)
+
+    def ocr_fn(crops):
+        ocr_calls.append(len(crops))
+        return engine(crops)
+    sparams, scfg = models["sound"]
+    alarm = dict(sparams, out_b=sparams["out_b"] + 40.0 * torch.eye(
+        scfg.num_classes, device=dev)[int(SoundClass.ALARM)])
+    rng = np.random.default_rng(SEED + 231)
+    frame = vision_frame((480, 640), SEED + 232)
+    fns, _ = surfaces_vision(dev)
+    app = TrackieApp(
+        sources=AppSources(
+            camera=lambda: frame,
+            microphone=lambda: (0.05 * rng.standard_normal(1600)).astype(
+                np.float32)),
+        embed_fn=emb.embed, ocr_fn=ocr_fn,
+        sound_fn=SoundClassifierEngine(alarm, scfg),
+        wake_fn=lambda chunk: False, llm_runner=runner,
+        tts_fn=lambda text: np.zeros(1600, np.float32),
+        on_spoken_audio=lambda wav, p: spoken.append(int(p)),
+        device=dev, **fns)
+    search = app.memory.retrieve_relevant
+
+    def retrieve(query, top_k=3):
+        got = search(query, top_k)
+        retrieved.append((query, [f.text for f in got]))
+        return got
+    app.memory.retrieve_relevant = retrieve
+    for text in (*perception_fragments(8), PERCEPTION_MEMORY):
+        app.memory.archive(text)
+    critical = int(ActionPriority.CRITICAL)
+    for w in counters.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    app.start()
+    try:
+        app.cortex.inject_user_text(PERCEPTION_QUESTION)
+        deadline = t0 + PERCEPTION_TURN_TIMEOUT
+        while (not (any(p <= APP_REPLY_PRIORITY for p in spoken)
+                    and critical in spoken and ocr_calls)
+               and time.perf_counter() < deadline):
+            time.sleep(0.05)
+        turn_s = time.perf_counter() - t0
+    finally:
+        app.stop()
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in counters.items()}
+    failures = app.failures()
+    # The cosine side of the ranking, recomputed from the stored vectors.
+    stored = np.asarray([f.embedding for f in app.memory.fragments],
+                        np.float32)
+    cos = stored @ emb.embed([PERCEPTION_QUESTION])[0]
+    texts = [f.text for f in app.memory.fragments]
+    first = retrieved[0][1] if retrieved else []
+    out = {"turn_s": turn_s, "spoken": spoken, "ocr_calls": ocr_calls,
+           "retrieved": first, "memory_cosine": float(
+               cos[texts.index(PERCEPTION_MEMORY)]),
+           "cosine_rank": int((cos > cos[texts.index(PERCEPTION_MEMORY)])
+                              .sum()) + 1,
+           "memory_in_prompt": bool(prompts) and (
+               f"Memória: {PERCEPTION_MEMORY}" in prompts[0]),
+           "llm_ms": app.cortex.stats["last_llm_ms"],
+           "launches": launches, "failures": failures}
+    log(f"  (c) TrackieApp turn: reply and ALARM spoken in {turn_s:.2f} s "
+        f"(priorities {spoken}), LLM turn {out['llm_ms']:.1f} ms; the "
+        f"question retrieved {first[:2]} (the archived memory's cosine "
+        f"{out['memory_cosine']:.4f}, rank {out['cosine_rank']} of "
+        f"{len(texts)} by cosine; in the prompt: "
+        f"{out['memory_in_prompt']}); OCR calls {ocr_calls}; failures "
+        f"{failures}; counters that rose "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    stored_ok = all(f.embedding is not None for f in app.memory.fragments)
+    if (not first or first[0] != PERCEPTION_MEMORY or not stored_ok
+            or critical not in spoken
+            or not any(p <= APP_REPLY_PRIORITY for p in spoken)
+            or not ocr_calls or failures):
+        raise AssertionError(f"phase 20 (c): {out}")
+    expect_routes(launches, ("q4_matmul_w4a8", "quantize_activations",
+                             "flash_attention"),
+                  ("q8_matmul", "fused_mlp_q4", *DIAGNOSTIC), "phase 20")
+    return out
+
+
+def phase_perception(dev, llm, runner_mod, counters, profile) -> dict:
+    """Phase 20 (the comment above PERCEPTION_CPU_LAYERS): (a), (b), the
+    profile child, then (c); each part's seconds."""
+    t0 = time.perf_counter()
+    parts = {}
+
+    def lap(part: str) -> None:
+        parts[part] = time.perf_counter() - t0 - sum(parts.values())
+    models = perception_models(dev)
+    out = {"card_vs_cpu": perception_card_vs_cpu(dev, models)}
+    lap("a")
+    out["timed"] = perception_timed(dev, models)
+    out["profile"] = profile()
+    lap("b")
+    out["app"] = perception_app(dev, llm, runner_mod, models, counters)
+    lap("c")
+    out["launches"] = out["app"]["launches"]
+    out["seconds"] = time.perf_counter() - t0
+    out["part_seconds"] = parts
+    log(f"  phase 20 took {out['seconds']:.1f} s ("
+        + ", ".join(f"({k}) {v:.1f}" for k, v in parts.items()) + ")")
+    return out
+
+
 def serve_config(llm):
     """Phases 5-7 and 12's configuration: Mistral-7B cut to max_seq 512."""
     return llm.LLMConfig.mistral_7b()._replace(max_seq=512,
@@ -6195,6 +6694,9 @@ def main() -> int:
         return family_profile_main(dev)
     if sys.argv[1:] == [MOE_PROFILE_FLAG]:
         return moe_profile_main(dev)
+    if sys.argv[1:] == [PERCEPTION_PROFILE_FLAG]:
+        print(json.dumps(perception_profile(dev)), flush=True)
+        return 0
     smi = nvidia_smi()
     log(f"phase 1 device: torch {torch.__version__} cuda {torch.version.cuda}"
         f" capability {cap} | {smi}")
@@ -6344,17 +6846,27 @@ def main() -> int:
     surfaces = phase_surfaces(dev, llm, runner_mod, tokenizer_mod, counters,
                               build_s, work.name)
     launches[19] = surfaces["launches"]
+    banner("phase 20 perception models (all-MiniLM-L6-v2, TrOCR-base, AST "
+           "and the CNN sound classifier at their widths: card against CPU "
+           f"at full depth or {PERCEPTION_CPU_LAYERS} layers, full depth "
+           "timed and profiled, a TrackieApp turn with embed_fn, ocr_fn and "
+           f"sound_fn, Mistral-7B widths at {SURFACES_LAYERS} layers):")
+    perception = phase_perception(dev, llm, runner_mod, counters,
+                                  perception_profile_child)
+    launches[20] = perception["launches"]
     end = time.perf_counter()
     work.cleanup()
     log(f"chip_smoke wall: {end - t0:.1f} s since the build began")
-    marks[20] = end
+    marks[21] = end
     seconds = {"1": t0 - main_t0}
-    seconds.update({str(n): marks[n + 1] - marks[n] for n in range(2, 20)
+    seconds.update({str(n): marks[n + 1] - marks[n] for n in range(2, 21)
                     if n in marks and n + 1 in marks})
     print(json.dumps({"phase_seconds": seconds, "wall_s": end - main_t0}),
           flush=True)
 
     smi = nvidia_smi()
+    print(json.dumps({"perception": perception, "card": smi}, default=str),
+          flush=True)
     print(json.dumps({"surfaces": surfaces, "card": smi}, default=str),
           flush=True)
     print(json.dumps({"vlm": vlm, "card": smi}), flush=True)

@@ -41,7 +41,16 @@ COPIES = {
     "sensors/__init__.py": {}, "sensors/filters.py": {},
     "sensors/fusion.py": {},
     "cortex/__init__.py": {}, "cortex/reasoner.py": {},
-    "cortex/decision.py": {}, "cortex/memory.py": {},
+    "cortex/decision.py": {},
+    "cortex/memory.py": dict.fromkeys((
+        "            emb = self._embed_fn([text]).tolist()[0]",
+        "        vecs = self._embed_fn([f.text for f in missing]).tolist()",
+        "            qv = np.asarray(self._embed_fn([query]).tolist()[0], "
+        "np.float32)"),
+        "an embed_fn's rows come back in one fetch whether it returns a "
+        "host array or a card tensor (Embedder.embed returns numpy; a card "
+        "tensor has no numpy view, and a fetch per element syncs per "
+        "element); the values and the ranking are the reference's"),
     "cortex/world_model.py": {}, "cortex/main.py": {},
     "navigation/obstacle_tracker.py": {},
     "vision/qr.py": {

@@ -163,7 +163,7 @@ def test_other_families_raise_naming_their_roadmap_item(tmp_path):
     path = tmp_path / "config.json"
     sidecar = json.loads(path.read_text())
     for cls in ("MLAConfig", "MambaConfig", "Mamba2Config",
-                "Qwen3NextConfig", "TrOCRConfig"):
+                "Qwen3NextConfig"):
         sidecar["config_class"] = cls
         path.write_text(json.dumps(sidecar))
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -626,6 +626,8 @@ def test_main_prints_the_voice_line_before_the_last_five(monkeypatch,
     monkeypatch.setattr(cs, "phase_vlm", lambda *a, **k: {"launches": {}})
     monkeypatch.setattr(cs, "phase_surfaces", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_perception", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     lines = capsys.readouterr().out.strip().splitlines()[-6:]
     assert json.loads(lines[0]) == {"voice": {"n": 13},
@@ -684,6 +686,8 @@ def test_main_prints_the_vision_line_before_the_voice_line(monkeypatch,
     monkeypatch.setattr(cs, "phase_moe", lambda *a, **k: {"launches": {}})
     monkeypatch.setattr(cs, "phase_vlm", lambda *a, **k: {"launches": {}})
     monkeypatch.setattr(cs, "phase_surfaces", lambda *a, **k: {
+        "launches": {}})
+    monkeypatch.setattr(cs, "phase_perception", lambda *a, **k: {
         "launches": {}})
     assert cs.main() == 0
     assert seen == [13, (14, True)]
@@ -830,10 +834,12 @@ def test_main_prints_the_app_line_before_the_vision_line(monkeypatch,
     monkeypatch.setattr(cs, "phase_vlm", lambda *a, **k: {"launches": {}})
     monkeypatch.setattr(cs, "phase_surfaces", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_perception", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     assert seen == [True]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-14].startswith("chip_smoke wall: ")
+    assert lines[-15].startswith("chip_smoke wall: ")
     assert json.loads(lines[-9])["families"] == {"launches": {}, "n": 16}
     assert json.loads(lines[-8]) == {"app": {
         "launches": {"q4_matmul_w4a8": 7}, "n": 15},
@@ -1111,10 +1117,12 @@ def test_main_prints_the_moe_line_before_the_families_line(monkeypatch,
     monkeypatch.setattr(cs, "phase_vlm", lambda *a, **k: {"launches": {}})
     monkeypatch.setattr(cs, "phase_surfaces", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_perception", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     assert seen == [True]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-14].startswith("chip_smoke wall: ")
+    assert lines[-15].startswith("chip_smoke wall: ")
     moe = json.loads(lines[-10])
     assert moe["moe"] == {"launches": {"q4_matmul_w4a8": 9}, "n": 17}
     assert moe["moe_kernels"]["q4_matmul_w4a8"] == [
@@ -1126,8 +1134,8 @@ def test_main_prints_the_moe_line_before_the_families_line(monkeypatch,
 def test_main_prints_the_vlm_line_and_the_phase_seconds(monkeypatch,
                                                        capsys):
     """Phase 18 runs after phase 17 on phase 11's GGUF; its line comes just
-    before the moe line, the smoke's wall and the phase seconds (1 to 19,
-    and the wall from the start) on the lines before phase 19's, and the
+    before the moe line, the smoke's wall and the phase seconds (1 to 20,
+    and the wall from the start) on the lines before phase 20's, and the
     kernels line counts its launches."""
     from trackiellm_tpu_torch.ops import _build
     cs = _load()
@@ -1162,12 +1170,14 @@ def test_main_prints_the_vlm_line_and_the_phase_seconds(monkeypatch,
         {"phase18": launches[18]}))
     monkeypatch.setattr(cs, "phase_surfaces", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_perception", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     assert seen == [(os.path.join(gguf[0], "mistral.gguf"), gguf[0])]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-14].startswith("chip_smoke wall: ")
-    timing = json.loads(lines[-13])
-    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 20)}
+    assert lines[-15].startswith("chip_smoke wall: ")
+    timing = json.loads(lines[-14])
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 21)}
     assert timing["wall_s"] >= sum(timing["phase_seconds"].values()) * 0.999
     assert json.loads(lines[-11]) == {
         "vlm": {"launches": {"q4_matmul_f32a": 4}, "n": 18},
@@ -1535,7 +1545,7 @@ def test_main_prints_the_surfaces_line_before_the_vlm_line(monkeypatch,
                                                             capsys):
     """Phase 19 runs after phase 18 with phase 2's build seconds and the
     work directory; its line comes just before the vlm line, the phase
-    seconds run 1 to 19, and the kernels line counts its launches (the
+    seconds run 1 to 20, and the kernels line counts its launches (the
     precompile child's)."""
     from trackiellm_tpu_torch.ops import _build
     cs = _load()
@@ -1567,11 +1577,13 @@ def test_main_prints_the_surfaces_line_before_the_vlm_line(monkeypatch,
         {"launches": {"q4_matmul_f32a": 19}, "n": 19})[1])
     monkeypatch.setattr(cs, "kernels_line", lambda rows, launches: json.dumps(
         {"phase19": launches[19]}))
+    monkeypatch.setattr(cs, "phase_perception", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     assert seen == [(float, True)]
     lines = capsys.readouterr().out.strip().splitlines()
-    timing = json.loads(lines[-13])
-    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 20)}
+    timing = json.loads(lines[-14])
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 21)}
     assert json.loads(lines[-12]) == {
         "surfaces": {"launches": {"q4_matmul_f32a": 19}, "n": 19},
         "card": "H100, 700.00 W"}
@@ -1639,3 +1651,237 @@ def test_phase19_precompile_child_fails_without_a_card():
         pytest.skip("a card is here")
     with pytest.raises(AssertionError, match="phase 19 precompile exit"):
         cs.surfaces_precompile()
+
+
+def test_main_prints_the_perception_line_before_the_surfaces_line(
+        monkeypatch, capsys):
+    """Phase 20 runs last, with the profile child; its line comes just
+    before the surfaces line, after the phase seconds (1 to 20), and the
+    kernels line counts its launches (the app turn's)."""
+    from trackiellm_tpu_torch.ops import _build
+    cs = _load()
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda *a: (9, 0))
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "H100")
+    monkeypatch.setattr(cs, "nvidia_smi", lambda: "H100, 700.00 W")
+    monkeypatch.setattr(_build, "build", lambda: _build.BUILD_ROOT / "x")
+    monkeypatch.setattr(_build, "library", lambda: None)
+    for name, value in (("phase_kernels", {}), ("phase_width", None),
+                        ("build_model", {"layers": {}}), ("profile_path", {}),
+                        ("expect_routes", None), ("phase_entry", None),
+                        ("phase_diagnostics", {})):
+        monkeypatch.setattr(cs, name, lambda *a, v=value, **k: v)
+    monkeypatch.setattr(cs, "drive", lambda *a, **k: {
+        "quantize_activations": 1, "q4_matmul_w4a8": 1})
+    for name, n in (("phase_slice10", 10), ("phase_gguf", 11),
+                    ("phase_serve", 12), ("phase_app", 15),
+                    ("phase_families", 16), ("phase_moe", 17),
+                    ("phase_vlm", 18), ("phase_surfaces", 19)):
+        monkeypatch.setattr(cs, name, lambda *a, n=n, **k: {
+            "launches": {}, "n": n})
+    monkeypatch.setattr(cs, "phase_voice", lambda *a, **k: {"n": 13})
+    monkeypatch.setattr(cs, "phase_vision", lambda *a, **k: {"n": 14})
+    seen = []
+    monkeypatch.setattr(cs, "phase_perception", lambda *a, **k: (
+        seen.append(a[-1] is cs.perception_profile_child),
+        {"launches": {"q4_matmul_w4a8": 20}, "n": 20})[1])
+    monkeypatch.setattr(cs, "kernels_line", lambda rows, launches: json.dumps(
+        {"phase20": launches[20]}))
+    assert cs.main() == 0
+    assert seen == [True]
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[-15].startswith("chip_smoke wall: ")
+    timing = json.loads(lines[-14])
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 21)}
+    assert json.loads(lines[-13]) == {
+        "perception": {"launches": {"q4_matmul_w4a8": 20}, "n": 20},
+        "card": "H100, 700.00 W"}
+    assert json.loads(lines[-12])["surfaces"]["n"] == 19
+    assert json.loads(lines[-2]) == {"phase20": {"q4_matmul_w4a8": 20}}
+
+
+def test_main_exits_non_zero_when_phase20_fails(monkeypatch, capsys):
+    """A failed part of phase 20 is an uncaught exception: no result line,
+    so the run cannot exit 0."""
+    from trackiellm_tpu_torch.ops import _build
+    cs = _load()
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda *a: (9, 0))
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "H100")
+    monkeypatch.setattr(cs, "nvidia_smi", lambda: "H100, 700.00 W")
+    monkeypatch.setattr(_build, "build", lambda: _build.BUILD_ROOT / "x")
+    monkeypatch.setattr(_build, "library", lambda: None)
+    for name, value in (("phase_kernels", {}), ("phase_width", None),
+                        ("build_model", {"layers": {}}), ("profile_path", {}),
+                        ("expect_routes", None), ("phase_entry", None),
+                        ("phase_diagnostics", {}),
+                        ("kernels_line", '{"kernels": []}')):
+        monkeypatch.setattr(cs, name, lambda *a, v=value, **k: v)
+    monkeypatch.setattr(cs, "drive", lambda *a, **k: {
+        "quantize_activations": 1, "q4_matmul_w4a8": 1})
+    for name in ("phase_slice10", "phase_gguf", "phase_serve", "phase_app",
+                 "phase_families", "phase_moe", "phase_vlm",
+                 "phase_surfaces"):
+        monkeypatch.setattr(cs, name, lambda *a, **k: {"launches": {}})
+    monkeypatch.setattr(cs, "phase_voice", lambda *a, **k: {})
+    monkeypatch.setattr(cs, "phase_vision", lambda *a, **k: {})
+
+    def failed(*a, **k):
+        raise AssertionError("phase 20 (c): failures")
+    monkeypatch.setattr(cs, "phase_perception", failed)
+    with pytest.raises(AssertionError, match="phase 20"):
+        cs.main()
+    assert '"ok": true' not in capsys.readouterr().out
+
+
+def _tiny_perception(dev):
+    """Phase 20's models at tiny widths on ``dev`` (the vocabulary and the
+    labels as the smoke writes them)."""
+    from trackiellm_tpu_torch.llm.tokenizer import WordPieceTokenizer
+    from trackiellm_tpu_torch.models import ast, embedder, trocr
+    from trackiellm_tpu_torch.models import sound_classifier as sc
+    cs = _load()
+
+    def gen(k):
+        return torch.Generator(device=dev).manual_seed(k)
+    ecfg = embedder.EmbedderConfig.test_tiny()._replace(vocab_size=400)
+    tcfg = trocr.TrOCRConfig.tiny()
+    acfg = ast.ASTConfig.tiny()._replace(n_labels=527)
+    scfg = sc.SoundClassifierConfig.tiny()
+    return {"embedder": (embedder.init_embedder(gen(1), ecfg), ecfg),
+            "trocr": (trocr.init_params(gen(2), tcfg), tcfg),
+            "ast": (ast.init_params(gen(3), acfg), acfg),
+            "sound": (sc.init_sound_classifier(gen(4), scfg), scfg),
+            "tokenizer": WordPieceTokenizer(cs.perception_vocab(400)),
+            "labels": [cs.AST_NAMED_LABELS.get(i, f"label {i}")
+                       for i in range(527)]}
+
+
+def _phase20_on_the_cpu(monkeypatch, cs):
+    """``cs`` set to rehearse phase 20 on the CPU at tiny widths: the
+    routes' check and the profile recorded, Mistral-7B's widths cut as
+    phase 19's rehearsal cuts them, the windows shortened."""
+    from trackiellm_tpu_torch.models import llm
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    tiny = llm.LLMConfig(vocab_size=512, dim=512, n_layers=1, n_heads=4,
+                         n_kv_heads=2, head_dim=128, hidden_dim=1024,
+                         max_seq=512, sliding_window=512)
+    monkeypatch.setattr(llm.LLMConfig, "mistral_7b", classmethod(
+        lambda cls: tiny))
+    monkeypatch.setattr(cs, "perception_models", _tiny_perception)
+    def stub_detector(chw):  # raw outputs on the frame's device: no box
+        return (torch.zeros((8, 4), device=chw.device),
+                torch.zeros((8, 80), device=chw.device))
+    monkeypatch.setattr(cs, "surfaces_vision", lambda dev: (
+        {"detector_fn": stub_detector}, None))
+    monkeypatch.setattr(cs, "device_breakdown",
+                        lambda fn: (fn(), 0.0, 0, {})[1:])
+    monkeypatch.setattr(cs, "AST_WINDOW_S", 0.7)
+    routes = []
+    monkeypatch.setattr(cs, "expect_routes", lambda launches, ran, idle,
+                        phase: routes.append((ran, idle, phase)))
+    return cpu, routes
+
+
+def test_phase20_on_the_cpu(monkeypatch, capsys):
+    """Phase 20 on the CPU at tiny widths: (a) each model's card-against-CPU
+    check runs (both sides on the CPU here), (b) the four calls are timed
+    and profiled, (c) the TrackieApp turn retrieves the archived memory
+    first, speaks the forced ALARM at CRITICAL and the reply at its
+    priority, runs the OCR, absorbs no failure, and checks the routes W4A8,
+    its quantization and flash, and none of Q8, the fused block, the
+    streaming Q4 or the probes."""
+    from trackiellm_tpu_torch.llm import runner
+    from trackiellm_tpu_torch.models import llm
+    cs = _load()
+    cpu, routes = _phase20_on_the_cpu(monkeypatch, cs)
+    out = cs.phase_perception(cpu, llm, runner, cs.launch_counters(),
+                              lambda: cs.perception_profile(cpu))
+    a = out["card_vs_cpu"]
+    assert a["trocr"]["ids_equal"] and a["ast"]["forced_alarm"] == "alarm"
+    assert set(out["timed"]) == {"embed", "ocr", "ast", "cnn"}
+    assert set(out["profile"]) == {"embed", "ocr", "ast", "cnn"}
+    app = out["app"]
+    assert app["retrieved"][0] == cs.PERCEPTION_MEMORY
+    assert 3 in app["spoken"] and app["ocr_calls"] and not app["failures"]
+    assert routes == [(("q4_matmul_w4a8", "quantize_activations",
+                        "flash_attention"),
+                       ("q8_matmul", "fused_mlp_q4", *cs.DIAGNOSTIC),
+                       "phase 20")]
+    assert set(out["part_seconds"]) == {"a", "b", "c"}
+    text = capsys.readouterr().out
+    for tag in ("(a) card against CPU", "(b) full depth", "(c) TrackieApp",
+                "phase 20 took"):
+        assert tag in text, tag
+
+
+@pytest.mark.parametrize("part", ["a", "b", "c"])
+def test_phase20_fails_when_a_part_fails(monkeypatch, part):
+    """Each part's check raises: (a) a card-against-CPU gap over its
+    tolerance, (b) an OCR stage that failed, (c) an app turn with a
+    failure absorbed."""
+    from trackiellm_tpu_torch.app import TrackieApp
+    from trackiellm_tpu_torch.llm import runner
+    from trackiellm_tpu_torch.models import llm
+    cs = _load()
+    cpu, _ = _phase20_on_the_cpu(monkeypatch, cs)
+    if part == "a":
+        monkeypatch.setattr(cs, "PERCEPTION_REL", -1.0)
+    elif part == "b":
+        def broken(crops):
+            raise RuntimeError("no card")
+        monkeypatch.setattr(cs, "ocr_text", lambda ids: broken(ids))
+    else:
+        monkeypatch.setattr(cs, "perception_timed", lambda *a: {})
+        monkeypatch.setattr(TrackieApp, "failures", lambda self: {
+            "model calls": {"embed: RuntimeError()": 1}})
+    with pytest.raises(AssertionError, match=f"phase 20 \\({part}\\)"):
+        cs.phase_perception(cpu, llm, runner, cs.launch_counters(),
+                            lambda: {})
+
+
+def test_perception_profile_child_fails_without_a_card(monkeypatch):
+    cs = _load()
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    with pytest.raises(AssertionError, match="phase 20"):
+        cs.perception_profile_child()
+
+
+def test_phase20_keeps_the_published_widths(monkeypatch):
+    """The four models' configurations as perception_models builds them
+    (the inits recorded, nothing drawn): all-MiniLM-L6-v2, TrOCR-base,
+    AST at AudioSet's 527 labels over 1,212 patches, the reference's CNN;
+    MiniLM's vocabulary at 30,522 pieces with BERT's specials at their
+    ids; the labels hold every ambient class's name."""
+    from trackiellm_tpu_torch.models import ast, embedder, sound_classifier
+    from trackiellm_tpu_torch.models import trocr
+    cs = _load()
+    seen = {}
+    for mod, name in ((embedder, "init_embedder"), (trocr, "init_params"),
+                      (ast, "init_params"),
+                      (sound_classifier, "init_sound_classifier")):
+        monkeypatch.setattr(mod, name, lambda gen, cfg, m=mod.__name__: (
+            seen.__setitem__(m.rsplit(".", 1)[1], cfg), {})[1])
+    models = cs.perception_models(torch.device("cpu"))
+    assert tuple(seen["embedder"]) == (30522, 384, 6, 12, 1536, 512, 2,
+                                       1e-12, "mean")
+    t = seen["trocr"]
+    assert (t.image_size, t.patch_size, t.enc_dim, t.enc_layers,
+            t.dec_layers, t.d_model, t.vocab_size) == (
+                384, 16, 768, 12, 12, 1024, 50265)
+    a = seen["ast"]
+    assert (a.n_frames, a.n_mels, a.n_patches, a.n_layers, a.dim,
+            a.n_labels) == (1024, 128, 1212, 12, 768, 527)
+    assert tuple(seen["sound_classifier"]) == (64, 96, 32, 7)
+    tok = models["tokenizer"]
+    assert tok.vocab_size == 30522
+    assert (tok.pad_id, tok.unk_id, tok.cls_id, tok.sep_id) == (0, 100, 101,
+                                                                 102)
+    assert all(i != tok.unk_id for t in cs.perception_fragments(64)
+               for i in tok.encode(t))
+    labels = [x.lower() for x in models["labels"]]
+    for _, fragments in ast.AMBIENT_MAP:
+        assert any(f in name for f in fragments for name in labels)

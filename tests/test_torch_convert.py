@@ -747,9 +747,9 @@ def test_inspect_prints_the_jax_description(cli_gguf, capsys):
 
 @pytest.mark.parametrize("argv,items", [
     (["--family", "gemma2-hf"], "item 11"),
-    (["--family", "trocr-hf"], "item 11"),
+    (["--family", "qwen3next-hf"], "item 11"),
     (["--family", "mamba-hf"], "item 11"),
-], ids=["gemma2-hf", "trocr-hf", "mamba-hf"])
+], ids=["gemma2-hf", "qwen3next-hf", "mamba-hf"])
 def test_unported_convert_routes_name_their_roadmap_item(cli_gguf, tmp_path,
                                                          argv, items):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {items}"):

@@ -2039,3 +2039,150 @@ def test_vlm_digest_of_a_card_frame(dev):
                                               dtype=np.uint8)
     card = torch.from_numpy(frame).to(dev)
     assert VLMRunner._digest(card) == VLMRunner._digest(frame)
+
+
+# ---------------------------------------------------------------------------
+# The perception models (embedder, TrOCR, AST, the CNN sound classifier):
+# plain torch ops under exact_f32, card against CPU at tiny sizes.
+# ---------------------------------------------------------------------------
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _tiny_embedder(dev):
+    from trackiellm_tpu_torch.llm.tokenizer import WordPieceTokenizer
+    from trackiellm_tpu_torch.models import embedder as emb
+    cfg = emb.EmbedderConfig.test_tiny()
+    cpu = emb.init_embedder(torch.Generator().manual_seed(5), cfg)
+    cpu["cls_out"] = {"w": torch.full((cfg.hidden, 1), 0.1),
+                      "b": torch.zeros(1)}
+    tok = WordPieceTokenizer(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "the",
+                              "cat", "sat", "on", "mat", "##s", "uma",
+                              "mesa", "na", "cozinha", "!", ","]
+                             + [f"w{i}" for i in range(cfg.vocab_size - 16)])
+    return emb, cfg, cpu, _to(cpu, dev), tok
+
+
+EMBED_TEXTS = ["the cat sat on the mat", "uma mesa na cozinha", "the cat",
+               "cats, mats!", " ".join(["the cat"] * 12)]
+
+
+@pytest.mark.parametrize("pooling", ["mean", "cls", "pooler"])
+def test_embedder_on_the_card_matches_the_cpu(dev, pooling):
+    emb, cfg, cpu, card, tok = _tiny_embedder(dev)
+    cfg = cfg._replace(pooling=pooling)
+    want = emb.Embedder(cpu, cfg, tok).embed(EMBED_TEXTS)
+    got = emb.Embedder(card, cfg, tok).embed(EMBED_TEXTS)
+    assert isinstance(got, np.ndarray) and got.dtype == np.float32
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) < 1e-5
+    docs = EMBED_TEXTS[:3]
+    a = emb.Embedder(cpu, cfg, tok).rank("the cat", docs)
+    b = emb.Embedder(card, cfg, tok).rank("the cat", docs)
+    assert np.linalg.norm(b - a) / np.linalg.norm(a) < 1e-5
+
+
+def test_embedding_row_is_the_same_at_another_batch_bucket(dev):
+    """A row of a batch of five (batch bucket 8, length bucket 32) against
+    the same text alone (bucket 1, its own length bucket): cuBLAS may pick
+    another algorithm for another M, within 1e-6."""
+    emb, cfg, _, card, tok = _tiny_embedder(dev)
+    e = emb.Embedder(card, cfg, tok)
+    rows = e.embed(EMBED_TEXTS)
+    alone = np.concatenate([e.embed([t]) for t in EMBED_TEXTS])
+    assert np.abs(rows - alone).max() <= 1e-6
+
+
+def test_memory_takes_a_card_embed_fn(dev):
+    """MemoryManager fed an embed_fn that returns a CUDA tensor: archive,
+    backfill and retrieval work, and rank as with the host embedder."""
+    from trackiellm_tpu_torch.cortex.memory import MemoryManager
+    emb, cfg, _, card, tok = _tiny_embedder(dev)
+    e = emb.Embedder(card, cfg, tok)
+
+    def on_card(texts):
+        out = torch.from_numpy(e.embed(texts)).to(dev)
+        assert out.is_cuda
+        return out
+    by_card = MemoryManager(embed_fn=on_card, clock=lambda: 1.0)
+    by_host = MemoryManager(embed_fn=e.embed, clock=lambda: 1.0)
+    for mem in (by_card, by_host):
+        for text in EMBED_TEXTS[:4]:
+            mem.archive(text)
+    for query in ("the cat", "mesa"):
+        assert ([f.text for f in by_card.retrieve_relevant(query, 4)]
+                == [f.text for f in by_host.retrieve_relevant(query, 4)])
+    assert all(a.embedding == b.embedding
+               for a, b in zip(by_card.fragments, by_host.fragments))
+
+
+def test_trocr_on_the_card_matches_the_cpu(dev):
+    """TrOCR at its tiny size: encoder states and teacher-forced logits
+    within 1e-5 relative L2 of the CPU's, greedy ids equal up to the first
+    EOS or parted at a near-tie (the CPU's top-2 margin under twice the
+    measured noise); the engine reads card crops as host ones."""
+    from trackiellm_tpu_torch.models import trocr
+    cfg = trocr.TrOCRConfig.tiny()
+    cpu = trocr.init_params(torch.Generator().manual_seed(6), cfg)
+    card = _to(cpu, dev)
+    px = torch.randn((3, 3, cfg.image_size, cfg.image_size),
+                     generator=torch.Generator().manual_seed(7))
+    enc_c = trocr.encode_batch(cpu, cfg, px)
+    enc_g = trocr.encode_batch(card, cfg, px.to(dev))
+    assert _rel_l2(enc_g.cpu(), enc_c) < 1e-5
+    ids_c = trocr.greedy_ids_batch(cpu, cfg, enc_c)
+    ids_g = trocr.greedy_ids_batch(card, cfg, enc_g).cpu()
+    for b in range(3):
+        want = ids_c[b].tolist()
+        x = torch.tensor([cfg.decoder_start_id] + want[:-1])
+        lc = trocr.decoder_logits(cpu, cfg, enc_c[b], x)
+        lg = trocr.decoder_logits(card, cfg, enc_c[b].to(dev), x.to(dev))
+        assert _rel_l2(lg.cpu(), lc) < 1e-5
+        noise = float((lg.cpu() - lc).abs().max())
+        end = want.index(cfg.eos_id) + 1 if cfg.eos_id in want else len(want)
+        got = ids_g[b].tolist()
+        parted = next((s for s in range(end) if got[s] != want[s]), None)
+        if parted is not None:
+            top = torch.topk(lc[parted], 2).values
+            assert float(top[0] - top[1]) < 2 * noise, (b, parted)
+    crops = [np.random.default_rng(8).integers(0, 256, (20, 60)).astype(
+        np.uint8)] * 2
+    eng = trocr.TrOCREngine(card, cfg, lambda ids: ",".join(map(str, ids)))
+    assert eng(crops) == eng([torch.from_numpy(c).to(dev) for c in crops])
+
+
+def test_ast_on_the_card_matches_the_cpu(dev):
+    from trackiellm_tpu_torch.models import ast
+    cfg = ast.ASTConfig.tiny()._replace(tstride=4)
+    cpu = ast.init_params(torch.Generator().manual_seed(9), cfg)
+    card = _to(cpu, dev)
+    audio = (0.3 * np.random.default_rng(10).standard_normal(16000)).astype(
+        np.float32)
+    spec = torch.from_numpy(ast.ast_features(audio, cfg))
+    want = ast.ast_logits(cpu, cfg, spec)
+    got = ast.ast_logits(card, cfg, spec.to(dev))
+    assert _rel_l2(got.cpu(), want) < 1e-5
+    labels = ["Smoke detector, smoke alarm", "Speech", "Siren", "Dog",
+              "Water tap"]
+    card["head_b"] = card["head_b"] + 20.0 * torch.eye(5, device=dev)[0]
+    assert ast.ASTSoundClassifier(card, cfg, labels)(audio) == "alarm"
+
+
+def test_sound_classifier_on_the_card_matches_the_cpu(dev):
+    from trackiellm_tpu_torch.audio.sound_engine import SoundClassifierEngine
+    from trackiellm_tpu_torch.models import sound_classifier as sc
+    cfg = sc.SoundClassifierConfig.default()
+    cpu = sc.init_sound_classifier(torch.Generator().manual_seed(11), cfg)
+    card = _to(cpu, dev)
+    mel = torch.randn((cfg.n_mels, cfg.n_frames),
+                      generator=torch.Generator().manual_seed(12))
+    want = sc.classify_window(cpu, cfg, mel)
+    got = sc.classify_window(card, cfg, mel.to(dev))
+    assert (got.cpu() - want).abs().max().item() <= 1e-6
+    audio = (0.3 * np.random.default_rng(13).standard_normal(16000)).astype(
+        np.float32)
+    for kw in ({"threshold": 0.0, "ignore": ()}, {}):
+        assert (SoundClassifierEngine(card, cfg, **kw)(audio)
+                == SoundClassifierEngine(cpu, cfg, **kw)(audio))

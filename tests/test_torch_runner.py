@@ -266,11 +266,14 @@ def test_port_imports_no_jax():
     demo), the multimodal path (the CLIP/SigLIP tower, ``VLMRunner``),
     the outer surfaces (``ffi`` with its native runtime and embed ABI,
     ``services``, ``compat``, ``precompile``, the cache artifact tool),
-    logging, CLI, probes, diagnostic, conversion, serving and app
+    the perception models (the embedder with ``WordPieceTokenizer``,
+    TrOCR, AST, the CNN sound classifier and its engine, and their
+    converters), logging, CLI, probes, diagnostic, conversion, serving and app
     latency tools and chip_smoke.py pulls in no JAX module, no module of the JAX
     package (``trackiellm_tpu`` or ``trackiellm_tpu.*``, even one that imports no
-    JAX) and none of the JAX package's tools (this test process has JAX
-    loaded already, hence the subprocess)."""
+    JAX), none of the JAX package's tools and no ``transformers``, which
+    the card's host lacks (this test process has JAX loaded already, hence
+    the subprocess)."""
     code = ("import sys, trackiellm_tpu_torch.llm.runner, "
             "trackiellm_tpu_torch.llm.grammar, "
             "trackiellm_tpu_torch.llm.schema, "
@@ -368,13 +371,24 @@ def test_port_imports_no_jax():
             "trackiellm_tpu_torch.compat, "
             "trackiellm_tpu_torch.precompile, "
             "trackiellm_tpu_torch.tools.cache_artifact, "
+            "trackiellm_tpu_torch.models.embedder, "
+            "trackiellm_tpu_torch.models.trocr, "
+            "trackiellm_tpu_torch.models.ast, "
+            "trackiellm_tpu_torch.models.sound_classifier, "
+            "trackiellm_tpu_torch.audio.sound_engine, "
             "trackiellm_tpu_torch.models.convert as c; "
+            "from trackiellm_tpu_torch.llm.tokenizer import "
+            "WordPieceTokenizer; "
+            "from trackiellm_tpu_torch.models.convert import bert_from_hf, "
+            "gguf_to_bert_params, trocr_from_hf, ast_from_hf, "
+            "sound_classifier_from_torch; "
             "c.load_name_map('silero_v5'); c.load_name_map('piper_vits'); "
             "c.load_name_map('midas_small'); "
             "import trackiellm_tpu_torch.__main__, chip_smoke; "
             "bad = sorted(m for m in sys.modules if m in "
-            "('jax', 'jaxlib', 'tools', 'trackiellm_tpu') or m.startswith("
-            "('jax.', 'jaxlib.', 'trackiellm_tpu.', 'tools.'))); "
+            "('jax', 'jaxlib', 'tools', 'trackiellm_tpu', 'transformers') "
+            "or m.startswith(('jax.', 'jaxlib.', 'trackiellm_tpu.', "
+            "'tools.', 'transformers.'))); "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120,

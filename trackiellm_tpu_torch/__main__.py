@@ -131,18 +131,34 @@ def _convert_multimodal(args, device: torch.device, t0: float) -> int:
     return 0
 
 
+def _convert_trocr(args, device: torch.device, t0: float) -> int:
+    """OCR: a transformers VisionEncoderDecoderModel state dict
+    (microsoft/trocr-*) -> a models/trocr.py checkpoint with its
+    TrOCRConfig sidecar; ``--model-config`` is the HF config.json (head
+    counts and special ids)."""
+    conf = None
+    if args.model_config:
+        with open(args.model_config, encoding="utf-8") as f:
+            conf = json.load(f)
+    params, cfg = convert_mod.trocr_from_hf(
+        convert_mod.load_state_dict(args.gguf), conf, device=device)
+    save_checkpoint(args.output, params, config=cfg,
+                    metadata={"source": args.gguf, "ocr": "trocr"})
+    print(f"converted + saved TrOCR to {args.output} in "
+          f"{time.time() - t0:.1f}s")
+    return 0
+
+
 def _cmd_convert(args) -> int:
-    if args.family == "trocr-hf":
-        raise NotImplementedError(
-            "--family trocr-hf: the TrOCR converter (trocr_from_hf, "
-            "models/trocr.py) is not ported yet (ROADMAP Queue 1 item 11)")
-    if args.family not in ("gguf", *_MULTIMODAL_FAMILIES):
+    if args.family not in ("gguf", "trocr-hf", *_MULTIMODAL_FAMILIES):
         raise NotImplementedError(
             f"--family {args.family}: the transformers-state-dict "
             "converters (*_from_hf) are not ported yet (ROADMAP Queue 1 "
             "item 11)")
     device = _device(args.device, "convert")
     t0 = time.time()
+    if args.family == "trocr-hf":
+        return _convert_trocr(args, device, t0)
     if args.family in _MULTIMODAL_FAMILIES:
         return _convert_multimodal(args, device, t0)
     hdr = read_gguf_header(args.gguf)
@@ -327,8 +343,8 @@ def main(argv=None) -> int:
     p.add_argument("--family", default="gguf",
                    choices=("gguf", *_HF_FAMILIES),
                    help="source layout (default: GGUF metadata-driven); "
-                        "of the others, llava-hf and paligemma-hf are "
-                        "ported")
+                        "of the others, llava-hf, paligemma-hf and "
+                        "trocr-hf are ported")
     p.add_argument("--n-heads", type=int, default=32,
                    help="llava-hf: text attention heads (not derivable "
                         "from shapes)")
@@ -336,6 +352,9 @@ def main(argv=None) -> int:
                    help="llava-hf/paligemma-hf: vision tower heads")
     p.add_argument("--mmproj", default=None,
                    help="llama.cpp vision 'mmproj' GGUF (LLaVA packaging)")
+    p.add_argument("--model-config", default=None,
+                   help="trocr-hf: the HF config.json (head counts, "
+                        "special ids)")
     p.add_argument("--device", default=None,
                    help="torch device of the requantization (default: the "
                         "CUDA card; the CPU only when asked for with "

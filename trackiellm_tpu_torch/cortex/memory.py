@@ -66,7 +66,7 @@ class MemoryManager:
         """Parity: archive_memory (memory_manager.rs:220)."""
         emb = None
         if self._embed_fn is not None:
-            emb = [float(x) for x in self._embed_fn([text])[0]]
+            emb = self._embed_fn([text]).tolist()[0]
         self.fragments.append(MemoryFragment(
             text, _keywords(text), self._clock(), category, emb))
         if len(self.fragments) > self._max:
@@ -76,7 +76,7 @@ class MemoryManager:
         missing = [f for f in self.fragments if f.embedding is None]
         if not missing or self._embed_fn is None:
             return
-        vecs = self._embed_fn([f.text for f in missing])
+        vecs = self._embed_fn([f.text for f in missing]).tolist()
         for frag, vec in zip(missing, vecs):
             frag.embedding = [float(x) for x in vec]
 
@@ -89,7 +89,7 @@ class MemoryManager:
         surface even with zero lexical overlap."""
         if self._embed_fn is not None and self.fragments:
             self._backfill_embeddings()
-            qv = np.asarray(self._embed_fn([query])[0], np.float32)
+            qv = np.asarray(self._embed_fn([query]).tolist()[0], np.float32)
             q = set(_keywords(query))
             scored: List[Tuple[float, MemoryFragment]] = []
             for frag in self.fragments:

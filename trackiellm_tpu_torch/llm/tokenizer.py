@@ -3,9 +3,10 @@
 Port of ``trackiellm_tpu/llm/tokenizer.py`` (``Tokenizer``,
 ``ByteTokenizer``, the SentencePiece-compatible ``VocabTokenizer`` and the
 GPT-2-style byte-level ``BpeTokenizer`` with its llama-bpe, qwen2 and o200k
-pre-tokenizers) and of ``trackiellm_tpu/models/convert.py``'s
-``tokenizer_from_pieces`` / ``tokenizer_from_spec``, which rebuild the
-tokenizer a converted checkpoint names in its metadata. The JAX package's
+pre-tokenizers, and BERT's ``WordPieceTokenizer`` for the embedder) and of
+``trackiellm_tpu/models/convert.py``'s ``tokenizer_from_pieces`` /
+``tokenizer_from_spec``, which rebuild the tokenizer a converted checkpoint
+names in its metadata. The JAX package's
 ``trackiellm_tpu.llm`` and ``trackiellm_tpu.models`` packages import JAX
 when loaded, so these are carried here rather than imported.
 """
@@ -651,3 +652,147 @@ def tokenizer_from_spec(spec: Dict[str, Any]):
         scores=spec.get("scores"),
         token_types=spec.get("token_types"),
         add_space_prefix=spec.get("add_space_prefix", True))
+
+
+class WordPieceTokenizer:
+    """BERT WordPiece — the tokenizer of llama.cpp's ``bert``
+    embedding-model family (``tokenizer.ggml.model == "bert"``,
+    llm_tokenizer_wpm; the HF BertTokenizer contract).
+
+    Pipeline (uncased models, ``lower=True``): clean control chars ->
+    lowercase -> NFD + strip combining marks -> isolate CJK chars and
+    punctuation -> whitespace split -> greedy longest-match WordPiece
+    with "##" continuations; unmatched words become [UNK].
+    ``encode_with_special`` wraps the ids in [CLS] ... [SEP] (what the
+    encoder actually consumes)."""
+
+    def __init__(self, tokens: Sequence[str], lower: bool = True,
+                 max_word_chars: int = 200,
+                 unk_id: Optional[int] = None,
+                 cls_id: Optional[int] = None,
+                 sep_id: Optional[int] = None,
+                 pad_id: Optional[int] = None):
+        self._pieces = [str(t) for t in tokens]
+        self._ids = {t: i for i, t in enumerate(self._pieces)}
+        self.vocab_size = len(self._pieces)
+        self.lower = lower
+        self.max_word_chars = max_word_chars
+
+        def find(name, fallback):
+            return self._ids.get(name, fallback)
+
+        self.unk_id = unk_id if unk_id is not None else find("[UNK]", 0)
+        self.cls_id = cls_id if cls_id is not None else find("[CLS]", 0)
+        self.sep_id = sep_id if sep_id is not None else find("[SEP]", 0)
+        self.pad_id = pad_id if pad_id is not None else find("[PAD]", 0)
+        # Protocol compat: BOS/EOS map to CLS/SEP.
+        self.bos_id, self.eos_id = self.cls_id, self.sep_id
+
+    # --- basic tokenization (HF BasicTokenizer semantics) -------------
+
+    @staticmethod
+    def _is_punct(ch: str) -> bool:
+        cp = ord(ch)
+        if (33 <= cp <= 47 or 58 <= cp <= 64 or 91 <= cp <= 96
+                or 123 <= cp <= 126):
+            return True
+        return unicodedata.category(ch).startswith("P")
+
+    @staticmethod
+    def _is_cjk(cp: int) -> bool:
+        return (0x4E00 <= cp <= 0x9FFF or 0x3400 <= cp <= 0x4DBF
+                or 0x20000 <= cp <= 0x2A6DF or 0x2A700 <= cp <= 0x2B73F
+                or 0x2B740 <= cp <= 0x2B81F or 0x2B820 <= cp <= 0x2CEAF
+                or 0xF900 <= cp <= 0xFAFF or 0x2F800 <= cp <= 0x2FA1F)
+
+    def _words(self, text: str) -> List[str]:
+        out: List[str] = []
+        for ch in text:
+            cp = ord(ch)
+            if cp == 0 or cp == 0xFFFD:
+                continue
+            cat = unicodedata.category(ch)
+            if cat in ("Cc", "Cf") and ch not in "\t\n\r":
+                continue
+            if ch.isspace():
+                out.append(" ")
+            elif self._is_cjk(cp):
+                out.extend((" ", ch, " "))
+            else:
+                out.append(ch)
+        text = "".join(out)
+        if self.lower:
+            text = text.lower()
+            text = unicodedata.normalize("NFD", text)
+            text = "".join(c for c in text
+                           if unicodedata.category(c) != "Mn")
+        words: List[str] = []
+        for tok in text.split():
+            run = ""
+            for ch in tok:
+                if self._is_punct(ch):
+                    if run:
+                        words.append(run)
+                        run = ""
+                    words.append(ch)
+                else:
+                    run += ch
+            if run:
+                words.append(run)
+        return words
+
+    def _wordpiece(self, word: str) -> List[int]:
+        if len(word) > self.max_word_chars:
+            return [self.unk_id]
+        ids: List[int] = []
+        start = 0
+        while start < len(word):
+            end = len(word)
+            cur = None
+            while start < end:
+                sub = word[start:end]
+                if start > 0:
+                    sub = "##" + sub
+                if sub in self._ids:
+                    cur = self._ids[sub]
+                    break
+                end -= 1
+            if cur is None:
+                return [self.unk_id]
+            ids.append(cur)
+            start = end
+        return ids
+
+    def encode(self, text: str, add_bos: bool = False) -> List[int]:
+        ids: List[int] = []
+        for w in self._words(text):
+            ids.extend(self._wordpiece(w))
+        if add_bos:
+            ids.insert(0, self.cls_id)
+        return ids
+
+    def encode_with_special(self, text: str) -> List[int]:
+        """[CLS] tokens [SEP] — the sequence BERT encoders consume."""
+        return [self.cls_id] + self.encode(text) + [self.sep_id]
+
+    def decode(self, ids: Sequence[int]) -> str:
+        parts: List[str] = []
+        for i in ids:
+            i = int(i)
+            if not (0 <= i < self.vocab_size):
+                continue
+            if i in (self.cls_id, self.sep_id, self.pad_id):
+                continue
+            p = self._pieces[i]
+            if p.startswith("##"):
+                parts.append(p[2:])
+            else:
+                if parts:
+                    parts.append(" ")
+                parts.append(p)
+        return "".join(parts)
+
+    def decode_token(self, token_id: int) -> str:
+        if not (0 <= token_id < self.vocab_size):
+            return ""
+        return self._pieces[token_id]

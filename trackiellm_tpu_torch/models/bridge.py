@@ -8,10 +8,14 @@ keep their bytes; bf16 arrays go through their uint16 view, because
 numpy arrays or anything ``numpy.asarray`` takes (JAX arrays included), so
 this module needs no JAX import.
 
+The embedder's, TrOCR's and AST's trees carry across through
+``params_from_jax`` unchanged: their matrices are ``(in, out)`` in both
+packages, and AST's one convolution (the strided patchify) is OIHW in both.
+
 ``hwio_tree_from_jax`` carries the vision models' trees (detector, MiDaS,
-OCR, DPT) across: the JAX package keeps convolutions HWIO for NHWC
-activations, this package OIHW for NCHW, so every 4-D leaf is transposed
-once, here (a depthwise (k, k, 1, C) becomes (C, 1, k, k)); 2-D matrices
+OCR, DPT) and the CNN sound classifier's across: the JAX package keeps
+convolutions HWIO for NHWC activations, this package OIHW for NCHW, so
+every 4-D leaf is transposed once, here (a depthwise (k, k, 1, C) becomes (C, 1, k, k)); 2-D matrices
 keep their (in, out) layout, and None leaves stay None.
 """
 

@@ -14,10 +14,10 @@ which the two packages read and write alike:
 
 So a checkpoint that the JAX package converted (``python -m trackiellm_tpu
 convert model.gguf -o DIR --bits 8``) loads here, and the reverse. The
-configs read are ``LLMConfig`` and the voice models' (``WhisperConfig``,
-``TTSConfig``, ``VITSConfig``); a Whisper checkpoint may also carry its
-config in the metadata (``whisper_config``), as the JAX package's
-``transcribe`` reads it.
+configs read are ``LLMConfig``, ``CLIPVisionConfig``, ``TrOCRConfig`` and
+the voice models' (``WhisperConfig``, ``TTSConfig``, ``VITSConfig``); a
+Whisper checkpoint may also carry its config in the metadata
+(``whisper_config``), as the JAX package's ``transcribe`` reads it.
 """
 
 from __future__ import annotations
@@ -53,7 +53,6 @@ _WAITING = {
     "Mamba2Config": "model zoo, models/mamba2.py (ROADMAP Queue 1 item 11)",
     "Qwen3NextConfig": ("model zoo, models/qwen3next.py (ROADMAP Queue 1 "
                         "item 11)"),
-    "TrOCRConfig": "vision, models/trocr.py (ROADMAP Queue 1 item 11)",
 }
 
 
@@ -168,7 +167,7 @@ def _unflatten(tree: Any, arrays: Dict[str, torch.Tensor]) -> Any:
 
 
 def _voice_config(cls: str):
-    """The voice and vision models' config classes, imported when a
+    """The voice, vision and OCR models' config classes, imported when a
     checkpoint names one (their modules import this one's neighbours, not
     this module)."""
     if cls == "CLIPVisionConfig":
@@ -183,6 +182,9 @@ def _voice_config(cls: str):
     if cls == "VITSConfig":
         from trackiellm_tpu_torch.models.vits import VITSConfig
         return VITSConfig
+    if cls == "TrOCRConfig":
+        from trackiellm_tpu_torch.models.trocr import TrOCRConfig
+        return TrOCRConfig
     return None
 
 
@@ -204,8 +206,8 @@ def _config(sidecar: Dict[str, Any], directory: str):
         raise NotImplementedError(
             f"{directory}: config class {cls!r} is not supported; the port "
             "loads LLMConfig checkpoints, the vision tower's "
-            "(CLIPVisionConfig) and the voice models' (WhisperConfig, "
-            "TTSConfig, VITSConfig)")
+            "(CLIPVisionConfig), TrOCR's (TrOCRConfig) and the voice "
+            "models' (WhisperConfig, TTSConfig, VITSConfig)")
     return config_cls(**{k: _tuples(v)
                          for k, v in sidecar["config"].items()})
 

@@ -47,6 +47,13 @@ and ``gguf_to_clip_params`` for a llama.cpp "mmproj" file) read
 transformers state dicts (``load_state_dict``) or GGUF tensors as host
 numpy and give the LLM tree (requantized on ``device`` when ``bits`` asks)
 and the CLIP/SigLIP tree of ``models/clip.py`` in f32.
+
+The perception models' converters give their trees in f32 on ``device``:
+``bert_from_hf`` and ``gguf_to_bert_params`` (with its WordPiece
+tokenizer) for ``models/embedder.py``, ``trocr_from_hf`` for
+``models/trocr.py``, ``ast_from_hf`` (with the checkpoint's labels) for
+``models/ast.py`` and ``sound_classifier_from_torch`` (OIHW) for
+``models/sound_classifier.py``.
 """
 
 from __future__ import annotations
@@ -2518,3 +2525,429 @@ def gguf_to_clip_params(path: str, *,
                  "w2": proj_w2.T, "b2": T("mm.2.bias")},
     }, vision_dtype, device)
     return clip_params, clip_cfg
+
+
+# ---------------------------------------------------------------------------
+# Perception models: the BERT embedder, TrOCR, AST, the CNN sound classifier
+# ---------------------------------------------------------------------------
+
+_BERT_LAYER_KEYS = ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo",
+                    "attn_norm_g", "attn_norm_b", "wi", "bi", "wd", "bd",
+                    "out_norm_g", "out_norm_b")
+
+
+def bert_from_hf(state: Dict[str, Any], pooling: str = "mean",
+                 device: Optional[torch.device] = None):
+    """``transformers.BertModel`` state dict (optionally "bert."-prefixed,
+    e.g. a BertForMaskedLM dump) -> (params, EmbedderConfig) for
+    models/embedder, in f32 on ``device`` (the CUDA card by default).
+    Covers the sentence-transformers zoo (all-MiniLM, BGE, GTE small/base:
+    llama.cpp's `bert` arch, the `llama-embedding` model family)."""
+    from trackiellm_tpu_torch.models.embedder import EmbedderConfig
+
+    device = default_device(device, "convert")
+    if "bert.embeddings.word_embeddings.weight" in state:
+        # BertForSequenceClassification/MaskedLM dump: strip the "bert."
+        # prefix but keep the top-level classifier head (the reranker's
+        # score head).
+        state = {(k[len("bert."):] if k.startswith("bert.") else k): v
+                 for k, v in state.items()}
+
+    def A(name):
+        return _f32(state[name])
+
+    word = A("embeddings.word_embeddings.weight")
+    pos = A("embeddings.position_embeddings.weight")
+    typ = A("embeddings.token_type_embeddings.weight")
+    n_layers = 0
+    while f"encoder.layer.{n_layers}.attention.self.query.weight" in state:
+        n_layers += 1
+    hidden = word.shape[1]
+    inter = int(A("encoder.layer.0.intermediate.dense.weight").shape[0])
+    # Head count is not in the weights; every published BERT uses
+    # hidden/64 heads (MiniLM 384/12 included) unless overridden.
+    n_heads = max(1, hidden // 64)
+
+    L: Dict[str, list] = {k: [] for k in _BERT_LAYER_KEYS}
+    for i in range(n_layers):
+        pre = f"encoder.layer.{i}"
+        for short, name in (("q", "attention.self.query"),
+                            ("k", "attention.self.key"),
+                            ("v", "attention.self.value"),
+                            ("o", "attention.output.dense"),
+                            ("i", "intermediate.dense"),
+                            ("d", "output.dense")):
+            L[f"w{short}"].append(A(f"{pre}.{name}.weight").T)
+            L[f"b{short}"].append(A(f"{pre}.{name}.bias"))
+        for ours, theirs in (("attn_norm", "attention.output.LayerNorm"),
+                             ("out_norm", "output.LayerNorm")):
+            L[f"{ours}_g"].append(A(f"{pre}.{theirs}.weight"))
+            L[f"{ours}_b"].append(A(f"{pre}.{theirs}.bias"))
+
+    cfg = EmbedderConfig(
+        vocab_size=word.shape[0], hidden=hidden, n_layers=n_layers,
+        n_heads=n_heads, intermediate=inter, max_pos=pos.shape[0],
+        type_vocab=typ.shape[0], pooling=pooling)
+    tree = {
+        "word_emb": word, "pos_emb": pos, "type_emb": typ,
+        "emb_norm": {"g": A("embeddings.LayerNorm.weight"),
+                     "b": A("embeddings.LayerNorm.bias")},
+        "layers": L,
+        "pooler": ({"w": A("pooler.dense.weight").T,
+                    "b": A("pooler.dense.bias")}
+                   if "pooler.dense.weight" in state else
+                   {"w": np.eye(hidden, dtype=np.float32),
+                    "b": np.zeros((hidden,), np.float32)}),
+    }
+    if "classifier.weight" in state:
+        # Reranker / sequence-classification head: scores come from
+        # classifier(pooler(CLS)), llama.cpp's cls.output.
+        tree["cls_out"] = {"w": A("classifier.weight").T,
+                           "b": A("classifier.bias")}
+    return _vision_tree(tree, torch.float32, device), cfg
+
+
+def gguf_to_bert_params(path: str, pooling: Optional[str] = None,
+                        device: Optional[torch.device] = None):
+    """llama.cpp ``bert``-architecture GGUF (all-MiniLM/BGE embedding
+    checkpoints, `llama-embedding`) -> (params, EmbedderConfig,
+    WordPieceTokenizer | None), params in f32 on ``device``.
+
+    Tensor names (llama.cpp constants): token_embd / token_types /
+    position_embd / token_embd_norm, blk.{i}.attn_{q,k,v,output}(+bias),
+    attn_output_norm, ffn_{up,down}(+bias), layer_output_norm. Pooling
+    comes from ``{arch}.pooling_type`` (1=mean, 2=cls) unless
+    overridden."""
+    from trackiellm_tpu_torch.llm.tokenizer import WordPieceTokenizer
+    from trackiellm_tpu_torch.models.embedder import EmbedderConfig
+
+    device = default_device(device, "convert")
+    gguf = read_gguf_header(path)
+    md = gguf.metadata
+    arch = gguf.architecture or "bert"
+
+    def get(key, default=None):
+        return md.get(f"{arch}.{key}", default)
+
+    hidden = int(get("embedding_length"))
+    n_layers = int(get("block_count"))
+    n_heads = int(get("attention.head_count", max(1, hidden // 64)))
+    inter = int(get("feed_forward_length"))
+    eps = float(get("attention.layer_norm_epsilon", 1e-12))
+    max_pos = int(get("context_length", 512))
+    if pooling is None:
+        pooling = {1: "mean", 2: "cls"}.get(
+            int(md.get(f"{arch}.pooling_type", 1) or 1), "mean")
+
+    def T(name):
+        return _f32(load_gguf_tensor(gguf, name))
+
+    def opt(name, shape):
+        return T(name) if name in gguf.tensors else np.zeros(shape,
+                                                             np.float32)
+
+    word = T("token_embd.weight")
+    L: Dict[str, list] = {k: [] for k in _BERT_LAYER_KEYS}
+    for i in range(n_layers):
+        pre = f"blk.{i}"
+        for short, name, width in (("q", "attn_q", hidden),
+                                   ("k", "attn_k", hidden),
+                                   ("v", "attn_v", hidden),
+                                   ("o", "attn_output", hidden),
+                                   ("i", "ffn_up", inter),
+                                   ("d", "ffn_down", hidden)):
+            L[f"w{short}"].append(T(f"{pre}.{name}.weight").T)
+            L[f"b{short}"].append(opt(f"{pre}.{name}.bias", (width,)))
+        for ours, theirs in (("attn_norm", "attn_output_norm"),
+                             ("out_norm", "layer_output_norm")):
+            L[f"{ours}_g"].append(T(f"{pre}.{theirs}.weight"))
+            L[f"{ours}_b"].append(T(f"{pre}.{theirs}.bias"))
+
+    typ = opt("token_types.weight", (2, hidden))
+    cfg = EmbedderConfig(
+        vocab_size=word.shape[0], hidden=hidden, n_layers=n_layers,
+        n_heads=n_heads, intermediate=inter, max_pos=max_pos,
+        type_vocab=typ.shape[0], eps=eps, pooling=pooling)
+    tree = {
+        "word_emb": word, "pos_emb": T("position_embd.weight"),
+        "type_emb": typ,
+        "emb_norm": {"g": T("token_embd_norm.weight"),
+                     "b": T("token_embd_norm.bias")},
+        "layers": L,
+        "pooler": {"w": np.eye(hidden, dtype=np.float32),
+                   "b": np.zeros((hidden,), np.float32)},
+    }
+    rank = ("cls.weight", "cls.bias", "cls.output.weight", "cls.output.bias")
+    if all(name in gguf.tensors for name in rank):
+        # Reranker checkpoints: cls dense (tanh) + cls.output score.
+        tree["pooler"] = {"w": T("cls.weight").T, "b": T("cls.bias")}
+        tree["cls_out"] = {"w": T("cls.output.weight").T,
+                           "b": T("cls.output.bias")}
+    tokenizer = None
+    if (md.get("tokenizer.ggml.model") == "bert"
+            and md.get("tokenizer.ggml.tokens")):
+        def mi(key, alt=None):
+            v = md.get(key, md.get(alt) if alt else None)
+            return None if v is None else int(v)
+
+        tokenizer = WordPieceTokenizer(
+            list(md["tokenizer.ggml.tokens"]),
+            unk_id=mi("tokenizer.ggml.unknown_token_id"),
+            cls_id=mi("tokenizer.ggml.cls_token_id",
+                      "tokenizer.ggml.bos_token_id"),
+            sep_id=mi("tokenizer.ggml.seperator_token_id",
+                      "tokenizer.ggml.eos_token_id"),
+            pad_id=mi("tokenizer.ggml.padding_token_id"))
+    return _vision_tree(tree, torch.float32, device), cfg, tokenizer
+
+
+def _vit_stack(A, pre: str, n: int) -> Dict[str, list]:
+    """An HF ViT/DeiT/AST encoder's layers ``{pre}.{i}.*`` as stacked
+    lists in models/trocr.py's ``_vit_layer`` names."""
+    L: Dict[str, list] = {k: [] for k in (
+        "ln1_g", "ln1_b", "ln2_g", "ln2_b", "wq", "bq", "wk", "bk", "wv",
+        "bv", "wo", "bo", "w1", "b1", "w2", "b2")}
+    for i in range(n):
+        for ours, theirs in (("ln1", "layernorm_before"),
+                             ("ln2", "layernorm_after")):
+            L[f"{ours}_g"].append(A(f"{pre}.{i}.{theirs}.weight"))
+            L[f"{ours}_b"].append(A(f"{pre}.{i}.{theirs}.bias"))
+        for ours, theirs in (("q", "attention.attention.query"),
+                             ("k", "attention.attention.key"),
+                             ("v", "attention.attention.value"),
+                             ("o", "attention.output.dense"),
+                             ("1", "intermediate.dense"),
+                             ("2", "output.dense")):
+            L[f"w{ours}"].append(A(f"{pre}.{i}.{theirs}.weight").T)
+            L[f"b{ours}"].append(A(f"{pre}.{i}.{theirs}.bias"))
+    return L
+
+
+def _strict(state: Dict[str, Any]):
+    """A state dict reader that names a missing key."""
+    def A(name: str) -> np.ndarray:
+        if name not in state:
+            raise KeyError(name)
+        return _f32(state[name])
+    return A
+
+
+def trocr_from_hf(state: Dict[str, Any],
+                  config: Optional[Dict[str, Any]] = None, *,
+                  enc_heads: Optional[int] = None,
+                  dec_heads: Optional[int] = None, max_len: int = 64,
+                  dtype: torch.dtype = torch.float32,
+                  device: Optional[torch.device] = None):
+    """HF TrOCR (``VisionEncoderDecoderModel``: ViT/DeiT encoder + TrOCR
+    decoder, microsoft/trocr-{small,base,large}-{printed,handwritten})
+    state dict -> (params, TrOCRConfig) for models/trocr.py, on ``device``
+    (the CUDA card by default).
+
+    Geometry is shape-derived (patch size, dims, layer counts, DeiT
+    distillation token); head counts and special ids come from ``config``
+    (the HF config dict) or the explicit arguments."""
+    from trackiellm_tpu_torch.models.trocr import TrOCRConfig
+
+    device = default_device(device, "convert")
+    config = config or {}
+    enc_cfg = config.get("encoder", {})
+    dec_cfg = config.get("decoder", {})
+    A = _strict(state)
+
+    # --- encoder geometry from shapes ---
+    pw = A("encoder.embeddings.patch_embeddings.projection.weight")
+    enc_dim, in_ch, ps, _ = pw.shape
+    pos = A("encoder.embeddings.position_embeddings")[0]  # (S, D)
+    has_dist = "encoder.embeddings.distillation_token" in state
+    n_prefix = 2 if has_dist else 1
+    n_patches = pos.shape[0] - n_prefix
+    image_size = ps * int(round(n_patches ** 0.5))
+    if image_size // ps * (image_size // ps) != n_patches:
+        raise TrackieError(
+            ErrorCode.MODEL_METADATA_INVALID,
+            f"non-square patch grid: {n_patches} patches of {ps}px")
+    n_enc = len({k.split(".")[3] for k in state
+                 if k.startswith("encoder.encoder.layer.")})
+    n_dec = len({k.split(".")[4] for k in state
+                 if k.startswith("decoder.model.decoder.layers.")})
+    emb = A("decoder.model.decoder.embed_tokens.weight")
+    vocab, d_model = emb.shape
+    ffn = A("decoder.model.decoder.layers.0.fc1.weight").shape[0]
+    dec_pos = A("decoder.model.decoder.embed_positions.weight")
+    ln_emb = "decoder.model.decoder.layernorm_embedding.weight" in state
+
+    e_heads = enc_heads or int(enc_cfg.get("num_attention_heads") or
+                               {192: 3, 384: 6, 768: 12, 1024: 16}
+                               .get(enc_dim, 12))
+    d_heads = dec_heads or int(dec_cfg.get("decoder_attention_heads") or
+                               {256: 8, 512: 8, 1024: 16}
+                               .get(d_model, 16))
+    cfg = TrOCRConfig(
+        image_size=int(enc_cfg.get("image_size", image_size)),
+        patch_size=ps, enc_dim=enc_dim, enc_layers=n_enc,
+        enc_heads=e_heads,
+        enc_hidden=A("encoder.encoder.layer.0.intermediate.dense"
+                     ".weight").shape[0],
+        n_prefix=n_prefix,
+        enc_eps=float(enc_cfg.get("layer_norm_eps", 1e-12)),
+        vocab_size=vocab, d_model=d_model, dec_layers=n_dec,
+        dec_heads=d_heads, dec_ffn=ffn,
+        max_len=min(max_len, dec_pos.shape[0] - 2),
+        scale_embedding=bool(dec_cfg.get("scale_embedding", False)),
+        layernorm_embedding=ln_emb,
+        dec_eps=float(dec_cfg.get("layer_norm_eps", 1e-5)),
+        act=str(dec_cfg.get("activation_function", "gelu")),
+        decoder_start_id=int(next(
+            v for v in (config.get("decoder_start_token_id"),
+                        dec_cfg.get("decoder_start_token_id"),
+                        dec_cfg.get("eos_token_id"), 2)
+            if v is not None)),
+        eos_id=int(dec_cfg.get("eos_token_id", 2)),
+        pad_id=int(dec_cfg.get("pad_token_id", 1)),
+    )
+    if in_ch != 3:
+        raise TrackieError(ErrorCode.MODEL_METADATA_INVALID,
+                           f"expected 3-channel patch conv, got {in_ch}")
+
+    prefix = [A("encoder.embeddings.cls_token")[0, 0]]
+    if has_dist:
+        prefix.append(A("encoder.embeddings.distillation_token")[0, 0])
+    enc = {
+        "patch_w": pw.reshape(enc_dim, -1).T,
+        "patch_b": A("encoder.embeddings.patch_embeddings.projection.bias"),
+        "prefix": np.stack(prefix),
+        "pos": pos,
+        "ln_g": A("encoder.layernorm.weight"),
+        "ln_b": A("encoder.layernorm.bias"),
+        "layers": _vit_stack(A, "encoder.encoder.layer", n_enc),
+    }
+
+    DL: Dict[str, list] = {}
+    dpre = "decoder.model.decoder.layers"
+    for ours, theirs in (("wq", "self_attn.q_proj"),
+                         ("wk", "self_attn.k_proj"),
+                         ("wv", "self_attn.v_proj"),
+                         ("wo", "self_attn.out_proj"),
+                         ("cq", "encoder_attn.q_proj"),
+                         ("ck", "encoder_attn.k_proj"),
+                         ("cv", "encoder_attn.v_proj"),
+                         ("co", "encoder_attn.out_proj"),
+                         ("w1", "fc1"), ("w2", "fc2")):
+        DL[ours] = [A(f"{dpre}.{i}.{theirs}.weight").T for i in range(n_dec)]
+        bias = "b" + ours[1:] if ours[0] == "w" else "cb" + ours[1:]
+        DL[bias] = [A(f"{dpre}.{i}.{theirs}.bias") for i in range(n_dec)]
+    for ours, theirs in (("ln_sa", "self_attn_layer_norm"),
+                         ("ln_ca", "encoder_attn_layer_norm"),
+                         ("ln_f", "final_layer_norm")):
+        DL[f"{ours}_g"] = [A(f"{dpre}.{i}.{theirs}.weight")
+                           for i in range(n_dec)]
+        DL[f"{ours}_b"] = [A(f"{dpre}.{i}.{theirs}.bias")
+                           for i in range(n_dec)]
+    dec = {
+        "embed": emb,
+        "pos": dec_pos,
+        "out_w": A("decoder.output_projection.weight"),
+        "layers": DL,
+    }
+    if ln_emb:
+        dec["ln_emb_g"] = A("decoder.model.decoder.layernorm_embedding"
+                            ".weight")
+        dec["ln_emb_b"] = A("decoder.model.decoder.layernorm_embedding"
+                            ".bias")
+    return _vision_tree({"enc": enc, "dec": dec}, dtype, device), cfg
+
+
+def ast_from_hf(state: Dict[str, Any],
+                config: Optional[Dict[str, Any]] = None, *,
+                n_heads: int = 0, dtype: torch.dtype = torch.float32,
+                device: Optional[torch.device] = None):
+    """HF ``ASTForAudioClassification`` (MIT/ast-finetuned-audioset-*)
+    state dict -> (params, ASTConfig, labels) for models/ast.py, on
+    ``device`` (the CUDA card by default).
+
+    Geometry is shape-derived where possible (dim, patch, layer count,
+    label count); the strides and input frame/mel extents come from
+    ``config`` (the HF config dict: not derivable from weights alone; the
+    position embeddings' length cross-checks them). ``labels`` is the
+    ordered id2label list (empty when the config carries none)."""
+    from trackiellm_tpu_torch.models.ast import ASTConfig
+
+    device = default_device(device, "convert")
+    config = config or {}
+    pre = "audio_spectrogram_transformer"
+    A = _strict(state)
+
+    pw = A(f"{pre}.embeddings.patch_embeddings.projection.weight")
+    dim, in_ch, patch, _ = pw.shape
+    if in_ch != 1:
+        raise TrackieError(ErrorCode.MODEL_METADATA_INVALID,
+                           f"expected 1-channel patch conv, got {in_ch}")
+    n_layers = len({k.split(".")[3] for k in state
+                    if k.startswith(f"{pre}.encoder.layer.")})
+    head_w = A("classifier.dense.weight")
+    n_labels = head_w.shape[0]
+    pos = A(f"{pre}.embeddings.position_embeddings")[0]
+
+    cfg = ASTConfig(
+        n_mels=int(config.get("num_mel_bins", 128)),
+        n_frames=int(config.get("max_length", 1024)),
+        patch=patch,
+        fstride=int(config.get("frequency_stride", 10)),
+        tstride=int(config.get("time_stride", 10)),
+        dim=dim, n_layers=n_layers,
+        n_heads=n_heads or int(config.get("num_attention_heads")
+                               or {192: 3, 384: 6, 768: 12}.get(dim, 12)),
+        hidden=A(f"{pre}.encoder.layer.0.intermediate.dense.weight"
+                 ).shape[0],
+        eps=float(config.get("layer_norm_eps", 1e-12)),
+        n_labels=n_labels)
+    if pos.shape[0] != cfg.n_patches + 2:
+        raise TrackieError(
+            ErrorCode.MODEL_METADATA_INVALID,
+            f"position embeddings carry {pos.shape[0]} tokens but the "
+            f"config geometry gives {cfg.n_patches}+2: check "
+            f"num_mel_bins/max_length/strides")
+
+    tree = {
+        "patch_w": pw,
+        "patch_b": A(f"{pre}.embeddings.patch_embeddings.projection.bias"),
+        "prefix": np.stack([A(f"{pre}.embeddings.cls_token")[0, 0],
+                            A(f"{pre}.embeddings.distillation_token")[0, 0]]),
+        "pos": pos,
+        "ln_g": A(f"{pre}.layernorm.weight"),
+        "ln_b": A(f"{pre}.layernorm.bias"),
+        "head_ln_g": A("classifier.layernorm.weight"),
+        "head_ln_b": A("classifier.layernorm.bias"),
+        "head_w": head_w.T,
+        "head_b": A("classifier.dense.bias"),
+        "layers": _vit_stack(A, f"{pre}.encoder.layer", n_layers),
+    }
+    id2label = config.get("id2label") or {}
+    labels = [str(id2label.get(str(i), id2label.get(i, "")))
+              for i in range(n_labels)] if id2label else []
+    return _vision_tree(tree, dtype, device), cfg, labels
+
+
+def sound_classifier_from_torch(state: Dict[str, Any], n_mels: int = 64,
+                                n_frames: int = 96,
+                                device: Optional[torch.device] = None):
+    """Conv+pool classifier checkpoint -> (params, SoundClassifierConfig)
+    for models/sound_classifier, OIHW convolutions on ``device`` (the CUDA
+    card by default). Parity: the reference's ONNX ambient classifier
+    (src/audio/tk_sound_classifier.c:14)."""
+    from trackiellm_tpu_torch.models.sound_classifier import (
+        SoundClassifierConfig)
+
+    device = default_device(device, "convert")
+    ch = int(np.shape(state["conv2.weight"])[0])
+    ncls = int(np.shape(state["out.weight"])[0])
+    params = {
+        "conv1": _plain_conv(state, "conv1", device),
+        "conv2": _plain_conv(state, "conv2", device),
+        "conv3": _plain_conv(state, "conv3", device),
+        "out_w": _on(_f32(state["out.weight"]).T, device),
+        "out_b": _on(state["out.bias"], device),
+    }
+    cfg = SoundClassifierConfig(n_mels=n_mels, n_frames=n_frames, ch=ch,
+                                num_classes=ncls)
+    return params, cfg
