@@ -28,7 +28,11 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      sinks, with sinks and window 128); the multimodal path's
      (``VLM_MATMULS``: W4A8 on PaliGemma's lm_head, N = 257,216, and its
      w_down, K = 16,384; f32a on LLaVA's w_gu and w_down at M 1024 and
-     2048; ``VLM_FLASH``: (32, 32) heads, D = 128, S = 1024); the fused MLP block at M in {1,
+     2048; ``VLM_FLASH``: (32, 32) heads, D = 128, S = 1024); the MLA and
+     Mamba paths' (``MLA_MATMULS``: W4A8 at DeepSeek-V2-Lite's projections,
+     group 64, and Mamba-2.8B's, group 256; ``MLA_FLASH``: D = 192 at (16,
+     16) heads, S = 512, causal, bf16 and f32, with the kernels' registers
+     and spills); the fused MLP block at M in {1,
      4, 8}, D 4096, H 14336, bf16 and f32, also timed against the unfused
      path per call and on the device alone; the stream probe over 512 MiB,
      grid64 (64 steps in one block) and a 64-call chain_tiny on (8, 128)),
@@ -288,10 +292,32 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      question retrieved first by cosine, the CNN's forced ALARM spoken at
      CRITICAL, the reply at its priority, the OCR run, ``failures()``
      empty, W4A8, its quantization and flash launched. One
-     ``{"perception": ...}`` line before the surfaces line; the smoke's
-     wall and then ``{"phase_seconds": ..., "wall_s": ...}`` on the two
-     lines before it.
-Phases 5-20 zero every launch counter just before they drive their path and
+     ``{"perception": ...}`` line before the surfaces line.
+ 21. MLA and Mamba families (the constants above MLA_LAYERS): (a)
+     DeepSeek-V2-Lite at its published widths, Q4 group 64 (32 where 64
+     does not divide K/2), cut to dense layer 0 and 3 MoE layers, max_seq
+     1024, behind ``LLMRunner(model=mla)``: the cortex prompt (bucket 512:
+     flash at D = 192 once a layer, counted) and 16 greedy tokens at
+     lookahead 4, a second turn through ``extend``; a burst of 4 queued
+     whole on ``LLMServer(model=mla)`` (4 dense latent slots) with the
+     runner's ids; (b) card against CPU: V2-Lite's first 2 layers at
+     buckets 64 and 256 and 8 decode steps on the card's experts within
+     WIDTH_TOL (router flips within twice the router noise), the V2 and V3
+     knob sets at tiny widths in f32 through ``deepseek_v2_from_hf`` and
+     ``deepseek_v3_from_hf`` within 1e-4, DeepSeek-V3's published widths
+     at 2 layers on the card (a bucket-256 prefill at 128 heads, 4 tokens,
+     finite); (c) Mamba-2.8B at its 64 layers, Q4, behind ``MambaRunner``
+     (the cortex prompt in chunks of 256, 16 tokens), a burst of 4 on
+     ``LLMServer(model=mamba)`` with the runner's ids, its first 2 layers
+     card against CPU at buckets 64 and 256; (d) Mamba-Codestral-7B's
+     widths in bf16 at 4 layers behind ``MambaRunner`` (no kernel: the
+     reference's Mamba-2 projections are plain matmuls) and 2 layers in f32
+     card against CPU within 1e-4; (e) a deepseek2 and a mamba GGUF written
+     here through ``inspect``, ``convert`` (--bits 4, --bits 8) and
+     ``generate``. One ``{"mla_mamba": ...}`` line before the perception
+     line; the smoke's wall and then ``{"phase_seconds": ..., "wall_s":
+     ...}`` on the two lines before it.
+Phases 5-21 zero every launch counter just before they drive their path and
 read them just after: the path's kernels must have launched, and the routes
 it does not take must not have (no serving path launches the streaming Q4
 or a probe; phase 9 must launch all four; phases 13 and 14 launch none).
@@ -300,7 +326,8 @@ phases 5-7 greedy text must not depend on the lookahead depth, in phase 10
 not on speculation, and every logit vector must be finite. Phase 3's
 device-only times come from profiles whose launch count matches the calls
 (``device_only_ms``). Each phase's first line ends with the seconds since
-the build began. The ``perception`` line, the ``surfaces`` line, the
+the build began. The ``mla_mamba`` line, the ``perception`` line, the
+``surfaces`` line, the
 ``vlm`` line, the ``moe``
 line, the ``families`` line, the ``app`` line, the ``vision`` line, then
 the ``voice`` line, come just before the last five lines, which are the
@@ -440,7 +467,11 @@ Q4_K_M = {"token_embd": GGML_Q4_K, "output": GGML_Q6_K,
           "attn_q": GGML_Q4_K, "attn_k": GGML_Q4_K, "attn_v": GGML_Q6_K,
           "attn_output": GGML_Q4_K, "ffn_gate": GGML_Q4_K,
           "ffn_up": GGML_Q4_K, "ffn_down": GGML_Q6_K}
-GGUF_TOKENS = 16     # tokens of phase 11's generate (32 before the budget)
+# Tokens of phase 11's generate: 32, then 16 for the 600-s budget of
+# phases 1-17, then 8 to pay for phase 21 (phase 11 took 43.5 s at 16, and
+# 53.9 s at 8 in a call slower throughout, then 40.6 s; on an H100 80GB
+# HBM3 at 700 W).
+GGUF_TOKENS = 8
 
 
 def log(msg: str) -> None:
@@ -853,6 +884,47 @@ def vlm_kernel_cases(rows, quant, attention, gen, dev) -> None:
                True, d=d)
 
 
+# Phase 3's cases of the MLA and Mamba families (phase 21): W4A8 at
+# DeepSeek-V2-Lite's Q4 projections (group 64: wq, wo, an expert's w_gu and
+# w_down, lm_head) and Mamba-2.8B's (group 256: w_in, w_x, w_out), at
+# decode and (w_gu, w_in) a bucket-512 prompt's rows; flash at MLA's head
+# dim 192 (128 + 64 rope dims, V zero-padded to 192), 16 heads of their
+# own, S = 512, causal at scale 1/sqrt(192) (the kernel's default at
+# D = 192), bf16 (the model's) and f32, with the kernels' registers and
+# spills.
+MLA_MATMULS = (  # (case name, K, N, group, M values, kernels)
+    ("deepseek wq G=64", 2048, 3072, 64, (1,), ("q4_matmul_w4a8",)),
+    ("deepseek wo G=64", 2048, 2048, 64, (1,), ("q4_matmul_w4a8",)),
+    ("deepseek expert w_gu G=64", 2048, 2816, 64, (1, 512),
+     ("q4_matmul_w4a8",)),
+    ("deepseek expert w_down G=64", 1408, 2048, 64, (1,),
+     ("q4_matmul_w4a8",)),
+    ("deepseek lm_head N=102400 G=64", 2048, 102400, 64, (1,),
+     ("q4_matmul_w4a8",)),
+    ("mamba w_in", 2560, 10240, 256, (1, 512), ("q4_matmul_w4a8",)),
+    ("mamba w_x N=192", 5120, 192, 256, (1,), ("q4_matmul_w4a8",)),
+    ("mamba w_out", 5120, 2560, 256, (1,), ("q4_matmul_w4a8",)),
+)
+MLA_FLASH = (192, (16, 16), 512)   # D, (H, Hk), S: causal
+
+
+def mla_kernel_cases(rows, quant, attention, gen, dev) -> None:
+    """Phase 3, the MLA and Mamba paths' shapes (MLA_MATMULS, MLA_FLASH),
+    each against its plain version with times and bound (SDPA's for causal
+    bf16 flash), and the D = 192 kernels' registers, spill bytes and
+    shared memory."""
+    matmul_table_cases(rows, quant, MLA_MATMULS, gen, dev)
+    d, heads, s = MLA_FLASH
+    for dtype in (torch.bfloat16, torch.float32):
+        attrs = attention.flash_kernel_attrs(d, dtype)
+        log(f"  flash D={d} {str(dtype)[6:]} kernel: {attrs['regs']} "
+            f"registers a thread, {attrs['local_bytes']} spill bytes, "
+            f"{attrs['smem_bytes']} shared bytes a block")
+        flash_case(rows, attention, gen, dev, heads, s, dtype, {},
+                   f"causal S={s} D={d} {str(dtype)[6:]}",
+                   dtype == torch.bfloat16, d=d)
+
+
 def phase_kernels(dev, quant, attention, fused, llm, diag, serve):
     """Phase 3: every kernel against its plain version, times beside, at
     the model paths' shapes and at those of phase 12's waves (``serve``,
@@ -916,6 +988,7 @@ def phase_kernels(dev, quant, attention, fused, llm, diag, serve):
     family_kernel_cases(rows, quant, attention, gen, dev)
     moe_kernel_cases(rows, quant, attention, gen, dev)
     vlm_kernel_cases(rows, quant, attention, gen, dev)
+    mla_kernel_cases(rows, quant, attention, gen, dev)
     d, hid, grp = FUSED_SHAPE
     w_gu = quant.quantize_q4(torch.randn((d, 2 * hid), generator=gen,
                                          device=dev) / math.sqrt(d), grp)
@@ -1119,8 +1192,9 @@ def levers_on(names=LEVERS):
 
 
 class LogitWatch:
-    """Wraps the model's forward entry points (and, given ``paging``, the
-    paged batch step) to record, without a host sync, whether each logit
+    """Wraps the forward entry points a model module has (``models.llm``'s,
+    or ``models.mla``'s and ``models.mamba``'s; given ``paging``, the paged
+    batch step too) to record, without a host sync, whether each logit
     tensor they return is finite."""
 
     NAMES = ("prefill", "extend", "decode_step", "prefill_batch",
@@ -1128,7 +1202,7 @@ class LogitWatch:
 
     def __init__(self, llm, paging=None):
         self.flags = []
-        targets = [(llm, n) for n in self.NAMES]
+        targets = [(llm, n) for n in self.NAMES if hasattr(llm, n)]
         if paging is not None:
             targets.append((paging, "decode_step_batch_paged"))
         self.orig = [(m, n, getattr(m, n)) for m, n in targets]
@@ -2642,9 +2716,10 @@ VOICE_RATE = 48_000          # given at the microphone's rate: resample_poly
 VOICE_WINDOWS = (1500, 500)  # n_audio_ctx: 30 s, and the app's 10 s
 # max_tokens of every transcription: cut from 96 to 48 to bring phases 1-17
 # under their 600-s budget (phase 13 took 41.9 s at 96, 31.6-48.7 s at 48
-# in later calls; on an H100 80GB HBM3 at 700 W); the ids-equality and
-# logit checks stay.
-VOICE_TOKENS = 48
+# in later calls; on an H100 80GB HBM3 at 700 W), then to 24 with
+# VOICE_PROFILE_TOKENS 8 to pay for phase 21 (51.2 s at 48 and 16, 35.4-42.2
+# s at 24 and 8); the ids-equality and logit checks stay.
+VOICE_TOKENS = 24
 VOICE_FORCED = 8             # teacher-forced decode steps of the logit check
 VOICE_LOGIT_TOL = 1e-4       # rel L2, card against CPU
 LARGE_V3_LAYERS = 2          # encoder and decoder layers of (b)
@@ -2657,8 +2732,8 @@ VITS_TOL = 1e-4              # rel L2, card against CPU, injected noise
 # Decode steps of the profiled window: cut from 32 to 16 to bring phases
 # 1-17 under their 600-s budget (phase 13 took 39.9 s at 32 and
 # VOICE_TOKENS 48, 31.6 s at 16 in a later call; on an H100 80GB HBM3 at
-# 700 W).
-VOICE_PROFILE_TOKENS = 16
+# 700 W), then to 8 (above VOICE_TOKENS).
+VOICE_PROFILE_TOKENS = 8
 VOICE_PROFILE_ENCODES = 5    # encoder calls of the profiled window
 VOICE_PROFILE_FLAG = "--voice-profile"
 # whisper.cpp's converter keeps these f32 in an f16 file.
@@ -3287,8 +3362,9 @@ def voice_profile_child() -> dict:
 # Timed frames of each pipeline (p50) and timed calls of each stage: cut
 # from 20 and 10 to 5 and 3 to bring phases 1-17 under their 600-s budget
 # (phase 14 took 38.3 s at 20 and 10, 26.7-48.4 s at 10 and 5 in later
-# calls; on an H100 80GB HBM3 at 700 W).
-VISION_FRAMES = 5
+# calls; on an H100 80GB HBM3 at 700 W); then 3 frames to pay for phase 21
+# (48.5 s at 5, 33.4-38.3 s at 3).
+VISION_FRAMES = 3
 VISION_WARM = 1               # frames before them (3 before the budget)
 VISION_STAGE_ITERS = 3
 VISION_DET_TOL = 1e-5         # rel L2, raw boxes and class probabilities
@@ -3798,8 +3874,9 @@ def vision_profile_child() -> dict:
 APP_DEMO_SECONDS = 4          # the demo's run
 # Measured app runs after the warm one: cut from 3 to 2 to bring phases
 # 1-17 under their 600-s budget (phase 15 took 40.4 s at 3, 28.5 s at 2
-# in a later call; on an H100 80GB HBM3 at 700 W).
-APP_RUNS = 2
+# in a later call; on an H100 80GB HBM3 at 700 W), then to 1 to pay for
+# phase 21 (41.6 s at 2, 29.6-30.7 s at 1).
+APP_RUNS = 1
 APP_REPLY_PRIORITY = 1        # TTSPriority.NORMAL: the LLM reply's speech
 APP_TIMEOUT = 900.0           # the measuring child's limit, seconds
 WAKE_WINDOWS = 16             # scored windows, keyword-like and not
@@ -3989,10 +4066,12 @@ def phase_app(dev, cli, counters, e2e) -> dict:
 # FAMILY_SWEEP_MAX_SEQ, which keeps every window that was on), Q4 at the
 # largest group dividing every K/2: card against CPU prefill. (c) Tiny GGUFs
 # of the arches with no preset, converted and answered from.
-# (a)'s greedy and served tokens: cut from 32 to 16 to bring phases 1-17
-# under their 600-s budget (phase 16 took 90.9 s at 32, 53.1 s at 16 in a
-# later call; on an H100 80GB HBM3 at 700 W).
-FAMILY_TOKENS = 16
+# (a)'s greedy, served and profiled tokens: cut from 32 to 16 to bring
+# phases 1-17 under their 600-s budget (phase 16 took 90.9 s at 32, 53.1 s
+# at 16 in a later call; on an H100 80GB HBM3 at 700 W), then to 8 with
+# FAMILY_GGUF_TOKENS 4 to pay for phase 21 (78.9 s at 16 and 8, 71.3-75.3
+# s at 8 and 4).
+FAMILY_TOKENS = 8
 FAMILY_SERVE_MAX_SEQ = 2048
 FAMILY_LLAMA_MAX_SEQ = 2048
 # (a)'s depths: Gemma-2-9B's 42 and Llama-3.1-8B's 32 layers cut to 8
@@ -4022,7 +4101,7 @@ PHI3_LONG_SIDE = 4352
 # (c): the arches with no preset, at widths the default group takes.
 FAMILY_GGUF_ARCHES = ("command-r", "nemotron", "starcoder2")
 FAMILY_GGUF_WIDTHS = (512, 2, 4, 2, 1024, 384)  # dim, layers, H, Hk, hid, V
-FAMILY_GGUF_TOKENS = 8     # 16 before the smoke's 600-s budget
+FAMILY_GGUF_TOKENS = 4     # 16, then 8 (above FAMILY_TOKENS)
 FAMILY_PROFILE_FLAG = "--families-profile"
 FAMILY_PROFILE_TIMEOUT = 600.0
 
@@ -4492,7 +4571,10 @@ def phase_families(dev, llm, runner_mod, tokenizer_mod, server_mod, paging,
 # MOE_GPTOSS_LAYERS, 105.1 for (c); 91.9-183.0 s at 6, 16, 6 and 1 (4 for
 # Llama-4) in later calls; on an H100 80GB HBM3 at 700 W).
 MOE_GPTOSS_LAYERS = 2
-MOE_TOKENS = 16
+# gpt-oss-20b's and Qwen3-30B-A3B's greedy and served tokens: 16, then 8 to
+# pay for phase 21 (phase 17 took 110.2 s at 16, 87.9-97.3 s at 8; on an
+# H100 80GB HBM3 at 700 W).
+MOE_TOKENS = 8
 MOE_GPTOSS_MAX_SEQ = 4096
 MOE_QWEN3_MAX_SEQ = 2048
 # Qwen3-30B-A3B's 48 layers cut to 12: its dense-all-experts decode token
@@ -4500,7 +4582,7 @@ MOE_QWEN3_MAX_SEQ = 2048
 # phase 17 past 250 s (0.50 s a token at 12 layers on an H100 80GB HBM3 at
 # 700 W).
 MOE_QWEN3_LAYERS = 2
-MOE_QWEN3_TOKENS = 16
+MOE_QWEN3_TOKENS = 8   # 16 before phase 21 (above MOE_TOKENS)
 # One layer each: gpt-oss-120b's is windowed (its global layers run in
 # (a)'s gpt-oss-20b), Llama-4 Scout's has rope (its NoPE layers run card
 # against CPU in the tiny Llama-4 across chunks, moe_chunks). (c) took
@@ -6116,6 +6198,12 @@ PERCEPTION_NOISE_CAP = 1e-4   # TrOCR's teacher-forced logit gap over the
 PERCEPTION_TOKENS = 12        # (c)'s reply tokens
 PERCEPTION_TURN_TIMEOUT = 120.0
 PERCEPTION_PROFILE_FLAG = "--perception-profile"
+# TrOCR's decoder steps in the profiled OCR window: the engine's 64-step
+# budget is about 56,500 launches, whose records took 13.0 s of
+# ``key_averages()`` beside CUPTI's 12.3-s start; 16 steps to pay for phase
+# 21 (phase 20 took 55.9 s at 64, 36.5-39.2 s at 16; on an H100 80GB HBM3
+# at 700 W). The timed OCR frame of (b) keeps the whole budget.
+PERCEPTION_PROFILE_OCR_STEPS = 16
 PERCEPTION_QUESTION = "onde ficou a chave de casa?"
 PERCEPTION_MEMORY = "a chave de casa ficou na mesa da cozinha"
 AST_WINDOW_S = 10.24          # AST's 1,024 frames at a 10-ms hop
@@ -6400,8 +6488,12 @@ def perception_timed(dev, models) -> dict:
 
 def perception_profile(dev) -> dict:
     """One window of each of (b)'s calls under the profiler after a warm
-    one: host ms, device busy ms, launches, idle share, largest kernels."""
+    one (TrOCR at PERCEPTION_PROFILE_OCR_STEPS decoder steps): host ms,
+    device busy ms, launches, idle share, largest kernels."""
     models = perception_models(dev)
+    params, cfg = models["trocr"]
+    models["trocr"] = (params, cfg._replace(
+        max_len=min(cfg.max_len, PERCEPTION_PROFILE_OCR_STEPS)))
     out = {}
     for name, (what, fn) in perception_calls(dev, models).items():
         fn(0)
@@ -6574,6 +6666,822 @@ def phase_perception(dev, llm, runner_mod, counters, profile) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the MLA (DeepSeek-V2/V3) and Mamba families
+# ---------------------------------------------------------------------------
+
+# (a) DeepSeek-V2-Lite (deepseek-ai/DeepSeek-V2-Lite) at its published
+# widths, Q4 at group 64 (the largest dividing every K/2: the experts'
+# 1408 / 2), max_seq cut to 1024, its 27 layers cut to dense layer 0 and 3
+# MoE layers: quantized banks run every expert on every row, about 20
+# launches an expert from the host, so a decode step at 27 layers is about
+# 33,000 launches (gpt-oss-20b's 20,103 took 368 ms, PERF.md §5), and (a)'s
+# two turns, the served burst and its runner twins would take more than
+# the phase's 90 s.
+MLA_LAYERS = 4
+MLA_MAX_SEQ = 1024
+MLA_GROUP = 64
+MLA_TOKENS = 16
+MLA_SERVE_SLOTS = 4
+MLA_SERVE_TOKENS = 8
+# The served burst and its runner twins run at max_seq 256, where the
+# runner's attention reads the whole cache as the server's does: a
+# different cache length changes the sums' order of the scores and the
+# mix, and random weights' greedy ids follow the last bit.
+MLA_SERVE_MAX_SEQ = 256
+# (b) V2-Lite at 2 layers (dense layer 0, one MoE layer), card against CPU
+# at two buckets and MLA_DECODE teacher-forced decode steps; the V2 and V3
+# knob sets at tiny widths in f32 through the transformers converters
+# (MLA_KNOB_TOL); DeepSeek-V3 (deepseek-ai/DeepSeek-V3) at its published
+# widths, 2 layers (one dense, one MoE), on the card only.
+MLA_SWEEP_LAYERS = 2
+MLA_BUCKETS = (64, 256)
+MLA_DECODE = 8
+MLA_KNOB_TOL = 1e-4      # rel L2, f32 weights, card against CPU
+MLA_V3_TOKENS = 4
+# (c) Mamba-2.8B (state-spaces/mamba-2.8b-hf) at its 64 layers, Q4 group
+# 256; (d) Mamba-Codestral-7B's widths (mistralai/Mamba-Codestral-7B-v0.1,
+# ``Mamba2Config()``) in bf16, 64 layers cut to 4 (a 7B bf16 model is
+# 14.6 GB; 4 layers keep the chunk's 1-GiB scan operands).
+MAMBA_GROUP = 256
+MAMBA_TOKENS = 16
+MAMBA_SWEEP_LAYERS = 2
+MAMBA_SWEEP_BUCKETS = (64, 256)
+MAMBA2_LAYERS = 4
+MAMBA2_TOL = 1e-4        # rel L2, f32 on both sides
+# (e) the CLI on tiny deepseek2 and mamba GGUFs written here
+SSM_CLI_TOKENS = 8
+SSM_CLI_VOCAB = 384
+
+
+def phase21_configs(mla, mamba, mamba2) -> dict:
+    """Phase 21's models at their published widths: DeepSeek-V2-Lite cut
+    to MLA_LAYERS layers and max_seq MLA_MAX_SEQ, DeepSeek-V3 cut to 2
+    layers (one dense), the knob sets' tiny MLA (MLA's head dims), Mamba-2.8B
+    and Mamba-Codestral-7B's widths cut to MAMBA2_LAYERS layers."""
+    return {
+        "v2_lite": mla.MLAConfig.deepseek_v2_lite()._replace(
+            n_layers=MLA_LAYERS, max_seq=MLA_MAX_SEQ),
+        "v3": mla.MLAConfig.deepseek_v3()._replace(
+            n_layers=2, first_k_dense=1, max_seq=256),
+        "knobs": mla.MLAConfig(
+            vocab_size=512, dim=256, n_layers=2, n_heads=2, hidden_dim=512,
+            q_lora_rank=96, kv_lora_rank=64, n_experts=8, n_experts_used=2,
+            moe_hidden_dim=128, moe_shared_hidden=128, first_k_dense=1,
+            max_seq=256),
+        "mamba": mamba.MambaConfig.mamba_2_8b(),
+        "mamba2": mamba2.Mamba2Config()._replace(n_layers=MAMBA2_LAYERS),
+    }
+
+
+def expect_launches(got: int, want: int, what: str) -> None:
+    """A kernel launched exactly ``want`` times in a window."""
+    if got != want:
+        raise AssertionError(f"{what}: {got} launches, not {want}")
+
+
+def _rows(tree, a: int, b: int):
+    """Rows [a, b) of every stacked leaf of ``tree``: views."""
+    if isinstance(tree, dict):
+        return {k: _rows(v, a, b) for k, v in tree.items()}
+    if isinstance(tree, tuple):  # QuantizedLinear
+        return type(tree)(tree.values[a:b], tree.scales[a:b])
+    return tree[a:b]
+
+
+def mla_slice(params, cfg, n: int):
+    """The first ``n`` layers of an MLA model (views) and their config."""
+    k = min(cfg.first_k_dense, n)
+    return ({**params, "attn": _rows(params["attn"], 0, n),
+             "dense_mlp": _rows(params["dense_mlp"], 0, k),
+             "moe_mlp": _rows(params["moe_mlp"], 0, n - k)},
+            cfg._replace(n_layers=n, first_k_dense=k))
+
+
+def _zero(counters) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def _counts(counters) -> dict:
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def ssm_serve(server_mod, mod, params, cfg, tok, runner, counters,
+              tag: str, **kw) -> dict:
+    """A burst of four QUESTIONS queued whole (``ServerWatch.held``) on an
+    ``LLMServer(model=mod)`` of four slots: each request's ids must equal
+    what ``runner(prompt)`` (a fresh session of the same module) gives."""
+    prompts = list(QUESTIONS[:4])
+    want = [runner(p) for p in prompts]
+    _zero(counters)
+    server = server_mod.LLMServer(params, cfg, batch_slots=MLA_SERVE_SLOTS,
+                                  tokenizer=tok, model=mod, **kw)
+    watch = ServerWatch(server)
+    t0 = time.perf_counter()
+    try:
+        burst(server, [(p, {"max_tokens": len(w)})
+                       for p, w in zip(prompts, want)], watch)
+    finally:
+        close_server(server)
+    wall = time.perf_counter() - t0
+    got = [watch.ids[p] for p in prompts]
+    diverge = [first_divergence(g, w) for g, w in zip(got, want)]
+    log(f"  {tag} served burst of {len(prompts)} on {MLA_SERVE_SLOTS} "
+        f"slots in {wall:.2f} s, waves {watch.waves}: ids equal to the "
+        f"runner's {sum(d is None for d in diverge)} of {len(prompts)} "
+        f"(first divergence {diverge})")
+    if any(d is not None for d in diverge):
+        raise AssertionError(f"phase 21 {tag}: served ids differ from the "
+                             f"runner's at {diverge}")
+    return {"wall_s": wall, "waves": watch.waves,
+            "tokens": [len(g) for g in got], "launches": _counts(counters)}
+
+
+def mla_v2lite(dev, mla, runner_mod, tokenizer_mod, server_mod, counters,
+               cfg) -> tuple:
+    """(a): DeepSeek-V2-Lite behind ``LLMRunner(model=mla)``: the cortex
+    prompt (bucket 512: flash at D = 192 once a layer) and MLA_TOKENS
+    greedy tokens at lookahead 4, then a second turn through ``extend``
+    (``chat``); then the served burst. Returns (its numbers, the params
+    and config, which (b) cuts to 2 layers)."""
+    log(f"  DeepSeek-V2-Lite depth cut: {cfg.n_layers} of 27 layers (dense "
+        f"layer 0, {cfg.n_layers - 1} MoE layers), max_seq {cfg.max_seq}")
+    t0 = time.perf_counter()
+    params = mla.init_params_quantized(
+        torch.Generator(device=dev).manual_seed(SEED), cfg, bits=4,
+        group=MLA_GROUP, device=dev)
+    torch.cuda.synchronize()
+    log(f"  params: Q4 group {MLA_GROUP} in {time.perf_counter() - t0:.1f} "
+        f"s, {param_bytes(params) / 2 ** 30:.2f} GiB on the card")
+    tok = tokenizer_mod.ByteTokenizer(cfg.vocab_size)
+
+    def runner(n: int, c=cfg):
+        gen = runner_mod.GenerationConfig(max_tokens=n, temperature=0.0,
+                                          speculative=False)
+        return runner_mod.LLMRunner(params, c, tok, gen, device=dev,
+                                    model=mla)
+    r = runner(MLA_TOKENS)
+    prompt = r.build_prompt(SYSTEM, CONTEXT, QUESTIONS[0])
+    warm_up(r, 4)
+    _zero(counters)
+    watch = LogitWatch(mla)
+    try:
+        out = request(r, prompt, "a (DeepSeek-V2-Lite cortex prompt, "
+                      "lookahead 4)")
+        flash = counters["flash_attention"].launches
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        r.chat("And what about the bicycle?")
+        torch.cuda.synchronize()
+        out["turn2_ms"] = (time.perf_counter() - t1) * 1e3
+        out["turn2_tokens"] = len(r.generated_ids)
+    finally:
+        out["finite_logit_vectors"] = watch.close()
+    out["launches"] = _counts(counters)
+    log(f"  second turn (extend): {out['turn2_tokens']} tokens in "
+        f"{out['turn2_ms']:.1f} ms; launches {out['launches']}")
+    expect_launches(flash, cfg.n_layers, "phase 21 (a): flash at D = 192 "
+                    "in a bucket-512 prefill")
+    if not out["turn2_tokens"]:
+        raise AssertionError("phase 21 (a): the second turn gave nothing")
+    expect_routes(out["launches"], ("q4_matmul_w4a8", "quantize_activations",
+                                    "flash_attention"),
+                  ("q8_matmul", "q4_matmul_f32a", "fused_mlp_q4",
+                   *DIAGNOSTIC), "phase 21 (a)")
+    scfg = cfg._replace(max_seq=MLA_SERVE_MAX_SEQ)
+
+    def twin(p):
+        rr = runner(MLA_SERVE_TOKENS, scfg)
+        rr.generate(p)
+        return rr.generated_ids
+    out["serve"] = ssm_serve(server_mod, mla, params, scfg, tok, twin,
+                             counters, "a DeepSeek-V2-Lite")
+    return out, params, cfg
+
+
+def mla_sweep(dev, mla, llm, quant, params, cfg) -> dict:
+    """(b) V2-Lite: the first MLA_SWEEP_LAYERS layers of (a)'s model (views)
+    on the card and on the CPU (the Q4 matrices dequantized once, W4A8's
+    activation quantization where the card ran W4A8, the MoE layers forced
+    to the card's experts by ``RouterTap``, flips within twice the router
+    noise): prefill at MLA_BUCKETS (flash at 256 on the card), then
+    MLA_DECODE decode steps on the card's greedy tokens, within WIDTH_TOL."""
+    cut, ccfg = mla_slice(params, cfg, MLA_SWEEP_LAYERS)
+    toks = torch.randint(0, cfg.vocab_size, (max(MLA_BUCKETS),),
+                         generator=torch.Generator().manual_seed(SEED))
+
+    def run(p, device, bucket, feed=None):
+        length = bucket - MLA_DECODE - 2
+        c = mla.MLACache.create(ccfg, max_seq=bucket, device=device)
+        lg, c = mla.prefill(p, ccfg, toks[:bucket].to(device), length, c)
+        out, fed = [lg.float().cpu()], []
+        for i in range(MLA_DECODE):
+            t = int(torch.argmax(lg)) if feed is None else feed[i]
+            fed.append(t)
+            lg, c = mla.decode_step(p, ccfg, t, c)
+            out.append(lg.float().cpu())
+        return torch.stack(out), fed, length
+    card = {}
+    for bucket in MLA_BUCKETS:
+        tap = RouterTap(llm)
+        try:
+            res = run(cut, dev, bucket)
+        finally:
+            taps = tap.close()
+        card[bucket] = res + taps
+    cpu = dequantized_on_cpu(quant, cut)
+    groups = w4a8_groups(quant, cut, cpu)
+    out = {"layers": MLA_SWEEP_LAYERS, "rel_l2": {}, "flips": {},
+           "router_noise": {}}
+    for bucket in MLA_BUCKETS:
+        lg, fed, length, select, ids = card[bucket]
+        tap = RouterTap(llm, forced=ids)
+        try:
+            with levers_on(("TRACKIE_MOE_ROUTED",)), w4a8_activations(
+                    llm, quant, groups):
+                lc = run(cpu, torch.device("cpu"), bucket, fed)[0]
+        finally:
+            cpu_select, _ = tap.close()
+        tag = f"V2-Lite {MLA_SWEEP_LAYERS} layers bucket {bucket}"
+        flips, noise = router_flips(llm._top_k_first, select, ids,
+                                    cpu_select, cfg.n_experts_used, length)
+        check_router_flips(flips, noise, tag)
+        errs = [rel_l2(a, b) for a, b in zip(lg, lc)]
+        out["rel_l2"][str(bucket)] = errs
+        out["flips"][str(bucket)] = len(flips)
+        out["router_noise"][str(bucket)] = noise
+        log(f"  {tag}: rel_l2 card vs cpu prefill {errs[0]:.3e}, decode max "
+            f"{max(errs[1:]):.3e} (tol {WIDTH_TOL:.0e}, W4A8 activations "
+            f"on the cpu); {len(flips)} router flips, noise {noise:.3e}")
+        if not (torch.isfinite(lg).all() and max(errs) < WIDTH_TOL):
+            raise AssertionError(f"phase 21 (b) {tag}: rel L2 {errs}")
+    return out
+
+
+def deepseek_state(cfg, seed: int, v3: bool) -> dict:
+    """A transformers DeepSeek state dict at ``cfg``'s widths from the
+    seed (the router at 3 / sqrt(D), so that its choices are far apart;
+    V3's ``e_score_correction_bias``)."""
+    rng = np.random.default_rng(seed)
+
+    def R(*s, scale=1.0):
+        return (scale * rng.standard_normal(s) / np.sqrt(s[-1])
+                ).astype(np.float32)
+
+    def ones(n):
+        return (1.0 + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    h, r = cfg.n_heads, cfg.kv_lora_rank
+    st = {"model.embed_tokens.weight": R(cfg.vocab_size, cfg.dim, scale=8.0),
+          "model.norm.weight": ones(cfg.dim),
+          "lm_head.weight": R(cfg.vocab_size, cfg.dim)}
+    for i in range(cfg.n_layers):
+        p, sa = f"model.layers.{i}", f"model.layers.{i}.self_attn"
+        st[f"{p}.input_layernorm.weight"] = ones(cfg.dim)
+        st[f"{p}.post_attention_layernorm.weight"] = ones(cfg.dim)
+        st[f"{sa}.kv_a_proj_with_mqa.weight"] = R(r + cfg.qk_rope_head_dim,
+                                                  cfg.dim)
+        st[f"{sa}.kv_a_layernorm.weight"] = ones(r)
+        st[f"{sa}.kv_b_proj.weight"] = R(
+            h * (cfg.qk_nope_head_dim + cfg.v_head_dim), r)
+        st[f"{sa}.o_proj.weight"] = R(cfg.dim, h * cfg.v_head_dim)
+        st[f"{sa}.q_a_proj.weight"] = R(cfg.q_lora_rank, cfg.dim)
+        st[f"{sa}.q_a_layernorm.weight"] = ones(cfg.q_lora_rank)
+        st[f"{sa}.q_b_proj.weight"] = R(h * cfg.qk_head_dim, cfg.q_lora_rank)
+
+        def mlp(pre, hid):
+            st[f"{pre}.gate_proj.weight"] = R(hid, cfg.dim)
+            st[f"{pre}.up_proj.weight"] = R(hid, cfg.dim)
+            st[f"{pre}.down_proj.weight"] = R(cfg.dim, hid)
+        if i < cfg.first_k_dense:
+            mlp(f"{p}.mlp", cfg.hidden_dim)
+            continue
+        st[f"{p}.mlp.gate.weight"] = R(cfg.n_experts, cfg.dim, scale=3.0)
+        if v3:
+            st[f"{p}.mlp.gate.e_score_correction_bias"] = (
+                0.2 * rng.standard_normal(cfg.n_experts) - 0.3
+            ).astype(np.float32)
+        for e in range(cfg.n_experts):
+            mlp(f"{p}.mlp.experts.{e}", cfg.moe_hidden_dim)
+        mlp(f"{p}.mlp.shared_experts", cfg.moe_shared_hidden)
+    return st
+
+
+def mla_knobs(dev, mla, convert, base) -> dict:
+    """(b) the V2 knob set (q-LoRA, group-limited softmax routing by max,
+    routed scale 16) and V3's (sigmoid scores with the selection bias,
+    top-2-sum groups, renormalized top-k, routed scale 2.5) at tiny widths
+    with MLA's head dims (flash at D = 192 in f32 on the card), through
+    ``deepseek_v2_from_hf`` and ``deepseek_v3_from_hf`` on each side: a
+    bucket-256 prefill and 4 decode steps within MLA_KNOB_TOL."""
+    knobs = {"v2": (convert.deepseek_v2_from_hf, False, dict(
+        n_experts_used=2, n_groups=4, topk_groups=2, routed_scale=16.0)),
+             "v3": (convert.deepseek_v3_from_hf, True, dict(
+                 n_experts_used=2, n_groups=4, topk_groups=2))}
+    toks = torch.randint(0, base.vocab_size, (base.max_seq,),
+                         generator=torch.Generator().manual_seed(SEED + 3))
+    out = {}
+    for name, (fn, v3, kw) in knobs.items():
+        state = deepseek_state(base, SEED + (7 if v3 else 5), v3)
+        logits = []
+        for device in (dev, torch.device("cpu")):
+            p, cfg = fn(state, dtype=torch.float32, device=device,
+                        max_seq=base.max_seq,
+                        qk_nope_head_dim=base.qk_nope_head_dim,
+                        qk_rope_head_dim=base.qk_rope_head_dim, **kw)
+            c = mla.MLACache.create(cfg, dtype=torch.float32, device=device)
+            lg, c = mla.prefill(p, cfg, toks.to(device), base.max_seq - 16,
+                                c)
+            seq = [lg.cpu()]
+            for t in (3, 77, 101, 300):
+                lg, c = mla.decode_step(p, cfg, t, c)
+                seq.append(lg.cpu())
+            logits.append(torch.stack(seq))
+        err = rel_l2(*logits)
+        out[name] = {"rel_l2": err, "score_func": cfg.moe_score_func,
+                     "group_score": cfg.moe_group_score,
+                     "gate_bias": "moe_gate_bias" in p["moe_mlp"]}
+        log(f"  {name} knobs ({cfg.moe_score_func}, {cfg.moe_group_score} "
+            f"groups, routed scale {cfg.moe_routed_scale}): rel_l2 card vs "
+            f"cpu {err:.3e} (tol {MLA_KNOB_TOL:.0e})")
+        if not err < MLA_KNOB_TOL:
+            raise AssertionError(f"phase 21 (b) {name} knobs: {err}")
+    return out
+
+
+def mla_v3(dev, mla, cfg, counters) -> dict:
+    """(b) DeepSeek-V3 at its published widths cut to 2 layers (one dense,
+    one MoE: 256 experts, 128 heads), Q4 group 64 with a selection bias, on
+    the card only: a bucket-256 prefill (flash at D = 192, 128 heads) and
+    MLA_V3_TOKENS greedy decode steps, every logit finite."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    params = mla.init_params_quantized(gen, cfg, bits=4, group=MLA_GROUP,
+                                       device=dev)
+    params["moe_mlp"]["moe_gate_bias"] = 0.01 * torch.randn(
+        (1, cfg.n_experts), generator=gen, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (cfg.max_seq,), device=dev,
+                         generator=gen)
+    build = time.perf_counter() - t0
+    flash = counters["flash_attention"].launches
+    lg, c = mla.prefill(params, cfg, toks, cfg.max_seq - MLA_V3_TOKENS - 2,
+                        mla.MLACache.create(cfg, device=dev))
+    flash = counters["flash_attention"].launches - flash
+    seq = [lg]
+    for _ in range(MLA_V3_TOKENS):
+        lg, c = mla.decode_step(params, cfg, torch.argmax(lg), c)
+        seq.append(lg)
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(torch.stack(seq)).all())
+    out = {"build_s": build, "seconds": time.perf_counter() - t0,
+           "flash_launches": flash, "finite": finite,
+           "gib": param_bytes(params) / 2 ** 30}
+    log(f"  DeepSeek-V3 {cfg.n_layers} layers ({cfg.n_experts} experts, "
+        f"{cfg.n_heads} heads): built in "
+        f"{build:.1f} s ({out['gib']:.2f} GiB), prefill + {MLA_V3_TOKENS} "
+        f"tokens finite {finite}, flash launches {flash}")
+    if not finite:
+        raise AssertionError(f"phase 21 (b) V3: logits {out}")
+    expect_launches(flash, cfg.n_layers, "phase 21 (b) V3: flash at D = "
+                    "192, 128 heads")
+    return out
+
+
+def flash_attrs(attention, d: int) -> dict:
+    """The head-dim-``d`` flash kernels' registers, spill bytes and shared
+    memory as ptxas left them, bf16 and f32 (``flash_kernel_attrs``)."""
+    return {str(dt)[6:]: attention.flash_kernel_attrs(d, dt)
+            for dt in (torch.bfloat16, torch.float32)}
+
+
+def mamba_28b(dev, mamba, llm, quant, runner_mod, tokenizer_mod, server_mod,
+              counters, cfg) -> dict:
+    """(c): Mamba-2.8B behind ``MambaRunner`` (the cortex prompt in chunks
+    of 256, then MAMBA_TOKENS greedy tokens), the served burst, and its
+    first MAMBA_SWEEP_LAYERS layers card against CPU (W4A8's activation
+    quantization on the CPU's dequantized weights) at MAMBA_SWEEP_BUCKETS
+    and 4 decode steps, within WIDTH_TOL."""
+    t0 = time.perf_counter()
+    params = mamba.init_params_quantized(
+        torch.Generator(device=dev).manual_seed(SEED), cfg, bits=4,
+        group=MAMBA_GROUP, device=dev)
+    torch.cuda.synchronize()
+    log(f"  Mamba-2.8B: {cfg.n_layers} layers Q4 group {MAMBA_GROUP} in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{param_bytes(params) / 2 ** 30:.2f} GiB on the card")
+    tok = tokenizer_mod.ByteTokenizer(cfg.vocab_size)
+
+    def runner(n):
+        return mamba.MambaRunner(params, cfg, tok, runner_mod.GenerationConfig(
+            max_tokens=n, temperature=0.0), device=dev)
+    r = runner(MAMBA_TOKENS)
+    r.generate(SHORT_PROMPT, max_tokens=4)
+    prompt = r.build_prompt(SYSTEM, CONTEXT, QUESTIONS[0])
+    _zero(counters)
+    watch = LogitWatch(mamba)
+    try:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        r.generate(prompt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    finally:
+        n_logits = watch.close()
+    n = len(r.generated_ids)
+    out = {"prompt_tokens": r.count_tokens(prompt) + 1, "tokens": n,
+           "wall_ms": wall * 1e3, "finite_logit_vectors": n_logits,
+           "launches": _counts(counters)}
+    log(f"  c (Mamba-2.8B cortex prompt, {out['prompt_tokens']} tokens in "
+        f"chunks of {r.CHUNK}, {n} tokens): {out['wall_ms']:.1f} ms; "
+        f"launches {out['launches']}")
+    if not n:
+        raise AssertionError("phase 21 (c): no tokens")
+    expect_routes(out["launches"], ("q4_matmul_w4a8", "quantize_activations"),
+                  ("flash_attention", "q8_matmul", "q4_matmul_f32a",
+                   "fused_mlp_q4", *DIAGNOSTIC), "phase 21 (c)")
+
+    def twin(p):
+        rr = runner(MLA_SERVE_TOKENS)
+        rr.generate(p)
+        return rr.generated_ids
+    # The runner's state is f32: the served slots hold theirs in f32 too.
+    out["serve"] = ssm_serve(server_mod, mamba, params, cfg, tok, twin,
+                             counters, "c Mamba-2.8B",
+                             cache_dtype=torch.float32)
+    from trackiellm_tpu_torch.tools.diag_envelope import layer_slice
+    cut = layer_slice(params, MAMBA_SWEEP_LAYERS)
+    ccfg = cfg._replace(n_layers=MAMBA_SWEEP_LAYERS)
+    cpu = dequantized_on_cpu(quant, cut)
+    groups = w4a8_groups(quant, cut, cpu)
+    toks = torch.randint(0, cfg.vocab_size, (max(MAMBA_SWEEP_BUCKETS),),
+                         generator=torch.Generator().manual_seed(SEED + 1))
+    out["rel_l2"] = {}
+    for bucket in MAMBA_SWEEP_BUCKETS:
+        seqs, fed = [], None
+        for p, device in ((cut, dev), (cpu, torch.device("cpu"))):
+            with (w4a8_activations(llm, quant, groups) if fed is not None
+                  else contextlib.nullcontext()):
+                lg, c = mamba.prefill(p, ccfg, toks[:bucket].to(device),
+                                      bucket - 3, mamba.MambaCache.create(
+                                          ccfg, device=device))
+                seq, ids = [lg.float().cpu()], []
+                for i in range(4):
+                    t = int(torch.argmax(lg)) if fed is None else fed[i]
+                    ids.append(t)
+                    lg, c = mamba.decode_step(p, ccfg, t, c)
+                    seq.append(lg.float().cpu())
+            seqs.append(torch.stack(seq))
+            fed = ids
+        errs = [rel_l2(a, b) for a, b in zip(*seqs)]
+        out["rel_l2"][str(bucket)] = errs
+        log(f"  Mamba-2.8B {MAMBA_SWEEP_LAYERS} layers bucket {bucket}: "
+            f"rel_l2 card vs cpu prefill {errs[0]:.3e}, decode max "
+            f"{max(errs[1:]):.3e} (tol {WIDTH_TOL:.0e})")
+        if not (torch.isfinite(seqs[0]).all() and max(errs) < WIDTH_TOL):
+            raise AssertionError(f"phase 21 (c) bucket {bucket}: {errs}")
+    return out
+
+
+def mamba2_codestral(dev, mamba, mamba2, runner_mod, tokenizer_mod,
+                     counters, cfg) -> dict:
+    """(d): Mamba-Codestral-7B's widths cut to MAMBA2_LAYERS layers, bf16,
+    behind ``MambaRunner`` (which picks ``models.mamba2`` by the config's
+    type): the cortex prompt in chunks of 256 and MAMBA_TOKENS greedy
+    tokens (plain matmuls, as the reference's: no kernel launches); then
+    its first 2 layers in f32 on the card against the CPU, a bucket-64
+    prefill and 2 decode steps, within MAMBA2_TOL."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = mamba2.init_params(gen, cfg, dtype=torch.bfloat16, device=dev)
+    tok = tokenizer_mod.ByteTokenizer(cfg.vocab_size)
+    r = mamba.MambaRunner(params, cfg, tok, runner_mod.GenerationConfig(
+        max_tokens=MAMBA_TOKENS, temperature=0.0), device=dev)
+    if r._m is not mamba2:
+        raise AssertionError("phase 21 (d): MambaRunner took the wrong module")
+    r.generate(SHORT_PROMPT, max_tokens=2)
+    prompt = r.build_prompt(SYSTEM, CONTEXT, QUESTIONS[0])
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero(counters)
+    watch = LogitWatch(mamba2)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.generate(prompt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        n_logits = watch.close()
+    out = {"layers": cfg.n_layers, "prompt_tokens": r.count_tokens(prompt)
+           + 1, "tokens": len(r.generated_ids), "wall_ms": wall * 1e3,
+           "finite_logit_vectors": n_logits, "launches": _counts(counters),
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    log(f"  d (Codestral widths, {cfg.n_layers} layers, bf16): "
+        f"{out['prompt_tokens']} prompt tokens and {out['tokens']} tokens in "
+        f"{out['wall_ms']:.1f} ms; launches {out['launches']}")
+    expect_routes(out["launches"], (), tuple(counters), "phase 21 (d)")
+    if not out["tokens"]:
+        raise AssertionError("phase 21 (d): no tokens")
+    cut = {k: v.float() for k, v in _rows(params["layers"], 0, 2).items()}
+    cut = {**{k: v.float() for k, v in params.items() if k != "layers"},
+           "layers": cut}
+    ccfg = cfg._replace(n_layers=2)
+    del params, r
+    toks = torch.randint(0, cfg.vocab_size, (64,),
+                         generator=torch.Generator().manual_seed(SEED + 2))
+    seqs = []
+    for p in (cut, {k: (v.cpu() if k != "layers" else
+                        {kk: vv.cpu() for kk, vv in v.items()})
+                    for k, v in cut.items()}):
+        device = p["tok_emb"].device
+        lg, c = mamba2.prefill(p, ccfg, toks.to(device), 60,
+                               mamba2.Mamba2Cache.create(ccfg, device=device))
+        seq = [lg.cpu()]
+        for t in (5, 300):
+            lg, c = mamba2.decode_step(p, ccfg, t, c)
+            seq.append(lg.cpu())
+        seqs.append(torch.stack(seq))
+    out["rel_l2"] = rel_l2(*seqs)
+    log(f"  Codestral widths 2 layers f32, bucket 64 + 2 decode steps: "
+        f"rel_l2 card vs cpu {out['rel_l2']:.3e} (tol {MAMBA2_TOL:.0e})")
+    if not out["rel_l2"] < MAMBA2_TOL:
+        raise AssertionError(f"phase 21 (d): rel L2 {out['rel_l2']}")
+    return out
+
+
+def _f32(rng, *shape, scale=1.0):
+    return ((scale * rng.standard_normal(shape) / np.sqrt(shape[-1]))
+            .astype(np.float32), GGML_F32)
+
+
+def _gguf_vocab(arch: str, vocab: int) -> dict:
+    spec = spm_spec(vocab)
+    return {"tokenizer.ggml.model": "llama",
+            "tokenizer.ggml.tokens": spec["tokens"],
+            "tokenizer.ggml.scores": spec["scores"],
+            "tokenizer.ggml.token_type": spec["token_types"],
+            "tokenizer.ggml.bos_token_id": 1,
+            "tokenizer.ggml.eos_token_id": 2,
+            "tokenizer.ggml.unknown_token_id": 0,
+            "tokenizer.ggml.padding_token_id": spec["pad_id"],
+            "tokenizer.ggml.add_space_prefix": spec["add_space_prefix"],
+            "general.architecture": arch, "general.name": f"tiny {arch}"}
+
+
+def deepseek2_gguf(seed: int):
+    """(tensors, metadata) of a 2-layer deepseek2 GGUF (dense layer 0, 4
+    experts top 2 with a shared one; 2 heads of MLA's head dims; every
+    quantized K a multiple of 128 for group 64), F32 from the seed, rope
+    columns in llama.cpp's neox order (the converter reorders them)."""
+    rng = np.random.default_rng(seed)
+    dim, h, r, rope, nope, vd, hid, e, mh = 256, 2, 64, 64, 64, 64, 256, 4, 128
+    t = {"token_embd.weight": _f32(rng, SSM_CLI_VOCAB, dim, scale=8.0),
+         "output_norm.weight": (np.ones(dim, np.float32), GGML_F32),
+         "output.weight": _f32(rng, SSM_CLI_VOCAB, dim)}
+    for i in range(2):
+        p = f"blk.{i}"
+        t[f"{p}.attn_norm.weight"] = (np.ones(dim, np.float32), GGML_F32)
+        t[f"{p}.ffn_norm.weight"] = (np.ones(dim, np.float32), GGML_F32)
+        t[f"{p}.attn_q.weight"] = _f32(rng, h * (nope + rope), dim)
+        t[f"{p}.attn_kv_a_mqa.weight"] = _f32(rng, r + rope, dim)
+        t[f"{p}.attn_kv_a_norm.weight"] = (np.ones(r, np.float32), GGML_F32)
+        t[f"{p}.attn_kv_b.weight"] = _f32(rng, h * (nope + vd), r)
+        t[f"{p}.attn_output.weight"] = _f32(rng, dim, h * vd)
+        if i == 0:
+            for n in ("gate", "up"):
+                t[f"{p}.ffn_{n}.weight"] = _f32(rng, hid, dim)
+            t[f"{p}.ffn_down.weight"] = _f32(rng, dim, hid)
+            continue
+        t[f"{p}.ffn_gate_inp.weight"] = _f32(rng, e, dim, scale=3.0)
+        for n in ("gate", "up"):
+            t[f"{p}.ffn_{n}_exps.weight"] = _f32(rng, e, mh, dim)
+            t[f"{p}.ffn_{n}_shexp.weight"] = _f32(rng, mh, dim)
+        t[f"{p}.ffn_down_exps.weight"] = _f32(rng, e, dim, mh)
+        t[f"{p}.ffn_down_shexp.weight"] = _f32(rng, dim, mh)
+    a = "deepseek2"
+    meta = {**_gguf_vocab(a, SSM_CLI_VOCAB), f"{a}.block_count": 2,
+            f"{a}.context_length": 1024, f"{a}.embedding_length": dim,
+            f"{a}.feed_forward_length": hid,
+            f"{a}.attention.head_count": h,
+            f"{a}.attention.layer_norm_rms_epsilon": 1e-6,
+            f"{a}.rope.freq_base": 10000.0,
+            f"{a}.attention.key_length": nope + rope,
+            f"{a}.attention.value_length": vd,
+            f"{a}.leading_dense_block_count": 1, f"{a}.expert_count": e,
+            f"{a}.expert_used_count": 2,
+            f"{a}.expert_feed_forward_length": mh,
+            f"{a}.expert_gating_func": 1}
+    return t, meta
+
+
+def mamba_gguf(seed: int):
+    """(tensors, metadata) of a 2-layer mamba GGUF (dim 256, d_inner 512:
+    every K a multiple of 256 for Q8's group), F32 from the seed in
+    llama.cpp's layout (the conv squeezed to (I, K), ssm_a = -exp(A_log))."""
+    rng = np.random.default_rng(seed)
+    dim, inner, n, rank, k = 256, 512, 16, 16, 4
+    t = {"token_embd.weight": _f32(rng, SSM_CLI_VOCAB, dim, scale=8.0),
+         "output_norm.weight": (np.ones(dim, np.float32), GGML_F32),
+         "output.weight": _f32(rng, SSM_CLI_VOCAB, dim)}
+    for i in range(2):
+        b = f"blk.{i}."
+        t[b + "attn_norm.weight"] = (np.ones(dim, np.float32), GGML_F32)
+        t[b + "ssm_in.weight"] = _f32(rng, 2 * inner, dim)
+        t[b + "ssm_conv1d.weight"] = _f32(rng, inner, k)
+        t[b + "ssm_conv1d.bias"] = (np.zeros(inner, np.float32), GGML_F32)
+        t[b + "ssm_x.weight"] = _f32(rng, rank + 2 * n, inner)
+        t[b + "ssm_dt.weight"] = _f32(rng, inner, rank)
+        t[b + "ssm_dt.bias"] = (np.full(inner, -2.0, np.float32), GGML_F32)
+        t[b + "ssm_a"] = (-np.tile(np.arange(1, n + 1, dtype=np.float32),
+                                   (inner, 1)), GGML_F32)
+        t[b + "ssm_d"] = (np.ones(inner, np.float32), GGML_F32)
+        t[b + "ssm_out.weight"] = _f32(rng, dim, inner)
+    meta = {**_gguf_vocab("mamba", SSM_CLI_VOCAB), "mamba.block_count": 2,
+            "mamba.context_length": 1024, "mamba.embedding_length": dim,
+            "mamba.ssm.conv_kernel": k, "mamba.ssm.inner_size": inner,
+            "mamba.ssm.state_size": n, "mamba.ssm.time_step_rank": rank,
+            "mamba.attention.layer_norm_rms_epsilon": 1e-5}
+    return t, meta
+
+
+def ssm_cli(dev, cli, counters, work: str) -> dict:
+    """(e): a deepseek2 and a mamba GGUF written here through ``inspect``,
+    ``convert`` (deepseek2 at --bits 4, mamba at --bits 8) and ``generate``
+    on the card: exit 0 each; generate launches W4A8 and its quantization
+    (deepseek2) or Q8 (mamba), and nothing off its route."""
+    out = {}
+    for arch, build, bits, ran in (
+            ("deepseek2", deepseek2_gguf, 4,
+             ("q4_matmul_w4a8", "quantize_activations")),
+            ("mamba", mamba_gguf, 8, ("q8_matmul",))):
+        src = os.path.join(work, f"{arch}.gguf")
+        ck = os.path.join(work, f"{arch}_ckpt")
+        write_gguf(src, *build(SEED + 30))
+        rc_i, text, _ = run_cli(cli, ["inspect", src])
+        described = json.loads(text)["architecture"] if rc_i == 0 else None
+        rc_c, _, conv_s = run_cli(cli, ["convert", src, "-o", ck, "--bits",
+                                        str(bits)])
+        _zero(counters)
+        rc_g, reply, gen_s = run_cli(cli, [
+            "generate", ck, "-p", SHORT_PROMPT, "--max-tokens",
+            str(SSM_CLI_TOKENS), "--temperature", "0"])
+        launches = _counts(counters)
+        out[arch] = {"inspect": described, "rc": [rc_i, rc_c, rc_g],
+                     "convert_s": conv_s, "generate_s": gen_s,
+                     "reply_chars": len(reply.strip()),
+                     "launches": launches}
+        log(f"  e {arch}: inspect -> {described}, convert --bits {bits} "
+            f"{conv_s:.1f} s, generate {gen_s:.1f} s; exit codes "
+            f"{[rc_i, rc_c, rc_g]}; launches {launches}")
+        if [rc_i, rc_c, rc_g] != [0, 0, 0] or described != arch:
+            raise AssertionError(f"phase 21 (e) {arch}: {out[arch]}")
+        expect_routes(launches, ran,
+                      tuple(k for k in counters if k not in ran),
+                      f"phase 21 (e) {arch}")
+    return out
+
+
+# PERF.md §5's MLA and Mamba rows: a process of its own, run apart from the
+# smoke (``chip_smoke.py --mla-profile``), so that CUPTI's start and the
+# records' reading stay out of phase 21's budget.
+MLA_PROFILE_FLAG = "--mla-profile"
+MLA_PROFILE_TOKENS = 4
+
+
+def window_breakdown(tag: str, fresh, per: int = 1) -> dict:
+    """``fresh()`` gives a new call of the window (its setup done): one
+    call on the host clock, one under the profiler; per ``per`` units."""
+    fn = fresh()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy, n, by_name = device_breakdown(fresh())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:4]
+    out = {"wall_ms": wall / per, "busy_ms": busy / per,
+           "idle_share": 1.0 - busy / wall, "launches": n / per,
+           "top": [[k[:70], t / per, c / per] for k, (t, c) in top]}
+    log(f"  profile {tag}: wall {out['wall_ms']:.2f} ms, busy "
+        f"{out['busy_ms']:.2f} ms, idle {out['idle_share']:.3f}, "
+        f"{out['launches']:.1f} launches" + (f" a token ({per})"
+                                             if per > 1 else ""))
+    return out
+
+
+def mla_profile(dev) -> dict:
+    """DeepSeek-V2-Lite as phase 21 (a) builds it: the cortex prompt's
+    prefill (bucket 512, flash at D = 192) and MLA_PROFILE_TOKENS greedy
+    tokens at lookahead 1 behind ``LLMRunner(model=mla)``; Mamba-2.8B as
+    (c) builds it: MLA_PROFILE_TOKENS decode steps after the prompt."""
+    from trackiellm_tpu_torch.llm import runner as runner_mod
+    from trackiellm_tpu_torch.llm import tokenizer as tokenizer_mod
+    from trackiellm_tpu_torch.models import mamba, mamba2, mla
+    cfgs = phase21_configs(mla, mamba, mamba2)
+    cfg = cfgs["v2_lite"]
+    params = mla.init_params_quantized(
+        torch.Generator(device=dev).manual_seed(SEED), cfg, bits=4,
+        group=MLA_GROUP, device=dev)
+    tok = tokenizer_mod.ByteTokenizer(cfg.vocab_size)
+
+    def runner():
+        gen = runner_mod.GenerationConfig(
+            max_tokens=MLA_PROFILE_TOKENS, temperature=0.0, speculative=False,
+            lookahead=1)
+        return runner_mod.LLMRunner(params, cfg, tok, gen, device=dev,
+                                    model=mla)
+    prompt = runner().build_prompt(SYSTEM, CONTEXT, QUESTIONS[0])
+    runner().generate(prompt)
+
+    def prefill():
+        r = runner()
+        return lambda: r.prepare_generation(prompt)
+
+    def decode():
+        r = runner()
+        r.prepare_generation(prompt)
+
+        def run():
+            while r.generate_next_token() is not None:
+                pass
+        return run
+    out = {"v2_lite_layers": cfg.n_layers,
+           "v2_lite_prefill": window_breakdown("V2-Lite prefill", prefill),
+           "v2_lite_decode": window_breakdown("V2-Lite decode", decode,
+                                              MLA_PROFILE_TOKENS)}
+    del params
+    torch.cuda.empty_cache()
+    mcfg = cfgs["mamba"]
+    mparams = mamba.init_params_quantized(
+        torch.Generator(device=dev).manual_seed(SEED), mcfg, bits=4,
+        group=MAMBA_GROUP, device=dev)
+    mr = mamba.MambaRunner(mparams, mcfg, tok, runner_mod.GenerationConfig(
+        max_tokens=1, temperature=0.0), device=dev)
+    mr.generate(prompt)
+
+    def steps():
+        cache = mr.cache
+        lg = mamba.decode_step(mparams, mcfg, 0, cache)[0]
+
+        def run():
+            nonlocal lg, cache
+            for _ in range(MLA_PROFILE_TOKENS):
+                lg, cache = mamba.decode_step(mparams, mcfg,
+                                              torch.argmax(lg), cache)
+        return run
+    out["mamba_decode"] = window_breakdown("Mamba-2.8B decode", steps,
+                                           MLA_PROFILE_TOKENS)
+    return out
+
+
+def phase_mla_mamba(dev, counters, work: str) -> dict:
+    """Phase 21 (the constants above MLA_LAYERS): (a) DeepSeek-V2-Lite, (b)
+    card against CPU (V2-Lite at 2 layers, the V2/V3 knob sets, V3's
+    widths), (c) Mamba-2.8B, (d) Mamba-Codestral's widths, (e) the CLI;
+    each part's seconds, and the launches of (a), (c) and (e)'s windows."""
+    from trackiellm_tpu_torch import __main__ as cli
+    from trackiellm_tpu_torch.llm import runner as runner_mod
+    from trackiellm_tpu_torch.llm import server as server_mod
+    from trackiellm_tpu_torch.llm import tokenizer as tokenizer_mod
+    from trackiellm_tpu_torch.models import convert, llm, mamba, mamba2, mla
+    from trackiellm_tpu_torch.ops import attention, quant
+    t0 = time.perf_counter()
+    parts = {}
+
+    def lap(part: str) -> None:
+        parts[part] = time.perf_counter() - t0 - sum(parts.values())
+    cfgs = phase21_configs(mla, mamba, mamba2)
+    out = {"flash_attrs": flash_attrs(attention, 192)}
+    out["a"], params, cfg = mla_v2lite(dev, mla, runner_mod, tokenizer_mod,
+                                       server_mod, counters, cfgs["v2_lite"])
+    lap("a")
+    out["b"] = {"v2_lite": mla_sweep(dev, mla, llm, quant, params, cfg)}
+    del params
+    torch.cuda.empty_cache()
+    out["b"]["knobs"] = mla_knobs(dev, mla, convert, cfgs["knobs"])
+    out["b"]["v3"] = mla_v3(dev, mla, cfgs["v3"], counters)
+    torch.cuda.empty_cache()
+    lap("b")
+    out["c"] = mamba_28b(dev, mamba, llm, quant, runner_mod, tokenizer_mod,
+                         server_mod, counters, cfgs["mamba"])
+    torch.cuda.empty_cache()
+    lap("c")
+    out["d"] = mamba2_codestral(dev, mamba, mamba2, runner_mod,
+                                tokenizer_mod, counters, cfgs["mamba2"])
+    torch.cuda.empty_cache()
+    lap("d")
+    out["e"] = ssm_cli(dev, cli, counters, work)
+    lap("e")
+    windows = (out["a"]["launches"], out["a"]["serve"]["launches"],
+               out["c"]["launches"], out["c"]["serve"]["launches"],
+               *(v["launches"] for v in out["e"].values()))
+    out["launches"] = {k: sum(w[k] for w in windows) for k in counters}
+    out["seconds"] = time.perf_counter() - t0
+    out["part_seconds"] = parts
+    log(f"  phase 21 took {out['seconds']:.1f} s ("
+        + ", ".join(f"({k}) {v:.1f}" for k, v in parts.items())
+        + f"); launches {out['launches']}")
+    return out
+
+
 def serve_config(llm):
     """Phases 5-7 and 12's configuration: Mistral-7B cut to max_seq 512."""
     return llm.LLMConfig.mistral_7b()._replace(max_seq=512,
@@ -6611,7 +7519,8 @@ KERNELS = {
                         "trackiellm_tpu/ops/attention.py:176",
                         ("causal S=512 bfloat16", "causal S=256 bfloat16",
                          "causal S=1024 D=256 bfloat16",
-                         "causal S=512 D=96 bfloat16"), 5),
+                         "causal S=512 D=96 bfloat16",
+                         "causal S=512 D=192 bfloat16"), 5),
     "q8_matmul": ("trackiellm_tpu_torch/csrc/q8_matmul.cu",
                   "trackiellm_tpu/ops/quant.py:184",
                   ("w_gu M=1", "w_gu M=512"), 6),
@@ -6696,6 +7605,9 @@ def main() -> int:
         return moe_profile_main(dev)
     if sys.argv[1:] == [PERCEPTION_PROFILE_FLAG]:
         print(json.dumps(perception_profile(dev)), flush=True)
+        return 0
+    if sys.argv[1:] == [MLA_PROFILE_FLAG]:
+        print(json.dumps(mla_profile(dev)), flush=True)
         return 0
     smi = nvidia_smi()
     log(f"phase 1 device: torch {torch.__version__} cuda {torch.version.cuda}"
@@ -6854,17 +7766,28 @@ def main() -> int:
     perception = phase_perception(dev, llm, runner_mod, counters,
                                   perception_profile_child)
     launches[20] = perception["launches"]
+    banner(f"phase 21 MLA and Mamba families (DeepSeek-V2-Lite Q4 at its "
+           f"widths, {MLA_LAYERS} of 27 layers, behind LLMRunner(model=mla) "
+           "and LLMServer(model=mla); V2-Lite, the V2/V3 knob sets and V3's "
+           "widths card against CPU; Mamba-2.8B Q4 at 64 layers behind "
+           "MambaRunner and LLMServer(model=mamba); Mamba-Codestral's widths "
+           f"at {MAMBA2_LAYERS} layers; deepseek2 and mamba GGUFs through "
+           "the CLI):")
+    mla_mamba = phase_mla_mamba(dev, counters, work.name)
+    launches[21] = mla_mamba["launches"]
     end = time.perf_counter()
     work.cleanup()
     log(f"chip_smoke wall: {end - t0:.1f} s since the build began")
-    marks[21] = end
+    marks[22] = end
     seconds = {"1": t0 - main_t0}
-    seconds.update({str(n): marks[n + 1] - marks[n] for n in range(2, 21)
+    seconds.update({str(n): marks[n + 1] - marks[n] for n in range(2, 22)
                     if n in marks and n + 1 in marks})
     print(json.dumps({"phase_seconds": seconds, "wall_s": end - main_t0}),
           flush=True)
 
     smi = nvidia_smi()
+    print(json.dumps({"mla_mamba": mla_mamba, "card": smi}, default=str),
+          flush=True)
     print(json.dumps({"perception": perception, "card": smi}, default=str),
           flush=True)
     print(json.dumps({"surfaces": surfaces, "card": smi}, default=str),

@@ -537,7 +537,9 @@ def test_phase13_on_the_cpu(monkeypatch, capsys):
     wt = out["whisper_tiny"]
     assert set(wt["windows"]) == {str(w) for w in cs.VOICE_WINDOWS}
     for w in wt["windows"].values():
-        assert w["logits_rel_l2"] == 0.0 and w["ids"]["first_diff"] == 27
+        # The tiny model ends its reply after 27 ids, or at the budget.
+        assert w["logits_rel_l2"] == 0.0 and (
+            w["ids"]["first_diff"] == min(27, cs.VOICE_TOKENS))
     assert wt["cli"]["rc"] == 0 and wt["profile"] == {"500": {
         "idle_share": 0.5}}
     assert out["silero"]["chunks"] == 312
@@ -628,6 +630,8 @@ def test_main_prints_the_voice_line_before_the_last_five(monkeypatch,
         "launches": {}})
     monkeypatch.setattr(cs, "phase_perception", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_mla_mamba", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     lines = capsys.readouterr().out.strip().splitlines()[-6:]
     assert json.loads(lines[0]) == {"voice": {"n": 13},
@@ -688,6 +692,8 @@ def test_main_prints_the_vision_line_before_the_voice_line(monkeypatch,
     monkeypatch.setattr(cs, "phase_surfaces", lambda *a, **k: {
         "launches": {}})
     monkeypatch.setattr(cs, "phase_perception", lambda *a, **k: {
+        "launches": {}})
+    monkeypatch.setattr(cs, "phase_mla_mamba", lambda *a, **k: {
         "launches": {}})
     assert cs.main() == 0
     assert seen == [13, (14, True)]
@@ -836,10 +842,12 @@ def test_main_prints_the_app_line_before_the_vision_line(monkeypatch,
         "launches": {}})
     monkeypatch.setattr(cs, "phase_perception", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_mla_mamba", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     assert seen == [True]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-15].startswith("chip_smoke wall: ")
+    assert lines[-16].startswith("chip_smoke wall: ")
     assert json.loads(lines[-9])["families"] == {"launches": {}, "n": 16}
     assert json.loads(lines[-8]) == {"app": {
         "launches": {"q4_matmul_w4a8": 7}, "n": 15},
@@ -1119,10 +1127,12 @@ def test_main_prints_the_moe_line_before_the_families_line(monkeypatch,
         "launches": {}})
     monkeypatch.setattr(cs, "phase_perception", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_mla_mamba", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     assert seen == [True]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-15].startswith("chip_smoke wall: ")
+    assert lines[-16].startswith("chip_smoke wall: ")
     moe = json.loads(lines[-10])
     assert moe["moe"] == {"launches": {"q4_matmul_w4a8": 9}, "n": 17}
     assert moe["moe_kernels"]["q4_matmul_w4a8"] == [
@@ -1134,7 +1144,7 @@ def test_main_prints_the_moe_line_before_the_families_line(monkeypatch,
 def test_main_prints_the_vlm_line_and_the_phase_seconds(monkeypatch,
                                                        capsys):
     """Phase 18 runs after phase 17 on phase 11's GGUF; its line comes just
-    before the moe line, the smoke's wall and the phase seconds (1 to 20,
+    before the moe line, the smoke's wall and the phase seconds (1 to 21,
     and the wall from the start) on the lines before phase 20's, and the
     kernels line counts its launches."""
     from trackiellm_tpu_torch.ops import _build
@@ -1172,12 +1182,14 @@ def test_main_prints_the_vlm_line_and_the_phase_seconds(monkeypatch,
         "launches": {}})
     monkeypatch.setattr(cs, "phase_perception", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_mla_mamba", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     assert seen == [(os.path.join(gguf[0], "mistral.gguf"), gguf[0])]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-15].startswith("chip_smoke wall: ")
-    timing = json.loads(lines[-14])
-    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 21)}
+    assert lines[-16].startswith("chip_smoke wall: ")
+    timing = json.loads(lines[-15])
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 22)}
     assert timing["wall_s"] >= sum(timing["phase_seconds"].values()) * 0.999
     assert json.loads(lines[-11]) == {
         "vlm": {"launches": {"q4_matmul_f32a": 4}, "n": 18},
@@ -1579,11 +1591,13 @@ def test_main_prints_the_surfaces_line_before_the_vlm_line(monkeypatch,
         {"phase19": launches[19]}))
     monkeypatch.setattr(cs, "phase_perception", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_mla_mamba", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     assert seen == [(float, True)]
     lines = capsys.readouterr().out.strip().splitlines()
-    timing = json.loads(lines[-14])
-    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 21)}
+    timing = json.loads(lines[-15])
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 22)}
     assert json.loads(lines[-12]) == {
         "surfaces": {"launches": {"q4_matmul_f32a": 19}, "n": 19},
         "card": "H100, 700.00 W"}
@@ -1655,9 +1669,10 @@ def test_phase19_precompile_child_fails_without_a_card():
 
 def test_main_prints_the_perception_line_before_the_surfaces_line(
         monkeypatch, capsys):
-    """Phase 20 runs last, with the profile child; its line comes just
-    before the surfaces line, after the phase seconds (1 to 20), and the
-    kernels line counts its launches (the app turn's)."""
+    """Phase 20 runs with the profile child, before phase 21; its line
+    comes just before the surfaces line, after phase 21's and the phase
+    seconds (1 to 21), and the kernels line counts its launches (the app
+    turn's)."""
     from trackiellm_tpu_torch.ops import _build
     cs = _load()
     monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
@@ -1688,12 +1703,14 @@ def test_main_prints_the_perception_line_before_the_surfaces_line(
         {"launches": {"q4_matmul_w4a8": 20}, "n": 20})[1])
     monkeypatch.setattr(cs, "kernels_line", lambda rows, launches: json.dumps(
         {"phase20": launches[20]}))
+    monkeypatch.setattr(cs, "phase_mla_mamba", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     assert seen == [True]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-15].startswith("chip_smoke wall: ")
-    timing = json.loads(lines[-14])
-    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 21)}
+    assert lines[-16].startswith("chip_smoke wall: ")
+    timing = json.loads(lines[-15])
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 22)}
     assert json.loads(lines[-13]) == {
         "perception": {"launches": {"q4_matmul_w4a8": 20}, "n": 20},
         "card": "H100, 700.00 W"}
@@ -1731,6 +1748,8 @@ def test_main_exits_non_zero_when_phase20_fails(monkeypatch, capsys):
     def failed(*a, **k):
         raise AssertionError("phase 20 (c): failures")
     monkeypatch.setattr(cs, "phase_perception", failed)
+    monkeypatch.setattr(cs, "phase_mla_mamba", lambda *a, **k: {
+        "launches": {}})
     with pytest.raises(AssertionError, match="phase 20"):
         cs.main()
     assert '"ok": true' not in capsys.readouterr().out
@@ -1885,3 +1904,189 @@ def test_phase20_keeps_the_published_widths(monkeypatch):
     labels = [x.lower() for x in models["labels"]]
     for _, fragments in ast.AMBIENT_MAP:
         assert any(f in name for f in fragments for name in labels)
+
+
+def test_main_prints_the_mla_mamba_line_before_the_perception_line(
+        monkeypatch, capsys):
+    """Phase 21 runs last, in the smoke's work directory; its line comes
+    just before the perception line, after the phase seconds (1 to 21),
+    and the kernels line counts its launches."""
+    from trackiellm_tpu_torch.ops import _build
+    cs = _load()
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda *a: (9, 0))
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "H100")
+    monkeypatch.setattr(cs, "nvidia_smi", lambda: "H100, 700.00 W")
+    monkeypatch.setattr(_build, "build", lambda: _build.BUILD_ROOT / "x")
+    monkeypatch.setattr(_build, "library", lambda: None)
+    for name, value in (("phase_kernels", {}), ("phase_width", None),
+                        ("build_model", {"layers": {}}), ("profile_path", {}),
+                        ("expect_routes", None), ("phase_entry", None),
+                        ("phase_diagnostics", {})):
+        monkeypatch.setattr(cs, name, lambda *a, v=value, **k: v)
+    monkeypatch.setattr(cs, "drive", lambda *a, **k: {
+        "quantize_activations": 1, "q4_matmul_w4a8": 1})
+    for name, n in (("phase_slice10", 10), ("phase_gguf", 11),
+                    ("phase_serve", 12), ("phase_app", 15),
+                    ("phase_families", 16), ("phase_moe", 17),
+                    ("phase_vlm", 18), ("phase_surfaces", 19),
+                    ("phase_perception", 20)):
+        monkeypatch.setattr(cs, name, lambda *a, n=n, **k: {
+            "launches": {}, "n": n})
+    monkeypatch.setattr(cs, "phase_voice", lambda *a, **k: {"n": 13})
+    monkeypatch.setattr(cs, "phase_vision", lambda *a, **k: {"n": 14})
+    seen = []
+    monkeypatch.setattr(cs, "phase_mla_mamba", lambda dev, counters, work: (
+        seen.append(os.path.isdir(work)),
+        {"launches": {"flash_attention": 21}, "n": 21})[1])
+    monkeypatch.setattr(cs, "kernels_line", lambda rows, launches: json.dumps(
+        {"phase21": launches[21]}))
+    assert cs.main() == 0
+    assert seen == [True]
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[-16].startswith("chip_smoke wall: ")
+    timing = json.loads(lines[-15])
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 22)}
+    assert json.loads(lines[-14]) == {
+        "mla_mamba": {"launches": {"flash_attention": 21}, "n": 21},
+        "card": "H100, 700.00 W"}
+    assert json.loads(lines[-13])["perception"]["n"] == 20
+    assert json.loads(lines[-2]) == {"phase21": {"flash_attention": 21}}
+
+
+def test_phase21_keeps_the_published_widths_and_the_d192_headline():
+    """Phase 21's configs: DeepSeek-V2-Lite (dim 2048, 16 heads of MLA's
+    128 + 64 / 128 head dims, latent 512, 64 experts top 6 of width 1408
+    with 2816 shared, dense layer 0, vocab 102,400) cut in depth only
+    (dense layer 0 kept, at least 3 MoE layers) and max_seq 1024;
+    DeepSeek-V3 (dim 7168, 128 heads, q-LoRA 1536, 256 experts top 8 by
+    sigmoid in 8 groups of which 4 by top-2 sum, vocab 129,280) at one dense
+    and one MoE layer; Mamba-2.8B at its 64 layers; Mamba-Codestral-7B's
+    widths (dim 4096, 128 heads of 64, d_state 128, 8 groups); group 64
+    divides every DeepSeek K/2 but V2-Lite's dense w_down's (10,944 / 2),
+    which takes 32 (``mla.group_for``). Phase 3 holds flash at D = 192 on
+    MLA's shape as a headline case."""
+    from trackiellm_tpu_torch.models import mamba, mamba2, mla
+    cs = _load()
+    c = cs.phase21_configs(mla, mamba, mamba2)
+    v2 = c["v2_lite"]
+    assert v2._replace(n_layers=27, max_seq=8192) == (
+        mla.MLAConfig.deepseek_v2_lite())
+    assert v2.first_k_dense == 1 and v2.n_layers - 1 >= 3
+    assert v2.max_seq == 1024 and v2.qk_head_dim == 192
+    v3 = c["v3"]
+    assert v3._replace(n_layers=61, first_k_dense=3, max_seq=8192) == (
+        mla.MLAConfig.deepseek_v3())
+    assert (v3.n_layers, v3.first_k_dense) == (2, 1)
+    assert c["mamba"] == mamba.MambaConfig.mamba_2_8b()
+    assert c["mamba2"]._replace(n_layers=64) == mamba2.Mamba2Config()
+    assert c["mamba2"].n_layers >= 4
+    for k in (2048, 1408, 2816, 7168, 18432, 1536, 16384):
+        assert mla.group_for(k, cs.MLA_GROUP, 4) == cs.MLA_GROUP, k
+    assert mla.group_for(10944, cs.MLA_GROUP, 4) == 32
+    assert "causal S=512 D=192 bfloat16" in cs.KERNELS["flash_attention"][2]
+    assert cs.MLA_FLASH == (192, (16, 16), 512)
+    assert c["knobs"].qk_head_dim == 192
+
+
+def _phase21_on_the_cpu(monkeypatch, cs):
+    """``cs`` set to rehearse phase 21 on the CPU at tiny widths (MLA's
+    head dims in the knob sets and the CLI's GGUFs as the smoke has them):
+    the routes' and launch counts' checks recorded."""
+    from trackiellm_tpu_torch import __main__ as cli
+    from trackiellm_tpu_torch.models import mamba, mamba2, mla
+    cpu = torch.device("cpu")
+    for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(cli, "_device", lambda name, verb: cpu)
+    monkeypatch.setattr(cs, "flash_attrs", lambda attention, d: {})
+    tiny = mla.MLAConfig(vocab_size=320, dim=64, n_layers=4, n_heads=2,
+                         hidden_dim=128, kv_lora_rank=32, qk_nope_head_dim=16,
+                         qk_rope_head_dim=8, v_head_dim=16, n_experts=4,
+                         n_experts_used=2, moe_hidden_dim=64,
+                         moe_shared_hidden=64, first_k_dense=1,
+                         max_seq=1024)
+    real = cs.phase21_configs
+
+    def configs(*mods):
+        c = real(*mods)
+        return {"v2_lite": tiny,
+                "v3": tiny._replace(
+                    n_layers=2, q_lora_rank=32, n_experts=8, max_seq=256,
+                    moe_norm_topk=True, moe_routed_scale=2.5,
+                    moe_n_groups=4, moe_topk_groups=2,
+                    moe_score_func="sigmoid", moe_group_score="top2sum"),
+                "knobs": c["knobs"],
+                "mamba": mamba.MambaConfig.test()._replace(
+                    vocab_size=320, dim=64, d_inner=128),
+                "mamba2": mamba2.Mamba2Config.test()._replace(
+                    vocab_size=320)}
+    monkeypatch.setattr(cs, "phase21_configs", configs)
+    monkeypatch.setattr(cs, "MLA_GROUP", 16)
+    monkeypatch.setattr(cs, "MAMBA_GROUP", 32)
+    monkeypatch.setattr(cs, "MLA_TOKENS", 6)
+    monkeypatch.setattr(cs, "MAMBA_TOKENS", 6)
+    monkeypatch.setattr(cs, "MLA_SERVE_TOKENS", 4)
+    checks = []
+    monkeypatch.setattr(cs, "expect_routes", lambda launches, ran, idle,
+                        phase: checks.append(phase))
+    monkeypatch.setattr(cs, "expect_launches", lambda got, want, what:
+                        checks.append(what))
+    return cpu, checks
+
+
+def test_phase21_on_the_cpu(monkeypatch, capsys, tmp_path):
+    """Phase 21's control flow on the CPU at tiny widths: (a) two turns
+    behind LLMRunner(model=mla) and the served burst with the runner's ids;
+    (b) V2-Lite's cut card against CPU with its router flips explained, the
+    V2 and V3 knob sets through the converters, V3's two layers finite;
+    (c) MambaRunner and the served burst; (d) MambaRunner on Mamba-2 and
+    its f32 sweep; (e) both GGUFs through inspect, convert and generate."""
+    cs = _load()
+    cpu, checks = _phase21_on_the_cpu(monkeypatch, cs)
+    out = cs.phase_mla_mamba(cpu, cs.launch_counters(), str(tmp_path))
+    a = out["a"]
+    assert a["tokens"] and a["turn2_tokens"]
+    assert a["serve"]["tokens"] == [cs.MLA_SERVE_TOKENS] * 4
+    v2 = out["b"]["v2_lite"]
+    assert all(max(e) < cs.WIDTH_TOL for e in v2["rel_l2"].values())
+    assert set(out["b"]["knobs"]) == {"v2", "v3"}
+    assert out["b"]["knobs"]["v3"]["gate_bias"]
+    assert out["b"]["knobs"]["v3"]["score_func"] == "sigmoid"
+    assert all(k["rel_l2"] < cs.MLA_KNOB_TOL
+               for k in out["b"]["knobs"].values())
+    assert out["b"]["v3"]["finite"]
+    assert out["c"]["tokens"] and out["c"]["serve"]["waves"]
+    assert out["d"]["rel_l2"] < cs.MAMBA2_TOL and out["d"]["tokens"]
+    assert {k: v["inspect"] for k, v in out["e"].items()} == {
+        "deepseek2": "deepseek2", "mamba": "mamba"}
+    assert set(out["part_seconds"]) == {"a", "b", "c", "d", "e"}
+    assert checks[:2] == [
+        "phase 21 (a): flash at D = 192 in a bucket-512 prefill",
+        "phase 21 (a)"]
+    assert "phase 21 (b) V3: flash at D = 192, 128 heads" in checks
+    text = capsys.readouterr().out
+    for tag in ("DeepSeek-V2-Lite depth cut", "served burst of 4",
+                "router flips", "v3 knobs (sigmoid", "Mamba-2.8B",
+                "d (Codestral widths", "e deepseek2: inspect",
+                "phase 21 took"):
+        assert tag in text, tag
+
+
+def test_mla_profile_on_the_cpu(monkeypatch, capsys):
+    """``chip_smoke.py --mla-profile``'s windows on the CPU at tiny widths
+    (the profiler faked): V2-Lite's prefill and decode a token, Mamba's
+    decode a token, each with wall, busy, idle share and launches."""
+    cs = _load()
+    cpu, _ = _phase21_on_the_cpu(monkeypatch, cs)
+    monkeypatch.setattr(cs, "device_breakdown", lambda fn: (
+        fn(), 0.5, 10, {"kernel": (0.5, 10)})[1:])
+    out = cs.mla_profile(cpu)
+    assert set(out) == {"v2_lite_layers", "v2_lite_prefill",
+                        "v2_lite_decode", "mamba_decode"}
+    for k in ("v2_lite_prefill", "v2_lite_decode", "mamba_decode"):
+        assert out[k]["wall_ms"] > 0 and out[k]["top"]
+    assert out["v2_lite_decode"]["launches"] == 10 / cs.MLA_PROFILE_TOKENS
+    assert "profile Mamba-2.8B decode" in capsys.readouterr().out

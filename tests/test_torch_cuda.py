@@ -43,7 +43,7 @@ VARIANTS = {"causal": {}, "window": {"window": 100}, "softcap": {"softcap": 5.0}
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
-@pytest.mark.parametrize("d", [64, 96, 128, 256])
+@pytest.mark.parametrize("d", [64, 96, 128, 192, 256])
 def test_flash_kernel_matches_plain(dev, variant, dtype, d):
     g = torch.Generator(device=dev).manual_seed(d)
     q = torch.randn((8, 512, d), generator=g, device=dev).to(dtype)
@@ -146,7 +146,7 @@ def test_w4a8_refuses_other_dtypes_before_launching(dev):
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS) + ["window17"])
 @pytest.mark.parametrize("s", [64, 256, 512])
-@pytest.mark.parametrize("d", [64, 96, 128, 256])
+@pytest.mark.parametrize("d", [64, 96, 128, 192, 256])
 def test_bf16_flash_tensor_core_kernel(dev, d, s, variant):
     """The bf16 kernel against its plain twin (same tiles, P rounded to
     bf16) and the dense oracle, with a window shorter than a key tile."""
@@ -183,6 +183,57 @@ def test_flash_at_family_head_dims(dev, d, dtype):
     assert _rel_l2(got, ref) < (1e-5 if dtype == torch.float32 else 1e-2)
     attrs = ta.flash_kernel_attrs(d, dtype)
     assert 0 < attrs["regs"] <= 255 and attrs["local_bytes"] == 0
+
+
+@pytest.mark.parametrize("window", [0, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_at_mla_head_dim(dev, dtype, window):
+    """DeepSeek-V2-Lite's MLA prefill: D = 192 (128 + 64 rope dims, V
+    zero-padded to 192), 16 heads of their own, S = 512, scale 1/sqrt(192),
+    causal and windowed, against the plain twin; the kernel launches once,
+    and its registers and spills are read."""
+    g = torch.Generator(device=dev).manual_seed(192 + window)
+    q, k, v = (torch.randn((16, 512, 192), generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    v[..., 128:] = 0
+    kw = {"window": window, "scale": 192 ** -0.5}
+    before = ta.flash_attention.launches
+    got = ta.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ta.flash_attention.launches == before + 1
+    ref = ta.flash_attention_ref(q, k, v, **kw)
+    assert _rel_l2(got, ref) < (1e-5 if dtype == torch.float32 else 1e-2)
+    assert got[..., 128:].abs().max().item() == 0.0
+    attrs = ta.flash_kernel_attrs(192, dtype)
+    print(f"flash D=192 {dtype}: {attrs}")
+    assert 0 < attrs["regs"] <= 255
+
+
+def test_mla_prefill_on_the_card_matches_the_cpu(dev):
+    """A tiny MLA model (q-LoRA, f32) at bucket 256 on the card, where the
+    prefill takes the flash kernel at D = 192, against the CPU's dense
+    prefill: logits and the latent cache within 1e-4 rel L2."""
+    from trackiellm_tpu_torch.models import mla
+    from trackiellm_tpu_torch.models.llm import params_to
+    cfg = mla.MLAConfig.tiny()._replace(
+        n_heads=4, kv_lora_rank=32, qk_nope_head_dim=128,
+        qk_rope_head_dim=64, v_head_dim=96, q_lora_rank=24, max_seq=256)
+    params = mla.init_params(torch.Generator().manual_seed(3), cfg,
+                             dtype=torch.float32, device=torch.device("cpu"))
+    card = params_to(params, dev)
+    toks = torch.randint(0, cfg.vocab_size, (256,),
+                         generator=torch.Generator().manual_seed(4))
+    cpu = torch.device("cpu")
+    want, wc = mla.prefill(params, cfg, toks, 200,
+                           mla.MLACache.create(cfg, torch.float32,
+                                               device=cpu))
+    before = ta.flash_attention.launches
+    got, gc = mla.prefill(card, cfg, toks.to(dev), 200,
+                          mla.MLACache.create(cfg, torch.float32,
+                                              device=dev))
+    assert ta.flash_attention.launches == before + cfg.n_layers
+    assert _rel_l2(got.cpu(), want) < 1e-4
+    assert _rel_l2(gc.ckv.cpu(), wc.ckv) < 1e-4
 
 
 def test_f32_flash_keeps_f32_math(dev):

@@ -460,8 +460,8 @@ def test_decode_progresses_between_job_chunks():
 
 def test_memory_modes():
     """paged="auto" is dense when the slot caches fit the budget, paged
-    under a tight one; int8 needs paged; model= and mesh= wait for their
-    queue items."""
+    under a tight one; int8 needs paged; another model module refuses the
+    page pool, and mesh= waits for its queue item."""
     dense = _server()
     try:
         assert dense.paged is False and dense.cache is not None
@@ -478,8 +478,10 @@ def test_memory_modes():
     with pytest.raises(TrackieError):
         _server(int8=True, paged=False)
     _, tp = _params()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        LLMServer(tp, CFG, model=object())
+    # Another model module serves over dense slots only (its serving is in
+    # tests/test_torch_mla.py and test_torch_mamba.py).
+    with pytest.raises(TrackieError, match="paged KV supports the default"):
+        LLMServer(tp, CFG, model=object(), paged=True)
     with pytest.raises(NotImplementedError, match="item 12"):
         LLMServer(tp, CFG, mesh=object())
 

@@ -15,10 +15,18 @@
       convert a transformers LLaVA or PaliGemma state dict (.safetensors,
       .pt, .npz): the language model at DIR, the vision tower and
       projector at DIR/vision.
+  convert <state dict> -o DIR --family deepseekv2-hf|deepseekv3-hf|
+          mamba-hf|mamba2-hf [--bits N] [--device D]
+      convert a transformers DeepSeek-V2/V3 (MLA), Mamba or Mamba-2 state
+      dict; ``--bits`` requantizes MLA at group 64 and Mamba at 256
+      (Mamba-2 stays f32). A deepseek2 or mamba GGUF takes its own route
+      through the plain GGUF form above.
   generate <ckpt> -p PROMPT [--max-tokens N] [--temperature T]
            [--image FRAME.npy] [--device D]
-      run a generation from a native checkpoint (``LLMConfig`` only), such
-      as one that ``convert`` wrote; with ``--image`` (an HWC uint8 array,
+      run a generation from a native checkpoint, such as one that
+      ``convert`` wrote: ``LLMConfig`` through ``LLMRunner``, ``MLAConfig``
+      through ``LLMRunner(model=models.mla)``, ``MambaConfig`` and
+      ``Mamba2Config`` through ``MambaRunner``; with ``--image`` (an HWC uint8 array,
       .npy or an .npz holding ``image``) a multimodal checkpoint sees the
       frame at the prompt's ``<image>`` marker (prepended when absent).
   transcribe <wav> [--checkpoint DIR] [--device D]
@@ -47,8 +55,10 @@
       handles and the allocator's pools, and the built libraries stay under
       ``--cache-dir`` (``tools/cache_artifact.py`` packs them).
 
-Port of ``trackiellm_tpu/__main__.py``'s ``inspect``, the GGUF,
-``--mmproj``, ``llava-hf`` and ``paligemma-hf`` branches of ``convert``,
+Port of ``trackiellm_tpu/__main__.py``'s ``inspect``, the GGUF (deepseek2
+and mamba included), ``--mmproj``, ``llava-hf``, ``paligemma-hf``,
+``trocr-hf``, ``deepseekv2-hf``, ``deepseekv3-hf``, ``mamba-hf`` and
+``mamba2-hf`` branches of ``convert``,
 ``generate`` (``--image`` included), ``transcribe``, ``synth``, ``demo``
 and ``precompile``, with the JAX package's defaults (4 bits; 64 tokens,
 temperature 0.7; 5 s; max_seq 1024). Every command but ``inspect`` runs on
@@ -88,6 +98,8 @@ _HF_FAMILIES = (
     "mamba-hf", "mamba2-hf", "paligemma-hf", "trocr-hf", "glm4moe-hf",
     "qwen3next-hf")
 _MULTIMODAL_FAMILIES = ("llava-hf", "paligemma-hf")
+_STATE_DICT_FAMILIES = ("deepseekv2-hf", "deepseekv3-hf", "mamba-hf",
+                        "mamba2-hf")
 
 
 def _device(name, verb: str):
@@ -149,8 +161,36 @@ def _convert_trocr(args, device: torch.device, t0: float) -> int:
     return 0
 
 
+def _convert_state_dict(args, device: torch.device, t0: float) -> int:
+    """DeepSeek-V2/V3, Mamba or Mamba-2 from a transformers state dict,
+    requantized at ``--bits`` by the family's ``quantize_params`` (MLA at
+    group 64, Mamba at 256). Mamba-2 has no quantized route: its weights
+    stay f32 whatever ``--bits`` says."""
+    fn = {"deepseekv2-hf": convert_mod.deepseek_v2_from_hf,
+          "deepseekv3-hf": convert_mod.deepseek_v3_from_hf,
+          "mamba-hf": convert_mod.mamba_from_hf,
+          "mamba2-hf": convert_mod.mamba2_from_hf}[args.family]
+    params, cfg = fn(convert_mod.load_state_dict(args.gguf), device=device)
+    if args.bits and args.family == "mamba2-hf":
+        print("mamba2-hf: Mamba-2 has no quantized route; the weights stay "
+              "f32", file=sys.stderr)
+    elif args.bits:
+        if args.family.startswith("deepseek"):
+            from trackiellm_tpu_torch.models.mla import quantize_params
+        else:
+            from trackiellm_tpu_torch.models.mamba import quantize_params
+        params = quantize_params(params, bits=args.bits)
+    save_checkpoint(args.output, params, config=cfg,
+                    metadata={"source": args.gguf, "bits": args.bits,
+                              "vocab_pieces": None, "tokenizer_spec": None})
+    print(f"converted + saved to {args.output} "
+          f"in {time.time() - t0:.1f}s; config: {cfg}")
+    return 0
+
+
 def _cmd_convert(args) -> int:
-    if args.family not in ("gguf", "trocr-hf", *_MULTIMODAL_FAMILIES):
+    if args.family not in ("gguf", "trocr-hf", *_MULTIMODAL_FAMILIES,
+                           *_STATE_DICT_FAMILIES):
         raise NotImplementedError(
             f"--family {args.family}: the transformers-state-dict "
             "converters (*_from_hf) are not ported yet (ROADMAP Queue 1 "
@@ -161,6 +201,8 @@ def _cmd_convert(args) -> int:
         return _convert_trocr(args, device, t0)
     if args.family in _MULTIMODAL_FAMILIES:
         return _convert_multimodal(args, device, t0)
+    if args.family in _STATE_DICT_FAMILIES:
+        return _convert_state_dict(args, device, t0)
     hdr = read_gguf_header(args.gguf)
     params, cfg = gguf_convert_auto(args.gguf, bits=args.bits or None,
                                     device=device)
@@ -228,11 +270,25 @@ def _cmd_generate(args) -> int:
         tokenizer = tokenizer_from_pieces(meta["vocab_pieces"])
     gen_config = GenerationConfig(max_tokens=args.max_tokens,
                                   temperature=args.temperature)
+    kind = type(cfg).__name__
+    if kind in ("MambaConfig", "Mamba2Config"):
+        # The recurrent-state families have their own sequential runner.
+        from trackiellm_tpu_torch.models.mamba import MambaRunner
+
+        runner = MambaRunner(params, cfg, tokenizer=tokenizer,
+                             gen_config=gen_config, device=device)
+        runner.generate(args.prompt,
+                        on_token=lambda s: print(s, end="", flush=True))
+        print()
+        return 0
     if args.image:
         return _generate_image(args, params, cfg, meta, tokenizer,
                                gen_config, device)
+    model = None
+    if kind == "MLAConfig":
+        from trackiellm_tpu_torch.models import mla as model
     runner = LLMRunner(params, cfg, tokenizer, device=device,
-                       gen_config=gen_config)
+                       gen_config=gen_config, model=model)
     runner.generate(args.prompt,
                     on_token=lambda s: print(s, end="", flush=True))
     print()
@@ -343,8 +399,9 @@ def main(argv=None) -> int:
     p.add_argument("--family", default="gguf",
                    choices=("gguf", *_HF_FAMILIES),
                    help="source layout (default: GGUF metadata-driven); "
-                        "of the others, llava-hf, paligemma-hf and "
-                        "trocr-hf are ported")
+                        "of the others, llava-hf, paligemma-hf, trocr-hf, "
+                        "deepseekv2-hf, deepseekv3-hf, mamba-hf and "
+                        "mamba2-hf are ported")
     p.add_argument("--n-heads", type=int, default=32,
                    help="llava-hf: text attention heads (not derivable "
                         "from shapes)")

@@ -9,6 +9,8 @@ grammar-constrained decode (``force_tool_call``, ``json_mode``,
 prompt-lookup speculation (``llm/speculative.py``) over the KV cache ->
 text through an incremental UTF-8 assembler. Greedy output is
 byte-identical to the serial path whatever the lookahead or speculation.
+``model=`` drives another module with the same forward surface
+(``models/mla.py`` for DeepSeek-V2/V3).
 """
 
 from __future__ import annotations
@@ -110,8 +112,15 @@ class LLMRunner:
                  tokenizer: Optional[Tokenizer] = None,
                  gen_config: Optional[GenerationConfig] = None,
                  cache_dtype: torch.dtype = torch.bfloat16,
-                 device: Optional[torch.device] = None):
-        llm_model.check_supported(cfg, params)
+                 device: Optional[torch.device] = None, model=None):
+        """``model``: the module driving the session, any module with
+        ``models/llm.py``'s forward surface (``prefill``, ``extend``,
+        ``decode_step``, ``decode_chunk_greedy``, ``KVCache``); by default
+        ``models.llm``. Pass ``models.mla`` for a DeepSeek-V2/V3
+        checkpoint, whose ``MLACache`` plays the KV cache's role."""
+        self._m = model or llm_model
+        if self._m is llm_model:
+            llm_model.check_supported(cfg, params)
         self.params = params
         self.cfg = cfg
         dev = torch.device(device or params["tok_emb"].device)
@@ -125,8 +134,8 @@ class LLMRunner:
             n_special_pad_to=cfg.vocab_size)
         self.gen = gen_config or GenerationConfig()
         self._cache_dtype = cache_dtype
-        self.cache = llm_model.KVCache.create(cfg, dtype=cache_dtype,
-                                              device=self.device)
+        self.cache = self._m.KVCache.create(cfg, dtype=cache_dtype,
+                                            device=self.device)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(self.gen.seed)
         self._grammar = None
@@ -348,7 +357,7 @@ class LLMRunner:
         padded[:first_n] = ids[:first_n]
         # Reuse the allocated KV buffers: the length mask hides old rows.
         self.cache = self.cache._replace(length=0)
-        logits, self.cache = llm_model.prefill(
+        logits, self.cache = self._m.prefill(
             self.params, self.cfg, self._ids(padded), first_n, self.cache)
         self._host_len = first_n
         self._committed_ids = [int(i) for i in ids[:first_n]]
@@ -395,7 +404,7 @@ class LLMRunner:
         bucket = _bucket_for(len(ids), EXTEND_BUCKETS)
         padded = np.zeros(bucket, np.int64)
         padded[: len(ids)] = ids
-        logits, self.cache = llm_model.extend(
+        logits, self.cache = self._m.extend(
             self.params, self.cfg, self._ids(padded), len(ids), self.cache,
             attn_len=self._attn_bucket_for(self._host_len + bucket))
         self._host_len += len(ids)
@@ -405,7 +414,7 @@ class LLMRunner:
     def _decode_commit(self, tid: int) -> torch.Tensor:
         """Write ``tid`` into the cache with one decode step; returns the
         logits after it."""
-        logits, self.cache = llm_model.decode_step(
+        logits, self.cache = self._m.decode_step(
             self.params, self.cfg, tid, self.cache,
             attn_len=self._attn_bucket())
         self._host_len += 1
@@ -560,7 +569,7 @@ class LLMRunner:
         mask = (self._eos_ban_mask()
                 if self._n_emitted < self.gen.min_tokens else None)
         token_dev = sampling.greedy(self._next_logits, mask)
-        nxt_logits, nxt_cache = llm_model.decode_step(
+        nxt_logits, nxt_cache = self._m.decode_step(
             self.params, self.cfg, token_dev, self.cache,
             attn_len=self._attn_bucket())
         tid = int(token_dev)
@@ -591,7 +600,7 @@ class LLMRunner:
         k = self.gen.lookahead
         sup = (max(0, min(k, self.gen.min_tokens - emitted_before))
                if self.gen.min_tokens > 0 else 0)
-        toks, lg, new_cache = llm_model.decode_chunk_greedy(
+        toks, lg, new_cache = self._m.decode_chunk_greedy(
             self.params, self.cfg, logits, cache, k,
             attn_len=self._attn_bucket_for(offset + k),
             eos_id=self.tokenizer.eos_id, suppress_until=sup)
@@ -712,7 +721,7 @@ class LLMRunner:
         padded = np.zeros(bucket, np.int64)
         padded[: len(chunk)] = chunk
         offset = self._host_len
-        logits, cache = llm_model.extend(
+        logits, cache = self._m.extend(
             self.params, self.cfg, self._ids(padded), len(chunk), self.cache,
             attn_len=self._attn_bucket_for(offset + bucket), all_logits=True)
         if self.gen.temperature <= 0:
@@ -911,8 +920,8 @@ class LLMRunner:
 
     def reset(self) -> None:
         """Clear the conversation."""
-        self.cache = llm_model.KVCache.create(self.cfg, dtype=self._cache_dtype,
-                                              device=self.device)
+        self.cache = self._m.KVCache.create(self.cfg, dtype=self._cache_dtype,
+                                            device=self.device)
         self._next_logits = None
         self._host_len = 0
         self._chat_turns = []

@@ -18,7 +18,8 @@ Sampling is greedy or per request (temperature, top-k, top-p, min-p,
 repetition window) with a ``torch.Generator`` on the server's device;
 grammar-constrained requests pick under the port's ``llm/grammar.py``
 masks. The serve thread runs on the params' device and never moves work
-to another one.
+to another one. ``model=`` serves another module with the same surface
+(``models/mla.py``, ``models/mamba.py``) over dense slots.
 """
 
 from __future__ import annotations
@@ -150,20 +151,33 @@ class LLMServer:
                  mesh=None, prefix_cache: bool = True,
                  prefill_chunk: int = 0, model=None, device=None):
         """``cache_dtype=torch.int8`` stores the KV pool quantized (paged
-        mode only). ``device`` defaults to the params' device."""
-        if model is not None:
-            raise NotImplementedError(
-                "model=: other model modules (models/mla.py, models/mamba.py"
-                ") are not ported yet (ROADMAP Queue 1 item 11)")
+        mode only). ``device`` defaults to the params' device.
+
+        ``model``: the module serving the checkpoint, any module with
+        ``models/llm.py``'s forward surface (``prefill``, ``extend``,
+        ``decode_step_batch``, ``decode_steps_batch``, ``KVCache``,
+        ``BatchedKVCache``, ``insert_sequence``); by default
+        ``models.llm``. ``models.mla`` serves DeepSeek-V2/V3 over the
+        compressed latent cache, ``models.mamba`` the recurrent state.
+        Another module serves over dense slots only (the page pool is
+        written against the (S, Hk, D) layout), and without
+        ``prefill_batch`` each request of a wave prefills on its own."""
         if mesh is not None:
             raise NotImplementedError(
                 "mesh=: tensor-parallel serving is not ported yet (ROADMAP "
                 "Queue 1 item 12)")
-        llm_model.check_supported(cfg, params)
+        self._m = model or llm_model
+        if self._m is llm_model:
+            llm_model.check_supported(cfg, params)
+        else:
+            if paged is True:
+                raise TrackieError(
+                    ErrorCode.INVALID_ARGUMENT,
+                    "paged KV supports the default models.llm only")
+            paged = False
         self.params = params
         self.cfg = cfg
         self.batch = batch_slots
-        self._m = llm_model
         dev = torch.device(device or params["tok_emb"].device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -212,7 +226,7 @@ class LLMServer:
             self.cache = None
         else:
             self.pool = None
-            self.cache = llm_model.BatchedKVCache.create(
+            self.cache = self._m.BatchedKVCache.create(
                 cfg, batch_slots, dtype=cache_dtype, device=dev)
         self._slots = [_Slot() for _ in range(batch_slots)]
         self._queue: "queue.Queue[Request]" = queue.Queue()
@@ -320,7 +334,7 @@ class LLMServer:
 
         buckets = [b for b in PREFILL_BUCKETS if b <= self.cfg.max_seq]
         kv_dtype = (self.pool.compute_dtype if self.paged
-                    else self.cache.k.dtype)
+                    else self.cache[0].dtype)
 
         # Phase 1: gather the admission wave (admission control only).
         wave = []  # (slot_idx, slot, req, ids, bucket)
@@ -407,15 +421,17 @@ class LLMServer:
             by_bucket.setdefault(bucket, []).append(item)
 
         for bucket, group in by_bucket.items():
-            if len(group) == 1:
-                slot_idx, slot, req, ids, _ = group[0]
-                padded = np.zeros(bucket, np.int64)
-                padded[: len(ids)] = ids
-                logits, seq_cache = self._m.prefill(
-                    self.params, self.cfg, self._ids(padded), len(ids),
-                    self._m.KVCache.create(self.cfg, dtype=kv_dtype,
-                                           device=self._device))
-                settle(slot_idx, slot, req, ids, logits, seq_cache)
+            # A module without prefill_batch (models.mla, models.mamba)
+            # admits one prefill a request.
+            if len(group) == 1 or not hasattr(self._m, "prefill_batch"):
+                for slot_idx, slot, req, ids, _ in group:
+                    padded = np.zeros(bucket, np.int64)
+                    padded[: len(ids)] = ids
+                    logits, seq_cache = self._m.prefill(
+                        self.params, self.cfg, self._ids(padded), len(ids),
+                        self._m.KVCache.create(self.cfg, dtype=kv_dtype,
+                                               device=self._device))
+                    settle(slot_idx, slot, req, ids, logits, seq_cache)
                 continue
             b_pad = 1 << (len(group) - 1).bit_length()
             padded = np.zeros((b_pad, bucket), np.int64)
@@ -549,7 +565,7 @@ class LLMServer:
                                                     required)
             attn_len = cache.k.shape[1]
         else:
-            cache = self._m.KVCache.create(self.cfg, dtype=self.cache.k.dtype,
+            cache = self._m.KVCache.create(self.cfg, dtype=self.cache[0].dtype,
                                            device=self._device)
             attn_len = min(1 << (max(required, 1) - 1).bit_length(),
                            self.cfg.max_seq)

@@ -14,8 +14,10 @@ which the two packages read and write alike:
 
 So a checkpoint that the JAX package converted (``python -m trackiellm_tpu
 convert model.gguf -o DIR --bits 8``) loads here, and the reverse. The
-configs read are ``LLMConfig``, ``CLIPVisionConfig``, ``TrOCRConfig`` and
-the voice models' (``WhisperConfig``, ``TTSConfig``, ``VITSConfig``); a
+configs read are ``LLMConfig``, ``MLAConfig``, ``MambaConfig``,
+``Mamba2Config`` (whose ``dt_limit`` comes back from JSON as a list and is
+made a tuple again), ``CLIPVisionConfig``, ``TrOCRConfig`` and the voice
+models' (``WhisperConfig``, ``TTSConfig``, ``VITSConfig``); a
 Whisper checkpoint may also carry its config in the metadata
 (``whisper_config``), as the JAX package's ``transcribe`` reads it.
 """
@@ -48,9 +50,6 @@ _Q4_PACKING = "mixed-bias-v2"
 # Config classes of other model families, and the ROADMAP item that ports
 # them.
 _WAITING = {
-    "MLAConfig": "model zoo, models/mla.py (ROADMAP Queue 1 item 11)",
-    "MambaConfig": "model zoo, models/mamba.py (ROADMAP Queue 1 item 11)",
-    "Mamba2Config": "model zoo, models/mamba2.py (ROADMAP Queue 1 item 11)",
     "Qwen3NextConfig": ("model zoo, models/qwen3next.py (ROADMAP Queue 1 "
                         "item 11)"),
 }
@@ -166,10 +165,10 @@ def _unflatten(tree: Any, arrays: Dict[str, torch.Tensor]) -> Any:
     return walk(tree)
 
 
-def _voice_config(cls: str):
-    """The voice, vision and OCR models' config classes, imported when a
-    checkpoint names one (their modules import this one's neighbours, not
-    this module)."""
+def _family_config(cls: str):
+    """The config classes of the other model modules (voice, vision, OCR,
+    MLA, Mamba, Mamba-2), imported when a checkpoint names one (their
+    modules import this one's neighbours, not this module)."""
     if cls == "CLIPVisionConfig":
         from trackiellm_tpu_torch.models.clip import CLIPVisionConfig
         return CLIPVisionConfig
@@ -185,6 +184,15 @@ def _voice_config(cls: str):
     if cls == "TrOCRConfig":
         from trackiellm_tpu_torch.models.trocr import TrOCRConfig
         return TrOCRConfig
+    if cls == "MLAConfig":
+        from trackiellm_tpu_torch.models.mla import MLAConfig
+        return MLAConfig
+    if cls == "MambaConfig":
+        from trackiellm_tpu_torch.models.mamba import MambaConfig
+        return MambaConfig
+    if cls == "Mamba2Config":
+        from trackiellm_tpu_torch.models.mamba2 import Mamba2Config
+        return Mamba2Config
     return None
 
 
@@ -201,13 +209,14 @@ def _config(sidecar: Dict[str, Any], directory: str):
         raise NotImplementedError(
             f"{directory} holds a {cls} checkpoint: {_WAITING[cls]} is not "
             "ported yet")
-    config_cls = LLMConfig if cls == "LLMConfig" else _voice_config(cls)
+    config_cls = LLMConfig if cls == "LLMConfig" else _family_config(cls)
     if config_cls is None:
         raise NotImplementedError(
             f"{directory}: config class {cls!r} is not supported; the port "
-            "loads LLMConfig checkpoints, the vision tower's "
-            "(CLIPVisionConfig), TrOCR's (TrOCRConfig) and the voice "
-            "models' (WhisperConfig, TTSConfig, VITSConfig)")
+            "loads LLMConfig, MLAConfig, MambaConfig and Mamba2Config "
+            "checkpoints, the vision tower's (CLIPVisionConfig), TrOCR's "
+            "(TrOCRConfig) and the voice models' (WhisperConfig, "
+            "TTSConfig, VITSConfig)")
     return config_cls(**{k: _tuples(v)
                          for k, v in sidecar["config"].items()})
 

@@ -25,10 +25,12 @@ Reading the file and dequantizing GGML blocks is host numpy code
 (``models/loader.py``), as in the reference. The requantization runs on
 the ``device`` given, the CUDA card by default, through
 ``ops/quant.py``'s quantizers, which give the JAX package's bytes on the
-card and on the CPU. Falcon, Llama-4 and GLM-4-MoE have converters of
-their own (``gguf_convert_auto`` dispatches them); MLA, Mamba and
-Qwen3-Next's and the transformers-state-dict routes are not ported yet
-(ROADMAP Queue 1 item 11).
+card and on the CPU. DeepSeek-V2/V3 (``deepseek2``, MLA), Mamba, Falcon,
+Llama-4 and GLM-4-MoE have converters of their own (``gguf_convert_auto``
+dispatches them), and DeepSeek-V2/V3, Mamba and Mamba-2 transformers
+state dicts theirs (``deepseek_v2_from_hf``, ``deepseek_v3_from_hf``,
+``mamba_from_hf``, ``mamba2_from_hf``); Qwen3-Next's routes are not
+ported yet (ROADMAP Queue 1 item 11).
 
 The voice converters (``whisper_from_torch``, ``whisper_from_ggml``,
 ``vad_from_torch``, ``silero_from_onnx``, ``tts_from_torch``,
@@ -81,10 +83,7 @@ log = get_logger("models.convert")
 
 # GGUF arches that the JAX package converts with a route of their own and
 # that the port does not run yet.
-_WAITING_ARCHES = {
-    "deepseek2": "gguf_to_mla_params", "mamba": "gguf_to_mamba_params",
-    "qwen3next": "gguf_to_qwen3next_params",
-}
+_WAITING_ARCHES = {"qwen3next": "gguf_to_qwen3next_params"}
 
 
 def _math_key(md: Dict[str, Any], name: str, default,
@@ -1177,7 +1176,600 @@ def gguf_to_glm4moe_params(path: str, bits: Optional[int] = 4,
     return params, cfg
 
 
+# ---------------------------------------------------------------------------
+# DeepSeek-V2/V3 (MLA) and Mamba / Mamba-2
+# ---------------------------------------------------------------------------
+
+def _tree_on(d: Dict[str, list], tensor, dtype: torch.dtype,
+             f32_keys=()) -> Dict[str, torch.Tensor]:
+    """Stack each non-empty list of host arrays into one tensor on the
+    device, in ``dtype`` (f32 for ``f32_keys``)."""
+    return {k: tensor(np.stack(v), torch.float32 if k in f32_keys else dtype)
+            for k, v in d.items() if v}
+
+
+def deepseek_v2_from_hf(
+        state: Dict[str, Any], *, max_seq: int = 8192,
+        norm_eps: float = 1e-6, rope_theta: float = 10000.0,
+        n_experts_used: int = 6, norm_topk: bool = False,
+        routed_scale: float = 1.0, n_groups: int = 1, topk_groups: int = 1,
+        qk_nope_head_dim: int = 128, qk_rope_head_dim: int = 64,
+        score_func: str = "softmax", group_score: str = "max",
+        yarn_factor: float = 0.0, yarn_original_max_seq: int = 0,
+        dtype: torch.dtype = torch.bfloat16,
+        device: Optional[torch.device] = None,
+        bits: Optional[int] = None, group: int = 64) -> tuple:
+    """A transformers DeepSeek-V2 state dict -> (params, MLAConfig) for
+    ``models/mla.py``, the port of the JAX package's converter with its
+    tree and bytes: V2-Lite's full ``q_proj`` or V2's ``q_a_proj`` /
+    ``q_b_proj`` LoRA with its norm, dense first-k layers, routed and
+    shared experts, and (V3) ``e_score_correction_bias`` as the
+    selection-only ``moe_gate_bias``. No weight is permuted: the module
+    rotates adjacent pairs, as transformers' DeepseekV2 does. With
+    ``bits`` the tree is requantized on ``device`` (``mla.quantize_params``,
+    group 64)."""
+    from trackiellm_tpu_torch.models import mla as mla_model
+
+    device = default_device(device, "convert a checkpoint")
+    A = lambda k: np.asarray(state[k], np.float32)  # noqa: E731
+    emb = A("model.embed_tokens.weight")
+    vocab, dim = emb.shape
+    n_layers = len({k.split(".")[2] for k in state
+                    if k.startswith("model.layers.")})
+    kv_a = A("model.layers.0.self_attn.kv_a_proj_with_mqa.weight")
+    r = A("model.layers.0.self_attn.kv_a_layernorm.weight").shape[0]
+    rope = kv_a.shape[0] - r
+    if rope != qk_rope_head_dim:
+        raise TrackieError(
+            ErrorCode.MODEL_METADATA_INVALID,
+            f"kv_a_proj implies qk_rope_head_dim={rope}, "
+            f"got {qk_rope_head_dim}")
+    q_lora = "model.layers.0.self_attn.q_a_proj.weight" in state
+    q_out = A("model.layers.0.self_attn."
+              + ("q_b_proj" if q_lora else "q_proj") + ".weight").shape[0]
+    n_heads = q_out // (qk_nope_head_dim + qk_rope_head_dim)
+    kv_b_out = A("model.layers.0.self_attn.kv_b_proj.weight").shape[0]
+    v_head = kv_b_out // n_heads - qk_nope_head_dim
+    dense_idx = [i for i in range(n_layers)
+                 if f"model.layers.{i}.mlp.gate_proj.weight" in state]
+    first_k = len(dense_idx)
+    if dense_idx != list(range(first_k)):
+        raise TrackieError(ErrorCode.MODEL_METADATA_INVALID,
+                           f"non-prefix dense layers {dense_idx}")
+    n_experts = len({k.split(".")[5] for k in state if ".mlp.experts." in k})
+    moe_hidden = (A(f"model.layers.{first_k}.mlp.experts.0."
+                    "gate_proj.weight").shape[0] if n_experts else 0)
+    shared_key = f"model.layers.{first_k}.mlp.shared_experts.gate_proj.weight"
+    shared_hidden = A(shared_key).shape[0] if shared_key in state else 0
+    hidden = (A("model.layers.0.mlp.gate_proj.weight").shape[0]
+              if first_k else moe_hidden)
+    cfg = mla_model.MLAConfig(
+        vocab_size=vocab, dim=dim, n_layers=n_layers, n_heads=n_heads,
+        hidden_dim=hidden,
+        q_lora_rank=(A("model.layers.0.self_attn.q_a_proj.weight").shape[0]
+                     if q_lora else 0),
+        kv_lora_rank=r, qk_nope_head_dim=qk_nope_head_dim,
+        qk_rope_head_dim=qk_rope_head_dim, v_head_dim=v_head,
+        n_experts=n_experts, n_experts_used=n_experts_used,
+        moe_hidden_dim=moe_hidden, moe_norm_topk=norm_topk,
+        moe_shared_hidden=shared_hidden, moe_routed_scale=routed_scale,
+        moe_n_groups=n_groups, moe_topk_groups=topk_groups,
+        moe_score_func=score_func, moe_group_score=group_score,
+        first_k_dense=first_k if n_experts else n_layers,
+        norm_eps=norm_eps, rope_theta=rope_theta, max_seq=max_seq)
+
+    attn: Dict[str, list] = {k: [] for k in (
+        "attn_norm", "mlp_norm", "wkv_a", "kv_a_norm", "wkv_b", "wo",
+        *(("wq_a", "q_a_norm", "wq_b") if q_lora else ("wq",)))}
+    dense_mlp: Dict[str, list] = {"w_gu": [], "w_down": []}
+    moe_mlp: Dict[str, list] = {"moe_gate": [], "w_gu": [], "w_down": []}
+    if f"model.layers.{first_k}.mlp.gate.e_score_correction_bias" in state:
+        moe_mlp["moe_gate_bias"] = []
+    if shared_hidden:
+        moe_mlp.update(shared_gu=[], shared_down=[])
+
+    def gate_up(pre):
+        return np.concatenate([A(f"{pre}.gate_proj.weight").T,
+                               A(f"{pre}.up_proj.weight").T], axis=1)
+
+    for i in range(n_layers):
+        pre = f"model.layers.{i}"
+        sa = f"{pre}.self_attn"
+        attn["attn_norm"].append(A(f"{pre}.input_layernorm.weight"))
+        attn["mlp_norm"].append(A(f"{pre}.post_attention_layernorm.weight"))
+        attn["wkv_a"].append(A(f"{sa}.kv_a_proj_with_mqa.weight").T)
+        attn["kv_a_norm"].append(A(f"{sa}.kv_a_layernorm.weight"))
+        attn["wkv_b"].append(A(f"{sa}.kv_b_proj.weight").T)
+        attn["wo"].append(A(f"{sa}.o_proj.weight").T)
+        if q_lora:
+            attn["wq_a"].append(A(f"{sa}.q_a_proj.weight").T)
+            attn["q_a_norm"].append(A(f"{sa}.q_a_layernorm.weight"))
+            attn["wq_b"].append(A(f"{sa}.q_b_proj.weight").T)
+        else:
+            attn["wq"].append(A(f"{sa}.q_proj.weight").T)
+        if i < cfg.first_k_dense or not n_experts:
+            dense_mlp["w_gu"].append(gate_up(f"{pre}.mlp"))
+            dense_mlp["w_down"].append(A(f"{pre}.mlp.down_proj.weight").T)
+            continue
+        moe_mlp["moe_gate"].append(A(f"{pre}.mlp.gate.weight").T)
+        if "moe_gate_bias" in moe_mlp:
+            moe_mlp["moe_gate_bias"].append(
+                A(f"{pre}.mlp.gate.e_score_correction_bias"))
+        moe_mlp["w_gu"].append(np.stack(
+            [gate_up(f"{pre}.mlp.experts.{e}") for e in range(n_experts)]))
+        moe_mlp["w_down"].append(np.stack(
+            [A(f"{pre}.mlp.experts.{e}.down_proj.weight").T
+             for e in range(n_experts)]))
+        if shared_hidden:
+            sp = f"{pre}.mlp.shared_experts"
+            moe_mlp["shared_gu"].append(gate_up(sp))
+            moe_mlp["shared_down"].append(A(f"{sp}.down_proj.weight").T)
+
+    tensor = _converter_tools(device, None, group, dtype)[0]
+    params = {
+        "tok_emb": tensor(emb, dtype),
+        "attn": _tree_on(attn, tensor, dtype),
+        "dense_mlp": _tree_on(dense_mlp, tensor, dtype),
+        "moe_mlp": _tree_on(moe_mlp, tensor, dtype),
+        "out_norm": tensor(A("model.norm.weight"), dtype),
+        "lm_head": tensor(A("lm_head.weight").T if "lm_head.weight" in state
+                          else np.ascontiguousarray(emb.T), dtype),
+    }
+    if yarn_factor > 1.0:
+        # mscale == mscale_all_dim in the published configs: the yarn
+        # attention factor is 1.0 (mla.yarn_rope_factors).
+        params["rope_factors"] = mla_model.yarn_rope_factors(
+            cfg, yarn_factor, yarn_original_max_seq).to(device)
+    if bits:
+        params = mla_model.quantize_params(params, bits=bits, group=group)
+    return params, cfg
+
+
+def deepseek_v3_from_hf(state: Dict[str, Any], *, n_experts_used: int = 8,
+                        routed_scale: float = 2.5, n_groups: int = 8,
+                        topk_groups: int = 4, **kw) -> tuple:
+    """A transformers DeepSeek-V3/R1 state dict: V2's MLA unchanged, with
+    V3's routing (sigmoid scores, top-2-sum group scores, renormalized
+    weights and the selection bias)."""
+    kw.setdefault("norm_topk", True)
+    return deepseek_v2_from_hf(
+        state, n_experts_used=n_experts_used, routed_scale=routed_scale,
+        n_groups=n_groups, topk_groups=topk_groups, score_func="sigmoid",
+        group_score="top2sum", **kw)
+
+
+def _neox_to_interleaved_cols(w: np.ndarray, start: int,
+                              rope: int) -> np.ndarray:
+    """Reorder ``rope`` columns of ``w`` from ``start`` from neox's
+    half-split order [x0..x_{R/2-1} | y0..y_{R/2-1}] to the adjacent pairs
+    [x0, y0, x1, y1, ...] that ``models/mla.py`` rotates."""
+    half = rope // 2
+    perm = np.empty(rope, np.int64)
+    perm[0::2] = np.arange(half)
+    perm[1::2] = np.arange(half) + half
+    w = w.copy()
+    w[..., start:start + rope] = w[..., start:start + rope][..., perm]
+    return w
+
+
+def mla_config_from_gguf(gguf: GGUFFile):
+    """MLAConfig from llama.cpp ``deepseek2`` metadata, shape-derivable
+    fields from the tensors' shapes (as the reference reads them)."""
+    from trackiellm_tpu_torch.models import mla as mla_model
+
+    md = gguf.metadata
+    arch = "deepseek2"
+
+    def key(suffix: str, default=None):
+        v = md.get(f"{arch}.{suffix}", default)
+        if v is None:
+            raise TrackieError(ErrorCode.MODEL_METADATA_INVALID,
+                               f"missing GGUF key {arch}.{suffix}")
+        return v
+
+    t = gguf.tensors
+    n_heads = int(key("attention.head_count"))
+    n_layers = int(key("block_count"))
+    r = t["blk.0.attn_kv_a_norm.weight"].shape[0]
+    rope = t["blk.0.attn_kv_a_mqa.weight"].shape[0] - r  # (out, in) rows
+    qk_head = int(md.get(f"{arch}.attention.key_length", 0))
+    nope = (qk_head - rope) if qk_head else 0
+    q_lora = "blk.0.attn_q_a.weight" in t
+    if not nope:
+        q_out = t["blk.0." + ("attn_q_b" if q_lora else "attn_q")
+                  + ".weight"].shape[0]
+        nope = q_out // n_heads - rope
+    v_head = int(md.get(f"{arch}.attention.value_length", 0))
+    if not v_head and "blk.0.attn_kv_b.weight" in t:
+        v_head = t["blk.0.attn_kv_b.weight"].shape[0] // n_heads - nope
+    if not v_head and "blk.0.attn_v_b.weight" in t:
+        shp = t["blk.0.attn_v_b.weight"].shape
+        v_head = int(np.prod(shp)) // (n_heads * r)
+    n_experts = int(md.get(f"{arch}.expert_count", 0))
+    first_k = int(md.get(f"{arch}.leading_dense_block_count", -1))
+    if first_k < 0:  # dense layers carry a plain ffn_gate
+        first_k = sum(1 for i in range(n_layers)
+                      if f"blk.{i}.ffn_gate.weight" in t)
+    shex = "blk.%d.ffn_gate_shexp.weight" % (first_k if n_experts else 0)
+    shared_hidden = t[shex].shape[0] if shex in t else 0
+    hidden = (t["blk.0.ffn_gate.weight"].shape[0]
+              if "blk.0.ffn_gate.weight" in t
+              else int(key("feed_forward_length")))
+    # V3's routing rides metadata: expert_gating_func (1 softmax, 2
+    # sigmoid), the weight norm and the group counts.
+    gating = int(_math_key(md, f"{arch}.expert_gating_func", 1,
+                           "V2 family default: softmax routing"))
+    score = "sigmoid" if gating == 2 else "softmax"
+    return mla_model.MLAConfig(
+        vocab_size=int(md.get("tokenizer.ggml.tokens_count",
+                              md.get(f"{arch}.vocab_size",
+                                     t["token_embd.weight"].shape[0]))),
+        dim=int(key("embedding_length")), n_layers=n_layers,
+        n_heads=n_heads, hidden_dim=hidden,
+        q_lora_rank=t["blk.0.attn_q_a.weight"].shape[0] if q_lora else 0,
+        kv_lora_rank=r, qk_nope_head_dim=nope, qk_rope_head_dim=rope,
+        v_head_dim=v_head, n_experts=n_experts,
+        n_experts_used=int(md.get(f"{arch}.expert_used_count", 6)),
+        moe_hidden_dim=int(md.get(f"{arch}.expert_feed_forward_length", 0)),
+        moe_norm_topk=bool(md.get(f"{arch}.expert_weights_norm", False)),
+        moe_shared_hidden=shared_hidden,
+        moe_routed_scale=float(md.get(f"{arch}.expert_weights_scale", 1.0)),
+        moe_n_groups=int(md.get(f"{arch}.expert_group_count", 1) or 1),
+        moe_topk_groups=int(md.get(f"{arch}.expert_group_used_count", 1)
+                            or 1),
+        moe_score_func=score,
+        moe_group_score="top2sum" if score == "sigmoid" else "max",
+        first_k_dense=first_k if n_experts else n_layers,
+        norm_eps=float(key("attention.layer_norm_rms_epsilon", 1e-6)),
+        rope_theta=float(key("rope.freq_base", 10000.0)),
+        max_seq=int(key("context_length", 4096)))
+
+
+def gguf_to_mla_params(path: str, bits: Optional[int] = None,
+                       group: int = 64, dtype: torch.dtype = torch.bfloat16,
+                       max_layers: Optional[int] = None,
+                       neox_rope: Optional[bool] = None,
+                       device: Optional[torch.device] = None) -> tuple:
+    """A llama.cpp ``deepseek2`` GGUF -> (params on ``device``, MLAConfig),
+    the port of the JAX package's route with its tree and bytes.
+
+    ``neox_rope``: llama.cpp's converter reorders the rope columns of
+    ``q``/``q_b`` and ``kv_a_mqa`` into neox half-split order; they are
+    permuted back to adjacent pairs on ingest (default; False, or
+    ``TRACKIE_DEEPSEEK2_GGUF_ROPE=interleaved``, for files written pair-
+    ordered). ``kv_b`` comes as one ``attn_kv_b`` tensor or the split
+    ``attn_k_b``/``attn_v_b`` pair, which is fused again. ``bits`` 4/8
+    requantizes through ``mla.quantize_params`` (``wkv_b`` stays)."""
+    from trackiellm_tpu_torch.models import mla as mla_model
+
+    device = default_device(device, "convert")
+    if neox_rope is None:
+        neox_rope = os.environ.get("TRACKIE_DEEPSEEK2_GGUF_ROPE",
+                                   "neox") != "interleaved"
+    gguf = read_gguf_header(path)
+    if (gguf.architecture or "") != "deepseek2":
+        raise TrackieError(ErrorCode.MODEL_METADATA_INVALID,
+                           f"not a deepseek2 GGUF: {gguf.architecture}")
+    cfg = mla_config_from_gguf(gguf)
+    if max_layers is not None:
+        n = min(cfg.n_layers, max_layers)
+        cfg = cfg._replace(n_layers=n,
+                           first_k_dense=min(cfg.first_k_dense, n))
+
+    def mat(name: str) -> np.ndarray:
+        return np.ascontiguousarray(load_gguf_tensor(gguf, name).T)
+
+    def vec(name: str) -> np.ndarray:
+        return load_gguf_tensor(gguf, name)
+
+    h, r = cfg.n_heads, cfg.kv_lora_rank
+    nope, rope, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+
+    def fix_q_rope(w: np.ndarray) -> np.ndarray:
+        if not neox_rope:
+            return w
+        for head in range(h):
+            w = _neox_to_interleaved_cols(w, head * cfg.qk_head_dim + nope,
+                                          rope)
+        return w
+
+    def as3(x: np.ndarray, per: int) -> np.ndarray:
+        """A split kv_b half -> (h, r, per), whatever its stored
+        orientation."""
+        x = x.reshape(h, -1) if x.ndim == 1 else x
+        if x.ndim == 2:
+            if x.shape == (h * per, r):
+                return x.reshape(h, per, r).transpose(0, 2, 1)
+            if x.shape == (r, h * per):
+                return x.reshape(r, h, per).transpose(1, 0, 2)
+        elif x.ndim == 3:
+            if x.shape == (h, per, r):
+                return x.transpose(0, 2, 1)
+            if x.shape == (h, r, per):
+                return x
+        raise TrackieError(
+            ErrorCode.MODEL_METADATA_INVALID,
+            f"cannot orient MLA split tensor of shape {x.shape} "
+            f"(h={h}, r={r}, per={per})")
+
+    def kv_b_for(i: int) -> np.ndarray:
+        name = f"blk.{i}.attn_kv_b.weight"
+        if name in gguf.tensors:
+            return mat(name)  # (r, h * (nope + vd))
+        fused = np.concatenate(
+            [as3(vec(f"blk.{i}.attn_k_b.weight"), nope),
+             as3(vec(f"blk.{i}.attn_v_b.weight"), vd)], axis=2)
+        return np.ascontiguousarray(
+            fused.transpose(1, 0, 2).reshape(r, h * (nope + vd)))
+
+    attn: Dict[str, list] = {k: [] for k in (
+        "attn_norm", "mlp_norm", "wkv_a", "kv_a_norm", "wkv_b", "wo",
+        *(("wq_a", "q_a_norm", "wq_b") if cfg.q_lora_rank else ("wq",)))}
+    dense_mlp: Dict[str, list] = {"w_gu": [], "w_down": []}
+    moe_mlp: Dict[str, list] = {"moe_gate": [], "w_gu": [], "w_down": []}
+    if cfg.moe_shared_hidden:
+        moe_mlp.update(shared_gu=[], shared_down=[])
+    if (cfg.n_experts
+            and f"blk.{cfg.first_k_dense}.exp_probs_b.bias" in gguf.tensors):
+        moe_mlp["moe_gate_bias"] = []
+    for i in range(cfg.n_layers):
+        p = f"blk.{i}"
+        attn["attn_norm"].append(vec(f"{p}.attn_norm.weight"))
+        attn["mlp_norm"].append(vec(f"{p}.ffn_norm.weight"))
+        kv_a = mat(f"{p}.attn_kv_a_mqa.weight")               # (d, r+rope)
+        if neox_rope:
+            kv_a = _neox_to_interleaved_cols(kv_a, r, rope)
+        attn["wkv_a"].append(kv_a)
+        attn["kv_a_norm"].append(vec(f"{p}.attn_kv_a_norm.weight"))
+        attn["wkv_b"].append(kv_b_for(i))
+        attn["wo"].append(mat(f"{p}.attn_output.weight"))
+        if cfg.q_lora_rank:
+            attn["wq_a"].append(mat(f"{p}.attn_q_a.weight"))
+            attn["q_a_norm"].append(vec(f"{p}.attn_q_a_norm.weight"))
+            attn["wq_b"].append(fix_q_rope(mat(f"{p}.attn_q_b.weight")))
+        else:
+            attn["wq"].append(fix_q_rope(mat(f"{p}.attn_q.weight")))
+        if i < cfg.first_k_dense or not cfg.n_experts:
+            dense_mlp["w_gu"].append(np.concatenate(
+                [mat(f"{p}.ffn_gate.weight"), mat(f"{p}.ffn_up.weight")],
+                axis=1))
+            dense_mlp["w_down"].append(mat(f"{p}.ffn_down.weight"))
+            continue
+        moe_mlp["moe_gate"].append(vec(f"{p}.ffn_gate_inp.weight").T)
+        if "moe_gate_bias" in moe_mlp:
+            moe_mlp["moe_gate_bias"].append(vec(f"{p}.exp_probs_b.bias"))
+        g = vec(f"{p}.ffn_gate_exps.weight")
+        u = vec(f"{p}.ffn_up_exps.weight")
+        dn = vec(f"{p}.ffn_down_exps.weight")
+        moe_mlp["w_gu"].append(np.concatenate(
+            [g.transpose(0, 2, 1), u.transpose(0, 2, 1)], axis=2))
+        moe_mlp["w_down"].append(np.ascontiguousarray(dn.transpose(0, 2, 1)))
+        if cfg.moe_shared_hidden:
+            moe_mlp["shared_gu"].append(np.concatenate(
+                [mat(f"{p}.ffn_gate_shexp.weight"),
+                 mat(f"{p}.ffn_up_shexp.weight")], axis=1))
+            moe_mlp["shared_down"].append(mat(f"{p}.ffn_down_shexp.weight"))
+        log.info("converted MLA layer %d/%d", i + 1, cfg.n_layers)
+
+    tensor = _converter_tools(device, None, group, dtype)[0]
+    tok_emb = vec("token_embd.weight")
+    lm_head = (mat("output.weight") if "output.weight" in gguf.tensors
+               else np.ascontiguousarray(tok_emb.T))
+    params = {
+        "tok_emb": tensor(tok_emb, dtype),
+        "attn": _tree_on(attn, tensor, dtype),
+        "dense_mlp": _tree_on(dense_mlp, tensor, dtype),
+        "moe_mlp": _tree_on(moe_mlp, tensor, dtype),
+        "out_norm": tensor(vec("output_norm.weight"), dtype),
+        "lm_head": tensor(lm_head, dtype),
+    }
+    md = gguf.metadata
+    stype = str(md.get("deepseek2.rope.scaling.type", "") or "")
+    sfactor = float(md.get("deepseek2.rope.scaling.factor", 0.0) or 0.0)
+    if stype == "yarn" and sfactor > 1.0:
+        # yarn_log_multiplier (0.1 * mscale_all_dim) is not applied: with
+        # the published mscale == mscale_all_dim the net attention factor
+        # is 1.0, and the HF route gives the same tree.
+        orig = int(md.get("deepseek2.rope.scaling.original_context_length",
+                          0))
+        params["rope_factors"] = mla_model.yarn_rope_factors(
+            cfg, sfactor, orig).to(device)
+    if bits is not None:
+        params = mla_model.quantize_params(params, bits=bits, group=group)
+    return params, cfg
+
+
+def mamba_from_hf(state: Dict[str, Any], *, norm_eps: float = 1e-5,
+                  max_seq: int = 4096, dtype: torch.dtype = torch.float32,
+                  device: Optional[torch.device] = None) -> tuple:
+    """A transformers Mamba state dict -> (params, MambaConfig) for
+    ``models/mamba.py``: the geometry from the shapes, ``A_log`` and ``D``
+    kept in f32 (the recurrence runs in f32)."""
+    from trackiellm_tpu_torch.models.mamba import MambaConfig
+
+    device = default_device(device, "convert a checkpoint")
+    A = lambda k: np.asarray(state[k], np.float32)  # noqa: E731
+    emb = A("backbone.embeddings.weight")
+    vocab, dim = emb.shape
+    n_layers = len({k.split(".")[2] for k in state
+                    if k.startswith("backbone.layers.")})
+    d_inner = A("backbone.layers.0.mixer.in_proj.weight").shape[0] // 2
+    cfg = MambaConfig(
+        vocab_size=vocab, dim=dim, n_layers=n_layers, d_inner=d_inner,
+        d_state=A("backbone.layers.0.mixer.A_log").shape[1],
+        d_conv=A("backbone.layers.0.mixer.conv1d.weight").shape[-1],
+        dt_rank=A("backbone.layers.0.mixer.dt_proj.weight").shape[1],
+        norm_eps=norm_eps, max_seq=max_seq)
+    L: Dict[str, list] = {k: [] for k in (
+        "norm", "w_in", "conv_w", "conv_b", "w_x", "w_dt", "b_dt", "A_log",
+        "d", "w_out")}
+    for i in range(n_layers):
+        pre = f"backbone.layers.{i}.mixer"
+        L["norm"].append(A(f"backbone.layers.{i}.norm.weight"))
+        L["w_in"].append(A(f"{pre}.in_proj.weight").T)
+        L["conv_w"].append(A(f"{pre}.conv1d.weight")[:, 0, :].T)  # (K, I)
+        L["conv_b"].append(A(f"{pre}.conv1d.bias")
+                           if f"{pre}.conv1d.bias" in state
+                           else np.zeros(d_inner, np.float32))
+        L["w_x"].append(A(f"{pre}.x_proj.weight").T)
+        L["w_dt"].append(A(f"{pre}.dt_proj.weight").T)
+        L["b_dt"].append(A(f"{pre}.dt_proj.bias"))
+        L["A_log"].append(A(f"{pre}.A_log"))
+        L["d"].append(A(f"{pre}.D"))
+        L["w_out"].append(A(f"{pre}.out_proj.weight").T)
+    tensor = _converter_tools(device, None, 0, dtype)[0]
+    return {
+        "tok_emb": tensor(emb, dtype),
+        "layers": _tree_on(L, tensor, dtype, f32_keys=("A_log", "d")),
+        "out_norm": tensor(A("backbone.norm_f.weight"), dtype),
+        "lm_head": tensor(A("lm_head.weight").T if "lm_head.weight" in state
+                          else np.ascontiguousarray(emb.T), dtype),
+    }, cfg
+
+
+def gguf_to_mamba_params(path: str, *, bits: Optional[int] = None,
+                         group: int = 256, max_seq: Optional[int] = None,
+                         dtype: torch.dtype = torch.float32,
+                         device: Optional[torch.device] = None) -> tuple:
+    """A llama.cpp ``mamba`` GGUF -> (params on ``device``, MambaConfig),
+    the port of the JAX package's route: the conv weight comes squeezed to
+    (I, K) and ``ssm_a`` as -exp(A_log), so the transformers layout is
+    rebuilt and :func:`mamba_from_hf` converts it; the ``mamba.ssm.*``
+    geometry keys are checked against the tensors' shapes. ``bits`` 4/8
+    requantizes through ``mamba.quantize_params``."""
+    from trackiellm_tpu_torch.models.mamba import quantize_params
+
+    device = default_device(device, "convert")
+    gguf = read_gguf_header(path)
+    arch = gguf.architecture or ""
+    if arch != "mamba":
+        raise TrackieError(ErrorCode.MODEL_METADATA_INVALID,
+                           f"{path}: architecture {arch!r}, want 'mamba'")
+    md = gguf.metadata
+
+    def T(name: str) -> np.ndarray:
+        return load_gguf_tensor(gguf, name)
+
+    n_layers = int(md.get(
+        "mamba.block_count",
+        len({k.split(".")[1] for k in gguf.tensors if k.startswith("blk.")})))
+    state: Dict[str, Any] = {
+        "backbone.embeddings.weight": T("token_embd.weight"),
+        "backbone.norm_f.weight": T("output_norm.weight"),
+    }
+    if "output.weight" in gguf.tensors:  # absent when tied
+        state["lm_head.weight"] = T("output.weight")
+    for i in range(n_layers):
+        b, p = f"blk.{i}.", f"backbone.layers.{i}.mixer."
+        state[f"backbone.layers.{i}.norm.weight"] = T(b + "attn_norm.weight")
+        state[p + "in_proj.weight"] = T(b + "ssm_in.weight")
+        state[p + "conv1d.weight"] = T(b + "ssm_conv1d.weight")[:, None, :]
+        state[p + "conv1d.bias"] = T(b + "ssm_conv1d.bias")
+        state[p + "x_proj.weight"] = T(b + "ssm_x.weight")
+        state[p + "dt_proj.weight"] = T(b + "ssm_dt.weight")
+        state[p + "dt_proj.bias"] = T(b + "ssm_dt.bias")
+        a = T(b + "ssm_a")
+        if np.any(a >= 0):
+            raise TrackieError(
+                ErrorCode.MODEL_METADATA_INVALID,
+                f"{path}: ssm_a has non-negative entries: llama.cpp stores "
+                "-exp(A_log); refusing to mis-decode")
+        state[p + "A_log"] = np.log(-a)
+        state[p + "D"] = T(b + "ssm_d")
+        state[p + "out_proj.weight"] = T(b + "ssm_out.weight")
+    ctx = int(md.get("mamba.context_length", 4096))
+    params, cfg = mamba_from_hf(
+        state,
+        norm_eps=float(md.get("mamba.attention.layer_norm_rms_epsilon",
+                              1e-5)),
+        max_seq=max_seq if max_seq is not None else min(ctx, 4096),
+        dtype=dtype, device=device)
+    checks = {"mamba.ssm.conv_kernel": cfg.d_conv,
+              "mamba.ssm.inner_size": cfg.d_inner,
+              "mamba.ssm.state_size": cfg.d_state,
+              "mamba.ssm.time_step_rank": cfg.dt_rank,
+              "mamba.embedding_length": cfg.dim,
+              "mamba.block_count": cfg.n_layers}
+    for key, ours in checks.items():
+        if key in md and int(md[key]) != ours:
+            raise TrackieError(
+                ErrorCode.MODEL_METADATA_INVALID,
+                f"{path}: {key}={md[key]} disagrees with tensor shapes "
+                f"({ours})")
+    if bits:
+        params = quantize_params(params, bits=bits, group=group)
+    return params, cfg
+
+
+def mamba2_from_hf(state: Dict[str, Any], *, n_groups: int = 8,
+                   norm_eps: float = 1e-5, max_seq: int = 4096,
+                   dt_limit: tuple = (0.0, float("inf")),
+                   dtype: torch.dtype = torch.float32,
+                   device: Optional[torch.device] = None) -> tuple:
+    """A transformers Mamba2 state dict -> (params, Mamba2Config) for
+    ``models/mamba2.py``: heads from ``A_log``, ``conv_dim`` from
+    ``conv1d``, d_inner = in_proj rows - conv_dim - heads; ``n_groups`` is
+    not shape-derivable (the HF config's; published default 8). The SSM
+    leaves and the gate norm stay f32."""
+    from trackiellm_tpu_torch.models.mamba2 import Mamba2Config
+
+    device = default_device(device, "convert a checkpoint")
+    A = lambda k: np.asarray(state[k], np.float32)  # noqa: E731
+    emb = A("backbone.embeddings.weight")
+    vocab, dim = emb.shape
+    n_layers = len({k.split(".")[2] for k in state
+                    if k.startswith("backbone.layers.")})
+    h = A("backbone.layers.0.mixer.A_log").shape[0]
+    conv_w0 = A("backbone.layers.0.mixer.conv1d.weight")
+    conv_dim, k_conv = conv_w0.shape[0], conv_w0.shape[-1]
+    proj_out = A("backbone.layers.0.mixer.in_proj.weight").shape[0]
+    d_inner = proj_out - conv_dim - h
+    if d_inner % h or (conv_dim - d_inner) % (2 * n_groups):
+        raise TrackieError(
+            ErrorCode.MODEL_METADATA_INVALID,
+            f"inconsistent mamba2 geometry: proj={proj_out} "
+            f"conv_dim={conv_dim} heads={h} n_groups={n_groups}")
+    cfg = Mamba2Config(vocab_size=vocab, dim=dim, n_layers=n_layers,
+                       n_heads=h, head_dim=d_inner // h,
+                       d_state=(conv_dim - d_inner) // (2 * n_groups),
+                       n_groups=n_groups, d_conv=k_conv, norm_eps=norm_eps,
+                       dt_limit=tuple(dt_limit), max_seq=max_seq)
+    L: Dict[str, list] = {k: [] for k in (
+        "norm", "w_in", "conv_w", "conv_b", "dt_bias", "A_log", "d",
+        "gate_norm", "w_out")}
+    has_b_in = "backbone.layers.0.mixer.in_proj.bias" in state
+    if has_b_in:
+        L["b_in"] = []
+    for i in range(n_layers):
+        pre = f"backbone.layers.{i}.mixer"
+        L["norm"].append(A(f"backbone.layers.{i}.norm.weight"))
+        L["w_in"].append(A(f"{pre}.in_proj.weight").T)
+        if has_b_in:
+            L["b_in"].append(A(f"{pre}.in_proj.bias"))
+        L["conv_w"].append(A(f"{pre}.conv1d.weight")[:, 0, :].T)
+        L["conv_b"].append(A(f"{pre}.conv1d.bias")
+                           if f"{pre}.conv1d.bias" in state
+                           else np.zeros(conv_dim, np.float32))
+        L["dt_bias"].append(A(f"{pre}.dt_bias"))
+        L["A_log"].append(A(f"{pre}.A_log"))
+        L["d"].append(A(f"{pre}.D"))
+        L["gate_norm"].append(A(f"{pre}.norm.weight"))
+        L["w_out"].append(A(f"{pre}.out_proj.weight").T)
+    tensor = _converter_tools(device, None, 0, dtype)[0]
+    return {
+        "tok_emb": tensor(emb, dtype),
+        "layers": _tree_on(L, tensor, dtype, f32_keys=(
+            "A_log", "d", "dt_bias", "gate_norm")),
+        "out_norm": tensor(A("backbone.norm_f.weight"), dtype),
+        "lm_head": tensor(A("lm_head.weight").T if "lm_head.weight" in state
+                          else np.ascontiguousarray(emb.T), dtype),
+    }, cfg
+
+
 _ARCH_CONVERTERS = {
+    "deepseek2": gguf_to_mla_params,
+    "mamba": gguf_to_mamba_params,
     "falcon": gguf_to_falcon_params,
     "llama4": gguf_to_llama4_params,
     "glm4moe": gguf_to_glm4moe_params,
@@ -1188,10 +1780,10 @@ def gguf_convert_auto(path: str, bits: Optional[int] = None,
                       device: Optional[torch.device] = None) -> tuple:
     """The arch -> converter dispatch for GGUF files that the CLI's
     ``convert`` uses (``trackiellm_tpu/models/convert.py:gguf_convert_auto``):
-    falcon, llama4 and glm4moe take their own routes, every other arch
-    :func:`gguf_to_llm_params`. Returns (params, cfg). The arches whose
-    models are not ported (MLA, Mamba, Qwen3-Next) raise
-    NotImplementedError naming their ROADMAP item."""
+    deepseek2 (MLA), mamba, falcon, llama4 and glm4moe take their own
+    routes, every other arch :func:`gguf_to_llm_params`. Returns (params,
+    cfg). Qwen3-Next, whose model is not ported, raises
+    NotImplementedError naming its ROADMAP item."""
     arch = read_gguf_header(path).architecture or ""
     if arch in _WAITING_ARCHES:
         raise NotImplementedError(

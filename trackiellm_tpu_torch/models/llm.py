@@ -509,19 +509,7 @@ def init_params_quantized(generator: torch.Generator, cfg: LLMConfig,
         "mlp_norm": torch.ones((l, d), dtype=dtype, device=device),
     }
     for name, (lead, kk, nn) in _matrices(cfg).items():
-        count = math.prod(lead)
-        first = build_one(kk, nn)
-        values = torch.empty((count, *first.values.shape),
-                             dtype=first.values.dtype, device=device)
-        scales = torch.empty((count, *first.scales.shape),
-                             dtype=torch.float32, device=device)
-        values[0], scales[0] = first.values, first.scales
-        for i in range(1, count):
-            q = build_one(kk, nn)
-            values[i], scales[i] = q.values, q.scales
-        layers[name] = QuantizedLinear(
-            values=values.reshape(*lead, *first.values.shape),
-            scales=scales.reshape(*lead, *first.scales.shape))
+        layers[name] = quantized_stack(lead, lambda: build_one(kk, nn))
     layers.update(_family_leaves(cfg, normal, dtype, device))
     tok_emb = (normal((cfg.vocab_size, d)) * 0.02).to(dtype)
     return {
@@ -530,6 +518,22 @@ def init_params_quantized(generator: torch.Generator, cfg: LLMConfig,
         "out_norm": torch.ones((d,), dtype=dtype, device=device),
         "lm_head": build_one(d, cfg.vocab_size),
     }
+
+
+def quantized_stack(lead: Tuple[int, ...], build) -> QuantizedLinear:
+    """``prod(lead)`` matrices from ``build()`` (a QuantizedLinear each,
+    made one at a time) stacked into one with leading dims ``lead``: peak
+    memory is one float matrix beside the stack."""
+    count = math.prod(lead)
+    first = build()
+    values = first.values.new_empty((count, *first.values.shape))
+    scales = first.scales.new_empty((count, *first.scales.shape))
+    values[0], scales[0] = first.values, first.scales
+    for i in range(1, count):
+        q = build()
+        values[i], scales[i] = q.values, q.scales
+    return QuantizedLinear(values=values.reshape(*lead, *first.values.shape),
+                           scales=scales.reshape(*lead, *first.scales.shape))
 
 
 def params_to(params: Any, device: torch.device) -> Any:
@@ -1295,6 +1299,14 @@ def embed_tokens(params: Dict[str, Any], tokens: torch.Tensor) -> torch.Tensor:
     return params["tok_emb"][tokens.long()]
 
 
+def embed_token(params: Dict[str, Any], token) -> torch.Tensor:
+    """One token's (1, D) row: an int, or a 0-d device tensor gathered on
+    the device with no host sync."""
+    if isinstance(token, torch.Tensor):
+        return params["tok_emb"].index_select(0, token.reshape(1).long())
+    return params["tok_emb"][int(token)][None]
+
+
 def _qkv(x: torch.Tensor, layer, cfg: LLMConfig, li: int, tables,
          positions: torch.Tensor):
     """Attention input, fused QKV projection (+ bias), head split, QK norms,
@@ -1415,10 +1427,7 @@ def decode_step(params: Dict[str, Any], cfg: LLMConfig, token,
     device = cache.k.device
     positions = torch.arange(pos, pos + 1, device=device)
     tables = _rope_tables(params, cfg, positions, pos + 1)
-    if isinstance(token, torch.Tensor):  # device token: gather, no sync
-        x = params["tok_emb"].index_select(0, token.reshape(1).long())
-    else:
-        x = params["tok_emb"][int(token)][None]
+    x = embed_token(params, token)
     for li in range(cfg.n_layers):
         layer = _layer(params["layers"], li)
         h, q, k, v = _qkv(x, layer, cfg, li, tables, positions)
@@ -1652,11 +1661,11 @@ def insert_sequence(cache: BatchedKVCache, cfg: LLMConfig, slot: int,
 
 def _write_rows(cache_l: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor,
                 val: torch.Tensor, active: torch.Tensor) -> None:
-    """Write ``val`` (B, Hk, D) at each slot's row ``pos`` of ``cache_l``
-    (B, S, Hk, D) in place; an inactive slot keeps what it held."""
+    """Write ``val`` (B, ...) at each slot's row ``pos`` of ``cache_l``
+    (B, S, ...) in place; an inactive slot keeps what it held."""
     old = cache_l[rows, pos]
-    cache_l[rows, pos] = torch.where(active[:, None, None],
-                                     val.to(cache_l.dtype), old)
+    keep = active.reshape(-1, *([1] * (val.dim() - 1)))
+    cache_l[rows, pos] = torch.where(keep, val.to(cache_l.dtype), old)
 
 
 @torch.no_grad()

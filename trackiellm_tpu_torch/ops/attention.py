@@ -3,7 +3,7 @@
 Port of ``trackiellm_tpu/ops/attention.py``. ``flash_attention`` wraps the
 hand-written kernels of ``csrc/flash_attn.cu`` that replace the Pallas
 ``flash_attention``: bf16 runs on the tensor cores, f32 on the CUDA cores,
-at head dims 64, 96, 128 and 256 (``FLASH_HEAD_DIMS``).
+at head dims 64, 96, 128, 192 and 256 (``FLASH_HEAD_DIMS``).
 ``flash_attention_ref`` is their plain twin, the same tiled online softmax
 with the same tiles and tile skips, in torch ops.
 ``attention_ref`` mirrors the dense ``attention_xla`` oracle, and
@@ -32,8 +32,8 @@ NEG_INF = -1e30
 BLOCK_Q = 64
 BLOCK_K = {torch.bfloat16: 64, torch.float32: 32}
 # Head dims the kernels are built for: Mistral and Llama's 128, Phi-3's 96,
-# Gemma's 256, and 64.
-FLASH_HEAD_DIMS = (64, 96, 128, 256)
+# DeepSeek's MLA prefill's 192, Gemma's 256, and 64.
+FLASH_HEAD_DIMS = (64, 96, 128, 192, 256)
 
 _flash_attn = _build.Launcher("trackie_flash_attn", "flash_attention")
 _flash_attrs = _build.Launcher("trackie_flash_attn_attrs", "flash_attention")
@@ -171,10 +171,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash attention over q (H, S, D), k/v (Hk, S, D); out in q's dtype.
 
     Replaces ``trackiellm_tpu/ops/attention.py:flash_attention``. A CUDA
-    tensor launches ``csrc/flash_attn.cu`` (see its header for what bounds
-    it on the H100 and what its design does about that): bf16 the
-    tensor-core kernel, f32 the CUDA-core one, chosen by dtype; or it
-    raises. A CPU tensor takes :func:`flash_attention_ref`."""
+    tensor launches ``csrc/flash_attn.cu`` (see ``csrc/flash_attn.cuh``'s
+    header for what bounds it on the H100 and what its design does about
+    that): bf16 the tensor-core kernel, f32 the CUDA-core one, chosen by
+    dtype; or it raises. A CPU tensor takes :func:`flash_attention_ref`."""
     _check_flash_operands(q, k, v, sinks)
     if not is_cuda(q):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
