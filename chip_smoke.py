@@ -31,8 +31,11 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      2048; ``VLM_FLASH``: (32, 32) heads, D = 128, S = 1024); the MLA and
      Mamba paths' (``MLA_MATMULS``: W4A8 at DeepSeek-V2-Lite's projections,
      group 64, and Mamba-2.8B's, group 256; ``MLA_FLASH``: D = 192 at (16,
-     16) heads, S = 512, causal, bf16 and f32, with the kernels' registers
-     and spills); the fused MLP block at M in {1,
+     16) heads, S = 512, causal, bf16 and f32, V zero from column 128,
+     with the kernels' registers and spills, SDPA's time at both or the
+     error it raises); Qwen3-Next's (``Q3N_MATMULS``: W4A8 and Q8 at an
+     expert's w_down, K = 512, its attention wq, N = 8,192, and lm_head,
+     N = 151,936); the fused MLP block at M in {1,
      4, 8}, D 4096, H 14336, bf16 and f32, also timed against the unfused
      path per call and on the device alone; the stream probe over 512 MiB,
      grid64 (64 steps in one block) and a 64-call chain_tiny on (8, 128)),
@@ -297,9 +300,9 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      DeepSeek-V2-Lite at its published widths, Q4 group 64 (32 where 64
      does not divide K/2), cut to dense layer 0 and 3 MoE layers, max_seq
      1024, behind ``LLMRunner(model=mla)``: the cortex prompt (bucket 512:
-     flash at D = 192 once a layer, counted) and 16 greedy tokens at
-     lookahead 4, a second turn through ``extend``; a burst of 4 queued
-     whole on ``LLMServer(model=mla)`` (4 dense latent slots) with the
+     flash at D = 192 once a layer, counted) and 8 greedy tokens at
+     lookahead 4 (``MLA_TOKENS``, 16 until phase 22 joined), a second
+     turn through ``extend``; a burst of 4 queued whole on ``LLMServer(model=mla)`` (4 dense latent slots) with the
      runner's ids; (b) card against CPU: V2-Lite's first 2 layers at
      buckets 64 and 256 and 8 decode steps on the card's experts within
      WIDTH_TOL (router flips within twice the router noise), the V2 and V3
@@ -307,7 +310,7 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      ``deepseek_v3_from_hf`` within 1e-4, DeepSeek-V3's published widths
      at 2 layers on the card (a bucket-256 prefill at 128 heads, 4 tokens,
      finite); (c) Mamba-2.8B at its 64 layers, Q4, behind ``MambaRunner``
-     (the cortex prompt in chunks of 256, 16 tokens), a burst of 4 on
+     (the cortex prompt in chunks of 256, 8 tokens: ``MAMBA_TOKENS``), a burst of 4 on
      ``LLMServer(model=mamba)`` with the runner's ids, its first 2 layers
      card against CPU at buckets 64 and 256; (d) Mamba-Codestral-7B's
      widths in bf16 at 4 layers behind ``MambaRunner`` (no kernel: the
@@ -315,9 +318,25 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      card against CPU within 1e-4; (e) a deepseek2 and a mamba GGUF written
      here through ``inspect``, ``convert`` (--bits 4, --bits 8) and
      ``generate``. One ``{"mla_mamba": ...}`` line before the perception
-     line; the smoke's wall and then ``{"phase_seconds": ..., "wall_s":
-     ...}`` on the two lines before it.
-Phases 5-21 zero every launch counter just before they drive their path and
+     line.
+ 22. Qwen3-Next and the transformers converters (the constants above
+     Q3N_LAYERS): (a) Qwen3-Next-80B-A3B at its published widths, Q4, cut
+     to 4 of 48 layers ("l", "l", "l", "f"), max_seq 1024, behind
+     ``MambaRunner``: the cortex prompt (the chunked delta rule at bucket
+     256) and 8 greedy tokens, then a second turn, every forward's W4A8
+     calls counted (512 experts a MoE layer, each on every row); (b) card
+     against CPU: layers 0 and 3 ("l", "f"), a bucket-16 prefill and 2
+     decode steps' logits and the recurrent state within WIDTH_TOL on the
+     card's experts (router flips within twice the router noise); (c) a
+     tiny Qwen3-Next as a transformers state dict (``convert --family
+     qwen3next-hf --model-config --bits 4``) and as a qwen3next GGUF
+     (``inspect``, ``convert``), each then ``generate``; (d) the 17 other
+     ``*-hf`` families at tiny widths converted with ``--bits 4`` on the
+     card and on the CPU (byte-equal checkpoints), one bucket-16 prefill
+     card against CPU within WIDTH_TOL. One ``{"qwen3next": ...}`` line
+     before the ``mla_mamba`` line; the smoke's wall and then
+     ``{"phase_seconds": ..., "wall_s": ...}`` on the two lines before it.
+Phases 5-22 zero every launch counter just before they drive their path and
 read them just after: the path's kernels must have launched, and the routes
 it does not take must not have (no serving path launches the streaming Q4
 or a probe; phase 9 must launch all four; phases 13 and 14 launch none).
@@ -326,7 +345,8 @@ phases 5-7 greedy text must not depend on the lookahead depth, in phase 10
 not on speculation, and every logit vector must be finite. Phase 3's
 device-only times come from profiles whose launch count matches the calls
 (``device_only_ms``). Each phase's first line ends with the seconds since
-the build began. The ``mla_mamba`` line, the ``perception`` line, the
+the build began. The ``qwen3next`` line, the ``mla_mamba`` line, the
+``perception`` line, the
 ``surfaces`` line, the
 ``vlm`` line, the ``moe``
 line, the ``families`` line, the ``app`` line, the ``vision`` line, then
@@ -699,14 +719,19 @@ def serve_shapes(runner_mod, max_m: int, max_seq: int, slots: int):
 
 
 def flash_case(rows, attention, gen, dev, heads, s: int, dtype, kw: dict,
-               case: str, library: bool, d: int = 128) -> None:
+               case: str, library: bool, d: int = 128,
+               v_width: int = 0) -> None:
     """One flash call on ``heads`` (H, Hk) query and key heads of head dim
     ``d`` at S=s against ``attention_ref``: rel L2 within FLASH_TOL, times
-    and the bound beside, and SDPA's times where ``library``."""
+    and the bound beside, and SDPA's times where ``library`` (or, where
+    every SDPA backend refuses the call, its error). ``v_width``: V's
+    columns from it on are zero (MLA's V zero-padded to D)."""
     h, hk = heads
     q = torch.randn((h, s, d), generator=gen, device=dev).to(dtype)
     kk = torch.randn((hk, s, d), generator=gen, device=dev).to(dtype)
     v = torch.randn((hk, s, d), generator=gen, device=dev).to(dtype)
+    if v_width:
+        v[..., v_width:] = 0
     kw = dict(kw)
     if kw.pop("sinks", False):
         kw["sinks"] = torch.randn((h,), generator=gen, device=dev)
@@ -721,20 +746,25 @@ def flash_case(rows, attention, gen, dev, heads, s: int, dtype, kw: dict,
     bound, by = bound_ms(
         (q, kk, v, got, *(t for t in kw.values() if torch.is_tensor(t))),
         4 * h * d * pairs, "bf16" if dtype == torch.bfloat16 else "f32")
-    lib = lib_device = None
+    lib = lib_device = lib_error = None
     if library:
-        lib, lib_device = sdpa_ms(q, kk, v, ref)
+        try:
+            lib, lib_device = sdpa_ms(q, kk, v, ref)
+        except RuntimeError as e:   # no SDPA backend takes the call
+            lib_error = str(e).splitlines()[0][:300]
     tol = FLASH_TOL[dtype]
     log(f"  flash {case}: rel_l2={err:.3e} (tol {tol:.0e}) max_abs="
         f"{abs_err:.3e} kernel_ms={ms:.4f} plain_ms={plain:.4f} bound_ms="
-        f"{bound:.4f} ({by}) library_ms={lib} library_device_ms={lib_device}")
+        f"{bound:.4f} ({by}) library_ms={lib} library_device_ms={lib_device}"
+        + (f" library_error={lib_error}" if lib_error else ""))
     if not err < tol:
         raise AssertionError(f"flash {case}: {err}")
+    extra = {"library_error": lib_error} if lib_error else {}
     add_row(rows, "flash_attention",
             lambda: attention.flash_attention(q, kk, v, **kw),
             attention.flash_attention, case=case, err=abs_err, ms=ms,
             plain=plain, bound=bound, bound_by=by, library=lib,
-            library_device=lib_device)
+            library_device=lib_device, **extra)
 
 
 # Phase 3's cases of the dense families (phase 16): flash at Gemma's
@@ -921,8 +951,23 @@ def mla_kernel_cases(rows, quant, attention, gen, dev) -> None:
             f"registers a thread, {attrs['local_bytes']} spill bytes, "
             f"{attrs['smem_bytes']} shared bytes a block")
         flash_case(rows, attention, gen, dev, heads, s, dtype, {},
-                   f"causal S={s} D={d} {str(dtype)[6:]}",
-                   dtype == torch.bfloat16, d=d)
+                   f"causal S={s} D={d} {str(dtype)[6:]}", True, d=d,
+                   v_width=128)
+
+
+# Phase 3's cases of Qwen3-Next (phase 22): W4A8 (its model's route) and Q8
+# (a --bits 8 checkpoint's) at its new shapes, group 256: an expert's
+# w_down (K = 512, two groups a column), the attention wq (N = 8,192, query
+# and gate) and lm_head (N = 151,936), at decode and at a bucket-256
+# chunk's rows.
+Q3N_MATMULS = (  # (case name, K, N, group, M values, kernels)
+    ("qwen3next expert w_down K=512", 512, 2048, 256, (1, 256),
+     ("q4_matmul_w4a8", "q8_matmul")),
+    ("qwen3next attention wq N=8192", 2048, 8192, 256, (1, 256),
+     ("q4_matmul_w4a8", "q8_matmul")),
+    ("qwen3next lm_head N=151936", 2048, 151936, 256, (1,),
+     ("q4_matmul_w4a8", "q8_matmul")),
+)
 
 
 def phase_kernels(dev, quant, attention, fused, llm, diag, serve):
@@ -989,6 +1034,7 @@ def phase_kernels(dev, quant, attention, fused, llm, diag, serve):
     moe_kernel_cases(rows, quant, attention, gen, dev)
     vlm_kernel_cases(rows, quant, attention, gen, dev)
     mla_kernel_cases(rows, quant, attention, gen, dev)
+    matmul_table_cases(rows, quant, Q3N_MATMULS, gen, dev)
     d, hid, grp = FUSED_SHAPE
     w_gu = quant.quantize_q4(torch.randn((d, 2 * hid), generator=gen,
                                          device=dev) / math.sqrt(d), grp)
@@ -1258,6 +1304,9 @@ def _flat(tree, prefix=""):
     elif isinstance(tree, tuple):  # QuantizedLinear
         yield from _flat(tree.values, prefix + ".values")
         yield from _flat(tree.scales, prefix + ".scales")
+    elif isinstance(tree, list):   # Qwen3-Next's per-layer dicts
+        for i, v in enumerate(tree):
+            yield from _flat(v, f"{prefix}[{i}]")
     else:
         yield prefix, tree
 
@@ -4268,6 +4317,8 @@ def dequantized_on_cpu(quant, tree):
     of a 262,144-column head takes seconds there)."""
     if isinstance(tree, dict):
         return {k: dequantized_on_cpu(quant, v) for k, v in tree.items()}
+    if isinstance(tree, list):   # Qwen3-Next's per-layer dicts
+        return [dequantized_on_cpu(quant, v) for v in tree]
     if isinstance(tree, quant.QuantizedLinear):
         # One (K, N) matrix at a time: a stack of experts in f32 on the
         # card would be several times the quantized model.
@@ -4913,9 +4964,10 @@ def check_router_flips(flips, noise: float, tag: str) -> None:
 def w4a8_groups(quant, tree, cpu) -> dict:
     """{the storage address of a weight of ``cpu`` (``dequantized_on_cpu``
     of ``tree``): its group} for every Q4 matrix of ``tree``."""
-    if isinstance(tree, dict):
+    if isinstance(tree, (dict, list)):
         out = {}
-        for key, value in tree.items():
+        for key, value in (tree.items() if isinstance(tree, dict)
+                           else enumerate(tree)):
             out.update(w4a8_groups(quant, value, cpu[key]))
         return out
     if (isinstance(tree, quant.QuantizedLinear)
@@ -6681,7 +6733,7 @@ def phase_perception(dev, llm, runner_mod, counters, profile) -> dict:
 MLA_LAYERS = 4
 MLA_MAX_SEQ = 1024
 MLA_GROUP = 64
-MLA_TOKENS = 16
+MLA_TOKENS = 8
 MLA_SERVE_SLOTS = 4
 MLA_SERVE_TOKENS = 8
 # The served burst and its runner twins run at max_seq 256, where the
@@ -6704,7 +6756,7 @@ MLA_V3_TOKENS = 4
 # ``Mamba2Config()``) in bf16, 64 layers cut to 4 (a 7B bf16 model is
 # 14.6 GB; 4 layers keep the chunk's 1-GiB scan operands).
 MAMBA_GROUP = 256
-MAMBA_TOKENS = 16
+MAMBA_TOKENS = 8
 MAMBA_SWEEP_LAYERS = 2
 MAMBA_SWEEP_BUCKETS = (64, 256)
 MAMBA2_LAYERS = 4
@@ -7482,6 +7534,730 @@ def phase_mla_mamba(dev, counters, work: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: Qwen3-Next and the transformers-state-dict converters
+# ---------------------------------------------------------------------------
+
+# The head_dim each converter resolves from shapes or its defaults (granite,
+# nemotron and olmo2 probe 128 first; gemma2 takes 256 below dim 4608;
+# gpt-oss 64; falcon dim // --n-heads).
+HF_HEAD_DIM = {"gemma2": 256, "gpt_oss": 64}
+HF_FAMILIES = ("gemma2", "gemma3", "smollm3", "olmo2", "mixtral",
+               "qwen2moe", "qwen3", "qwen3moe", "granite", "glm4", "llama4",
+               "nemotron", "starcoder2", "cohere", "ernie45", "glm4moe",
+               "falcon")
+
+
+def hf_family_state(family: str, w: dict, seed: int) -> dict:
+    """A transformers state dict of ``family`` at widths ``w`` (dim,
+    heads, kv, hidden, vocab, layers, experts; ``falcon_heads``), drawn
+    N(0, 0.05) with numpy from ``seed``, norms near one: the names each
+    ``*_from_hf`` converter reads (``phi3`` and ``gpt_oss`` too, which
+    have no CLI family). MoE families route every layer but
+    GLM-4.5's and ERNIE's first, which stay dense as their configs'
+    first_k_dense_replace / moe_layer_start_index have them."""
+    rng = np.random.default_rng(seed)
+
+    def R(*shape, scale=0.05):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def ones(n):
+        return (1.0 + R(n)).astype(np.float32)
+    d, hid, vocab = w["dim"], w["hidden"], w["vocab"]
+    n_exp, n_layers = w["experts"], w["layers"]
+    if family == "falcon":
+        hd = d // w["falcon_heads"]
+        st = {"transformer.word_embeddings.weight": R(vocab, d),
+              "transformer.ln_f.weight": ones(d),
+              "transformer.ln_f.bias": R(d), "lm_head.weight": R(vocab, d)}
+        for i in range(n_layers):
+            p = f"transformer.h.{i}."
+            st[p + "input_layernorm.weight"] = ones(d)
+            st[p + "input_layernorm.bias"] = R(d)
+            st[p + "self_attention.query_key_value.weight"] = R(d + 2 * hd, d)
+            st[p + "self_attention.dense.weight"] = R(d, d)
+            st[p + "mlp.dense_h_to_4h.weight"] = R(hid, d)
+            st[p + "mlp.dense_4h_to_h.weight"] = R(d, hid)
+        return st
+    hd = HF_HEAD_DIM.get(family, 128)
+    h, kv = w["heads"] * 128 // hd, max(1, w["kv"] * 128 // hd)
+    st = {"model.embed_tokens.weight": R(vocab, d),
+          "model.norm.weight": ones(d), "lm_head.weight": R(vocab, d)}
+    if family in ("nemotron", "starcoder2"):
+        st["model.norm.bias"] = R(d)
+    for i in range(n_layers):
+        p = f"model.layers.{i}."
+        a = p + "self_attn."
+        st[p + "input_layernorm.weight"] = ones(d)
+        if family != "cohere":
+            st[p + "post_attention_layernorm.weight"] = ones(d)
+        if family in ("nemotron", "starcoder2"):
+            st[p + "input_layernorm.bias"] = R(d)
+            st[p + "post_attention_layernorm.bias"] = R(d)
+        if family in ("gemma2", "gemma3"):
+            st[p + "pre_feedforward_layernorm.weight"] = R(d)
+            st[p + "post_feedforward_layernorm.weight"] = R(d)
+        if family == "olmo2":
+            st[p + "post_feedforward_layernorm.weight"] = ones(d)
+        if family == "glm4":
+            st[p + "post_self_attn_layernorm.weight"] = ones(d)
+            st[p + "post_mlp_layernorm.weight"] = ones(d)
+        if family == "phi3":
+            st[a + "qkv_proj.weight"] = R((h + 2 * kv) * hd, d)
+        else:
+            for name, rows in (("q", h * hd), ("k", kv * hd),
+                               ("v", kv * hd)):
+                st[f"{a}{name}_proj.weight"] = R(rows, d)
+                if family in ("qwen2moe", "glm4", "starcoder2", "gpt_oss"):
+                    st[f"{a}{name}_proj.bias"] = R(rows)
+        st[a + "o_proj.weight"] = R(d, h * hd)
+        if family in ("starcoder2", "gpt_oss"):
+            st[a + "o_proj.bias"] = R(d)
+        if family == "gpt_oss":
+            st[a + "sinks"] = R(h)
+        if family in ("gemma3", "qwen3", "qwen3moe", "glm4moe"):
+            st[a + "q_norm.weight"] = ones(hd)
+            st[a + "k_norm.weight"] = ones(hd)
+        if family == "olmo2":
+            st[a + "q_norm.weight"] = ones(h * hd)
+            st[a + "k_norm.weight"] = ones(kv * hd)
+        m = p + "mlp."
+        routed = (family in ("mixtral", "qwen2moe", "qwen3moe", "llama4")
+                  or (family in ("glm4moe", "ernie45") and i > 0))
+        if family == "mixtral":
+            st[p + "block_sparse_moe.gate.weight"] = R(n_exp, d)
+            for e in range(n_exp):
+                ep = f"{p}block_sparse_moe.experts.{e}."
+                st[ep + "w1.weight"] = R(hid, d)
+                st[ep + "w3.weight"] = R(hid, d)
+                st[ep + "w2.weight"] = R(d, hid)
+        elif family == "gpt_oss":
+            st[m + "router.weight"] = R(n_exp, d)
+            st[m + "router.bias"] = R(n_exp)
+            st[m + "experts.gate_up_proj"] = R(n_exp, d, 2 * hid)
+            st[m + "experts.gate_up_proj_bias"] = R(n_exp, 2 * hid)
+            st[m + "experts.down_proj"] = R(n_exp, hid, d)
+            st[m + "experts.down_proj_bias"] = R(n_exp, d)
+        elif family == "llama4":
+            ff = p + "feed_forward."
+            st[ff + "experts.gate_up_proj"] = R(n_exp, d, 2 * hid)
+            st[ff + "experts.down_proj"] = R(n_exp, hid, d)
+            st[ff + "router.weight"] = R(n_exp, d)
+            for name, shape in (("gate_proj", (hid, d)), ("up_proj", (hid, d)),
+                                ("down_proj", (d, hid))):
+                st[f"{ff}shared_expert.{name}.weight"] = R(*shape)
+        elif routed:
+            st[m + "gate.weight"] = R(n_exp, d)
+            for e in range(n_exp):
+                for name, shape in (("gate_proj", (hid, d)),
+                                    ("up_proj", (hid, d)),
+                                    ("down_proj", (d, hid))):
+                    st[f"{m}experts.{e}.{name}.weight"] = R(*shape)
+            shared = {"qwen2moe": "shared_expert", "glm4moe": "shared_experts",
+                      "ernie45": "shared_experts"}.get(family)
+            if shared:
+                for name, shape in (("gate_proj", (hid, d)),
+                                    ("up_proj", (hid, d)),
+                                    ("down_proj", (d, hid))):
+                    st[f"{m}{shared}.{name}.weight"] = R(*shape)
+            if family == "qwen2moe":
+                st[m + "shared_expert_gate.weight"] = R(1, d)
+            if family == "glm4moe":
+                st[m + "gate.e_score_correction_bias"] = R(n_exp)
+            if family == "ernie45":
+                st[m + "moe_statics.e_score_correction_bias"] = R(1, n_exp)
+        elif family in ("glm4", "phi3"):
+            st[m + "gate_up_proj.weight"] = R(2 * hid, d)
+            st[m + "down_proj.weight"] = R(d, hid)
+        elif family == "nemotron":
+            st[m + "up_proj.weight"] = R(hid, d)
+            st[m + "down_proj.weight"] = R(d, hid)
+        elif family == "starcoder2":
+            st[m + "c_fc.weight"] = R(hid, d)
+            st[m + "c_fc.bias"] = R(hid)
+            st[m + "c_proj.weight"] = R(d, hid)
+            st[m + "c_proj.bias"] = R(d)
+        else:
+            st[m + "gate_proj.weight"] = R(hid, d)
+            st[m + "up_proj.weight"] = R(hid, d)
+            st[m + "down_proj.weight"] = R(d, hid)
+    return st
+
+
+def hf_family_args(family: str, w: dict) -> list:
+    """The CLI flags a family needs beyond ``--family``."""
+    return ["--n-heads", str(w["falcon_heads"])] if family == "falcon" else []
+
+
+# Phase 22 (a): Qwen3-Next-80B-A3B (Qwen/Qwen3-Next-80B-A3B-Instruct's
+# config.json: dim 2048; 16/2 attention heads of 256, partial rotary 0.25,
+# rope_theta 1e7; DeltaNet 16 key and 32 value heads of 128, conv 4; 512
+# experts top 10 of width 512, shared 512; vocab 151,936) at Q4 group 256,
+# 48 layers cut to Q3N_LAYERS (one period of the 3:1 pattern), max_seq
+# 1024, behind MambaRunner: the cortex prompt and Q3N_TOKENS greedy
+# tokens, then a second turn. Quantized banks run every expert on every row
+# (the reference's dense-all-experts), ~1,030 W4A8 calls a MoE layer.
+Q3N_LAYERS = ("l", "l", "l", "f")
+Q3N_MAX_SEQ = 1024
+Q3N_GROUP = 256
+Q3N_TOKENS = 8
+# (b) card against CPU: layers 0 and 3 of (a) ("l", "f"), a bucket-16
+# prefill and Q3N_DECODE teacher-forced decode steps.
+Q3N_BUCKET = 16
+Q3N_DECODE = 2
+# (c) the CLI's file routes at tiny widths (every Q4 K a multiple of 512),
+# (d) the other families' transformers state dicts at HF_WIDTHS.
+Q3N_TINY = {"dim": 512, "heads": 4, "kv": 2, "head_dim": 128, "lin_hk": 2,
+            "lin_hv": 4, "lin_d": 128, "experts": 4, "top_k": 2,
+            "moe_hidden": 512, "layers": 4, "vocab": SSM_CLI_VOCAB}
+HF_WIDTHS = {"dim": 512, "heads": 4, "kv": 2, "hidden": 512,
+             "vocab": SSM_CLI_VOCAB, "layers": 2, "experts": 4,
+             "falcon_heads": 8}
+HF_BUCKET = 16
+Q3N_PROFILE_FLAG = "--qwen3next-profile"
+Q3N_PROFILE_TOKENS = 2
+
+
+def q3n_config(q3n, layer_types=Q3N_LAYERS):
+    """Qwen3-Next-80B-A3B at its published widths, cut in depth."""
+    return q3n.Qwen3NextConfig.qwen3_next_80b_a3b()._replace(
+        n_layers=len(layer_types), layer_types=layer_types,
+        max_seq=Q3N_MAX_SEQ)
+
+
+def q3n_model(dev, q3n, cfg):
+    """Random Q4 params drawn and quantized on the card, one matrix (one
+    expert's) at a time; f32 elsewhere, as the converters give them."""
+    return q3n.init_params_quantized(
+        torch.Generator(device=dev).manual_seed(SEED), cfg, bits=4,
+        group=Q3N_GROUP, device=dev)
+
+
+def q3n_w4a8_calls(params, cfg) -> int:
+    """W4A8 calls of one forward: the quantized projections a layer reads,
+    each expert's two banks and lm_head."""
+    from trackiellm_tpu_torch.ops.quant import QuantizedLinear
+    n = 1
+    for lp in params["layers"]:
+        for name, w in lp.items():
+            if isinstance(w, QuantizedLinear):
+                n += (w.values.shape[0] if w.values.dim() == 3 else 1)
+    return n
+
+
+def q3n_turn(runner, prompt: str) -> dict:
+    """One ``generate``: prefill ms (to the first token's fetch) and ms a
+    token (between fetches), from ``on_token``'s clock."""
+    stamps = []
+    t0 = time.perf_counter()
+    runner.generate(prompt, on_token=lambda s: stamps.append(
+        time.perf_counter()))
+    torch.cuda.synchronize()
+    ids = runner.generated_ids
+    if not ids or len(stamps) != len(ids):
+        raise AssertionError(f"phase 22: a turn gave {len(ids)} tokens")
+    return {"prompt_tokens": runner.count_tokens(prompt) + 1,
+            "tokens": len(ids), "prefill_ms": (stamps[0] - t0) * 1e3,
+            "ms_a_token": ((stamps[-1] - stamps[0]) * 1e3
+                           / max(len(stamps) - 1, 1)),
+            "wall_s": time.perf_counter() - t0}
+
+
+def q3n_full(dev, q3n, mamba, runner_mod, tokenizer_mod, counters,
+             cfg) -> tuple:
+    """(a): two turns behind MambaRunner, every forward's W4A8 calls
+    counted. Returns (its numbers, the params)."""
+    t0 = time.perf_counter()
+    params = q3n_model(dev, q3n, cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    tok = tokenizer_mod.ByteTokenizer(cfg.vocab_size)
+    runner = mamba.MambaRunner(params, cfg, tok, runner_mod.GenerationConfig(
+        max_tokens=Q3N_TOKENS, temperature=0.0), device=dev)
+    per_forward = q3n_w4a8_calls(params, cfg)
+    out = {"layers": cfg.n_layers, "build_s": build_s,
+           "param_gb": param_bytes(params) / 1e9,
+           "w4a8_calls_a_forward": per_forward}
+    log(f"  Qwen3-Next-80B-A3B depth cut: {cfg.n_layers} of 48 layers "
+        f"{cfg.layer_types}, Q4 group {Q3N_GROUP}, {out['param_gb']:.2f} GB "
+        f"built on the card in {build_s:.1f} s; {per_forward} W4A8 calls a "
+        "forward")
+    _zero(counters)
+    turns = []
+    for question in QUESTIONS[:2]:
+        prompt = runner.build_prompt(SYSTEM, CONTEXT, question)
+        turns.append(q3n_turn(runner, prompt))
+    launches = _counts(counters)
+    chunks = sum(-(-t["prompt_tokens"] // mamba.MambaRunner.CHUNK)
+                 for t in turns)
+    forwards = chunks + sum(t["tokens"] for t in turns)
+    expect_routes(launches, ("q4_matmul_w4a8", "quantize_activations"),
+                  tuple(k for k in counters if k not in (
+                      "q4_matmul_w4a8", "quantize_activations")),
+                  "phase 22 (a)")
+    expect_launches(launches["q4_matmul_w4a8"], per_forward * forwards,
+                    f"phase 22 (a): W4A8 over {forwards} forwards")
+    expect_launches(launches["quantize_activations"],
+                    launches["q4_matmul_w4a8"], "phase 22 (a): quantization")
+    for i, t in enumerate(turns):
+        log(f"  turn {i + 1}: {t['prompt_tokens']} prompt tokens, prefill "
+            f"{t['prefill_ms']:.1f} ms, {t['tokens']} tokens at "
+            f"{t['ms_a_token']:.1f} ms a token ({t['wall_s']:.2f} s)")
+    out.update(turns=turns, launches=launches)
+    return out, params
+
+
+def q3n_pass(q3n, params, cfg, toks, length, dev, forced=None):
+    """A bucket prefill, then Q3N_DECODE teacher-forced steps, under a
+    RouterTap: (logits of each, the DeltaNet layer's recurrent state after
+    each, the tap's selection values and ids)."""
+    tap = RouterTap(q3n, forced)
+    logits, states = [], []
+    try:
+        cache = q3n.create_cache(cfg, device=dev)
+        lg, cache = q3n.prefill(params, cfg, toks[:Q3N_BUCKET].to(dev),
+                                length, cache)
+        logits.append(lg.cpu())
+        states.append(cache["layers"][0]["rec"].cpu())
+        for j in range(Q3N_DECODE):
+            lg, cache = q3n.decode_step(params, cfg,
+                                        int(toks[length + j]), cache)
+            logits.append(lg.cpu())
+            states.append(cache["layers"][0]["rec"].cpu())
+    finally:
+        select, ids = tap.close()
+    return logits, states, select, ids
+
+
+def q3n_sweep(dev, q3n, llm, quant, params, cfg) -> dict:
+    """(b): layers 0 and 3 of (a)'s model (views), card against the CPU on
+    the same inputs: the bucket-16 prefill's and Q3N_DECODE decode steps'
+    logits and the f32 recurrent state within WIDTH_TOL rel L2. The CPU
+    runs the card's experts (``RouterTap``) on the matrices dequantized
+    once, W4A8's activation quantization emulated, routed (the same
+    function at K/E of dense-all's work); each router flip's margin must be
+    within twice the router noise."""
+    t0 = time.perf_counter()
+    cut = {**params, "layers": [params["layers"][0], params["layers"][3]]}
+    ccfg = cfg._replace(n_layers=2, layer_types=("l", "f"))
+    length = Q3N_BUCKET - 2
+    toks = torch.randint(0, cfg.vocab_size, (Q3N_BUCKET + Q3N_DECODE,),
+                         generator=torch.Generator().manual_seed(SEED))
+    card = q3n_pass(q3n, cut, ccfg, toks, length, dev)
+    t_card = time.perf_counter() - t0
+    cpu = dequantized_on_cpu(quant, cut)
+    groups = (w4a8_groups(quant, cut, cpu)
+              if torch.device(dev).type == "cuda" else {})
+    with levers_on(("TRACKIE_MOE_ROUTED",)), w4a8_activations(
+            llm, quant, groups):
+        ref = q3n_pass(q3n, cpu, ccfg, toks, length, "cpu", forced=card[3])
+    del cpu
+    flips, noise = router_flips(q3n._top_k_first, card[2], card[3], ref[2],
+                                ccfg.n_experts_used, length)
+    check_router_flips(flips, noise, "phase 22 (b)")
+    errs = [rel_l2(a, b) for a, b in zip(card[0], ref[0])]
+    state_errs = [rel_l2(a, b) for a, b in zip(card[1], ref[1])]
+    out = {"layers": list(ccfg.layer_types), "rel_l2": errs,
+           "state_rel_l2": state_errs, "flips": flips, "router_noise": noise,
+           "card_s": t_card, "seconds": time.perf_counter() - t0}
+    log(f"  b card vs cpu ({ccfg.layer_types}, full width, Q4, the card's "
+        f"experts on the cpu): prefill bucket {Q3N_BUCKET} rel_l2 "
+        f"{errs[0]:.3e}, decode {', '.join(f'{e:.3e}' for e in errs[1:])}; "
+        f"recurrent state {', '.join(f'{e:.3e}' for e in state_errs)} (tol "
+        f"{WIDTH_TOL:.0e}); {len(flips)} router flips, router noise "
+        f"{noise:.3e}; card {t_card:.1f} s, all {out['seconds']:.1f} s")
+    if not all(torch.isfinite(lg).all() for lg in card[0]):
+        raise AssertionError("phase 22 (b): card logits")
+    if not max(errs + state_errs) < WIDTH_TOL:
+        raise AssertionError(f"phase 22 (b): rel L2 {errs} {state_errs}")
+    return out
+
+
+def qwen3next_hf_config(w: dict) -> dict:
+    """The HF config.json fields of a Qwen3-Next at widths ``w``
+    (Q3N_TINY's keys)."""
+    return {"vocab_size": w["vocab"], "hidden_size": w["dim"],
+            "num_hidden_layers": w["layers"],
+            "num_attention_heads": w["heads"],
+            "num_key_value_heads": w["kv"], "head_dim": w["head_dim"],
+            "linear_num_key_heads": w["lin_hk"],
+            "linear_num_value_heads": w["lin_hv"],
+            "linear_key_head_dim": w["lin_d"],
+            "linear_value_head_dim": w["lin_d"],
+            "linear_conv_kernel_dim": 4, "num_experts": w["experts"],
+            "num_experts_per_tok": w["top_k"],
+            "moe_intermediate_size": w["moe_hidden"],
+            "shared_expert_intermediate_size": w["moe_hidden"],
+            "intermediate_size": 2 * w["moe_hidden"], "norm_topk_prob": True,
+            "partial_rotary_factor": 0.25, "rope_theta": 10000.0,
+            "rms_norm_eps": 1e-6, "full_attention_interval": 4}
+
+
+def qwen3next_hf_state(conf: dict, seed: int, scale: float = 0.08) -> dict:
+    """A ``Qwen3NextForCausalLM``-named state dict at ``conf``'s widths:
+    every ``full_attention_interval``-th layer full attention, the rest
+    Gated DeltaNet; A_log and dt_bias in the HF init's ranges (A uniform in
+    (1, 16), dt log-uniform in (1e-3, 0.1)), norms N(0, 0.2), matrices
+    N(0, ``scale``), drawn with numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
+
+    def R(*s, sc=scale):
+        return (rng.standard_normal(s) * sc).astype(np.float32)
+    d, v = conf["hidden_size"], conf["vocab_size"]
+    hk, hv = conf["linear_num_key_heads"], conf["linear_num_value_heads"]
+    dk, dv = conf["linear_key_head_dim"], conf["linear_value_head_dim"]
+    h, kv, hd = (conf["num_attention_heads"], conf["num_key_value_heads"],
+                 conf["head_dim"])
+    st = {"model.embed_tokens.weight": R(v, d),
+          "model.norm.weight": R(d, sc=0.2), "lm_head.weight": R(v, d)}
+    for i in range(conf["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        st[p + "input_layernorm.weight"] = R(d, sc=0.2)
+        st[p + "post_attention_layernorm.weight"] = R(d, sc=0.2)
+        if (i + 1) % conf["full_attention_interval"]:
+            la = p + "linear_attn."
+            st[la + "in_proj_qkvz.weight"] = R(2 * hk * dk + 2 * hv * dv, d)
+            st[la + "in_proj_ba.weight"] = R(2 * hv, d)
+            st[la + "conv1d.weight"] = R(2 * hk * dk + hv * dv, 1,
+                                         conf["linear_conv_kernel_dim"])
+            dt = np.exp(rng.uniform(np.log(1e-3), np.log(0.1), hv))
+            st[la + "dt_bias"] = (dt + np.log(-np.expm1(-dt))).astype(
+                np.float32)
+            st[la + "A_log"] = np.log(rng.uniform(1, 16, hv)).astype(
+                np.float32)
+            st[la + "norm.weight"] = (1 + R(dv, sc=0.2)).astype(np.float32)
+            st[la + "out_proj.weight"] = R(d, hv * dv)
+        else:
+            sa = p + "self_attn."
+            st[sa + "q_proj.weight"] = R(2 * h * hd, d)
+            st[sa + "k_proj.weight"] = R(kv * hd, d)
+            st[sa + "v_proj.weight"] = R(kv * hd, d)
+            st[sa + "o_proj.weight"] = R(d, h * hd)
+            st[sa + "q_norm.weight"] = R(hd, sc=0.2)
+            st[sa + "k_norm.weight"] = R(hd, sc=0.2)
+        if conf["num_experts"]:
+            m = conf["moe_intermediate_size"]
+            sh = conf["shared_expert_intermediate_size"]
+            st[p + "mlp.gate.weight"] = R(conf["num_experts"], d)
+            for e in range(conf["num_experts"]):
+                ep = p + f"mlp.experts.{e}."
+                st[ep + "gate_proj.weight"] = R(m, d)
+                st[ep + "up_proj.weight"] = R(m, d)
+                st[ep + "down_proj.weight"] = R(d, m)
+            sp = p + "mlp.shared_expert."
+            st[sp + "gate_proj.weight"] = R(sh, d)
+            st[sp + "up_proj.weight"] = R(sh, d)
+            st[sp + "down_proj.weight"] = R(d, sh)
+            st[p + "mlp.shared_expert_gate.weight"] = R(1, d)
+        else:
+            m = conf["intermediate_size"]
+            st[p + "mlp.gate_proj.weight"] = R(m, d)
+            st[p + "mlp.up_proj.weight"] = R(m, d)
+            st[p + "mlp.down_proj.weight"] = R(d, m)
+    return st
+
+
+def qwen3next_gguf_tensors(state: dict, conf: dict, split_gate: bool = False,
+                           neg_a: bool = False) -> dict:
+    """llama.cpp's ``qwen3next`` tensors of an HF state dict (F32): the
+    attention gate fused in ``attn_q`` or split into ``attn_gate``, ssm_a
+    as the raw A_log or as -exp(A_log)."""
+    def f32(a):
+        return (np.ascontiguousarray(a, np.float32), GGML_F32)
+    t = {"token_embd.weight": f32(state["model.embed_tokens.weight"]),
+         "output_norm.weight": f32(state["model.norm.weight"]),
+         "output.weight": f32(state["lm_head.weight"])}
+    hd, h = conf["head_dim"], conf["num_attention_heads"]
+    for i in range(conf["num_hidden_layers"]):
+        p, b = f"model.layers.{i}.", f"blk.{i}."
+        t[b + "attn_norm.weight"] = f32(state[p + "input_layernorm.weight"])
+        t[b + "ffn_norm.weight"] = f32(
+            state[p + "post_attention_layernorm.weight"])
+        la = p + "linear_attn."
+        if la + "in_proj_qkvz.weight" in state:
+            a = state[la + "A_log"]
+            for gg, hf in (("ssm_in.weight", "in_proj_qkvz.weight"),
+                           ("ssm_beta_alpha.weight", "in_proj_ba.weight"),
+                           ("ssm_dt.bias", "dt_bias"),
+                           ("ssm_norm.weight", "norm.weight"),
+                           ("ssm_out.weight", "out_proj.weight")):
+                t[b + gg] = f32(state[la + hf])
+            t[b + "ssm_conv1d.weight"] = f32(state[la + "conv1d.weight"][:, 0])
+            t[b + "ssm_a"] = f32(-np.exp(a) if neg_a else a)
+        else:
+            sa = p + "self_attn."
+            q = state[sa + "q_proj.weight"]
+            if split_gate:
+                qg = q.reshape(h, 2 * hd, -1)
+                t[b + "attn_q.weight"] = f32(qg[:, :hd].reshape(h * hd, -1))
+                t[b + "attn_gate.weight"] = f32(qg[:, hd:].reshape(h * hd, -1))
+            else:
+                t[b + "attn_q.weight"] = f32(q)
+            for gg, hf in (("attn_k", "k_proj"), ("attn_v", "v_proj"),
+                           ("attn_output", "o_proj"),
+                           ("attn_q_norm", "q_norm"),
+                           ("attn_k_norm", "k_norm")):
+                t[f"{b}{gg}.weight"] = f32(state[f"{sa}{hf}.weight"])
+        if p + "mlp.gate.weight" in state:
+            n = conf["num_experts"]
+            t[b + "ffn_gate_inp.weight"] = f32(state[p + "mlp.gate.weight"])
+            for gg, hf in (("gate", "gate_proj"), ("up", "up_proj"),
+                           ("down", "down_proj")):
+                t[f"{b}ffn_{gg}_exps.weight"] = f32(np.stack(
+                    [state[f"{p}mlp.experts.{e}.{hf}.weight"]
+                     for e in range(n)]))
+                t[f"{b}ffn_{gg}_shexp.weight"] = f32(
+                    state[f"{p}mlp.shared_expert.{hf}.weight"])
+            t[b + "ffn_gate_inp_shexp.weight"] = f32(
+                state[p + "mlp.shared_expert_gate.weight"])
+        else:
+            for gg in ("gate", "up", "down"):
+                t[f"{b}ffn_{gg}.weight"] = f32(
+                    state[f"{p}mlp.{gg}_proj.weight"])
+    return t
+
+
+def qwen3next_gguf_metadata(conf: dict) -> dict:
+    """The ``qwen3next.*`` keys llama.cpp writes, at ``conf``'s widths."""
+    a, hd = "qwen3next", conf["head_dim"]
+    return {"general.architecture": a,
+            f"{a}.block_count": conf["num_hidden_layers"],
+            f"{a}.embedding_length": conf["hidden_size"],
+            f"{a}.attention.head_count": conf["num_attention_heads"],
+            f"{a}.attention.head_count_kv": conf["num_key_value_heads"],
+            f"{a}.attention.key_length": hd,
+            f"{a}.attention.layer_norm_rms_epsilon": conf["rms_norm_eps"],
+            f"{a}.rope.freq_base": conf["rope_theta"],
+            f"{a}.rope.dimension_count": int(
+                conf["partial_rotary_factor"] * hd),
+            f"{a}.context_length": 1024,
+            f"{a}.expert_count": conf["num_experts"],
+            f"{a}.expert_used_count": conf["num_experts_per_tok"],
+            f"{a}.ssm.state_size": conf["linear_key_head_dim"],
+            f"{a}.ssm.group_count": conf["linear_num_key_heads"],
+            f"{a}.ssm.inner_size": (conf["linear_num_value_heads"]
+                                    * conf["linear_value_head_dim"]),
+            f"{a}.ssm.conv_kernel": conf["linear_conv_kernel_dim"]}
+
+
+def q3n_cli(dev, cli, counters, work: str) -> dict:
+    """(c): a Qwen3-Next at Q3N_TINY's widths as a transformers state dict
+    (``convert --family qwen3next-hf --model-config --bits 4``, then
+    ``generate``) and as a qwen3next GGUF with the split attention gate and
+    -exp(A_log) (``inspect``, ``convert --bits 4``, ``generate``), on the
+    card: exit 0 each; generate launches W4A8 and its quantization only."""
+    conf = qwen3next_hf_config(Q3N_TINY)
+    state = qwen3next_hf_state(conf, SEED + 40)
+    src = os.path.join(work, "qwen3next.npz")
+    np.savez(src, **state)
+    conf_path = os.path.join(work, "qwen3next_config.json")
+    with open(conf_path, "w", encoding="utf-8") as f:
+        json.dump(conf, f)
+    gguf = os.path.join(work, "qwen3next.gguf")
+    write_gguf(gguf, qwen3next_gguf_tensors(state, conf, split_gate=True,
+                                            neg_a=True),
+               {**_gguf_vocab("qwen3next", conf["vocab_size"]),
+                **qwen3next_gguf_metadata(conf)})
+    ran = ("q4_matmul_w4a8", "quantize_activations")
+    out = {}
+    for route, path, flags in (
+            ("hf", src, ["--family", "qwen3next-hf", "--model-config",
+                         conf_path]),
+            ("gguf", gguf, [])):
+        ck = os.path.join(work, f"qwen3next_{route}_ckpt")
+        rc_i, described = 0, None
+        if route == "gguf":
+            rc_i, text, _ = run_cli(cli, ["inspect", path])
+            described = json.loads(text)["architecture"] if rc_i == 0 else None
+        rc_c, _, conv_s = run_cli(cli, ["convert", path, "-o", ck, "--bits",
+                                        "4", *flags])
+        _zero(counters)
+        rc_g, reply, gen_s = run_cli(cli, [
+            "generate", ck, "-p", SHORT_PROMPT, "--max-tokens",
+            str(SSM_CLI_TOKENS), "--temperature", "0"])
+        launches = _counts(counters)
+        out[route] = {"inspect": described, "rc": [rc_i, rc_c, rc_g],
+                      "convert_s": conv_s, "generate_s": gen_s,
+                      "reply_chars": len(reply.strip()),
+                      "launches": launches}
+        log(f"  c {route}: inspect -> {described}, convert --bits 4 "
+            f"{conv_s:.1f} s, generate {gen_s:.1f} s; exit codes "
+            f"{[rc_i, rc_c, rc_g]}; launches {launches}")
+        if [rc_i, rc_c, rc_g] != [0, 0, 0] or (
+                route == "gguf" and described != "qwen3next"):
+            raise AssertionError(f"phase 22 (c) {route}: {out[route]}")
+        expect_routes(launches, ran,
+                      tuple(k for k in counters if k not in ran),
+                      f"phase 22 (c) {route}")
+    return out
+
+
+def _npz_same(a: str, b: str) -> bool:
+    with np.load(a) as x, np.load(b) as y:
+        return x.files == y.files and all(
+            x[k].dtype == y[k].dtype and x[k].tobytes() == y[k].tobytes()
+            for k in x.files)
+
+
+def hf_families(dev, llm, quant, checkpoint, cli, counters,
+                work: str) -> dict:
+    """(d): each of HF_FAMILIES at HF_WIDTHS, a numpy state dict converted
+    by ``convert --family F-hf --bits 4`` on the card and with ``--device
+    cpu``: the checkpoints byte-equal; then one bucket-16 prefill on the
+    card (W4A8 and its quantization launched, nothing else) against the
+    CPU on the dequantized weights with W4A8's activation quantization
+    where the card ran W4A8, the card's experts forced on MoE families
+    (router flips within twice the noise), within WIDTH_TOL rel L2."""
+    out = {}
+    toks = torch.randint(0, HF_WIDTHS["vocab"], (HF_BUCKET,),
+                         generator=torch.Generator().manual_seed(SEED))
+    length = HF_BUCKET - 3
+    for i, family in enumerate(HF_FAMILIES):
+        t0 = time.perf_counter()
+        src = os.path.join(work, f"{family}.npz")
+        np.savez(src, **hf_family_state(family, HF_WIDTHS, SEED + 50 + i))
+        dirs = {d: os.path.join(work, f"{family}_{d}") for d in ("card",
+                                                                  "cpu")}
+        rcs = [run_cli(cli, ["convert", src, "-o", dirs[d], "--family",
+                             f"{family}-hf", "--bits", "4", "--device",
+                             "cuda" if d == "card" else "cpu",
+                             *hf_family_args(family, HF_WIDTHS)])[0]
+               for d in ("card", "cpu")]
+        same = rcs == [0, 0] and _npz_same(
+            os.path.join(dirs["card"], "arrays.npz"),
+            os.path.join(dirs["cpu"], "arrays.npz"))
+        if not same:
+            raise AssertionError(f"phase 22 (d) {family}: exit codes {rcs}, "
+                                 "card and cpu checkpoints differ")
+        params, cfg, _ = checkpoint.load_checkpoint(dirs["card"], device=dev)
+        moe = bool(cfg.n_experts)
+        tap = RouterTap(llm) if moe else None
+        _zero(counters)
+        try:
+            lg, _ = llm.prefill(params, cfg, toks.to(dev), length,
+                                llm.KVCache.create(cfg, max_seq=HF_BUCKET,
+                                                   device=dev))
+        finally:
+            card_sel, card_ids = tap.close() if moe else ([], [])
+        ran = ("q4_matmul_w4a8", "quantize_activations")
+        expect_routes(_counts(counters), ran,
+                      tuple(k for k in counters if k not in ran),
+                      f"phase 22 (d) {family}")
+        cpu = dequantized_on_cpu(quant, params)
+        groups = (w4a8_groups(quant, params, cpu)
+                  if torch.device(dev).type == "cuda" else {})
+        tap = RouterTap(llm, forced=card_ids) if moe else None
+        try:
+            with w4a8_activations(llm, quant, groups):
+                lc, _ = llm.prefill(cpu, cfg, toks, length,
+                                    llm.KVCache.create(cfg, max_seq=HF_BUCKET,
+                                                       device="cpu"))
+        finally:
+            cpu_sel, _ = tap.close() if moe else ([], [])
+        flips, noise = [], 0.0
+        if moe:
+            flips, noise = router_flips(llm._top_k_first, card_sel, card_ids,
+                                        cpu_sel, cfg.n_experts_used, length)
+            check_router_flips(flips, noise, f"phase 22 (d) {family}")
+        err = rel_l2(lg.cpu(), lc)
+        out[family] = {"rel_l2": err, "flips": len(flips),
+                       "router_noise": noise,
+                       "seconds": time.perf_counter() - t0}
+        log(f"  d {family}-hf: convert --bits 4 card == cpu bytes; prefill "
+            f"bucket {HF_BUCKET} rel_l2 card vs cpu {err:.3e}"
+            + (f", {len(flips)} router flips (noise {noise:.3e})" if moe
+               else "") + f" ({out[family]['seconds']:.2f} s)")
+        if not (torch.isfinite(lg).all() and err < WIDTH_TOL):
+            raise AssertionError(f"phase 22 (d) {family}: rel L2 {err}")
+        del params, cpu
+    return out
+
+
+def qwen3next_profile(dev) -> dict:
+    """PERF.md §5's Qwen3-Next rows (``chip_smoke.py --qwen3next-profile``,
+    a process of its own): (a)'s model, the cortex prompt's prefill behind
+    MambaRunner and Q3N_PROFILE_TOKENS decode steps, each window on the
+    host clock and under the profiler."""
+    from trackiellm_tpu_torch.llm import runner as runner_mod
+    from trackiellm_tpu_torch.llm import tokenizer as tokenizer_mod
+    from trackiellm_tpu_torch.models import mamba
+    from trackiellm_tpu_torch.models import qwen3next as q3n
+    cfg = q3n_config(q3n)
+    params = q3n_model(dev, q3n, cfg)
+    tok = tokenizer_mod.ByteTokenizer(cfg.vocab_size)
+    runner = mamba.MambaRunner(params, cfg, tok, runner_mod.GenerationConfig(
+        max_tokens=1, temperature=0.0), device=dev)
+    prompt = runner.build_prompt(SYSTEM, CONTEXT, QUESTIONS[0])
+    runner.generate(prompt)
+    ids = tok.encode(prompt, add_bos=True)
+
+    def prefill():
+        def run():
+            cache = q3n.create_cache(cfg, device=dev)
+            for pos in range(0, len(ids), runner.CHUNK):
+                chunk = ids[pos:pos + runner.CHUNK]
+                cache = q3n.prefill(params, cfg, runner._padded(chunk),
+                                    len(chunk), cache)[1]
+        return run
+
+    def steps():
+        cache = runner.cache
+        lg = q3n.decode_step(params, cfg, 0, cache)[0]
+
+        def run():
+            nonlocal lg, cache
+            for _ in range(Q3N_PROFILE_TOKENS):
+                lg, cache = q3n.decode_step(params, cfg, torch.argmax(lg),
+                                            cache)
+        return run
+    return {"layers": cfg.n_layers,
+            "w4a8_calls_a_forward": q3n_w4a8_calls(params, cfg),
+            "prompt_tokens": len(ids),
+            "prefill": window_breakdown("Qwen3-Next prefill", prefill),
+            "decode": window_breakdown("Qwen3-Next decode", steps,
+                                       Q3N_PROFILE_TOKENS)}
+
+
+def phase_qwen3next(dev, counters, work: str) -> dict:
+    """Phase 22 (the constants above Q3N_LAYERS): (a) Qwen3-Next-80B-A3B
+    at 4 layers behind MambaRunner, (b) card against CPU at 2 layers, (c)
+    the HF and GGUF routes through the CLI, (d) the other *-hf families;
+    each part's seconds, and the launches of (a)'s and (c)'s windows."""
+    from trackiellm_tpu_torch import __main__ as cli
+    from trackiellm_tpu_torch.llm import runner as runner_mod
+    from trackiellm_tpu_torch.llm import tokenizer as tokenizer_mod
+    from trackiellm_tpu_torch.models import checkpoint, llm, mamba
+    from trackiellm_tpu_torch.models import qwen3next as q3n
+    from trackiellm_tpu_torch.ops import quant
+    t0 = time.perf_counter()
+    parts = {}
+
+    def lap(part: str) -> None:
+        parts[part] = time.perf_counter() - t0 - sum(parts.values())
+    out = {}
+    out["a"], params = q3n_full(dev, q3n, mamba, runner_mod, tokenizer_mod,
+                                counters, q3n_config(q3n))
+    lap("a")
+    out["b"] = q3n_sweep(dev, q3n, llm, quant, params, q3n_config(q3n))
+    del params
+    torch.cuda.empty_cache()
+    lap("b")
+    out["c"] = q3n_cli(dev, cli, counters, work)
+    lap("c")
+    out["d"] = hf_families(dev, llm, quant, checkpoint, cli, counters, work)
+    torch.cuda.empty_cache()
+    lap("d")
+    windows = (out["a"]["launches"],
+               *(v["launches"] for v in out["c"].values()))
+    out["launches"] = {k: sum(w[k] for w in windows) for k in counters}
+    out["seconds"] = time.perf_counter() - t0
+    out["part_seconds"] = parts
+    log(f"  phase 22 took {out['seconds']:.1f} s ("
+        + ", ".join(f"({k}) {v:.1f}" for k, v in parts.items())
+        + f"); launches {out['launches']}")
+    return out
+
+
 def serve_config(llm):
     """Phases 5-7 and 12's configuration: Mistral-7B cut to max_seq 512."""
     return llm.LLMConfig.mistral_7b()._replace(max_seq=512,
@@ -7511,7 +8287,9 @@ def result_line(kind: str) -> str:
 KERNELS = {
     "q4_matmul_w4a8": ("trackiellm_tpu_torch/csrc/q4_w4a8.cu",
                        "trackiellm_tpu/ops/quant.py:662",
-                       ("w_gu M=1", "w_gu M=512"), 5),
+                       ("w_gu M=1", "w_gu M=512",
+                        "qwen3next expert w_down K=512 M=1",
+                        "qwen3next lm_head N=151936 M=1"), 5),
     "quantize_activations": ("trackiellm_tpu_torch/csrc/q4_w4a8.cu",
                              "trackiellm_tpu/ops/quant.py:595",
                              ("M=1 K=4096", "M=512 K=4096"), 5),
@@ -7523,7 +8301,8 @@ KERNELS = {
                          "causal S=512 D=192 bfloat16"), 5),
     "q8_matmul": ("trackiellm_tpu_torch/csrc/q8_matmul.cu",
                   "trackiellm_tpu/ops/quant.py:184",
-                  ("w_gu M=1", "w_gu M=512"), 6),
+                  ("w_gu M=1", "w_gu M=512",
+                   "qwen3next lm_head N=151936 M=1"), 6),
     "q4_matmul_f32a": ("trackiellm_tpu_torch/csrc/q4_f32a.cu",
                        "trackiellm_tpu/ops/quant.py:272",
                        ("w_gu M=1", "w_gu M=512"), 7),
@@ -7608,6 +8387,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == [MLA_PROFILE_FLAG]:
         print(json.dumps(mla_profile(dev)), flush=True)
+        return 0
+    if sys.argv[1:] == [Q3N_PROFILE_FLAG]:
+        print(json.dumps(qwen3next_profile(dev)), flush=True)
         return 0
     smi = nvidia_smi()
     log(f"phase 1 device: torch {torch.__version__} cuda {torch.version.cuda}"
@@ -7775,17 +8557,26 @@ def main() -> int:
            "the CLI):")
     mla_mamba = phase_mla_mamba(dev, counters, work.name)
     launches[21] = mla_mamba["launches"]
+    banner("phase 22 Qwen3-Next and the *-hf converters (Qwen3-Next-80B-A3B "
+           f"Q4 at its widths, {len(Q3N_LAYERS)} of 48 layers, behind "
+           "MambaRunner; 2 layers card against CPU; its HF and GGUF routes "
+           f"through the CLI; {len(HF_FAMILIES)} more *-hf families "
+           "converted on the card and the CPU):")
+    qwen3next = phase_qwen3next(dev, counters, work.name)
+    launches[22] = qwen3next["launches"]
     end = time.perf_counter()
     work.cleanup()
     log(f"chip_smoke wall: {end - t0:.1f} s since the build began")
-    marks[22] = end
+    marks[23] = end
     seconds = {"1": t0 - main_t0}
-    seconds.update({str(n): marks[n + 1] - marks[n] for n in range(2, 22)
+    seconds.update({str(n): marks[n + 1] - marks[n] for n in range(2, 23)
                     if n in marks and n + 1 in marks})
     print(json.dumps({"phase_seconds": seconds, "wall_s": end - main_t0}),
           flush=True)
 
     smi = nvidia_smi()
+    print(json.dumps({"qwen3next": qwen3next, "card": smi}, default=str),
+          flush=True)
     print(json.dumps({"mla_mamba": mla_mamba, "card": smi}, default=str),
           flush=True)
     print(json.dumps({"perception": perception, "card": smi}, default=str),

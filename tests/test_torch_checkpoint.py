@@ -158,17 +158,20 @@ def test_unknown_packing_raises(tmp_path):
 
 
 def test_other_families_raise_naming_their_roadmap_item(tmp_path):
-    """Qwen3-Next, whose model is not ported, raises naming its ROADMAP
-    item; the MLA, Mamba and Mamba-2 configs load (their round trips are
-    in tests/test_torch_mla.py and test_torch_mamba.py)."""
+    """The other families' configs load: Qwen3-Next's with its
+    layer_types a tuple again, Mamba-2's with its dt_limit (the round
+    trips of their trees are in tests/test_torch_qwen3next.py,
+    test_torch_mla.py and test_torch_mamba.py)."""
     jckpt.save_checkpoint(str(tmp_path), {"w": jnp.ones((2,))},
                           config=jllm.LLMConfig.tiny())
     path = tmp_path / "config.json"
     sidecar = json.loads(path.read_text())
     sidecar["config_class"] = "Qwen3NextConfig"
+    sidecar["config"] = {"n_layers": 2, "layer_types": ["l", "f"]}
     path.write_text(json.dumps(sidecar))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        tckpt.load_checkpoint(str(tmp_path), device=CPU)
+    _, cfg, _ = tckpt.load_checkpoint(str(tmp_path), device=CPU)
+    assert type(cfg).__name__ == "Qwen3NextConfig"
+    assert cfg.layer_types == ("l", "f") and cfg.n_layers == 2
     sidecar["config_class"] = "Mamba2Config"
     sidecar["config"] = {"n_layers": 2, "dt_limit": [0.0, 5.0]}
     path.write_text(json.dumps(sidecar))

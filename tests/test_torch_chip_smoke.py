@@ -91,12 +91,18 @@ def test_kernels_line_lists_all_nine():
 
 def test_matmul_kernels_carry_decode_and_prefill_cases():
     """The three quantized matmuls the model paths launch (W4A8, Q8, f32a)
-    carry w_gu at M=1 (decode) and M=512 (prefill) as headline cases, so
-    the kernels line and PERF.md's table carry both device-only times;
-    phase 3 runs both M."""
+    carry w_gu at M=1 (decode) and M=512 (prefill) as their first headline
+    cases, so the kernels line and PERF.md's table carry both device-only
+    times; phase 3 runs both M. W4A8 and Q8 also carry Qwen3-Next's
+    lm_head (N = 151,936) at decode, W4A8 its expert w_down (K = 512)."""
     cs = _load()
     for name in ("q4_matmul_w4a8", "q8_matmul", "q4_matmul_f32a"):
-        assert cs.KERNELS[name][2] == ("w_gu M=1", "w_gu M=512")
+        assert cs.KERNELS[name][2][:2] == ("w_gu M=1", "w_gu M=512")
+    assert cs.KERNELS["q4_matmul_f32a"][2] == ("w_gu M=1", "w_gu M=512")
+    for name in ("q4_matmul_w4a8", "q8_matmul"):
+        assert "qwen3next lm_head N=151936 M=1" in cs.KERNELS[name][2]
+    assert ("qwen3next expert w_down K=512 M=1"
+            in cs.KERNELS["q4_matmul_w4a8"][2])
     assert {1, 512} <= set(cs.MATMUL_MS)
 
 
@@ -632,6 +638,8 @@ def test_main_prints_the_voice_line_before_the_last_five(monkeypatch,
         "launches": {}})
     monkeypatch.setattr(cs, "phase_mla_mamba", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     lines = capsys.readouterr().out.strip().splitlines()[-6:]
     assert json.loads(lines[0]) == {"voice": {"n": 13},
@@ -694,6 +702,8 @@ def test_main_prints_the_vision_line_before_the_voice_line(monkeypatch,
     monkeypatch.setattr(cs, "phase_perception", lambda *a, **k: {
         "launches": {}})
     monkeypatch.setattr(cs, "phase_mla_mamba", lambda *a, **k: {
+        "launches": {}})
+    monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
         "launches": {}})
     assert cs.main() == 0
     assert seen == [13, (14, True)]
@@ -844,10 +854,12 @@ def test_main_prints_the_app_line_before_the_vision_line(monkeypatch,
         "launches": {}})
     monkeypatch.setattr(cs, "phase_mla_mamba", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     assert seen == [True]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-16].startswith("chip_smoke wall: ")
+    assert lines[-17].startswith("chip_smoke wall: ")
     assert json.loads(lines[-9])["families"] == {"launches": {}, "n": 16}
     assert json.loads(lines[-8]) == {"app": {
         "launches": {"q4_matmul_w4a8": 7}, "n": 15},
@@ -1129,10 +1141,12 @@ def test_main_prints_the_moe_line_before_the_families_line(monkeypatch,
         "launches": {}})
     monkeypatch.setattr(cs, "phase_mla_mamba", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     assert seen == [True]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-16].startswith("chip_smoke wall: ")
+    assert lines[-17].startswith("chip_smoke wall: ")
     moe = json.loads(lines[-10])
     assert moe["moe"] == {"launches": {"q4_matmul_w4a8": 9}, "n": 17}
     assert moe["moe_kernels"]["q4_matmul_w4a8"] == [
@@ -1184,12 +1198,14 @@ def test_main_prints_the_vlm_line_and_the_phase_seconds(monkeypatch,
         "launches": {}})
     monkeypatch.setattr(cs, "phase_mla_mamba", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     assert seen == [(os.path.join(gguf[0], "mistral.gguf"), gguf[0])]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-16].startswith("chip_smoke wall: ")
-    timing = json.loads(lines[-15])
-    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 22)}
+    assert lines[-17].startswith("chip_smoke wall: ")
+    timing = json.loads(lines[-16])
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 23)}
     assert timing["wall_s"] >= sum(timing["phase_seconds"].values()) * 0.999
     assert json.loads(lines[-11]) == {
         "vlm": {"launches": {"q4_matmul_f32a": 4}, "n": 18},
@@ -1593,11 +1609,13 @@ def test_main_prints_the_surfaces_line_before_the_vlm_line(monkeypatch,
         "launches": {}})
     monkeypatch.setattr(cs, "phase_mla_mamba", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     assert seen == [(float, True)]
     lines = capsys.readouterr().out.strip().splitlines()
-    timing = json.loads(lines[-15])
-    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 22)}
+    timing = json.loads(lines[-16])
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 23)}
     assert json.loads(lines[-12]) == {
         "surfaces": {"launches": {"q4_matmul_f32a": 19}, "n": 19},
         "card": "H100, 700.00 W"}
@@ -1705,12 +1723,14 @@ def test_main_prints_the_perception_line_before_the_surfaces_line(
         {"phase20": launches[20]}))
     monkeypatch.setattr(cs, "phase_mla_mamba", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     assert seen == [True]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-16].startswith("chip_smoke wall: ")
-    timing = json.loads(lines[-15])
-    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 22)}
+    assert lines[-17].startswith("chip_smoke wall: ")
+    timing = json.loads(lines[-16])
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 23)}
     assert json.loads(lines[-13]) == {
         "perception": {"launches": {"q4_matmul_w4a8": 20}, "n": 20},
         "card": "H100, 700.00 W"}
@@ -1749,6 +1769,8 @@ def test_main_exits_non_zero_when_phase20_fails(monkeypatch, capsys):
         raise AssertionError("phase 20 (c): failures")
     monkeypatch.setattr(cs, "phase_perception", failed)
     monkeypatch.setattr(cs, "phase_mla_mamba", lambda *a, **k: {
+        "launches": {}})
+    monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
         "launches": {}})
     with pytest.raises(AssertionError, match="phase 20"):
         cs.main()
@@ -1940,14 +1962,16 @@ def test_main_prints_the_mla_mamba_line_before_the_perception_line(
     monkeypatch.setattr(cs, "phase_mla_mamba", lambda dev, counters, work: (
         seen.append(os.path.isdir(work)),
         {"launches": {"flash_attention": 21}, "n": 21})[1])
+    monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
+        "launches": {}})
     monkeypatch.setattr(cs, "kernels_line", lambda rows, launches: json.dumps(
         {"phase21": launches[21]}))
     assert cs.main() == 0
     assert seen == [True]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-16].startswith("chip_smoke wall: ")
-    timing = json.loads(lines[-15])
-    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 22)}
+    assert lines[-17].startswith("chip_smoke wall: ")
+    timing = json.loads(lines[-16])
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 23)}
     assert json.loads(lines[-14]) == {
         "mla_mamba": {"launches": {"flash_attention": 21}, "n": 21},
         "card": "H100, 700.00 W"}
@@ -2090,3 +2114,153 @@ def test_mla_profile_on_the_cpu(monkeypatch, capsys):
         assert out[k]["wall_ms"] > 0 and out[k]["top"]
     assert out["v2_lite_decode"]["launches"] == 10 / cs.MLA_PROFILE_TOKENS
     assert "profile Mamba-2.8B decode" in capsys.readouterr().out
+
+
+def test_main_prints_the_qwen3next_line_before_the_mla_mamba_line(
+        monkeypatch, capsys):
+    """Phase 22 runs last, in the smoke's work directory; its line comes
+    just before the mla_mamba line, after the phase seconds (1 to 22), and
+    the kernels line counts its launches."""
+    from trackiellm_tpu_torch.ops import _build
+    cs = _load()
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda *a: (9, 0))
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "H100")
+    monkeypatch.setattr(cs, "nvidia_smi", lambda: "H100, 700.00 W")
+    monkeypatch.setattr(_build, "build", lambda: _build.BUILD_ROOT / "x")
+    monkeypatch.setattr(_build, "library", lambda: None)
+    for name, value in (("phase_kernels", {}), ("phase_width", None),
+                        ("build_model", {"layers": {}}), ("profile_path", {}),
+                        ("expect_routes", None), ("phase_entry", None),
+                        ("phase_diagnostics", {})):
+        monkeypatch.setattr(cs, name, lambda *a, v=value, **k: v)
+    monkeypatch.setattr(cs, "drive", lambda *a, **k: {
+        "quantize_activations": 1, "q4_matmul_w4a8": 1})
+    for name, n in (("phase_slice10", 10), ("phase_gguf", 11),
+                    ("phase_serve", 12), ("phase_app", 15),
+                    ("phase_families", 16), ("phase_moe", 17),
+                    ("phase_vlm", 18), ("phase_surfaces", 19),
+                    ("phase_perception", 20), ("phase_mla_mamba", 21)):
+        monkeypatch.setattr(cs, name, lambda *a, n=n, **k: {
+            "launches": {}, "n": n})
+    monkeypatch.setattr(cs, "phase_voice", lambda *a, **k: {"n": 13})
+    monkeypatch.setattr(cs, "phase_vision", lambda *a, **k: {"n": 14})
+    seen = []
+    monkeypatch.setattr(cs, "phase_qwen3next", lambda dev, counters, work: (
+        seen.append(os.path.isdir(work)),
+        {"launches": {"q4_matmul_w4a8": 22}, "n": 22})[1])
+    monkeypatch.setattr(cs, "kernels_line", lambda rows, launches: json.dumps(
+        {"phase22": launches[22]}))
+    assert cs.main() == 0
+    assert seen == [True]
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[-17].startswith("chip_smoke wall: ")
+    timing = json.loads(lines[-16])
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 23)}
+    assert json.loads(lines[-15]) == {
+        "qwen3next": {"launches": {"q4_matmul_w4a8": 22}, "n": 22},
+        "card": "H100, 700.00 W"}
+    assert json.loads(lines[-14])["mla_mamba"]["n"] == 21
+    assert json.loads(lines[-2]) == {"phase22": {"q4_matmul_w4a8": 22}}
+
+
+def test_phase22_keeps_the_published_widths():
+    """Phase 22 (a)'s config is Qwen3-Next-80B-A3B's config.json (dim
+    2048, 16/2 heads of 256, partial rotary 0.25, rope_theta 1e7, DeltaNet
+    16/32 heads of 128, conv 4, 512 experts top 10 of 512, shared 512,
+    vocab 151,936) cut in depth only, to one period of the 3:1 pattern;
+    every Q4 K of it and of (c)'s and (d)'s tiny widths is a multiple of
+    2 x 256; phase 3 holds W4A8 and Q8 at its new shapes."""
+    from trackiellm_tpu_torch.models import qwen3next as q3n
+    cs = _load()
+    cfg = cs.q3n_config(q3n)
+    full = q3n.Qwen3NextConfig.qwen3_next_80b_a3b()
+    assert cfg._replace(n_layers=48, layer_types=full.layer_types,
+                        max_seq=full.max_seq) == full
+    assert cfg.layer_types == ("l", "l", "l", "f") and cfg.max_seq == 1024
+    assert (full.dim, full.n_heads, full.n_kv_heads, full.head_dim,
+            full.lin_k_heads, full.lin_v_heads, full.lin_dk, full.n_experts,
+            full.n_experts_used, full.moe_hidden, full.shared_hidden,
+            full.vocab_size, full.rope_theta) == (
+                2048, 16, 2, 256, 16, 32, 128, 512, 10, 512, 512, 151936,
+                1e7)
+    for k in (cfg.dim, cfg.moe_hidden, cfg.n_heads * cfg.head_dim,
+              cfg.lin_v_heads * cfg.lin_dv):
+        assert k % (2 * cs.Q3N_GROUP) == 0, k
+    for w in (cs.Q3N_TINY, cs.HF_WIDTHS):
+        assert w["dim"] % 512 == 0 and w["heads"] * 128 % 512 == 0
+    shapes = {name: (k, n) for name, k, n, g, ms, kernels in cs.Q3N_MATMULS}
+    assert set(shapes.values()) == {(512, 2048), (2048, 8192),
+                                    (2048, 151936)}
+    assert all(set(kernels) == {"q4_matmul_w4a8", "q8_matmul"}
+               for *_, kernels in cs.Q3N_MATMULS)
+    assert len(cs.HF_FAMILIES) == 17
+
+
+def _phase22_on_the_cpu(monkeypatch, cs):
+    """``cs`` set to rehearse phase 22 on the CPU: (a) and (b) at tiny
+    widths (group 16), (c) and (d) as the smoke has them."""
+    from trackiellm_tpu_torch import __main__ as cli
+    from trackiellm_tpu_torch.models import qwen3next as q3n
+    cpu = torch.device("cpu")
+    for name in ("synchronize", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(cli, "_device", lambda name, verb: cpu)
+    tiny = q3n.Qwen3NextConfig(
+        vocab_size=320, dim=64, n_layers=4, n_heads=4, n_kv_heads=2,
+        head_dim=16, lin_k_heads=2, lin_v_heads=4, lin_dk=16, lin_dv=16,
+        n_experts=4, n_experts_used=2, moe_hidden=32, shared_hidden=32,
+        hidden_dim=32, max_seq=1024)
+    monkeypatch.setattr(cs, "q3n_config", lambda mod, lt=cs.Q3N_LAYERS:
+                        tiny._replace(n_layers=len(lt), layer_types=lt))
+    monkeypatch.setattr(cs, "Q3N_GROUP", 16)
+    checks = []
+    monkeypatch.setattr(cs, "expect_routes", lambda launches, ran, idle,
+                        phase: checks.append(phase))
+    monkeypatch.setattr(cs, "expect_launches", lambda got, want, what:
+                        checks.append(what))
+    return cpu, checks
+
+
+def test_phase22_on_the_cpu(monkeypatch, capsys, tmp_path):
+    """Phase 22's control flow on the CPU: (a) two MambaRunner turns on the
+    hybrid stack, (b) layers 0 and 3 card against CPU on the card's
+    experts, (c) the HF and GGUF routes through the CLI, (d) the 17 other
+    families converted twice to the same bytes and held card against CPU."""
+    cs = _load()
+    cpu, checks = _phase22_on_the_cpu(monkeypatch, cs)
+    out = cs.phase_qwen3next(cpu, cs.launch_counters(), str(tmp_path))
+    a = out["a"]
+    assert len(a["turns"]) == 2 and all(t["tokens"] for t in a["turns"])
+    assert a["w4a8_calls_a_forward"] > 4 * 2
+    b = out["b"]
+    assert b["layers"] == ["l", "f"] and len(b["rel_l2"]) == 3
+    assert max(b["rel_l2"] + b["state_rel_l2"]) < 1e-5
+    assert {k: v["inspect"] for k, v in out["c"].items()} == {
+        "hf": None, "gguf": "qwen3next"}
+    assert set(out["d"]) == set(cs.HF_FAMILIES)
+    assert all(v["rel_l2"] < 1e-5 for v in out["d"].values())
+    assert set(out["part_seconds"]) == {"a", "b", "c", "d"}
+    assert checks[:3] == ["phase 22 (a)", "phase 22 (a): W4A8 over "
+                          f"{checks[1].split('over ')[1]}",
+                          "phase 22 (a): quantization"]
+    text = capsys.readouterr().out
+    for tag in ("Qwen3-Next-80B-A3B depth cut", "turn 2:", "b card vs cpu",
+                "c gguf: inspect -> qwen3next", "d falcon-hf",
+                "phase 22 took"):
+        assert tag in text, tag
+
+
+def test_qwen3next_profile_on_the_cpu(monkeypatch, capsys):
+    """``chip_smoke.py --qwen3next-profile`` on the CPU at tiny widths (the
+    profiler faked): the prefill window and a decode token's."""
+    cs = _load()
+    cpu, _ = _phase22_on_the_cpu(monkeypatch, cs)
+    monkeypatch.setattr(cs, "device_breakdown", lambda fn: (
+        fn(), 0.5, 10, {"kernel": (0.5, 10)})[1:])
+    out = cs.qwen3next_profile(cpu)
+    assert set(out) == {"layers", "w4a8_calls_a_forward", "prompt_tokens",
+                        "prefill", "decode"}
+    assert out["decode"]["launches"] == 10 / cs.Q3N_PROFILE_TOKENS
+    assert "profile Qwen3-Next decode" in capsys.readouterr().out

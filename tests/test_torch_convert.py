@@ -745,35 +745,19 @@ def test_inspect_prints_the_jax_description(cli_gguf, capsys):
     assert json.loads(want)["architecture"] == "llama"
 
 
-@pytest.mark.parametrize("argv,items", [
-    (["--family", "gemma2-hf"], "item 11"),
-    (["--family", "qwen3next-hf"], "item 11"),
-    (["--family", "glm4-hf"], "item 11"),
-], ids=["gemma2-hf", "qwen3next-hf", "glm4-hf"])
-def test_unported_convert_routes_name_their_roadmap_item(cli_gguf, tmp_path,
-                                                         argv, items):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {items}"):
-        tmain(["convert", cli_gguf, "-o", str(tmp_path / "x"),
-               "--device", "cpu", *argv])
-
-
 @pytest.mark.parametrize("arch", ["deepseek2", "mamba", "qwen3next"])
 def test_arches_with_their_own_converter_raise(tmp_path, arch, monkeypatch):
-    """deepseek2 and mamba take their own converters (gguf_to_mla_params,
-    gguf_to_mamba_params; tests/test_torch_mla.py and test_torch_mamba.py
-    hold their bytes); qwen3next, whose model is not ported, still raises
-    naming its ROADMAP item."""
+    """deepseek2, mamba and qwen3next take their own converters
+    (gguf_to_mla_params, gguf_to_mamba_params, gguf_to_qwen3next_params;
+    tests/test_torch_mla.py, test_torch_mamba.py and test_torch_qwen3next.py
+    hold their bytes), which ``gguf_convert_auto`` dispatches."""
     path = str(tmp_path / f"{arch}.gguf")
     write_gguf(path, {"token_embd.weight": (np.zeros((4, 32), np.float32),
                                             F32)},
                metadata={"general.architecture": arch})
-    if arch == "qwen3next":
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 11"):
-            tconv.gguf_convert_auto(path, bits=4, device=CPU)
-        return
     want = {"deepseek2": tconv.gguf_to_mla_params,
-            "mamba": tconv.gguf_to_mamba_params}[arch]
+            "mamba": tconv.gguf_to_mamba_params,
+            "qwen3next": tconv.gguf_to_qwen3next_params}[arch]
     assert tconv._ARCH_CONVERTERS[arch] is want
     monkeypatch.setitem(tconv._ARCH_CONVERTERS, arch,
                         lambda p, bits, device: (p, bits, device))
@@ -1055,3 +1039,194 @@ def test_convert_then_generate_moe_arches_match_the_jax_cli(tmp_path, name,
                       "--device", "cpu"]) == 0
         assert tmain([argv[0], qdir, *argv[1:]]) == 0
         assert capsys.readouterr().out.strip()
+
+
+# --- the transformers-state-dict converters (convert --family *-hf) ----------
+
+def _smoke():
+    """chip_smoke.py as a module: its numpy state-dict writers."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+HF_WIDTHS = {"dim": 64, "heads": 2, "kv": 1, "hidden": 64, "vocab": VOCAB,
+             "layers": 2, "experts": EXPERTS, "falcon_heads": 4}
+# family: (converter name, keyword arguments)
+HF_CONVERTERS = {
+    "gemma2": ("gemma2_from_hf", {}), "gemma3": ("gemma3_from_hf", {}),
+    "smollm3": ("smollm3_from_hf", {}), "olmo2": ("olmo2_from_hf", {}),
+    "mixtral": ("mixtral_from_hf", {}),
+    "qwen2moe": ("qwen2_moe_from_hf", {}), "qwen3": ("qwen3_from_hf", {}),
+    "qwen3moe": ("qwen3_moe_from_hf", {}),
+    "granite": ("granite_from_hf", {}), "glm4": ("glm4_from_hf", {}),
+    "llama4": ("llama4_from_hf", {"rope_scaling": {
+        "rope_type": "llama3", "factor": 8.0,
+        "original_max_position_embeddings": 64}}),
+    "nemotron": ("nemotron_from_hf", {}),
+    "starcoder2": ("starcoder2_from_hf", {}),
+    "cohere": ("cohere_from_hf", {"logit_scale": 0.0625}),
+    "ernie45": ("ernie45_from_hf", {}),
+    "glm4moe": ("glm4_moe_from_hf", {}),
+    "falcon": ("falcon_from_hf", {"n_heads": 4}),
+    "phi3": ("phi3_from_hf", {"max_seq": 256, "original_max_seq": 64,
+                              "rope_factors_short": [1.0] * 8,
+                              "rope_factors_long": [2.0] * 8}),
+    "gpt_oss": ("gpt_oss_from_hf", {}),
+}
+
+
+@pytest.mark.parametrize("family", sorted(HF_CONVERTERS))
+def test_hf_converters_give_the_jax_bytes(family):
+    """Each ``*_from_hf`` on the same numpy state dict (transformers names,
+    ``chip_smoke.hf_family_state``): the port's tree holds the JAX tree's
+    bytes leaf for leaf, in its order, and the configs are equal."""
+    name, kw = HF_CONVERTERS[family]
+    state = _smoke().hf_family_state(family, HF_WIDTHS, 3)
+    jp, jc = getattr(jconv, name)(state, **kw)
+    tp, tc = getattr(tconv, name)(state, device=CPU, **kw)
+    assert tc._asdict() == jc._asdict()
+    _assert_same_tree(tp, jp)
+
+
+def test_qwen3_next_converter_gives_the_jax_bytes():
+    cs = _smoke()
+    conf = cs.qwen3next_hf_config({**cs.Q3N_TINY, "dim": 64, "head_dim": 16,
+                                   "lin_d": 16, "moe_hidden": 32})
+    state = cs.qwen3next_hf_state(conf, 4)
+    jp, jc = jconv.qwen3_next_from_hf(state, conf)
+    tp, tc = tconv.qwen3_next_from_hf(state, conf, device=CPU)
+    assert tuple(tc) == tuple(jc)
+
+    def listless(tree):
+        if isinstance(tree, list):
+            return {str(i): listless(v) for i, v in enumerate(tree)}
+        if isinstance(tree, dict):
+            return {k: listless(v) for k, v in tree.items()}
+        return tree
+    assert list(_leaves(listless(tp))) == list(_leaves(listless(
+        params_from_jax(jp))))
+
+
+def test_wake_word_converter_gives_the_jax_params():
+    """The conv spotter's checkpoint: the port's OIHW convolutions are the
+    JAX package's HWIO ones transposed, the head and config the same."""
+    from trackiellm_tpu_torch.models.bridge import hwio_tree_from_jax
+    rng = np.random.default_rng(5)
+    state = {"conv1.weight": rng.standard_normal((8, 1, 3, 3)),
+             "conv1.bias": rng.standard_normal(8),
+             "conv2.weight": rng.standard_normal((16, 8, 3, 3)),
+             "conv2.bias": rng.standard_normal(16),
+             "out.weight": rng.standard_normal((1, 32)),
+             "out.bias": rng.standard_normal(1)}
+    state = {k: v.astype(np.float32) for k, v in state.items()}
+    jp, jc = jconv.wake_word_from_torch(state)
+    tp, tc = tconv.wake_word_from_torch(state, device=CPU)
+    assert tuple(tc) == tuple(jc) and tc.ch == 16
+    assert dict(_leaves(tp)) == dict(_leaves(hwio_tree_from_jax(jp, CPU)))
+
+
+def test_openwakeword_verifier_chain_matches_the_jax_one():
+    """An (out, in) first layer, an (in, out) second, the width-1 head:
+    the same chain, oriented and paired alike; and a non-chaining
+    inventory raises in both."""
+    rng = np.random.default_rng(8)
+    state = {"dense/kernel": rng.standard_normal((48, 96)),
+             "dense/bias": rng.standard_normal(48),
+             "dense_1/kernel": rng.standard_normal((48, 32)),
+             "dense_1/bias": rng.standard_normal(32),
+             "dense_2/kernel": rng.standard_normal((32, 1)),
+             "dense_2/bias": rng.standard_normal(1)}
+    state = {k: v.astype(np.float32) for k, v in state.items()}
+    want = jconv.openwakeword_verifier_from_onnx(state)
+    got = tconv.openwakeword_verifier_from_onnx(state, device=CPU)
+    assert got.in_dim == want.in_dim == 96
+    assert len(got.layers) == len(want.layers) == 3
+    for (tw, tb), (jw, jb) in zip(got.layers, want.layers):
+        assert np.array_equal(tw.numpy(), np.asarray(jw))
+        assert np.array_equal(tb.numpy(), np.asarray(jb))
+    x = rng.standard_normal(96).astype(np.float32)
+    assert abs(got(x) - want(x)) < 1e-6
+    bad = {"w": np.ones((5, 7), np.float32)}
+    with pytest.raises(TrackieError):
+        tconv.openwakeword_verifier_from_onnx(bad, device=CPU)
+    with pytest.raises(Exception):
+        jconv.openwakeword_verifier_from_onnx(bad)
+
+
+CLI_HF = ("gemma2", "gemma3", "smollm3", "olmo2", "mixtral", "qwen2moe",
+          "qwen3", "qwen3moe", "granite", "glm4", "llama4", "nemotron",
+          "starcoder2", "cohere", "ernie45", "glm4moe", "falcon",
+          "qwen3next")
+
+
+def _same_checkpoint(jdir: str, tdir: str) -> None:
+    for name in ("tree.json", "config.json"):
+        with open(os.path.join(jdir, name)) as a, \
+                open(os.path.join(tdir, name)) as b:
+            assert a.read() == b.read(), name
+    with np.load(os.path.join(jdir, "arrays.npz")) as a, \
+            np.load(os.path.join(tdir, "arrays.npz")) as b:
+        assert a.files == b.files
+        for k in a.files:
+            assert a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes()
+
+
+@pytest.mark.parametrize("family", CLI_HF)
+def test_convert_family_writes_the_jax_checkpoint(family, tmp_path, capsys):
+    """``convert STATE --family F-hf`` (``--bits 0``; falcon with
+    ``--n-heads``, qwen3next with ``--model-config``) writes the files the
+    JAX CLI writes, byte for byte."""
+    cs = _smoke()
+    if family == "qwen3next":
+        conf = cs.qwen3next_hf_config({**cs.Q3N_TINY, "dim": 64,
+                                       "head_dim": 16, "lin_d": 16,
+                                       "moe_hidden": 32})
+        state = cs.qwen3next_hf_state(conf, 6)
+        conf_path = str(tmp_path / "config.json")
+        with open(conf_path, "w") as f:
+            json.dump(conf, f)
+        extra = ["--model-config", conf_path]
+    else:
+        state = cs.hf_family_state(family, HF_WIDTHS, 6)
+        extra = cs.hf_family_args(family, HF_WIDTHS)
+    src = str(tmp_path / "state.npz")
+    np.savez(src, **state)
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    argv = ["convert", src, "--family", f"{family}-hf", "--bits", "0", *extra]
+    assert jmain([*argv, "-o", jdir]) == 0
+    assert tmain([*argv, "-o", tdir, "--device", "cpu"]) == 0
+    assert "converted + saved to" in capsys.readouterr().out
+    _same_checkpoint(jdir, tdir)
+
+
+def test_convert_qwen3next_hf_at_q4_writes_the_jax_checkpoint(tmp_path,
+                                                              capsys):
+    """``--family qwen3next-hf --bits 4`` at widths where group 256 divides
+    every K / 2 (chip_smoke's Q3N_TINY): the experts' per-expert stacks,
+    the projections and lm_head requantized by ``qwen3next.quantize_params``
+    to the JAX bytes; without ``--model-config`` both CLIs refuse."""
+    cs = _smoke()
+    conf = cs.qwen3next_hf_config({**cs.Q3N_TINY, "experts": 2})
+    src = str(tmp_path / "state.npz")
+    np.savez(src, **cs.qwen3next_hf_state(conf, 7))
+    conf_path = str(tmp_path / "config.json")
+    with open(conf_path, "w") as f:
+        json.dump(conf, f)
+    argv = ["convert", src, "--family", "qwen3next-hf", "--bits", "4"]
+    assert jmain([*argv, "-o", str(tmp_path / "x")]) == 1
+    assert tmain([*argv, "-o", str(tmp_path / "x"), "--device", "cpu"]) == 1
+    assert "needs --model-config" in capsys.readouterr().err
+    argv += ["--model-config", conf_path]
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    assert jmain([*argv, "-o", jdir]) == 0
+    assert tmain([*argv, "-o", tdir, "--device", "cpu"]) == 0
+    _same_checkpoint(jdir, tdir)
+    tree = json.loads(open(os.path.join(tdir, "tree.json")).read())["tree"]
+    assert "__qlin__" in tree["layers"][0]["w_gu"]
+    assert tmain(["generate", tdir, "-p", "ola", "--max-tokens", "4",
+                  "--temperature", "0", "--device", "cpu"]) == 0

@@ -2237,3 +2237,89 @@ def test_sound_classifier_on_the_card_matches_the_cpu(dev):
     for kw in ({"threshold": 0.0, "ignore": ()}, {}):
         assert (SoundClassifierEngine(card, cfg, **kw)(audio)
                 == SoundClassifierEngine(cpu, cfg, **kw)(audio))
+
+
+# Qwen3-Next's new shapes (group 256): an expert's w_down (K = 512, two
+# groups a column), the attention wq (N = 8,192) and lm_head (N = 151,936),
+# at decode and at a bucket-256 chunk's rows.
+@pytest.mark.parametrize("k,n,m", [(512, 2048, 1), (512, 2048, 256),
+                                   (2048, 8192, 1), (2048, 8192, 256),
+                                   (2048, 151936, 1)])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_quantized_kernels_at_qwen3next_shapes(dev, bits, k, n, m):
+    g = torch.Generator(device=dev).manual_seed(k + n + m)
+    w32 = torch.randn((k, n), generator=g, device=dev) / k ** 0.5
+    x = torch.randn((m, k), generator=g, device=dev)
+    if bits == 4:
+        w = tq.quantize_q4(w32, 256)
+        before = tq.q4_matmul_w4a8.launches
+        got = tq.q4_matmul_w4a8(x, w.values, w.scales)
+        ref = tq.q4_matmul_w4a8_ref(x, w.values, w.scales)
+        launched = tq.q4_matmul_w4a8.launches - before
+    else:
+        w = tq.quantize_q8(w32, 256)
+        before = tq.q8_matmul.launches
+        got = tq.q8_matmul(x, w.values, w.scales)
+        ref = tq.q8_matmul_ref(x, w.values, w.scales)
+        launched = tq.q8_matmul.launches - before
+    torch.cuda.synchronize()
+    assert launched == 1 and got.shape == (m, n)
+    assert _rel_l2(got, ref) < 1e-5
+
+
+def _qwen3next_tiny(dev):
+    """A tiny Qwen3-Next (f32, Q8 group 64: the kernel takes the exact
+    activations) on the card and its twin on the CPU: the same bytes."""
+    from trackiellm_tpu_torch.models import qwen3next as q3n
+    from trackiellm_tpu_torch.models.llm import params_to
+    cfg = q3n.Qwen3NextConfig(
+        vocab_size=512, dim=256, n_heads=4, n_kv_heads=2, head_dim=64,
+        lin_k_heads=2, lin_v_heads=4, lin_dk=64, lin_dv=64, n_experts=4,
+        n_experts_used=2, moe_hidden=128, shared_hidden=128, max_seq=256)
+    cpu = q3n.init_params_quantized(torch.Generator().manual_seed(5), cfg,
+                                    bits=8, group=64,
+                                    device=torch.device("cpu"))
+    return q3n, cfg, cpu, params_to(cpu, dev)
+
+
+def test_chunked_delta_rule_on_the_card_matches_the_cpu(dev):
+    """The chunked gated delta rule (three chunks of 64 and a short one) on
+    the card against the CPU on the same inputs: outputs and the state
+    within 1e-5 rel L2 (TF32 off)."""
+    from trackiellm_tpu_torch.models import qwen3next as q3n
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(12)
+    h, t, dk, dv = 4, 200, 64, 64
+    q = q3n._l2norm(torch.randn((h, t, dk), generator=g)) / dk ** 0.5
+    k = q3n._l2norm(torch.randn((h, t, dk), generator=g))
+    v = torch.randn((h, t, dv), generator=g)
+    gg = -torch.rand((h, t), generator=g) * 0.3
+    beta = torch.sigmoid(torch.randn((h, t), generator=g))
+    s0 = torch.randn((h, dk, dv), generator=g) * 0.1
+    want = q3n._chunk_gated_delta(q, k, v, gg, beta, s0)
+    got = q3n._chunk_gated_delta(*(a.to(dev) for a in (q, k, v, gg, beta,
+                                                       s0)))
+    assert _rel_l2(got[0].cpu(), want[0]) < 1e-5
+    assert _rel_l2(got[1].cpu(), want[1]) < 1e-5
+
+
+def test_qwen3next_prefill_and_decode_on_the_card_match_the_cpu(dev):
+    """A tiny Q8 Qwen3-Next: a bucket-64 prefill (the chunked rule) and one
+    decode step on the card (the Q8 kernel, counted) against the CPU's
+    plain route: logits and the recurrent state within 1e-4 rel L2."""
+    q3n, cfg, cpu, card = _qwen3next_tiny(dev)
+    toks = torch.randint(0, cfg.vocab_size, (65,),
+                         generator=torch.Generator().manual_seed(6))
+    want, wc = q3n.prefill(cpu, cfg, toks[:64], 60,
+                           q3n.create_cache(cfg, device=torch.device("cpu")))
+    before = tq.q8_matmul.launches
+    got, gc = q3n.prefill(card, cfg, toks[:64].to(dev), 60,
+                          q3n.create_cache(cfg, device=dev))
+    torch.cuda.synchronize()
+    assert tq.q8_matmul.launches > before
+    assert _rel_l2(got.cpu(), want) < 1e-4
+    assert _rel_l2(gc["layers"][0]["rec"].cpu(), wc["layers"][0]["rec"]) < 1e-4
+    want, _ = q3n.decode_step(cpu, cfg, int(toks[60]), wc)
+    got, _ = q3n.decode_step(card, cfg, toks[60].to(dev), gc)
+    assert torch.isfinite(got).all()
+    assert _rel_l2(got.cpu(), want) < 1e-4

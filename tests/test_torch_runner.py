@@ -268,8 +268,8 @@ def test_port_imports_no_jax():
     ``services``, ``compat``, ``precompile``, the cache artifact tool),
     the perception models (the embedder with ``WordPieceTokenizer``,
     TrOCR, AST, the CNN sound classifier and its engine, and their
-    converters), the MLA, Mamba and Mamba-2 models with the associative
-    scan, logging, CLI, probes, diagnostic, conversion, serving and app
+    converters), the MLA, Mamba, Mamba-2 and Qwen3-Next models with the
+    associative scan, logging, CLI, probes, diagnostic, conversion, serving and app
     latency tools and chip_smoke.py pulls in no JAX module, no module of the JAX
     package (``trackiellm_tpu`` or ``trackiellm_tpu.*``, even one that imports no
     JAX), none of the JAX package's tools and no ``transformers``, which
@@ -291,6 +291,7 @@ def test_port_imports_no_jax():
             "trackiellm_tpu_torch.models.mla, "
             "trackiellm_tpu_torch.models.mamba, "
             "trackiellm_tpu_torch.models.mamba2, "
+            "trackiellm_tpu_torch.models.qwen3next, "
             "trackiellm_tpu_torch.ops.scan, "
             "trackiellm_tpu_torch.utils.errors, "
             "trackiellm_tpu_torch.utils.logging, "

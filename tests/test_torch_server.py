@@ -503,3 +503,38 @@ def test_sampled_path_is_seeded_and_penalized():
     assert len(first) == 12
     assert max(first.count(t) for t in set(first)) <= 3
     assert sampled(3, 1.0) != first
+
+
+def test_paged_matches_dense_with_qkv_bias():
+    """Qwen2-style QKV biases flow through the paged decode paths as
+    through the dense ones (the JAX package's
+    ``tests/test_server.py::test_paged_matches_dense_with_qkv_bias``): the
+    same greedy text dense, paged and paged in 4-step chunks, and the same
+    text as the JAX server's on the same weights."""
+    jcfg = JCFG._replace(qkv_bias=True)
+    cfg = tllm.LLMConfig(**jcfg._asdict())
+    jp = jllm.init_params(jax.random.PRNGKey(4), jcfg, dtype=jnp.float32)
+    assert "wqkv_bias" in jp["layers"]
+    tp = params_from_jax(jp)
+    tok = ByteTokenizer(cfg.vocab_size)
+    outs = {}
+    for label, kw in (("dense", {}),
+                      ("paged", dict(paged=True, page_size=16)),
+                      ("paged_chunked", dict(paged=True, page_size=16,
+                                             chunk_steps=4))):
+        server = LLMServer(tp, cfg, batch_slots=2, tokenizer=tok,
+                           cache_dtype=torch.float32,
+                           **({"chunk_steps": 1} | kw))
+        try:
+            outs[label] = server.generate("ola mundo", max_tokens=9)
+        finally:
+            server.close()
+    assert outs["paged"] == outs["dense"]
+    assert outs["paged_chunked"] == outs["dense"]
+    server = JServer(jp, jcfg, batch_slots=2,
+                     tokenizer=JTokenizer(jcfg.vocab_size),
+                     cache_dtype=jnp.float32, chunk_steps=1)
+    try:
+        assert server.generate("ola mundo", max_tokens=9) == outs["dense"]
+    finally:
+        server.close()

@@ -15,18 +15,24 @@
       convert a transformers LLaVA or PaliGemma state dict (.safetensors,
       .pt, .npz): the language model at DIR, the vision tower and
       projector at DIR/vision.
-  convert <state dict> -o DIR --family deepseekv2-hf|deepseekv3-hf|
-          mamba-hf|mamba2-hf [--bits N] [--device D]
-      convert a transformers DeepSeek-V2/V3 (MLA), Mamba or Mamba-2 state
-      dict; ``--bits`` requantizes MLA at group 64 and Mamba at 256
-      (Mamba-2 stays f32). A deepseek2 or mamba GGUF takes its own route
-      through the plain GGUF form above.
+  convert <state dict> -o DIR --family F [--bits N] [--n-heads H]
+          [--model-config config.json] [--device D]
+      convert a transformers language-model state dict of family F
+      (gemma2-hf, gemma3-hf, smollm3-hf, olmo2-hf, mixtral-hf, qwen2moe-hf,
+      qwen3-hf, qwen3moe-hf, granite-hf, glm4-hf, llama4-hf, nemotron-hf,
+      starcoder2-hf, cohere-hf, ernie45-hf, glm4moe-hf, falcon-hf with
+      ``--n-heads``, deepseekv2-hf, deepseekv3-hf, mamba-hf, mamba2-hf,
+      qwen3next-hf with ``--model-config``); ``--bits`` requantizes MLA at
+      group 64, the others at 256 (Mamba-2 stays f32). A deepseek2, mamba,
+      falcon, llama4, glm4moe or qwen3next GGUF takes its own route through
+      the plain GGUF form above.
   generate <ckpt> -p PROMPT [--max-tokens N] [--temperature T]
            [--image FRAME.npy] [--device D]
       run a generation from a native checkpoint, such as one that
       ``convert`` wrote: ``LLMConfig`` through ``LLMRunner``, ``MLAConfig``
-      through ``LLMRunner(model=models.mla)``, ``MambaConfig`` and
-      ``Mamba2Config`` through ``MambaRunner``; with ``--image`` (an HWC uint8 array,
+      through ``LLMRunner(model=models.mla)``, ``MambaConfig``,
+      ``Mamba2Config`` and ``Qwen3NextConfig`` through ``MambaRunner``; with
+      ``--image`` (an HWC uint8 array,
       .npy or an .npz holding ``image``) a multimodal checkpoint sees the
       frame at the prompt's ``<image>`` marker (prepended when absent).
   transcribe <wav> [--checkpoint DIR] [--device D]
@@ -55,16 +61,13 @@
       handles and the allocator's pools, and the built libraries stay under
       ``--cache-dir`` (``tools/cache_artifact.py`` packs them).
 
-Port of ``trackiellm_tpu/__main__.py``'s ``inspect``, the GGUF (deepseek2
-and mamba included), ``--mmproj``, ``llava-hf``, ``paligemma-hf``,
-``trocr-hf``, ``deepseekv2-hf``, ``deepseekv3-hf``, ``mamba-hf`` and
-``mamba2-hf`` branches of ``convert``,
-``generate`` (``--image`` included), ``transcribe``, ``synth``, ``demo``
-and ``precompile``, with the JAX package's defaults (4 bits; 64 tokens,
+Port of ``trackiellm_tpu/__main__.py``'s ``inspect``, ``convert`` (every
+GGUF arch, ``--mmproj`` and all of its ``--family`` routes), ``generate``
+(``--image`` included), ``transcribe``, ``synth``, ``demo`` and
+``precompile``, with the JAX package's defaults (4 bits; 64 tokens,
 temperature 0.7; 5 s; max_seq 1024). Every command but ``inspect`` runs on
-the CUDA card; the CPU is used only when ``--device cpu`` asks for it. The other ``--family`` routes
-wait for ROADMAP Queue 1 item 11; ``bench`` and ``first_contact`` are not
-ported yet (ROADMAP Queue 1).
+the CUDA card; the CPU is used only when ``--device cpu`` asks for it.
+``bench`` and ``first_contact`` are not ported yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -89,7 +92,7 @@ from trackiellm_tpu_torch.models.loader import describe, read_gguf_header
 
 
 # The --family values of the JAX package's convert besides "gguf": the
-# transformers-state-dict routes, and the ROADMAP items that port them.
+# transformers-state-dict routes.
 _HF_FAMILIES = (
     "gemma2-hf", "gemma3-hf", "smollm3-hf", "olmo2-hf", "mixtral-hf",
     "qwen2moe-hf", "qwen3-hf", "qwen3moe-hf", "deepseekv2-hf",
@@ -98,8 +101,20 @@ _HF_FAMILIES = (
     "mamba-hf", "mamba2-hf", "paligemma-hf", "trocr-hf", "glm4moe-hf",
     "qwen3next-hf")
 _MULTIMODAL_FAMILIES = ("llava-hf", "paligemma-hf")
-_STATE_DICT_FAMILIES = ("deepseekv2-hf", "deepseekv3-hf", "mamba-hf",
-                        "mamba2-hf")
+# The language-model state dicts: each family's converter.
+_STATE_DICT_CONVERTERS = {
+    "gemma2-hf": "gemma2_from_hf", "gemma3-hf": "gemma3_from_hf",
+    "smollm3-hf": "smollm3_from_hf", "olmo2-hf": "olmo2_from_hf",
+    "mixtral-hf": "mixtral_from_hf", "qwen2moe-hf": "qwen2_moe_from_hf",
+    "qwen3-hf": "qwen3_from_hf", "qwen3moe-hf": "qwen3_moe_from_hf",
+    "deepseekv2-hf": "deepseek_v2_from_hf",
+    "deepseekv3-hf": "deepseek_v3_from_hf", "granite-hf": "granite_from_hf",
+    "glm4-hf": "glm4_from_hf", "llama4-hf": "llama4_from_hf",
+    "nemotron-hf": "nemotron_from_hf", "starcoder2-hf": "starcoder2_from_hf",
+    "cohere-hf": "cohere_from_hf", "ernie45-hf": "ernie45_from_hf",
+    "glm4moe-hf": "glm4_moe_from_hf", "qwen3next-hf": "qwen3_next_from_hf",
+    "falcon-hf": "falcon_from_hf", "mamba-hf": "mamba_from_hf",
+    "mamba2-hf": "mamba2_from_hf"}
 
 
 def _device(name, verb: str):
@@ -162,23 +177,35 @@ def _convert_trocr(args, device: torch.device, t0: float) -> int:
 
 
 def _convert_state_dict(args, device: torch.device, t0: float) -> int:
-    """DeepSeek-V2/V3, Mamba or Mamba-2 from a transformers state dict,
-    requantized at ``--bits`` by the family's ``quantize_params`` (MLA at
-    group 64, Mamba at 256). Mamba-2 has no quantized route: its weights
-    stay f32 whatever ``--bits`` says."""
-    fn = {"deepseekv2-hf": convert_mod.deepseek_v2_from_hf,
-          "deepseekv3-hf": convert_mod.deepseek_v3_from_hf,
-          "mamba-hf": convert_mod.mamba_from_hf,
-          "mamba2-hf": convert_mod.mamba2_from_hf}[args.family]
-    params, cfg = fn(convert_mod.load_state_dict(args.gguf), device=device)
+    """A language model from a transformers state dict, requantized at
+    ``--bits`` by the family's ``quantize_params``: MLA at group 64,
+    Qwen3-Next by its own policy, the others at 256. Falcon reads
+    ``--n-heads``; Qwen3-Next needs ``--model-config`` (its head splits are
+    not shape-derivable). Mamba-2 has no quantized route: its weights stay
+    f32 whatever ``--bits`` says."""
+    fn = getattr(convert_mod, _STATE_DICT_CONVERTERS[args.family])
+    kw = {"n_heads": args.n_heads} if args.family == "falcon-hf" else {}
+    if args.family == "qwen3next-hf":
+        if not args.model_config:
+            print("qwen3next-hf needs --model-config config.json "
+                  "(linear_num_key_heads / head dims)", file=sys.stderr)
+            return 1
+        with open(args.model_config, encoding="utf-8") as f:
+            kw["config"] = json.load(f)
+    params, cfg = fn(convert_mod.load_state_dict(args.gguf), device=device,
+                     **kw)
     if args.bits and args.family == "mamba2-hf":
         print("mamba2-hf: Mamba-2 has no quantized route; the weights stay "
               "f32", file=sys.stderr)
     elif args.bits:
         if args.family.startswith("deepseek"):
             from trackiellm_tpu_torch.models.mla import quantize_params
-        else:
+        elif args.family == "mamba-hf":
             from trackiellm_tpu_torch.models.mamba import quantize_params
+        elif args.family == "qwen3next-hf":
+            from trackiellm_tpu_torch.models.qwen3next import quantize_params
+        else:
+            from trackiellm_tpu_torch.models.llm import quantize_params
         params = quantize_params(params, bits=args.bits)
     save_checkpoint(args.output, params, config=cfg,
                     metadata={"source": args.gguf, "bits": args.bits,
@@ -189,19 +216,13 @@ def _convert_state_dict(args, device: torch.device, t0: float) -> int:
 
 
 def _cmd_convert(args) -> int:
-    if args.family not in ("gguf", "trocr-hf", *_MULTIMODAL_FAMILIES,
-                           *_STATE_DICT_FAMILIES):
-        raise NotImplementedError(
-            f"--family {args.family}: the transformers-state-dict "
-            "converters (*_from_hf) are not ported yet (ROADMAP Queue 1 "
-            "item 11)")
     device = _device(args.device, "convert")
     t0 = time.time()
     if args.family == "trocr-hf":
         return _convert_trocr(args, device, t0)
     if args.family in _MULTIMODAL_FAMILIES:
         return _convert_multimodal(args, device, t0)
-    if args.family in _STATE_DICT_FAMILIES:
+    if args.family in _STATE_DICT_CONVERTERS:
         return _convert_state_dict(args, device, t0)
     hdr = read_gguf_header(args.gguf)
     params, cfg = gguf_convert_auto(args.gguf, bits=args.bits or None,
@@ -271,8 +292,9 @@ def _cmd_generate(args) -> int:
     gen_config = GenerationConfig(max_tokens=args.max_tokens,
                                   temperature=args.temperature)
     kind = type(cfg).__name__
-    if kind in ("MambaConfig", "Mamba2Config"):
-        # The recurrent-state families have their own sequential runner.
+    if kind in ("MambaConfig", "Mamba2Config", "Qwen3NextConfig"):
+        # The recurrent-state families (the Qwen3-Next hybrid too) have
+        # their own sequential runner.
         from trackiellm_tpu_torch.models.mamba import MambaRunner
 
         runner = MambaRunner(params, cfg, tokenizer=tokenizer,
@@ -393,25 +415,24 @@ def main(argv=None) -> int:
     p.set_defaults(fn=_cmd_inspect)
 
     p = sub.add_parser("convert", help="GGUF -> native checkpoint")
-    p.add_argument("gguf", help="a llama.cpp GGUF file")
+    p.add_argument("gguf", help="a llama.cpp GGUF file, or a transformers "
+                   "state dict with --family")
     p.add_argument("-o", "--output", required=True)
     p.add_argument("--bits", type=int, default=4, choices=(0, 4, 8))
     p.add_argument("--family", default="gguf",
                    choices=("gguf", *_HF_FAMILIES),
-                   help="source layout (default: GGUF metadata-driven); "
-                        "of the others, llava-hf, paligemma-hf, trocr-hf, "
-                        "deepseekv2-hf, deepseekv3-hf, mamba-hf and "
-                        "mamba2-hf are ported")
+                   help="source layout (default: GGUF metadata-driven; "
+                        "the others read a transformers state dict)")
     p.add_argument("--n-heads", type=int, default=32,
-                   help="llava-hf: text attention heads (not derivable "
-                        "from shapes)")
+                   help="llava-hf and falcon-hf: text attention heads (not "
+                        "derivable from shapes)")
     p.add_argument("--vision-n-heads", type=int, default=16,
                    help="llava-hf/paligemma-hf: vision tower heads")
     p.add_argument("--mmproj", default=None,
                    help="llama.cpp vision 'mmproj' GGUF (LLaVA packaging)")
     p.add_argument("--model-config", default=None,
-                   help="trocr-hf: the HF config.json (head counts, "
-                        "special ids)")
+                   help="trocr-hf and qwen3next-hf: the HF config.json "
+                        "(head counts and splits, special ids)")
     p.add_argument("--device", default=None,
                    help="torch device of the requantization (default: the "
                         "CUDA card; the CPU only when asked for with "

@@ -224,8 +224,8 @@ class VerifierHead:
     """An openwakeword per-keyword VERIFIER model: a plain dense stack
     over speech-embedding windows (Flatten -> Dense+ReLU ... ->
     Dense(1) -> sigmoid), on ``device`` (the CUDA card unless the CPU is
-    given). The converter that ingests it from ONNX waits with the model
-    zoo (ROADMAP Queue 1); this covers the HEAD only."""
+    given), as ``models/convert.py:openwakeword_verifier_from_onnx``
+    builds it from the published ONNX; this covers the HEAD only."""
 
     def __init__(self, layers, device=None):
         # layers: list of (w (in, out), b (out,)) arrays or tensors.

@@ -15,11 +15,12 @@ which the two packages read and write alike:
 So a checkpoint that the JAX package converted (``python -m trackiellm_tpu
 convert model.gguf -o DIR --bits 8``) loads here, and the reverse. The
 configs read are ``LLMConfig``, ``MLAConfig``, ``MambaConfig``,
-``Mamba2Config`` (whose ``dt_limit`` comes back from JSON as a list and is
-made a tuple again), ``CLIPVisionConfig``, ``TrOCRConfig`` and the voice
-models' (``WhisperConfig``, ``TTSConfig``, ``VITSConfig``); a
-Whisper checkpoint may also carry its config in the metadata
-(``whisper_config``), as the JAX package's ``transcribe`` reads it.
+``Mamba2Config`` and ``Qwen3NextConfig`` (whose ``dt_limit`` and
+``layer_types`` come back from JSON as lists and are made tuples again),
+``CLIPVisionConfig``, ``TrOCRConfig`` and the voice models'
+(``WhisperConfig``, ``TTSConfig``, ``VITSConfig``); a Whisper checkpoint
+may also carry its config in the metadata (``whisper_config``), as the JAX
+package's ``transcribe`` reads it.
 """
 
 from __future__ import annotations
@@ -46,13 +47,6 @@ _ARRAYS_FILE = "arrays.npz"
 # before the marker existed used "biased-v1" (both nibbles biased +8); the
 # loader repacks them instead of mis-decoding them.
 _Q4_PACKING = "mixed-bias-v2"
-
-# Config classes of other model families, and the ROADMAP item that ports
-# them.
-_WAITING = {
-    "Qwen3NextConfig": ("model zoo, models/qwen3next.py (ROADMAP Queue 1 "
-                        "item 11)"),
-}
 
 
 def _repack_q4_biased_v1(packed: np.ndarray) -> np.ndarray:
@@ -167,8 +161,8 @@ def _unflatten(tree: Any, arrays: Dict[str, torch.Tensor]) -> Any:
 
 def _family_config(cls: str):
     """The config classes of the other model modules (voice, vision, OCR,
-    MLA, Mamba, Mamba-2), imported when a checkpoint names one (their
-    modules import this one's neighbours, not this module)."""
+    MLA, Mamba, Mamba-2, Qwen3-Next), imported when a checkpoint names one
+    (their modules import this one's neighbours, not this module)."""
     if cls == "CLIPVisionConfig":
         from trackiellm_tpu_torch.models.clip import CLIPVisionConfig
         return CLIPVisionConfig
@@ -193,6 +187,9 @@ def _family_config(cls: str):
     if cls == "Mamba2Config":
         from trackiellm_tpu_torch.models.mamba2 import Mamba2Config
         return Mamba2Config
+    if cls == "Qwen3NextConfig":
+        from trackiellm_tpu_torch.models.qwen3next import Qwen3NextConfig
+        return Qwen3NextConfig
     return None
 
 
@@ -205,18 +202,14 @@ def _config(sidecar: Dict[str, Any], directory: str):
     if "config" not in sidecar:
         return None
     cls = sidecar.get("config_class")
-    if cls in _WAITING:
-        raise NotImplementedError(
-            f"{directory} holds a {cls} checkpoint: {_WAITING[cls]} is not "
-            "ported yet")
     config_cls = LLMConfig if cls == "LLMConfig" else _family_config(cls)
     if config_cls is None:
         raise NotImplementedError(
             f"{directory}: config class {cls!r} is not supported; the port "
-            "loads LLMConfig, MLAConfig, MambaConfig and Mamba2Config "
-            "checkpoints, the vision tower's (CLIPVisionConfig), TrOCR's "
-            "(TrOCRConfig) and the voice models' (WhisperConfig, "
-            "TTSConfig, VITSConfig)")
+            "loads LLMConfig, MLAConfig, MambaConfig, Mamba2Config and "
+            "Qwen3NextConfig checkpoints, the vision tower's "
+            "(CLIPVisionConfig), TrOCR's (TrOCRConfig) and the voice "
+            "models' (WhisperConfig, TTSConfig, VITSConfig)")
     return config_cls(**{k: _tuples(v)
                          for k, v in sidecar["config"].items()})
 

@@ -26,11 +26,12 @@ Reading the file and dequantizing GGML blocks is host numpy code
 the ``device`` given, the CUDA card by default, through
 ``ops/quant.py``'s quantizers, which give the JAX package's bytes on the
 card and on the CPU. DeepSeek-V2/V3 (``deepseek2``, MLA), Mamba, Falcon,
-Llama-4 and GLM-4-MoE have converters of their own (``gguf_convert_auto``
-dispatches them), and DeepSeek-V2/V3, Mamba and Mamba-2 transformers
-state dicts theirs (``deepseek_v2_from_hf``, ``deepseek_v3_from_hf``,
-``mamba_from_hf``, ``mamba2_from_hf``); Qwen3-Next's routes are not
-ported yet (ROADMAP Queue 1 item 11).
+Llama-4, GLM-4-MoE and Qwen3-Next have converters of their own
+(``gguf_convert_auto`` dispatches them). Every transformers state dict
+the JAX package converts has its ``*_from_hf`` here too (the LLM
+families' at the end of this module, DeepSeek's, Mamba's and
+Qwen3-Next's beside their GGUF routes), each giving the JAX converter's
+bytes.
 
 The voice converters (``whisper_from_torch``, ``whisper_from_ggml``,
 ``vad_from_torch``, ``silero_from_onnx``, ``tts_from_torch``,
@@ -60,6 +61,7 @@ tokenizer) for ``models/embedder.py``, ``trocr_from_hf`` for
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Any, Dict, Optional
 
@@ -80,11 +82,6 @@ from trackiellm_tpu_torch.utils.errors import ErrorCode, TrackieError
 from trackiellm_tpu_torch.utils.logging import get_logger
 
 log = get_logger("models.convert")
-
-# GGUF arches that the JAX package converts with a route of their own and
-# that the port does not run yet.
-_WAITING_ARCHES = {"qwen3next": "gguf_to_qwen3next_params"}
-
 
 def _math_key(md: Dict[str, Any], name: str, default,
               heuristic: str = ""):
@@ -1767,12 +1764,378 @@ def mamba2_from_hf(state: Dict[str, Any], *, n_groups: int = 8,
     }, cfg
 
 
+# ---------------------------------------------------------------------------
+# Qwen3-Next (the hybrid Gated-DeltaNet / gated-attention family)
+# ---------------------------------------------------------------------------
+
+def qwen3_next_from_hf(state: Dict[str, Any],
+                       config: Optional[Dict[str, Any]] = None, *,
+                       max_seq: int = 512,
+                       dtype: torch.dtype = torch.float32,
+                       device: Optional[torch.device] = None) -> tuple:
+    """A transformers ``Qwen3NextForCausalLM`` state dict -> (params on
+    ``device``, Qwen3NextConfig) for ``models/qwen3next.py``.
+
+    The fused projections un-fuse here (row slices, exact): the attention
+    ``q_proj`` packs per head [query | gate] (kept fused; the model splits
+    it per head); the DeltaNet ``in_proj_qkvz`` groups rows per key head
+    as [q, k, v, z] and ``in_proj_ba`` as [b, a], both regrouped into the
+    global wq/wk/wv/wz/wb/wa. Geometry comes from shapes, the layer kinds
+    from tensor presence (``linear_attn`` or ``self_attn``); the
+    linear-attention head splits and head_dim, which shapes do not give,
+    from ``config`` (the HF config.json), which raises without them. The
+    zero-centered norm weights are stored raw."""
+    from trackiellm_tpu_torch.models.qwen3next import Qwen3NextConfig
+
+    config = config or {}
+    device = default_device(device, "convert a checkpoint")
+
+    def A(name: str) -> np.ndarray:
+        if name not in state:
+            raise KeyError(name)
+        return np.asarray(state[name], np.float32)
+
+    emb = A("model.embed_tokens.weight")
+    vocab, dim = emb.shape
+    n_layers = len({k.split(".")[2] for k in state
+                    if k.startswith("model.layers.")})
+    layer_types = tuple(
+        "l" if f"model.layers.{i}.linear_attn.in_proj_qkvz.weight" in state
+        else "f" for i in range(n_layers))
+    if "l" not in layer_types or "f" not in layer_types:
+        log.warning("qwen3_next: homogeneous layer_types %s — published "
+                    "checkpoints interleave both", layer_types)
+    li_lin = layer_types.index("l")
+    li_full = layer_types.index("f") if "f" in layer_types else None
+    hv = A(f"model.layers.{li_lin}.linear_attn.dt_bias").shape[0]
+    conv_dim, _, conv_k = A(
+        f"model.layers.{li_lin}.linear_attn.conv1d.weight").shape
+    hk = int(config.get("linear_num_key_heads", 0))
+    dk = int(config.get("linear_key_head_dim", 0))
+    dv = int(config.get("linear_value_head_dim", 0))
+    if not (hk and dk and dv):
+        raise TrackieError(
+            ErrorCode.MODEL_METADATA_INVALID,
+            "qwen3_next needs linear_num_key_heads / linear_key_head_dim / "
+            "linear_value_head_dim from the HF config (head splits are not "
+            "shape-derivable)")
+    if conv_dim != 2 * hk * dk + hv * dv:
+        raise TrackieError(
+            ErrorCode.MODEL_METADATA_INVALID,
+            f"conv1d carries {conv_dim} channels but the config geometry "
+            f"gives {2 * hk * dk + hv * dv}")
+    hd = int(config.get("head_dim", 0))
+    n_heads = int(config.get("num_attention_heads", 0))
+    n_kv = int(config.get("num_key_value_heads", 0))
+    if li_full is not None:
+        if not hd:
+            raise TrackieError(
+                ErrorCode.MODEL_METADATA_INVALID,
+                "qwen3_next needs head_dim from the HF config (the fused "
+                "[query|gate] q_proj hides it from shapes)")
+        att = f"model.layers.{li_full}.self_attn"
+        n_heads = n_heads or A(f"{att}.q_proj.weight").shape[0] // (2 * hd)
+        n_kv = n_kv or A(f"{att}.k_proj.weight").shape[0] // hd
+    elif not hd:
+        hd = 16  # linear-only stacks never touch attention shapes
+    moe_layers = [i for i in range(n_layers)
+                  if f"model.layers.{i}.mlp.gate.weight" in state]
+    moe_hidden = shared_hidden = hidden = n_experts = 0
+    if moe_layers:
+        e0 = f"model.layers.{moe_layers[0]}.mlp.experts"
+        n_experts = _n_experts(state, e0 + ".")
+        moe_hidden = A(f"{e0}.0.gate_proj.weight").shape[0]
+        shared_hidden = A(f"model.layers.{moe_layers[0]}.mlp.shared_expert"
+                          ".gate_proj.weight").shape[0]
+    else:
+        hidden = A("model.layers.0.mlp.gate_proj.weight").shape[0]
+    cfg = Qwen3NextConfig(
+        vocab_size=vocab, dim=dim, n_layers=n_layers,
+        layer_types=layer_types, n_heads=n_heads, n_kv_heads=n_kv,
+        head_dim=hd,
+        partial_rotary_factor=float(config.get("partial_rotary_factor",
+                                               0.25)),
+        rope_theta=float(config.get("rope_theta", 10000.0)),
+        lin_k_heads=hk, lin_v_heads=hv, lin_dk=dk, lin_dv=dv,
+        conv_k=conv_k, hidden_dim=hidden or moe_hidden, n_experts=n_experts,
+        n_experts_used=int(config.get("num_experts_per_tok", 2)),
+        moe_hidden=moe_hidden, shared_hidden=shared_hidden,
+        norm_topk=bool(config.get("norm_topk_prob", True)),
+        norm_eps=float(config.get("rms_norm_eps", 1e-6)), max_seq=max_seq)
+
+    tensor = _converter_tools(device, None, 0, dtype)[0]
+
+    def J(a):
+        return tensor(a, dtype)
+    rep = hv // hk
+    gsz = 2 * dk + 2 * rep * dv
+    layers = []
+    for i in range(n_layers):
+        pre = f"model.layers.{i}"
+        lp: Dict[str, Any] = {
+            "attn_norm": J(A(f"{pre}.input_layernorm.weight")),
+            "mlp_norm": J(A(f"{pre}.post_attention_layernorm.weight"))}
+        if layer_types[i] == "f":
+            ap = f"{pre}.self_attn"
+            lp.update(wq=J(A(f"{ap}.q_proj.weight").T),   # [q|gate] a head
+                      wk=J(A(f"{ap}.k_proj.weight").T),
+                      wv=J(A(f"{ap}.v_proj.weight").T),
+                      wo=J(A(f"{ap}.o_proj.weight").T),
+                      q_norm=J(A(f"{ap}.q_norm.weight")),
+                      k_norm=J(A(f"{ap}.k_norm.weight")))
+        else:
+            ap = f"{pre}.linear_attn"
+            qkvz = A(f"{ap}.in_proj_qkvz.weight").reshape(hk, gsz, dim)
+            ba = A(f"{ap}.in_proj_ba.weight").reshape(hk, 2 * rep, dim)
+            q, k, v, z = np.split(qkvz, np.cumsum([dk, dk, rep * dv]), axis=1)
+            b, a = np.split(ba, [rep], axis=1)
+            for name, part in (("wq", q), ("wk", k), ("wv", v), ("wz", z),
+                               ("wb", b), ("wa", a)):
+                lp[name] = J(part.reshape(-1, dim).T)
+            lp.update(conv_w=J(A(f"{ap}.conv1d.weight")[:, 0, :]),
+                      dt_bias=J(A(f"{ap}.dt_bias")),
+                      a_log=J(A(f"{ap}.A_log")),
+                      o_norm=J(A(f"{ap}.norm.weight")),
+                      wo=J(A(f"{ap}.out_proj.weight").T))
+        if i in moe_layers:
+            gu, down = _experts(A, f"{pre}.mlp.experts", n_experts)
+            lp.update(moe_gate=J(A(f"{pre}.mlp.gate.weight").T),
+                      w_gu=J(gu), w_down=J(down),
+                      shared_gu=J(_gu_T(A, f"{pre}.mlp.shared_expert")),
+                      shared_down=J(A(f"{pre}.mlp.shared_expert.down_proj"
+                                      ".weight").T),
+                      shared_gate=J(A(f"{pre}.mlp.shared_expert_gate"
+                                      ".weight").T))
+        else:
+            lp.update(w_gu=J(_gu_T(A, f"{pre}.mlp")),
+                      w_down=J(A(f"{pre}.mlp.down_proj.weight").T))
+        layers.append(lp)
+    return {"tok_emb": J(emb), "layers": layers,
+            "out_norm": J(A("model.norm.weight")),
+            "lm_head": J(_hf_head(state, A, emb))}, cfg
+
+
+def _check_md(path: str, md: Dict[str, Any], key: str, ours: int) -> None:
+    if key in md and int(md[key]) != ours:
+        raise TrackieError(
+            ErrorCode.MODEL_METADATA_INVALID,
+            f"{path}: {key}={md[key]} disagrees with tensor shapes ({ours})")
+
+
+def gguf_to_qwen3next_params(path: str, *, bits: Optional[int] = None,
+                             group: int = 256, max_seq: int = 512,
+                             dtype: torch.dtype = torch.float32,
+                             device: Optional[torch.device] = None) -> tuple:
+    """A llama.cpp ``qwen3next`` GGUF -> (params on ``device``,
+    Qwen3NextConfig): the transformers names and a config dict rebuilt
+    from the file, then :func:`qwen3_next_from_hf` (the reference's
+    route). Layer kinds from tensor presence (``blk.N.ssm_in``: DeltaNet,
+    ``blk.N.attn_q``: attention). The attention gate is read in either
+    layout by geometry: a separate ``attn_gate`` (re-interleaved per head
+    into HF's fused [q | gate]) or an ``attn_q`` of 2 H hd rows. ``ssm_a``
+    all negative is llama.cpp's -exp(A_log) and is inverted; anything else
+    is the raw A_log (positive in HF's init). The DeltaNet geometry: Hv
+    from ``ssm_dt.bias``, Hv dv from the qkvz rows less the conv width, dk
+    from ``ssm.state_size`` (else dv, with a warning), Hk from the rest;
+    the metadata keys that state them must agree. ``bits`` 4/8 requantizes
+    through ``qwen3next.quantize_params``."""
+    gguf = read_gguf_header(path)
+    arch = gguf.architecture or ""
+    if arch != "qwen3next":
+        raise TrackieError(ErrorCode.MODEL_METADATA_INVALID,
+                           f"{path}: architecture {arch!r}, want 'qwen3next'")
+    md, t = gguf.metadata, gguf.tensors
+
+    def T(name: str) -> np.ndarray:
+        return load_gguf_tensor(gguf, name)
+
+    n_layers = int(md.get(f"{arch}.block_count", len(
+        {k.split(".")[1] for k in t if k.startswith("blk.")})))
+    dim = int(md.get(f"{arch}.embedding_length",
+                     t["token_embd.weight"].shape[1]))
+    lin_layers = [i for i in range(n_layers) if f"blk.{i}.ssm_in.weight" in t]
+    full_layers = [i for i in range(n_layers)
+                   if f"blk.{i}.attn_q.weight" in t]
+    if sorted(lin_layers + full_layers) != list(range(n_layers)):
+        missing = sorted(set(range(n_layers)) - set(lin_layers)
+                         - set(full_layers))
+        raise TrackieError(
+            ErrorCode.MODEL_METADATA_INVALID,
+            f"{path}: layers {missing} carry neither ssm_in nor attn_q")
+    has_moe = any(f"blk.{i}.ffn_gate_exps.weight" in t
+                  for i in range(n_layers))
+    config: Dict[str, Any] = {
+        "rms_norm_eps": float(md.get(
+            f"{arch}.attention.layer_norm_rms_epsilon", 1e-6)),
+        "rope_theta": (float(_math_key(
+            md, f"{arch}.rope.freq_base", 10000.0,
+            "llama.cpp default; published Qwen3-Next uses 1e7"))
+            if full_layers else 10000.0),
+        "num_experts_per_tok": (int(_math_key(
+            md, f"{arch}.expert_used_count", 2,
+            "qwen-MoE default; published Qwen3-Next routes top-10"))
+            if has_moe else 2),
+        "norm_topk_prob": True,
+    }
+    if lin_layers:
+        li = lin_layers[0]
+        hv = t[f"blk.{li}.ssm_dt.bias"].shape[0]
+        qkvz_rows = t[f"blk.{li}.ssm_in.weight"].shape[0]
+        conv_dim = t[f"blk.{li}.ssm_conv1d.weight"].shape[0]
+        hv_dv = qkvz_rows - conv_dim
+        if hv_dv <= 0 or hv_dv % hv:
+            raise TrackieError(
+                ErrorCode.MODEL_METADATA_INVALID,
+                f"{path}: qkvz rows {qkvz_rows} / conv width {conv_dim} / "
+                f"dt heads {hv} are inconsistent")
+        dv = hv_dv // hv
+        dk = int(_math_key(md, f"{arch}.ssm.state_size", dv,
+                           "published Qwen3-Next uses square dk=dv heads"))
+        hk2dk = conv_dim - hv * dv
+        if hk2dk <= 0 or hk2dk % (2 * dk):
+            raise TrackieError(
+                ErrorCode.MODEL_METADATA_INVALID,
+                f"{path}: conv width {conv_dim} minus value channels "
+                f"{hv * dv} is not a multiple of 2*dk={2 * dk}")
+        hk = hk2dk // (2 * dk)
+        config.update(linear_num_key_heads=hk, linear_key_head_dim=dk,
+                      linear_value_head_dim=dv)
+        _check_md(path, md, f"{arch}.ssm.group_count", hk)
+        _check_md(path, md, f"{arch}.ssm.inner_size", hv * dv)
+        _check_md(path, md, f"{arch}.ssm.conv_kernel",
+                  t[f"blk.{li}.ssm_conv1d.weight"].shape[-1])
+    if full_layers:
+        n_heads = int(md.get(f"{arch}.attention.head_count", 0))
+        n_kv = int(md.get(f"{arch}.attention.head_count_kv", n_heads))
+        if not (n_heads and n_kv):
+            raise TrackieError(
+                ErrorCode.MODEL_METADATA_INVALID,
+                f"{path}: missing {arch}.attention.head_count[_kv]")
+        hd = t[f"blk.{full_layers[0]}.attn_k.weight"].shape[0] // n_kv
+        key = f"{arch}.attention.key_length"
+        if key in md and int(md[key]) != hd:
+            raise TrackieError(
+                ErrorCode.MODEL_METADATA_INVALID,
+                f"{path}: attention.key_length={md[key]} disagrees with "
+                f"attn_k rows ({hd} per kv head)")
+        config.update(num_attention_heads=n_heads, num_key_value_heads=n_kv,
+                      head_dim=hd, partial_rotary_factor=float(_math_key(
+                          md, f"{arch}.rope.dimension_count", 0.25 * hd,
+                          "published Qwen3-Next partial rotary 0.25")) / hd)
+
+    state: Dict[str, Any] = {
+        "model.embed_tokens.weight": T("token_embd.weight"),
+        "model.norm.weight": T("output_norm.weight")}
+    if "output.weight" in t:
+        state["lm_head.weight"] = T("output.weight")
+    for i in range(n_layers):
+        b, p = f"blk.{i}.", f"model.layers.{i}."
+        state[p + "input_layernorm.weight"] = T(b + "attn_norm.weight")
+        state[p + "post_attention_layernorm.weight"] = T(
+            b + "ffn_norm.weight")
+        if i in lin_layers:
+            la = p + "linear_attn."
+            state[la + "in_proj_qkvz.weight"] = T(b + "ssm_in.weight")
+            state[la + "in_proj_ba.weight"] = T(b + "ssm_beta_alpha.weight")
+            state[la + "conv1d.weight"] = T(b + "ssm_conv1d.weight")[:, None]
+            state[la + "dt_bias"] = T(b + "ssm_dt.bias")
+            a = T(b + "ssm_a")
+            if np.all(a < 0):
+                a = np.log(-a)  # llama.cpp's mamba-style -exp(A_log)
+                log.info("gguf qwen3next: ssm_a decoded as -exp(A_log) "
+                         "(all-negative entries)")
+            state[la + "A_log"] = a
+            state[la + "norm.weight"] = T(b + "ssm_norm.weight")
+            state[la + "out_proj.weight"] = T(b + "ssm_out.weight")
+        else:
+            sa = p + "self_attn."
+            q = T(b + "attn_q.weight")
+            hd, n_heads = config["head_dim"], config["num_attention_heads"]
+            if f"blk.{i}.attn_gate.weight" in t:
+                g = T(b + "attn_gate.weight")
+                if q.shape[0] != n_heads * hd or g.shape != q.shape:
+                    raise TrackieError(
+                        ErrorCode.MODEL_METADATA_INVALID,
+                        f"{path}: blk.{i} attn_q {q.shape} / attn_gate "
+                        f"{g.shape} vs H={n_heads}, hd={hd}")
+                q = np.concatenate([q.reshape(n_heads, hd, dim),
+                                    g.reshape(n_heads, hd, dim)],
+                                   axis=1).reshape(n_heads * 2 * hd, dim)
+            elif q.shape[0] != n_heads * 2 * hd:
+                raise TrackieError(
+                    ErrorCode.MODEL_METADATA_INVALID,
+                    f"{path}: blk.{i} attn_q rows {q.shape[0]} match neither "
+                    f"the fused 2*H*hd={2 * n_heads * hd} nor the split "
+                    f"H*hd={n_heads * hd} (+attn_gate) layout")
+            state[sa + "q_proj.weight"] = q
+            for hf, gg in (("k_proj", "attn_k"), ("v_proj", "attn_v"),
+                           ("o_proj", "attn_output"),
+                           ("q_norm", "attn_q_norm"),
+                           ("k_norm", "attn_k_norm")):
+                state[f"{sa}{hf}.weight"] = T(f"{b}{gg}.weight")
+        if f"blk.{i}.ffn_gate_exps.weight" in t:
+            g = T(b + "ffn_gate_exps.weight")
+            u = T(b + "ffn_up_exps.weight")
+            dn = T(b + "ffn_down_exps.weight")
+            _check_md(path, md, f"{arch}.expert_count", g.shape[0])
+            state[p + "mlp.gate.weight"] = T(b + "ffn_gate_inp.weight")
+            for e in range(g.shape[0]):
+                ep = p + f"mlp.experts.{e}."
+                state[ep + "gate_proj.weight"] = g[e]
+                state[ep + "up_proj.weight"] = u[e]
+                state[ep + "down_proj.weight"] = dn[e]
+            sp = p + "mlp.shared_expert."
+            state[sp + "gate_proj.weight"] = T(b + "ffn_gate_shexp.weight")
+            state[sp + "up_proj.weight"] = T(b + "ffn_up_shexp.weight")
+            state[sp + "down_proj.weight"] = T(b + "ffn_down_shexp.weight")
+            state[p + "mlp.shared_expert_gate.weight"] = T(
+                b + "ffn_gate_inp_shexp.weight")
+        else:
+            for hf, gg in (("gate_proj", "ffn_gate"), ("up_proj", "ffn_up"),
+                           ("down_proj", "ffn_down")):
+                state[f"{p}mlp.{hf}.weight"] = T(f"{b}{gg}.weight")
+    ctx = int(md.get(f"{arch}.context_length", max_seq))
+    params, cfg = qwen3_next_from_hf(state, config,
+                                     max_seq=min(ctx, max_seq), dtype=dtype,
+                                     device=device)
+    if bits:
+        from trackiellm_tpu_torch.models.qwen3next import quantize_params
+
+        params = quantize_params(params, bits=bits, group=group)
+    return params, cfg
+
+
+def qwen3next_params_from_jax(tree: Dict[str, Any], cfg,
+                              device: Optional[torch.device] = None
+                              ) -> Dict[str, Any]:
+    """The JAX package's Qwen3-Next tree (dense, per-expert quantized
+    stacks, or fused ``w_in``) as this package's, byte for byte: the same
+    list of per-layer dicts (``models/bridge.py:params_from_jax``), each
+    layer's keys checked against its kind in ``cfg.layer_types``."""
+    from trackiellm_tpu_torch.models.bridge import params_from_jax
+
+    device = default_device(device, "carry Qwen3-Next params")
+    layers = tree["layers"]
+    if len(layers) != len(cfg.layer_types):
+        raise TrackieError(
+            ErrorCode.MODEL_METADATA_INVALID,
+            f"{len(layers)} layers for {len(cfg.layer_types)} layer types")
+    for i, (lt, lp) in enumerate(zip(cfg.layer_types, layers)):
+        want = "a_log" if lt == "l" else "q_norm"
+        if want not in lp:
+            raise TrackieError(
+                ErrorCode.MODEL_METADATA_INVALID,
+                f"layer {i} of kind {lt!r} has no {want!r} leaf")
+    return params_from_jax(tree, device)
+
+
 _ARCH_CONVERTERS = {
     "deepseek2": gguf_to_mla_params,
     "mamba": gguf_to_mamba_params,
     "falcon": gguf_to_falcon_params,
     "llama4": gguf_to_llama4_params,
     "glm4moe": gguf_to_glm4moe_params,
+    "qwen3next": gguf_to_qwen3next_params,
 }
 
 
@@ -1780,15 +2143,10 @@ def gguf_convert_auto(path: str, bits: Optional[int] = None,
                       device: Optional[torch.device] = None) -> tuple:
     """The arch -> converter dispatch for GGUF files that the CLI's
     ``convert`` uses (``trackiellm_tpu/models/convert.py:gguf_convert_auto``):
-    deepseek2 (MLA), mamba, falcon, llama4 and glm4moe take their own
-    routes, every other arch :func:`gguf_to_llm_params`. Returns (params,
-    cfg). Qwen3-Next, whose model is not ported, raises
-    NotImplementedError naming its ROADMAP item."""
+    deepseek2 (MLA), mamba, falcon, llama4, glm4moe and qwen3next take
+    their own routes, every other arch :func:`gguf_to_llm_params`. Returns
+    (params, cfg)."""
     arch = read_gguf_header(path).architecture or ""
-    if arch in _WAITING_ARCHES:
-        raise NotImplementedError(
-            f"GGUF arch {arch!r}: its converter ({_WAITING_ARCHES[arch]}) "
-            "is not ported yet (ROADMAP Queue 1 item 11)")
     fn = _ARCH_CONVERTERS.get(arch, gguf_to_llm_params)
     return fn(path, bits=bits, device=device)
 
@@ -2761,24 +3119,9 @@ def smollm3_from_hf(state: Dict[str, Any], *, max_seq: int = 65536,
         n_kv_heads=n_kv, head_dim=hd, hidden_dim=hidden, norm_eps=norm_eps,
         rope_theta=rope_theta, max_seq=max_seq, sliding_window=max_seq,
         nope_pattern=nope_pattern)
-    L: Dict[str, list] = {k: [] for k in ("attn_norm", "wqkv", "wo",
-                                          "mlp_norm", "w_gu", "w_down")}
-    for i in range(n_layers):
-        pre = f"model.layers.{i}"
-        L["attn_norm"].append(A(f"{pre}.input_layernorm.weight"))
-        L["mlp_norm"].append(A(f"{pre}.post_attention_layernorm.weight"))
-        L["wqkv"].append(np.concatenate(
-            [A(f"{pre}.self_attn.{p}_proj.weight").T
-             for p in ("q", "k", "v")], axis=1))
-        L["wo"].append(A(f"{pre}.self_attn.o_proj.weight").T)
-        L["w_gu"].append(np.concatenate(
-            [A(f"{pre}.mlp.gate_proj.weight").T,
-             A(f"{pre}.mlp.up_proj.weight").T], axis=1))
-        L["w_down"].append(A(f"{pre}.mlp.down_proj.weight").T)
-    lm_head = (A("lm_head.weight").T if "lm_head.weight" in state
-               else np.ascontiguousarray(emb.T))
-    return _llm_tree(L, emb, A("model.norm.weight"), lm_head, dtype,
-                     device, bits, group), cfg
+    return _llm_tree(_llama_layers(A, n_layers), emb, A("model.norm.weight"),
+                     _hf_head(state, A, emb), dtype, device, bits,
+                     group), cfg
 
 
 def gemma_from_hf(state: Dict[str, Any], *, head_dim: int = 256,
@@ -3543,3 +3886,1201 @@ def sound_classifier_from_torch(state: Dict[str, Any], n_mels: int = 64,
     cfg = SoundClassifierConfig(n_mels=n_mels, n_frames=n_frames, ch=ch,
                                 num_classes=ncls)
     return params, cfg
+
+
+# ---------------------------------------------------------------------------
+# transformers state dicts of the LLM families (``convert --family *-hf``)
+# ---------------------------------------------------------------------------
+#
+# Each reads host numpy in f32 as the JAX package's converter of the same
+# name does and gives its tree on ``device`` in ``dtype`` (bf16 rounds to
+# nearest even, as ``jnp.asarray(a, bf16)``); the leaves the reference keeps
+# in f32 stay f32. The CLI requantizes afterwards (``llm.quantize_params``
+# at ``--bits``). Head counts and other fields that are not
+# shape-derivable come from the keyword defaults, as in the reference.
+
+def _hf_common(state: Dict[str, Any], prefix: str = "model."):
+    """(A, emb, vocab, dim, n_layers) of a Llama-named state dict."""
+    A = lambda k: np.asarray(state[k], np.float32)  # noqa: E731
+    emb = A(prefix + "embed_tokens.weight")
+    n_layers = len({k.split(".")[2] for k in state
+                    if k.startswith(prefix + "layers.")})
+    return A, emb, emb.shape[0], emb.shape[1], n_layers
+
+
+def _hf_head(state: Dict[str, Any], A, emb: np.ndarray) -> np.ndarray:
+    return (A("lm_head.weight").T if "lm_head.weight" in state
+            else np.ascontiguousarray(emb.T))
+
+
+def _hf_tree(L: Dict[str, list], emb: np.ndarray, out_norm, lm_head,
+             dtype: torch.dtype, device: Optional[torch.device],
+             f32_keys=(), out_norm_dtype: Optional[torch.dtype] = None,
+             extra: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """The LLM tree on ``device``: each non-empty list of ``L`` stacked (a
+    list of {"g", "b"} dicts per key), in ``dtype`` or f32 for
+    ``f32_keys``; ``out_norm`` (an array or a {"g", "b"} dict) in
+    ``out_norm_dtype`` (default ``dtype``); ``extra`` top-level tensors as
+    given (rope factors) moved to the device."""
+    device = default_device(device, "convert a checkpoint")
+    tensor = _converter_tools(device, None, 0, dtype)[0]
+
+    def stacked(values, dt):
+        if isinstance(values[0], dict):
+            return {k: tensor(np.stack([v[k] for v in values]), dt)
+                    for k in values[0]}
+        return tensor(np.stack(values), dt)
+
+    def put(v, dt):
+        return ({k: tensor(a, dt) for k, a in v.items()}
+                if isinstance(v, dict) else tensor(v, dt))
+    params = {
+        "tok_emb": tensor(emb, dtype),
+        "layers": {k: stacked(v, torch.float32 if k in f32_keys else dtype)
+                   for k, v in L.items() if v},
+        "out_norm": put(out_norm, out_norm_dtype or dtype),
+        "lm_head": tensor(lm_head, dtype),
+    }
+    for k, v in (extra or {}).items():
+        params[k] = v.to(device)
+    return params
+
+
+def _qkv_T(A, pre: str, deint=None, n_heads: int = 0, n_kv: int = 0):
+    """[q | k | v] of ``pre``.self_attn as one (D, Q + 2 KV) matrix; with
+    ``deint``, q's and k's interleaved rope columns folded to split-half."""
+    q, k, v = (A(f"{pre}.self_attn.{p}_proj.weight").T for p in "qkv")
+    if deint is not None:
+        q, k = deint(q, n_heads), deint(k, n_kv)
+    return np.concatenate([q, k, v], axis=1)
+
+
+def _qkv_bias(A, pre: str, deint=None, n_heads: int = 0, n_kv: int = 0):
+    q, k, v = (A(f"{pre}.self_attn.{p}_proj.bias") for p in "qkv")
+    if deint is not None:
+        q, k = deint(q, n_heads), deint(k, n_kv)
+    return np.concatenate([q, k, v])
+
+
+def _gu_T(A, pre: str) -> np.ndarray:
+    """[gate | up] of an MLP named ``pre``.{gate,up}_proj, (D, 2H)."""
+    return np.concatenate([A(f"{pre}.gate_proj.weight").T,
+                           A(f"{pre}.up_proj.weight").T], axis=1)
+
+
+def _experts(A, pre: str, n: int):
+    """(E, D, 2H) [gate | up] and (E, H, D) down banks of ``pre``.N."""
+    return (np.stack([_gu_T(A, f"{pre}.{e}") for e in range(n)]),
+            np.stack([A(f"{pre}.{e}.down_proj.weight").T for e in range(n)]))
+
+
+def _n_experts(state: Dict[str, Any], prefix: str) -> int:
+    return len({k.split(".")[5] for k in state if k.startswith(prefix)})
+
+
+def phi3_from_hf(state: Dict[str, Any], *, max_seq: int = 4096,
+                 original_max_seq: int = 0, rope_factors_short=None,
+                 rope_factors_long=None, sliding_window: int = 2047,
+                 norm_eps: float = 1e-5, rope_theta: float = 10000.0,
+                 head_dim: int = 0, dtype: torch.dtype = torch.bfloat16,
+                 device: Optional[torch.device] = None) -> tuple:
+    """Phi-3 (fused qkv_proj and gate_up_proj, untied lm_head) -> (params,
+    LLMConfig). Longrope: the config's short/long factor lists and
+    ``original_max_position_embeddings``; the attention factor
+    sqrt(1 + log(max / orig) / log(orig)) goes into the config. head_dim
+    defaults to 96 at dim 3072, else dim // 32."""
+    A, emb, vocab, dim, n_layers = _hf_common(state)
+    qkv0 = A("model.layers.0.self_attn.qkv_proj.weight")
+    qd = A("model.layers.0.self_attn.o_proj.weight").shape[1]
+    hidden = A("model.layers.0.mlp.gate_up_proj.weight").shape[0] // 2
+    hd = head_dim or (96 if dim == 3072 else dim // 32)
+    longrope = rope_factors_long is not None
+    att = 1.0
+    if original_max_seq and max_seq > original_max_seq:
+        att = math.sqrt(1.0 + math.log(max_seq / original_max_seq)
+                        / math.log(original_max_seq))
+    cfg = llm_model.LLMConfig(
+        vocab_size=vocab, dim=dim, n_layers=n_layers, n_heads=qd // hd,
+        n_kv_heads=(qkv0.shape[0] - qd) // 2 // hd, head_dim=hd,
+        hidden_dim=hidden, norm_eps=norm_eps, rope_theta=rope_theta,
+        max_seq=max_seq, sliding_window=sliding_window,
+        rope_original_max_seq=original_max_seq if longrope else 0,
+        rope_attention_factor=att if longrope else 1.0)
+    L: Dict[str, list] = {k: [] for k in ("attn_norm", "wqkv", "wo",
+                                          "mlp_norm", "w_gu", "w_down")}
+    for i in range(n_layers):
+        pre = f"model.layers.{i}"
+        L["attn_norm"].append(A(f"{pre}.input_layernorm.weight"))
+        L["mlp_norm"].append(A(f"{pre}.post_attention_layernorm.weight"))
+        L["wqkv"].append(A(f"{pre}.self_attn.qkv_proj.weight").T)
+        L["wo"].append(A(f"{pre}.self_attn.o_proj.weight").T)
+        L["w_gu"].append(A(f"{pre}.mlp.gate_up_proj.weight").T)
+        L["w_down"].append(A(f"{pre}.mlp.down_proj.weight").T)
+    extra = {}
+    if longrope:
+        extra = {"rope_factors_short": torch.as_tensor(
+                     np.asarray(rope_factors_short, np.float32)),
+                 "rope_factors_long": torch.as_tensor(
+                     np.asarray(rope_factors_long, np.float32))}
+    return _hf_tree(L, emb, A("model.norm.weight"), _hf_head(state, A, emb),
+                    dtype, device, extra=extra), cfg
+
+
+def mixtral_from_hf(state: Dict[str, Any], *, max_seq: int = 8192,
+                    norm_eps: float = 1e-5, rope_theta: float = 1e6,
+                    head_dim: int = 0, n_experts_used: int = 2,
+                    dtype: torch.dtype = torch.bfloat16,
+                    device: Optional[torch.device] = None) -> tuple:
+    """Mixtral (block_sparse_moe: gate + experts.N.{w1,w2,w3}) -> (params,
+    LLMConfig): w1 gate and w3 up fuse into the expert w_gu bank, w2 is
+    down, the router transposes to (D, E). head_dim 128 where it divides
+    dim, else dim // 32."""
+    A, emb, vocab, dim, n_layers = _hf_common(state)
+    q0 = A("model.layers.0.self_attn.q_proj.weight")
+    k0 = A("model.layers.0.self_attn.k_proj.weight")
+    hidden = A("model.layers.0.block_sparse_moe.experts.0.w1.weight"
+               ).shape[0]
+    n_experts = len({k.split(".")[5] for k in state
+                     if ".block_sparse_moe.experts." in k})
+    hd = head_dim or (128 if dim % 128 == 0 else dim // 32)
+    cfg = llm_model.LLMConfig(
+        vocab_size=vocab, dim=dim, n_layers=n_layers,
+        n_heads=q0.shape[0] // hd, n_kv_heads=k0.shape[0] // hd, head_dim=hd,
+        hidden_dim=hidden, norm_eps=norm_eps, rope_theta=rope_theta,
+        max_seq=max_seq, sliding_window=max_seq, n_experts=n_experts,
+        n_experts_used=n_experts_used)
+    L: Dict[str, list] = {k: [] for k in (
+        "attn_norm", "wqkv", "wo", "mlp_norm", "moe_gate", "w_gu", "w_down")}
+    for i in range(n_layers):
+        pre = f"model.layers.{i}"
+        moe = f"{pre}.block_sparse_moe"
+        L["attn_norm"].append(A(f"{pre}.input_layernorm.weight"))
+        L["mlp_norm"].append(A(f"{pre}.post_attention_layernorm.weight"))
+        L["wqkv"].append(_qkv_T(A, pre))
+        L["wo"].append(A(f"{pre}.self_attn.o_proj.weight").T)
+        L["moe_gate"].append(A(f"{moe}.gate.weight").T)
+        L["w_gu"].append(np.stack([np.concatenate(
+            [A(f"{moe}.experts.{e}.w1.weight").T,
+             A(f"{moe}.experts.{e}.w3.weight").T], axis=1)
+            for e in range(n_experts)]))
+        L["w_down"].append(np.stack([A(f"{moe}.experts.{e}.w2.weight").T
+                                     for e in range(n_experts)]))
+    return _hf_tree(L, emb, A("model.norm.weight"), _hf_head(state, A, emb),
+                    dtype, device), cfg
+
+
+def _gemma_norms(A, pre: str, L: Dict[str, list], qk: bool) -> None:
+    """A Gemma-2/3 layer's sandwich norms (and Gemma-3's q/k norms), each
+    with the (1 + w) fold."""
+    L["attn_norm"].append(A(f"{pre}.input_layernorm.weight") + 1.0)
+    L["attn_post_norm"].append(
+        A(f"{pre}.post_attention_layernorm.weight") + 1.0)
+    L["mlp_norm"].append(A(f"{pre}.pre_feedforward_layernorm.weight") + 1.0)
+    L["mlp_post_norm"].append(
+        A(f"{pre}.post_feedforward_layernorm.weight") + 1.0)
+    if qk:
+        L["q_norm"].append(A(f"{pre}.self_attn.q_norm.weight") + 1.0)
+        L["k_norm"].append(A(f"{pre}.self_attn.k_norm.weight") + 1.0)
+
+
+def _gemma_tree(state, A, emb, dim: int, n_layers: int, qk: bool,
+                dtype, device, extra=None) -> Dict[str, Any]:
+    keys = ["attn_norm", "wqkv", "wo", "mlp_norm", "w_gu", "w_down",
+            "attn_post_norm", "mlp_post_norm"]
+    L: Dict[str, list] = {k: [] for k in keys + (["q_norm", "k_norm"]
+                                                 if qk else [])}
+    for i in range(n_layers):
+        pre = f"model.layers.{i}"
+        _gemma_norms(A, pre, L, qk)
+        L["wqkv"].append(_qkv_T(A, pre))
+        L["wo"].append(A(f"{pre}.self_attn.o_proj.weight").T)
+        L["w_gu"].append(_gu_T(A, f"{pre}.mlp"))
+        L["w_down"].append(A(f"{pre}.mlp.down_proj.weight").T)
+    return _hf_tree(L, emb * float(np.sqrt(dim)),
+                    A("model.norm.weight") + 1.0, _hf_head(state, A, emb),
+                    dtype, device, extra=extra)
+
+
+def gemma2_from_hf(state: Dict[str, Any], *, head_dim: int = 0,
+                   max_seq: int = 8192, sliding_window: int = 4096,
+                   attn_softcap: float = 50.0, logit_softcap: float = 30.0,
+                   query_pre_attn_scalar: float = 0.0,
+                   norm_eps: float = 1e-6, rope_theta: float = 10000.0,
+                   dtype: torch.dtype = torch.bfloat16,
+                   device: Optional[torch.device] = None) -> tuple:
+    """Gemma-2 -> (params, LLMConfig): every RMSNorm weight stored as
+    (1 + w), tok_emb scaled by sqrt(dim) (the tied lm_head keeps the
+    unscaled copy), alternating windows, both softcaps. ``head_dim`` and
+    ``query_pre_attn_scalar`` of 0 resolve from the published sizes: 256
+    and 256 below dim 4608, else 128 and dim / n_heads."""
+    A, emb, vocab, dim, n_layers = _hf_common(state)
+    q0 = A("model.layers.0.self_attn.q_proj.weight")
+    k0 = A("model.layers.0.self_attn.k_proj.weight")
+    hd = head_dim or (128 if dim >= 4608 else 256)
+    n_heads = q0.shape[0] // hd
+    if not query_pre_attn_scalar:
+        query_pre_attn_scalar = float(hd if dim < 4608 else dim // n_heads)
+    cfg = llm_model.LLMConfig(
+        vocab_size=vocab, dim=dim, n_layers=n_layers, n_heads=n_heads,
+        n_kv_heads=k0.shape[0] // hd, head_dim=hd,
+        hidden_dim=A("model.layers.0.mlp.gate_proj.weight").shape[0],
+        norm_eps=norm_eps, rope_theta=rope_theta, max_seq=max_seq,
+        sliding_window=sliding_window, act="gelu", post_norms=True,
+        attn_softcap=attn_softcap, logit_softcap=logit_softcap,
+        query_pre_attn_scalar=query_pre_attn_scalar, alt_window=True)
+    return _gemma_tree(state, A, emb, dim, n_layers, False, dtype,
+                       device), cfg
+
+
+def gemma3_from_hf(state: Dict[str, Any], *, head_dim: int = 0,
+                   max_seq: int = 32768, sliding_window: int = 512,
+                   window_pattern: int = 6,
+                   query_pre_attn_scalar: float = 256.0,
+                   norm_eps: float = 1e-6, rope_theta: float = 1e6,
+                   rope_local_theta: float = 10000.0,
+                   rope_linear_factor: float = 0.0,
+                   dtype: torch.dtype = torch.bfloat16,
+                   device: Optional[torch.device] = None) -> tuple:
+    """Gemma-3 text -> (params, LLMConfig): Gemma-2's folds, per-head Q/K
+    norms ((1 + w) too) instead of the softcaps, a 5:1 sliding/global
+    pattern and the dual rope (local 10k, global ``rope_theta`` with the
+    optional linear factor). head_dim from q_norm."""
+    A, emb, vocab, dim, n_layers = _hf_common(state)
+    hd = head_dim or A("model.layers.0.self_attn.q_norm.weight").shape[0]
+    cfg = llm_model.LLMConfig(
+        vocab_size=vocab, dim=dim, n_layers=n_layers,
+        n_heads=A("model.layers.0.self_attn.q_proj.weight").shape[0] // hd,
+        n_kv_heads=A("model.layers.0.self_attn.k_proj.weight").shape[0] // hd,
+        head_dim=hd,
+        hidden_dim=A("model.layers.0.mlp.gate_proj.weight").shape[0],
+        norm_eps=norm_eps, rope_theta=rope_theta, max_seq=max_seq,
+        sliding_window=sliding_window, act="gelu", post_norms=True,
+        query_pre_attn_scalar=query_pre_attn_scalar, qk_norm=True,
+        window_pattern=window_pattern, rope_local_theta=rope_local_theta)
+    extra = ({"rope_factors": llm_model.linear_rope_factors(
+        cfg, rope_linear_factor)} if rope_linear_factor > 1.0 else None)
+    return _gemma_tree(state, A, emb, dim, n_layers, True, dtype, device,
+                       extra), cfg
+
+
+def wake_word_from_torch(state: Dict[str, Any], n_mels: int = 40,
+                         n_frames: int = 76, sensitivity: float = 0.5,
+                         device: Optional[torch.device] = None):
+    """A conv keyword-spotter checkpoint (conv1, conv2, out) -> (params,
+    WakeWordConfig) of ``audio/wake_word.py``: convolutions OIHW as torch
+    stores them, the head (in, out), f32 on ``device``."""
+    from trackiellm_tpu_torch.audio.wake_word import WakeWordConfig
+
+    device = default_device(device, "convert a checkpoint")
+
+    def f32(k):
+        return torch.from_numpy(np.ascontiguousarray(
+            np.asarray(state[k], np.float32))).to(device)
+    params = {f"conv{i}": {"w": f32(f"conv{i}.weight"),
+                           "b": f32(f"conv{i}.bias")} for i in (1, 2)}
+    params["out_w"] = f32("out.weight").t().contiguous()
+    params["out_b"] = f32("out.bias")
+    ch = int(np.asarray(state["conv2.weight"]).shape[0])
+    return params, WakeWordConfig(n_mels=n_mels, n_frames=n_frames, ch=ch,
+                                  sensitivity=sensitivity)
+
+
+def qwen2_moe_from_hf(state: Dict[str, Any], *, max_seq: int = 8192,
+                      norm_eps: float = 1e-6, rope_theta: float = 1e6,
+                      head_dim: int = 0, n_experts_used: int = 4,
+                      norm_topk: bool = False,
+                      dtype: torch.dtype = torch.bfloat16,
+                      device: Optional[torch.device] = None) -> tuple:
+    """Qwen2-MoE -> (params, LLMConfig): Qwen2 attention (QKV biases),
+    top-k routed experts (``mlp.experts.N``) and an always-active shared
+    expert gated by sigmoid(``mlp.shared_expert_gate``); the top-k weights
+    are not renormalized unless ``norm_topk``."""
+    A, emb, vocab, dim, n_layers = _hf_common(state)
+    q0 = A("model.layers.0.self_attn.q_proj.weight")
+    k0 = A("model.layers.0.self_attn.k_proj.weight")
+    n_experts = len({k.split(".")[5] for k in state if ".mlp.experts." in k})
+    hd = head_dim or (128 if q0.shape[0] % 128 == 0 else dim // 16)
+    cfg = llm_model.LLMConfig(
+        vocab_size=vocab, dim=dim, n_layers=n_layers,
+        n_heads=q0.shape[0] // hd, n_kv_heads=k0.shape[0] // hd, head_dim=hd,
+        hidden_dim=A("model.layers.0.mlp.experts.0.gate_proj.weight"
+                     ).shape[0],
+        norm_eps=norm_eps, rope_theta=rope_theta, max_seq=max_seq,
+        sliding_window=max_seq, qkv_bias=True, n_experts=n_experts,
+        n_experts_used=n_experts_used, moe_norm_topk=norm_topk,
+        moe_shared_hidden=A("model.layers.0.mlp.shared_expert.gate_proj"
+                            ".weight").shape[0])
+    L: Dict[str, list] = {k: [] for k in (
+        "attn_norm", "wqkv", "wqkv_bias", "wo", "mlp_norm", "moe_gate",
+        "w_gu", "w_down", "shared_gu", "shared_down", "shared_gate")}
+    for i in range(n_layers):
+        pre = f"model.layers.{i}"
+        L["attn_norm"].append(A(f"{pre}.input_layernorm.weight"))
+        L["mlp_norm"].append(A(f"{pre}.post_attention_layernorm.weight"))
+        L["wqkv"].append(_qkv_T(A, pre))
+        L["wqkv_bias"].append(_qkv_bias(A, pre))
+        L["wo"].append(A(f"{pre}.self_attn.o_proj.weight").T)
+        L["moe_gate"].append(A(f"{pre}.mlp.gate.weight").T)
+        gu, down = _experts(A, f"{pre}.mlp.experts", n_experts)
+        L["w_gu"].append(gu)
+        L["w_down"].append(down)
+        L["shared_gu"].append(_gu_T(A, f"{pre}.mlp.shared_expert"))
+        L["shared_down"].append(
+            A(f"{pre}.mlp.shared_expert.down_proj.weight").T)
+        L["shared_gate"].append(A(f"{pre}.mlp.shared_expert_gate.weight").T)
+    return _hf_tree(L, emb, A("model.norm.weight"), _hf_head(state, A, emb),
+                    dtype, device), cfg
+
+
+def olmo2_from_hf(state: Dict[str, Any], *, max_seq: int = 4096,
+                  norm_eps: float = 1e-6, rope_theta: float = 500000.0,
+                  dtype: torch.dtype = torch.bfloat16,
+                  device: Optional[torch.device] = None) -> tuple:
+    """OLMo-2 -> (params, LLMConfig): post-norms only (the branches read
+    the raw residual; ``pre_norms=False``) and Q/K RMSNorm over the whole
+    projection (``qk_norm_full``). head_dim 128 where it divides the q
+    rows, else q_rows // 16."""
+    A, emb, vocab, dim, n_layers = _hf_common(state)
+    q0 = A("model.layers.0.self_attn.q_proj.weight")
+    k0 = A("model.layers.0.self_attn.k_proj.weight")
+    hd = 128 if q0.shape[0] % 128 == 0 else q0.shape[0] // 16
+    cfg = llm_model.LLMConfig(
+        vocab_size=vocab, dim=dim, n_layers=n_layers,
+        n_heads=q0.shape[0] // hd, n_kv_heads=k0.shape[0] // hd, head_dim=hd,
+        hidden_dim=A("model.layers.0.mlp.gate_proj.weight").shape[0],
+        norm_eps=norm_eps, rope_theta=rope_theta, max_seq=max_seq,
+        sliding_window=max_seq, pre_norms=False, post_norms=True,
+        qk_norm_full=True)
+    L: Dict[str, list] = {k: [] for k in (
+        "wqkv", "wo", "w_gu", "w_down", "attn_post_norm", "mlp_post_norm",
+        "q_norm", "k_norm")}
+    for i in range(n_layers):
+        pre = f"model.layers.{i}"
+        L["attn_post_norm"].append(
+            A(f"{pre}.post_attention_layernorm.weight"))
+        L["mlp_post_norm"].append(
+            A(f"{pre}.post_feedforward_layernorm.weight"))
+        L["q_norm"].append(A(f"{pre}.self_attn.q_norm.weight"))
+        L["k_norm"].append(A(f"{pre}.self_attn.k_norm.weight"))
+        L["wqkv"].append(_qkv_T(A, pre))
+        L["wo"].append(A(f"{pre}.self_attn.o_proj.weight").T)
+        L["w_gu"].append(_gu_T(A, f"{pre}.mlp"))
+        L["w_down"].append(A(f"{pre}.mlp.down_proj.weight").T)
+    return _hf_tree(L, emb, A("model.norm.weight"), _hf_head(state, A, emb),
+                    dtype, device), cfg
+
+
+def _qwen3_layers(state, A, n_layers: int, n_experts: int) -> Dict[str, list]:
+    """Qwen3's layers (QK-norm, no biases), dense or with routed experts."""
+    keys = (["attn_norm", "wqkv", "wo", "mlp_norm"]
+            + (["moe_gate"] if n_experts else [])
+            + ["w_gu", "w_down", "q_norm", "k_norm"])
+    L: Dict[str, list] = {k: [] for k in keys}
+    for i in range(n_layers):
+        pre = f"model.layers.{i}"
+        L["attn_norm"].append(A(f"{pre}.input_layernorm.weight"))
+        L["mlp_norm"].append(A(f"{pre}.post_attention_layernorm.weight"))
+        L["wqkv"].append(_qkv_T(A, pre))
+        L["wo"].append(A(f"{pre}.self_attn.o_proj.weight").T)
+        L["q_norm"].append(A(f"{pre}.self_attn.q_norm.weight"))
+        L["k_norm"].append(A(f"{pre}.self_attn.k_norm.weight"))
+        if n_experts:
+            L["moe_gate"].append(A(f"{pre}.mlp.gate.weight").T)
+            gu, down = _experts(A, f"{pre}.mlp.experts", n_experts)
+        else:
+            gu, down = (_gu_T(A, f"{pre}.mlp"),
+                        A(f"{pre}.mlp.down_proj.weight").T)
+        L["w_gu"].append(gu)
+        L["w_down"].append(down)
+    return L
+
+
+def qwen3_from_hf(state: Dict[str, Any], *, max_seq: int = 32768,
+                  norm_eps: float = 1e-6, rope_theta: float = 1e6,
+                  dtype: torch.dtype = torch.bfloat16,
+                  device: Optional[torch.device] = None) -> tuple:
+    """Qwen3 (dense) -> (params, LLMConfig): per-head Q/K RMSNorm before
+    rope instead of Qwen2's QKV biases; head_dim from q_norm."""
+    A, emb, vocab, dim, n_layers = _hf_common(state)
+    hd = A("model.layers.0.self_attn.q_norm.weight").shape[0]
+    cfg = llm_model.LLMConfig(
+        vocab_size=vocab, dim=dim, n_layers=n_layers,
+        n_heads=A("model.layers.0.self_attn.q_proj.weight").shape[0] // hd,
+        n_kv_heads=A("model.layers.0.self_attn.k_proj.weight").shape[0] // hd,
+        head_dim=hd,
+        hidden_dim=A("model.layers.0.mlp.gate_proj.weight").shape[0],
+        norm_eps=norm_eps, rope_theta=rope_theta, max_seq=max_seq,
+        sliding_window=max_seq, qk_norm=True)
+    return _hf_tree(_qwen3_layers(state, A, n_layers, 0), emb,
+                    A("model.norm.weight"), _hf_head(state, A, emb), dtype,
+                    device), cfg
+
+
+def qwen3_moe_from_hf(state: Dict[str, Any], *, max_seq: int = 32768,
+                      norm_eps: float = 1e-6, rope_theta: float = 1e6,
+                      n_experts_used: int = 8, norm_topk: bool = True,
+                      dtype: torch.dtype = torch.bfloat16,
+                      device: Optional[torch.device] = None) -> tuple:
+    """Qwen3-MoE -> (params, LLMConfig): Qwen3 attention, top-k routed
+    experts renormalized (``norm_topk``), no shared expert."""
+    A, emb, vocab, dim, n_layers = _hf_common(state)
+    hd = A("model.layers.0.self_attn.q_norm.weight").shape[0]
+    n_experts = len({k.split(".")[5] for k in state if ".mlp.experts." in k})
+    cfg = llm_model.LLMConfig(
+        vocab_size=vocab, dim=dim, n_layers=n_layers,
+        n_heads=A("model.layers.0.self_attn.q_proj.weight").shape[0] // hd,
+        n_kv_heads=A("model.layers.0.self_attn.k_proj.weight").shape[0] // hd,
+        head_dim=hd,
+        hidden_dim=A("model.layers.0.mlp.experts.0.gate_proj.weight"
+                     ).shape[0],
+        norm_eps=norm_eps, rope_theta=rope_theta, max_seq=max_seq,
+        sliding_window=max_seq, qk_norm=True, n_experts=n_experts,
+        n_experts_used=n_experts_used, moe_norm_topk=norm_topk)
+    return _hf_tree(_qwen3_layers(state, A, n_layers, n_experts), emb,
+                    A("model.norm.weight"), _hf_head(state, A, emb), dtype,
+                    device), cfg
+
+
+def gpt_oss_from_hf(state: Dict[str, Any], *, head_dim: int = 64,
+                    max_seq: int = 131072, sliding_window: int = 128,
+                    norm_eps: float = 1e-5, rope_theta: float = 150000.0,
+                    n_experts_used: int = 4,
+                    rope_scaling_factor: float = 32.0,
+                    rope_original_max_seq: int = 4096,
+                    dtype: torch.dtype = torch.bfloat16,
+                    device: Optional[torch.device] = None) -> tuple:
+    """gpt-oss -> (params, LLMConfig): attention sinks (kept f32), biases
+    on all four attention projections, expert banks already (E, D, 2I)
+    with gate/up interleaved (even columns gate, odd up: split into [gate
+    | up] here), the router with its bias and softmax after the top-k,
+    and non-truncated YaRN (``rope_scaling_factor=0`` for none) as
+    ``rope_factors`` and the attention factor."""
+    A, emb, vocab, dim, n_layers = _hf_common(state)
+    n_experts, _, two_h = A("model.layers.0.mlp.experts.gate_up_proj").shape
+    attn_factor = (llm_model.yarn_attention_factor(rope_scaling_factor)
+                   if rope_scaling_factor > 1.0 else 1.0)
+    cfg = llm_model.LLMConfig(
+        vocab_size=vocab, dim=dim, n_layers=n_layers,
+        n_heads=A("model.layers.0.self_attn.q_proj.weight").shape[0]
+        // head_dim,
+        n_kv_heads=A("model.layers.0.self_attn.k_proj.weight").shape[0]
+        // head_dim,
+        head_dim=head_dim, hidden_dim=two_h // 2, norm_eps=norm_eps,
+        rope_theta=rope_theta, max_seq=max_seq,
+        sliding_window=sliding_window, alt_window=True,
+        n_experts=n_experts, n_experts_used=n_experts_used,
+        moe_score_func="softmax_topk", moe_norm_topk=False,
+        moe_bias=True, attn_sinks=True, qkv_bias=True, out_bias=True,
+        act="gptoss", rope_attention_factor=attn_factor)
+
+    def split(gu):  # (..., 2I) even = gate / odd = up -> [gate | up]
+        return np.concatenate([gu[..., 0::2], gu[..., 1::2]], axis=-1)
+    L: Dict[str, list] = {k: [] for k in (
+        "attn_norm", "wqkv", "wqkv_bias", "wo", "wo_bias", "attn_sink",
+        "mlp_norm", "moe_gate", "moe_gate_b", "w_gu", "w_gu_b", "w_down",
+        "w_down_b")}
+    for i in range(n_layers):
+        pre = f"model.layers.{i}"
+        ex = f"{pre}.mlp.experts"
+        L["attn_norm"].append(A(f"{pre}.input_layernorm.weight"))
+        L["mlp_norm"].append(A(f"{pre}.post_attention_layernorm.weight"))
+        L["wqkv"].append(_qkv_T(A, pre))
+        L["wqkv_bias"].append(_qkv_bias(A, pre))
+        L["wo"].append(A(f"{pre}.self_attn.o_proj.weight").T)
+        L["wo_bias"].append(A(f"{pre}.self_attn.o_proj.bias"))
+        L["attn_sink"].append(A(f"{pre}.self_attn.sinks"))
+        L["moe_gate"].append(A(f"{pre}.mlp.router.weight").T)
+        L["moe_gate_b"].append(A(f"{pre}.mlp.router.bias"))
+        L["w_gu"].append(split(A(f"{ex}.gate_up_proj")))
+        L["w_gu_b"].append(split(A(f"{ex}.gate_up_proj_bias")))
+        L["w_down"].append(A(f"{ex}.down_proj"))
+        L["w_down_b"].append(A(f"{ex}.down_proj_bias"))
+    extra = None
+    if rope_scaling_factor > 1.0:
+        extra = {"rope_factors": llm_model.yarn_rope_factors(
+            cfg, rope_scaling_factor, rope_original_max_seq,
+            truncate=False)}
+    return _hf_tree(L, emb, A("model.norm.weight"), _hf_head(state, A, emb),
+                    dtype, device, f32_keys=("attn_sink",),
+                    extra=extra), cfg
+
+
+def _llama_layers(A, n_layers: int, deint=None, n_heads: int = 0,
+                  n_kv: int = 0) -> Dict[str, list]:
+    """The Llama template's layers (RMSNorms, [q|k|v], SwiGLU), q's and
+    k's rope columns folded by ``deint`` where given."""
+    L: Dict[str, list] = {k: [] for k in ("attn_norm", "wqkv", "wo",
+                                          "mlp_norm", "w_gu", "w_down")}
+    for i in range(n_layers):
+        pre = f"model.layers.{i}"
+        L["attn_norm"].append(A(f"{pre}.input_layernorm.weight"))
+        L["mlp_norm"].append(A(f"{pre}.post_attention_layernorm.weight"))
+        L["wqkv"].append(_qkv_T(A, pre, deint, n_heads, n_kv))
+        L["wo"].append(A(f"{pre}.self_attn.o_proj.weight").T)
+        L["w_gu"].append(_gu_T(A, f"{pre}.mlp"))
+        L["w_down"].append(A(f"{pre}.mlp.down_proj.weight").T)
+    return L
+
+
+def granite_from_hf(state: Dict[str, Any], *,
+                    embedding_multiplier: float = 12.0,
+                    residual_multiplier: float = 0.22,
+                    attention_multiplier: float = 0.0078125,
+                    logits_scaling: float = 16.0, max_seq: int = 8192,
+                    norm_eps: float = 1e-5, rope_theta: float = 1e7,
+                    head_dim: int = 0, dtype: torch.dtype = torch.bfloat16,
+                    device: Optional[torch.device] = None) -> tuple:
+    """Granite -> (params, LLMConfig): the Llama template with four muP
+    multipliers; the embedding multiplier scales tok_emb (the tied head
+    keeps the unscaled copy), logits_scaling divides lm_head, the attention
+    multiplier becomes query_pre_attn_scalar = m**-2, and the residual
+    multiplier runs. head_dim: the first of 128, 64, 8 that divides."""
+    A, emb, vocab, dim, n_layers = _hf_common(state)
+    q0 = A("model.layers.0.self_attn.q_proj.weight")
+    k0 = A("model.layers.0.self_attn.k_proj.weight")
+    hd = head_dim
+    if not hd:
+        for hd in (128, 64, 8):
+            if q0.shape[0] % hd == 0 and k0.shape[0] % hd == 0 \
+                    and dim % hd == 0:
+                break
+    cfg = llm_model.LLMConfig(
+        vocab_size=vocab, dim=dim, n_layers=n_layers,
+        n_heads=q0.shape[0] // hd, n_kv_heads=k0.shape[0] // hd, head_dim=hd,
+        hidden_dim=A("model.layers.0.mlp.gate_proj.weight").shape[0],
+        norm_eps=norm_eps, rope_theta=rope_theta, max_seq=max_seq,
+        sliding_window=max_seq, residual_multiplier=residual_multiplier,
+        query_pre_attn_scalar=float(attention_multiplier ** -2))
+    return _hf_tree(_llama_layers(A, n_layers), emb * embedding_multiplier,
+                    A("model.norm.weight"),
+                    _hf_head(state, A, emb) / logits_scaling, dtype,
+                    device), cfg
+
+
+def glm4_from_hf(state: Dict[str, Any], *, max_seq: int = 8192,
+                 norm_eps: float = 1e-5, rope_theta: float = 10000.0,
+                 partial_rotary_factor: float = 0.5, head_dim: int = 0,
+                 dtype: torch.dtype = torch.bfloat16,
+                 device: Optional[torch.device] = None) -> tuple:
+    """GLM-4 -> (params, LLMConfig): QKV biases, sandwich norms
+    (post_self_attn / post_mlp; HF's post_attention_layernorm is the
+    pre-MLP norm), fused gate_up, and the half-width interleaved rope
+    folded to split-half (``_deinterleave_rope_cols``)."""
+    A, emb, vocab, dim, n_layers = _hf_common(state)
+    hd = head_dim or 128
+    n_heads = A("model.layers.0.self_attn.q_proj.weight").shape[0] // hd
+    n_kv = A("model.layers.0.self_attn.k_proj.weight").shape[0] // hd
+    rotary = int(hd * partial_rotary_factor)
+    qkv_bias = "model.layers.0.self_attn.q_proj.bias" in state
+    cfg = llm_model.LLMConfig(
+        vocab_size=vocab, dim=dim, n_layers=n_layers, n_heads=n_heads,
+        n_kv_heads=n_kv, head_dim=hd,
+        hidden_dim=A("model.layers.0.mlp.gate_up_proj.weight").shape[0] // 2,
+        norm_eps=norm_eps, rope_theta=rope_theta, max_seq=max_seq,
+        sliding_window=max_seq, qkv_bias=qkv_bias, post_norms=True,
+        partial_rotary_factor=partial_rotary_factor)
+
+    def deint(w, heads):
+        return _deinterleave_rope_cols(w, heads, hd, rotary)
+    L: Dict[str, list] = {k: [] for k in (
+        "attn_norm", "wqkv", "wo", "mlp_norm", "w_gu", "w_down",
+        "attn_post_norm", "mlp_post_norm", "wqkv_bias")}
+    for i in range(n_layers):
+        pre = f"model.layers.{i}"
+        L["attn_norm"].append(A(f"{pre}.input_layernorm.weight"))
+        L["mlp_norm"].append(A(f"{pre}.post_attention_layernorm.weight"))
+        L["attn_post_norm"].append(
+            A(f"{pre}.post_self_attn_layernorm.weight"))
+        L["mlp_post_norm"].append(A(f"{pre}.post_mlp_layernorm.weight"))
+        L["wqkv"].append(_qkv_T(A, pre, deint, n_heads, n_kv))
+        if qkv_bias:
+            L["wqkv_bias"].append(_qkv_bias(A, pre, deint, n_heads, n_kv))
+        L["wo"].append(A(f"{pre}.self_attn.o_proj.weight").T)
+        L["w_gu"].append(A(f"{pre}.mlp.gate_up_proj.weight").T)
+        L["w_down"].append(A(f"{pre}.mlp.down_proj.weight").T)
+    return _hf_tree(L, emb, A("model.norm.weight"), _hf_head(state, A, emb),
+                    dtype, device), cfg
+
+
+def llama4_from_hf(state: Dict[str, Any], *, max_seq: int = 8192,
+                   norm_eps: float = 1e-5, rope_theta: float = 500000.0,
+                   nope_pattern: int = 4, attn_chunk: int = 8192,
+                   attn_temp_tuning: bool = True,
+                   attn_temp_floor: float = 8192.0,
+                   attn_temp_scale: float = 0.1, qk_l2norm: bool = True,
+                   head_dim: int = 0,
+                   rope_scaling: Optional[Dict[str, Any]] = None,
+                   dtype: torch.dtype = torch.bfloat16,
+                   device: Optional[torch.device] = None) -> tuple:
+    """Llama-4 text -> (params, LLMConfig): sigmoid top-1 routing scaling
+    the expert input, an ungated shared expert, the interleaved full-width
+    rope folded to split-half; Maverick's dense/MoE interleave carries
+    both MLP stacks (zeros where a layer does not use one,
+    ``moe_pattern``). ``rope_scaling``: the config's llama3-style dict."""
+    A, emb, vocab, dim, n_layers = _hf_common(state)
+    q0 = A("model.layers.0.self_attn.q_proj.weight")
+    k0 = A("model.layers.0.self_attn.k_proj.weight")
+    is_moe = [f"model.layers.{i}.feed_forward.experts.gate_up_proj"
+              in state for i in range(n_layers)]
+    if not any(is_moe):
+        raise NotImplementedError(
+            "all-dense Llama-4 checkpoints are not a published shape")
+    moe_pattern = 0
+    if not all(is_moe):
+        step = is_moe.index(True) + 1
+        if [(i % step) == (step - 1) for i in range(n_layers)] != is_moe:
+            raise NotImplementedError(
+                f"irregular dense/MoE layout {is_moe} — only the "
+                f"interleave_moe_layer_step pattern is supported")
+        moe_pattern = step
+    first = f"model.layers.{is_moe.index(True)}.feed_forward"
+    n_experts, _, two_h = np.asarray(
+        state[f"{first}.experts.gate_up_proj"]).shape
+    hidden = two_h // 2
+    shared_h = A(f"{first}.shared_expert.gate_proj.weight").shape[0]
+    hidden_mlp = (int(A("model.layers.0.feed_forward.gate_proj.weight"
+                        ).shape[0]) if moe_pattern else 0)
+    hd = head_dim or 128
+    n_heads, n_kv = q0.shape[0] // hd, k0.shape[0] // hd
+    cfg = llm_model.LLMConfig(
+        vocab_size=vocab, dim=dim, n_layers=n_layers, n_heads=n_heads,
+        n_kv_heads=n_kv, head_dim=hd, hidden_dim=hidden, norm_eps=norm_eps,
+        rope_theta=rope_theta, max_seq=max_seq, sliding_window=max_seq,
+        n_experts=n_experts, n_experts_used=1,
+        moe_score_func="sigmoid_topk", moe_norm_topk=False,
+        moe_scale_input=True, moe_shared_hidden=shared_h,
+        moe_shared_gated=False, nope_pattern=nope_pattern,
+        qk_l2norm=qk_l2norm, attn_temp_tuning=attn_temp_tuning,
+        attn_temp_floor=attn_temp_floor, attn_temp_scale=attn_temp_scale,
+        attn_chunk=attn_chunk, moe_pattern=moe_pattern)
+
+    def deint(w, heads):
+        return _deinterleave_rope_cols(w, heads, hd, hd)
+    L = _llama_layers(A, 0)
+    L.update({k: [] for k in ("moe_gate", "shared_gu", "shared_down",
+                              "w_gu_mlp", "w_down_mlp")})
+    zeros = lambda *s: np.zeros(s, np.float32)  # noqa: E731
+    for i in range(n_layers):
+        pre = f"model.layers.{i}"
+        ff = f"{pre}.feed_forward"
+        L["attn_norm"].append(A(f"{pre}.input_layernorm.weight"))
+        L["mlp_norm"].append(A(f"{pre}.post_attention_layernorm.weight"))
+        L["wqkv"].append(_qkv_T(A, pre, deint, n_heads, n_kv))
+        L["wo"].append(A(f"{pre}.self_attn.o_proj.weight").T)
+        if is_moe[i]:
+            L["w_gu"].append(A(f"{ff}.experts.gate_up_proj"))
+            L["w_down"].append(A(f"{ff}.experts.down_proj"))
+            L["moe_gate"].append(A(f"{ff}.router.weight").T)
+            L["shared_gu"].append(_gu_T(A, f"{ff}.shared_expert"))
+            L["shared_down"].append(
+                A(f"{ff}.shared_expert.down_proj.weight").T)
+            if moe_pattern:
+                L["w_gu_mlp"].append(zeros(dim, 2 * hidden_mlp))
+                L["w_down_mlp"].append(zeros(hidden_mlp, dim))
+        else:
+            L["w_gu"].append(zeros(n_experts, dim, 2 * hidden))
+            L["w_down"].append(zeros(n_experts, hidden, dim))
+            L["moe_gate"].append(zeros(dim, n_experts))
+            L["shared_gu"].append(zeros(dim, 2 * shared_h))
+            L["shared_down"].append(zeros(shared_h, dim))
+            L["w_gu_mlp"].append(_gu_T(A, ff))
+            L["w_down_mlp"].append(A(f"{ff}.down_proj.weight").T)
+    extra = None
+    if rope_scaling and rope_scaling.get(
+            "rope_type", rope_scaling.get("type")) == "llama3":
+        extra = {"rope_factors": llm_model.llama3_rope_factors(
+            cfg, factor=float(rope_scaling.get("factor", 8.0)),
+            low_freq_factor=float(rope_scaling.get("low_freq_factor", 1.0)),
+            high_freq_factor=float(rope_scaling.get("high_freq_factor",
+                                                    4.0)),
+            original_max_seq=int(rope_scaling.get(
+                "original_max_position_embeddings", 8192)))}
+    return _hf_tree(L, emb, A("model.norm.weight"), _hf_head(state, A, emb),
+                    dtype, device, extra=extra), cfg
+
+
+def _ln_stack(A, n_layers: int, names, plus_one: bool = False):
+    """Per-layer {"g", "b"} LayerNorm dicts of ``names`` (a key -> HF norm
+    name map), g + 1 under ``plus_one`` (LayerNorm1p)."""
+    out = {k: [] for k in names}
+    for i in range(n_layers):
+        for key, hf in names.items():
+            pre = f"model.layers.{i}.{hf}"
+            out[key].append({"g": A(f"{pre}.weight") + (1.0 if plus_one
+                                                         else 0.0),
+                             "b": A(f"{pre}.bias")})
+    return out
+
+
+def nemotron_from_hf(state: Dict[str, Any], *, max_seq: int = 4096,
+                     norm_eps: float = 1e-5, rope_theta: float = 10000.0,
+                     partial_rotary_factor: float = 0.5, head_dim: int = 0,
+                     dtype: torch.dtype = torch.bfloat16,
+                     device: Optional[torch.device] = None) -> tuple:
+    """Nemotron -> (params, LLMConfig): LayerNorm1p norms with biases (the
+    +1 folded, f32), an ungated squared-ReLU MLP, half-width split-half
+    rope. head_dim: the first of 128, 64, 16 that divides."""
+    A, emb, vocab, dim, n_layers = _hf_common(state)
+    q0 = A("model.layers.0.self_attn.q_proj.weight")
+    k0 = A("model.layers.0.self_attn.k_proj.weight")
+    hd = head_dim
+    if not hd:
+        for hd in (128, 64, 16):
+            if q0.shape[0] % hd == 0 and k0.shape[0] % hd == 0:
+                break
+    cfg = llm_model.LLMConfig(
+        vocab_size=vocab, dim=dim, n_layers=n_layers,
+        n_heads=q0.shape[0] // hd, n_kv_heads=k0.shape[0] // hd, head_dim=hd,
+        hidden_dim=A("model.layers.0.mlp.up_proj.weight").shape[0],
+        norm_eps=norm_eps, rope_theta=rope_theta, max_seq=max_seq,
+        sliding_window=max_seq, norm_type="layernorm", mlp_gated=False,
+        act="relu2", partial_rotary_factor=partial_rotary_factor)
+    L: Dict[str, list] = {k: [] for k in ("wqkv", "wo", "w_gu", "w_down")}
+    for i in range(n_layers):
+        pre = f"model.layers.{i}"
+        L["wqkv"].append(_qkv_T(A, pre))
+        L["wo"].append(A(f"{pre}.self_attn.o_proj.weight").T)
+        L["w_gu"].append(A(f"{pre}.mlp.up_proj.weight").T)
+        L["w_down"].append(A(f"{pre}.mlp.down_proj.weight").T)
+    L.update(_ln_stack(A, n_layers, {"attn_norm": "input_layernorm",
+                                     "mlp_norm": "post_attention_layernorm"},
+                       plus_one=True))
+    return _hf_tree(L, emb, {"g": 1.0 + A("model.norm.weight"),
+                             "b": A("model.norm.bias")},
+                    _hf_head(state, A, emb), dtype, device,
+                    f32_keys=("attn_norm", "mlp_norm"),
+                    out_norm_dtype=torch.float32), cfg
+
+
+def starcoder2_from_hf(state: Dict[str, Any], *, max_seq: int = 4096,
+                       norm_eps: float = 1e-5, rope_theta: float = 1e5,
+                       head_dim: int = 0, dtype: torch.dtype = torch.bfloat16,
+                       device: Optional[torch.device] = None) -> tuple:
+    """StarCoder2 -> (params, LLMConfig): LayerNorms with biases (f32),
+    biases on every attention projection and on the ungated tanh-GELU MLP
+    (c_fc, c_proj), full rope."""
+    A, emb, vocab, dim, n_layers = _hf_common(state)
+    hd = head_dim or 128
+    cfg = llm_model.LLMConfig(
+        vocab_size=vocab, dim=dim, n_layers=n_layers,
+        n_heads=A("model.layers.0.self_attn.q_proj.weight").shape[0] // hd,
+        n_kv_heads=A("model.layers.0.self_attn.k_proj.weight").shape[0] // hd,
+        head_dim=hd, hidden_dim=A("model.layers.0.mlp.c_fc.weight").shape[0],
+        norm_eps=norm_eps, rope_theta=rope_theta, max_seq=max_seq,
+        sliding_window=max_seq, norm_type="layernorm", mlp_gated=False,
+        act="gelu", mlp_bias=True, qkv_bias=True, out_bias=True)
+    L: Dict[str, list] = {k: [] for k in (
+        "wqkv", "wqkv_bias", "wo", "wo_bias", "w_gu", "w_gu_b", "w_down",
+        "w_down_b")}
+    for i in range(n_layers):
+        pre = f"model.layers.{i}"
+        L["wqkv"].append(_qkv_T(A, pre))
+        L["wqkv_bias"].append(_qkv_bias(A, pre))
+        L["wo"].append(A(f"{pre}.self_attn.o_proj.weight").T)
+        L["wo_bias"].append(A(f"{pre}.self_attn.o_proj.bias"))
+        L["w_gu"].append(A(f"{pre}.mlp.c_fc.weight").T)
+        L["w_gu_b"].append(A(f"{pre}.mlp.c_fc.bias"))
+        L["w_down"].append(A(f"{pre}.mlp.c_proj.weight").T)
+        L["w_down_b"].append(A(f"{pre}.mlp.c_proj.bias"))
+    L.update(_ln_stack(A, n_layers, {"attn_norm": "input_layernorm",
+                                     "mlp_norm": "post_attention_layernorm"}))
+    return _hf_tree(L, emb, {"g": A("model.norm.weight"),
+                             "b": A("model.norm.bias")},
+                    _hf_head(state, A, emb), dtype, device,
+                    f32_keys=("attn_norm", "mlp_norm"),
+                    out_norm_dtype=torch.float32), cfg
+
+
+def cohere_from_hf(state: Dict[str, Any], *, max_seq: int = 8192,
+                   norm_eps: float = 1e-5, rope_theta: float = 10000.0,
+                   logit_scale: float = 1.0, sliding_window: int = 0,
+                   sliding_window_pattern: int = 0, head_dim: int = 0,
+                   dtype: torch.dtype = torch.bfloat16,
+                   device: Optional[torch.device] = None) -> tuple:
+    """Cohere Command-R / Cohere2 -> (params, LLMConfig): bias-free
+    LayerNorm, the parallel residual, logit_scale folded into lm_head, the
+    interleaved full-width rope folded to split-half (per-head QK norms
+    ride the same permutation), and Cohere2's every-n-th global layer
+    (rope only on the sliding ones: window_pattern and nope_pattern)."""
+    A, emb, vocab, dim, n_layers = _hf_common(state)
+    hd = head_dim or 128
+    n_heads = A("model.layers.0.self_attn.q_proj.weight").shape[0] // hd
+    n_kv = A("model.layers.0.self_attn.k_proj.weight").shape[0] // hd
+    qk_norm = "model.layers.0.self_attn.q_norm.weight" in state
+    cfg = llm_model.LLMConfig(
+        vocab_size=vocab, dim=dim, n_layers=n_layers, n_heads=n_heads,
+        n_kv_heads=n_kv, head_dim=hd,
+        hidden_dim=A("model.layers.0.mlp.gate_proj.weight").shape[0],
+        norm_eps=norm_eps, rope_theta=rope_theta, max_seq=max_seq,
+        sliding_window=(sliding_window or max_seq), norm_type="layernorm",
+        parallel_residual=True, qk_norm=qk_norm,
+        window_pattern=sliding_window_pattern,
+        nope_pattern=sliding_window_pattern)
+
+    def deint(w, heads):
+        return _deinterleave_rope_cols(w, heads, hd, hd)
+    L: Dict[str, list] = {k: [] for k in (
+        "attn_norm", "wqkv", "wo", "w_gu", "w_down", "q_norm", "k_norm")}
+    for i in range(n_layers):
+        pre = f"model.layers.{i}"
+        L["attn_norm"].append(A(f"{pre}.input_layernorm.weight"))
+        L["wqkv"].append(_qkv_T(A, pre, deint, n_heads, n_kv))
+        L["wo"].append(A(f"{pre}.self_attn.o_proj.weight").T)
+        L["w_gu"].append(_gu_T(A, f"{pre}.mlp"))
+        L["w_down"].append(A(f"{pre}.mlp.down_proj.weight").T)
+        if qk_norm:
+            L["q_norm"].append(deint(
+                A(f"{pre}.self_attn.q_norm.weight").reshape(-1), n_heads))
+            L["k_norm"].append(deint(
+                A(f"{pre}.self_attn.k_norm.weight").reshape(-1), n_kv))
+    # The parallel-residual body reads no pre-MLP norm; the key stays for
+    # the pre_norms helpers, ones in f32 as the reference stores them.
+    L["mlp_norm"] = [np.ones((dim,), np.float32)] * n_layers
+    return _hf_tree(L, emb, A("model.norm.weight"),
+                    _hf_head(state, A, emb) * logit_scale, dtype, device,
+                    f32_keys=("mlp_norm",),
+                    out_norm_dtype=torch.float32), cfg
+
+
+def ernie45_from_hf(state: Dict[str, Any], *, max_seq: int = 8192,
+                    norm_eps: float = 1e-5, rope_theta: float = 500000.0,
+                    head_dim: int = 0, moe_k: int = 6,
+                    dtype: torch.dtype = torch.bfloat16,
+                    device: Optional[torch.device] = None) -> tuple:
+    """ERNIE 4.5 (dense or MoE) -> (params, LLMConfig): the interleaved
+    full-width rope folded to split-half, optional projection biases; the
+    MoE variant's softmax scores selecting on score +
+    e_score_correction_bias (``moe_gate_bias``), renormalized top-k,
+    ungated shared experts, and the first moe_layer_start_index layers
+    dense at the full width (``moe_first_dense``; an interval > 1 maps to
+    ``moe_pattern``)."""
+    A, emb, vocab, dim, n_layers = _hf_common(state)
+    hd = head_dim or 128
+    n_heads = A("model.layers.0.self_attn.q_proj.weight").shape[0] // hd
+    n_kv = A("model.layers.0.self_attn.k_proj.weight").shape[0] // hd
+    qkv_bias = "model.layers.0.self_attn.q_proj.bias" in state
+    is_moe = [f"model.layers.{i}.mlp.gate.weight" in state
+              for i in range(n_layers)]
+    moe = any(is_moe)
+
+    def deint(w, heads):
+        return _deinterleave_rope_cols(w, heads, hd, hd)
+    if moe:
+        first_dense = is_moe.index(True)
+        moe_idx = [i for i, m in enumerate(is_moe) if m]
+        interval = moe_idx[1] - moe_idx[0] if len(moe_idx) > 1 else 1
+        if [i >= first_dense and ((i + 1) % interval == 0)
+                for i in range(n_layers)] != is_moe:
+            raise NotImplementedError(f"irregular ERNIE MoE layout {is_moe}")
+        e0 = f"model.layers.{first_dense}.mlp.experts"
+        n_experts = _n_experts(state, e0 + ".")
+        moe_hidden = int(A(f"{e0}.0.gate_proj.weight").shape[0])
+        shared = f"model.layers.{first_dense}.mlp.shared_experts"
+        shared_hidden = (int(A(f"{shared}.gate_proj.weight").shape[0])
+                         if f"{shared}.gate_proj.weight" in state else 0)
+        dense_idx = [i for i, m in enumerate(is_moe) if not m]
+        hidden_dense = (int(A(f"model.layers.{dense_idx[0]}.mlp"
+                              ".gate_proj.weight").shape[0])
+                        if dense_idx else 0)
+    else:
+        n_experts = moe_hidden = shared_hidden = first_dense = 0
+        interval = 1
+        hidden_dense = int(A("model.layers.0.mlp.gate_proj.weight"
+                             ).shape[0])
+    cfg = llm_model.LLMConfig(
+        vocab_size=vocab, dim=dim, n_layers=n_layers, n_heads=n_heads,
+        n_kv_heads=n_kv, head_dim=hd,
+        hidden_dim=moe_hidden if moe else hidden_dense, norm_eps=norm_eps,
+        rope_theta=rope_theta, max_seq=max_seq, sliding_window=max_seq,
+        qkv_bias=qkv_bias, n_experts=n_experts,
+        n_experts_used=moe_k if moe else 2, moe_norm_topk=True,
+        moe_shared_hidden=shared_hidden, moe_shared_gated=False,
+        moe_first_dense=first_dense,
+        moe_pattern=interval if interval > 1 else 0)
+    L: Dict[str, list] = {k: [] for k in (
+        "attn_norm", "wqkv", "wo", "mlp_norm", "w_gu", "w_down", "wqkv_bias",
+        "moe_gate", "moe_gate_bias", "shared_gu", "shared_down", "w_gu_mlp",
+        "w_down_mlp")}
+    hybrid = moe and (first_dense or interval > 1)
+    zeros = lambda *s: np.zeros(s, np.float32)  # noqa: E731
+    for i in range(n_layers):
+        pre = f"model.layers.{i}"
+        L["attn_norm"].append(A(f"{pre}.input_layernorm.weight"))
+        L["mlp_norm"].append(A(f"{pre}.post_attention_layernorm.weight"))
+        L["wqkv"].append(_qkv_T(A, pre, deint, n_heads, n_kv))
+        if qkv_bias:
+            L["wqkv_bias"].append(_qkv_bias(A, pre, deint, n_heads, n_kv))
+        L["wo"].append(A(f"{pre}.self_attn.o_proj.weight").T)
+        if not moe:
+            L["w_gu"].append(_gu_T(A, f"{pre}.mlp"))
+            L["w_down"].append(A(f"{pre}.mlp.down_proj.weight").T)
+        elif not is_moe[i]:
+            L["w_gu_mlp"].append(_gu_T(A, f"{pre}.mlp"))
+            L["w_down_mlp"].append(A(f"{pre}.mlp.down_proj.weight").T)
+            L["w_gu"].append(zeros(n_experts, dim, 2 * moe_hidden))
+            L["w_down"].append(zeros(n_experts, moe_hidden, dim))
+            L["moe_gate"].append(zeros(dim, n_experts))
+            L["moe_gate_bias"].append(zeros(n_experts))
+            L["shared_gu"].append(zeros(dim, 2 * shared_hidden))
+            L["shared_down"].append(zeros(shared_hidden, dim))
+        else:
+            gu, down = _experts(A, f"{pre}.mlp.experts", n_experts)
+            L["w_gu"].append(gu)
+            L["w_down"].append(down)
+            L["moe_gate"].append(A(f"{pre}.mlp.gate.weight").T)
+            L["moe_gate_bias"].append(A(
+                f"{pre}.mlp.moe_statics.e_score_correction_bias"
+            ).reshape(-1))
+            L["shared_gu"].append(_gu_T(A, f"{pre}.mlp.shared_experts"))
+            L["shared_down"].append(
+                A(f"{pre}.mlp.shared_experts.down_proj.weight").T)
+            if hybrid:
+                width = hidden_dense or moe_hidden
+                L["w_gu_mlp"].append(zeros(dim, 2 * width))
+                L["w_down_mlp"].append(zeros(width, dim))
+    return _hf_tree(L, emb, A("model.norm.weight"), _hf_head(state, A, emb),
+                    dtype, device), cfg
+
+
+def glm4_moe_from_hf(state: Dict[str, Any], *, max_seq: int = 8192,
+                     norm_eps: float = 1e-5, rope_theta: float = 10000.0,
+                     partial_rotary_factor: float = 0.5, moe_k: int = 8,
+                     routed_scaling_factor: float = 1.0, n_groups: int = 1,
+                     topk_groups: int = 1, norm_topk: bool = True,
+                     head_dim: int = 0, dtype: torch.dtype = torch.bfloat16,
+                     device: Optional[torch.device] = None) -> tuple:
+    """GLM-4.5 / 4.6 (Glm4MoeForCausalLM) -> (params, LLMConfig): per-head
+    QK RMSNorm where present, half-width split-half rope, DeepSeek-V3's
+    routing (sigmoid scores, the selection-only bias, top-2-sum groups,
+    renormalized and scaled top-k, ungated shared experts) and the first
+    first_k_dense_replace layers dense."""
+    A, emb, vocab, dim, n_layers = _hf_common(state)
+    qk_norm = "model.layers.0.self_attn.q_norm.weight" in state
+    hd = head_dim or (
+        int(A("model.layers.0.self_attn.q_norm.weight").shape[0])
+        if qk_norm else 128)
+    qkv_bias = "model.layers.0.self_attn.q_proj.bias" in state
+    is_moe = [f"model.layers.{i}.mlp.gate.weight" in state
+              for i in range(n_layers)]
+    if not any(is_moe):
+        raise NotImplementedError(
+            "all-dense glm4_moe checkpoints are not a published shape "
+            "(dense GLM-4 loads through glm4_from_hf)")
+    first_dense = is_moe.index(True)
+    if is_moe != [i >= first_dense for i in range(n_layers)]:
+        raise NotImplementedError(
+            f"irregular GLM-4.5 dense/MoE layout {is_moe} — only "
+            "first_k_dense_replace is published")
+    e0 = f"model.layers.{first_dense}.mlp.experts"
+    n_experts = _n_experts(state, e0 + ".")
+    moe_hidden = int(A(f"{e0}.0.gate_proj.weight").shape[0])
+    shared_h = int(A(f"model.layers.{first_dense}.mlp.shared_experts"
+                     ".gate_proj.weight").shape[0])
+    hidden_dense = (int(A("model.layers.0.mlp.gate_proj.weight").shape[0])
+                    if first_dense else 0)
+    if n_experts % max(n_groups, 1):
+        raise TrackieError(
+            ErrorCode.MODEL_METADATA_INVALID,
+            f"n_experts={n_experts} not divisible by n_groups={n_groups}")
+    cfg = llm_model.LLMConfig(
+        vocab_size=vocab, dim=dim, n_layers=n_layers,
+        n_heads=A("model.layers.0.self_attn.q_proj.weight").shape[0] // hd,
+        n_kv_heads=A("model.layers.0.self_attn.k_proj.weight").shape[0] // hd,
+        head_dim=hd, hidden_dim=moe_hidden, norm_eps=norm_eps,
+        rope_theta=rope_theta, max_seq=max_seq, sliding_window=max_seq,
+        qkv_bias=qkv_bias, qk_norm=qk_norm,
+        partial_rotary_factor=partial_rotary_factor, n_experts=n_experts,
+        n_experts_used=moe_k, moe_score_func="sigmoid",
+        moe_norm_topk=norm_topk, moe_routed_scale=routed_scaling_factor,
+        moe_n_groups=n_groups, moe_topk_groups=topk_groups,
+        moe_group_score="top2sum", moe_shared_hidden=shared_h,
+        moe_shared_gated=False, moe_first_dense=first_dense)
+    L: Dict[str, list] = {k: [] for k in (
+        "attn_norm", "wqkv", "wo", "mlp_norm", "w_gu", "w_down", "moe_gate",
+        "moe_gate_bias", "shared_gu", "shared_down", "q_norm", "k_norm",
+        "wqkv_bias", "w_gu_mlp", "w_down_mlp")}
+    zeros = lambda *s: np.zeros(s, np.float32)  # noqa: E731
+    for i in range(n_layers):
+        pre = f"model.layers.{i}"
+        L["attn_norm"].append(A(f"{pre}.input_layernorm.weight"))
+        L["mlp_norm"].append(A(f"{pre}.post_attention_layernorm.weight"))
+        L["wqkv"].append(_qkv_T(A, pre))
+        if qkv_bias:
+            L["wqkv_bias"].append(_qkv_bias(A, pre))
+        L["wo"].append(A(f"{pre}.self_attn.o_proj.weight").T)
+        if qk_norm:
+            L["q_norm"].append(A(f"{pre}.self_attn.q_norm.weight"))
+            L["k_norm"].append(A(f"{pre}.self_attn.k_norm.weight"))
+        if is_moe[i]:
+            gu, down = _experts(A, f"{pre}.mlp.experts", n_experts)
+            L["w_gu"].append(gu)
+            L["w_down"].append(down)
+            L["moe_gate"].append(A(f"{pre}.mlp.gate.weight").T)
+            L["moe_gate_bias"].append(
+                A(f"{pre}.mlp.gate.e_score_correction_bias").reshape(-1))
+            L["shared_gu"].append(_gu_T(A, f"{pre}.mlp.shared_experts"))
+            L["shared_down"].append(
+                A(f"{pre}.mlp.shared_experts.down_proj.weight").T)
+            if first_dense:
+                L["w_gu_mlp"].append(zeros(dim, 2 * hidden_dense))
+                L["w_down_mlp"].append(zeros(hidden_dense, dim))
+        else:
+            L["w_gu"].append(zeros(n_experts, dim, 2 * moe_hidden))
+            L["w_down"].append(zeros(n_experts, moe_hidden, dim))
+            L["moe_gate"].append(zeros(dim, n_experts))
+            L["moe_gate_bias"].append(zeros(n_experts))
+            L["shared_gu"].append(zeros(dim, 2 * shared_h))
+            L["shared_down"].append(zeros(shared_h, dim))
+            L["w_gu_mlp"].append(_gu_T(A, f"{pre}.mlp"))
+            L["w_down_mlp"].append(A(f"{pre}.mlp.down_proj.weight").T)
+    return _hf_tree(L, emb, A("model.norm.weight"), _hf_head(state, A, emb),
+                    dtype, device), cfg
+
+
+def falcon_from_hf(state: Dict[str, Any], *, n_heads: int,
+                   max_seq: int = 2048, norm_eps: float = 1e-5,
+                   rope_theta: float = 1e4, new_arch: Optional[bool] = None,
+                   dtype: torch.dtype = torch.bfloat16,
+                   device: Optional[torch.device] = None) -> tuple:
+    """Falcon -> (params, LLMConfig): LayerNorms with biases, the parallel
+    residual (the new architecture's second ``ln_mlp``:
+    ``parallel_mlp_norm``; ``parallel_attn=False`` checkpoints sequential),
+    the fused query_key_value un-fused from its three layouts (multi-query,
+    per-head interleaved MHA, per-KV-group new arch) into [q | k | v], and
+    the exact-erf GELU MLP. ``new_arch`` auto-detects from ``ln_attn`` and
+    the qkv width."""
+    A = lambda k: np.asarray(state[k], np.float32)  # noqa: E731
+    pre0 = "transformer.h.0."
+    emb = A("transformer.word_embeddings.weight")
+    vocab, dim = emb.shape
+    hd = dim // n_heads
+    n_layers = len({k.split(".")[2] for k in state
+                    if k.startswith("transformer.h.")})
+    qkv_out = A(pre0 + "self_attention.query_key_value.weight").shape[0]
+    two_norm = (pre0 + "ln_attn.weight") in state
+    sequential = (pre0 + "post_attention_layernorm.weight") in state
+    if new_arch is None:
+        new_arch = two_norm or (qkv_out not in (3 * dim, dim + 2 * hd))
+    if new_arch:
+        n_kv = (qkv_out // hd - n_heads) // 2
+    elif qkv_out == dim + 2 * hd:
+        n_kv = 1  # multi-query (Falcon-7B)
+    else:
+        n_kv = n_heads
+    qkv_bias = (pre0 + "self_attention.query_key_value.bias") in state
+    out_bias = (pre0 + "self_attention.dense.bias") in state
+    mlp_bias = (pre0 + "mlp.dense_h_to_4h.bias") in state
+    cfg = llm_model.LLMConfig(
+        vocab_size=vocab, dim=dim, n_layers=n_layers, n_heads=n_heads,
+        n_kv_heads=n_kv, head_dim=hd,
+        hidden_dim=A(pre0 + "mlp.dense_h_to_4h.weight").shape[0],
+        norm_eps=norm_eps, rope_theta=rope_theta, max_seq=max_seq,
+        sliding_window=max_seq, norm_type="layernorm",
+        parallel_residual=not sequential, parallel_mlp_norm=two_norm,
+        mlp_gated=False, act="gelu_exact", qkv_bias=qkv_bias,
+        out_bias=out_bias, mlp_bias=mlp_bias)
+
+    def unfuse(w: np.ndarray) -> np.ndarray:
+        """(qkv_out, D) fused rows (or the bias) -> q|k|v rows."""
+        flat = w.reshape(qkv_out, -1)
+        if new_arch:
+            g = flat.reshape(n_kv, n_heads // n_kv + 2, hd, -1)
+            q = g[:, :-2].reshape(n_heads * hd, -1)
+            k = g[:, -2].reshape(n_kv * hd, -1)
+            v = g[:, -1].reshape(n_kv * hd, -1)
+        elif n_kv == 1:
+            q, k, v = (flat[:n_heads * hd], flat[n_heads * hd:-hd],
+                       flat[-hd:])
+        else:
+            g = flat.reshape(n_heads, 3, hd, -1)
+            q, k, v = (g[:, j].reshape(n_heads * hd, -1) for j in range(3))
+        return np.concatenate([q, k, v], axis=0)
+
+    def ln(name):
+        return {"g": A(name + ".weight"), "b": A(name + ".bias")}
+    L: Dict[str, list] = {k: [] for k in (
+        "attn_norm", "wqkv", "wo", "w_gu", "w_down", "mlp_norm", "wqkv_bias",
+        "wo_bias", "w_gu_b", "w_down_b")}
+    for i in range(n_layers):
+        pre = f"transformer.h.{i}."
+        if two_norm:
+            L["attn_norm"].append(ln(pre + "ln_attn"))
+            L["mlp_norm"].append(ln(pre + "ln_mlp"))
+        else:
+            L["attn_norm"].append(ln(pre + "input_layernorm"))
+            if sequential:
+                L["mlp_norm"].append(ln(pre + "post_attention_layernorm"))
+        L["wqkv"].append(
+            unfuse(A(pre + "self_attention.query_key_value.weight")).T)
+        L["wo"].append(A(pre + "self_attention.dense.weight").T)
+        L["w_gu"].append(A(pre + "mlp.dense_h_to_4h.weight").T)
+        L["w_down"].append(A(pre + "mlp.dense_4h_to_h.weight").T)
+        if qkv_bias:
+            L["wqkv_bias"].append(unfuse(
+                A(pre + "self_attention.query_key_value.bias"))[:, 0])
+        if out_bias:
+            L["wo_bias"].append(A(pre + "self_attention.dense.bias"))
+        if mlp_bias:
+            L["w_gu_b"].append(A(pre + "mlp.dense_h_to_4h.bias"))
+            L["w_down_b"].append(A(pre + "mlp.dense_4h_to_h.bias"))
+    return _hf_tree(L, emb, ln("transformer.ln_f"),
+                    _hf_head(state, A, emb), dtype, device), cfg
+
+
+def openwakeword_verifier_from_onnx(state: Dict[str, Any],
+                                    device: Optional[torch.device] = None):
+    """An openwakeword per-keyword verifier's ONNX initializers ->
+    ``audio/wake_word.py:VerifierHead`` on ``device``. The dense chain is
+    rebuilt by geometry, not names: each 2-D matrix paired with a bias of
+    its output width, oriented (in, out) (an (out, in) export transposed
+    where only that orientation chains), ordered backwards from the final
+    width 1. An ambiguous or non-chaining inventory raises."""
+    from trackiellm_tpu_torch.audio.wake_word import VerifierHead
+
+    mats, biases = [], []
+    for k, v in state.items():
+        a = np.asarray(v, np.float32)
+        if a.ndim == 2:
+            mats.append(a)
+        elif a.ndim == 1 and a.size > 0:
+            biases.append(a)
+    if not mats:
+        raise TrackieError(ErrorCode.MODEL_METADATA_INVALID,
+                           "verifier ONNX carries no 2-D matrices")
+    by_width: Dict[int, list] = {}
+    for b in biases:
+        by_width.setdefault(b.shape[0], []).append(b)
+
+    def orient(a: np.ndarray):
+        yield a.shape[0], a.shape[1], a
+        if a.shape[0] != a.shape[1]:
+            yield a.shape[1], a.shape[0], a.T
+    remaining, chain, want_out = list(mats), [], 1
+    while remaining:
+        matches = [(i, din, w) for i, a in enumerate(remaining)
+                   for din, dout, w in orient(a) if dout == want_out]
+        if not matches:
+            raise TrackieError(
+                ErrorCode.MODEL_METADATA_INVALID,
+                f"no matrix produces width {want_out}; shapes: "
+                f"{[a.shape for a in remaining]}")
+        dins = {din for _, din, _ in matches}
+        if len(matches) > 1 and len(dins) > 1:
+            raise TrackieError(
+                ErrorCode.MODEL_METADATA_INVALID,
+                f"ambiguous chain at width {want_out}: candidate input "
+                f"widths {sorted(dins)}")
+        i, din, w = matches[0]
+        pool = by_width.get(want_out, [])
+        if len(pool) > 1:
+            log.warning(
+                "openwakeword verifier: %d biases share width %d — "
+                "pairing by initializer order; verify against the real "
+                "graph on first contact", len(pool), want_out)
+        b = pool.pop() if pool else np.zeros(want_out, np.float32)
+        chain.append((w, b))
+        remaining.pop(i)
+        want_out = din
+    chain.reverse()
+    return VerifierHead(chain, device=default_device(
+        device, "build a VerifierHead"))

@@ -377,8 +377,8 @@ class MambaRunner:
 
     def __init__(self, params, cfg, tokenizer=None, gen_config=None,
                  model=None, device: Optional[torch.device] = None):
-        """``model``: the state-space module (this one or
-        ``models.mamba2``: the same prefill/extend/decode_step surface),
+        """``model``: the recurrent module (this one, ``models.mamba2`` or
+        ``models.qwen3next``: the same prefill/extend/decode_step surface),
         chosen from the config's type when omitted. The session runs on
         the params' device."""
         import sys
@@ -391,14 +391,13 @@ class MambaRunner:
             if kind == "Mamba2Config":
                 from trackiellm_tpu_torch.models import mamba2 as model
             elif kind == "Qwen3NextConfig":
-                raise NotImplementedError(
-                    "Qwen3-Next (models/qwen3next.py) is not ported yet "
-                    "(ROADMAP Queue 1 item 11)")
+                from trackiellm_tpu_torch.models import qwen3next as model
             else:
                 model = sys.modules[__name__]
         self._m = model
         self._cache_cls = (model.Mamba2Cache if hasattr(model, "Mamba2Cache")
-                           else model.MambaCache)
+                           else model.MambaCache if hasattr(model, "MambaCache")
+                           else model.Cache)
         self.params = params
         self.cfg = cfg
         self.device = torch.device(device or params["tok_emb"].device)
