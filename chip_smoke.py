@@ -334,9 +334,27 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      ``*-hf`` families at tiny widths converted with ``--bits 4`` on the
      card and on the CPU (byte-equal checkpoints), one bucket-16 prefill
      card against CPU within WIDTH_TOL. One ``{"qwen3next": ...}`` line
-     before the ``mla_mamba`` line; the smoke's wall and then
-     ``{"phase_seconds": ..., "wall_s": ...}`` on the two lines before it.
-Phases 5-22 zero every launch counter just before they drive their path and
+     before the ``mla_mamba`` line.
+ 23. training (the constants above ``train_texts``): (a) Mistral-7B Q4
+     group 256 at its 32 layers with LoRA rank 8 on the four default
+     targets, 4 steps of ``make_lora_train_step`` under Adam(1e-3) on
+     ``PackedDataset`` rows (2 of 256 tokens a step: M = 512 on W4A8)
+     prefetched to the card: losses that fall, 257 W4A8 launches a step
+     (the checkpointed recompute doubles the layers'), layer 0's adapter
+     gradients non-zero (the gradient crossed 31 frozen layers), step ms,
+     peak memory, and each frozen projection's backward product
+     (``quantized_matmul_grad``) timed beside its bound; (b) its first 2
+     layers, one row of 128 tokens: the loss and every adapter gradient
+     card against CPU on the f32a route (TRACKIE_Q4_F32A=1, exact
+     activations) and a Q8 base within TRAIN_F32A_TOL, the W4A8 route's
+     gap reported; (c) ``make_train_step`` on small dense and MoE configs,
+     2 AdamW steps card against CPU; (d) ``train_wake_word`` at the
+     bundled artifact's config on the tool's synthetic set, 10 steps card
+     against CPU, then its 600 steps on the card with the held-out rates.
+     One ``{"training": ...}`` line before the ``qwen3next`` line; the
+     smoke's wall and then ``{"phase_seconds": ..., "wall_s": ...}`` on
+     the two lines before it.
+Phases 5-23 zero every launch counter just before they drive their path and
 read them just after: the path's kernels must have launched, and the routes
 it does not take must not have (no serving path launches the streaming Q4
 or a probe; phase 9 must launch all four; phases 13 and 14 launch none).
@@ -345,7 +363,8 @@ phases 5-7 greedy text must not depend on the lookahead depth, in phase 10
 not on speculation, and every logit vector must be finite. Phase 3's
 device-only times come from profiles whose launch count matches the calls
 (``device_only_ms``). Each phase's first line ends with the seconds since
-the build began. The ``qwen3next`` line, the ``mla_mamba`` line, the
+the build began. The ``training`` line, the ``qwen3next`` line, the
+``mla_mamba`` line, the
 ``perception`` line, the
 ``surfaces`` line, the
 ``vlm`` line, the ``moe``
@@ -5439,7 +5458,9 @@ def phase_moe(dev, llm, runner_mod, tokenizer_mod, server_mod, paging,
 # cortex turn with ``vlm_scene_image`` over (a)'s runner inside
 # ``TrackieApp``, the frame injected as the camera worker injects it.
 VLM_MAX_SEQ = 2048
-VLM_TOKENS = 16
+# 16 until phase 23 joined, to pay for it: phase 18 (a) took 5.1 s at 16,
+# 3.4 s at 8 (two whole runs on an H100 80GB HBM3 at 700 W).
+VLM_TOKENS = 8
 VLM_CUT_LAYERS = 2
 VLM_FEAT_TOL = 1e-5      # rel L2, f32 tower features, card against CPU
 VLM_PALI_DECODE = 8
@@ -6241,7 +6262,10 @@ def phase_surfaces(dev, llm, runner_mod, tokenizer_mod, counters,
 # the three hooks attached and the Mistral-7B widths of phase 19 (d).
 PERCEPTION_CPU_LAYERS = 2
 PERCEPTION_FRAGMENTS = 64     # (b)'s memory fragments embedded in one call
-PERCEPTION_ITERS = 3          # (b)'s host-timed repeats after a warm one
+# (b)'s host-timed repeats after a warm one: 3 until phase 23 joined, to
+# pay for it: phase 20 (b) took 31.7 s at 3 (the OCR frame 1.17 s a
+# call), 25.2 s at 1 (two whole runs on an H100 80GB HBM3 at 700 W).
+PERCEPTION_ITERS = 1
 PERCEPTION_REL = 1e-5         # rel L2 card against CPU: embeddings, states,
 #                               logits
 PERCEPTION_PROB_TOL = 1e-6    # max abs card against CPU: the CNN's output
@@ -7700,7 +7724,9 @@ def hf_family_args(family: str, w: dict) -> list:
 Q3N_LAYERS = ("l", "l", "l", "f")
 Q3N_MAX_SEQ = 1024
 Q3N_GROUP = 256
-Q3N_TOKENS = 8
+# 8 until phase 23 joined, to pay for it: phase 22 (a) took 11.9 s at 8,
+# 6.7 s at 4 (two whole runs on an H100 80GB HBM3 at 700 W).
+Q3N_TOKENS = 4
 # (b) card against CPU: layers 0 and 3 of (a) ("l", "f"), a bucket-16
 # prefill and Q3N_DECODE teacher-forced decode steps.
 Q3N_BUCKET = 16
@@ -8258,6 +8284,400 @@ def phase_qwen3next(dev, counters, work: str) -> dict:
     return out
 
 
+# Phase 23: the training path. (a) LoRA over Mistral-7B Q4 at its 32
+# layers; (b) its first TRAIN_CHECK_LAYERS layers card against CPU on the
+# f32a, W4A8 and Q8 routes; (c) make_train_step on small dense and MoE
+# configs; (d) the wake-word trainer.
+TRAIN_RANK = 8
+# torch.optim.Adam's learning rate in (a). tests/test_lora.py's 1e-2 (a
+# 2-layer model) diverged at 32 layers: losses 10.86, 9.61, 11.30, 32.62
+# over (a)'s four batches (the first run of phase 23 on an H100 80GB HBM3
+# at 700 W): Adam's first steps move every B entry by the full rate, and
+# 128 adapted projections add up.
+TRAIN_LR = 1e-3
+TRAIN_STEPS = 4
+TRAIN_BATCH = 2           # packed rows a step: M = 512 rows on W4A8
+TRAIN_SEQ = 256
+TRAIN_CHECK = (2, 1, 128)   # (b): layers, rows, tokens a row
+# (b)'s rel L2 of every adapter gradient (and of the loss) card against
+# CPU on the f32a route and on a Q8 base, where both sides multiply exact
+# activations by the same dequantized weights. Predicted <= 1e-3 before
+# the first run; measured 1.036e-2 (f32a) and 9.926e-3 (Q8), the loss
+# within 7.1e-5 (the second run of phase 23, on an H100 80GB HBM3 at
+# 700 W): the model's activations are bf16, rounded after every projection
+# and norm, and an f32 sum in another order flips some of those roundings
+# (with f32 activations the card test holds the same step to 1e-4). The
+# tolerance is the f32a prefill's (EXACT_WIDTH_TOL).
+TRAIN_F32A_TOL = EXACT_WIDTH_TOL
+# The W4A8 route quantizes the forward's activations to int8 and its
+# backward is the exact product's (straight-through): its gap is reported;
+# this bound only catches a gradient that is wrong outright.
+TRAIN_W4A8_SANITY = 0.25
+TRAIN_SMALL = {   # (c): widths of a small dense model; the MoE adds experts
+    "vocab_size": 512, "dim": 512, "n_layers": 2, "n_heads": 8,
+    "n_kv_heads": 4, "head_dim": 64, "hidden_dim": 1024, "max_seq": 128,
+    "sliding_window": 128}
+TRAIN_SMALL_MOE = {"n_experts": 4, "n_experts_used": 2}
+TRAIN_SMALL_LR = 3e-3
+TRAIN_SMALL_TOL = 1e-5    # rel, (c)'s losses: f32 on both sides, TF32 off
+TRAIN_WAKE_PAIRS = 96     # (d): keyword/imposter pairs, the tool's default
+TRAIN_WAKE_STEPS = 10     # (d) card against CPU
+TRAIN_WAKE_TOL = 1e-4     # rel L2 a leaf after TRAIN_WAKE_STEPS Adam steps
+TRAIN_WAKE_FULL = 600     # (d)'s full run on the card, the tool's default
+
+
+def train_texts() -> list:
+    """The documents of (a)'s packed rows: the cortex's system prompt, its
+    context and the questions, repeated until they fill the steps."""
+    base = [SYSTEM, CONTEXT, *QUESTIONS, SHORT_PROMPT]
+    need = TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ
+    texts, size = [], 0
+    while size < need + TRAIN_SEQ:
+        for t in base:
+            texts.append(t)
+            size += len(t.encode()) + 1
+    return texts
+
+
+def lora_grads(lora, train, params, cfg, adapters, tokens):
+    """(loss, {target.a/b: gradient on the CPU}) of one LoRA loss."""
+    for t in lora.lora_parameters(adapters):
+        t.grad = None
+    loss = train.lm_loss(lora.attach_lora(params, adapters), cfg, tokens)
+    loss.backward()
+    return float(loss.detach()), {
+        f"{name}.{leaf}": adapters[name][leaf].grad.float().cpu()
+        for name in lora.DEFAULT_TARGETS for leaf in "ab"}
+
+
+def fresh_copy(tree, device):
+    """A copy of a dict tree of tensors on ``device`` (a copy on the same
+    device too: each run trains its own)."""
+    if isinstance(tree, dict):
+        return {k: fresh_copy(v, device) for k, v in tree.items()}
+    return tree.detach().to(device, copy=True)
+
+
+def adapters_on(adapters, device):
+    """A copy of an adapter tree on ``device``, A and B trainable."""
+    return {k: ({kk: vv.detach().to(device).requires_grad_()
+                 for kk, vv in v.items()} if k != "__alpha__"
+                else v.to(device)) for k, v in adapters.items()}
+
+
+def backward_product_ms(quant, params, cfg, dev) -> dict:
+    """The backward product of each frozen projection at (a)'s M rows
+    (``quantized_matmul_grad``: dequantize, then an f32 matmul), ms by CUDA
+    events beside its bound (the packed weight, scales, dy and dx moved
+    once; 2 M K N f32 operations)."""
+    m = TRAIN_BATCH * TRAIN_SEQ
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    layer0 = {name: quant.QuantizedLinear(w.values[0], w.scales[0])
+              for name, w in params["layers"].items()
+              if isinstance(w, quant.QuantizedLinear)}
+    out = {}
+    for name, qw in (*layer0.items(), ("lm_head", params["lm_head"])):
+        dy = torch.randn((m, qw.n), generator=gen, device=dev)
+        dx = quant.quantized_matmul_grad(dy, qw)
+        bound, by = bound_ms((qw.values, qw.scales, dy, dx),
+                             2.0 * m * qw.k * qw.n, "f32")
+        ms = time_ms(lambda: quant.quantized_matmul_grad(dy, qw), iters=5)
+        out[name] = {"k": qw.k, "n": qw.n, "m": m, "ms": ms,
+                     "bound_ms": bound, "bound_by": by}
+        log(f"  backward product {name} ({qw.k} x {qw.n}, M={m}): "
+            f"{ms:.4f} ms, bound {bound:.4f} ({by})")
+    return out
+
+
+def training_lora(dev, llm, lora, train, data, quant, tokenizer_mod,
+                  counters) -> tuple:
+    """(a): Mistral-7B Q4 at its 32 layers with rank-TRAIN_RANK adapters on
+    the four default targets, TRAIN_STEPS steps of make_lora_train_step
+    under Adam(TRAIN_LR) on PackedDataset rows prefetched to the card, a
+    new batch each step.
+    Returns (result, params)."""
+    cfg = serve_config(llm)
+    params = build_model(dev, llm, cfg, 4)
+    adapters = lora.init_lora(torch.Generator(device=dev).manual_seed(SEED),
+                              params, rank=TRAIN_RANK)
+    ds = data.PackedDataset(train_texts(),
+                            tokenizer_mod.ByteTokenizer(cfg.vocab_size),
+                            seq_len=TRAIN_SEQ)
+    batches = data.PrefetchIterator(ds.batches(TRAIN_BATCH, seed=SEED),
+                                    device=dev)
+    opt = torch.optim.Adam(lora.lora_parameters(adapters), lr=TRAIN_LR)
+    step = lora.make_lora_train_step(params, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_ms, w4a8 = [], [], []
+    _zero(counters)
+    for _ in range(TRAIN_STEPS):
+        before = counters["q4_matmul_w4a8"].launches
+        t0 = time.perf_counter()
+        adapters, opt, loss = step(adapters, opt, next(batches))
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        w4a8.append(counters["q4_matmul_w4a8"].launches - before)
+    launches = _counts(counters)
+    peak = torch.cuda.max_memory_allocated(dev)
+    expect_routes(launches, ("q4_matmul_w4a8", "quantize_activations"),
+                  ("q8_matmul", "q4_matmul_f32a", "flash_attention",
+                   "fused_mlp_q4", *DIAGNOSTIC), "phase 23 (a)")
+    # A step: each layer's four projections in the forward and again in
+    # the checkpointed recompute, and the head once.
+    for n in w4a8:
+        expect_launches(n, 2 * 4 * cfg.n_layers + 1, "phase 23 (a): W4A8")
+    expect_launches(launches["quantize_activations"],
+                    launches["q4_matmul_w4a8"], "phase 23 (a): quantization")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"phase 23 (a): losses {losses} do not fall")
+    layer0 = {f"{name}.{leaf}": float(
+        adapters[name][leaf].grad[0].abs().max())
+        for name in lora.DEFAULT_TARGETS for leaf in "ab"}
+    if min(layer0.values()) <= 0.0:
+        raise AssertionError(f"phase 23 (a): layer 0's adapter gradients "
+                             f"{layer0}: the gradient did not cross the "
+                             f"{cfg.n_layers - 1} frozen layers above it")
+    if float(adapters["__alpha__"]) != 16.0:
+        raise AssertionError("phase 23 (a): alpha moved")
+    log(f"  (a) Mistral-7B Q4 {cfg.n_layers} layers, LoRA rank {TRAIN_RANK}"
+        f" on {len(lora.DEFAULT_TARGETS)} targets, {TRAIN_STEPS} steps of "
+        f"B={TRAIN_BATCH} x S={TRAIN_SEQ}: losses "
+        + ", ".join(f"{v:.4f}" for v in losses)
+        + f"; step ms " + ", ".join(f"{v:.1f}" for v in step_ms)
+        + f"; W4A8 launches a step {w4a8}; peak {peak / 2 ** 30:.2f} GiB;"
+        f" layer 0's largest |grad| {min(layer0.values()):.3e} and up")
+    result = {"layers": cfg.n_layers, "rank": TRAIN_RANK,
+              "rows": TRAIN_BATCH, "seq": TRAIN_SEQ, "packed_rows": len(ds),
+              "losses": losses, "step_ms": step_ms,
+              "w4a8_launches_a_step": w4a8,
+              "peak_gib": peak / 2 ** 30, "layer0_grad_max": layer0,
+              "launches": launches,
+              "backward_product": backward_product_ms(quant, params, cfg,
+                                                      dev)}
+    return result, params
+
+
+def training_check(dev, llm, lora, train, quant, params, counters) -> dict:
+    """(b): the first TRAIN_CHECK layers of (a)'s model (views), one LoRA
+    loss and its adapter gradients on a packed row's first tokens, card
+    against CPU: the f32a route (exact activations, as on the CPU) within
+    TRAIN_F32A_TOL, the default W4A8 route's gap, and a Q8 base of the same
+    widths within TRAIN_F32A_TOL. The CPU multiplies by the card's
+    dequantized weights (``dequantized_on_cpu``), the function its plain
+    route computes, dequantized once."""
+    from trackiellm_tpu_torch.tools.diag_envelope import layer_slice
+    n, rows, seq = TRAIN_CHECK
+    cfg = serve_config(llm)._replace(n_layers=n)
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(SEED + 1)
+    tokens = torch.randint(0, 256, (rows, seq), generator=gen)
+    cut = layer_slice(params, n)
+    adapters = lora.init_lora(torch.Generator().manual_seed(SEED), cut,
+                              rank=TRAIN_RANK)
+    with torch.no_grad():
+        for name in lora.DEFAULT_TARGETS:   # B != 0: A gets a gradient too
+            adapters[name]["b"].normal_(0.0, 0.01, generator=gen)
+    out = {"layers": n, "rows": rows, "seq": seq}
+    windows = []
+
+    def compare(tag, base, want, route_env, ran, idle):
+        with levers_on(route_env):
+            _zero(counters)
+            loss, got = lora_grads(lora, train, base, cfg,
+                                   adapters_on(adapters, dev),
+                                   tokens.to(dev))
+            torch.cuda.synchronize()
+            launches = _counts(counters)
+        expect_routes(launches, ran, idle, f"phase 23 (b) {tag}")
+        windows.append(launches)
+        want_loss, want_grads = want
+        rels = {k: rel_l2(got[k], want_grads[k]) for k in want_grads}
+        out[tag] = {"loss": loss, "cpu_loss": want_loss,
+                    "loss_rel": abs(loss - want_loss) / abs(want_loss),
+                    "grad_rel_l2": rels, "max_grad_rel_l2": max(
+                        rels.values()), "launches": launches}
+        log(f"  (b) {tag}: loss {loss:.6f} (cpu {want_loss:.6f}), adapter "
+            f"gradients rel L2 max {max(rels.values()):.3e} over "
+            f"{len(rels)}; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        return out[tag]
+
+    def on_cpu(base):
+        return lora_grads(lora, train, dequantized_on_cpu(quant, base), cfg,
+                          adapters_on(adapters, cpu), tokens)
+    others = ("flash_attention", "fused_mlp_q4", *DIAGNOSTIC)
+    want = on_cpu(cut)
+    exact = compare("f32a", cut, want, ("TRACKIE_Q4_F32A",),
+                    ("q4_matmul_f32a",), ("q4_matmul_w4a8",
+                                          "quantize_activations",
+                                          "q8_matmul", *others))
+    w4a8 = compare("w4a8", cut, want, (), ("q4_matmul_w4a8",),
+                   ("q4_matmul_f32a", "q8_matmul", *others))
+    q8 = build_model(dev, llm, cfg, 8)
+    q8_row = compare("q8", q8, on_cpu(q8), (), ("q8_matmul",),
+                     ("q4_matmul_w4a8", "quantize_activations",
+                      "q4_matmul_f32a", *others))
+    del q8
+    for tag, row in (("f32a", exact), ("q8", q8_row)):
+        if max(row["max_grad_rel_l2"], row["loss_rel"]) > TRAIN_F32A_TOL:
+            raise AssertionError(
+                f"phase 23 (b) {tag}: card against CPU "
+                f"{row['max_grad_rel_l2']:.3e} (loss {row['loss_rel']:.3e})"
+                f", above {TRAIN_F32A_TOL}")
+    if not w4a8["max_grad_rel_l2"] <= TRAIN_W4A8_SANITY:
+        raise AssertionError(f"phase 23 (b) w4a8: gradients "
+                             f"{w4a8['max_grad_rel_l2']:.3e} from the CPU's")
+    out["launches"] = {k: sum(w[k] for w in windows) for k in windows[0]}
+    return out
+
+
+def training_small(dev, llm, train) -> dict:
+    """(c): two AdamW steps of make_train_step (make_optimizer at
+    TRAIN_SMALL_LR) on a small dense and a small MoE config in f32, card
+    against CPU from the same params and tokens: losses within
+    TRAIN_SMALL_TOL."""
+    out = {}
+    gen = torch.Generator().manual_seed(SEED + 2)
+    for tag, extra in (("dense", {}), ("moe", TRAIN_SMALL_MOE)):
+        cfg = llm.LLMConfig(**TRAIN_SMALL, **extra)
+        start = llm.init_params(torch.Generator().manual_seed(SEED), cfg,
+                                dtype=torch.float32)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen)
+        losses = {}
+        for where in ("card", "cpu"):
+            device = dev if where == "card" else torch.device("cpu")
+            params = fresh_copy(start, device)
+            leaves = train.param_leaves(params)
+            for t in leaves:
+                t.requires_grad_()
+            opt = train.make_optimizer(TRAIN_SMALL_LR)(leaves)
+            step = train.make_train_step(cfg)
+            losses[where] = [float(step(params, opt,
+                                        tokens.to(device))[2])
+                             for _ in range(2)]
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(losses["card"], losses["cpu"]))
+        out[tag] = {**losses, "max_rel": rel}
+        log(f"  (c) {tag}: card losses {losses['card']}, cpu "
+            f"{losses['cpu']}, rel {rel:.3e}")
+        if rel > TRAIN_SMALL_TOL:
+            raise AssertionError(f"phase 23 (c) {tag}: losses {rel:.3e} "
+                                 f"apart, above {TRAIN_SMALL_TOL}")
+    return out
+
+
+def wake_leaves(params) -> dict:
+    """A wake-word tree's tensors by dotted name."""
+    return {f"{k}.{kk}" if isinstance(v, dict) else k: t
+            for k, v in params.items()
+            for kk, t in (v.items() if isinstance(v, dict) else [("", v)])}
+
+
+def training_wake_word(dev) -> dict:
+    """(d): train_wake_word at the bundled artifact's config on the
+    synthetic set (the tool's TRAIN_WAKE_PAIRS keyword/imposter pairs),
+    TRAIN_WAKE_STEPS
+    Adam steps on the card and on the CPU from one init, every leaf within
+    TRAIN_WAKE_TOL rel L2; then the tool's full TRAIN_WAKE_FULL steps on
+    the card, timed, with its held-out false-accept/reject rates."""
+    from trackiellm_tpu_torch.audio import wake_word as ww
+    from trackiellm_tpu_torch.tools import train_wake_word_default as tool
+    cfg = ww.WakeWordConfig()
+    mels, labels = tool.training_set(TRAIN_WAKE_PAIRS, dev)
+    start = ww.init_wake_word(torch.Generator().manual_seed(1), cfg)
+    on_card = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                   if isinstance(v, dict) else v.to(dev))
+               for k, v in start.items()}
+    card = ww.train_wake_word(on_card, cfg, mels, labels,
+                              steps=TRAIN_WAKE_STEPS)
+    cpu = ww.train_wake_word(start, cfg, mels.cpu(), labels.cpu(),
+                             steps=TRAIN_WAKE_STEPS)
+    want = wake_leaves(cpu)
+    rels = {k: rel_l2(v.cpu(), want[k]) for k, v in wake_leaves(card).items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = ww.train_wake_word(on_card, cfg, mels, labels,
+                              steps=TRAIN_WAKE_FULL)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    rates = tool.held_out(full, cfg, dev)
+    log(f"  (d) wake word: {TRAIN_WAKE_STEPS} steps card vs cpu rel L2 max "
+        f"{max(rels.values()):.3e}; {TRAIN_WAKE_FULL} steps on the card in "
+        f"{full_s:.2f} s, held out {rates}")
+    if max(rels.values()) > TRAIN_WAKE_TOL:
+        raise AssertionError(f"phase 23 (d): wake-word params {rels} apart, "
+                             f"above {TRAIN_WAKE_TOL}")
+    return {"clips": int(mels.shape[0]), "steps": TRAIN_WAKE_STEPS,
+            "rel_l2": rels, "full_steps": TRAIN_WAKE_FULL,
+            "full_s": full_s, **rates}
+
+
+TRAIN_PROFILE_FLAG = "--training-profile"
+
+
+def training_profile(dev) -> dict:
+    """PERF.md §5's LoRA-step row (``chip_smoke.py --training-profile``, a
+    process of its own): (a)'s model and adapters, one warm step, then a
+    step on fresh tokens on the host clock and another under the
+    profiler."""
+    from trackiellm_tpu_torch.models import llm, lora
+    cfg = serve_config(llm)
+    params = build_model(dev, llm, cfg, 4)
+    adapters = lora.init_lora(torch.Generator(device=dev).manual_seed(SEED),
+                              params, rank=TRAIN_RANK)
+    opt = torch.optim.Adam(lora.lora_parameters(adapters), lr=TRAIN_LR)
+    step = lora.make_lora_train_step(params, cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def fresh():
+        toks = torch.randint(0, 256, (TRAIN_BATCH, TRAIN_SEQ), generator=gen,
+                             device=dev)
+        return lambda: step(adapters, opt, toks)
+    fresh()()
+    return {"layers": cfg.n_layers, "rows": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "rank": TRAIN_RANK,
+            "step": window_breakdown("LoRA step (32 layers)", fresh)}
+
+
+def phase_training(dev, counters) -> dict:
+    """Phase 23 (the constants above ``train_texts``): (a) LoRA over
+    Mistral-7B Q4 at 32 layers, (b) card against CPU at 2 layers on the
+    f32a, W4A8 and Q8 routes, (c) make_train_step small, (d) the wake-word
+    trainer; each part's seconds, and the launches of (a)'s and (b)'s
+    windows."""
+    from trackiellm_tpu_torch.llm import tokenizer as tokenizer_mod
+    from trackiellm_tpu_torch.models import llm, lora
+    from trackiellm_tpu_torch.ops import quant
+    from trackiellm_tpu_torch.parallel import data, train
+    t0 = time.perf_counter()
+    parts = {}
+
+    def lap(part: str) -> None:
+        parts[part] = time.perf_counter() - t0 - sum(parts.values())
+    out = {}
+    out["a"], params = training_lora(dev, llm, lora, train, data, quant,
+                                     tokenizer_mod, counters)
+    lap("a")
+    out["b"] = training_check(dev, llm, lora, train, quant, params,
+                              counters)
+    del params
+    torch.cuda.empty_cache()
+    lap("b")
+    out["c"] = training_small(dev, llm, train)
+    lap("c")
+    out["d"] = training_wake_word(dev)
+    lap("d")
+    windows = (out["a"]["launches"], out["b"]["launches"])
+    out["launches"] = {k: sum(w[k] for w in windows) for k in counters}
+    out["seconds"] = time.perf_counter() - t0
+    out["part_seconds"] = parts
+    log(f"  phase 23 took {out['seconds']:.1f} s ("
+        + ", ".join(f"({k}) {v:.1f}" for k, v in parts.items())
+        + f"); launches {out['launches']}")
+    return out
+
+
 def serve_config(llm):
     """Phases 5-7 and 12's configuration: Mistral-7B cut to max_seq 512."""
     return llm.LLMConfig.mistral_7b()._replace(max_seq=512,
@@ -8390,6 +8810,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == [Q3N_PROFILE_FLAG]:
         print(json.dumps(qwen3next_profile(dev)), flush=True)
+        return 0
+    if sys.argv[1:] == [TRAIN_PROFILE_FLAG]:
+        print(json.dumps(training_profile(dev)), flush=True)
         return 0
     smi = nvidia_smi()
     log(f"phase 1 device: torch {torch.__version__} cuda {torch.version.cuda}"
@@ -8564,17 +8987,26 @@ def main() -> int:
            "converted on the card and the CPU):")
     qwen3next = phase_qwen3next(dev, counters, work.name)
     launches[22] = qwen3next["launches"]
+    banner(f"phase 23 training (LoRA rank {TRAIN_RANK} over Mistral-7B Q4 "
+           f"at 32 layers, {TRAIN_STEPS} steps of {TRAIN_BATCH} packed rows "
+           f"of {TRAIN_SEQ}; {TRAIN_CHECK[0]} layers card against CPU on the "
+           "f32a, W4A8 and Q8 routes; make_train_step on small dense and MoE "
+           "configs; the wake-word trainer):")
+    training = phase_training(dev, counters)
+    launches[23] = training["launches"]
     end = time.perf_counter()
     work.cleanup()
     log(f"chip_smoke wall: {end - t0:.1f} s since the build began")
-    marks[23] = end
+    marks[24] = end
     seconds = {"1": t0 - main_t0}
-    seconds.update({str(n): marks[n + 1] - marks[n] for n in range(2, 23)
+    seconds.update({str(n): marks[n + 1] - marks[n] for n in range(2, 24)
                     if n in marks and n + 1 in marks})
     print(json.dumps({"phase_seconds": seconds, "wall_s": end - main_t0}),
           flush=True)
 
     smi = nvidia_smi()
+    print(json.dumps({"training": training, "card": smi}, default=str),
+          flush=True)
     print(json.dumps({"qwen3next": qwen3next, "card": smi}, default=str),
           flush=True)
     print(json.dumps({"mla_mamba": mla_mamba, "card": smi}, default=str),

@@ -640,6 +640,8 @@ def test_main_prints_the_voice_line_before_the_last_five(monkeypatch,
         "launches": {}})
     monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     lines = capsys.readouterr().out.strip().splitlines()[-6:]
     assert json.loads(lines[0]) == {"voice": {"n": 13},
@@ -704,6 +706,8 @@ def test_main_prints_the_vision_line_before_the_voice_line(monkeypatch,
     monkeypatch.setattr(cs, "phase_mla_mamba", lambda *a, **k: {
         "launches": {}})
     monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
+        "launches": {}})
+    monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
         "launches": {}})
     assert cs.main() == 0
     assert seen == [13, (14, True)]
@@ -856,10 +860,12 @@ def test_main_prints_the_app_line_before_the_vision_line(monkeypatch,
         "launches": {}})
     monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     assert seen == [True]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-17].startswith("chip_smoke wall: ")
+    assert lines[-18].startswith("chip_smoke wall: ")
     assert json.loads(lines[-9])["families"] == {"launches": {}, "n": 16}
     assert json.loads(lines[-8]) == {"app": {
         "launches": {"q4_matmul_w4a8": 7}, "n": 15},
@@ -1143,10 +1149,12 @@ def test_main_prints_the_moe_line_before_the_families_line(monkeypatch,
         "launches": {}})
     monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     assert seen == [True]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-17].startswith("chip_smoke wall: ")
+    assert lines[-18].startswith("chip_smoke wall: ")
     moe = json.loads(lines[-10])
     assert moe["moe"] == {"launches": {"q4_matmul_w4a8": 9}, "n": 17}
     assert moe["moe_kernels"]["q4_matmul_w4a8"] == [
@@ -1200,12 +1208,14 @@ def test_main_prints_the_vlm_line_and_the_phase_seconds(monkeypatch,
         "launches": {}})
     monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     assert seen == [(os.path.join(gguf[0], "mistral.gguf"), gguf[0])]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-17].startswith("chip_smoke wall: ")
-    timing = json.loads(lines[-16])
-    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 23)}
+    assert lines[-18].startswith("chip_smoke wall: ")
+    timing = json.loads(lines[-17])
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 24)}
     assert timing["wall_s"] >= sum(timing["phase_seconds"].values()) * 0.999
     assert json.loads(lines[-11]) == {
         "vlm": {"launches": {"q4_matmul_f32a": 4}, "n": 18},
@@ -1611,11 +1621,13 @@ def test_main_prints_the_surfaces_line_before_the_vlm_line(monkeypatch,
         "launches": {}})
     monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     assert seen == [(float, True)]
     lines = capsys.readouterr().out.strip().splitlines()
-    timing = json.loads(lines[-16])
-    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 23)}
+    timing = json.loads(lines[-17])
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 24)}
     assert json.loads(lines[-12]) == {
         "surfaces": {"launches": {"q4_matmul_f32a": 19}, "n": 19},
         "card": "H100, 700.00 W"}
@@ -1725,12 +1737,14 @@ def test_main_prints_the_perception_line_before_the_surfaces_line(
         "launches": {}})
     monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     assert seen == [True]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-17].startswith("chip_smoke wall: ")
-    timing = json.loads(lines[-16])
-    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 23)}
+    assert lines[-18].startswith("chip_smoke wall: ")
+    timing = json.loads(lines[-17])
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 24)}
     assert json.loads(lines[-13]) == {
         "perception": {"launches": {"q4_matmul_w4a8": 20}, "n": 20},
         "card": "H100, 700.00 W"}
@@ -1771,6 +1785,8 @@ def test_main_exits_non_zero_when_phase20_fails(monkeypatch, capsys):
     monkeypatch.setattr(cs, "phase_mla_mamba", lambda *a, **k: {
         "launches": {}})
     monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
+        "launches": {}})
+    monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
         "launches": {}})
     with pytest.raises(AssertionError, match="phase 20"):
         cs.main()
@@ -1887,6 +1903,8 @@ def test_phase20_fails_when_a_part_fails(monkeypatch, part):
 def test_perception_profile_child_fails_without_a_card(monkeypatch):
     cs = _load()
     monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
+        "launches": {}})
     with pytest.raises(AssertionError, match="phase 20"):
         cs.perception_profile_child()
 
@@ -1966,12 +1984,14 @@ def test_main_prints_the_mla_mamba_line_before_the_perception_line(
         "launches": {}})
     monkeypatch.setattr(cs, "kernels_line", lambda rows, launches: json.dumps(
         {"phase21": launches[21]}))
+    monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     assert seen == [True]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-17].startswith("chip_smoke wall: ")
-    timing = json.loads(lines[-16])
-    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 23)}
+    assert lines[-18].startswith("chip_smoke wall: ")
+    timing = json.loads(lines[-17])
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 24)}
     assert json.loads(lines[-14]) == {
         "mla_mamba": {"launches": {"flash_attention": 21}, "n": 21},
         "card": "H100, 700.00 W"}
@@ -2152,12 +2172,14 @@ def test_main_prints_the_qwen3next_line_before_the_mla_mamba_line(
         {"launches": {"q4_matmul_w4a8": 22}, "n": 22})[1])
     monkeypatch.setattr(cs, "kernels_line", lambda rows, launches: json.dumps(
         {"phase22": launches[22]}))
+    monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
+        "launches": {}})
     assert cs.main() == 0
     assert seen == [True]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-17].startswith("chip_smoke wall: ")
-    timing = json.loads(lines[-16])
-    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 23)}
+    assert lines[-18].startswith("chip_smoke wall: ")
+    timing = json.loads(lines[-17])
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 24)}
     assert json.loads(lines[-15]) == {
         "qwen3next": {"launches": {"q4_matmul_w4a8": 22}, "n": 22},
         "card": "H100, 700.00 W"}
@@ -2264,3 +2286,137 @@ def test_qwen3next_profile_on_the_cpu(monkeypatch, capsys):
                         "prefill", "decode"}
     assert out["decode"]["launches"] == 10 / cs.Q3N_PROFILE_TOKENS
     assert "profile Qwen3-Next decode" in capsys.readouterr().out
+
+
+def test_main_prints_the_training_line_before_the_qwen3next_line(
+        monkeypatch, capsys):
+    """Phase 23 runs last; its line comes just before the qwen3next line,
+    after the phase seconds (1 to 23), and the kernels line counts its
+    launches."""
+    from trackiellm_tpu_torch.ops import _build
+    cs = _load()
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda *a: (9, 0))
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "H100")
+    monkeypatch.setattr(cs, "nvidia_smi", lambda: "H100, 700.00 W")
+    monkeypatch.setattr(_build, "build", lambda: _build.BUILD_ROOT / "x")
+    monkeypatch.setattr(_build, "library", lambda: None)
+    for name, value in (("phase_kernels", {}), ("phase_width", None),
+                        ("build_model", {"layers": {}}), ("profile_path", {}),
+                        ("expect_routes", None), ("phase_entry", None),
+                        ("phase_diagnostics", {})):
+        monkeypatch.setattr(cs, name, lambda *a, v=value, **k: v)
+    monkeypatch.setattr(cs, "drive", lambda *a, **k: {
+        "quantize_activations": 1, "q4_matmul_w4a8": 1})
+    for name, n in (("phase_slice10", 10), ("phase_gguf", 11),
+                    ("phase_serve", 12), ("phase_app", 15),
+                    ("phase_families", 16), ("phase_moe", 17),
+                    ("phase_vlm", 18), ("phase_surfaces", 19),
+                    ("phase_perception", 20), ("phase_mla_mamba", 21),
+                    ("phase_qwen3next", 22)):
+        monkeypatch.setattr(cs, name, lambda *a, n=n, **k: {
+            "launches": {}, "n": n})
+    monkeypatch.setattr(cs, "phase_voice", lambda *a, **k: {"n": 13})
+    monkeypatch.setattr(cs, "phase_vision", lambda *a, **k: {"n": 14})
+    monkeypatch.setattr(cs, "phase_training", lambda dev, counters: {
+        "launches": {"q4_matmul_w4a8": 23}, "n": 23})
+    monkeypatch.setattr(cs, "kernels_line", lambda rows, launches: json.dumps(
+        {"phase23": launches[23]}))
+    assert cs.main() == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[-18].startswith("chip_smoke wall: ")
+    timing = json.loads(lines[-17])
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 24)}
+    assert json.loads(lines[-16]) == {
+        "training": {"launches": {"q4_matmul_w4a8": 23}, "n": 23},
+        "card": "H100, 700.00 W"}
+    assert json.loads(lines[-15])["qwen3next"]["n"] == 22
+    assert json.loads(lines[-2]) == {"phase23": {"q4_matmul_w4a8": 23}}
+
+
+def test_phase23_keeps_the_published_widths():
+    """Phase 23 (a) trains Mistral-7B at its published widths and all 32
+    layers (M = 512 rows a step: W4A8's largest M); (b) cuts it in depth
+    only; (c)'s small widths take group-free f32; (d) the bundled
+    artifact's config."""
+    from trackiellm_tpu_torch.audio import wake_word as ww
+    from trackiellm_tpu_torch.models import llm
+    from trackiellm_tpu_torch.ops import quant
+    cs = _load()
+    cfg = cs.serve_config(llm)
+    assert cfg._replace(max_seq=32768, sliding_window=4096) == \
+        llm.LLMConfig.mistral_7b()._replace(max_seq=32768)
+    assert cfg.n_layers == 32 and cs.TRAIN_CHECK[0] == 2
+    assert cs.TRAIN_BATCH * cs.TRAIN_SEQ == quant.KERNEL_MAX_M
+    assert cs.TRAIN_SEQ <= cfg.max_seq
+    params, cfg_file = ww.load_wake_word(ww.default_artifact_path(), "cpu")
+    assert cfg_file._replace(sensitivity=0.5) == ww.WakeWordConfig()
+    size = sum(len(t.encode()) + 1 for t in cs.train_texts())
+    assert size // cs.TRAIN_SEQ >= cs.TRAIN_STEPS * cs.TRAIN_BATCH
+
+
+def test_phase23_on_the_cpu(monkeypatch, capsys):
+    """Phase 23's control flow on the CPU at tiny widths (dim 512, 2
+    layers, group 256; the wake word on 4 pairs): (a) four LoRA steps whose
+    losses fall and whose layer-0 gradients are non-zero, the backward
+    products, (b) the three routes against the CPU (all the CPU here:
+    equal), (c) both small configs, (d) the wake word."""
+    from trackiellm_tpu_torch.models import llm
+    cs = _load()
+    cpu = torch.device("cpu")
+    for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    tiny = llm.LLMConfig(vocab_size=512, dim=512, n_layers=2, n_heads=8,
+                         n_kv_heads=4, head_dim=64, hidden_dim=1024,
+                         max_seq=512, sliding_window=512)
+    monkeypatch.setattr(cs, "serve_config", lambda mod: tiny)
+    monkeypatch.setattr(cs, "time_ms", lambda fn, iters=10, warmup=2: (
+        fn(), 0.0)[1])
+    monkeypatch.setattr(cs, "TRAIN_SMALL", {**cs.TRAIN_SMALL, "dim": 128,
+                                            "hidden_dim": 256})
+    monkeypatch.setattr(cs, "TRAIN_WAKE_PAIRS", 4)
+    monkeypatch.setattr(cs, "TRAIN_WAKE_FULL", 2)
+    checks = []
+    monkeypatch.setattr(cs, "expect_routes", lambda launches, ran, idle,
+                        phase: checks.append(phase))
+    monkeypatch.setattr(cs, "expect_launches", lambda got, want, what:
+                        checks.append((what, want)))
+    out = cs.phase_training(cpu, cs.launch_counters())
+    a = out["a"]
+    assert len(a["losses"]) == cs.TRAIN_STEPS
+    assert a["losses"][-1] < a["losses"][0]
+    assert min(a["layer0_grad_max"].values()) > 0
+    assert set(a["backward_product"]) == {"wqkv", "wo", "w_gu", "w_down",
+                                          "lm_head"}
+    assert checks[:2] == ["phase 23 (a)", ("phase 23 (a): W4A8", 17)]
+    b = out["b"]
+    for tag in ("f32a", "w4a8", "q8"):
+        assert b[tag]["max_grad_rel_l2"] <= 1e-6, tag
+        assert len(b[tag]["grad_rel_l2"]) == 8
+    assert all(out["c"][k]["max_rel"] == 0.0 for k in ("dense", "moe"))
+    assert max(out["d"]["rel_l2"].values()) == 0.0
+    assert set(out["part_seconds"]) == {"a", "b", "c", "d"}
+    text = capsys.readouterr().out
+    for tag in ("(a) Mistral-7B Q4 2 layers", "backward product w_gu",
+                "(b) f32a:", "(b) q8:", "(c) moe:", "(d) wake word:",
+                "phase 23 took"):
+        assert tag in text, tag
+
+
+def test_training_profile_on_the_cpu(monkeypatch, capsys):
+    """``chip_smoke.py --training-profile`` on the CPU at tiny widths (the
+    profiler faked): one LoRA step's window."""
+    from trackiellm_tpu_torch.models import llm
+    cs = _load()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(cs, "serve_config", lambda mod: llm.LLMConfig(
+        vocab_size=512, dim=512, n_layers=2, n_heads=8, n_kv_heads=4,
+        head_dim=64, hidden_dim=1024, max_seq=512, sliding_window=512))
+    monkeypatch.setattr(cs, "device_breakdown", lambda fn: (
+        fn(), 0.5, 10, {"kernel": (0.5, 10)})[1:])
+    out = cs.training_profile(torch.device("cpu"))
+    assert set(out) == {"layers", "rows", "seq", "rank", "step"}
+    assert out["step"]["launches"] == 10
+    assert "profile LoRA step" in capsys.readouterr().out

@@ -269,8 +269,10 @@ def test_port_imports_no_jax():
     the perception models (the embedder with ``WordPieceTokenizer``,
     TrOCR, AST, the CNN sound classifier and its engine, and their
     converters), the MLA, Mamba, Mamba-2 and Qwen3-Next models with the
-    associative scan, logging, CLI, probes, diagnostic, conversion, serving and app
-    latency tools and chip_smoke.py pulls in no JAX module, no module of the JAX
+    associative scan, LoRA, the single-device trainer (``parallel``: its
+    layer body, loss and train step, perplexity, packed data), logging, CLI,
+    probes, diagnostic, conversion, serving, app latency and wake-word
+    training tools and chip_smoke.py pulls in no JAX module, no module of the JAX
     package (``trackiellm_tpu`` or ``trackiellm_tpu.*``, even one that imports no
     JAX), none of the JAX package's tools and no ``transformers``, which
     the card's host lacks (this test process has JAX loaded already, hence
@@ -357,6 +359,13 @@ def test_port_imports_no_jax():
             "trackiellm_tpu_torch.audio, "
             "trackiellm_tpu_torch.audio.pipeline, "
             "trackiellm_tpu_torch.audio.wake_word, "
+            "trackiellm_tpu_torch.models.lora, "
+            "trackiellm_tpu_torch.parallel, "
+            "trackiellm_tpu_torch.parallel.layers, "
+            "trackiellm_tpu_torch.parallel.train, "
+            "trackiellm_tpu_torch.parallel.evaluate, "
+            "trackiellm_tpu_torch.parallel.data, "
+            "trackiellm_tpu_torch.tools.train_wake_word_default, "
             "trackiellm_tpu_torch.app, "
             "trackiellm_tpu_torch.demo, "
             "trackiellm_tpu_torch.tools.measure_app_e2e, "

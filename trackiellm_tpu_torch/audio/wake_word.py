@@ -9,8 +9,10 @@ sensitivity-thresholded streaming interface.
 
 Convolution weights are OIHW here (the JAX package's are HWIO); the
 ``.npz`` artifact keeps the JAX package's layout, so one file serves both.
-Every forward runs on the params' device under ``exact_f32``. Training
-(``train_wake_word``) is not ported.
+Every forward runs on the params' device under ``exact_f32``;
+``train_wake_word`` trains there, its backward in full f32 too, and
+``trackiellm_tpu_torch/tools/train_wake_word_default.py`` trains and writes
+an artifact as the JAX package's tool does.
 """
 
 from __future__ import annotations
@@ -64,16 +66,12 @@ def init_wake_word(gen: torch.Generator,
     }
 
 
-@torch.no_grad()
-def wake_word_score(params: Dict[str, Any], cfg: WakeWordConfig,
-                    log_mel: torch.Tensor) -> torch.Tensor:
-    """(n_mels, n_frames) window -> keyword probability (0-dim tensor).
-
-    Pooling is over (mel, time) per TIME HALF, concatenated — keeps
-    phrase order visible to the head (out_w is (2*ch, 1); a legacy
-    (ch, 1) head falls back to one global pool). The convolutions are
-    stride 2 with XLA's "SAME" padding (the odd pad after)."""
-    x = log_mel.float()[None, None]
+def _scores(params: Dict[str, Any], cfg: WakeWordConfig,
+            log_mels: torch.Tensor) -> torch.Tensor:
+    """(B, n_mels, n_frames) windows -> (B,) keyword probabilities, with
+    gradients where autograd records: :func:`wake_word_score`'s body over a
+    batch (the reference's ``vmap``)."""
+    x = log_mels.float()[:, None]
     with exact_f32():
         for name in ("conv1", "conv2"):
             p = params[name]
@@ -83,11 +81,58 @@ def wake_word_score(params: Dict[str, Any], cfg: WakeWordConfig,
                        + p["b"][:, None, None])
         if params["out_w"].shape[0] == 2 * x.shape[1]:
             half = x.shape[3] // 2
-            pooled = torch.cat([x[0, :, :, :half].mean(dim=(1, 2)),
-                                x[0, :, :, half:].mean(dim=(1, 2))])
+            pooled = torch.cat([x[:, :, :, :half].mean(dim=(2, 3)),
+                                x[:, :, :, half:].mean(dim=(2, 3))], dim=1)
         else:  # legacy single-pool checkpoints
-            pooled = x[0].mean(dim=(1, 2))
-        return torch.sigmoid(pooled @ params["out_w"] + params["out_b"])[0]
+            pooled = x.mean(dim=(2, 3))
+        return torch.sigmoid(pooled @ params["out_w"] + params["out_b"])[:, 0]
+
+
+@torch.no_grad()
+def wake_word_score(params: Dict[str, Any], cfg: WakeWordConfig,
+                    log_mel: torch.Tensor) -> torch.Tensor:
+    """(n_mels, n_frames) window -> keyword probability (0-dim tensor).
+
+    Pooling is over (mel, time) per TIME HALF, concatenated — keeps
+    phrase order visible to the head (out_w is (2*ch, 1); a legacy
+    (ch, 1) head falls back to one global pool). The convolutions are
+    stride 2 with XLA's "SAME" padding (the odd pad after)."""
+    return _scores(params, cfg, log_mel[None])[0]
+
+
+def train_wake_word(params: Dict[str, Any], cfg: WakeWordConfig, mels,
+                    labels, steps: int = 300,
+                    lr: float = 3e-3) -> Dict[str, Any]:
+    """Fit the conv KWS on (B, n_mels, n_frames) log-mel windows with 0/1
+    labels (tensors or arrays): the mean binary cross-entropy of the
+    scores clipped to [1e-6, 1 - 1e-6], full-batch ``torch.optim.Adam(lr)``
+    for ``steps`` steps, on the params' device, forward and backward in
+    full f32 (``exact_f32``).
+    Returns new params (detached; ``params`` is not changed). The Porcupine
+    replacement has no ingestible published weights (proprietary blob,
+    tk_wake_word_porcupine.c:15), so deployments train the spotter on
+    recorded keyword/imposter windows."""
+    dev = params["out_w"].device
+    p = {k: ({kk: vv.detach().clone().requires_grad_()
+              for kk, vv in v.items()} if isinstance(v, dict)
+             else v.detach().clone().requires_grad_())
+         for k, v in params.items()}
+    leaves = [t for v in p.values()
+              for t in (v.values() if isinstance(v, dict) else (v,))]
+    opt = torch.optim.Adam(leaves, lr=lr)
+    x, y = (torch.as_tensor(a).to(dev, torch.float32)
+            for a in (mels, labels))
+    eps = 1e-6
+    with exact_f32():
+        for _ in range(steps):
+            opt.zero_grad(set_to_none=True)
+            s = _scores(p, cfg, x).clamp(eps, 1 - eps)
+            loss = -(y * torch.log(s) + (1 - y) * torch.log(1 - s)).mean()
+            loss.backward()
+            opt.step()
+    return {k: ({kk: vv.detach() for kk, vv in v.items()}
+                if isinstance(v, dict) else v.detach())
+            for k, v in p.items()}
 
 
 class NeuralWakeWord:

@@ -6,7 +6,8 @@ with torch tensors: uint8 packed Q4 values, int8 Q8 values and f32 scales
 keep their bytes; bf16 arrays go through their uint16 view, because
 ``torch.from_numpy`` does not take ``ml_dtypes.bfloat16``. Leaves may be
 numpy arrays or anything ``numpy.asarray`` takes (JAX arrays included), so
-this module needs no JAX import.
+this module needs no JAX import. ``lora_from_jax`` carries the LoRA
+adapters that the JAX package trains over such a tree.
 
 The embedder's, TrOCR's and AST's trees carry across through
 ``params_from_jax`` unchanged: their matrices are ``(in, out)`` in both
@@ -51,6 +52,21 @@ def params_from_jax(tree: Any, device: Optional[torch.device] = None) -> Any:
     if isinstance(tree, (list, tuple)):
         return [params_from_jax(v, device) for v in tree]
     return array_to_torch(tree, device)
+
+
+def lora_from_jax(tree: Any, device: Optional[torch.device] = None) -> Any:
+    """The JAX package's LoRA adapter tree (``models/lora.py:init_lora``'s
+    ``{name: {"a", "b"}, "__alpha__"}``, numpy arrays or anything
+    ``numpy.asarray`` takes) as this package's: the same bytes, A and B
+    leaves that require a gradient, ``__alpha__`` a 0-dim f32 tensor."""
+    out = {}
+    for name, ab in tree.items():
+        if name == "__alpha__":
+            out[name] = array_to_torch(np.asarray(ab, np.float32), device)
+        else:
+            out[name] = {k: array_to_torch(v, device).requires_grad_()
+                         for k, v in ab.items()}
+    return out
 
 
 def hwio_tree_from_jax(tree: Any, device: Optional[torch.device] = None,

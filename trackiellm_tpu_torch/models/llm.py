@@ -48,7 +48,7 @@ from trackiellm_tpu_torch.ops.attention import (
     decode_attention_batch,
     prefill_attention,
 )
-from trackiellm_tpu_torch.ops.backend import default_device, is_cuda
+from trackiellm_tpu_torch.ops.backend import default_device, exact_f32, is_cuda
 from trackiellm_tpu_torch.ops.quant import (
     QuantizedLinear,
     quantize_q4,
@@ -537,12 +537,13 @@ def quantized_stack(lead: Tuple[int, ...], build) -> QuantizedLinear:
 
 
 def params_to(params: Any, device: torch.device) -> Any:
-    """A copy of a param tree on ``device`` (None leaves stay None)."""
+    """A copy of a param tree on ``device`` (None leaves stay None; named
+    tuples, ``QuantizedLinear`` and ``models.lora.LoraLinear``, keep their
+    type)."""
     if isinstance(params, dict):
         return {k: params_to(v, device) for k, v in params.items()}
-    if isinstance(params, QuantizedLinear):
-        return QuantizedLinear(params.values.to(device),
-                               params.scales.to(device))
+    if hasattr(params, "_fields"):
+        return type(params)._make(params_to(v, device) for v in params)
     if isinstance(params, (list, tuple)):
         return [params_to(v, device) for v in params]
     return None if params is None else params.to(device)
@@ -551,15 +552,19 @@ def params_to(params: Any, device: torch.device) -> Any:
 def _layer(layers: Dict[str, Any], li: int) -> Dict[str, Any]:
     """Layer ``li``'s view of the stacked layer params (no copies); a
     LayerNorm's ``{"g", "b"}`` dict gives a dict of views."""
-    out = {}
-    for name, w in layers.items():
-        if isinstance(w, QuantizedLinear):
-            out[name] = QuantizedLinear(w.values[li], w.scales[li])
-        elif isinstance(w, dict):
-            out[name] = _layer(w, li)
-        else:
-            out[name] = w[li]
-    return out
+    return {name: _layer_leaf(w, li) for name, w in layers.items()}
+
+
+def _layer_leaf(w, li: int):
+    """Row ``li`` of one stacked leaf: of each field of a named tuple (a
+    ``QuantizedLinear``, or a ``models.lora.LoraLinear`` with its base,
+    adapters and per-layer alpha), of each entry of a dict, or of a
+    tensor."""
+    if hasattr(w, "_fields"):
+        return type(w)._make(_layer_leaf(f, li) for f in w)
+    if isinstance(w, dict):
+        return _layer(w, li)
+    return w[li]
 
 
 # ---------------------------------------------------------------------------
@@ -567,11 +572,20 @@ def _layer(layers: Dict[str, Any], li: int) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 def _linear(x: torch.Tensor, w) -> torch.Tensor:
-    """Projection through a QuantizedLinear or a dense (K, N) weight, f32
+    """Projection through a QuantizedLinear, a dense (K, N) weight or a
+    LoRA-wrapped base (``models.lora.LoraLinear``, known by its fields), f32
     sums cast back to x's dtype. A dense bf16 weight on the card is read as
     it is stored, with f32 sums (``torch.mm(..., out_dtype=float32)``, the
     reference's ``preferred_element_type=f32``): an f32 copy of the weight
-    would cost its traffic on every call. The CPU widens both to f32."""
+    would cost its traffic on every call. The CPU widens both to f32. The
+    LoRA branch adds ``(x @ a) @ b * (alpha / r)`` in f32 torch ops to the
+    base's output, as the reference computes it outside any kernel."""
+    if hasattr(w, "base") and hasattr(w, "a"):
+        y = _linear(x, w.base)
+        r = w.a.shape[-1]
+        delta = torch.matmul(torch.matmul(x.float(), w.a.float()),
+                             w.b.float())
+        return (y.float() + delta * (w.alpha / r)).to(x.dtype)
     if isinstance(w, QuantizedLinear):
         return quantized_matmul(x, w).to(x.dtype)
     out = _mm_f32(x.reshape(-1, x.shape[-1]), w)
@@ -581,10 +595,36 @@ def _linear(x: torch.Tensor, w) -> torch.Tensor:
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(M, K) @ (K, N) with f32 sums and an f32 result
     (``preferred_element_type``): a bf16 pair on the card is read as
-    stored; elsewhere both widen to f32."""
+    stored; elsewhere both widen to f32. ``torch.mm(..., out_dtype=)`` has
+    no derivative, so where autograd records the bf16 pair goes through
+    :class:`_MmF32Fn`."""
     if is_cuda(a) and a.dtype == b.dtype == torch.bfloat16:
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            return _MmF32Fn.apply(a, b)
         return torch.mm(a, b, out_dtype=torch.float32)
     return torch.matmul(a.float(), b.float())
+
+
+class _MmF32Fn(torch.autograd.Function):
+    """:func:`_mm_f32` on a bf16 pair with its gradients: f32 products of
+    the f32 output gradient with each operand widened (TF32 off), cast to
+    the operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b = ctx.saved_tensors
+        da = db = None
+        with exact_f32():
+            if ctx.needs_input_grad[0]:
+                da = torch.mm(dy, b.float().t()).to(a.dtype)
+            if ctx.needs_input_grad[1]:
+                db = torch.mm(a.float().t(), dy).to(b.dtype)
+        return da, db
 
 
 def _unit_rms(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -716,12 +756,14 @@ def _mlp_block(x: torch.Tensor, norm_scale, w_gu, w_down, eps: float,
     pre-norm, no post-norm, multiplier 1, gated weights; decode and the
     lookahead chunk take it, prefill and extend (M > 8) and Q8 weights do
     not. The biases are not in the condition, as there: no dense preset
-    has them with SwiGLU."""
+    has them with SwiGLU. A forward that autograd records does not take
+    it: the fused kernel has no gradient."""
     if (x.dim() == 2 and act == "silu" and post_norm is None
             and norm_scale is not None and residual_multiplier == 1.0
             and gated and norm_type == "rms"
             and not isinstance(norm_scale, dict)
-            and fused.use_fused_mlp() and fused._can_fuse(x, w_gu, w_down)):
+            and fused.use_fused_mlp() and fused._can_fuse(x, w_gu, w_down)
+            and not (torch.is_grad_enabled() and x.requires_grad)):
         return fused.fused_mlp(x, norm_scale, w_gu, w_down, eps)
     h2 = _norm(x, norm_scale, eps, norm_type) if norm_scale is not None else x
     gu = _linear(h2, w_gu).float()

@@ -14,7 +14,9 @@ Four hand-written kernels, each beside its plain PyTorch twin (``*_ref``):
 ``q4_matmul_f32a`` (``csrc/q4_f32a.cu``) replaces ``q4_matmul_pallas`` and
 ``q4_matmul_stream`` (``csrc/q4_stream.cu``) replaces
 ``q4_matmul_pallas_v2``. ``quantized_matmul`` dispatches as the JAX package
-does, and so, like it, never takes the streaming kernel.
+does, and so, like it, never takes the streaming kernel; where autograd
+records, it gives x the gradient of the exact product (weights frozen:
+training adapts LoRA adapters over them, ``models/lora.py``).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from trackiellm_tpu_torch.ops import _build
-from trackiellm_tpu_torch.ops.backend import is_cuda
+from trackiellm_tpu_torch.ops.backend import exact_f32, is_cuda
 
 DEFAULT_GROUP = 256
 # Largest M that quantized_matmul sends to the default Q4 kernel (W4A8,
@@ -663,6 +665,56 @@ def q4_matmul_stream(x: torch.Tensor, packed: torch.Tensor,
 q4_matmul_stream.launches = 0
 
 
+def _quantized_matmul_2d(x: torch.Tensor, qw: QuantizedLinear) -> torch.Tensor:
+    """:func:`quantized_matmul`'s route on an (M, K) x."""
+    if not is_cuda(x):
+        return quantized_matmul_ref(x, qw)
+    if qw.values.dtype == torch.int8:
+        return q8_matmul(x, qw.values, qw.scales)
+    if (x.shape[0] > KERNEL_MAX_M
+            or os.environ.get("TRACKIE_Q4_F32A") == "1"):
+        return q4_matmul_f32a(x, qw.values, qw.scales)
+    return q4_matmul_w4a8(x, qw.values, qw.scales)
+
+
+def quantized_matmul_grad(dy: torch.Tensor, qw: QuantizedLinear
+                          ) -> torch.Tensor:
+    """The gradient of ``x @ dequantize(qw)`` with respect to x: (M, N) dy
+    times the dequantized (K, N) weight transposed, f32 in and out, TF32
+    off. The JAX package differentiates this product outside any Pallas
+    kernel (``quantized_matmul_xla``), so here it is the port's
+    :func:`dequantize` and one ``torch.matmul`` on the tensors' device."""
+    with exact_f32():
+        return torch.matmul(dy.float(), dequantize(qw).t())
+
+
+class _QuantizedMatmulFn(torch.autograd.Function):
+    """:func:`quantized_matmul` with a gradient for x (weights and scales
+    are frozen: they get none).
+
+    The kernel wrappers launch through ctypes, so their outputs carry no
+    ``grad_fn``: without this Function autograd would drop the gradient
+    through every frozen projection. The forward is the route of
+    :func:`quantized_matmul`, bits and launch counts unchanged. The
+    backward is that of the exact product, :func:`quantized_matmul_grad`.
+    On the CPU that is the plain forward's own gradient. On the card, where
+    the default Q4 route (W4A8) quantizes the activations to int8, it is a
+    straight-through estimator: the rounding of x is treated as the
+    identity, as the JAX package's gradient of the exact product does."""
+
+    @staticmethod
+    def forward(ctx, x, values, scales):
+        ctx.save_for_backward(values, scales)
+        ctx.x_dtype = x.dtype
+        return _quantized_matmul_2d(x, QuantizedLinear(values, scales))
+
+    @staticmethod
+    def backward(ctx, dy):
+        values, scales = ctx.saved_tensors
+        dx = quantized_matmul_grad(dy, QuantizedLinear(values, scales))
+        return dx.to(ctx.x_dtype), None, None
+
+
 def quantized_matmul(x: torch.Tensor, qw: QuantizedLinear) -> torch.Tensor:
     """(..., K) @ quantized (K, N) -> (..., N) f32.
 
@@ -679,16 +731,14 @@ def quantized_matmul(x: torch.Tensor, qw: QuantizedLinear) -> torch.Tensor:
     route sends a CUDA tensor to a plain version. The JAX package's other
     levers (``TRACKIE_PALLAS_MAX_M``, ``TRACKIE_PREFILL_XLA_M``,
     ``TRACKIE_Q4_WIDE_W``) tune TPU tiles or route to the plain path, and
-    are not read."""
+    are not read.
+
+    Where autograd records (x requires a gradient), the same route runs
+    inside :class:`_QuantizedMatmulFn`, which gives x its gradient."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if not is_cuda(x2):
-        out = quantized_matmul_ref(x2, qw)
-    elif qw.values.dtype == torch.int8:
-        out = q8_matmul(x2, qw.values, qw.scales)
-    elif (x2.shape[0] > KERNEL_MAX_M
-          or os.environ.get("TRACKIE_Q4_F32A") == "1"):
-        out = q4_matmul_f32a(x2, qw.values, qw.scales)
+    if x2.requires_grad and torch.is_grad_enabled():
+        out = _QuantizedMatmulFn.apply(x2, qw.values, qw.scales)
     else:
-        out = q4_matmul_w4a8(x2, qw.values, qw.scales)
+        out = _quantized_matmul_2d(x2, qw)
     return out.reshape(*lead, qw.n)
