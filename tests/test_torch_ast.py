@@ -11,7 +11,10 @@ same bytes and take the same features.
 
 Tolerances: the converters' leaves and labels are equal; the logits agree
 to 1e-5 relative L2 and ``ast_features`` to 1e-6 absolute; the ambient
-class each package's classifier reports is the same.
+class each package's classifier reports is the same, named as the cortex
+names it in the port (``SoundClass``: "ALARM") where the JAX package
+names it in lower case ("alarm"), which its cortex never speaks as
+urgent.
 """
 
 import numpy as np
@@ -43,6 +46,11 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def _cortex_name(name):
+    """The JAX package's ambient class under the port's name for it."""
+    return None if name is None else name.upper()
 
 
 def rel_l2(a, b) -> float:
@@ -177,7 +185,8 @@ def test_ast_features_match(seconds):
 
 def test_label_mapping_and_threshold_match(models):
     """Every label's class and the threshold: each package's classifier
-    reports the same ambient class, or None, on the same features."""
+    reports the same ambient class, or None, on the same features (the
+    port under the cortex's upper-case name)."""
     jp, jcfg, tp, tcfg = models
     for seed in (35, 36, 37):
         x = spec(seed)
@@ -188,9 +197,9 @@ def test_label_mapping_and_threshold_match(models):
             got = tast.ASTSoundClassifier(
                 tp, tcfg, LABELS, threshold=thr,
                 features_fn=lambda audio: x)(np.zeros(800, np.float32))
-            assert got == want, (seed, thr)
+            assert got == _cortex_name(want), (seed, thr)
     assert tast.ASTSoundClassifier(tp, tcfg, LABELS)._class_ids == {
-        "alarm": [0], "siren": [2], "water_running": [3], "dog_bark": [4]}
+        "ALARM": [0], "SIREN": [2], "WATER_RUNNING": [3], "DOG_BARK": [4]}
 
 
 @pytest.mark.parametrize("label,name", [
@@ -208,7 +217,7 @@ def test_forced_class_detection(models, label, name):
                                    features_fn=lambda audio: x)(silence)
     got = tast.ASTSoundClassifier(tb, tcfg, LABELS,
                                   features_fn=lambda audio: x)(silence)
-    assert got == want == name
+    assert want == name and got == name.upper()
 
 
 def test_pipeline_sound_fn_surface(models):
@@ -233,4 +242,48 @@ def test_pipeline_sound_fn_surface(models):
                 np.float32))
     finally:
         pipe.close()
-    assert windows == [16000] and heard == ["alarm"]
+    assert windows == [16000] and heard == ["ALARM"]
+
+
+class _Said:
+    """Records every line a cortex speaks."""
+
+    def __init__(self):
+        self.said = []
+
+    def say(self, text, priority):
+        self.said.append((text, int(priority)))
+
+
+def test_ast_alarm_is_urgent_in_the_port_only(models):
+    """A smoke alarm that AST hears reaches each package's cortex as the
+    class its classifier names: the JAX package's "alarm" is a NORMAL
+    context item and no speech, since the cortex speaks urgently only for
+    ALARM and SIREN; the port's "ALARM" is an URGENT item and CRITICAL
+    speech."""
+    from trackiellm_tpu.cortex import main as jcortex
+    from trackiellm_tpu_torch.cortex import main as tcortex
+    from trackiellm_tpu_torch.cortex.decision import ActionPriority
+    jp, jcfg, tp, tcfg = models
+    x = spec(38)
+    jb = dict(jp, head_b=jnp.asarray(
+        np.asarray(jp["head_b"]) + 20.0 * np.eye(len(LABELS))[0]))
+    tb = dict(tp, head_b=tp["head_b"] + 20.0 * torch.eye(len(LABELS))[0])
+    silence = np.zeros(800, np.float32)
+    heard = {"jax": jast.ASTSoundClassifier(
+        jb, jcfg, LABELS, features_fn=lambda audio: x)(silence),
+        "torch": tast.ASTSoundClassifier(
+        tb, tcfg, LABELS, features_fn=lambda audio: x)(silence)}
+    assert heard == {"jax": "alarm", "torch": "ALARM"}
+    said, context = {}, {}
+    for side, mod in (("jax", jcortex), ("torch", tcortex)):
+        audio = _Said()
+        c = mod.Cortex(audio_pipeline=audio)
+        c._process_ambient_sound(heard[side])
+        said[side] = audio.said
+        context[side] = c.reasoner.generate_context_string()
+    assert said["jax"] == []
+    assert said["torch"] == [("URGENTE: ALARM detectado!",
+                              int(ActionPriority.CRITICAL))]
+    assert "Som detectado: alarm" in context["jax"]
+    assert "Som detectado: ALARM" in context["torch"]

@@ -640,6 +640,8 @@ def test_main_prints_the_voice_line_before_the_last_five(monkeypatch,
         "launches": {}})
     monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_first_contact", lambda *a, **k: {
+        "launches": {}})
     monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
         "launches": {}})
     assert cs.main() == 0
@@ -706,6 +708,8 @@ def test_main_prints_the_vision_line_before_the_voice_line(monkeypatch,
     monkeypatch.setattr(cs, "phase_mla_mamba", lambda *a, **k: {
         "launches": {}})
     monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
+        "launches": {}})
+    monkeypatch.setattr(cs, "phase_first_contact", lambda *a, **k: {
         "launches": {}})
     monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
         "launches": {}})
@@ -860,12 +864,14 @@ def test_main_prints_the_app_line_before_the_vision_line(monkeypatch,
         "launches": {}})
     monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_first_contact", lambda *a, **k: {
+        "launches": {}})
     monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
         "launches": {}})
     assert cs.main() == 0
     assert seen == [True]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-18].startswith("chip_smoke wall: ")
+    assert lines[-19].startswith("chip_smoke wall: ")
     assert json.loads(lines[-9])["families"] == {"launches": {}, "n": 16}
     assert json.loads(lines[-8]) == {"app": {
         "launches": {"q4_matmul_w4a8": 7}, "n": 15},
@@ -1149,12 +1155,14 @@ def test_main_prints_the_moe_line_before_the_families_line(monkeypatch,
         "launches": {}})
     monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_first_contact", lambda *a, **k: {
+        "launches": {}})
     monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
         "launches": {}})
     assert cs.main() == 0
     assert seen == [True]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-18].startswith("chip_smoke wall: ")
+    assert lines[-19].startswith("chip_smoke wall: ")
     moe = json.loads(lines[-10])
     assert moe["moe"] == {"launches": {"q4_matmul_w4a8": 9}, "n": 17}
     assert moe["moe_kernels"]["q4_matmul_w4a8"] == [
@@ -1208,14 +1216,16 @@ def test_main_prints_the_vlm_line_and_the_phase_seconds(monkeypatch,
         "launches": {}})
     monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_first_contact", lambda *a, **k: {
+        "launches": {}})
     monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
         "launches": {}})
     assert cs.main() == 0
     assert seen == [(os.path.join(gguf[0], "mistral.gguf"), gguf[0])]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-18].startswith("chip_smoke wall: ")
-    timing = json.loads(lines[-17])
-    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 24)}
+    assert lines[-19].startswith("chip_smoke wall: ")
+    timing = json.loads(lines[-18])
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 25)}
     assert timing["wall_s"] >= sum(timing["phase_seconds"].values()) * 0.999
     assert json.loads(lines[-11]) == {
         "vlm": {"launches": {"q4_matmul_f32a": 4}, "n": 18},
@@ -1621,13 +1631,15 @@ def test_main_prints_the_surfaces_line_before_the_vlm_line(monkeypatch,
         "launches": {}})
     monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_first_contact", lambda *a, **k: {
+        "launches": {}})
     monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
         "launches": {}})
     assert cs.main() == 0
     assert seen == [(float, True)]
     lines = capsys.readouterr().out.strip().splitlines()
-    timing = json.loads(lines[-17])
-    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 24)}
+    timing = json.loads(lines[-18])
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 25)}
     assert json.loads(lines[-12]) == {
         "surfaces": {"launches": {"q4_matmul_f32a": 19}, "n": 19},
         "card": "H100, 700.00 W"}
@@ -1737,14 +1749,16 @@ def test_main_prints_the_perception_line_before_the_surfaces_line(
         "launches": {}})
     monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_first_contact", lambda *a, **k: {
+        "launches": {}})
     monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
         "launches": {}})
     assert cs.main() == 0
     assert seen == [True]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-18].startswith("chip_smoke wall: ")
-    timing = json.loads(lines[-17])
-    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 24)}
+    assert lines[-19].startswith("chip_smoke wall: ")
+    timing = json.loads(lines[-18])
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 25)}
     assert json.loads(lines[-13]) == {
         "perception": {"launches": {"q4_matmul_w4a8": 20}, "n": 20},
         "card": "H100, 700.00 W"}
@@ -1785,6 +1799,8 @@ def test_main_exits_non_zero_when_phase20_fails(monkeypatch, capsys):
     monkeypatch.setattr(cs, "phase_mla_mamba", lambda *a, **k: {
         "launches": {}})
     monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
+        "launches": {}})
+    monkeypatch.setattr(cs, "phase_first_contact", lambda *a, **k: {
         "launches": {}})
     monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
         "launches": {}})
@@ -1858,7 +1874,7 @@ def test_phase20_on_the_cpu(monkeypatch, capsys):
     out = cs.phase_perception(cpu, llm, runner, cs.launch_counters(),
                               lambda: cs.perception_profile(cpu))
     a = out["card_vs_cpu"]
-    assert a["trocr"]["ids_equal"] and a["ast"]["forced_alarm"] == "alarm"
+    assert a["trocr"]["ids_equal"] and a["ast"]["forced_alarm"] == "ALARM"
     assert set(out["timed"]) == {"embed", "ocr", "ast", "cnn"}
     assert set(out["profile"]) == {"embed", "ocr", "ast", "cnn"}
     app = out["app"]
@@ -1903,6 +1919,8 @@ def test_phase20_fails_when_a_part_fails(monkeypatch, part):
 def test_perception_profile_child_fails_without_a_card(monkeypatch):
     cs = _load()
     monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    monkeypatch.setattr(cs, "phase_first_contact", lambda *a, **k: {
+        "launches": {}})
     monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
         "launches": {}})
     with pytest.raises(AssertionError, match="phase 20"):
@@ -1984,14 +2002,16 @@ def test_main_prints_the_mla_mamba_line_before_the_perception_line(
         "launches": {}})
     monkeypatch.setattr(cs, "kernels_line", lambda rows, launches: json.dumps(
         {"phase21": launches[21]}))
+    monkeypatch.setattr(cs, "phase_first_contact", lambda *a, **k: {
+        "launches": {}})
     monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
         "launches": {}})
     assert cs.main() == 0
     assert seen == [True]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-18].startswith("chip_smoke wall: ")
-    timing = json.loads(lines[-17])
-    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 24)}
+    assert lines[-19].startswith("chip_smoke wall: ")
+    timing = json.loads(lines[-18])
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 25)}
     assert json.loads(lines[-14]) == {
         "mla_mamba": {"launches": {"flash_attention": 21}, "n": 21},
         "card": "H100, 700.00 W"}
@@ -2172,14 +2192,16 @@ def test_main_prints_the_qwen3next_line_before_the_mla_mamba_line(
         {"launches": {"q4_matmul_w4a8": 22}, "n": 22})[1])
     monkeypatch.setattr(cs, "kernels_line", lambda rows, launches: json.dumps(
         {"phase22": launches[22]}))
+    monkeypatch.setattr(cs, "phase_first_contact", lambda *a, **k: {
+        "launches": {}})
     monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
         "launches": {}})
     assert cs.main() == 0
     assert seen == [True]
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-18].startswith("chip_smoke wall: ")
-    timing = json.loads(lines[-17])
-    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 24)}
+    assert lines[-19].startswith("chip_smoke wall: ")
+    timing = json.loads(lines[-18])
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 25)}
     assert json.loads(lines[-15]) == {
         "qwen3next": {"launches": {"q4_matmul_w4a8": 22}, "n": 22},
         "card": "H100, 700.00 W"}
@@ -2290,9 +2312,9 @@ def test_qwen3next_profile_on_the_cpu(monkeypatch, capsys):
 
 def test_main_prints_the_training_line_before_the_qwen3next_line(
         monkeypatch, capsys):
-    """Phase 23 runs last; its line comes just before the qwen3next line,
-    after the phase seconds (1 to 23), and the kernels line counts its
-    launches."""
+    """Phase 23's line comes just before the qwen3next line, after phase
+    24's line and the phase seconds (1 to 24), and the kernels line counts
+    its launches."""
     from trackiellm_tpu_torch.ops import _build
     cs = _load()
     monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
@@ -2319,20 +2341,74 @@ def test_main_prints_the_training_line_before_the_qwen3next_line(
             "launches": {}, "n": n})
     monkeypatch.setattr(cs, "phase_voice", lambda *a, **k: {"n": 13})
     monkeypatch.setattr(cs, "phase_vision", lambda *a, **k: {"n": 14})
+    monkeypatch.setattr(cs, "phase_first_contact", lambda *a, **k: {
+        "launches": {}})
     monkeypatch.setattr(cs, "phase_training", lambda dev, counters: {
         "launches": {"q4_matmul_w4a8": 23}, "n": 23})
     monkeypatch.setattr(cs, "kernels_line", lambda rows, launches: json.dumps(
         {"phase23": launches[23]}))
     assert cs.main() == 0
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-18].startswith("chip_smoke wall: ")
-    timing = json.loads(lines[-17])
-    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 24)}
+    assert lines[-19].startswith("chip_smoke wall: ")
+    timing = json.loads(lines[-18])
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 25)}
     assert json.loads(lines[-16]) == {
         "training": {"launches": {"q4_matmul_w4a8": 23}, "n": 23},
         "card": "H100, 700.00 W"}
     assert json.loads(lines[-15])["qwen3next"]["n"] == 22
     assert json.loads(lines[-2]) == {"phase23": {"q4_matmul_w4a8": 23}}
+
+
+def test_main_prints_the_first_contact_line_before_the_training_line(
+        monkeypatch, capsys):
+    """Phase 24 runs last, on phase 11's GGUF in the work directory; its
+    line comes just after the phase seconds (1 to 24) and before the
+    training line, and the kernels line counts its launches."""
+    from trackiellm_tpu_torch.ops import _build
+    cs = _load()
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda *a: (9, 0))
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "H100")
+    monkeypatch.setattr(cs, "nvidia_smi", lambda: "H100, 700.00 W")
+    monkeypatch.setattr(_build, "build", lambda: _build.BUILD_ROOT / "x")
+    monkeypatch.setattr(_build, "library", lambda: None)
+    for name, value in (("phase_kernels", {}), ("phase_width", None),
+                        ("build_model", {"layers": {}}), ("profile_path", {}),
+                        ("expect_routes", None), ("phase_entry", None),
+                        ("phase_diagnostics", {})):
+        monkeypatch.setattr(cs, name, lambda *a, v=value, **k: v)
+    monkeypatch.setattr(cs, "drive", lambda *a, **k: {
+        "quantize_activations": 1, "q4_matmul_w4a8": 1})
+    work = []
+    for name, n in (("phase_slice10", 10), ("phase_gguf", 11),
+                    ("phase_serve", 12), ("phase_app", 15),
+                    ("phase_families", 16), ("phase_moe", 17),
+                    ("phase_vlm", 18), ("phase_surfaces", 19),
+                    ("phase_perception", 20), ("phase_mla_mamba", 21),
+                    ("phase_qwen3next", 22), ("phase_training", 23)):
+        monkeypatch.setattr(cs, name, lambda *a, n=n, **k: {
+            "launches": {}, "n": n})
+    monkeypatch.setattr(cs, "phase_voice", lambda *a, **k: {"n": 13})
+    monkeypatch.setattr(cs, "phase_vision", lambda *a, **k: {"n": 14})
+
+    def first(dev, cli, counters, workdir, gguf):
+        work.append((workdir, gguf))
+        return {"launches": {"q4_matmul_w4a8": 24}, "n": 24}
+    monkeypatch.setattr(cs, "phase_first_contact", first)
+    monkeypatch.setattr(cs, "kernels_line", lambda rows, launches: json.dumps(
+        {"phase24": launches[24]}))
+    assert cs.main() == 0
+    assert work == [(work[0][0], os.path.join(work[0][0], "mistral.gguf"))]
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[-19].startswith("chip_smoke wall: ")
+    timing = json.loads(lines[-18])
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 25)}
+    assert json.loads(lines[-17]) == {
+        "first_contact": {"launches": {"q4_matmul_w4a8": 24}, "n": 24},
+        "card": "H100, 700.00 W"}
+    assert json.loads(lines[-16])["training"]["n"] == 23
+    assert json.loads(lines[-2]) == {"phase24": {"q4_matmul_w4a8": 24}}
 
 
 def test_phase23_keeps_the_published_widths():
@@ -2397,12 +2473,41 @@ def test_phase23_on_the_cpu(monkeypatch, capsys):
         assert len(b[tag]["grad_rel_l2"]) == 8
     assert all(out["c"][k]["max_rel"] == 0.0 for k in ("dense", "moe"))
     assert max(out["d"]["rel_l2"].values()) == 0.0
+    assert out["d"]["grad_first_rel"] == 0.0 and out["d"]["at_rounding"] == {}
+    assert out["d"]["step_max"] == 0.0
+    assert set(out["d"]["grad_rel"]) == set(out["d"]["rel_l2"])
     assert set(out["part_seconds"]) == {"a", "b", "c", "d"}
     text = capsys.readouterr().out
     for tag in ("(a) Mistral-7B Q4 2 layers", "backward product w_gu",
                 "(b) f32a:", "(b) q8:", "(c) moe:", "(d) wake word:",
                 "phase 23 took"):
         assert tag in text, tag
+
+
+def test_wake_word_bounds_hold_each_leaf_by_its_gradient():
+    """Phase 23 (d): a free-running leaf is held to TRAIN_WAKE_TOL unless
+    its gradient gap reached TRAIN_WAKE_GRAD_TOL at some state; then to
+    one Adam step, in absolute terms; the loss, the first gradients and
+    each step from a CPU state have bounds of their own."""
+    cs = _load()
+    gaps = {"loss": 2e-7, "grad_all": [3e-7, 4e-7],
+            "grad": {"out_w": [1e-6, 2e-6], "out_b": [2e-6, 7e-5]},
+            "step": {"out_w": [0.0, 1e-6], "out_b": [0.0, 4e-5]}}
+    rels = {"out_w": 2e-5, "out_b": 1.5e-4}
+    rounding = {"out_b": {"step": 1, "grad_gap": 7e-5, "grad_norm": 9e-5,
+                          "abs_gap": 1.5e-6, "bound": 3e-3}}
+    assert cs.wake_word_misses(rels, gaps, rounding) == []
+    assert cs.wake_word_misses(rels, gaps, {}) == ["out_b 1.500e-04"]
+    far = {"out_b": {**rounding["out_b"], "abs_gap": 4e-3}}
+    assert cs.wake_word_misses(rels, gaps, far) == [
+        "out_b 4.000e-03 apart (one step 3.000e-03)"]
+    assert cs.wake_word_misses({**rels, "out_w": 2e-4}, gaps, rounding) == [
+        "out_w 2.000e-04"]
+    assert cs.wake_word_misses(rels, {
+        **gaps, "loss": 2e-5, "grad_all": [2e-5],
+        "step": {"out_w": [2e-4, 0.0]}}, rounding) == [
+        "loss 2.000e-05", "first gradients 2.000e-05",
+        "out_w step 0: 2.000e-04 of a full step"]
 
 
 def test_training_profile_on_the_cpu(monkeypatch, capsys):
@@ -2420,3 +2525,96 @@ def test_training_profile_on_the_cpu(monkeypatch, capsys):
     assert set(out) == {"layers", "rows", "seq", "rank", "step"}
     assert out["step"]["launches"] == 10
     assert "profile LoRA step" in capsys.readouterr().out
+
+
+def _phase24_on_the_cpu(monkeypatch, cs, tmp_path):
+    """Phase 24's inputs at tiny widths on the CPU: a 1-layer Q4_K_M GGUF
+    of dim 512 with a 512-piece SentencePiece vocabulary as phase 11
+    writes it, Whisper's test widths; the card-only checks recorded."""
+    from trackiellm_tpu_torch.models import llm, whisper
+    cfg = llm.LLMConfig(vocab_size=512, dim=512, n_layers=1, n_heads=4,
+                        n_kv_heads=2, head_dim=128, hidden_dim=512,
+                        max_seq=512)
+    gguf = str(tmp_path / "mistral.gguf")
+    cs.write_gguf(gguf, *cs.mistral_gguf(cfg, cs.spm_spec(cfg.vocab_size),
+                                         cs.SEED))
+    monkeypatch.setattr(cs, "voice_configs", lambda: {
+        "tiny": whisper.WhisperConfig.test()})
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    checks = []
+    monkeypatch.setattr(cs, "expect_routes", lambda launches, ran, idle,
+                        phase: checks.append((phase, ran)))
+    monkeypatch.setattr(cs, "expect_no_plain", lambda calls, phase:
+                        checks.append((phase, "plain")))
+    return gguf, checks
+
+
+def test_phase24_on_the_cpu(monkeypatch, capsys, tmp_path):
+    """Phase 24's control flow on the CPU: the directory, the CLI run
+    with the flag gauntlet, the companion child on the same device (the
+    CPU here: no library to load) with match rate 1.0, the Whisper, Silero
+    and state-dict entries, nothing written to the checkout, and the card
+    checks asked for (W4A8 and its quantization, no plain matmul; the
+    transcript's and the child's runs on the twin's routes, flash in
+    them)."""
+    from trackiellm_tpu_torch import __main__ as cli
+    from trackiellm_tpu_torch.tools import parity_common
+    cs = _load()
+    gguf, checks = _phase24_on_the_cpu(monkeypatch, cs, tmp_path)
+    work = tmp_path / "work"
+    work.mkdir()
+    had_tree_file = os.path.exists(parity_common.RESULTS_FILE)
+    out = cs.phase_first_contact(torch.device("cpu"), cli,
+                                 cs.launch_counters(), str(work), gguf)
+    assert out["summary"] == {"PASS": 4, "WARN": 0, "FAIL": 0}
+    assert set(out["statuses"]) == {"mistral.gguf", "ggml-tiny.bin",
+                                    "silero_vad.onnx",
+                                    "whisper-tiny-state.npz"}
+    assert out["probe"]["mode"] == "nll" and out["probe"]["text"] is True
+    assert out["probe_ids"] >= 8
+    assert out["flag_probe"]["env"] == "TRACKIE_LLAMA_GGUF_ROPE"
+    assert out["flag_probe"]["decisive"] is False
+    par = out["parity"]
+    assert par["rc"] == 0 and par["metrics"]["match_rate"] == 1.0
+    assert par["metrics"]["exact_prefix"] == cs.FC_TOKENS
+    assert par["child"]["device"] == "cpu" and par["child"]["ready_s"] > 0
+    assert out["parted"] is None
+    assert checks == [
+        ("phase 24 (the transcript)", cs.FC_TWIN_ROUTES),
+        ("phase 24", "plain"),
+        ("phase 24", ("q4_matmul_w4a8", "quantize_activations")),
+        ("phase 24 (the parity child)", cs.FC_TWIN_ROUTES)]
+    assert "flash_attention" in cs.FC_TWIN_ROUTES
+    assert "launches" not in par["child"]   # the CPU prints no launches
+    assert out["launches"] == {k: out["run_launches"][k]
+                               + out["transcript_launches"][k]
+                               for k in out["launches"]}
+    assert "| parity_llm | mistral.gguf | token_match | 1.0 |" in (
+        work / cs.FC_PARITY_RESULTS).read_text()
+    assert os.path.exists(parity_common.RESULTS_FILE) == had_tree_file
+    text = capsys.readouterr().out
+    assert "# 4 PASS / 0 WARN / 0 FAIL" in text and "phase 24 took" in text
+
+
+def test_phase24_fails_when_the_parity_child_fails(monkeypatch, tmp_path):
+    """A transcript the model does not give fails the phase, with the
+    step where the ids part and the logit margin there."""
+    from trackiellm_tpu_torch import __main__ as cli
+    from trackiellm_tpu_torch.tools import parity_llm
+    cs = _load()
+    gguf, _ = _phase24_on_the_cpu(monkeypatch, cs, tmp_path)
+    greedy = parity_llm.greedy
+
+    def wrong(*a, **k):
+        text, ids = greedy(*a, **k)
+        return text, ids[:3] + [(ids[3] + 1) % 512] + ids[4:]
+    monkeypatch.setattr(parity_llm, "greedy", wrong)
+    work = tmp_path / "work"
+    work.mkdir()
+    logged = []
+    monkeypatch.setattr(cs, "log", logged.append)
+    with pytest.raises(AssertionError, match="phase 24: .*parity child"):
+        cs.phase_first_contact(torch.device("cpu"), cli,
+                               cs.launch_counters(), str(work), gguf)
+    parted = [m for m in logged if "parity ids part" in m]
+    assert parted and "'step': 3" in parted[0] and "margin" in parted[0]

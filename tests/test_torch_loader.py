@@ -374,3 +374,19 @@ def test_logging_copy_behaves_alike():
     record = json.loads(stream.getvalue())
     assert record["type"] == "audit.config" and record["payload"] == {
         "actor": "me", "action": "set", "detail": {"key": "k", "value": 2}}
+
+
+@pytest.mark.parametrize("gtype", sorted(tload._GGML_DEQUANT))
+def test_chunked_dequantization_gives_one_calls_bytes(monkeypatch, gtype):
+    """A tensor past one chunk of blocks dequantizes on a thread pool,
+    chunk by chunk: the bytes are those of one call over every block
+    (random bytes, so NaN and infinite scales too)."""
+    per_block, block_bytes, fn = tload._GGML_DEQUANT[gtype]
+    monkeypatch.setattr(tload, "_DEQUANT_CHUNK", 5)
+    rng = np.random.default_rng(gtype)
+    raw = rng.integers(0, 256, 23 * block_bytes, dtype=np.uint8)
+    n = 23 * per_block - 3
+    got = tload._dequantize(fn, raw, n, per_block, block_bytes)
+    want = fn(raw, n)
+    assert got.shape == want.shape == (n,)
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))

@@ -270,7 +270,9 @@ def test_port_imports_no_jax():
     TrOCR, AST, the CNN sound classifier and its engine, and their
     converters), the MLA, Mamba, Mamba-2 and Qwen3-Next models with the
     associative scan, LoRA, the single-device trainer (``parallel``: its
-    layer body, loss and train step, perplexity, packed data), logging, CLI,
+    layer body, loss and train step, perplexity, packed data), the
+    first-contact harness with its nine parity twins and their common
+    module, the image and tensor op libraries, logging, CLI,
     probes, diagnostic, conversion, serving, app latency and wake-word
     training tools and chip_smoke.py pulls in no JAX module, no module of the JAX
     package (``trackiellm_tpu`` or ``trackiellm_tpu.*``, even one that imports no
@@ -391,6 +393,20 @@ def test_port_imports_no_jax():
             "trackiellm_tpu_torch.models.ast, "
             "trackiellm_tpu_torch.models.sound_classifier, "
             "trackiellm_tpu_torch.audio.sound_engine, "
+            "trackiellm_tpu_torch.first_contact, "
+            "trackiellm_tpu_torch.tools.parity_common, "
+            "trackiellm_tpu_torch.tools.parity_llm, "
+            "trackiellm_tpu_torch.tools.parity_asr, "
+            "trackiellm_tpu_torch.tools.parity_vad, "
+            "trackiellm_tpu_torch.tools.parity_tts, "
+            "trackiellm_tpu_torch.tools.parity_detector, "
+            "trackiellm_tpu_torch.tools.parity_depth, "
+            "trackiellm_tpu_torch.tools.parity_ocr, "
+            "trackiellm_tpu_torch.tools.parity_embed, "
+            "trackiellm_tpu_torch.tools.parity_vlm, "
+            "trackiellm_tpu_torch.tools.wake_word_gap, "
+            "trackiellm_tpu_torch.ops.image, "
+            "trackiellm_tpu_torch.ops.tensor, "
             "trackiellm_tpu_torch.models.convert as c; "
             "from trackiellm_tpu_torch.llm.tokenizer import "
             "WordPieceTokenizer; "

@@ -195,6 +195,43 @@ def test_tool_trains_and_writes_a_loadable_artifact(tmp_path, capsys,
         ttool.main(["--steps", "1", "--n-train", "1", "--out", out])
 
 
+def test_gap_tool_on_the_cpu(monkeypatch):
+    """tools/wake_word_gap.py's measurements with the CPU on both sides
+    (control flow only: every gap is 0, no leaf at rounding but one made
+    so); a run started from a state's params and moments takes the steps
+    the whole run took; main() refuses to run without a card."""
+    from trackiellm_tpu_torch.tools import wake_word_gap as gap
+    mels, labels = ttool.training_set(2, CPU)
+    cfg = tww.WakeWordConfig()
+    start = tww.init_wake_word(torch.Generator().manual_seed(1), cfg)
+    rels = gap.params_gap(start, cfg, mels, labels, 2, CPU)
+    assert set(rels) == set(gap.leaves(start)) and max(rels.values()) == 0.0
+    gaps = gap.trajectory_gaps(start, cfg, mels, labels, 3, CPU)
+    assert gaps["loss"] == 0.0 and gaps["grad_all"] == [0.0] * 3
+    assert set(gaps["grad"]) == set(gaps["step"]) == set(rels)
+    assert all(g == [0.0] * 3 for g in gaps["grad"].values())
+    assert all(g == [0.0] * 3 for g in gaps["step"].values())
+    assert min(min(n) for n in gaps["grad_norm"].values()) > 0
+    assert gap.at_rounding(gaps, 1e-5) == {}
+    gaps["grad"]["out_b"][1] = 2e-5
+    assert gap.at_rounding(gaps, 1e-5) == {"out_b": {
+        "step": 1, "grad_gap": 2e-5,
+        "grad_norm": gaps["grad_norm"]["out_b"][1]}}
+    states, final = gap._states(start, cfg, mels, labels, 3)
+    assert all(torch.equal(v, gap.leaves(start)[k])
+               for k, v in gap.leaves(states[0]["params"]).items())
+    assert states[0]["moments"]["out_w"] == {}
+    _, resumed = gap._states(states[2]["params"], cfg, mels, labels, 1,
+                             states[2]["moments"])
+    _, fresh = gap._states(states[2]["params"], cfg, mels, labels, 1)
+    assert all(torch.equal(v, gap.leaves(final)[k])
+               for k, v in gap.leaves(resumed).items())
+    assert not torch.equal(gap.leaves(fresh)["out_w"],
+                           gap.leaves(final)["out_w"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert gap.main(["--seeds", "1"]) == 1
+
+
 # -- on the card ---------------------------------------------------------------
 
 @pytest.fixture

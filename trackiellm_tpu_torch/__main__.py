@@ -61,13 +61,24 @@
       handles and the allocator's pools, and the built libraries stay under
       ``--cache-dir`` (``tools/cache_artifact.py`` packs them).
 
+  first_contact DIR [--report R] [--bits 4|8] [--probe-tokens N]
+                [--no-flags] [--deep] [--strict] [--quantize 0|4|8]
+                [--device D]
+      validate a directory of real checkpoints (``first_contact.py``):
+      sniff, convert, probe (the NLL of a pt-BR snippet through the file's
+      own tokenizer), the rope-flag gauntlet, and the matching parity twin
+      (``python -m trackiellm_tpu_torch.tools.parity_*``, on the same
+      device) where its companion files lie next to the artifact; one
+      status line an artifact, exit 1 on any FAIL.
+
 Port of ``trackiellm_tpu/__main__.py``'s ``inspect``, ``convert`` (every
 GGUF arch, ``--mmproj`` and all of its ``--family`` routes), ``generate``
-(``--image`` included), ``transcribe``, ``synth``, ``demo`` and
-``precompile``, with the JAX package's defaults (4 bits; 64 tokens,
-temperature 0.7; 5 s; max_seq 1024). Every command but ``inspect`` runs on
-the CUDA card; the CPU is used only when ``--device cpu`` asks for it.
-``bench`` and ``first_contact`` are not ported yet (ROADMAP Queue 1).
+(``--image`` included), ``transcribe``, ``synth``, ``demo``,
+``precompile`` and ``first_contact``, with the JAX package's defaults (4
+bits; 64 tokens, temperature 0.7; 5 s; max_seq 1024; 32 probe tokens).
+Every command but ``inspect`` runs on the CUDA card; the CPU is used only
+when ``--device cpu`` asks for it. ``bench`` is not ported yet (ROADMAP
+Queue 1).
 """
 
 from __future__ import annotations
@@ -406,6 +417,23 @@ def _cmd_precompile(args) -> int:
     return 0
 
 
+def _cmd_first_contact(args) -> int:
+    from trackiellm_tpu_torch import first_contact as FC
+
+    device = _device(args.device, "run first_contact")
+    report = FC.run(args.directory, args.report,
+                    FC.Options(bits=args.bits,
+                               probe_tokens=args.probe_tokens,
+                               no_flags=args.no_flags, deep=args.deep,
+                               strict=args.strict,
+                               quantize=args.quantize, device=device))
+    for a in report["artifacts"]:
+        print(f"{a['status']:4s} {a['kind']:14s} {a['file']}")
+    s = report["summary"]
+    print(f"# {s['PASS']} PASS / {s['WARN']} WARN / {s['FAIL']} FAIL")
+    return 1 if s["FAIL"] else 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="trackiellm_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -504,6 +532,27 @@ def main(argv=None) -> int:
     p.add_argument("--device", default=None,
                    help="the device to warm (default: the CUDA card)")
     p.set_defaults(fn=_cmd_precompile)
+
+    p = sub.add_parser(
+        "first_contact",
+        help="validate a directory of real checkpoints: sniff -> "
+             "convert -> probe -> flag gauntlet -> parity, one JSON "
+             "report (docs/REAL_WEIGHTS.md)")
+    p.add_argument("directory")
+    p.add_argument("--report", default=None)
+    p.add_argument("--bits", type=int, default=None, choices=(4, 8))
+    p.add_argument("--probe-tokens", type=int, default=32)
+    p.add_argument("--no-flags", action="store_true")
+    p.add_argument("--deep", action="store_true")
+    p.add_argument("--strict", action="store_true")
+    p.add_argument("--quantize", type=int, default=4,
+                   choices=(0, 4, 8),
+                   help="requantization for the parity_llm companion "
+                   "runs (4 = the reference's Q4 serving)")
+    p.add_argument("--device", default=None,
+                   help="the device of the probes and the parity runs "
+                   "(default: the CUDA card)")
+    p.set_defaults(fn=_cmd_first_contact)
 
     args = ap.parse_args(argv)
     return args.fn(args)

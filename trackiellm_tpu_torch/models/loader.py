@@ -31,10 +31,12 @@ from __future__ import annotations
 import dataclasses
 import enum
 import json
+import os
 import struct
 import threading
 import time
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, BinaryIO, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -518,6 +520,31 @@ _GGML_DEQUANT = {
 }
 
 
+# Blocks a dequantization task takes: a large tensor (a 32,000-piece
+# vocabulary's head or embedding, 512,000 Q4_K or Q6_K blocks) goes to a
+# thread pool in such chunks, since numpy's array operations release the
+# GIL. Every GGML block dequantizes alone, so the bytes are one call's.
+_DEQUANT_CHUNK = 1 << 15
+
+
+def _dequantize(fn, raw: np.ndarray, n_elems: int, per_block: int,
+                block_bytes: int) -> np.ndarray:
+    n_blocks = raw.size // block_bytes
+    workers = min(8, os.cpu_count() or 1)
+    if n_blocks <= _DEQUANT_CHUNK or workers == 1:
+        return fn(raw, n_elems)
+    out = np.empty(n_blocks * per_block, np.float32)
+
+    def part(start: int) -> None:
+        stop = min(n_blocks, start + _DEQUANT_CHUNK)
+        out[start * per_block:stop * per_block] = fn(
+            raw[start * block_bytes:stop * block_bytes],
+            (stop - start) * per_block)
+    with ThreadPoolExecutor(workers) as pool:
+        list(pool.map(part, range(0, n_blocks, _DEQUANT_CHUNK)))
+    return out[:n_elems]
+
+
 def load_gguf_tensor(gguf: GGUFFile, name: str) -> np.ndarray:
     """Materialize one tensor as f32 numpy (dequantizing as needed)."""
     info = gguf.tensors.get(name)
@@ -534,7 +561,7 @@ def load_gguf_tensor(gguf: GGUFFile, name: str) -> np.ndarray:
             per_block, block_bytes, fn = _GGML_DEQUANT[info.ggml_type]
             n_blocks = (n_elems + per_block - 1) // per_block
             raw = np.fromfile(f, np.uint8, n_blocks * block_bytes)
-            data = fn(raw, n_elems)
+            data = _dequantize(fn, raw, n_elems, per_block, block_bytes)
         else:
             raise TrackieError(
                 ErrorCode.QUANT_UNSUPPORTED,
