@@ -368,7 +368,25 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      entries passing. One ``{"first_contact": ...}`` line before the
      ``training`` line; the smoke's wall and then ``{"phase_seconds": ...,
      "wall_s": ...}`` on the two lines before it.
-Phases 5-24 zero every launch counter just before they drive their path and
+ 25. tensor-parallel serving (the constants above ``tp_kernel_cases``):
+     W4A8 and flash at the tp-4 shard shapes against their plain
+     versions; the single card's reference (Mistral-7B at its widths cut
+     to 4 layers, Q4 group 256; DeepSeek-V2-Lite cut to 2, group 64; the
+     cortex prompt at bucket 512, greedy ids and logits); four ranks of
+     ``chip_smoke.py --tp-rank`` on this card over gloo (and over NCCL one
+     a card where the machine has four), each rebuilding the weights from
+     the seed (checksum equal), loading the built library (no nvcc),
+     cutting its shard with ``shard_params``: the sharded prefill and
+     teacher-forced decode (logits within TP_LOGIT_TOL of the single
+     card's at every step, greedy ids parting only where the single
+     card's margin is under twice the noise, MLA's router flips within
+     twice the router noise), ``LLMServer(mesh=)`` bursts of four on dense
+     slots and the int8 pool (MLA: latent slots), the dense and MLA ids
+     equal to each rank's batched TP reference, the followers' plans equal
+     to rank 0's, and a profiled TP decode token on rank 0. A rank that
+     fails or a world past TP_LIMIT_S fails the phase. One ``{"tp": ...}``
+     line a world, logged as the phase ends.
+Phases 5-25 zero every launch counter just before they drive their path and
 read them just after: the path's kernels must have launched, and the routes
 it does not take must not have (no serving path launches the streaming Q4
 or a probe; phase 9 must launch all four; phases 13 and 14 launch none).
@@ -8961,6 +8979,752 @@ def phase_first_contact(dev, cli, counters, work: str, gguf: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: tensor-parallel serving, four ranks on the card
+# ---------------------------------------------------------------------------
+
+# Four ranks, one process each (``parallel/launch.py:run_ranks``), tp 4:
+# gloo with all four on card 0 always; NCCL with one rank per card where
+# the machine has four. Mistral-7B at its widths cut to TP_LAYERS of 32
+# layers (random Q4 weights at group 256 from SEED, rebuilt on each rank
+# and checked against the parent's by checksum), DeepSeek-V2-Lite at its
+# widths cut to TP_MLA_LAYERS of 27 (dense layer 0 and one MoE layer, Q4
+# at group 64).
+TP_WORLD = 4
+TP_LAYERS = 4
+TP_TOKENS = 16          # greedy tokens after the cortex prompt (bucket 512)
+TP_SERVE_TOKENS = 8     # each served request's tokens, and its reference
+TP_MLA_LAYERS = 2
+TP_MLA_TOKENS = 8
+TP_SLOTS = 4            # the served burst: one request a prefill bucket
+TP_MAX_SEQ = 512
+TP_LIMIT_S = 300.0      # a world still running after this is killed
+TP_COLLECTIVE_S = 120.0  # a collective no rank enters fails after this
+TP_PROFILE_STEPS = 4    # rank 0's profiled decode steps
+# TP logits against the single card's, rel L2, every step: the shards'
+# W4A8 products sum in another order and the all-reduce adds the ranks'
+# partials in f32, so bf16 roundings and int8 activation roundings flip
+# downstream. Measured over gloo on an H100 80GB HBM3 at 700 W: 2.030e-2
+# at the prefill and 2.488e-2 at most over 16 decode steps (Mistral-7B, 4
+# layers), 1.245e-2 and 1.314e-2 (V2-Lite, 2 layers, on TP's experts);
+# the bound (WIDTH_TOL, which holds W4A8 against exact activations) is
+# twice the largest.
+TP_LOGIT_TOL = WIDTH_TOL
+TP_FLAG = "--tp-rank"
+TP_PHASE_FLAG = "--tp-phase"
+# Phase 25's kernel cases at the shard shapes (tp 4): Mistral-7B's five
+# projections a rank holds (wqkv 4096 -> 1536 = 8 + 2 + 2 heads of 128,
+# wo 1024 -> 4096, w_gu 4096 -> 7168, w_down 3584 -> 4096, lm_head 4096 ->
+# 8000) at decode and a bucket-512 prefill, DeepSeek-V2-Lite's (wq 2048 ->
+# 768 = 4 heads of 192, wo 512 -> 2048, an expert's w_gu 2048 -> 704) at
+# decode; flash at 8 query and 2 KV heads (D = 128) and MLA's 4 heads at
+# D = 192, S = 512.
+TP_MATMULS = (  # (case name, K, N, group, M values, kernels)
+    ("tp4 wqkv N=1536", 4096, 1536, 256, (1, 512), ("q4_matmul_w4a8",)),
+    ("tp4 wo K=1024", 1024, 4096, 256, (1, 512), ("q4_matmul_w4a8",)),
+    ("tp4 w_gu N=7168", 4096, 7168, 256, (1, 512), ("q4_matmul_w4a8",)),
+    ("tp4 w_down K=3584", 3584, 4096, 256, (1, 512), ("q4_matmul_w4a8",)),
+    ("tp4 lm_head N=8000", 4096, 8000, 256, (1, 512), ("q4_matmul_w4a8",)),
+    ("tp4 deepseek wq N=768 G=64", 2048, 768, 64, (1,), ("q4_matmul_w4a8",)),
+    ("tp4 deepseek wo K=512 G=64", 512, 2048, 64, (1,), ("q4_matmul_w4a8",)),
+    ("tp4 deepseek expert w_gu N=704 G=64", 2048, 704, 64, (1,),
+     ("q4_matmul_w4a8",)),
+)
+TP_FLASH = (  # ((H, Hk), D, S, V's zero columns from, case name)
+    ((8, 2), 128, 512, 0, "tp4 causal S=512 (8, 2) bfloat16"),
+    ((4, 4), 192, 512, 128, "tp4 mla causal S=512 D=192 (4, 4) bfloat16"),
+)
+# The padded row-parallel route (``models.llm.TPLinear`` with pad > 0):
+# Phi-3-mini's wo at tp 4 and Q4 group 256 gives a rank K = 3072 / 4 = 768,
+# three whole groups, so ``shard_params`` appends one zero group (K/2 =
+# 512, the kernels' multiple of the group) and the activations one zero
+# group. (case name, full K, N, group, M values)
+TP_PADDED = ("tp4 phi3 wo K=768+256", 3072, 3072, 256, (1, 512))
+TP_ROUTES = ("q4_matmul_w4a8", "quantize_activations", "flash_attention")
+TP_IDLE = ("q8_matmul", "q4_matmul_f32a", "fused_mlp_q4", *DIAGNOSTIC)
+
+
+def tp_kernel_cases(rows, quant, attention, gen, dev) -> None:
+    """Phase 25's kernels at the shard shapes (TP_MATMULS, TP_FLASH,
+    TP_PADDED), each against its plain version with times and bound
+    (SDPA's for flash)."""
+    matmul_table_cases(rows, quant, TP_MATMULS, gen, dev)
+    for heads, d, s, v_width, name in TP_FLASH:
+        flash_case(rows, attention, gen, dev, heads, s, torch.bfloat16, {},
+                   name, True, d=d, v_width=v_width)
+    tp_padded_case(rows, quant, gen, dev)
+
+
+def tp_padded_case(rows, quant, gen, dev) -> None:
+    """The padded row-parallel route on the card (TP_PADDED): rank 1's
+    K slice cut by ``parallel/infer.py`` (unpacked, sliced, repacked, one
+    zero group appended), called through ``models.llm.TPLinear`` on a
+    one-rank mesh (its all-reduce the identity). The activation
+    quantization over the zero group must equal its plain version bit for
+    bit (zero scale, zero values); W4A8 on the padded operands is held
+    against its plain version with times and bound; the route's output
+    must be the kernel's, cast; and the zero group must add nothing: the
+    product is held against the exact f32 product of the unpadded slice
+    within WIDTH_TOL (W4A8's activation rounding)."""
+    import torch.nn.functional as F
+
+    from trackiellm_tpu_torch.models import llm
+    from trackiellm_tpu_torch.parallel import infer
+    from trackiellm_tpu_torch.parallel.mesh import build_mesh
+    name, k, n, group, ms = TP_PADDED
+    w = quant.quantize_q4(
+        torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k), group)
+    leaf, pad, kind, note = infer._row_cut(w, 0, TP_WORLD, 1)
+    kl = k // TP_WORLD
+    if (kind != "row" or pad != group
+            or leaf.values.shape[0] != (kl + pad) // 2):
+        raise AssertionError(f"phase 25 {name}: cut {kind}, pad {pad}, "
+                             f"{note}")
+    shard = llm.TPLinear(leaf, build_mesh(1, backend="gloo", device=dev),
+                         "row", pad)
+    vals = infer._unpack_q4(leaf.values).float()
+    exact_w = (vals * leaf.scales.repeat_interleave(group, dim=0))[:kl]
+    for m in ms:
+        x = torch.randn((m, kl), generator=gen, device=dev).to(torch.bfloat16)
+        xp = F.pad(x, (0, pad))
+        got_q = quant.quantize_activations(xp, group)
+        ref_q = quant.quantize_activations_q8(xp, group)
+        torch.cuda.synchronize()
+        zero_q = (got_q[0][:, -pad:].float(), *(t[:, -1:] for t in got_q[1:]))
+        if (any(not torch.equal(a, b) for a, b in zip(got_q, ref_q))
+                or any(t.abs().max().item() != 0 for t in zero_q)):
+            raise AssertionError(f"phase 25 {name} M={m}: the zero group's "
+                                 "activation quantization")
+        args = (leaf.values, leaf.scales)
+        matmul_case(rows, "q4_matmul_w4a8",
+                    f"q4_matmul_w4a8 {name} M={m} K={kl + pad} N={n}",
+                    f"{name} M={m}",
+                    lambda: quant.q4_matmul_w4a8(xp, *args),
+                    lambda: quant.q4_matmul_w4a8_ref(xp, *args),
+                    (xp, *args), "int8", quant.q4_matmul_w4a8)
+        got = quant.q4_matmul_w4a8(xp, *args)
+        routed = llm._linear(x, shard)
+        exact = x.float() @ exact_w
+        torch.cuda.synchronize()
+        err = rel_l2(got, exact)
+        log(f"  {name} M={m}: through TPLinear == kernel "
+            f"{torch.equal(routed, got.to(x.dtype))}; against the exact "
+            f"product of the unpadded slice rel L2 {err:.3e} (tol "
+            f"{WIDTH_TOL:.0e})")
+        if not torch.equal(routed, got.to(x.dtype)) or not err < WIDTH_TOL:
+            raise AssertionError(f"phase 25 {name} M={m}: the padded route")
+
+
+def tp_configs():
+    """(Mistral-7B cut to TP_LAYERS, DeepSeek-V2-Lite cut to
+    TP_MLA_LAYERS), both at max_seq TP_MAX_SEQ."""
+    from trackiellm_tpu_torch.models import llm, mla
+    dense = llm.LLMConfig.mistral_7b()._replace(
+        n_layers=TP_LAYERS, max_seq=TP_MAX_SEQ, sliding_window=TP_MAX_SEQ)
+    deep = mla.MLAConfig.deepseek_v2_lite()._replace(
+        n_layers=TP_MLA_LAYERS, max_seq=TP_MAX_SEQ)
+    return dense, deep
+
+
+def tp_models(dev, which: str, cfg):
+    """The phase's model ``which`` ("dense" or "mla") of config ``cfg``
+    from SEED on ``dev``, Q4 (group 256, MLA_GROUP for MLA): (module,
+    params)."""
+    from trackiellm_tpu_torch.models import llm, mla
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    if which == "dense":
+        return llm, llm.init_params_quantized(gen, cfg, bits=4, device=dev)
+    return mla, mla.init_params_quantized(gen, cfg, bits=4, group=MLA_GROUP,
+                                          device=dev)
+
+
+def _card_sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+
+
+def tp_checksum(params) -> list:
+    """A few sums over the tree's bytes: the ranks' rebuilt weights must
+    give the parent's."""
+    out = []
+    for path, t in _flat(params):
+        if t.dim() >= 2:
+            out.append([path, float(t.double().sum().item())])
+    return out
+
+
+def tp_prompts(tok) -> list:
+    """The served burst: one prompt per prefill bucket (64, 128, 256, 512),
+    so each prefills alone whatever wave takes it, as the reference does."""
+    from trackiellm_tpu_torch.llm.runner import PREFILL_BUCKETS, _bucket_for
+    texts = [SHORT_PROMPT, CONTEXT, f"{SYSTEM} {CONTEXT}", None]
+    out = []
+    for text in texts:
+        ids = (tp_cortex_ids(tok) if text is None
+               else tok.encode(text, add_bos=True))
+        out.append(ids)
+    buckets = [_bucket_for(len(i), PREFILL_BUCKETS) for i in out]
+    if sorted(buckets) != [64, 128, 256, 512]:
+        raise AssertionError(f"phase 25 burst buckets {buckets}")
+    return out
+
+
+def tp_cortex_ids(tok) -> list:
+    """The cortex prompt's ids (the runner's template), bucket 512."""
+    text = (f"[INST] {SYSTEM}\n\nContext:\n{CONTEXT}\n\nUser: "
+            f"{QUESTIONS[0]} [/INST]")
+    return tok.encode(text, add_bos=True)
+
+
+def tp_bucket_ids(ids, dev) -> torch.Tensor:
+    """``ids`` zero-padded to its prefill bucket, on ``dev``."""
+    from trackiellm_tpu_torch.llm.runner import PREFILL_BUCKETS, _bucket_for
+    padded = torch.zeros(_bucket_for(len(ids), PREFILL_BUCKETS),
+                         dtype=torch.long, device=dev)
+    padded[:len(ids)] = torch.tensor(ids, device=dev)
+    return padded
+
+
+def tp_single(m, cfg):
+    """(prefill, decode) of module ``m`` on one card, with the signatures
+    of ``parallel/infer.py``'s ``make_sharded_prefill`` and
+    ``make_sharded_decode``."""
+    def prefill(params, tokens, length, cache):
+        return m.prefill(params, cfg, tokens, length, cache)
+
+    def decode(params, token, cache):
+        return m.decode_step(params, cfg, token, cache, attn_len=cfg.max_seq)
+    return prefill, decode
+
+
+def tp_pass(forward, params, cache, ids, n: int, dev, forced=None):
+    """Prefill ``ids`` at its bucket into ``cache``, then ``n`` decode
+    steps, each fed the argmax (greedy) or ``forced[j]`` (teacher-forced),
+    through ``forward`` = (prefill, decode): (the ids fed, the (n + 1, V)
+    f32 logits on the CPU)."""
+    prefill, decode = forward
+    lg, cache = prefill(params, tp_bucket_ids(ids, dev), len(ids), cache)
+    logits, fed = [lg.float().cpu()], []
+    for j in range(n):
+        tok = int(torch.argmax(lg)) if forced is None else int(forced[j])
+        fed.append(tok)
+        lg, cache = decode(params, tok, cache)
+        logits.append(lg.float().cpu())
+    return fed, torch.stack(logits)
+
+
+def tp_int8_reference(m, params, cfg, prompts, n: int, dev,
+                      forced=None) -> tuple:
+    """Each prompt as the server's per-step loop computes it on an int8
+    page pool of TP_SLOTS slots (SERVE_PAGE pages, the server's default
+    count): a lone prefill at its bucket staged in the pool's compute
+    dtype and quantized into its pages, then ``n - 1`` batched paged
+    decode steps with the request alone active (every step quantizes its
+    new cells; the table width, so every shape, is the server's whatever
+    the other slots hold). Greedy, or fed ``forced[i]``: (ids, the (n, V)
+    f32 logits on the CPU) per prompt."""
+    from trackiellm_tpu_torch.llm.paging import PagedKVPool
+    n_pages = TP_SLOTS * (cfg.max_seq // SERVE_PAGE) // 2 + 1
+    idle = [None] * (TP_SLOTS - 1)
+    out_ids, out_logits = [], []
+    for i, ids in enumerate(prompts):
+        pool = PagedKVPool(cfg, n_pages=n_pages, page_size=SERVE_PAGE,
+                           dtype=torch.int8, device=dev)
+        lg, seq = m.prefill(params, cfg, tp_bucket_ids(ids, dev), len(ids),
+                            m.KVCache.create(cfg, dtype=pool.compute_dtype,
+                                             device=dev))
+        sid = pool.create_sequence(prefill_cache=seq, length=len(ids))
+        got, logits = [], [lg.float().cpu()]
+        for j in range(n):
+            tok = int(torch.argmax(lg)) if forced is None else forced[i][j]
+            got.append(int(tok))
+            if j == n - 1:
+                break
+            lg = pool.batch_decode_step(params, [tok, *idle],
+                                        [sid, *idle])[0]
+            logits.append(lg.float().cpu())
+        out_ids.append(got)
+        out_logits.append(torch.stack(logits))
+        del pool, seq
+    return out_ids, out_logits
+
+
+def tp_batched_reference(m, params, cfg, prompts, n: int, dev) -> list:
+    """Each prompt's greedy ids as the server computes them on its slots:
+    a lone prefill at its bucket, then ``n - 1`` batched decode steps of
+    TP_SLOTS slots with the request alone active (a row's bits do not
+    depend on the other rows)."""
+    out = []
+    for ids in prompts:
+        lg, seq = m.prefill(params, cfg, tp_bucket_ids(ids, dev), len(ids),
+                            m.KVCache.create(cfg, dtype=torch.bfloat16,
+                                             device=dev))
+        cache = m.insert_sequence(
+            m.BatchedKVCache.create(cfg, TP_SLOTS, dtype=torch.bfloat16,
+                                    device=dev), cfg, 0, seq)
+        active = torch.zeros(TP_SLOTS, dtype=torch.bool, device=dev)
+        active[0] = True
+        toks = torch.zeros(TP_SLOTS, dtype=torch.long, device=dev)
+        toks[0] = torch.argmax(lg)
+        got = [int(toks[0])]
+        for _ in range(n - 1):
+            logits, cache = m.decode_step_batch(params, cfg, toks, active,
+                                                cache)
+            toks[0] = torch.argmax(logits[0])
+            got.append(int(toks[0]))
+        out.append(got)
+    return out
+
+
+def tp_serve(server_mod, m, params, cfg, mesh, tok, prompts, n: int,
+             chunk_steps: int = 8, **kw) -> dict:
+    """One burst of ``prompts`` on ``LLMServer(mesh=mesh)`` (TP_SLOTS
+    slots, chunks of 8 by default): rank 0 submits and returns each
+    request's ids by its index; every rank returns the plans it ran."""
+    server = server_mod.LLMServer(
+        params, cfg, batch_slots=TP_SLOTS, tokenizer=tok,
+        chunk_steps=chunk_steps, mesh=mesh,
+        model=None if m.__name__.endswith(".llm") else m, **kw)
+    ids = {}
+    finish = server._finish
+
+    def watched(slot):
+        if slot.request is not None:
+            ids[slot.request.rid] = list(slot.generated)
+        finish(slot)
+    server._finish = watched
+    t0 = time.perf_counter()
+    try:
+        if mesh.rank == 0:
+            texts = [tok.decode(i) for i in prompts]
+            futs = [server.submit(t, max_tokens=n) for t in texts]
+            for f in futs:
+                f.result(timeout=TP_COLLECTIVE_S)
+    finally:
+        server.close(timeout=TP_COLLECTIVE_S)
+    if server._thread.is_alive() or server._fatal is not None:
+        raise AssertionError(f"phase 25 rank {mesh.rank}: the server did "
+                             f"not end cleanly ({server._fatal!r})")
+    return {"ids": [ids.get(i) for i in range(len(prompts))],
+            "plans": server.plans, "s": time.perf_counter() - t0,
+            "steps": server.stats["decode_steps"], "paged": server.paged}
+
+
+def tp_profile(forward, params, cache, ids, dev, rank: int):
+    """TP_PROFILE_STEPS decode steps of ``forward`` = (prefill, decode)
+    after the cortex prefill, profiled on rank 0 (the others run them
+    unprofiled: every rank must enter the same collectives): wall, device
+    busy, idle share, launches, and the host time inside the
+    collectives."""
+    prefill, decode = forward
+    lg, cache = prefill(params, tp_bucket_ids(ids, dev), len(ids), cache)
+    lg, cache = decode(params, int(torch.argmax(lg)), cache)
+    _card_sync(dev)
+    prof = None
+    if rank == 0:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if dev.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.__enter__()
+    t0 = time.perf_counter()
+    for _ in range(TP_PROFILE_STEPS):
+        lg, cache = decode(params, int(torch.argmax(lg)), cache)
+    _card_sync(dev)
+    wall = (time.perf_counter() - t0) * 1e3
+    if prof is None:
+        return None
+    prof.__exit__(None, None, None)
+    busy = launches = 0
+    collective, ops = 0.0, {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:   # a kernel or a copy
+            busy += e.self_device_time_total
+            launches += e.count
+        elif e.key.startswith("c10d::"):   # the collectives' host spans
+            collective += e.cpu_time_total
+            ops[e.key] = e.count
+    steps = TP_PROFILE_STEPS
+    return {"wall_ms_per_token": wall / steps,
+            "busy_ms_per_token": busy / 1e3 / steps,
+            "idle_share": max(0.0, 1 - busy / 1e3 / wall),
+            "launches_per_token": launches / steps,
+            "collective_ms_per_token": collective / 1e3 / steps,
+            "collectives_per_token": {k: v / steps for k, v in ops.items()}}
+
+
+def tp_rank_main(argv) -> int:
+    """One rank of phase 25 (``chip_smoke.py --tp-rank INPUTS`` plus the
+    launcher's flags): the mesh, the built kernels loaded (no nvcc), the
+    model rebuilt from SEED and checked against the parent's checksum,
+    this rank's cut, then (dense, then MLA) the sharded prefill and
+    teacher-forced decode, the served bursts and their reference, each
+    window's launches; rank 0 keeps the logits, the ids and a profile."""
+    from trackiellm_tpu_torch.llm import server as server_mod
+    from trackiellm_tpu_torch.llm import tokenizer as tokenizer_mod
+    from trackiellm_tpu_torch.models import llm as llm_mod
+    from trackiellm_tpu_torch.ops import _build
+    from trackiellm_tpu_torch.parallel import infer, launch
+    from trackiellm_tpu_torch.parallel.mesh import build_mesh, close_mesh
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = launch.rank_args(argv)
+    inputs = torch.load(argv[argv.index(TP_FLAG) + 1], weights_only=False)
+    mesh = build_mesh(args["world"], backend=inputs["backend"],
+                      device=inputs["device"], init_method=args["init"],
+                      rank=args["rank"], timeout_s=TP_COLLECTIVE_S)
+    dev = mesh.device
+    if dev.type == "cuda":
+        _build.build()
+        if _build.last_build and _build.last_build.get("compiled"):
+            raise AssertionError(f"phase 25 rank {mesh.rank} ran nvcc")
+        _build.library()
+    counters = launch_counters()
+    out = {"rank": mesh.rank, "mesh": repr(mesh), "device": str(dev),
+           "coords": mesh.coords}
+    for which in ("dense", "mla"):
+        case = inputs[which]
+        t0 = time.perf_counter()
+        cfg = case["cfg"]
+        m, params = tp_models(dev, which, cfg)
+        if tp_checksum(params) != case["checksum"]:
+            raise AssertionError(f"phase 25 rank {mesh.rank}: the {which} "
+                                 "weights differ from the parent's")
+        shard = infer.shard_params(params, cfg, mesh)
+        del params
+        _card_sync(dev)
+        res = {"build_s": time.perf_counter() - t0,
+               "report": shard.report,
+               "shapes": infer.shard_shapes(shard.params)}
+        if which == "dense":
+            out["first_kernel_s"] = time.time() - inputs["spawned_at"]
+        if which == "mla":
+            forward = infer.make_sharded_mla(cfg, mesh, attn_len=cfg.max_seq)
+        else:
+            forward = (infer.make_sharded_prefill(cfg, mesh),
+                       infer.make_sharded_decode(cfg, mesh,
+                                                 attn_len=cfg.max_seq))
+
+        def cache():
+            return m.KVCache.create(shard.cfg, dtype=torch.bfloat16,
+                                    device=dev)
+        tap = (RouterTap(llm_mod) if which == "mla" and mesh.rank == 0
+               else None)
+        _zero(counters)
+        try:
+            _, logits = tp_pass(forward, shard.params, cache(),
+                                case["prompt"], len(case["ref_ids"]), dev,
+                                forced=case["ref_ids"])
+        finally:
+            if tap is not None:
+                res["router"] = tap.close()
+        _card_sync(dev)
+        res["launches_pass"] = _counts(counters)
+        tok = tokenizer_mod.ByteTokenizer(cfg.vocab_size)
+        _zero(counters)
+        res["serve"] = tp_serve(server_mod, m, shard.params, cfg, mesh, tok,
+                                case["burst"], case["serve_tokens"])
+        if which == "dense":
+            res["serve_int8"] = tp_serve(
+                server_mod, m, shard.params, cfg, mesh, tok, case["burst"],
+                case["serve_tokens"], chunk_steps=1, paged=True,
+                page_size=SERVE_PAGE, cache_dtype=torch.int8)
+        _card_sync(dev)
+        res["launches_serve"] = _counts(counters)
+        res["reference"] = tp_batched_reference(
+            m, shard.params, shard.cfg, case["burst"], case["serve_tokens"],
+            dev)
+        if which == "dense":
+            _, int8_logits = tp_int8_reference(
+                m, shard.params, shard.cfg, case["burst"],
+                case["serve_tokens"], dev, forced=case["int8_ids"])
+            res["profile"] = tp_profile(forward, shard.params, cache(),
+                                        case["prompt"], dev, mesh.rank)
+        if mesh.rank == 0:
+            res["logits"] = logits
+            if which == "dense":
+                res["int8_logits"] = int8_logits
+        out[which] = res
+        del shard
+        _card_sync(dev)
+    launch.save_result(args["out"], out)
+    mesh.barrier()
+    close_mesh(mesh)
+    return 0
+
+
+def tp_phase_main(dev, backends) -> int:
+    """``chip_smoke.py --tp-phase [gloo] [nccl]``: phase 25 alone (the
+    kernels built first), its kernel rows and its lines."""
+    from trackiellm_tpu_torch.ops import _build, attention, quant
+    t0 = time.perf_counter()
+    _build.build()
+    _build.library()
+    log(f"phase 25 alone: build {time.perf_counter() - t0:.1f} s | "
+        f"{nvidia_smi()}")
+    rows = {n: [] for n in KERNELS}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as work:
+        t1 = time.perf_counter()
+        out = phase_tp(dev, quant, attention, launch_counters(), rows, work,
+                       backends=backends)
+    print(json.dumps({"phase_seconds": {"25": time.perf_counter() - t1},
+                      "tp_launches": out["launches"],
+                      "tp_rows": {k: v for k, v in rows.items() if v}},
+                     default=str), flush=True)
+    return 0
+
+
+def tp_world(backend: str, inputs: dict, work: str, dev) -> list:
+    """The four ranks of one backend (TP_LIMIT_S, then killed): gloo's
+    all on ``dev``, NCCL's one a card."""
+    from trackiellm_tpu_torch.parallel import launch
+    device = str(dev) if backend == "gloo" else None
+    inputs = dict(inputs, backend=backend, device=device,
+                  spawned_at=time.time())
+    path = os.path.join(work, f"tp_{backend}.pt")
+    torch.save(inputs, path)
+    logs = os.path.join(work, f"tp_{backend}_logs")
+    os.makedirs(logs, exist_ok=True)
+    t0 = time.perf_counter()
+    ranks = launch.run_ranks(
+        [sys.executable, os.path.abspath(__file__), TP_FLAG, path],
+        TP_WORLD, timeout_s=TP_LIMIT_S, log_dir=logs)
+    log(f"  {backend}: {TP_WORLD} ranks done in "
+        f"{time.perf_counter() - t0:.1f} s; seconds from spawn to first "
+        f"forward {[round(r['first_kernel_s'], 1) for r in ranks]}")
+    return ranks
+
+
+def tp_parting(ref_logits, tp_logits, ref_ids) -> dict:
+    """The teacher-forced steps where TP's greedy choice is not the single
+    card's, each with the single card's margin (top-1 less top-2); the
+    noise is the largest logit change over the steps that did not part; a
+    parting is explained when its margin is at most twice that."""
+    parts, noise = [], 0.0
+    for j, want in enumerate(ref_ids):
+        moved = (tp_logits[j] - ref_logits[j]).abs().max().item()
+        got = int(torch.argmax(tp_logits[j]))
+        if got == want:
+            noise = max(noise, moved)
+            continue
+        top = torch.topk(ref_logits[j], 2).values
+        parts.append({"step": j, "single": want, "tp": got,
+                      "margin": (top[0] - top[1]).item(), "moved": moved})
+    for p in parts:
+        p["explained"] = p["margin"] <= 2 * noise
+    return {"parts": parts, "noise": noise,
+            "equal_prefix": parts[0]["step"] if parts else len(ref_ids)}
+
+
+def tp_checks(tag: str, ranks, ref_logits, ref_ids, tol: float) -> dict:
+    """Phase 25's checks of one model on one world: logits rel L2 at every
+    step within ``tol``, partings explained by the single card's margin,
+    the served ids on dense slots equal to the TP batched reference, the
+    followers' plans equal to rank 0's in every burst, and the shard
+    report (the int8 burst's ids: :func:`tp_int8_checks`)."""
+    lead = ranks[0]
+    tp_logits = lead["logits"]
+    rels = [rel_l2(tp_logits[j], ref_logits[j])
+            for j in range(len(ref_logits))]
+    log(f"  {tag}: TP logits against the single card, rel L2 prefill "
+        f"{rels[0]:.3e}, decode max {max(rels[1:]):.3e} (tol {tol:.0e})")
+    if not max(rels) < tol:
+        raise AssertionError(f"phase 25 {tag}: TP logits rel L2 {rels}")
+    parting = tp_parting(ref_logits, tp_logits, ref_ids)
+    for p in parting["parts"]:
+        log(f"  {tag}: greedy ids part at step {p['step']}: single "
+            f"{p['single']}, TP {p['tp']}, single-card margin "
+            f"{p['margin']:.3e}, noise {parting['noise']:.3e}"
+            + ("" if p["explained"] else " (NOT explained)"))
+    if not all(p["explained"] for p in parting["parts"]):
+        raise AssertionError(f"phase 25 {tag}: greedy ids part above twice "
+                             f"the noise: {parting}")
+    served = {}
+    for key in ("serve", "serve_int8"):
+        if key not in lead:
+            continue
+        runs = [r[key] for r in ranks]
+        for r in runs[1:]:
+            if r["plans"] != runs[0]["plans"]:
+                raise AssertionError(f"phase 25 {tag} {key}: a follower's "
+                                     "plans differ from rank 0's")
+        if key != "serve":
+            continue
+        got = runs[0]["ids"]
+        want = lead["reference"]
+        equal = [a == b for a, b in zip(got, want)]
+        served[key] = {"equal": sum(equal), "requests": len(got),
+                       "s": runs[0]["s"], "steps": runs[0]["steps"],
+                       "plans": len(runs[0]["plans"]),
+                       "first_divergence": [first_divergence(a, b)
+                                            for a, b in zip(got, want)]}
+        log(f"  {tag} {key}: served ids == TP greedy reference on "
+            f"{sum(equal)}/{len(got)} requests in {runs[0]['s']:.2f} s "
+            f"({runs[0]['steps']} decode steps)")
+        if not all(equal):
+            raise AssertionError(f"phase 25 {tag}: served ids part from "
+                                 f"the TP greedy reference: {served[key]}")
+    for r in ranks[1:]:
+        if r["reference"] != lead["reference"]:
+            raise AssertionError(f"phase 25 {tag}: ranks' greedy ids differ")
+    return {"rel_l2_prefill": rels[0], "rel_l2_decode_max": max(rels[1:]),
+            "parting": parting, "served": served,
+            "report": lead["report"],
+            "shapes": {str(i): r["shapes"] for i, r in enumerate(ranks)},
+            "build_s": [round(r["build_s"], 2) for r in ranks]}
+
+
+def tp_int8_checks(tag: str, lead, single_ids, single_logits,
+                   tol: float) -> dict:
+    """The int8-pool burst against the single card's int8 pool
+    (``tp_int8_reference`` on the whole model: another layout of the same
+    pages, every KV head and its scales in one pool). Rank 0's
+    teacher-forced TP pass on the single card's ids must stay within
+    ``tol`` rel L2 at every step, and where its greedy choice parts from
+    the single card's, the single card's margin must be at most twice the
+    noise (the largest logit change over the steps that did not part,
+    over every request). The served ids must be the TP forward's greedy
+    choices on the same context: at every step up to and including the
+    first where they leave the single card's ids (after it the contexts
+    differ)."""
+    tp_logits, served = lead["int8_logits"], lead["serve_int8"]["ids"]
+    rels, parts, noise, picked = [], [], 0.0, []
+    for i, want in enumerate(single_ids):
+        rels += [rel_l2(tp_logits[i][j], single_logits[i][j])
+                 for j in range(len(want))]
+        p = tp_parting(single_logits[i], tp_logits[i], want)
+        noise = max(noise, p["noise"])
+        parts += [dict(x, request=i) for x in p["parts"]]
+        d = first_divergence(served[i], want)
+        upto = len(want) if d is None else d + 1
+        tp_greedy = [int(torch.argmax(tp_logits[i][j])) for j in range(upto)]
+        picked.append(served[i][:upto] == tp_greedy)
+    for x in parts:
+        x["explained"] = x["margin"] <= 2 * noise
+        log(f"  {tag}: request {x['request']} greedy ids part at step "
+            f"{x['step']}: single {x['single']}, TP {x['tp']}, single-card "
+            f"margin {x['margin']:.3e}, noise {noise:.3e}"
+            + ("" if x["explained"] else " (NOT explained)"))
+    equal = sum(a == b for a, b in zip(served, single_ids))
+    out = {"rel_l2_max": max(rels), "parts": parts, "noise": noise,
+           "served_equal_single": equal, "requests": len(served),
+           "served_is_tp_greedy": picked,
+           "first_divergence": [first_divergence(a, b)
+                                for a, b in zip(served, single_ids)],
+           "s": lead["serve_int8"]["s"],
+           "steps": lead["serve_int8"]["steps"]}
+    log(f"  {tag}: TP int8-pool logits against the single card's, rel L2 "
+        f"max {max(rels):.3e} (tol {tol:.0e}); served ids == the single "
+        f"card's on {equal}/{len(served)} requests, each the TP forward's "
+        f"greedy pick up to its first parting: {picked}; "
+        f"{out['s']:.2f} s ({out['steps']} decode steps)")
+    if not max(rels) < tol:
+        raise AssertionError(f"phase 25 {tag}: TP int8 logits rel L2 {rels}")
+    if not all(x["explained"] for x in parts):
+        raise AssertionError(f"phase 25 {tag}: greedy ids part above twice "
+                             f"the noise: {out}")
+    if not all(picked):
+        raise AssertionError(f"phase 25 {tag}: served ids are not the TP "
+                             f"forward's greedy picks: {out}")
+    return out
+
+
+def tp_launches(ranks, which: str) -> dict:
+    """A model's launches over every rank: its pass and its bursts."""
+    total = {}
+    for r in ranks:
+        for key in ("launches_pass", "launches_serve"):
+            for k, v in r[which][key].items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_tp(dev, quant, attention, counters, rows, work: str,
+             backends=None) -> dict:
+    """Phase 25: the shard shapes' kernel cases, the single-card reference
+    (Mistral-7B cut to TP_LAYERS, the cortex prompt and TP_TOKENS greedy
+    ids; DeepSeek-V2-Lite cut to TP_MLA_LAYERS, TP_MLA_TOKENS), then four
+    ranks (gloo on this card; NCCL one a card where there are four) with
+    their checks (``tp_checks``) and MLA's router flips (TP's experts
+    against the single card's own top-k on a pass forced to TP's experts,
+    within twice the router noise). Returns the numbers and the launches
+    of every rank (W4A8, its quantization and flash must have launched,
+    no other kernel)."""
+    from trackiellm_tpu_torch.llm.tokenizer import ByteTokenizer
+    from trackiellm_tpu_torch.models import llm
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tp_kernel_cases(rows, quant, attention, gen, dev)
+    inputs, refs = {}, {}
+    for which, cfg in zip(("dense", "mla"), tp_configs()):
+        m, params = tp_models(dev, which, cfg)
+        tok = ByteTokenizer(cfg.vocab_size)
+        prompt = tp_cortex_ids(tok)
+        n = TP_TOKENS if which == "dense" else TP_MLA_TOKENS
+        forward = tp_single(m, cfg)
+        ids, logits = tp_pass(forward, params, m.KVCache.create(
+            cfg, dtype=torch.bfloat16, device=dev), prompt, n, dev)
+        burst = tp_prompts(tok)
+        inputs[which] = {"cfg": cfg, "checksum": tp_checksum(params),
+                         "prompt": prompt,
+                         "ref_ids": ids, "burst": burst,
+                         "serve_tokens": TP_SERVE_TOKENS}
+        refs[which] = (m, params, cfg, ids, logits)
+        log(f"  {which}: single-card greedy ids {ids}")
+        if which == "dense":
+            int8_ids, int8_logits = tp_int8_reference(
+                m, params, cfg, burst, TP_SERVE_TOKENS, dev)
+            inputs[which]["int8_ids"] = int8_ids
+            refs["int8"] = (int8_ids, int8_logits)
+            log(f"  dense: single-card int8-pool greedy ids {int8_ids}")
+    names = backends or (["gloo", "nccl"] if torch.cuda.device_count()
+                         >= TP_WORLD else ["gloo"])
+    out = {"worlds": {}, "launches": {k: 0 for k in counters}}
+    for backend in names:
+        ranks = tp_world(backend, inputs, work, dev)
+        world = {"mesh": [r["mesh"] for r in ranks],
+                 "first_kernel_s": [r["first_kernel_s"] for r in ranks],
+                 "profile": ranks[0]["dense"]["profile"]}
+        for which in ("dense", "mla"):
+            m, params, cfg, ids, logits = refs[which]
+            if which == "mla":
+                tp_sel, tp_ids = ranks[0]["mla"]["router"]
+                tap = RouterTap(llm, forced=tp_ids)
+                try:
+                    _, logits = tp_pass(
+                        tp_single(m, cfg), params, m.KVCache.create(
+                            cfg, dtype=torch.bfloat16, device=dev),
+                        inputs[which]["prompt"], len(ids), dev, forced=ids)
+                finally:
+                    single_sel, _ = tap.close()
+                flips, noise = router_flips(
+                    llm._top_k_first, tp_sel, tp_ids, single_sel,
+                    cfg.n_experts_used, len(inputs[which]["prompt"]))
+                check_router_flips(flips, noise, f"phase 25 {backend} mla")
+            res = tp_checks(f"{backend} {which}",
+                            [r[which] for r in ranks], logits, ids,
+                            TP_LOGIT_TOL)
+            if which == "dense":
+                res["served"]["serve_int8"] = tp_int8_checks(
+                    f"{backend} dense int8", ranks[0][which], *refs["int8"],
+                    TP_LOGIT_TOL)
+            if which == "mla":
+                res["router_flips"] = len(flips)
+                res["router_noise"] = noise
+            res["launches"] = tp_launches(ranks, which)
+            world[which] = res
+        for which in ("dense", "mla"):
+            for k, v in world[which]["launches"].items():
+                out["launches"][k] += v
+        out["worlds"][backend] = world
+        log(f"  {backend}: profile of a TP decode token on rank 0: "
+            f"{world['profile']}")
+    expect_routes(out["launches"], TP_ROUTES, TP_IDLE, "phase 25")
+    for backend, world in out["worlds"].items():
+        log(json.dumps({"tp": {backend: world}}, default=str))
+    return out
+
+
 def serve_config(llm):
     """Phases 5-7 and 12's configuration: Mistral-7B cut to max_seq 512."""
     return llm.LLMConfig.mistral_7b()._replace(max_seq=512,
@@ -8992,7 +9756,10 @@ KERNELS = {
                        "trackiellm_tpu/ops/quant.py:662",
                        ("w_gu M=1", "w_gu M=512",
                         "qwen3next expert w_down K=512 M=1",
-                        "qwen3next lm_head N=151936 M=1"), 5),
+                        "qwen3next lm_head N=151936 M=1",
+                        "tp4 wo K=1024 M=1", "tp4 w_down K=3584 M=1",
+                        "tp4 lm_head N=8000 M=1",
+                        "tp4 phi3 wo K=768+256 M=1"), 5),
     "quantize_activations": ("trackiellm_tpu_torch/csrc/q4_w4a8.cu",
                              "trackiellm_tpu/ops/quant.py:595",
                              ("M=1 K=4096", "M=512 K=4096"), 5),
@@ -9001,7 +9768,8 @@ KERNELS = {
                         ("causal S=512 bfloat16", "causal S=256 bfloat16",
                          "causal S=1024 D=256 bfloat16",
                          "causal S=512 D=96 bfloat16",
-                         "causal S=512 D=192 bfloat16"), 5),
+                         "causal S=512 D=192 bfloat16",
+                         "tp4 causal S=512 (8, 2) bfloat16"), 5),
     "q8_matmul": ("trackiellm_tpu_torch/csrc/q8_matmul.cu",
                   "trackiellm_tpu/ops/quant.py:184",
                   ("w_gu M=1", "w_gu M=512",
@@ -9061,6 +9829,8 @@ def kernels_line(rows, launches) -> str:
 
 def main() -> int:
     main_t0 = time.perf_counter()
+    if TP_FLAG in sys.argv:   # a rank of phase 25 (the CPU rehearses it)
+        return tp_rank_main(sys.argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -9073,6 +9843,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     for name in LEVERS:  # phases 3-6 and 8 run the default routes
         os.environ.pop(name, None)
+    if sys.argv[1:2] == [TP_PHASE_FLAG]:
+        return tp_phase_main(dev, sys.argv[2:] or None)
     if sys.argv[1:] == [SERVE_PROFILE_FLAG]:
         return serve_profile_main(dev)
     if sys.argv[1:] == [VOICE_PROFILE_FLAG]:
@@ -9284,12 +10056,20 @@ def main() -> int:
     first = phase_first_contact(dev, cli, counters, work.name,
                                 os.path.join(work.name, "mistral.gguf"))
     launches[24] = first["launches"]
+    banner(f"phase 25 tensor-parallel serving ({TP_WORLD} ranks on this "
+           f"card over gloo, and over NCCL one a card where there are "
+           f"{TP_WORLD}; Mistral-7B Q4 at its widths, {TP_LAYERS} of 32 "
+           f"layers, and DeepSeek-V2-Lite, {TP_MLA_LAYERS} of 27, cut by "
+           "shard_params: sharded prefill and decode against the single "
+           "card, LLMServer(mesh=) on dense slots and the int8 pool):")
+    tp = phase_tp(dev, quant, attention, counters, rows, work.name)
+    launches[25] = tp["launches"]
     end = time.perf_counter()
     work.cleanup()
     log(f"chip_smoke wall: {end - t0:.1f} s since the build began")
-    marks[25] = end
+    marks[26] = end
     seconds = {"1": t0 - main_t0}
-    seconds.update({str(n): marks[n + 1] - marks[n] for n in range(2, 25)
+    seconds.update({str(n): marks[n + 1] - marks[n] for n in range(2, 26)
                     if n in marks and n + 1 in marks})
     print(json.dumps({"phase_seconds": seconds, "wall_s": end - main_t0}),
           flush=True)

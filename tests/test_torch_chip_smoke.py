@@ -87,6 +87,28 @@ def test_kernels_line_lists_all_nine():
         with open(os.path.join(ROOT, path)) as f:
             assert f.read().splitlines()[int(line) - 1].startswith(definition)
         assert phase in (5, 6, 7, 9)
+    # Phase 25 holds W4A8 and flash at the tensor-parallel shard shapes.
+    assert {"tp4 wo K=1024 M=1", "tp4 w_down K=3584 M=1",
+            "tp4 lm_head N=8000 M=1", "tp4 phi3 wo K=768+256 M=1"} <= set(
+        kernels["q4_matmul_w4a8"][2])
+    name, k, _, group, ms = _load().TP_PADDED
+    assert name == "tp4 phi3 wo K=768+256" and 1 in ms
+    assert (k // 4) % group == 0 and (k // 4 // group) % 2   # whole, padded
+    assert "tp4 causal S=512 (8, 2) bfloat16" in kernels["flash_attention"][2]
+    cases = {f"{name} M={m}" for name, _, _, _, ms, _ in _load().TP_MATMULS
+             for m in ms}
+    assert cases >= {"tp4 wo K=1024 M=1", "tp4 w_down K=3584 M=1",
+                     "tp4 lm_head N=8000 M=1"}
+    rows = {name: [dict(case=case, err=0.0, ms=1.0, plain=2.0, bound=0.5,
+                        bound_by="bytes") for case in headlines]
+            for name, (_, _, headlines, _) in kernels.items()}
+    launches = {phase: {name: phase for name in kernels}
+                for phase in (5, 6, 7, 9, 25)}
+    line = {k["name"]: k for k in json.loads(
+        _load().kernels_line(rows, launches))["kernels"]}
+    for name in ("q4_matmul_w4a8", "quantize_activations",
+                 "flash_attention"):
+        assert line[name]["launches_by_phase"]["25"] == 25
 
 
 def test_matmul_kernels_carry_decode_and_prefill_cases():
@@ -640,6 +662,8 @@ def test_main_prints_the_voice_line_before_the_last_five(monkeypatch,
         "launches": {}})
     monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_tp", lambda *a, **k: {
+        "launches": {}, "n": 25})
     monkeypatch.setattr(cs, "phase_first_contact", lambda *a, **k: {
         "launches": {}})
     monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
@@ -709,6 +733,8 @@ def test_main_prints_the_vision_line_before_the_voice_line(monkeypatch,
         "launches": {}})
     monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_tp", lambda *a, **k: {
+        "launches": {}, "n": 25})
     monkeypatch.setattr(cs, "phase_first_contact", lambda *a, **k: {
         "launches": {}})
     monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
@@ -864,6 +890,8 @@ def test_main_prints_the_app_line_before_the_vision_line(monkeypatch,
         "launches": {}})
     monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_tp", lambda *a, **k: {
+        "launches": {}, "n": 25})
     monkeypatch.setattr(cs, "phase_first_contact", lambda *a, **k: {
         "launches": {}})
     monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
@@ -1155,6 +1183,8 @@ def test_main_prints_the_moe_line_before_the_families_line(monkeypatch,
         "launches": {}})
     monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_tp", lambda *a, **k: {
+        "launches": {}, "n": 25})
     monkeypatch.setattr(cs, "phase_first_contact", lambda *a, **k: {
         "launches": {}})
     monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
@@ -1216,6 +1246,8 @@ def test_main_prints_the_vlm_line_and_the_phase_seconds(monkeypatch,
         "launches": {}})
     monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_tp", lambda *a, **k: {
+        "launches": {}, "n": 25})
     monkeypatch.setattr(cs, "phase_first_contact", lambda *a, **k: {
         "launches": {}})
     monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
@@ -1225,7 +1257,7 @@ def test_main_prints_the_vlm_line_and_the_phase_seconds(monkeypatch,
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[-19].startswith("chip_smoke wall: ")
     timing = json.loads(lines[-18])
-    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 25)}
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 26)}
     assert timing["wall_s"] >= sum(timing["phase_seconds"].values()) * 0.999
     assert json.loads(lines[-11]) == {
         "vlm": {"launches": {"q4_matmul_f32a": 4}, "n": 18},
@@ -1631,6 +1663,8 @@ def test_main_prints_the_surfaces_line_before_the_vlm_line(monkeypatch,
         "launches": {}})
     monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_tp", lambda *a, **k: {
+        "launches": {}, "n": 25})
     monkeypatch.setattr(cs, "phase_first_contact", lambda *a, **k: {
         "launches": {}})
     monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
@@ -1639,7 +1673,7 @@ def test_main_prints_the_surfaces_line_before_the_vlm_line(monkeypatch,
     assert seen == [(float, True)]
     lines = capsys.readouterr().out.strip().splitlines()
     timing = json.loads(lines[-18])
-    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 25)}
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 26)}
     assert json.loads(lines[-12]) == {
         "surfaces": {"launches": {"q4_matmul_f32a": 19}, "n": 19},
         "card": "H100, 700.00 W"}
@@ -1749,6 +1783,8 @@ def test_main_prints_the_perception_line_before_the_surfaces_line(
         "launches": {}})
     monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_tp", lambda *a, **k: {
+        "launches": {}, "n": 25})
     monkeypatch.setattr(cs, "phase_first_contact", lambda *a, **k: {
         "launches": {}})
     monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
@@ -1758,7 +1794,7 @@ def test_main_prints_the_perception_line_before_the_surfaces_line(
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[-19].startswith("chip_smoke wall: ")
     timing = json.loads(lines[-18])
-    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 25)}
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 26)}
     assert json.loads(lines[-13]) == {
         "perception": {"launches": {"q4_matmul_w4a8": 20}, "n": 20},
         "card": "H100, 700.00 W"}
@@ -1800,6 +1836,8 @@ def test_main_exits_non_zero_when_phase20_fails(monkeypatch, capsys):
         "launches": {}})
     monkeypatch.setattr(cs, "phase_qwen3next", lambda *a, **k: {
         "launches": {}})
+    monkeypatch.setattr(cs, "phase_tp", lambda *a, **k: {
+        "launches": {}, "n": 25})
     monkeypatch.setattr(cs, "phase_first_contact", lambda *a, **k: {
         "launches": {}})
     monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
@@ -1919,6 +1957,8 @@ def test_phase20_fails_when_a_part_fails(monkeypatch, part):
 def test_perception_profile_child_fails_without_a_card(monkeypatch):
     cs = _load()
     monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    monkeypatch.setattr(cs, "phase_tp", lambda *a, **k: {
+        "launches": {}, "n": 25})
     monkeypatch.setattr(cs, "phase_first_contact", lambda *a, **k: {
         "launches": {}})
     monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
@@ -2002,6 +2042,8 @@ def test_main_prints_the_mla_mamba_line_before_the_perception_line(
         "launches": {}})
     monkeypatch.setattr(cs, "kernels_line", lambda rows, launches: json.dumps(
         {"phase21": launches[21]}))
+    monkeypatch.setattr(cs, "phase_tp", lambda *a, **k: {
+        "launches": {}, "n": 25})
     monkeypatch.setattr(cs, "phase_first_contact", lambda *a, **k: {
         "launches": {}})
     monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
@@ -2011,7 +2053,7 @@ def test_main_prints_the_mla_mamba_line_before_the_perception_line(
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[-19].startswith("chip_smoke wall: ")
     timing = json.loads(lines[-18])
-    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 25)}
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 26)}
     assert json.loads(lines[-14]) == {
         "mla_mamba": {"launches": {"flash_attention": 21}, "n": 21},
         "card": "H100, 700.00 W"}
@@ -2192,6 +2234,8 @@ def test_main_prints_the_qwen3next_line_before_the_mla_mamba_line(
         {"launches": {"q4_matmul_w4a8": 22}, "n": 22})[1])
     monkeypatch.setattr(cs, "kernels_line", lambda rows, launches: json.dumps(
         {"phase22": launches[22]}))
+    monkeypatch.setattr(cs, "phase_tp", lambda *a, **k: {
+        "launches": {}, "n": 25})
     monkeypatch.setattr(cs, "phase_first_contact", lambda *a, **k: {
         "launches": {}})
     monkeypatch.setattr(cs, "phase_training", lambda *a, **k: {
@@ -2201,7 +2245,7 @@ def test_main_prints_the_qwen3next_line_before_the_mla_mamba_line(
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[-19].startswith("chip_smoke wall: ")
     timing = json.loads(lines[-18])
-    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 25)}
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 26)}
     assert json.loads(lines[-15]) == {
         "qwen3next": {"launches": {"q4_matmul_w4a8": 22}, "n": 22},
         "card": "H100, 700.00 W"}
@@ -2341,6 +2385,8 @@ def test_main_prints_the_training_line_before_the_qwen3next_line(
             "launches": {}, "n": n})
     monkeypatch.setattr(cs, "phase_voice", lambda *a, **k: {"n": 13})
     monkeypatch.setattr(cs, "phase_vision", lambda *a, **k: {"n": 14})
+    monkeypatch.setattr(cs, "phase_tp", lambda *a, **k: {
+        "launches": {}, "n": 25})
     monkeypatch.setattr(cs, "phase_first_contact", lambda *a, **k: {
         "launches": {}})
     monkeypatch.setattr(cs, "phase_training", lambda dev, counters: {
@@ -2351,7 +2397,7 @@ def test_main_prints_the_training_line_before_the_qwen3next_line(
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[-19].startswith("chip_smoke wall: ")
     timing = json.loads(lines[-18])
-    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 25)}
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 26)}
     assert json.loads(lines[-16]) == {
         "training": {"launches": {"q4_matmul_w4a8": 23}, "n": 23},
         "card": "H100, 700.00 W"}
@@ -2395,6 +2441,8 @@ def test_main_prints_the_first_contact_line_before_the_training_line(
     def first(dev, cli, counters, workdir, gguf):
         work.append((workdir, gguf))
         return {"launches": {"q4_matmul_w4a8": 24}, "n": 24}
+    monkeypatch.setattr(cs, "phase_tp", lambda *a, **k: {
+        "launches": {}, "n": 25})
     monkeypatch.setattr(cs, "phase_first_contact", first)
     monkeypatch.setattr(cs, "kernels_line", lambda rows, launches: json.dumps(
         {"phase24": launches[24]}))
@@ -2403,7 +2451,7 @@ def test_main_prints_the_first_contact_line_before_the_training_line(
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[-19].startswith("chip_smoke wall: ")
     timing = json.loads(lines[-18])
-    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 25)}
+    assert set(timing["phase_seconds"]) == {str(n) for n in range(1, 26)}
     assert json.loads(lines[-17]) == {
         "first_contact": {"launches": {"q4_matmul_w4a8": 24}, "n": 24},
         "card": "H100, 700.00 W"}
@@ -2618,3 +2666,135 @@ def test_phase24_fails_when_the_parity_child_fails(monkeypatch, tmp_path):
                                cs.launch_counters(), str(work), gguf)
     parted = [m for m in logged if "parity ids part" in m]
     assert parted and "'step': 3" in parted[0] and "margin" in parted[0]
+
+
+def _phase25_on_the_cpu(monkeypatch, cs):
+    """Phase 25 at tiny widths on the CPU: a 1-layer dense model whose wo
+    stays whole (a K slice of 128 cuts a group of 256) and whose w_down is
+    padded (256 rows a rank, packed to 512), and a 2-layer MLA; the kernel
+    cases and the route checks (card-only) recorded."""
+    from trackiellm_tpu_torch.models import llm, mla
+    dense = llm.LLMConfig(vocab_size=512, dim=512, n_layers=1, n_heads=4,
+                          n_kv_heads=4, head_dim=128, hidden_dim=1024,
+                          max_seq=512, sliding_window=512)
+    deep = mla.MLAConfig.tiny()._replace(n_heads=4, vocab_size=512,
+                                         max_seq=512, n_layers=2)
+    monkeypatch.setattr(cs, "tp_configs", lambda: (dense, deep))
+    monkeypatch.setattr(cs, "tp_kernel_cases", lambda *a: None)
+    monkeypatch.setattr(cs, "TP_LIMIT_S", 120.0)   # the CPU tests' limit
+    checks = []
+    monkeypatch.setattr(cs, "expect_routes", lambda launches, ran, idle,
+                        phase: checks.append((phase, ran, idle)))
+    return checks
+
+
+def test_phase25_on_the_cpu(monkeypatch, capsys, tmp_path):
+    """Phase 25's control flow with four gloo ranks on the CPU: each rank
+    rebuilds the weights (checksum equal), cuts its shard and runs the
+    sharded pass and the bursts; the logits, the greedy ids, the served
+    ids against the batched reference, the followers' plans and the
+    report are checked; one ``{"tp": ...}`` line a world, the NCCL world
+    only with four cards."""
+    from trackiellm_tpu_torch.ops import attention, quant
+    cs = _load()
+    checks = _phase25_on_the_cpu(monkeypatch, cs)
+    out = cs.phase_tp(torch.device("cpu"), quant, attention,
+                      cs.launch_counters(), {}, str(tmp_path))
+    assert list(out["worlds"]) == ["gloo"]
+    world = out["worlds"]["gloo"]
+    assert [f"rank {r} at dp=0, fsdp=0, tp={r}" in m
+            for r, m in enumerate(world["mesh"])] == [True] * 4
+    assert all(s > 0 for s in world["first_kernel_s"])
+    for which in ("dense", "mla"):
+        res = world[which]
+        assert res["served"]["serve"]["equal"] == cs.TP_SLOTS
+        assert all(p["explained"] for p in res["parting"]["parts"])
+        assert res["rel_l2_prefill"] < cs.TP_LOGIT_TOL
+        assert sorted(res["shapes"]) == ["0", "1", "2", "3"]
+    assert world["dense"]["report"]["layers.wo"]["kind"] == "whole"
+    assert world["dense"]["report"]["layers.w_down"]["kind"] == "padded"
+    int8 = world["dense"]["served"]["serve_int8"]
+    assert int8["requests"] == cs.TP_SLOTS
+    assert all(int8["served_is_tp_greedy"]) and int8["rel_l2_max"] < \
+        cs.TP_LOGIT_TOL
+    assert all(p["explained"] for p in int8["parts"])
+    assert world["mla"]["router_flips"] == 0
+    per_token = world["profile"]["collectives_per_token"]
+    assert per_token == {"c10d::allreduce_": 2.0, "c10d::allgather_": 2.0}
+    assert checks == [("phase 25", cs.TP_ROUTES, cs.TP_IDLE)]
+    assert set(out["launches"]) == set(cs.launch_counters())
+    lines = [json.loads(line) for line in capsys.readouterr().out
+             .splitlines() if line.startswith('{"tp"')]
+    assert [list(line["tp"]) for line in lines] == [["gloo"]]
+
+
+def _int8_lead(n=5, vocab=16, requests=2):
+    """Synthetic single-card int8 references and rank 0's results: the
+    TP pass equal to the single card's, the served ids its greedy ids."""
+    gen = torch.Generator().manual_seed(0)
+    logits = [torch.randn((n, vocab), generator=gen) for _ in range(requests)]
+    ids = [[int(t) for t in lg.argmax(-1)] for lg in logits]
+    lead = {"int8_logits": [lg.clone() for lg in logits],
+            "serve_int8": {"ids": [list(i) for i in ids], "s": 0.1,
+                           "steps": n}}
+    return lead, ids, logits
+
+
+def test_tp_int8_checks_hold_served_ids_to_the_tp_forward():
+    """The int8 burst: served ids that leave the single card's where the
+    TP pass does not pick them fail; a TP pick that parts from the single
+    card's above twice the noise fails; a parting at a near-tie, with the
+    served ids following the TP pass, passes."""
+    cs = _load()
+    lead, ids, logits = _int8_lead()
+    assert cs.tp_int8_checks("t", lead, ids, logits, 1e-3)["parts"] == []
+    lead["serve_int8"]["ids"][1][2] = (ids[1][2] + 1) % 16
+    with pytest.raises(AssertionError, match="not the TP forward's"):
+        cs.tp_int8_checks("t", lead, ids, logits, 1e-3)
+    # A near-tie at request 0, step 3: TP picks the runner-up.
+    lead, ids, logits = _int8_lead()
+    step = logits[0][3]
+    top = torch.topk(step, 2)
+    step[top.indices[1]] = top.values[0] - 1e-4
+    ids[0][3] = int(top.indices[0])
+    lead["int8_logits"][0] = logits[0].clone()
+    lead["int8_logits"][0][3, top.indices[1]] += 2e-4
+    lead["int8_logits"][1][:, 0] += 1e-4   # the noise elsewhere
+    lead["serve_int8"]["ids"][0][3] = int(top.indices[1])
+    out = cs.tp_int8_checks("t", lead, ids, logits, 1e-3)
+    assert [(p["request"], p["step"]) for p in out["parts"]] == [(0, 3)]
+    assert out["first_divergence"] == [3, None]
+    # The same parting at a wide margin is not explained.
+    step[top.indices[1]] = top.values[0] - 1.0
+    lead["int8_logits"][0][3, top.indices[1]] += 1.0
+    with pytest.raises(AssertionError, match="part above twice the noise"):
+        cs.tp_int8_checks("t", lead, ids, logits, 1.0)
+
+
+def test_phase25_fails_when_a_rank_fails(monkeypatch, tmp_path):
+    """A rank that fails fails the phase: here every rank finds weights
+    that differ from the checksum the parent sent, and the first rank's
+    error is raised with its stderr."""
+    from trackiellm_tpu_torch.ops import attention, quant
+    from trackiellm_tpu_torch.parallel.launch import RankFailed
+    cs = _load()
+    _phase25_on_the_cpu(monkeypatch, cs)
+    monkeypatch.setattr(cs, "tp_checksum", lambda params: [["x", 0.0]])
+    with pytest.raises(RankFailed, match="weights differ"):
+        cs.phase_tp(torch.device("cpu"), quant, attention,
+                    cs.launch_counters(), {}, str(tmp_path))
+
+
+def test_phase25_kills_a_world_past_its_limit(monkeypatch, tmp_path):
+    """A world still running at TP_LIMIT_S is killed and fails the phase
+    (each rank's output kept in the phase's log directory)."""
+    from trackiellm_tpu_torch.ops import attention, quant
+    cs = _load()
+    _phase25_on_the_cpu(monkeypatch, cs)
+    monkeypatch.setattr(cs, "TP_LIMIT_S", 1.0)
+    with pytest.raises(TimeoutError, match="killed"):
+        cs.phase_tp(torch.device("cpu"), quant, attention,
+                    cs.launch_counters(), {}, str(tmp_path))
+    logs = tmp_path / "tp_gloo_logs"
+    assert sorted(p.name for p in logs.iterdir())[:2] == ["rank0.stderr",
+                                                          "rank0.stdout"]

@@ -311,7 +311,8 @@ def test_bos_past_the_vocabulary_is_clamped_by_jax_refused_by_the_port(
     96 rows (``_make_gguf``'s) the byte tokenizer's BOS, id 256, is past
     the embedding. The JAX runner's gather clamps it to row 95 and
     generates on a wrong embedding (its parity tests pass so); the port's
-    indexing refuses it on the CPU (ROADMAP Queue 3)."""
+    runner refuses the tokenizer before any device work, naming the id and
+    the vocabulary size."""
     sys.path.insert(0, REPO)
     import jax.numpy as jnp
 
@@ -332,10 +333,12 @@ def test_bos_past_the_vocabulary_is_clamped_by_jax_refused_by_the_port(
                   cache_dtype=jnp.float32)
     out.generate("ola")
     assert len(out._generated_ids) >= 1
+    from trackiellm_tpu_torch.utils.errors import ErrorCode, TrackieError
     params, cfg, _, model = parity_llm.load_model(path, 0, CPU)
-    with pytest.raises(IndexError):
+    with pytest.raises(TrackieError, match=f"id 256 .* {VOCAB} rows") as err:
         parity_llm.greedy(params, cfg, ByteTokenizer(cfg.vocab_size),
                           model, "ola", 2, CPU)
+    assert err.value.code == ErrorCode.INVALID_ARGUMENT
 
 
 def test_asr_self_parity_wer_is_0(tmp_path, capsys):

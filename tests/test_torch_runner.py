@@ -270,8 +270,9 @@ def test_port_imports_no_jax():
     TrOCR, AST, the CNN sound classifier and its engine, and their
     converters), the MLA, Mamba, Mamba-2 and Qwen3-Next models with the
     associative scan, LoRA, the single-device trainer (``parallel``: its
-    layer body, loss and train step, perplexity, packed data), the
-    first-contact harness with its nine parity twins and their common
+    layer body, loss and train step, perplexity, packed data; and
+    tensor-parallel serving: the mesh, the shard specs and cutter, the
+    rank launcher), the first-contact harness with its nine parity twins and their common
     module, the image and tensor op libraries, logging, CLI,
     probes, diagnostic, conversion, serving, app latency and wake-word
     training tools and chip_smoke.py pulls in no JAX module, no module of the JAX
@@ -293,6 +294,9 @@ def test_port_imports_no_jax():
             "trackiellm_tpu_torch.models.onnx_reader, "
             "trackiellm_tpu_torch.models.convert, "
             "trackiellm_tpu_torch.models.mla, "
+            "trackiellm_tpu_torch.parallel.mesh, "
+            "trackiellm_tpu_torch.parallel.infer, "
+            "trackiellm_tpu_torch.parallel.launch, "
             "trackiellm_tpu_torch.models.mamba, "
             "trackiellm_tpu_torch.models.mamba2, "
             "trackiellm_tpu_torch.models.qwen3next, "

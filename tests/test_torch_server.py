@@ -461,7 +461,8 @@ def test_decode_progresses_between_job_chunks():
 def test_memory_modes():
     """paged="auto" is dense when the slot caches fit the budget, paged
     under a tight one; int8 needs paged; another model module refuses the
-    page pool, and mesh= waits for its queue item."""
+    page pool and, under a mesh, any module but models.llm and
+    models.mla (tensor-parallel serving: tests/test_torch_parallel_server.py)."""
     dense = _server()
     try:
         assert dense.paged is False and dense.cache is not None
@@ -482,8 +483,10 @@ def test_memory_modes():
     # tests/test_torch_mla.py and test_torch_mamba.py).
     with pytest.raises(TrackieError, match="paged KV supports the default"):
         LLMServer(tp, CFG, model=object(), paged=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        LLMServer(tp, CFG, mesh=object())
+    from trackiellm_tpu_torch.parallel.mesh import build_mesh
+    with pytest.raises(TrackieError, match="mesh serving supports"):
+        LLMServer(tp, CFG, model=object(),
+                  mesh=build_mesh(1, backend="gloo", device="cpu"))
 
 
 def test_sampled_path_is_seeded_and_penalized():

@@ -170,7 +170,7 @@ def decode_step_batch_paged(params: Dict[str, Any],
     slot = torch.where(active, pos % page, 0)
     tv = tables[:, :attn_pages] if attn_pages else tables
     tables_rope = llm_model._rope_tables(params, cfg, pos, pos.max() + 1)
-    x = params["tok_emb"].index_select(0, tokens.long())
+    x = llm_model.embed_tokens(params, tokens)
     hk, hd = cfg.n_kv_heads, cfg.head_dim
     for li in range(cfg.n_layers):
         layer = llm_model._layer(params["layers"], li)

@@ -99,6 +99,24 @@ def _bucket_for(n: int, buckets: Sequence[int]) -> int:
     )
 
 
+def check_tokenizer(tokenizer: Tokenizer, cfg) -> None:
+    """Refuse a tokenizer that can emit an id the model has no embedding
+    row for (a byte tokenizer's BOS is id 256): the JAX package's gather
+    clamps such an id to the last row and runs on a wrong embedding; a CPU
+    index raises, a card index ends the process's CUDA context with a
+    device-side assert, and a vocab-parallel lookup (tensor parallelism)
+    would mask it on every rank into a row of zeros."""
+    n = getattr(tokenizer, "vocab_size", None)
+    if n is None or n <= cfg.vocab_size:
+        return
+    bos = getattr(tokenizer, "bos_id", None)
+    top = bos if bos is not None and bos >= cfg.vocab_size else n - 1
+    raise TrackieError(
+        ErrorCode.INVALID_ARGUMENT,
+        f"the tokenizer can emit id {top} (its vocabulary has {n} ids) but "
+        f"the model's vocabulary has {cfg.vocab_size} rows")
+
+
 class LLMRunner:
     """Stateful conversational session over a parameter dict on ``device``.
 
@@ -132,6 +150,7 @@ class LLMRunner:
                              f"runner device is {self.device}")
         self.tokenizer = tokenizer or ByteTokenizer(
             n_special_pad_to=cfg.vocab_size)
+        check_tokenizer(self.tokenizer, cfg)
         self.gen = gen_config or GenerationConfig()
         self._cache_dtype = cache_dtype
         self.cache = self._m.KVCache.create(cfg, dtype=cache_dtype,

@@ -19,12 +19,14 @@ repetition window) with a ``torch.Generator`` on the server's device;
 grammar-constrained requests pick under the port's ``llm/grammar.py``
 masks. The serve thread runs on the params' device and never moves work
 to another one. ``model=`` serves another module with the same surface
-(``models/mla.py``, ``models/mamba.py``) over dense slots.
+(``models/mla.py``, ``models/mamba.py``) over dense slots; ``mesh=``
+serves tensor-parallel, one server a rank, on the plans rank 0 broadcasts.
 """
 
 from __future__ import annotations
 
 import codecs
+import collections
 import contextlib
 import dataclasses
 import logging
@@ -42,7 +44,8 @@ from trackiellm_tpu_torch.llm import sampling
 from trackiellm_tpu_torch.llm.grammar import JsonGrammar, ToolCallGrammar
 from trackiellm_tpu_torch.llm.paging import PagedKVPool, to_device
 from trackiellm_tpu_torch.llm.runner import (EXTEND_BUCKETS,
-                                             PREFILL_BUCKETS, _bucket_for)
+                                             PREFILL_BUCKETS, _bucket_for,
+                                             check_tokenizer)
 from trackiellm_tpu_torch.llm.tokenizer import ByteTokenizer, Tokenizer
 from trackiellm_tpu_torch.models import llm as llm_model
 from trackiellm_tpu_torch.utils.errors import ErrorCode, TrackieError
@@ -83,6 +86,21 @@ class Request:
     top_k: int = 40
     top_p: float = 0.95
     min_p: float = 0.0
+    # The request's id in the serve loop's plans, its prompt ids, and
+    # whether a plan said it was cancelled (the loop reads this flag,
+    # never the future: under a mesh every rank reads the same one).
+    rid: int = -1
+    ids: Optional[List[int]] = None
+    dropped: bool = False
+
+
+# The Request fields a plan carries (to the other ranks under a mesh), and
+# how many of the plans that carried anything a server keeps (``plans``).
+PLAN_LOG = 1024
+_PLAN_FIELDS = ("rid", "prompt", "ids", "max_tokens", "temperature",
+                "repetition_penalty", "repeat_window", "tool_names",
+                "tool_schemas", "response_schema", "json_mode", "stop",
+                "top_k", "top_p", "min_p")
 
 
 @dataclasses.dataclass
@@ -161,20 +179,49 @@ class LLMServer:
         compressed latent cache, ``models.mamba`` the recurrent state.
         Another module serves over dense slots only (the page pool is
         written against the (S, Hk, D) layout), and without
-        ``prefill_batch`` each request of a wave prefills on its own."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: tensor-parallel serving is not ported yet (ROADMAP "
-                "Queue 1 item 12)")
+        ``prefill_batch`` each request of a wave prefills on its own.
+
+        ``mesh``: a ``parallel.mesh.Mesh`` serves tensor-parallel, one
+        server a rank. ``params`` is the full tree (each rank cuts its
+        shard, ``parallel/infer.py:shard_params``) or a rank's cut (it
+        holds ``vocab_shard``); ``cfg`` is the model's. Dense slots by
+        default; ``paged=True`` gives a pool of the rank's KV heads, int8
+        included; ``models.mla`` serves on dense latent slots. Rank 0 takes
+        :meth:`submit`; every serve iteration it broadcasts its plan (the
+        requests that arrived with their prompt ids and sampling knobs,
+        the ones cancelled, stop; with new requests every rank's knobs are
+        checked against rank 0's) before any device work, and every rank
+        runs the same loop on it, so every host decision (waves, slots,
+        chunks, preemption, prefix hits, sampled tokens) is the same on
+        every rank and they enter the same collectives. The other ranks
+        serve until rank 0's :meth:`close`; their :meth:`close` waits for
+        it."""
         self._m = model or llm_model
-        if self._m is llm_model:
-            llm_model.check_supported(cfg, params)
-        else:
+        self.mesh = mesh
+        self.shard_report: Dict[str, dict] = {}
+        if self._m is not llm_model:
             if paged is True:
                 raise TrackieError(
                     ErrorCode.INVALID_ARGUMENT,
                     "paged KV supports the default models.llm only")
+            if mesh is not None and type(cfg).__name__ != "MLAConfig":
+                raise TrackieError(
+                    ErrorCode.INVALID_ARGUMENT,
+                    "mesh serving supports models.llm and models.mla only")
             paged = False
+        check_tokenizer(tokenizer or ByteTokenizer(cfg.vocab_size), cfg)
+        if mesh is not None:
+            from trackiellm_tpu_torch.parallel import infer
+
+            if paged == "auto":
+                paged = False  # dense slots under a mesh, as the reference
+            if "vocab_shard" in params or mesh.tp == 1:
+                cfg = infer.local_config(cfg, mesh.tp)
+            else:
+                params, cfg, self.shard_report = infer.shard_params(
+                    params, cfg, mesh)
+        if self._m is llm_model:
+            llm_model.check_supported(cfg, params)
         self.params = params
         self.cfg = cfg
         self.batch = batch_slots
@@ -230,6 +277,15 @@ class LLMServer:
                 cfg, batch_slots, dtype=cache_dtype, device=dev)
         self._slots = [_Slot() for _ in range(batch_slots)]
         self._queue: "queue.Queue[Request]" = queue.Queue()
+        # The requests the plans delivered, in order (the serve loop's
+        # queue), rank 0's requests by id until they end, and the last
+        # plans this rank made or received that carried anything.
+        self._arrived: List[Request] = []
+        self._live: Dict[int, Request] = {}
+        self._next_rid = 0
+        self._stopping = False
+        self.plans: "collections.deque[dict]" = collections.deque(
+            maxlen=PLAN_LOG)
         self._backlog: List[Request] = []  # OOM-deferred, retried first
         # Requests popped from the queue but not yet bound to a slot (an
         # admission wave in flight): the death path fails these too.
@@ -237,6 +293,7 @@ class LLMServer:
         self._fatal: Optional[Exception] = None
         self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(seed)
+        self._seed, self._cache_dtype = seed, cache_dtype
         self.stats = {"completed": 0, "decode_steps": 0, "tokens": 0}
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._serve_loop,
@@ -259,6 +316,9 @@ class LLMServer:
 
         Fails fast once the serve thread has exited, by close() or by a
         fatal error."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            raise RuntimeError("a tensor-parallel server takes requests on "
+                               "rank 0 only")
         if self._fatal is not None:
             raise RuntimeError(
                 f"server serve loop died: {self._fatal}") from self._fatal
@@ -297,16 +357,70 @@ class LLMServer:
     def _next_request(self) -> Optional[Request]:
         """Pop the next waiting request and track it as in flight until
         :meth:`_settle` binds it to a slot (or it fails or is backlogged),
-        so the death path can fail it."""
+        so the death path can fail it. The waiting requests are those the
+        plans delivered (:meth:`_sync`)."""
         if self._backlog:
             req = self._backlog.pop(0)
+        elif self._arrived:
+            req = self._arrived.pop(0)
         else:
-            try:
-                req = self._queue.get_nowait()
-            except queue.Empty:
-                return None
+            return None
         self._inflight.append(req)
         return req
+
+    def _sync(self) -> bool:
+        """One plan: rank 0 (the only rank without a mesh) drains its
+        queue (prompt ids encoded here), collects the requests whose
+        futures were cancelled and its stop flag; under a mesh it
+        broadcasts them, and every rank's knobs are checked when requests
+        arrive (:meth:`_check_knobs`). Every rank then queues the new
+        requests and marks the cancelled ones (``Request.dropped``, the one
+        flag the loop reads). False once the plan says stop."""
+        plan = reqs = None
+        if self.mesh is None or self.mesh.rank == 0:
+            reqs = []
+            while True:
+                try:
+                    req = self._queue.get_nowait()
+                except queue.Empty:
+                    break
+                req.rid = self._next_rid
+                self._next_rid += 1
+                req.ids = self.tokenizer.encode(req.prompt, add_bos=True)
+                self._live[req.rid] = req
+                reqs.append(req)
+            cancel = [rid for rid, req in self._live.items()
+                      if req.future.cancelled()]
+            for rid in [rid for rid, req in self._live.items()
+                        if req.future.done()]:
+                del self._live[rid]
+            plan = {"new": [{f: getattr(r, f) for f in _PLAN_FIELDS}
+                            for r in reqs],
+                    "cancel": cancel, "stop": self._stop.is_set()}
+        if self.mesh is not None:
+            plan = self.mesh.broadcast_object(plan, src=0)
+        if reqs is None:
+            reqs = [Request(**n) for n in plan["new"]]
+        if plan["new"] or plan["cancel"] or plan["stop"]:
+            self.plans.append(plan)
+        self._arrived.extend(reqs)   # the death path fails them from here
+        if self.mesh is not None and reqs:
+            self._check_knobs()
+        if plan["cancel"]:
+            gone = set(plan["cancel"])
+            for req in self._tracked():
+                if req.rid in gone:
+                    req.dropped = True
+        return not plan["stop"]
+
+    def _tracked(self) -> List[Request]:
+        """Every request the serve loop holds: waiting, in flight, in a
+        slot or in the chunked-prefill job."""
+        out = list(self._arrived) + list(self._backlog) + list(self._inflight)
+        out += [s.request for s in self._slots if s.request is not None]
+        if self._prefill_job is not None:
+            out.append(self._prefill_job.req)
+        return out
 
     def _untrack(self, req: Optional[Request]) -> None:
         try:
@@ -342,12 +456,12 @@ class LLMServer:
             if slot.active or slot.reserved:
                 continue
             req = self._next_request()
-            while req is not None and req.future.cancelled():
+            while req is not None and req.dropped:
                 self._untrack(req)  # dropped before admission
                 req = self._next_request()
             if req is None:
                 break
-            ids = self.tokenizer.encode(req.prompt, add_bos=True)
+            ids = list(req.ids)
             if self.paged:
                 need = (len(ids) + self.pool.page_size - 1
                         ) // self.pool.page_size + 1
@@ -592,7 +706,7 @@ class LLMServer:
         iteration, between decode work); settle the slot when the plan is
         done."""
         job = self._prefill_job
-        if job.req.future.cancelled():
+        if job.req.dropped:
             self._abort_prefill_job(None)
             return
         take, bucket = job.plan[0]
@@ -731,7 +845,7 @@ class LLMServer:
         offset: pool lengths advance at dispatch."""
         if self.chunk_steps <= 1:
             return False
-        if ((not self._queue.empty() or self._backlog)
+        if ((self._arrived or self._backlog)
                 and any(not s.active and not s.reserved
                         for s in self._slots)):
             return False
@@ -769,8 +883,11 @@ class LLMServer:
             [s.next_token if s.active else None for s in self._slots])
         # Exactly one chunk is in flight at every check, so the offset
         # stays k. An in-flight chunked-prefill job leaves the loop, so
-        # the serve iteration comes back to advance it.
-        while self._prefill_job is None and self._can_chunk(offset=k):
+        # the serve iteration comes back to advance it. Each check first
+        # takes a plan (new requests end the pipelining; a stop is kept
+        # for the serve loop).
+        while (self._prefill_job is None and self._sync_in_chunk()
+               and self._can_chunk(offset=k)):
             in_flight = self._dispatch_chunk(produced.tokens[k - 1])
             survived = self._consume_chunk(self._fetched(produced))
             if not survived:
@@ -781,6 +898,13 @@ class LLMServer:
                 return
             produced = in_flight
         self._consume_chunk(self._fetched(produced))
+
+    def _sync_in_chunk(self) -> bool:
+        """A plan inside the chunk loop. A stop ends the loop, and the
+        serve loop after it."""
+        if not self._sync():
+            self._stopping = True
+        return not self._stopping
 
     def _dispatch_chunk(self, tokens) -> _Chunk:
         """Dispatch one k-step chunk and start the copy of its (k, B)
@@ -908,7 +1032,7 @@ class LLMServer:
             if not slot.active:
                 continue
             req = slot.request
-            if req.future.cancelled():
+            if req.dropped:
                 # The client gave up: free the slot now.
                 self._finish(slot)
                 survived = False
@@ -956,9 +1080,10 @@ class LLMServer:
                     self._fail(slot.request, exc)
                     slot.request = None
             # Admission-wave requests: popped, not yet bound to a slot.
-            for req in self._inflight:
+            for req in self._arrived + self._inflight:
                 self._fail(req, exc)
             self._inflight.clear()
+            self._arrived.clear()
             for req in self._backlog:
                 self._fail(req, exc)
             self._backlog.clear()
@@ -969,7 +1094,7 @@ class LLMServer:
                     break
 
     def _serve_loop_inner(self) -> None:
-        while not self._stop.is_set():
+        while not self._stopping and self._sync():
             self._admit()
             if self._prefill_job is not None:
                 # One prompt chunk an iteration, between decode work.
@@ -1010,7 +1135,7 @@ class LLMServer:
                 if not slot.active:
                     continue
                 req = slot.request
-                if req.future.cancelled():
+                if req.dropped:
                     self._finish(slot)
                     continue
                 slot.generated.append(slot.next_token)
@@ -1044,11 +1169,39 @@ class LLMServer:
                 else:
                     slot.next_token = nxt
 
-    def close(self) -> None:
-        self._stop.set()
+    def _check_knobs(self) -> None:
+        """What must be equal on every rank of a mesh for the host
+        decisions and the KV to be the same, gathered from every rank at
+        each plan that admits requests: where a rank was built otherwise
+        every rank fails here, rather than serve on other KV or wait in a
+        collective the others never enter."""
+        knobs = {"model": self._m.__name__, "batch": self.batch,
+                 "chunk_steps": self.chunk_steps, "paged": bool(self.paged),
+                 "prefix_cache": self.prefix_cache,
+                 "prefill_chunk": self.prefill_chunk,
+                 "pages": self.pool.n_pages if self.paged else 0,
+                 "cache_dtype": str(self._cache_dtype),
+                 "compute_dtype": (str(self.pool.compute_dtype)
+                                   if self.paged else None),
+                 "seed": self._seed, "tp": self.mesh.tp,
+                 "max_seq": self.cfg.max_seq}
+        ranks = self.mesh.all_gather_object(knobs)
+        other = [r for r, k in enumerate(ranks) if k != ranks[0]]
+        if other:
+            raise TrackieError(
+                ErrorCode.INVALID_ARGUMENT,
+                f"the servers of ranks {other} differ from rank 0's: "
+                f"{[ranks[r] for r in other]} against {ranks[0]}")
+
+    def close(self, timeout: float = 30.0) -> None:
+        """Stop serving. Under a mesh rank 0's close ends every rank's
+        loop (by its next plan); another rank's close waits for that, up
+        to ``timeout`` seconds."""
+        if self.mesh is None or self.mesh.rank == 0:
+            self._stop.set()
         # Returning while the thread is in device code risks a crash at
         # exit: wait for it.
-        self._thread.join(timeout=30.0)
+        self._thread.join(timeout=timeout)
         closed = RuntimeError("server closed")
         if self._thread.is_alive():
             # The serve thread still owns _inflight, _backlog and _slots:
@@ -1063,9 +1216,10 @@ class LLMServer:
                     break
             return
         self._abort_prefill_job(closed)
-        for req in self._inflight:
+        for req in self._arrived + self._inflight:
             self._fail(req, closed)
         self._inflight.clear()
+        self._arrived.clear()
         for req in self._backlog:
             self._fail(req, closed)
         self._backlog.clear()

@@ -537,16 +537,18 @@ def quantized_stack(lead: Tuple[int, ...], build) -> QuantizedLinear:
 
 
 def params_to(params: Any, device: torch.device) -> Any:
-    """A copy of a param tree on ``device`` (None leaves stay None; named
-    tuples, ``QuantizedLinear`` and ``models.lora.LoraLinear``, keep their
-    type)."""
+    """A copy of a param tree on ``device`` (None leaves and host values
+    stay; named tuples, ``QuantizedLinear`` and ``models.lora.LoraLinear``,
+    keep their type; a tensor-parallel wrapper keeps its mesh)."""
+    if isinstance(params, TPLinear):
+        return params._replace(w=params_to(params.w, device))
     if isinstance(params, dict):
         return {k: params_to(v, device) for k, v in params.items()}
     if hasattr(params, "_fields"):
         return type(params)._make(params_to(v, device) for v in params)
     if isinstance(params, (list, tuple)):
         return [params_to(v, device) for v in params]
-    return None if params is None else params.to(device)
+    return params.to(device) if isinstance(params, torch.Tensor) else params
 
 
 def _layer(layers: Dict[str, Any], li: int) -> Dict[str, Any]:
@@ -560,6 +562,8 @@ def _layer_leaf(w, li: int):
     ``QuantizedLinear``, or a ``models.lora.LoraLinear`` with its base,
     adapters and per-layer alpha), of each entry of a dict, or of a
     tensor."""
+    if isinstance(w, TPLinear):
+        return w._replace(w=_layer_leaf(w.w, li))
     if hasattr(w, "_fields"):
         return type(w)._make(_layer_leaf(f, li) for f in w)
     if isinstance(w, dict):
@@ -579,17 +583,65 @@ def _linear(x: torch.Tensor, w) -> torch.Tensor:
     reference's ``preferred_element_type=f32``): an f32 copy of the weight
     would cost its traffic on every call. The CPU widens both to f32. The
     LoRA branch adds ``(x @ a) @ b * (alpha / r)`` in f32 torch ops to the
-    base's output, as the reference computes it outside any kernel."""
+    base's output, as the reference computes it outside any kernel. A
+    :class:`TPLinear` carries its shard's collective."""
+    if isinstance(w, TPLinear):
+        return _tp_linear(x, w)
     if hasattr(w, "base") and hasattr(w, "a"):
         y = _linear(x, w.base)
         r = w.a.shape[-1]
         delta = torch.matmul(torch.matmul(x.float(), w.a.float()),
                              w.b.float())
         return (y.float() + delta * (w.alpha / r)).to(x.dtype)
+    return _linear_f32(x, w).to(x.dtype)
+
+
+def _linear_f32(x: torch.Tensor, w) -> torch.Tensor:
+    """The f32 product of x and a QuantizedLinear or dense (K, N) weight,
+    before :func:`_linear`'s cast."""
     if isinstance(w, QuantizedLinear):
-        return quantized_matmul(x, w).to(x.dtype)
+        return quantized_matmul(x, w)
     out = _mm_f32(x.reshape(-1, x.shape[-1]), w)
-    return out.reshape(*x.shape[:-1], w.shape[-1]).to(x.dtype)
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
+class TPLinear(NamedTuple):
+    """One rank's shard of a projection under tensor parallelism
+    (``parallel/infer.py:shard_params``), with the collective that makes
+    its output the whole product on every rank of ``comm`` (the mesh):
+
+    - ``"row"``: a K slice (row-parallel ``wo``, ``w_down``); the f32
+      partial sums are all-reduced before the cast to x's dtype, so each
+      rank's partial is never rounded on its own. ``pad`` zero columns are
+      appended to x to meet zero K rows (whole zero quantization groups
+      that make the packed shard's K fit the kernels).
+    - ``"whole"``: the full matrix, kept where a K slice would cut a
+      quantization group in two; x is all-gathered along K first.
+    - ``"vocab"``: an N slice of ``lm_head``; the outputs are all-gathered
+      along N (the logits of every row on every rank).
+
+    Column-parallel projections (``wqkv``, ``w_gu``) need no collective:
+    they stay plain leaves."""
+
+    w: Any
+    comm: Any
+    kind: str
+    pad: int = 0
+
+
+def _tp_linear(x: torch.Tensor, w: TPLinear) -> torch.Tensor:
+    if w.kind == "whole":
+        return _linear(w.comm.all_gather(x, dim=-1), w.w)
+    if w.kind == "vocab":
+        return w.comm.all_gather(_linear(x, w.w), dim=-1)
+    if w.pad:
+        x = F.pad(x, (0, w.pad))
+    return w.comm.all_reduce(_linear_f32(x, w.w)).to(x.dtype)
+
+
+def _tp_degree(w) -> int:
+    """The tp degree a row-parallel shard's mesh gives (1 elsewhere)."""
+    return w.comm.tp if isinstance(w, TPLinear) else 1
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -780,17 +832,21 @@ def _mlp_block(x: torch.Tensor, norm_scale, w_gu, w_down, eps: float,
 def _expert_slice(w, e: int):
     """Expert ``e`` of an (E, ...) bank (a tensor or a QuantizedLinear whose
     values and scales carry the expert axis): a view."""
+    if isinstance(w, TPLinear):
+        return w._replace(w=_expert_slice(w.w, e))
     if isinstance(w, QuantizedLinear):
         return QuantizedLinear(values=w.values[e], scales=w.scales[e])
     return w[e]
 
 
-def _moe_use_routed(n_tokens: int, w_gu) -> bool:
+def _moe_use_routed(n_tokens: int, w_gu, tp: int = 1) -> bool:
     """The reference's dispatch between the two MoE formulations:
     quantized banks always take dense-all-experts; bf16 banks take the
     sorted grouped products when ``TRACKIE_MOE_ROUTED`` is "1", never when
     it is "0", and by default when the dense-all-experts MLP would cost at
-    least 5e11 FLOPs (the reference's crossover, kept as its rule)."""
+    least 5e11 FLOPs (the reference's crossover, kept as its rule). A tp
+    shard's bank holds 1/``tp`` of the columns: the rule reads the whole
+    model's, so every rank and the single device choose alike."""
     if isinstance(w_gu, QuantizedLinear):
         return False
     mode = os.environ.get("TRACKIE_MOE_ROUTED", "auto")
@@ -799,7 +855,7 @@ def _moe_use_routed(n_tokens: int, w_gu) -> bool:
     if mode == "1":
         return True
     n_experts, d, n2 = w_gu.shape
-    return 2 * n_tokens * n_experts * d * n2 * 1.5 >= 5e11
+    return 2 * n_tokens * n_experts * d * n2 * tp * 1.5 >= 5e11
 
 
 def _grouped_dot(xs: torch.Tensor, bank: torch.Tensor,
@@ -844,9 +900,12 @@ def _moe_routed(h2: torch.Tensor, topv: torch.Tensor, topi: torch.Tensor,
     if biased:
         gu = gu + layer["w_gu_b"][sorted_e].float()
     gate, up = gu.chunk(2, dim=-1)
+    down = layer["w_down"]
     ys = _grouped_dot(
         _act_combine(gate, up, cfg.act, cfg.act_limit).to(h2.dtype),
-        layer["w_down"], sizes)
+        down.w if isinstance(down, TPLinear) else down, sizes)
+    if isinstance(down, TPLinear):   # a row-parallel shard: f32 partials
+        ys = down.comm.all_reduce(ys)
     if biased:
         ys = ys + layer["w_down_b"][sorted_e].float()
     if not cfg.moe_scale_input:
@@ -961,7 +1020,8 @@ def _moe_block(x: torch.Tensor, layer, cfg: LLMConfig) -> torch.Tensor:
     expert's input by its weight instead of its output."""
     h2 = _norm(x, layer["mlp_norm"], cfg.norm_eps, cfg.norm_type)
     topv, topi = _moe_router(h2, layer, cfg)
-    if _moe_use_routed(x.shape[0], layer["w_gu"]):
+    if _moe_use_routed(x.shape[0], layer["w_gu"],
+                       _tp_degree(layer["w_down"])):
         out = _moe_routed(h2, topv, topi, layer, cfg) + _moe_shared(
             h2, layer, cfg)
     else:
@@ -1337,13 +1397,40 @@ class KVCache(NamedTuple):
                    v=torch.zeros(shape, dtype=dtype, device=device), length=0)
 
 
+class VocabShard(NamedTuple):
+    """A tensor-parallel rank's rows of the embedding: ``params["tok_emb"]``
+    holds rows [start, start + its length) and ``comm`` (the mesh) sums the
+    ranks' lookups."""
+
+    start: int
+    comm: Any
+
+
 def embed_tokens(params: Dict[str, Any], tokens: torch.Tensor) -> torch.Tensor:
-    return params["tok_emb"][tokens.long()]
+    """The embedding rows of ``tokens`` (any shape). Under tensor
+    parallelism (``params["vocab_shard"]``) each rank looks up the ids it
+    holds, writes -0.0 for the others and the ranks' rows are summed in
+    f32: x + (-0.0) is x for every x, so the sum is the row, bit for bit.
+    Ids past the vocabulary are refused before any forward (the runner's
+    and the server's tokenizer check)."""
+    table = params["tok_emb"]
+    shard = params.get("vocab_shard")
+    if shard is None:
+        return table[tokens.long()]
+    ids = tokens.long() - shard.start
+    mine = (ids >= 0) & (ids < table.shape[0])
+    rows = table[ids.clamp(0, table.shape[0] - 1)].float()
+    rows = torch.where(mine[..., None], rows, rows.new_full((), -0.0))
+    return shard.comm.all_reduce(rows).to(table.dtype)
 
 
 def embed_token(params: Dict[str, Any], token) -> torch.Tensor:
     """One token's (1, D) row: an int, or a 0-d device tensor gathered on
     the device with no host sync."""
+    if "vocab_shard" in params:
+        if not isinstance(token, torch.Tensor):
+            token = torch.tensor(int(token), device=params["tok_emb"].device)
+        return embed_tokens(params, token.reshape(1))
     if isinstance(token, torch.Tensor):
         return params["tok_emb"].index_select(0, token.reshape(1).long())
     return params["tok_emb"][int(token)][None]
@@ -1661,7 +1748,7 @@ def prefill_batch(params: Dict[str, Any], cfg: LLMConfig,
     hq, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     positions = torch.arange(s_pad, device=device).repeat(b)
     tables = _rope_tables(params, cfg, positions, lengths.max())
-    x = params["tok_emb"][tokens.reshape(-1).long()]        # (B * S, D)
+    x = embed_tokens(params, tokens.reshape(-1))            # (B * S, D)
     shape = (b, cfg.n_layers, cfg.max_seq, hk, hd)
     k_full = torch.zeros(shape, dtype=cache_dtype, device=device)
     v_full = torch.zeros(shape, dtype=cache_dtype, device=device)
@@ -1729,7 +1816,7 @@ def decode_step_batch(params: Dict[str, Any], cfg: LLMConfig,
     # A dynamic_update_slice start is clamped to the last row.
     wpos = pos.clamp_max(cache.k.shape[2] - 1)
     tables = _rope_tables(params, cfg, pos, pos.max() + 1)
-    x = params["tok_emb"].index_select(0, tokens.long())
+    x = embed_tokens(params, tokens)
     for li in range(cfg.n_layers):
         layer = _layer(params["layers"], li)
         h, q, k, v = _qkv(x, layer, cfg, li, tables, pos)

@@ -44,7 +44,7 @@ from trackiellm_tpu_torch.models.llm import (_layer, _linear, _mlp_block,
                                              _moe_block, _quantize_stack,
                                              _rms_norm, _rope_freqs_on,
                                              _write_rows, embed_token,
-                                             quantized_stack)
+                                             embed_tokens, quantized_stack)
 from trackiellm_tpu_torch.ops.attention import prefill_attention
 from trackiellm_tpu_torch.ops.backend import default_device, is_cuda
 from trackiellm_tpu_torch.ops.quant import quantize_q4, quantize_q8
@@ -449,7 +449,7 @@ def prefill(params: Dict[str, Any], cfg: MLAConfig, tokens: torch.Tensor,
     device = tokens.device
     freqs = _freqs(params, cfg, device)
     positions = torch.arange(s_pad, device=device)
-    x = params["tok_emb"][tokens.long()]                      # (S, D)
+    x = embed_tokens(params, tokens)                      # (S, D)
     hh, nope, vd = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
     for li in range(cfg.n_layers):
         layer, dense = _layer_params(params, cfg, li)
@@ -527,7 +527,7 @@ def extend(params: Dict[str, Any], cfg: MLAConfig, tokens: torch.Tensor,
     device = tokens.device
     freqs = _freqs(params, cfg, device)
     positions = offset + torch.arange(b, device=device)
-    x = params["tok_emb"][tokens.long()]                      # (B, D)
+    x = embed_tokens(params, tokens)                      # (B, D)
     nope = cfg.qk_nope_head_dim
     s_len = attn_len or s_max
     mask = (torch.arange(s_len, device=device)[None, :]
@@ -625,7 +625,7 @@ def decode_step_batch(params: Dict[str, Any], cfg: MLAConfig,
     rows = torch.arange(b, device=device)
     wpos = pos.clamp_max(cache.ckv.shape[2] - 1)
     freqs = _freqs(params, cfg, device)
-    x = params["tok_emb"].index_select(0, tokens.long())      # (B, D)
+    x = embed_tokens(params, tokens)                      # (B, D)
     nope = cfg.qk_nope_head_dim
     s_len = attn_len or cache.ckv.shape[2]
     mask = (torch.arange(s_len, device=device)[None, :]
